@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA H100, end to end.
 
     python3 chip_smoke.py                  # every phase (needs one card)
-    python3 chip_smoke.py --phases build,flash,paged
+    python3 chip_smoke.py --phases build,flash,paged,ragged
 
 Phases:
   1. ``card``   the card's name and power limit (nvidia-smi);
@@ -11,24 +11,37 @@ Phases:
                 Llama-3-8B prefill shapes, and time kernel, plain version,
                 bound and the SDPA yardstick;
   4. ``paged``  the same for B2 (paged decode attention) at decode shapes;
-  5. ``engine`` the engine at Llama-3-8B widths with seeded random weights:
+  5. ``ragged`` the same for B3 (ragged paged attention) over bf16 and
+                int8 pools at decode and chunked-prefill continuation
+                shapes; B2 given int8 scales must return B3's result;
+  6. ``engine`` the engine at Llama-3-8B widths with seeded random weights,
+                one prompt chunked through the static-start continuation:
                 greedy tokens against the argmax of the full-sequence
                 scoring forward over prompt + generated tokens;
-  6. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs)
-                and answer 8 concurrent ``POST /generate``; the launch
-                counters are zeroed just before and must have risen.
+  7. ``engine_ragged`` the same model under ``SHAI_RAGGED_ATTENTION=1``
+                (bf16), ``SHAI_RAGGED_ATTENTION=1 SHAI_KV_QUANT=int8`` and
+                ``SHAI_KV_QUANT=int8`` alone;
+  8. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs)
+                and answer 8 concurrent ``POST /generate``;
+  9. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
+                SHAI_KV_QUANT=int8`` and an engine ConfigMap of
+                ``max_model_len`` 4096: two of the 8 prompts chunk.
 
+Each engine and serve phase zeroes the launch counters just before its
+run and requires exactly its own kernels to have risen just after.
 Any failed phase makes the script exit non-zero without the result lines.
 A full run prints the card's name and power limit, then, second to last,
 ``{"kernels": [...]}`` (per kernel: route, source, the TPU kernel it
-replaces, launches in the serving phase, max error, kernel/plain/bound/
-library times) and, last, ``{"ok": true, "device": {...}}``. It exits non-zero at once when CUDA is
-unavailable or the port's package is not beside it.
+replaces, launches in the serve phase that runs it, max error,
+kernel/plain/bound/library times) and, last, ``{"ok": true, "device":
+{...}}``. It exits non-zero at once when CUDA is unavailable or the port's
+package is not beside it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -41,7 +54,8 @@ import traceback
 import urllib.error
 import urllib.request
 
-PHASES = ("card", "build", "flash", "paged", "engine", "serve")
+PHASES = ("card", "build", "flash", "paged", "ragged", "engine",
+          "engine_ragged", "serve", "serve_ragged")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core FLOP/s
@@ -70,10 +84,37 @@ DROPPED_KEYS = 8
 # causal attention), so a token may differ only where the scoring
 # forward's logit for it is within this much of its maximum
 TIE_TOL = 0.1
+# That bound holds for the bucketed engine, whose attention rounds as the
+# scoring forward's does (B1 in both). B3 attends in fp32 throughout. Each
+# run therefore also scores its tokens through B1's fp32 plain version: the
+# largest logit change between the two scoring forwards, eps, is what a
+# rounding-level change of the attention arithmetic does to this model.
+# If the engine's logits are within eps of the scoring forward's, its
+# argmax is within 2 * eps of the scoring maximum, which the ragged bf16
+# run must hold.
+NOISE_TIES = 2.0
+# An int8 KV pool changes the numbers, not only their rounding, and this
+# random-weight model's logits are flat (top-2 gaps of a few tenths among
+# 128,256 tokens), so int8 flips many near-ties. An int8 run must stay
+# within 2 * eps, and make as many of its tokens the scoring argmax as the
+# same engine run through the kernels' plain versions (the reference
+# semantics on the same card), less this share of the tokens: the two runs
+# decode freely and part after their first flip.
+INT8_SLACK = 0.1
 
 ENGINE_LAYERS = 32
 ENGINE_NEW_TOKENS = 16
+# the engine phases' prompts: 1300 tokens chunk 512 + 512 + 276 under the
+# (128, 512) buckets; the engine phase also keeps slice 1's 120
+ENGINE_PROMPTS = (5, 37, 300, 1300)
 SERVE_REQUESTS = 8
+# serve_ragged's engine ConfigMap: the 8B counterpart of
+# deploy/disagg/vllm-split-deploy.yaml's engine shapes, two buckets so
+# that prompts past 512 tokens chunk
+SERVE_RAGGED_CONFIG = {"max_model_len": 4096, "block_size": 16,
+                       "max_num_seqs": 8,
+                       "context_encoding_buckets": [128, 512],
+                       "max_new_tokens": 16}
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TPU_PKG = "scalable_hw_agnostic_inference_tpu"
@@ -81,6 +122,21 @@ TPU_PKG = "scalable_hw_agnostic_inference_tpu"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def _env(values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 # -- timing ------------------------------------------------------------------
@@ -389,29 +445,278 @@ def phase_paged(ctx):
     ctx["paged"] = dict(rows[1], max_abs_err=worst)
 
 
+def _ragged_inputs(torch, gen, rows, H, Hkv, D, bs, N, M, lengths, quant,
+                   shared_table):
+    """A shuffled pool of ``N`` blocks (int8 through the port's
+    ``quantize_kv_blocks`` when ``quant``), one table per row or one
+    table every row shares (the continuation layout)."""
+    from scalable_hw_agnostic_inference_tpu_torch.ops.quant import (
+        quantize_kv_blocks,
+    )
+
+    q = torch.randn(rows, H, D, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kp = torch.randn(N, bs, Hkv, D, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    vp = torch.randn(N, bs, Hkv, D, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    perm = torch.randperm(N, generator=gen, device="cuda")
+    tables = (perm[:M].repeat(rows, 1) if shared_table
+              else perm[: rows * M].reshape(rows, M))
+    tables = tables.to(torch.int32).contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    ks = vs = None
+    if quant:
+        kp, ks = quantize_kv_blocks(kp)
+        vp, vs = quantize_kv_blocks(vp)
+    return q, kp, vp, ks, vs, tables, lens
+
+
+def _ragged_work(tables, lengths, H, Hkv, D, bs, quant):
+    """Bytes each input read once / output written once and FLOPs over the
+    live keys, for B3 on these tables and lengths: q in and out, the
+    lengths, each row's live table entries, the live tokens of each
+    distinct live K/V block once (int8 at 1 byte, bf16 at 2) and, for
+    int8, each such block's two f32 scales; 4·D·H FLOPs per live key."""
+    tab, lens = tables.tolist(), lengths.tolist()
+    rows, M = len(lens), len(tab[0])
+    n_bytes = 2 * (2 * rows * H * D) + 4 * rows
+    live_tok = {}
+    toks = 0
+    for r in range(rows):
+        n = min(max(lens[r], 0), M * bs)
+        toks += n
+        nb = -(-n // bs)
+        n_bytes += 4 * nb
+        for j in range(nb):
+            blk = tab[r][j]
+            live_tok[blk] = max(live_tok.get(blk, 0), min(bs, n - j * bs))
+    n_bytes += 2 * sum(live_tok.values()) * Hkv * D * (1 if quant else 2)
+    if quant:
+        n_bytes += 2 * 4 * Hkv * len(live_tok)
+    return n_bytes, 4 * D * H * toks
+
+
+def phase_ragged(ctx):
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
+        paged_attention as pa,
+        ragged_paged_attention as rpa,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    timer = ctx["timer"]
+    H, Hkv, D, bs, N, M = 32, 8, 128, 16, 1024, 128
+    start = 1024
+    # (label, rows, lengths, one shared table): Llama-3-8B heads over the
+    # full window M = 128 of a shuffled pool; decode lengths 1 to 2048,
+    # and the continuation layout of a 512-token chunk at start 1024
+    cases = [
+        ("decode B=8", 8, [1, 17, 255, 512, 1000, 1500, 2047, 2048], False),
+        ("decode B=1", 1, [2048], False),
+        (f"continuation 512 rows, start {start}", 512,
+         [start + t + 1 for t in range(512)], True),
+    ]
+    # (D, H, Hkv, M, lengths): other head dims and groups, a length-0 row
+    small = [(64, 4, 1, 32, [1, 40, 0, 511]),
+             (192, 8, 2, 8, [70, 0]),
+             (256, 16, 2, 8, [0, 128])]
+    worst = 0.0
+    rows = {}
+    for quant in (False, True):
+        kind = "int8" if quant else "bf16"
+        for label, R, lengths, shared in cases:
+            q, kp, vp, ks, vs, tables, lens = _ragged_inputs(
+                torch, gen, R, H, Hkv, D, bs, N, M, lengths, quant, shared)
+            args = (q, kp, vp, tables, lens, ks, vs)
+            out = rpa.ragged_paged_attention(*args)
+            qf = q.float()
+            ref = rpa.ragged_paged_attention_reference(qf, kp, vp, tables,
+                                                       lens, ks, vs)
+            dropped = rpa.ragged_paged_attention_reference(
+                qf, kp, vp, tables, _cut(lens), ks, vs)
+            torch.cuda.synchronize()
+            shape = (f"{label} {kind}: H={H} Hkv={Hkv} D={D} bs={bs} N={N} "
+                     f"M={M} lengths "
+                     + (f"{lengths[0]}..{lengths[-1]}" if R > 8
+                        else str(lengths)))
+            err, share, d_share = _check_close(
+                f"ragged_paged_attention {shape}", out, ref, dropped)
+            del qf, ref, dropped
+            worst = max(worst, err)
+            ms = timer(lambda: rpa.ragged_paged_attention(*args))
+            plain = timer(lambda: rpa.ragged_paged_attention_reference(
+                *args), reps=5)
+            n_bytes, flops = _ragged_work(tables.cpu(), lens.cpu(), H, Hkv,
+                                          D, bs, quant)
+            bms, by = bound_ms(n_bytes, flops)
+            line = {"shape": shape, "max_abs_err": err, "tol_share": share,
+                    "dropped_keys_tol_share": d_share, "ms": ms,
+                    "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                    "library_ms": None}
+            if label == "decode B=8" and not quant:
+                # B2 on the same inputs, in the same call: the shared core
+                line["b2_ms"] = timer(lambda: pa.paged_decode_attention(
+                    q, kp, vp, tables, lens))
+            if label == "decode B=8" and quant:
+                _check_b2_delegates(torch, pa, rpa, q, kp, vp, ks, vs,
+                                    tables, lens, bs)
+            rows[(label, kind)] = line
+            log("ragged_paged_attention: " + json.dumps(line))
+        for D_, H_, Hkv_, M_, lengths in small:
+            R = len(lengths)
+            q, kp, vp, ks, vs, tables, lens = _ragged_inputs(
+                torch, gen, R, H_, Hkv_, D_, bs, R * M_, M_, lengths, quant,
+                False)
+            out = rpa.ragged_paged_attention(q, kp, vp, tables, lens, ks, vs)
+            qf = q.float()
+            ref = rpa.ragged_paged_attention_reference(qf, kp, vp, tables,
+                                                       lens, ks, vs)
+            dropped = rpa.ragged_paged_attention_reference(
+                qf, kp, vp, tables, _cut(lens), ks, vs)
+            err, share, d_share = _check_close(
+                f"ragged_paged_attention D={D_} {kind}", out, ref, dropped)
+            worst = max(worst, err)
+            if bool(out[lengths.index(0)].any()):
+                raise AssertionError("ragged_paged_attention: a length-0 row "
+                                     "is not 0")
+            log(f"ragged_paged_attention: D={D_} G={H_ // Hkv_} {kind} "
+                f"lengths={lengths} max |err| {err:.3e}, {share:.3f} of the "
+                f"tolerance (dropped keys: {d_share:.2f})")
+    # the summary row: the int8 batch-8 decode step, the serving path's
+    # most frequent launch
+    ctx["ragged"] = dict(rows[("decode B=8", "int8")], max_abs_err=worst)
+
+
+def _check_b2_delegates(torch, pa, rpa, q, kp, vp, ks, vs, tables, lens,
+                        bs):
+    """B2 given int8 scales returns B3 on the caller's truncated tables,
+    as the TPU kernel's int8 branch does: the same output as B3 called
+    directly, with B3's counter rising and B2's not."""
+    cut_t = tables[:, :64].contiguous()
+    cut_l = lens.clamp_max(64 * bs)
+    pa.paged_decode_attention.launches = 0
+    rpa.ragged_paged_attention.launches = 0
+    via_b2 = pa.paged_decode_attention(q, kp, vp, cut_t, cut_l, ks, vs)
+    direct = rpa.ragged_paged_attention(q, kp, vp, cut_t, cut_l, ks, vs)
+    torch.cuda.synchronize()
+    counts = (pa.paged_decode_attention.launches,
+              rpa.ragged_paged_attention.launches)
+    if not torch.equal(via_b2, direct) or counts != (0, 2):
+        raise AssertionError(f"paged_decode_attention with scales is not B3 "
+                             f"(equal {torch.equal(via_b2, direct)}, "
+                             f"launches B2/B3 {counts})")
+    log("ragged_paged_attention: B2 with int8 scales returned B3's output "
+        "exactly; launches B2 0, B3 2")
+
+
+KERNELS = ("flash_attention", "paged_decode_attention",
+           "ragged_paged_attention")
+
+
 def _counters():
     from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
         flash_attention as fa,
         paged_attention as pa,
+        ragged_paged_attention as rpa,
     )
 
-    return fa.flash_attention, pa.paged_decode_attention
+    return {"flash_attention": fa.flash_attention,
+            "paged_decode_attention": pa.paged_decode_attention,
+            "ragged_paged_attention": rpa.ragged_paged_attention}
 
 
 def _reset_counters():
-    for fn in _counters():
+    for fn in _counters().values():
         fn.launches = 0
 
 
 def _read_counters():
-    fa, pa = _counters()
-    return {"flash_attention": fa.launches,
-            "paged_decode_attention": pa.launches}
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
-def phase_engine(ctx):
-    import dataclasses
+def _check_counters(what: str, counts, expect) -> None:
+    """Exactly the kernels in ``expect`` were launched in the run."""
+    wrong = [k for k in KERNELS if bool(counts[k]) != (k in expect)]
+    if wrong:
+        raise AssertionError(f"{what}: launches {counts}; expected exactly "
+                             f"{sorted(expect)} to rise")
 
+
+def _engine_model(ctx):
+    """The engine phases' model, built once: Llama-3-8B widths,
+    ``ENGINE_LAYERS`` layers, seeded N(0, 0.02) bf16 weights."""
+    if "engine_model" not in ctx:
+        import dataclasses
+
+        from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+            LlamaConfig,
+            LlamaForCausalLM,
+            random_params,
+        )
+
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                                  n_layers=ENGINE_LAYERS)
+        t0 = time.monotonic()
+        ctx["engine_model"] = cfg, LlamaForCausalLM.from_state_dict(
+            cfg, random_params(cfg, seed=0, std=0.02, device="cuda"))
+        log(f"engine model: Llama-3-8B widths, {cfg.n_layers} of 32 layers, "
+            f"seeded N(0, 0.02) weights, built in "
+            f"{time.monotonic() - t0:.1f} s")
+    return ctx["engine_model"]
+
+
+def _drop_engine_model(ctx) -> None:
+    import torch
+
+    ctx.pop("engine_model", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """Swap every attention kernel the engine and the scoring forward call
+    for its plain PyTorch version (fp32 softmax), then restore them."""
+    from scalable_hw_agnostic_inference_tpu_torch.engine import runner
+    from scalable_hw_agnostic_inference_tpu_torch.ops import attention
+    from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
+        flash_attention as fa,
+        paged_attention as pa,
+        ragged_paged_attention as rpa,
+    )
+
+    def flash(q, k, v, *, causal=False, scale=None, lengths=None):
+        return fa.flash_attention_reference(q, k, v, causal=causal,
+                                            scale=scale, lengths=lengths)
+
+    def paged(q, kp, vp, tables, lengths, k_scale=None, v_scale=None, *,
+              scale=None):
+        if k_scale is not None:
+            return rpa.ragged_paged_attention_reference(
+                q, kp, vp, tables, lengths, k_scale, v_scale, scale=scale)
+        return pa.paged_decode_attention_reference(q, kp, vp, tables,
+                                                   lengths, scale=scale)
+
+    ragged = rpa.ragged_paged_attention_reference
+    swaps = [(attention, "flash_attention", flash),
+             (attention, "_ragged_kernel", ragged),
+             (runner, "ragged_kernel", ragged),
+             (runner, "paged_decode_attention", paged)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _generate(ctx, prompts, switches):
+    """One engine run of greedy requests under the engine switches;
+    returns the finished requests, the launch counts, the seconds, the
+    continuation keys it compiled and its leaked blocks."""
     import torch
     from scalable_hw_agnostic_inference_tpu_torch.engine.config import (
         EngineConfig,
@@ -420,64 +725,131 @@ def phase_engine(ctx):
         LLMEngine,
         SamplingParams,
     )
-    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
-        LlamaConfig,
-        LlamaForCausalLM,
-        random_params,
-    )
 
-    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
-                              n_layers=ENGINE_LAYERS)
-    log(f"engine: Llama-3-8B widths, {cfg.n_layers} of 32 layers, seeded "
-        f"N(0, 0.02) weights")
-    t0 = time.monotonic()
-    model = LlamaForCausalLM.from_state_dict(
-        cfg, random_params(cfg, seed=0, std=0.02, device="cuda"))
-    ecfg = EngineConfig(max_model_len=1024, max_num_seqs=4, block_size=16,
+    cfg, model = _engine_model(ctx)
+    ecfg = EngineConfig(max_model_len=2048, max_num_seqs=4, block_size=16,
                         context_encoding_buckets=(128, 512),
                         max_new_tokens=ENGINE_NEW_TOKENS)
-    eng = LLMEngine(cfg, model, ecfg, device="cuda")
-    gen = torch.Generator().manual_seed(3)
-    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
-               for n in (5, 37, 120, 300)]
-    _reset_counters()
-    t1 = time.monotonic()
-    fins = eng.generate(prompts, SamplingParams(
-        temperature=0.0, max_new_tokens=ENGINE_NEW_TOKENS))
-    torch.cuda.synchronize()
-    t_gen = time.monotonic() - t1
-    counts = _read_counters()
-    worst_deficit, exact, total = 0.0, 0, 0
+    env = {"SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "", **switches}
+    with _env(env):
+        eng = LLMEngine(cfg, model, ecfg, device="cuda")
+        _reset_counters()
+        t0 = time.monotonic()
+        fins = eng.generate(prompts, SamplingParams(
+            temperature=0.0, max_new_tokens=ENGINE_NEW_TOKENS))
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        counts = _read_counters()
+    for f in fins:
+        if len(f.token_ids) != ENGINE_NEW_TOKENS:
+            raise AssertionError(f"{len(f.token_ids)} tokens, want "
+                                 f"{ENGINE_NEW_TOKENS}")
+    conts = sorted(k for k in eng._prefill if k[0] in ("cont", "rcont"))
+    return fins, counts, seconds, conts, eng.cache.leaked_blocks
+
+
+def _score(model, prompts, fins):
+    """Score each run's tokens with the full-sequence scoring forward:
+    ``(argmax hits, tokens, worst logit deficit, eps)``, where eps is the
+    largest logit change between the scoring forward through B1 and
+    through B1's plain version."""
+    import torch
+
+    exact = total = 0
+    worst = eps = 0.0
     with torch.inference_mode():
         for p, f in zip(prompts, fins):
-            if len(f.token_ids) != ENGINE_NEW_TOKENS:
-                raise AssertionError(f"engine: {len(f.token_ids)} tokens, "
-                                     f"want {ENGINE_NEW_TOKENS}")
             ids = torch.tensor([p + f.token_ids], device="cuda")
-            logits = model(ids)[0, len(p) - 1: -1]    # predicts each token
+            logits = model(ids)[0, len(p) - 1: -1].float()  # each token's
+            with _plain_attention():
+                plain = model(ids)[0, len(p) - 1: -1].float()
             if not bool(torch.isfinite(logits).all()):
-                raise AssertionError("engine: non-finite scoring logits")
+                raise AssertionError("non-finite scoring logits")
+            eps = max(eps, (logits - plain).abs().max().item())
             tok = torch.tensor(f.token_ids, device="cuda")
             deficit = (logits.max(-1).values
                        - logits.gather(1, tok[:, None])[:, 0])
-            worst_deficit = max(worst_deficit, deficit.max().item())
+            worst = max(worst, deficit.max().item())
             exact += int((logits.argmax(-1) == tok).sum())
             total += len(f.token_ids)
-    log(f"engine: {len(prompts)} prompts x {ENGINE_NEW_TOKENS} greedy tokens "
-        f"in {t_gen:.2f} s (setup {t1 - t0:.1f} s); {exact}/{total} equal the "
-        f"scoring argmax, worst logit deficit {worst_deficit:.4f} "
-        f"(tie tolerance {TIE_TOL}); launches {counts}; leaked blocks "
-        f"{eng.cache.leaked_blocks}")
-    if worst_deficit > TIE_TOL:
-        raise AssertionError("engine tokens disagree with the scoring "
-                             "forward beyond the tie tolerance")
-    if eng.cache.leaked_blocks:
-        raise AssertionError("engine leaked KV blocks")
-    if not all(counts.values()):
-        raise AssertionError(f"engine run skipped a kernel: {counts}")
-    del eng, model
-    gc.collect()
-    torch.cuda.empty_cache()
+    return exact, total, worst, eps
+
+
+def _run_engine(ctx, what, prompt_lens, switches, expect, cont_key, rule):
+    """Generate ``ENGINE_NEW_TOKENS`` greedy tokens for prompts of
+    ``prompt_lens`` tokens under the engine switches ``switches`` and
+    score them: ``rule`` "tie" holds the worst deficit to ``TIE_TOL``,
+    "noise" to ``NOISE_TIES * eps``, and "int8" to that too and also runs
+    the same engine through the kernels' plain versions, whose argmax hits
+    it must match less ``INT8_SLACK``. The run must chunk (``cont_key``
+    names the continuation it compiles), launch
+    exactly the kernels ``expect`` and leak no block."""
+    import torch
+
+    cfg, model = _engine_model(ctx)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in prompt_lens]
+    fins, counts, seconds, conts, leaked = _generate(ctx, prompts, switches)
+    exact, total, worst, eps = _score(model, prompts, fins)
+    log(f"{what}: {switches or 'default switches'}; prompts "
+        f"{list(prompt_lens)} x {ENGINE_NEW_TOKENS} greedy tokens in "
+        f"{seconds:.2f} s; {exact}/{total} equal the scoring argmax, worst "
+        f"logit deficit {worst:.4f}, eps {eps:.4f}; continuations {conts}; "
+        f"launches {counts}; leaked blocks {leaked}")
+    if rule == "tie" and worst > TIE_TOL:
+        raise AssertionError(f"{what}: worst deficit {worst:.4f} over the "
+                             f"tie tolerance {TIE_TOL}")
+    if rule in ("noise", "int8") and worst > NOISE_TIES * eps:
+        raise AssertionError(f"{what}: worst deficit {worst:.4f} over "
+                             f"{NOISE_TIES} * eps = {NOISE_TIES * eps:.4f}")
+    if rule == "int8":
+        with _plain_attention():
+            p_fins, p_counts, _, _, _ = _generate(ctx, prompts, switches)
+        p_exact, _, p_worst, _ = _score(model, prompts, p_fins)
+        log(f"{what}: the same engine through the kernels' plain versions: "
+            f"{p_exact}/{total} equal the scoring argmax, worst deficit "
+            f"{p_worst:.4f}; launches {p_counts}")
+        _check_counters(f"{what} plain", p_counts, ())
+        if exact < p_exact - INT8_SLACK * total:
+            raise AssertionError(f"{what}: {exact}/{total} tokens are the "
+                                 f"scoring argmax, the plain versions' run "
+                                 f"{p_exact}/{total}")
+    if leaked:
+        raise AssertionError(f"{what}: leaked KV blocks")
+    if cont_key not in conts:
+        raise AssertionError(f"{what}: no chunk ran through {cont_key}")
+    _check_counters(what, counts, expect)
+
+
+def phase_engine(ctx):
+    # bucketed bf16: prefill, static-start continuation and scoring through
+    # B1, decode through B2
+    _run_engine(ctx, "engine", (5, 37, 120, 300, 1300), {},
+                {"flash_attention", "paged_decode_attention"},
+                ("cont", 32, 512), "tie")
+
+
+def phase_engine_ragged(ctx):
+    try:
+        # (a) ragged bf16: decode and the continuation through B3
+        _run_engine(ctx, "engine_ragged (a)", ENGINE_PROMPTS,
+                    {"SHAI_RAGGED_ATTENTION": "1"},
+                    {"flash_attention", "ragged_paged_attention"},
+                    ("rcont", 512), "noise")
+        # (b) ragged int8
+        _run_engine(ctx, "engine_ragged (b)", ENGINE_PROMPTS,
+                    {"SHAI_RAGGED_ATTENTION": "1", "SHAI_KV_QUANT": "int8"},
+                    {"flash_attention", "ragged_paged_attention"},
+                    ("rcont", 512), "int8")
+        # (c) bucketed int8: decode through B2's delegation to B3, the
+        # static continuation through B1 on the dequantized prior blocks
+        _run_engine(ctx, "engine_ragged (c)", ENGINE_PROMPTS,
+                    {"SHAI_KV_QUANT": "int8"},
+                    {"flash_attention", "ragged_paged_attention"},
+                    ("cont", 32, 512), "int8")
+    finally:
+        _drop_engine_model(ctx)
 
 
 def _http(url: str, payload=None, timeout: float = 300.0):
@@ -491,20 +863,32 @@ def _http(url: str, payload=None, timeout: float = 300.0):
         return e.code, json.loads(e.read() or b"{}")
 
 
-def _send_concurrent(base: str):
-    """``SERVE_REQUESTS`` concurrent greedy ``POST /generate`` of mixed
-    prompt lengths (prefill buckets 128 and 512); returns the responses
-    and the wall seconds."""
-    results = [None] * SERVE_REQUESTS
+def _serve_prompts(long_bytes=()):
+    """``SERVE_REQUESTS`` prompts of mixed length (prefill buckets 128 and
+    512); the last ``len(long_bytes)`` are about that many bytes long
+    instead (the tokenizer is byte-level)."""
+    prompts = [f"request {i}: " + "tell me more " * (3 * i + 1)
+               for i in range(SERVE_REQUESTS)]
+    for j, n in enumerate(long_bytes):
+        i = SERVE_REQUESTS - len(long_bytes) + j
+        text = f"request {i}: " + "tell me more about paged attention. " * (
+            n // 36 + 1)
+        prompts[i] = text[:n]
+    return prompts
+
+
+def _send_concurrent(base: str, prompts):
+    """One concurrent greedy ``POST /generate`` per prompt; returns the
+    responses and the wall seconds."""
+    results = [None] * len(prompts)
 
     def one(i):
         results[i] = _http(base + "/generate", {
-            "prompt": f"request {i}: " + "tell me more " * (3 * i + 1),
-            "temperature": 0.0, "max_new_tokens": 16})
+            "prompt": prompts[i], "temperature": 0.0, "max_new_tokens": 16})
 
     t0 = time.monotonic()
     threads = [threading.Thread(target=one, args=(i,))
-               for i in range(SERVE_REQUESTS)]
+               for i in range(len(prompts))]
     for t in threads:
         t.start()
     for t in threads:
@@ -515,6 +899,8 @@ def _send_concurrent(base: str):
 def _kernel_class(name: str) -> str:
     if "flash_kernel" in name:
         return "B1 flash_attention"
+    if "ragged_kernel" in name:
+        return "B3 ragged_paged_attention"
     if "paged_kernel" in name:
         return "B2 paged_decode_attention"
     if any(w in name.lower() for w in ("gemm", "nvjet", "cutlass", "xmma")):
@@ -571,93 +957,138 @@ def _profile(torch, fn) -> None:
         log(f"profile:     {us / 1e3:.1f} ms {name[:100]}")
 
 
-def phase_serve(ctx):
+def _serve(ctx, what, env, prompts, expect):
+    """Serve ``llama-8b-geometry`` over HTTP under ``env`` and send
+    ``prompts`` concurrently: all must answer 200, exactly the kernels
+    ``expect`` must rise, no block may leak. Prints TTFT/TPOT, ``/stats``
+    and a profiled second pass; returns the responses."""
     import torch
 
-    os.environ.update(DEVICE="cuda", MODEL_ID="llama-8b-geometry",
-                      BATCH_SIZE=str(SERVE_REQUESTS), PORT="0",
-                      # no engine ConfigMap: the unit derives its engine
-                      # shapes from the env, as a pod without one does
-                      VLLM_CONFIG=os.path.join(REPO, "no-vllm-config.yaml"))
-    from scalable_hw_agnostic_inference_tpu_torch.serve.app import create_app
-    from scalable_hw_agnostic_inference_tpu_torch.serve.httpd import Server
-    from scalable_hw_agnostic_inference_tpu_torch.serve.units.vllm import (
-        VllmService,
-    )
-    from scalable_hw_agnostic_inference_tpu_torch.utils.env import ServeConfig
-    from scalable_hw_agnostic_inference_tpu_torch.utils.latency import (
-        LatencyCollector,
-    )
+    _drop_engine_model(ctx)
+    env = {"DEVICE": "cuda", "MODEL_ID": "llama-8b-geometry",
+           "BATCH_SIZE": str(SERVE_REQUESTS), "PORT": "0", **env}
+    with _env(env):
+        from scalable_hw_agnostic_inference_tpu_torch.serve.app import (
+            create_app,
+        )
+        from scalable_hw_agnostic_inference_tpu_torch.serve.httpd import (
+            Server,
+        )
+        from scalable_hw_agnostic_inference_tpu_torch.serve.units.vllm import (
+            VllmService,
+        )
+        from scalable_hw_agnostic_inference_tpu_torch.utils.env import (
+            ServeConfig,
+        )
+        from scalable_hw_agnostic_inference_tpu_torch.utils.latency import (
+            LatencyCollector,
+        )
 
-    cfg = ServeConfig.from_env()
-    service = VllmService(cfg)
-    server = Server(create_app(cfg, service), host="127.0.0.1", port=0)
-    host, port = server.start_background()
-    base = f"http://{host}:{port}"
-    try:
-        t0 = time.monotonic()
-        while True:
-            status, body = _http(base + "/readiness")
-            if status == 200:
-                break
-            if status == 500 or time.monotonic() - t0 > 600:
-                raise AssertionError(f"serve: not ready: {status} {body}")
-            time.sleep(0.5)
-        log(f"serve: llama-8b-geometry ready in {time.monotonic() - t0:.1f} s"
-            f" (load + warmup)")
-        # latency instruments count from here: the warmup request is out
-        eng = service._engine
-        eng.ttft, eng.tpot = LatencyCollector(), LatencyCollector()
-        _reset_counters()
-        results, wall = _send_concurrent(base)
-        counts = _read_counters()
-        ctx["serve_launches"] = counts
-        bad = [r for r in results if r is None or r[0] != 200]
-        if bad:
-            raise AssertionError(f"serve: failed responses {bad[:2]}")
-        n_tok = [r[1]["n_tokens"] for r in results]
-        stats = _http(base + "/stats")[1]
-        ttft = eng.ttft.report()
-        tpot = eng.tpot.report()
-        log(f"serve: {SERVE_REQUESTS} concurrent /generate -> 200 in "
-            f"{wall:.2f} s, tokens {n_tok}; launches {counts}")
-        log(f"serve: TTFT p50 {ttft['p50'] * 1e3:.1f} ms p99 "
-            f"{ttft['p99'] * 1e3:.1f} ms; TPOT p50 {tpot['p50'] * 1e3:.2f} ms "
-            f"p99 {tpot['p99'] * 1e3:.2f} ms (engine instruments); "
-            f"/stats {json.dumps(stats)}")
-        _profile(torch, lambda: _send_concurrent(base))
-        if not all(counts.values()):
-            raise AssertionError(f"serve: a kernel was never launched: "
-                                 f"{counts}")
-        if eng.cache.leaked_blocks:
-            raise AssertionError("serve: leaked KV blocks")
-    finally:
-        server.stop()
-        service.close()
-        del service
-        gc.collect()
-        torch.cuda.empty_cache()
+        cfg = ServeConfig.from_env()
+        service = VllmService(cfg)
+        server = Server(create_app(cfg, service), host="127.0.0.1", port=0)
+        host, port = server.start_background()
+        base = f"http://{host}:{port}"
+        try:
+            t0 = time.monotonic()
+            while True:
+                status, body = _http(base + "/readiness")
+                if status == 200:
+                    break
+                if status == 500 or time.monotonic() - t0 > 600:
+                    raise AssertionError(f"{what}: not ready: {status} "
+                                         f"{body}")
+                time.sleep(0.5)
+            eng = service._engine
+            log(f"{what}: llama-8b-geometry ready in "
+                f"{time.monotonic() - t0:.1f} s (load + warmup); engine "
+                f"max_model_len {eng.ecfg.max_model_len}, buckets "
+                f"{list(eng.ecfg.context_encoding_buckets)}, ragged "
+                f"{eng._ragged}, int8 KV {eng._kv_quant}")
+            # latency instruments count from here: the warmup request is out
+            eng.ttft, eng.tpot = LatencyCollector(), LatencyCollector()
+            _reset_counters()
+            results, wall = _send_concurrent(base, prompts)
+            counts = _read_counters()
+            ctx.setdefault("launches", {})[what] = counts
+            bad = [r for r in results if r is None or r[0] != 200]
+            if bad:
+                raise AssertionError(f"{what}: failed responses {bad[:2]}")
+            n_prompt = [r[1]["n_prompt"] for r in results]
+            n_tok = [r[1]["n_tokens"] for r in results]
+            stats = _http(base + "/stats")[1]
+            ttft = eng.ttft.report()
+            tpot = eng.tpot.report()
+            log(f"{what}: {len(prompts)} concurrent /generate -> 200 in "
+                f"{wall:.2f} s, prompt tokens {n_prompt}, tokens {n_tok}; "
+                f"launches {counts}")
+            log(f"{what}: TTFT p50 {ttft['p50'] * 1e3:.1f} ms p99 "
+                f"{ttft['p99'] * 1e3:.1f} ms; TPOT p50 "
+                f"{tpot['p50'] * 1e3:.2f} ms p99 {tpot['p99'] * 1e3:.2f} ms "
+                f"(engine instruments); /stats {json.dumps(stats)}")
+            _profile(torch, lambda: _send_concurrent(base, prompts))
+            _check_counters(what, counts, expect)
+            if eng.cache.leaked_blocks:
+                raise AssertionError(f"{what}: leaked KV blocks")
+            return results
+        finally:
+            server.stop()
+            service.close()
+            del service
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def phase_serve(ctx):
+    # no engine ConfigMap: the unit derives its engine shapes from the
+    # env, as a pod without one does (buckets 128 and 512, no chunking)
+    _serve(ctx, "serve", {
+        "VLLM_CONFIG": os.path.join(REPO, "no-vllm-config.yaml"),
+        "SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": ""},
+        _serve_prompts(), {"flash_attention", "paged_decode_attention"})
+
+
+def phase_serve_ragged(ctx):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vllm_config.yaml")
+        with open(path, "w") as f:
+            json.dump(SERVE_RAGGED_CONFIG, f)   # JSON is YAML too
+        results = _serve(ctx, "serve_ragged", {
+            "VLLM_CONFIG": path, "SHAI_RAGGED_ATTENTION": "1",
+            "SHAI_KV_QUANT": "int8"}, _serve_prompts((1500, 3000)),
+            {"flash_attention", "ragged_paged_attention"})
+    chunked = [r[1]["n_prompt"] for r in results if r[1]["n_prompt"] > 512]
+    if len(chunked) != 2:
+        raise AssertionError(f"serve_ragged: {len(chunked)} prompts past the "
+                             f"512 bucket, want 2")
 
 
 def kernels_line(ctx):
     cuda_dir = "scalable_hw_agnostic_inference_tpu_torch/csrc"
+    pallas = f"{TPU_PKG}/ops/pallas"
+    # (name, ctx key of its timed row, source, TPU kernel, serve phase)
     spec = [
         ("flash_attention", "flash", f"{cuda_dir}/flash_attention.cu",
-         f"{TPU_PKG}/ops/pallas/flash_attention.py:132"),
+         f"{pallas}/flash_attention.py:132", "serve"),
         ("paged_decode_attention", "paged", f"{cuda_dir}/paged_attention.cu",
-         f"{TPU_PKG}/ops/pallas/paged_attention.py:101"),
+         f"{pallas}/paged_attention.py:101", "serve"),
+        ("ragged_paged_attention", "ragged",
+         f"{cuda_dir}/ragged_paged_attention.cu",
+         f"{pallas}/ragged_paged_attention.py:121", "serve_ragged"),
     ]
     out = []
-    for name, key, src, replaces in spec:
+    for name, key, src, replaces, phase in spec:
         row = ctx[key]
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": ctx["serve_launches"][name],
+            "launches": ctx["launches"][phase][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"],
+            "shape": row["shape"], "launches_in": phase,
         })
     return {"kernels": out}
 
@@ -688,9 +1119,7 @@ def main(argv) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     ctx = {"timer": Timer(torch)}
-    funcs = {"card": phase_card, "build": phase_build, "flash": phase_flash,
-             "paged": phase_paged, "engine": phase_engine,
-             "serve": phase_serve}
+    funcs = {name: globals()["phase_" + name] for name in PHASES}
     failed = []
     t_all = time.monotonic()
     for name in phases:

@@ -14,7 +14,9 @@
 // What bounds it on the H100: one multiply-add per K or V element read, so
 // device-memory bytes bound it (about 2 operations per byte against the
 // card's ~295). The design therefore reads each live byte once and nothing
-// else:
+// else. The walk is the device core this kernel shares with B3
+// (paged_attention_core.cuh); int8 pools never come here, the wrapper sends
+// them to B3 as the TPU kernel's int8 branch does:
 //   - one block per (row, kv head) holds all G = H / Hkv query heads of the
 //     GQA group (one warp each), so a K/V block is fetched once for the
 //     group, never once per query head;
@@ -29,13 +31,9 @@
 // so the kernel cannot fill the card; splitting the walk across blocks
 // (split-K) with a second reduction pass is the fix.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "paged_attention_core.cuh"
 
 namespace {
-
-constexpr float NEG_INF = -1e30f;
 
 template <int D>
 __global__ void paged_kernel(const __nv_bfloat16* __restrict__ q,
@@ -45,81 +43,10 @@ __global__ void paged_kernel(const __nv_bfloat16* __restrict__ q,
                              const int* __restrict__ lengths,
                              __nv_bfloat16* __restrict__ out, int H, int Hkv,
                              int bs, int M, float scale) {
-  constexpr int VEC = 8;        // bf16 values per 16-byte load
-  constexpr int VPR = D / VEC;  // 16-byte vectors per token slice
-  constexpr int PER_LANE = D / 32;
-
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + bs * D;
-
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = H / Hkv;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int h = kvh * G + warp;  // this warp's query head
-
-  const int len = max(lengths[b], 0);
-  const int n_live = min(M, (len + bs - 1) / bs);
-
-  float qv[PER_LANE];
-  float acc[PER_LANE];
-  const __nv_bfloat16* qrow = q + (size_t(b) * H + h) * D;
-#pragma unroll
-  for (int i = 0; i < PER_LANE; ++i) {
-    qv[i] = __bfloat162float(qrow[lane + 32 * i]) * scale;
-    acc[i] = 0.f;
-  }
-  float m_i = NEG_INF;
-  float l_i = 0.f;
-
-  const int* trow = tables + size_t(b) * M;
-  for (int j = 0; j < n_live; ++j) {
-    const size_t blk = static_cast<size_t>(trow[j]);
-    __syncthreads();  // every warp is done with the previous block
-    for (int idx = threadIdx.x; idx < bs * VPR; idx += blockDim.x) {
-      const int t = idx / VPR;
-      const int c = (idx % VPR) * VEC;
-      const size_t off = ((blk * bs + t) * Hkv + kvh) * D + c;
-      *reinterpret_cast<uint4*>(ks + t * D + c) =
-          *reinterpret_cast<const uint4*>(k_pool + off);
-      *reinterpret_cast<uint4*>(vs + t * D + c) =
-          *reinterpret_cast<const uint4*>(v_pool + off);
-    }
-    __syncthreads();
-
-    const int n_tok = min(bs, len - j * bs);  // live tokens of this block
-    for (int t = 0; t < n_tok; ++t) {
-      const __nv_bfloat16* krow = ks + t * D;
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < PER_LANE; ++i) {
-        s += qv[i] * __bfloat162float(krow[lane + 32 * i]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, o);
-      }
-      const float m_new = fmaxf(m_i, s);
-      const float corr = __expf(m_i - m_new);
-      const float p = __expf(s - m_new);
-      l_i = l_i * corr + p;
-      const __nv_bfloat16* vrow = vs + t * D;
-#pragma unroll
-      for (int i = 0; i < PER_LANE; ++i) {
-        acc[i] = acc[i] * corr + p * __bfloat162float(vrow[lane + 32 * i]);
-      }
-      m_i = m_new;
-    }
-  }
-
-  const float inv = 1.f / fmaxf(l_i, 1e-20f);
-  __nv_bfloat16* orow = out + (size_t(b) * H + h) * D;
-#pragma unroll
-  for (int i = 0; i < PER_LANE; ++i) {
-    orow[lane + 32 * i] = __float2bfloat16(acc[i] * inv);
-  }
+  shai_paged::attend_row<D, __nv_bfloat16>(
+      q, k_pool, v_pool, nullptr, nullptr, tables, lengths, out, blockIdx.y,
+      blockIdx.x, H, Hkv, bs, M, scale, smem);
 }
 
 template <int D>
@@ -127,13 +54,9 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* tables, const void* lengths, void* out, int B,
                    int H, int Hkv, int bs, int M, float scale,
                    cudaStream_t stream) {
-  const size_t smem = size_t(2) * bs * D * sizeof(__nv_bfloat16);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const size_t smem = shai_paged::smem_bytes<D, __nv_bfloat16>(bs);
+  cudaError_t err = shai_paged::allow_smem(paged_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(Hkv, B);
   const dim3 block(32 * (H / Hkv));
   paged_kernel<D><<<grid, block, smem, stream>>>(

@@ -5,6 +5,9 @@ Port of ``scalable_hw_agnostic_inference_tpu/engine/cache.py``
 The pool is one tensor per layer ``[num_blocks, block_size, n_kv, head_dim]``
 on the engine's device; block tables are int32 data, so one launch shape
 serves every allocation pattern. Allocation is host-side and O(1) per block.
+An int8 pool (``quant=True``, ``SHAI_KV_QUANT=int8``) holds int8 blocks and
+one f32 scale per (block, kv head) beside them, ``ks``/``vs`` ``[N, Hkv]``
+(``cache.py:151-158``), priced once in :attr:`PagedKVCache.pool_bytes`.
 
 The prefix cache, the host KV tier and copy-on-write forks (and with them
 shared, refcounted blocks) come in later slices.
@@ -72,24 +75,37 @@ class SeqAllocation:
 class PagedKVCache:
     """Device block pool + per-sequence block accounting.
 
-    ``kv`` is a list with, per layer, ``{"k": [N, Bs, Hkv, Dh], "v": ...}``.
-    The runner writes it in place (the reference donates the buffers to its
+    ``kv`` is a list with, per layer, ``{"k": [N, Bs, Hkv, Dh], "v": ...}``,
+    plus ``"ks"``/``"vs"`` ``[N, Hkv]`` f32 scales for an int8 pool. The
+    runner writes it in place (the reference donates the buffers to its
     jitted steps instead).
     """
 
     def __init__(self, n_layers: int, n_kv_heads: int, head_dim: int,
                  total_blocks: int, block_size: int, blocks_per_seq: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"),
+                 quant: bool = False):
         self.n_layers = n_layers
         self.block_size = block_size
         self.blocks_per_seq = blocks_per_seq
         self.total_blocks = total_blocks
+        self.quant = quant
         self.allocator = BlockAllocator(total_blocks)
         shape = (total_blocks, block_size, n_kv_heads, head_dim)
-        self.kv = [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                    "v": torch.zeros(shape, dtype=dtype, device=device)}
+        block_dt = torch.int8 if quant else dtype
+        self.kv = [{"k": torch.zeros(shape, dtype=block_dt, device=device),
+                    "v": torch.zeros(shape, dtype=block_dt, device=device)}
                    for _ in range(n_layers)]
+        if quant:
+            for lay in self.kv:
+                for name in ("ks", "vs"):
+                    lay[name] = torch.zeros((total_blocks, n_kv_heads),
+                                            dtype=torch.float32,
+                                            device=device)
+        # a fixed allocation, priced once over every tensor, scales included
+        self.pool_bytes = sum(t.nbytes for lay in self.kv
+                              for t in lay.values())
         self._seqs: Dict[int, SeqAllocation] = {}
 
     @property

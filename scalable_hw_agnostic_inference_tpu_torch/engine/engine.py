@@ -4,7 +4,9 @@ Port of ``scalable_hw_agnostic_inference_tpu/engine/engine.py``, its
 lock-step discipline (``SHAI_ASYNC_DECODE=0``, the reference's own oracle):
 ``add_request``, ``step``/``_step_sync``, ``_admit_phase``,
 ``_admit_batch`` (same-bucket prompts admitted as ONE prefill, padded to a
-power of two), ``_decode_step`` with context and batch buckets,
+power of two), chunked prefill (``_admit_long``, ``_continue_prefill``,
+``_cont_for``/``_cont_key``/``_cont_args``; the non-fused, plain-text
+branches), ``_decode_step`` with context and batch buckets,
 ``_commit_pending``/``_apply_sampled``, recompute preemption
 (``_preempt_lowest``), ``cancel`` and ``generate``.
 
@@ -13,9 +15,27 @@ most one prefill group is admitted per step; paged KV with optimistic
 admission and recompute preemption when the pool runs dry (the preempted
 sequence's generated tokens become prompt suffix on re-admission).
 
-Later slices bring async decode, chunked prefill (a prompt past the largest
-prefill bucket raises here), the prefix cache and KV tier, logprobs,
-deadlines, QoS, speculative decoding and the multimodal paths.
+A prompt longer than the largest prefill bucket ``C`` chunks: its whole
+block run is allocated at admission, the first ``C`` tokens go through the
+bucketed prefill, and each later step encodes one more ``C``-token chunk
+(``runner.make_prefill_cont``) while the decode batch keeps running; the
+final chunk samples the first token and the slot joins the decode batch.
+At most one sequence chunks at a time. Prompts are capped at
+``_chunk_cap`` (whole chunks, one position left to generate) by keeping
+their tail, as the reference does.
+
+Two switches of the reference, read at construction:
+
+- ``SHAI_RAGGED_ATTENTION=1``: decode attends the full window through B3
+  (one context entry instead of the ``token_generation_buckets`` ladder)
+  and the continuation takes its start as data (one function per chunk
+  bucket instead of one per start);
+- ``SHAI_KV_QUANT=int8``: the pool holds int8 blocks and per-(block, kv
+  head) f32 scales. An unknown value warns and leaves it off.
+
+Later slices bring async decode, the fused mixed-phase step, copy-on-write
+forks, the prefix cache and KV tier, logprobs, deadlines, QoS, speculative
+decoding and the multimodal paths.
 """
 
 from __future__ import annotations
@@ -34,10 +54,11 @@ from ..core.bucketing import BucketRegistry
 from ..core.device import DeviceLike, resolve_device
 from ..models.llama import LlamaConfig, LlamaForCausalLM
 from ..ops.sampling import sample_logits
+from ..utils.env import env_bool, env_str
 from ..utils.latency import LatencyCollector
 from .cache import PagedKVCache
 from .config import EngineConfig
-from .runner import make_decode, make_prefill
+from .runner import make_decode, make_prefill, make_prefill_cont
 from .types import Finished, Request, SamplingParams, _Running  # noqa: F401
 
 log = logging.getLogger(__name__)
@@ -80,12 +101,27 @@ class LLMEngine:
         self.ecfg = ecfg
         self.model = model
         kv_dtype = torch.bfloat16 if ecfg.dtype == "bfloat16" else torch.float32
+        # int8 KV blocks (SHAI_KV_QUANT=int8, default off). Lenient parse: a
+        # typo'd value warns and stays off rather than crash-looping a pod
+        kvq = env_str("SHAI_KV_QUANT", "").strip().lower()
+        if kvq not in ("", "0", "off", "none", "int8"):
+            log.warning("SHAI_KV_QUANT=%r not recognized (supported: int8)"
+                        " — KV quantization stays off", kvq)
+            kvq = ""
+        self._kv_quant = kvq == "int8"
+        # ragged paged attention (SHAI_RAGGED_ATTENTION, default off)
+        self._ragged = env_bool("SHAI_RAGGED_ATTENTION", False)
         self.cache = PagedKVCache(
             model_cfg.n_layers, model_cfg.n_kv_heads, model_cfg.head_dim,
             ecfg.total_blocks, ecfg.block_size, ecfg.blocks_per_seq,
-            dtype=kv_dtype, device=self.device)
+            dtype=kv_dtype, device=self.device, quant=self._kv_quant)
         self.buckets = BucketRegistry(sorted(ecfg.context_encoding_buckets))
-        self._prefill: Dict[Tuple[int, int], Any] = {}
+        # chunked-prefill prompt cap: whole bucket-sized chunks only, and at
+        # least one position left to generate
+        C = self.buckets.max
+        self._chunk_cap = min(ecfg.max_model_len - 1,
+                              (ecfg.max_model_len // C) * C)
+        self._prefill: Dict[tuple, Any] = {}
         # decode calls keyed (ctx_bucket, batch_bucket): the attention window
         # is the smallest token_generation_bucket covering the longest
         # running sequence, the batch the smallest power of two covering
@@ -94,6 +130,9 @@ class LLMEngine:
         tg = [min(-(-t // bs), ecfg.blocks_per_seq)
               for t in ecfg.token_generation_buckets]
         self._ctx_buckets = sorted(set(tg) | {ecfg.blocks_per_seq})
+        if self._ragged:
+            # B3 owns the full window with per-row cost: one context entry
+            self._ctx_buckets = [ecfg.blocks_per_seq]
         self._decode_fns: Dict[Tuple[int, int], Any] = {}
         self.waiting: deque[Request] = deque()
         self.slots: List[Optional[_Running]] = [None] * ecfg.max_num_seqs
@@ -116,11 +155,9 @@ class LLMEngine:
             raise ValueError("empty prompt")
         if params.logprobs:
             raise ValueError("logprobs are not ported yet")
-        if len(prompt_ids) > self.buckets.max:
-            raise ValueError(
-                f"prompt of {len(prompt_ids)} tokens exceeds the largest "
-                f"prefill bucket {self.buckets.max} (chunked prefill is not "
-                f"ported yet)")
+        if len(prompt_ids) > self._chunk_cap:
+            # past the chunkable cap: keep the tail
+            prompt_ids = list(prompt_ids)[-self._chunk_cap:]
         rid = next(self._ids)
         self.waiting.append(Request(rid, list(prompt_ids), params,
                                     on_token=on_token,
@@ -146,9 +183,10 @@ class LLMEngine:
 
     @property
     def max_prompt_len(self) -> int:
-        """Longest prompt the engine accepts: the largest prefill bucket
-        (chunked prefill, which reaches max_model_len, comes later)."""
-        return self.buckets.max
+        """Longest prompt the engine takes untruncated: the chunked-prefill
+        cap, which ``add_request`` enforces by keeping a longer prompt's
+        tail. The serving layer truncates its tokenizer output to this."""
+        return self._chunk_cap
 
     @property
     def has_work(self) -> bool:
@@ -161,6 +199,11 @@ class LLMEngine:
     @property
     def n_running(self) -> int:
         return sum(s is not None for s in self.slots)
+
+    @property
+    def n_chunking(self) -> int:
+        return sum(s is not None and s.prefill_cursor is not None
+                   for s in self.slots)
 
     def step(self) -> List[Finished]:
         """Admit (at most one prefill group), then decode the running
@@ -178,7 +221,19 @@ class LLMEngine:
         return self._done_this_step
 
     def _admit_phase(self) -> None:
-        self._admit_batch()
+        """One continuation chunk, then admission. Short prompts are
+        admitted while a long one chunks; only a second long prompt waits
+        for the active chunker."""
+        chunking = [s for s in self.slots
+                    if s is not None and s.prefill_cursor is not None]
+        if chunking:
+            self._continue_prefill(chunking[0])
+        if (self.waiting
+                and len(self.waiting[0].prompt_ids) > self.buckets.max):
+            if not chunking:
+                self._admit_long()
+        else:
+            self._admit_batch()
 
     def generate(self, prompts: Sequence[Sequence[int]],
                  params: Optional[SamplingParams] = None) -> List[Finished]:
@@ -264,10 +319,7 @@ class LLMEngine:
         while self.waiting and len(group) < kmax:
             req = self.waiting[0]
             if len(req.prompt_ids) > self.buckets.max:
-                # a preemption resume (prompt + generated) can outgrow the
-                # largest bucket; without chunked prefill keep the tail, as
-                # the reference's single-sequence admission does
-                req.prompt_ids = req.prompt_ids[-self.buckets.max:]
+                break  # a long prompt: _admit_long takes it at the head
             b = self.buckets.bucket_for(len(req.prompt_ids))
             if bucket >= 0 and b != bucket:
                 break  # different bucket: next step's batch
@@ -317,12 +369,108 @@ class LLMEngine:
         for i, req in enumerate(group):
             self._start_slot(self._free_slot(), req, int(toks[i]))
 
+    def _admit_long(self) -> None:
+        """Admit a prompt longer than the largest prefill bucket: allocate
+        its whole block run, encode the first chunk now, and leave a cursor
+        for :meth:`_continue_prefill` to advance one chunk per step."""
+        if not self.waiting:
+            return
+        slot = self._free_slot()
+        if slot is None:
+            return
+        req = self.waiting[0]
+        if len(req.prompt_ids) > self._chunk_cap:
+            # a preemption resume (prompt + generated) may pass the cap:
+            # keep the tail, as add_request does
+            req.prompt_ids = req.prompt_ids[-self._chunk_cap:]
+        n_total = len(req.prompt_ids)
+        C = self.buckets.max
+        if n_total <= C:
+            self._admit_batch()  # the cut brought it back inside a bucket
+            return
+        if not self._try_reserve(req, n_total):
+            return
+        self.waiting.popleft()
+        if not req.t_admit:
+            req.t_admit = time.monotonic()
+        self.cache.admit(req.req_id, n_total)
+        dev = self.device
+        ids = torch.tensor([req.prompt_ids[:C]], dtype=torch.int32,
+                           device=dev)
+        with torch.inference_mode():
+            self._prefill_for(C, 1)(
+                self.model, self.cache.kv, ids,
+                torch.tensor([C], dtype=torch.int32, device=dev),
+                self._table_of(req))
+        self.slots[slot] = _Running(req, slot, [], pending_token=-1,
+                                    prefill_cursor=C)
+
+    def _continue_prefill(self, s: _Running) -> None:
+        """Encode the next chunk of a mid-prefill slot; on the final chunk,
+        sample the first token and join the decode batch."""
+        req = s.req
+        start = s.prefill_cursor
+        C = self.buckets.max
+        chunk = req.prompt_ids[start:start + C]
+        n = len(chunk)
+        ids = np.zeros((1, C), np.int32)
+        ids[0, :n] = chunk
+        final = start + n >= len(req.prompt_ids)
+        dev = self.device
+        fn = self._cont_for(start // self.ecfg.block_size)
+        with torch.inference_mode():
+            _, logits = fn(self.model, self.cache.kv,
+                           torch.from_numpy(ids).to(dev),
+                           torch.tensor([n], dtype=torch.int32, device=dev),
+                           self._table_of(req), *self._cont_args(start))
+            if final:
+                p = req.params
+                tok = sample_logits(logits, self._gen, p.temperature,
+                                    p.top_k, p.top_p)
+        if final:
+            s.pending_token = int(tok[0])
+            s.prefill_cursor = None
+            s.t_first = self._mark_first_token(req)
+        else:
+            s.prefill_cursor = start + C
+
+    def _table_of(self, req: Request) -> torch.Tensor:
+        """``[1, blocks_per_seq]`` block table of an admitted request."""
+        t = self.cache.seq(req.req_id).table(self.ecfg.blocks_per_seq)
+        return torch.from_numpy(t[None]).to(self.device)
+
+    def _cont_for(self, start_blocks: int):
+        """The continuation function for a chunk at ``start_blocks``: one
+        per start on the static ladder, one per chunk bucket when ragged."""
+        bucket = self.buckets.max
+        key = self._cont_key(start_blocks, bucket)
+        if key not in self._prefill:
+            self._prefill[key] = make_prefill_cont(
+                self.cfg, self.ecfg.block_size, self.ecfg.blocks_per_seq,
+                bucket, 0 if self._ragged else start_blocks,
+                kv_quant=self._kv_quant, ragged=self._ragged)
+        return self._prefill[key]
+
+    def _cont_key(self, start_blocks: int, bucket: int) -> tuple:
+        if self._ragged:
+            return ("rcont", bucket)
+        return ("cont", start_blocks, bucket)
+
+    def _cont_args(self, start: int) -> list:
+        """Trailing arguments of a continuation call beyond ``(model, kv,
+        ids, n_text, block_tables)``: the ragged variant takes the start as
+        data."""
+        if self._ragged:
+            return [torch.tensor([start], dtype=torch.int32,
+                                 device=self.device)]
+        return []
+
     def _prefill_for(self, bucket: int, n_seqs: int = 1):
         key = (bucket, n_seqs)
         if key not in self._prefill:
             self._prefill[key] = make_prefill(
                 self.cfg, self.ecfg.block_size, self.ecfg.blocks_per_seq,
-                bucket, n_seqs=n_seqs)
+                bucket, n_seqs=n_seqs, kv_quant=self._kv_quant)
         return self._prefill[key]
 
     def _batch_bucket(self, n_active: int) -> int:
@@ -342,7 +490,8 @@ class LLMEngine:
         if key not in self._decode_fns:
             self._decode_fns[key] = make_decode(
                 self.cfg, self.ecfg.block_size, self.ecfg.blocks_per_seq,
-                bb, ctx_blocks=m)
+                bb, ctx_blocks=m, ragged=self._ragged,
+                kv_quant=self._kv_quant)
         return bb, self._decode_fns[key]
 
     def _preempt_lowest(self) -> None:
@@ -353,6 +502,11 @@ class LLMEngine:
         log.warning("preempting seq %d (block pool exhausted)",
                     victim.req.req_id)
         self._release_slot(victim)
+        if victim.prefill_cursor is not None:
+            # mid-prefill: nothing generated; the prompt re-queues as it is
+            # and re-chunks from the start
+            self.waiting.appendleft(victim.req)
+            return
         committed = victim.generated + [victim.pending_token]
         p = victim.req.params
         if victim.req.on_token is not None and victim.pending_token != p.eos_id:
@@ -386,8 +540,10 @@ class LLMEngine:
         recompute-preempting on pool exhaustion (never down to zero running
         sequences)."""
         for s in list(self.slots):
-            if s is None or self.slots[s.slot] is not s:
-                continue  # empty, or preempted by an earlier iteration
+            if s is None or s.prefill_cursor is not None:
+                continue  # mid-prefill slots neither grow nor decode yet
+            if self.slots[s.slot] is not s:
+                continue  # preempted by an earlier iteration
             while True:
                 try:
                     self.cache.extend(s.req.req_id, 1)
@@ -400,7 +556,8 @@ class LLMEngine:
                         break  # s itself was preempted
 
     def _running_slots(self) -> List[_Running]:
-        return [s for s in self.slots if s is not None]
+        return [s for s in self.slots
+                if s is not None and s.prefill_cursor is None]
 
     def _max_ctx_blocks(self, running) -> int:
         m_blocks = 1

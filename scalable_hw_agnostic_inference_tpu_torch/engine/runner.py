@@ -1,37 +1,59 @@
-"""Engine paths: bucketed prefill + one decode step for the batch.
+"""Engine paths: bucketed prefill, chunked-prefill continuation and one
+decode step for the batch.
 
 Port of ``scalable_hw_agnostic_inference_tpu/engine/runner.py``:
-``make_prefill`` (``:286``, text-only), ``make_decode`` (``:780``, the
-``T = 1`` instantiation of ``_make_token_forward`` at ``:641``) and their
-helpers ``_rmsnorm``, ``_qkv``, ``_mlp``, ``_scatter_blocks`` (bf16 branch)
-and ``_logits``. The runner reads the weights of
+``make_prefill`` (``:286``, text-only), ``make_prefill_cont`` (``:447``,
+text-only, both the static-start ladder and ``ragged=True``),
+``make_decode`` (``:780``, the ``T = 1`` instantiation of
+``_make_token_forward`` at ``:641``) and their helpers ``_rmsnorm``,
+``_qkv``, ``_mlp``, ``_scatter_blocks``, ``_pool_scales``,
+``_ragged_pool_attention`` and ``_logits``. The runner reads the weights of
 ``models.llama.LlamaForCausalLM``, so one set of weights serves the scoring
 forward and the engine.
 
 The reference returns jitted executables that donate the KV pool; here the
 functions run eagerly and write the pool tensors IN PLACE (the returned
 ``kv`` is the same list). Attention dispatch follows the tensors' device:
-prefill goes through ``ops.attention.dot_product_attention`` (the B1 flash
-kernel on CUDA for eligible shapes), decode through
-``ops.cuda.paged_attention.paged_decode_attention`` — the B2 kernel on
-CUDA, its plain dense-gather version on the CPU. That is the reference's
-``_resolve_paged`` default (kernel on the accelerator, dense gather off it)
-with the choice made by the wrapper. The activations are bf16 from the
-embedding on (``runner.py:315``), as in the reference, so CPU parity holds
-at bf16 tolerances.
+prefill and the static-start continuation go through
+``ops.attention.dot_product_attention`` (the B1 flash kernel on CUDA);
+bucketed decode through ``ops.cuda.paged_attention.paged_decode_attention``
+(B2 on CUDA, or B3 for an int8 pool); ragged decode through
+``ops.cuda.ragged_paged_attention`` (B3) and the ragged continuation
+through ``ops.attention.ragged_paged_attention`` (B3 on CUDA). On the CPU
+each takes its plain version, as the reference's ``_resolve_paged`` default
+and its gather oracle do off the accelerator. The activations are bf16 from
+the embedding on (``runner.py:315``), as in the reference, so CPU parity
+holds at bf16 tolerances.
+
+``kv_quant`` (``SHAI_KV_QUANT=int8``): the pool holds int8 blocks with
+per-(block, kv head) f32 scales ``ks``/``vs``. Whole-block writes quantize
+(``_scatter_blocks``), decode writes requantize their block one token at a
+time, and reads dequantize (in B3, or after the gather on the plain paths).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..models.llama import LlamaConfig, LlamaForCausalLM
-from ..ops.attention import dot_product_attention
+from ..ops.attention import (
+    dot_product_attention,
+    ragged_gather_attention,
+    ragged_paged_attention,
+)
 from ..ops.cuda.paged_attention import paged_decode_attention
+from ..ops.cuda.ragged_paged_attention import (
+    ragged_paged_attention as ragged_kernel,
+)
 from ..ops.norms import rms_norm
-from ..ops.quant import quant_matmul
+from ..ops.quant import (
+    dequantize_kv_blocks,
+    quant_matmul,
+    quantize_kv_blocks,
+    requantize_block_tokens,
+)
 from ..ops.rope import apply_rope
 from ..ops.sampling import sample_logits
 
@@ -62,12 +84,29 @@ def _mlp(layer, x: torch.Tensor) -> torch.Tensor:
 
 
 def _scatter_blocks(kv_layer: Dict[str, torch.Tensor], tbl: torch.Tensor,
-                    k: torch.Tensor, v: torch.Tensor) -> None:
+                    k: torch.Tensor, v: torch.Tensor, quant: bool) -> None:
     """Write whole fresh KV blocks ``[B, m, Bs, Hkv, Dh]`` into one pool
     layer at block ids ``tbl [B, m]``, in place. Rows and blocks past a
-    sequence's allocation carry block id 0 and land in the null block."""
+    sequence's allocation carry block id 0 and land in the null block. An
+    int8 pool quantizes per block x kv head on the way in and writes the
+    scales beside the blocks: every prefill and continuation write goes
+    through here."""
+    if quant:
+        kq, ksc = quantize_kv_blocks(k)
+        vq, vsc = quantize_kv_blocks(v)
+        kv_layer["k"][tbl] = kq
+        kv_layer["v"][tbl] = vq
+        kv_layer["ks"][tbl] = ksc
+        kv_layer["vs"][tbl] = vsc
+        return
     kv_layer["k"][tbl] = k.to(kv_layer["k"].dtype)
     kv_layer["v"][tbl] = v.to(kv_layer["v"].dtype)
+
+
+def _pool_scales(kv_layer: Dict[str, torch.Tensor]):
+    """``(k_scale, v_scale)`` of an int8 pool layer, ``(None, None)`` for a
+    float pool: the read-side twin of :func:`_scatter_blocks`."""
+    return kv_layer.get("ks"), kv_layer.get("vs")
 
 
 def _logits(model: LlamaForCausalLM, x: torch.Tensor,
@@ -79,7 +118,8 @@ def _logits(model: LlamaForCausalLM, x: torch.Tensor,
 
 
 def make_prefill(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
-                 bucket: int, n_seqs: int = 1) -> Callable:
+                 bucket: int, n_seqs: int = 1,
+                 kv_quant: bool = False) -> Callable:
     """``prefill(model, kv, ids [K, bucket], n_text [K], block_tables
     [K, blocks_per_seq]) -> (kv, logits [K, V])``.
 
@@ -116,23 +156,161 @@ def make_prefill(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                 k.reshape(B, m_used, block_size, cfg.n_kv_heads,
                           cfg.head_dim),
                 v.reshape(B, m_used, block_size, cfg.n_kv_heads,
-                          cfg.head_dim))
+                          cfg.head_dim), kv_quant)
         last = x[torch.arange(B, device=x.device), n_text.long() - 1]
         return kv, _logits(model, last[:, None], cfg)[:, 0]
 
     return prefill
 
 
+def _ragged_pool_attention(q: torch.Tensor, kv_layer: Dict[str, torch.Tensor],
+                           tables: torch.Tensor, positions: torch.Tensor,
+                           block_size: int) -> torch.Tensor:
+    """Ragged attention of ``[B, T, H, D]`` queries over the paged pool,
+    query ``(b, t)`` seeing positions ``<= positions[b, t]``: on CUDA the
+    ``T`` queries flatten into rows of B3 (one table copy and one length
+    each); on the CPU the gather path takes the ``[B, T]`` layout as it
+    is. An int8 pool's scales ride along either way."""
+    B, T, H, D = q.shape
+    ks, vs = _pool_scales(kv_layer)
+    kpool, vpool = kv_layer["k"], kv_layer["v"]
+    if q.device.type == "cpu":
+        return ragged_gather_attention(q, kpool, vpool, tables, positions,
+                                       ks, vs)
+    L = tables.shape[1] * block_size
+    tf = (tables.repeat_interleave(T, dim=0) if T > 1 else tables)
+    lf = (positions + 1).clamp(1, L).reshape(B * T)
+    o = ragged_paged_attention(
+        q.reshape(B * T, H, D).contiguous(), kpool, vpool,
+        tf.to(torch.int32).contiguous(), lf.to(torch.int32).contiguous(),
+        ks, vs)
+    return o.reshape(B, T, H, D)
+
+
+def make_prefill_cont(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
+                      bucket: int, start_blocks: int = 0,
+                      kv_quant: bool = False,
+                      ragged: bool = False) -> Callable:
+    """A continuation chunk of a prompt longer than the largest prefill
+    bucket: ``cont(model, kv, ids [1, bucket], n_text [1], block_tables
+    [1, blocks_per_seq][, start [1]]) -> (kv, next_logits [1, V])``.
+
+    Static start (the default): the chunk's first token sits at position
+    ``start = start_blocks * block_size``, fixed per function (one per
+    start, the reference's ladder). The ``start`` tokens already in the
+    pool are gathered densely through the table (dequantized for an int8
+    pool), concatenated with the chunk's own k/v, and the chunk attends
+    ``[prior, chunk]`` causally through ``dot_product_attention`` with
+    ``kv_lengths = start + n_text`` (B1 on CUDA); the chunk's blocks are
+    written after the attention.
+
+    ``ragged`` (``SHAI_RAGGED_ATTENTION``): the start is data, one function
+    per chunk bucket. The chunk's blocks are written FIRST, then its
+    queries attend through the pool with lengths ``start + t + 1``
+    (B3 on CUDA). With an int8 pool the two orders give different numbers
+    (the ragged chunk reads its own keys back quantized), and each variant
+    keeps the reference's.
+    """
+    if bucket % block_size:
+        raise ValueError(f"bucket {bucket} not a multiple of block_size "
+                         f"{block_size}")
+    start = start_blocks * block_size
+    c_blocks = bucket // block_size
+    if not ragged and not (1 <= start_blocks
+                           and start_blocks + c_blocks <= blocks_per_seq):
+        raise ValueError(f"static continuation start {start_blocks} blocks "
+                         f"+ {c_blocks} chunk blocks outside [1, "
+                         f"{blocks_per_seq}]")
+
+    def _layer_out(layer, x, o, B, T):
+        x = x + quant_matmul(o.reshape(B, T, -1), layer.attn.o.weight)
+        return x + _mlp(layer, _rmsnorm(x, layer.mlp_norm.scale, cfg.rms_eps))
+
+    def _blocks(t, B):
+        return t.reshape(B, c_blocks, block_size, cfg.n_kv_heads,
+                         cfg.head_dim)
+
+    def cont_ragged(model: LlamaForCausalLM, kv: KVPool, ids: torch.Tensor,
+                    n_text: torch.Tensor, block_tables: torch.Tensor,
+                    start_arr: torch.Tensor) -> Tuple[KVPool, torch.Tensor]:
+        B, T = ids.shape
+        dev = ids.device
+        x = model.embed.weight[ids.long()].to(torch.bfloat16)
+        start_arr = start_arr.to(device=dev, dtype=torch.int64)
+        positions = start_arr[:, None] + torch.arange(T, device=dev)[None, :]
+        sb = start_arr // block_size
+        tbl_chunk = torch.gather(
+            block_tables.long(), 1,
+            sb[:, None] + torch.arange(c_blocks, device=dev)[None, :])
+        tables = block_tables[:, :blocks_per_seq]
+        for li, layer in enumerate(model.layers):
+            h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
+            q, k, v = _qkv(layer, h, positions, cfg)
+            # the chunk goes in first: its queries then read their own keys
+            # through the pool, in the pool's table order
+            _scatter_blocks(kv[li], tbl_chunk, _blocks(k, B), _blocks(v, B),
+                            kv_quant)
+            o = _ragged_pool_attention(q, kv[li], tables, positions,
+                                       block_size)
+            x = _layer_out(layer, x, o, B, T)
+        last = x[torch.arange(B, device=dev), n_text.long() - 1]
+        return kv, _logits(model, last[:, None], cfg)[:, 0]
+
+    def cont_static(model: LlamaForCausalLM, kv: KVPool, ids: torch.Tensor,
+                    n_text: torch.Tensor, block_tables: torch.Tensor
+                    ) -> Tuple[KVPool, torch.Tensor]:
+        B, T = ids.shape
+        dev = ids.device
+        hkv, hd = cfg.n_kv_heads, cfg.head_dim
+        x = model.embed.weight[ids.long()].to(torch.bfloat16)
+        n = n_text + start          # valid tokens after this chunk
+        positions = (start + torch.arange(T, dtype=torch.int32, device=dev)
+                     ).expand(B, T)
+        tbl_prior = block_tables[:, :start_blocks].long()
+        goff = (tbl_prior[:, :, None] * block_size
+                + torch.arange(block_size, device=dev)[None, None, :]
+                ).reshape(B, start)
+        tbl_chunk = block_tables[:, start_blocks:start_blocks + c_blocks
+                                 ].long()
+        for li, layer in enumerate(model.layers):
+            h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
+            q, k, v = _qkv(layer, h, positions, cfg)
+            if kv_quant:
+                kprior = dequantize_kv_blocks(
+                    kv[li]["k"][tbl_prior], kv[li]["ks"][tbl_prior],
+                    q.dtype).reshape(B, start, hkv, hd)
+                vprior = dequantize_kv_blocks(
+                    kv[li]["v"][tbl_prior], kv[li]["vs"][tbl_prior],
+                    q.dtype).reshape(B, start, hkv, hd)
+            else:
+                kprior = kv[li]["k"].view(-1, hkv, hd)[goff].to(q.dtype)
+                vprior = kv[li]["v"].view(-1, hkv, hd)[goff].to(q.dtype)
+            o = dot_product_attention(
+                q, torch.cat([kprior, k], dim=1),
+                torch.cat([vprior, v], dim=1), kv_lengths=n, causal=True)
+            x = _layer_out(layer, x, o, B, T)
+            _scatter_blocks(kv[li], tbl_chunk, _blocks(k, B), _blocks(v, B),
+                            kv_quant)
+        last = x[torch.arange(B, device=dev), n_text.long() - 1]
+        return kv, _logits(model, last[:, None], cfg)[:, 0]
+
+    return cont_ragged if ragged else cont_static
+
+
 def _make_token_forward(cfg: LlamaConfig, block_size: int, m_ctx: int,
-                        max_num_seqs: int, T: int) -> Callable:
+                        max_num_seqs: int, T: int, ragged: bool = False,
+                        kv_quant: bool = False) -> Callable:
     """The paged-engine forward for ``T`` new tokens per sequence (decode
     is ``T = 1``): ``fwd(model, kv, tokens [B, T], positions [B, T],
     tables [B, >= m_ctx]) -> (kv, logits [B, T, V])``.
 
-    Scatters the ``T`` tokens' kv into the pool in place — positions past
-    the context window route to the null block — then every query attends
-    its own causal window through ``paged_decode_attention``, the ``T``
-    queries flattened into the row axis with per-row lengths.
+    Writes the ``T`` tokens' kv into the pool in place (positions past the
+    context window route to the null block; an int8 pool requantizes the
+    target block once per token), then every query attends its own causal
+    window, the ``T`` queries flattened into the row axis with per-row
+    lengths: through B3 with ``ragged`` (the full window), else through
+    ``paged_decode_attention`` over the ``m_ctx``-block context bucket,
+    which hands an int8 pool to B3 as well.
     """
     L = block_size * m_ctx
 
@@ -152,15 +330,31 @@ def _make_token_forward(cfg: LlamaConfig, block_size: int, m_ctx: int,
         widx = blk * block_size + pos % block_size           # [B, T]
         tables_f = tables.repeat_interleave(T, dim=0) if T > 1 else tables
         lengths_f = (pos + 1).clamp(1, L).reshape(B * T).to(torch.int32)
+        attend = ragged_kernel if ragged else paged_decode_attention
         for li, layer in enumerate(model.layers):
             h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
             q, kk, vv = _qkv(layer, h, positions, cfg)
-            kpool, vpool = kv[li]["k"], kv[li]["v"]
-            kpool.view(-1, cfg.n_kv_heads, hd)[widx] = kk.to(kpool.dtype)
-            vpool.view(-1, cfg.n_kv_heads, hd)[widx] = vv.to(vpool.dtype)
-            o = paged_decode_attention(
-                q.reshape(B * T, cfg.n_heads, hd).contiguous(), kpool, vpool,
-                tables_f, lengths_f).reshape(B, T, cfg.n_heads, hd)
+            lay = kv[li]
+            if kv_quant:
+                # one read-modify-write requantize of the target block per
+                # new token; a block's scale only grows
+                for t in range(T):
+                    bt = blk[:, t]
+                    pin = pos[:, t] % block_size
+                    for name, sname, new in (("k", "ks", kk), ("v", "vs", vv)):
+                        q8, sc = requantize_block_tokens(
+                            lay[name][bt], lay[sname][bt], new[:, t], pin)
+                        lay[name][bt] = q8
+                        lay[sname][bt] = sc
+            else:
+                lay["k"].view(-1, cfg.n_kv_heads, hd)[widx] = \
+                    kk.to(lay["k"].dtype)
+                lay["v"].view(-1, cfg.n_kv_heads, hd)[widx] = \
+                    vv.to(lay["v"].dtype)
+            ksc, vsc = _pool_scales(lay)
+            o = attend(q.reshape(B * T, cfg.n_heads, hd).contiguous(),
+                       lay["k"], lay["v"], tables_f, lengths_f, ksc,
+                       vsc).reshape(B, T, cfg.n_heads, hd)
             x = x + quant_matmul(o.reshape(B, T, -1), layer.attn.o.weight)
             x = x + _mlp(layer, _rmsnorm(x, layer.mlp_norm.scale,
                                          cfg.rms_eps))
@@ -170,7 +364,8 @@ def _make_token_forward(cfg: LlamaConfig, block_size: int, m_ctx: int,
 
 
 def make_decode(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
-                max_num_seqs: int, ctx_blocks: int = None) -> Callable:
+                max_num_seqs: int, ctx_blocks: Optional[int] = None,
+                ragged: bool = False, kv_quant: bool = False) -> Callable:
     """One decode step for the whole (compacted) slot batch:
     ``decode(model, kv, tokens [B], pos [B], tables [B, M], generator,
     temperature [B], top_k [B], top_p [B]) -> (kv, next_tokens [B])``.
@@ -180,11 +375,18 @@ def make_decode(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
     ``ctx_blocks`` bounds the attention window to the first ``ctx_blocks``
     table entries — the engine's context bucket, so decode cost follows
     the context in use. ``max_num_seqs`` is this call's batch bucket.
+    ``ragged`` (``SHAI_RAGGED_ATTENTION``): the window is the full table
+    and B3 follows each row's own length, so there is no context bucket.
+    ``kv_quant``: the pool is int8 (``SHAI_KV_QUANT=int8``).
     """
     m_ctx = blocks_per_seq if ctx_blocks is None else ctx_blocks
     if not 1 <= m_ctx <= blocks_per_seq:
         raise ValueError(f"ctx_blocks {m_ctx} outside [1, {blocks_per_seq}]")
-    fwd = _make_token_forward(cfg, block_size, m_ctx, max_num_seqs, 1)
+    if ragged and m_ctx != blocks_per_seq:
+        raise ValueError("ragged decode owns the full window; it takes no "
+                         "context bucket")
+    fwd = _make_token_forward(cfg, block_size, m_ctx, max_num_seqs, 1,
+                              ragged=ragged, kv_quant=kv_quant)
 
     def decode(model: LlamaForCausalLM, kv: KVPool, tokens: torch.Tensor,
                pos: torch.Tensor, tables: torch.Tensor,

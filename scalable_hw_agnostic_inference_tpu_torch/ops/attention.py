@@ -1,12 +1,13 @@
 """Multi-head attention with GQA, masking and implementation dispatch.
 
 Port of ``scalable_hw_agnostic_inference_tpu/ops/attention.py``
-(``_xla_attention``, ``causal_mask``, ``dot_product_attention``). The
-reference asks JAX which platform a computation runs on
-(``effective_platform``); here the tensor's own device answers: a CUDA
-tensor goes to the B1 kernel (or the call raises), a CPU tensor to the
-plain fp32-softmax path. The reference's TPU-measured dispatch
-thresholds and its branch into JAX's own TPU flash kernel do not carry over.
+(``_xla_attention``, ``causal_mask``, ``dot_product_attention``,
+``ragged_gather_attention``, ``ragged_paged_attention``). The reference
+asks JAX which platform a computation runs on (``effective_platform``);
+here the tensor's own device answers: a CUDA tensor goes to the B1 or B3
+kernel (or the call raises), a CPU tensor to the plain path. The
+reference's TPU-measured dispatch thresholds and its branch into JAX's own
+TPU flash kernel do not carry over.
 """
 
 from __future__ import annotations
@@ -16,6 +17,10 @@ from typing import Optional
 import torch
 
 from .cuda.flash_attention import flash_attention, flash_eligible
+from .cuda.ragged_paged_attention import (
+    ragged_paged_attention as _ragged_kernel,
+)
+from .quant import dequantize_kv_blocks
 
 NEG_INF = -1e30
 
@@ -98,3 +103,68 @@ def dot_product_attention(
         cm = causal_mask(T, S, offset=S - T, device=q.device)
         mask = cm if mask is None else (mask & cm)
     return _xla_attention(q, k, v, mask, bias, scale)
+
+
+# -- ragged paged attention (gather path + dispatch) -------------------------
+
+
+def ragged_gather_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,
+    positions: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Gather path of ragged paged attention: query ``(b, t)`` of ``q
+    [B, T, H, D]`` attends pool positions ``<= positions[b, t]`` through
+    row ``b``'s table ``tables [B, M]``. A dense gather of the table window
+    plus a per-query mask; an int8 pool (``k_scale``/``v_scale``
+    ``[N, Hkv]``) dequantizes to ``q``'s dtype right after a block-shaped
+    gather. Returns ``[B, T, H, D]``."""
+    B, T, H, D = q.shape
+    _N, block_size, Hkv, _ = k_pool.shape
+    M = tables.shape[1]
+    L = M * block_size
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    tables = tables.to(device=q.device, dtype=torch.int64)
+    if k_scale is not None:
+        kctx = dequantize_kv_blocks(k_pool[tables], k_scale[tables],
+                                    dtype=q.dtype).reshape(B, L, Hkv, D)
+        vctx = dequantize_kv_blocks(v_pool[tables], v_scale[tables],
+                                    dtype=q.dtype).reshape(B, L, Hkv, D)
+    else:
+        goff = (tables[:, :, None] * block_size
+                + torch.arange(block_size, device=q.device)[None, None, :]
+                ).reshape(B, L)
+        kctx = k_pool.reshape(-1, Hkv, D)[goff]
+        vctx = v_pool.reshape(-1, Hkv, D)[goff]
+    mask = (torch.arange(L, device=q.device)[None, None, :]
+            <= positions.to(q.device)[:, :, None])[:, None]  # [B, 1, T, L]
+    return _xla_attention(q, kctx, vctx, mask, None, scale)
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,
+    lengths: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Ragged paged attention of one query per row ``[rows, H, D]`` with
+    per-row ``lengths``: the B3 kernel on a CUDA tensor, the gather path
+    on the CPU. Multi-token callers flatten their queries into rows."""
+    if q.device.type == "cuda":
+        return _ragged_kernel(q, k_pool, v_pool, tables, lengths, k_scale,
+                              v_scale, scale=scale)
+    pos = (lengths.to(torch.int64) - 1)[:, None]
+    return ragged_gather_attention(q[:, None], k_pool, v_pool, tables, pos,
+                                   k_scale, v_scale, scale=scale)[:, 0]

@@ -44,16 +44,20 @@ def masked_softmax_attention(q: torch.Tensor, k: torch.Tensor,
     (broadcastable to ``[B,H,T,S]``) marking attended keys. Masked
     probabilities are zeroed explicitly, so a row with no live key gives
     zeros — the kernels' semantics, not a uniform average."""
-    H, Hkv = q.shape[2], k.shape[2]
-    k = k.float().repeat_interleave(H // Hkv, dim=2)
-    v = v.float().repeat_interleave(H // Hkv, dim=2)
-    s = torch.einsum("bthd,bshd->bhts", q.float(), k) * scale
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    # the G query heads of a kv head share its K/V: no copy per query head
+    qg = q.float().reshape(B, T, Hkv, G, D)
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k.float()).reshape(
+        B, H, T, -1) * scale
     s = torch.where(live, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(live, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhts,bshd->bthd", p / l.clamp_min(1e-20), v)
-    return o.to(q.dtype)
+    p = (p / l.clamp_min(1e-20)).reshape(B, Hkv, G, T, -1)
+    o = torch.einsum("bkgts,bskd->btkgd", p, v.float())
+    return o.reshape(B, T, H, D).to(q.dtype)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,

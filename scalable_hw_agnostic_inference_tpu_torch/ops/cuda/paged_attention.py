@@ -1,10 +1,12 @@
 """Paged decode attention: the B2 kernel's wrapper and its plain version.
 
 Port of ``scalable_hw_agnostic_inference_tpu/ops/pallas/paged_attention.py``
-(``paged_decode_attention``, bf16 pools; the int8 branch that delegates to
-the ragged kernel comes with that kernel). The TPU kernel becomes
+(``paged_decode_attention``). The TPU kernel becomes
 ``csrc/paged_attention.cu``; its source note says what bounds it on the
-H100 and what its design does about that.
+H100 and what its design does about that. An int8 pool (``k_scale`` and
+``v_scale`` given) goes to B3, ``ops.cuda.ragged_paged_attention``, on the
+caller's truncated tables, as the TPU kernel's int8 branch does
+(``paged_attention.py:127-132``): B3's counter rises then, not B2's.
 
 :func:`paged_decode_attention` launches the kernel for a CUDA tensor and
 raises for anything the kernel does not take; for a tensor on the CPU it
@@ -25,6 +27,7 @@ from .flash_attention import (
     _check_bf16_cuda,
     masked_softmax_attention,
 )
+from .ragged_paged_attention import ragged_paged_attention
 
 
 def paged_decode_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
@@ -55,7 +58,9 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
-                           lengths: torch.Tensor, *,
+                           lengths: torch.Tensor,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None, *,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Attend each row's query ``[B, H, D]`` over its paged context in the
     pool ``[N, bs, Hkv, D]`` through ``tables [B, M]`` (M may be a truncated
@@ -63,10 +68,15 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``[B, H, D]``. On a CUDA tensor this launches the B2 kernel (bf16,
     ``D`` in ``HEAD_DIMS``, at most 32 query heads per kv head) or raises;
     on a CPU tensor it runs :func:`paged_decode_attention_reference`.
+    ``k_scale``/``v_scale`` ``[N, Hkv]`` mark an int8 pool, which B3 reads
+    (on the CPU, B3's plain version).
 
     Table entries are trusted to be valid block ids: they are data on the
     device, and checking them would cost a host round trip per call.
     """
+    if k_scale is not None:
+        return ragged_paged_attention(q, k_pool, v_pool, tables, lengths,
+                                      k_scale, v_scale, scale=scale)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(q, k_pool, v_pool, tables,
                                                 lengths, scale=scale)

@@ -186,6 +186,8 @@ class VllmService(ModelService):
             raise HTTPError(400, "multimodal requests are not served by this "
                                  "port yet")
         prompt = str(payload.get("prompt", payload.get("text", "")))
+        # the engine's chunked-prefill cap, not the largest bucket: longer
+        # prompts chunk through the continuation prefill
         ids, n = self.tokenizer.encode(prompt, self._engine.max_prompt_len)
         ids = [int(i) for i in ids[:n]]
         params = self._sampling_from(payload)
@@ -205,6 +207,7 @@ class VllmService(ModelService):
         out = {
             "queue_waiting": eng.n_waiting,
             "seqs_running": eng.n_running,
+            "seqs_chunking": eng.n_chunking,
             "blocks_free": eng.cache.allocator.n_free,
             "blocks_total": self.ecfg.total_blocks,
         }

@@ -138,8 +138,14 @@ def test_engine_refuses_what_later_slices_bring(tiny):
     _, _, tcfg, model = tiny
     eng = LLMEngine(tcfg, model, tconfig.EngineConfig(**ENGINE_KW),
                     device="cpu")
-    with pytest.raises(ValueError, match="largest prefill bucket"):
-        eng.add_request(list(range(3, 3 + 65)))
+    # past the largest bucket a prompt chunks; past the chunk cap
+    # (min(max_model_len - 1, whole 64-token chunks) = 127) it keeps its
+    # tail, as the reference's add_request does
+    eng.add_request(list(range(3, 3 + 65)))
+    assert eng.waiting[-1].prompt_ids == list(range(3, 3 + 65))
+    eng.add_request(list(range(3, 3 + 200)))
+    assert eng.max_prompt_len == 127
+    assert eng.waiting[-1].prompt_ids == list(range(3, 3 + 200))[-127:]
     with pytest.raises(ValueError, match="empty prompt"):
         eng.add_request([])
     with pytest.raises(ValueError, match="logprobs"):
