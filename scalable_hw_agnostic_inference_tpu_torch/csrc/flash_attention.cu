@@ -13,234 +13,340 @@
 //
 // What bounds it on the H100: at prefill shapes (T = S >= 512, D = 128) the
 // work is about T / 2 multiply-adds per byte read, far above the card's ~295
-// operations per byte, so the tensor cores bound it. This first version
-// issues bf16 tensor-core products through WMMA (16x16x16 tiles, fp32
-// accumulation) and stages everything through shared memory:
-//   - one block owns a [64, D] query tile of one head; a loop over [64, D]
-//     K/V tiles replaces the TPU kernel's sequential grid axis, and stops at
-//     min(length, S - T + (tile + 1) * 64) so dead tiles are never read;
-//   - each of the 4 warps owns 16 query rows end to end (scores, softmax,
-//     its strip of the fp32 output accumulator), so only the K/V tile loads
-//     need block-wide barriers;
-//   - masked probabilities are zeroed explicitly (not through exp(-inf)), so
-//     a row whose first live tile is all masked is not poisoned by
-//     exp(NEG_INF - NEG_INF) = 1; key rows past the live bound are
-//     zero-filled, so garbage there cannot reach the output as 0 * inf.
-// Not yet done, and left for later work: wgmma, TMA loads, a producer warp
-// and register-resident accumulators.
+// operations per byte, so the tensor cores bound it, and only wgmma reaches
+// their full rate. The design (one CTA per query tile of one (b, h)):
+//   - a producer warp starts TMA loads: the query tile once, then K and V
+//     tiles of BK keys into a ring of STAGES shared-memory stages, each
+//     stage guarded by a "full" mbarrier (TMA bytes landed) and an "empty"
+//     one (every consumer thread done reading it);
+//   - NC consumer warpgroups, 64 query rows each, run S = Q K^T as wgmma
+//     with both operands in shared memory and S in registers; the online
+//     softmax runs in registers, a row's max across the 4 threads that hold
+//     it; P is rounded to bf16 in registers and fed as wgmma's register A
+//     operand for O += P V, V read MN-major from shared memory; O stays in
+//     registers until the epilogue writes it straight to global memory;
+//   - the tensor maps are rank 4, [B, T, H, D] for Q and [B, S, Hkv, D] for
+//     K/V, so a box past T or S is zero-filled by the hardware and never
+//     reads the next batch row; 128-byte swizzled boxes of 64 values;
+//   - the key walk stops at min(length, S - T + q0 + BQ), and a warpgroup
+//     skips the products of a tile wholly above its own diagonal; only a
+//     tile that crosses the diagonal or the length applies the mask, which
+//     is per element (the diagonal may fall anywhere: the static
+//     continuation calls with S - T a multiple of 16, not of a tile);
+//   - masked scores are -inf and a row whose running max is still -inf
+//     exponentiates against 0, so no exp(-inf - -inf) forms, and a row with
+//     no live key ends with l = 0 and writes zeros.
+// Numerics: 64-key tiles and p = exp(s * scale - m) in fp32 (__expf), the
+// choices of the WMMA kernel this one replaced, so the softmax rescales at
+// the same keys and P is rounded to bf16 from the same values: the redesign
+// changes the order of the products' fp32 sums, not where the kernel rounds.
+// Registers: O is D / 2 floats a thread; D >= 192 runs one consumer
+// warpgroup (64 query rows), so a thread may hold up to 255 registers, and
+// no instantiation spills without setmaxnreg. The tensor maps are encoded
+// on the host at every call (three cuTensorMapEncodeTiled calls, some
+// microseconds, not cached).
+// Left for later work: K and V on separate barriers, so S = Q K^T starts
+// before V lands; overlapping one tile's softmax with the next tile's
+// products (ping-pong between the two warpgroups); a TMA store epilogue.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper_sm90.cuh"
+
+using namespace shai_sm90;
 
 namespace {
 
-constexpr int BQ = 64;              // query rows per block
-constexpr int BK = 64;              // keys per tile
-constexpr int WARPS = BQ / 16;      // one warp per 16 query rows
-constexpr int THREADS = WARPS * 32;
-constexpr float NEG_INF = -1e30f;
+constexpr int WG = 128;       // threads in a warpgroup
+constexpr int WG_ROWS = 64;   // query rows per consumer warpgroup
+constexpr int STAGES = 2;     // K/V ring depth
+constexpr int CHUNK = 64;     // bf16 values per 128-byte swizzled row
 
-// Shared-memory layout. Row strides are padded against bank conflicts and
-// keep every WMMA tile pointer 32-byte aligned.
 template <int D>
-struct Layout {
-  static constexpr int LDB = D + 8;   // bf16 Q, K, V tiles
-  static constexpr int LDS = BK + 4;  // fp32 scores
-  static constexpr int LDP = BK + 8;  // bf16 probabilities
-  static constexpr int LDO = D + 4;   // fp32 output accumulator
+struct Cfg {
+  static constexpr int NC = D <= 128 ? 2 : 1;  // consumer warpgroups
+  static constexpr int BQ = NC * WG_ROWS;      // query rows per CTA
+  static constexpr int BK = 64;                 // keys per K/V tile
+  static constexpr int CH = D / CHUNK;         // 64-wide column chunks
+  static constexpr int THREADS = NC * WG + 32; // + one producer warp
+  static constexpr uint32_t Q_CHUNK = WG_ROWS * CHUNK * 2;  // bytes
+  static constexpr uint32_t KV_CHUNK = BK * CHUNK * 2;
+  static constexpr uint32_t Q_BYTES = NC * CH * Q_CHUNK;
+  static constexpr uint32_t KV_BYTES = CH * KV_CHUNK;  // one K or V tile
   static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + size_t(BQ) * LDB * 2;
-  static constexpr size_t v_off = k_off + size_t(BK) * LDB * 2;
-  static constexpr size_t s_off = v_off + size_t(BK) * LDB * 2;
-  static constexpr size_t p_off = s_off + size_t(BQ) * LDS * 4;
-  static constexpr size_t o_off = p_off + size_t(BQ) * LDP * 2;
-  static constexpr size_t bytes = o_off + size_t(BQ) * LDO * 4;
+  static constexpr size_t k_off = q_off + Q_BYTES;
+  static constexpr size_t v_off = k_off + size_t(STAGES) * KV_BYTES;
+  static constexpr size_t bar_off = v_off + size_t(STAGES) * KV_BYTES;
+  // barriers: q_full, full[STAGES], empty[STAGES]; 1024 bytes of slack to
+  // align the base to a swizzle atom
+  static constexpr size_t bytes = bar_off + 8 * (1 + 2 * STAGES) + 1024;
 };
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_kernel(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
              const int* __restrict__ lengths,
-             __nv_bfloat16* __restrict__ out,
-             int T, int S, int H, int Hkv, float scale, int causal) {
-  using L = Layout<D>;
-  constexpr int VEC = 8;         // bf16 values per 16-byte load
-  constexpr int VPR = D / VEC;   // 16-byte vectors per row
-  constexpr int HALF = BK / 2;   // score columns per lane
-  constexpr int DHALF = D / 2;   // output columns per lane
+             __nv_bfloat16* __restrict__ out, int T, int S, int H, int Hkv,
+             float scale, int causal) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem + C::q_off;
+  unsigned char* ks = smem + C::k_off;
+  unsigned char* vs = smem + C::v_off;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::bar_off);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L::k_off);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
-  float* ss = reinterpret_cast<float*>(smem + L::s_off);
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + L::p_off);
-  float* os = reinterpret_cast<float*>(smem + L::o_off);
-
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * C::BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / Hkv);
   const int q_offset = S - T;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
 
-  // keys at or past kv_len are masked; with causal masking the tile loop
-  // also stops at the last key the block's last query may see
   int kv_len = S;
   if (lengths != nullptr) kv_len = min(kv_len, max(lengths[b], 0));
   int bound = kv_len;
-  if (causal) bound = min(bound, q_offset + q0 + BQ);
+  if (causal) bound = min(bound, q_offset + q0 + C::BQ);
   const int n_tiles = bound > 0 ? (bound + BK - 1) / BK : 0;
 
-  for (int idx = tid; idx < BQ * VPR; idx += THREADS) {
-    const int r = idx / VPR;
-    const int c = (idx % VPR) * VEC;
-    const int t = q0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T) {
-      val = *reinterpret_cast<const uint4*>(
-          q + ((size_t(b) * T + t) * H + h) * D + c);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::NC * WG);
     }
-    *reinterpret_cast<uint4*>(qs + r * L::LDB + c) = val;
+    mbar_fence_init();
   }
-  float* ostrip = os + warp * 16 * L::LDO;
-  for (int idx = lane; idx < 16 * D; idx += 32) {
-    ostrip[(idx / D) * L::LDO + idx % D] = 0.f;
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == C::NC) {
+    // producer warp: one lane starts every TMA load
+    if (threadIdx.x % 32 == 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int g = 0; g < C::NC; ++g) {
+        for (int c = 0; c < C::CH; ++c) {
+          tma_load_4d(qs + (g * C::CH + c) * C::Q_CHUNK, &tm_q, q_full,
+                      c * CHUNK, h, q0 + g * WG_ROWS, b);
+        }
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+        for (int c = 0; c < C::CH; ++c) {
+          tma_load_4d(ks + s * C::KV_BYTES + c * C::KV_CHUNK, &tm_k,
+                      &full[s], c * CHUNK, kvh, j * BK, b);
+          tma_load_4d(vs + s * C::KV_BYTES + c * C::KV_CHUNK, &tm_v,
+                      &full[s], c * CHUNK, kvh, j * BK, b);
+        }
+      }
+    }
+    return;
   }
 
-  // each lane pair owns one query row: lane / 2 picks the row, lane % 2
-  // the half of the score and output columns
-  const int lrow = lane >> 1;
-  const int half = lane & 1;
-  const int row = warp * 16 + lrow;
-  const int qpos = q_offset + q0 + row;
-  float m_i = NEG_INF;
-  float l_i = 0.f;
+  // consumer warpgroup wg: query rows q0 + 64 wg ... + 63; this thread
+  // holds rows r0 and r0 + 8 of them, columns 8 i + 2 (lane % 4) + {0, 1}
+  const int tid = threadIdx.x % WG;
+  const int lane = tid % 32;
+  const int r0 = (tid / 32) * 16 + lane / 4;
+  const int row_base = q0 + wg * WG_ROWS;
+  const int first_pos = q_offset + row_base;  // this warpgroup's diagonal
+  const int qpos0 = first_pos + r0;
+  const int qpos1 = qpos0 + 8;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  const unsigned char* qw = qs + wg * C::CH * C::Q_CHUNK;
+  mbar_wait(q_full, 0);
 
   for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % STAGES;
+    mbar_wait(&full[s], (j / STAGES) & 1);
     const int k0 = j * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int idx = tid; idx < BK * VPR; idx += THREADS) {
-      const int r = idx / VPR;
-      const int c = (idx % VPR) * VEC;
-      const int s = k0 + r;
-      uint4 kval = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vval = make_uint4(0u, 0u, 0u, 0u);
-      if (s < kv_len) {
-        const size_t off = ((size_t(b) * S + s) * Hkv + kvh) * D + c;
-        kval = *reinterpret_cast<const uint4*>(k + off);
-        vval = *reinterpret_cast<const uint4*>(v + off);
+    if (!causal || k0 <= first_pos + WG_ROWS - 1) {
+      const unsigned char* kt = ks + s * C::KV_BYTES;
+      const unsigned char* vt = vs + s * C::KV_BYTES;
+      float sc[BK / 2];
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk % 4) * 32;  // 16 values = 32 bytes
+        Ss<BK>::mma(sc,
+                    desc_sw128(qw + (kk / 4) * C::Q_CHUNK + off, 16),
+                    desc_sw128(kt + (kk / 4) * C::KV_CHUNK + off, 16),
+                    kk > 0);
       }
-      *reinterpret_cast<uint4*>(ks + r * L::LDB + c) = kval;
-      *reinterpret_cast<uint4*>(vs + r * L::LDB + c) = vval;
-    }
-    __syncthreads();
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
 
-    // scores for this warp's 16 rows: [16, D] x [D, BK]
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[BK / 16];
+      // scale, mask where the tile crosses the length or
+      // this warpgroup's diagonal, row max over the 4 threads of a row
+      const bool masked = k0 + BK > kv_len ||
+                          (causal && k0 + BK - 1 > first_pos);
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(sacc[n], 0.f);
+      for (int i = 0; i < BK / 8; ++i) {
 #pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::load_matrix_sync(a, qs + warp * 16 * L::LDB + kk, L::LDB);
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        // K^T as a column-major [D, BK] operand read straight from K rows
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> bt;
-        wmma::load_matrix_sync(bt, ks + n * 16 * L::LDB + kk, L::LDB);
-        wmma::mma_sync(sacc[n], a, bt, sacc[n]);
+        for (int e = 0; e < 2; ++e) {
+          float x0 = sc[4 * i + e] * scale;
+          float x1 = sc[4 * i + 2 + e] * scale;
+          if (masked) {
+            const int kpos = k0 + 8 * i + 2 * (lane % 4) + e;
+            const bool in = kpos < kv_len;
+            if (!in || (causal && kpos > qpos0)) x0 = -INFINITY;
+            if (!in || (causal && kpos > qpos1)) x1 = -INFINITY;
+          }
+          sc[4 * i + e] = x0;
+          sc[4 * i + 2 + e] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
+        }
       }
-    }
-    float* sstrip = ss + warp * 16 * L::LDS;
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::store_matrix_sync(sstrip + n * 16, sacc[n], L::LDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax over this row's half of the tile
-    const float* srow = sstrip + lrow * L::LDS + half * HALF;
-    const int kbase = k0 + half * HALF;
-    float sv[HALF];
-    float mx = NEG_INF;
+      for (int w = 1; w < 4; w <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+      }
+      const float n0 = fmaxf(m0, mx0);
+      const float n1 = fmaxf(m1, mx1);
+      // a row with no live key so far exponentiates against 0: every term
+      // is exp(-inf) = 0, and no -inf - -inf is formed
+      const float u0 = n0 == -INFINITY ? 0.f : n0;
+      const float u1 = n1 == -INFINITY ? 0.f : n1;
+      const float c0 = __expf(m0 - u0);
+      const float c1 = __expf(m1 - u1);
+      m0 = n0;
+      m1 = n1;
+      float s0 = 0.f, s1 = 0.f;
+      uint32_t pf[BK / 16][4];
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) {
-      const int kpos = kbase + c;
-      const bool live = kpos < kv_len && (!causal || qpos >= kpos);
-      sv[c] = live ? srow[c] * scale : NEG_INF;
-      mx = fmaxf(mx, sv[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    const float corr = __expf(m_i - m_new);
-    __nv_bfloat16* prow = ps + row * L::LDP + half * HALF;
-    float sum = 0.f;
+      for (int i = 0; i < BK / 8; ++i) {
+        const float p00 = __expf(sc[4 * i] - u0);
+        const float p01 = __expf(sc[4 * i + 1] - u0);
+        const float p10 = __expf(sc[4 * i + 2] - u1);
+        const float p11 = __expf(sc[4 * i + 3] - u1);
+        s0 += p00 + p01;
+        s1 += p10 + p11;
+        // accumulator columns 16 kk .. 16 kk + 15 are wgmma's A fragment
+        pf[i / 2][(i % 2) * 2] = pack_bf16(p00, p01);
+        pf[i / 2][(i % 2) * 2 + 1] = pack_bf16(p10, p11);
+      }
+      // l stays a per-thread partial sum: the row's 4 threads add theirs
+      // in the epilogue
+      l0 = l0 * c0 + s0;
+      l1 = l1 * c1 + s1;
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) {
-      const int kpos = kbase + c;
-      const bool live = kpos < kv_len && (!causal || qpos >= kpos);
-      const float p = live ? __expf(sv[c] - m_new) : 0.f;
-      sum += p;
-      prow[c] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_i = l_i * corr + sum;
-    m_i = m_new;
-    float* orow = ostrip + lrow * L::LDO + half * DHALF;
-#pragma unroll 8
-    for (int c = 0; c < DHALF; ++c) orow[c] *= corr;
-    __syncwarp();
-
-    // output strip += P [16, BK] x V [BK, D]
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> pa[BK / 16];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::load_matrix_sync(pa[kk], ps + warp * 16 * L::LDP + kk * 16,
-                             L::LDP);
-    }
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-      wmma::load_matrix_sync(oacc, ostrip + n * 16, L::LDO,
-                             wmma::mem_row_major);
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i] *= c0;
+        o[4 * i + 1] *= c0;
+        o[4 * i + 2] *= c1;
+        o[4 * i + 3] *= c1;
+      }
+      fence_regs(o);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, vs + kk * 16 * L::LDB + n * 16, L::LDB);
-        wmma::mma_sync(oacc, pa[kk], vb, oacc);
+        Rs<D>::mma(o, pf[kk], desc_sw128(vt + kk * 16 * 128, C::KV_CHUNK),
+                   1);
       }
-      wmma::store_matrix_sync(ostrip + n * 16, oacc, L::LDO,
-                              wmma::mem_row_major);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
     }
-    __syncwarp();
+    mbar_arrive(&empty[s]);
   }
-  __syncwarp();
 
-  const int t = q0 + row;
-  if (t < T) {
-    const float inv = 1.f / fmaxf(l_i, 1e-20f);
-    const float* orow = ostrip + lrow * L::LDO + half * DHALF;
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-        out + ((size_t(b) * T + t) * H + h) * D + half * DHALF);
-#pragma unroll 8
-    for (int c = 0; c < DHALF; c += 2) {
-      dst[c / 2] = __floats2bfloat162_rn(orow[c] * inv, orow[c + 1] * inv);
+#pragma unroll
+  for (int w = 1; w < 4; w <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+  }
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  const int t0 = row_base + r0;
+  const int t1 = t0 + 8;
+  const int col = 2 * (lane % 4);
+  __nv_bfloat16* dst0 = out + ((size_t(b) * T + t0) * H + h) * D + col;
+  __nv_bfloat16* dst1 = out + ((size_t(b) * T + t1) * H + h) * D + col;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    if (t0 < T) {
+      *reinterpret_cast<__nv_bfloat162*>(dst0 + 8 * i) =
+          __floats2bfloat162_rn(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+    }
+    if (t1 < T) {
+      *reinterpret_cast<__nv_bfloat162*>(dst1 + 8 * i) =
+          __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
     }
   }
+}
+
+// cuTensorMapEncodeTiled, fetched through the runtime's
+// cudaGetDriverEntryPoint so that the library does not link libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A rank-4 map over a contiguous bf16 [n3, n2, n1, 64 * k] tensor with a
+// box of [1, rows, 1, 64] values, 128-byte swizzled; out-of-range
+// elements of a box read as zero.
+bool encode_4d(CUtensorMap* map, const void* base, int n3, int n2, int n1,
+               int n0, int rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(n0), cuuint64_t(n1),
+                              cuuint64_t(n2), cuuint64_t(n3)};
+  const cuuint64_t strides[3] = {cuuint64_t(n0) * 2,
+                                 cuuint64_t(n0) * n1 * 2,
+                                 cuuint64_t(n0) * n1 * n2 * 2};
+  const cuuint32_t box[4] = {CHUNK, 1, cuuint32_t(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
@@ -248,18 +354,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lengths, void* out, int B, int T, int S,
                    int H, int Hkv, float scale, int causal,
                    cudaStream_t stream) {
-  const size_t smem = Layout<D>::bytes;
+  using C = Cfg<D>;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_4d(&tm_q, q, B, T, H, D, WG_ROWS) ||
+      !encode_4d(&tm_k, k, B, S, Hkv, D, C::BK) ||
+      !encode_4d(&tm_v, v, B, S, Hkv, D, C::BK)) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(C::bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out), T,
-      S, H, Hkv, scale, causal);
+  const dim3 grid((T + C::BQ - 1) / C::BQ, H, B);
+  flash_kernel<D><<<grid, C::THREADS, C::bytes, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<const int*>(lengths),
+      static_cast<__nv_bfloat16*>(out), T, S, H, Hkv, scale, causal);
   return cudaGetLastError();
 }
 

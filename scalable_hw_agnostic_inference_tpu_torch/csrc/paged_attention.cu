@@ -14,8 +14,8 @@
 // What bounds it on the H100: one multiply-add per K or V element read, so
 // device-memory bytes bound it (about 2 operations per byte against the
 // card's ~295). The design therefore reads each live byte once and nothing
-// else. The walk is the device core this kernel shares with B3
-// (paged_attention_core.cuh); int8 pools never come here, the wrapper sends
+// else. The walk is this kernel's device core (paged_attention_core.cuh,
+// no longer shared with B3); int8 pools never come here, the wrapper sends
 // them to B3 as the TPU kernel's int8 branch does:
 //   - one block per (row, kv head) holds all G = H / Hkv query heads of the
 //     GQA group (one warp each), so a K/V block is fetched once for the

@@ -1,7 +1,7 @@
-// The device core the paged kernels share: B2 (paged_attention.cu, bf16
-// pools) and B3 (ragged_paged_attention.cu, bf16 or int8 pools). Each entry
-// point keeps its own kernel, contract, checks and launch counter; only the
-// walk over one row's paged context lives here.
+// B2's device core (paged_attention.cu, bf16 pools): the walk over one
+// row's paged context. It is B2's alone: B3 (ragged_paged_attention.cu)
+// shared it until B3 moved to tensor-core query tiles with split-K decode,
+// and B2 is next to move onto that walk.
 //
 // One CUDA block attends one (row, kv head): its G = H / Hkv warps each own
 // one query head of the GQA group, so a K/V block is fetched once for the
@@ -41,7 +41,8 @@ inline size_t smem_bytes(int bs) {
 
 // Attend query row b, kv head kvh. T is the pool's element type; an int8
 // pool (T = int8_t) reads k_scale / v_scale [N, Hkv], a bf16 pool ignores
-// them. smem holds smem_bytes<D, T>(bs) bytes, 16-byte aligned. Needs
+// them (B2 instantiates only the bf16 walk). smem holds
+// smem_bytes<D, T>(bs) bytes, 16-byte aligned. Needs
 // blockDim.x == 32 * (H / Hkv).
 template <int D, typename T>
 __device__ __forceinline__ void attend_row(

@@ -1,58 +1,492 @@
 // Ragged paged attention for Hopper (kernel B3): every row's query attends
-// exactly its own live blocks of the paged KV pool, over the full table
-// window, with an optional in-kernel int8 dequant.
+// exactly its own live keys of the paged KV pool, over the full table
+// window, with an optional int8 pool.
 //
 // Replaces: scalable_hw_agnostic_inference_tpu/ops/pallas/
 // ragged_paged_attention.py ragged_paged_attention (kernel _ragged_kernel,
 // pallas_call at :188).
 //
-// Contract (the same as the TPU kernel's):
+// Contract (the TPU kernel's, plus a stated sharing of tables):
 //   q [rows, H, D] bf16, k/v pool [N, bs, Hkv, D] bf16 or int8, with an int8
 //   pool k_scale / v_scale [N, Hkv] f32 (one scale per block and kv head),
-//   tables [rows, M] int32 (M = blocks_per_seq, the full window), lengths
-//   [rows] int32 -> out [rows, H, D] bf16. Keys at or past lengths[r] are
-//   masked; the work of a row follows cdiv(lengths[r], bs), not M; an int8
-//   value counts as value * scale[block, kv head], all math in fp32; a row
-//   of length 0 returns zeros. Callers with several queries per sequence
-//   (the chunked-prefill continuation) flatten them one per row, each row
-//   with its own length and a copy of the sequence's table.
+//   tables [rows / R, M] int32 (M = blocks_per_seq, the full window; each
+//   run of R = rows_per_table consecutive rows shares one table row; R = 1
+//   is the TPU kernel's contract), lengths [rows] int32 -> out [rows, H, D]
+//   bf16. Keys at or past lengths[r] are masked; a row's work follows its
+//   length, not M; an int8 value counts as value * scale[block, kv head];
+//   Q K^T and P V run on bf16 operands with fp32 accumulation and an fp32
+//   softmax (Q and P are rounded to bf16, as in B1); a row of length 0
+//   returns zeros. The chunked-prefill continuation passes R = its chunk
+//   length, each row's length start + t + 1 (a causal edge).
 //
-// What bounds it on the H100: one multiply-add per K or V element read, so
-// device-memory bytes bound it, and an int8 pool halves those bytes. The
-// walk is the device core B3 shares with B2 (paged_attention_core.cuh):
-//   - one block per (row, kv head) holds the whole GQA group (one warp per
-//     query head), so a K/V block is fetched once for the group;
-//   - the walk stops at min(M, cdiv(length, bs)) table entries: dead blocks
-//     are neither read nor computed, which is what the TPU kernel's
-//     compute skip plus revisit elision do over its (rows, M) grid;
-//   - an int8 block streams as int8 (16 values per 16-byte load) with its
-//     two f32 scales, and is dequantized in registers;
-//   - the online softmax is fp32 in registers.
-// Known limits, left for later work: at decode (8 rows, 8 kv heads) the grid
-// has 64 blocks for 132 SMs and each walks its context alone, the same
-// occupancy limit as B2, fixed by split-K with a second reduction pass; the
-// continuation layout (512 rows x 8 kv heads) fills the card but reads the
-// sequence's prior context once per query row, from L2 at best, where one
-// block per query tile would read it once.
+// What bounds it on the H100: at decode, one multiply-add per K or V
+// element read, so device-memory bytes bound it and an int8 pool halves
+// them; at the continuation (512 rows sharing one context), rows x keys
+// products over one read of the context, so the tensor cores do. The
+// design:
+//   - one CTA per (tile of RT consecutive rows of one table, kv head,
+//     split); its product rows are the tile's rows times the G = H / Hkv
+//     query heads of the kv head (16 rows x 4 heads = 64 at the
+//     continuation, one warp of 16 product rows per 16), so a K/V key tile
+//     is read once per tile, not once per query row;
+//   - the CTA walks its table's live keys in tiles of 64, up to the tile's
+//     largest length; each product row masks by its own length;
+//   - products run on tensor cores with mma.sync m16n8k16 (bf16 in, fp32
+//     out), fragments through ldmatrix from padded shared-memory rows, K/V
+//     key tiles double-buffered by cp.async. Not wgmma and TMA: a key tile
+//     is gathered token by token through the table (a [bs, D] box per
+//     entry at stride Hkv D), an int8 tile must become bf16 in shared
+//     memory before any tensor-core read, and a decode tile has 4 useful
+//     product rows, a quarter of one m16 tile, let alone a 64-row wgmma;
+//   - int8 without a dequant pass: each int8 tile is converted to bf16 in
+//     shared memory (exact: every value in -128..127 is a bf16), the block's
+//     k_scale multiplies the fp32 scores of its keys, and its v_scale
+//     multiplies P's columns before P is rounded to bf16 for P V; the row
+//     sum l takes the unscaled P. bf16 and int8 pools then share one
+//     tensor-core path;
+//   - split-K for decode: when the grid alone would not fill the card,
+//     `splits` CTAs share each row's key tiles evenly; each writes fp32
+//     partials (m, l, acc) to scratch, and merge_kernel combines them by
+//     log-sum-exp, skipping a split with l = 0 (no live key), so no
+//     exp(-inf - -inf) forms;
+//   - keys past the tile's largest length are zero-filled, never read, so
+//     no stale pool value reaches P V; masked scores are -inf and a row
+//     whose running max is still -inf exponentiates against 0.
+// Left for later work: wgmma with a TMA gather of table entries for the
+// continuation; a 4-warp decode CTA that splits one key tile across warps;
+// B2's move onto this walk.
 
-#include "paged_attention_core.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
+constexpr int KT = 64;         // keys per tile
+constexpr int MAX_PROWS = 64;  // product rows per CTA (4 warps)
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when `bytes` is 0.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma16816(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Shared memory of one CTA with `warps` warps (16 product rows each):
+//   q    [warps * 16][LD] bf16 (rows padded by 8 values against ldmatrix
+//        bank conflicts);
+//   k, v [2 stages][KT][SLD] of the pool type (SLD = LD for bf16, read in
+//        place; D for int8, a staging copy);
+//   int8 only: kc, vc [KT][LD] bf16 (the converted tile) and the per-key
+//        scales ks, vs [2 stages][KT] f32.
 template <int D, typename T>
-__global__ void ragged_kernel(const __nv_bfloat16* __restrict__ q,
-                              const T* __restrict__ k_pool,
-                              const T* __restrict__ v_pool,
-                              const float* __restrict__ k_scale,
-                              const float* __restrict__ v_scale,
-                              const int* __restrict__ tables,
-                              const int* __restrict__ lengths,
-                              __nv_bfloat16* __restrict__ out, int H, int Hkv,
-                              int bs, int M, float scale) {
+struct Smem {
+  static constexpr bool QUANT = sizeof(T) == 1;
+  static constexpr int LD = D + 8;
+  static constexpr int SLD = QUANT ? D : LD;
+  static constexpr size_t stage = size_t(KT) * SLD * sizeof(T);
+  static __host__ __device__ size_t q_bytes(int warps) {
+    return size_t(warps) * 16 * LD * 2;
+  }
+  static __host__ __device__ size_t bytes(int warps) {
+    size_t n = q_bytes(warps) + 4 * stage;
+    if (QUANT) n += 2 * size_t(KT) * LD * 2 + 4 * KT * sizeof(float);
+    return n;
+  }
+};
+
+template <int D, typename T>
+__global__ void __launch_bounds__(128)
+ragged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
+              const T* __restrict__ vp, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ tables,
+              const int* __restrict__ lengths,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+              float* __restrict__ part_ml, int rows, int R, int RT, int G,
+              int H, int Hkv, int bs, int M, float sl2) {
+  using SM = Smem<D, T>;
+  constexpr bool QUANT = SM::QUANT;
+  constexpr int LD = SM::LD;
+  constexpr int SLD = SM::SLD;
+  constexpr int EPC = 16 / int(sizeof(T));  // pool values per 16 bytes
+  constexpr int CPK = D / EPC;              // 16-byte chunks per key
+  const int warps = blockDim.x / 32;
+  const int nthr = blockDim.x;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
   extern __shared__ __align__(16) unsigned char smem[];
-  shai_paged::attend_row<D, T>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                               lengths, out, blockIdx.x, blockIdx.y, H, Hkv,
-                               bs, M, scale, smem);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  T* kst = reinterpret_cast<T*>(smem + SM::q_bytes(warps));
+  T* vst = reinterpret_cast<T*>(smem + SM::q_bytes(warps) + 2 * SM::stage);
+  unsigned char* tail = smem + SM::q_bytes(warps) + 4 * SM::stage;
+  __nv_bfloat16* kc = reinterpret_cast<__nv_bfloat16*>(tail);
+  __nv_bfloat16* vc = kc + KT * LD;
+  float* kss = reinterpret_cast<float*>(vc + KT * LD);
+  float* vss = kss + 2 * KT;
+
+  // this CTA's rows: tile `sub` of table `tg`
+  const int tpt = (R + RT - 1) / RT;
+  const int tg = blockIdx.x / tpt;
+  const int sub = blockIdx.x % tpt;
+  const int row0 = tg * R + sub * RT;
+  const int nr = min(RT, R - sub * RT);
+  const int kvh = blockIdx.y;
+  const int split = blockIdx.z;
+  const int splits = gridDim.z;
+  const int* trow = tables + size_t(tg) * M;
+  const int window = M * bs;
+
+  // the two product rows this thread holds: warp * 16 + lane / 4 (+ 8)
+  int prow[2], phead[2], plen[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int p = warp * 16 + lane / 4 + 8 * e;
+    const int rt = p / G;
+    prow[e] = rt < nr ? row0 + rt : -1;
+    phead[e] = kvh * G + p % G;
+    plen[e] = prow[e] >= 0 ? min(max(lengths[prow[e]], 0), window) : 0;
+  }
+  int maxlen = 0;
+  for (int r = 0; r < nr; ++r) {
+    maxlen = max(maxlen, min(max(lengths[row0 + r], 0), window));
+  }
+  const int nkt = (maxlen + KT - 1) / KT;
+  const int per = (nkt + splits - 1) / splits;
+  const int kt_begin = split * per;
+  const int kt_end = min(nkt, kt_begin + per);
+
+  // queries of the product rows, zeros past the tile
+  for (int i = tid; i < warps * 16 * (D / 8); i += nthr) {
+    const int p = i / (D / 8);
+    const int c = (i % (D / 8)) * 8;
+    const int rt = p / G;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (rt < nr) {
+      val = *reinterpret_cast<const uint4*>(
+          q + ((size_t(row0 + rt) * H + kvh * G + p % G) * D + c));
+    }
+    *reinterpret_cast<uint4*>(qs + p * LD + c) = val;
+  }
+
+  auto load_tile = [&](int kt, int st) {
+    const int kbase = kt * KT;
+    for (int i = tid; i < KT * CPK; i += nthr) {
+      const int key = i / CPK;
+      const int c = (i % CPK) * EPC;
+      const int kpos = kbase + key;
+      const T* srck = kp;
+      const T* srcv = vp;
+      int bytes = 0;
+      if (kpos < maxlen) {
+        const size_t blk = static_cast<size_t>(trow[kpos / bs]);
+        const size_t off = ((blk * bs + kpos % bs) * Hkv + kvh) * D + c;
+        srck = kp + off;
+        srcv = vp + off;
+        bytes = 16;
+      }
+      cp_async16(kst + (size_t(st) * KT + key) * SLD + c, srck, bytes);
+      cp_async16(vst + (size_t(st) * KT + key) * SLD + c, srcv, bytes);
+    }
+    if constexpr (QUANT) {
+      for (int i = tid; i < KT; i += nthr) {
+        const int kpos = kbase + i;
+        float ks = 0.f, vs = 0.f;
+        if (kpos < maxlen) {
+          const size_t blk = static_cast<size_t>(trow[kpos / bs]);
+          ks = k_scale[blk * Hkv + kvh];
+          vs = v_scale[blk * Hkv + kvh];
+        }
+        kss[st * KT + i] = ks;
+        vss[st * KT + i] = vs;
+      }
+    }
+  };
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  }
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  if (kt_begin < kt_end) load_tile(kt_begin, 0);
+  cp_async_commit();
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) load_tile(kt + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();
+    const __nv_bfloat16* kt_s;
+    const __nv_bfloat16* vt_s;
+    if constexpr (QUANT) {
+      // int8 -> bf16 in shared memory, exact; the scales stay apart
+      for (int i = tid; i < KT * (D / 16); i += nthr) {
+        const int key = i / (D / 16);
+        const int c = (i % (D / 16)) * 16;
+        const int8_t* sk = kst + (size_t(st) * KT + key) * SLD + c;
+        const int8_t* sv = vst + (size_t(st) * KT + key) * SLD + c;
+        const int4 rk = *reinterpret_cast<const int4*>(sk);
+        const int4 rv = *reinterpret_cast<const int4*>(sv);
+        const int8_t* bk = reinterpret_cast<const int8_t*>(&rk);
+        const int8_t* bv = reinterpret_cast<const int8_t*>(&rv);
+        uint32_t wk[8], wv[8];
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          wk[x] = pack_bf16(float(bk[2 * x]), float(bk[2 * x + 1]));
+          wv[x] = pack_bf16(float(bv[2 * x]), float(bv[2 * x + 1]));
+        }
+        uint4* dk = reinterpret_cast<uint4*>(kc + key * LD + c);
+        uint4* dv = reinterpret_cast<uint4*>(vc + key * LD + c);
+        dk[0] = make_uint4(wk[0], wk[1], wk[2], wk[3]);
+        dk[1] = make_uint4(wk[4], wk[5], wk[6], wk[7]);
+        dv[0] = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+        dv[1] = make_uint4(wv[4], wv[5], wv[6], wv[7]);
+      }
+      __syncthreads();
+      kt_s = kc;
+      vt_s = vc;
+    } else {
+      kt_s = reinterpret_cast<const __nv_bfloat16*>(kst) +
+             size_t(st) * KT * LD;
+      vt_s = reinterpret_cast<const __nv_bfloat16*>(vst) +
+             size_t(st) * KT * LD;
+    }
+
+    // S = Q K^T for this warp's 16 product rows x 64 keys
+    float sc[KT / 8][4];
+#pragma unroll
+    for (int n = 0; n < KT / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qs + (warp * 16 + lane % 16) * LD + kk * 16 +
+                         (lane / 16) * 8);
+#pragma unroll
+      for (int j = 0; j < KT / 16; ++j) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, kt_s + (j * 16 + lane % 8 + (lane / 16) * 8) * LD +
+                            kk * 16 + ((lane / 8) % 2) * 8);
+        mma16816(sc[2 * j], a, bf[0], bf[1]);
+        mma16816(sc[2 * j + 1], a, bf[2], bf[3]);
+      }
+    }
+
+    // mask by each row's length, fold k_scale and the softmax scale in
+    const int kbase = kt * KT;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < KT / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kl = 8 * n + 2 * (lane % 4) + e;
+        float mul = sl2;
+        if constexpr (QUANT) mul *= kss[st * KT + kl];
+        const int kpos = kbase + kl;
+        const float x0 = kpos < plen[0] ? sc[n][e] * mul : -INFINITY;
+        const float x1 = kpos < plen[1] ? sc[n][2 + e] * mul : -INFINITY;
+        sc[n][e] = x0;
+        sc[n][2 + e] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+    }
+#pragma unroll
+    for (int w = 1; w < 4; w <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+    }
+    const float n0 = fmaxf(m0, mx0);
+    const float n1 = fmaxf(m1, mx1);
+    const float u0 = n0 == -INFINITY ? 0.f : n0;
+    const float u1 = n1 == -INFINITY ? 0.f : n1;
+    const float c0 = exp2f(m0 - u0);
+    const float c1 = exp2f(m1 - u1);
+    m0 = n0;
+    m1 = n1;
+    float s0 = 0.f, s1 = 0.f;
+    uint32_t pa[KT / 16][4];
+#pragma unroll
+    for (int n = 0; n < KT / 8; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(sc[n][e] - (e < 2 ? u0 : u1));
+      }
+      s0 += p[0] + p[1];
+      s1 += p[2] + p[3];
+      if constexpr (QUANT) {
+        // v_scale folds into P's columns before the bf16 rounding
+        const int kl = 8 * n + 2 * (lane % 4);
+        const float v0 = vss[st * KT + kl];
+        const float v1 = vss[st * KT + kl + 1];
+        p[0] *= v0;
+        p[1] *= v1;
+        p[2] *= v0;
+        p[3] *= v1;
+      }
+      pa[n / 2][(n % 2) * 2] = pack_bf16(p[0], p[1]);
+      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+    l0 = l0 * c0 + s0;
+    l1 = l1 * c1 + s1;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= c0;
+      o[n][1] *= c0;
+      o[n][2] *= c1;
+      o[n][3] *= c1;
+    }
+    // O += P V
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vt_s + (kk * 16 + lane % 8 +
+                                      ((lane / 8) % 2) * 8) * LD +
+                                  j * 16 + (lane / 16) * 8);
+        mma16816(o[2 * j], pa[kk], bf[0], bf[1]);
+        mma16816(o[2 * j + 1], pa[kk], bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // this stage (and the int8 copy) may be overwritten
+  }
+
+#pragma unroll
+  for (int w = 1; w < 4; w <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+  }
+  const int col = 2 * (lane % 4);
+  if (splits == 1) {
+    const float inv[2] = {l0 > 0.f ? 1.f / l0 : 0.f,
+                          l1 > 0.f ? 1.f / l1 : 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (prow[e] < 0) continue;
+      __nv_bfloat16* dst =
+          out + (size_t(prow[e]) * H + phead[e]) * D + col;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
+            __floats2bfloat162_rn(o[n][2 * e] * inv[e],
+                                  o[n][2 * e + 1] * inv[e]);
+      }
+    }
+    return;
+  }
+  // split-K partials: unnormalized acc, m in log2 units, l
+  const float mm[2] = {m0, m1};
+  const float ll[2] = {l0, l1};
+  const size_t n_out = size_t(rows) * H;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (prow[e] < 0) continue;
+    const size_t idx = size_t(split) * n_out + size_t(prow[e]) * H +
+                       phead[e];
+    float* dst = part_o + idx * D + col;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(o[n][2 * e], o[n][2 * e + 1]);
+    }
+    if (lane % 4 == 0) {
+      part_ml[2 * idx] = mm[e];
+      part_ml[2 * idx + 1] = ll[e];
+    }
+  }
+}
+
+// Merge `splits` partials of each (row, head) by log-sum-exp: one warp per
+// output vector. A split with l = 0 saw no live key and is skipped; if all
+// are, the output is zeros.
+template <int D>
+__global__ void merge_kernel(const float* __restrict__ part_o,
+                             const float* __restrict__ part_ml,
+                             __nv_bfloat16* __restrict__ out, int n_out,
+                             int splits) {
+  const int i = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (i >= n_out) return;
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) {
+    const size_t idx = size_t(s) * n_out + i;
+    if (part_ml[2 * idx + 1] > 0.f) mx = fmaxf(mx, part_ml[2 * idx]);
+  }
+  float acc[D / 32];
+#pragma unroll
+  for (int c = 0; c < D / 32; ++c) acc[c] = 0.f;
+  float l = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const size_t idx = size_t(s) * n_out + i;
+    const float ls = part_ml[2 * idx + 1];
+    if (!(ls > 0.f)) continue;
+    const float w = exp2f(part_ml[2 * idx] - mx);
+    l += w * ls;
+    const float* src = part_o + idx * D;
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) acc[c] += w * src[lane + 32 * c];
+  }
+  const float inv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+  for (int c = 0; c < D / 32; ++c) {
+    out[size_t(i) * D + lane + 32 * c] = __float2bfloat16(acc[c] * inv);
+  }
 }
 
 struct Args {
@@ -64,26 +498,39 @@ struct Args {
   const void* tables;
   const void* lengths;
   void* out;
-  int rows, H, Hkv, bs, M;
+  void* part_o;
+  void* part_ml;
+  int rows, R, RT, H, Hkv, bs, M, splits;
   float scale;
 };
 
 template <int D, typename T>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = shai_paged::smem_bytes<D, T>(a.bs);
-  cudaError_t err = shai_paged::allow_smem(ragged_kernel<D, T>, smem);
+  const int G = a.H / a.Hkv;
+  const int warps = (a.RT * G + 15) / 16;
+  const size_t smem = Smem<D, T>::bytes(warps);
+  cudaError_t err = cudaFuncSetAttribute(
+      ragged_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  // rows on x (up to 2^31 - 1): neighbouring blocks are neighbouring rows
-  // of one kv head, which in the continuation layout read the same blocks
-  const dim3 grid(a.rows, a.Hkv);
-  const dim3 block(32 * (a.H / a.Hkv));
-  ragged_kernel<D, T><<<grid, block, smem, stream>>>(
+  const int tiles = (a.rows / a.R) * ((a.R + a.RT - 1) / a.RT);
+  const dim3 grid(tiles, a.Hkv, a.splits);
+  ragged_kernel<D, T><<<grid, 32 * warps, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const T*>(a.k_pool), static_cast<const T*>(a.v_pool),
       static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale),
       static_cast<const int*>(a.tables), static_cast<const int*>(a.lengths),
-      static_cast<__nv_bfloat16*>(a.out), a.H, a.Hkv, a.bs, a.M, a.scale);
+      static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.part_o),
+      static_cast<float*>(a.part_ml), a.rows, a.R, a.RT, G, a.H, a.Hkv,
+      a.bs, a.M, a.scale * LOG2E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  const int n_out = a.rows * a.H;
+  merge_kernel<D><<<(n_out + 3) / 4, 128, 0, stream>>>(
+      static_cast<const float*>(a.part_o),
+      static_cast<const float*>(a.part_ml),
+      static_cast<__nv_bfloat16*>(a.out), n_out, a.splits);
   return cudaGetLastError();
 }
 
@@ -95,22 +542,35 @@ cudaError_t launch_pool(const Args& a, bool quantized, cudaStream_t stream) {
 
 }  // namespace
 
-// Returns a cudaError_t as int: 0 when the launch was accepted. quantized:
-// the pool is int8 and k_scale / v_scale point at its [N, Hkv] f32 scales;
-// otherwise the pool is bf16 and the scale pointers are not read.
+// Returns a cudaError_t as int: 0 when the launch was accepted.
+//   quantized: the pool is int8 and k_scale / v_scale point at its [N, Hkv]
+//     f32 scales; otherwise the pool is bf16 and they are not read;
+//   rows_per_table (R): tables is [rows / R, M];
+//   rows_per_tile (RT): rows of one table per CTA, RT * (H / Hkv) <= 64;
+//   splits: CTAs sharing each tile's keys; above 1, part_o [splits, rows,
+//     H, D] and part_ml [splits, rows, H, 2] f32 scratch hold the partials
+//     that a second kernel merges.
 extern "C" int shai_ragged_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
-    const void* lengths, void* out, int rows, int H, int Hkv, int D, int bs,
-    int M, int quantized, float scale, int device, void* stream) {
+    const void* lengths, void* out, void* part_o, void* part_ml, int rows,
+    int rows_per_table, int rows_per_tile, int H, int Hkv, int D, int bs,
+    int M, int quantized, int splits, float scale, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows < 1 || Hkv < 1 || Hkv > 65535 || H % Hkv != 0 || H / Hkv > 32 ||
-      bs < 1 || M < 1 || (quantized && (!k_scale || !v_scale))) {
+  const int R = rows_per_table;
+  const int RT = rows_per_tile;
+  if (rows < 1 || R < 1 || rows % R != 0 || RT < 1 || RT > R ||
+      Hkv < 1 || Hkv > 65535 || H % Hkv != 0 ||
+      RT * (H / Hkv) > MAX_PROWS || bs < 1 || M < 1 || splits < 1 ||
+      splits > 65535 || (quantized && (!k_scale || !v_scale)) ||
+      (splits > 1 && (!part_o || !part_ml))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q,       k_pool, v_pool, k_scale, v_scale, tables, lengths,
-               out,     rows,   H,      Hkv,     bs,      M,      scale};
+  const Args a{q,     k_pool, v_pool, k_scale, v_scale, tables, lengths,
+               out,   part_o, part_ml, rows,   R,       RT,     H,
+               Hkv,   bs,     M,       splits, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:

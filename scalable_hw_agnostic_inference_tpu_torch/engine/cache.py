@@ -21,6 +21,8 @@ from typing import Dict, List, Set
 import numpy as np
 import torch
 
+from ..core.device import DeviceLike, resolve_device
+
 
 class BlockAllocator:
     """Free-list allocator over ``total_blocks`` physical blocks.
@@ -84,8 +86,9 @@ class PagedKVCache:
     def __init__(self, n_layers: int, n_kv_heads: int, head_dim: int,
                  total_blocks: int, block_size: int, blocks_per_seq: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 device: torch.device = torch.device("cpu"),
-                 quant: bool = False):
+                 device: DeviceLike = None, quant: bool = False):
+        # the card unless the caller asks for the CPU
+        device = resolve_device(device)
         self.n_layers = n_layers
         self.block_size = block_size
         self.blocks_per_seq = blocks_per_seq

@@ -19,7 +19,8 @@ prefill and the static-start continuation go through
 bucketed decode through ``ops.cuda.paged_attention.paged_decode_attention``
 (B2 on CUDA, or B3 for an int8 pool); ragged decode through
 ``ops.cuda.ragged_paged_attention`` (B3) and the ragged continuation
-through ``ops.attention.ragged_paged_attention`` (B3 on CUDA). On the CPU
+through ``ops.attention.ragged_paged_attention`` (B3 on CUDA, the chunk's
+rows sharing their sequence's table row through ``rows_per_table``). On the CPU
 each takes its plain version, as the reference's ``_resolve_paged`` default
 and its gather oracle do off the accelerator. The activations are bf16 from
 the embedding on (``runner.py:315``), as in the reference, so CPU parity
@@ -168,9 +169,10 @@ def _ragged_pool_attention(q: torch.Tensor, kv_layer: Dict[str, torch.Tensor],
                            block_size: int) -> torch.Tensor:
     """Ragged attention of ``[B, T, H, D]`` queries over the paged pool,
     query ``(b, t)`` seeing positions ``<= positions[b, t]``: on CUDA the
-    ``T`` queries flatten into rows of B3 (one table copy and one length
-    each); on the CPU the gather path takes the ``[B, T]`` layout as it
-    is. An int8 pool's scales ride along either way."""
+    ``T`` queries flatten into rows of B3, one length each, the ``T`` rows
+    of a sequence sharing its table row (``rows_per_table=T``); on the CPU
+    the gather path takes the ``[B, T]`` layout as it is. An int8 pool's
+    scales ride along either way."""
     B, T, H, D = q.shape
     ks, vs = _pool_scales(kv_layer)
     kpool, vpool = kv_layer["k"], kv_layer["v"]
@@ -178,12 +180,11 @@ def _ragged_pool_attention(q: torch.Tensor, kv_layer: Dict[str, torch.Tensor],
         return ragged_gather_attention(q, kpool, vpool, tables, positions,
                                        ks, vs)
     L = tables.shape[1] * block_size
-    tf = (tables.repeat_interleave(T, dim=0) if T > 1 else tables)
     lf = (positions + 1).clamp(1, L).reshape(B * T)
     o = ragged_paged_attention(
         q.reshape(B * T, H, D).contiguous(), kpool, vpool,
-        tf.to(torch.int32).contiguous(), lf.to(torch.int32).contiguous(),
-        ks, vs)
+        tables.to(torch.int32).contiguous(), lf.to(torch.int32).contiguous(),
+        ks, vs, rows_per_table=T)
     return o.reshape(B, T, H, D)
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.device import DeviceLike, resolve_device
 from ..ops.attention import dot_product_attention
 from ..ops.norms import RMSNorm
 from ..ops.quant import quant_matmul
@@ -206,8 +207,12 @@ class LlamaForCausalLM(nn.Module):
     """
 
     def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device: DeviceLike = None):
         super().__init__()
+        # the card unless the caller asks for the CPU; "meta" builds no
+        # storage (from_state_dict)
+        if str(device) != "meta":
+            device = resolve_device(device)
         if cfg.cross_attention_layers:
             raise ValueError("mllama configs (cross_attention_layers) are "
                              "not ported yet")
@@ -227,8 +232,7 @@ class LlamaForCausalLM(nn.Module):
         """Wrap existing weights without allocating (or initialising) a
         second copy: the module is built on the meta device and the
         tensors are assigned in place."""
-        with torch.device("meta"):
-            model = cls(cfg, dtype=dtype)
+        model = cls(cfg, dtype=dtype, device="meta")
         model.load_state_dict(state, assign=True, strict=True)
         return model
 
@@ -320,21 +324,25 @@ def _weight_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
 
 
 def geometry_params(cfg: LlamaConfig, dtype=torch.bfloat16,
-                    device=None) -> Dict[str, torch.Tensor]:
+                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Shape-exact zero-weight state dict (norm scales are ones) for
     geometry serving: real shapes, no checkpoint, meaningless outputs.
-    Made on ``device`` directly, with no host copy."""
+    Made on ``device`` (the card unless the caller asks for the CPU)
+    directly, with no host copy."""
+    device = resolve_device(device)
     return {name: (torch.ones if len(shape) == 1 else torch.zeros)(
                 shape, dtype=dtype, device=device)
             for name, shape in _weight_shapes(cfg).items()}
 
 
 def random_params(cfg: LlamaConfig, seed: int, std: float = 0.02,
-                  dtype=torch.bfloat16, device=None
+                  dtype=torch.bfloat16, device: DeviceLike = None
                   ) -> Dict[str, torch.Tensor]:
     """Seeded random state dict: N(0, std) matrices, unit norm scales,
-    drawn on ``device`` from an explicit generator."""
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    drawn on ``device`` (the card unless the caller asks for the CPU) from
+    an explicit generator."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
     out = {}
     for name, shape in _weight_shapes(cfg).items():
         if len(shape) == 1:

@@ -18,6 +18,7 @@ import torch
 
 from .cuda.flash_attention import flash_attention, flash_eligible
 from .cuda.ragged_paged_attention import (
+    check_tables,
     ragged_paged_attention as _ragged_kernel,
 )
 from .quant import dequantize_kv_blocks
@@ -158,13 +159,20 @@ def ragged_paged_attention(
     v_scale: Optional[torch.Tensor] = None,
     *,
     scale: Optional[float] = None,
+    rows_per_table: int = 1,
 ) -> torch.Tensor:
     """Ragged paged attention of one query per row ``[rows, H, D]`` with
     per-row ``lengths``: the B3 kernel on a CUDA tensor, the gather path
-    on the CPU. Multi-token callers flatten their queries into rows."""
+    on the CPU. Multi-token callers flatten their queries into rows; with
+    ``rows_per_table`` R, ``tables`` is ``[rows / R, M]`` and each run of R
+    consecutive rows shares one table row."""
     if q.device.type == "cuda":
         return _ragged_kernel(q, k_pool, v_pool, tables, lengths, k_scale,
-                              v_scale, scale=scale)
+                              v_scale, scale=scale,
+                              rows_per_table=rows_per_table)
+    check_tables(q.shape[0], tables, lengths, rows_per_table)
+    if rows_per_table > 1:
+        tables = tables.repeat_interleave(rows_per_table, dim=0)
     pos = (lengths.to(torch.int64) - 1)[:, None]
     return ragged_gather_attention(q[:, None], k_pool, v_pool, tables, pos,
                                    k_scale, v_scale, scale=scale)[:, 0]

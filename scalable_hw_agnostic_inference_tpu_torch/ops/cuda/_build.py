@@ -49,10 +49,10 @@ ENTRY_POINTS = {
     # device, stream
     "shai_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _F, _I, _P],
-    # q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, rows, H,
-    # Hkv, D, bs, M, quantized, scale, device, stream
-    "shai_ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, part_o,
+    # part_ml, rows, rows_per_table, rows_per_tile, H, Hkv, D, bs, M,
+    # quantized, splits, scale, device, stream
+    "shai_ragged_paged_attention": [_P] * 10 + [_I] * 10 + [_F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

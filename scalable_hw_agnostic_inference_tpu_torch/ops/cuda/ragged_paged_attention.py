@@ -15,7 +15,8 @@ package, with the kernel's zeros for a row of length 0).
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,13 +34,18 @@ def ragged_paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                      lengths: torch.Tensor,
                                      k_scale: Optional[torch.Tensor] = None,
                                      v_scale: Optional[torch.Tensor] = None,
-                                     *, scale: Optional[float] = None
+                                     *, scale: Optional[float] = None,
+                                     rows_per_table: int = 1
                                      ) -> torch.Tensor:
-    """The plain version of B3, in fp32: gather ``tables[r]``'s blocks into
-    a dense ``[rows, M*bs, Hkv, D]`` context (an int8 pool times its
-    per-(block, kv head) scales) and mask keys at or past ``lengths[r]``."""
+    """The plain version of B3, in fp32: gather each row's table window
+    into a dense ``[rows, M*bs, Hkv, D]`` context (an int8 pool times its
+    per-(block, kv head) scales) and mask keys at or past ``lengths[r]``.
+    ``rows_per_table`` R > 1 first repeats each of the ``[rows / R, M]``
+    table rows R times."""
     rows, H, D = q.shape
     _N, bs, Hkv, _ = k_pool.shape
+    if rows_per_table > 1:
+        tables = tables.repeat_interleave(rows_per_table, dim=0)
     M = tables.shape[1]
     if scale is None:
         scale = 1.0 / (D ** 0.5)
@@ -58,48 +64,126 @@ def ragged_paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                     scale)[:, 0].to(q.dtype)
 
 
+#: keys per tile of the kernel's walk (``KT`` in the source)
+KEY_TILE = 64
+#: product rows (query rows x the query heads of one kv head) per CTA
+MAX_PRODUCT_ROWS = 64
+#: pool block sizes the kernel takes: powers of two from 16 (the
+#: ``EngineConfig`` default and the serving path's) to 1024 (the largest
+#: in ``deploy/``'s ConfigMaps)
+BLOCK_SIZES = tuple(2 ** i for i in range(4, 11))
+
+
+@functools.lru_cache(maxsize=256)
+def ragged_plan(rows: int, rows_per_table: int, n_heads: int,
+                n_kv_heads: int, block_size: int, M: int,
+                n_sms: int) -> Tuple[int, int]:
+    """``(rows_per_tile, splits)`` for one launch, from the shapes alone
+    (the lengths are data on the device).
+
+    A CTA takes ``rows_per_tile`` consecutive rows of one table, times the
+    ``G = H / Hkv`` query heads of its kv head: up to
+    :data:`MAX_PRODUCT_ROWS` product rows, one row when each row has its
+    own table. When the grid (tiles x kv heads) is smaller than the card
+    (``n_sms``), each tile's keys are split over ``splits`` CTAs so that
+    about 4 land on every SM, each split keeping at least 4 key tiles of
+    the full window; a grid that fills the card is not split."""
+    G = n_heads // n_kv_heads
+    R = rows_per_table
+    rt = 1 if R == 1 else min(R, max(1, MAX_PRODUCT_ROWS // G))
+    ctas = (rows // R) * -(-R // rt) * n_kv_heads
+    if ctas >= n_sms:
+        return rt, 1
+    most = max(1, -(-(M * block_size) // (4 * KEY_TILE)))
+    return rt, min(-(-4 * n_sms // ctas), most)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+#: the split partials' scratch, one flat fp32 buffer per (device, stream)
+#: that grows to the largest launch: calls on one stream run in order, so
+#: each may reuse what the last one wrote and merged
+_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _split_scratch(device: torch.device, stream: int,
+                   numel: int) -> torch.Tensor:
+    buf = _scratch.get((device.index, stream))
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, dtype=torch.float32, device=device)
+        _scratch[(device.index, stream)] = buf
+    return buf
+
+
+def check_tables(rows: int, tables: torch.Tensor, lengths: torch.Tensor,
+                  rows_per_table: int) -> None:
+    """Raise unless ``tables`` is ``[rows / R, M]`` and ``lengths``
+    ``[rows]`` for ``R = rows_per_table``."""
+    R = rows_per_table
+    if R < 1 or rows % R:
+        raise ValueError(f"rows_per_table {R} does not divide the {rows} "
+                         f"query rows")
+    if tables.dim() != 2 or tables.shape[0] != rows // R \
+            or lengths.shape != (rows,):
+        raise ValueError(f"tables must be [{rows // R}, M] (rows_per_table "
+                         f"{R}) and lengths [{rows}], got "
+                         f"{tuple(tables.shape)} and {tuple(lengths.shape)}")
+
+
 def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
                            lengths: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None, *,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           rows_per_table: int = 1) -> torch.Tensor:
     """Attend each row's query ``[rows, H, D]`` over its own paged context
-    in the pool ``[N, bs, Hkv, D]`` through ``tables [rows, M]``; keys at or
-    past ``lengths[r]`` are masked, and a row's work follows its length,
-    not ``M``. ``k_scale``/``v_scale`` ``[N, Hkv]`` mark an int8 pool.
-    Returns ``[rows, H, D]``.
+    in the pool ``[N, bs, Hkv, D]`` through ``tables``; keys at or past
+    ``lengths[r]`` are masked, and a row's work follows its length, not
+    ``M``. ``k_scale``/``v_scale`` ``[N, Hkv]`` mark an int8 pool. Returns
+    ``[rows, H, D]``.
+
+    ``rows_per_table`` R: ``tables`` is ``[rows / R, M]`` and each run of R
+    consecutive rows shares one table row (the continuation's queries of
+    one sequence); R = 1 gives each row its own, the TPU kernel's
+    contract. A table of the wrong shape raises on every device.
 
     On a CUDA tensor this launches the B3 kernel or raises: q bf16; a bf16
     pool, or an int8 pool with both scales contiguous f32 ``[N, Hkv]``;
-    ``D`` in ``HEAD_DIMS``; at most 32 query heads per kv head; contiguous
-    int32 tables and lengths. On a CPU tensor it runs
+    ``D`` in ``HEAD_DIMS``; a block size in :data:`BLOCK_SIZES`; at most
+    :data:`MAX_PRODUCT_ROWS` query heads per kv head; contiguous int32
+    tables and lengths. On a CPU tensor it runs
     :func:`ragged_paged_attention_reference`. Table entries are trusted to
     be valid block ids (checking them would cost a host round trip).
     """
+    rows = q.shape[0]
+    check_tables(rows, tables, lengths, rows_per_table)
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
-            q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale=scale)
+            q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale=scale,
+            rows_per_table=rows_per_table)
     if q.device.type != "cuda":
         raise ValueError(
             f"ragged_paged_attention: unsupported device {q.device}")
     rows, H, D = q.shape
     N, bs, Hkv, Dk = k_pool.shape
-    M = tables.shape[1] if tables.dim() == 2 else -1
+    M = tables.shape[1]
     if Dk != D or v_pool.shape != k_pool.shape:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)}/"
                          f"{tuple(v_pool.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if tables.shape != (rows, M) or lengths.shape != (rows,):
-        raise ValueError(f"tables must be [{rows}, M] and lengths [{rows}], "
-                         f"got {tuple(tables.shape)} and "
-                         f"{tuple(lengths.shape)}")
-    if H % Hkv or H // Hkv > 32:
+    if H % Hkv or H // Hkv > MAX_PRODUCT_ROWS:
         raise ValueError(f"{H} query heads over {Hkv} kv heads: the kernel "
-                         f"takes a whole GQA group of at most 32 per block")
+                         f"takes a GQA group of at most {MAX_PRODUCT_ROWS}")
     if D not in HEAD_DIMS:
         raise ValueError(f"ragged_paged_attention kernel takes D in "
                          f"{HEAD_DIMS}, got {D}")
+    if bs not in BLOCK_SIZES:
+        raise ValueError(f"ragged_paged_attention kernel takes block sizes "
+                         f"{BLOCK_SIZES}, got {bs}")
     _check_bf16_cuda("q", q, q.device)
     quantized = k_pool.dtype == torch.int8
     if quantized:
@@ -129,16 +213,27 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
             raise ValueError(f"{name} must be contiguous int32 on {q.device}")
     if scale is None:
         scale = 1.0 / (D ** 0.5)
+    rt, splits = ragged_plan(rows, rows_per_table, H, Hkv, bs, M,
+                             _sm_count(q.device.index))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
+    part_o = part_ml = None
+    if splits > 1:
+        # fp32 partials: acc [splits, rows, H, D], then (m, l) per
+        # (split, row, head)
+        n_o = splits * rows * H * D
+        part = _split_scratch(q.device, stream, n_o + splits * rows * H * 2)
+        part_o = part.data_ptr()
+        part_ml = part_o + 4 * n_o
     lib = _build.library()
     ragged_paged_attention.launches += 1
     err = lib.shai_ragged_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), rows, H, Hkv,
-        D, bs, M, int(quantized), float(scale), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), part_o,
+        part_ml, rows, rows_per_table, rt, H, Hkv, D, bs, M, int(quantized),
+        splits, float(scale), q.device.index, stream)
     _build.check(err, "ragged_paged_attention")
     return out
 

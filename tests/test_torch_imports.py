@@ -6,8 +6,10 @@ package, and it runs on the card unless it is asked for the CPU.
 - a fresh interpreter that imports every port module holds no more
   ``jax*``/``flax*`` modules than a bare interpreter does (an interpreter
   may preload JAX at start-up, so the check is relative);
-- without CUDA the entry points raise unless they are given the CPU, and a
-  kernel wrapper refuses a tensor that is neither on the CPU nor on CUDA.
+- without CUDA the entry points raise unless they are given the CPU (the
+  engine, the unit, the model, its weight builders and the KV cache), and
+  a kernel wrapper refuses a tensor that is neither on the CPU nor on
+  CUDA.
 """
 
 import ast
@@ -127,6 +129,44 @@ def test_entry_points_raise_without_cuda_unless_given_the_cpu(no_cuda,
         VllmService(scfg).load()
     with pytest.raises(ValueError, match="DEVICE"):
         ServeConfig(device="tpu").validate()
+
+
+def _builders():
+    from scalable_hw_agnostic_inference_tpu_torch.engine.cache import (
+        PagedKVCache,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.tiny()
+    return {
+        "LlamaForCausalLM": lambda **kw: llama.LlamaForCausalLM(cfg, **kw),
+        "geometry_params": lambda **kw: llama.geometry_params(cfg, **kw),
+        "random_params": lambda **kw: llama.random_params(cfg, 0, **kw),
+        "PagedKVCache": lambda **kw: PagedKVCache(
+            cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, total_blocks=9,
+            block_size=4, blocks_per_seq=4, **kw),
+    }
+
+
+def _tensors(built):
+    if isinstance(built, dict):
+        return list(built.values())
+    if isinstance(built, torch.nn.Module):
+        return list(built.parameters())
+    return [t for lay in built.kv for t in lay.values()]
+
+
+@pytest.mark.parametrize("name", ["LlamaForCausalLM", "geometry_params",
+                                  "random_params", "PagedKVCache"])
+def test_model_weights_and_cache_default_to_the_card(no_cuda, name):
+    """With no device given, the model, its weight builders and the KV
+    cache go to the card, and raise without one, as the engine and the
+    unit do; given the CPU they build there."""
+    build = _builders()[name]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
+    tensors = _tensors(build(device="cpu"))
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
 def test_server_env_defaults_to_cuda(monkeypatch):

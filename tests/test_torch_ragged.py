@@ -218,3 +218,89 @@ def test_ragged_wrapper_refuses_other_devices():
     args = [t.to("meta") for t in _tt(q, kp, vp, tables, lens, ks, vs)]
     with pytest.raises(ValueError, match="unsupported device"):
         tragged.ragged_paged_attention(*args)
+
+
+# -- rows_per_table: a run of R rows shares one table row ---------------------
+
+R_CHUNK = 5
+STARTS = (20, 9)
+
+
+def _shared_fixture(quant):
+    """A two-sequence continuation chunk: ``R_CHUNK`` query rows per
+    sequence, each with length ``start + t + 1`` (a causal edge), and one
+    table row per sequence, not per query row."""
+    rng = np.random.default_rng(5)
+    kp = rng.standard_normal((12, 8, 2, 16)).astype(np.float32)
+    vp = rng.standard_normal((12, 8, 2, 16)).astype(np.float32)
+    tables = np.asarray([[1, 2, 3, 4], [5, 6, 7, 0]], np.int32)
+    lengths = np.asarray([s + t + 1 for s in STARTS for t in range(R_CHUNK)],
+                         np.int32)
+    q = rng.standard_normal((len(lengths), 4, 16)).astype(np.float32)
+    ks = vs = None
+    if quant:
+        kq, ks = jquant.quantize_kv_blocks(jnp.asarray(kp))
+        vq, vs = jquant.quantize_kv_blocks(jnp.asarray(vp))
+        kp, vp = np.asarray(kq), np.asarray(vq)
+        ks, vs = np.asarray(ks), np.asarray(vs)
+    return q, kp, vp, ks, vs, tables, lengths
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_rows_per_table_matches_repeated_tables_and_jax(quant):
+    """``rows_per_table=R`` with ``[rows / R, M]`` tables equals the R = 1
+    call on the repeated tables, the JAX gather oracle with each
+    sequence's R queries at positions ``start + t``, and the Pallas
+    kernel (interpret mode) on the repeated tables."""
+    q, kp, vp, ks, vs, tables, lens = _shared_fixture(quant)
+    rep = np.repeat(tables, R_CHUNK, axis=0)
+    got = tragged.ragged_paged_attention(
+        *_tt(q, kp, vp, tables, lens, ks, vs), rows_per_table=R_CHUNK)
+    r1 = tragged.ragged_paged_attention(*_tt(q, kp, vp, rep, lens, ks, vs))
+    np.testing.assert_array_equal(got.numpy(), r1.numpy())
+    pos = (lens - 1).reshape(len(STARTS), R_CHUNK)
+    want = np.asarray(jattn.ragged_gather_attention(
+        *_j(q.reshape(len(STARTS), R_CHUNK, 4, 16), kp, vp, tables, pos, ks,
+            vs))).reshape(q.shape)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    pallas = np.asarray(j_ragged(*_j(q, kp, vp, rep, lens, ks, vs),
+                                 interpret=True))
+    np.testing.assert_allclose(got.numpy(), pallas, atol=ATOL, rtol=0)
+    # the dispatch the runner's ragged continuation calls
+    via = tattn.ragged_paged_attention(
+        *_tt(q, kp, vp, tables, lens, ks, vs), rows_per_table=R_CHUNK)
+    np.testing.assert_allclose(via.numpy(), want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("entry", ["kernel", "dispatch"])
+@pytest.mark.parametrize("R,n_tables", [(R_CHUNK, 10), (R_CHUNK, 1), (3, 3)],
+                         ids=["repeated", "too-few", "not-a-divisor"])
+def test_rows_per_table_refuses_mismatched_tables(entry, R, n_tables):
+    q, kp, vp, ks, vs, tables, lens = _shared_fixture(False)
+    tables = np.resize(tables, (n_tables, tables.shape[1]))
+    fn = (tragged.ragged_paged_attention if entry == "kernel"
+          else tattn.ragged_paged_attention)
+    with pytest.raises(ValueError, match="rows_per_table"):
+        fn(*_tt(q, kp, vp, tables, lens), rows_per_table=R)
+
+
+@pytest.mark.parametrize("case,want", [
+    # the continuation: 512 rows of one table, G = 4 -> 16 rows a tile,
+    # 32 tiles x 8 kv heads fill 132 SMs: no split
+    ((512, 512, 32, 8, 16, 256, 132), (16, 1)),
+    # a 441-row tail chunk: 28 tiles x 8 heads, still no split
+    ((441, 441, 32, 8, 16, 256, 132), (16, 1)),
+    # decode B=8: 64 CTAs, split to about 4 per SM
+    ((8, 1, 32, 8, 16, 256, 132), (1, 9)),
+    # decode B=1: capped at 4 key tiles a split of the 4096-key window
+    ((1, 1, 32, 8, 16, 256, 132), (1, 16)),
+    # a window of 2 key tiles is not split at all
+    ((8, 1, 32, 8, 16, 8, 132), (1, 1)),
+    # G = 16: 4 rows a tile; a 512-key window splits at most in 2
+    ((64, 64, 16, 1, 16, 32, 132), (4, 2)),
+])
+def test_ragged_plan(case, want):
+    assert tragged.ragged_plan(*case) == want
+    rt, _ = want
+    G = case[2] // case[3]
+    assert rt * G <= tragged.MAX_PRODUCT_ROWS
