@@ -10,7 +10,12 @@ Phases:
   3. ``flash``  hold B1 (flash attention) against its plain version at
                 Llama-3-8B prefill shapes, and time kernel, plain version,
                 bound and the SDPA yardstick;
-  4. ``paged``  the same for B2 (paged decode attention) at decode shapes;
+  4. ``paged``  the same for B2 (paged decode attention, the decode CTA of
+                B3's walk) at decode shapes and at serve's shape, plus block
+                sizes 8 and 24 and a group of 32 heads; B2 must return
+                exactly B3's output with ``rows_per_table`` 1, and the
+                split count and the in-kernel merge are measured against
+                the alternatives;
   5. ``ragged`` the same for B3 (ragged paged attention) over bf16 and
                 int8 pools at decode (split-K) and chunked-prefill
                 continuation shapes (one table row shared through
@@ -164,13 +169,21 @@ class Timer:
         self.flush = torch.empty(256 * 1024 * 1024, dtype=torch.float32,
                                  device="cuda")
 
-    def __call__(self, fn, reps: int = 15, warmup: int = 2) -> float:
+    def __call__(self, fn, reps: int = 15, warmup: int = 2,
+                 clean: bool = False) -> float:
+        """``clean``: flush by reading the 1 GiB (a sum) instead of writing
+        it, so the L2 holds clean lines: a bytes-bound kernel then pays no
+        write-back of the flush's dirty lines, as in a decode step, whose
+        earlier kernels mostly read weights."""
         torch = self.torch
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(reps):
-            self.flush.zero_()
+            if clean:
+                self.flush.sum()
+            else:
+                self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -425,28 +438,96 @@ def _paged_work(B, H, Hkv, D, bs, M, lengths):
     return n_bytes, 4 * D * H * toks
 
 
+def _device_us_by_kernel(torch, fn, calls: int = 20):
+    """Device microseconds per call of ``fn`` by kernel name, from a
+    ``torch.profiler`` trace of ``calls`` calls (empty when the profiler
+    records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us:
+            out[e.key] = out.get(e.key, 0.0) + us / calls
+    return out
+
+
+def _paged_plan_choices(torch, timer, pa, rpa, q, kp, vp, tables, lens):
+    """B2 at one shape under each split count, with the decode CTA's last
+    split merging (key ``"s"``) or a second launch merging (``"s+merge"``),
+    and the second launch's share of the device time at the plan's split
+    count (profiler, warm L2); returns a dict of the times."""
+    rows, H, _ = q.shape
+    _, bs, Hkv, _ = kp.shape
+    planned = rpa.decode_plan(rows, H, Hkv, bs, tables.shape[1],
+                              torch.cuda.get_device_properties(
+                                  q.device).multi_processor_count)[1]
+    times = {}
+    for s in sorted({1, 2, 3, 4, 5, 6, 8, 12, 16, 24, 32, planned}):
+        for merge_in_kernel in (True, False):
+            if s == 1 and not merge_in_kernel:
+                continue
+            times[(s, merge_in_kernel)] = timer(lambda: rpa._launch(
+                pa.paged_decode_attention, q, kp, vp, tables, lens, None,
+                None, None, 1, splits=s, merge_in_kernel=merge_in_kernel))
+    by_kernel = _device_us_by_kernel(torch, lambda: rpa._launch(
+        pa.paged_decode_attention, q, kp, vp, tables, lens, None, None, None,
+        1, splits=planned, merge_in_kernel=False))
+    merge_us = sum(us for k, us in by_kernel.items() if "merge_kernel" in k)
+    walk_us = sum(us for k, us in by_kernel.items()
+                  if "decode_kernel" in k or "merge_kernel" in k)
+    line = {"planned_splits": planned,
+            "ms_by_splits": {f"{s}{'' if m else '+merge'}": t
+                             for (s, m), t in times.items()},
+            "second_launch_us": merge_us, "walk_us": walk_us,
+            "second_launch_share": merge_us / walk_us if walk_us else None}
+    log("paged_decode_attention plan: " + json.dumps(line))
+    return line
+
+
 def phase_paged(ctx):
     import torch
     from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
         paged_attention as pa,
+        ragged_paged_attention as rpa,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     timer = ctx["timer"]
     H, Hkv, D, bs, N = 32, 8, 128, 16, 1024
-    # (B, M, lengths, timed): decode shapes, a pool of N shuffled blocks,
-    # lengths from 1 to 2048 (= M * bs); one truncated context bucket
+    # (label, B, M, lengths, timed): decode shapes, a pool of N shuffled
+    # blocks, lengths from 1 to 2048 (= M * bs); one truncated context
+    # bucket; serve's decode step (its 8 prompts of 24 to 297 bytes, 8
+    # tokens into decode, in its 32-block bucket)
     cases = [
-        (1, 128, [2048], True),
-        (8, 128, [1, 17, 255, 512, 1000, 1500, 2047, 2048], True),
-        (8, 64, [1, 16, 33, 300, 512, 777, 1000, 1024], False),
+        ("B=1 M=128", 1, 128, [2048], True),
+        ("B=8 M=128", 8, 128, [1, 17, 255, 512, 1000, 1500, 2047, 2048],
+         True),
+        ("B=8 M=64", 8, 64, [1, 16, 33, 300, 512, 777, 1000, 1024], False),
+        ("serve B=8 M=32", 8, 32, [32, 71, 110, 149, 188, 227, 266, 305],
+         True),
     ]
-    small = [(64, 4, 4, 1, 32, [1, 40, 0, 511]),
-             (192, 2, 8, 2, 8, [70, 3]),
-             (256, 2, 16, 2, 8, [5, 128])]
+    # (D, B, H, Hkv, M, bs, lengths): other head dims, block sizes 8 and
+    # 24, groups of 32 heads (two m16 tiles), each but two with a
+    # length-0 row
+    small = [(64, 4, 4, 1, 32, 16, [1, 40, 0, 511]),
+             (192, 2, 8, 2, 8, 16, [70, 3]),
+             (256, 2, 16, 2, 8, 16, [5, 128]),
+             (128, 3, 32, 8, 16, 8, [0, 100, 128]),
+             (128, 3, 32, 8, 10, 24, [0, 239, 240]),
+             (128, 3, 32, 1, 16, 16, [0, 77, 256]),
+             (256, 2, 32, 1, 8, 16, [0, 128])]
     worst = 0.0
-    rows = []
-    for B, M, lengths, timed in cases:
+    rows = {}
+    for label, B, M, lengths, timed in cases:
         q, kp, vp, tables, lens = _paged_case(torch, gen, B, H, Hkv, D, bs,
                                               N, M, lengths)
         out = pa.paged_decode_attention(q, kp, vp, tables, lens)
@@ -473,26 +554,52 @@ def phase_paged(ctx):
             bms, by = bound_ms(n_bytes, flops)
             line.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                         library_ms=None, host_ms=host)
-        rows.append(line)
+            line["ms_clean_l2"] = timer(lambda: pa.paged_decode_attention(
+                q, kp, vp, tables, lens), clean=True)
+            line["plan"] = _paged_plan_choices(torch, timer, pa, rpa, q, kp,
+                                               vp, tables, lens)
+        if label == "B=8 M=128":
+            _check_b2_is_b3(torch, pa, rpa, q, kp, vp, tables, lens)
+        rows[label] = line
         log("paged_decode_attention: " + json.dumps(line))
-    for D_, B, H_, Hkv_, M, lengths in small:
+    for D_, B, H_, Hkv_, M, bs_, lengths in small:
         q, kp, vp, tables, lens = _paged_case(torch, gen, B, H_, Hkv_, D_,
-                                              bs, B * M, M, lengths)
+                                              bs_, B * M, M, lengths)
         out = pa.paged_decode_attention(q, kp, vp, tables, lens)
         f32 = (q.float(), kp.float(), vp.float(), tables)
         ref = pa.paged_decode_attention_reference(*f32, lens)
         dropped = pa.paged_decode_attention_reference(*f32, _cut(lens))
         err, share, d_share = _check_close(
-            f"paged_decode_attention D={D_}", out, ref, dropped)
+            f"paged_decode_attention D={D_} bs={bs_}", out, ref, dropped)
         worst = max(worst, err)
         if 0 in lengths and bool(out[lengths.index(0)].any()):
             raise AssertionError("paged_decode_attention: a length-0 row is "
                                  "not 0")
-        log(f"paged_decode_attention: D={D_} G={H_ // Hkv_} "
+        log(f"paged_decode_attention: D={D_} G={H_ // Hkv_} bs={bs_} "
             f"lengths={lengths} max |err| {err:.3e}, {share:.3f} of the "
             f"tolerance (dropped keys: {d_share:.2f})")
     # the summary row: the batch-8 decode step over a 128-block bucket
-    ctx["paged"] = dict(rows[1], max_abs_err=worst)
+    ctx["paged"] = dict(rows["B=8 M=128"], max_abs_err=worst)
+
+
+def _check_b2_is_b3(torch, pa, rpa, q, kp, vp, tables, lens):
+    """B2 on a bf16 pool is B3's decode CTA with one table row per query
+    row on B2's own tables: the same output bit for bit, each call raising
+    its own wrapper's counter by one."""
+    pa.paged_decode_attention.launches = 0
+    rpa.ragged_paged_attention.launches = 0
+    b2 = pa.paged_decode_attention(q, kp, vp, tables, lens)
+    b3 = rpa.ragged_paged_attention(q, kp, vp, tables, lens,
+                                    rows_per_table=1)
+    torch.cuda.synchronize()
+    counts = (pa.paged_decode_attention.launches,
+              rpa.ragged_paged_attention.launches)
+    if not torch.equal(b2, b3) or counts != (1, 1):
+        raise AssertionError(f"paged_decode_attention is not B3 with "
+                             f"rows_per_table=1 (equal {torch.equal(b2, b3)}"
+                             f", launches B2/B3 {counts})")
+    log("paged_decode_attention: B2 returned B3's output (rows_per_table=1) "
+        "bit for bit; launches B2 1, B3 1")
 
 
 def _ragged_inputs(torch, gen, rows, H, Hkv, D, bs, N, M, lengths, quant,
@@ -983,19 +1090,22 @@ def _send_concurrent(base: str, prompts):
     return results, time.monotonic() - t0
 
 
-def _kernel_class(name: str) -> str:
+def _kernel_class(name: str, walk: str) -> str:
+    """The kernel class of a device event. ``walk`` names the wrapper whose
+    launches the shared walk's kernels (tile, decode CTA and merge) are in
+    this phase: B2 in ``serve``, B3 in ``serve_ragged``; each phase runs
+    only one of the two."""
     if "flash_kernel" in name:
         return "B1 flash_attention"
-    if "ragged_kernel" in name:
-        return "B3 ragged_paged_attention"
-    if "paged_kernel" in name:
-        return "B2 paged_decode_attention"
+    if any(k in name for k in ("ragged_kernel", "decode_kernel",
+                               "merge_kernel")):
+        return walk
     if any(w in name.lower() for w in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul (cuBLAS)"
     return "other (elementwise, norms, rope, sampling, scatter, copies)"
 
 
-def _profile(torch, fn) -> None:
+def _profile(torch, fn, walk: str) -> None:
     """Run ``fn`` once more under ``torch.profiler`` and print the device's
     busy share of the wall time and its time by kernel class. The trace
     goes to a temporary directory and is not kept. A second pass of the
@@ -1030,7 +1140,7 @@ def _profile(torch, fn) -> None:
     by_class, by_name = {}, {}
     for a, b, e in dev:
         name = e.get("name", "") if e["cat"] == "kernel" else e["cat"]
-        c = _kernel_class(name)
+        c = _kernel_class(name, walk)
         by_class[c] = by_class.get(c, 0.0) + (b - a)
         by_name[name] = by_name.get(name, 0.0) + (b - a)
     total = sum(by_class.values())
@@ -1044,7 +1154,7 @@ def _profile(torch, fn) -> None:
         log(f"profile:     {us / 1e3:.1f} ms {name[:100]}")
 
 
-def _serve(ctx, what, env, prompts, expect):
+def _serve(ctx, what, env, prompts, expect, walk):
     """Serve ``llama-8b-geometry`` over HTTP under ``env`` and send
     ``prompts`` concurrently: all must answer 200, exactly the kernels
     ``expect`` must rise, no block may leak. Prints TTFT/TPOT, ``/stats``
@@ -1113,7 +1223,7 @@ def _serve(ctx, what, env, prompts, expect):
                 f"{ttft['p99'] * 1e3:.1f} ms; TPOT p50 "
                 f"{tpot['p50'] * 1e3:.2f} ms p99 {tpot['p99'] * 1e3:.2f} ms "
                 f"(engine instruments); /stats {json.dumps(stats)}")
-            _profile(torch, lambda: _send_concurrent(base, prompts))
+            _profile(torch, lambda: _send_concurrent(base, prompts), walk)
             _check_counters(what, counts, expect)
             if eng.cache.leaked_blocks:
                 raise AssertionError(f"{what}: leaked KV blocks")
@@ -1132,7 +1242,8 @@ def phase_serve(ctx):
     _serve(ctx, "serve", {
         "VLLM_CONFIG": os.path.join(REPO, "no-vllm-config.yaml"),
         "SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": ""},
-        _serve_prompts(), {"flash_attention", "paged_decode_attention"})
+        _serve_prompts(), {"flash_attention", "paged_decode_attention"},
+        "B2 paged_decode_attention")
 
 
 def phase_serve_ragged(ctx):
@@ -1145,7 +1256,8 @@ def phase_serve_ragged(ctx):
         results = _serve(ctx, "serve_ragged", {
             "VLLM_CONFIG": path, "SHAI_RAGGED_ATTENTION": "1",
             "SHAI_KV_QUANT": "int8"}, _serve_prompts((1500, 3000)),
-            {"flash_attention", "ragged_paged_attention"})
+            {"flash_attention", "ragged_paged_attention"},
+            "B3 ragged_paged_attention")
     chunked = [r[1]["n_prompt"] for r in results if r[1]["n_prompt"] > 512]
     if len(chunked) != 2:
         raise AssertionError(f"serve_ragged: {len(chunked)} prompts past the "
@@ -1159,7 +1271,8 @@ def kernels_line(ctx):
     spec = [
         ("flash_attention", "flash", f"{cuda_dir}/flash_attention.cu",
          f"{pallas}/flash_attention.py:132", "serve"),
-        ("paged_decode_attention", "paged", f"{cuda_dir}/paged_attention.cu",
+        ("paged_decode_attention", "paged",
+         f"{cuda_dir}/ragged_paged_attention.cu",
          f"{pallas}/paged_attention.py:101", "serve"),
         ("ragged_paged_attention", "ragged",
          f"{cuda_dir}/ragged_paged_attention.cu",

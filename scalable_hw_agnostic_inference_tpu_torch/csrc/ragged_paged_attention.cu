@@ -1,10 +1,13 @@
 // Ragged paged attention for Hopper (kernel B3): every row's query attends
 // exactly its own live keys of the paged KV pool, over the full table
-// window, with an optional int8 pool.
+// window, with an optional int8 pool. Its decode CTA is also B2's kernel.
 //
 // Replaces: scalable_hw_agnostic_inference_tpu/ops/pallas/
 // ragged_paged_attention.py ragged_paged_attention (kernel _ragged_kernel,
-// pallas_call at :188).
+// pallas_call at :188), and, through decode_kernel,
+// scalable_hw_agnostic_inference_tpu/ops/pallas/paged_attention.py
+// paged_decode_attention (kernel _paged_kernel, pallas_call at :160): B2's
+// contract is this one with R = 1 on the caller's truncated [B, M] tables.
 //
 // Contract (the TPU kernel's, plus a stated sharing of tables):
 //   q [rows, H, D] bf16, k/v pool [N, bs, Hkv, D] bf16 or int8, with an int8
@@ -22,8 +25,47 @@
 // What bounds it on the H100: at decode, one multiply-add per K or V
 // element read, so device-memory bytes bound it and an int8 pool halves
 // them; at the continuation (512 rows sharing one context), rows x keys
-// products over one read of the context, so the tensor cores do. The
-// design:
+// products over one read of the context, so the tensor cores do.
+//
+// The decode CTA (decode_kernel: R = 1 and G = H / Hkv <= 32, so every
+// B2 call, B3's ragged decode and every int8 decode). A decode row is a
+// stream of bytes with G query heads of work per key, so the design keeps
+// as many bytes in flight as the SM holds and spends few instructions per
+// byte:
+//   - one CTA of 4 warps per (row, kv head, split), all 128 threads
+//     issuing the gather, so a tile's copies go out four times as fast as
+//     from one warp;
+//   - a key tile's table entries are read once: two warps map the tile's
+//     64 keys to pool rows (one divide by bs per key, a shift when bs is
+//     a power of two; the entry read by one lane and shuffled to the keys
+//     in it) into a small ring of offsets, a tile ahead of its copies, so
+//     the copies themselves are contiguous 2 D-byte (D-byte int8) rows at
+//     stride Hkv D with no divide; any bs >= 1;
+//   - a cp.async ring of S tiles of 64 keys (3 for bf16, 4 for int8),
+//     S - 1 of them in flight while one is computed; at D = 128 two CTAs
+//     fit an SM, some 140 KB of K/V in flight, and one CTA's start and
+//     merge overlap the other's stream; one __syncthreads per tile;
+//   - each warp takes its own 16-key quarter of every tile (G <= 16; for
+//     G <= 32 two warps share a quarter-pair, one m16 tile of heads each)
+//     on mma.sync m16n8k16 with the G heads as product rows, with its own
+//     (m, l, acc); the four warps merge through shared memory at the end
+//     by log-sum-exp, a warp with l = 0 skipped. With one or two warps per
+//     scheduler every latency of a tile's chain shows, so the chain is
+//     kept short: Q's fragments stay in registers (D <= 128) and Q K^T
+//     runs as two independent accumulator chains;
+//   - int8 on the same path: each warp converts its own quarter to bf16 in
+//     shared memory, k_scale folds into the scores and v_scale into P;
+//   - split-K when rows x kv heads would not fill the card, the splits
+//     taking key tiles round-robin (so a split's first table entries load
+//     beside the row's length, not after it); the last split CTA of a
+//     (row, kv head) to finish (a counter per pair, reset by that CTA)
+//     merges the splits' partials, or, without counters, merge_kernel does
+//     in a second launch. A CTA's fixed cost is a chain of device-memory
+//     round trips (length and entries, first tile, partials, fence and
+//     count, merge): the split plan trades it against each CTA's stream;
+//   - not TMA: a decode tile is a gather of [bs, D] boxes through the table.
+//
+// The continuation CTA (ragged_kernel: R > 1, or G > 32):
 //   - one CTA per (tile of RT consecutive rows of one table, kv head,
 //     split); its product rows are the tile's rows times the G = H / Hkv
 //     query heads of the kv head (16 rows x 4 heads = 64 at the
@@ -51,10 +93,9 @@
 //     exp(-inf - -inf) forms;
 //   - keys past the tile's largest length are zero-filled, never read, so
 //     no stale pool value reaches P V; masked scores are -inf and a row
-//     whose running max is still -inf exponentiates against 0.
+//     whose running max is still -inf exponentiates against 0 (both CTAs).
 // Left for later work: wgmma with a TMA gather of table entries for the
-// continuation; a 4-warp decode CTA that splits one key tile across warps;
-// B2's move onto this walk.
+// continuation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,8 +123,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// wait until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
@@ -266,7 +309,7 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
     const int st = (kt - kt_begin) & 1;
     if (kt + 1 < kt_end) load_tile(kt + 1, st ^ 1);
     cp_async_commit();
-    cp_async_wait_1();
+    cp_async_wait<1>();
     __syncthreads();
     const __nv_bfloat16* kt_s;
     const __nv_bfloat16* vt_s;
@@ -452,9 +495,43 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-// Merge `splits` partials of each (row, head) by log-sum-exp: one warp per
-// output vector. A split with l = 0 saw no live key and is skipped; if all
-// are, the output is zeros.
+// Output vector i (of n_out per split), columns d and d + 1, merged from
+// `splits` partials by log-sum-exp and normalized, in one pass with a
+// running max. A split with l = 0 saw no live key and is skipped; if all
+// are, the output is zeros. Loads bypass L1 (the partials may come from
+// other CTAs of the same launch) and go out 8 splits at a time, since a
+// loop that waits on each split's load in turn pays a round trip to the
+// L2 per split.
+__device__ __forceinline__ __nv_bfloat162 merged_pair(
+    const float* part_o, const float* part_ml, size_t n_out, size_t i,
+    int D, int d, int splits) {
+  constexpr int BATCH = 8;
+  float mx = -INFINITY, a0 = 0.f, a1 = 0.f, l = 0.f;
+  for (int s0 = 0; s0 < splits; s0 += BATCH) {
+    float2 ml[BATCH], v[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const size_t idx = size_t(min(s0 + k, splits - 1)) * n_out + i;
+      ml[k] = __ldcg(reinterpret_cast<const float2*>(part_ml + 2 * idx));
+      v[k] = __ldcg(reinterpret_cast<const float2*>(part_o + idx * D + d));
+    }
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      if (s0 + k >= splits || !(ml[k].y > 0.f)) continue;
+      const float nm = fmaxf(mx, ml[k].x);
+      const float c = exp2f(mx - nm);  // 0 while mx is -inf
+      const float w = exp2f(ml[k].x - nm);
+      l = l * c + w * ml[k].y;
+      a0 = a0 * c + w * v[k].x;
+      a1 = a1 * c + w * v[k].y;
+      mx = nm;
+    }
+  }
+  const float inv = l > 0.f ? 1.f / l : 0.f;
+  return __floats2bfloat162_rn(a0 * inv, a1 * inv);
+}
+
+// Merge `splits` partials of each (row, head): one warp per output vector.
 template <int D>
 __global__ void merge_kernel(const float* __restrict__ part_o,
                              const float* __restrict__ part_ml,
@@ -463,30 +540,448 @@ __global__ void merge_kernel(const float* __restrict__ part_o,
   const int i = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (i >= n_out) return;
-  float mx = -INFINITY;
-  for (int s = 0; s < splits; ++s) {
-    const size_t idx = size_t(s) * n_out + i;
-    if (part_ml[2 * idx + 1] > 0.f) mx = fmaxf(mx, part_ml[2 * idx]);
+  for (int d = 2 * lane; d < D; d += 64) {
+    *reinterpret_cast<__nv_bfloat162*>(out + size_t(i) * D + d) =
+        merged_pair(part_o, part_ml, n_out, i, D, d, splits);
   }
-  float acc[D / 32];
-#pragma unroll
-  for (int c = 0; c < D / 32; ++c) acc[c] = 0.f;
-  float l = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const size_t idx = size_t(s) * n_out + i;
-    const float ls = part_ml[2 * idx + 1];
-    if (!(ls > 0.f)) continue;
-    const float w = exp2f(part_ml[2 * idx] - mx);
-    l += w * ls;
-    const float* src = part_o + idx * D;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[c] += w * src[lane + 32 * c];
+}
+
+// -- the decode CTA -----------------------------------------------------------
+
+constexpr int DEC_WARPS = 4;
+constexpr int DEC_MAX_G = 32;  // query heads per kv head: two m16 tiles
+
+// Shared memory of the decode CTA:
+//   q    [32][LD] bf16, the G product rows (zeros past G; rows padded by 8
+//        values against ldmatrix bank conflicts);
+//   k, v [S stages][KT][SLD] of the pool type (SLD = LD for bf16, read in
+//        place; D for int8, a staging copy);
+//   int8 only: kc, vc [KT][LD] bf16, the converted tile;
+//   koff [S + 1][KT] int, each key's pool row (-1: past the length), and,
+//        int8 only, ks, vs [S + 1][KT] f32, each key's block scales.
+// After the walk the ring holds the warps' partials o [4][16][D] and
+// (m, l) [4][16][2] f32 for their merge.
+template <int D, typename T>
+struct DecodeSmem {
+  static constexpr bool QUANT = sizeof(T) == 1;
+  static constexpr int LD = D + 8;
+  static constexpr int SLD = QUANT ? D : LD;
+  static constexpr int S = QUANT ? 4 : 3;
+  static constexpr size_t stage = size_t(KT) * SLD * sizeof(T);
+  static constexpr size_t q_bytes = size_t(DEC_MAX_G) * LD * 2;
+  static constexpr size_t ring = 2 * S * stage;
+  static constexpr size_t conv = QUANT ? 2 * size_t(KT) * LD * 2 : 0;
+  static constexpr size_t meta = size_t(S + 1) * KT * 4 * (QUANT ? 3 : 1);
+  static constexpr size_t bytes = q_bytes + ring + conv + meta;
+  static_assert(size_t(DEC_WARPS) * 16 * (D + 2) * 4 <= ring,
+                "the warps' partials fit in the ring");
+  static_assert(bytes <= 232448, "227 KB of shared memory per block");
+};
+
+template <int D, typename T>
+__global__ void __launch_bounds__(DEC_WARPS * 32)
+decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
+              const T* __restrict__ vp, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ tables,
+              const int* __restrict__ lengths,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+              float* __restrict__ part_ml, int* __restrict__ counters,
+              int rows, int G, int H, int Hkv, int bs, int M, float sl2) {
+  using SM = DecodeSmem<D, T>;
+  constexpr bool QUANT = SM::QUANT;
+  constexpr int LD = SM::LD;
+  constexpr int SLD = SM::SLD;
+  constexpr int S = SM::S;
+  constexpr int NT = DEC_WARPS * 32;
+  constexpr int EPC = 16 / int(sizeof(T));  // pool values per 16 bytes
+  constexpr int CPK = D / EPC;              // 16-byte chunks per key
+  constexpr unsigned FULL = 0xffffffffu;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  T* kst = reinterpret_cast<T*>(smem + SM::q_bytes);
+  T* vst = kst + size_t(S) * KT * SLD;
+  __nv_bfloat16* kc =
+      reinterpret_cast<__nv_bfloat16*>(smem + SM::q_bytes + SM::ring);
+  __nv_bfloat16* vc = kc + KT * LD;
+  int* koff = reinterpret_cast<int*>(smem + SM::q_bytes + SM::ring +
+                                     SM::conv);
+  float* kss = reinterpret_cast<float*>(koff + (S + 1) * KT);
+  float* vss = kss + (S + 1) * KT;
+
+  const int row = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int split = blockIdx.z;
+  const int splits = gridDim.z;
+  const int* trow = tables + size_t(row) * M;
+  const int len = min(max(lengths[row], 0), M * bs);
+  const int nkt = (len + KT - 1) / KT;
+  // split s takes key tiles s, s + splits, ...: its tile j is
+  // split + j * splits, known before the length is
+  const int n = split < nkt ? (nkt - split + splits - 1) / splits : 0;
+
+  // one m16 tile of heads when G <= 16, else two; warp w takes tile w % MT
+  // and the MT 16-key chunks from (w / MT) * MT of every key tile
+  const int MT = G > 16 ? 2 : 1;
+  const int mt = warp % MT;
+  const int chunk0 = (warp / MT) * MT;
+
+  for (int i = tid; i < MT * 16 * (D / 8); i += NT) {
+    const int p = i / (D / 8);
+    const int c = (i % (D / 8)) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (p < G) {
+      val = *reinterpret_cast<const uint4*>(
+          q + ((size_t(row) * H + kvh * G + p) * D + c));
+    }
+    *reinterpret_cast<uint4*>(qs + p * LD + c) = val;
   }
-  const float inv = l > 0.f ? 1.f / l : 0.f;
+
+  // Warps 0 and 1 map keys [32 w, 32 w + 32) of tile j to pool rows. Lane
+  // l loads table entry e0 + l of those keys (each entry read once), a
+  // tile ahead of its use, whatever the length (an entry past it is in
+  // the table row all the same, and goes unused); write_meta shuffles
+  // each key its entry.
+  auto first_key = [&](int j) {
+    return (split + j * splits) * KT + warp * 32;
+  };
+  const bool bs_pow2 = (bs & (bs - 1)) == 0;
+  const int bs_log2 = __ffs(bs) - 1;
+  auto div_bs = [&](int x) { return bs_pow2 ? x >> bs_log2 : x / bs; };
+  auto load_entry = [&](int j) -> int {
+    const int kf = first_key(j);
+    const int e = div_bs(kf) + lane;
+    return e < M && e <= div_bs(kf + 31) ? trow[e] : 0;
+  };
+  auto write_meta = [&](int j, int ent) {
+    const int kf = first_key(j);
+    const int kpos = kf + lane;
+    const bool live = j < n && kpos < len;
+    const int e0 = div_bs(kf);
+    const int e = div_bs(kpos);
+    const int src = live ? e - e0 : 0;
+    const int blk = __shfl_sync(FULL, ent, src);
+    const int at = (j % (S + 1)) * KT + warp * 32 + lane;
+    koff[at] = live ? (blk * bs + kpos - e * bs) * Hkv + kvh : -1;
+    if constexpr (QUANT) {
+      float ks = 0.f, vs = 0.f;
+      if (j < n && kf < len && e0 + lane <= div_bs(min(kf + 31, len - 1))) {
+        ks = k_scale[size_t(ent) * Hkv + kvh];
+        vs = v_scale[size_t(ent) * Hkv + kvh];
+      }
+      ks = __shfl_sync(FULL, ks, src);
+      vs = __shfl_sync(FULL, vs, src);
+      kss[at] = live ? ks : 0.f;
+      vss[at] = live ? vs : 0.f;
+    }
+  };
+  // every thread copies its 16-byte chunks of tile j's live keys (zeros
+  // past the length) into stage j % S; one commit group per tile
+  auto issue = [&](int j) {
+    if (j < n) {
+      const int* ko = koff + (j % (S + 1)) * KT;
+      T* dk = kst + size_t(j % S) * KT * SLD;
+      T* dv = vst + size_t(j % S) * KT * SLD;
 #pragma unroll
-  for (int c = 0; c < D / 32; ++c) {
-    out[size_t(i) * D + lane + 32 * c] = __float2bfloat16(acc[c] * inv);
+      for (int it = 0; it < KT * CPK / NT; ++it) {
+        const int i = tid + it * NT;
+        const int key = i / CPK;
+        const int c = (i % CPK) * EPC;
+        const int r = ko[key];
+        const size_t off = r >= 0 ? size_t(r) * D + c : 0;
+        const int nb = r >= 0 ? 16 : 0;
+        cp_async16(dk + key * SLD + c, kp + off, nb);
+        cp_async16(dv + key * SLD + c, vp + off, nb);
+      }
+    }
+    cp_async_commit();
+  };
+
+  int ent = 0;
+  if (warp < 2) {
+    int first[S];  // the first S tiles' entries, loaded all at once
+#pragma unroll
+    for (int j = 0; j < S; ++j) first[j] = load_entry(j);
+#pragma unroll
+    for (int j = 0; j < S - 1; ++j) write_meta(j, first[j]);
+    ent = first[S - 1];
   }
+  __syncthreads();
+  for (int j = 0; j < S - 1; ++j) issue(j);
+  // up to D = 128 the warp's Q fragments stay in registers for the walk
+  constexpr bool QREG = D <= 128;
+  uint32_t qa[QREG ? D / 16 : 1][4];
+  if constexpr (QREG) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      ldmatrix_x4(qa[kk], qs + (mt * 16 + lane % 16) * LD + kk * 16 +
+                              (lane / 16) * 8);
+    }
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int x = 0; x < D / 8; ++x) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[x][e] = 0.f;
+  }
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    if (warp < 2) {
+      write_meta(i + S - 1, ent);
+      ent = load_entry(i + S);
+    }
+    cp_async_wait<S - 2>();  // tile i's copies (this thread's) are in
+    __syncthreads();         // ...everyone's; tile i - 1 is done with
+    issue(i + S - 1);        // into tile i - 1's stage
+    const int st = i % S;
+    const int at = (i % (S + 1)) * KT;
+    const __nv_bfloat16* kt_s;
+    const __nv_bfloat16* vt_s;
+    if constexpr (QUANT) {
+      // warp w converts keys [16 w, 16 w + 16) to bf16, exact; the scales
+      // stay apart
+      for (int x = lane; x < 16 * (D / 16); x += 32) {
+        const int key = 16 * warp + x / (D / 16);
+        const int c = (x % (D / 16)) * 16;
+        const int4 rk = *reinterpret_cast<const int4*>(
+            kst + (size_t(st) * KT + key) * SLD + c);
+        const int4 rv = *reinterpret_cast<const int4*>(
+            vst + (size_t(st) * KT + key) * SLD + c);
+        const int8_t* bk = reinterpret_cast<const int8_t*>(&rk);
+        const int8_t* bv = reinterpret_cast<const int8_t*>(&rv);
+        uint32_t wk[8], wv[8];
+#pragma unroll
+        for (int y = 0; y < 8; ++y) {
+          wk[y] = pack_bf16(float(bk[2 * y]), float(bk[2 * y + 1]));
+          wv[y] = pack_bf16(float(bv[2 * y]), float(bv[2 * y + 1]));
+        }
+        uint4* dk = reinterpret_cast<uint4*>(kc + key * LD + c);
+        uint4* dv = reinterpret_cast<uint4*>(vc + key * LD + c);
+        dk[0] = make_uint4(wk[0], wk[1], wk[2], wk[3]);
+        dk[1] = make_uint4(wk[4], wk[5], wk[6], wk[7]);
+        dv[0] = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+        dv[1] = make_uint4(wv[4], wv[5], wv[6], wv[7]);
+      }
+      if (MT > 1) {
+        __syncthreads();  // two warps read each converted quarter
+      } else {
+        __syncwarp();
+      }
+      kt_s = kc;
+      vt_s = vc;
+    } else {
+      kt_s = reinterpret_cast<const __nv_bfloat16*>(kst) +
+             size_t(st) * KT * LD;
+      vt_s = reinterpret_cast<const __nv_bfloat16*>(vst) +
+             size_t(st) * KT * LD;
+    }
+    const int kbase = (split + i * splits) * KT;
+    for (int cc = 0; cc < MT; ++cc) {
+      const int ch = chunk0 + cc;  // this warp's 16 keys of the tile
+      // S = Q K^T: 16 product rows x 16 keys, the D/16 steps in two
+      // independent accumulator chains (even and odd steps) summed after
+      float sc[2][4], sd[2][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[x][e] = sd[x][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4], bf[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+        } else {
+          ldmatrix_x4(a, qs + (mt * 16 + lane % 16) * LD + kk * 16 +
+                             (lane / 16) * 8);
+        }
+        ldmatrix_x4(bf, kt_s + (ch * 16 + lane % 8 + (lane / 16) * 8) * LD +
+                            kk * 16 + ((lane / 8) % 2) * 8);
+        float (&acc0)[4] = kk % 2 ? sd[0] : sc[0];
+        float (&acc1)[4] = kk % 2 ? sd[1] : sc[1];
+        mma16816(acc0, a, bf[0], bf[1]);
+        mma16816(acc1, a, bf[2], bf[3]);
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[x][e] += sd[x][e];
+      }
+      // mask by the row's length, fold k_scale and the softmax scale in
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kl = ch * 16 + 8 * x + 2 * (lane % 4) + e;
+          float mul = sl2;
+          if constexpr (QUANT) mul *= kss[at + kl];
+          const bool live = kbase + kl < len;
+          const float x0 = live ? sc[x][e] * mul : -INFINITY;
+          const float x1 = live ? sc[x][2 + e] * mul : -INFINITY;
+          sc[x][e] = x0;
+          sc[x][2 + e] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
+        }
+      }
+#pragma unroll
+      for (int w = 1; w < 4; w <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, w));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, w));
+      }
+      const float n0 = fmaxf(m0, mx0);
+      const float n1 = fmaxf(m1, mx1);
+      const float u0 = n0 == -INFINITY ? 0.f : n0;
+      const float u1 = n1 == -INFINITY ? 0.f : n1;
+      const float c0 = exp2f(m0 - u0);
+      const float c1 = exp2f(m1 - u1);
+      m0 = n0;
+      m1 = n1;
+      float s0 = 0.f, s1 = 0.f;
+      uint32_t pa[4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = exp2f(sc[x][e] - (e < 2 ? u0 : u1));
+        }
+        s0 += p[0] + p[1];
+        s1 += p[2] + p[3];
+        if constexpr (QUANT) {
+          // v_scale folds into P's columns before the bf16 rounding
+          const int kl = ch * 16 + 8 * x + 2 * (lane % 4);
+          const float v0 = vss[at + kl];
+          const float v1 = vss[at + kl + 1];
+          p[0] *= v0;
+          p[1] *= v1;
+          p[2] *= v0;
+          p[3] *= v1;
+        }
+        pa[2 * x] = pack_bf16(p[0], p[1]);
+        pa[2 * x + 1] = pack_bf16(p[2], p[3]);
+      }
+      l0 = l0 * c0 + s0;
+      l1 = l1 * c1 + s1;
+#pragma unroll
+      for (int x = 0; x < D / 8; ++x) {
+        o[x][0] *= c0;
+        o[x][1] *= c0;
+        o[x][2] *= c1;
+        o[x][3] *= c1;
+      }
+      // O += P V over the chunk's 16 keys
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vt_s + (ch * 16 + lane % 8 +
+                                      ((lane / 8) % 2) * 8) * LD +
+                                  j * 16 + (lane / 16) * 8);
+        mma16816(o[2 * j], pa, bf[0], bf[1]);
+        mma16816(o[2 * j + 1], pa, bf[2], bf[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int w = 1; w < 4; w <<= 1) {
+    l0 += __shfl_xor_sync(FULL, l0, w);
+    l1 += __shfl_xor_sync(FULL, l1, w);
+  }
+  // the warps' partials into the ring, which no copy targets any more
+  cp_async_wait<0>();
+  __syncthreads();
+  float* wo = reinterpret_cast<float*>(smem + SM::q_bytes);  // [4][16][D]
+  float* wml = wo + DEC_WARPS * 16 * D;                        // [4][16][2]
+  {
+    const int g = lane / 4;
+    const int col = 2 * (lane % 4);
+    float* base = wo + warp * 16 * D;
+#pragma unroll
+    for (int x = 0; x < D / 8; ++x) {
+      *reinterpret_cast<float2*>(base + g * D + 8 * x + col) =
+          make_float2(o[x][0], o[x][1]);
+      *reinterpret_cast<float2*>(base + (g + 8) * D + 8 * x + col) =
+          make_float2(o[x][2], o[x][3]);
+    }
+    if (lane % 4 == 0) {
+      wml[(warp * 16 + g) * 2] = m0;
+      wml[(warp * 16 + g) * 2 + 1] = l0;
+      wml[(warp * 16 + g + 8) * 2] = m1;
+      wml[(warp * 16 + g + 8) * 2 + 1] = l1;
+    }
+  }
+  __syncthreads();
+  // merge the DEC_WARPS / MT warps that share each head's m16 tile: head p
+  // lives in row p % 16 of tile p / 16, in warps k * MT + p / 16
+  const int nkg = DEC_WARPS / MT;
+  const size_t n_out = size_t(rows) * H;
+  for (int x = tid; x < G * (D / 2); x += NT) {
+    const int p = x / (D / 2);
+    const int d = (x % (D / 2)) * 2;
+    const int r = p % 16;
+    float mx = -INFINITY;
+    for (int k = 0; k < nkg; ++k) {
+      const int w = k * MT + p / 16;
+      if (wml[(w * 16 + r) * 2 + 1] > 0.f) {
+        mx = fmaxf(mx, wml[(w * 16 + r) * 2]);
+      }
+    }
+    float a0 = 0.f, a1 = 0.f, l = 0.f;
+    for (int k = 0; k < nkg; ++k) {
+      const int w = k * MT + p / 16;
+      const float lw = wml[(w * 16 + r) * 2 + 1];
+      if (!(lw > 0.f)) continue;
+      const float wt = exp2f(wml[(w * 16 + r) * 2] - mx);
+      l += wt * lw;
+      const float2 v =
+          *reinterpret_cast<const float2*>(wo + (w * 16 + r) * D + d);
+      a0 += wt * v.x;
+      a1 += wt * v.y;
+    }
+    const size_t head = size_t(row) * H + kvh * G + p;
+    if (splits == 1) {
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(out + head * D + d) =
+          __floats2bfloat162_rn(a0 * inv, a1 * inv);
+    } else {
+      // split-K partials: unnormalized acc, m in log2 units, l
+      const size_t idx = size_t(split) * n_out + head;
+      *reinterpret_cast<float2*>(part_o + idx * D + d) = make_float2(a0, a1);
+      if (d == 0) {
+        part_ml[2 * idx] = mx;
+        part_ml[2 * idx + 1] = l;
+      }
+    }
+  }
+  if (splits == 1 || counters == nullptr) return;
+
+  // the last split CTA of this (row, kv head) to finish merges them all
+  __shared__ int last;
+  __threadfence();  // this CTA's partials are visible before its count
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(counters + size_t(row) * Hkv + kvh, 1) == splits - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int x = tid; x < G * (D / 2); x += NT) {
+    const int p = x / (D / 2);
+    const int d = (x % (D / 2)) * 2;
+    const size_t head = size_t(row) * H + kvh * G + p;
+    *reinterpret_cast<__nv_bfloat162*>(out + head * D + d) =
+        merged_pair(part_o, part_ml, n_out, head, D, d, splits);
+  }
+  if (tid == 0) counters[size_t(row) * Hkv + kvh] = 0;  // for the next call
 }
 
 struct Args {
@@ -500,13 +995,47 @@ struct Args {
   void* out;
   void* part_o;
   void* part_ml;
+  void* counters;
   int rows, R, RT, H, Hkv, bs, M, splits;
   float scale;
 };
 
+template <int D>
+cudaError_t launch_merge(const Args& a, cudaStream_t stream) {
+  const int n_out = a.rows * a.H;
+  merge_kernel<D><<<(n_out + 3) / 4, 128, 0, stream>>>(
+      static_cast<const float*>(a.part_o),
+      static_cast<const float*>(a.part_ml),
+      static_cast<__nv_bfloat16*>(a.out), n_out, a.splits);
+  return cudaGetLastError();
+}
+
+template <int D, typename T>
+cudaError_t launch_decode(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = DecodeSmem<D, T>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.rows, a.Hkv, a.splits);
+  decode_kernel<D, T><<<grid, DEC_WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const T*>(a.k_pool), static_cast<const T*>(a.v_pool),
+      static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale),
+      static_cast<const int*>(a.tables), static_cast<const int*>(a.lengths),
+      static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.part_o),
+      static_cast<float*>(a.part_ml), static_cast<int*>(a.counters), a.rows,
+      a.H / a.Hkv, a.H, a.Hkv, a.bs, a.M, a.scale * LOG2E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1 || a.counters) return err;
+  return launch_merge<D>(a, stream);
+}
+
 template <int D, typename T>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int G = a.H / a.Hkv;
+  if (a.R == 1 && G <= DEC_MAX_G) return launch_decode<D, T>(a, stream);
   const int warps = (a.RT * G + 15) / 16;
   const size_t smem = Smem<D, T>::bytes(warps);
   cudaError_t err = cudaFuncSetAttribute(
@@ -526,12 +1055,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       a.bs, a.M, a.scale * LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
-  const int n_out = a.rows * a.H;
-  merge_kernel<D><<<(n_out + 3) / 4, 128, 0, stream>>>(
-      static_cast<const float*>(a.part_o),
-      static_cast<const float*>(a.part_ml),
-      static_cast<__nv_bfloat16*>(a.out), n_out, a.splits);
-  return cudaGetLastError();
+  return launch_merge<D>(a, stream);
 }
 
 template <int D>
@@ -545,18 +1069,21 @@ cudaError_t launch_pool(const Args& a, bool quantized, cudaStream_t stream) {
 // Returns a cudaError_t as int: 0 when the launch was accepted.
 //   quantized: the pool is int8 and k_scale / v_scale point at its [N, Hkv]
 //     f32 scales; otherwise the pool is bf16 and they are not read;
-//   rows_per_table (R): tables is [rows / R, M];
+//   rows_per_table (R): tables is [rows / R, M]; R = 1 with at most 32
+//     query heads per kv head takes the decode CTA (rows_per_tile 1);
 //   rows_per_tile (RT): rows of one table per CTA, RT * (H / Hkv) <= 64;
 //   splits: CTAs sharing each tile's keys; above 1, part_o [splits, rows,
-//     H, D] and part_ml [splits, rows, H, 2] f32 scratch hold the partials
-//     that a second kernel merges.
+//     H, D] and part_ml [splits, rows, H, 2] f32 scratch hold the partials;
+//   counters: null, or [rows, Hkv] int32 zeros (and left zero) with which
+//     the decode CTA's last split merges the partials; otherwise a second
+//     kernel merges them.
 extern "C" int shai_ragged_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
-    const void* lengths, void* out, void* part_o, void* part_ml, int rows,
-    int rows_per_table, int rows_per_tile, int H, int Hkv, int D, int bs,
-    int M, int quantized, int splits, float scale, int device,
-    void* stream) {
+    const void* lengths, void* out, void* part_o, void* part_ml,
+    void* counters, int rows, int rows_per_table, int rows_per_tile, int H,
+    int Hkv, int D, int bs, int M, int quantized, int splits, float scale,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int R = rows_per_table;
@@ -568,9 +1095,10 @@ extern "C" int shai_ragged_paged_attention(
       (splits > 1 && (!part_o || !part_ml))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q,     k_pool, v_pool, k_scale, v_scale, tables, lengths,
-               out,   part_o, part_ml, rows,   R,       RT,     H,
-               Hkv,   bs,     M,       splits, scale};
+  const Args a{q,       k_pool, v_pool, k_scale, v_scale, tables,
+               lengths, out,    part_o, part_ml, counters, rows,
+               R,       RT,     H,      Hkv,     bs,       M,
+               splits,  scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:

@@ -17,7 +17,8 @@ functions run eagerly and write the pool tensors IN PLACE (the returned
 prefill and the static-start continuation go through
 ``ops.attention.dot_product_attention`` (the B1 flash kernel on CUDA);
 bucketed decode through ``ops.cuda.paged_attention.paged_decode_attention``
-(B2 on CUDA, or B3 for an int8 pool); ragged decode through
+(B2 on CUDA: the decode CTA of B3's walk on the bucket's truncated tables,
+or B3 itself for an int8 pool); ragged decode through
 ``ops.cuda.ragged_paged_attention`` (B3) and the ragged continuation
 through ``ops.attention.ragged_paged_attention`` (B3 on CUDA, the chunk's
 rows sharing their sequence's table row through ``rows_per_table``). On the CPU
@@ -310,8 +311,8 @@ def _make_token_forward(cfg: LlamaConfig, block_size: int, m_ctx: int,
     target block once per token), then every query attends its own causal
     window, the ``T`` queries flattened into the row axis with per-row
     lengths: through B3 with ``ragged`` (the full window), else through
-    ``paged_decode_attention`` over the ``m_ctx``-block context bucket,
-    which hands an int8 pool to B3 as well.
+    ``paged_decode_attention`` over the ``m_ctx``-block context bucket
+    (B2, which runs on B3's decode CTA and hands an int8 pool to B3).
     """
     L = block_size * m_ctx
 

@@ -45,14 +45,10 @@ ENTRY_POINTS = {
     # q, k, v, lengths, out, B, T, S, H, Hkv, D, scale, causal, device, stream
     "shai_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                              _I, _I, _P],
-    # q, k_pool, v_pool, tables, lengths, out, B, H, Hkv, D, bs, M, scale,
-    # device, stream
-    "shai_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _F, _I, _P],
     # q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, part_o,
-    # part_ml, rows, rows_per_table, rows_per_tile, H, Hkv, D, bs, M,
-    # quantized, splits, scale, device, stream
-    "shai_ragged_paged_attention": [_P] * 10 + [_I] * 10 + [_F, _I, _P],
+    # part_ml, counters, rows, rows_per_table, rows_per_tile, H, Hkv, D, bs,
+    # M, quantized, splits, scale, device, stream (B2 and B3 both)
+    "shai_ragged_paged_attention": [_P] * 11 + [_I] * 10 + [_F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

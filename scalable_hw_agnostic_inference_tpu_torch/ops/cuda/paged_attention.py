@@ -1,12 +1,14 @@
 """Paged decode attention: the B2 kernel's wrapper and its plain version.
 
 Port of ``scalable_hw_agnostic_inference_tpu/ops/pallas/paged_attention.py``
-(``paged_decode_attention``). The TPU kernel becomes
-``csrc/paged_attention.cu``; its source note says what bounds it on the
-H100 and what its design does about that. An int8 pool (``k_scale`` and
-``v_scale`` given) goes to B3, ``ops.cuda.ragged_paged_attention``, on the
-caller's truncated tables, as the TPU kernel's int8 branch does
-(``paged_attention.py:127-132``): B3's counter rises then, not B2's.
+(``paged_decode_attention``). On Hopper B2 is the decode CTA of B3's walk,
+``csrc/ragged_paged_attention.cu``, with one table row per query row on the
+caller's truncated tables; that source's note says what bounds it on the
+H100 and what its design does about that. A bf16 call launches it through
+B3's launcher and raises B2's counter. An int8 pool (``k_scale`` and
+``v_scale`` given) goes to B3's wrapper, on the caller's truncated tables,
+as the TPU kernel's int8 branch does (``paged_attention.py:127-132``): B3's
+counter rises then, not B2's.
 
 :func:`paged_decode_attention` launches the kernel for a CUDA tensor and
 raises for anything the kernel does not take; for a tensor on the CPU it
@@ -21,13 +23,13 @@ from typing import Optional
 
 import torch
 
-from . import _build
-from .flash_attention import (
-    HEAD_DIMS,
-    _check_bf16_cuda,
-    masked_softmax_attention,
+from .flash_attention import masked_softmax_attention
+from .ragged_paged_attention import (
+    DECODE_MAX_GROUP,
+    _launch,
+    check_tables,
+    ragged_paged_attention,
 )
-from .ragged_paged_attention import ragged_paged_attention
 
 
 def paged_decode_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
@@ -64,16 +66,22 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Attend each row's query ``[B, H, D]`` over its paged context in the
     pool ``[N, bs, Hkv, D]`` through ``tables [B, M]`` (M may be a truncated
-    context bucket); keys at or past ``lengths[b]`` are masked. Returns
-    ``[B, H, D]``. On a CUDA tensor this launches the B2 kernel (bf16,
-    ``D`` in ``HEAD_DIMS``, at most 32 query heads per kv head) or raises;
-    on a CPU tensor it runs :func:`paged_decode_attention_reference`.
-    ``k_scale``/``v_scale`` ``[N, Hkv]`` mark an int8 pool, which B3 reads
-    (on the CPU, B3's plain version).
+    context bucket); keys at or past ``lengths[b]`` are masked, a length
+    past ``M * bs`` counts as the whole bucket, and a row of length 0
+    returns zeros. Returns ``[B, H, D]``. On a CUDA tensor this launches
+    the B2 kernel (bf16, ``D`` in ``HEAD_DIMS``, any block size, at most
+    32 query heads per kv head) or raises; on a CPU tensor it runs
+    :func:`paged_decode_attention_reference`. ``k_scale``/``v_scale``
+    ``[N, Hkv]`` mark an int8 pool, which B3 reads (on the CPU, B3's plain
+    version); one of the two without the other raises on every device.
 
     Table entries are trusted to be valid block ids: they are data on the
     device, and checking them would cost a host round trip per call.
     """
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("an int8 pool needs both k_scale and v_scale; got "
+                         + ("k_scale" if v_scale is None else "v_scale")
+                         + " alone")
     if k_scale is not None:
         return ragged_paged_attention(q, k_pool, v_pool, tables, lengths,
                                       k_scale, v_scale, scale=scale)
@@ -83,39 +91,14 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_decode_attention: unsupported device {q.device}")
-    B, H, D = q.shape
-    _N, bs, Hkv, Dk = k_pool.shape
-    M = tables.shape[1] if tables.dim() == 2 else -1
-    if Dk != D or v_pool.shape != k_pool.shape:
-        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/"
-                         f"{tuple(v_pool.shape)} do not match q "
-                         f"{tuple(q.shape)}")
-    if tables.shape != (B, M) or lengths.shape != (B,):
-        raise ValueError(f"tables must be [{B}, M] and lengths [{B}], got "
-                         f"{tuple(tables.shape)} and {tuple(lengths.shape)}")
-    if H % Hkv or H // Hkv > 32:
+    B, H, _D = q.shape
+    Hkv = k_pool.shape[2]
+    check_tables(B, tables, lengths, 1)
+    if H % Hkv or H // Hkv > DECODE_MAX_GROUP:
         raise ValueError(f"{H} query heads over {Hkv} kv heads: the kernel "
-                         f"takes a whole GQA group of at most 32 per block")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention kernel takes D in "
-                         f"{HEAD_DIMS}, got {D}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        _check_bf16_cuda(name, t, q.device)
-    for name, t in (("tables", tables), ("lengths", lengths)):
-        if t.device != q.device or t.dtype != torch.int32 \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous int32 on {q.device}")
-    if scale is None:
-        scale = 1.0 / (D ** 0.5)
-    out = torch.empty_like(q)
-    lib = _build.library()
-    paged_decode_attention.launches += 1
-    err = lib.shai_paged_decode_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, H, Hkv, D, bs, M, float(scale),
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged_decode_attention")
-    return out
+                         f"takes a GQA group of at most {DECODE_MAX_GROUP}")
+    return _launch(paged_decode_attention, q, k_pool, v_pool, tables,
+                   lengths, None, None, scale, 1)
 
 
 #: kernel launches since the last reset (``chip_smoke.py`` reads it to show

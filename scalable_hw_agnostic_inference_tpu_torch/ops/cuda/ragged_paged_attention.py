@@ -11,6 +11,9 @@ runs :func:`ragged_paged_attention_reference`: a gather of each row's table
 window, int8 blocks dequantized right after the gather, a length mask and
 an fp32 softmax (the gather oracle of ``ops/attention.py:249`` of the JAX
 package, with the kernel's zeros for a row of length 0).
+
+The kernel's decode CTA is also B2's: :func:`_launch` checks, plans and
+launches the walk for both wrappers, each counting its own launches.
 """
 
 from __future__ import annotations
@@ -68,10 +71,34 @@ def ragged_paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
 KEY_TILE = 64
 #: product rows (query rows x the query heads of one kv head) per CTA
 MAX_PRODUCT_ROWS = 64
-#: pool block sizes the kernel takes: powers of two from 16 (the
-#: ``EngineConfig`` default and the serving path's) to 1024 (the largest
-#: in ``deploy/``'s ConfigMaps)
-BLOCK_SIZES = tuple(2 ** i for i in range(4, 11))
+#: warps of the decode CTA (``DEC_WARPS``), which takes every launch with
+#: ``rows_per_table`` 1 and at most ``DECODE_MAX_GROUP`` query heads per kv
+#: head (``DEC_MAX_G``: two m16 tiles of heads)
+DECODE_WARPS = 4
+DECODE_MAX_GROUP = 32
+#: the decode split plan: CTAs aimed at per SM when rows x kv heads would
+#: not fill the card, and the fewest key tiles of the window per split
+DECODE_CTAS_PER_SM = 2
+DECODE_MIN_SPLIT_TILES = 4
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(rows: int, n_heads: int, n_kv_heads: int, block_size: int,
+                M: int, n_sms: int) -> Tuple[int, int]:
+    """``(warps, splits)`` of a decode-CTA launch (one table row per query
+    row), from the shapes alone (the lengths are data on the device).
+
+    One CTA of :data:`DECODE_WARPS` warps per (row, kv head) streams that
+    row's keys. A grid that fills the card (``n_sms``) is not split;
+    otherwise each row's keys are split over enough CTAs that about
+    :data:`DECODE_CTAS_PER_SM` land on every SM, each split keeping at
+    least :data:`DECODE_MIN_SPLIT_TILES` key tiles of the full window."""
+    ctas = rows * n_kv_heads
+    if ctas >= n_sms:
+        return DECODE_WARPS, 1
+    most = max(1, -(-(M * block_size)
+                    // (DECODE_MIN_SPLIT_TILES * KEY_TILE)))
+    return DECODE_WARPS, min(-(-DECODE_CTAS_PER_SM * n_sms // ctas), most)
 
 
 @functools.lru_cache(maxsize=256)
@@ -81,15 +108,20 @@ def ragged_plan(rows: int, rows_per_table: int, n_heads: int,
     """``(rows_per_tile, splits)`` for one launch, from the shapes alone
     (the lengths are data on the device).
 
-    A CTA takes ``rows_per_tile`` consecutive rows of one table, times the
-    ``G = H / Hkv`` query heads of its kv head: up to
-    :data:`MAX_PRODUCT_ROWS` product rows, one row when each row has its
-    own table. When the grid (tiles x kv heads) is smaller than the card
-    (``n_sms``), each tile's keys are split over ``splits`` CTAs so that
-    about 4 land on every SM, each split keeping at least 4 key tiles of
-    the full window; a grid that fills the card is not split."""
+    ``rows_per_table`` 1 with at most :data:`DECODE_MAX_GROUP` query heads
+    per kv head takes the decode CTA: one row a CTA, split by
+    :func:`decode_plan`. Otherwise a CTA takes ``rows_per_tile``
+    consecutive rows of one table, times the ``G = H / Hkv`` query heads of
+    its kv head: up to :data:`MAX_PRODUCT_ROWS` product rows. When the grid
+    (tiles x kv heads) is smaller than the card (``n_sms``), each tile's
+    keys are split over ``splits`` CTAs so that about 4 land on every SM,
+    each split keeping at least 4 key tiles of the full window; a grid that
+    fills the card is not split."""
     G = n_heads // n_kv_heads
     R = rows_per_table
+    if R == 1 and G <= DECODE_MAX_GROUP:
+        return 1, decode_plan(rows, n_heads, n_kv_heads, block_size, M,
+                              n_sms)[1]
     rt = 1 if R == 1 else min(R, max(1, MAX_PRODUCT_ROWS // G))
     ctas = (rows // R) * -(-R // rt) * n_kv_heads
     if ctas >= n_sms:
@@ -103,19 +135,24 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-#: the split partials' scratch, one flat fp32 buffer per (device, stream)
-#: that grows to the largest launch: calls on one stream run in order, so
-#: each may reuse what the last one wrote and merged
-_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+#: the split scratch, per (device, stream): a flat fp32 buffer for the
+#: partials and int32 zeros, one per (row, kv head), for the decode CTA's
+#: in-kernel merge (its last split resets its counter to 0). Both grow to
+#: the largest launch; calls on one stream run in order, so each may reuse
+#: what the last one wrote and merged.
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _split_scratch(device: torch.device, stream: int,
-                   numel: int) -> torch.Tensor:
-    buf = _scratch.get((device.index, stream))
-    if buf is None or buf.numel() < numel:
-        buf = torch.empty(numel, dtype=torch.float32, device=device)
-        _scratch[(device.index, stream)] = buf
-    return buf
+def _split_scratch(device: torch.device, stream: int, numel: int,
+                   n_counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (device.index, stream)
+    part, counters = _scratch.get(key, (None, None))
+    if part is None or part.numel() < numel:
+        part = torch.empty(numel, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    _scratch[key] = part, counters
+    return part, counters
 
 
 def check_tables(rows: int, tables: torch.Tensor, lengths: torch.Tensor,
@@ -133,6 +170,91 @@ def check_tables(rows: int, tables: torch.Tensor, lengths: torch.Tensor,
                          f"{tuple(tables.shape)} and {tuple(lengths.shape)}")
 
 
+def _launch(counted, q: torch.Tensor, k_pool: torch.Tensor,
+            v_pool: torch.Tensor, tables: torch.Tensor,
+            lengths: torch.Tensor, k_scale: Optional[torch.Tensor],
+            v_scale: Optional[torch.Tensor], scale: Optional[float],
+            rows_per_table: int, *, splits: Optional[int] = None,
+            merge_in_kernel: bool = True) -> torch.Tensor:
+    """Check one CUDA call of the walk (tables already checked against the
+    rows), plan it, and launch it on the current stream: the one launcher
+    of B2 and B3. ``counted`` is the public wrapper whose call this is; its
+    ``launches`` rises by one. ``splits`` overrides the plan, and
+    ``merge_in_kernel=False`` merges the decode CTA's splits in a second
+    kernel instead of its last split CTA (``chip_smoke.py`` measures both).
+    """
+    rows, H, D = q.shape
+    N, bs, Hkv, Dk = k_pool.shape
+    M = tables.shape[1]
+    dev = q.device
+    name = counted.__name__
+    if Dk != D or v_pool.shape != k_pool.shape:
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if H % Hkv or H // Hkv > MAX_PRODUCT_ROWS:
+        raise ValueError(f"{H} query heads over {Hkv} kv heads: the kernel "
+                         f"takes a GQA group of at most {MAX_PRODUCT_ROWS}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes D in {HEAD_DIMS}, got {D}")
+    if N * bs * Hkv >= 2 ** 31:
+        raise ValueError(f"a pool of {N * bs * Hkv} rows of D values: the "
+                         f"kernel indexes rows with int32")
+    _check_bf16_cuda("q", q, dev)
+    quantized = k_pool.dtype == torch.int8
+    if quantized:
+        for t_name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+            if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"{t_name} must be contiguous and 16-byte "
+                                 f"aligned on {dev}")
+        if v_pool.dtype != torch.int8:
+            raise TypeError(f"v_pool must be int8 like k_pool, got "
+                            f"{v_pool.dtype}")
+        for t_name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t is None or t.device != dev or t.dtype != torch.float32 \
+                    or t.shape != (N, Hkv) or not t.is_contiguous():
+                raise ValueError(f"an int8 pool needs {t_name} as contiguous "
+                                 f"float32 [{N}, {Hkv}] on {dev}")
+    else:
+        _check_bf16_cuda("k_pool", k_pool, dev)
+        _check_bf16_cuda("v_pool", v_pool, dev)
+        if k_scale is not None or v_scale is not None:
+            raise ValueError("scales are for an int8 pool; this pool is "
+                             f"{k_pool.dtype}")
+    for t_name, t in (("tables", tables), ("lengths", lengths)):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{t_name} must be contiguous int32 on {dev}")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    rt, planned = ragged_plan(rows, rows_per_table, H, Hkv, bs, M,
+                              _sm_count(dev.index))
+    splits = splits or planned
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty_like(q)
+    part_o = part_ml = counters = None
+    if splits > 1:
+        # fp32 partials: acc [splits, rows, H, D], then (m, l) per
+        # (split, row, head)
+        n_o = splits * rows * H * D
+        part, cnt = _split_scratch(dev, stream, n_o + splits * rows * H * 2,
+                                   rows * Hkv)
+        part_o = part.data_ptr()
+        part_ml = part_o + 4 * n_o
+        if merge_in_kernel:
+            counters = cnt.data_ptr()
+    lib = _build.library()
+    counted.launches += 1
+    err = lib.shai_ragged_paged_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), part_o,
+        part_ml, counters, rows, rows_per_table, rt, H, Hkv, D, bs, M,
+        int(quantized), splits, float(scale), dev.index, stream)
+    _build.check(err, name)
+    return out
+
+
 def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
                            lengths: torch.Tensor,
@@ -142,8 +264,9 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            rows_per_table: int = 1) -> torch.Tensor:
     """Attend each row's query ``[rows, H, D]`` over its own paged context
     in the pool ``[N, bs, Hkv, D]`` through ``tables``; keys at or past
-    ``lengths[r]`` are masked, and a row's work follows its length, not
-    ``M``. ``k_scale``/``v_scale`` ``[N, Hkv]`` mark an int8 pool. Returns
+    ``lengths[r]`` are masked (a length past ``M * bs`` counts as the whole
+    window), and a row's work follows its length, not ``M``.
+    ``k_scale``/``v_scale`` ``[N, Hkv]`` mark an int8 pool. Returns
     ``[rows, H, D]``.
 
     ``rows_per_table`` R: ``tables`` is ``[rows / R, M]`` and each run of R
@@ -153,14 +276,13 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     On a CUDA tensor this launches the B3 kernel or raises: q bf16; a bf16
     pool, or an int8 pool with both scales contiguous f32 ``[N, Hkv]``;
-    ``D`` in ``HEAD_DIMS``; a block size in :data:`BLOCK_SIZES`; at most
+    ``D`` in ``HEAD_DIMS``; any block size; at most
     :data:`MAX_PRODUCT_ROWS` query heads per kv head; contiguous int32
     tables and lengths. On a CPU tensor it runs
     :func:`ragged_paged_attention_reference`. Table entries are trusted to
     be valid block ids (checking them would cost a host round trip).
     """
-    rows = q.shape[0]
-    check_tables(rows, tables, lengths, rows_per_table)
+    check_tables(q.shape[0], tables, lengths, rows_per_table)
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
             q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale=scale,
@@ -168,74 +290,8 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(
             f"ragged_paged_attention: unsupported device {q.device}")
-    rows, H, D = q.shape
-    N, bs, Hkv, Dk = k_pool.shape
-    M = tables.shape[1]
-    if Dk != D or v_pool.shape != k_pool.shape:
-        raise ValueError(f"pool shapes {tuple(k_pool.shape)}/"
-                         f"{tuple(v_pool.shape)} do not match q "
-                         f"{tuple(q.shape)}")
-    if H % Hkv or H // Hkv > MAX_PRODUCT_ROWS:
-        raise ValueError(f"{H} query heads over {Hkv} kv heads: the kernel "
-                         f"takes a GQA group of at most {MAX_PRODUCT_ROWS}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"ragged_paged_attention kernel takes D in "
-                         f"{HEAD_DIMS}, got {D}")
-    if bs not in BLOCK_SIZES:
-        raise ValueError(f"ragged_paged_attention kernel takes block sizes "
-                         f"{BLOCK_SIZES}, got {bs}")
-    _check_bf16_cuda("q", q, q.device)
-    quantized = k_pool.dtype == torch.int8
-    if quantized:
-        for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-            if t.device != q.device or not t.is_contiguous() \
-                    or t.data_ptr() % 16:
-                raise ValueError(f"{name} must be contiguous and 16-byte "
-                                 f"aligned on {q.device}")
-        if v_pool.dtype != torch.int8:
-            raise TypeError(f"v_pool must be int8 like k_pool, got "
-                            f"{v_pool.dtype}")
-        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-            if t is None or t.device != q.device \
-                    or t.dtype != torch.float32 or t.shape != (N, Hkv) \
-                    or not t.is_contiguous():
-                raise ValueError(f"an int8 pool needs {name} as contiguous "
-                                 f"float32 [{N}, {Hkv}] on {q.device}")
-    else:
-        for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-            _check_bf16_cuda(name, t, q.device)
-        if k_scale is not None or v_scale is not None:
-            raise ValueError("scales are for an int8 pool; this pool is "
-                             f"{k_pool.dtype}")
-    for name, t in (("tables", tables), ("lengths", lengths)):
-        if t.device != q.device or t.dtype != torch.int32 \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous int32 on {q.device}")
-    if scale is None:
-        scale = 1.0 / (D ** 0.5)
-    rt, splits = ragged_plan(rows, rows_per_table, H, Hkv, bs, M,
-                             _sm_count(q.device.index))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    out = torch.empty_like(q)
-    part_o = part_ml = None
-    if splits > 1:
-        # fp32 partials: acc [splits, rows, H, D], then (m, l) per
-        # (split, row, head)
-        n_o = splits * rows * H * D
-        part = _split_scratch(q.device, stream, n_o + splits * rows * H * 2)
-        part_o = part.data_ptr()
-        part_ml = part_o + 4 * n_o
-    lib = _build.library()
-    ragged_paged_attention.launches += 1
-    err = lib.shai_ragged_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr() if quantized else None,
-        v_scale.data_ptr() if quantized else None,
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), part_o,
-        part_ml, rows, rows_per_table, rt, H, Hkv, D, bs, M, int(quantized),
-        splits, float(scale), q.device.index, stream)
-    _build.check(err, "ragged_paged_attention")
-    return out
+    return _launch(ragged_paged_attention, q, k_pool, v_pool, tables,
+                   lengths, k_scale, v_scale, scale, rows_per_table)
 
 
 #: kernel launches since the last reset (``chip_smoke.py`` reads it to show

@@ -175,6 +175,7 @@ def _pool(rng, B, H, Hkv, D, bs, N, M, lengths):
     (4, 4, 2, 16, 16, 32, 6, [0, 1, 37, 96]),   # length 0 -> zeros, 1, GQA
     (2, 8, 8, 64, 16, 24, 4, [64, 5]),          # MHA, full window
     (3, 4, 1, 16, 8, 40, 5, [40, 3, 23]),       # MQA, block size 8
+    (3, 4, 2, 16, 24, 20, 3, [0, 50, 72]),      # block size 24, len 0
 ])
 def test_paged_reference_matches_pallas(B, H, Hkv, D, bs, N, M, lengths):
     rng = np.random.default_rng(B + H + D + M)
@@ -204,6 +205,51 @@ def test_paged_truncated_bucket_matches_full_window():
                               jnp.asarray(lens), interpret=True))
     np.testing.assert_allclose(cut.numpy(), full.numpy(), atol=1e-6)
     np.testing.assert_allclose(cut.numpy(), want, atol=FP32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("given", ["k_scale", "v_scale"])
+def test_paged_decode_with_one_scale_raises(given):
+    """One scale without the other is neither pool's call: it raises on
+    every device, before any dispatch (it used to run the bf16 path when
+    only ``v_scale`` was given)."""
+    rng = np.random.default_rng(19)
+    q, kp, vp, tables, lens = _pool(rng, 2, 4, 2, 16, 16, 8, 2, [20, 5])
+    sc = torch.ones(8, 2)
+    kw = {given: sc}
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        tpaged.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(tables),
+                                      _t(lens), **kw)
+
+
+def test_paged_decode_on_cuda_launches_the_shared_walk(monkeypatch):
+    """A bf16 call on a CUDA tensor goes to B3's launcher with one table
+    row per query row on B2's own tables, counted as B2's launch; a group
+    past 32 query heads per kv head raises first. The route reads only
+    shapes and devices, so stand-ins of CUDA tensors drive it here with
+    the launcher replaced by a recorder."""
+    calls = []
+    monkeypatch.setattr(tpaged, "_launch",
+                        lambda *a: calls.append(a) or "walk")
+    cuda = torch.device("cuda")
+
+    def on_cuda(*shape):
+        return types.SimpleNamespace(shape=shape, device=cuda,
+                                     dim=lambda: len(shape))
+
+    q, kp = on_cuda(8, 32, 128), on_cuda(64, 16, 8, 128)
+    tables, lens = on_cuda(8, 32), on_cuda(8)
+    assert tpaged.paged_decode_attention(q, kp, kp, tables, lens) == "walk"
+    (counted, *tensors, ks, vs, scale, rows_per_table), = calls
+    assert counted is tpaged.paged_decode_attention
+    assert tensors == [q, kp, kp, tables, lens]
+    assert (ks, vs, scale, rows_per_table) == (None, None, None, 1)
+    with pytest.raises(ValueError, match="at most 32"):
+        tpaged.paged_decode_attention(on_cuda(8, 64, 128),
+                                      on_cuda(64, 16, 1, 128),
+                                      on_cuda(64, 16, 1, 128), tables, lens)
+    with pytest.raises(ValueError, match="tables must be"):
+        tpaged.paged_decode_attention(q, kp, kp, on_cuda(4, 32), lens)
+    assert len(calls) == 1
 
 
 # -- rope, norms, sampling ----------------------------------------------------

@@ -290,17 +290,75 @@ def test_rows_per_table_refuses_mismatched_tables(entry, R, n_tables):
     ((512, 512, 32, 8, 16, 256, 132), (16, 1)),
     # a 441-row tail chunk: 28 tiles x 8 heads, still no split
     ((441, 441, 32, 8, 16, 256, 132), (16, 1)),
-    # decode B=8: 64 CTAs, split to about 4 per SM
-    ((8, 1, 32, 8, 16, 256, 132), (1, 9)),
+    # decode B=8 takes the decode CTA: 64 CTAs, split to about 2 per SM
+    ((8, 1, 32, 8, 16, 256, 132), (1, 5)),
     # decode B=1: capped at 4 key tiles a split of the 4096-key window
     ((1, 1, 32, 8, 16, 256, 132), (1, 16)),
     # a window of 2 key tiles is not split at all
     ((8, 1, 32, 8, 16, 8, 132), (1, 1)),
     # G = 16: 4 rows a tile; a 512-key window splits at most in 2
     ((64, 64, 16, 1, 16, 32, 132), (4, 2)),
+    # one row a table but G = 64, past the decode CTA's 32: the tile walk,
+    # about 4 CTAs per SM, at least 4 key tiles a split
+    ((8, 1, 64, 1, 16, 256, 132), (1, 16)),
 ])
 def test_ragged_plan(case, want):
     assert tragged.ragged_plan(*case) == want
     rt, _ = want
     G = case[2] // case[3]
     assert rt * G <= tragged.MAX_PRODUCT_ROWS
+
+
+@pytest.mark.parametrize("case,splits", [
+    # B2 at B=8 over a 128-block bucket (2048 keys): 64 (row, kv head)
+    # CTAs, split to about 2 per SM of 132
+    ((8, 32, 8, 16, 128, 132), 5),
+    # B=1 over the same bucket: capped at 4 key tiles of 64 a split
+    ((1, 32, 8, 16, 128, 132), 8),
+    # serve's bucket of 32 blocks (512 keys): at most 2 splits
+    ((8, 32, 8, 16, 32, 132), 2),
+    # 17 rows x 8 kv heads = 136 CTAs fill 132 SMs: no split
+    ((17, 32, 8, 16, 128, 132), 1),
+    # G = 32 (Hkv = 1), block size 24 (a 1536-key window)
+    ((2, 32, 1, 24, 64, 132), 6),
+])
+def test_decode_plan(case, splits):
+    """Every one-table-a-row launch with at most 32 query heads per kv head
+    takes the decode CTA: 4 warps, one row a CTA, its keys split until
+    the card is about twice full."""
+    rows, H, Hkv, bs, M, n_sms = case
+    assert tragged.decode_plan(*case) == (4, splits)
+    assert tragged.DECODE_WARPS == 4
+    assert tragged.ragged_plan(rows, 1, H, Hkv, bs, M, n_sms) == (1, splits)
+
+
+@pytest.mark.parametrize("H,Hkv,bs", [(4, 2, 8), (8, 1, 24)],
+                         ids=["G2-bs8", "G8-bs24"])
+def test_paged_and_ragged_plain_versions_agree_on_truncated_tables(H, Hkv,
+                                                                   bs):
+    """B2 is B3 with one table row a query row on the caller's truncated
+    ``[B, M]`` tables: their plain versions agree, and with the Pallas B2
+    (interpret mode), with a length past ``M * bs`` (the whole bucket
+    counts) and a length-0 row (zeros)."""
+    rng = np.random.default_rng(bs + H)
+    N, D, M = 16, 16, 3
+    kp = rng.standard_normal((N, bs, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((N, bs, Hkv, D)).astype(np.float32)
+    full = rng.permutation(N)[:12].reshape(3, 4).astype(np.int32)
+    cut = np.ascontiguousarray(full[:, :M])
+    lens = np.asarray([M * bs + 5, 0, bs + 1], np.int32)
+    q = rng.standard_normal((3, H, D)).astype(np.float32)
+    b2 = tpaged.paged_decode_attention_reference(*_tt(q, kp, vp, cut, lens))
+    b3 = tragged.ragged_paged_attention_reference(*_tt(q, kp, vp, cut, lens),
+                                                  rows_per_table=1)
+    np.testing.assert_allclose(b2.numpy(), b3.numpy(), atol=ATOL, rtol=0)
+    assert np.all(b2.numpy()[1] == 0.0) and np.all(b3.numpy()[1] == 0.0)
+    clipped = tpaged.paged_decode_attention_reference(
+        *_tt(q, kp, vp, cut, np.minimum(lens, M * bs)))
+    np.testing.assert_array_equal(b2.numpy(), clipped.numpy())
+    want = np.asarray(j_paged(*_j(q, kp, vp, cut, lens), interpret=True))
+    np.testing.assert_allclose(b2.numpy(), want, atol=ATOL, rtol=0)
+    # the wrappers on the CPU: each its own plain version
+    np.testing.assert_array_equal(
+        tpaged.paged_decode_attention(*_tt(q, kp, vp, cut, lens)).numpy(),
+        b2.numpy())
