@@ -21,21 +21,38 @@ Phases:
                 continuation shapes (one table row shared through
                 ``rows_per_table``, and copied per row); B2 given int8
                 scales must return B3's result;
-  6. ``engine`` the engine at Llama-3-8B widths with seeded random weights,
-                one prompt chunked through the static-start continuation:
-                greedy tokens against the argmax of the full-sequence
-                scoring forward over prompt + generated tokens;
-  7. ``engine_ragged`` the same model under ``SHAI_RAGGED_ATTENTION=1``
+  6. ``decode_graph`` one decode step at Llama-3-8B width (32 layers,
+                seeded weights) captured as a CUDA graph
+                (``engine/graphs.py``) at serve's bucketed shape (B=8, a
+                32-block bucket, bf16 pool) and at the ragged int8 full
+                window (256 blocks, lengths 1 to 4096): the replay's
+                tokens and logits against the eager call of the same
+                decode function on the same inputs and draws, bit for
+                bit; fresh draws per replay; wall and device time per
+                step, eager against replay, launches per step, capture
+                time and the graph pool's bytes;
+  7. ``engine`` the engine at Llama-3-8B widths with seeded random weights,
+                warmed (every decode key captured), one prompt chunked
+                through the static-start continuation: greedy tokens
+                against the argmax of the full-sequence scoring forward
+                over prompt + generated tokens, under the default async
+                decode and equal to a lock-step run's
+                (``SHAI_ASYNC_DECODE=0``);
+  8. ``engine_ragged`` the same model under ``SHAI_RAGGED_ATTENTION=1``
                 (bf16), ``SHAI_RAGGED_ATTENTION=1 SHAI_KV_QUANT=int8`` and
-                ``SHAI_KV_QUANT=int8`` alone;
-  8. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs)
-                and answer 8 concurrent ``POST /generate``;
-  9. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
+                ``SHAI_KV_QUANT=int8`` alone, each also equal to lock-step;
+  9. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
+                its closed set warmed before readiness) and answer 8
+                concurrent ``POST /generate``;
+ 10. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
                 SHAI_KV_QUANT=int8`` and an engine ConfigMap of
                 ``max_model_len`` 4096: two of the 8 prompts chunk.
 
 Each engine and serve phase zeroes the launch counters just before its
-run and requires exactly its own kernels to have risen just after.
+run and requires exactly its own kernels to have risen just after, and
+B2's or B3's count to be exactly the layers times the decode graph
+replays (plus, for B3, the layers times the ragged continuation chunks);
+the serve phases also require 0 recompiles after warmup.
 Any failed phase makes the script exit non-zero without the result lines.
 A full run prints the card's name and power limit, then, second to last,
 ``{"kernels": [...]}`` (per kernel: route, source, the TPU kernel it
@@ -61,8 +78,8 @@ import traceback
 import urllib.error
 import urllib.request
 
-PHASES = ("card", "build", "flash", "paged", "ragged", "engine",
-          "engine_ragged", "serve", "serve_ragged")
+PHASES = ("card", "build", "flash", "paged", "ragged", "decode_graph",
+          "engine", "engine_ragged", "serve", "serve_ragged")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core FLOP/s
@@ -439,7 +456,7 @@ def _paged_work(B, H, Hkv, D, bs, M, lengths):
 
 
 def _device_us_by_kernel(torch, fn, calls: int = 20):
-    """Device microseconds per call of ``fn`` by kernel name, from a
+    """``{kernel: (device us, launches)}`` per call of ``fn``, from a
     ``torch.profiler`` trace of ``calls`` calls (empty when the profiler
     records no device activity)."""
     from torch.profiler import ProfilerActivity, profile
@@ -456,7 +473,8 @@ def _device_us_by_kernel(torch, fn, calls: int = 20):
         if us is None:
             us = getattr(e, "cuda_time_total", 0.0)
         if us:
-            out[e.key] = out.get(e.key, 0.0) + us / calls
+            t, n = out.get(e.key, (0.0, 0.0))
+            out[e.key] = (t + us / calls, n + e.count / calls)
     return out
 
 
@@ -481,8 +499,9 @@ def _paged_plan_choices(torch, timer, pa, rpa, q, kp, vp, tables, lens):
     by_kernel = _device_us_by_kernel(torch, lambda: rpa._launch(
         pa.paged_decode_attention, q, kp, vp, tables, lens, None, None, None,
         1, splits=planned, merge_in_kernel=False))
-    merge_us = sum(us for k, us in by_kernel.items() if "merge_kernel" in k)
-    walk_us = sum(us for k, us in by_kernel.items()
+    merge_us = sum(us for k, (us, _) in by_kernel.items()
+                   if "merge_kernel" in k)
+    walk_us = sum(us for k, (us, _) in by_kernel.items()
                   if "decode_kernel" in k or "merge_kernel" in k)
     line = {"planned_splits": planned,
             "ms_by_splits": {f"{s}{'' if m else '+merge'}": t
@@ -794,6 +813,176 @@ def _check_b2_delegates(torch, pa, rpa, q, kp, vp, ks, vs, tables, lens,
         "exactly; launches B2 0, B3 2")
 
 
+def _step_wall_ms(torch, fn, reps: int = 20) -> float:
+    """Median wall ms of one call of ``fn`` from the host's enqueue to the
+    device's end (a synchronize after each call)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _device_step(torch, fn, calls: int = 10):
+    """``(device ms, kernel launches)`` per call of ``fn`` (profiler);
+    ``(None, None)`` when the profiler records no device activity."""
+    by_kernel = _device_us_by_kernel(torch, fn, calls)
+    if not by_kernel:
+        return None, None
+    return (sum(us for us, _ in by_kernel.values()) / 1e3,
+            sum(n for _, n in by_kernel.values()))
+
+
+def _decode_graph_case(ctx, torch, what, lengths, ragged, quant, M):
+    """One decode key at full width: a pool of random blocks behind
+    shuffled tables, 8 rows at ``lengths`` (half greedy, half sampled),
+    captured as a graph and held against the eager call of the same decode
+    function on the same inputs and draws."""
+    from scalable_hw_agnostic_inference_tpu_torch.engine.cache import (
+        PagedKVCache,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.engine.graphs import (
+        DecodeGraph,
+        GraphPool,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.engine.runner import (
+        make_decode,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
+        ragged_paged_attention as rpa,
+    )
+
+    cfg, model = _engine_model(ctx)
+    B, bs = len(lengths), 16
+    N = B * M + 1
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cache = PagedKVCache(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, N, bs,
+                         M, dtype=torch.bfloat16, device="cuda", quant=quant)
+    for lay in cache.kv:
+        for name, t in lay.items():
+            if name in ("ks", "vs"):
+                t.uniform_(0.5 / 127, 3.0 / 127, generator=gen)
+            elif quant:
+                t.random_(-127, 128, generator=gen)
+            else:
+                t.normal_(generator=gen)
+    perm = torch.randperm(N - 1, generator=gen, device="cuda") + 1
+    tables = perm[: B * M].reshape(B, M).to(torch.int32)
+    pool = GraphPool(torch.device("cuda", torch.cuda.current_device()))
+    pool.reserve([rpa.split_scratch_size(
+        B, 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, bs, M,
+        rpa.sm_count(torch.cuda.current_device()))])
+    decode = make_decode(cfg, bs, M, B, ctx_blocks=M, ragged=ragged,
+                         kv_quant=quant, feedback=True)
+    g = DecodeGraph((M, B), decode, model, cache.kv, B, M, cfg.vocab_size,
+                    device="cuda", pool=pool)
+    a = g.inputs
+    a["tokens"].copy_(torch.randint(3, cfg.vocab_size, (B,), generator=gen,
+                                    device="cuda", dtype=torch.int32))
+    a["pos"].copy_(torch.tensor(lengths, device="cuda") - 1)
+    a["tables"].copy_(tables)
+    a["temp"].copy_(torch.tensor([0, 0, 0, 0, 1, 1, 0.7, 0.7],
+                                 device="cuda")[:B])
+    a["topk"].copy_(torch.tensor([0, 0, 0, 0, 0, 50, 0, 0],
+                                 device="cuda")[:B])
+    a["topp"].copy_(torch.tensor([1, 1, 1, 1, 1, 1, 0.9, 1.0],
+                                 device="cuda")[:B])
+    _reset_counters()
+    g.capture()
+    captured = _read_counters()
+    name = ("ragged_paged_attention" if ragged or quant
+            else "paged_decode_attention")
+    if g.launches != {name: cfg.n_layers}:
+        raise AssertionError(f"{what}: the graph holds launches "
+                             f"{g.launches}, want {cfg.n_layers} of {name}")
+    # the eager call and the replay on the same inputs and draws: the
+    # replay's decode writes each row's key and value again (the same
+    # values), so it attends the same pool
+    gen_u = torch.Generator(device="cuda").manual_seed(5)
+    g.draw(gen_u)
+    e_nxt, e_pos, e_logits = g.eager()
+    _reset_counters()
+    g.replay()
+    torch.cuda.synchronize()
+    replay_counts = _read_counters()
+    exact = (torch.equal(g.logits, e_logits) and torch.equal(g.nxt, e_nxt)
+             and torch.equal(g.pos_next, e_pos))
+    diff = (g.logits - e_logits).abs().max().item()
+    if not bool(torch.isfinite(g.logits).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    greedy_equal = torch.equal(g.nxt[:4], e_nxt[:4])
+    # consecutive replays draw afresh: a sampled row's uniforms change
+    u0 = g.uniforms.clone()
+    first = g.nxt.clone()
+    g.draw(gen_u)
+    g.replay()
+    torch.cuda.synchronize()
+    redrawn = not torch.equal(u0, g.uniforms)
+    resampled = not torch.equal(first[4:], g.nxt[4:])
+    still_greedy = torch.equal(first[:4], g.nxt[:4])
+
+    def eager_step():
+        g.draw(gen_u)
+        g.eager()
+
+    def replay_step():
+        g.draw(gen_u)
+        g.replay()
+
+    wall_eager = _step_wall_ms(torch, eager_step)
+    wall_replay = _step_wall_ms(torch, replay_step)
+    dev_eager, launches_eager = _device_step(torch, eager_step)
+    dev_replay, launches_replay = _device_step(torch, replay_step)
+    line = {
+        "case": what, "B": B, "M": M, "lengths": lengths,
+        "ragged": ragged, "int8": quant,
+        "bit_exact": exact, "max_abs_logit_diff": diff,
+        "greedy_tokens_equal": greedy_equal,
+        "redrawn": redrawn, "sampled_rows_changed": resampled,
+        "greedy_rows_unchanged": still_greedy,
+        "graph_launches": g.launches, "capture_counts": captured,
+        "replay_counts": replay_counts,
+        "capture_s": g.capture_seconds, "pool_bytes": pool.bytes(),
+        "wall_ms_eager": wall_eager, "wall_ms_replay": wall_replay,
+        "device_ms_eager": dev_eager, "device_ms_replay": dev_replay,
+        "kernels_per_eager_step": launches_eager,
+        "kernels_per_replay": launches_replay,
+    }
+    log("decode_graph: " + json.dumps(line))
+    del g, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    if replay_counts[name] != cfg.n_layers:
+        raise AssertionError(f"{what}: one replay counted {replay_counts}")
+    if not exact:
+        raise AssertionError(f"{what}: the replay is not the eager call bit "
+                             f"for bit (max logit diff {diff}, greedy tokens "
+                             f"equal {greedy_equal})")
+    if not (redrawn and resampled and still_greedy):
+        raise AssertionError(f"{what}: draws {redrawn}, sampled rows changed "
+                             f"{resampled}, greedy rows kept {still_greedy}")
+    return line
+
+
+def phase_decode_graph(ctx):
+    import torch
+
+    ctx["decode_graph"] = [
+        # serve's bucketed decode step: its 32-block bucket, bf16 pool
+        _decode_graph_case(ctx, torch, "serve bucketed bf16",
+                           [32, 71, 110, 149, 188, 227, 266, 305], False,
+                           False, 32),
+        # serve_ragged's: the full 256-block window over an int8 pool
+        _decode_graph_case(ctx, torch, "ragged int8 full window",
+                           [1, 17, 255, 512, 1000, 2047, 3000, 4096], True,
+                           True, 256),
+    ]
+
+
 KERNELS = ("flash_attention", "paged_decode_attention",
            "ragged_paged_attention")
 
@@ -897,10 +1086,52 @@ def _plain_attention():
             setattr(mod, name, fn)
 
 
+def _replays(eng):
+    return {key: g.replays for key, g in eng._decode_fns.items()}
+
+
+def _count_chunks(eng):
+    """Count the engine's continuation chunks from here on (each ragged
+    chunk launches B3 once per layer); returns the counter list."""
+    calls = []
+    inner = eng._continue_prefill
+
+    def counted(s):
+        calls.append(1)
+        return inner(s)
+
+    eng._continue_prefill = counted
+    return calls
+
+
+def _expected_walk(eng, before, chunks):
+    """B2's and B3's exact launch counts since ``before`` (the graphs'
+    replay counts then): each replay adds the launches its graph captured,
+    and each ragged continuation chunk launches B3 once per layer."""
+    out = {"paged_decode_attention": 0, "ragged_paged_attention": 0}
+    for key, g in eng._decode_fns.items():
+        n = g.replays - before.get(key, 0)
+        for name, per in g.launches.items():
+            if name in out:
+                out[name] += per * n
+    if eng._ragged:
+        out["ragged_paged_attention"] += eng.cfg.n_layers * len(chunks)
+    return out
+
+
+def _check_walk(what: str, counts, expect) -> None:
+    got = {k: counts[k] for k in expect}
+    if got != expect:
+        raise AssertionError(f"{what}: B2/B3 launches {got}, the decode "
+                             f"replays and chunks make {expect}")
+
+
 def _generate(ctx, prompts, switches):
-    """One engine run of greedy requests under the engine switches;
+    """One engine run of greedy requests under the engine switches (async
+    decode unless they say otherwise), its closed set warmed first;
     returns the finished requests, the launch counts, the seconds, the
-    continuation keys it compiled and its leaked blocks."""
+    continuation keys it compiled, its leaked blocks and a dict of the
+    pipeline's numbers."""
     import torch
     from scalable_hw_agnostic_inference_tpu_torch.engine.config import (
         EngineConfig,
@@ -914,13 +1145,20 @@ def _generate(ctx, prompts, switches):
     ecfg = EngineConfig(max_model_len=2048, max_num_seqs=4, block_size=16,
                         context_encoding_buckets=(128, 512),
                         max_new_tokens=ENGINE_NEW_TOKENS)
-    env = {"SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "", **switches}
+    env = {"SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "",
+           "SHAI_ASYNC_DECODE": "1", **switches}
     with _env(env):
         eng = LLMEngine(cfg, model, ecfg, device="cuda")
+        t0 = time.monotonic()
+        n_warm = eng.warm_executables()
+        warm_s = time.monotonic() - t0
+        before = _replays(eng)
+        chunks = _count_chunks(eng)
         _reset_counters()
         t0 = time.monotonic()
         fins = eng.generate(prompts, SamplingParams(
             temperature=0.0, max_new_tokens=ENGINE_NEW_TOKENS))
+        eng.finish_pending()
         torch.cuda.synchronize()
         seconds = time.monotonic() - t0
         counts = _read_counters()
@@ -929,7 +1167,13 @@ def _generate(ctx, prompts, switches):
             raise AssertionError(f"{len(f.token_ids)} tokens, want "
                                  f"{ENGINE_NEW_TOKENS}")
     conts = sorted(k for k in eng._prefill if k[0] in ("cont", "rcont"))
-    return fins, counts, seconds, conts, eng.cache.leaked_blocks
+    info = {"async": eng._async, "warmed": n_warm, "warm_s": warm_s,
+            "recompiles": eng.obs.recompiles,
+            "replays": sum(_replays(eng).values()) - sum(before.values()),
+            "chunks": len(chunks),
+            "flushes": eng.obs.flush_reasons(),
+            "walk": _expected_walk(eng, before, chunks)}
+    return fins, counts, seconds, conts, eng.cache.leaked_blocks, info
 
 
 def _score(model, prompts, fins):
@@ -977,7 +1221,20 @@ def _run_engine(ctx, what, prompt_lens, switches, expect, cont_key, rule):
     gen = torch.Generator().manual_seed(3)
     prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in prompt_lens]
-    fins, counts, seconds, conts, leaked = _generate(ctx, prompts, switches)
+    fins, counts, seconds, conts, leaked, info = _generate(ctx, prompts,
+                                                          switches)
+    _check_walk(what, counts, info["walk"])
+    # the same requests lock-step: the same tokens, the same device work
+    sync = _generate(ctx, prompts, {**switches, "SHAI_ASYNC_DECODE": "0"})
+    if not info["async"] or sync[5]["async"]:
+        raise AssertionError(f"{what}: async {info['async']} / lock-step "
+                             f"{not sync[5]['async']}")
+    if [f.token_ids for f in fins] != [f.token_ids for f in sync[0]]:
+        raise AssertionError(f"{what}: async and lock-step tokens differ")
+    _check_walk(f"{what} lock-step", sync[1], sync[5]["walk"])
+    log(f"{what}: async {seconds:.2f} s, lock-step {sync[2]:.2f} s, tokens "
+        f"equal; async {json.dumps(info)}; lock-step "
+        f"{json.dumps(sync[5])}")
     s = _score(model, prompts, fins)
     (exact, worst), (p_hits, p_worst), total = s["b1"], s["plain"], \
         s["tokens"]
@@ -997,7 +1254,8 @@ def _run_engine(ctx, what, prompt_lens, switches, expect, cont_key, rule):
                              f"{NOISE_TIES} * eps = {NOISE_TIES * eps:.4f}")
     if rule in ("tie", "int8"):
         with _plain_attention():
-            p_fins, p_counts, _, _, _ = _generate(ctx, prompts, switches)
+            p_fins, p_counts, _, _, _, _ = _generate(ctx, prompts,
+                                                     switches)
         ps = _score(model, prompts, p_fins)
         log(f"{what}: the same engine through the kernels' plain versions: "
             f"{ps['b1'][0]}/{total} equal the scoring argmax, worst deficit "
@@ -1090,6 +1348,11 @@ def _send_concurrent(base: str, prompts):
     return results, time.monotonic() - t0
 
 
+#: the kernel class of PyTorch's own attention kernels (SDPA), which no
+#: serve phase may launch
+LIBRARY_ATTENTION = "library attention (SDPA)"
+
+
 def _kernel_class(name: str, walk: str) -> str:
     """The kernel class of a device event. ``walk`` names the wrapper whose
     launches the shared walk's kernels (tile, decode CTA and merge) are in
@@ -1097,6 +1360,9 @@ def _kernel_class(name: str, walk: str) -> str:
     only one of the two."""
     if "flash_kernel" in name:
         return "B1 flash_attention"
+    if any(k in name.lower() for k in ("fmha", "flash_fwd", "attention_kernel",
+                                       "efficient_attention")):
+        return LIBRARY_ATTENTION
     if any(k in name for k in ("ragged_kernel", "decode_kernel",
                                "merge_kernel")):
         return walk
@@ -1152,6 +1418,8 @@ def _profile(torch, fn, walk: str) -> None:
             f"device time")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"profile:     {us / 1e3:.1f} ms {name[:100]}")
+    if LIBRARY_ATTENTION in by_class:
+        raise AssertionError("profile: a library attention kernel ran")
 
 
 def _serve(ctx, what, env, prompts, expect, walk):
@@ -1197,16 +1465,35 @@ def _serve(ctx, what, env, prompts, expect, walk):
                                          f"{body}")
                 time.sleep(0.5)
             eng = service._engine
+            graphs = list(eng._decode_fns.values())
             log(f"{what}: llama-8b-geometry ready in "
                 f"{time.monotonic() - t0:.1f} s (load + warmup); engine "
                 f"max_model_len {eng.ecfg.max_model_len}, buckets "
                 f"{list(eng.ecfg.context_encoding_buckets)}, ragged "
-                f"{eng._ragged}, int8 KV {eng._kv_quant}")
+                f"{eng._ragged}, int8 KV {eng._kv_quant}, async "
+                f"{eng._async}; warmed {eng.obs.warmed_executables} "
+                f"executables in {service.warm_seconds:.2f} s before "
+                f"readiness: decode graphs {sorted(eng._decode_fns)}, "
+                f"capture s "
+                f"{[round(g.capture_seconds, 3) for g in graphs]}, launches "
+                f"per replay {graphs[0].launches}, graph pool "
+                f"{eng._graphs.bytes()} bytes, KV pool "
+                f"{eng.cache.pool_bytes} bytes")
+            # async unless the caller's environment asks for lock-step
+            want_async = os.environ.get("SHAI_ASYNC_DECODE", "1") != "0"
+            if eng._async != want_async or not all(g.captured
+                                                   for g in graphs):
+                raise AssertionError(f"{what}: async {eng._async}, captured "
+                                     f"{[g.captured for g in graphs]}")
             # latency instruments count from here: the warmup request is out
             eng.ttft, eng.tpot = LatencyCollector(), LatencyCollector()
+            before = _replays(eng)
+            chunks = _count_chunks(eng)
             _reset_counters()
             results, wall = _send_concurrent(base, prompts)
             counts = _read_counters()
+            exact = _expected_walk(eng, before, chunks)
+            steps = sum(_replays(eng).values()) - sum(before.values())
             ctx.setdefault("launches", {})[what] = counts
             bad = [r for r in results if r is None or r[0] != 200]
             if bad:
@@ -1218,13 +1505,22 @@ def _serve(ctx, what, env, prompts, expect, walk):
             tpot = eng.tpot.report()
             log(f"{what}: {len(prompts)} concurrent /generate -> 200 in "
                 f"{wall:.2f} s, prompt tokens {n_prompt}, tokens {n_tok}; "
-                f"launches {counts}")
+                f"launches {counts}; {steps} decode graph replays, "
+                f"{len(chunks)} continuation chunks")
             log(f"{what}: TTFT p50 {ttft['p50'] * 1e3:.1f} ms p99 "
                 f"{ttft['p99'] * 1e3:.1f} ms; TPOT p50 "
                 f"{tpot['p50'] * 1e3:.2f} ms p99 {tpot['p99'] * 1e3:.2f} ms "
                 f"(engine instruments); /stats {json.dumps(stats)}")
             _profile(torch, lambda: _send_concurrent(base, prompts), walk)
             _check_counters(what, counts, expect)
+            _check_walk(what, counts, exact)
+            log(f"{what}: recompiles after warmup {eng.obs.recompiles}, "
+                f"executables {eng.n_executables}, pipeline flushes "
+                f"{eng.obs.flush_reasons()}")
+            if eng.obs.recompiles or \
+                    eng.n_executables != eng.obs.warmed_executables:
+                raise AssertionError(f"{what}: {eng.obs.recompiles} "
+                                     f"recompiles after warmup")
             if eng.cache.leaked_blocks:
                 raise AssertionError(f"{what}: leaked KV blocks")
             return results

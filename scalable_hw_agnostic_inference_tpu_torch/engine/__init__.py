@@ -1,1 +1,2 @@
-"""Paged-KV continuous-batching engine (lock-step, one device, bf16)."""
+"""Paged-KV continuous-batching engine (async and lock-step decode, one
+device)."""

@@ -1,19 +1,48 @@
-"""Continuous-batching engine: slots, scheduler and the lock-step loop.
+"""Continuous-batching engine: slots, scheduler, and the async and
+lock-step decode loops.
 
-Port of ``scalable_hw_agnostic_inference_tpu/engine/engine.py``, its
-lock-step discipline (``SHAI_ASYNC_DECODE=0``, the reference's own oracle):
-``add_request``, ``step``/``_step_sync``, ``_admit_phase``,
+Port of ``scalable_hw_agnostic_inference_tpu/engine/engine.py``:
+``add_request``, ``step`` with its two disciplines behind the
+``SHAI_ASYNC_DECODE`` gate (``_resolve_async``, default on): the async
+pipeline (``_step_async``, ``_steady_step``, ``_decode_dispatch``,
+``_dispatch_async``, ``_retire_pipe``, ``_flush_pipeline``,
+``finish_pending``) and the lock-step path (``_step_sync``,
+``_decode_step``), the reference's own oracle; ``_admit_phase``,
 ``_admit_batch`` (same-bucket prompts admitted as ONE prefill, padded to a
 power of two), chunked prefill (``_admit_long``, ``_continue_prefill``,
 ``_cont_for``/``_cont_key``/``_cont_args``; the non-fused, plain-text
-branches), ``_decode_step`` with context and batch buckets,
-``_commit_pending``/``_apply_sampled``, recompute preemption
-(``_preempt_lowest``), ``cancel`` and ``generate``.
+branches), context and batch buckets (``_decode_for``, counting a rebuild
+after warmup as the reference counts a recompile), ``_marshal_running``
+(the text columns), ``_commit_pending``/``_apply_sampled``, recompute
+preemption (``_preempt_lowest``), ``cancel`` (the reference's ``_abort``
+teardown, with its pipeline flush), ``n_executables`` and ``generate``;
+``warm_executables`` lives in ``engine/warm.py``.
 
 A fixed slot batch (``max_num_seqs``) is decoded by one call per step; at
 most one prefill group is admitted per step; paged KV with optimistic
 admission and recompute preemption when the pool runs dry (the preempted
 sequence's generated tokens become prompt suffix on re-admission).
+
+Each decode key is one :class:`~.graphs.DecodeGraph`: a CUDA graph captured
+when the key is first built (by ``warm_executables`` before readiness), or
+the same function run eagerly on the CPU. Both disciplines replay the same
+graphs, so they run the same device work; prefill and the continuation
+chunks stay eager.
+
+The async pipeline (the reference's ``engine.py:860-880``): step N+1 is
+dispatched with step N's sampled tokens and positions fed back on the
+device, BEFORE step N's tokens are read back; step N's host bookkeeping
+(EOS and length checks, streaming) then runs while N+1 executes. Every
+event that changes the batch composition or the control flow (a join, a
+finish, a preemption, a cancel, pool pressure, a chunking slot) first
+flushes the pipeline: the in-flight step is retired, the surviving slots'
+host mirrors catch up, and a finished or cancelled slot's extra token is
+discarded (never emitted; its reservation frees with the slot).
+Token-exactness against lock-step holds by construction: the dispatch
+composition, the batch-row packing and the draws of step k are all fixed
+before step k-1's readback (a finishing slot rides exactly one extra
+dispatch in both disciplines), and both draw their uniforms from the one
+generator in the same order, so pipelining reorders host work only.
 
 A prompt longer than the largest prefill bucket ``C`` chunks: its whole
 block run is allocated at admission, the first ``C`` tokens go through the
@@ -24,8 +53,9 @@ At most one sequence chunks at a time. Prompts are capped at
 ``_chunk_cap`` (whole chunks, one position left to generate) by keeping
 their tail, as the reference does.
 
-Two switches of the reference, read at construction:
+Three switches of the reference, read at construction:
 
+- ``SHAI_ASYNC_DECODE`` (default on): ``0`` runs lock-step;
 - ``SHAI_RAGGED_ATTENTION=1``: decode attends the full window through B3
   (one context entry instead of the ``token_generation_buckets`` ladder)
   and the continuation takes its start as data (one function per chunk
@@ -33,9 +63,9 @@ Two switches of the reference, read at construction:
 - ``SHAI_KV_QUANT=int8``: the pool holds int8 blocks and per-(block, kv
   head) f32 scales. An unknown value warns and leaves it off.
 
-Later slices bring async decode, the fused mixed-phase step, copy-on-write
-forks, the prefix cache and KV tier, logprobs, deadlines, QoS, speculative
-decoding and the multimodal paths.
+Later slices bring the fused mixed-phase step, copy-on-write forks, the
+prefix cache and KV tier, logprobs, deadlines, QoS, speculative decoding
+and the multimodal paths.
 """
 
 from __future__ import annotations
@@ -53,15 +83,34 @@ import torch
 from ..core.bucketing import BucketRegistry
 from ..core.device import DeviceLike, resolve_device
 from ..models.llama import LlamaConfig, LlamaForCausalLM
+from ..obs.steploop import StepTelemetry
+from ..ops.cuda.ragged_paged_attention import sm_count, split_scratch_size
 from ..ops.sampling import sample_logits
 from ..utils.env import env_bool, env_str
 from ..utils.latency import LatencyCollector
+from . import warm as _warm_mod
 from .cache import PagedKVCache
 from .config import EngineConfig
+from .graphs import DecodeGraph, GraphPool
+from .resident import (
+    RESIDENT,
+    InflightStep,
+    ResidentBatch,
+    composition_sig,
+    upload,
+)
 from .runner import make_decode, make_prefill, make_prefill_cont
 from .types import Finished, Request, SamplingParams, _Running  # noqa: F401
 
 log = logging.getLogger(__name__)
+
+
+def _resolve_async() -> bool:
+    """``SHAI_ASYNC_DECODE`` gate, default ON: pipelined decode with
+    device-resident batch state and one-step-lookahead dispatch. ``0`` runs
+    the lock-step path, the oracle the differential tests compare
+    against."""
+    return env_bool("SHAI_ASYNC_DECODE", True)
 
 
 def _unsupported(ecfg: EngineConfig) -> List[str]:
@@ -133,7 +182,29 @@ class LLMEngine:
         if self._ragged:
             # B3 owns the full window with per-row cost: one context entry
             self._ctx_buckets = [ecfg.blocks_per_seq]
-        self._decode_fns: Dict[Tuple[int, int], Any] = {}
+        self._decode_fns: Dict[Tuple[int, int], DecodeGraph] = {}
+        # the decode graphs' shared memory pool and capture stream, with
+        # the split scratch reserved for the largest key of the closed set
+        # before any capture (on the CPU: nothing to share)
+        self._graphs = GraphPool(self.device)
+        self._graphs.reserve(self._scratch_needs())
+        self.obs = StepTelemetry()
+        self._warmed = False
+        # async decode pipeline (SHAI_ASYNC_DECODE, default on)
+        self._async = _resolve_async()
+        self._pipe: Optional[InflightStep] = None
+        self._res = ResidentBatch()
+        self._t_fetch = 0.0          # last decode-readback completion
+        self._last_decode_step = -2  # step-gap continuity gate
+        # host buffers each dispatch copies its sampled tokens into, two so
+        # that the step in flight and the step retiring never share one;
+        # pinned on the card, with the event after each copy
+        cuda = self.device.type == "cuda"
+        self._stage = [torch.zeros((ecfg.max_num_seqs,), dtype=torch.int32,
+                                   pin_memory=cuda) for _ in range(2)]
+        self._stage_ev = [torch.cuda.Event() if cuda else None
+                          for _ in range(2)]
+        self._stage_i = 0
         self.waiting: deque[Request] = deque()
         self.slots: List[Optional[_Running]] = [None] * ecfg.max_num_seqs
         # serving latency instruments: TTFT includes queue time; TPOT is the
@@ -165,21 +236,46 @@ class LLMEngine:
         return rid
 
     def cancel(self, req_id: int) -> Optional[Finished]:
-        """Abort a request wherever it is (queue or decoding), reclaiming
-        its slot and blocks. Returns the partial Finished (``"cancelled"``),
-        or None for an unknown/finished id."""
+        """Abort a request wherever it is (queue, mid-prefill or decoding),
+        reclaiming its slot and blocks. Returns the partial Finished
+        (``"cancelled"``), or None for an unknown/finished id."""
+        return self._abort(req_id, "cancelled")
+
+    def _abort(self, req_id: int, reason: str) -> Optional[Finished]:
+        """THE teardown for a request leaving early: remove it from the
+        queue or its slot, release exactly its cache blocks, and return the
+        partial Finished."""
         for i, r in enumerate(self.waiting):
             if r.req_id == req_id:
                 del self.waiting[i]
                 return Finished(req_id, list(r.already_generated),
-                                r.orig_n_prompt, "cancelled")
+                                r.orig_n_prompt, reason)
+        abort_slot = next((s for s in self.slots
+                           if s is not None and s.req.req_id == req_id),
+                          None)
+        if abort_slot is not None:
+            # the in-flight lookahead step may have computed one extra
+            # token for this slot: retire it so the host mirrors are
+            # current before teardown; the extra token is discarded (never
+            # emitted) and its reservation frees with the slot below
+            self._flush_pipeline(reason)
         for s in self.slots:
             if s is not None and s.req.req_id == req_id:
                 self._record_tpot(s)
                 self._release_slot(s)
                 return Finished(req_id, s.req.already_generated + s.generated,
-                                s.req.orig_n_prompt, "cancelled")
+                                s.req.orig_n_prompt, reason)
         return None
+
+    def warm_executables(self) -> int:
+        return _warm_mod.warm_executables(self)
+
+    def _run_warm_calls(self) -> None:
+        _warm_mod._run_warm_calls(self)
+
+    @property
+    def n_executables(self) -> int:
+        return len(self._prefill) + len(self._decode_fns)
 
     @property
     def max_prompt_len(self) -> int:
@@ -207,7 +303,15 @@ class LLMEngine:
 
     def step(self) -> List[Finished]:
         """Admit (at most one prefill group), then decode the running
-        batch. Returns every request that finished during this step."""
+        batch. Returns every request that finished during this step.
+
+        Two dispatch disciplines behind one contract (``SHAI_ASYNC_DECODE``):
+        the async path pipelines decode dispatches one step ahead of the
+        host readback; the lock-step path is the reference oracle. Both
+        commit, stream and finish the same tokens on the same ``step()``
+        call."""
+        if self._async:
+            return self._step_async()
         return self._step_sync()
 
     def _step_sync(self) -> List[Finished]:
@@ -219,6 +323,156 @@ class LLMEngine:
         if any(s is not None for s in self.slots):
             self._decode_step()
         return self._done_this_step
+
+    # -- async pipelined decode (SHAI_ASYNC_DECODE, the default) -----------
+
+    def _step_async(self) -> List[Finished]:
+        self._step_count += 1
+        self._done_this_step = []
+        chunking = any(s is not None and s.prefill_cursor is not None
+                       for s in self.slots)
+        # the steady (pure-decode) path needs no host-side inputs at all;
+        # admission work or a chunking slot makes an event step
+        if self._pipe is not None and not self.waiting and not chunking:
+            self._steady_step()
+        else:
+            if self._pipe is not None:
+                self._flush_pipeline("admission" if self.waiting
+                                     else "chunking")
+            self._admit_phase()
+            if any(s is not None for s in self.slots):
+                self._decode_dispatch()
+        return self._done_this_step
+
+    def _steady_step(self) -> None:
+        """Pipelined decode step: dispatch N+1 on device feedback, then
+        retire step N and do its host bookkeeping while N+1 runs."""
+        prev = self._pipe
+        running = self._running_slots()
+        if not running:
+            # the previous commit finished every slot; retire the trailing
+            # dispatch (its tokens are the discarded extra) and go idle
+            self._flush_pipeline("drained")
+            return
+        if composition_sig(running,
+                           self._batch_bucket(len(running))) != prev.sig:
+            # a join or finish changed the compacted batch view: the device
+            # feedback is packed for the OLD rows, so re-marshal
+            self._flush_pipeline("recompose")
+            self._decode_dispatch()
+            return
+        # price the whole step's growth before touching the allocator: the
+        # steady path never recompute-preempts around an in-flight
+        # lookahead; pool pressure falls back to the event path's ladder
+        need = sum(self.cache.blocks_to_extend(s.req.req_id, 1)
+                   for s in running)
+        if need > self.cache.n_available:
+            self._flush_pipeline("kv_pressure")
+            self._decode_dispatch()
+            return
+        for s in running:
+            self.cache.extend(s.req.req_id, 1)
+        Bb, graph = self._decode_for(self._max_ctx_blocks(running),
+                                     len(running))
+        self._res.refresh(self, running, Bb, graph)  # tables if grown
+        # a bucket change lands on another graph: the feedback is copied
+        # into its inputs on the device either way
+        self._dispatch_async(graph, running, Bb, prev.nxt, prev.pos_next)
+        t_f = self._retire_pipe(prev)
+        # the dispatch beat the readback: the recorded inter-step gap is
+        # (clamped) zero, the device went straight into step N+1
+        self.obs.step_gap.observe(max(0.0, self._pipe.t_dispatch - t_f))
+        self._commit_pending(running)
+
+    def _decode_dispatch(self) -> None:
+        """Event-path decode: host-marshaled dispatch (mirrors are current)
+        with the readback DEFERRED to the next step, which re-establishes
+        the pipeline in the same call that handled the event."""
+        self._grow_running()
+        running = self._running_slots()
+        if not running:
+            return  # chunk-only step: every live slot is mid-prefill
+        n_exec = self.n_executables
+        Bb, graph = self._decode_for(self._max_ctx_blocks(running),
+                                     len(running))
+        self._res.refresh(self, running, Bb, graph)
+        tokens, pos = self._marshal_tokens(running, Bb)
+        self._dispatch_async(graph, running, Bb, tokens, pos,
+                             gap_ok=self.n_executables == n_exec)
+        self._commit_pending(running)
+
+    def _dispatch_async(self, graph: DecodeGraph, running, Bb: int, tokens,
+                        pos, gap_ok: bool = True) -> None:
+        """Enqueue one feedback-decode replay and record it in flight.
+        ``tokens``/``pos``: host arrays (event path) or the previous step's
+        device outputs (steady path). ``gap_ok=False`` suppresses the
+        step-gap observation (the caller built a new executable this step:
+        warmup, not a dispatch gap)."""
+        cold = self._pipe is None
+        with torch.inference_mode():
+            if isinstance(tokens, np.ndarray):
+                upload(graph.inputs["tokens"], tokens)
+                upload(graph.inputs["pos"], pos)
+            else:
+                graph.feed(tokens, pos)
+            graph.draw(self._gen)
+            t_d = time.monotonic()
+            graph.replay()
+            host, event = self._stage_tokens(graph.nxt, Bb)
+        if cold and gap_ok and self._t_fetch \
+                and self._last_decode_step == self._step_count - 1:
+            # flush or cold step: the dispatch had to wait for the
+            # readback, and this gap is the serialization cost of the event
+            self.obs.step_gap.observe(max(0.0, t_d - self._t_fetch))
+        self._last_decode_step = self._step_count
+        self._pipe = InflightStep(
+            sig=composition_sig(running, Bb), running=list(running),
+            nxt=graph.nxt, pos_next=graph.pos_next, host=host, event=event,
+            t_dispatch=t_d)
+
+    def _stage_tokens(self, nxt: torch.Tensor, Bb: int):
+        """Copy a dispatch's sampled tokens into the next of the two host
+        buffers, without blocking; returns the buffer and the event after
+        the copy (None on the CPU)."""
+        i, self._stage_i = self._stage_i, self._stage_i ^ 1
+        host = self._stage[i][:Bb]
+        event = self._stage_ev[i]
+        host.copy_(nxt, non_blocking=event is not None)
+        if event is not None:
+            event.record()
+        return host, event
+
+    def _retire_pipe(self, pipe: InflightStep) -> float:
+        """Host half of a dispatched step: fetch the sampled tokens (the
+        only blocking device wait in the async loop, on this step's copy
+        alone) and mirror them into ``pending_token``. Slots that finished
+        or were cancelled since the dispatch are skipped: their extra token
+        is exactly the discarded lookahead. Returns the fetch stamp."""
+        nxt = pipe.tokens()
+        t_f = time.monotonic()
+        self._t_fetch = t_f
+        self._apply_sampled(pipe.running, nxt)
+        return t_f
+
+    def _flush_pipeline(self, reason: str) -> None:
+        """Retire the in-flight lookahead (a no-op when none): the explicit
+        pipeline flush every composition or control-flow event pays,
+        counted per reason."""
+        pipe, self._pipe = self._pipe, None
+        if pipe is None:
+            return
+        self._retire_pipe(pipe)
+        self.obs.count_flush(reason)
+
+    def finish_pending(self) -> None:
+        """Retire any in-flight lookahead step: the engine loop calls this
+        when the engine goes idle, so host mirrors do not sit one step
+        stale across an idle gap."""
+        self._flush_pipeline("idle")
+        # idle breaks step-gap continuity: the step counter does not tick
+        # while the loop waits for work, so the first dispatch of the next
+        # burst must not book the idle wall time as a dispatch gap
+        self._last_decode_step = -2
 
     def _admit_phase(self) -> None:
         """One continuation chunk, then admission. Short prompts are
@@ -445,6 +699,9 @@ class LLMEngine:
         bucket = self.buckets.max
         key = self._cont_key(start_blocks, bucket)
         if key not in self._prefill:
+            if self._warmed:
+                # a build after warmup: a shape escaped the closed set
+                self.obs.count_recompile("prefill_cont")
             self._prefill[key] = make_prefill_cont(
                 self.cfg, self.ecfg.block_size, self.ecfg.blocks_per_seq,
                 bucket, 0 if self._ragged else start_blocks,
@@ -468,6 +725,8 @@ class LLMEngine:
     def _prefill_for(self, bucket: int, n_seqs: int = 1):
         key = (bucket, n_seqs)
         if key not in self._prefill:
+            if self._warmed:
+                self.obs.count_recompile("prefill")
             self._prefill[key] = make_prefill(
                 self.cfg, self.ecfg.block_size, self.ecfg.blocks_per_seq,
                 bucket, n_seqs=n_seqs, kv_quant=self._kv_quant)
@@ -480,18 +739,47 @@ class LLMEngine:
             b *= 2
         return min(b, self.ecfg.max_num_seqs)
 
+    def _batch_buckets(self) -> List[int]:
+        """Every batch bucket a decode dispatch can take: the powers of two
+        below ``max_num_seqs``, and ``max_num_seqs``."""
+        out, bb = [], 1
+        while bb < self.ecfg.max_num_seqs:
+            out.append(bb)
+            bb *= 2
+        return out + [self.ecfg.max_num_seqs]
+
+    def _scratch_needs(self) -> List[Tuple[int, int]]:
+        """The split scratch each decode key of the closed set takes on
+        the card (B2 and B3 read the bucket's first ``m`` table entries)."""
+        if self.device.type != "cuda":
+            return []
+        cfg, n_sms = self.cfg, sm_count(self.device.index)
+        return [split_scratch_size(bb, 1, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim, self.ecfg.block_size, m,
+                                   n_sms)
+                for m in self._ctx_buckets for bb in self._batch_buckets()]
+
     def _decode_for(self, m_blocks: int, n_active: int = -1):
-        """Decode call for the smallest (context, batch) buckets covering
-        the running set."""
+        """Decode graph for the smallest (context, batch) buckets covering
+        the running set, captured when its key is first built."""
         m = next(b for b in self._ctx_buckets if b >= m_blocks)
         bb = (self.ecfg.max_num_seqs if n_active < 0
               else self._batch_bucket(n_active))
         key = (m, bb)
         if key not in self._decode_fns:
-            self._decode_fns[key] = make_decode(
-                self.cfg, self.ecfg.block_size, self.ecfg.blocks_per_seq,
-                bb, ctx_blocks=m, ragged=self._ragged,
-                kv_quant=self._kv_quant)
+            if self._warmed:
+                self.obs.count_recompile("decode")
+            # the feedback variant serves both disciplines: lock-step fills
+            # tokens and positions from the host, async feeds them back
+            graph = DecodeGraph(
+                key, make_decode(self.cfg, self.ecfg.block_size,
+                                 self.ecfg.blocks_per_seq, bb, ctx_blocks=m,
+                                 ragged=self._ragged, kv_quant=self._kv_quant,
+                                 feedback=True),
+                self.model, self.cache.kv, bb, self.ecfg.blocks_per_seq,
+                self.cfg.vocab_size, device=self.device, pool=self._graphs)
+            graph.capture()
+            self._decode_fns[key] = graph
         return bb, self._decode_fns[key]
 
     def _preempt_lowest(self) -> None:
@@ -566,38 +854,63 @@ class LLMEngine:
                 self.cache.seq(s.req.req_id).n_tokens))
         return m_blocks
 
+    def _marshal_running(self, running, Bb: int) -> Dict[str, np.ndarray]:
+        """Compact the active slots into the first ``len(running)`` batch
+        rows (the pool is slot-agnostic: block tables are data); padding
+        rows carry null tables and write harmlessly into reserved block 0.
+        The text columns of the reference's marshal; callers add their own
+        token and position arrays."""
+        M = self.ecfg.blocks_per_seq
+        a = {"tables": np.zeros((Bb, M), np.int32),
+             "temp": np.ones((Bb,), np.float32),
+             "topk": np.zeros((Bb,), np.int32),
+             "topp": np.ones((Bb,), np.float32)}
+        for i, s in enumerate(running):
+            a["tables"][i] = self.cache.seq(s.req.req_id).table(M)
+            a["temp"][i] = s.req.params.temperature
+            a["topk"][i] = s.req.params.top_k
+            a["topp"][i] = s.req.params.top_p
+        return a
+
+    def _marshal_tokens(self, running, Bb: int):
+        """Host ``(tokens, pos)`` of a dispatch: each row's pending token
+        and the cache index it is written at."""
+        tokens = np.zeros((Bb,), np.int32)
+        pos = np.zeros((Bb,), np.int32)
+        for i, s in enumerate(running):
+            tokens[i] = s.pending_token
+            pos[i] = self.cache.seq(s.req.req_id).n_tokens - 1
+        return tokens, pos
+
     def _decode_step(self) -> None:
+        """Lock-step decode: grow, marshal everything from the host, replay
+        and read the tokens back before the bookkeeping."""
         self._grow_running()
         running = self._running_slots()
         if not running:
             return
-        Bb, decode = self._decode_for(self._max_ctx_blocks(running),
-                                      len(running))
-        M = self.ecfg.blocks_per_seq
-        tables = np.zeros((Bb, M), np.int32)
-        tokens = np.zeros((Bb,), np.int32)
-        pos = np.zeros((Bb,), np.int32)
-        temp = np.ones((Bb,), np.float32)
-        topk = np.zeros((Bb,), np.int32)
-        topp = np.ones((Bb,), np.float32)
-        for i, s in enumerate(running):
-            alloc = self.cache.seq(s.req.req_id)
-            tables[i] = alloc.table(M)
-            tokens[i] = s.pending_token
-            pos[i] = alloc.n_tokens - 1
-            temp[i] = s.req.params.temperature
-            topk[i] = s.req.params.top_k
-            topp[i] = s.req.params.top_p
-        dev = self.device
+        n_exec = self.n_executables
+        Bb, graph = self._decode_for(self._max_ctx_blocks(running),
+                                     len(running))
+        a = self._marshal_running(running, Bb)
+        tokens, pos = self._marshal_tokens(running, Bb)
         with torch.inference_mode():
-            _, nxt = decode(self.model, self.cache.kv,
-                            torch.from_numpy(tokens).to(dev),
-                            torch.from_numpy(pos).to(dev),
-                            torch.from_numpy(tables).to(dev), self._gen,
-                            torch.from_numpy(temp).to(dev),
-                            torch.from_numpy(topk).to(dev),
-                            torch.from_numpy(topp).to(dev))
-            nxt = nxt.cpu().numpy()
+            for name in RESIDENT:
+                upload(graph.inputs[name], a[name])
+            upload(graph.inputs["tokens"], tokens)
+            upload(graph.inputs["pos"], pos)
+            graph.draw(self._gen)
+            t_d = time.monotonic()
+            graph.replay()
+            if self._t_fetch and self.n_executables == n_exec \
+                    and self._last_decode_step == self._step_count - 1:
+                # the lock-step inter-step gap: the host work (marshal,
+                # bookkeeping) the device idled behind between two
+                # dispatches (a first-use build is warmup, not a gap)
+                self.obs.step_gap.observe(max(0.0, t_d - self._t_fetch))
+            self._last_decode_step = self._step_count
+            nxt = graph.nxt.cpu().numpy()
+        self._t_fetch = time.monotonic()
         self._commit_pending(running)
         self._apply_sampled(running, nxt)
 

@@ -1,7 +1,8 @@
 """Engine loop thread: the bridge between concurrent HTTP and one engine.
 
 Port of ``scalable_hw_agnostic_inference_tpu/engine/loop.py``
-(``EngineLoop`` with ``submit``, ``cancel``, ``drain`` and ``stop``). One
+(``EngineLoop`` with ``submit``, ``cancel``, ``drain`` and ``stop``, and
+the idle hook ``engine.finish_pending``). One
 daemon thread owns the engine (and through it the device); callers submit
 token-id prompts and wait on a future, so concurrent requests coalesce into
 the running batch. Fan-out groups and live migration come in later slices.
@@ -161,6 +162,11 @@ class EngineLoop:
                 self._drain_submissions(block=not self.engine.has_work)
                 self._drain_cancels()
                 if not self.engine.has_work:
+                    # async decode: going idle can leave the final
+                    # lookahead step in flight (every slot finished at its
+                    # commit); retire it so host mirrors do not sit one
+                    # step stale across the idle gap
+                    self.engine.finish_pending()
                     continue
                 try:
                     for fin in self.engine.step():

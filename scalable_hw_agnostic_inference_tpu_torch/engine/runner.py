@@ -5,7 +5,8 @@ Port of ``scalable_hw_agnostic_inference_tpu/engine/runner.py``:
 ``make_prefill`` (``:286``, text-only), ``make_prefill_cont`` (``:447``,
 text-only, both the static-start ladder and ``ragged=True``),
 ``make_decode`` (``:780``, the ``T = 1`` instantiation of
-``_make_token_forward`` at ``:641``) and their helpers ``_rmsnorm``,
+``_make_token_forward`` at ``:641``, with its ``feedback`` variant) and
+their helpers ``_rmsnorm``,
 ``_qkv``, ``_mlp``, ``_scatter_blocks``, ``_pool_scales``,
 ``_ragged_pool_attention`` and ``_logits``. The runner reads the weights of
 ``models.llama.LlamaForCausalLM``, so one set of weights serves the scoring
@@ -13,7 +14,8 @@ forward and the engine.
 
 The reference returns jitted executables that donate the KV pool; here the
 functions run eagerly and write the pool tensors IN PLACE (the returned
-``kv`` is the same list). Attention dispatch follows the tensors' device:
+``kv`` is the same list), so a decode step captured as a CUDA graph
+(``engine/graphs.py``) keeps the pool's addresses. Attention dispatch follows the tensors' device:
 prefill and the static-start continuation go through
 ``ops.attention.dot_product_attention`` (the B1 flash kernel on CUDA);
 bucketed decode through ``ops.cuda.paged_attention.paged_decode_attention``
@@ -35,7 +37,7 @@ time, and reads dequantize (in B3, or after the gather on the plain paths).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -367,10 +369,24 @@ def _make_token_forward(cfg: LlamaConfig, block_size: int, m_ctx: int,
 
 def make_decode(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                 max_num_seqs: int, ctx_blocks: Optional[int] = None,
-                ragged: bool = False, kv_quant: bool = False) -> Callable:
+                ragged: bool = False, kv_quant: bool = False,
+                feedback: bool = False) -> Callable:
     """One decode step for the whole (compacted) slot batch:
-    ``decode(model, kv, tokens [B], pos [B], tables [B, M], generator,
+    ``decode(model, kv, tokens [B], pos [B], tables [B, M], rng,
     temperature [B], top_k [B], top_p [B]) -> (kv, next_tokens [B])``.
+
+    ``rng`` is the step's randomness: a ``torch.Generator`` on the
+    device, or the uniforms ``[B, V]`` already drawn from one (what a
+    captured graph reads, ``engine/graphs.py``; the same draws give the
+    same tokens).
+
+    ``feedback``: the async pipeline's variant (``SHAI_ASYNC_DECODE``,
+    reference ``runner.py:780-800``). The step also returns ``pos + 1``
+    and its logits: ``(kv, next_tokens, pos + 1, logits [B, V] f32)``, so
+    step N's sampled tokens and positions feed step N+1 on the device
+    without the host. The reference turns the logits into its logprob
+    outputs; the engine reads none of them, and ``chip_smoke.py`` holds a
+    graph replay's logits against the eager call's.
 
     ``pos[b]`` is where the new token is written (== tokens so far);
     padding rows carry zero tables and write into the null block.
@@ -379,7 +395,8 @@ def make_decode(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
     the context in use. ``max_num_seqs`` is this call's batch bucket.
     ``ragged`` (``SHAI_RAGGED_ATTENTION``): the window is the full table
     and B3 follows each row's own length, so there is no context bucket.
-    ``kv_quant``: the pool is int8 (``SHAI_KV_QUANT=int8``).
+    ``kv_quant``: the pool is int8 (``SHAI_KV_QUANT=int8``). The pool is
+    written in place, so a captured graph keeps its addresses.
     """
     m_ctx = blocks_per_seq if ctx_blocks is None else ctx_blocks
     if not 1 <= m_ctx <= blocks_per_seq:
@@ -392,12 +409,14 @@ def make_decode(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
 
     def decode(model: LlamaForCausalLM, kv: KVPool, tokens: torch.Tensor,
                pos: torch.Tensor, tables: torch.Tensor,
-               generator: torch.Generator, temperature: torch.Tensor,
-               top_k: torch.Tensor, top_p: torch.Tensor
-               ) -> Tuple[KVPool, torch.Tensor]:
+               rng: Union[torch.Generator, torch.Tensor],
+               temperature: torch.Tensor, top_k: torch.Tensor,
+               top_p: torch.Tensor):
         kv, logits = fwd(model, kv, tokens[:, None], pos[:, None], tables)
-        nxt = sample_logits(logits[:, 0], generator, temperature, top_k,
-                            top_p)
+        logits = logits[:, 0]
+        nxt = sample_logits(logits, rng, temperature, top_k, top_p)
+        if feedback:
+            return kv, nxt, pos + 1, logits
         return kv, nxt
 
     return decode

@@ -1,0 +1,94 @@
+"""Engine warmup: build the CLOSED executable set before readiness.
+
+Port of ``scalable_hw_agnostic_inference_tpu/engine/warm.py``
+(``warm_executables`` at ``:16``, ``_run_warm_calls`` at ``:114``) for the
+text branches the port has: every prefill bucket x batch size, every
+continuation key (the static-start ladder, or the one ragged entry), and
+every decode key (context bucket x batch bucket). Prefill and the
+continuation run once eagerly here, which loads their kernels and primes
+cuBLAS; each decode key is captured as a CUDA graph when ``_decode_for``
+builds it and replayed once here. Functions take the engine explicitly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.sampling import sample_logits
+
+
+def warm_executables(eng) -> int:
+    """Build the engine's closed executable set up front, so no request
+    after readiness builds one (each later build counts as a recompile).
+    Returns the number of executables built."""
+    n = 0
+    kmax = min(max(1, eng.ecfg.max_prefill_batch), eng.ecfg.max_num_seqs)
+    batch_sizes = []
+    k = 1
+    while k <= kmax:
+        batch_sizes.append(k)
+        k *= 2
+    for b in eng.buckets.buckets:
+        for kb in batch_sizes:
+            eng._prefill_for(b, kb)
+            n += 1
+    C = eng.buckets.max
+    if eng._ragged:
+        # the chunk start is data: ONE continuation per chunk bucket
+        if eng.ecfg.max_model_len > C and ("rcont", C) not in eng._prefill:
+            eng._cont_for(0)
+            n += 1
+    elif eng.ecfg.max_model_len > C:
+        # the static-start ladder: one continuation per chunk start
+        start = C
+        while start + C <= eng.ecfg.max_model_len:
+            eng._cont_for(start // eng.ecfg.block_size)
+            n += 1
+            start += C
+    for m in eng._ctx_buckets:
+        for bb in eng._batch_buckets():
+            eng._decode_for(m, bb)   # captured here
+            n += 1
+    eng._run_warm_calls()
+    eng._warmed = True
+    # every executable built from here on is a bucket-miss recompile
+    eng.obs.warmed_executables = eng.n_executables
+    return n
+
+
+def _run_warm_calls(eng) -> None:
+    """Run every prefill and continuation once on null arguments (a null
+    table writes into reserved block 0, which is allowed by contract),
+    replay every decode graph once, and sample at every admission shape.
+    Draws come from a generator of their own, so warmup leaves the
+    engine's draws as they were."""
+    dev = eng.device
+    M = eng.ecfg.blocks_per_seq
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def i32(*shape, value=0):
+        return torch.full(shape, value, dtype=torch.int32, device=dev)
+
+    with torch.inference_mode():
+        for key, fn in list(eng._prefill.items()):
+            if key[0] == "rcont":
+                fn(eng.model, eng.cache.kv, i32(1, key[1]), i32(1, value=1),
+                   i32(1, M), i32(1))
+            elif key[0] == "cont":
+                fn(eng.model, eng.cache.kv, i32(1, key[2]), i32(1, value=1),
+                   i32(1, M))
+            else:
+                bucket, K = key
+                _, logits = fn(eng.model, eng.cache.kv, i32(K, bucket),
+                               i32(K, value=1), i32(K, M))
+                # the admission sampler at this batch size, per-row knobs
+                sample_logits(logits, gen,
+                              torch.ones(K, device=dev), i32(K),
+                              torch.ones(K, device=dev))
+                # and with the scalar knobs of a final chunk
+                sample_logits(logits[:1], gen, 1.0, 0, 1.0)
+        for graph in eng._decode_fns.values():
+            graph.draw(gen)
+            graph.replay()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

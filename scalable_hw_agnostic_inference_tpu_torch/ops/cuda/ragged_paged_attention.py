@@ -18,6 +18,7 @@ launches the walk for both wrappers, each counting its own launches.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -131,7 +132,7 @@ def ragged_plan(rows: int, rows_per_table: int, n_heads: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
+def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
@@ -139,20 +140,70 @@ def _sm_count(device_index: int) -> int:
 #: partials and int32 zeros, one per (row, kv head), for the decode CTA's
 #: in-kernel merge (its last split resets its counter to 0). Both grow to
 #: the largest launch; calls on one stream run in order, so each may reuse
-#: what the last one wrote and merged.
-_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+#: what the last one wrote and merged. A captured CUDA graph holds the
+#: addresses it was captured with, so the engine reserves the scratch of
+#: its capture stream for its largest decode key before the first capture
+#: (:func:`reserve_split_scratch`), and a capture that would grow it
+#: raises (:func:`frozen_scratch`): growing frees the buffer that earlier
+#: graphs replay into. All of them replay on one stream, one at a time,
+#: and each launch leaves its counters at zero for the next.
+_scratch: Dict[Tuple[Optional[int], int],
+               Tuple[torch.Tensor, torch.Tensor]] = {}
+_frozen = False
+
+
+@contextlib.contextmanager
+def frozen_scratch():
+    """Within the block, a launch whose split scratch would have to grow
+    raises instead (the engine wraps its graph captures in this)."""
+    global _frozen
+    was, _frozen = _frozen, True
+    try:
+        yield
+    finally:
+        _frozen = was
 
 
 def _split_scratch(device: torch.device, stream: int, numel: int,
                    n_counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
     key = (device.index, stream)
     part, counters = _scratch.get(key, (None, None))
-    if part is None or part.numel() < numel:
+    grow_part = part is None or part.numel() < numel
+    grow_counters = counters is None or counters.numel() < n_counters
+    if (grow_part or grow_counters) and _frozen:
+        raise RuntimeError(
+            f"split scratch of stream {stream:#x} holds "
+            f"{0 if part is None else part.numel()} values and "
+            f"{0 if counters is None else counters.numel()} counters; this "
+            f"launch needs {numel} and {n_counters}: reserve it for the "
+            f"largest key before the first capture")
+    if grow_part:
         part = torch.empty(numel, dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < n_counters:
+    if grow_counters:
         counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
     _scratch[key] = part, counters
     return part, counters
+
+
+def split_scratch_size(rows: int, rows_per_table: int, n_heads: int,
+                       n_kv_heads: int, head_dim: int, block_size: int,
+                       M: int, n_sms: int) -> Tuple[int, int]:
+    """``(fp32 values, int32 counters)`` of split scratch one launch of
+    these shapes takes (``(0, 0)`` when its plan does not split)."""
+    _rt, splits = ragged_plan(rows, rows_per_table, n_heads, n_kv_heads,
+                              block_size, M, n_sms)
+    if splits == 1:
+        return 0, 0
+    return (splits * rows * n_heads * (head_dim + 2),
+            rows * n_kv_heads)
+
+
+def reserve_split_scratch(device: torch.device, stream: int, numel: int,
+                          n_counters: int) -> None:
+    """Grow the split scratch of launches on ``stream`` to at least
+    ``numel`` values and ``n_counters`` counters, outside any capture."""
+    if numel or n_counters:
+        _split_scratch(device, stream, max(numel, 1), max(n_counters, 1))
 
 
 def check_tables(rows: int, tables: torch.Tensor, lengths: torch.Tensor,
@@ -227,7 +278,7 @@ def _launch(counted, q: torch.Tensor, k_pool: torch.Tensor,
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     rt, planned = ragged_plan(rows, rows_per_table, H, Hkv, bs, M,
-                              _sm_count(dev.index))
+                              sm_count(dev.index))
     splits = splits or planned
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(q)

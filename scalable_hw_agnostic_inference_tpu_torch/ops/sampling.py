@@ -5,7 +5,10 @@ Port of ``scalable_hw_agnostic_inference_tpu/ops/sampling.py``
 ``sample_logits``). Every knob may be a scalar or a per-row tensor.
 
 Draws take an explicit ``torch.Generator`` on the logits' device (the
-engine seeds one from ``EngineConfig.seed``). They do not reproduce JAX's
+engine seeds one from ``EngineConfig.seed``), or the uniforms already
+drawn from one: a captured decode graph reads its draws from a static
+buffer the engine refills before every replay, as the reference's
+executable takes its rng key as data. They do not reproduce JAX's
 threefry bits: the port matches the reference on greedy tokens and on the
 sampling distribution (:func:`sampling_probs`), not draw for draw.
 """
@@ -84,15 +87,22 @@ def sampling_probs(logits: torch.Tensor, temperature: Knob = 1.0,
     return torch.where((t <= 0.0)[..., None], point, probs)
 
 
-def sample_logits(logits: torch.Tensor, generator: torch.Generator,
+def sample_logits(logits: torch.Tensor,
+                  rng: Union[torch.Generator, torch.Tensor],
                   temperature: Knob = 1.0, top_k: Knob = 0,
                   top_p: Knob = 1.0) -> torch.Tensor:
     """Sample tokens from ``[..., V]`` logits; ``temperature == 0`` rows
-    take the argmax. A Gumbel-max draw over :func:`masked_scaled_logits`
-    with uniforms from ``generator`` (on the logits' device)."""
+    take the argmax and do not depend on the draws. A Gumbel-max draw over
+    :func:`masked_scaled_logits` with uniforms in [0, 1) from ``rng``: a
+    generator on the logits' device, or a tensor of the logits' shape
+    already drawn (``torch.rand`` of that shape from the same generator
+    gives the same tokens)."""
     t, _, _ = _broadcast_knobs(logits, temperature, top_k, top_p)
     masked = masked_scaled_logits(logits, temperature, top_k, top_p)
-    u = torch.rand(masked.shape, generator=generator, device=logits.device)
+    if isinstance(rng, torch.Tensor):
+        u = rng
+    else:
+        u = torch.rand(masked.shape, generator=rng, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
     sampled = torch.argmax(masked + gumbel, dim=-1).to(torch.int32)
     return torch.where(t <= 0.0, greedy(logits), sampled)

@@ -2,7 +2,8 @@
 ``POST /generate``.
 
 Trimmed port of ``scalable_hw_agnostic_inference_tpu/serve/units/vllm.py``
-(``VllmService``: ``_resolve_ecfg``, ``load``, ``infer``). ``load`` serves
+(``VllmService``: ``_resolve_ecfg``, ``load`` with the closed set warmed
+before the loop starts, ``infer``, ``extra_stats``). ``load`` serves
 the ``tiny`` tier (seeded random weights, the small engine shapes of the
 reference's ``:177-196``; CPU only, its head_dim of 16 is not one the CUDA
 kernels take) and the ``*-geometry`` tiers (full-size architecture, zero
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Any, Dict, Optional
 
 import torch
@@ -60,6 +62,7 @@ class VllmService(ModelService):
         self._ecfg_error: Optional[Exception] = None
         self._engine = None
         self.loop = None
+        self.warm_seconds = 0.0
         try:
             self.ecfg = self._resolve_ecfg(cfg)
             self.concurrency = self.ecfg.max_num_seqs
@@ -134,9 +137,19 @@ class VllmService(ModelService):
         model = LlamaForCausalLM.from_state_dict(mcfg, state)
         self.tokenizer = ByteTokenizer()
         self.eos_id = ByteTokenizer.eos_id
-        self._engine = LLMEngine(mcfg, model, ecfg, device=device)
+        engine = LLMEngine(mcfg, model, ecfg, device=device)
+        # build the CLOSED executable set (every prefill bucket and batch
+        # size, the continuation keys, every decode key captured as a CUDA
+        # graph) BEFORE the engine loop starts serving, so no request
+        # after readiness builds one
+        t0 = time.monotonic()
+        n = engine.warm_executables()
+        self.warm_seconds = time.monotonic() - t0
+        log.info("engine: warmed %d executables in %.1f s (buckets=%s)", n,
+                 self.warm_seconds, list(engine.buckets.buckets))
+        self._engine = engine
         self._SamplingParams = SamplingParams
-        self.loop = EngineLoop(self._engine).start()
+        self.loop = EngineLoop(engine).start()
 
     def close(self) -> None:
         if self.loop is not None:
@@ -210,6 +223,7 @@ class VllmService(ModelService):
             "seqs_chunking": eng.n_chunking,
             "blocks_free": eng.cache.allocator.n_free,
             "blocks_total": self.ecfg.total_blocks,
+            "executables": eng.n_executables,
         }
         if eng.ttft.count:
             rep = eng.ttft.report()
@@ -217,4 +231,14 @@ class VllmService(ModelService):
             out["ttft_p99_ms"] = round(rep["p99"] * 1e3, 2)
         if eng.tpot.count:
             out["tpot_p50_ms"] = round(eng.tpot.report()["p50"] * 1e3, 2)
+        # async decode pipeline health: flushes (serialization events, one
+        # flat key per reason) and the realized inter-step gap, near zero
+        # when the lookahead hides the host work (SHAI_ASYNC_DECODE)
+        out["pipeline_flushes"] = eng.obs.pipeline_flushes
+        for reason, n in eng.obs.flush_reasons().items():
+            out[f"pipeline_flush_{reason}"] = n
+        gap = eng.obs.step_gap.snapshot()
+        if gap["count"]:
+            out["step_gap_mean_ms"] = round(
+                gap["sum"] / gap["count"] * 1e3, 4)
         return out

@@ -195,3 +195,39 @@ def test_kernel_wrappers_refuse_other_devices():
         pa.paged_decode_attention(q[:, 0], pool, pool, ids, ids[:, 0])
     assert fa.flash_attention.launches == 0
     assert pa.paged_decode_attention.launches == 0
+
+
+#: the async-decode slice's modules: the scans above cover them by name
+SLICE_MODULES = (
+    "scalable_hw_agnostic_inference_tpu_torch.obs.steploop",
+    "scalable_hw_agnostic_inference_tpu_torch.engine.resident",
+    "scalable_hw_agnostic_inference_tpu_torch.engine.graphs",
+    "scalable_hw_agnostic_inference_tpu_torch.engine.warm",
+)
+
+
+def test_async_decode_modules_are_scanned_and_load_no_jax():
+    scanned = {n for _, n in _modules()}
+    assert set(SLICE_MODULES) <= scanned
+    heads = ("jax", "jaxlib", "flax")
+    code = _PROBE % (heads, list(SLICE_MODULES), heads)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_decode_graph_raises_without_cuda_unless_given_the_cpu(no_cuda):
+    from scalable_hw_agnostic_inference_tpu_torch.engine.graphs import (
+        DecodeGraph,
+    )
+
+    def build(**kw):
+        return DecodeGraph((4, 2), None, None, [], 2, 4, 16, **kw)
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build(device="cuda")
+    g = build(device="cpu")
+    assert g.inputs["tables"].device.type == "cpu" and not g.pool.cuda
