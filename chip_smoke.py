@@ -26,33 +26,45 @@ Phases:
                 (``engine/graphs.py``) at serve's bucketed shape (B=8, a
                 32-block bucket, bf16 pool) and at the ragged int8 full
                 window (256 blocks, lengths 1 to 4096): the replay's
-                tokens and logits against the eager call of the same
-                decode function on the same inputs and draws, bit for
-                bit; fresh draws per replay; wall and device time per
-                step, eager against replay, launches per step, capture
-                time and the graph pool's bytes;
+                tokens, positions and logprob readout (top ids, top
+                logprobs, the sampled token's logprob) against the eager
+                call of the same decode function on the same inputs and
+                draws, bit for bit; fresh draws per replay; wall and
+                device time per step, eager against replay, launches per
+                step, capture time and the graph pool's bytes; the
+                readout's own device time at serve's shape;
   7. ``engine`` the engine at Llama-3-8B widths with seeded random weights,
                 warmed (every decode key captured), one prompt chunked
-                through the static-start continuation: greedy tokens
-                against the argmax of the full-sequence scoring forward
-                over prompt + generated tokens, under the default async
-                decode and equal to a lock-step run's
-                (``SHAI_ASYNC_DECODE=0``);
+                through the static-start continuation, half the rows
+                asking for 5 logprobs: greedy tokens against the argmax
+                of the full-sequence scoring forward over prompt +
+                generated tokens, each sampled token's logprob against
+                that forward's log-softmax (``LP_TOL``), under the default
+                async decode and equal to a lock-step run's
+                (``SHAI_ASYNC_DECODE=0``), logprob entries included;
   8. ``engine_ragged`` the same model under ``SHAI_RAGGED_ATTENTION=1``
                 (bf16), ``SHAI_RAGGED_ATTENTION=1 SHAI_KV_QUANT=int8`` and
                 ``SHAI_KV_QUANT=int8`` alone, each also equal to lock-step;
   9. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
                 its closed set warmed before readiness) and answer 8
-                concurrent ``POST /generate``;
+                concurrent ``POST /generate``; then an OpenAI round: 8
+                concurrent streamed ``POST /v1/completions`` (the client's
+                time to the first SSE chunk beside the engine's TTFT),
+                ``n=2``, ``logprobs: 5`` (every sampled logprob
+                ``-log(128256)`` within ``GEOMETRY_LP_ATOL``: zero weights
+                give a uniform distribution), an expired
+                ``X-SHAI-Deadline-Ms`` (504) and a ``/metrics`` scrape
+                holding the ``shai_*`` contract families;
  10. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
                 SHAI_KV_QUANT=int8`` and an engine ConfigMap of
                 ``max_model_len`` 4096: two of the 8 prompts chunk.
 
-Each engine and serve phase zeroes the launch counters just before its
-run and requires exactly its own kernels to have risen just after, and
-B2's or B3's count to be exactly the layers times the decode graph
-replays (plus, for B3, the layers times the ragged continuation chunks);
-the serve phases also require 0 recompiles after warmup.
+Each engine and serve phase (and the serve phase's OpenAI round) zeroes
+the launch counters just before its run and requires exactly its own
+kernels to have risen just after, and B2's or B3's count to be exactly
+the layers times the decode graph replays (plus, for B3, the layers times
+the ragged continuation chunks); the serve phases also require 0
+recompiles after warmup and the warmed executable count unchanged.
 Any failed phase makes the script exit non-zero without the result lines.
 A full run prints the card's name and power limit, then, second to last,
 ``{"kernels": [...]}`` (per kernel: route, source, the TPU kernel it
@@ -130,6 +142,18 @@ NOISE_TIES = 2.0
 # semantics on the same card), less this share of the tokens: the two runs
 # decode freely and part after their first flip.
 INT8_SLACK = 0.1
+
+# engine logprobs vs the scoring forward: each sampled token's logprob
+# (the decode graph's readout, or the prefill's for the first token) must
+# be within LP_TOL of the log-softmax of the full-sequence scoring forward
+# through B1's plain version at that position. The same rounding that
+# puts the engine's greedy token up to 0.156 below the scoring forward's
+# maximum logit (TIE_TOL) moves a token's logit and, far less, the
+# log-sum-exp over 128,256 logits, so it takes TIE_TOL.
+LP_TOL = TIE_TOL
+# the geometry tier's zero weights give all-equal logits: every logprob is
+# -log(vocab) up to the f32 rounding of a log-sum-exp over 128,256 terms
+GEOMETRY_LP_ATOL = 1e-5
 
 ENGINE_LAYERS = 32
 ENGINE_NEW_TOKENS = 16
@@ -894,6 +918,10 @@ def _decode_graph_case(ctx, torch, what, lengths, ragged, quant, M):
     _reset_counters()
     g.capture()
     captured = _read_counters()
+    from scalable_hw_agnostic_inference_tpu_torch.engine.graphs import (
+        OUTPUTS,
+    )
+
     name = ("ragged_paged_attention" if ragged or quant
             else "paged_decode_attention")
     if g.launches != {name: cfg.n_layers}:
@@ -904,17 +932,22 @@ def _decode_graph_case(ctx, torch, what, lengths, ragged, quant, M):
     # values), so it attends the same pool
     gen_u = torch.Generator(device="cuda").manual_seed(5)
     g.draw(gen_u)
-    e_nxt, e_pos, e_logits = g.eager()
+    eager_outs = dict(zip(OUTPUTS, g.eager()))
     _reset_counters()
     g.replay()
     torch.cuda.synchronize()
     replay_counts = _read_counters()
-    exact = (torch.equal(g.logits, e_logits) and torch.equal(g.nxt, e_nxt)
-             and torch.equal(g.pos_next, e_pos))
-    diff = (g.logits - e_logits).abs().max().item()
-    if not bool(torch.isfinite(g.logits).all()):
-        raise AssertionError(f"{what}: non-finite logits")
-    greedy_equal = torch.equal(g.nxt[:4], e_nxt[:4])
+    # tokens, positions and the three logprob readouts, bit for bit
+    equal = {n: torch.equal(getattr(g, n), e) for n, e in eager_outs.items()}
+    exact = all(equal.values())
+    diff = (g.top_lp - eager_outs["top_lp"]).abs().max().item()
+    if not (bool(torch.isfinite(g.top_lp).all())
+            and bool(torch.isfinite(g.tok_lp).all())):
+        raise AssertionError(f"{what}: non-finite logprobs")
+    # a greedy row's token is its readout's top id
+    if not torch.equal(g.top_ids[:4, 0], g.nxt[:4]):
+        raise AssertionError(f"{what}: greedy tokens are not the top ids")
+    greedy_equal = torch.equal(g.nxt[:4], eager_outs["nxt"][:4])
     # consecutive replays draw afresh: a sampled row's uniforms change
     u0 = g.uniforms.clone()
     first = g.nxt.clone()
@@ -940,7 +973,8 @@ def _decode_graph_case(ctx, torch, what, lengths, ragged, quant, M):
     line = {
         "case": what, "B": B, "M": M, "lengths": lengths,
         "ragged": ragged, "int8": quant,
-        "bit_exact": exact, "max_abs_logit_diff": diff,
+        "bit_exact": exact, "outputs_equal": equal,
+        "max_abs_top_lp_diff": diff,
         "greedy_tokens_equal": greedy_equal,
         "redrawn": redrawn, "sampled_rows_changed": resampled,
         "greedy_rows_unchanged": still_greedy,
@@ -960,17 +994,47 @@ def _decode_graph_case(ctx, torch, what, lengths, ragged, quant, M):
         raise AssertionError(f"{what}: one replay counted {replay_counts}")
     if not exact:
         raise AssertionError(f"{what}: the replay is not the eager call bit "
-                             f"for bit (max logit diff {diff}, greedy tokens "
-                             f"equal {greedy_equal})")
+                             f"for bit ({equal}, max top-logprob diff "
+                             f"{diff}, greedy tokens equal {greedy_equal})")
     if not (redrawn and resampled and still_greedy):
         raise AssertionError(f"{what}: draws {redrawn}, sampled rows changed "
                              f"{resampled}, greedy rows kept {still_greedy}")
     return line
 
 
+def _readout_cost(ctx, torch, B: int = 8) -> dict:
+    """The logprob readout alone (``runner.token_logprobs``: a log-softmax,
+    a top-5 and a gather over ``[B, V]`` f32 logits) at serve's decode
+    shape: CUDA-event time of one call with a cold L2, its kernels and
+    device time from the profiler, and its bytes bound (the logits read
+    once, the outputs written once)."""
+    from scalable_hw_agnostic_inference_tpu_torch.engine.runner import (
+        K_LOGPROBS,
+        token_logprobs,
+    )
+
+    cfg, _ = _engine_model(ctx)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    logits = torch.randn(B, cfg.vocab_size, generator=gen, device="cuda")
+    toks = logits.argmax(-1).to(torch.int32)
+    ms = ctx["timer"](lambda: token_logprobs(logits, toks))
+    by_kernel = _device_us_by_kernel(torch, lambda: token_logprobs(logits,
+                                                                   toks))
+    n_bytes = 4 * B * cfg.vocab_size + 4 * B + B * (2 * 4 * K_LOGPROBS + 4)
+    line = {"B": B, "V": cfg.vocab_size, "ms": ms,
+            "bound_ms": bound_ms(n_bytes, 0)[0],
+            "device_us_by_kernel": {k: round(us, 2) for k, (us, _)
+                                    in by_kernel.items()},
+            "device_ms": (sum(us for us, _ in by_kernel.values()) / 1e3
+                          if by_kernel else None)}
+    log("decode_graph: logprob readout " + json.dumps(line))
+    return line
+
+
 def phase_decode_graph(ctx):
     import torch
 
+    ctx["readout"] = _readout_cost(ctx, torch)
     ctx["decode_graph"] = [
         # serve's bucketed decode step: its 32-block bucket, bf16 pool
         _decode_graph_case(ctx, torch, "serve bucketed bf16",
@@ -1128,10 +1192,10 @@ def _check_walk(what: str, counts, expect) -> None:
 
 def _generate(ctx, prompts, switches):
     """One engine run of greedy requests under the engine switches (async
-    decode unless they say otherwise), its closed set warmed first;
-    returns the finished requests, the launch counts, the seconds, the
-    continuation keys it compiled, its leaked blocks and a dict of the
-    pipeline's numbers."""
+    decode unless they say otherwise), its closed set warmed first; the
+    even rows ask for 5 logprobs. Returns the finished requests, the
+    launch counts, the seconds, the continuation keys it compiled, its
+    leaked blocks and a dict of the pipeline's numbers."""
     import torch
     from scalable_hw_agnostic_inference_tpu_torch.engine.config import (
         EngineConfig,
@@ -1156,16 +1220,25 @@ def _generate(ctx, prompts, switches):
         chunks = _count_chunks(eng)
         _reset_counters()
         t0 = time.monotonic()
-        fins = eng.generate(prompts, SamplingParams(
-            temperature=0.0, max_new_tokens=ENGINE_NEW_TOKENS))
+        ids = [eng.add_request(p, SamplingParams(
+            temperature=0.0, max_new_tokens=ENGINE_NEW_TOKENS,
+            logprobs=0 if i % 2 else 5)) for i, p in enumerate(prompts)]
+        done = {}
+        while set(ids) - set(done):
+            for f in eng.step():
+                done[f.req_id] = f
+        fins = [done[i] for i in ids]
         eng.finish_pending()
         torch.cuda.synchronize()
         seconds = time.monotonic() - t0
         counts = _read_counters()
-    for f in fins:
+    for i, f in enumerate(fins):
         if len(f.token_ids) != ENGINE_NEW_TOKENS:
             raise AssertionError(f"{len(f.token_ids)} tokens, want "
                                  f"{ENGINE_NEW_TOKENS}")
+        if i % 2 == 0 and [e["token"] for e in f.logprobs] != f.token_ids:
+            raise AssertionError("the logprob entries do not name the "
+                                 "returned tokens")
     conts = sorted(k for k in eng._prefill if k[0] in ("cont", "rcont"))
     info = {"async": eng._async, "warmed": n_warm, "warm_s": warm_s,
             "recompiles": eng.obs.recompiles,
@@ -1180,10 +1253,15 @@ def _score(model, prompts, fins):
     """Score each run's tokens with the full-sequence scoring forward,
     through B1 and through B1's plain version: ``{"b1": (argmax hits,
     worst logit deficit), "plain": (hits, worst), "tokens": n, "eps":
-    eps}``, where eps is the largest logit change between the two."""
+    eps, "lp_err": e, "lp_err_shifted": s}``, where eps is the largest
+    logit change between the two, e the largest distance of a returned
+    logprob from the plain forward's log-softmax at its token, and s the
+    same distance one position off (what a misaligned readout would
+    show)."""
     import torch
 
-    score = {"b1": (0, 0.0), "plain": (0, 0.0), "tokens": 0, "eps": 0.0}
+    score = {"b1": (0, 0.0), "plain": (0, 0.0), "tokens": 0, "eps": 0.0,
+             "lp_err": 0.0, "lp_err_shifted": 0.0}
     with torch.inference_mode():
         for p, f in zip(prompts, fins):
             ids = torch.tensor([p + f.token_ids], device="cuda")
@@ -1195,6 +1273,17 @@ def _score(model, prompts, fins):
             score["eps"] = max(score["eps"],
                                (logits - plain).abs().max().item())
             tok = torch.tensor(f.token_ids, device="cuda")
+            if f.logprobs:
+                got = torch.tensor([e["logprob"] for e in f.logprobs],
+                                   device="cuda")
+                lsm = torch.log_softmax(plain, -1)
+                want = lsm.gather(1, tok[:, None])[:, 0]
+                score["lp_err"] = max(score["lp_err"],
+                                      (got - want).abs().max().item())
+                off = lsm[1:].gather(1, tok[:-1, None])[:, 0]
+                score["lp_err_shifted"] = max(
+                    score["lp_err_shifted"],
+                    (got[:-1] - off).abs().max().item())
             for key, lg in (("b1", logits), ("plain", plain)):
                 deficit = lg.max(-1).values - lg.gather(1, tok[:, None])[:, 0]
                 hits, worst = score[key]
@@ -1231,9 +1320,12 @@ def _run_engine(ctx, what, prompt_lens, switches, expect, cont_key, rule):
                              f"{not sync[5]['async']}")
     if [f.token_ids for f in fins] != [f.token_ids for f in sync[0]]:
         raise AssertionError(f"{what}: async and lock-step tokens differ")
+    if [f.logprobs for f in fins] != [f.logprobs for f in sync[0]]:
+        raise AssertionError(f"{what}: async and lock-step logprob entries "
+                             f"differ")
     _check_walk(f"{what} lock-step", sync[1], sync[5]["walk"])
     log(f"{what}: async {seconds:.2f} s, lock-step {sync[2]:.2f} s, tokens "
-        f"equal; async {json.dumps(info)}; lock-step "
+        f"and logprob entries equal; async {json.dumps(info)}; lock-step "
         f"{json.dumps(sync[5])}")
     s = _score(model, prompts, fins)
     (exact, worst), (p_hits, p_worst), total = s["b1"], s["plain"], \
@@ -1243,12 +1335,17 @@ def _run_engine(ctx, what, prompt_lens, switches, expect, cont_key, rule):
         f"{list(prompt_lens)} x {ENGINE_NEW_TOKENS} greedy tokens in "
         f"{seconds:.2f} s; {exact}/{total} equal the scoring argmax, worst "
         f"logit deficit {worst:.4f} ({p_hits}/{total} and {p_worst:.4f} "
-        f"against the plain scoring forward), eps {eps:.4f}; continuations "
+        f"against the plain scoring forward), eps {eps:.4f}; logprobs "
+        f"within {s['lp_err']:.4f} of the plain forward's log-softmax (one "
+        f"position off: {s['lp_err_shifted']:.4f}); continuations "
         f"{conts}; launches {counts}; leaked blocks {leaked}")
     if rule == "tie" and p_worst > TIE_TOL:
         raise AssertionError(f"{what}: worst deficit {p_worst:.4f} against "
                              f"the plain scoring forward over the tie "
                              f"tolerance {TIE_TOL}")
+    if rule == "tie" and s["lp_err"] > LP_TOL:
+        raise AssertionError(f"{what}: a logprob is {s['lp_err']:.4f} from "
+                             f"the plain scoring forward's, over {LP_TOL}")
     if rule in ("noise", "int8") and worst > NOISE_TIES * eps:
         raise AssertionError(f"{what}: worst deficit {worst:.4f} over "
                              f"{NOISE_TIES} * eps = {NOISE_TIES * eps:.4f}")
@@ -1304,13 +1401,15 @@ def phase_engine_ragged(ctx):
         _drop_engine_model(ctx)
 
 
-def _http(url: str, payload=None, timeout: float = 300.0):
+def _http(url: str, payload=None, timeout: float = 300.0, headers=None,
+          raw: bool = False):
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(url, data=data, headers={
-        "content-type": "application/json"})
+        "content-type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
-            return r.status, json.loads(r.read())
+            body = r.read()
+            return r.status, (body.decode() if raw else json.loads(body))
     except urllib.error.HTTPError as e:
         return e.code, json.loads(e.read() or b"{}")
 
@@ -1348,6 +1447,145 @@ def _send_concurrent(base: str, prompts):
     return results, time.monotonic() - t0
 
 
+def _stream_completion(base: str, prompt: str):
+    """One streamed greedy ``POST /v1/completions``: ``(status, seconds to
+    the first SSE chunk, seconds to the end, the data payloads)``."""
+    body = json.dumps({"prompt": prompt, "max_tokens": 16,
+                       "temperature": 0, "stream": True}).encode()
+    req = urllib.request.Request(base + "/v1/completions", data=body,
+                                 headers={"content-type": "application/json"})
+    t0 = time.monotonic()
+    first, events = None, []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        status = r.status
+        while True:
+            line = r.readline()   # the chunked framing is undone here
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                if first is None:
+                    first = time.monotonic() - t0
+                events.append(line[len(b"data: "):].strip().decode())
+    return status, first, time.monotonic() - t0, events
+
+
+def _pct(values, q: float) -> float:
+    v = sorted(values)
+    return v[min(len(v) - 1, int(round(q * (len(v) - 1))))]
+
+
+#: the ``/metrics`` families of the serving contract (the reference's
+#: names and types): requests and latency, the engine's histograms,
+#: gauges and counters
+METRIC_FAMILIES = {
+    "shai_requests_total": "counter",
+    "shai_request_latency_seconds": "histogram",
+    "shai_ttft_seconds": "histogram", "shai_tpot_seconds": "histogram",
+    "shai_queue_wait_seconds": "histogram",
+    "shai_engine_step_gap_seconds": "histogram",
+    **{f"shai_engine_{g}": "gauge" for g in (
+        "running", "waiting", "chunking", "kv_utilization", "kv_occupancy",
+        "kv_blocks_free", "pad_fraction")},
+    **{f"shai_engine_{c}_total": "counter" for c in (
+        "steps", "preemptions", "recompiles", "requests_finished",
+        "pipeline_flushes")},
+}
+
+
+def _openai_round(ctx, what, base, eng, prompts, expect):
+    """The OpenAI routes on the served engine: ``len(prompts)`` concurrent
+    streamed completions (client time to the first SSE chunk beside the
+    engine's TTFT), ``n=2``, ``logprobs: 5`` on the zero-weight tier
+    (uniform: every logprob ``-log(vocab)``), an expired deadline (504)
+    and a ``/metrics`` scrape. Exactly the kernels ``expect`` rise, B2/B3
+    exactly 32 per replay."""
+    import math
+
+    from scalable_hw_agnostic_inference_tpu_torch.utils.latency import (
+        LatencyCollector,
+    )
+
+    eng.ttft = LatencyCollector()
+    before = _replays(eng)
+    chunks = _count_chunks(eng)
+    _reset_counters()
+    results = [None] * len(prompts)
+
+    def one(i):
+        results[i] = _stream_completion(base, prompts[i])
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    bad = [r for r in results if r is None or r[0] != 200
+           or r[3][-1] != "[DONE]"]
+    if bad:
+        raise AssertionError(f"{what}: failed streams {bad[:2]}")
+    finals = [json.loads(r[3][-2])["choices"][0]["finish_reason"]
+              for r in results]
+    firsts, ends = [r[1] for r in results], [r[2] for r in results]
+    ttft = eng.ttft.report()
+    line = {"streams": len(prompts), "wall_s": wall,
+            "client_first_chunk_ms": {"p50": _pct(firsts, 0.5) * 1e3,
+                                      "p99": _pct(firsts, 0.99) * 1e3},
+            "client_done_ms": {"p50": _pct(ends, 0.5) * 1e3,
+                               "p99": _pct(ends, 0.99) * 1e3},
+            "engine_ttft_ms": {"p50": ttft["p50"] * 1e3,
+                               "p99": ttft["p99"] * 1e3},
+            "chunks_per_stream": [len(r[3]) - 1 for r in results],
+            "finish_reasons": finals}
+    # n = 2: two choices of one prompt
+    status, out = _http(base + "/v1/completions", {
+        "prompt": prompts[0], "max_tokens": 8, "temperature": 0, "n": 2})
+    if status != 200 or len(out["choices"]) != 2 or \
+            out["usage"]["completion_tokens"] != 16:
+        raise AssertionError(f"{what}: n=2 gave {status} {out}")
+    # logprobs on the zero-weight tier: a uniform distribution
+    status, out = _http(base + "/v1/completions", {
+        "prompt": prompts[1], "max_tokens": 8, "temperature": 0,
+        "logprobs": 5})
+    uniform = -math.log(eng.cfg.vocab_size)
+    lps = out["choices"][0]["logprobs"] if status == 200 else None
+    lp_err = max(abs(v - uniform) for v in lps["token_logprobs"]
+                 + [x for d in lps["top_logprobs"] for x in d.values()]) \
+        if lps else None
+    if lps is None or len(lps["token_logprobs"]) != 8 or \
+            lp_err > GEOMETRY_LP_ATOL:
+        raise AssertionError(f"{what}: logprobs {status} {out}, max "
+                             f"|lp + log V| {lp_err}")
+    line["logprobs_max_err_vs_uniform"] = lp_err
+    # a budget of 1 ms: the deadline passes before the first step
+    status, out = _http(base + "/v1/completions", {
+        "prompt": prompts[2], "max_tokens": 8}, headers={
+        "X-SHAI-Deadline-Ms": "1"})
+    if status != 504:
+        raise AssertionError(f"{what}: an expired deadline gave {status} "
+                             f"{out}")
+    line["deadline_504"] = out["detail"]
+    counts = _read_counters()
+    exact = _expected_walk(eng, before, chunks)
+    _check_counters(f"{what} OpenAI round", counts, expect)
+    _check_walk(f"{what} OpenAI round", counts, exact)
+    line.update(launches=counts, walk=exact)
+    # the /metrics page: the contract families, with their types
+    status, text = _http(base + "/metrics", raw=True)
+    types_ = dict(ln.split()[2:4] for ln in text.splitlines()
+                  if ln.startswith("# TYPE "))
+    missing = {n: t for n, t in METRIC_FAMILIES.items()
+               if types_.get(n) != t}
+    if status != 200 or missing:
+        raise AssertionError(f"{what}: /metrics {status}, missing or "
+                             f"mistyped {missing}")
+    line["metric_families"] = len(types_)
+    log(f"{what}: OpenAI round " + json.dumps(line))
+    ctx.setdefault("openai", {})[what] = line
+
+
 #: the kernel class of PyTorch's own attention kernels (SDPA), which no
 #: serve phase may launch
 LIBRARY_ATTENTION = "library attention (SDPA)"
@@ -1368,6 +1606,8 @@ def _kernel_class(name: str, walk: str) -> str:
         return walk
     if any(w in name.lower() for w in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul (cuBLAS)"
+    if "LogSoftMax" in name or "topk" in name.lower():
+        return "logprob readout (log-softmax, top-k)"
     return "other (elementwise, norms, rope, sampling, scatter, copies)"
 
 
@@ -1422,11 +1662,12 @@ def _profile(torch, fn, walk: str) -> None:
         raise AssertionError("profile: a library attention kernel ran")
 
 
-def _serve(ctx, what, env, prompts, expect, walk):
+def _serve(ctx, what, env, prompts, expect, walk, openai=False):
     """Serve ``llama-8b-geometry`` over HTTP under ``env`` and send
     ``prompts`` concurrently: all must answer 200, exactly the kernels
     ``expect`` must rise, no block may leak. Prints TTFT/TPOT, ``/stats``
-    and a profiled second pass; returns the responses."""
+    and a profiled second pass; with ``openai``, then runs the OpenAI
+    round. Returns the /generate responses."""
     import torch
 
     _drop_engine_model(ctx)
@@ -1514,8 +1755,11 @@ def _serve(ctx, what, env, prompts, expect, walk):
             _profile(torch, lambda: _send_concurrent(base, prompts), walk)
             _check_counters(what, counts, expect)
             _check_walk(what, counts, exact)
+            if openai:
+                _openai_round(ctx, what, base, eng, prompts, expect)
             log(f"{what}: recompiles after warmup {eng.obs.recompiles}, "
-                f"executables {eng.n_executables}, pipeline flushes "
+                f"executables {eng.n_executables} (warmed "
+                f"{eng.obs.warmed_executables}), pipeline flushes "
                 f"{eng.obs.flush_reasons()}")
             if eng.obs.recompiles or \
                     eng.n_executables != eng.obs.warmed_executables:
@@ -1539,7 +1783,7 @@ def phase_serve(ctx):
         "VLLM_CONFIG": os.path.join(REPO, "no-vllm-config.yaml"),
         "SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": ""},
         _serve_prompts(), {"flash_attention", "paged_decode_attention"},
-        "B2 paged_decode_attention")
+        "B2 paged_decode_attention", openai=True)
 
 
 def phase_serve_ragged(ctx):

@@ -13,10 +13,16 @@ power of two), chunked prefill (``_admit_long``, ``_continue_prefill``,
 ``_cont_for``/``_cont_key``/``_cont_args``; the non-fused, plain-text
 branches), context and batch buckets (``_decode_for``, counting a rebuild
 after warmup as the reference counts a recompile), ``_marshal_running``
-(the text columns), ``_commit_pending``/``_apply_sampled``, recompute
-preemption (``_preempt_lowest``), ``cancel`` (the reference's ``_abort``
-teardown, with its pipeline flush), ``n_executables`` and ``generate``;
-``warm_executables`` lives in ``engine/warm.py``.
+(the text columns), ``_commit_pending``/``_apply_sampled`` with their
+logprob entries, recompute preemption (``_preempt_lowest``, keyed on
+``(priority, req_id)`` under ``SHAI_QOS``), ``cancel`` (the reference's
+``_abort`` teardown, with its pipeline flush), deadlines
+(``_expire_deadlines``, stop reason ``"timeout"``, the ``deadline``
+flush), the weighted-fair dequeue under ``SHAI_QOS``
+(``resilience.qos.schedule_rotate``), the step records, pad accounting and
+latency histograms ``/metrics`` reads, ``n_executables`` and
+``generate``; ``warm_executables`` lives in ``engine/warm.py``, the
+logprob entries in ``engine/logprobs.py``.
 
 A fixed slot batch (``max_num_seqs``) is decoded by one call per step; at
 most one prefill group is admitted per step; paged KV with optimistic
@@ -27,7 +33,9 @@ Each decode key is one :class:`~.graphs.DecodeGraph`: a CUDA graph captured
 when the key is first built (by ``warm_executables`` before readiness), or
 the same function run eagerly on the CPU. Both disciplines replay the same
 graphs, so they run the same device work; prefill and the continuation
-chunks stay eager.
+chunks stay eager. Every graph computes the logprob readout; a step copies
+it to the host only when a running request asked for logprobs, and the
+first token's entry comes from the prefill logits, eagerly.
 
 The async pipeline (the reference's ``engine.py:860-880``): step N+1 is
 dispatched with step N's sampled tokens and positions fed back on the
@@ -64,8 +72,8 @@ Three switches of the reference, read at construction:
   head) f32 scales. An unknown value warns and leaves it off.
 
 Later slices bring the fused mixed-phase step, copy-on-write forks, the
-prefix cache and KV tier, logprobs, deadlines, QoS, speculative decoding
-and the multimodal paths.
+prefix cache and KV tier, per-tenant telemetry, speculative decoding and
+the multimodal paths.
 """
 
 from __future__ import annotations
@@ -86,12 +94,14 @@ from ..models.llama import LlamaConfig, LlamaForCausalLM
 from ..obs.steploop import StepTelemetry
 from ..ops.cuda.ragged_paged_attention import sm_count, split_scratch_size
 from ..ops.sampling import sample_logits
+from ..resilience import qos as _qos
 from ..utils.env import env_bool, env_str
 from ..utils.latency import LatencyCollector
 from . import warm as _warm_mod
 from .cache import PagedKVCache
 from .config import EngineConfig
 from .graphs import DecodeGraph, GraphPool
+from .logprobs import _lp_entry, _record_admission_lps
 from .resident import (
     RESIDENT,
     InflightStep,
@@ -100,7 +110,13 @@ from .resident import (
     upload,
 )
 from .runner import make_decode, make_prefill, make_prefill_cont
-from .types import Finished, Request, SamplingParams, _Running  # noqa: F401
+from .types import (  # noqa: F401
+    K_LOGPROBS,
+    Finished,
+    Request,
+    SamplingParams,
+    _Running,
+)
 
 log = logging.getLogger(__name__)
 
@@ -188,8 +204,12 @@ class LLMEngine:
         # before any capture (on the CPU: nothing to share)
         self._graphs = GraphPool(self.device)
         self._graphs.reserve(self._scratch_needs())
-        self.obs = StepTelemetry()
+        self.obs = StepTelemetry(total_blocks=ecfg.total_blocks)
         self._warmed = False
+        # multi-tenant QoS (SHAI_QOS, default off): the weighted-fair
+        # dequeue and the priority-keyed preemption victim
+        self._sched = (_qos.WeightedFairScheduler.from_env()
+                       if _qos.qos_enabled() else None)
         # async decode pipeline (SHAI_ASYNC_DECODE, default on)
         self._async = _resolve_async()
         self._pipe: Optional[InflightStep] = None
@@ -200,8 +220,17 @@ class LLMEngine:
         # that the step in flight and the step retiring never share one;
         # pinned on the card, with the event after each copy
         cuda = self.device.type == "cuda"
-        self._stage = [torch.zeros((ecfg.max_num_seqs,), dtype=torch.int32,
+        S = ecfg.max_num_seqs
+        self._stage = [torch.zeros((S,), dtype=torch.int32,
                                    pin_memory=cuda) for _ in range(2)]
+        # and the logprob readout (top_ids, top_lp, tok_lp) beside them,
+        # copied only when a running request asked for logprobs
+        self._stage_lp = [
+            (torch.zeros((S, K_LOGPROBS), dtype=torch.int32, pin_memory=cuda),
+             torch.zeros((S, K_LOGPROBS), dtype=torch.float32,
+                         pin_memory=cuda),
+             torch.zeros((S,), dtype=torch.float32, pin_memory=cuda))
+            for _ in range(2)]
         self._stage_ev = [torch.cuda.Event() if cuda else None
                           for _ in range(2)]
         self._stage_i = 0
@@ -220,19 +249,28 @@ class LLMEngine:
 
     def add_request(self, prompt_ids: Sequence[int],
                     params: Optional[SamplingParams] = None,
-                    on_token=None) -> int:
+                    on_token=None, deadline_at: float = 0.0,
+                    priority: int = _qos.PRIORITY_NORMAL,
+                    tenant: str = "") -> int:
+        """Queue a request. ``deadline_at``: an absolute
+        ``time.monotonic()`` instant (0 = none) past which it finishes as
+        ``"timeout"``; ``priority`` (0 high, 1 normal, 2 low, clamped) and
+        ``tenant`` are its QoS tag, read under ``SHAI_QOS``."""
         params = (params or SamplingParams()).clamp(self.ecfg)
         if not prompt_ids:
             raise ValueError("empty prompt")
-        if params.logprobs:
-            raise ValueError("logprobs are not ported yet")
         if len(prompt_ids) > self._chunk_cap:
             # past the chunkable cap: keep the tail
             prompt_ids = list(prompt_ids)[-self._chunk_cap:]
         rid = next(self._ids)
+        priority = min(max(int(priority), _qos.PRIORITY_HIGH),
+                       _qos.PRIORITY_LOW)
         self.waiting.append(Request(rid, list(prompt_ids), params,
                                     on_token=on_token,
-                                    t_submit=time.monotonic()))
+                                    deadline_at=deadline_at,
+                                    t_submit=time.monotonic(),
+                                    priority=priority,
+                                    tenant=_qos.sanitize_tenant(tenant)))
         return rid
 
     def cancel(self, req_id: int) -> Optional[Finished]:
@@ -249,7 +287,8 @@ class LLMEngine:
             if r.req_id == req_id:
                 del self.waiting[i]
                 return Finished(req_id, list(r.already_generated),
-                                r.orig_n_prompt, reason)
+                                r.orig_n_prompt, reason,
+                                logprobs=self._queued_lps(r))
         abort_slot = next((s for s in self.slots
                            if s is not None and s.req.req_id == req_id),
                           None)
@@ -263,9 +302,45 @@ class LLMEngine:
             if s is not None and s.req.req_id == req_id:
                 self._record_tpot(s)
                 self._release_slot(s)
-                return Finished(req_id, s.req.already_generated + s.generated,
-                                s.req.orig_n_prompt, reason)
+                return Finished(
+                    req_id, s.req.already_generated + s.generated,
+                    s.req.orig_n_prompt, reason,
+                    logprobs=((s.req.already_lp + s.lps[:len(s.generated)])
+                              if s.req.params.logprobs else None))
         return None
+
+    @staticmethod
+    def _queued_lps(req: Request):
+        """The logprob entries of a request finishing from the queue: the
+        ones it had before a preemption (None when it asked for none)."""
+        return list(req.already_lp) if req.params.logprobs else None
+
+    def _expire_deadlines(self) -> None:
+        """Finish every request whose deadline passed (queued, mid-chunk
+        or decoding) with stop reason ``"timeout"``, releasing its slot
+        and blocks the same step. Step-granular: a request is at most one
+        engine step late. One linear pass over the queue, keeping arrival
+        order, before the weighted-fair head selection."""
+        now = time.monotonic()
+        expired = [r for r in self.waiting if 0.0 < r.deadline_at <= now]
+        if expired:
+            kept = [r for r in self.waiting
+                    if not 0.0 < r.deadline_at <= now]
+            self.waiting.clear()
+            self.waiting.extend(kept)
+            for r in expired:
+                log.warning("req %d exceeded its deadline (%d tokens "
+                            "generated)", r.req_id, len(r.already_generated))
+                self._finish(Finished(
+                    r.req_id, list(r.already_generated), r.orig_n_prompt,
+                    "timeout", logprobs=self._queued_lps(r)))
+        for rid in [s.req.req_id for s in self.slots
+                    if s is not None and 0.0 < s.req.deadline_at <= now]:
+            fin = self._abort(rid, "timeout")
+            if fin is not None:
+                log.warning("req %d exceeded its deadline (%d tokens "
+                            "generated)", rid, len(fin.token_ids))
+                self._finish(fin)
 
     def warm_executables(self) -> int:
         return _warm_mod.warm_executables(self)
@@ -310,15 +385,21 @@ class LLMEngine:
         host readback; the lock-step path is the reference oracle. Both
         commit, stream and finish the same tokens on the same ``step()``
         call."""
-        if self._async:
-            return self._step_async()
-        return self._step_sync()
+        done = self._step_async() if self._async else self._step_sync()
+        self.obs.record_step(
+            n_running=self.n_running, n_waiting=self.n_waiting,
+            n_chunking=self.n_chunking,
+            blocks_free=self.cache.allocator.n_free, finished=len(done))
+        return done
 
     def _step_sync(self) -> List[Finished]:
         """Lock-step step: marshal -> dispatch -> readback -> bookkeeping,
         one blocking device round trip per decode step."""
         self._step_count += 1
         self._done_this_step = []
+        # expire BEFORE admission: a queued request past its deadline must
+        # not be admitted into a prefill nobody waits for
+        self._expire_deadlines()
         self._admit_phase()
         if any(s is not None for s in self.slots):
             self._decode_step()
@@ -329,16 +410,25 @@ class LLMEngine:
     def _step_async(self) -> List[Finished]:
         self._step_count += 1
         self._done_this_step = []
+        now = time.monotonic()
+        deadline_due = (
+            any(0.0 < r.deadline_at <= now for r in self.waiting)
+            or any(s is not None and 0.0 < s.req.deadline_at <= now
+                   for s in self.slots))
         chunking = any(s is not None and s.prefill_cursor is not None
                        for s in self.slots)
         # the steady (pure-decode) path needs no host-side inputs at all;
-        # admission work or a chunking slot makes an event step
-        if self._pipe is not None and not self.waiting and not chunking:
+        # admission work, a chunking slot or a due deadline makes an event
+        # step
+        if (self._pipe is not None and not self.waiting and not chunking
+                and not deadline_due):
             self._steady_step()
         else:
             if self._pipe is not None:
-                self._flush_pipeline("admission" if self.waiting
+                self._flush_pipeline("deadline" if deadline_due else
+                                     "admission" if self.waiting
                                      else "chunking")
+            self._expire_deadlines()
             self._admit_phase()
             if any(s is not None for s in self.slots):
                 self._decode_dispatch()
@@ -374,6 +464,7 @@ class LLMEngine:
             self.cache.extend(s.req.req_id, 1)
         Bb, graph = self._decode_for(self._max_ctx_blocks(running),
                                      len(running))
+        self._note_dispatch_pad(running, Bb)
         self._res.refresh(self, running, Bb, graph)  # tables if grown
         # a bucket change lands on another graph: the feedback is copied
         # into its inputs on the device either way
@@ -395,6 +486,7 @@ class LLMEngine:
         n_exec = self.n_executables
         Bb, graph = self._decode_for(self._max_ctx_blocks(running),
                                      len(running))
+        self._note_dispatch_pad(running, Bb)
         self._res.refresh(self, running, Bb, graph)
         tokens, pos = self._marshal_tokens(running, Bb)
         self._dispatch_async(graph, running, Bb, tokens, pos,
@@ -409,6 +501,7 @@ class LLMEngine:
         step-gap observation (the caller built a new executable this step:
         warmup, not a dispatch gap)."""
         cold = self._pipe is None
+        want_lp = any(s.req.params.logprobs for s in running)
         with torch.inference_mode():
             if isinstance(tokens, np.ndarray):
                 upload(graph.inputs["tokens"], tokens)
@@ -418,7 +511,7 @@ class LLMEngine:
             graph.draw(self._gen)
             t_d = time.monotonic()
             graph.replay()
-            host, event = self._stage_tokens(graph.nxt, Bb)
+            host, lp_host, event = self._stage_tokens(graph, Bb, want_lp)
         if cold and gap_ok and self._t_fetch \
                 and self._last_decode_step == self._step_count - 1:
             # flush or cold step: the dispatch had to wait for the
@@ -427,20 +520,28 @@ class LLMEngine:
         self._last_decode_step = self._step_count
         self._pipe = InflightStep(
             sig=composition_sig(running, Bb), running=list(running),
-            nxt=graph.nxt, pos_next=graph.pos_next, host=host, event=event,
-            t_dispatch=t_d)
+            nxt=graph.nxt, pos_next=graph.pos_next, host=host,
+            lp_host=lp_host, event=event, t_dispatch=t_d)
 
-    def _stage_tokens(self, nxt: torch.Tensor, Bb: int):
-        """Copy a dispatch's sampled tokens into the next of the two host
-        buffers, without blocking; returns the buffer and the event after
-        the copy (None on the CPU)."""
+    def _stage_tokens(self, graph: DecodeGraph, Bb: int, want_lp: bool):
+        """Copy a dispatch's sampled tokens (and, when ``want_lp``, its
+        logprob readout) into the next of the two sets of host buffers,
+        without blocking: the next replay overwrites the graph's outputs.
+        Returns the token buffer, the readout buffers (None unless
+        ``want_lp``) and the event after the copies (None on the CPU)."""
         i, self._stage_i = self._stage_i, self._stage_i ^ 1
-        host = self._stage[i][:Bb]
         event = self._stage_ev[i]
-        host.copy_(nxt, non_blocking=event is not None)
+        host = self._stage[i][:Bb]
+        host.copy_(graph.nxt, non_blocking=event is not None)
+        lp_host = None
+        if want_lp:
+            lp_host = tuple(buf[:Bb] for buf in self._stage_lp[i])
+            for buf, out in zip(lp_host, (graph.top_ids, graph.top_lp,
+                                          graph.tok_lp)):
+                buf.copy_(out, non_blocking=event is not None)
         if event is not None:
             event.record()
-        return host, event
+        return host, lp_host, event
 
     def _retire_pipe(self, pipe: InflightStep) -> float:
         """Host half of a dispatched step: fetch the sampled tokens (the
@@ -448,10 +549,10 @@ class LLMEngine:
         alone) and mirror them into ``pending_token``. Slots that finished
         or were cancelled since the dispatch are skipped: their extra token
         is exactly the discarded lookahead. Returns the fetch stamp."""
-        nxt = pipe.tokens()
+        nxt, top_ids, top_lp, tok_lp = pipe.fetch()
         t_f = time.monotonic()
         self._t_fetch = t_f
-        self._apply_sampled(pipe.running, nxt)
+        self._apply_sampled(pipe.running, nxt, top_ids, top_lp, tok_lp)
         return t_f
 
     def _flush_pipeline(self, reason: str) -> None:
@@ -482,6 +583,11 @@ class LLMEngine:
                     if s is not None and s.prefill_cursor is not None]
         if chunking:
             self._continue_prefill(chunking[0])
+        # class-aware dequeue BEFORE the ladder branches on the head: the
+        # branch taken must be the one for the request fairness selected
+        # (a no-op with SHAI_QOS off or a single-class queue)
+        if self._sched is not None:
+            _qos.schedule_rotate(self.waiting, self._sched)
         if (self.waiting
                 and len(self.waiting[0].prompt_ids) > self.buckets.max):
             if not chunking:
@@ -515,6 +621,7 @@ class LLMEngine:
         now = time.monotonic()
         if not req.already_generated and req.t_submit:
             self.ttft.record(now - req.t_submit)
+            self.obs.ttft.observe(now - req.t_submit)
         if not req.t_first:
             req.t_first = now
         return now
@@ -523,8 +630,17 @@ class LLMEngine:
         """Per-token decode pace: elapsed from token 1's sample to token
         n's commit spans n decode steps."""
         if s.t_first and s.generated:
-            self.tpot.record((time.monotonic() - s.t_first)
-                             / len(s.generated))
+            tpot = (time.monotonic() - s.t_first) / len(s.generated)
+            self.tpot.record(tpot)
+            self.obs.tpot.observe(tpot)
+
+    def _note_admitted(self, req: Request) -> None:
+        """Queue-wait record point at the first admission only (a
+        preemption resume keeps its original ``t_admit``)."""
+        if not req.t_admit:
+            req.t_admit = time.monotonic()
+            if req.t_submit:
+                self.obs.queue_wait.observe(req.t_admit - req.t_submit)
 
     def _start_slot(self, slot: int, req: Request, tok: int) -> None:
         """Seat a fully-prefilled request with its sampled first token."""
@@ -555,7 +671,8 @@ class LLMEngine:
                       req.req_id, self._need_blocks(n_tokens),
                       self.cache.allocator.n_free)
             self._finish(Finished(req.req_id, list(req.already_generated),
-                                  req.orig_n_prompt, "rejected"))
+                                  req.orig_n_prompt, "rejected",
+                                  logprobs=self._queued_lps(req)))
         return False
 
     def _admit_batch(self) -> None:
@@ -587,8 +704,7 @@ class LLMEngine:
                 continue   # rejected-and-finished; consider the next head
             bucket = b
             self.waiting.popleft()
-            if not req.t_admit:
-                req.t_admit = time.monotonic()
+            self._note_admitted(req)
             self.cache.admit(req.req_id, n)
             group.append(req)
         if not group:
@@ -620,8 +736,17 @@ class LLMEngine:
                                  torch.from_numpy(temp).to(dev),
                                  torch.from_numpy(topk).to(dev),
                                  torch.from_numpy(topp).to(dev)).cpu()
+        real = sum(len(r.prompt_ids) for r in group)
+        self.obs.count_pad(real, Kp * bucket - real, phase="prefill")
+        lp_rows = []
         for i, req in enumerate(group):
-            self._start_slot(self._free_slot(), req, int(toks[i]))
+            slot = self._free_slot()
+            self._start_slot(slot, req, int(toks[i]))
+            if req.params.logprobs:
+                lp_rows.append((i, self.slots[slot]))
+        if lp_rows:
+            _record_admission_lps(self, logits, [int(t) for t in toks],
+                                  lp_rows)
 
     def _admit_long(self) -> None:
         """Admit a prompt longer than the largest prefill bucket: allocate
@@ -645,8 +770,7 @@ class LLMEngine:
         if not self._try_reserve(req, n_total):
             return
         self.waiting.popleft()
-        if not req.t_admit:
-            req.t_admit = time.monotonic()
+        self._note_admitted(req)
         self.cache.admit(req.req_id, n_total)
         dev = self.device
         ids = torch.tensor([req.prompt_ids[:C]], dtype=torch.int32,
@@ -681,10 +805,14 @@ class LLMEngine:
                 p = req.params
                 tok = sample_logits(logits, self._gen, p.temperature,
                                     p.top_k, p.top_p)
+        self.obs.count_pad(n, C - n, phase="chunk")
         if final:
             s.pending_token = int(tok[0])
             s.prefill_cursor = None
             s.t_first = self._mark_first_token(req)
+            if req.params.logprobs:
+                _record_admission_lps(self, logits, [s.pending_token],
+                                      [(0, s)])
         else:
             s.prefill_cursor = start + C
 
@@ -783,12 +911,21 @@ class LLMEngine:
         return bb, self._decode_fns[key]
 
     def _preempt_lowest(self) -> None:
-        """Recompute-preempt the most recently admitted sequence: its
-        generated + pending tokens become prompt suffix on re-admission."""
-        victim = max((s for s in self.slots if s is not None),
-                     key=lambda s: s.req.req_id)
+        """Recompute-preempt the lowest-priority, most recently admitted
+        sequence: its generated + pending tokens become prompt suffix on
+        re-admission. Priority weighs in ONLY under ``SHAI_QOS``: with QoS
+        off the key is the most recent ``req_id`` alone, so an
+        unauthenticated ``X-SHAI-Priority`` header is no anti-preemption
+        lever on a FIFO pod."""
+        victims = [s for s in self.slots if s is not None]
+        if self._sched is not None:
+            victim = max(victims,
+                         key=lambda s: (s.req.priority, s.req.req_id))
+        else:
+            victim = max(victims, key=lambda s: s.req.req_id)
         log.warning("preempting seq %d (block pool exhausted)",
                     victim.req.req_id)
+        self.obs.count_preemption()
         self._release_slot(victim)
         if victim.prefill_cursor is not None:
             # mid-prefill: nothing generated; the prompt re-queues as it is
@@ -804,13 +941,17 @@ class LLMEngine:
         emitted = victim.req.already_generated + committed
         if victim.pending_token == p.eos_id or len(committed) >= p.max_new_tokens:
             self._record_tpot(victim)
+            lps = (victim.req.already_lp + victim.lps) if p.logprobs else None
             if emitted and emitted[-1] == p.eos_id:
                 emitted = emitted[:-1]
+                if lps:
+                    lps = lps[:-1]
                 reason = "eos"
             else:
                 reason = "length"
             self._finish(Finished(victim.req.req_id, emitted,
-                                  victim.req.orig_n_prompt, reason))
+                                  victim.req.orig_n_prompt, reason,
+                                  logprobs=lps))
             return
         self._record_tpot(victim)
         params = dataclasses.replace(
@@ -820,8 +961,14 @@ class LLMEngine:
             already_generated=emitted,
             orig_n_prompt=victim.req.orig_n_prompt,
             on_token=victim.req.on_token,
+            deadline_at=victim.req.deadline_at,
             t_submit=victim.req.t_submit, t_admit=victim.req.t_admit,
-            t_first=victim.req.t_first))
+            t_first=victim.req.t_first,
+            # the reference re-queues without the QoS tag (the resumed
+            # request is normal priority, untagged); kept, so that the two
+            # engines schedule a preempted queue alike
+            already_lp=(victim.req.already_lp + victim.lps
+                        if p.logprobs else [])))
 
     def _grow_running(self) -> None:
         """Reserve one cache token per decoding slot for its pending token,
@@ -842,6 +989,30 @@ class LLMEngine:
                     self._preempt_lowest()
                     if self.slots[s.slot] is not s:
                         break  # s itself was preempted
+
+    def _note_dispatch_pad(self, running, Bb: int) -> None:
+        """Pad-waste accounting for one decode dispatch: ``real`` is the
+        context tokens the rows hold, the pad the slots the call walks
+        beyond them (batch pad rows, and the context window past each
+        row's live tokens: the bucket for every row, or each row's own
+        blocks when ragged)."""
+        bs = self.ecfg.block_size
+        real = walked = 0
+        if self._ragged:
+            for s in running:
+                n = self.cache.seq(s.req.req_id).n_tokens
+                real += n
+                walked += self.cache._blocks_needed(n) * bs
+            walked += (Bb - len(running)) * bs  # pad rows walk one block
+        else:
+            m_blocks = 1
+            for s in running:
+                n = self.cache.seq(s.req.req_id).n_tokens
+                real += n
+                m_blocks = max(m_blocks, self.cache._blocks_needed(n))
+            m = next(b for b in self._ctx_buckets if b >= m_blocks)
+            walked = Bb * m * bs
+        self.obs.count_pad(real, walked - real, phase="decode")
 
     def _running_slots(self) -> List[_Running]:
         return [s for s in self.slots
@@ -892,6 +1063,7 @@ class LLMEngine:
         n_exec = self.n_executables
         Bb, graph = self._decode_for(self._max_ctx_blocks(running),
                                      len(running))
+        self._note_dispatch_pad(running, Bb)
         a = self._marshal_running(running, Bb)
         tokens, pos = self._marshal_tokens(running, Bb)
         with torch.inference_mode():
@@ -910,9 +1082,13 @@ class LLMEngine:
                 self.obs.step_gap.observe(max(0.0, t_d - self._t_fetch))
             self._last_decode_step = self._step_count
             nxt = graph.nxt.cpu().numpy()
+            lp = (None, None, None)
+            if any(s.req.params.logprobs for s in running):
+                lp = tuple(t.cpu().numpy() for t in (
+                    graph.top_ids, graph.top_lp, graph.tok_lp))
         self._t_fetch = time.monotonic()
         self._commit_pending(running)
-        self._apply_sampled(running, nxt)
+        self._apply_sampled(running, nxt, *lp)
 
     def _commit_pending(self, running) -> None:
         """Commit every running slot's pending token: append/stream it, run
@@ -925,6 +1101,8 @@ class LLMEngine:
             hit_eos = s.pending_token == p.eos_id
             if hit_eos:
                 s.generated.pop()  # exclude EOS from the emitted text
+                if p.logprobs and s.lps:
+                    s.lps.pop()    # its logprob entry goes with it
             elif s.req.on_token is not None:
                 s.req.on_token(s.pending_token)
             full = len(s.generated) >= p.max_new_tokens
@@ -934,12 +1112,22 @@ class LLMEngine:
                 self._record_tpot(s)
                 self._finish(Finished(
                     s.req.req_id, s.req.already_generated + s.generated,
-                    s.req.orig_n_prompt, "eos" if hit_eos else "length"))
+                    s.req.orig_n_prompt, "eos" if hit_eos else "length",
+                    logprobs=((s.req.already_lp + s.lps)
+                              if p.logprobs else None)))
                 self._release_slot(s)
 
-    def _apply_sampled(self, running, nxt) -> None:
-        """Mirror the sampled tokens into the surviving slots'
-        ``pending_token``."""
+    def _apply_sampled(self, running, nxt, top_ids, top_lp, tok_lp) -> None:
+        """Mirror a decode step's sampled tokens into the surviving slots'
+        ``pending_token``, with a logprob entry for each slot that asked.
+        In the async path this runs one step late; a slot finished or
+        cancelled since the dispatch is skipped, its token and its entry
+        dropped."""
         for i, s in enumerate(running):
-            if self.slots[s.slot] is s:
-                s.pending_token = int(nxt[i])
+            if self.slots[s.slot] is not s:
+                continue
+            s.pending_token = int(nxt[i])
+            p = s.req.params
+            if p.logprobs:
+                s.lps.append(_lp_entry(p.logprobs, nxt[i], tok_lp[i],
+                                       top_ids[i], top_lp[i]))

@@ -13,10 +13,13 @@ One graph per ``_decode_for`` key ``(ctx bucket, batch bucket)`` (ragged:
 one context entry, so the key is the batch bucket). It owns static inputs
 (``tokens``, ``pos``, ``tables``, ``temp``, ``topk``, ``topp`` and the
 step's ``uniforms``) and, once captured, static outputs (``nxt``,
-``pos_next``, ``logits``) that every replay overwrites. Both disciplines
-replay the same graphs: the lock-step engine fills every input from the
-host, the async engine feeds step N's ``nxt``/``pos_next`` back on the
-device.
+``pos_next`` and the logprob readout ``top_ids``, ``top_lp``, ``tok_lp``
+of ``runner.token_logprobs``) that every replay overwrites. The readout
+is part of every graph: there is one graph per key whether or not a
+request asks for logprobs, and the engine copies the readout to the host
+only when one does. Both disciplines replay the same graphs: the
+lock-step engine fills every input from the host, the async engine feeds
+step N's ``nxt``/``pos_next`` back on the device.
 
 Capture (:meth:`DecodeGraph.capture`): the decode function runs once
 eagerly on the capture stream (that builds the kernels, sets their
@@ -50,6 +53,9 @@ from ..core.device import DeviceLike, resolve_device
 from ..ops.cuda import flash_attention as _fa
 from ..ops.cuda import paged_attention as _pa
 from ..ops.cuda import ragged_paged_attention as _rpa
+
+#: the static outputs of a decode step, in the decode function's order
+OUTPUTS = ("nxt", "pos_next", "top_ids", "top_lp", "tok_lp")
 
 #: the counted kernel wrappers a decode step may launch
 COUNTED = (_fa.flash_attention, _pa.paged_decode_attention,
@@ -142,7 +148,9 @@ class DecodeGraph:
             self.uniforms = f32(0.5, batch, vocab_size)
         self.nxt: Optional[torch.Tensor] = None
         self.pos_next: Optional[torch.Tensor] = None
-        self.logits: Optional[torch.Tensor] = None
+        self.top_ids: Optional[torch.Tensor] = None
+        self.top_lp: Optional[torch.Tensor] = None
+        self.tok_lp: Optional[torch.Tensor] = None
         #: kernel launches one replay makes, per counted wrapper
         self.launches: Dict[str, int] = {}
         self._counted: Tuple[Tuple[Callable, int], ...] = ()
@@ -158,15 +166,19 @@ class DecodeGraph:
     def _pool_ptrs(self) -> Tuple[int, ...]:
         return tuple(t.data_ptr() for lay in self.kv for t in lay.values())
 
-    def eager(self):
+    def eager(self) -> Tuple[torch.Tensor, ...]:
         """One eager call of the decode function on the static inputs, on
-        the current stream: ``(nxt, pos_next, logits)``, fresh tensors."""
+        the current stream: the :data:`OUTPUTS`, fresh tensors."""
         a = self.inputs
         with torch.inference_mode():
-            _, nxt, pos_next, logits = self.decode(
+            _, *outs = self.decode(
                 self.model, self.kv, a["tokens"], a["pos"], a["tables"],
                 self.uniforms, a["temp"], a["topk"], a["topp"])
-        return nxt, pos_next, logits
+        return tuple(outs)
+
+    def _set_outputs(self, outs) -> None:
+        for name, t in zip(OUTPUTS, outs, strict=True):
+            setattr(self, name, t)
 
     def capture(self) -> None:
         """Capture the step (CUDA); a no-op on the CPU. Raises when the
@@ -198,7 +210,7 @@ class DecodeGraph:
             for fn, was in zip(COUNTED, before):
                 fn.launches = was
         self.capture_seconds = time.perf_counter() - t0
-        self.nxt, self.pos_next, self.logits = outs
+        self._set_outputs(outs)
         self._counted = tuple((fn, n) for fn, n in zip(COUNTED, added) if n)
         self.launches = {fn.__name__: n for fn, n in self._counted}
         self._ptrs = self._pool_ptrs()
@@ -222,7 +234,7 @@ class DecodeGraph:
             if self.pool.cuda:
                 raise RuntimeError(f"decode graph {self.key} was never "
                                    f"captured")
-            self.nxt, self.pos_next, self.logits = self.eager()
+            self._set_outputs(self.eager())
         else:
             if self._pool_ptrs() != self._ptrs:
                 raise RuntimeError(f"decode graph {self.key}: the KV pool "

@@ -1,8 +1,9 @@
 """Engine loop thread: the bridge between concurrent HTTP and one engine.
 
 Port of ``scalable_hw_agnostic_inference_tpu/engine/loop.py``
-(``EngineLoop`` with ``submit``, ``cancel``, ``drain`` and ``stop``, and
-the idle hook ``engine.finish_pending``). One
+(``EngineLoop`` with ``submit`` and its deadline and QoS tag,
+``cancel``, ``drain`` and ``stop``, and the idle hook
+``engine.finish_pending``). One
 daemon thread owns the engine (and through it the device); callers submit
 token-id prompts and wait on a future, so concurrent requests coalesce into
 the running batch. Fan-out groups and live migration come in later slices.
@@ -17,6 +18,7 @@ import time
 from concurrent.futures import Future
 from typing import List, Optional, Sequence
 
+from ..resilience.qos import PRIORITY_NORMAL
 from .engine import LLMEngine, SamplingParams
 
 log = logging.getLogger(__name__)
@@ -25,7 +27,7 @@ log = logging.getLogger(__name__)
 class EngineLoop:
     def __init__(self, engine: LLMEngine, poll_s: float = 0.005):
         self.engine = engine
-        # items: (prompt_ids, params, on_token, future)
+        # items: (prompt_ids, params, on_token, add_request kwargs, future)
         self._submit_q: "queue.Queue[tuple]" = queue.Queue()
         self._futures: dict[int, Future] = {}
         self._futures_lock = threading.Lock()
@@ -75,17 +77,22 @@ class EngineLoop:
 
     def submit(self, prompt_ids: Sequence[int],
                params: Optional[SamplingParams] = None,
-               on_token=None) -> Future:
+               on_token=None, deadline_at: float = 0.0,
+               priority: int = PRIORITY_NORMAL, tenant: str = "") -> Future:
         """Enqueue a request; the future resolves to a ``Finished``.
         ``on_token`` is called from the loop thread once per output token,
-        in order, and must be cheap."""
+        in order, and must be cheap (put onto a queue, nothing more).
+        ``deadline_at`` (absolute ``time.monotonic()``, 0 = none),
+        ``priority`` and ``tenant`` go to ``LLMEngine.add_request``."""
         if self._stop.is_set():
             raise RuntimeError("engine loop is stopped")
         if self._draining.is_set():
             raise RuntimeError("engine loop is draining")
         fut: Future = Future()
+        kw = {"deadline_at": deadline_at, "priority": priority,
+              "tenant": tenant}
         self._submit_q.put((list(prompt_ids), params or SamplingParams(),
-                            on_token, fut))
+                            on_token, kw, fut))
         # close the put-after-stop window: if the loop died between the
         # check and the put, nobody will ever drain this item
         if self._stop.is_set():
@@ -107,9 +114,10 @@ class EngineLoop:
         except queue.Empty:
             return
         while True:
-            ids, params, on_token, fut = item
+            ids, params, on_token, kw, fut = item
             try:
-                rid = self.engine.add_request(ids, params, on_token=on_token)
+                rid = self.engine.add_request(ids, params, on_token=on_token,
+                                              **kw)
                 with self._futures_lock:
                     self._futures[rid] = fut
             except Exception as e:  # bad request (e.g. empty prompt)

@@ -21,7 +21,10 @@ pipeline (``SHAI_ASYNC_DECODE``) removes both halves:
   N+1 (feeding it ``nxt`` and ``pos_next`` on the device) before it
   retires step N, so each dispatch also copies its tokens into a host
   buffer of its own and records an event, and retiring waits on that
-  event only.
+  event only. When a running request asked for logprobs (``want_lp``,
+  reference ``engine.py:1024``), the same dispatch copies the graph's
+  logprob readout (``top_ids``, ``top_lp``, ``tok_lp``) into host buffers
+  of its own behind the same event.
 
 Host uploads go through pinned staging buffers from PyTorch's caching
 host allocator: each refresh takes a fresh one, and the allocator does
@@ -69,15 +72,26 @@ class InflightStep:
     nxt: torch.Tensor                 # device [Bb] sampled tokens (feedback)
     pos_next: torch.Tensor            # device [Bb] pos + 1 (feedback)
     host: torch.Tensor                # [Bb] host copy of nxt, own buffer
-    event: Optional[Any]              # CUDA event after that copy (None: CPU)
+    # host copies of (top_ids [Bb, K], top_lp [Bb, K], tok_lp [Bb]), own
+    # buffers; None when no running request asked for logprobs
+    lp_host: Optional[Tuple[torch.Tensor, ...]]
+    event: Optional[Any]              # CUDA event after the copies (None: CPU)
     t_dispatch: float                 # monotonic enqueue stamp (gap metric)
 
-    def tokens(self) -> np.ndarray:
-        """The step's sampled tokens on the host: waits for this step's
-        copy only, never for a later dispatch."""
+    @property
+    def want_lp(self) -> bool:
+        return self.lp_host is not None
+
+    def fetch(self):
+        """The step's sampled tokens and, when ``want_lp``, its logprob
+        readout on the host: ``(nxt, top_ids, top_lp, tok_lp)`` as numpy
+        (the last three None otherwise). Waits for this step's copies
+        only, never for a later dispatch."""
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        if self.lp_host is None:
+            return self.host.numpy(), None, None, None
+        return (self.host.numpy(),) + tuple(t.numpy() for t in self.lp_host)
 
 
 class ResidentBatch:

@@ -5,8 +5,9 @@ Port of ``scalable_hw_agnostic_inference_tpu/engine/runner.py``:
 ``make_prefill`` (``:286``, text-only), ``make_prefill_cont`` (``:447``,
 text-only, both the static-start ladder and ``ragged=True``),
 ``make_decode`` (``:780``, the ``T = 1`` instantiation of
-``_make_token_forward`` at ``:641``, with its ``feedback`` variant) and
-their helpers ``_rmsnorm``,
+``_make_token_forward`` at ``:641``, with its ``feedback`` variant),
+``token_logprobs`` (``:129``, the per-token logprob readout) and their
+helpers ``_rmsnorm``,
 ``_qkv``, ``_mlp``, ``_scatter_blocks``, ``_pool_scales``,
 ``_ragged_pool_attention`` and ``_logits``. The runner reads the weights of
 ``models.llama.LlamaForCausalLM``, so one set of weights serves the scoring
@@ -60,6 +61,7 @@ from ..ops.quant import (
 )
 from ..ops.rope import apply_rope
 from ..ops.sampling import sample_logits
+from .types import K_LOGPROBS
 
 KVPool = List[Dict[str, torch.Tensor]]
 
@@ -119,6 +121,20 @@ def _logits(model: LlamaForCausalLM, x: torch.Tensor,
     if cfg.tie_embeddings:
         return x.float() @ model.embed.weight.float().T
     return quant_matmul(x, model.lm_head.weight).float()
+
+
+def token_logprobs(logits: torch.Tensor, toks: torch.Tensor):
+    """``[B, V]`` raw logits and ``[B]`` sampled ids -> ``(top_ids [B, K]
+    i32, top_logprobs [B, K] f32, sampled_logprob [B] f32)`` with ``K =
+    K_LOGPROBS``: the raw (pre-temperature) distribution, what the OpenAI
+    ``logprobs`` field reports. A log-softmax over the f32 logits, a top-k
+    and a gather; plain PyTorch, as the reference leaves them to XLA.
+    ``torch.topk`` orders equal values as it likes, where ``jax.lax.top_k``
+    puts the lower index first: the values agree, tied ids may not."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    top_lp, top_ids = torch.topk(logp, K_LOGPROBS, dim=-1)
+    tok_lp = torch.gather(logp, 1, toks.long()[:, None])[:, 0]
+    return top_ids.to(torch.int32), top_lp, tok_lp
 
 
 def make_prefill(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
@@ -381,12 +397,12 @@ def make_decode(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
     same tokens).
 
     ``feedback``: the async pipeline's variant (``SHAI_ASYNC_DECODE``,
-    reference ``runner.py:780-800``). The step also returns ``pos + 1``
-    and its logits: ``(kv, next_tokens, pos + 1, logits [B, V] f32)``, so
-    step N's sampled tokens and positions feed step N+1 on the device
-    without the host. The reference turns the logits into its logprob
-    outputs; the engine reads none of them, and ``chip_smoke.py`` holds a
-    graph replay's logits against the eager call's.
+    reference ``runner.py:780-800,850-860``), which the engine runs under
+    both disciplines: ``(kv, next_tokens, pos + 1, top_ids [B, K],
+    top_lp [B, K], tok_lp [B])``. Step N's sampled tokens and positions
+    feed step N+1 on the device without the host, and the logprob readout
+    (:func:`token_logprobs`) rides along on every step; the engine copies
+    it to the host only when a running request asked for logprobs.
 
     ``pos[b]`` is where the new token is written (== tokens so far);
     padding rows carry zero tables and write into the null block.
@@ -416,7 +432,7 @@ def make_decode(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
         logits = logits[:, 0]
         nxt = sample_logits(logits, rng, temperature, top_k, top_p)
         if feedback:
-            return kv, nxt, pos + 1, logits
+            return (kv, nxt, pos + 1) + token_logprobs(logits, nxt)
         return kv, nxt
 
     return decode

@@ -2,9 +2,9 @@
 
 Port of ``scalable_hw_agnostic_inference_tpu/engine/types.py``, field for
 field (``SamplingParams``, ``Request``, ``Finished``, ``_Running``). Fields
-whose features come in later slices (soft prefix, cross states, logprobs,
-QoS, migration, tracing, fan-out) keep their names and defaults; this
-slice's engine refuses requests that set them.
+whose features come in later slices (soft prefix, cross states,
+idempotency, KV holders, migration, tracing, fan-out) keep their names
+and defaults, and the engine leaves them unset.
 """
 
 from __future__ import annotations

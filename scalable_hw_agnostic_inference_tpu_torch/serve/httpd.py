@@ -1,11 +1,14 @@
 """Stdlib asyncio HTTP/1.1 server speaking ASGI — the uvicorn replacement.
 
 Trimmed copy of ``scalable_hw_agnostic_inference_tpu/serve/httpd.py``:
-HTTP/1.1 with keep-alive and content-length bodies, each request turned
-into an ASGI-3 ``http`` scope. Chunked streaming and the mid-stream
-disconnect watch come with the streaming routes in a later slice. Handlers
-run model work on a thread executor (``serve.app``), so the event loop
-keeps answering probes while the engine works.
+HTTP/1.1 with keep-alive, each request turned into an ASGI-3 ``http``
+scope. A response without a content-length (an SSE stream) goes out with
+chunked transfer encoding, or, to an HTTP/1.0 client, unframed and
+delimited by closing the connection (``:140-200``). After the request
+body, ``receive()`` blocks until the client's socket closes and then
+answers ``http.disconnect``: the app's disconnect watch under a streaming
+response. Handlers run model work on a thread executor (``serve.app``), so
+the event loop keeps answering probes while the engine works.
 """
 
 from __future__ import annotations
@@ -124,28 +127,61 @@ class _Connection:
                       == b"keep-alive")
         sent_body = False
         started = False
+        chunked = False
         messages = [{"type": "http.request", "body": body,
                      "more_body": False}]
 
         async def receive():
             if messages:
                 return messages.pop(0)
-            return {"type": "http.disconnect"}
+            # the body went out already: a further receive() asks about
+            # the client connection (the disconnect watch of a streaming
+            # response). Block until the socket drops; bytes that arrive
+            # instead are a pipelined next request, kept for it (bounded:
+            # a client flooding the pipeline reads as gone)
+            while True:
+                try:
+                    data = await self.reader.read(65536)
+                except (ConnectionResetError, OSError):
+                    return {"type": "http.disconnect"}
+                if not data:
+                    return {"type": "http.disconnect"}
+                self._pushback += data
+                if len(self._pushback) > MAX_HEADER_BYTES:
+                    return {"type": "http.disconnect"}
 
         async def send(message):
-            nonlocal sent_body, started
+            nonlocal sent_body, started, chunked, keep_alive
             if message["type"] == "http.response.start":
                 started = True
                 status = message["status"]
                 lines = [f"HTTP/1.1 {status} {_reason(status)}".encode(
                     "latin-1")]
+                has_length = False
                 for k, v in message.get("headers", []):
+                    has_length |= k.lower() == b"content-length"
                     lines.append(k + b": " + v)
+                if not has_length:
+                    if http10:
+                        # an HTTP/1.0 client cannot parse chunked framing:
+                        # send the body unframed, delimited by the close
+                        keep_alive = False
+                    else:
+                        chunked = True
+                        lines.append(b"transfer-encoding: chunked")
                 lines.append(b"connection: keep-alive" if keep_alive
                              else b"connection: close")
                 self.writer.write(b"\r\n".join(lines) + b"\r\n\r\n")
             elif message["type"] == "http.response.body":
-                self.writer.write(message.get("body", b""))
+                data = message.get("body", b"")
+                if chunked:
+                    if data:
+                        self.writer.write(f"{len(data):x}\r\n".encode(
+                            "latin-1") + data + b"\r\n")
+                    if not message.get("more_body"):
+                        self.writer.write(b"0\r\n\r\n")
+                else:
+                    self.writer.write(data)
                 if not message.get("more_body"):
                     sent_body = True
                 await self.writer.drain()
@@ -169,8 +205,9 @@ class _Connection:
 
 _REASONS = {
     200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
-    413: "Payload Too Large", 431: "Request Header Fields Too Large",
-    500: "Internal Server Error", 503: "Service Unavailable",
+    409: "Conflict", 413: "Payload Too Large", 429: "Too Many Requests",
+    431: "Request Header Fields Too Large", 500: "Internal Server Error",
+    503: "Service Unavailable", 504: "Gateway Timeout",
 }
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import tempfile
 from typing import Any, Dict, Optional
 
 log = logging.getLogger(__name__)
@@ -75,6 +76,11 @@ class ServeConfig:
     port: int = 8000
     warmup: bool = True
     seed: int = 0
+    deadline_ms: int = 0   # default per-request deadline; 0 = none
+    # where /profile writes its traces (the TMPDIR's when unset)
+    artifact_root: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(),
+                                             "shai-artifacts"))
 
     @classmethod
     def from_env(cls) -> "ServeConfig":
@@ -92,6 +98,9 @@ class ServeConfig:
             port=env_int("PORT", 8000),
             warmup=env_bool("WARMUP", True),
             seed=env_int("SEED", 0),
+            deadline_ms=env_int("DEADLINE_MS", 0),
+            artifact_root=env_str("ARTIFACT_ROOT", os.path.join(
+                tempfile.gettempdir(), "shai-artifacts")),
         )
         cfg.validate()
         return cfg
@@ -103,6 +112,8 @@ class ServeConfig:
                 f"{VALID_DEVICES}")
         if self.batch_size < 1:
             raise ValueError("BATCH_SIZE must be >= 1")
+        if self.deadline_ms < 0:
+            raise ValueError("DEADLINE_MS must be >= 0 (0 disables)")
         if self.quantization not in ("", "int8"):
             raise ValueError(
                 f"QUANTIZATION={self.quantization!r} not supported; "

@@ -148,8 +148,10 @@ def test_engine_refuses_what_later_slices_bring(tiny):
     assert eng.waiting[-1].prompt_ids == list(range(3, 3 + 200))[-127:]
     with pytest.raises(ValueError, match="empty prompt"):
         eng.add_request([])
-    with pytest.raises(ValueError, match="logprobs"):
-        eng.add_request([1, 2], SamplingParams(logprobs=2))
+    # logprobs are served (slice 6): a count past the cap is clamped to
+    # K_LOGPROBS, as the reference's SamplingParams.clamp does
+    eng.add_request([1, 2], SamplingParams(logprobs=9))
+    assert eng.waiting[-1].params.logprobs == 5
     with pytest.raises(ValueError, match="not ported yet"):
         LLMEngine(tcfg, model, tconfig.EngineConfig(
             **dict(ENGINE_KW, enable_prefix_caching=True)), device="cpu")

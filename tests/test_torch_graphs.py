@@ -100,7 +100,12 @@ def _stand_in_decode(need, frozen_seen):
             frozen_seen.append(trpa._frozen)
             trpa._split_scratch(CPU, _Stream.cuda_stream, *need)
             tpaged.paged_decode_attention.launches += 1
-        return kv, tokens + 1, pos + 1, torch.zeros(len(tokens), V)
+        # the feedback decode's outputs: tokens, pos + 1 and the logprob
+        # readout (top_ids, top_lp, tok_lp)
+        n = len(tokens)
+        return (kv, tokens + 1, pos + 1,
+                torch.zeros(n, runner.K_LOGPROBS, dtype=torch.int32),
+                torch.zeros(n, runner.K_LOGPROBS), torch.zeros(n))
 
     return decode
 
@@ -218,6 +223,9 @@ def test_cpu_graph_runs_the_decode_eagerly():
                 a["temp"], a["topk"], a["topp"])
         assert torch.equal(g.nxt, want)
         assert g.pos_next.tolist() == [21, 6]
-        assert int(g.nxt[0]) == int(g.logits[0].argmax())
+        # the greedy row's token is its readout's top id, and its logprob
+        # the top logprob
+        assert int(g.nxt[0]) == int(g.top_ids[0, 0])
+        assert float(g.tok_lp[0]) == float(g.top_lp[0, 0])
     assert not torch.equal(seen[0], seen[1])
     assert g.replays == 3

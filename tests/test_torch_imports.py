@@ -1,8 +1,9 @@
 """The port stands alone: it imports no JAX, no flax and nothing of the JAX
 package, and it runs on the card unless it is asked for the CPU.
 
-- an AST scan of every port source fails on an import of ``jax``,
-  ``jaxlib``, ``flax`` or ``scalable_hw_agnostic_inference_tpu``;
+- an AST scan of every port source (and ``chip_smoke.py``) fails on an
+  import of ``jax``, ``jaxlib``, ``flax``, ``prometheus_client`` or
+  ``scalable_hw_agnostic_inference_tpu``;
 - a fresh interpreter that imports every port module holds no more
   ``jax*``/``flax*`` modules than a bare interpreter does (an interpreter
   may preload JAX at start-up, so the check is relative);
@@ -25,7 +26,8 @@ import scalable_hw_agnostic_inference_tpu_torch as port
 
 PORT_ROOT = Path(port.__file__).resolve().parent
 REPO = PORT_ROOT.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "scalable_hw_agnostic_inference_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "prometheus_client",
+             "scalable_hw_agnostic_inference_tpu")
 
 
 def _modules():
@@ -41,9 +43,9 @@ def _forbidden(name: str) -> bool:
     return name.split(".")[0] in FORBIDDEN
 
 
-def test_no_forbidden_import_in_any_port_source():
+def _forbidden_imports(paths):
     bad = []
-    for path, _ in _modules():
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -53,6 +55,11 @@ def test_no_forbidden_import_in_any_port_source():
                 continue
             bad += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
                     for n in names if _forbidden(n)]
+    return bad
+
+
+def test_no_forbidden_import_in_any_port_source():
+    bad = _forbidden_imports(path for path, _ in _modules())
     assert not bad, bad
     assert len(list(_modules())) > 20
 
@@ -231,3 +238,31 @@ def test_decode_graph_raises_without_cuda_unless_given_the_cpu(no_cuda):
         build(device="cuda")
     g = build(device="cpu")
     assert g.inputs["tables"].device.type == "cpu" and not g.pool.cuda
+
+
+#: the serving-contract slice's modules (deadlines, QoS, logprobs, the
+#: Prometheus page, SSE), and the chip script
+SERVING_MODULES = (
+    "scalable_hw_agnostic_inference_tpu_torch.resilience.deadline",
+    "scalable_hw_agnostic_inference_tpu_torch.resilience.qos",
+    "scalable_hw_agnostic_inference_tpu_torch.engine.logprobs",
+    "scalable_hw_agnostic_inference_tpu_torch.serve.metrics",
+    "scalable_hw_agnostic_inference_tpu_torch.serve.units.common",
+    "scalable_hw_agnostic_inference_tpu_torch.serve.units.vllm",
+    "scalable_hw_agnostic_inference_tpu_torch.serve.app",
+)
+
+
+def test_serving_modules_are_scanned_and_load_no_jax_or_prometheus():
+    """The new modules are in the scan, import none of the forbidden
+    packages (``prometheus_client`` included: the port writes its own
+    exposition), and nor does ``chip_smoke.py``."""
+    scanned = {n for _, n in _modules()}
+    assert set(SERVING_MODULES) <= scanned
+    assert _forbidden_imports([REPO / "chip_smoke.py"]) == []
+    heads = ("jax", "jaxlib", "flax", "prometheus_client")
+    code = _PROBE % (heads, list(SERVING_MODULES), heads)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

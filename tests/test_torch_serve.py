@@ -110,7 +110,7 @@ def test_concurrent_generate(server):
     ({"prompt": "x", "max_new_tokens": 0}, "max_new_tokens"),
     ({"prompt": "x", "max_new_tokens": 10_000}, "exceeds"),
     ({"prompt": "x", "temperature": "hot"}, "bad sampling parameter"),
-    ({"prompt": "x", "logprobs": 2}, "logprobs"),
+    ({"prompt": "x", "logprobs": 9}, "logprobs"),
 ])
 def test_bad_requests_are_400(server, payload, why):
     base, service = server
