@@ -20,7 +20,11 @@ Phases:
                 int8 pools at decode (split-K) and chunked-prefill
                 continuation shapes (one table row shared through
                 ``rows_per_table``, and copied per row); B2 given int8
-                scales must return B3's result;
+                scales must return B3's result; and B3 over the fused
+                step's mixed rows (one launch over row groups: 8 decode
+                rows, lengths 1 to 4096, and a 512-token chunk at starts
+                0, 512 and 2560, M=256), timed beside the decode-only and
+                chunk-only launches it replaces;
   6. ``decode_graph`` one decode step at Llama-3-8B width (32 layers,
                 seeded weights) captured as a CUDA graph
                 (``engine/graphs.py``) at serve's bucketed shape (B=8, a
@@ -45,7 +49,14 @@ Phases:
   8. ``engine_ragged`` the same model under ``SHAI_RAGGED_ATTENTION=1``
                 (bf16), ``SHAI_RAGGED_ATTENTION=1 SHAI_KV_QUANT=int8`` and
                 ``SHAI_KV_QUANT=int8`` alone, each also equal to lock-step;
-  9. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
+  9. ``engine_fused`` the same model under ``SHAI_RAGGED_ATTENTION=1
+                SHAI_FUSED_STEP=1``, bf16 and then ``SHAI_KV_QUANT=int8``:
+                async equal to lock-step, greedy tokens equal to the
+                laddered ragged run's or parting only at a near-tie of its
+                top-2 logprobs (``TIE_GAP``), B3 exactly the layers times
+                the fused and chunk-only replays (no continuation
+                function, no eager continuation launch);
+ 10. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
                 its closed set warmed before readiness) and answer 8
                 concurrent ``POST /generate``; then an OpenAI round: 8
                 concurrent streamed ``POST /v1/completions`` (the client's
@@ -55,21 +66,27 @@ Phases:
                 give a uniform distribution), an expired
                 ``X-SHAI-Deadline-Ms`` (504) and a ``/metrics`` scrape
                 holding the ``shai_*`` contract families;
- 10. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
+ 11. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
                 SHAI_KV_QUANT=int8`` and an engine ConfigMap of
-                ``max_model_len`` 4096: two of the 8 prompts chunk.
+                ``max_model_len`` 4096: two of the 8 prompts chunk;
+ 12. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
+                (the chunks ride the fused graphs' replays), then one
+                ``n=4`` completion admitted as one prefill with 3
+                copy-on-write forks; its numbers beside serve_ragged's.
 
 Each engine and serve phase (and the serve phase's OpenAI round) zeroes
 the launch counters just before its run and requires exactly its own
 kernels to have risen just after, and B2's or B3's count to be exactly
-the layers times the decode graph replays (plus, for B3, the layers times
-the ragged continuation chunks); the serve phases also require 0
-recompiles after warmup and the warmed executable count unchanged.
+the layers times the graph replays (plus, for B3 on the laddered engine,
+the layers times the ragged continuation chunks); the serve phases also
+require 0 recompiles after warmup and the warmed executable count
+unchanged.
 Any failed phase makes the script exit non-zero without the result lines.
 A full run prints the card's name and power limit, then, second to last,
 ``{"kernels": [...]}`` (per kernel: route, source, the TPU kernel it
 replaces, launches in the serve phase that runs it, max error,
-kernel/plain/bound/library times) and, last, ``{"ok": true, "device":
+kernel/plain/bound/library times; B3 also its fused mixed-row launch) and,
+last, ``{"ok": true, "device":
 {...}}``. It exits non-zero at once when CUDA is unavailable or the port's
 package is not beside it.
 """
@@ -91,7 +108,8 @@ import urllib.error
 import urllib.request
 
 PHASES = ("card", "build", "flash", "paged", "ragged", "decode_graph",
-          "engine", "engine_ragged", "serve", "serve_ragged")
+          "engine", "engine_ragged", "engine_fused", "serve", "serve_ragged",
+          "serve_fused")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core FLOP/s
@@ -127,6 +145,10 @@ DROPPED_KEYS = 8
 # bar of 0.1 fails the reference itself. 0.25 leaves 1.6x the larger; a
 # wrong cache, table or mask gives tokens whole logits below the maximum.
 TIE_TOL = 0.25
+# the fused engine against the laddered ragged engine: greedy tokens may
+# part only where the laddered run's top-2 logprobs are this close
+# (``tests/parity.py``'s tie rule: bf16 rounding of a logit of a few units)
+TIE_GAP = 3e-2
 # The ragged and int8 runs are scored by the scoring forward through B1,
 # and also through B1's plain version: the largest logit change between
 # the two scoring forwards, eps, is what a rounding-level change of the
@@ -675,12 +697,15 @@ def _ragged_inputs(torch, gen, rows, H, Hkv, D, bs, N, M, lengths, quant,
     return q, kp, vp, ks, vs, tables, lens
 
 
-def _ragged_work(tables, lengths, H, Hkv, D, bs, quant, rows_per_table=1):
+def _ragged_work(tables, lengths, H, Hkv, D, bs, quant, rows_per_table=1,
+                 row_table=None):
     """Bytes each input read once / output written once and FLOPs over the
     live keys, for B3 on these tables and lengths: q in and out, the
     lengths, each table row's live entries once, the live tokens of each
     distinct live K/V block once (int8 at 1 byte, bf16 at 2) and, for
-    int8, each such block's two f32 scales; 4·D·H FLOPs per live key."""
+    int8, each such block's two f32 scales; 4·D·H FLOPs per live key.
+    ``row_table``: each row's table row (row groups), else row //
+    ``rows_per_table``."""
     tab, lens = tables.tolist(), lengths.tolist()
     rows, M = len(lens), len(tab[0])
     n_bytes = 2 * (2 * rows * H * D) + 4 * rows
@@ -690,7 +715,7 @@ def _ragged_work(tables, lengths, H, Hkv, D, bs, quant, rows_per_table=1):
         n = min(max(lens[r], 0), M * bs)
         toks += n
         nb = -(-n // bs)
-        tr = r // rows_per_table
+        tr = r // rows_per_table if row_table is None else row_table[r]
         live_entries[tr] = max(live_entries.get(tr, 0), nb)
         for j in range(nb):
             blk = tab[tr][j]
@@ -810,9 +835,104 @@ def phase_ragged(ctx):
             log(f"ragged_paged_attention: D={D_} G={H_ // Hkv_} bs={bs_} "
                 f"{kind} lengths={lengths} max |err| {err:.3e}, {share:.3f} "
                 f"of the tolerance (dropped keys: {d_share:.2f})")
+    worst = max(worst, _mixed_rows(ctx, torch, rpa, timer, gen))
     # the summary row: the int8 batch-8 decode step, the serving path's
     # most frequent launch
     ctx["ragged"] = dict(rows[("decode B=8", "int8")], max_abs_err=worst)
+
+
+def _mixed_rows(ctx, torch, rpa, timer, gen) -> float:
+    """B3 over the fused step's mixed rows (``mixed_phase_ragged_attention``,
+    one launch over row groups) at the fused serve shape: B=8 decode rows
+    (lengths 1 to 4096) and a C=512 chunk at starts 0, 512 and 2560, M=256,
+    block 16, Llama-3-8B heads, over bf16 and int8 pools. Each against the
+    plain version (the same tolerance and dropped-keys check as every B3
+    case), timed from a flushed L2 beside its bytes bound and the two B3
+    launches it replaces (the decode rows alone, the chunk alone with
+    ``rows_per_table`` 512). Returns the largest error."""
+    from scalable_hw_agnostic_inference_tpu_torch.ops.attention import (
+        mixed_phase_groups,
+        mixed_phase_ragged_attention,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.ops.quant import (
+        quantize_kv_blocks,
+    )
+
+    H, Hkv, D, bs, M, B, C = 32, 8, 128, 16, 256, 8, 512
+    N = (B + 1) * M + 1
+    dec_lens = [1, 300, 1000, 2047, 2500, 3333, 4000, 4096]
+    worst, out_rows = 0.0, []
+    for quant in (False, True):
+        kind = "int8" if quant else "bf16"
+        for start in (0, 512, 2560):
+            # B + C query rows over B + 1 table rows of a shuffled pool
+            q = torch.randn(B + C, H, D, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            kp, vp = (torch.randn(N, bs, Hkv, D, generator=gen,
+                                  device="cuda", dtype=torch.bfloat16)
+                      for _ in range(2))
+            perm = torch.randperm(N, generator=gen, device="cuda")
+            tables = perm[:(B + 1) * M].reshape(B + 1, M).to(
+                torch.int32).contiguous()
+            ks = vs = None
+            if quant:
+                kp, ks = quantize_kv_blocks(kp)
+                vp, vs = quantize_kv_blocks(vp)
+            q_dec, q_chunk = q[:B].contiguous(), q[B:].contiguous()
+            t_dec, c_table = tables[:B].contiguous(), tables[B:].contiguous()
+            pos_dec = torch.tensor([n - 1 for n in dec_lens],
+                                   dtype=torch.int32, device="cuda")
+            c_pos = torch.arange(start, start + C, dtype=torch.int32,
+                                 device="cuda")
+            lens = torch.cat([pos_dec, c_pos]) + 1
+            groups = mixed_phase_groups(B, C)
+            args = (q_dec, q_chunk, kp, vp, t_dec, c_table, pos_dec, c_pos,
+                    ks, vs)
+            o_dec, o_chk = mixed_phase_ragged_attention(*args)
+            out = torch.cat([o_dec, o_chk])
+            qf = q.float()
+            ref = rpa.ragged_paged_attention_reference(
+                qf, kp, vp, tables, lens, ks, vs, groups=groups)
+            dropped = rpa.ragged_paged_attention_reference(
+                qf, kp, vp, tables, _cut(lens), ks, vs, groups=groups)
+            torch.cuda.synchronize()
+            shape = (f"mixed rows {kind}: B={B} decode rows (lengths "
+                     f"{dec_lens[0]}..{dec_lens[-1]}) + a C={C} chunk at "
+                     f"start {start}, H={H} Hkv={Hkv} D={D} bs={bs} M={M}")
+            err, share, d_share = _check_close(
+                f"ragged_paged_attention {shape}", out, ref, dropped)
+            del qf, ref, dropped, out
+            worst = max(worst, err)
+            lens_dec = lens[:B].contiguous()
+            lens_chk = lens[B:].contiguous()
+            ms = timer(lambda: mixed_phase_ragged_attention(*args))
+            dec_ms = timer(lambda: rpa.ragged_paged_attention(
+                q_dec, kp, vp, t_dec, lens_dec, ks, vs))
+            chk_ms = timer(lambda: rpa.ragged_paged_attention(
+                q_chunk, kp, vp, c_table, lens_chk, ks, vs,
+                rows_per_table=C))
+            plain = timer(lambda: rpa.ragged_paged_attention_reference(
+                q, kp, vp, tables, lens, ks, vs, groups=groups), reps=3)
+            n_bytes, flops = _ragged_work(
+                tables.cpu(), lens.cpu(), H, Hkv, D, bs, quant,
+                row_table=[min(r, B) for r in range(B + C)])
+            bms, by = bound_ms(n_bytes, flops)
+            plan = rpa.groups_plan(groups, H, Hkv, bs, M,
+                                   torch.cuda.get_device_properties(
+                                       q.device).multi_processor_count)
+            line = {"shape": shape, "max_abs_err": err, "tol_share": share,
+                    "dropped_keys_tol_share": d_share, "ms": ms,
+                    "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                    "library_ms": None, "decode_alone_ms": dec_ms,
+                    "chunk_alone_ms": chk_ms,
+                    "two_launches_ms": dec_ms + chk_ms,
+                    "rows_per_tile": plan[0], "decode_splits": plan[1]}
+            out_rows.append(line)
+            log("ragged_paged_attention mixed: " + json.dumps(line))
+            del q, kp, vp, ks, vs, tables, args
+    # the summary row: the int8 chunk at 2560 beside 8 decode rows
+    ctx["ragged_mixed"] = out_rows[-1]
+    return worst
 
 
 def _check_b2_delegates(torch, pa, rpa, q, kp, vp, ks, vs, tables, lens,
@@ -1150,8 +1270,15 @@ def _plain_attention():
             setattr(mod, name, fn)
 
 
+def _graphs(eng):
+    """Every captured graph of the engine: the decode keys, and under the
+    fused step the fused keys and the chunk-only graph."""
+    out = list(eng._decode_fns.values()) + list(eng._fused_fns.values())
+    return out + ([eng._fused_chunk] if eng._fused_chunk is not None else [])
+
+
 def _replays(eng):
-    return {key: g.replays for key, g in eng._decode_fns.items()}
+    return {g.key: g.replays for g in _graphs(eng)}
 
 
 def _count_chunks(eng):
@@ -1171,14 +1298,15 @@ def _count_chunks(eng):
 def _expected_walk(eng, before, chunks):
     """B2's and B3's exact launch counts since ``before`` (the graphs'
     replay counts then): each replay adds the launches its graph captured,
-    and each ragged continuation chunk launches B3 once per layer."""
+    and each laddered ragged continuation chunk launches B3 once per
+    layer (under the fused step every chunk rides a replay)."""
     out = {"paged_decode_attention": 0, "ragged_paged_attention": 0}
-    for key, g in eng._decode_fns.items():
-        n = g.replays - before.get(key, 0)
+    for g in _graphs(eng):
+        n = g.replays - before.get(g.key, 0)
         for name, per in g.launches.items():
             if name in out:
                 out[name] += per * n
-    if eng._ragged:
+    if eng._ragged and not eng._fused:
         out["ragged_paged_attention"] += eng.cfg.n_layers * len(chunks)
     return out
 
@@ -1190,12 +1318,13 @@ def _check_walk(what: str, counts, expect) -> None:
                              f"replays and chunks make {expect}")
 
 
-def _generate(ctx, prompts, switches):
+def _generate(ctx, prompts, switches, all_lp=False):
     """One engine run of greedy requests under the engine switches (async
     decode unless they say otherwise), its closed set warmed first; the
-    even rows ask for 5 logprobs. Returns the finished requests, the
-    launch counts, the seconds, the continuation keys it compiled, its
-    leaked blocks and a dict of the pipeline's numbers."""
+    even rows (``all_lp``: every row) ask for 5 logprobs. Returns the
+    finished requests, the launch counts, the seconds, the continuation
+    keys it compiled, its leaked blocks and a dict of the pipeline's
+    numbers."""
     import torch
     from scalable_hw_agnostic_inference_tpu_torch.engine.config import (
         EngineConfig,
@@ -1222,7 +1351,8 @@ def _generate(ctx, prompts, switches):
         t0 = time.monotonic()
         ids = [eng.add_request(p, SamplingParams(
             temperature=0.0, max_new_tokens=ENGINE_NEW_TOKENS,
-            logprobs=0 if i % 2 else 5)) for i, p in enumerate(prompts)]
+            logprobs=0 if i % 2 and not all_lp else 5))
+            for i, p in enumerate(prompts)]
         done = {}
         while set(ids) - set(done):
             for f in eng.step():
@@ -1236,7 +1366,7 @@ def _generate(ctx, prompts, switches):
         if len(f.token_ids) != ENGINE_NEW_TOKENS:
             raise AssertionError(f"{len(f.token_ids)} tokens, want "
                                  f"{ENGINE_NEW_TOKENS}")
-        if i % 2 == 0 and [e["token"] for e in f.logprobs] != f.token_ids:
+        if f.logprobs and [e["token"] for e in f.logprobs] != f.token_ids:
             raise AssertionError("the logprob entries do not name the "
                                  "returned tokens")
     conts = sorted(k for k in eng._prefill if k[0] in ("cont", "rcont"))
@@ -1245,7 +1375,22 @@ def _generate(ctx, prompts, switches):
             "replays": sum(_replays(eng).values()) - sum(before.values()),
             "chunks": len(chunks),
             "flushes": eng.obs.flush_reasons(),
-            "walk": _expected_walk(eng, before, chunks)}
+            "walk": _expected_walk(eng, before, chunks),
+            "fused": eng._fused,
+            "chunk_only_replays": (eng._fused_chunk.replays
+                                   - before.get(eng._fused_chunk.key, 0)
+                                   if eng._fused_chunk is not None else 0),
+            "per_replay": sorted({n for g in _graphs(eng)
+                                  for n in g.launches.values()})}
+    # one replay of the largest batch key, host enqueue to device end: a
+    # fused key computes its whole chunk window even when it is the null
+    # one (its inputs are the last step's; the pool is free by now)
+    big = max((g for g in _graphs(eng) if g.key != ("chunk", 1)),
+              key=lambda g: g.inputs["tokens"].shape[0])
+    with torch.inference_mode():
+        if eng._fused:
+            big.load_window(None)
+        info["replay_ms"] = _step_wall_ms(torch, big.replay)
     return fins, counts, seconds, conts, eng.cache.leaked_blocks, info
 
 
@@ -1379,26 +1524,102 @@ def phase_engine(ctx):
                 ("cont", 32, 512), "tie")
 
 
+def _tie_diverge(got, want):
+    """``tests/parity.py``'s greedy tie rule: each of ``got``'s token
+    streams equals ``want``'s, or parts from it where ``want``'s top-2
+    logprobs are within ``TIE_GAP`` (a near-tie of bf16 rounding). Returns
+    the gaps at the partings; raises at a decisive one."""
+    gaps = []
+    for g, w in zip(got, want):
+        if g.token_ids == w.token_ids:
+            continue
+        i = next((n for n, (a, b) in enumerate(zip(g.token_ids, w.token_ids))
+                  if a != b), min(len(g.token_ids), len(w.token_ids)))
+        if i >= len(w.logprobs):
+            continue
+        top = w.logprobs[i]["top_logprobs"]
+        gap = float(top[0]) - float(top[1])
+        gaps.append(gap)
+        if gap >= TIE_GAP:
+            raise AssertionError(f"diverged at token {i} with a decisive "
+                                 f"margin {gap:.4f} >= {TIE_GAP}: "
+                                 f"{g.token_ids} != {w.token_ids}")
+    return gaps
+
+
+def _run_fused(ctx, what, switches):
+    """The fused engine (``SHAI_FUSED_STEP=1``) on the engine_ragged
+    prompts, async and lock-step, against the laddered ragged engine under
+    the same switches: the tie rule on the tokens, async equal to
+    lock-step, B3 exactly the layers times the fused and chunk-only
+    replays (no eager continuation launch, no continuation function),
+    no leaked block."""
+    cfg, _ = _engine_model(ctx)
+    import torch
+
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in ENGINE_PROMPTS]
+    fused_sw = {**switches, "SHAI_FUSED_STEP": "1"}
+    fins, counts, seconds, conts, leaked, info = _generate(ctx, prompts,
+                                                           fused_sw)
+    _check_walk(what, counts, info["walk"])
+    if not info["fused"] or conts or info["per_replay"] != [cfg.n_layers]:
+        raise AssertionError(f"{what}: fused {info['fused']}, continuation "
+                             f"functions {conts}, B3 launches per replay "
+                             f"{info['per_replay']}")
+    sync = _generate(ctx, prompts, {**fused_sw, "SHAI_ASYNC_DECODE": "0"})
+    if [f.token_ids for f in fins] != [f.token_ids for f in sync[0]]:
+        raise AssertionError(f"{what}: async and lock-step tokens differ")
+    _check_walk(f"{what} lock-step", sync[1], sync[5]["walk"])
+    lad = _generate(ctx, prompts, {**switches, "SHAI_FUSED_STEP": "0"},
+                    all_lp=True)
+    gaps = _tie_diverge(fins, lad[0])
+    same = sum(f.token_ids == w.token_ids for f, w in zip(fins, lad[0]))
+    log(f"{what}: {switches}; fused async {seconds:.2f} s, lock-step "
+        f"{sync[2]:.2f} s, laddered {lad[2]:.2f} s; {same}/{len(fins)} "
+        f"token streams equal the laddered run's (tie gaps at the partings "
+        f"{gaps}); async {json.dumps(info)}; lock-step "
+        f"{json.dumps(sync[5])}; laddered {json.dumps(lad[5])}; launches "
+        f"{counts}; leaked blocks {leaked}")
+    if leaked or sync[4] or lad[4]:
+        raise AssertionError(f"{what}: leaked KV blocks")
+    _check_counters(what, counts, {"flash_attention",
+                                   "ragged_paged_attention"})
+    ctx.setdefault("engine_fused", {})[what] = {
+        "equal_streams": same, "streams": len(fins), "tie_gaps": gaps,
+        "chunks": info["chunks"],
+        "chunk_only_replays": info["chunk_only_replays"],
+        "b3_launches": counts["ragged_paged_attention"],
+        "fused_replay_ms": info["replay_ms"],
+        "laddered_replay_ms": lad[5]["replay_ms"]}
+
+
+def phase_engine_fused(ctx):
+    # (a) bf16, (b) int8: decode and every chunk through the fused graphs'
+    # mixed-row B3 launches (the serve phases drop the model)
+    _run_fused(ctx, "engine_fused (a)", {"SHAI_RAGGED_ATTENTION": "1"})
+    _run_fused(ctx, "engine_fused (b)", {"SHAI_RAGGED_ATTENTION": "1",
+                                          "SHAI_KV_QUANT": "int8"})
+
+
 def phase_engine_ragged(ctx):
-    try:
-        # (a) ragged bf16: decode and the continuation through B3
-        _run_engine(ctx, "engine_ragged (a)", ENGINE_PROMPTS,
-                    {"SHAI_RAGGED_ATTENTION": "1"},
-                    {"flash_attention", "ragged_paged_attention"},
-                    ("rcont", 512), "noise")
-        # (b) ragged int8
-        _run_engine(ctx, "engine_ragged (b)", ENGINE_PROMPTS,
-                    {"SHAI_RAGGED_ATTENTION": "1", "SHAI_KV_QUANT": "int8"},
-                    {"flash_attention", "ragged_paged_attention"},
-                    ("rcont", 512), "int8")
-        # (c) bucketed int8: decode through B2's delegation to B3, the
-        # static continuation through B1 on the dequantized prior blocks
-        _run_engine(ctx, "engine_ragged (c)", ENGINE_PROMPTS,
-                    {"SHAI_KV_QUANT": "int8"},
-                    {"flash_attention", "ragged_paged_attention"},
-                    ("cont", 32, 512), "int8")
-    finally:
-        _drop_engine_model(ctx)
+    # (a) ragged bf16: decode and the continuation through B3
+    _run_engine(ctx, "engine_ragged (a)", ENGINE_PROMPTS,
+                {"SHAI_RAGGED_ATTENTION": "1"},
+                {"flash_attention", "ragged_paged_attention"},
+                ("rcont", 512), "noise")
+    # (b) ragged int8
+    _run_engine(ctx, "engine_ragged (b)", ENGINE_PROMPTS,
+                {"SHAI_RAGGED_ATTENTION": "1", "SHAI_KV_QUANT": "int8"},
+                {"flash_attention", "ragged_paged_attention"},
+                ("rcont", 512), "int8")
+    # (c) bucketed int8: decode through B2's delegation to B3, the static
+    # continuation through B1 on the dequantized prior blocks
+    _run_engine(ctx, "engine_ragged (c)", ENGINE_PROMPTS,
+                {"SHAI_KV_QUANT": "int8"},
+                {"flash_attention", "ragged_paged_attention"},
+                ("cont", 32, 512), "int8")
 
 
 def _http(url: str, payload=None, timeout: float = 300.0, headers=None,
@@ -1593,16 +1814,16 @@ LIBRARY_ATTENTION = "library attention (SDPA)"
 
 def _kernel_class(name: str, walk: str) -> str:
     """The kernel class of a device event. ``walk`` names the wrapper whose
-    launches the shared walk's kernels (tile, decode CTA and merge) are in
-    this phase: B2 in ``serve``, B3 in ``serve_ragged``; each phase runs
-    only one of the two."""
+    launches the shared walk's kernels (tile, decode CTA, merge and row
+    groups) are in this phase: B2 in ``serve``, B3 in ``serve_ragged`` and
+    ``serve_fused``; each phase runs only one of the two."""
     if "flash_kernel" in name:
         return "B1 flash_attention"
     if any(k in name.lower() for k in ("fmha", "flash_fwd", "attention_kernel",
                                        "efficient_attention")):
         return LIBRARY_ATTENTION
     if any(k in name for k in ("ragged_kernel", "decode_kernel",
-                               "merge_kernel")):
+                               "merge_kernel", "groups_kernel")):
         return walk
     if any(w in name.lower() for w in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul (cuBLAS)"
@@ -1637,7 +1858,7 @@ def _profile(torch, fn, walk: str) -> None:
     if not dev:
         log("profile: the profiler recorded no device activity; device "
             "busy share not measured")
-        return
+        return None
     busy, end = 0.0, float("-inf")
     for a, b, _ in dev:     # union of the device intervals
         if b > end:
@@ -1660,14 +1881,17 @@ def _profile(torch, fn, walk: str) -> None:
         log(f"profile:     {us / 1e3:.1f} ms {name[:100]}")
     if LIBRARY_ATTENTION in by_class:
         raise AssertionError("profile: a library attention kernel ran")
+    return {"wall_s": wall_us / 1e6, "busy_s": busy / 1e6,
+            "busy_share": busy / wall_us}
 
 
-def _serve(ctx, what, env, prompts, expect, walk, openai=False):
+def _serve(ctx, what, env, prompts, expect, walk, openai=False, then=None):
     """Serve ``llama-8b-geometry`` over HTTP under ``env`` and send
     ``prompts`` concurrently: all must answer 200, exactly the kernels
     ``expect`` must rise, no block may leak. Prints TTFT/TPOT, ``/stats``
     and a profiled second pass; with ``openai``, then runs the OpenAI
-    round. Returns the /generate responses."""
+    round; ``then(base, eng)`` runs last, before the recompile and leak
+    checks. Returns the /generate responses."""
     import torch
 
     _drop_engine_model(ctx)
@@ -1706,7 +1930,7 @@ def _serve(ctx, what, env, prompts, expect, walk, openai=False):
                                          f"{body}")
                 time.sleep(0.5)
             eng = service._engine
-            graphs = list(eng._decode_fns.values())
+            graphs = _graphs(eng)
             log(f"{what}: llama-8b-geometry ready in "
                 f"{time.monotonic() - t0:.1f} s (load + warmup); engine "
                 f"max_model_len {eng.ecfg.max_model_len}, buckets "
@@ -1714,8 +1938,7 @@ def _serve(ctx, what, env, prompts, expect, walk, openai=False):
                 f"{eng._ragged}, int8 KV {eng._kv_quant}, async "
                 f"{eng._async}; warmed {eng.obs.warmed_executables} "
                 f"executables in {service.warm_seconds:.2f} s before "
-                f"readiness: decode graphs {sorted(eng._decode_fns)}, "
-                f"capture s "
+                f"readiness: graphs {[g.key for g in graphs]}, capture s "
                 f"{[round(g.capture_seconds, 3) for g in graphs]}, launches "
                 f"per replay {graphs[0].launches}, graph pool "
                 f"{eng._graphs.bytes()} bytes, KV pool "
@@ -1746,17 +1969,30 @@ def _serve(ctx, what, env, prompts, expect, walk, openai=False):
             tpot = eng.tpot.report()
             log(f"{what}: {len(prompts)} concurrent /generate -> 200 in "
                 f"{wall:.2f} s, prompt tokens {n_prompt}, tokens {n_tok}; "
-                f"launches {counts}; {steps} decode graph replays, "
+                f"launches {counts}; {steps} graph replays, "
                 f"{len(chunks)} continuation chunks")
             log(f"{what}: TTFT p50 {ttft['p50'] * 1e3:.1f} ms p99 "
                 f"{ttft['p99'] * 1e3:.1f} ms; TPOT p50 "
                 f"{tpot['p50'] * 1e3:.2f} ms p99 {tpot['p99'] * 1e3:.2f} ms "
                 f"(engine instruments); /stats {json.dumps(stats)}")
-            _profile(torch, lambda: _send_concurrent(base, prompts), walk)
+            busy = _profile(torch, lambda: _send_concurrent(base, prompts),
+                            walk)
+            ctx.setdefault("serve_summary", {})[what] = {
+                "ttft_ms": {"p50": ttft["p50"] * 1e3,
+                            "p99": ttft["p99"] * 1e3},
+                "tpot_ms": {"p50": tpot["p50"] * 1e3,
+                            "p99": tpot["p99"] * 1e3},
+                "traced_pass": busy,
+                "step_gap_mean_ms": stats.get("step_gap_mean_ms"),
+                "pipeline_flushes": eng.obs.flush_reasons(),
+                "graph_pool_bytes": eng._graphs.bytes(),
+                "kv_pool_bytes": eng.cache.pool_bytes}
             _check_counters(what, counts, expect)
             _check_walk(what, counts, exact)
             if openai:
                 _openai_round(ctx, what, base, eng, prompts, expect)
+            if then is not None:
+                then(base, eng)
             log(f"{what}: recompiles after warmup {eng.obs.recompiles}, "
                 f"executables {eng.n_executables} (warmed "
                 f"{eng.obs.warmed_executables}), pipeline flushes "
@@ -1804,6 +2040,56 @@ def phase_serve_ragged(ctx):
                              f"512 bucket, want 2")
 
 
+def _fanout_round(ctx, base, eng) -> None:
+    """One ``POST /v1/completions`` with ``n=4``, not streamed, on a prompt
+    inside the 512 bucket: the group is admitted whole as one prefill with
+    three copy-on-write forks, B3 exactly the layers times the fused
+    replays, four choices, no leaked block."""
+    cow0 = (eng.cache.cow_forks, eng.cache.cow_copies)
+    before = _replays(eng)
+    _reset_counters()
+    status, out = _http(base + "/v1/completions", {
+        "prompt": "fan me out: " + "tell me more " * 8, "max_tokens": 8,
+        "temperature": 0, "n": 4})
+    counts = _read_counters()
+    exact = _expected_walk(eng, before, [])
+    forks = eng.cache.cow_forks - cow0[0]
+    copies = eng.cache.cow_copies - cow0[1]
+    line = {"status": status, "choices": len(out.get("choices", [])),
+            "usage": out.get("usage"), "cow_forks": forks,
+            "cow_copies": copies, "launches": counts, "walk": exact,
+            "leaked_blocks": eng.cache.leaked_blocks}
+    log("serve_fused: n=4 round " + json.dumps(line))
+    if status != 200 or line["choices"] != 4 or forks != 3:
+        raise AssertionError(f"serve_fused: n=4 gave {status}, "
+                             f"{line['choices']} choices, {forks} forks")
+    _check_walk("serve_fused n=4", counts, exact)
+    ctx["fanout"] = line
+
+
+def phase_serve_fused(ctx):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vllm_config.yaml")
+        with open(path, "w") as f:
+            json.dump(SERVE_RAGGED_CONFIG, f)   # JSON is YAML too
+        results = _serve(ctx, "serve_fused", {
+            "VLLM_CONFIG": path, "SHAI_RAGGED_ATTENTION": "1",
+            "SHAI_KV_QUANT": "int8", "SHAI_FUSED_STEP": "1",
+            "SHAI_KV_COW": "1"}, _serve_prompts((1500, 3000)),
+            {"flash_attention", "ragged_paged_attention"},
+            "B3 ragged_paged_attention",
+            then=lambda base, eng: _fanout_round(ctx, base, eng))
+    chunked = [r[1]["n_prompt"] for r in results if r[1]["n_prompt"] > 512]
+    if len(chunked) != 2:
+        raise AssertionError(f"serve_fused: {len(chunked)} prompts past the "
+                             f"512 bucket, want 2")
+    summary = ctx["serve_summary"]
+    log("serve_fused beside serve_ragged: " + json.dumps(
+        {k: summary.get(k) for k in ("serve_ragged", "serve_fused")}))
+
+
 def kernels_line(ctx):
     cuda_dir = "scalable_hw_agnostic_inference_tpu_torch/csrc"
     pallas = f"{TPU_PKG}/ops/pallas"
@@ -1830,6 +2116,16 @@ def kernels_line(ctx):
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "launches_in": phase,
         })
+    # B3's fused launches: the mixed-row launch timed in the ragged phase,
+    # and its launches in serve_fused (every fused and chunk-only replay)
+    mixed = ctx["ragged_mixed"]
+    out[-1]["fused"] = {
+        "launches": ctx["launches"]["serve_fused"][
+            "ragged_paged_attention"],
+        "launches_in": "serve_fused",
+        **{k: mixed[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "decode_alone_ms", "chunk_alone_ms")}}
     return {"kernels": out}
 
 

@@ -22,6 +22,15 @@
 //   returns zeros. The chunked-prefill continuation passes R = its chunk
 //   length, each row's length start + t + 1 (a causal edge).
 //
+// Row groups (groups_kernel, the fused mixed-phase step's layout): the same
+//   attention over rows cut into groups, each a first row, a row count and
+//   the table row all its rows attend through. The fused step's B decode
+//   rows are B groups of one, its C-token chunk one group of C rows: one
+//   launch, its grid segmented by group, the decode CTA for a group of one
+//   and the tile CTA for a larger one, so the chunk's queries share each
+//   K/V tile they load and the kernel never learns which phase a row is
+//   in (the TPU kernel's mixed layout: every row its own table and length).
+//
 // What bounds it on the H100: at decode, one multiply-add per K or V
 // element read, so device-memory bytes bound it and an int8 pool halves
 // them; at the continuation (512 rows sharing one context), rows x keys
@@ -185,16 +194,18 @@ struct Smem {
   }
 };
 
+// One tile CTA: rows [row0, row0 + nr) of the table row `trow`, times the
+// G query heads of kv head `kvh`, over split `split` of `splits` of their
+// keys. `rows` sizes the split partials ([splits, rows, H]).
 template <int D, typename T>
-__global__ void __launch_bounds__(128)
-ragged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
-              const T* __restrict__ vp, const float* __restrict__ k_scale,
-              const float* __restrict__ v_scale,
-              const int* __restrict__ tables,
-              const int* __restrict__ lengths,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
-              float* __restrict__ part_ml, int rows, int R, int RT, int G,
-              int H, int Hkv, int bs, int M, float sl2) {
+__device__ __forceinline__ void tile_cta(
+    const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
+    const T* __restrict__ vp, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ trow,
+    const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part_o, float* __restrict__ part_ml, int rows,
+    int row0, int nr, int G, int H, int Hkv, int bs, int M, float sl2,
+    int kvh, int split, int splits) {
   using SM = Smem<D, T>;
   constexpr bool QUANT = SM::QUANT;
   constexpr int LD = SM::LD;
@@ -217,16 +228,6 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
   float* kss = reinterpret_cast<float*>(vc + KT * LD);
   float* vss = kss + 2 * KT;
 
-  // this CTA's rows: tile `sub` of table `tg`
-  const int tpt = (R + RT - 1) / RT;
-  const int tg = blockIdx.x / tpt;
-  const int sub = blockIdx.x % tpt;
-  const int row0 = tg * R + sub * RT;
-  const int nr = min(RT, R - sub * RT);
-  const int kvh = blockIdx.y;
-  const int split = blockIdx.z;
-  const int splits = gridDim.z;
-  const int* trow = tables + size_t(tg) * M;
   const int window = M * bs;
 
   // the two product rows this thread holds: warp * 16 + lane / 4 (+ 8)
@@ -495,6 +496,27 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
+// The continuation kernel: tile `sub` of table row `tg` for each CTA, the
+// R rows of each table row in tiles of RT.
+template <int D, typename T>
+__global__ void __launch_bounds__(128)
+ragged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
+              const T* __restrict__ vp, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ tables,
+              const int* __restrict__ lengths,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+              float* __restrict__ part_ml, int rows, int R, int RT, int G,
+              int H, int Hkv, int bs, int M, float sl2) {
+  const int tpt = (R + RT - 1) / RT;
+  const int tg = blockIdx.x / tpt;
+  const int sub = blockIdx.x % tpt;
+  tile_cta<D, T>(q, kp, vp, k_scale, v_scale, tables + size_t(tg) * M,
+                 lengths, out, part_o, part_ml, rows, tg * R + sub * RT,
+                 min(RT, R - sub * RT), G, H, Hkv, bs, M, sl2, blockIdx.y,
+                 blockIdx.z, gridDim.z);
+}
+
 // Output vector i (of n_out per split), columns d and d + 1, merged from
 // `splits` partials by log-sum-exp and normalized, in one pass with a
 // running max. A split with l = 0 saw no live key and is skipped; if all
@@ -578,16 +600,18 @@ struct DecodeSmem {
   static_assert(bytes <= 232448, "227 KB of shared memory per block");
 };
 
+// One decode CTA: query row `row` over the table row `trow`, kv head
+// `kvh`, split `split` of `splits`. `slot` (of `n_slots`) indexes its split
+// partials ([splits, n_slots, H]) and its merge counter ([n_slots, Hkv]).
 template <int D, typename T>
-__global__ void __launch_bounds__(DEC_WARPS * 32)
-decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
-              const T* __restrict__ vp, const float* __restrict__ k_scale,
-              const float* __restrict__ v_scale,
-              const int* __restrict__ tables,
-              const int* __restrict__ lengths,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
-              float* __restrict__ part_ml, int* __restrict__ counters,
-              int rows, int G, int H, int Hkv, int bs, int M, float sl2) {
+__device__ __forceinline__ void decode_cta(
+    const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
+    const T* __restrict__ vp, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ trow,
+    const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part_o, float* __restrict__ part_ml,
+    int* __restrict__ counters, int row, int slot, int n_slots, int G, int H,
+    int Hkv, int bs, int M, float sl2, int kvh, int split, int splits) {
   using SM = DecodeSmem<D, T>;
   constexpr bool QUANT = SM::QUANT;
   constexpr int LD = SM::LD;
@@ -613,11 +637,6 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
   float* kss = reinterpret_cast<float*>(koff + (S + 1) * KT);
   float* vss = kss + (S + 1) * KT;
 
-  const int row = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int split = blockIdx.z;
-  const int splits = gridDim.z;
-  const int* trow = tables + size_t(row) * M;
   const int len = min(max(lengths[row], 0), M * bs);
   const int nkt = (len + KT - 1) / KT;
   // split s takes key tiles s, s + splits, ...: its tile j is
@@ -923,7 +942,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
   // merge the DEC_WARPS / MT warps that share each head's m16 tile: head p
   // lives in row p % 16 of tile p / 16, in warps k * MT + p / 16
   const int nkg = DEC_WARPS / MT;
-  const size_t n_out = size_t(rows) * H;
+  const size_t n_out = size_t(n_slots) * H;
   for (int x = tid; x < G * (D / 2); x += NT) {
     const int p = x / (D / 2);
     const int d = (x % (D / 2)) * 2;
@@ -947,14 +966,15 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
       a0 += wt * v.x;
       a1 += wt * v.y;
     }
-    const size_t head = size_t(row) * H + kvh * G + p;
     if (splits == 1) {
       const float inv = l > 0.f ? 1.f / l : 0.f;
+      const size_t head = size_t(row) * H + kvh * G + p;
       *reinterpret_cast<__nv_bfloat162*>(out + head * D + d) =
           __floats2bfloat162_rn(a0 * inv, a1 * inv);
     } else {
       // split-K partials: unnormalized acc, m in log2 units, l
-      const size_t idx = size_t(split) * n_out + head;
+      const size_t idx =
+          size_t(split) * n_out + size_t(slot) * H + kvh * G + p;
       *reinterpret_cast<float2*>(part_o + idx * D + d) = make_float2(a0, a1);
       if (d == 0) {
         part_ml[2 * idx] = mx;
@@ -969,7 +989,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
   __threadfence();  // this CTA's partials are visible before its count
   __syncthreads();
   if (tid == 0) {
-    last = atomicAdd(counters + size_t(row) * Hkv + kvh, 1) == splits - 1;
+    last = atomicAdd(counters + size_t(slot) * Hkv + kvh, 1) == splits - 1;
   }
   __syncthreads();
   if (!last) return;
@@ -978,10 +998,89 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
     const int p = x / (D / 2);
     const int d = (x % (D / 2)) * 2;
     const size_t head = size_t(row) * H + kvh * G + p;
-    *reinterpret_cast<__nv_bfloat162*>(out + head * D + d) =
-        merged_pair(part_o, part_ml, n_out, head, D, d, splits);
+    *reinterpret_cast<__nv_bfloat162*>(out + head * D + d) = merged_pair(
+        part_o, part_ml, n_out, size_t(slot) * H + kvh * G + p, D, d,
+        splits);
   }
-  if (tid == 0) counters[size_t(row) * Hkv + kvh] = 0;  // for the next call
+  if (tid == 0) counters[size_t(slot) * Hkv + kvh] = 0;  // for the next call
+}
+
+// The decode kernel: one row, its own table row, per CTA x.
+template <int D, typename T>
+__global__ void __launch_bounds__(DEC_WARPS * 32)
+decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
+              const T* __restrict__ vp, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ tables,
+              const int* __restrict__ lengths,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+              float* __restrict__ part_ml, int* __restrict__ counters,
+              int rows, int G, int H, int Hkv, int bs, int M, float sl2) {
+  const int row = blockIdx.x;
+  decode_cta<D, T>(q, kp, vp, k_scale, v_scale, tables + size_t(row) * M,
+                   lengths, out, part_o, part_ml, counters, row, row, rows, G,
+                   H, Hkv, bs, M, sl2, blockIdx.y, blockIdx.z, gridDim.z);
+}
+
+// -- row groups ---------------------------------------------------------------
+
+// A launch over row groups (the fused step's mixed rows): entry i is rows
+// [first[i], first[i] + count[i]), every one of them attending through
+// table row trow[i], and owns CTAs [begin[i], begin[i + 1]) of the grid's
+// y (its x is the kv head). A group of one row takes the decode CTA
+// (dec_splits CTAs; slot i of the split partials and counters); a larger
+// group takes tile CTAs of RT rows, unsplit, so its rows share each K/V
+// tile they load. The entries list the tile groups first: blocks are
+// dispatched in order, so the chunk's long CTAs take the first wave and
+// the short decode CTAs fill the slots around and after them (in row
+// order the chunk's CTAs queued behind the decode ones and ended last).
+// Passed by value: a captured graph keeps it with the launch.
+constexpr int MAX_GROUPS = 128;
+struct Groups {
+  int n;
+  int dec_splits;
+  int first[MAX_GROUPS];
+  int count[MAX_GROUPS];
+  int trow[MAX_GROUPS];
+  int begin[MAX_GROUPS + 1];
+};
+
+template <int D, typename T>
+__global__ void __launch_bounds__(DEC_WARPS * 32)
+groups_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kp,
+              const T* __restrict__ vp, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ tables,
+              const int* __restrict__ lengths,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+              float* __restrict__ part_ml, int* __restrict__ counters,
+              const __grid_constant__ Groups g, int rows, int RT, int G,
+              int H, int Hkv, int bs, int M, float sl2) {
+  // the group whose CTAs hold this one: begin[i] <= x < begin[i + 1]
+  const int x = blockIdx.y;
+  int lo = 0, hi = g.n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (g.begin[mid] <= x) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const int local = x - g.begin[lo];
+  const int first = g.first[lo];
+  const int count = g.count[lo];
+  const int* trow = tables + size_t(g.trow[lo]) * M;
+  if (count == 1 && G <= DEC_MAX_G) {
+    decode_cta<D, T>(q, kp, vp, k_scale, v_scale, trow, lengths, out,
+                     part_o, part_ml, counters, first, lo, g.n, G, H, Hkv,
+                     bs, M, sl2, blockIdx.x, local, g.dec_splits);
+  } else {
+    tile_cta<D, T>(q, kp, vp, k_scale, v_scale, trow, lengths, out, part_o,
+                   part_ml, rows, first + local * RT,
+                   min(RT, count - local * RT), G, H, Hkv, bs, M, sl2,
+                   blockIdx.x, 0, 1);
+  }
 }
 
 struct Args {
@@ -1064,6 +1163,38 @@ cudaError_t launch_pool(const Args& a, bool quantized, cudaStream_t stream) {
                    : launch<D, __nv_bfloat16>(a, stream);
 }
 
+// One launch of groups_kernel: 128 threads, the shared memory of the larger
+// of the two CTAs.
+template <int D, typename T>
+cudaError_t launch_groups(const Args& a, const Groups& g,
+                          cudaStream_t stream) {
+  constexpr size_t dsm = DecodeSmem<D, T>::bytes;
+  const size_t tsm = Smem<D, T>::bytes(DEC_WARPS);
+  const size_t smem = dsm > tsm ? dsm : tsm;
+  cudaError_t err = cudaFuncSetAttribute(
+      groups_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.Hkv, g.begin[g.n], 1);
+  groups_kernel<D, T><<<grid, DEC_WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const T*>(a.k_pool), static_cast<const T*>(a.v_pool),
+      static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale),
+      static_cast<const int*>(a.tables), static_cast<const int*>(a.lengths),
+      static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.part_o),
+      static_cast<float*>(a.part_ml), static_cast<int*>(a.counters), g,
+      a.rows, a.RT, a.H / a.Hkv, a.H, a.Hkv, a.bs, a.M, a.scale * LOG2E);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_groups_pool(const Args& a, const Groups& g,
+                               bool quantized, cudaStream_t stream) {
+  return quantized ? launch_groups<D, int8_t>(a, g, stream)
+                   : launch_groups<D, __nv_bfloat16>(a, g, stream);
+}
+
 }  // namespace
 
 // Returns a cudaError_t as int: 0 when the launch was accepted.
@@ -1109,6 +1240,91 @@ extern "C" int shai_ragged_paged_attention(
       return static_cast<int>(launch_pool<192>(a, quantized, st));
     case 256:
       return static_cast<int>(launch_pool<256>(a, quantized, st));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Returns a cudaError_t as int: 0 when the launch was accepted. The row-group
+// form of the same attention (see groups_kernel):
+//   groups: host int32 [n_groups, 3] (first row, row count, table row), in
+//     row order, covering rows 0 .. rows - 1 exactly; n_groups <= 128;
+//     tables is [n_tables, M];
+//   rows_per_tile (RT): rows per tile CTA of a group of more than one row,
+//     RT * (H / Hkv) <= 64; those groups are not split;
+//   dec_splits: CTAs sharing each decode group's keys; above 1, part_o
+//     [dec_splits, n_groups, H, D] and part_ml [dec_splits, n_groups, H, 2]
+//     f32 scratch and counters [n_groups, Hkv] int32 zeros (left zero): the
+//     last split of each (group, kv head) merges the partials.
+extern "C" int shai_ragged_paged_attention_groups(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* lengths, void* out, void* part_o, void* part_ml,
+    void* counters, const void* groups, int n_groups, int rows,
+    int rows_per_tile, int dec_splits, int H, int Hkv, int D, int bs, int M,
+    int n_tables, int quantized, float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int RT = rows_per_tile;
+  if (n_groups < 1 || n_groups > MAX_GROUPS || !groups || rows < 1 ||
+      RT < 1 || Hkv < 1 || Hkv > 65535 || H % Hkv != 0 ||
+      RT * (H / Hkv) > MAX_PROWS || bs < 1 || M < 1 || n_tables < 1 ||
+      dec_splits < 1 || dec_splits > 65535 ||
+      (quantized && (!k_scale || !v_scale))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int G = H / Hkv;
+  const int* desc = static_cast<const int*>(groups);
+  int next_row = 0;
+  bool split_decode = false;
+  for (int i = 0; i < n_groups; ++i) {
+    const int first = desc[3 * i], count = desc[3 * i + 1];
+    const int trow = desc[3 * i + 2];
+    if (first != next_row || count < 1 || trow < 0 || trow >= n_tables) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    next_row = first + count;
+    split_decode |= count == 1 && G <= DEC_MAX_G && dec_splits > 1;
+  }
+  if (next_row != rows ||
+      (split_decode && (!part_o || !part_ml || !counters))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the entries in dispatch order: the tile groups, then the decode groups
+  Groups g{};
+  g.n = n_groups;
+  g.dec_splits = dec_splits;
+  long long ctas = 0;
+  int at = 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int i = 0; i < n_groups; ++i) {
+      const int count = desc[3 * i + 1];
+      const bool decode = count == 1 && G <= DEC_MAX_G;
+      if (decode != (pass == 1)) continue;
+      g.first[at] = desc[3 * i];
+      g.count[at] = count;
+      g.trow[at] = desc[3 * i + 2];
+      g.begin[at] = static_cast<int>(ctas);
+      ctas += decode ? dec_splits : (count + RT - 1) / RT;
+      ++at;
+    }
+  }
+  if (ctas > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  g.begin[n_groups] = static_cast<int>(ctas);
+  const Args a{q,       k_pool, v_pool, k_scale,    v_scale, tables,
+               lengths, out,    part_o, part_ml,    counters, rows,
+               1,       RT,     H,      Hkv,        bs,       M,
+               dec_splits, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return static_cast<int>(launch_groups_pool<64>(a, g, quantized, st));
+    case 128:
+      return static_cast<int>(launch_groups_pool<128>(a, g, quantized, st));
+    case 192:
+      return static_cast<int>(launch_groups_pool<192>(a, g, quantized, st));
+    case 256:
+      return static_cast<int>(launch_groups_pool<256>(a, g, quantized, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -61,7 +61,7 @@ At most one sequence chunks at a time. Prompts are capped at
 ``_chunk_cap`` (whole chunks, one position left to generate) by keeping
 their tail, as the reference does.
 
-Three switches of the reference, read at construction:
+Five switches of the reference, read at construction:
 
 - ``SHAI_ASYNC_DECODE`` (default on): ``0`` runs lock-step;
 - ``SHAI_RAGGED_ATTENTION=1``: decode attends the full window through B3
@@ -69,11 +69,29 @@ Three switches of the reference, read at construction:
   and the continuation takes its start as data (one function per chunk
   bucket instead of one per start);
 - ``SHAI_KV_QUANT=int8``: the pool holds int8 blocks and per-(block, kv
-  head) f32 scales. An unknown value warns and leaves it off.
+  head) f32 scales. An unknown value warns and leaves it off;
+- ``SHAI_FUSED_STEP=1`` (with ragged attention only): decode and the
+  continuation chunk share ONE executable per batch bucket
+  (``runner.make_fused_step``, a captured graph each, plus one bb=1 graph
+  for chunk-only calls). An intermediate chunk parks its window
+  (``_continue_prefill``) and rides the next decode replay; a final chunk
+  runs chunk-only and the host samples its raw logits as the laddered
+  path does. Every path that would skip or reorder around that replay
+  dispatches the parked window first (``_flush_chunk``: preemption, abort,
+  the end of every step). The decode and ragged-continuation ladders
+  collapse into the fused keys;
+- ``SHAI_KV_COW=1``: an ``n > 1`` group queued whole (``add_request``'s
+  ``parent_rid``, ``EngineLoop.submit_group``) is admitted as ONE prefill
+  (``_admit_fanout``): its siblings fork the prompt blocks
+  (``cache.fork_sequence``), and the first divergent decode write copies
+  the shared tail block. The K rows sample their first token from the one
+  logits row tiled to the ``Kp`` batch layout, drawing what a ``Kp``-row
+  batched admission of K identical prompts draws. Cancel or deadline of
+  any member aborts the group through the loop (``fanout_siblings``).
 
-Later slices bring the fused mixed-phase step, copy-on-write forks, the
-prefix cache and KV tier, per-tenant telemetry, speculative decoding and
-the multimodal paths.
+Later slices bring the prefix cache and KV tier (and with them cached
+admission through the fused step), per-tenant telemetry, speculative
+decoding and the multimodal paths.
 """
 
 from __future__ import annotations
@@ -92,7 +110,12 @@ from ..core.bucketing import BucketRegistry
 from ..core.device import DeviceLike, resolve_device
 from ..models.llama import LlamaConfig, LlamaForCausalLM
 from ..obs.steploop import StepTelemetry
-from ..ops.cuda.ragged_paged_attention import sm_count, split_scratch_size
+from ..ops.attention import mixed_phase_groups
+from ..ops.cuda.ragged_paged_attention import (
+    groups_scratch_size,
+    sm_count,
+    split_scratch_size,
+)
 from ..ops.sampling import sample_logits
 from ..resilience import qos as _qos
 from ..utils.env import env_bool, env_str
@@ -109,7 +132,12 @@ from .resident import (
     composition_sig,
     upload,
 )
-from .runner import make_decode, make_prefill, make_prefill_cont
+from .runner import (
+    make_decode,
+    make_fused_step,
+    make_prefill,
+    make_prefill_cont,
+)
 from .types import (  # noqa: F401
     K_LOGPROBS,
     Finished,
@@ -199,6 +227,22 @@ class LLMEngine:
             # B3 owns the full window with per-row cost: one context entry
             self._ctx_buckets = [ecfg.blocks_per_seq]
         self._decode_fns: Dict[Tuple[int, int], DecodeGraph] = {}
+        # fused mixed-phase step (SHAI_FUSED_STEP, default off; ragged
+        # only): one graph per batch bucket replaces the decode and ragged
+        # continuation ladders, and one more bb=1 graph takes the
+        # chunk-only calls (its decode inputs stay null)
+        self._fused = env_bool("SHAI_FUSED_STEP", False) and self._ragged
+        self._fused_fns: Dict[int, DecodeGraph] = {}
+        self._fused_chunk: Optional[DecodeGraph] = None
+        # the parked continuation window (ids [1, C], n_text, table [1, M],
+        # start): rides the next decode replay; never outlives its step
+        self._pending_chunk: Optional[tuple] = None
+        # copy-on-write n > 1 fan-out (SHAI_KV_COW, default off)
+        self._kv_cow = env_bool("SHAI_KV_COW", False)
+        # fan-out bookkeeping: parent request id -> live sibling ids, and
+        # each member's parent (cancel and deadline act on the group)
+        self._fanout_groups: Dict[int, set] = {}
+        self._rid_parent: Dict[int, int] = {}
         # the decode graphs' shared memory pool and capture stream, with
         # the split scratch reserved for the largest key of the closed set
         # before any capture (on the CPU: nothing to share)
@@ -251,11 +295,14 @@ class LLMEngine:
                     params: Optional[SamplingParams] = None,
                     on_token=None, deadline_at: float = 0.0,
                     priority: int = _qos.PRIORITY_NORMAL,
-                    tenant: str = "") -> int:
+                    tenant: str = "", parent_rid: int = -1) -> int:
         """Queue a request. ``deadline_at``: an absolute
         ``time.monotonic()`` instant (0 = none) past which it finishes as
         ``"timeout"``; ``priority`` (0 high, 1 normal, 2 low, clamped) and
-        ``tenant`` are its QoS tag, read under ``SHAI_QOS``."""
+        ``tenant`` are its QoS tag, read under ``SHAI_QOS``.
+        ``parent_rid``: the ``n > 1`` fan-out group it belongs to, named by
+        its leader's id; ``-2`` makes this request the leader (its own id
+        becomes the parent), ``-1`` none."""
         params = (params or SamplingParams()).clamp(self.ecfg)
         if not prompt_ids:
             raise ValueError("empty prompt")
@@ -263,6 +310,11 @@ class LLMEngine:
             # past the chunkable cap: keep the tail
             prompt_ids = list(prompt_ids)[-self._chunk_cap:]
         rid = next(self._ids)
+        if parent_rid == -2:
+            parent_rid = rid
+        if parent_rid >= 0:
+            self._rid_parent[rid] = parent_rid
+            self._fanout_groups.setdefault(parent_rid, set()).add(rid)
         priority = min(max(int(priority), _qos.PRIORITY_HIGH),
                        _qos.PRIORITY_LOW)
         self.waiting.append(Request(rid, list(prompt_ids), params,
@@ -270,8 +322,29 @@ class LLMEngine:
                                     deadline_at=deadline_at,
                                     t_submit=time.monotonic(),
                                     priority=priority,
-                                    tenant=_qos.sanitize_tenant(tenant)))
+                                    tenant=_qos.sanitize_tenant(tenant),
+                                    parent_rid=parent_rid))
         return rid
+
+    def fanout_siblings(self, rid: int) -> List[int]:
+        """Live request ids of the fan-out group holding ``rid`` (``rid``
+        itself included; ``[rid]`` outside any group). The engine loop
+        cancels through this, so cancelling one choice of an ``n > 1``
+        request aborts them all."""
+        parent = self._rid_parent.get(rid)
+        if parent is None:
+            return [rid]
+        return sorted(self._fanout_groups.get(parent, {rid}) | {rid})
+
+    def _prune_fanout(self, rid: int) -> None:
+        """Drop a finished or aborted member from its fan-out group."""
+        parent = self._rid_parent.pop(rid, None)
+        if parent is not None:
+            group = self._fanout_groups.get(parent)
+            if group is not None:
+                group.discard(rid)
+                if not group:
+                    del self._fanout_groups[parent]
 
     def cancel(self, req_id: int) -> Optional[Finished]:
         """Abort a request wherever it is (queue, mid-prefill or decoding),
@@ -286,6 +359,7 @@ class LLMEngine:
         for i, r in enumerate(self.waiting):
             if r.req_id == req_id:
                 del self.waiting[i]
+                self._prune_fanout(req_id)
                 return Finished(req_id, list(r.already_generated),
                                 r.orig_n_prompt, reason,
                                 logprobs=self._queued_lps(r))
@@ -296,12 +370,15 @@ class LLMEngine:
             # the in-flight lookahead step may have computed one extra
             # token for this slot: retire it so the host mirrors are
             # current before teardown; the extra token is discarded (never
-            # emitted) and its reservation frees with the slot below
+            # emitted) and its reservation frees with the slot below; a
+            # parked window writes before the blocks go
             self._flush_pipeline(reason)
+            self._flush_chunk()
         for s in self.slots:
             if s is not None and s.req.req_id == req_id:
                 self._record_tpot(s)
                 self._release_slot(s)
+                self._prune_fanout(req_id)
                 return Finished(
                     req_id, s.req.already_generated + s.generated,
                     s.req.orig_n_prompt, reason,
@@ -350,7 +427,10 @@ class LLMEngine:
 
     @property
     def n_executables(self) -> int:
-        return len(self._prefill) + len(self._decode_fns)
+        """Built functions, as the reference counts executables: the
+        chunk-only graph is a second capture of the bb=1 fused function."""
+        return (len(self._prefill) + len(self._decode_fns)
+                + len(self._fused_fns))
 
     @property
     def max_prompt_len(self) -> int:
@@ -403,6 +483,9 @@ class LLMEngine:
         self._admit_phase()
         if any(s is not None for s in self.slots):
             self._decode_step()
+        # a parked window never outlives its step (a chunk-only step: no
+        # decode replay took it)
+        self._flush_chunk()
         return self._done_this_step
 
     # -- async pipelined decode (SHAI_ASYNC_DECODE, the default) -----------
@@ -432,6 +515,7 @@ class LLMEngine:
             self._admit_phase()
             if any(s is not None for s in self.slots):
                 self._decode_dispatch()
+            self._flush_chunk()  # a parked window never outlives its step
         return self._done_this_step
 
     def _steady_step(self) -> None:
@@ -509,6 +593,7 @@ class LLMEngine:
             else:
                 graph.feed(tokens, pos)
             graph.draw(self._gen)
+            self._load_window(graph)
             t_d = time.monotonic()
             graph.replay()
             host, lp_host, event = self._stage_tokens(graph, Bb, want_lp)
@@ -588,7 +673,11 @@ class LLMEngine:
         # (a no-op with SHAI_QOS off or a single-class queue)
         if self._sched is not None:
             _qos.schedule_rotate(self.waiting, self._sched)
-        if (self.waiting
+        if (self._kv_cow and self.waiting
+                and self.waiting[0].parent_rid >= 0
+                and self._admit_fanout()):
+            pass                    # CoW fan-out: one prefill, K forks
+        elif (self.waiting
                 and len(self.waiting[0].prompt_ids) > self.buckets.max):
             if not chunking:
                 self._admit_long()
@@ -614,6 +703,7 @@ class LLMEngine:
 
     def _finish(self, fin: Finished) -> None:
         self._done_this_step.append(fin)
+        self._prune_fanout(fin.req_id)
 
     def _mark_first_token(self, req: Request) -> float:
         """TTFT record point (first admission only — a preemption resume is
@@ -748,6 +838,85 @@ class LLMEngine:
             _record_admission_lps(self, logits, [int(t) for t in toks],
                                   lp_rows)
 
+    def _admit_fanout(self) -> bool:
+        """Admit an ``n > 1`` fan-out group (``SHAI_KV_COW``) as ONE
+        prefill: the leader's prompt prefills once, each sibling forks its
+        blocks copy-on-write, and the K rows sample their first token from
+        the one logits row tiled to the ``Kp`` batch layout, drawing
+        ``[Kp, V]`` uniforms as a ``Kp``-row batched admission of K
+        identical prompts does. All or nothing: returns False with nothing
+        consumed when the group is not queued whole at the head, its
+        prompts differ (a preempted sibling carries generated tokens), its
+        prompt would chunk, or its slots or blocks (one prompt's blocks
+        plus a copy block per member) are not free; the members then admit
+        on their own."""
+        head = self.waiting[0]
+        parent = self._rid_parent.get(head.req_id)
+        if parent is None:
+            return False
+        group = [r for r in self.waiting
+                 if self._rid_parent.get(r.req_id) == parent]
+        if len(group) < 2 or group[0] is not head:
+            return False
+        n = len(head.prompt_ids)
+        if n > self.buckets.max:
+            return False
+        if any(r.prompt_ids != head.prompt_ids or r.already_generated
+               for r in group):
+            return False
+        K = len(group)
+        if sum(s is None for s in self.slots) < K:
+            return False
+        if self._need_blocks(n) + K > self.cache.n_available:
+            return False
+        bucket = self.buckets.bucket_for(n)
+        if self._warmed and (bucket, 1) not in self._prefill:
+            return False  # a build after readiness is the cold-graph bug
+        alloc = self.cache.admit(head.req_id, n)
+        # past the all-or-nothing point: dequeue the whole group, by
+        # identity (the fair dequeue may have interleaved other requests)
+        members = {id(r) for r in group}
+        kept = [r for r in self.waiting if id(r) not in members]
+        self.waiting.clear()
+        self.waiting.extend(kept)
+        for r in group:
+            self._note_admitted(r)
+        for r in group[1:]:
+            self.cache.fork_sequence(head.req_id, r.req_id)
+        Kp = 1 << (K - 1).bit_length()
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, :n] = head.prompt_ids
+        temp = np.ones((Kp,), np.float32)
+        topk = np.zeros((Kp,), np.int32)
+        topp = np.ones((Kp,), np.float32)
+        for i, r in enumerate(group):
+            temp[i] = r.params.temperature
+            topk[i] = r.params.top_k
+            topp[i] = r.params.top_p
+        dev = self.device
+        with torch.inference_mode():
+            _, logits = self._prefill_for(bucket, 1)(
+                self.model, self.cache.kv, torch.from_numpy(ids).to(dev),
+                torch.tensor([n], dtype=torch.int32, device=dev),
+                self._table_of(head))
+            self.cache.register_prefix(head.prompt_ids, alloc.blocks)
+            tiled = logits[:1].expand(Kp, -1).contiguous()
+            toks = sample_logits(tiled, self._gen,
+                                 torch.from_numpy(temp).to(dev),
+                                 torch.from_numpy(topk).to(dev),
+                                 torch.from_numpy(topp).to(dev)).cpu()
+        self.obs.count_pad(n, bucket - n, phase="prefill")
+        lp_rows = []
+        for i, r in enumerate(group):
+            slot = self._free_slot()
+            self._start_slot(slot, r, int(toks[i]))
+            if r.params.logprobs:
+                lp_rows.append((i, self.slots[slot]))
+        if lp_rows:
+            _record_admission_lps(self, tiled, [int(t) for t in toks],
+                                  lp_rows)
+        return True
+
     def _admit_long(self) -> None:
         """Admit a prompt longer than the largest prefill bucket: allocate
         its whole block run, encode the first chunk now, and leave a cursor
@@ -795,12 +964,29 @@ class LLMEngine:
         ids[0, :n] = chunk
         final = start + n >= len(req.prompt_ids)
         dev = self.device
-        fn = self._cont_for(start // self.ecfg.block_size)
+        if self._fused:
+            window = (ids, n, self.cache.seq(req.req_id).table(
+                self.ecfg.blocks_per_seq)[None], start)
+            self._flush_chunk()  # never two windows parked
+            if not final:
+                # an intermediate chunk rides this step's decode replay;
+                # its logits are dropped, as the laddered path drops them
+                self._pending_chunk = window
+                self.obs.count_pad(n, C - n, phase="chunk")
+                s.prefill_cursor = start + C
+                return
         with torch.inference_mode():
-            _, logits = fn(self.model, self.cache.kv,
-                           torch.from_numpy(ids).to(dev),
-                           torch.tensor([n], dtype=torch.int32, device=dev),
-                           self._table_of(req), *self._cont_args(start))
+            if self._fused:
+                # the final chunk's token joins THIS step's decode batch,
+                # so it cannot ride that replay: chunk-only
+                logits = self._fused_chunk_call(window)
+            else:
+                fn = self._cont_for(start // self.ecfg.block_size)
+                _, logits = fn(self.model, self.cache.kv,
+                               torch.from_numpy(ids).to(dev),
+                               torch.tensor([n], dtype=torch.int32,
+                                            device=dev),
+                               self._table_of(req), *self._cont_args(start))
             if final:
                 p = req.params
                 tok = sample_logits(logits, self._gen, p.temperature,
@@ -878,10 +1064,18 @@ class LLMEngine:
 
     def _scratch_needs(self) -> List[Tuple[int, int]]:
         """The split scratch each decode key of the closed set takes on
-        the card (B2 and B3 read the bucket's first ``m`` table entries)."""
+        the card (B2 and B3 read the bucket's first ``m`` table entries);
+        under the fused step, each fused key's mixed-row launch (its decode
+        rows split, the chunk's group not)."""
         if self.device.type != "cuda":
             return []
         cfg, n_sms = self.cfg, sm_count(self.device.index)
+        if self._fused:
+            return [groups_scratch_size(
+                mixed_phase_groups(bb, self.buckets.max), cfg.n_heads,
+                cfg.n_kv_heads, cfg.head_dim, self.ecfg.block_size,
+                self.ecfg.blocks_per_seq, n_sms)
+                for bb in self._batch_buckets()]
         return [split_scratch_size(bb, 1, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.head_dim, self.ecfg.block_size, m,
                                    n_sms)
@@ -889,7 +1083,11 @@ class LLMEngine:
 
     def _decode_for(self, m_blocks: int, n_active: int = -1):
         """Decode graph for the smallest (context, batch) buckets covering
-        the running set, captured when its key is first built."""
+        the running set, captured when its key is first built; under the
+        fused step, the fused graph of the batch bucket (the window rides
+        it, loaded by ``_load_window`` before each replay)."""
+        if self._fused:
+            return self._fused_for(n_active)
         m = next(b for b in self._ctx_buckets if b >= m_blocks)
         bb = (self.ecfg.max_num_seqs if n_active < 0
               else self._batch_bucket(n_active))
@@ -910,6 +1108,73 @@ class LLMEngine:
             self._decode_fns[key] = graph
         return bb, self._decode_fns[key]
 
+    # -- fused mixed-phase step (SHAI_FUSED_STEP) --------------------------
+
+    def _fused_graph(self, key, bb: int) -> DecodeGraph:
+        if self._warmed:
+            self.obs.count_recompile("fused")
+        graph = DecodeGraph(
+            key, make_fused_step(self.cfg, self.ecfg.block_size,
+                                 self.ecfg.blocks_per_seq, bb,
+                                 self.buckets.max, kv_quant=self._kv_quant),
+            self.model, self.cache.kv, bb, self.ecfg.blocks_per_seq,
+            self.cfg.vocab_size, device=self.device, pool=self._graphs,
+            chunk=self.buckets.max)
+        graph.capture()
+        return graph
+
+    def _fused_for(self, n_active: int = -1):
+        """The fused graph for the smallest batch bucket covering the
+        running set (the reference's ``_fused_for`` and
+        ``_fused_decode_for``): the decode rows plus one chunk window, ONE
+        replay. One entry per batch bucket: ragged has no context ladder,
+        and the window is pinned to the largest prefill bucket."""
+        bb = (self.ecfg.max_num_seqs if n_active < 0
+              else self._batch_bucket(n_active))
+        if bb not in self._fused_fns:
+            self._fused_fns[bb] = self._fused_graph(bb, bb)
+        return bb, self._fused_fns[bb]
+
+    def _chunk_graph(self) -> DecodeGraph:
+        """The chunk-only graph: the bb=1 fused step captured once more,
+        its decode row left null (zero table: its write lands in reserved
+        block 0) and never drawn for, so a chunk-only call leaves the
+        engine's draws and every decode graph's inputs and outputs as they
+        were."""
+        if self._fused_chunk is None:
+            self._fused_chunk = self._fused_graph(("chunk", 1), 1)
+        return self._fused_chunk
+
+    def _take_chunk_args(self):
+        """Consume the parked window (None: the null window)."""
+        window, self._pending_chunk = self._pending_chunk, None
+        return window
+
+    def _load_window(self, graph: DecodeGraph) -> None:
+        """Before a decode replay: a fused graph takes the parked window,
+        or the null one (the reference's ``_null_chunk_args``: a graph's
+        static inputs hold it until a window is loaded)."""
+        if self._fused:
+            graph.load_window(self._take_chunk_args())
+
+    def _fused_chunk_call(self, window) -> torch.Tensor:
+        """Chunk-only replay: ``window`` through the chunk-only graph, its
+        decode row null. For final chunks, whose token joins the same
+        step's decode batch, and for parked windows no replay took.
+        Returns the chunk's raw logits ``[1, V]`` (the graph's static
+        output, valid until its next replay)."""
+        graph = self._chunk_graph()
+        with torch.inference_mode():
+            graph.load_window(window)
+            graph.replay()
+        return graph.c_logits
+
+    def _flush_chunk(self) -> None:
+        """Dispatch the parked window now (a no-op when none): every path
+        that skips the decode replay or reorders KV writes around it."""
+        if self._pending_chunk is not None:
+            self._fused_chunk_call(self._take_chunk_args())
+
     def _preempt_lowest(self) -> None:
         """Recompute-preempt the lowest-priority, most recently admitted
         sequence: its generated + pending tokens become prompt suffix on
@@ -917,6 +1182,11 @@ class LLMEngine:
         off the key is the most recent ``req_id`` alone, so an
         unauthenticated ``X-SHAI-Priority`` header is no anti-preemption
         lever on a FIFO pod."""
+        # the victim's pending token is streamed and committed below, so
+        # the host mirrors must be current; a parked window writes before
+        # its blocks can be released (the laddered order)
+        self._flush_pipeline("preempt")
+        self._flush_chunk()
         victims = [s for s in self.slots if s is not None]
         if self._sched is not None:
             victim = max(victims,
@@ -1072,6 +1342,7 @@ class LLMEngine:
             upload(graph.inputs["tokens"], tokens)
             upload(graph.inputs["pos"], pos)
             graph.draw(self._gen)
+            self._load_window(graph)
             t_d = time.monotonic()
             graph.replay()
             if self._t_fetch and self.n_executables == n_exec \

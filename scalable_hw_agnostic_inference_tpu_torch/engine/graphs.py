@@ -10,11 +10,17 @@ call, so a dispatch costs what the reference's asynchronous executable
 launch costs.
 
 One graph per ``_decode_for`` key ``(ctx bucket, batch bucket)`` (ragged:
-one context entry, so the key is the batch bucket). It owns static inputs
+one context entry, so the key is the batch bucket). Under
+``SHAI_FUSED_STEP`` a graph of the same class holds a fused step
+(``runner.make_fused_step``): one per batch bucket, and one more bb=1
+graph for the engine's chunk-only calls. It owns static inputs
 (``tokens``, ``pos``, ``tables``, ``temp``, ``topk``, ``topp`` and the
 step's ``uniforms``) and, once captured, static outputs (``nxt``,
 ``pos_next`` and the logprob readout ``top_ids``, ``top_lp``, ``tok_lp``
-of ``runner.token_logprobs``) that every replay overwrites. The readout
+of ``runner.token_logprobs``) that every replay overwrites; a fused graph
+also has the chunk window as static inputs (``c_ids``, ``c_ntext``,
+``c_table``, ``c_start``; the null window until the engine loads one) and
+the chunk's raw logits ``c_logits`` as a static output. The readout
 is part of every graph: there is one graph per key whether or not a
 request asks for logprobs, and the engine copies the readout to the host
 only when one does. Both disciplines replay the same graphs: the
@@ -47,15 +53,21 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
 from ..ops.cuda import flash_attention as _fa
 from ..ops.cuda import paged_attention as _pa
 from ..ops.cuda import ragged_paged_attention as _rpa
+from .resident import upload
 
 #: the static outputs of a decode step, in the decode function's order
 OUTPUTS = ("nxt", "pos_next", "top_ids", "top_lp", "tok_lp")
+#: the chunk window a fused step takes after the decode inputs, and its
+#: extra output
+CHUNK_INPUTS = ("c_ids", "c_ntext", "c_table", "c_start")
+CHUNK_OUTPUT = "c_logits"
 
 #: the counted kernel wrappers a decode step may launch
 COUNTED = (_fa.flash_attention, _pa.paged_decode_attention,
@@ -118,12 +130,14 @@ class DecodeGraph:
     """One decode executable: ``decode`` (``runner.make_decode(...,
     feedback=True)``) for ``batch`` rows over ``model`` and the pool
     ``kv``, with static inputs and, after a run or a capture, static
-    outputs. ``device`` defaults to the card; ``"cpu"`` runs eagerly."""
+    outputs. ``chunk`` > 0: ``decode`` is ``runner.make_fused_step`` with a
+    ``chunk``-token window. ``device`` defaults to the card; ``"cpu"`` runs
+    eagerly."""
 
     def __init__(self, key, decode: Callable, model, kv, batch: int,
                  blocks_per_seq: int, vocab_size: int,
                  device: DeviceLike = None,
-                 pool: Optional[GraphPool] = None):
+                 pool: Optional[GraphPool] = None, chunk: int = 0):
         self.device = resolve_device(device)
         self.key = key
         self.decode = decode
@@ -145,7 +159,17 @@ class DecodeGraph:
                 "tables": i32(batch, blocks_per_seq),
                 "temp": f32(1.0, batch), "topk": i32(batch),
                 "topp": f32(1.0, batch)}
+            if chunk:
+                # the null window: zero ids over null block 0, one token
+                self.inputs.update(
+                    c_ids=i32(1, chunk), c_ntext=i32(1) + 1,
+                    c_table=i32(1, blocks_per_seq), c_start=i32(1))
             self.uniforms = f32(0.5, batch, vocab_size)
+        self.chunk = chunk
+        self.outputs = OUTPUTS + ((CHUNK_OUTPUT,) if chunk else ())
+        #: a chunk window is loaded (False: the null window)
+        self.window = False
+        self.c_logits: Optional[torch.Tensor] = None
         self.nxt: Optional[torch.Tensor] = None
         self.pos_next: Optional[torch.Tensor] = None
         self.top_ids: Optional[torch.Tensor] = None
@@ -170,15 +194,36 @@ class DecodeGraph:
         """One eager call of the decode function on the static inputs, on
         the current stream: the :data:`OUTPUTS`, fresh tensors."""
         a = self.inputs
+        window = [a[name] for name in CHUNK_INPUTS] if self.chunk else []
         with torch.inference_mode():
             _, *outs = self.decode(
                 self.model, self.kv, a["tokens"], a["pos"], a["tables"],
-                self.uniforms, a["temp"], a["topk"], a["topp"])
+                self.uniforms, a["temp"], a["topk"], a["topp"], *window)
         return tuple(outs)
 
     def _set_outputs(self, outs) -> None:
-        for name, t in zip(OUTPUTS, outs, strict=True):
+        for name, t in zip(self.outputs, outs, strict=True):
             setattr(self, name, t)
+
+    def load_window(self, window) -> None:
+        """Load a fused graph's chunk window before a replay: ``(ids [1,
+        C], n_text, table [1, M], start)`` as host arrays and ints, or
+        None for the null window (written only when a window was
+        loaded)."""
+        a = self.inputs
+        if window is None:
+            if self.window:
+                for name in CHUNK_INPUTS:
+                    a[name].zero_()
+                a["c_ntext"].fill_(1)
+                self.window = False
+            return
+        ids, n_text, table, start = window
+        upload(a["c_ids"], ids)
+        upload(a["c_table"], table)
+        upload(a["c_ntext"], np.asarray([n_text], np.int32))
+        upload(a["c_start"], np.asarray([start], np.int32))
+        self.window = True
 
     def capture(self) -> None:
         """Capture the step (CUDA); a no-op on the CPU. Raises when the

@@ -2,11 +2,12 @@
 
 Port of ``scalable_hw_agnostic_inference_tpu/engine/loop.py``
 (``EngineLoop`` with ``submit`` and its deadline and QoS tag,
-``cancel``, ``drain`` and ``stop``, and the idle hook
-``engine.finish_pending``). One
-daemon thread owns the engine (and through it the device); callers submit
-token-id prompts and wait on a future, so concurrent requests coalesce into
-the running batch. Fan-out groups and live migration come in later slices.
+``submit_group`` for the ``n > 1`` fan-out, ``cancel`` (a member of a
+group cancels the group), ``drain`` and ``stop``, and the idle hook
+``engine.finish_pending``). One daemon thread owns the engine (and through
+it the device); callers submit token-id prompts and wait on a future, so
+concurrent requests coalesce into the running batch. Live migration comes
+in a later slice.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ log = logging.getLogger(__name__)
 class EngineLoop:
     def __init__(self, engine: LLMEngine, poll_s: float = 0.005):
         self.engine = engine
-        # items: (prompt_ids, params, on_token, add_request kwargs, future)
+        # items: (prompt_ids, params, on_token, add_request kwargs, future),
+        # or a fan-out group: (prompt_ids, [params], [on_token],
+        # add_request kwargs, [future])
         self._submit_q: "queue.Queue[tuple]" = queue.Queue()
         self._futures: dict[int, Future] = {}
         self._futures_lock = threading.Lock()
@@ -99,6 +102,31 @@ class EngineLoop:
             self._fail_all(RuntimeError("engine loop is stopped"))
         return fut
 
+    def submit_group(self, prompt_ids: Sequence[int],
+                     params_list: Sequence[SamplingParams], *,
+                     on_tokens: Optional[Sequence] = None,
+                     deadline_at: float = 0.0,
+                     priority: int = PRIORITY_NORMAL,
+                     tenant: str = "") -> List[Future]:
+        """The ``n > 1`` fan-out: ONE tokenized prompt, K sampling-param
+        sets, K futures. The group rides one queue item, so its members
+        are queued together (what lets the engine admit them as one
+        prefill with copy-on-write forks under ``SHAI_KV_COW``), under one
+        parent id, so cancelling any member cancels the group."""
+        if self._stop.is_set():
+            raise RuntimeError("engine loop is stopped")
+        if self._draining.is_set():
+            raise RuntimeError("engine loop is draining")
+        futs: List[Future] = [Future() for _ in params_list]
+        kw = {"deadline_at": deadline_at, "priority": priority,
+              "tenant": tenant}
+        self._submit_q.put((list(prompt_ids), list(params_list),
+                            list(on_tokens or [None] * len(futs)), kw,
+                            futs))
+        if self._stop.is_set():
+            self._fail_all(RuntimeError("engine loop is stopped"))
+        return futs
+
     def cancel(self, fut: Future) -> None:
         """Ask the loop to abort a submitted request between steps; its
         future resolves with a partial ``"cancelled"`` Finished. A no-op
@@ -115,17 +143,37 @@ class EngineLoop:
             return
         while True:
             ids, params, on_token, kw, fut = item
-            try:
-                rid = self.engine.add_request(ids, params, on_token=on_token,
-                                              **kw)
-                with self._futures_lock:
-                    self._futures[rid] = fut
-            except Exception as e:  # bad request (e.g. empty prompt)
-                fut.set_exception(e)
+            if isinstance(fut, list):  # a submit_group item
+                self._admit_group(ids, params, on_token, kw, fut)
+            else:
+                self._add(ids, params, on_token, kw, fut)
             try:
                 item = self._submit_q.get_nowait()
             except queue.Empty:
                 return
+
+    def _add(self, ids, params, on_token, kw, fut) -> Optional[int]:
+        """``engine.add_request`` with its future registered; a request it
+        refuses (an empty prompt) fails its own future only."""
+        try:
+            rid = self.engine.add_request(ids, params, on_token=on_token,
+                                          **kw)
+        except Exception as e:
+            fut.set_exception(e)
+            return None
+        with self._futures_lock:
+            self._futures[rid] = fut
+        return rid
+
+    def _admit_group(self, ids, params_list, on_tokens, kw, futs) -> None:
+        """Queue a fan-out group's members under one parent id: the first
+        one queued leads, and its id names the group."""
+        parent = -2
+        for params, on_token, fut in zip(params_list, on_tokens, futs):
+            rid = self._add(ids, params, on_token,
+                            dict(kw, parent_rid=parent), fut)
+            if rid is not None and parent == -2:
+                parent = rid
 
     def _fail_all(self, err: Exception) -> None:
         """Fail every queued and in-flight future (loop death / stop); the
@@ -137,7 +185,7 @@ class EngineLoop:
                     *_, fut = self._submit_q.get_nowait()
                 except queue.Empty:
                     break
-                pending.append(fut)
+                pending.extend(fut if isinstance(fut, list) else [fut])
             pending.extend(self._futures.values())
             self._futures.clear()
         for fut in pending:
@@ -155,13 +203,16 @@ class EngineLoop:
                            None)
             if rid is None:
                 continue  # already finished (or never admitted)
-            fin = self.engine.cancel(rid)
-            if fin is None:
-                continue
-            with self._futures_lock:
-                self._futures.pop(rid, None)
-            if not fut.done():
-                fut.set_result(fin)
+            # a fan-out group cancels as a unit: its n choices are one
+            # response, and a partial group decodes for nobody
+            for sib in self.engine.fanout_siblings(rid):
+                fin = self.engine.cancel(sib)
+                if fin is None:
+                    continue
+                with self._futures_lock:
+                    sfut = self._futures.pop(sib, None)
+                if sfut is not None and not sfut.done():
+                    sfut.set_result(fin)
 
     def _run(self) -> None:
         try:

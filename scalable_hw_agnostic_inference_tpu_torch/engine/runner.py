@@ -6,8 +6,9 @@ Port of ``scalable_hw_agnostic_inference_tpu/engine/runner.py``:
 text-only, both the static-start ladder and ``ragged=True``),
 ``make_decode`` (``:780``, the ``T = 1`` instantiation of
 ``_make_token_forward`` at ``:641``, with its ``feedback`` variant),
-``token_logprobs`` (``:129``, the per-token logprob readout) and their
-helpers ``_rmsnorm``,
+``make_fused_step`` (``:995``, the mixed-phase step of
+``SHAI_FUSED_STEP``), ``token_logprobs`` (``:129``, the per-token logprob
+readout) and their helpers ``_rmsnorm``,
 ``_qkv``, ``_mlp``, ``_scatter_blocks``, ``_pool_scales``,
 ``_ragged_pool_attention`` and ``_logits``. The runner reads the weights of
 ``models.llama.LlamaForCausalLM``, so one set of weights serves the scoring
@@ -24,7 +25,10 @@ bucketed decode through ``ops.cuda.paged_attention.paged_decode_attention``
 or B3 itself for an int8 pool); ragged decode through
 ``ops.cuda.ragged_paged_attention`` (B3) and the ragged continuation
 through ``ops.attention.ragged_paged_attention`` (B3 on CUDA, the chunk's
-rows sharing their sequence's table row through ``rows_per_table``). On the CPU
+rows sharing their sequence's table row through ``rows_per_table``); the
+fused step's decode rows and chunk through
+``ops.attention.mixed_phase_ragged_attention`` (one B3 launch over row
+groups on CUDA). On the CPU
 each takes its plain version, as the reference's ``_resolve_paged`` default
 and its gather oracle do off the accelerator. The activations are bf16 from
 the embedding on (``runner.py:315``), as in the reference, so CPU parity
@@ -45,6 +49,7 @@ import torch
 from ..models.llama import LlamaConfig, LlamaForCausalLM
 from ..ops.attention import (
     dot_product_attention,
+    mixed_phase_ragged_attention,
     ragged_gather_attention,
     ragged_paged_attention,
 )
@@ -107,6 +112,66 @@ def _scatter_blocks(kv_layer: Dict[str, torch.Tensor], tbl: torch.Tensor,
         return
     kv_layer["k"][tbl] = k.to(kv_layer["k"].dtype)
     kv_layer["v"][tbl] = v.to(kv_layer["v"].dtype)
+
+
+def _attn_out_mlp(cfg: LlamaConfig, layer, x: torch.Tensor,
+                  o: torch.Tensor) -> torch.Tensor:
+    """The rest of a layer after its attention ``o [B, T, H, D]``: the
+    output projection and the MLP, each with its residual."""
+    B, T = x.shape[:2]
+    x = x + quant_matmul(o.reshape(B, T, -1), layer.attn.o.weight)
+    return x + _mlp(layer, _rmsnorm(x, layer.mlp_norm.scale, cfg.rms_eps))
+
+
+def _chunk_window(block_tables: torch.Tensor, start_arr: torch.Tensor,
+                  T: int, block_size: int, c_blocks: int):
+    """A ragged continuation chunk's cache positions ``[B, T]`` (from the
+    start given as data) and the ``[B, c_blocks]`` block ids its k/v go
+    to."""
+    dev = block_tables.device
+    start_arr = start_arr.to(device=dev, dtype=torch.int64)
+    positions = start_arr[:, None] + torch.arange(T, device=dev)[None, :]
+    sb = start_arr // block_size
+    tbl_chunk = torch.gather(
+        block_tables.long(), 1,
+        sb[:, None] + torch.arange(c_blocks, device=dev)[None, :])
+    return positions, tbl_chunk
+
+
+def _token_slots(tables: torch.Tensor, pos: torch.Tensor, block_size: int,
+                 m_ctx: int):
+    """``(blk, widx)`` of new tokens at cache positions ``pos [B, T]``:
+    each token's block id (positions past the context window route to the
+    null block) and its flat row in the pool."""
+    pblk = pos // block_size
+    blk = torch.where(
+        pblk < m_ctx,
+        torch.gather(tables.long(), 1, pblk.clamp(0, m_ctx - 1)),
+        torch.zeros_like(pblk))
+    return blk, blk * block_size + pos % block_size
+
+
+def _write_tokens(cfg: LlamaConfig, lay: Dict[str, torch.Tensor],
+                  kk: torch.Tensor, vv: torch.Tensor, blk: torch.Tensor,
+                  pos: torch.Tensor, widx: torch.Tensor, block_size: int,
+                  kv_quant: bool) -> None:
+    """Write the k/v of new tokens ``[B, T, Hkv, D]`` into one pool layer
+    in place: at ``widx``, or, for an int8 pool, one read-modify-write
+    requantize of the target block per new token (a block's scale only
+    grows)."""
+    if kv_quant:
+        for t in range(kk.shape[1]):
+            bt = blk[:, t]
+            pin = pos[:, t] % block_size
+            for name, sname, new in (("k", "ks", kk), ("v", "vs", vv)):
+                q8, sc = requantize_block_tokens(
+                    lay[name][bt], lay[sname][bt], new[:, t], pin)
+                lay[name][bt] = q8
+                lay[sname][bt] = sc
+    else:
+        hkv, hd = cfg.n_kv_heads, cfg.head_dim
+        lay["k"].view(-1, hkv, hd)[widx] = kk.to(lay["k"].dtype)
+        lay["v"].view(-1, hkv, hd)[widx] = vv.to(lay["v"].dtype)
 
 
 def _pool_scales(kv_layer: Dict[str, torch.Tensor]):
@@ -242,10 +307,6 @@ def make_prefill_cont(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                          f"+ {c_blocks} chunk blocks outside [1, "
                          f"{blocks_per_seq}]")
 
-    def _layer_out(layer, x, o, B, T):
-        x = x + quant_matmul(o.reshape(B, T, -1), layer.attn.o.weight)
-        return x + _mlp(layer, _rmsnorm(x, layer.mlp_norm.scale, cfg.rms_eps))
-
     def _blocks(t, B):
         return t.reshape(B, c_blocks, block_size, cfg.n_kv_heads,
                          cfg.head_dim)
@@ -256,12 +317,8 @@ def make_prefill_cont(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
         B, T = ids.shape
         dev = ids.device
         x = model.embed.weight[ids.long()].to(torch.bfloat16)
-        start_arr = start_arr.to(device=dev, dtype=torch.int64)
-        positions = start_arr[:, None] + torch.arange(T, device=dev)[None, :]
-        sb = start_arr // block_size
-        tbl_chunk = torch.gather(
-            block_tables.long(), 1,
-            sb[:, None] + torch.arange(c_blocks, device=dev)[None, :])
+        positions, tbl_chunk = _chunk_window(block_tables, start_arr, T,
+                                             block_size, c_blocks)
         tables = block_tables[:, :blocks_per_seq]
         for li, layer in enumerate(model.layers):
             h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
@@ -272,7 +329,7 @@ def make_prefill_cont(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                             kv_quant)
             o = _ragged_pool_attention(q, kv[li], tables, positions,
                                        block_size)
-            x = _layer_out(layer, x, o, B, T)
+            x = _attn_out_mlp(cfg, layer, x, o)
         last = x[torch.arange(B, device=dev), n_text.long() - 1]
         return kv, _logits(model, last[:, None], cfg)[:, 0]
 
@@ -308,7 +365,7 @@ def make_prefill_cont(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
             o = dot_product_attention(
                 q, torch.cat([kprior, k], dim=1),
                 torch.cat([vprior, v], dim=1), kv_lengths=n, causal=True)
-            x = _layer_out(layer, x, o, B, T)
+            x = _attn_out_mlp(cfg, layer, x, o)
             _scatter_blocks(kv[li], tbl_chunk, _blocks(k, B), _blocks(v, B),
                             kv_quant)
         last = x[torch.arange(B, device=dev), n_text.long() - 1]
@@ -342,12 +399,7 @@ def _make_token_forward(cfg: LlamaConfig, block_size: int, m_ctx: int,
         tables = tables[:, :m_ctx].to(torch.int32).contiguous()
         x = model.embed.weight[tokens.long()].to(torch.bfloat16)  # [B,T,d]
         pos = positions.long()
-        pblk = pos // block_size
-        blk = torch.where(
-            pblk < m_ctx,
-            torch.gather(tables.long(), 1, pblk.clamp(0, m_ctx - 1)),
-            torch.zeros_like(pblk))
-        widx = blk * block_size + pos % block_size           # [B, T]
+        blk, widx = _token_slots(tables, pos, block_size, m_ctx)   # [B, T]
         tables_f = tables.repeat_interleave(T, dim=0) if T > 1 else tables
         lengths_f = (pos + 1).clamp(1, L).reshape(B * T).to(torch.int32)
         attend = ragged_kernel if ragged else paged_decode_attention
@@ -355,29 +407,13 @@ def _make_token_forward(cfg: LlamaConfig, block_size: int, m_ctx: int,
             h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
             q, kk, vv = _qkv(layer, h, positions, cfg)
             lay = kv[li]
-            if kv_quant:
-                # one read-modify-write requantize of the target block per
-                # new token; a block's scale only grows
-                for t in range(T):
-                    bt = blk[:, t]
-                    pin = pos[:, t] % block_size
-                    for name, sname, new in (("k", "ks", kk), ("v", "vs", vv)):
-                        q8, sc = requantize_block_tokens(
-                            lay[name][bt], lay[sname][bt], new[:, t], pin)
-                        lay[name][bt] = q8
-                        lay[sname][bt] = sc
-            else:
-                lay["k"].view(-1, cfg.n_kv_heads, hd)[widx] = \
-                    kk.to(lay["k"].dtype)
-                lay["v"].view(-1, cfg.n_kv_heads, hd)[widx] = \
-                    vv.to(lay["v"].dtype)
+            _write_tokens(cfg, lay, kk, vv, blk, pos, widx, block_size,
+                          kv_quant)
             ksc, vsc = _pool_scales(lay)
             o = attend(q.reshape(B * T, cfg.n_heads, hd).contiguous(),
                        lay["k"], lay["v"], tables_f, lengths_f, ksc,
                        vsc).reshape(B, T, cfg.n_heads, hd)
-            x = x + quant_matmul(o.reshape(B, T, -1), layer.attn.o.weight)
-            x = x + _mlp(layer, _rmsnorm(x, layer.mlp_norm.scale,
-                                         cfg.rms_eps))
+            x = _attn_out_mlp(cfg, layer, x, o)
         return kv, _logits(model, x, cfg)
 
     return fwd
@@ -436,3 +472,109 @@ def make_decode(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
         return kv, nxt
 
     return decode
+
+
+def make_fused_step(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
+                    max_num_seqs: int, bucket: int,
+                    kv_quant: bool = False) -> Callable:
+    """ONE mixed-phase engine step (``SHAI_FUSED_STEP``): the whole decode
+    batch plus one chunked-prefill continuation window.
+
+    ``fused(model, kv, tokens [B], pos [B], tables [B, M], rng,
+    temperature [B], top_k [B], top_p [B], c_ids [1, C], c_ntext [1],
+    c_table [1, M], c_start [1]) -> (kv, next [B], pos + 1, top_ids,
+    top_lp, tok_lp, c_logits [1, V])``, with ``rng`` as in
+    :func:`make_decode` (the reference's unused ``active`` rows are left
+    out, as ``make_decode`` leaves them out).
+
+    Two sections share one layer walk over the pool, written in place:
+
+    - the decode section is ``make_decode``'s math (the ragged ``T = 1``
+      forward: the same writes, the same int8 read-modify-write
+      requantize), with sampling and the logprob readout;
+    - the chunk section is the ragged continuation's
+      (``make_prefill_cont(ragged=True)``): ``c_start`` as data, the chunk
+      scattered first, its queries attending through the pool. Its
+      ``c_logits`` come back raw: the engine samples a final chunk on the
+      host as the laddered path does. A step with no chunk passes the null
+      window (zero ids and table, ``c_ntext`` 1, ``c_start`` 0): it writes
+      into the reserved null block 0 and its logits are dropped.
+
+    In every layer the chunk scatters BEFORE the decode rows write, the
+    laddered engine's device order (its continuation finishes before the
+    decode step that follows it), so a write through a stale table lands
+    alike and fused-on equals fused-off. On CUDA both sections' queries go
+    through ONE B3 launch (``mixed_phase_ragged_attention``, row groups);
+    on the CPU each section keeps its laddered function's plain attention
+    (B3's plain version for decode, the gather path for the chunk), so the
+    two engines agree bit for bit there.
+
+    One function per batch bucket ``B`` replaces the decode ladder and the
+    ragged continuation: the window ``C = bucket`` is the largest prefill
+    bucket, and ragged owns the full ``blocks_per_seq`` window.
+    """
+    if bucket % block_size:
+        raise ValueError(f"bucket {bucket} not a multiple of block_size "
+                         f"{block_size}")
+    m_ctx = blocks_per_seq
+    c_blocks = bucket // block_size
+    L = block_size * m_ctx
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def fused(model: LlamaForCausalLM, kv: KVPool, tokens: torch.Tensor,
+              pos: torch.Tensor, tables: torch.Tensor,
+              rng: Union[torch.Generator, torch.Tensor],
+              temperature: torch.Tensor, top_k: torch.Tensor,
+              top_p: torch.Tensor, c_ids: torch.Tensor,
+              c_ntext: torch.Tensor, c_table: torch.Tensor,
+              c_start: torch.Tensor):
+        B, C = max_num_seqs, bucket
+        dev = tokens.device
+        # the decode section's inputs: make_decode's (T = 1)
+        tables = tables[:, :m_ctx].to(torch.int32).contiguous()
+        x = model.embed.weight[tokens.long()[:, None]].to(torch.bfloat16)
+        positions = pos[:, None]
+        p64 = positions.long()
+        blk, widx = _token_slots(tables, p64, block_size, m_ctx)
+        lengths = (p64 + 1).clamp(1, L).reshape(B).to(torch.int32)
+        # the chunk section's inputs: the ragged continuation's
+        xc = model.embed.weight[c_ids.long()].to(torch.bfloat16)
+        c_positions, tbl_chunk = _chunk_window(c_table, c_start, C,
+                                               block_size, c_blocks)
+        c_tables = c_table[:, :m_ctx]
+        for li, layer in enumerate(model.layers):
+            lay = kv[li]
+            hc = _rmsnorm(xc, layer.attn_norm.scale, cfg.rms_eps)
+            qc, kc, vc = _qkv(layer, hc, c_positions, cfg)
+            # the chunk goes in FIRST (the laddered device order)
+            _scatter_blocks(
+                lay, tbl_chunk,
+                kc.reshape(1, c_blocks, block_size, Hkv, hd),
+                vc.reshape(1, c_blocks, block_size, Hkv, hd), kv_quant)
+            h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
+            q, kk, vv = _qkv(layer, h, positions, cfg)
+            _write_tokens(cfg, lay, kk, vv, blk, p64, widx, block_size,
+                          kv_quant)
+            ksc, vsc = _pool_scales(lay)
+            if dev.type == "cuda":
+                o, oc = mixed_phase_ragged_attention(
+                    q.reshape(B, H, hd), qc.reshape(C, H, hd), lay["k"],
+                    lay["v"], tables, c_tables, pos,
+                    c_positions.reshape(C), ksc, vsc)
+                o = o.reshape(B, 1, H, hd)
+                oc = oc.reshape(1, C, H, hd)
+            else:
+                o = ragged_kernel(q.reshape(B, H, hd).contiguous(), lay["k"],
+                                  lay["v"], tables, lengths, ksc,
+                                  vsc).reshape(B, 1, H, hd)
+                oc = _ragged_pool_attention(qc, lay, c_tables, c_positions,
+                                            block_size)
+            x = _attn_out_mlp(cfg, layer, x, o)
+            xc = _attn_out_mlp(cfg, layer, xc, oc)
+        logits = _logits(model, x, cfg)[:, 0]
+        nxt = sample_logits(logits, rng, temperature, top_k, top_p)
+        last = xc[torch.arange(1, device=dev), c_ntext.long() - 1]
+        c_logits = _logits(model, last[:, None], cfg)[:, 0]
+        return (kv, nxt, pos + 1) + token_logprobs(logits, nxt) + (c_logits,)
+
+    return fused

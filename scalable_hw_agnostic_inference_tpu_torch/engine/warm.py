@@ -4,7 +4,9 @@ Port of ``scalable_hw_agnostic_inference_tpu/engine/warm.py``
 (``warm_executables`` at ``:16``, ``_run_warm_calls`` at ``:114``) for the
 text branches the port has: every prefill bucket x batch size, every
 continuation key (the static-start ladder, or the one ragged entry), and
-every decode key (context bucket x batch bucket). Prefill and the
+every decode key (context bucket x batch bucket); under ``SHAI_FUSED_STEP``
+the fused keys (one per batch bucket, and the chunk-only graph) replace the
+decode grid and the ragged continuation (``warm.py:43-49``). Prefill and the
 continuation run once eagerly here, which loads their kernels and primes
 cuBLAS; each decode key is captured as a CUDA graph when ``_decode_for``
 builds it and replayed once here. Functions take the engine explicitly.
@@ -33,7 +35,11 @@ def warm_executables(eng) -> int:
             eng._prefill_for(b, kb)
             n += 1
     C = eng.buckets.max
-    if eng._ragged:
+    if eng._fused:
+        # the chunk rides the fused keys built below: no continuation
+        # function has a caller
+        pass
+    elif eng._ragged:
         # the chunk start is data: ONE continuation per chunk bucket
         if eng.ecfg.max_model_len > C and ("rcont", C) not in eng._prefill:
             eng._cont_for(0)
@@ -47,8 +53,10 @@ def warm_executables(eng) -> int:
             start += C
     for m in eng._ctx_buckets:
         for bb in eng._batch_buckets():
-            eng._decode_for(m, bb)   # captured here
+            eng._decode_for(m, bb)   # captured here (fused: a fused key)
             n += 1
+    if eng._fused:
+        eng._chunk_graph()
     eng._run_warm_calls()
     eng._warmed = True
     # every executable built from here on is a bucket-miss recompile
@@ -87,7 +95,10 @@ def _run_warm_calls(eng) -> None:
                               torch.ones(K, device=dev))
                 # and with the scalar knobs of a final chunk
                 sample_logits(logits[:1], gen, 1.0, 0, 1.0)
-        for graph in eng._decode_fns.values():
+        graphs = list(eng._decode_fns.values()) + list(eng._fused_fns.values())
+        if eng._fused_chunk is not None:
+            graphs.append(eng._fused_chunk)
+        for graph in graphs:
             graph.draw(gen)
             graph.replay()
     if dev.type == "cuda":

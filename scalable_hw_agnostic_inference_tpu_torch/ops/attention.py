@@ -2,7 +2,8 @@
 
 Port of ``scalable_hw_agnostic_inference_tpu/ops/attention.py``
 (``_xla_attention``, ``causal_mask``, ``dot_product_attention``,
-``ragged_gather_attention``, ``ragged_paged_attention``). The reference
+``ragged_gather_attention``, ``ragged_paged_attention``,
+``mixed_phase_ragged_attention``). The reference
 asks JAX which platform a computation runs on (``effective_platform``);
 here the tensor's own device answers: a CUDA tensor goes to the B1 or B3
 kernel (or the call raises), a CPU tensor to the plain path. The
@@ -176,3 +177,48 @@ def ragged_paged_attention(
     pos = (lengths.to(torch.int64) - 1)[:, None]
     return ragged_gather_attention(q[:, None], k_pool, v_pool, tables, pos,
                                    k_scale, v_scale, scale=scale)[:, 0]
+
+
+def mixed_phase_groups(B: int, C: int):
+    """B3's row groups of a mixed-phase call: ``B`` decode rows of one,
+    each over its own table row, then the ``C`` chunk rows over table row
+    ``B``."""
+    return tuple((i, 1, i) for i in range(B)) + ((B, C, B),)
+
+
+def mixed_phase_ragged_attention(
+    q_dec: torch.Tensor,
+    q_chunk: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    tables_dec: torch.Tensor,
+    c_table: torch.Tensor,
+    pos_dec: torch.Tensor,
+    c_pos: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+):
+    """Mixed-phase ragged attention (``SHAI_FUSED_STEP``): ``B`` decode
+    rows ``q_dec [B, H, D]`` over ``tables_dec [B, M]`` and one ``C``-token
+    continuation chunk ``q_chunk [C, H, D]`` over ``c_table [1, M]`` in ONE
+    call of B3. Every row attends its own cache position and those before
+    it (``pos_dec [B]``, ``c_pos [C]``): lengths ``clip(pos + 1, 1,
+    M * block_size)``. The rows are ``B + C`` rows of B3 cut into row
+    groups: each decode row a group of one over its own table row, the
+    chunk one group of ``C`` rows sharing ``c_table``, so the kernel never
+    learns which phase a row belongs to and the chunk's queries share each
+    K/V tile they load. Returns ``(o_dec [B, H, D], o_chunk [C, H, D])``,
+    split at row ``B``. On a CUDA tensor the B3 kernel or a raise; on the
+    CPU its plain version over the same groups."""
+    B = q_dec.shape[0]
+    C = q_chunk.shape[0]
+    L = tables_dec.shape[1] * k_pool.shape[1]
+    qf = torch.cat([q_dec, q_chunk], dim=0).contiguous()
+    tf = torch.cat([tables_dec, c_table], dim=0).to(torch.int32).contiguous()
+    lf = (torch.cat([pos_dec, c_pos]).to(torch.int64) + 1).clamp(1, L).to(
+        torch.int32)
+    of = _ragged_kernel(qf, k_pool, v_pool, tf, lf, k_scale, v_scale,
+                        scale=scale, groups=mixed_phase_groups(B, C))
+    return of[:B], of[B:]

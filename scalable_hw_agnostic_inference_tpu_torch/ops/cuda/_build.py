@@ -49,6 +49,11 @@ ENTRY_POINTS = {
     # part_ml, counters, rows, rows_per_table, rows_per_tile, H, Hkv, D, bs,
     # M, quantized, splits, scale, device, stream (B2 and B3 both)
     "shai_ragged_paged_attention": [_P] * 11 + [_I] * 10 + [_F, _I, _P],
+    # the same pointers, then groups (host int32 [n_groups, 3]), n_groups,
+    # rows, rows_per_tile, dec_splits, H, Hkv, D, bs, M, n_tables,
+    # quantized, scale, device, stream (B3 over row groups)
+    "shai_ragged_paged_attention_groups": [_P] * 12 + [_I] * 11
+    + [_F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -14,13 +14,19 @@ package, with the kernel's zeros for a row of length 0).
 
 The kernel's decode CTA is also B2's: :func:`_launch` checks, plans and
 launches the walk for both wrappers, each counting its own launches.
+
+Row groups (``groups=``, the fused mixed-phase step's layout): the rows are
+cut into groups, each a ``(first row, row count, table row)``; a group of
+one row takes the decode CTA, a larger group the tile CTA, in ONE launch
+(:func:`_launch_groups`) counted as B3's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,6 +38,11 @@ from .flash_attention import (
 )
 
 
+#: row groups of one launch: ``(first row, row count, table row)`` each, in
+#: row order, covering every row once
+Groups = Tuple[Tuple[int, int, int], ...]
+
+
 def ragged_paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                      v_pool: torch.Tensor,
                                      tables: torch.Tensor,
@@ -39,16 +50,19 @@ def ragged_paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                      k_scale: Optional[torch.Tensor] = None,
                                      v_scale: Optional[torch.Tensor] = None,
                                      *, scale: Optional[float] = None,
-                                     rows_per_table: int = 1
+                                     rows_per_table: int = 1,
+                                     groups: Optional[Groups] = None
                                      ) -> torch.Tensor:
     """The plain version of B3, in fp32: gather each row's table window
     into a dense ``[rows, M*bs, Hkv, D]`` context (an int8 pool times its
     per-(block, kv head) scales) and mask keys at or past ``lengths[r]``.
     ``rows_per_table`` R > 1 first repeats each of the ``[rows / R, M]``
-    table rows R times."""
+    table rows R times; ``groups`` gives each row its group's table row."""
     rows, H, D = q.shape
     _N, bs, Hkv, _ = k_pool.shape
-    if rows_per_table > 1:
+    if groups is not None:
+        tables = tables[[t for _, n, t in groups for _ in range(n)]]
+    elif rows_per_table > 1:
         tables = tables.repeat_interleave(rows_per_table, dim=0)
     M = tables.shape[1]
     if scale is None:
@@ -131,6 +145,27 @@ def ragged_plan(rows: int, rows_per_table: int, n_heads: int,
     return rt, min(-(-4 * n_sms // ctas), most)
 
 
+#: most row groups one launch takes (``MAX_GROUPS`` in the source: the
+#: group table travels by value with the launch)
+MAX_GROUPS = 128
+
+
+@functools.lru_cache(maxsize=256)
+def groups_plan(groups: Groups, n_heads: int, n_kv_heads: int,
+                block_size: int, M: int, n_sms: int) -> Tuple[int, int]:
+    """``(rows_per_tile, decode splits)`` of a row-group launch, from the
+    shapes alone. A group of more than one row (or of one, past
+    :data:`DECODE_MAX_GROUP` query heads per kv head) takes tile CTAs of
+    ``rows_per_tile`` rows, unsplit; the groups of one row take the decode
+    CTA, split by :func:`decode_plan` over their own count."""
+    G = n_heads // n_kv_heads
+    n_dec = sum(1 for _, n, _ in groups if n == 1 and G <= DECODE_MAX_GROUP)
+    rt = min(max(n for _, n, _ in groups), max(1, MAX_PRODUCT_ROWS // G))
+    splits = (decode_plan(n_dec, n_heads, n_kv_heads, block_size, M,
+                          n_sms)[1] if n_dec else 1)
+    return rt, splits
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -198,6 +233,20 @@ def split_scratch_size(rows: int, rows_per_table: int, n_heads: int,
             rows * n_kv_heads)
 
 
+def groups_scratch_size(groups: Groups, n_heads: int, n_kv_heads: int,
+                        head_dim: int, block_size: int, M: int,
+                        n_sms: int) -> Tuple[int, int]:
+    """``(fp32 values, int32 counters)`` of split scratch one row-group
+    launch of these shapes takes (``(0, 0)`` when its decode groups are
+    not split)."""
+    _rt, splits = groups_plan(tuple(groups), n_heads, n_kv_heads,
+                              block_size, M, n_sms)
+    if splits == 1:
+        return 0, 0
+    n = len(groups)
+    return splits * n * n_heads * (head_dim + 2), n * n_kv_heads
+
+
 def reserve_split_scratch(device: torch.device, stream: int, numel: int,
                           n_counters: int) -> None:
     """Grow the split scratch of launches on ``stream`` to at least
@@ -221,24 +270,35 @@ def check_tables(rows: int, tables: torch.Tensor, lengths: torch.Tensor,
                          f"{tuple(tables.shape)} and {tuple(lengths.shape)}")
 
 
-def _launch(counted, q: torch.Tensor, k_pool: torch.Tensor,
-            v_pool: torch.Tensor, tables: torch.Tensor,
-            lengths: torch.Tensor, k_scale: Optional[torch.Tensor],
-            v_scale: Optional[torch.Tensor], scale: Optional[float],
-            rows_per_table: int, *, splits: Optional[int] = None,
-            merge_in_kernel: bool = True) -> torch.Tensor:
-    """Check one CUDA call of the walk (tables already checked against the
-    rows), plan it, and launch it on the current stream: the one launcher
-    of B2 and B3. ``counted`` is the public wrapper whose call this is; its
-    ``launches`` rises by one. ``splits`` overrides the plan, and
-    ``merge_in_kernel=False`` merges the decode CTA's splits in a second
-    kernel instead of its last split CTA (``chip_smoke.py`` measures both).
-    """
+def check_groups(rows: int, groups: Groups, tables: torch.Tensor,
+                 lengths: torch.Tensor) -> None:
+    """Raise unless ``groups`` cover rows ``0 .. rows - 1`` in order, each
+    with at least one row and a table row of the 2-D ``tables``, and
+    ``lengths`` is ``[rows]``."""
+    if tables.dim() != 2 or lengths.shape != (rows,):
+        raise ValueError(f"tables must be [n_tables, M] and lengths "
+                         f"[{rows}], got {tuple(tables.shape)} and "
+                         f"{tuple(lengths.shape)}")
+    nxt = 0
+    for first, n, t in groups:
+        if first != nxt or n < 1 or not 0 <= t < tables.shape[0]:
+            raise ValueError(f"row groups {groups} do not cover the {rows} "
+                             f"rows in order over {tables.shape[0]} table "
+                             f"rows")
+        nxt = first + n
+    if nxt != rows or not groups:
+        raise ValueError(f"row groups {groups} cover {nxt} of {rows} rows")
+
+
+def _check_launch(name: str, q: torch.Tensor, k_pool: torch.Tensor,
+                  v_pool: torch.Tensor, tables: torch.Tensor,
+                  lengths: torch.Tensor, k_scale: Optional[torch.Tensor],
+                  v_scale: Optional[torch.Tensor]) -> bool:
+    """Raise for anything the kernel does not take; return whether the
+    pool is int8."""
     rows, H, D = q.shape
     N, bs, Hkv, Dk = k_pool.shape
-    M = tables.shape[1]
     dev = q.device
-    name = counted.__name__
     if Dk != D or v_pool.shape != k_pool.shape:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)}/"
                          f"{tuple(v_pool.shape)} do not match q "
@@ -275,6 +335,28 @@ def _launch(counted, q: torch.Tensor, k_pool: torch.Tensor,
     for t_name, t in (("tables", tables), ("lengths", lengths)):
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{t_name} must be contiguous int32 on {dev}")
+    return quantized
+
+
+def _launch(counted, q: torch.Tensor, k_pool: torch.Tensor,
+            v_pool: torch.Tensor, tables: torch.Tensor,
+            lengths: torch.Tensor, k_scale: Optional[torch.Tensor],
+            v_scale: Optional[torch.Tensor], scale: Optional[float],
+            rows_per_table: int, *, splits: Optional[int] = None,
+            merge_in_kernel: bool = True) -> torch.Tensor:
+    """Check one CUDA call of the walk (tables already checked against the
+    rows), plan it, and launch it on the current stream: the one launcher
+    of B2 and B3. ``counted`` is the public wrapper whose call this is; its
+    ``launches`` rises by one. ``splits`` overrides the plan, and
+    ``merge_in_kernel=False`` merges the decode CTA's splits in a second
+    kernel instead of its last split CTA (``chip_smoke.py`` measures both).
+    """
+    rows, H, D = q.shape
+    _N, bs, Hkv, _ = k_pool.shape
+    M = tables.shape[1]
+    dev = q.device
+    quantized = _check_launch(counted.__name__, q, k_pool, v_pool, tables,
+                              lengths, k_scale, v_scale)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     rt, planned = ragged_plan(rows, rows_per_table, H, Hkv, bs, M,
@@ -302,7 +384,57 @@ def _launch(counted, q: torch.Tensor, k_pool: torch.Tensor,
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), part_o,
         part_ml, counters, rows, rows_per_table, rt, H, Hkv, D, bs, M,
         int(quantized), splits, float(scale), dev.index, stream)
-    _build.check(err, name)
+    _build.check(err, counted.__name__)
+    return out
+
+
+def _launch_groups(counted, q: torch.Tensor, k_pool: torch.Tensor,
+                   v_pool: torch.Tensor, tables: torch.Tensor,
+                   lengths: torch.Tensor, k_scale: Optional[torch.Tensor],
+                   v_scale: Optional[torch.Tensor], scale: Optional[float],
+                   groups: Groups) -> torch.Tensor:
+    """Check, plan and launch one row-group call of the walk on the current
+    stream (groups already checked against the rows and tables);
+    ``counted.launches`` rises by one."""
+    rows, H, D = q.shape
+    _N, bs, Hkv, _ = k_pool.shape
+    M = tables.shape[1]
+    dev = q.device
+    quantized = _check_launch(counted.__name__, q, k_pool, v_pool, tables,
+                              lengths, k_scale, v_scale)
+    if len(groups) > MAX_GROUPS:
+        raise ValueError(f"{len(groups)} row groups; one launch takes at most "
+                         f"{MAX_GROUPS}")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    rt, splits = groups_plan(groups, H, Hkv, bs, M, sm_count(dev.index))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty_like(q)
+    part_o = part_ml = counters = None
+    if splits > 1:
+        # fp32 partials of the decode groups: acc [splits, groups, H, D],
+        # then (m, l) per (split, group, head); one counter per (group, kv
+        # head) for the in-kernel merge
+        n = len(groups)
+        n_o = splits * n * H * D
+        part, cnt = _split_scratch(dev, stream, n_o + splits * n * H * 2,
+                                   n * Hkv)
+        part_o = part.data_ptr()
+        part_ml = part_o + 4 * n_o
+        counters = cnt.data_ptr()
+    desc = (ctypes.c_int * (3 * len(groups)))(
+        *[x for g in groups for x in g])
+    lib = _build.library()
+    counted.launches += 1
+    err = lib.shai_ragged_paged_attention_groups(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), part_o,
+        part_ml, counters, ctypes.addressof(desc), len(groups), rows, rt,
+        splits, H, Hkv, D, bs, M, tables.shape[0], int(quantized),
+        float(scale), dev.index, stream)
+    _build.check(err, counted.__name__)
     return out
 
 
@@ -312,7 +444,9 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None, *,
                            scale: Optional[float] = None,
-                           rows_per_table: int = 1) -> torch.Tensor:
+                           rows_per_table: int = 1,
+                           groups: Optional[Sequence[Sequence[int]]] = None
+                           ) -> torch.Tensor:
     """Attend each row's query ``[rows, H, D]`` over its own paged context
     in the pool ``[N, bs, Hkv, D]`` through ``tables``; keys at or past
     ``lengths[r]`` are masked (a length past ``M * bs`` counts as the whole
@@ -323,7 +457,11 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``rows_per_table`` R: ``tables`` is ``[rows / R, M]`` and each run of R
     consecutive rows shares one table row (the continuation's queries of
     one sequence); R = 1 gives each row its own, the TPU kernel's
-    contract. A table of the wrong shape raises on every device.
+    contract. ``groups`` instead cuts the rows into row groups
+    ``(first row, row count, table row)``, in row order, over
+    ``tables [n_tables, M]``: the fused step's decode rows are groups of
+    one and its chunk one group (at most :data:`MAX_GROUPS`). A table or
+    group layout of the wrong shape raises on every device.
 
     On a CUDA tensor this launches the B3 kernel or raises: q bf16; a bf16
     pool, or an int8 pool with both scales contiguous f32 ``[N, Hkv]``;
@@ -333,14 +471,24 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     :func:`ragged_paged_attention_reference`. Table entries are trusted to
     be valid block ids (checking them would cost a host round trip).
     """
-    check_tables(q.shape[0], tables, lengths, rows_per_table)
+    if groups is not None:
+        if rows_per_table != 1:
+            raise ValueError("rows_per_table and groups exclude each other")
+        groups = tuple((int(f), int(n), int(t)) for f, n, t in groups)
+        check_groups(q.shape[0], groups, tables, lengths)
+    else:
+        check_tables(q.shape[0], tables, lengths, rows_per_table)
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
             q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale=scale,
-            rows_per_table=rows_per_table)
+            rows_per_table=rows_per_table, groups=groups)
     if q.device.type != "cuda":
         raise ValueError(
             f"ragged_paged_attention: unsupported device {q.device}")
+    if groups is not None:
+        return _launch_groups(ragged_paged_attention, q, k_pool, v_pool,
+                              tables, lengths, k_scale, v_scale, scale,
+                              groups)
     return _launch(ragged_paged_attention, q, k_pool, v_pool, tables,
                    lengths, k_scale, v_scale, scale, rows_per_table)
 

@@ -14,10 +14,11 @@ kernels take) and the ``*-geometry`` tiers (full-size architecture, zero
 weights, real engine shapes); a ``weights`` callable given to the
 constructor replaces the tier's weights (the tests hand the port the JAX
 service's). The tokenizer is the byte-level ``ByteTokenizer``, so a chat
-prompt is the reference's plain ``role: content`` layout. ``n > 1`` runs
-as independent requests (the copy-on-write fan-out comes with the fused
-step). Checkpoint loading, chat templates, images, the KV network and
-migration come in later slices.
+prompt is the reference's plain ``role: content`` layout. ``n > 1`` is
+one fan-out group (``EngineLoop.submit_group``: one tokenization, one
+queue item; one prefill with copy-on-write forks under ``SHAI_KV_COW``),
+and not streamed. Checkpoint loading, chat templates, images, the KV
+network and migration come in later slices.
 """
 
 from __future__ import annotations
@@ -349,20 +350,22 @@ class VllmService(ModelService):
         if n == 1:
             outs = [self.infer(payload)]
         else:
-            # n independent samples of one tokenization, joining one
-            # running batch
+            # n samples of one tokenization: one fan-out group, one queue
+            # item, one parent id (cancel and deadline act on the group;
+            # under SHAI_KV_COW the group prefills once and forks its KV)
             params = self._sampling_from(payload)
             ids = self._encode(prompt)
-            futs = [self.loop.submit(ids, params,
-                                     deadline_at=self._deadline_at(),
-                                     **self._qos_kw()) for _ in range(n)]
+            futs = self.loop.submit_group(
+                ids, [params] * n, deadline_at=self._deadline_at(),
+                **self._qos_kw())
             outs = []
             try:
                 for fut in futs:
                     outs.append(self._collect(fut))
             except BaseException:
                 # one sample failed (rejected, timeout): the others must
-                # not keep decoding for nobody
+                # not keep decoding for nobody (cancelling one cancels the
+                # group)
                 for fut in futs:
                     if not fut.done():
                         self.loop.cancel(fut)
