@@ -72,7 +72,25 @@ Phases:
  12. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
                 (the chunks ride the fused graphs' replays), then one
                 ``n=4`` completion admitted as one prefill with 3
-                copy-on-write forks; its numbers beside serve_ragged's.
+                copy-on-write forks; its numbers beside serve_ragged's;
+ 13. ``serve_ops`` serve's configuration under the operating layer
+                (``SERVE_OPS_ENV``: ``MAX_INFLIGHT=8``, tracing, the fault
+                endpoint armed, a perf projection of 50 tok/s over a 5 s
+                window, a 2 s watchdog floor, a 60 s drain budget): the
+                plain round beside serve's TPOT and step gap; the HBM
+                ledger against the caching allocator (one tick with the
+                engine idle); 16 concurrent requests shed to 429 with
+                ``Retry-After``, counted on ``shai_shed_total``; one
+                idempotency key four times (one engine admission); a
+                ``traceparent`` round trip through ``/trace/{id}`` and
+                ``/debug/flight``; the perf sentinel degraded by a 0.25 s
+                ``engine.step`` delay and healthy again; a 3 s step stall
+                failing ``/health`` and recovering with the graphs
+                replaying on; ``/benchmark``, ``/load`` and ``/serve``;
+                then the drain (readiness ``draining``, 503 with
+                ``Retry-After``, the in-flight requests finishing, the loop
+                stopped with no replay in flight) and the operating
+                ``/metrics`` families.
 
 Each engine and serve phase (and the serve phase's OpenAI round) zeroes
 the launch counters just before its run and requires exactly its own
@@ -96,6 +114,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import io
 import json
 import os
 import statistics
@@ -109,7 +128,7 @@ import urllib.request
 
 PHASES = ("card", "build", "flash", "paged", "ragged", "decode_graph",
           "engine", "engine_ragged", "engine_fused", "serve", "serve_ragged",
-          "serve_fused")
+          "serve_fused", "serve_ops")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core FLOP/s
@@ -1891,7 +1910,9 @@ def _serve(ctx, what, env, prompts, expect, walk, openai=False, then=None):
     ``expect`` must rise, no block may leak. Prints TTFT/TPOT, ``/stats``
     and a profiled second pass; with ``openai``, then runs the OpenAI
     round; ``then(base, eng)`` runs last, before the recompile and leak
-    checks. Returns the /generate responses."""
+    checks. Returns the /generate responses. While it serves,
+    ``ctx["serving"]`` holds the app, the service and the JSON-line push
+    stream (kept off stdout)."""
     import torch
 
     _drop_engine_model(ctx)
@@ -1903,6 +1924,9 @@ def _serve(ctx, what, env, prompts, expect, walk, openai=False, then=None):
         )
         from scalable_hw_agnostic_inference_tpu_torch.serve.httpd import (
             Server,
+        )
+        from scalable_hw_agnostic_inference_tpu_torch.serve.metrics import (
+            MetricsPublisher,
         )
         from scalable_hw_agnostic_inference_tpu_torch.serve.units.vllm import (
             VllmService,
@@ -1916,7 +1940,11 @@ def _serve(ctx, what, env, prompts, expect, walk, openai=False, then=None):
 
         cfg = ServeConfig.from_env()
         service = VllmService(cfg)
-        server = Server(create_app(cfg, service), host="127.0.0.1", port=0)
+        push = io.StringIO()
+        app = create_app(cfg, service, publisher=MetricsPublisher(
+            cfg.app, cfg.nodepool, cfg.pod_name, stream=push))
+        ctx["serving"] = {"app": app, "service": service, "push": push}
+        server = Server(app, host="127.0.0.1", port=0)
         host, port = server.start_background()
         base = f"http://{host}:{port}"
         try:
@@ -2005,9 +2033,10 @@ def _serve(ctx, what, env, prompts, expect, walk, openai=False, then=None):
                 raise AssertionError(f"{what}: leaked KV blocks")
             return results
         finally:
+            ctx.pop("serving", None)
             server.stop()
             service.close()
-            del service
+            del service, app
             gc.collect()
             torch.cuda.empty_cache()
 
@@ -2088,6 +2117,349 @@ def phase_serve_fused(ctx):
     summary = ctx["serve_summary"]
     log("serve_fused beside serve_ragged: " + json.dumps(
         {k: summary.get(k) for k in ("serve_ragged", "serve_fused")}))
+
+
+#: the operating layer's settings for serve_ops (``SHAI_PERF_PROJECTED_TOK_S``
+#: is a threshold the phase sets, not a measurement: serve decodes 8 rows
+#: at hundreds of tokens a second); ``SHAI_WATCHDOG_MULT=2`` keeps the
+#: watchdog's leash at its 2 s floor after the sentinel round's 0.25 s
+#: steps entered the step ring (30 x their p99 would be some 8 s); the
+#: SLO targets are generous ones that wire the SLO engine (and its
+#: ``shai_slo_*`` families) without a breach
+SERVE_OPS_ENV = {"MAX_INFLIGHT": "8", "SHAI_TRACE": "1",
+                 "SHAI_FAULTS_ENDPOINT": "1",
+                 "SHAI_PERF_PROJECTED_TOK_S": "50", "SHAI_PERF_WINDOW_S": "5",
+                 "SHAI_WATCHDOG_MIN_S": "2", "SHAI_WATCHDOG_MULT": "2",
+                 "DRAIN_BUDGET_S": "60", "SHAI_SLO_TTFT_MS": "10000",
+                 "SHAI_SLO_TPOT_MS": "1000"}
+#: the /metrics families the operating layer adds (prometheus names)
+OPS_FAMILIES = ("shai_shed_total", "shai_service_", "shai_tenant_",
+                "shai_hbm_", "shai_slo_", "shai_perf_", "shai_idemp_")
+
+
+def _http_full(url: str, payload=None, headers=None, timeout: float = 300.0):
+    """``(status, lowercased headers, JSON body or text)``."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "content-type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, hdrs, body = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        status, hdrs, body = e.code, e.headers, e.read()
+    hdrs = {k.lower(): v for k, v in hdrs.items()}
+    if hdrs.get("content-type", "").startswith("application/json"):
+        return status, hdrs, json.loads(body or b"{}")
+    return status, hdrs, body.decode()
+
+
+def _ops_generate(base: str, i: int, n: int = 16, headers=None):
+    return _http_full(base + "/generate", {
+        "prompt": f"ops {i}: " + "tell me more " * (i % 5 + 1),
+        "temperature": 0.0, "max_new_tokens": n}, headers=headers)
+
+
+def _ops_concurrent(fn, n: int):
+    res = [None] * n
+    threads = [threading.Thread(target=lambda i=i: res.__setitem__(i, fn(i)))
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(r is None for r in res):
+        raise AssertionError("serve_ops: a request never returned")
+    return res
+
+
+def _shed_total(base: str) -> float:
+    status, _, text = _http_full(base + "/metrics")
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith("shai_shed_total{"))
+
+
+def _set_faults(base: str, spec: str) -> None:
+    status, _, body = _http_full(base + "/debug/faults", {"spec": spec})
+    if status != 200:
+        raise AssertionError(f"serve_ops: POST /debug/faults {spec!r} gave "
+                             f"{status} {body}")
+
+
+def _ops_hbm(ctx, base, eng, line) -> None:
+    """The HBM ledger against the card: one tick with the engine idle,
+    ``memory_allocated`` read right after it, then ``/debug/conformance``."""
+    import torch
+
+    t0 = time.monotonic()
+    while eng.has_work or eng._pipe is not None:   # the loop goes idle
+        if time.monotonic() - t0 > 30:
+            raise AssertionError("serve_ops: the engine never went idle")
+        time.sleep(0.01)
+    eng._sample_hbm()
+    allocated = torch.cuda.memory_allocated(eng.device)
+    status, _, conf = _http_full(base + "/debug/conformance")
+    hbm = conf["hbm"]
+    weights = sum(p.nbytes for p in eng.model.parameters())
+    total = torch.cuda.get_device_properties(eng.device).total_memory
+    want = {"limit_bytes": float(total), "weights_bytes": float(weights),
+            "kv_pool_bytes": float(eng.cache.pool_bytes),
+            "used_bytes": float(allocated), "leak_suspect": 0.0,
+            "device_stats": 1.0}
+    got = {k: hbm.get(k) for k in want}
+    line["hbm"] = {k: hbm[k] for k in (
+        "used_bytes", "attributed_bytes", "unattributed_bytes",
+        "weights_bytes", "kv_pool_bytes", "resident_bytes",
+        "graph_pool_bytes", "split_scratch_bytes", "peak_bytes",
+        "headroom_bytes", "limit_bytes")}
+    line["hbm"]["unexplained_share"] = (hbm["unattributed_bytes"]
+                                        / hbm["used_bytes"])
+    log("serve_ops: HBM ledger " + json.dumps(line["hbm"]))
+    if status != 200 or got != want:
+        raise AssertionError(f"serve_ops: HBM ledger {got} != {want}")
+
+
+def _ops_shed(base, eng, line) -> None:
+    before = _shed_total(base)
+    res = _ops_concurrent(lambda i: _ops_generate(base, i), 16)
+    codes = [r[0] for r in res]
+    n429 = codes.count(429)
+    rose = _shed_total(base) - before
+    no_ra = [r for r in res if r[0] == 429 and "retry-after" not in r[1]]
+    line["shedding"] = {"codes": sorted(codes), "shed_total_rose": rose,
+                        "retry_after": sorted({r[1].get("retry-after")
+                                               for r in res if r[0] == 429})}
+    log("serve_ops: 16 concurrent /generate under MAX_INFLIGHT=8 "
+        + json.dumps(line["shedding"]))
+    if set(codes) - {200, 429} or not n429 or no_ra or rose != n429 \
+            or eng.cache.leaked_blocks:
+        raise AssertionError(f"serve_ops: shedding {line['shedding']}, "
+                             f"leaked {eng.cache.leaked_blocks}")
+
+
+def _ops_idempotency(base, eng, line) -> None:
+    key = {"X-SHAI-Idempotency-Key": "chip-smoke-ops-1"}
+    admitted0 = eng.obs.queue_wait.count
+    # the original and a duplicate at once (a join), then two replays
+    res = _ops_concurrent(lambda i: _ops_generate(base, 1, headers=key), 2)
+    res += [_ops_generate(base, 1, headers=key) for _ in range(2)]
+    admitted = eng.obs.queue_wait.count - admitted0
+    bodies = []
+    for status, _, body in res:
+        body = dict(body)
+        body.pop("idempotent_replay", None)
+        bodies.append(json.dumps(body, sort_keys=True))
+    idem = _http_full(base + "/stats")[2].get("idempotency", {})
+    line["idempotency"] = {"codes": [r[0] for r in res],
+                           "replays": sum(bool(r[2].get("idempotent_replay"))
+                                          for r in res),
+                           "engine_admitted": admitted, "cache": idem}
+    log("serve_ops: one key four times " + json.dumps(line["idempotency"]))
+    if [r[0] for r in res] != [200] * 4 or len(set(bodies)) != 1 \
+            or admitted != 1:
+        raise AssertionError(f"serve_ops: idempotency {line['idempotency']}"
+                             f", {len(set(bodies))} distinct bodies")
+
+
+def _ops_tracing(base, line) -> None:
+    from scalable_hw_agnostic_inference_tpu_torch.obs.trace import (
+        well_formed_problems,
+    )
+
+    tid = os.urandom(16).hex()
+    tp = f"00-{tid}-{os.urandom(8).hex()}-01"
+    status, hdrs, _ = _ops_generate(base, 2, headers={"traceparent": tp})
+    back = hdrs.get("traceparent", "")
+    t_status, _, traced = _http_full(base + f"/trace/{tid}")
+    spans = [s["name"] for t in traced.get("traces", []) for s in t["spans"]]
+    problems = [p for t in traced.get("traces", [])
+                for p in well_formed_problems(t)]
+    flight = _http_full(base + "/debug/flight")[2]
+    in_flight = tid in {r["trace_id"] for r in flight["requests"]}
+    line["tracing"] = {"status": status, "traceparent_back": back,
+                       "trace_status": t_status, "spans": spans,
+                       "in_flight_recorder": in_flight,
+                       "engine_steps_dumped": len(flight["engine_steps"])}
+    log("serve_ops: traced request " + json.dumps(line["tracing"]))
+    if status != 200 or back.split("-")[1:2] != [tid] or t_status != 200 \
+            or problems or "model_infer" not in spans or not in_flight:
+        raise AssertionError(f"serve_ops: tracing {line['tracing']} "
+                             f"{problems}")
+
+
+def _ops_sentinel(base, line) -> None:
+    perf0 = _http_full(base + "/debug/conformance")[2]["perf"]
+    _set_faults(base, "engine.step=delay(0.25)")
+    res = _ops_concurrent(lambda i: _ops_generate(base, i), 8)
+    slow = _http_full(base + "/debug/conformance")[2]["perf"]
+    _set_faults(base, "")
+    time.sleep(5.5)   # SHAI_PERF_WINDOW_S and a margin
+    after = _http_full(base + "/debug/conformance")[2]["perf"]
+    line["sentinel"] = {"before": perf0, "slowed": slow, "after": after,
+                        "codes": [r[0] for r in res]}
+    log("serve_ops: sentinel " + json.dumps(line["sentinel"]))
+    if perf0["degraded"] or perf0["conformance"] < 1.0 \
+            or not slow["degraded"] or slow["live_per_s"] > 32.0 \
+            or after["degraded"] or [r[0] for r in res] != [200] * 8:
+        raise AssertionError(f"serve_ops: sentinel {line['sentinel']}")
+
+
+def _ops_watchdog(base, eng, line) -> None:
+    replays0 = sum(_replays(eng).values())
+    _set_faults(base, "engine.step=stall(3)#1")
+    box = {}
+    t = threading.Thread(target=lambda: box.setdefault(
+        "r", _ops_generate(base, 3)))
+    t0 = time.monotonic()
+    t.start()
+    stuck = None
+    while time.monotonic() - t0 < 10.0 and stuck is None:
+        h = _http_full(base + "/health")
+        if h[0] == 503:
+            stuck = (round(time.monotonic() - t0, 3), h[2])
+        time.sleep(0.05)
+    t.join(timeout=120)
+    _set_faults(base, "")
+    health = _http_full(base + "/health")
+    replays = sum(_replays(eng).values()) - replays0
+    line["watchdog"] = {"stuck_at_s": stuck and stuck[0],
+                        "health_503": stuck and stuck[1],
+                        "request": box.get("r", (None,))[0],
+                        "health_after": health[0], "replays": replays,
+                        "recompiles": eng.obs.recompiles}
+    log("serve_ops: step stall " + json.dumps(line["watchdog"]))
+    if stuck is None or "stalled" not in stuck[1].get("error", "") \
+            or box.get("r", (None,))[0] != 200 or health[0] != 200 \
+            or not replays or eng.obs.recompiles:
+        raise AssertionError(f"serve_ops: watchdog {line['watchdog']}")
+
+
+def _ops_benchmark(ctx, base, line) -> None:
+    b_status, _, bench = _http_full(base + "/benchmark", {"n_runs": 3})
+    l_status, _, load = _http_full(base + "/load/2/infer/2")
+    s_status, s_hdrs, page = _http_full(base + "/serve")
+    line["benchmark"] = {"status": b_status, "report": bench.get("report"),
+                         "card": ctx.get("card")}
+    line["load"] = {"status": l_status, "rounds": load.get("rounds"),
+                    "card": ctx.get("card")}
+    log("serve_ops: POST /benchmark " + json.dumps(line["benchmark"]))
+    log("serve_ops: GET /load/2/infer/2 " + json.dumps(line["load"]))
+    if b_status != 200 or l_status != 200 or len(load["rounds"]) != 2 \
+            or s_status != 200 or "/generate" not in page \
+            or not s_hdrs["content-type"].startswith("text/html"):
+        raise AssertionError(f"serve_ops: /benchmark {b_status}, /load "
+                             f"{l_status}, /serve {s_status}")
+
+
+def _ops_drain(base, app, service, eng, line) -> None:
+    res = {}
+    threads = [threading.Thread(target=lambda i=i: res.__setitem__(
+        i, _ops_generate(base, i, n=64))) for i in range(4)]
+    for t in threads:
+        t.start()
+    t0 = time.monotonic()
+    while app.state["status"]["inflight"] < 4:
+        if time.monotonic() - t0 > 30:
+            raise AssertionError("serve_ops: the drain round never went "
+                                 "in flight")
+        time.sleep(0.005)
+    t_drain = time.monotonic()
+    app.state["begin_drain"]()
+    ready = None
+    while time.monotonic() - t_drain < 1.0:
+        ready = _http_full(base + "/readiness")
+        if ready[0] == 503:
+            break
+        time.sleep(0.02)
+    ready_s = time.monotonic() - t_drain
+    shed = _http_full(base + "/generate", {"prompt": "late",
+                                           "max_new_tokens": 4})
+    for t in threads:
+        t.join(timeout=600)
+    while "drained" not in app.state["status"]:
+        if time.monotonic() - t_drain > 90:
+            raise AssertionError("serve_ops: the drain never returned")
+        time.sleep(0.05)
+    drained = app.state["status"]["drained"]
+    line["drain"] = {"readiness": [ready[0], ready[2]],
+                     "readiness_s": round(ready_s, 3),
+                     "late_post": [shed[0], shed[1].get("retry-after")],
+                     "inflight_codes": [res[i][0] for i in range(4)],
+                     "clean": drained["clean"],
+                     "seconds": drained["seconds"],
+                     "loop_alive": service.loop.alive,
+                     "replay_in_flight": eng._pipe is not None,
+                     "leaked_blocks": eng.cache.leaked_blocks}
+    log("serve_ops: drain " + json.dumps(line["drain"]))
+    if ready[0] != 503 or ready[2] != {"status": "draining"} \
+            or shed[0] != 503 or "retry-after" not in shed[1] \
+            or line["drain"]["inflight_codes"] != [200] * 4 \
+            or not drained["clean"] or drained["seconds"] > 60 \
+            or service.loop.alive or eng._pipe is not None \
+            or eng.cache.leaked_blocks:
+        raise AssertionError(f"serve_ops: drain {line['drain']}")
+
+
+def _ops_metrics(base, line) -> None:
+    slo = _http_full(base + "/debug/conformance")[2]["slo"]
+    line["slo"] = slo
+    log("serve_ops: SLO burn " + json.dumps(slo))
+    if slo is None or slo["breach"]:
+        raise AssertionError(f"serve_ops: SLO {slo}")
+    _, _, text = _http_full(base + "/metrics")
+    fams = sorted({ln.split()[2] for ln in text.splitlines()
+                   if ln.startswith("# TYPE ")
+                   and ln.split()[2].startswith(OPS_FAMILIES)})
+    line["metric_families"] = fams
+    log("serve_ops: operating-layer /metrics families " + json.dumps(fams))
+    missing = [p for p in OPS_FAMILIES
+               if not any(f.startswith(p) for f in fams)]
+    if missing:
+        raise AssertionError(f"serve_ops: /metrics lacks {missing}")
+
+
+def _serve_ops_round(ctx, base, eng) -> None:
+    """The operating layer's ten checks, in order (the plain round ran in
+    ``_serve``); nothing here catches its own failure."""
+    from scalable_hw_agnostic_inference_tpu_torch.resilience import faults
+
+    app = ctx["serving"]["app"]
+    service = ctx["serving"]["service"]
+    summary = ctx["serve_summary"]
+    line = {"plain": {k: summary["serve_ops"][k] for k in (
+        "ttft_ms", "tpot_ms", "step_gap_mean_ms")},
+        "serve": {k: summary["serve"][k] for k in (
+            "ttft_ms", "tpot_ms", "step_gap_mean_ms")}
+        if "serve" in summary else "not run in this call",
+        "card": ctx.get("card")}
+    log("serve_ops: plain round beside serve " + json.dumps(line))
+    try:
+        _ops_hbm(ctx, base, eng, line)
+        _ops_shed(base, eng, line)
+        _ops_idempotency(base, eng, line)
+        _ops_tracing(base, line)
+        _ops_sentinel(base, line)
+        _ops_watchdog(base, eng, line)
+        _ops_benchmark(ctx, base, line)
+        _ops_drain(base, app, service, eng, line)
+        _ops_metrics(base, line)
+    finally:
+        faults.reset()   # the next phase starts from the env's schedule
+    pushed = ctx["serving"]["push"].getvalue().splitlines()
+    line["json_lines_pushed"] = len(pushed)
+    if not pushed or "hw-agnostic-infer" not in pushed[0]:
+        raise AssertionError("serve_ops: no JSON-line push")
+    ctx["serve_ops"] = line
+
+
+def phase_serve_ops(ctx):
+    # serve's configuration (bucketed, B1 prefill, B2 decode, async, CUDA
+    # graphs) under the operating layer's settings
+    _serve(ctx, "serve_ops", {
+        "VLLM_CONFIG": os.path.join(REPO, "no-vllm-config.yaml"),
+        "SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "", **SERVE_OPS_ENV},
+        _serve_prompts(), {"flash_attention", "paged_decode_attention"},
+        "B2 paged_decode_attention",
+        then=lambda base, eng: _serve_ops_round(ctx, base, eng))
 
 
 def kernels_line(ctx):

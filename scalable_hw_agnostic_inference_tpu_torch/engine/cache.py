@@ -7,7 +7,8 @@ on the engine's device; block tables are int32 data, so one launch shape
 serves every allocation pattern. Allocation is host-side and O(1) per block.
 An int8 pool (``quant=True``, ``SHAI_KV_QUANT=int8``) holds int8 blocks and
 one f32 scale per (block, kv head) beside them, ``ks``/``vs`` ``[N, Hkv]``
-(``cache.py:151-158``), priced once in :attr:`PagedKVCache.pool_bytes`.
+(``cache.py:151-158``), priced once in :attr:`PagedKVCache.pool_bytes`;
+``used_bytes`` and ``leaked_bytes`` feed the HBM ledger (``:735-764``).
 
 Blocks are refcounted (``cache.py:38-87``): :meth:`PagedKVCache.fork_sequence`
 shares a sequence's blocks with a sibling (``SHAI_KV_COW``, the ``n > 1``
@@ -232,6 +233,19 @@ class PagedKVCache:
 
     def seq(self, seq_id: int) -> SeqAllocation:
         return self._seqs[seq_id]
+
+    @property
+    def used_bytes(self) -> float:
+        """Logical bytes of the allocated blocks (the reserved null block
+        excluded): the pool is one fixed allocation, so block pressure
+        shows here, not in :attr:`pool_bytes`."""
+        used = (self.total_blocks - 1) - self.allocator.n_free
+        return self.pool_bytes * (used / self.total_blocks)
+
+    @property
+    def leaked_bytes(self) -> float:
+        """Bytes of :attr:`leaked_blocks`: the HBM ledger's drift feed."""
+        return self.pool_bytes * (self.leaked_blocks / self.total_blocks)
 
     @property
     def leaked_blocks(self) -> int:

@@ -89,9 +89,26 @@ Five switches of the reference, read at construction:
   batched admission of K identical prompts draws. Cancel or deadline of
   any member aborts the group through the loop (``fanout_siblings``).
 
+The operating layer's hooks (the reference's ``engine.py:300-320``,
+``:802-807``, ``:1076-1241``, ``:1323``, ``:1906-2131``): the SLO engine,
+the perf sentinel and the HBM ledger ride ``self.obs`` (built at
+construction from ``SHAI_SLO_*``, ``SHAI_PERF_*`` and the card's
+memory); every step feeds them host numbers only (its host seconds, the
+tokens it committed, the allocator's host counters), with no device
+tensor, no copy and no synchronize, so the replay path is unchanged. The
+fault sites ``engine.step`` (step entry, both disciplines),
+``engine.kv_reserve`` (``_try_reserve``) and ``engine.compile`` (each
+executable-factory miss, before the function is built: so before its
+eager warm call and before a graph capture opens) fire as the
+reference's do. Prefill calls and decode replays run inside
+``obs.trace.annotate`` ranges (``engine.prefill``, ``engine.decode``),
+entered only while a profiler session is active. Every ``Finished``
+carries its phase ``timing``, which the serving layer grafts onto the
+request's trace, and each step record its ``finished_ids``.
+
 Later slices bring the prefix cache and KV tier (and with them cached
-admission through the fused step), per-tenant telemetry, speculative
-decoding and the multimodal paths.
+admission through the fused step), speculative decoding and the
+multimodal paths.
 """
 
 from __future__ import annotations
@@ -109,16 +126,22 @@ import torch
 from ..core.bucketing import BucketRegistry
 from ..core.device import DeviceLike, resolve_device
 from ..models.llama import LlamaConfig, LlamaForCausalLM
+from ..obs import sentinel as obs_sentinel
+from ..obs.hbm import HbmLedger
+from ..obs.slo import SloEngine, SloTargets
 from ..obs.steploop import StepTelemetry
+from ..obs.trace import annotate
 from ..ops.attention import mixed_phase_groups
 from ..ops.cuda.ragged_paged_attention import (
     groups_scratch_size,
     sm_count,
+    split_scratch_bytes,
     split_scratch_size,
 )
 from ..ops.sampling import sample_logits
+from ..resilience import faults as _faults
 from ..resilience import qos as _qos
-from ..utils.env import env_bool, env_str
+from ..utils.env import env_bool, env_int, env_str
 from ..utils.latency import LatencyCollector
 from . import warm as _warm_mod
 from .cache import PagedKVCache
@@ -254,6 +277,32 @@ class LLMEngine:
         # dequeue and the priority-keyed preemption victim
         self._sched = (_qos.WeightedFairScheduler.from_env()
                        if _qos.qos_enabled() else None)
+        self.obs.qos_sched = self._sched
+        # per-tenant telemetry is gated: an untagged FIFO pod never pays
+        # the telemetry lock in add_request and grows no tenant labels
+        self._tenant_seen = self._sched is not None
+        # conformance instruments (the reference's engine.py:300-320): SLO
+        # burn rates, the perf sentinel (no projection unless one is
+        # given: obs/sentinel.py) and the HBM ledger ride the telemetry
+        self.obs.slo = SloEngine.maybe_from_env(SloTargets(
+            ttft_ms=ecfg.slo_ttft_ms, tpot_ms=ecfg.slo_tpot_ms,
+            error_rate=ecfg.slo_error_rate))
+        self.obs.sentinel = obs_sentinel.PerfSentinel.from_env(
+            default_key=(ecfg.perf_projection
+                         or obs_sentinel.default_projection_key(
+                             ecfg.model, quantized=ecfg.quantization == "int8",
+                             tp=ecfg.tensor_parallel_size)))
+        self._cuda_mem = self.device.type == "cuda"
+        self.obs.hbm = HbmLedger(bytes_limit=(
+            torch.cuda.get_device_properties(self.device).total_memory
+            if self._cuda_mem else 0.0))
+        # ledger cadence: every Nth step (default every step; the drift
+        # windows count samples, so a wider cadence only slows them)
+        self._hbm_every = max(1, env_int("SHAI_HBM_SAMPLE_EVERY", 1))
+        self._static_pools: Optional[Dict[str, float]] = None
+        self._tokens_this_step = 0
+        self._n_exec_last = 0
+        self._step_kind = "idle"
         # async decode pipeline (SHAI_ASYNC_DECODE, default on)
         self._async = _resolve_async()
         self._pipe: Optional[InflightStep] = None
@@ -295,14 +344,16 @@ class LLMEngine:
                     params: Optional[SamplingParams] = None,
                     on_token=None, deadline_at: float = 0.0,
                     priority: int = _qos.PRIORITY_NORMAL,
-                    tenant: str = "", parent_rid: int = -1) -> int:
+                    tenant: str = "", parent_rid: int = -1,
+                    traceparent: str = "", idem_key: str = "") -> int:
         """Queue a request. ``deadline_at``: an absolute
         ``time.monotonic()`` instant (0 = none) past which it finishes as
         ``"timeout"``; ``priority`` (0 high, 1 normal, 2 low, clamped) and
         ``tenant`` are its QoS tag, read under ``SHAI_QOS``.
         ``parent_rid``: the ``n > 1`` fan-out group it belongs to, named by
         its leader's id; ``-2`` makes this request the leader (its own id
-        becomes the parent), ``-1`` none."""
+        becomes the parent), ``-1`` none. ``traceparent`` and ``idem_key``
+        ride the request (its W3C trace context and idempotency key)."""
         params = (params or SamplingParams()).clamp(self.ecfg)
         if not prompt_ids:
             raise ValueError("empty prompt")
@@ -317,12 +368,18 @@ class LLMEngine:
             self._fanout_groups.setdefault(parent_rid, set()).add(rid)
         priority = min(max(int(priority), _qos.PRIORITY_HIGH),
                        _qos.PRIORITY_LOW)
+        tenant = _qos.sanitize_tenant(tenant)
+        if tenant or priority != _qos.PRIORITY_NORMAL:
+            self._tenant_seen = True
+        if self._tenant_seen:
+            self.obs.count_tenant_request(tenant, _qos.class_name(priority))
         self.waiting.append(Request(rid, list(prompt_ids), params,
                                     on_token=on_token,
                                     deadline_at=deadline_at,
                                     t_submit=time.monotonic(),
-                                    priority=priority,
-                                    tenant=_qos.sanitize_tenant(tenant),
+                                    priority=priority, tenant=tenant,
+                                    traceparent=traceparent,
+                                    idem_key=idem_key,
                                     parent_rid=parent_rid))
         return rid
 
@@ -362,7 +419,8 @@ class LLMEngine:
                 self._prune_fanout(req_id)
                 return Finished(req_id, list(r.already_generated),
                                 r.orig_n_prompt, reason,
-                                logprobs=self._queued_lps(r))
+                                logprobs=self._queued_lps(r),
+                                timing=self._timing_of(r))
         abort_slot = next((s for s in self.slots
                            if s is not None and s.req.req_id == req_id),
                           None)
@@ -383,7 +441,8 @@ class LLMEngine:
                     req_id, s.req.already_generated + s.generated,
                     s.req.orig_n_prompt, reason,
                     logprobs=((s.req.already_lp + s.lps[:len(s.generated)])
-                              if s.req.params.logprobs else None))
+                              if s.req.params.logprobs else None),
+                    timing=self._timing_of(s.req, s.t_first))
         return None
 
     @staticmethod
@@ -410,7 +469,8 @@ class LLMEngine:
                             "generated)", r.req_id, len(r.already_generated))
                 self._finish(Finished(
                     r.req_id, list(r.already_generated), r.orig_n_prompt,
-                    "timeout", logprobs=self._queued_lps(r)))
+                    "timeout", logprobs=self._queued_lps(r),
+                    timing=self._timing_of(r)))
         for rid in [s.req.req_id for s in self.slots
                     if s is not None and 0.0 < s.req.deadline_at <= now]:
             fin = self._abort(rid, "timeout")
@@ -465,12 +525,122 @@ class LLMEngine:
         host readback; the lock-step path is the reference oracle. Both
         commit, stream and finish the same tokens on the same ``step()``
         call."""
+        t0 = time.monotonic()
+        self._tokens_this_step = 0
+        self._step_kind = "idle"
+        inj = _faults.get()
+        if inj.active:
+            # chaos sites: step latency/stall (watchdog and deadline
+            # fodder) and step crash (the engine-loop-death path), on the
+            # host before this step enqueues anything
+            inj.sleep_at(_faults.ENGINE_STEP)
+            inj.raise_at(_faults.ENGINE_STEP)
         done = self._step_async() if self._async else self._step_sync()
+        self._record_step(time.monotonic() - t0)
+        return done
+
+    def _record_step(self, duration_s: float) -> None:
+        """One step record (occupancy, KV pressure, finished ids, tenant
+        gauges), then the conformance feeds: the perf sentinel's (tokens,
+        host seconds) sample and one HBM ledger tick. Host numbers only."""
+        tenants = None
+        if self._tenant_seen:
+            tenants = {}
+            for r in self.waiting:
+                tenants.setdefault(r.tenant, [0, 0])[0] += 1
+            for s in self.slots:
+                if s is not None:
+                    tenants.setdefault(s.req.tenant, [0, 0])[1] += 1
         self.obs.record_step(
+            kind=self._step_kind, duration_s=duration_s,
             n_running=self.n_running, n_waiting=self.n_waiting,
             n_chunking=self.n_chunking,
-            blocks_free=self.cache.allocator.n_free, finished=len(done))
-        return done
+            blocks_free=self.cache.allocator.n_free,
+            finished=len(self._done_this_step),
+            finished_ids=[f.req_id for f in self._done_this_step],
+            tenants=tenants,
+            # a replay still in flight has not completed: the step's last
+            # completed work is its readback (the watchdog's clock)
+            completed_at=self._t_fetch if self._pipe is not None else None)
+        # a step that built an executable is warmup, not throughput: it
+        # stays out of the sentinel's window (as out of the step gap)
+        compiled = self.n_executables != self._n_exec_last
+        self._n_exec_last = self.n_executables
+        sen = self.obs.sentinel
+        if sen is not None and not compiled and sen.record_step(
+                kind=self._step_kind, duration_s=duration_s,
+                tokens=self._tokens_this_step):
+            # healthy -> degraded: attach the numbers that say why
+            gap = self.obs.step_gap.snapshot()
+            sen.diagnose({
+                "step_gap_mean_ms": round(
+                    gap["sum"] / gap["count"] * 1e3, 4) if gap["count"]
+                else 0.0,
+                "pipeline_flushes": self.obs.pipeline_flushes,
+                "preemptions": self.obs.preemptions,
+                "ttft_count": self.obs.ttft.count,
+                "n_running": self.n_running,
+                "n_waiting": self.n_waiting,
+            })
+        self._sample_hbm()
+
+    def _price_static_pools(self) -> Dict[str, float]:
+        """The pools that change only when an executable is built: the
+        weights, the KV pool, and the decode graphs' static batch inputs
+        (where the port keeps the device-resident batch); in ``extra``,
+        the CUDA graph pool and the split scratch, which the allocator
+        holds outside every attributed pool."""
+        graphs = (list(self._decode_fns.values())
+                  + list(self._fused_fns.values())
+                  + ([self._fused_chunk] if self._fused_chunk else []))
+        return {
+            "weights": float(sum(p.nbytes for p in self.model.parameters())),
+            "kv_pool": float(self.cache.pool_bytes),
+            "resident": float(sum(
+                sum(t.nbytes for t in g.inputs.values()) + g.uniforms.nbytes
+                for g in graphs)),
+            "graph_pool_bytes": float(self._graphs.bytes() or 0),
+            "split_scratch_bytes": float(
+                split_scratch_bytes(self.device) if self._cuda_mem else 0),
+        }
+
+    def _sample_hbm(self) -> None:
+        """One HBM ledger tick (the reference's ``engine.py:1131-1200``):
+        attribute device bytes to named pools and feed the drift detector
+        the UNEXPLAINED share (KV bytes no live sequence holds, plus
+        device bytes outside every pool). On the card the bytes in use and
+        the peak are the caching allocator's host-side counters, read
+        every tick; an exception from them propagates."""
+        led = self.obs.hbm
+        if led is None or self._step_count % self._hbm_every:
+            return
+        if (self._static_pools is None
+                or self._static_pools["n_exec"] != self.n_executables):
+            self._static_pools = dict(self._price_static_pools(),
+                                      n_exec=self.n_executables)
+        st = self._static_pools
+        kv_used = self.cache.used_bytes
+        kv_leaked = self.cache.leaked_bytes
+        # the in-flight lookahead's outputs are its graph's static outputs,
+        # inside the graph pool: no device bytes of its own
+        pools = {"weights": st["weights"], "kv_pool": st["kv_pool"],
+                 "resident": st["resident"], "inflight": 0.0}
+        bytes_in_use = peak = None
+        if self._cuda_mem:
+            bytes_in_use = torch.cuda.memory_allocated(self.device)
+            peak = torch.cuda.max_memory_allocated(self.device)
+        drift = kv_leaked
+        if bytes_in_use is not None:
+            drift += max(0.0, float(bytes_in_use) - sum(pools.values()))
+        led.sample(
+            pools=pools,
+            composition=(self.n_running, self.n_waiting, self.n_chunking),
+            bytes_in_use=bytes_in_use, peak_bytes=peak,
+            # no counterpart of the largest free block in torch's counters
+            largest_free=None, drift_value=drift,
+            extra={"kv_used_bytes": kv_used, "kv_leaked_bytes": kv_leaked,
+                   "graph_pool_bytes": st["graph_pool_bytes"],
+                   "split_scratch_bytes": st["split_scratch_bytes"]})
 
     def _step_sync(self) -> List[Finished]:
         """Lock-step step: marshal -> dispatch -> readback -> bookkeeping,
@@ -544,6 +714,7 @@ class LLMEngine:
             self._flush_pipeline("kv_pressure")
             self._decode_dispatch()
             return
+        self._step_kind = "decode"
         for s in running:
             self.cache.extend(s.req.req_id, 1)
         Bb, graph = self._decode_for(self._max_ctx_blocks(running),
@@ -567,6 +738,7 @@ class LLMEngine:
         running = self._running_slots()
         if not running:
             return  # chunk-only step: every live slot is mid-prefill
+        self._step_kind = "decode"
         n_exec = self.n_executables
         Bb, graph = self._decode_for(self._max_ctx_blocks(running),
                                      len(running))
@@ -595,7 +767,8 @@ class LLMEngine:
             graph.draw(self._gen)
             self._load_window(graph)
             t_d = time.monotonic()
-            graph.replay()
+            with annotate("engine.decode"):
+                graph.replay()
             host, lp_host, event = self._stage_tokens(graph, Bb, want_lp)
         if cold and gap_ok and self._t_fetch \
                 and self._last_decode_step == self._step_count - 1:
@@ -704,14 +877,21 @@ class LLMEngine:
     def _finish(self, fin: Finished) -> None:
         self._done_this_step.append(fin)
         self._prune_fanout(fin.req_id)
+        if self.obs.slo is not None:
+            self.obs.slo.record_outcome(fin.stop_reason)
 
     def _mark_first_token(self, req: Request) -> float:
         """TTFT record point (first admission only — a preemption resume is
         not a new first token); returns the timestamp for TPOT."""
         now = time.monotonic()
         if not req.already_generated and req.t_submit:
-            self.ttft.record(now - req.t_submit)
-            self.obs.ttft.observe(now - req.t_submit)
+            ttft = now - req.t_submit
+            self.ttft.record(ttft)
+            self.obs.ttft.observe(ttft)
+            if self._tenant_seen:
+                self.obs.note_tenant_ttft(req.tenant, ttft)
+            if self.obs.slo is not None:
+                self.obs.slo.record_ttft(ttft)
         if not req.t_first:
             req.t_first = now
         return now
@@ -723,6 +903,8 @@ class LLMEngine:
             tpot = (time.monotonic() - s.t_first) / len(s.generated)
             self.tpot.record(tpot)
             self.obs.tpot.observe(tpot)
+            if self.obs.slo is not None:
+                self.obs.slo.record_tpot(tpot)
 
     def _note_admitted(self, req: Request) -> None:
         """Queue-wait record point at the first admission only (a
@@ -731,6 +913,32 @@ class LLMEngine:
             req.t_admit = time.monotonic()
             if req.t_submit:
                 self.obs.queue_wait.observe(req.t_admit - req.t_submit)
+
+    def _timing_of(self, req: Request, t_first: float = 0.0
+                   ) -> Dict[str, float]:
+        """Per-phase timeline of a Finished (the reference's
+        ``_timing_of``): monotonic stamps and the queue, prefill and decode
+        durations. A missing stamp falls forward to now, collapsing the
+        phases that never ran to zero."""
+        now = time.monotonic()
+        t_sub = req.t_submit or now
+        t_adm = min(req.t_admit or now, now)
+        # the request's own stamp first: a preemption resume's slot
+        # t_first is the resumed segment's
+        t_f = min(req.t_first or t_first or now, now)
+        t_adm = max(t_sub, t_adm)
+        t_f = max(t_adm, t_f)
+        out = {
+            "t_submit": t_sub, "t_admit": t_adm, "t_first": t_f,
+            "t_done": now,
+            "queue_s": round(max(0.0, t_adm - t_sub), 6),
+            "prefill_s": round(max(0.0, t_f - t_adm), 6),
+            "decode_s": round(max(0.0, now - t_f), 6),
+            "total_s": round(max(0.0, now - t_sub), 6),
+        }
+        if req.obs_extra:
+            out.update(req.obs_extra)
+        return out
 
     def _start_slot(self, slot: int, req: Request, tok: int) -> None:
         """Seat a fully-prefilled request with its sampled first token."""
@@ -753,16 +961,21 @@ class LLMEngine:
         """True when the pool can hold ``n_tokens`` plus one decode block.
         When it can't AND nothing is running, the request is rejected and
         finished so the queue can't starve."""
-        if self._need_blocks(n_tokens) <= self.cache.n_available:
+        need = self._need_blocks(n_tokens)
+        # chaos site: an injected reservation failure reads as a dry pool,
+        # taking exactly the wait-or-reject ladder a real one takes
+        available = (-1 if _faults.get().should_fail(_faults.KV_RESERVE)
+                     else self.cache.n_available)
+        if need <= available:
             return True
         if not any(s is not None for s in self.slots):
             self.waiting.popleft()
             log.error("rejecting req %d: needs %d blocks, pool max %d",
-                      req.req_id, self._need_blocks(n_tokens),
-                      self.cache.allocator.n_free)
+                      req.req_id, need, self.cache.allocator.n_free)
             self._finish(Finished(req.req_id, list(req.already_generated),
                                   req.orig_n_prompt, "rejected",
-                                  logprobs=self._queued_lps(req)))
+                                  logprobs=self._queued_lps(req),
+                                  timing=self._timing_of(req)))
         return False
 
     def _admit_batch(self) -> None:
@@ -817,7 +1030,7 @@ class LLMEngine:
             topp[i] = req.params.top_p
         fn = self._prefill_for(bucket, Kp)
         dev = self.device
-        with torch.inference_mode():
+        with torch.inference_mode(), annotate("engine.prefill"):
             _, logits = fn(self.model, self.cache.kv,
                            torch.from_numpy(ids).to(dev),
                            torch.from_numpy(n_text).to(dev),
@@ -894,8 +1107,9 @@ class LLMEngine:
             topk[i] = r.params.top_k
             topp[i] = r.params.top_p
         dev = self.device
-        with torch.inference_mode():
-            _, logits = self._prefill_for(bucket, 1)(
+        fn = self._prefill_for(bucket, 1)
+        with torch.inference_mode(), annotate("engine.prefill"):
+            _, logits = fn(
                 self.model, self.cache.kv, torch.from_numpy(ids).to(dev),
                 torch.tensor([n], dtype=torch.int32, device=dev),
                 self._table_of(head))
@@ -944,11 +1158,11 @@ class LLMEngine:
         dev = self.device
         ids = torch.tensor([req.prompt_ids[:C]], dtype=torch.int32,
                            device=dev)
-        with torch.inference_mode():
-            self._prefill_for(C, 1)(
-                self.model, self.cache.kv, ids,
-                torch.tensor([C], dtype=torch.int32, device=dev),
-                self._table_of(req))
+        fn = self._prefill_for(C, 1)
+        with torch.inference_mode(), annotate("engine.prefill"):
+            fn(self.model, self.cache.kv, ids,
+               torch.tensor([C], dtype=torch.int32, device=dev),
+               self._table_of(req))
         self.slots[slot] = _Running(req, slot, [], pending_token=-1,
                                     prefill_cursor=C)
 
@@ -982,11 +1196,13 @@ class LLMEngine:
                 logits = self._fused_chunk_call(window)
             else:
                 fn = self._cont_for(start // self.ecfg.block_size)
-                _, logits = fn(self.model, self.cache.kv,
-                               torch.from_numpy(ids).to(dev),
-                               torch.tensor([n], dtype=torch.int32,
-                                            device=dev),
-                               self._table_of(req), *self._cont_args(start))
+                with annotate("engine.prefill"):
+                    _, logits = fn(self.model, self.cache.kv,
+                                   torch.from_numpy(ids).to(dev),
+                                   torch.tensor([n], dtype=torch.int32,
+                                                device=dev),
+                                   self._table_of(req),
+                                   *self._cont_args(start))
             if final:
                 p = req.params
                 tok = sample_logits(logits, self._gen, p.temperature,
@@ -1013,6 +1229,8 @@ class LLMEngine:
         bucket = self.buckets.max
         key = self._cont_key(start_blocks, bucket)
         if key not in self._prefill:
+            # chaos site: executable-factory compile failure
+            _faults.get().raise_at(_faults.COMPILE)
             if self._warmed:
                 # a build after warmup: a shape escaped the closed set
                 self.obs.count_recompile("prefill_cont")
@@ -1039,6 +1257,8 @@ class LLMEngine:
     def _prefill_for(self, bucket: int, n_seqs: int = 1):
         key = (bucket, n_seqs)
         if key not in self._prefill:
+            # chaos site: executable-factory compile failure
+            _faults.get().raise_at(_faults.COMPILE)
             if self._warmed:
                 self.obs.count_recompile("prefill")
             self._prefill[key] = make_prefill(
@@ -1093,6 +1313,10 @@ class LLMEngine:
               else self._batch_bucket(n_active))
         key = (m, bb)
         if key not in self._decode_fns:
+            # chaos site: fires before the function is built, so before
+            # its eager call and before the capture opens (a raise inside
+            # a capture would leave the stream capturing)
+            _faults.get().raise_at(_faults.COMPILE)
             if self._warmed:
                 self.obs.count_recompile("decode")
             # the feedback variant serves both disciplines: lock-step fills
@@ -1111,6 +1335,8 @@ class LLMEngine:
     # -- fused mixed-phase step (SHAI_FUSED_STEP) --------------------------
 
     def _fused_graph(self, key, bb: int) -> DecodeGraph:
+        # chaos site, before the function is built and the capture opens
+        _faults.get().raise_at(_faults.COMPILE)
         if self._warmed:
             self.obs.count_recompile("fused")
         graph = DecodeGraph(
@@ -1166,7 +1392,8 @@ class LLMEngine:
         graph = self._chunk_graph()
         with torch.inference_mode():
             graph.load_window(window)
-            graph.replay()
+            with annotate("engine.prefill"):
+                graph.replay()
         return graph.c_logits
 
     def _flush_chunk(self) -> None:
@@ -1221,7 +1448,9 @@ class LLMEngine:
                 reason = "length"
             self._finish(Finished(victim.req.req_id, emitted,
                                   victim.req.orig_n_prompt, reason,
-                                  logprobs=lps))
+                                  logprobs=lps,
+                                  timing=self._timing_of(victim.req,
+                                                         victim.t_first)))
             return
         self._record_tpot(victim)
         params = dataclasses.replace(
@@ -1330,6 +1559,7 @@ class LLMEngine:
         running = self._running_slots()
         if not running:
             return
+        self._step_kind = "decode"
         n_exec = self.n_executables
         Bb, graph = self._decode_for(self._max_ctx_blocks(running),
                                      len(running))
@@ -1344,7 +1574,8 @@ class LLMEngine:
             graph.draw(self._gen)
             self._load_window(graph)
             t_d = time.monotonic()
-            graph.replay()
+            with annotate("engine.decode"):
+                graph.replay()
             if self._t_fetch and self.n_executables == n_exec \
                     and self._last_decode_step == self._step_count - 1:
                 # the lock-step inter-step gap: the host work (marshal,
@@ -1368,6 +1599,7 @@ class LLMEngine:
             if self.slots[s.slot] is not s:
                 continue
             s.generated.append(s.pending_token)
+            self._tokens_this_step += 1  # the perf sentinel's feed
             p = s.req.params
             hit_eos = s.pending_token == p.eos_id
             if hit_eos:
@@ -1385,7 +1617,8 @@ class LLMEngine:
                     s.req.req_id, s.req.already_generated + s.generated,
                     s.req.orig_n_prompt, "eos" if hit_eos else "length",
                     logprobs=((s.req.already_lp + s.lps)
-                              if p.logprobs else None)))
+                              if p.logprobs else None),
+                    timing=self._timing_of(s.req, s.t_first)))
                 self._release_slot(s)
 
     def _apply_sampled(self, running, nxt, top_ids, top_lp, tok_lp) -> None:

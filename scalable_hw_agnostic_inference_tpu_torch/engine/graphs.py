@@ -33,8 +33,11 @@ attributes and primes cuBLAS outside the capture), then is captured on
 that side stream into the memory pool every graph of the engine shares
 (:class:`GraphPool`). The split scratch of B2/B3 is reserved on the capture
 stream for the engine's largest key before the first capture, and a
-capture that would grow it raises. A failed capture raises; nothing turns
-graphs off. The captured graph holds the addresses of the weights and the
+capture that would grow it raises. Python's garbage collector is run before
+and held off during a capture: a collection inside it could destroy a dead
+engine's graphs, and a graph's reset is not permitted while a stream
+captures (it invalidates the capture). A failed capture raises; nothing
+turns graphs off. The captured graph holds the addresses of the weights and the
 KV pool, which the runner writes in place; each replay checks that the
 pool's tensors are still the ones captured.
 
@@ -50,6 +53,7 @@ the tests, not a fallback.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -242,6 +246,9 @@ class DecodeGraph:
         stream.synchronize()
         graph = torch.cuda.CUDAGraph()
         before = _launch_counts()
+        gc.collect()   # dead engines' graphs go now, outside any capture
+        collecting = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
         try:
             with _rpa.frozen_scratch(), torch.cuda.graph(
@@ -249,6 +256,8 @@ class DecodeGraph:
                     capture_error_mode="thread_local"):
                 outs = self.eager()
         finally:
+            if collecting:
+                gc.enable()
             # capture launched nothing: the counts it added come off here
             # and go back on at every replay
             added = [now - was for now, was in zip(_launch_counts(), before)]

@@ -4,7 +4,8 @@ Port of ``scalable_hw_agnostic_inference_tpu/engine/loop.py``
 (``EngineLoop`` with ``submit`` and its deadline and QoS tag,
 ``submit_group`` for the ``n > 1`` fan-out, ``cancel`` (a member of a
 group cancels the group), ``drain`` and ``stop``, and the idle hook
-``engine.finish_pending``). One daemon thread owns the engine (and through
+``engine.finish_pending``, which the loop also runs on a clean exit, so a
+drained loop leaves no replay in flight). One daemon thread owns the engine (and through
 it the device); callers submit token-id prompts and wait on a future, so
 concurrent requests coalesce into the running batch. Live migration comes
 in a later slice.
@@ -81,12 +82,14 @@ class EngineLoop:
     def submit(self, prompt_ids: Sequence[int],
                params: Optional[SamplingParams] = None,
                on_token=None, deadline_at: float = 0.0,
-               priority: int = PRIORITY_NORMAL, tenant: str = "") -> Future:
+               priority: int = PRIORITY_NORMAL, tenant: str = "",
+               traceparent: str = "", idem_key: str = "") -> Future:
         """Enqueue a request; the future resolves to a ``Finished``.
         ``on_token`` is called from the loop thread once per output token,
         in order, and must be cheap (put onto a queue, nothing more).
         ``deadline_at`` (absolute ``time.monotonic()``, 0 = none),
-        ``priority`` and ``tenant`` go to ``LLMEngine.add_request``."""
+        ``priority``, ``tenant``, ``traceparent`` and ``idem_key`` go to
+        ``LLMEngine.add_request``."""
         if self._stop.is_set():
             raise RuntimeError("engine loop is stopped")
         if self._draining.is_set():
@@ -94,6 +97,9 @@ class EngineLoop:
         fut: Future = Future()
         kw = {"deadline_at": deadline_at, "priority": priority,
               "tenant": tenant}
+        # the trace context and idempotency key ride along when present
+        kw.update({k: v for k, v in (("traceparent", traceparent),
+                                     ("idem_key", idem_key)) if v})
         self._submit_q.put((list(prompt_ids), params or SamplingParams(),
                             on_token, kw, fut))
         # close the put-after-stop window: if the loop died between the
@@ -107,7 +113,7 @@ class EngineLoop:
                      on_tokens: Optional[Sequence] = None,
                      deadline_at: float = 0.0,
                      priority: int = PRIORITY_NORMAL,
-                     tenant: str = "") -> List[Future]:
+                     tenant: str = "", traceparent: str = "") -> List[Future]:
         """The ``n > 1`` fan-out: ONE tokenized prompt, K sampling-param
         sets, K futures. The group rides one queue item, so its members
         are queued together (what lets the engine admit them as one
@@ -120,6 +126,8 @@ class EngineLoop:
         futs: List[Future] = [Future() for _ in params_list]
         kw = {"deadline_at": deadline_at, "priority": priority,
               "tenant": tenant}
+        if traceparent:
+            kw["traceparent"] = traceparent
         self._submit_q.put((list(prompt_ids), list(params_list),
                             list(on_tokens or [None] * len(futs)), kw,
                             futs))
@@ -237,6 +245,9 @@ class EngineLoop:
                     log.exception("engine step failed")
                     self._stop.set()  # a dead loop must refuse submissions
                     raise
+            # a clean stop (drain, close) retires the last lookahead, so no
+            # replay is left in flight behind the stopped loop
+            self.engine.finish_pending()
         finally:
             # sole cleanup point: runs on clean stop AND on crash
             self._fail_all(RuntimeError("engine loop is stopped"))

@@ -247,6 +247,13 @@ def groups_scratch_size(groups: Groups, n_heads: int, n_kv_heads: int,
     return splits * n * n_heads * (head_dim + 2), n * n_kv_heads
 
 
+def split_scratch_bytes(device: torch.device) -> int:
+    """Bytes the split scratch of every stream of ``device`` holds (the
+    HBM ledger reports them beside its unattributed bytes)."""
+    return sum(t.nbytes for (index, _), pair in _scratch.items()
+               if index == device.index for t in pair)
+
+
 def reserve_split_scratch(device: torch.device, stream: int, numel: int,
                           n_counters: int) -> None:
     """Grow the split scratch of launches on ``stream`` to at least

@@ -2,13 +2,20 @@
 
 Trimmed copy of ``scalable_hw_agnostic_inference_tpu/serve/asgi.py``: the
 router, ``Request``/``Response``/``StreamingResponse``/``HTTPError`` and
-the ASGI-3 ``http`` entry point. Route patterns take ``{name}`` (string)
-and ``{name:int}`` segments, passed to the handler as keyword arguments.
-A :class:`StreamingResponse` (an SSE token stream) is pulled on the app's
+the ASGI-3 ``http`` entry point with query strings and the request
+trace. Route patterns take ``{name}`` (string) and ``{name:int}``
+segments, passed to the handler as keyword arguments. A
+:class:`StreamingResponse` (an SSE token stream) is pulled on the app's
 own stream executor, never the model lane, while a disconnect watch races
 each pull: when the client goes first, the generator is closed, and its
-``finally`` (the vllm unit's ``loop.cancel``) frees the engine's slot. Query strings, the lifespan
-protocol and request tracing come in a later slice.
+``finally`` (the vllm unit's ``loop.cancel``) frees the engine's slot.
+
+Every request outside :attr:`App.trace_exclude` owns an ``obs.trace``
+trace (continuing a valid inbound W3C ``traceparent``), active on the
+handler's context; the response carries its ``traceparent``, and when the
+request ends (a stream at its drain) the closed trace goes to
+:attr:`App.trace_sink` (the flight recorder). The lifespan protocol is
+left out: ``serve.httpd`` runs startup itself.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ import logging
 import re
 import traceback
 from typing import Any, Awaitable, Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qsl
+
+from ..obs import trace as obs_trace
 
 log = logging.getLogger(__name__)
 
@@ -52,8 +62,11 @@ class Request:
             k.decode("latin-1").lower(): v.decode("latin-1")
             for k, v in scope.get("headers", [])
         }
+        self.query: Dict[str, str] = dict(
+            parse_qsl(scope.get("query_string", b"").decode("latin-1")))
         self.path_params: Dict[str, Any] = {}
         self.body: bytes = body
+        self.route_matched = False  # set by dispatch when a handler runs
 
     def json(self) -> Any:
         if not self.body:
@@ -157,6 +170,15 @@ class App:
         # (minutes for a queued request), so sharing the model lane or the
         # loop's default executor would starve them
         self._stream_pool: Optional[concurrent.futures.Executor] = None
+        # completed request traces go here (serve.app points it at the
+        # flight recorder); None = drop them after the response
+        self.trace_sink: Optional[Callable[[Dict[str, Any]], None]] = None
+        # probe and scrape surfaces stay untraced: a kubelet polling
+        # /readiness would evict every real request from the flight ring;
+        # entries holding "{" are route patterns
+        self.trace_exclude = {"/health", "/readiness", "/metrics", "/stats",
+                              "/debug/flight"}
+        self._exclude_patterns: Dict[str, re.Pattern] = {}
 
     def route(self, pattern: str, methods: Tuple[str, ...] = ("GET",)):
         def deco(fn):
@@ -197,6 +219,20 @@ class App:
         if self._stream_pool is not None:
             self._stream_pool.shutdown(wait=False, cancel_futures=True)
 
+    def _trace_excluded(self, path: str) -> bool:
+        if path in self.trace_exclude:
+            return True
+        for entry in self.trace_exclude:
+            if "{" not in entry:
+                continue
+            rx = self._exclude_patterns.get(entry)
+            if rx is None:
+                rx = self._exclude_patterns[entry] = _compile_pattern(
+                    entry)[0]
+            if rx.match(path):
+                return True
+        return False
+
     def _streams(self) -> concurrent.futures.Executor:
         if self._stream_pool is None:
             self._stream_pool = concurrent.futures.ThreadPoolExecutor(
@@ -213,6 +249,7 @@ class App:
                 allowed = True
                 continue
             request.path_params = params
+            request.route_matched = True
             result = route.handler(request, **params)
             if inspect.isawaitable(result):
                 result = await result
@@ -238,26 +275,60 @@ class App:
                 return
 
         request = Request(scope, body)
+        # W3C trace-context ingest: a valid inbound traceparent continues
+        # the caller's trace id, else a fresh trace roots here (None with
+        # tracing off). Excluded surfaces trace only a correlated call
+        tp_header = request.headers.get("traceparent")
+        tr = None
+        if (not self._trace_excluded(request.path)
+                or obs_trace.parse_traceparent(tp_header) is not None):
+            tr = obs_trace.begin_request_trace(
+                f"{request.method} {request.path}", tp_header,
+                method=request.method, path=request.path)
+
+        def _finish_trace(status: int) -> None:
+            if tr is None or tr.root.closed:
+                return
+            tr.root.attrs["status"] = status
+            tr.close()
+            # only requests a handler served are sunk: unrouted traffic
+            # must not turn over the flight ring
+            if request.route_matched and self.trace_sink is not None:
+                try:
+                    self.trace_sink(tr.to_dict())
+                except Exception:  # recorder trouble must not fail requests
+                    log.exception("trace sink failed")
+
+        with obs_trace.use_trace(tr):
+            try:
+                response = await self._dispatch(request)
+            except HTTPError as e:
+                response = Response({"detail": e.detail}, status=e.status,
+                                    headers=e.headers)
+            except Exception:
+                log.error("handler error on %s %s\n%s", request.method,
+                          request.path, traceback.format_exc())
+                response = Response({"detail": "internal server error"},
+                                    status=500)
+        if tr is not None:
+            # traceparent emit: the client and downstream hops join here
+            response.headers.setdefault("traceparent", tr.traceparent)
+        # the root span covers the stream's drain, and a request aborted
+        # mid-stream still closes and sinks its trace
         try:
-            response = await self._dispatch(request)
-        except HTTPError as e:
-            response = Response({"detail": e.detail}, status=e.status,
-                                headers=e.headers)
-        except Exception:
-            log.error("handler error on %s %s\n%s", request.method,
-                      request.path, traceback.format_exc())
-            response = Response({"detail": "internal server error"},
-                                status=500)
-        await send({
-            "type": "http.response.start",
-            "status": response.status,
-            "headers": [(k.encode("latin-1"), v.encode("latin-1"))
-                        for k, v in response.headers.items()],
-        })
-        if isinstance(response, StreamingResponse):
-            await self._drain_stream(response, receive, send)
-            return
-        await send({"type": "http.response.body", "body": response.body})
+            await send({
+                "type": "http.response.start",
+                "status": response.status,
+                "headers": [(k.encode("latin-1"), v.encode("latin-1"))
+                            for k, v in response.headers.items()],
+            })
+            if isinstance(response, StreamingResponse):
+                await self._drain_stream(response, receive, send)
+                return
+            await send({"type": "http.response.body",
+                        "body": response.body})
+        finally:
+            _finish_trace(response.status)
 
     async def _drain_stream(self, response: StreamingResponse,
                             receive: Callable[[], Awaitable],

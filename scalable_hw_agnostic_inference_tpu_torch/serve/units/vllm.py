@@ -17,8 +17,15 @@ service's). The tokenizer is the byte-level ``ByteTokenizer``, so a chat
 prompt is the reference's plain ``role: content`` layout. ``n > 1`` is
 one fan-out group (``EngineLoop.submit_group``: one tokenization, one
 queue item; one prefill with copy-on-write forks under ``SHAI_KV_COW``),
-and not streamed. Checkpoint loading, chat templates, images, the KV
-network and migration come in later slices.
+and not streamed. The operating layer's unit half (``:22,307-345``): the
+step watchdog behind ``liveness_error`` (built after ``EngineLoop.start``,
+so load, warmup and graph capture never trip it; it reads the engine's
+last RETIRED step), ``drain`` through ``EngineLoop.drain``, the request
+trace (``tokenize`` and ``detokenize`` spans, the engine's queue, prefill
+and decode phases grafted under ``model_infer``, ``engine_req_id`` on the
+root) and the idempotency key and ``traceparent`` passed to the engine.
+Checkpoint loading, chat templates, images, the KV network and migration
+come in later slices.
 """
 
 from __future__ import annotations
@@ -43,10 +50,12 @@ from ...models.llama import (
     geometry_params,
     random_params,
 )
+from ...obs import trace as obs_trace
 from ...ops.cuda.flash_attention import HEAD_DIMS
 from ...resilience import deadline as rz_deadline
 from ...resilience import qos as rz_qos
-from ...utils.env import ServeConfig
+from ...resilience.drain import StepWatchdog
+from ...utils.env import ServeConfig, env_float
 from ..app import ModelService
 from ..asgi import HTTPError, StreamingResponse
 from .common import SseTextAssembler
@@ -84,6 +93,7 @@ class VllmService(ModelService):
         self._ecfg_error: Optional[Exception] = None
         self._engine = None
         self.loop = None
+        self._watchdog: Optional[StepWatchdog] = None
         self.warm_seconds = 0.0
         try:
             self.ecfg = self._resolve_ecfg(cfg)
@@ -174,6 +184,14 @@ class VllmService(ModelService):
         self._engine = engine
         self._SamplingParams = SamplingParams
         self.loop = EngineLoop(engine).start()
+        # step watchdog (liveness): work pending but no step retiring for
+        # max(SHAI_WATCHDOG_MIN_S, SHAI_WATCHDOG_MULT x p99 step) fails
+        # /health. Built after the loop starts: load, warmup and every
+        # graph capture are behind us
+        self._watchdog = StepWatchdog(
+            lambda: engine.obs, lambda: engine.has_work,
+            multiplier=env_float("SHAI_WATCHDOG_MULT", 30.0),
+            min_stall_s=env_float("SHAI_WATCHDOG_MIN_S", 10.0))
 
     def close(self) -> None:
         if self.loop is not None:
@@ -184,14 +202,25 @@ class VllmService(ModelService):
             return "engine loop is not running"
         return None
 
+    def liveness_error(self) -> Optional[str]:
+        return None if self._watchdog is None else self._watchdog.check()
+
+    def drain(self, budget_s: float) -> None:
+        """SIGTERM: let queued and running requests finish within the
+        budget, then stop the loop with no replay left in flight
+        (outstanding futures fail on the way out)."""
+        if self.loop is not None:
+            self.loop.drain(budget_s)
+
     def engine_telemetry(self):
         return None if self._engine is None else self._engine.obs
 
     def _encode(self, text: str) -> List[int]:
         """Byte ids with BOS, cut to the engine's chunked-prefill cap (not
         the largest bucket: longer prompts chunk)."""
-        ids, n = self.tokenizer.encode(text, self._engine.max_prompt_len)
-        return [int(i) for i in ids[:n]]
+        with obs_trace.span("tokenize"):
+            ids, n = self.tokenizer.encode(text, self._engine.max_prompt_len)
+            return [int(i) for i in ids[:n]]
 
     def _decode(self, ids) -> str:
         return self.tokenizer.decode(ids)
@@ -238,7 +267,9 @@ class VllmService(ModelService):
         ids = self._encode(prompt)
         params = self._sampling_from(payload)
         return self._collect(self.loop.submit(
-            ids, params, deadline_at=self._deadline_at(), **self._qos_kw()))
+            ids, params, deadline_at=self._deadline_at(),
+            traceparent=obs_trace.current_traceparent() or "",
+            idem_key=str(payload.get("idem_key") or ""), **self._qos_kw()))
 
     @staticmethod
     def _deadline_at() -> float:
@@ -272,6 +303,14 @@ class VllmService(ModelService):
         from Finished to the serving dict (rejected -> 503, timeout ->
         504), shared by infer and the OpenAI ``n > 1`` samples."""
         fin = fut.result(timeout=self._result_timeout())
+        # graft the engine's phase timeline onto the request trace, under
+        # the live span (model_infer): queue, prefill and decode ran on the
+        # loop thread; the root carries the engine request id, the join
+        # key with the step records' finished_ids (first id wins for n>1)
+        tr = obs_trace.current_trace()
+        if tr is not None and fin.timing:
+            tr.add_phase_spans(fin.timing, parent=obs_trace.current_span())
+            tr.root.attrs.setdefault("engine_req_id", fin.req_id)
         if fin.stop_reason == "rejected":
             raise HTTPError(503, "request rejected: prompt cannot fit the KV "
                                  "pool")
@@ -279,8 +318,10 @@ class VllmService(ModelService):
             raise HTTPError(
                 504, f"deadline exceeded: request timed out in the engine "
                      f"after {len(fin.token_ids)} tokens")
+        with obs_trace.span("detokenize"):
+            text = self._decode(fin.token_ids)
         out = {
-            "generated_text": self._decode(fin.token_ids),
+            "generated_text": text,
             "n_tokens": len(fin.token_ids),
             "n_prompt": fin.n_prompt,
             "stop_reason": fin.stop_reason,
@@ -357,6 +398,7 @@ class VllmService(ModelService):
             ids = self._encode(prompt)
             futs = self.loop.submit_group(
                 ids, [params] * n, deadline_at=self._deadline_at(),
+                traceparent=obs_trace.current_traceparent() or "",
                 **self._qos_kw())
             outs = []
             try:
@@ -465,9 +507,14 @@ class VllmService(ModelService):
         stops = [stop] if isinstance(stop, str) else list(stop)
         tokq: "queue.Queue[Any]" = queue.Queue()
         end = object()
-        fut = self.loop.submit(ids, params, on_token=tokq.put,
-                               deadline_at=self._deadline_at(),
-                               **self._qos_kw())
+        fut = self.loop.submit(
+            ids, params, on_token=tokq.put, deadline_at=self._deadline_at(),
+            traceparent=obs_trace.current_traceparent() or "",
+            **self._qos_kw())
+        # the stream drains on a stream thread, outside the request's
+        # context: keep its trace and span to graft the phases onto
+        req_trace = obs_trace.current_trace()
+        req_span = obs_trace.current_span()
         # the loop resolves the future after the last on_token call, so
         # the marker lands behind every token (the reference polls the
         # future every 0.2 s instead)
@@ -523,6 +570,10 @@ class VllmService(ModelService):
                         self.loop.cancel(fut)
                         break
                 fin = fut.result(timeout=result_timeout)
+                if req_trace is not None and fin.timing:
+                    req_trace.add_phase_spans(fin.timing, parent=req_span)
+                    req_trace.root.attrs.setdefault("engine_req_id",
+                                                    fin.req_id)
                 if fin.stop_reason == "rejected":
                     yield error("request rejected: prompt cannot fit the "
                                 "KV pool", "server_error")

@@ -1,7 +1,9 @@
 """Environment-variable config contract for serving pods.
 
 Trimmed port of ``scalable_hw_agnostic_inference_tpu/utils/env.py``
-(``ServeConfig``, keeping only the fields this port reads, and the lenient
+(``ServeConfig``, keeping only the fields this port reads, among them the
+pod's resilience contract ``DRAIN_BUDGET_S``, ``ADMIT_MAX_QUEUE``,
+``ADMIT_MAX_KV``, ``MAX_INFLIGHT`` and ``METRICS_PORT``; and the lenient
 ``env_*`` readers of ``obs/util.py``), with one change: ``DEVICE`` accepts
 ``cuda`` (the default) or ``cpu`` where the reference accepts ``tpu`` or
 ``cpu``. A malformed knob degrades to its default with a
@@ -26,6 +28,18 @@ def env_str(name: str, default: Optional[str] = None) -> Optional[str]:
     if v is None or v == "":
         return default
     return v
+
+
+def env_float(name: str, default: float) -> float:
+    v = os.environ.get(name, "")
+    if not v:
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        log.warning("malformed env knob %s=%r — using default %r",
+                    name, v, default)
+        return default
 
 
 def env_int(name: str, default: int) -> int:
@@ -67,6 +81,7 @@ class ServeConfig:
     device: str = "cuda"
     model_id: str = ""
     # task knobs
+    num_of_runs_inf: int = 2   # /benchmark's default n_runs
     max_new_tokens: int = 128
     max_seq_len: int = 512
     batch_size: int = 1
@@ -75,8 +90,17 @@ class ServeConfig:
     # serving
     port: int = 8000
     warmup: bool = True
+    metrics_port: int = 9100   # the stdlib scrape exporter's port
     seed: int = 0
+    # resilience (serve-layer request lifecycle)
     deadline_ms: int = 0   # default per-request deadline; 0 = none
+    drain_budget_s: float = 30.0   # SIGTERM: max seconds to finish in-flight
+    # admission-gate shed thresholds; the defaults are the failover
+    # controller's OverloadThresholds, so pod-level 429s and fleet-level
+    # failover describe the same saturation line
+    admit_max_queue: float = 8.0
+    admit_max_kv: float = 0.95
+    max_inflight: int = 0          # hard in-flight cap; 0 = off
     # where /profile writes its traces (the TMPDIR's when unset)
     artifact_root: str = dataclasses.field(
         default_factory=lambda: os.path.join(tempfile.gettempdir(),
@@ -90,6 +114,7 @@ class ServeConfig:
             pod_name=env_str("POD_NAME", os.uname().nodename),
             device=env_str("DEVICE", "cuda"),
             model_id=env_str("MODEL_ID", ""),
+            num_of_runs_inf=env_int("NUM_OF_RUNS_INF", 2),
             max_new_tokens=env_int("MAX_NEW_TOKENS", 128),
             max_seq_len=env_int("MAX_SEQ_LEN", 512),
             batch_size=env_int("BATCH_SIZE", 1),
@@ -97,8 +122,13 @@ class ServeConfig:
             vllm_config=env_str("VLLM_CONFIG", "/vllm_config.yaml"),
             port=env_int("PORT", 8000),
             warmup=env_bool("WARMUP", True),
+            metrics_port=env_int("METRICS_PORT", 9100),
             seed=env_int("SEED", 0),
             deadline_ms=env_int("DEADLINE_MS", 0),
+            drain_budget_s=env_float("DRAIN_BUDGET_S", 30.0),
+            admit_max_queue=env_float("ADMIT_MAX_QUEUE", 8.0),
+            admit_max_kv=env_float("ADMIT_MAX_KV", 0.95),
+            max_inflight=env_int("MAX_INFLIGHT", 0),
             artifact_root=env_str("ARTIFACT_ROOT", os.path.join(
                 tempfile.gettempdir(), "shai-artifacts")),
         )
@@ -118,6 +148,10 @@ class ServeConfig:
             raise ValueError(
                 f"QUANTIZATION={self.quantization!r} not supported; "
                 f"expected '' or 'int8'")
+        if self.drain_budget_s < 0:
+            raise ValueError("DRAIN_BUDGET_S must be >= 0")
+        if self.max_inflight < 0:
+            raise ValueError("MAX_INFLIGHT must be >= 0 (0 disables)")
 
     def describe(self) -> Dict[str, Any]:
         """The config for the self-describing ``GET /`` endpoint."""

@@ -266,3 +266,60 @@ def test_serving_modules_are_scanned_and_load_no_jax_or_prometheus():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+#: the operating layer's modules (gate, budgets, drain, watchdog,
+#: idempotency, faults, tracing, flight recorder, SLO, HBM ledger,
+#: sentinel, the shared thresholds, the benchmark runner)
+OPERATING_MODULES = (
+    "scalable_hw_agnostic_inference_tpu_torch.orchestrate.capacity_checker",
+    "scalable_hw_agnostic_inference_tpu_torch.resilience.admission",
+    "scalable_hw_agnostic_inference_tpu_torch.resilience.drain",
+    "scalable_hw_agnostic_inference_tpu_torch.resilience.faults",
+    "scalable_hw_agnostic_inference_tpu_torch.resilience.idempotency",
+    "scalable_hw_agnostic_inference_tpu_torch.obs.trace",
+    "scalable_hw_agnostic_inference_tpu_torch.obs.flight",
+    "scalable_hw_agnostic_inference_tpu_torch.obs.slo",
+    "scalable_hw_agnostic_inference_tpu_torch.obs.hbm",
+    "scalable_hw_agnostic_inference_tpu_torch.obs.sentinel",
+    "scalable_hw_agnostic_inference_tpu_torch.utils.latency",
+)
+
+
+def test_operating_modules_are_scanned_and_load_no_jax_or_prometheus():
+    scanned = {n for _, n in _modules()}
+    assert set(OPERATING_MODULES) <= scanned
+    heads = ("jax", "jaxlib", "flax", "prometheus_client")
+    code = _PROBE % (heads, list(OPERATING_MODULES), heads)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_serve_config_fields_pinned_against_the_reference():
+    """Every field of the port's ``ServeConfig`` is the reference's, with
+    its type and default; the exceptions are ``DEVICE``'s default (the
+    card, where the reference's is the TPU) and ``ARTIFACT_ROOT``'s, which
+    the port roots in the process's temporary directory."""
+    import dataclasses
+
+    from scalable_hw_agnostic_inference_tpu.utils.env import (
+        ServeConfig as JServeConfig,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.utils.env import (
+        ServeConfig,
+    )
+
+    ref = {f.name: f for f in dataclasses.fields(JServeConfig)}
+    port = {f.name: f for f in dataclasses.fields(ServeConfig)}
+    assert set(port) <= set(ref), set(port) - set(ref)
+    for name in ("drain_budget_s", "admit_max_queue", "admit_max_kv",
+                 "max_inflight", "metrics_port", "deadline_ms"):
+        assert name in port, name
+    jdef, tdef = JServeConfig(), ServeConfig()
+    for name, f in port.items():
+        assert f.type == ref[name].type, name
+        if name not in ("device", "artifact_root"):
+            assert getattr(tdef, name) == getattr(jdef, name), name
+    assert (jdef.device, tdef.device) == ("tpu", "cuda")
