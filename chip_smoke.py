@@ -25,7 +25,16 @@ Phases:
                 rows, lengths 1 to 4096, and a 512-token chunk at starts
                 0, 512 and 2560, M=256), timed beside the decode-only and
                 chunk-only launches it replaces;
-  6. ``decode_graph`` one decode step at Llama-3-8B width (32 layers,
+  6. ``int8_matmul`` the W8A16 kernel (int8 weight-only projections,
+                ``csrc/int8_matmul.cu``) against its plain version, the
+                reference's ``(x @ Wq^T) * scale`` in bf16, at Llama-3-8B's
+                projection shapes (q/o, k/v, gate/up, down, lm_head) and M
+                in 1, 4, 8, 64: each output within ``INT8_ULPS`` bf16 ulps,
+                which the plain version short of one 16-wide K slice must
+                fail; kernel, plain version and bf16 ``F.linear`` timed
+                with the L2 flushed, beside the bound; the kernel's
+                registers and spills; shapes it refuses raise;
+  7. ``decode_graph`` one decode step at Llama-3-8B width (32 layers,
                 seeded weights) captured as a CUDA graph
                 (``engine/graphs.py``) at serve's bucketed shape (B=8, a
                 32-block bucket, bf16 pool) and at the ragged int8 full
@@ -37,7 +46,7 @@ Phases:
                 device time per step, eager against replay, launches per
                 step, capture time and the graph pool's bytes; the
                 readout's own device time at serve's shape;
-  7. ``engine`` the engine at Llama-3-8B widths with seeded random weights,
+  8. ``engine`` the engine at Llama-3-8B widths with seeded random weights,
                 warmed (every decode key captured), one prompt chunked
                 through the static-start continuation, half the rows
                 asking for 5 logprobs: greedy tokens against the argmax
@@ -46,17 +55,35 @@ Phases:
                 that forward's log-softmax (``LP_TOL``), under the default
                 async decode and equal to a lock-step run's
                 (``SHAI_ASYNC_DECODE=0``), logprob entries included;
-  8. ``engine_ragged`` the same model under ``SHAI_RAGGED_ATTENTION=1``
+  9. ``engine_ragged`` the same model under ``SHAI_RAGGED_ATTENTION=1``
                 (bf16), ``SHAI_RAGGED_ATTENTION=1 SHAI_KV_QUANT=int8`` and
                 ``SHAI_KV_QUANT=int8`` alone, each also equal to lock-step;
-  9. ``engine_fused`` the same model under ``SHAI_RAGGED_ATTENTION=1
+ 10. ``engine_fused`` the same model under ``SHAI_RAGGED_ATTENTION=1
                 SHAI_FUSED_STEP=1``, bf16 and then ``SHAI_KV_QUANT=int8``:
                 async equal to lock-step, greedy tokens equal to the
                 laddered ragged run's or parting only at a near-tie of its
                 top-2 logprobs (``TIE_GAP``), B3 exactly the layers times
                 the fused and chunk-only replays (no continuation
                 function, no eager continuation launch);
- 10. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
+ 11. ``engine_int8`` the engine phase's model quantized at boot
+                (``ops.quant.quantize_state_dict``): one captured decode
+                step against its eager call, bit for bit, with 225 int8
+                launches (7 x 32 projections and the lm_head); then the
+                engine bucketed (scored by the engine phase's tie rule)
+                and under ``SHAI_RAGGED_ATTENTION=1 SHAI_KV_QUANT=int8``
+                (engine_ragged's int8 rule), async equal to lock-step,
+                every graph 225 int8 launches, scored through the int8
+                model's plain route;
+ 12. ``checkpoint`` a seeded Llama-3.2-1B-width checkpoint written here
+                (bf16, tied embeddings, two safetensors shards under HF
+                names, llama3 rope scaling, a byte-level BPE
+                ``tokenizer.json`` built here in Llama-3's layout), served
+                from ``MODEL_ID=<dir>`` in bf16 and with
+                ``QUANTIZATION=int8``: the loaded tensors equal the written
+                ones, ``/generate`` and ``/v1/completions`` answer, greedy
+                tokens equal an engine built from the same state dict;
+                load seconds and GB/s;
+ 13. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
                 its closed set warmed before readiness) and answer 8
                 concurrent ``POST /generate``; then an OpenAI round: 8
                 concurrent streamed ``POST /v1/completions`` (the client's
@@ -66,14 +93,18 @@ Phases:
                 give a uniform distribution), an expired
                 ``X-SHAI-Deadline-Ms`` (504) and a ``/metrics`` scrape
                 holding the ``shai_*`` contract families;
- 11. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
+ 14. ``serve_int8`` serve's tier, requests and switches with
+                ``QUANTIZATION=int8`` (born int8): the weights pool exactly
+                8,561,882,112 bytes, 225 int8 launches per replay, both
+                int8 routes counted, beside serve's numbers;
+ 15. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
                 SHAI_KV_QUANT=int8`` and an engine ConfigMap of
                 ``max_model_len`` 4096: two of the 8 prompts chunk;
- 12. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
+ 16. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
                 (the chunks ride the fused graphs' replays), then one
                 ``n=4`` completion admitted as one prefill with 3
                 copy-on-write forks; its numbers beside serve_ragged's;
- 13. ``serve_ops`` serve's configuration under the operating layer
+ 17. ``serve_ops`` serve's configuration under the operating layer
                 (``SERVE_OPS_ENV``: ``MAX_INFLIGHT=8``, tracing, the fault
                 endpoint armed, a perf projection of 50 tok/s over a 5 s
                 window, a 2 s watchdog floor, a 60 s drain budget): the
@@ -103,7 +134,9 @@ Any failed phase makes the script exit non-zero without the result lines.
 A full run prints the card's name and power limit, then, second to last,
 ``{"kernels": [...]}`` (per kernel: route, source, the TPU kernel it
 replaces, launches in the serve phase that runs it, max error,
-kernel/plain/bound/library times; B3 also its fused mixed-row launch) and,
+kernel/plain/bound/library times; B3 also its fused mixed-row launch; the
+int8 kernel, which replaces XLA's fused int8 dot and no Pallas kernel,
+``tpu_kernel: null`` and its bf16 ``F.linear`` time) and,
 last, ``{"ok": true, "device":
 {...}}``. It exits non-zero at once when CUDA is unavailable or the port's
 package is not beside it.
@@ -125,9 +158,11 @@ import time
 import traceback
 import urllib.error
 import urllib.request
+from pathlib import Path
 
-PHASES = ("card", "build", "flash", "paged", "ragged", "decode_graph",
-          "engine", "engine_ragged", "engine_fused", "serve", "serve_ragged",
+PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
+          "decode_graph", "engine", "engine_ragged", "engine_fused",
+          "engine_int8", "checkpoint", "serve", "serve_int8", "serve_ragged",
           "serve_fused", "serve_ops")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
@@ -324,8 +359,9 @@ def phase_build(ctx):
     name = "?"
     for line in _build.build_log().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"([a-z]+_kernel)ILi(\d+)E(a|13__nv_bfloat16)?",
-                          line)
+            m = re.search(
+                r"((?:flash|decode|ragged|merge|groups|int8_matmul)_kernel)"
+                r"ILi(\d+)E(a|13__nv_bfloat16)?", line)
             name = line.strip() if m is None else (
                 f"{m.group(1)}<{m.group(2)}"
                 + {"a": ", int8", "13__nv_bfloat16": ", bf16"}.get(
@@ -1063,9 +1099,12 @@ def _decode_graph_case(ctx, torch, what, lengths, ragged, quant, M):
 
     name = ("ragged_paged_attention" if ragged or quant
             else "paged_decode_attention")
-    if g.launches != {name: cfg.n_layers}:
+    want = {name: cfg.n_layers}
+    if model.quantized:   # 7 projections a layer and the lm_head
+        want["int8_matmul"] = 7 * cfg.n_layers + 1
+    if g.launches != want:
         raise AssertionError(f"{what}: the graph holds launches "
-                             f"{g.launches}, want {cfg.n_layers} of {name}")
+                             f"{g.launches}, want {want}")
     # the eager call and the replay on the same inputs and draws: the
     # replay's decode writes each row's key and value again (the same
     # values), so it attends the same pool
@@ -1083,8 +1122,10 @@ def _decode_graph_case(ctx, torch, what, lengths, ragged, quant, M):
     if not (bool(torch.isfinite(g.top_lp).all())
             and bool(torch.isfinite(g.tok_lp).all())):
         raise AssertionError(f"{what}: non-finite logprobs")
-    # a greedy row's token is its readout's top id
-    if not torch.equal(g.top_ids[:4, 0], g.nxt[:4]):
+    # a greedy row's token is its readout's top id, or ties with it: its
+    # logprob is the top logprob bit for bit (bf16 logits tie, and argmax
+    # and top-k need not pick the same one of equal values)
+    if not torch.equal(g.tok_lp[:4], g.top_lp[:4, 0]):
         raise AssertionError(f"{what}: greedy tokens are not the top ids")
     greedy_equal = torch.equal(g.nxt[:4], eager_outs["nxt"][:4])
     # consecutive replays draw afresh: a sampled row's uniforms change
@@ -1129,7 +1170,7 @@ def _decode_graph_case(ctx, torch, what, lengths, ragged, quant, M):
     del g, cache
     gc.collect()
     torch.cuda.empty_cache()
-    if replay_counts[name] != cfg.n_layers:
+    if any(replay_counts[k] != n for k, n in want.items()):
         raise AssertionError(f"{what}: one replay counted {replay_counts}")
     if not exact:
         raise AssertionError(f"{what}: the replay is not the eager call bit "
@@ -1187,7 +1228,7 @@ def phase_decode_graph(ctx):
 
 
 KERNELS = ("flash_attention", "paged_decode_attention",
-           "ragged_paged_attention")
+           "ragged_paged_attention", "int8_matmul")
 
 
 def _counters():
@@ -1197,9 +1238,18 @@ def _counters():
         ragged_paged_attention as rpa,
     )
 
+    from scalable_hw_agnostic_inference_tpu_torch.ops import quant
+    from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
+        int8_matmul as i8,
+    )
+
+    # the int8 projections' wide route is counted beside the kernels (it
+    # is no kernel: KERNELS leaves it out of the launch checks)
     return {"flash_attention": fa.flash_attention,
             "paged_decode_attention": pa.paged_decode_attention,
-            "ragged_paged_attention": rpa.ragged_paged_attention}
+            "ragged_paged_attention": rpa.ragged_paged_attention,
+            "int8_matmul": i8.int8_matmul,
+            "quant_matmul_wide": quant.quant_matmul_wide}
 
 
 def _reset_counters():
@@ -1246,14 +1296,33 @@ def _drop_engine_model(ctx) -> None:
     import torch
 
     ctx.pop("engine_model", None)
+    ctx.pop("engine_model_int8", None)
     gc.collect()
     torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
+def _plain_int8():
+    """Send every int8 projection through the W8A16 kernel's plain version
+    (the reference's expression), then restore the kernel."""
+    from scalable_hw_agnostic_inference_tpu_torch.ops import quant
+    from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
+        int8_matmul as i8,
+    )
+
+    saved = quant.int8_matmul
+    quant.int8_matmul = i8.int8_matmul_reference
+    try:
+        yield
+    finally:
+        quant.int8_matmul = saved
+
+
+@contextlib.contextmanager
 def _plain_attention():
-    """Swap every attention kernel the engine and the scoring forward call
-    for its plain PyTorch version (fp32 softmax), then restore them."""
+    """Swap every kernel the engine and the scoring forward call for its
+    plain PyTorch version (attention with an fp32 softmax, the int8
+    projections as the reference's expression), then restore them."""
     from scalable_hw_agnostic_inference_tpu_torch.engine import runner
     from scalable_hw_agnostic_inference_tpu_torch.ops import attention
     from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
@@ -1283,7 +1352,8 @@ def _plain_attention():
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
     try:
-        yield
+        with _plain_int8():
+            yield
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
@@ -1356,7 +1426,8 @@ def _generate(ctx, prompts, switches, all_lp=False):
     cfg, model = _engine_model(ctx)
     ecfg = EngineConfig(max_model_len=2048, max_num_seqs=4, block_size=16,
                         context_encoding_buckets=(128, 512),
-                        max_new_tokens=ENGINE_NEW_TOKENS)
+                        max_new_tokens=ENGINE_NEW_TOKENS,
+                        quantization="int8" if model.quantized else None)
     env = {"SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "",
            "SHAI_ASYNC_DECODE": "1", **switches}
     with _env(env):
@@ -1400,7 +1471,14 @@ def _generate(ctx, prompts, switches, all_lp=False):
                                    - before.get(eng._fused_chunk.key, 0)
                                    if eng._fused_chunk is not None else 0),
             "per_replay": sorted({n for g in _graphs(eng)
-                                  for n in g.launches.values()})}
+                                  for k, n in g.launches.items()
+                                  if k not in ("int8_matmul",
+                                               "quant_matmul_wide")}),
+            "int8_per_replay": sorted({g.launches.get("int8_matmul", 0)
+                                       for g in _graphs(eng)}),
+            "wide_per_replay": sorted({g.launches.get("quant_matmul_wide", 0)
+                                       for g in _graphs(eng)}),
+            "graph_pool_bytes": eng._graphs.bytes()}
     # one replay of the largest batch key, host enqueue to device end: a
     # fused key computes its whole chunk window even when it is the null
     # one (its inputs are the last step's; the pool is free by now)
@@ -1426,7 +1504,8 @@ def _score(model, prompts, fins):
 
     score = {"b1": (0, 0.0), "plain": (0, 0.0), "tokens": 0, "eps": 0.0,
              "lp_err": 0.0, "lp_err_shifted": 0.0}
-    with torch.inference_mode():
+    # an int8 model scores through its projections' plain route
+    with torch.inference_mode(), _plain_int8():
         for p, f in zip(prompts, fins):
             ids = torch.tensor([p + f.token_ids], device="cuda")
             logits = model(ids)[0, len(p) - 1: -1].float()  # each token's
@@ -1467,7 +1546,8 @@ def _run_engine(ctx, what, prompt_lens, switches, expect, cont_key, rule):
     kernels' plain versions less ``INT8_SLACK``. "tie" and "int8" log that
     plain run's own deficits. The run must chunk (``cont_key`` names the
     continuation it compiles), launch exactly the kernels ``expect`` and
-    leak no block."""
+    leak no block. Returns the async run's numbers and launch counts and
+    the lock-step run's numbers."""
     import torch
 
     cfg, model = _engine_model(ctx)
@@ -1533,6 +1613,7 @@ def _run_engine(ctx, what, prompt_lens, switches, expect, cont_key, rule):
     if cont_key not in conts:
         raise AssertionError(f"{what}: no chunk ran through {cont_key}")
     _check_counters(what, counts, expect)
+    return info, counts, sync[5]
 
 
 def phase_engine(ctx):
@@ -1572,8 +1653,8 @@ def _run_fused(ctx, what, switches):
     the same switches: the tie rule on the tokens, async equal to
     lock-step, B3 exactly the layers times the fused and chunk-only
     replays (no eager continuation launch, no continuation function),
-    no leaked block."""
-    cfg, _ = _engine_model(ctx)
+    no leaked block; over int8 weights the int8 kernel rises too."""
+    cfg, model = _engine_model(ctx)
     import torch
 
     gen = torch.Generator().manual_seed(3)
@@ -1603,15 +1684,19 @@ def _run_fused(ctx, what, switches):
         f"{counts}; leaked blocks {leaked}")
     if leaked or sync[4] or lad[4]:
         raise AssertionError(f"{what}: leaked KV blocks")
-    _check_counters(what, counts, {"flash_attention",
-                                   "ragged_paged_attention"})
+    _check_counters(what, counts, {"flash_attention", "ragged_paged_attention"}
+                    | ({"int8_matmul"} if model.quantized else set()))
     ctx.setdefault("engine_fused", {})[what] = {
         "equal_streams": same, "streams": len(fins), "tie_gaps": gaps,
         "chunks": info["chunks"],
         "chunk_only_replays": info["chunk_only_replays"],
         "b3_launches": counts["ragged_paged_attention"],
         "fused_replay_ms": info["replay_ms"],
-        "laddered_replay_ms": lad[5]["replay_ms"]}
+        "laddered_replay_ms": lad[5]["replay_ms"],
+        "fused_graph_pool_bytes": info["graph_pool_bytes"],
+        "laddered_graph_pool_bytes": lad[5]["graph_pool_bytes"],
+        "int8_launches": counts["int8_matmul"],
+        "wide_calls": counts["quant_matmul_wide"]}
 
 
 def phase_engine_fused(ctx):
@@ -1844,6 +1929,8 @@ def _kernel_class(name: str, walk: str) -> str:
     if any(k in name for k in ("ragged_kernel", "decode_kernel",
                                "merge_kernel", "groups_kernel")):
         return walk
+    if "int8_matmul_kernel" in name:
+        return "W8A16 int8_matmul"
     if any(w in name.lower() for w in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul (cuBLAS)"
     if "LogSoftMax" in name or "topk" in name.lower():
@@ -2462,6 +2549,552 @@ def phase_serve_ops(ctx):
         then=lambda base, eng: _serve_ops_round(ctx, base, eng))
 
 
+# -- int8 weight-only projections (W8A16) ---------------------------------
+
+#: the int8 kernel against its plain version (the reference's expression on
+#: the same card): each output within INT8_ULPS bf16 ulps of the plain
+#: output, the ulp taken at max(|plain|, K 2^-24 sum_k |x w s|). Both round
+#: the fp32 sum to bf16, multiply by the bf16 scale and round again, so
+#: their outputs differ by the fp32 sums' order plus those roundings (at
+#: most an ulp and a half); below K 2^-24 sum|terms|, the worst-case fp32
+#: error of a K-term sum in any order, an ulp is smaller than what two
+#: orders may differ by. A plain version short of one 16-wide K slice moves
+#: each output by some sqrt(16 / K) of its size, tens of ulps, and must
+#: fail the same check.
+INT8_ULPS = 2.0
+#: (N, K) of Llama-3-8B's projections: q and o, k and v, gate and up,
+#: down, and the lm_head; each at every decode batch in INT8_ROWS
+INT8_SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+               (128256, 4096))
+INT8_ROWS = (1, 4, 8, 64)
+#: the row of the kernels line: serve's decode batch on the gate/up shape
+#: (the largest share of a decode step's weight bytes)
+INT8_MAIN = (8, 14336, 4096)
+
+
+def _bf16_ulp(torch, a):
+    _, e = torch.frexp(a.abs().clamp_min(1e-30))
+    return torch.ldexp(torch.ones_like(a), e - 8)
+
+
+def _int8_ulps(torch, got, want, x, wq, scale) -> float:
+    """The largest |got - want| in bf16 ulps (see ``INT8_ULPS``)."""
+    K = x.shape[1]
+    mag = (x.float().abs() @ wq.float().abs().T) * scale.abs()
+    floor = mag * (K * 2.0 ** -24)
+    err = (got.float() - want.float()).abs()
+    ulp = _bf16_ulp(torch, torch.maximum(want.float().abs(), floor))
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    return float((err / ulp).max())
+
+
+def _ptxas(kernel: str):
+    """``{instantiation: "registers, spills"}`` of one kernel from the build
+    log (``-Xptxas=-v``)."""
+    import re
+
+    from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import _build
+
+    out, name = {}, None
+    for line in _build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(rf"{kernel}ILi(\d+)E", line)
+            name = f"{kernel}<{m.group(1)}>" if m else None
+        elif name and "registers" in line:
+            out[name] = line.split(":", 1)[-1].strip()
+        elif name and "spill" in line.lower():
+            out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1]
+                         .strip()).strip()
+    return out
+
+
+def phase_int8_matmul(ctx):
+    import torch
+
+    # the plain version's bf16 product with fp32 reductions throughout
+    # (restored for the later phases)
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        _int8_matmul_cases(ctx, torch)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+def _int8_matmul_cases(ctx, torch):
+    from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
+        int8_matmul as i8,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.ops.quant import (
+        quantize_weight,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    timer = ctx["timer"]
+    rows, worst = [], 0.0
+    for N, K in INT8_SHAPES:
+        w = torch.randn(N, K, generator=gen, device="cuda") * 0.02
+        wq, scale = quantize_weight(w)
+        wb = w.to(torch.bfloat16)   # the bf16 projection int8 must beat
+        del w
+        for M in INT8_ROWS:
+            x = torch.randn(M, K, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            out = i8.int8_matmul(x, wq, scale)
+            ref = i8.int8_matmul_reference(x, wq, scale)
+            cut = i8.int8_matmul_reference(x[:, 16:], wq[:, 16:], scale)
+            torch.cuda.synchronize()
+            ulps = _int8_ulps(torch, out, ref, x, wq, scale)
+            cut_ulps = _int8_ulps(torch, cut, ref, x, wq, scale)
+            err = float((out.float() - ref.float()).abs().max())
+            ms = timer(lambda: i8.int8_matmul(x, wq, scale), clean=True)
+            plain = timer(lambda: i8.int8_matmul_reference(x, wq, scale),
+                          clean=True)
+            linear = timer(lambda: torch.nn.functional.linear(x, wb),
+                           clean=True)
+            n_bytes = N * K + 4 * N + 2 * M * K + 2 * M * N
+            bms, by = bound_ms(n_bytes, 2.0 * M * N * K)
+            line = {"shape": f"M={M} N={N} K={K}", "M": M, "N": N, "K": K,
+                    "rows_per_cta": i8.int8_plan(
+                        N, torch.cuda.get_device_properties(0)
+                        .multi_processor_count),
+                    "max_abs_err": err, "max_ulps": ulps,
+                    "dropped_slice_ulps": cut_ulps, "ms": ms,
+                    "plain_ms": plain, "bf16_linear_ms": linear,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None,
+                    "bound_share": bms / ms}
+            log("int8_matmul: " + json.dumps(line))
+            rows.append(line)
+            worst = max(worst, err)
+            if ulps > INT8_ULPS:
+                raise AssertionError(f"int8_matmul {line['shape']}: "
+                                     f"{ulps:.2f} ulps from the plain version")
+            if cut_ulps <= INT8_ULPS:
+                raise AssertionError(f"int8_matmul {line['shape']}: the "
+                                     f"check misses a dropped K slice")
+            del x, out, ref, cut
+        del wq, scale, wb
+        torch.cuda.empty_cache()
+    # shapes the kernel refuses: no quiet fallback on the card
+    x = torch.randn(65, 4096, device="cuda").to(torch.bfloat16)
+    wq = torch.zeros(1024, 4096, dtype=torch.int8, device="cuda")
+    sc = torch.ones(1024, device="cuda")
+    for bad in ((x, wq, sc), (x[:8].float(), wq, sc), (x[:8], wq[:, :100],
+                                                       sc)):
+        try:
+            i8.int8_matmul(*bad)
+        except (ValueError, TypeError):
+            continue
+        raise AssertionError("int8_matmul took a call its kernel does not")
+    regs = _ptxas("int8_matmul_kernel")
+    log(f"int8_matmul: ptxas {json.dumps(regs)}")
+    # a decode step's projections at serve's batch, summed over one layer
+    # (q, k, v, o, gate, up, down) and the lm_head, against bf16
+    by = {(r["M"], r["N"], r["K"]): r for r in rows}
+    step = {}
+    for M in INT8_ROWS:
+        layer = [(4096, 4096)] * 2 + [(1024, 4096)] * 2 + \
+            [(14336, 4096)] * 2 + [(4096, 14336)]
+        for key in ("ms", "bf16_linear_ms", "bound_ms"):
+            step.setdefault(M, {})[key] = (
+                32 * sum(by[(M, n, k)][key] for n, k in layer)
+                + by[(M, 128256, 4096)][key])
+    log(f"int8_matmul: a Llama-3-8B decode step's projections and lm_head "
+        f"(ms, summed from the shapes above): {json.dumps(step)}")
+    ctx["int8"] = dict(by[INT8_MAIN], max_abs_err=worst, registers=regs,
+                       decode_step_ms=step, all_shapes=[
+                           {k: r[k] for k in ("shape", "ms", "plain_ms",
+                                              "bf16_linear_ms", "bound_ms",
+                                              "max_ulps")}
+                           for r in rows])
+
+
+def _int8_model(ctx):
+    """The engine phases' model with every projection quantized at boot
+    (``ops.quant.quantize_state_dict``, the unit's path); the bf16 model is
+    dropped once it is made."""
+    if "engine_model_int8" not in ctx:
+        import torch
+        from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+            LlamaForCausalLM,
+        )
+        from scalable_hw_agnostic_inference_tpu_torch.ops.quant import (
+            quantize_state_dict,
+        )
+
+        cfg, model = _engine_model(ctx)
+        t0 = time.monotonic()
+        state = quantize_state_dict(dict(model.state_dict()))
+        ctx["engine_model_int8"] = cfg, LlamaForCausalLM.from_state_dict(
+            cfg, state)
+        log(f"engine_int8: quantized at boot in {time.monotonic() - t0:.1f}"
+            f" s, weights {sum(t.nbytes for t in state.values())} bytes")
+        del model, state
+        ctx.pop("engine_model", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ctx["engine_model_int8"]
+
+
+def phase_engine_int8(ctx):
+    import torch
+
+    cfg, qmodel = _int8_model(ctx)
+    # the engine helpers read ctx["engine_model"]: the int8 model here
+    ctx["engine_model"] = cfg, qmodel
+    per = 7 * cfg.n_layers + 1
+    try:
+        # a captured decode step against its eager call, bit for bit, with
+        # its 225 int8 launches
+        graph = _decode_graph_case(ctx, torch, "engine_int8 bucketed",
+                                   [32, 71, 110, 149, 188, 227, 266, 305],
+                                   False, False, 32)
+        runs = {}
+        for what, prompts, switches, expect, cont, rule in (
+                # bucketed: prefill through B1, decode B2, projections
+                # through the int8 kernel (decode, lm_head) and the wide
+                # route (prefill, chunks)
+                ("engine_int8 (a)", (5, 37, 120, 300, 1300), {},
+                 {"flash_attention", "paged_decode_attention",
+                  "int8_matmul"}, ("cont", 32, 512), "tie"),
+                # ragged attention and int8 KV: B3, scored as
+                # engine_ragged's int8 KV run is
+                ("engine_int8 (b)", ENGINE_PROMPTS,
+                 {"SHAI_RAGGED_ATTENTION": "1", "SHAI_KV_QUANT": "int8"},
+                 {"flash_attention", "ragged_paged_attention",
+                  "int8_matmul"}, ("rcont", 512), "int8")):
+            info, counts, sync = _run_engine(ctx, what, prompts, switches,
+                                             expect, cont, rule)
+            # every graph of the async and the lock-step run holds 225
+            # int8 launches, and the async run made that many per replay
+            bad = [r["int8_per_replay"] for r in (info, sync)
+                   if r["int8_per_replay"] != [per]]
+            if bad or counts["int8_matmul"] < per * info["replays"]:
+                raise AssertionError(
+                    f"{what}: int8 launches per replay {bad}, "
+                    f"{counts['int8_matmul']} launches for "
+                    f"{info['replays']} replays")
+            runs[what] = {"int8_launches": counts["int8_matmul"],
+                          "wide_calls": counts["quant_matmul_wide"],
+                          "replays": info["replays"],
+                          "per_replay": per, "replay_ms": info["replay_ms"]}
+        # (c) the fused step over int8 weights: every fused replay's
+        # 512-token window takes the wide route inside the graph (the
+        # dequantized weight lives in the graph pool); tokens held to the
+        # laddered run's by the tie rule
+        _run_fused(ctx, "engine_int8 (c)", {"SHAI_RAGGED_ATTENTION": "1"})
+        fused = ctx["engine_fused"]["engine_int8 (c)"]
+        runs["engine_int8 (c)"] = fused
+        log("engine_int8: " + json.dumps(runs))
+        ctx["engine_int8"] = {"graph": {k: graph[k] for k in (
+            "bit_exact", "graph_launches", "device_ms_replay",
+            "wall_ms_replay", "pool_bytes")}, "runs": runs}
+    finally:
+        ctx.pop("engine_model", None)
+
+
+# -- a Llama checkpoint directory ------------------------------------------
+
+#: the checkpoint phase's text: the BPE merges are learned from it, and its
+#: prompts come from it
+CKPT_CORPUS = (
+    "The paged engine serves Llama checkpoints from a local directory. "
+    "Each tensor goes to the card one at a time; int8 halves the bytes "
+    "a decode step reads. Café, déjà vu, 日本語, emoji 🚀, numbers 12345.")
+#: special tokens, numbered right after the BPE vocabulary (as Llama-3's
+#: follow its 128,000 entries; ``tokenizers`` renumbers added tokens so)
+CKPT_SPECIAL = ("<|begin_of_text|>", "<|end_of_text|>", "<|eot_id|>")
+
+
+def _write_tokenizer(path, merges_wanted: int = 200) -> None:
+    """A byte-level BPE ``tokenizer.json`` in Llama-3's layout (its Split
+    regex, the ByteLevel steps, the BOS template, special tokens after the
+    vocabulary), with merges learned here from ``CKPT_CORPUS``: the most
+    frequent adjacent pair of the pre-tokenized pieces, merged, again."""
+    from scalable_hw_agnostic_inference_tpu_torch.models.tokenizer import (
+        BYTE_TO_CHAR,
+        LLAMA3_SPLIT,
+        pre_tokenize,
+    )
+
+    vocab = {BYTE_TO_CHAR[b]: i for i, b in enumerate(range(256))}
+    words = [[BYTE_TO_CHAR[b] for b in piece.encode()]
+             for piece in pre_tokenize(CKPT_CORPUS * 3)]
+    merges = []
+    while len(merges) < merges_wanted:
+        pairs = {}
+        for w in words:
+            for a, b in zip(w, w[1:]):
+                pairs[(a, b)] = pairs.get((a, b), 0) + 1
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        merges.append(f"{a} {b}")
+        vocab.setdefault(a + b, len(vocab))
+        for w in words:
+            i = 0
+            while i < len(w) - 1:
+                if (w[i], w[i + 1]) == (a, b):
+                    w[i:i + 2] = [a + b]
+                i += 1
+    bos = CKPT_SPECIAL[0]
+    special = {t: len(vocab) + i for i, t in enumerate(CKPT_SPECIAL)}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": t, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for t, i in special.items()],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True,
+             "trim_offsets": False, "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [], "special_tokens": {bos: {
+                 "id": bos, "ids": [special[bos]], "tokens": [bos]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges},
+    }
+    (path / "tokenizer.json").write_text(json.dumps(spec))
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "bos_token": bos, "eos_token": CKPT_SPECIAL[1],
+        "clean_up_tokenization_spaces": True,
+        "model_max_length": 131072,
+        "tokenizer_class": "PreTrainedTokenizerFast"}))
+
+
+def _write_checkpoint(path, state, cfg) -> int:
+    """The port's state dict as an HF Llama directory: ``config.json``, two
+    safetensors shards under their HF names, the tokenizer. Returns the
+    bytes of the shards."""
+    from scalable_hw_agnostic_inference_tpu_torch.core.checkpoint import (
+        save_sharded,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models.convert import (
+        hf_name,
+    )
+
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+        "intermediate_size": cfg.mlp_dim,
+        "num_hidden_layers": cfg.n_layers,
+        "num_attention_heads": cfg.n_heads,
+        "num_key_value_heads": cfg.n_kv_heads,
+        "max_position_embeddings": cfg.max_seq_len,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps,
+        "rope_scaling": {"rope_type": "llama3", "factor": 32.0,
+                         "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                         "original_max_position_embeddings": 8192},
+        "tie_word_embeddings": cfg.tie_embeddings, "hidden_act": "silu",
+        "torch_dtype": "bfloat16"}))
+    paths = save_sharded({hf_name(k): v for k, v in state.items()}, path, 2)
+    _write_tokenizer(path)
+    return sum(p.stat().st_size for p in paths)
+
+
+def _ckpt_boot(ctx, path, quant: bool):
+    """The unit on ``MODEL_ID=<path>`` behind the stdlib server; returns
+    (service, base url, server)."""
+    from scalable_hw_agnostic_inference_tpu_torch.serve.app import create_app
+    from scalable_hw_agnostic_inference_tpu_torch.serve.httpd import Server
+    from scalable_hw_agnostic_inference_tpu_torch.serve.units.vllm import (
+        VllmService,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.utils.env import (
+        ServeConfig,
+    )
+
+    env = {"DEVICE": "cuda", "MODEL_ID": str(path), "PORT": "0",
+           "MAX_SEQ_LEN": "256", "MAX_NEW_TOKENS": "16", "BATCH_SIZE": "4",
+           "QUANTIZATION": "int8" if quant else "",
+           "VLLM_CONFIG": os.path.join(REPO, "no-vllm-config.yaml"),
+           "SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": ""}
+    with _env(env):
+        cfg = ServeConfig.from_env()
+        service = VllmService(cfg)
+        server = Server(create_app(cfg, service), host="127.0.0.1", port=0)
+        host, port = server.start_background()
+        base = f"http://{host}:{port}"
+        t0 = time.monotonic()
+        while _http(base + "/readiness")[0] != 200:
+            if time.monotonic() - t0 > 600 or \
+                    _http(base + "/readiness")[0] == 500:
+                raise AssertionError(f"checkpoint: not ready "
+                                     f"{_http(base + '/readiness')}")
+            time.sleep(0.2)
+    return service, base, server
+
+
+def phase_checkpoint(ctx):
+    """A seeded Llama-3.2-1B-width checkpoint written here (bf16, tied
+    embeddings, two shards, the tokenizer built here), served from its
+    directory in bf16 and in int8: tensors as written, /generate and
+    /v1/completions answering, greedy tokens equal to an engine built from
+    the same state dict."""
+    import tempfile
+
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.engine.engine import (
+        LLMEngine,
+        SamplingParams,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        random_params,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.ops.quant import (
+        quantize_state_dict,
+    )
+
+    _drop_engine_model(ctx)
+    import dataclasses
+
+    cfg = dataclasses.replace(LlamaConfig.llama32_1b(), max_seq_len=131072,
+                              rope_scaling=(32.0, 1.0, 4.0, 8192))
+    state = random_params(cfg, seed=9, std=0.02, device="cuda")
+    prompts = [CKPT_CORPUS[:60], "Café déjà vu 🚀 " * 3,
+               "<|begin_of_text|>numbers 12345 and more"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "llama-3.2-1b-seeded"
+        t0 = time.monotonic()
+        n_bytes = _write_checkpoint(path, state, cfg)
+        out["write_s"] = time.monotonic() - t0
+        out["bytes_on_disk"] = n_bytes
+        for quant in (False, True):
+            what = "int8" if quant else "bf16"
+            service, base, server = _ckpt_boot(ctx, path, quant)
+            try:
+                eng = service._engine
+                want = quantize_state_dict(state) if quant else state
+                got = dict(eng.model.state_dict())
+                if set(got) != set(want) or not all(
+                        torch.equal(got[k], v) for k, v in want.items()):
+                    raise AssertionError(f"checkpoint {what}: the loaded "
+                                         f"tensors differ from the written")
+                sums = sum(float(v.view(torch.uint8).sum(dtype=torch.int64))
+                           for v in want.values())
+                # the unit, one request at a time (batch 1, as the direct
+                # engine below runs them)
+                unit_tokens = []
+                for p in prompts:
+                    status, body = _http(base + "/generate", {
+                        "prompt": p, "temperature": 0.0,
+                        "max_new_tokens": 16, "logprobs": 1})
+                    if status != 200:
+                        raise AssertionError(f"checkpoint {what}: /generate "
+                                             f"{status} {body}")
+                    unit_tokens.append([e["token"] for e in body["logprobs"]])
+                status, comp = _http(base + "/v1/completions", {
+                    "prompt": prompts[0], "max_tokens": 8, "temperature": 0})
+                if status != 200 or not comp.get("choices"):
+                    raise AssertionError(f"checkpoint {what}: "
+                                         f"/v1/completions {status} {comp}")
+                ids = [service._encode(p) for p in prompts]
+                service_eos = service.eos_id
+                load_s = service.load_seconds
+                ecfg = service.ecfg
+                text = service._decode(unit_tokens[0])
+            finally:
+                server.stop()
+                service.close()
+            del service, eng, got
+            gc.collect()
+            torch.cuda.empty_cache()
+            direct = LLMEngine(cfg, LlamaForCausalLM.from_state_dict(
+                cfg, want), ecfg, device="cuda")
+            direct.warm_executables()
+            eos = service_eos
+            direct_tokens = [direct.generate([i], SamplingParams(
+                temperature=0.0, max_new_tokens=16, eos_id=eos))[0].token_ids
+                for i in ids]
+            del direct, want
+            gc.collect()
+            torch.cuda.empty_cache()
+            line = {"load_s": load_s, "load_gb_s": n_bytes / load_s / 1e9,
+                    "tensor_checksum": sums, "tensors_equal": True,
+                    "prompt_tokens": [len(i) for i in ids],
+                    "unit_tokens": unit_tokens,
+                    "tokens_equal_direct_engine":
+                        unit_tokens == direct_tokens,
+                    "first_text": text,
+                    "completion": comp["choices"][0].get("text")}
+            out[what] = line
+            log(f"checkpoint {what}: " + json.dumps(line))
+            if unit_tokens != direct_tokens:
+                raise AssertionError(f"checkpoint {what}: the unit's tokens "
+                                     f"{unit_tokens} differ from the direct "
+                                     f"engine's {direct_tokens}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx["checkpoint"] = out
+
+
+# -- serve_int8 --------------------------------------------------------------
+
+#: Llama-3-8B's weights under QUANTIZATION=int8, by part: the bf16
+#: embedding, the int8 projections and lm_head, their f32 scales, the norms
+INT8_WEIGHT_BYTES = 1_050_673_152 + 6_979_321_856 + 525_336_576 \
+    + 6_018_048 + 532_480
+
+
+def _serve_int8_checks(ctx, base, eng) -> None:
+    per = 7 * eng.cfg.n_layers + 1
+    graphs = _graphs(eng)
+    weights = eng._price_static_pools()["weights"]
+    status, conf = _http(base + "/debug/conformance")
+    ledger = conf.get("hbm", {}).get("weights_bytes")
+    line = {"weights_bytes": weights, "ledger_weights_bytes": ledger,
+            "want": INT8_WEIGHT_BYTES,
+            "int8_per_replay": sorted({g.launches.get("int8_matmul", 0)
+                                       for g in graphs}),
+            "launches": ctx["launches"]["serve_int8"],
+            "graph_pool_bytes": eng._graphs.bytes(),
+            "serve_graph_pool_bytes": ctx.get("serve_summary", {}).get(
+                "serve", {}).get("graph_pool_bytes")}
+    log("serve_int8: " + json.dumps(line))
+    if weights != INT8_WEIGHT_BYTES or ledger != INT8_WEIGHT_BYTES:
+        raise AssertionError(f"serve_int8: weights pool {weights} (ledger "
+                             f"{ledger}), want {INT8_WEIGHT_BYTES}")
+    if line["int8_per_replay"] != [per]:
+        raise AssertionError(f"serve_int8: int8 launches per replay "
+                             f"{line['int8_per_replay']}, want {per}")
+    ctx["serve_int8"] = line
+
+
+def phase_serve_int8(ctx):
+    # serve's tier, requests and switches with the weights born int8
+    _serve(ctx, "serve_int8", {
+        "VLLM_CONFIG": os.path.join(REPO, "no-vllm-config.yaml"),
+        "SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "",
+        "QUANTIZATION": "int8"},
+        _serve_prompts(), {"flash_attention", "paged_decode_attention",
+                           "int8_matmul"},
+        "B2 paged_decode_attention",
+        then=lambda base, eng: _serve_int8_checks(ctx, base, eng))
+    summary = ctx["serve_summary"]
+    log("serve_int8 beside serve: " + json.dumps(
+        {k: summary.get(k) for k in ("serve", "serve_int8")}))
+
+
 def kernels_line(ctx):
     cuda_dir = "scalable_hw_agnostic_inference_tpu_torch/csrc"
     pallas = f"{TPU_PKG}/ops/pallas"
@@ -2487,11 +3120,27 @@ def kernels_line(ctx):
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "launches_in": phase,
+            "tpu_kernel": replaces,
         })
+    # the W8A16 projection: no Pallas kernel (XLA's fused int8 dot), timed
+    # at serve's decode batch on the gate/up shape, launched in serve_int8
+    row = ctx["int8"]
+    out.append({
+        "name": "int8_matmul", "route": "cuda",
+        "source": f"{cuda_dir}/int8_matmul.cu",
+        "replaces": f"{TPU_PKG}/ops/quant.py:142", "tpu_kernel": None,
+        "launches": ctx["launches"]["serve_int8"]["int8_matmul"],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "bf16_linear_ms": row["bf16_linear_ms"], "max_ulps": row["max_ulps"],
+        "shape": row["shape"], "launches_in": "serve_int8",
+        "wide_route_calls": ctx["launches"]["serve_int8"][
+            "quant_matmul_wide"]})
     # B3's fused launches: the mixed-row launch timed in the ragged phase,
     # and its launches in serve_fused (every fused and chunk-only replay)
     mixed = ctx["ragged_mixed"]
-    out[-1]["fused"] = {
+    out[2]["fused"] = {
         "launches": ctx["launches"]["serve_fused"][
             "ragged_paged_attention"],
         "launches_in": "serve_fused",

@@ -185,8 +185,6 @@ def _unsupported(ecfg: EngineConfig) -> List[str]:
     out = []
     if ecfg.tensor_parallel_size != 1:
         out.append("tensor_parallel_size > 1")
-    if ecfg.quantization:
-        out.append("quantization")
     if ecfg.enable_prefix_caching:
         out.append("enable_prefix_caching")
     if ecfg.speculative_enabled:
@@ -213,6 +211,11 @@ class LLMEngine:
         if model.device != self.device:
             raise ValueError(f"model weights are on {model.device}, the "
                              f"engine runs on {self.device}")
+        if model.quantized != (ecfg.quantization == "int8"):
+            raise ValueError(
+                f"quantization={ecfg.quantization!r} but the model's weights "
+                f"are {'int8' if model.quantized else 'not quantized'}: "
+                f"quantize them at boot (ops.quant.quantize_state_dict)")
         self.cfg = model_cfg
         self.ecfg = ecfg
         self.model = model

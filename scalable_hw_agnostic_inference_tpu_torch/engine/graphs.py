@@ -61,7 +61,9 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
+from ..ops import quant as _quant
 from ..ops.cuda import flash_attention as _fa
+from ..ops.cuda import int8_matmul as _i8
 from ..ops.cuda import paged_attention as _pa
 from ..ops.cuda import ragged_paged_attention as _rpa
 from .resident import upload
@@ -73,9 +75,11 @@ OUTPUTS = ("nxt", "pos_next", "top_ids", "top_lp", "tok_lp")
 CHUNK_INPUTS = ("c_ids", "c_ntext", "c_table", "c_start")
 CHUNK_OUTPUT = "c_logits"
 
-#: the counted kernel wrappers a decode step may launch
+#: the counted kernel wrappers a decode step may launch, and the int8
+#: projections' wide route (a fused step's chunk window)
 COUNTED = (_fa.flash_attention, _pa.paged_decode_attention,
-           _rpa.ragged_paged_attention)
+           _rpa.ragged_paged_attention, _i8.int8_matmul,
+           _quant.quant_matmul_wide)
 
 
 def _launch_counts() -> Tuple[int, ...]:

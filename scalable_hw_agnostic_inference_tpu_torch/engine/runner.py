@@ -79,19 +79,18 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 def _qkv(layer, x: torch.Tensor, positions: torch.Tensor, cfg: LlamaConfig):
     B, T, _ = x.shape
     hd = cfg.head_dim
-    q = quant_matmul(x, layer.attn.q.weight).reshape(B, T, cfg.n_heads, hd)
-    k = quant_matmul(x, layer.attn.k.weight).reshape(B, T, cfg.n_kv_heads, hd)
-    v = quant_matmul(x, layer.attn.v.weight).reshape(B, T, cfg.n_kv_heads, hd)
+    q = quant_matmul(x, layer.attn.q).reshape(B, T, cfg.n_heads, hd)
+    k = quant_matmul(x, layer.attn.k).reshape(B, T, cfg.n_kv_heads, hd)
+    v = quant_matmul(x, layer.attn.v).reshape(B, T, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
     return q, k, v
 
 
 def _mlp(layer, x: torch.Tensor) -> torch.Tensor:
-    gate = quant_matmul(x, layer.mlp.gate.weight)
-    up = quant_matmul(x, layer.mlp.up.weight)
-    return quant_matmul(torch.nn.functional.silu(gate) * up,
-                        layer.mlp.down.weight)
+    gate = quant_matmul(x, layer.mlp.gate)
+    up = quant_matmul(x, layer.mlp.up)
+    return quant_matmul(torch.nn.functional.silu(gate) * up, layer.mlp.down)
 
 
 def _scatter_blocks(kv_layer: Dict[str, torch.Tensor], tbl: torch.Tensor,
@@ -119,7 +118,7 @@ def _attn_out_mlp(cfg: LlamaConfig, layer, x: torch.Tensor,
     """The rest of a layer after its attention ``o [B, T, H, D]``: the
     output projection and the MLP, each with its residual."""
     B, T = x.shape[:2]
-    x = x + quant_matmul(o.reshape(B, T, -1), layer.attn.o.weight)
+    x = x + quant_matmul(o.reshape(B, T, -1), layer.attn.o)
     return x + _mlp(layer, _rmsnorm(x, layer.mlp_norm.scale, cfg.rms_eps))
 
 
@@ -185,7 +184,7 @@ def _logits(model: LlamaForCausalLM, x: torch.Tensor,
     x = _rmsnorm(x, model.final_norm.scale, cfg.rms_eps)
     if cfg.tie_embeddings:
         return x.float() @ model.embed.weight.float().T
-    return quant_matmul(x, model.lm_head.weight).float()
+    return quant_matmul(x, model.lm_head).float()
 
 
 def token_logprobs(logits: torch.Tensor, toks: torch.Tensor):
@@ -233,7 +232,7 @@ def make_prefill(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
             # causal within the prompt; pad keys masked by the true length
             # (kv_lengths, not a mask, keeps the flash kernel eligible)
             o = dot_product_attention(q, k, v, kv_lengths=n_text, causal=True)
-            x = x + quant_matmul(o.reshape(B, T, -1), layer.attn.o.weight)
+            x = x + quant_matmul(o.reshape(B, T, -1), layer.attn.o)
             x = x + _mlp(layer, _rmsnorm(x, layer.mlp_norm.scale,
                                          cfg.rms_eps))
             _scatter_blocks(

@@ -3,13 +3,17 @@
 Port of ``scalable_hw_agnostic_inference_tpu/models/llama.py``:
 ``LlamaConfig`` with every preset and ``from_hf`` (``:44-150``), the
 ``cache=None`` full-sequence forward of ``LlamaForCausalLM`` (``:260-311``,
-the scoring path; causal attention goes through the B1 kernel on CUDA) and
-``geometry_params`` (``:434``). The contiguous-cache decode path, tensor
-parallelism and int8 weights come in later slices.
+the scoring path; causal attention goes through the B1 kernel on CUDA),
+int8 weight-only projections (``quant=True``, ``:167-176,:271``, as
+:class:`QuantLinear`) and ``geometry_params`` (``:434``, born int8 with
+``quant``). The contiguous-cache decode path and tensor parallelism come
+in later slices.
 
 Module names mirror the flax tree, so ``layer_{i}/attn/q`` becomes
-``layers.{i}.attn.q``. Projections are ``nn.Linear`` weights ``[out, in]``;
-:func:`params_from_jax` transposes the flax ``[in, out]`` kernels.
+``layers.{i}.attn.q``. Projections are ``nn.Linear`` weights ``[out, in]``
+(or, quantized, ``weight_q`` int8 ``[out, in]`` and ``scale`` f32
+``[out]``); :func:`params_from_jax` transposes the flax ``[in, out]``
+kernels, quantized ones included.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from torch import nn
 from ..core.device import DeviceLike, resolve_device
 from ..ops.attention import dot_product_attention
 from ..ops.norms import RMSNorm
-from ..ops.quant import quant_matmul
+from ..ops.quant import _is_quant_node, quant_matmul
 from ..ops.rope import apply_rope
 
 
@@ -137,60 +141,86 @@ def rope_scaling_from_hf(rs) -> Optional[Tuple[float, float, float, int]]:
             int(rs["original_max_position_embeddings"]))
 
 
-def _linear(n_in: int, n_out: int, dtype, device) -> nn.Linear:
+class QuantLinear(nn.Module):
+    """An int8 projection (the reference's ``ops.quant.QuantDense``), read
+    by ``ops.quant.quant_matmul``: ``weight_q`` int8 ``[out, in]`` and
+    ``scale`` f32 ``[out]``, parameters without gradients (so that
+    ``model.parameters()``, which the HBM ledger sums, holds them), made by
+    ``ops.quant.quantize_state_dict``; the zeros and ones here only give
+    the module its structure."""
+
+    def __init__(self, n_in: int, n_out: int, device=None):
+        super().__init__()
+        self.weight_q = nn.Parameter(torch.zeros(
+            (n_out, n_in), dtype=torch.int8, device=device),
+            requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(
+            (n_out,), dtype=torch.float32, device=device),
+            requires_grad=False)
+
+
+def _linear(n_in: int, n_out: int, dtype, device,
+            quantized: bool = False) -> nn.Module:
+    if quantized:
+        return QuantLinear(n_in, n_out, device=device)
     return nn.Linear(n_in, n_out, bias=False, dtype=dtype, device=device)
 
 
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None,
+                 quantized: bool = False):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         hd = cfg.head_dim
-        self.q = _linear(cfg.dim, cfg.n_heads * hd, param_dtype, device)
-        self.k = _linear(cfg.dim, cfg.n_kv_heads * hd, param_dtype, device)
-        self.v = _linear(cfg.dim, cfg.n_kv_heads * hd, param_dtype, device)
-        self.o = _linear(cfg.n_heads * hd, cfg.dim, param_dtype, device)
+        args = (param_dtype, device, quantized)
+        self.q = _linear(cfg.dim, cfg.n_heads * hd, *args)
+        self.k = _linear(cfg.dim, cfg.n_kv_heads * hd, *args)
+        self.v = _linear(cfg.dim, cfg.n_kv_heads * hd, *args)
+        self.o = _linear(cfg.n_heads * hd, cfg.dim, *args)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         cfg = self.cfg
         B, T, _ = x.shape
         hd = cfg.head_dim
         x = x.to(self.dtype)
-        q = quant_matmul(x, self.q.weight).reshape(B, T, cfg.n_heads, hd)
-        k = quant_matmul(x, self.k.weight).reshape(B, T, cfg.n_kv_heads, hd)
-        v = quant_matmul(x, self.v.weight).reshape(B, T, cfg.n_kv_heads, hd)
+        q = quant_matmul(x, self.q).reshape(B, T, cfg.n_heads, hd)
+        k = quant_matmul(x, self.k).reshape(B, T, cfg.n_kv_heads, hd)
+        v = quant_matmul(x, self.v).reshape(B, T, cfg.n_kv_heads, hd)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
         # full-sequence scoring: causal within the sequence
         o = dot_product_attention(q, k, v, causal=True)
-        return quant_matmul(o.reshape(B, T, cfg.n_heads * hd), self.o.weight)
+        return quant_matmul(o.reshape(B, T, cfg.n_heads * hd), self.o)
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None,
+                 quantized: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.gate = _linear(cfg.dim, cfg.mlp_dim, param_dtype, device)
-        self.up = _linear(cfg.dim, cfg.mlp_dim, param_dtype, device)
-        self.down = _linear(cfg.mlp_dim, cfg.dim, param_dtype, device)
+        args = (param_dtype, device, quantized)
+        self.gate = _linear(cfg.dim, cfg.mlp_dim, *args)
+        self.up = _linear(cfg.dim, cfg.mlp_dim, *args)
+        self.down = _linear(cfg.mlp_dim, cfg.dim, *args)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        gate = quant_matmul(x, self.gate.weight)
-        up = quant_matmul(x, self.up.weight)
-        return quant_matmul(nn.functional.silu(gate) * up, self.down.weight)
+        gate = quant_matmul(x, self.gate)
+        up = quant_matmul(x, self.up)
+        return quant_matmul(nn.functional.silu(gate) * up, self.down)
 
 
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None,
+                 quantized: bool = False):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.dim, cfg.rms_eps, dtype, device=device)
-        self.attn = LlamaAttention(cfg, dtype, param_dtype, device)
+        self.attn = LlamaAttention(cfg, dtype, param_dtype, device, quantized)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.rms_eps, dtype, device=device)
-        self.mlp = LlamaMLP(cfg, dtype, param_dtype, device)
+        self.mlp = LlamaMLP(cfg, dtype, param_dtype, device, quantized)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         x = x + self.attn(self.attn_norm(x), positions)
@@ -202,12 +232,16 @@ class LlamaForCausalLM(nn.Module):
 
     ``dtype`` is the compute dtype (the reference module's ``dtype``),
     ``param_dtype`` the storage dtype of freshly built weights (flax's
-    default is fp32). The paged engine (``engine.runner``) reads these same
-    weights.
+    default is fp32). ``quantized`` builds every projection the
+    quantization predicate names as a :class:`QuantLinear` (the
+    reference's ``quant=True``); the embedding, the norms and a tied
+    ``lm_head`` stay as they are. The paged engine (``engine.runner``)
+    reads these same weights.
     """
 
     def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device: DeviceLike = None):
+                 param_dtype=torch.float32, device: DeviceLike = None,
+                 quantized: bool = False):
         super().__init__()
         # the card unless the caller asks for the CPU; "meta" builds no
         # storage (from_state_dict)
@@ -216,23 +250,27 @@ class LlamaForCausalLM(nn.Module):
         if cfg.cross_attention_layers:
             raise ValueError("mllama configs (cross_attention_layers) are "
                              "not ported yet")
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.quantized = cfg, dtype, quantized
         self.embed = nn.Embedding(cfg.vocab_size, cfg.dim, dtype=param_dtype,
                                   device=device)
         self.layers = nn.ModuleList(
-            LlamaBlock(cfg, dtype, param_dtype, device)
+            LlamaBlock(cfg, dtype, param_dtype, device, quantized)
             for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.rms_eps, dtype, device=device)
         self.lm_head = (None if cfg.tie_embeddings else
-                        _linear(cfg.dim, cfg.vocab_size, param_dtype, device))
+                        _linear(cfg.dim, cfg.vocab_size, param_dtype, device,
+                                quantized))
 
     @classmethod
     def from_state_dict(cls, cfg: LlamaConfig, state: Dict[str, torch.Tensor],
                         dtype=torch.bfloat16) -> "LlamaForCausalLM":
         """Wrap existing weights without allocating (or initialising) a
         second copy: the module is built on the meta device and the
-        tensors are assigned in place."""
-        model = cls(cfg, dtype=dtype, device="meta")
+        tensors are assigned in place. A state dict with ``*.weight_q``
+        entries (``ops.quant.quantize_state_dict``) builds the int8
+        model."""
+        quantized = any(k.endswith(".weight_q") for k in state)
+        model = cls(cfg, dtype=dtype, device="meta", quantized=quantized)
         model.load_state_dict(state, assign=True, strict=True)
         return model
 
@@ -252,9 +290,9 @@ class LlamaForCausalLM(nn.Module):
         x = self.final_norm(x)
         if self.lm_head is None:
             # flax Embed.attend promotes both operands to the compute dtype
-            logits = quant_matmul(x, self.embed.weight)
+            logits = quant_matmul(x, self.embed)
         else:
-            logits = quant_matmul(x, self.lm_head.weight)
+            logits = quant_matmul(x, self.lm_head)
         return logits.float()
 
 
@@ -276,7 +314,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig
                     ) -> Dict[str, torch.Tensor]:
     """The JAX package's ``{"params": ...}`` llama tree (leaves as numpy
     arrays) -> this module's state dict. Flax ``Dense`` kernels are
-    ``[in, out]``; ``nn.Linear`` weights are ``[out, in]``."""
+    ``[in, out]``; ``nn.Linear`` weights are ``[out, in]``. A quantized
+    tree (``quantize_params_tree``'s ``{"kernel_q", "scale"}`` leaves)
+    gives the int8 state dict."""
     if cfg.cross_attention_layers:
         raise ValueError("mllama trees are not ported yet")
     p = tree["params"]
@@ -289,14 +329,22 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig
         pre = f"layers.{i}"
         for group in ("attn", "mlp"):
             for name, leaf in lp[group].items():
-                sd[f"{pre}.{group}.{name}.weight"] = _to_torch(
-                    leaf["kernel"]).T.contiguous()
+                sd.update(_proj_from_jax(f"{pre}.{group}.{name}", leaf))
         sd[f"{pre}.attn_norm.scale"] = _to_torch(lp["attn_norm"]["scale"])
         sd[f"{pre}.mlp_norm.scale"] = _to_torch(lp["mlp_norm"]["scale"])
     if not cfg.tie_embeddings:
-        sd["lm_head.weight"] = _to_torch(
-            p["lm_head"]["kernel"]).T.contiguous()
+        sd.update(_proj_from_jax("lm_head", p["lm_head"]))
     return sd
+
+
+def _proj_from_jax(stem: str, leaf: Dict[str, Any]
+                   ) -> Dict[str, torch.Tensor]:
+    """One flax ``Dense`` (``{"kernel"}``) or ``QuantDense``
+    (``{"kernel_q", "scale"}``) leaf, ``[in, out]``, as ``[out, in]``."""
+    if "kernel_q" in leaf:
+        return {f"{stem}.weight_q": _to_torch(leaf["kernel_q"]).T.contiguous(),
+                f"{stem}.scale": _to_torch(leaf["scale"])}
+    return {f"{stem}.weight": _to_torch(leaf["kernel"]).T.contiguous()}
 
 
 def _weight_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
@@ -324,15 +372,27 @@ def _weight_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
 
 
 def geometry_params(cfg: LlamaConfig, dtype=torch.bfloat16,
-                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+                    device: DeviceLike = None, quant: bool = False
+                    ) -> Dict[str, torch.Tensor]:
     """Shape-exact zero-weight state dict (norm scales are ones) for
     geometry serving: real shapes, no checkpoint, meaningless outputs.
     Made on ``device`` (the card unless the caller asks for the CPU)
-    directly, with no host copy."""
+    directly, with no host copy. With ``quant`` every projection is BORN
+    int8 (``weight_q`` zeros and f32 unit ``scale``), so an 8B tier never
+    exists in ``dtype`` first."""
     device = resolve_device(device)
-    return {name: (torch.ones if len(shape) == 1 else torch.zeros)(
+    out: Dict[str, torch.Tensor] = {}
+    for name, shape in _weight_shapes(cfg).items():
+        if quant and _is_quant_node(name, torch.empty(shape, device="meta")):
+            stem = name[: -len(".weight")]
+            out[f"{stem}.weight_q"] = torch.zeros(shape, dtype=torch.int8,
+                                                  device=device)
+            out[f"{stem}.scale"] = torch.ones(shape[:1], dtype=torch.float32,
+                                              device=device)
+        else:
+            out[name] = (torch.ones if len(shape) == 1 else torch.zeros)(
                 shape, dtype=dtype, device=device)
-            for name, shape in _weight_shapes(cfg).items()}
+    return out
 
 
 def random_params(cfg: LlamaConfig, seed: int, std: float = 0.02,

@@ -10,11 +10,21 @@ before the loop starts, ``infer``, ``_collect``, ``_deadline_at``,
 samples, ``logprobs`` through ``_format_logprobs``). ``load`` serves the
 ``tiny`` tier (seeded random weights, the small engine shapes of the
 reference's ``:177-196``; CPU only, its head_dim of 16 is not one the CUDA
-kernels take) and the ``*-geometry`` tiers (full-size architecture, zero
-weights, real engine shapes); a ``weights`` callable given to the
+kernels take), the ``*-geometry`` tiers (full-size architecture, zero
+weights, real engine shapes) and a local Llama checkpoint directory
+(``MODEL_ID=<dir>`` holding ``config.json``, ``*.safetensors`` and
+``tokenizer.json``: the reference's ``from_pretrained`` of a local path,
+``causal_lm.py:252-290``, read by ``models.convert`` and tokenized by
+``models.tokenizer.BpeTokenizer``); a ``weights`` callable given to the
 constructor replaces the tier's weights (the tests hand the port the JAX
-service's). The tokenizer is the byte-level ``ByteTokenizer``, so a chat
-prompt is the reference's plain ``role: content`` layout. ``n > 1`` is
+service's). ``QUANTIZATION=int8`` (or the ConfigMap's ``quantization``)
+quantizes the weights at boot, after the bf16 cast, as the reference does
+(``:199-204``); a geometry tier is born int8. The tiers tokenize with the
+byte-level ``ByteTokenizer``. A chat prompt is the reference's plain
+``role: content`` layout; a checkpoint whose ``tokenizer_config.json``
+carries a ``chat_template`` answers the chat route with 501 (templates are
+not ported: formatting another prompt than the reference's would be a
+quiet change). ``n > 1`` is
 one fan-out group (``EngineLoop.submit_group``: one tokenization, one
 queue item; one prefill with copy-on-write forks under ``SHAI_KV_COW``),
 and not streamed. The operating layer's unit half (``:22,307-345``): the
@@ -24,8 +34,8 @@ last RETIRED step), ``drain`` through ``EngineLoop.drain``, the request
 trace (``tokenize`` and ``detokenize`` spans, the engine's queue, prefill
 and decode phases grafted under ``model_infer``, ``engine_req_id`` on the
 root) and the idempotency key and ``traceparent`` passed to the engine.
-Checkpoint loading, chat templates, images, the KV network and migration
-come in later slices.
+Chat templates, images, the KV network and migration come in later
+slices.
 """
 
 from __future__ import annotations
@@ -44,14 +54,17 @@ from ...core.device import resolve_device
 from ...engine.config import EngineConfig
 from ...engine.types import K_LOGPROBS
 from ...models.generate import ByteTokenizer
+from ...models.convert import load_hf_checkpoint
 from ...models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
     geometry_params,
     random_params,
 )
+from ...models.tokenizer import BpeTokenizer
 from ...obs import trace as obs_trace
 from ...ops.cuda.flash_attention import HEAD_DIMS
+from ...ops.quant import quantize_state_dict
 from ...resilience import deadline as rz_deadline
 from ...resilience import qos as rz_qos
 from ...resilience.drain import StepWatchdog
@@ -95,6 +108,8 @@ class VllmService(ModelService):
         self.loop = None
         self._watchdog: Optional[StepWatchdog] = None
         self.warm_seconds = 0.0
+        #: seconds the checkpoint directory took to load (0 for the tiers)
+        self.load_seconds = 0.0
         try:
             self.ecfg = self._resolve_ecfg(cfg)
             self.concurrency = self.ecfg.max_num_seqs
@@ -133,6 +148,10 @@ class VllmService(ModelService):
         cfg, ecfg = self.cfg, self.ecfg
         device = resolve_device(cfg.device)
         model_id = ecfg.model or cfg.model_id
+        quant = ecfg.quantization == "int8"
+        state = None
+        self.tokenizer = ByteTokenizer()
+        self.eos_id = ByteTokenizer.eos_id
         if model_id in ("", "tiny"):
             mcfg = LlamaConfig.tiny()
             # tiny engine shapes: small blocks and buckets so CI exercises
@@ -149,28 +168,45 @@ class VllmService(ModelService):
                 role=ecfg.role)
         elif model_id in GEOMETRY_MODELS:
             mcfg = GEOMETRY_MODELS[model_id]()
+        elif os.path.isdir(model_id):
+            # a local checkpoint: bf16 (then int8) weights one tensor at a
+            # time onto the device, the tokenizer from its tokenizer.json
+            t0 = time.monotonic()
+            mcfg, state = load_hf_checkpoint(model_id, device, quantize=quant)
+            self.load_seconds = time.monotonic() - t0
+            self.tokenizer = BpeTokenizer.from_dir(model_id)
+            if self.tokenizer.eos_token_id is None:
+                raise ValueError(f"tokenizer for {model_id} has no "
+                                 f"eos_token_id")
+            self.eos_id = self.tokenizer.eos_token_id
         else:
             raise ValueError(
-                f"model {model_id!r}: this port serves the 'tiny' and "
-                f"geometry tiers ({', '.join(GEOMETRY_MODELS)}); checkpoint "
-                f"loading is not ported yet")
+                f"model {model_id!r} is not a directory: this port serves "
+                f"the 'tiny' and geometry tiers ({', '.join(GEOMETRY_MODELS)})"
+                f" and local checkpoint directories (config.json, "
+                f"*.safetensors, tokenizer.json); it fetches nothing from a "
+                f"hub")
         if device.type == "cuda" and mcfg.head_dim not in HEAD_DIMS:
             raise ValueError(
                 f"model {model_id or 'tiny'!r} has head_dim {mcfg.head_dim}; "
                 f"the CUDA attention kernels take head_dim in {HEAD_DIMS}. "
                 f"Serve a geometry tier ({', '.join(GEOMETRY_MODELS)}) on "
                 f"cuda, or this model with DEVICE=cpu")
-        if self._weights is not None:
-            state = self._weights(mcfg, device)
-        elif model_id in GEOMETRY_MODELS:
-            state = geometry_params(mcfg, dtype=torch.bfloat16, device=device)
-        else:
-            state = random_params(mcfg, cfg.seed, dtype=torch.float32,
-                                  device=device)
+        if state is None:   # a checkpoint's came quantized as it loaded
+            if self._weights is not None:
+                state = self._weights(mcfg, device)
+            elif model_id in GEOMETRY_MODELS:
+                # born int8 under quantization: an 8B tier never exists in
+                # bf16 (quantize_state_dict then finds nothing to convert)
+                state = geometry_params(mcfg, dtype=torch.bfloat16,
+                                        device=device, quant=quant)
+            else:
+                state = random_params(mcfg, cfg.seed, dtype=torch.float32,
+                                      device=device)
+            if quant:
+                state = quantize_state_dict(state)
         self.ecfg = ecfg
         model = LlamaForCausalLM.from_state_dict(mcfg, state)
-        self.tokenizer = ByteTokenizer()
-        self.eos_id = ByteTokenizer.eos_id
         engine = LLMEngine(mcfg, model, ecfg, device=device)
         # build the CLOSED executable set (every prefill bucket and batch
         # size, the continuation keys, every decode key captured as a CUDA
@@ -216,13 +252,19 @@ class VllmService(ModelService):
         return None if self._engine is None else self._engine.obs
 
     def _encode(self, text: str) -> List[int]:
-        """Byte ids with BOS, cut to the engine's chunked-prefill cap (not
-        the largest bucket: longer prompts chunk)."""
+        """Ids with BOS, cut to the engine's chunked-prefill cap (not the
+        largest bucket: longer prompts chunk); the BPE tokenizer keeps its
+        BOS when it cuts, as the reference's truncation does."""
+        cap = self._engine.max_prompt_len
         with obs_trace.span("tokenize"):
-            ids, n = self.tokenizer.encode(text, self._engine.max_prompt_len)
+            if isinstance(self.tokenizer, BpeTokenizer):
+                return self.tokenizer.encode(text, max_length=cap)
+            ids, n = self.tokenizer.encode(text, cap)
             return [int(i) for i in ids[:n]]
 
     def _decode(self, ids) -> str:
+        if isinstance(self.tokenizer, BpeTokenizer):
+            return self.tokenizer.decode(ids, skip_special_tokens=True)
         return self.tokenizer.decode(ids)
 
     def example_payload(self) -> Dict[str, Any]:
@@ -601,11 +643,16 @@ class VllmService(ModelService):
 
         return StreamingResponse(chunks())
 
-    @staticmethod
-    def _chat_prompt(messages) -> str:
+    def _chat_prompt(self, messages) -> str:
         """Messages -> prompt text: ``role: content`` lines and an
         ``assistant:`` cue (the reference's layout without a chat
-        template)."""
+        template). A tokenizer with a chat template answers 501: the
+        reference would render the template, which is not ported."""
+        if getattr(self.tokenizer, "chat_template", None):
+            raise HTTPError(
+                501, "chat templates are not ported yet: this checkpoint's "
+                     "tokenizer_config.json carries a chat_template; use "
+                     "/v1/completions or /generate with a formatted prompt")
         if not isinstance(messages, list) or not messages:
             raise HTTPError(400, "messages must be a non-empty list")
         for m in messages:

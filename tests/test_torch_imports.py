@@ -2,8 +2,10 @@
 package, and it runs on the card unless it is asked for the CPU.
 
 - an AST scan of every port source (and ``chip_smoke.py``) fails on an
-  import of ``jax``, ``jaxlib``, ``flax``, ``prometheus_client`` or
-  ``scalable_hw_agnostic_inference_tpu``;
+  import of ``jax``, ``jaxlib``, ``flax``, ``prometheus_client``,
+  ``scalable_hw_agnostic_inference_tpu``, or of a package the machine with
+  the card lacks (``transformers``, ``safetensors``, ``tokenizers``,
+  ``tiktoken``, ``regex``, ``jinja2``, ``sentencepiece``);
 - a fresh interpreter that imports every port module holds no more
   ``jax*``/``flax*`` modules than a bare interpreter does (an interpreter
   may preload JAX at start-up, so the check is relative);
@@ -27,7 +29,11 @@ import scalable_hw_agnostic_inference_tpu_torch as port
 PORT_ROOT = Path(port.__file__).resolve().parent
 REPO = PORT_ROOT.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "prometheus_client",
-             "scalable_hw_agnostic_inference_tpu")
+             "scalable_hw_agnostic_inference_tpu",
+             # not on the machine with the card: the checkpoint reader and
+             # the tokenizer are the port's own
+             "transformers", "safetensors", "tokenizers", "tiktoken",
+             "regex", "jinja2", "sentencepiece")
 
 
 def _modules():
@@ -75,8 +81,10 @@ print(json.dumps(sorted(after - before)))
 
 
 def test_importing_every_port_module_loads_no_jax():
+    """Nor any other package the AST scan refuses."""
     names = [n for _, n in _modules() if not n.endswith("__main__")]
-    heads = ("jax", "jaxlib", "flax")
+    heads = tuple(h for h in FORBIDDEN
+                  if h != "scalable_hw_agnostic_inference_tpu")
     code = _PROBE % (heads, names, heads)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -148,6 +156,10 @@ def _builders():
     return {
         "LlamaForCausalLM": lambda **kw: llama.LlamaForCausalLM(cfg, **kw),
         "geometry_params": lambda **kw: llama.geometry_params(cfg, **kw),
+        "geometry_params_int8": lambda **kw: llama.geometry_params(
+            cfg, quant=True, **kw),
+        "LlamaForCausalLM_int8": lambda **kw: llama.LlamaForCausalLM(
+            cfg, quantized=True, **kw),
         "random_params": lambda **kw: llama.random_params(cfg, 0, **kw),
         "PagedKVCache": lambda **kw: PagedKVCache(
             cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, total_blocks=9,
@@ -164,7 +176,9 @@ def _tensors(built):
 
 
 @pytest.mark.parametrize("name", ["LlamaForCausalLM", "geometry_params",
-                                  "random_params", "PagedKVCache"])
+                                  "random_params", "PagedKVCache",
+                                  "geometry_params_int8",
+                                  "LlamaForCausalLM_int8"])
 def test_model_weights_and_cache_default_to_the_card(no_cuda, name):
     """With no device given, the model, its weight builders and the KV
     cache go to the card, and raise without one, as the engine and the
@@ -216,7 +230,8 @@ SLICE_MODULES = (
 def test_async_decode_modules_are_scanned_and_load_no_jax():
     scanned = {n for _, n in _modules()}
     assert set(SLICE_MODULES) <= scanned
-    heads = ("jax", "jaxlib", "flax")
+    heads = tuple(h for h in FORBIDDEN
+                  if h != "scalable_hw_agnostic_inference_tpu")
     code = _PROBE % (heads, list(SLICE_MODULES), heads)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
