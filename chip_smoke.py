@@ -83,7 +83,31 @@ Phases:
                 ones, ``/generate`` and ``/v1/completions`` answer, greedy
                 tokens equal an engine built from the same state dict;
                 load seconds and GB/s;
- 13. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
+ 13. ``engine_prefix`` the engine phase's model with
+                ``enable_prefix_caching`` and ``SHAI_KVTIER=1`` over a
+                160-block pool, one request at a time: a 1,024-token
+                shared prefix cold, as a device hit (a 100-token
+                remainder: the 128-token continuation key), demoted by two
+                fillers, then restored from the host tier; bucketed,
+                ragged + int8 KV, fused; tokens against the cache-off
+                engine by the tie rule (an int8 run against the scoring
+                forward, as engine_ragged's), async equal to lock-step,
+                B1, B2 and B3 exactly the layers times each eager prefill
+                and continuation call and each replay's captured launches,
+                0 recompiles, no leaked block; TTFT of each admission, the
+                restore's GB/s and a 64-block copy-out's ms, pinned and
+                pageable;
+ 14. ``serve_disagg`` a prefill-role, a decode-role and a monolithic pod
+                on one seeded Llama-3.2-1B-width directory (written by the
+                checkpoint phase's writer), in this process over
+                localhost, each with the prefix cache and the tier: each
+                handoff pulled over ``GET /kv/blocks``, the decode pod's
+                greedy tokens equal to the monolithic pod's, the pulled
+                and served blocks equal to the banked ones byte for byte,
+                an injected ``kvnet.fetch`` fault recomputing with a 200;
+                the pull's GB/s and share of TTFT, the ``shai_kvnet_*`` and
+                ``shai_kvtier_*`` families;
+ 15. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
                 its closed set warmed before readiness) and answer 8
                 concurrent ``POST /generate``; then an OpenAI round: 8
                 concurrent streamed ``POST /v1/completions`` (the client's
@@ -93,18 +117,18 @@ Phases:
                 give a uniform distribution), an expired
                 ``X-SHAI-Deadline-Ms`` (504) and a ``/metrics`` scrape
                 holding the ``shai_*`` contract families;
- 14. ``serve_int8`` serve's tier, requests and switches with
+ 16. ``serve_int8`` serve's tier, requests and switches with
                 ``QUANTIZATION=int8`` (born int8): the weights pool exactly
                 8,561,882,112 bytes, 225 int8 launches per replay, both
                 int8 routes counted, beside serve's numbers;
- 15. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
+ 17. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
                 SHAI_KV_QUANT=int8`` and an engine ConfigMap of
                 ``max_model_len`` 4096: two of the 8 prompts chunk;
- 16. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
+ 18. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
                 (the chunks ride the fused graphs' replays), then one
                 ``n=4`` completion admitted as one prefill with 3
                 copy-on-write forks; its numbers beside serve_ragged's;
- 17. ``serve_ops`` serve's configuration under the operating layer
+ 19. ``serve_ops`` serve's configuration under the operating layer
                 (``SERVE_OPS_ENV``: ``MAX_INFLIGHT=8``, tracing, the fault
                 endpoint armed, a perf projection of 50 tok/s over a 5 s
                 window, a 2 s watchdog floor, a 60 s drain budget): the
@@ -134,7 +158,8 @@ Any failed phase makes the script exit non-zero without the result lines.
 A full run prints the card's name and power limit, then, second to last,
 ``{"kernels": [...]}`` (per kernel: route, source, the TPU kernel it
 replaces, launches in the serve phase that runs it, max error,
-kernel/plain/bound/library times; B3 also its fused mixed-row launch; the
+kernel/plain/bound/library times, and its launches at the cached callers
+of engine_prefix and serve_disagg; B3 also its fused mixed-row launch; the
 int8 kernel, which replaces XLA's fused int8 dot and no Pallas kernel,
 ``tpu_kernel: null`` and its bf16 ``F.linear`` time) and,
 last, ``{"ok": true, "device":
@@ -162,8 +187,8 @@ from pathlib import Path
 
 PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
           "decode_graph", "engine", "engine_ragged", "engine_fused",
-          "engine_int8", "checkpoint", "serve", "serve_int8", "serve_ragged",
-          "serve_fused", "serve_ops")
+          "engine_int8", "checkpoint", "engine_prefix", "serve_disagg",
+          "serve", "serve_int8", "serve_ragged", "serve_fused", "serve_ops")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core FLOP/s
@@ -1624,11 +1649,12 @@ def phase_engine(ctx):
                 ("cont", 32, 512), "tie")
 
 
-def _tie_diverge(got, want):
+def _tie_diverge(got, want, tie_gap=TIE_GAP):
     """``tests/parity.py``'s greedy tie rule: each of ``got``'s token
     streams equals ``want``'s, or parts from it where ``want``'s top-2
-    logprobs are within ``TIE_GAP`` (a near-tie of bf16 rounding). Returns
-    the gaps at the partings; raises at a decisive one."""
+    logprobs are within ``tie_gap`` (``TIE_GAP``: a near-tie of bf16
+    rounding). Returns the gaps at the partings; raises at a decisive
+    one."""
     gaps = []
     for g, w in zip(got, want):
         if g.token_ids == w.token_ids:
@@ -1640,9 +1666,9 @@ def _tie_diverge(got, want):
         top = w.logprobs[i]["top_logprobs"]
         gap = float(top[0]) - float(top[1])
         gaps.append(gap)
-        if gap >= TIE_GAP:
+        if gap >= tie_gap:
             raise AssertionError(f"diverged at token {i} with a decisive "
-                                 f"margin {gap:.4f} >= {TIE_GAP}: "
+                                 f"margin {gap:.4f} >= {tie_gap}: "
                                  f"{g.token_ids} != {w.token_ids}")
     return gaps
 
@@ -3048,6 +3074,550 @@ def phase_checkpoint(ctx):
     ctx["checkpoint"] = out
 
 
+# -- engine_prefix -----------------------------------------------------------
+
+#: engine_prefix's shapes: a 1,024-token shared prefix (64 blocks of 16)
+#: with distinct tails, and a pool of PREFIX_BLOCKS blocks (2 MiB each at
+#: 8B widths) that holds the first two prompts' runs and one filler, so the
+#: second filler evicts (demotes) part of the shared prefix to the host
+#: tier and the last prompt restores it. Cached admission reserves the warm
+#: start's blocks, the restore's and the remainder's against the pool
+#: (64 + the restored + 20 for a 1,300-token prompt), which a smaller pool
+#: refuses
+PREFIX_SHARED = 1024
+#: the device hit's remainder (100) takes the 128-token chunk bucket, a
+#: continuation key below the largest bucket; the cold run's last chunk
+#: and the restore's take the 512-token one
+PREFIX_TAILS = (200, 100, 276)
+#: An int8 pool is held otherwise: a block's int8 scale only grows (the
+#: reference's requantize), so a freshly allocated decode block starts
+#: from the scale its last occupant left, and the numbers depend on which
+#: physical blocks a run gets, which caching changes (two runs on the card
+#: parted from the cache-off engine 2 tokens after a prompt's decode
+#: entered a fresh block, at top-2 gaps of 0.031 and 0.219). The int8 run
+#: is scored as engine_ragged's int8 run is (``_score``): its worst logit
+#: deficit within ``NOISE_TIES`` x eps of the scoring forward, and as many
+#: argmax hits as the cache-off run less ``INT8_SLACK``.
+PREFIX_FILLER = 1300
+PREFIX_BLOCKS = 160
+#: the host tier's capacity: 1 GiB, some 500 blocks at 8B widths
+PREFIX_TIER_BYTES = 1 << 30
+
+
+def _count_calls(eng):
+    """Count each eager prefill and continuation call by its key from here
+    on (each B1 call is one launch per layer; each ragged continuation
+    ``rcont`` one B3 launch per layer); returns the counter dict."""
+    calls = {}
+    for key, fn in list(eng._prefill.items()):
+        def counted(*a, _fn=fn, _key=key, **k):
+            calls[_key] = calls.get(_key, 0) + 1
+            return _fn(*a, **k)
+        eng._prefill[key] = counted
+    return calls
+
+
+def _prefix_walk(eng, before, calls):
+    """B1's, B2's and B3's exact launch counts since ``before``: the
+    layers times each eager prefill and static continuation call (B1),
+    times each ragged continuation call (B3), and each graph replay's
+    captured launches (B2 or B3; the chunk-only replays of cached
+    admission under the fused step included)."""
+    L = eng.cfg.n_layers
+    out = {"flash_attention": L * sum(n for k, n in calls.items()
+                                      if k[0] != "rcont"),
+           "paged_decode_attention": 0,
+           "ragged_paged_attention": L * sum(n for k, n in calls.items()
+                                             if k[0] == "rcont")}
+    for g in _graphs(eng):
+        n = g.replays - before.get(g.key, 0)
+        for name, per in g.launches.items():
+            if name in out:
+                out[name] += per * n
+    return out
+
+
+def _prefix_prompts(cfg):
+    import torch
+
+    gen = torch.Generator().manual_seed(11)
+
+    def draw(n):
+        return torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    shared = draw(PREFIX_SHARED)
+    p0, p1, p2 = (shared + draw(t) for t in PREFIX_TAILS)
+    # cold, device hit, the fillers that demote the shared run, restore
+    return [("cold", p0), ("device_hit", p1),
+            ("filler", draw(PREFIX_FILLER)),
+            ("filler_2", draw(PREFIX_FILLER)), ("restore", p2)]
+
+
+def _prefix_run(ctx, switches, caching: bool):
+    """One engine (the engine phase's model) with ``switches``, warmed,
+    serving the prefix prompts one after another, every request greedy
+    with 2 logprobs. Returns its Finished per prompt, the launch counts,
+    the expected walk, and the numbers."""
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.engine.config import (
+        EngineConfig,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.engine.engine import (
+        LLMEngine,
+        SamplingParams,
+    )
+
+    cfg, model = _engine_model(ctx)
+    ecfg = EngineConfig(max_model_len=2048, max_num_seqs=4, block_size=16,
+                        context_encoding_buckets=(128, 512),
+                        max_new_tokens=ENGINE_NEW_TOKENS,
+                        num_blocks=PREFIX_BLOCKS,
+                        enable_prefix_caching=caching)
+    env = {"SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "",
+           "SHAI_FUSED_STEP": "0", "SHAI_ASYNC_DECODE": "1",
+           "SHAI_KVTIER": "1", "SHAI_KVTIER_ASYNC": "1",
+           "SHAI_KVTIER_BYTES": str(PREFIX_TIER_BYTES), **switches}
+    with _env(env):
+        eng = LLMEngine(cfg, model, ecfg, device="cuda")
+        n_warm = eng.warm_executables()
+        warmed = sorted(str(k) for k in eng._prefill)
+        before = _replays(eng)
+        calls = _count_calls(eng)
+        _reset_counters()
+        fins, ttft = [], {}
+        for what, p in _prefix_prompts(cfg):
+            [f] = eng.generate([p], SamplingParams(
+                temperature=0.0, max_new_tokens=ENGINE_NEW_TOKENS,
+                logprobs=2))
+            if eng.cache.tier is not None:
+                # the async copy-outs publish before the next admission
+                # probes the tier (the serving layer's prefill pod does so
+                # before it answers the handoff)
+                eng.cache.tier.drain()
+            fins.append(f)
+            ttft[what] = (f.timing["t_first"] - f.timing["t_submit"]) * 1e3
+        eng.finish_pending()
+        torch.cuda.synchronize()
+        counts = _read_counters()
+    tier = eng.cache.tier.snapshot() if eng.cache.tier is not None else {}
+    restore = fins[4].timing
+    info = {"async": eng._async, "fused": eng._fused, "warmed": n_warm,
+            "warmed_keys": warmed, "recompiles": eng.obs.recompiles,
+            "executables": eng.n_executables,
+            "calls": {str(k): n for k, n in calls.items()},
+            "ttft_ms": ttft, "tier": tier,
+            "restore_blocks": restore.get("kv_restore_blocks", 0.0),
+            "restore_s": restore.get("kv_restore_s", 0.0),
+            "recompute_tokens": [f.timing.get("recompute_tokens")
+                                 for f in fins],
+            "flushes": eng.obs.flush_reasons(),
+            "leaked": eng.cache.leaked_blocks,
+            "walk": _prefix_walk(eng, before, calls)}
+    return eng, fins, counts, info
+
+
+def _tier_moves(ctx, eng):
+    """Time the tier's moves on the engine left by the last run: a restore
+    of up to 64 of the tier's blocks (the host copy, then
+    one in-place copy per layer and pool tensor) and the demotion of the
+    same blocks (the gathers, the device->host copies and the publish),
+    each with the device synchronized around it, with pinned and with
+    pageable host staging. Returns GB/s and ms per run."""
+    import torch
+
+    cache, tier = eng.cache, eng.cache.tier
+    # up to 64 resident blocks, from the tier's advertised runs (a run
+    # list needs no chain order: the walk takes every resident hash)
+    hashes = [h for adv in tier.advertisement()
+              for h in tier.run_hashes(adv["head"])][:64]
+    run = tier.get_run(hashes)
+    if len(run) < 16:
+        raise AssertionError(f"engine_prefix: the tier holds {len(run)} "
+                             f"blocks")
+    out = {"blocks": len(run), "block_nbytes": tier.block_nbytes}
+    blocks = cache._alloc(len(run))
+    try:
+        for pinned in (True, False):
+            cache.pin_host = pinned
+            name = "pinned" if pinned else "pageable"
+            times_w, times_d = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cache._tier_write(blocks, run)
+                torch.cuda.synchronize()
+                times_w.append(time.perf_counter() - t0)
+                # the demotion of the same blocks, published synchronously
+                # (a fresh tier of the same geometry, so nothing is
+                # already resident)
+                probe = type(tier)(
+                    n_layers=tier.n_layers, block_size=tier.block_size,
+                    n_kv_heads=tier.n_kv_heads, head_dim=tier.head_dim,
+                    dtype=tier.dtype, capacity_bytes=tier.capacity_bytes,
+                    async_copy=False, quant=tier.quant)
+                saved = cache.tier
+                cache.tier = probe
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cache._demote(list(zip(hashes, blocks)))
+                times_d.append(time.perf_counter() - t0)
+                cache.tier = saved
+                # byte-exact both ways: the restored blocks demote to the
+                # bytes they were restored from
+                for (h, *want), (h2, *got) in zip(run, probe.get_run(hashes)):
+                    if h != h2 or any(a.tobytes() != b.tobytes()
+                                      for a, b in zip(want, got)):
+                        raise AssertionError("engine_prefix: a restored "
+                                             "block is not byte-exact")
+            nbytes = len(run) * tier.block_nbytes
+            out[name] = {
+                "restore_ms": min(times_w) * 1e3,
+                "restore_gb_s": nbytes / min(times_w) / 1e9,
+                "copy_out_ms": min(times_d) * 1e3,
+                "copy_out_gb_s": nbytes / min(times_d) / 1e9}
+    finally:
+        cache.pin_host = True
+        cache.allocator.free(blocks)
+    return out
+
+
+def _prefix_case(ctx, what, switches, expect):
+    """The prefix prompts with the cache and the tier on, async and
+    lock-step, against the same engine with the cache off: tokens equal
+    or parting at a top-2 gap under ``TIE_GAP``, async equal to
+    lock-step (tokens and logprob entries), the device hit and the restore
+    taken, no leaked block, no recompile after warmup, and B1, B2 and B3
+    exactly the walk's counts."""
+    eng, fins, counts, info = _prefix_run(ctx, switches, True)
+    _, sync_fins, sync_counts, sync_info = _prefix_run(
+        ctx, {**switches, "SHAI_ASYNC_DECODE": "0"}, True)
+    _, off_fins, _, off_info = _prefix_run(ctx, switches, False)
+    for name, got, want in (("async", counts, info["walk"]),
+                            ("lock-step", sync_counts, sync_info["walk"])):
+        wrong = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        if wrong:
+            raise AssertionError(f"{what} {name}: launches (got, walk) "
+                                 f"{wrong}")
+    _check_counters(what, counts, expect)
+    if [f.token_ids for f in fins] != [f.token_ids for f in sync_fins] or \
+            [f.logprobs for f in fins] != [f.logprobs for f in sync_fins]:
+        raise AssertionError(f"{what}: async and lock-step differ")
+    int8 = bool(switches.get("SHAI_KV_QUANT"))
+    # the partings' gaps (an int8 run's are reported, not held)
+    gaps = _tie_diverge(fins, off_fins, float("inf") if int8 else TIE_GAP)
+    same = sum(f.token_ids == w.token_ids for f, w in zip(fins, off_fins))
+    score = None
+    if int8:
+        cfg, model = _engine_model(ctx)
+        prompts = [p for _, p in _prefix_prompts(cfg)]
+        on, off = _score(model, prompts, fins), _score(model, prompts,
+                                                       off_fins)
+        score = {"hits": on["b1"][0], "off_hits": off["b1"][0],
+                 "tokens": on["tokens"], "worst": on["b1"][1],
+                 "eps": on["eps"]}
+        if on["b1"][1] > NOISE_TIES * on["eps"] or \
+                on["b1"][0] < off["b1"][0] - INT8_SLACK * on["tokens"]:
+            raise AssertionError(f"{what}: the int8 run against the scoring "
+                                 f"forward {score}")
+    moves = _tier_moves(ctx, eng)
+    line = {"switches": switches, "equal_streams": same,
+            "streams": len(fins), "tie_gaps": gaps, "int8_score": score,
+            "launches": counts,
+            "async": info, "lock_step": {k: sync_info[k] for k in (
+                "async", "calls", "ttft_ms", "recompiles", "leaked")},
+            "cache_off": {k: off_info[k] for k in (
+                "calls", "ttft_ms", "warmed", "leaked")},
+            "tier_moves": moves}
+    log(f"{what}: " + json.dumps(line))
+    for i in (info, sync_info, off_info):
+        if i["leaked"] or i["recompiles"] or \
+                i["executables"] != i["warmed"]:
+            raise AssertionError(f"{what}: leaked {i['leaked']}, recompiles "
+                                 f"{i['recompiles']}, executables "
+                                 f"{i['executables']} of {i['warmed']}")
+    restored = info["tier"].get("restored", 0)
+    hit = info["recompute_tokens"][1]
+    if not restored or not info["restore_blocks"] or \
+            hit != PREFIX_TAILS[1]:
+        raise AssertionError(f"{what}: restored {restored} blocks (the "
+                             f"restore admission {info['restore_blocks']}), "
+                             f"device hit recomputed {hit} tokens")
+    del eng
+    ctx.setdefault("engine_prefix", {})[what] = line
+    launches = ctx.setdefault("launches", {}).setdefault(
+        "engine_prefix", {k: 0 for k in _counters()})
+    for k, n in counts.items():
+        launches[k] += n
+
+
+def phase_engine_prefix(ctx):
+    # (a) bucketed bf16: cached continuations ("cont", 64, 512) through B1
+    # over the shared and restored blocks, decode through B2
+    _prefix_case(ctx, "engine_prefix (a)", {},
+                 {"flash_attention", "paged_decode_attention"})
+    # (b) ragged int8: the cached continuation through B3 ("rcont", 512),
+    # restored int8 blocks and their scale rows
+    _prefix_case(ctx, "engine_prefix (b)", {"SHAI_RAGGED_ATTENTION": "1",
+                                            "SHAI_KV_QUANT": "int8"},
+                 {"flash_attention", "ragged_paged_attention"})
+    # (c) fused bf16: cached admission through the chunk-only graph
+    _prefix_case(ctx, "engine_prefix (c)", {"SHAI_RAGGED_ATTENTION": "1",
+                                            "SHAI_FUSED_STEP": "1"},
+                 {"flash_attention", "ragged_paged_attention"})
+    _drop_engine_model(ctx)
+
+
+# -- serve_disagg ------------------------------------------------------------
+
+#: the pods' engine ConfigMap (each adds its role): prefix caching on, the
+#: engine phase's shapes
+DISAGG_CONFIG = {"max_model_len": 2048, "block_size": 16, "max_num_seqs": 4,
+                 "context_encoding_buckets": [128, 512],
+                 "max_new_tokens": 16, "enable_prefix_caching": True}
+
+
+def _disagg_pod(tmp, path, role):
+    """One unit on ``MODEL_ID=<path>`` with the given role, behind the
+    stdlib server; returns (service, base url, server)."""
+    from scalable_hw_agnostic_inference_tpu_torch.serve.app import create_app
+    from scalable_hw_agnostic_inference_tpu_torch.serve.httpd import Server
+    from scalable_hw_agnostic_inference_tpu_torch.serve.units.vllm import (
+        VllmService,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.utils.env import (
+        ServeConfig,
+    )
+
+    conf = tmp / f"{role}.yaml"
+    conf.write_text(json.dumps({**DISAGG_CONFIG, "role": role}))
+    env = {"DEVICE": "cuda", "MODEL_ID": str(path), "PORT": "0",
+           "VLLM_CONFIG": str(conf), "SHAI_KVTIER": "1",
+           "SHAI_KVTIER_ASYNC": "1", "SHAI_RAGGED_ATTENTION": "0",
+           "SHAI_KV_QUANT": "", "SHAI_FUSED_STEP": "0",
+           "SHAI_ASYNC_DECODE": "1", "QUANTIZATION": ""}
+    with _env(env):
+        cfg = ServeConfig.from_env()
+        service = VllmService(cfg)
+        server = Server(create_app(cfg, service), host="127.0.0.1", port=0)
+        host, port = server.start_background()
+        base = f"http://{host}:{port}"
+        t0 = time.monotonic()
+        while _http(base + "/readiness")[0] != 200:
+            if time.monotonic() - t0 > 600 or \
+                    _http(base + "/readiness")[0] == 500:
+                raise AssertionError(f"serve_disagg {role}: not ready "
+                                     f"{_http(base + '/readiness')}")
+            time.sleep(0.2)
+    return service, base, server
+
+
+def _disagg_request(ctx, pods, prompt, pulls):
+    """One request the disaggregated way: the prefill pod's handoff, then
+    the decode pod with ``kv_peer``; and the monolithic pod. Returns the
+    handoff, both answers and the seconds of each leg."""
+    t0 = time.monotonic()
+    status, handoff = _http(pods["prefill"][1] + "/generate",
+                            {"prompt": prompt, "temperature": 0.0})
+    t_pre = time.monotonic() - t0
+    if status != 200 or not handoff.get("kv_ready"):
+        raise AssertionError(f"serve_disagg: handoff {status} {handoff}")
+    n_pull = len(pulls)
+    t0 = time.monotonic()
+    status, dec = _http(pods["decode"][1] + "/generate", {
+        "prompt": prompt, "temperature": 0.0, "max_new_tokens": 16,
+        "logprobs": 1, "kv_peer": pods["prefill"][1],
+        "kv_hashes_len": handoff["hashes_len"],
+        "kv_digest": handoff["digest"]})
+    t_dec = time.monotonic() - t0
+    if status != 200 or len(pulls) != n_pull + 1:
+        raise AssertionError(f"serve_disagg: decode {status} {dec}; pulls "
+                             f"{pulls}")
+    status, mono = _http(pods["both"][1] + "/generate", {
+        "prompt": prompt, "temperature": 0.0, "max_new_tokens": 16,
+        "logprobs": 2})
+    if status != 200:
+        raise AssertionError(f"serve_disagg: monolithic {status} {mono}")
+    return handoff, dec, mono, t_pre, t_dec
+
+
+def phase_serve_disagg(ctx):
+    """A prefill-role pod and a decode-role pod (and a monolithic pod) on
+    one seeded Llama-3.2-1B-width checkpoint directory, written by the
+    checkpoint phase's writer, in this process over localhost: the decode
+    pod pulls each handoff's run over ``GET /kv/blocks`` and its greedy
+    tokens equal the monolithic pod's; the frames equal the banked blocks
+    byte for byte; an injected ``kvnet.fetch`` fault degrades to
+    recompute with the request still answering 200."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.kvnet import frames
+    from scalable_hw_agnostic_inference_tpu_torch.kvnet.client import (
+        KvNetClient,
+        KvNetStats,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+        LlamaConfig,
+        random_params,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.resilience import (
+        faults as rz_faults,
+    )
+
+    _drop_engine_model(ctx)
+    cfg = dataclasses.replace(LlamaConfig.llama32_1b(), max_seq_len=131072,
+                              rope_scaling=(32.0, 1.0, 4.0, 8192))
+    state = random_params(cfg, seed=9, std=0.02, device="cuda")
+    # some 1,300 tokens: the decode pod's warm start 1,024 leaves a
+    # remainder past 128, so its continuation is the monolithic pod's last
+    # chunk's ("cont", 64, 512) and the tokens are the same computation
+    text = (CKPT_CORPUS + " ") * 26
+    prompts = [f"disaggregated request {i}: " + text for i in range(3)]
+    out = {}
+    pods = {}
+    pulls = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        path = tmp / "llama-3.2-1b-seeded"
+        _write_checkpoint(path, state, cfg)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            for role in ("prefill", "decode", "both"):
+                pods[role] = _disagg_pod(tmp, path, role)
+            pre, dec = pods["prefill"][0], pods["decode"][0]
+            if (pre.role, dec.role, pods["both"][0].role) != (
+                    "prefill", "decode", "both"):
+                raise AssertionError("serve_disagg: pod roles")
+            inner = dec._pull_handoff
+
+            def timed_pull(*a, **k):
+                t0 = time.monotonic()
+                n = inner(*a, **k)
+                pulls.append((n, time.monotonic() - t0))
+                return n
+
+            dec._pull_handoff = timed_pull
+            _reset_counters()
+            rows = []
+            for i, prompt in enumerate(prompts[:2]):
+                handoff, got, mono, t_pre, t_dec = _disagg_request(
+                    ctx, pods, prompt, pulls)
+                toks = [e["token"] for e in got["logprobs"]]
+                want = [e["token"] for e in mono["logprobs"]]
+                n_pull, s_pull = pulls[-1]
+                hashes = dec._engine.cache.prefix_hashes(
+                    dec._encode(prompt))[:handoff["hashes_len"]]
+                # the decode pod's TTFT: its engine's queue-to-first-token
+                # of this request, after the pull
+                ttft = dec._engine.ttft._samples[-1]
+                banked = pre._engine.cache.tier.get_run(hashes)
+                pulled = dec._engine.cache.tier.get_run(hashes)
+                rows.append({
+                    "prompt_tokens": got["n_prompt"],
+                    "hashes_len": handoff["hashes_len"],
+                    "banked": len(banked), "pulled_blocks": n_pull,
+                    "tokens_equal_monolithic": toks == want,
+                    "prefill_s": t_pre, "decode_request_s": t_dec,
+                    "pull_s": s_pull, "decode_ttft_s": ttft,
+                    # the handoff's share of the disaggregated TTFT: the
+                    # prefill leg, the pull, the decode pod's first token
+                    "pull_share_of_ttft": s_pull / (t_pre + s_pull + ttft)})
+                if toks != want:
+                    i = next(j for j, (a, b) in enumerate(zip(toks, want))
+                             if a != b)
+                    top = mono["logprobs"][i]["top_logprobs"]
+                    raise AssertionError(
+                        f"serve_disagg: decode pod tokens {toks} != "
+                        f"monolithic {want} (parting at {i}, the "
+                        f"monolithic top-2 gap {top[0] - top[1]:.4f}; "
+                        f"prompt {got['n_prompt']} tokens)")
+                if n_pull != handoff["hashes_len"] or len(banked) != n_pull \
+                        or len(pulled) != n_pull:
+                    raise AssertionError(f"serve_disagg: banked "
+                                         f"{len(banked)}, pulled {n_pull}, "
+                                         f"resident {len(pulled)} of "
+                                         f"{handoff['hashes_len']}")
+                for (h, *a), (h2, *b) in zip(banked, pulled):
+                    if h != h2 or frames.wire_name(a[0].dtype) != \
+                            "bfloat16" or any(x.tobytes() != y.tobytes()
+                                              for x, y in zip(a, b)):
+                        raise AssertionError("serve_disagg: a pulled block "
+                                             "is not the banked block")
+            # the wire itself: one GET's frames against the banked blocks
+            wire = frames.decode_frames(urllib.request.urlopen(
+                pods["prefill"][1] + "/kv/blocks?hashes="
+                + ",".join(map(str, hashes[:64])), timeout=120).read())
+            if [e[0] for e in wire] != [e[0] for e in banked[:64]] or any(
+                    x.tobytes() != y.tobytes() for w, b in zip(wire, banked)
+                    for x, y in zip(w[1:], b[1:])):
+                raise AssertionError("serve_disagg: /kv/blocks frames differ "
+                                     "from the banked blocks")
+            # pull rate over localhost: a fresh tier of the decode pod's
+            # geometry pulls the whole run
+            t = dec._engine.cache.tier
+            probe = type(t)(n_layers=t.n_layers, block_size=t.block_size,
+                            n_kv_heads=t.n_kv_heads, head_dim=t.head_dim,
+                            dtype=t.dtype, capacity_bytes=t.capacity_bytes,
+                            async_copy=False, quant=t.quant)
+            client = KvNetClient(probe, KvNetStats())
+            t0 = time.monotonic()
+            n = client.fetch_run(pods["prefill"][1], hashes)
+            s = time.monotonic() - t0
+            rate = {"blocks": n, "bytes": client.stats.snapshot()["bytes"],
+                    "seconds": s,
+                    "gb_s": client.stats.snapshot()["bytes"] / s / 1e9}
+            # an injected transport fault: recompute, still a 200
+            before = dec.kvnet_stats().snapshot()
+            rz_faults.configure("kvnet.fetch=error", 0)
+            try:
+                handoff, got, mono, _, _ = _disagg_request(
+                    ctx, pods, prompts[2], pulls)
+            finally:
+                rz_faults.reset()
+            after = dec.kvnet_stats().snapshot()
+            # (the run's leading blocks the two prompts share are resident
+            # already; nothing crosses the wire)
+            fault = {"resident": pulls[-1][0],
+                     "fetched": after["fetched"] - before["fetched"],
+                     "fallbacks": after["fallbacks"] - before["fallbacks"],
+                     "tokens_equal_monolithic":
+                         [e["token"] for e in got["logprobs"]]
+                         == [e["token"] for e in mono["logprobs"]]}
+            if fault["fetched"] or fault["fallbacks"] != 1 or \
+                    not fault["tokens_equal_monolithic"]:
+                raise AssertionError(f"serve_disagg: the fetch fault {fault}")
+            stats = {r: _http(b + "/stats")[1].get("kvnet")
+                     for r, (_, b, _) in pods.items()}
+            metrics = _http(pods["decode"][1] + "/metrics", raw=True)[1]
+            fams = sorted({ln.split("{")[0] for ln in metrics.splitlines()
+                           if ln.startswith(("shai_kvnet_", "shai_kvtier_"))})
+            counts = _read_counters()
+            for role, (svc, _, _) in pods.items():
+                eng = svc._engine
+                if eng.cache.leaked_blocks or eng.obs.recompiles:
+                    raise AssertionError(f"serve_disagg {role}: leaked "
+                                         f"{eng.cache.leaked_blocks}, "
+                                         f"recompiles {eng.obs.recompiles}")
+            out = {"requests": rows, "pull_rate": rate, "fault": fault,
+                   "kvnet": stats, "families": fams, "launches": counts}
+            log("serve_disagg: " + json.dumps(out))
+            ctx.setdefault("launches", {})["serve_disagg"] = counts
+            if len(fams) != 18:
+                raise AssertionError(f"serve_disagg: /metrics families "
+                                     f"{fams}")
+        finally:
+            for svc, _, server in pods.values():
+                server.stop()
+                svc.close()
+            pods.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+    ctx["serve_disagg"] = out
+
+
 # -- serve_int8 --------------------------------------------------------------
 
 #: Llama-3-8B's weights under QUANTIZATION=int8, by part: the bf16
@@ -3121,6 +3691,11 @@ def kernels_line(ctx):
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "launches_in": phase,
             "tpu_kernel": replaces,
+            # the cached-admission callers (cached continuations, decode
+            # of shared, restored and pulled blocks), in engine_prefix's
+            # three runs and in serve_disagg's pods
+            "prefix_launches": ctx["launches"]["engine_prefix"][name],
+            "disagg_launches": ctx["launches"]["serve_disagg"][name],
         })
     # the W8A16 projection: no Pallas kernel (XLA's fused int8 dot), timed
     # at serve's decode batch on the gate/up shape, launched in serve_int8

@@ -106,9 +106,27 @@ entered only while a profiler session is active. Every ``Finished``
 carries its phase ``timing``, which the serving layer grafts onto the
 request's trace, and each step record its ``finished_ids``.
 
-Later slices bring the prefix cache and KV tier (and with them cached
-admission through the fused step), speculative decoding and the
-multimodal paths.
+The prefix cache (``enable_prefix_caching``) and the host KV tier
+(``SHAI_KVTIER``, the reference's ``engine.py:128-175``): every admission
+path registers its prompt's full blocks (``cache.register_prefix``), and
+the admission ladder has a cached rung (``_admit_cached``, ``:1547``): the
+head request's leading full blocks found in the device cache, extended by
+the host tier's run (restored in place into the pool, after a ``kvtier``
+pipeline flush), give a warm start from the closed set
+(``_cached_starts``: every prefill bucket and every multiple of the
+largest), and ONE continuation over the uncached remainder
+(``("cont", start, chunk_bucket)`` through B1, ``("rcont",
+chunk_bucket)`` through B3, or the chunk-only fused graph) admits it.
+``_cont_cold`` refuses a key outside the warmed set after warmup; an int8
+pool under the fused step falls through to plain admission. A preemption
+victim's full blocks are published to the cache (``offload_preempt``),
+so pool pressure demotes them. The role (``SHAI_ROLE`` over
+``EngineConfig.role``): a ``prefill`` engine banks each finished prompt's
+full-block run in the tier before release (``demote_prompt_run``), for a
+decode pod to pull over ``GET /kv/blocks``.
+
+Later slices bring the fleet KV fabric and live migration, speculative
+decoding and the multimodal paths.
 """
 
 from __future__ import annotations
@@ -125,6 +143,9 @@ import torch
 
 from ..core.bucketing import BucketRegistry
 from ..core.device import DeviceLike, resolve_device
+from ..kvnet import resolve_role
+from ..kvnet.client import KvNetStats
+from ..kvtier.pool import maybe_host_tier
 from ..models.llama import LlamaConfig, LlamaForCausalLM
 from ..obs import sentinel as obs_sentinel
 from ..obs.hbm import HbmLedger
@@ -185,12 +206,8 @@ def _unsupported(ecfg: EngineConfig) -> List[str]:
     out = []
     if ecfg.tensor_parallel_size != 1:
         out.append("tensor_parallel_size > 1")
-    if ecfg.enable_prefix_caching:
-        out.append("enable_prefix_caching")
     if ecfg.speculative_enabled:
         out.append("speculative decoding")
-    if ecfg.role != "both":
-        out.append("disaggregated roles")
     return out
 
 
@@ -230,10 +247,34 @@ class LLMEngine:
         self._kv_quant = kvq == "int8"
         # ragged paged attention (SHAI_RAGGED_ATTENTION, default off)
         self._ragged = env_bool("SHAI_RAGGED_ATTENTION", False)
+        # host KV tier (SHAI_KVTIER): eviction and preemption demote blocks
+        # to a bounded host-RAM pool, admission misses fall through to it;
+        # it rides the prefix cache (the same chain hashes)
+        tier = None
+        if ecfg.enable_prefix_caching:
+            tier = maybe_host_tier(
+                n_layers=model_cfg.n_layers, block_size=ecfg.block_size,
+                n_kv_heads=model_cfg.n_kv_heads,
+                head_dim=model_cfg.head_dim,
+                dtype=("int8" if self._kv_quant else
+                       "bfloat16" if kv_dtype == torch.bfloat16
+                       else "float32"),
+                quant=self._kv_quant)
+        # disaggregated serving role (kvnet): SHAI_ROLE wins over
+        # ecfg.role; a prefill engine banks each finished prompt's run in
+        # the tier, so without one it warns and hands off nothing
+        self.role = resolve_role(ecfg.role)
+        self._prefill_role = self.role == "prefill"
+        if self._prefill_role and tier is None:
+            log.warning(
+                "role=prefill but no host KV tier is configured (need "
+                "enable_prefix_caching + SHAI_KVTIER=1) — handoffs will "
+                "advertise kv_ready=false and decode peers will recompute")
         self.cache = PagedKVCache(
             model_cfg.n_layers, model_cfg.n_kv_heads, model_cfg.head_dim,
             ecfg.total_blocks, ecfg.block_size, ecfg.blocks_per_seq,
-            dtype=kv_dtype, device=self.device, quant=self._kv_quant)
+            dtype=kv_dtype, device=self.device, quant=self._kv_quant,
+            enable_prefix_caching=ecfg.enable_prefix_caching, tier=tier)
         self.buckets = BucketRegistry(sorted(ecfg.context_encoding_buckets))
         # chunked-prefill prompt cap: whole bucket-sized chunks only, and at
         # least one position left to generate
@@ -299,6 +340,12 @@ class LLMEngine:
         self.obs.hbm = HbmLedger(bytes_limit=(
             torch.cuda.get_device_properties(self.device).total_memory
             if self._cuda_mem else 0.0))
+        # the host tier's counters and the kvnet transport's ride the same
+        # telemetry seam (/stats, /metrics, the admission gate); the
+        # serving layer's puller and /kv/blocks share this one stats object
+        self.obs.kvtier = self.cache.tier
+        if self.cache.tier is not None:
+            self.obs.kvnet = KvNetStats()
         # ledger cadence: every Nth step (default every step; the drift
         # windows count samples, so a wider cadence only slows them)
         self._hbm_every = max(1, env_int("SHAI_HBM_SAMPLE_EVERY", 1))
@@ -559,6 +606,8 @@ class LLMEngine:
             n_running=self.n_running, n_waiting=self.n_waiting,
             n_chunking=self.n_chunking,
             blocks_free=self.cache.allocator.n_free,
+            blocks_evictable=(self.cache.n_evictable
+                              if self.cache.prefix_caching else 0),
             finished=len(self._done_this_step),
             finished_ids=[f.req_id for f in self._done_this_step],
             tenants=tenants,
@@ -635,12 +684,17 @@ class LLMEngine:
         drift = kv_leaked
         if bytes_in_use is not None:
             drift += max(0.0, float(bytes_in_use) - sum(pools.values()))
+        # the host tier's bytes ride the snapshot (shai_hbm_host_kv_bytes)
+        # but stay out of the attributed device sum
+        host_pools = None
+        if self.cache.tier is not None:
+            host_pools = {"host_kv": self.cache.tier.used_bytes}
         led.sample(
             pools=pools,
             composition=(self.n_running, self.n_waiting, self.n_chunking),
             bytes_in_use=bytes_in_use, peak_bytes=peak,
             # no counterpart of the largest free block in torch's counters
-            largest_free=None, drift_value=drift,
+            largest_free=None, drift_value=drift, host_pools=host_pools,
             extra={"kv_used_bytes": kv_used, "kv_leaked_bytes": kv_leaked,
                    "graph_pool_bytes": st["graph_pool_bytes"],
                    "split_scratch_bytes": st["split_scratch_bytes"]})
@@ -816,15 +870,20 @@ class LLMEngine:
         self._apply_sampled(pipe.running, nxt, top_ids, top_lp, tok_lp)
         return t_f
 
-    def _flush_pipeline(self, reason: str) -> None:
+    def _flush_pipeline(self, reason: str,
+                        req: Optional[Request] = None) -> None:
         """Retire the in-flight lookahead (a no-op when none): the explicit
         pipeline flush every composition or control-flow event pays,
-        counted per reason."""
+        counted per reason; ``req``, the request it is attributable to,
+        counts it on its trace's decode span."""
         pipe, self._pipe = self._pipe, None
         if pipe is None:
             return
         self._retire_pipe(pipe)
         self.obs.count_flush(reason)
+        if req is not None:
+            req.obs_extra["pipeline_flushes"] = \
+                req.obs_extra.get("pipeline_flushes", 0.0) + 1.0
 
     def finish_pending(self) -> None:
         """Retire any in-flight lookahead step: the engine loop calls this
@@ -853,6 +912,9 @@ class LLMEngine:
                 and self.waiting[0].parent_rid >= 0
                 and self._admit_fanout()):
             pass                    # CoW fan-out: one prefill, K forks
+        elif (self.cache.prefix_caching and self.waiting
+              and self._admit_cached()):
+            pass                    # cached-prefix admission handled it
         elif (self.waiting
                 and len(self.waiting[0].prompt_ids) > self.buckets.max):
             if not chunking:
@@ -1044,6 +1106,9 @@ class LLMEngine:
                                  torch.from_numpy(topp).to(dev)).cpu()
         real = sum(len(r.prompt_ids) for r in group)
         self.obs.count_pad(real, Kp * bucket - real, phase="prefill")
+        for req in group:
+            self.cache.register_prefix(req.prompt_ids,
+                                       self.cache.seq(req.req_id).blocks)
         lp_rows = []
         for i, req in enumerate(group):
             slot = self._free_slot()
@@ -1166,6 +1231,10 @@ class LLMEngine:
             fn(self.model, self.cache.kv, ids,
                torch.tensor([C], dtype=torch.int32, device=dev),
                self._table_of(req))
+        # the first chunk's full blocks are final: publish them now, so an
+        # identical long prompt (or this one resuming) shares them early
+        self.cache.register_prefix(req.prompt_ids[:C],
+                                   self.cache.seq(req.req_id).blocks)
         self.slots[slot] = _Running(req, slot, [], pending_token=-1,
                                     prefill_cursor=C)
 
@@ -1187,9 +1256,13 @@ class LLMEngine:
             self._flush_chunk()  # never two windows parked
             if not final:
                 # an intermediate chunk rides this step's decode replay;
-                # its logits are dropped, as the laddered path drops them
+                # its logits are dropped, as the laddered path drops them;
+                # registration and the cursor keep the laddered timing
                 self._pending_chunk = window
                 self.obs.count_pad(n, C - n, phase="chunk")
+                self.cache.register_prefix(
+                    req.prompt_ids[:start + n],
+                    self.cache.seq(req.req_id).blocks)
                 s.prefill_cursor = start + C
                 return
         with torch.inference_mode():
@@ -1211,6 +1284,9 @@ class LLMEngine:
                 tok = sample_logits(logits, self._gen, p.temperature,
                                     p.top_k, p.top_p)
         self.obs.count_pad(n, C - n, phase="chunk")
+        # each chunk's full blocks are final: publish them per chunk
+        self.cache.register_prefix(req.prompt_ids[:start + n],
+                                   self.cache.seq(req.req_id).blocks)
         if final:
             s.pending_token = int(tok[0])
             s.prefill_cursor = None
@@ -1226,10 +1302,12 @@ class LLMEngine:
         t = self.cache.seq(req.req_id).table(self.ecfg.blocks_per_seq)
         return torch.from_numpy(t[None]).to(self.device)
 
-    def _cont_for(self, start_blocks: int):
-        """The continuation function for a chunk at ``start_blocks``: one
-        per start on the static ladder, one per chunk bucket when ragged."""
-        bucket = self.buckets.max
+    def _cont_for(self, start_blocks: int, bucket: Optional[int] = None):
+        """The continuation function for a ``bucket``-token chunk (the
+        largest prefill bucket by default) at ``start_blocks``: one per
+        (start, bucket) on the static ladder, one per chunk bucket when
+        ragged."""
+        bucket = self.buckets.max if bucket is None else bucket
         key = self._cont_key(start_blocks, bucket)
         if key not in self._prefill:
             # chaos site: executable-factory compile failure
@@ -1244,9 +1322,167 @@ class LLMEngine:
         return self._prefill[key]
 
     def _cont_key(self, start_blocks: int, bucket: int) -> tuple:
+        """The warm-set key a continuation call resolves to: the cold
+        guard of cached admission checks THIS, so the ragged (start-free)
+        keys gate correctly."""
         if self._ragged:
             return ("rcont", bucket)
         return ("cont", start_blocks, bucket)
+
+    def _cached_chunk_bucket(self, remainder: int) -> int:
+        """The window a cached admission's continuation takes: the fused
+        step's chunk window is pinned to the largest prefill bucket; the
+        laddered engine takes the smallest bucket covering the
+        remainder."""
+        if self._fused:
+            return self.buckets.max
+        return self.buckets.bucket_for(remainder)
+
+    def _cont_cold(self, sb: int, chunk_bucket: int) -> bool:
+        """After warmup, True when the continuation a cached admission
+        would call was never built (a build after readiness is the
+        cold-graph bug); the fused step calls the chunk-only graph."""
+        if not self._warmed:
+            return False
+        if self._fused:
+            return self._fused_chunk is None
+        return self._cont_key(sb, chunk_bucket) not in self._prefill
+
+    def _cached_starts(self) -> List[int]:
+        """THE closed set of continuation starts (tokens) the warm ladder
+        and cached admission both price from: every prefill bucket and
+        every multiple of the largest bucket."""
+        C = self.buckets.max
+        starts = set(self.buckets.buckets)
+        s = C
+        while s + 1 < self.ecfg.max_model_len:
+            starts.add(s)
+            s += C
+        return sorted(starts)
+
+    def _cached_start_for(self, n_total: int, cached_tokens: int) -> int:
+        """Largest warm start covered by the cached prefix whose remainder
+        fits ONE chunk of the largest bucket; 0 = no benefit."""
+        C = self.buckets.max
+        best = 0
+        for s in self._cached_starts():
+            if (s <= cached_tokens and s < n_total
+                    and n_total - s <= C and s > best):
+                best = s
+        return best
+
+    def _admit_cached(self) -> bool:
+        """Admit the head request on its cached prefix (the reference's
+        ``_admit_cached``): share the device-cached blocks, restore what
+        the host tier adds, and run ONE continuation over the uncached
+        remainder, then register the prompt. Returns False, with nothing
+        consumed, when the cache offers no usable warm start; the caller
+        falls through to the plain admission paths."""
+        req = self.waiting[0]
+        n_total = len(req.prompt_ids)
+        bs = self.ecfg.block_size
+        if n_total <= bs:
+            return False  # no full block to share
+        if self._fused and self._kv_quant:
+            # an int8 pool re-quantizes a written block over everything in
+            # it: the fused C-token window writes pad past the remainder
+            # that the laddered chunk bucket never touches, so the tail
+            # block's scale would differ from the oracle's; plain
+            # admission prefills from scratch and stays exact
+            return False
+        slot = self._free_slot()
+        if slot is None:
+            # probe nothing while blocked on a slot: per-step probes would
+            # churn both LRUs and inflate the tier's hit counters
+            return False
+        hashes = self.cache.prefix_hashes(req.prompt_ids)
+        cached = self.cache.cached_prefix(req.prompt_ids, hashes=hashes)
+        # host-tier fall-through: blocks the device cache evicted (or a
+        # preemption demoted) may still be host-resident
+        n_tier = self.cache.tier_prefix_len(hashes, len(cached))
+        start = self._cached_start_for(n_total,
+                                       (len(cached) + n_tier) * bs)
+        if start == 0:
+            return False
+        chunk_bucket = self._cached_chunk_bucket(n_total - start)
+        sb = start // bs
+        if start + chunk_bucket > self.ecfg.max_model_len:
+            return False  # the continuation would overrun blocks_per_seq
+        if self._cont_cold(sb, chunk_bucket):
+            return False
+        take = max(0, sb - len(cached))
+        need_new = self._need_blocks(n_total) - sb
+        # conservative: pinning the reused blocks removes up to sb blocks
+        # from the evictable supply, and the restore takes `take` more
+        if need_new + take > self.cache.n_available - sb:
+            return False  # the plain paths own wait-or-reject
+        if take:
+            # the restore writes the pool: retire the in-flight lookahead
+            # first (a no-op in lock-step), and restore eagerly, outside
+            # every capture, before the continuation call
+            self._flush_pipeline("kvtier", req=req)
+            t0 = time.monotonic()
+            n_before = len(cached)
+            cached = cached + self.cache.restore_prefix(
+                hashes, len(cached), take, pin=cached)
+            req.obs_extra["t_kv_restore"] = t0
+            req.obs_extra["kv_restore_s"] = round(time.monotonic() - t0, 6)
+            req.obs_extra["kv_restore_blocks"] = float(len(cached)
+                                                       - n_before)
+            if len(cached) < sb:
+                # tier shortfall (raced host eviction, transfer failure):
+                # re-derive the warm start from the blocks that DID land;
+                # recompute covers the rest
+                start = self._cached_start_for(n_total, len(cached) * bs)
+                if start == 0:
+                    return False
+                chunk_bucket = self._cached_chunk_bucket(n_total - start)
+                sb = start // bs
+                if start + chunk_bucket > self.ecfg.max_model_len:
+                    return False
+                if self._cont_cold(sb, chunk_bucket):
+                    return False
+        self.waiting.popleft()
+        try:
+            alloc = self.cache.admit(req.req_id, n_total,
+                                     reuse_blocks=cached[:sb])
+        except MemoryError:
+            self.waiting.appendleft(req)
+            return False  # the plain paths own wait-or-reject
+        self._note_admitted(req)
+        # the prompt past the warm start is recomputed, not restored
+        req.obs_extra["recompute_tokens"] = float(n_total - start)
+        n = n_total - start
+        ids = np.zeros((1, chunk_bucket), np.int32)
+        ids[0, :n] = req.prompt_ids[start:]
+        dev = self.device
+        p = req.params
+        with torch.inference_mode():
+            if self._fused:
+                # a parked window must not reorder behind this admission's
+                # own (it may be due to write blocks this one reads)
+                self._flush_chunk()
+                logits = self._fused_chunk_call(
+                    (ids, n, alloc.table(self.ecfg.blocks_per_seq)[None],
+                     start))
+            else:
+                fn = self._cont_for(sb, chunk_bucket)
+                with annotate("engine.prefill"):
+                    _, logits = fn(self.model, self.cache.kv,
+                                   torch.from_numpy(ids).to(dev),
+                                   torch.tensor([n], dtype=torch.int32,
+                                                device=dev),
+                                   self._table_of(req),
+                                   *self._cont_args(start))
+            tok = int(sample_logits(logits, self._gen, p.temperature,
+                                    p.top_k, p.top_p)[0])
+        self.obs.count_pad(n, chunk_bucket - n, phase="prefill")
+        self.cache.register_prefix(req.prompt_ids, alloc.blocks)
+        self._start_slot(slot, req, tok)
+        if p.logprobs:
+            _record_admission_lps(self, logits, [tok],
+                                  [(0, self.slots[slot])])
+        return True
 
     def _cont_args(self, start: int) -> list:
         """Trailing arguments of a continuation call beyond ``(model, kv,
@@ -1426,6 +1662,17 @@ class LLMEngine:
         log.warning("preempting seq %d (block pool exhausted)",
                     victim.req.req_id)
         self.obs.count_preemption()
+        if self.cache.tier is not None:
+            # demotion, not deletion: publish the victim's full blocks
+            # before release, so re-admission reuses them while they
+            # survive and pool pressure demotes them to the tier. KV exists
+            # for prompt + generated (the pending token's write lands with
+            # the next dispatch, which the victim never runs); the flush
+            # above retired the in-flight step that wrote the last of it
+            kv_tokens = (victim.req.prompt_ids[:victim.prefill_cursor]
+                         if victim.prefill_cursor is not None
+                         else victim.req.prompt_ids + victim.generated)
+            self.cache.offload_preempt(kv_tokens, victim.req.req_id)
         self._release_slot(victim)
         if victim.prefill_cursor is not None:
             # mid-prefill: nothing generated; the prompt re-queues as it is
@@ -1622,6 +1869,13 @@ class LLMEngine:
                     logprobs=((s.req.already_lp + s.lps)
                               if p.logprobs else None),
                     timing=self._timing_of(s.req, s.t_first)))
+                if self._prefill_role:
+                    # prefill-role handoff: bank the prompt's KV in the
+                    # host tier BEFORE release, so a peer decode pod can
+                    # pull it the moment the serving layer returns the
+                    # handoff (failures degrade to recompute on the peer)
+                    self.cache.demote_prompt_run(s.req.req_id,
+                                                 s.req.prompt_ids)
                 self._release_slot(s)
 
     def _apply_sampled(self, running, nxt, top_ids, top_lp, tok_lp) -> None:

@@ -6,7 +6,12 @@ text branches the port has: every prefill bucket x batch size, every
 continuation key (the static-start ladder, or the one ragged entry), and
 every decode key (context bucket x batch bucket); under ``SHAI_FUSED_STEP``
 the fused keys (one per batch bucket, and the chunk-only graph) replace the
-decode grid and the ragged continuation (``warm.py:43-49``). Prefill and the
+decode grid and the ragged continuation (``warm.py:43-49``). With the
+prefix cache on, the cached-admission ladder too (``warm.py:58-60,78-84``):
+every ``(warm start, chunk bucket)`` pair of ``_cached_starts`` that fits
+``max_model_len`` (``("cont", start_blocks, bucket)``), or every chunk
+bucket that one can take (``("rcont", bucket)``), so that the warmed set is
+the reference's key for key. Prefill and the
 continuation run once eagerly here, which loads their kernels and primes
 cuBLAS; each decode key is captured as a CUDA graph when ``_decode_for``
 builds it and replayed once here. Functions take the engine explicitly.
@@ -40,17 +45,38 @@ def warm_executables(eng) -> int:
         # function has a caller
         pass
     elif eng._ragged:
-        # the chunk start is data: ONE continuation per chunk bucket
-        if eng.ecfg.max_model_len > C and ("rcont", C) not in eng._prefill:
-            eng._cont_for(0)
-            n += 1
-    elif eng.ecfg.max_model_len > C:
-        # the static-start ladder: one continuation per chunk start
-        start = C
-        while start + C <= eng.ecfg.max_model_len:
-            eng._cont_for(start // eng.ecfg.block_size)
-            n += 1
-            start += C
+        # the chunk start is data: ONE continuation per chunk bucket, for
+        # the chunked prompt and for every cached-admission bucket
+        want = set()
+        if eng.ecfg.max_model_len > C:
+            want.add(C)
+        if eng.cache.prefix_caching:
+            for s in eng._cached_starts():
+                for cb in eng.buckets.buckets:
+                    if s + cb <= eng.ecfg.max_model_len:
+                        want.add(cb)
+        for cb in sorted(want):
+            if ("rcont", cb) not in eng._prefill:
+                eng._cont_for(0, cb)
+                n += 1
+    else:
+        if eng.ecfg.max_model_len > C:
+            # the static-start ladder: one continuation per chunk start
+            start = C
+            while start + C <= eng.ecfg.max_model_len:
+                eng._cont_for(start // eng.ecfg.block_size)
+                n += 1
+                start += C
+        if eng.cache.prefix_caching:
+            # the cached-admission ladder: (warm start, chunk bucket)
+            # pairs, the same _cached_starts list admission picks from
+            bs = eng.ecfg.block_size
+            for s in eng._cached_starts():
+                for cb in eng.buckets.buckets:
+                    if (s + cb <= eng.ecfg.max_model_len
+                            and ("cont", s // bs, cb) not in eng._prefill):
+                        eng._cont_for(s // bs, cb)
+                        n += 1
     for m in eng._ctx_buckets:
         for bb in eng._batch_buckets():
             eng._decode_for(m, bb)   # captured here (fused: a fused key)

@@ -1,0 +1,53 @@
+"""kvnet: network KV transport for disaggregated prefill/decode serving.
+
+Port of ``scalable_hw_agnostic_inference_tpu/kvnet/`` (``resolve_role``,
+``frames``, ``client``; the fleet directory and live migration come in a
+later slice). The host KV tier (``kvtier/``) stores blocks
+content-addressed by the same chain hashes as the device prefix cache;
+this package adds the wire between pods, so a *prefill* pod's warm KV
+feeds a *decode* pod's host tier:
+
+- :mod:`.frames` -- the length-prefixed binary frame codec, byte-exact
+  and byte-compatible with a JAX pod's;
+- :mod:`.client` -- the puller: stdlib HTTP, connect-only retries, a
+  per-peer circuit breaker, the peer allowlist and the ``kvnet.fetch``
+  fault site; fetched blocks land in ``HostKVTier.store_batch`` and
+  restore through the cache's ordinary ``restore_prefix``;
+- the pod-side ``GET /kv/blocks`` route lives in ``serve/app.py``.
+
+Failure contract: every transport failure degrades to local recompute,
+never to a failed request; the degrade signal is
+``shai_kvnet_fallbacks_total``.
+
+Roles (``SHAI_ROLE`` / ``EngineConfig.role``): a ``prefill`` pod finishes
+the prompt, banks its full-block run in the host tier and returns a
+``{kv_ready, digest, hashes_len, peer_url}`` handoff instead of decoding;
+a ``decode`` pod takes the handoff as ``kv_peer``, pulls the run and
+generates; ``both`` (the default) is the monolithic pod.
+"""
+
+from __future__ import annotations
+
+import logging
+
+from ..utils.env import env_str
+
+log = logging.getLogger(__name__)
+
+#: the closed role set: "prefill" warms KV and hands off, "decode" pulls
+#: and generates, "both" is the monolithic default
+ROLES = ("prefill", "decode", "both")
+
+
+def resolve_role(default: str = "both") -> str:
+    """The pod's serving role: ``SHAI_ROLE`` wins over the engine config's
+    ``role`` (``default``). Lenient: an unrecognized value warns and keeps
+    the config role (a typo must not boot a prefill tier as a monolith)."""
+    v = (env_str("SHAI_ROLE", "") or "").strip().lower()
+    if not v:
+        return default if default in ROLES else "both"
+    if v not in ROLES:
+        log.warning("SHAI_ROLE=%r not recognized (known: %s) — keeping "
+                    "role %r", v, "/".join(ROLES), default)
+        return default if default in ROLES else "both"
+    return v

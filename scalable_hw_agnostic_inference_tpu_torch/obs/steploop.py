@@ -113,6 +113,12 @@ class StepTelemetry:
         self.sentinel = None
         self.hbm = None
         self.qos_sched = None
+        # the host KV tier (kvtier.pool.HostKVTier) and the kvnet
+        # transport counters (kvnet.client.KvNetStats), attached by an
+        # engine with a tier: the shai_kvtier_* / shai_kvnet_* families
+        # and the /stats sections read them here
+        self.kvtier = None
+        self.kvnet = None
         # per-tenant attribution (bounded: MAX_TENANT_LABELS + "other")
         self._tenants: Dict[str, Dict[str, float]] = {}
         self._tenant_ttft: Dict[str, BucketHistogram] = {}
@@ -245,7 +251,7 @@ class StepTelemetry:
 
     def record_step(self, *, kind: str, duration_s: float, n_running: int,
                     n_waiting: int, n_chunking: int, blocks_free: int,
-                    finished: int = 0,
+                    blocks_evictable: int = 0, finished: int = 0,
                     finished_ids: Sequence[int] = (),
                     tenants: Optional[Dict[str, Sequence[int]]] = None,
                     completed_at: Optional[float] = None) -> None:
@@ -259,8 +265,11 @@ class StepTelemetry:
         still in flight at return (None: the step completed now)."""
         total = self.total_blocks or 1
         used = max(0, total - blocks_free)
-        # no prefix cache yet: every used block is held by a live
-        # sequence, so utilization and occupancy agree
+        # pressure vs occupancy: evictable prefix-cache blocks are
+        # reclaimable (a warm cache legitimately fills the pool), so
+        # kv_utilization, the admission and overload signal, counts the
+        # blocks live sequences hold; kv_occupancy keeps the raw view
+        live = max(0, used - max(0, blocks_evictable))
         rec = {
             "ts": round(time.time(), 4),
             "step": 0,  # filled under the lock below
@@ -271,8 +280,8 @@ class StepTelemetry:
             "chunking": n_chunking,
             "finished": finished,
             "kv_blocks_free": blocks_free,
-            "kv_blocks_evictable": 0,
-            "kv_utilization": round(used / total, 4),
+            "kv_blocks_evictable": blocks_evictable,
+            "kv_utilization": round(live / total, 4),
             "kv_occupancy": round(used / total, 4),
             "rollback_tokens": 0,
             "finished_ids": list(finished_ids),
@@ -354,6 +363,14 @@ class StepTelemetry:
                     "pad": self.pad_by_phase.get(p, 0)}
                 for p in set(self.real_by_phase) | set(self.pad_by_phase)}
             out.update(self._gauges)
+        kvt = self.kvtier
+        if kvt is not None:
+            # host-tier saturation and hit rate travel with the engine
+            # snapshot: the admission gate prices host_kv_utilization
+            ksnap = kvt.snapshot()
+            out["host_kv_utilization"] = ksnap.get("utilization", 0.0)
+            out["host_kv_used_bytes"] = ksnap.get("used_bytes", 0.0)
+            out["host_kv_hit_rate"] = ksnap.get("hit_rate", 0.0)
         for name, h in (("ttft", self.ttft), ("tpot", self.tpot),
                         ("queue_wait", self.queue_wait),
                         ("step_gap", self.step_gap)):

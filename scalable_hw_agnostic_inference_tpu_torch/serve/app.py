@@ -24,6 +24,10 @@ operating layer. The uniform surface:
   the engine's recent step records
 - ``GET  /trace/{trace_id}``      this pod's spans of one trace
 - ``GET  /profile``, ``POST /profile/{seconds}``  ``torch.profiler``
+- ``GET  /kv/blocks?hashes=``     this pod's host-tier KV blocks by chain
+  hash, as binary frames (``kvnet.frames``): the leading resident run
+- ``GET  /kv/digests[?head=]``    the host tier's chain-head advertisement,
+  or one run's hashes
 - the unit's infer route (``POST /generate`` for the vllm unit) and its
   ``extra_routes`` (the OpenAI routes)
 
@@ -39,9 +43,12 @@ replays or joins an earlier execution of its key instead of running twice.
 A streamed response holds its in-flight slot until the stream drains.
 SIGTERM (``serve_forever``) begins the drain: readiness flips, new work
 sheds with 503, in-flight requests finish within ``DRAIN_BUDGET_S``, the
-unit drains its engine loop, and the server stops. Model work runs on a
-thread pool (the "model lane"), so the event loop keeps answering probes
-during a load or a long request.
+unit drains its engine loop, and the server stops; a pod whose host
+tier still banks handoff KV (``pending_handoff``, a prefill-role pod)
+keeps ``/kv/blocks`` serving until the budget ends, so that its peers can
+pull what it warmed. Model work runs on a thread pool (the "model lane"),
+so the event loop keeps answering probes during a load or a long
+request.
 """
 
 from __future__ import annotations
@@ -131,6 +138,39 @@ class ModelService:
         without an engine, or before it is built)."""
         return None
 
+    def affinity_digests(self) -> Optional[List[str]]:
+        """Recently served prompt-affinity digests (``kvtier.affinity``),
+        advertised under ``/stats`` -> ``kvtier.affinity``; None = no
+        advertisement (no engine, or no prefix cache)."""
+        return None
+
+    #: disaggregated serving role (kvnet), advertised on ``/stats``;
+    #: engine-backed services set it from ``kvnet.resolve_role``
+    role: str = "both"
+
+    def kv_tier(self):
+        """The host KV block pool (``kvtier.pool.HostKVTier``) behind
+        ``GET /kv/blocks``, or None (the route then 404s and peers
+        recompute)."""
+        return None
+
+    def kvnet_stats(self):
+        """The pod's ``kvnet.client.KvNetStats`` (``shai_kvnet_*``), shared
+        by ``/kv/blocks`` and the decode-role pull; None without a tier."""
+        return None
+
+    def affinity_heads(self) -> Optional[Dict[str, int]]:
+        """Bounded affinity-digest -> chain-head map (``/stats`` ->
+        ``kvtier.aff_heads``) for a fleet directory; None = no fabric
+        participation (the fabric comes in a later slice)."""
+        return None
+
+    def pending_handoff(self) -> bool:
+        """True while this pod still banks KV a peer may pull over
+        ``GET /kv/blocks``: the drain then holds the server open until
+        the budget ends."""
+        return False
+
     def step_records(self, n: int = 256) -> List[Dict[str, Any]]:
         """The last ``n`` engine step records for the flight recorder."""
         tele = self.engine_telemetry()
@@ -188,10 +228,12 @@ def create_app(cfg: ServeConfig, service: ModelService,
     # closes each trace and sinks it); GET /debug/flight, /trace/{id}
     flight = FlightRecorder()
     app.trace_sink = flight.record_request
-    # lifecycle probes and scrape surfaces must not ring the recorder
+    # lifecycle probes and scrape surfaces must not ring the recorder;
+    # /kv/* is probe-class too (a decode fleet's pulls would evict real
+    # request timelines from the ring)
     app.trace_exclude |= {"/health/ready", "/debug/faults",
-                          "/debug/conformance", "/profile",
-                          "/trace/{trace_id}"}
+                          "/debug/conformance", "/profile", "/kv/blocks",
+                          "/kv/digests", "/trace/{trace_id}"}
     pub.attach_engine_telemetry(service.engine_telemetry)
     pub.attach_idempotency(lambda: idem)
     pub.attach_tenant_ledger(lambda: ledger)
@@ -400,6 +442,14 @@ def create_app(cfg: ServeConfig, service: ModelService,
             state["drained"] = {"clean": clean,
                                 "seconds": drainer.budget_s
                                 - drainer.remaining_s}
+            # the handoff hold: a pod whose tier still banks handoff KV
+            # keeps its probe-class GET routes (/kv/blocks) serving until
+            # the budget ends, so peers can pull the runs it warmed
+            try:
+                while service.pending_handoff() and drainer.remaining_s > 0:
+                    time.sleep(0.05)
+            except Exception:
+                log.exception("pending-handoff hold failed")
             if on_done is not None:
                 on_done()
 
@@ -575,9 +625,27 @@ def create_app(cfg: ServeConfig, service: ModelService,
         if tele is not None:
             out["engine"] = tele.snapshot()
             for sec, obj in (("slo", tele.slo), ("hbm", tele.hbm),
-                             ("perf", tele.sentinel)):
+                             ("perf", tele.sentinel),
+                             ("kvtier", tele.kvtier)):
                 if obj is not None:
                     out[sec] = obj.snapshot()
+        # warm-prefix advertisement (even tier-less: the device prefix
+        # cache is warm too), and the host tier's chain-head runs
+        aff = service.affinity_digests()
+        if aff is not None:
+            out.setdefault("kvtier", {})["affinity"] = aff
+        tier = service.kv_tier()
+        if tier is not None:
+            out.setdefault("kvtier", {})["adverts"] = tier.advertisement()
+        heads = service.affinity_heads()
+        if heads:
+            out.setdefault("kvtier", {})["aff_heads"] = heads
+        # disaggregated serving: the pod's role, and the transport's
+        # counters on a pod in the network KV plane
+        out["role"] = service.role
+        kn = service.kvnet_stats()
+        if kn is not None:
+            out["kvnet"] = kn.snapshot()
         # multi-tenant QoS: the ledger's per-tenant usage joined with the
         # engine's per-tenant view (namespaced engine_*: the two count
         # different things) and the scheduler's pick counters
@@ -595,6 +663,64 @@ def create_app(cfg: ServeConfig, service: ModelService,
             if sched is not None:
                 out["qos"]["scheduler"] = sched.snapshot()
         return out
+
+    @app.get("/kv/blocks")
+    async def kv_blocks(request: Request):
+        """Serve this pod's host-tier blocks by chain hash: ``?hashes=`` is
+        a comma-joined list, the answer the LEADING contiguous resident
+        run as binary frames (``(k, v)`` per block, or the int8 4-tuple
+        ``(k, v, ks, vs)``), byte-exact. Probe-class: no admission gate,
+        out of the flight ring, at most ``MAX_BLOCKS_PER_REQUEST`` hashes;
+        a pod without a tier 404s. The copy and encode run on the default
+        executor, neither on the event loop (probes must keep answering)
+        nor on the model lane (a pull must not queue behind a step)."""
+        from ..kvnet import client as kvnet_client
+        from ..kvnet import frames as kvnet_frames
+
+        tier = service.kv_tier()
+        if tier is None:
+            raise HTTPError(404, "no host KV tier on this pod")
+        raw = request.query.get("hashes", "")
+        try:
+            hashes = [int(h) for h in raw.split(",") if h.strip()]
+        except ValueError:
+            raise HTTPError(400, "hashes must be comma-joined integers")
+        if not hashes:
+            raise HTTPError(400, "missing hashes")
+        if len(hashes) > kvnet_client.MAX_BLOCKS_PER_REQUEST:
+            raise HTTPError(
+                400, f"at most {kvnet_client.MAX_BLOCKS_PER_REQUEST} "
+                     f"hashes per request")
+
+        def _gather() -> Tuple[int, bytes]:
+            run = tier.get_run(hashes)
+            return len(run), kvnet_frames.encode_frames(run)
+
+        n_run, body = await asyncio.get_running_loop().run_in_executor(
+            None, _gather)
+        stats = service.kvnet_stats()
+        if stats is not None:
+            stats.count_served(n_run, len(body))
+        return Response(body, media_type="application/octet-stream",
+                        headers={"x-shai-kv-blocks": str(n_run)})
+
+    @app.get("/kv/digests")
+    def kv_digests(request: Request):
+        """The host tier's bounded chain-head advertisement
+        (``{"adverts": [{"head", "n", "seq"}, ...]}``), or with ``?head=``
+        one advertised run's hash chain. Probe-class, O(bounded) reads off
+        the tier's incrementally kept caches; 404 without a tier."""
+        tier = service.kv_tier()
+        if tier is None:
+            raise HTTPError(404, "no host KV tier on this pod")
+        raw = request.query.get("head", "")
+        if raw:
+            try:
+                head = int(raw)
+            except ValueError:
+                raise HTTPError(400, "head must be an integer chain hash")
+            return {"head": head, "hashes": tier.run_hashes(head)}
+        return {"adverts": tier.advertisement()}
 
     @app.get("/metrics")
     def metrics(request: Request):

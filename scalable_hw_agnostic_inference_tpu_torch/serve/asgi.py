@@ -78,8 +78,8 @@ class Request:
 
 
 class Response:
-    """A response: JSON for anything but ``str`` content, which goes out
-    as it is with ``media_type``."""
+    """A response: JSON for anything but ``str`` or ``bytes`` content,
+    which goes out as it is with ``media_type``."""
 
     def __init__(self, content: Any = None, status: int = 200,
                  media_type: str = "application/json",
@@ -92,6 +92,9 @@ class Response:
                 "content-type",
                 media_type if media_type != "application/json"
                 else "text/plain; charset=utf-8")
+        elif isinstance(content, bytes):
+            self.body = content
+            self.headers.setdefault("content-type", media_type)
         else:
             self.body = json.dumps(content).encode()
             self.headers.setdefault("content-type", "application/json")

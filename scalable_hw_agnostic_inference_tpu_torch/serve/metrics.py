@@ -18,7 +18,9 @@ label names and histogram buckets:
   ``obs.steploop.StepTelemetry`` (label ``app``; the pad counters also
   ``phase``), and its conformance instruments' flat snapshots under the
   :data:`CONFORMANCE_PREFIXES` (``shai_slo_*``, ``shai_hbm_*``,
-  ``shai_perf_*``);
+  ``shai_perf_*``), and on an engine with a host KV tier the
+  :data:`KVTIER_COUNTERS`, :data:`KVTIER_GAUGES` and
+  :data:`KVNET_COUNTERS` (``shai_kvtier_*``, ``shai_kvnet_*``);
 - the per-tenant families (label ``tenant``): ``shai_tenant_requests_total``,
   ``shai_tenant_waiting``, ``shai_tenant_running`` and
   ``shai_tenant_ttft_seconds`` off the engine once a tenant tag was seen,
@@ -79,9 +81,12 @@ ENGINE_GAUGES = {
     "waiting": ("shai_engine_waiting", "Requests in the admission queue"),
     "chunking": ("shai_engine_chunking", "Slots mid chunked-prefill"),
     "kv_utilization": ("shai_engine_kv_utilization",
-                       "KV page pool fraction held by live sequences"),
+                       "KV page pool fraction held by LIVE sequences "
+                       "(evictable prefix-cache blocks excluded — they "
+                       "reclaim on demand)"),
     "kv_occupancy": ("shai_engine_kv_occupancy",
-                     "KV page pool fraction allocated"),
+                     "KV page pool fraction allocated, cached blocks "
+                     "included"),
     "kv_blocks_free": ("shai_engine_kv_blocks_free", "Free KV pool blocks"),
     "pad_fraction": ("shai_engine_pad_fraction",
                      "Fraction of dispatched token slots that were shape "
@@ -120,6 +125,56 @@ CONFORMANCE_PREFIXES = (
     ("hbm", "shai_hbm_", "Live HBM ledger gauge"),
     ("sentinel", "shai_perf_", "Perf-model sentinel gauge"),
 )
+#: host KV tier (``kvtier.pool.HostKVTier.snapshot`` keys -> families):
+#: counters (``_total`` added) and occupancy gauges
+KVTIER_COUNTERS = {
+    "hits": ("shai_kvtier_hits",
+             "Host KV tier: prefix blocks found resident"),
+    "misses": ("shai_kvtier_misses",
+               "Host KV tier: prefix walks that stopped short"),
+    "evictions": ("shai_kvtier_evictions",
+                  "Host KV tier: blocks LRU-evicted from the host pool"),
+    "stores": ("shai_kvtier_stores",
+               "Host KV tier: blocks demoted into the host pool"),
+    "restored": ("shai_kvtier_restored",
+                 "Host KV tier: blocks swapped back into the device pool"),
+    "bytes": ("shai_kvtier_bytes",
+              "Host KV tier: cumulative bytes copied into the host pool"),
+    "errors": ("shai_kvtier_errors",
+               "Host KV tier: failures degraded to recompute"),
+    "dropped": ("shai_kvtier_dropped",
+                "Host KV tier: demotions dropped (queue full / no capacity)"),
+}
+KVTIER_GAUGES = {
+    "used_bytes": ("shai_kvtier_used_bytes",
+                   "Host KV tier: bytes resident in the host pool"),
+    "capacity_bytes": ("shai_kvtier_capacity_bytes",
+                       "Host KV tier: configured capacity "
+                       "(SHAI_KVTIER_BYTES)"),
+    "entries": ("shai_kvtier_entries", "Host KV tier: resident blocks"),
+    "utilization": ("shai_kvtier_utilization",
+                    "Host KV tier: used/capacity fraction"),
+    "hit_rate": ("shai_kvtier_hit_rate",
+                 "Host KV tier: hits / (hits + misses)"),
+}
+#: network KV transport (``kvnet.client.KvNetStats.snapshot`` keys): the
+#: block flow both ways, transport bytes, and the degrade signal
+KVNET_COUNTERS = {
+    "fetched": ("shai_kvnet_fetched",
+                "kvnet: KV blocks pulled from peer pods into the host "
+                "tier"),
+    "served": ("shai_kvnet_served",
+               "kvnet: host-tier KV blocks served to peers over "
+               "/kv/blocks"),
+    "bytes": ("shai_kvnet_bytes",
+              "kvnet: frame bytes moved through this pod's transport "
+              "(served out + fetched in)"),
+    "errors": ("shai_kvnet_errors",
+               "kvnet: transport failures (connect/read/corrupt frames)"),
+    "fallbacks": ("shai_kvnet_fallbacks",
+                  "kvnet: fetches degraded to local recompute (open "
+                  "breaker, transport failure, rejected frames)"),
+}
 #: per-tenant attribution off the engine telemetry (bounded label set)
 TENANT_COUNTERS = {
     "requests": ("shai_tenant_requests",
@@ -224,8 +279,8 @@ def _numeric(v) -> bool:
 
 def engine_families(out: Exposition, tele, app: str) -> None:
     """The engine telemetry families (the reference's
-    ``EngineTelemetryCollector.collect``, without the tiers the port does
-    not have yet)."""
+    ``EngineTelemetryCollector.collect``; the migration and KV fabric
+    families come with those modules)."""
     snap = tele.snapshot()
     lb = (("app", app),)
     for key, (name, doc) in ENGINE_GAUGES.items():
@@ -270,6 +325,21 @@ def engine_families(out: Exposition, tele, app: str) -> None:
         out.histogram(TENANT_TTFT[0], TENANT_TTFT[1], [
             ((("app", app), ("tenant", t)), hs)
             for t, hs in sorted(tele.tenant_histograms().items())])
+    # the network KV transport and the host tier: present only on an
+    # engine with a tier
+    kvn = getattr(tele, "kvnet", None)
+    if kvn is not None:
+        snap = kvn.snapshot()
+        for key, (name, doc) in KVNET_COUNTERS.items():
+            out.counter(name, doc, [(lb, float(snap.get(key, 0)))])
+    kvt = getattr(tele, "kvtier", None)
+    if kvt is not None:
+        snap = kvt.snapshot()
+        for key, (name, doc) in KVTIER_COUNTERS.items():
+            out.counter(name, doc, [(lb, float(snap.get(key, 0)))])
+        for key, (name, doc) in KVTIER_GAUGES.items():
+            if key in snap:
+                out.gauge(name, doc, [(lb, float(snap[key]))])
 
 
 def idempotency_families(out: Exposition, snap: Dict[str, float],

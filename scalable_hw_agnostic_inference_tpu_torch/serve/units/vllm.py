@@ -34,8 +34,23 @@ last RETIRED step), ``drain`` through ``EngineLoop.drain``, the request
 trace (``tokenize`` and ``detokenize`` spans, the engine's queue, prefill
 and decode phases grafted under ``model_infer``, ``engine_req_id`` on the
 root) and the idempotency key and ``traceparent`` passed to the engine.
-Chat templates, images, the KV network and migration come in later
-slices.
+
+Disaggregated serving (the reference's ``:68-83,282-305,486-657,840-854``,
+``_require_decode_role`` at ``:1273``): the role is ``SHAI_ROLE`` over the
+ConfigMap's ``role``. A ``prefill`` pod's ``/generate`` runs the prompt
+(one discarded greedy token), lets the engine bank the prompt's full-block
+run in its host tier, and returns the handoff ``{kv_ready, digest,
+hashes_len, peer_url, n_prompt, role}`` (``_prefill_handoff``); its
+OpenAI routes answer 400. A request carrying ``kv_peer`` (with
+``kv_hashes_len`` and ``kv_digest``) first pulls that run from the peer's
+``GET /kv/blocks`` into the local tier (``_pull_handoff``: skipped when
+the digest is not this prompt's, bounded by the request's deadline; every
+failure degrades to recompute), then admits as usual, restoring the run.
+With the prefix cache on, every served ``/generate`` prompt's affinity
+digest is advertised on ``/stats``. The drain closes the tier's copy-out
+worker and holds ``/kv/blocks`` open while a prefill pod's tier banks
+runs. Chat templates, images, the fleet KV fabric and migration come in
+later slices.
 """
 
 from __future__ import annotations
@@ -53,6 +68,9 @@ import torch
 from ...core.device import resolve_device
 from ...engine.config import EngineConfig
 from ...engine.types import K_LOGPROBS
+from ...kvnet import resolve_role
+from ...kvnet.client import KvNetClient
+from ...kvtier.affinity import AffinityTracker, prompt_affinity
 from ...models.generate import ByteTokenizer
 from ...models.convert import load_hf_checkpoint
 from ...models.llama import (
@@ -68,7 +86,7 @@ from ...ops.quant import quantize_state_dict
 from ...resilience import deadline as rz_deadline
 from ...resilience import qos as rz_qos
 from ...resilience.drain import StepWatchdog
-from ...utils.env import ServeConfig, env_float
+from ...utils.env import ServeConfig, env_float, env_str
 from ..app import ModelService
 from ..asgi import HTTPError, StreamingResponse
 from .common import SseTextAssembler
@@ -117,6 +135,14 @@ class VllmService(ModelService):
             self.ecfg = None
             self._ecfg_error = e
             self.concurrency = 1
+        # warm-prefix advertisement: each served prompt's leading-text
+        # digest, exposed on /stats
+        self._affinity = AffinityTracker()
+        # the pod's role, advertised on /stats before the engine exists;
+        # the transport attaches in load() once the tier does
+        self.role = resolve_role(self.ecfg.role if self.ecfg else "both")
+        self._kvnet: Optional[KvNetClient] = None
+        self._kvnet_stats = None
 
     @staticmethod
     def _resolve_ecfg(cfg: ServeConfig) -> EngineConfig:
@@ -219,6 +245,13 @@ class VllmService(ModelService):
                  self.warm_seconds, list(engine.buckets.buckets))
         self._engine = engine
         self._SamplingParams = SamplingParams
+        # the network KV plane: with a host tier, /kv/blocks serves it and
+        # a kv_peer request pulls into it; ONE stats object (the engine's,
+        # on its telemetry seam) counts both directions
+        self.role = engine.role   # env-resolved: engine and unit agree
+        self._kvnet_stats = engine.obs.kvnet
+        if engine.cache.tier is not None:
+            self._kvnet = KvNetClient(engine.cache.tier, self._kvnet_stats)
         self.loop = EngineLoop(engine).start()
         # step watchdog (liveness): work pending but no step retiring for
         # max(SHAI_WATCHDOG_MIN_S, SHAI_WATCHDOG_MULT x p99 step) fails
@@ -245,11 +278,37 @@ class VllmService(ModelService):
         """SIGTERM: let queued and running requests finish within the
         budget, then stop the loop with no replay left in flight
         (outstanding futures fail on the way out)."""
+        t0 = time.monotonic()
         if self.loop is not None:
             self.loop.drain(budget_s)
+        # a bounded join of the tier's copy-out worker: an in-flight
+        # demotion copy publishes (or is abandoned, logged) in the budget
+        tier = self.kv_tier()
+        if tier is not None:
+            tier.close(max(0.5, budget_s - (time.monotonic() - t0)))
+        if self._kvnet is not None:
+            self._kvnet.close()
 
     def engine_telemetry(self):
         return None if self._engine is None else self._engine.obs
+
+    def kv_tier(self):
+        return None if self._engine is None else self._engine.cache.tier
+
+    def kvnet_stats(self):
+        return self._kvnet_stats
+
+    def affinity_digests(self):
+        if self._engine is None or not self._engine.cache.prefix_caching:
+            return None  # no warm prefixes to advertise
+        return self._affinity.snapshot()
+
+    def pending_handoff(self) -> bool:
+        """A prefill-role pod's tier banks the runs its peers pull: the
+        drain holds ``/kv/blocks`` open while it holds any."""
+        tier = self.kv_tier()
+        return (tier is not None and tier.n_entries > 0
+                and self.role == "prefill")
 
     def _encode(self, text: str) -> List[int]:
         """Ids with BOS, cut to the engine's chunked-prefill cap (not the
@@ -308,10 +367,93 @@ class VllmService(ModelService):
         prompt = str(payload.get("prompt", payload.get("text", "")))
         ids = self._encode(prompt)
         params = self._sampling_from(payload)
-        return self._collect(self.loop.submit(
+        if self.role == "prefill":
+            # a prefill pod hands the warm KV back instead of decoding
+            # (params stay validated above: a bad request 400s on every
+            # role); the decode pod re-derives token 1 from the logits its
+            # warm continuation produces
+            return self._prefill_handoff(prompt, ids)
+        if payload.get("kv_peer") and self._kvnet is not None:
+            # the decode side of the handoff: pull the prompt's run into
+            # the local tier before admission, which restores it
+            self._pull_handoff(str(payload["kv_peer"]),
+                               payload.get("kv_hashes_len"), ids,
+                               prompt=prompt,
+                               digest=str(payload.get("kv_digest") or ""))
+        out = self._collect(self.loop.submit(
             ids, params, deadline_at=self._deadline_at(),
             traceparent=obs_trace.current_traceparent() or "",
             idem_key=str(payload.get("idem_key") or ""), **self._qos_kw()))
+        if self._engine.cache.prefix_caching:
+            # advertise warmth only for /generate, after it served
+            self._affinity.note(prompt_affinity(prompt))
+        return out
+
+    def _prefill_handoff(self, prompt: str, ids) -> Dict[str, Any]:
+        """Prefill-role ``/generate``: run the prompt through the engine
+        (one greedy token, discarded), whose finish banks the full-block
+        run in the host tier, and return the handoff reference.
+        ``kv_ready: false`` (no tier, or no full block) tells the router to
+        serve the request monolithically."""
+        eng = self._engine
+        tier = eng.cache.tier
+        hashes_len = (len(ids) // eng.ecfg.block_size
+                      if eng.cache.prefix_caching else 0)
+        kv_ready = tier is not None and hashes_len > 0
+        sp = self._SamplingParams(temperature=0.0, max_new_tokens=1,
+                                  eos_id=self.eos_id)
+        out = self._collect(self.loop.submit(
+            list(ids), sp, deadline_at=self._deadline_at(),
+            traceparent=obs_trace.current_traceparent() or "",
+            **self._qos_kw()))
+        if kv_ready:
+            try:
+                # the async copy-outs publish before the peer's pull
+                # lands; a failure only shortens the run the peer sees
+                tier.drain()
+            except Exception:
+                log.warning("kvnet: tier drain after prefill failed",
+                            exc_info=True)
+        if eng.cache.prefix_caching:
+            self._affinity.note(prompt_affinity(prompt))
+        return {
+            "kv_ready": bool(kv_ready),
+            "digest": prompt_affinity(prompt),
+            "hashes_len": hashes_len,
+            # the pull address peers should use; empty = the router
+            # substitutes the URL it routes this pod by
+            "peer_url": env_str("SHAI_KVNET_PEER_URL", "") or "",
+            "n_prompt": out.get("n_prompt", len(ids)),
+            "role": "prefill",
+        }
+
+    def _pull_handoff(self, peer: str, hashes_len, ids, prompt: str = "",
+                      digest: str = "") -> int:
+        """Decode-side handoff pull: make the local tier hold the prompt's
+        leading full-block run, fetching what it lacks from ``peer``.
+        Never raises. A ``kv_digest`` that is not this prompt's affinity
+        digest marks a mis-routed handoff: the pull is skipped."""
+        if digest and prompt and digest != prompt_affinity(prompt):
+            log.warning("kvnet: handoff digest %s does not match the "
+                        "request's prompt — skipping the pull "
+                        "(recompute)", digest)
+            return 0
+        try:
+            hl = int(hashes_len or 0)
+        except (TypeError, ValueError):
+            hl = 0
+        hashes = self._engine.cache.prefix_hashes(list(ids))
+        if hl > 0:
+            hashes = hashes[:hl]
+        if not hashes:
+            return 0
+        # the pull's wall budget is bounded by the request's deadline
+        dl = rz_deadline.current_deadline()
+        budget = None if dl is None else max(0.0, dl.remaining_s)
+        with obs_trace.span("kvnet_fetch", annotation=False) as sp:
+            n = self._kvnet.fetch_run(peer, hashes, budget_s=budget)
+            sp.set(blocks=int(n), blocks_wanted=len(hashes))
+            return n
 
     @staticmethod
     def _deadline_at() -> float:
@@ -674,8 +816,18 @@ class VllmService(ModelService):
                      f"(the engine's slot batch)")
         return n
 
+    def _require_decode_role(self) -> None:
+        """The OpenAI routes return text: on a prefill-role pod (whose
+        ``/generate`` returns KV handoffs) a routed client is a deploy
+        error, answered as a client error."""
+        if self.role == "prefill":
+            raise HTTPError(
+                400, "this pod serves prefill handoffs only (role="
+                     "prefill); route completion requests to a decode pod")
+
     def extra_routes(self):
         def completions(request):
+            self._require_decode_role()
             body = request.json()
             prompt = body.get("prompt")
             if isinstance(prompt, list):
@@ -689,6 +841,7 @@ class VllmService(ModelService):
             return self._openai_generate(prompt, body, "completion")
 
         def chat(request):
+            self._require_decode_role()
             body = request.json()
             prompt = self._chat_prompt(body.get("messages"))
             if body.get("stream"):

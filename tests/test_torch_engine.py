@@ -152,9 +152,17 @@ def test_engine_refuses_what_later_slices_bring(tiny):
     # K_LOGPROBS, as the reference's SamplingParams.clamp does
     eng.add_request([1, 2], SamplingParams(logprobs=9))
     assert eng.waiting[-1].params.logprobs == 5
-    with pytest.raises(ValueError, match="not ported yet"):
-        LLMEngine(tcfg, model, tconfig.EngineConfig(
-            **dict(ENGINE_KW, enable_prefix_caching=True)), device="cpu")
+    # the prefix cache and the roles are served (slice 10); speculative
+    # decoding and tensor parallelism are still refused
+    for over in (dict(speculative_model="[ngram]", num_speculative_tokens=2),
+                 dict(tensor_parallel_size=2)):
+        with pytest.raises(ValueError, match="not ported yet"):
+            LLMEngine(tcfg, model, tconfig.EngineConfig(
+                **dict(ENGINE_KW, **over)), device="cpu")
+    eng = LLMEngine(tcfg, model, tconfig.EngineConfig(
+        **dict(ENGINE_KW, enable_prefix_caching=True, role="decode")),
+        device="cpu")
+    assert eng.cache.prefix_caching and eng.role == "decode"
 
 
 def test_engine_sampled_requests_finish(tiny):

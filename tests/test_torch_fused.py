@@ -33,8 +33,13 @@ layers, head dim 16). What is held:
   collapses to the JAX fused engine's count, and nothing builds after it;
   ``SHAI_FUSED_STEP`` without ragged attention is off, in both packages.
 
-The two prefix-cache cases of the oracle wait for the prefix cache
-(``ROADMAP.md`` A5).
+- the oracle's two prefix-cache cases, on both packages: with the cache
+  on and an unquantized pool, the fused engine's cached admission (one
+  chunk-only call over the uncached remainder, its start as data) is
+  token-exact against the laddered ragged engine, and the port's greedy
+  tokens are held to the JAX fused engine's; an int8 pool under the fused
+  step declines the cached path (plain admission, no recompute split)
+  and still serves, with no leaked block.
 """
 
 import ctypes
@@ -598,6 +603,62 @@ def test_fused_ladder_collapses_and_stays_closed(tiny, monkeypatch):
                SamplingParams(temperature=0.0, max_new_tokens=6))
     assert a.obs.recompiles == 0 and a.n_executables == na
     _assert_pool_whole(a)
+
+
+def test_fused_prefix_cache_parity(tiny, monkeypatch):
+    """Quant off, cache on: the fused cached admission runs the chunk-only
+    call over the remainder; tokens (and logprob entries) equal the
+    laddered engine's in each package, and the port's greedy tokens are
+    held to the JAX engine's."""
+    jcfg, params, _, _ = tiny
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(3, 200, 40).tolist()
+    outs = {}
+    for pkg, Params in (("port", SamplingParams), ("jax", JParams)):
+        for fused in (True, False):
+            if pkg == "port":
+                eng = _port(tiny, monkeypatch, fused=fused,
+                            enable_prefix_caching=True)
+            else:
+                # the JAX engine as the oracle runs it (its default decode
+                # path, not the Pallas kernels in interpret mode)
+                _switches(monkeypatch, fused, False, True)
+                monkeypatch.delenv("SHAI_PAGED_DECODE")
+                eng = JEngine(jcfg, params, jconfig.EngineConfig(
+                    **dict(ENGINE_KW, enable_prefix_caching=True)))
+            sp = Params(**SAMPLING["greedy"])
+            f1 = eng.generate([prompt], sp)            # registers
+            f2 = eng.generate([prompt + [5, 6]], sp)   # admits from cache
+            assert f2[0].timing["recompute_tokens"] == 42 - 32
+            assert eng.cache.n_evictable > 0
+            assert eng.cache.leaked_blocks == 0
+            outs[pkg, fused] = f1 + f2
+    for pkg in ("port", "jax"):
+        for a, b in zip(outs[pkg, True], outs[pkg, False]):
+            assert a.token_ids == b.token_ids
+            if pkg == "port":
+                _assert_finished_equal(a, b)
+    assert_greedy_parity(outs["port", True], outs["jax", True],
+                         label="fused prefix cache")
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_fused_int8_plus_prefix_cache_excluded(tiny, monkeypatch, pkg):
+    """Int8 + prefix-cache reuse declines the cached path under the fused
+    step (the whole-bucket window would re-quantize the cached tail block
+    under another scale): plain admission, which still serves."""
+    make, Params = (_port, SamplingParams) if pkg == "port" else \
+        (_jax, JParams)
+    eng = make(tiny, monkeypatch, fused=True, quant=True,
+               enable_prefix_caching=True)
+    prompt = [7, 3] * 10
+    sp = Params(temperature=0.0, max_new_tokens=4)
+    eng.generate([prompt], sp)
+    assert eng.cache.n_evictable > 0
+    [fin] = eng.generate([prompt + [5]], sp)
+    assert len(fin.token_ids) == 4
+    assert "recompute_tokens" not in fin.timing   # no cached admission
+    assert eng.cache.leaked_blocks == 0
 
 
 def test_fused_requires_ragged(tiny, monkeypatch):

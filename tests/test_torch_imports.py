@@ -5,7 +5,7 @@ package, and it runs on the card unless it is asked for the CPU.
   import of ``jax``, ``jaxlib``, ``flax``, ``prometheus_client``,
   ``scalable_hw_agnostic_inference_tpu``, or of a package the machine with
   the card lacks (``transformers``, ``safetensors``, ``tokenizers``,
-  ``tiktoken``, ``regex``, ``jinja2``, ``sentencepiece``);
+  ``tiktoken``, ``regex``, ``jinja2``, ``sentencepiece``, ``ml_dtypes``);
 - a fresh interpreter that imports every port module holds no more
   ``jax*``/``flax*`` modules than a bare interpreter does (an interpreter
   may preload JAX at start-up, so the check is relative);
@@ -33,7 +33,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "prometheus_client",
              # not on the machine with the card: the checkpoint reader and
              # the tokenizer are the port's own
              "transformers", "safetensors", "tokenizers", "tiktoken",
-             "regex", "jinja2", "sentencepiece")
+             "regex", "jinja2", "sentencepiece",
+             # nor is ml_dtypes: the kvnet frame codec decodes bfloat16
+             # frames into 16-bit words of its own
+             "ml_dtypes")
 
 
 def _modules():
