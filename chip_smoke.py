@@ -25,15 +25,19 @@ Phases:
                 rows, lengths 1 to 4096, and a 512-token chunk at starts
                 0, 512 and 2560, M=256), timed beside the decode-only and
                 chunk-only launches it replaces;
-  6. ``int8_matmul`` the W8A16 kernel (int8 weight-only projections,
-                ``csrc/int8_matmul.cu``) against its plain version, the
-                reference's ``(x @ Wq^T) * scale`` in bf16, at Llama-3-8B's
-                projection shapes (q/o, k/v, gate/up, down, lm_head) and M
-                in 1, 4, 8, 64: each output within ``INT8_ULPS`` bf16 ulps,
-                which the plain version short of one 16-wide K slice must
-                fail; kernel, plain version and bf16 ``F.linear`` timed
-                with the L2 flushed, beside the bound; the kernel's
-                registers and spills; shapes it refuses raise;
+  6. ``int8_matmul`` B4, the W8A16 kernel (int8 weight-only
+                projections, ``csrc/int8_matmul.cu``), against its plain
+                version, the reference's ``(x @ Wq^T) * scale`` in bf16, at
+                Llama-3-8B's projection shapes (q/o, k/v, gate/up, down,
+                lm_head) and M in 1, 4, 8, 64 (the decode instantiation)
+                and 128, 512, 2048 (the wide one): each output within
+                ``INT8_ULPS`` bf16 ulps, which the plain version short of
+                one 16-wide K slice must fail; kernel, plain version, bf16
+                ``F.linear`` (the library yardstick) and the route the
+                kernel replaced past 64 rows (the dequantized copy and a
+                GEMM) timed with the L2 flushed, beside the bound; every
+                instantiation's registers with no spills; calls it does not
+                take raise;
   7. ``decode_graph`` one decode step at Llama-3-8B width (32 layers,
                 seeded weights) captured as a CUDA graph
                 (``engine/graphs.py``) at serve's bucketed shape (B=8, a
@@ -72,8 +76,10 @@ Phases:
                 engine bucketed (scored by the engine phase's tie rule)
                 and under ``SHAI_RAGGED_ATTENTION=1 SHAI_KV_QUANT=int8``
                 (engine_ragged's int8 rule), async equal to lock-step,
-                every graph 225 int8 launches, scored through the int8
-                model's plain route;
+                every graph 225 int8 launches, prefill and chunks through
+                B4's wide instantiation, scored through the int8 model's
+                plain route; then fused (every fused replay's window
+                through the wide instantiation inside the graph);
  12. ``checkpoint`` a seeded Llama-3.2-1B-width checkpoint written here
                 (bf16, tied embeddings, two safetensors shards under HF
                 names, llama3 rope scaling, a byte-level BPE
@@ -119,8 +125,8 @@ Phases:
                 holding the ``shai_*`` contract families;
  16. ``serve_int8`` serve's tier, requests and switches with
                 ``QUANTIZATION=int8`` (born int8): the weights pool exactly
-                8,561,882,112 bytes, 225 int8 launches per replay, both
-                int8 routes counted, beside serve's numbers;
+                8,561,882,112 bytes, 225 int8 launches per replay, B4's
+                decode and wide launches counted, beside serve's numbers;
  17. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
                 SHAI_KV_QUANT=int8`` and an engine ConfigMap of
                 ``max_model_len`` 4096: two of the 8 prompts chunk;
@@ -159,9 +165,10 @@ A full run prints the card's name and power limit, then, second to last,
 ``{"kernels": [...]}`` (per kernel: route, source, the TPU kernel it
 replaces, launches in the serve phase that runs it, max error,
 kernel/plain/bound/library times, and its launches at the cached callers
-of engine_prefix and serve_disagg; B3 also its fused mixed-row launch; the
-int8 kernel, which replaces XLA's fused int8 dot and no Pallas kernel,
-``tpu_kernel: null`` and its bf16 ``F.linear`` time) and,
+of engine_prefix and serve_disagg; B3 also its fused mixed-row launch;
+B4's decode and wide instantiations, which replace XLA's fused int8 dot
+and no Pallas kernel, ``tpu_kernel: null``, bf16 ``F.linear`` as their
+library time and the replaced route's time) and,
 last, ``{"ok": true, "device":
 {...}}``. It exits non-zero at once when CUDA is unavailable or the port's
 package is not beside it.
@@ -386,11 +393,12 @@ def phase_build(ctx):
         if "Compiling entry function" in line:
             m = re.search(
                 r"((?:flash|decode|ragged|merge|groups|int8_matmul)_kernel)"
-                r"ILi(\d+)E(a|13__nv_bfloat16)?", line)
+                r"ILi(\d+)E(a|13__nv_bfloat16|Li\d+E)?", line)
             name = line.strip() if m is None else (
                 f"{m.group(1)}<{m.group(2)}"
                 + {"a": ", int8", "13__nv_bfloat16": ", bf16"}.get(
-                    m.group(3) or "", "") + ">")
+                    m.group(3) or "", ", " + (m.group(3) or "")[2:-1])
+                .rstrip(", ") + ">")
         elif "registers" in line or "spill" in line.lower():
             log(f"  ptxas: {name}: {line.split(':', 1)[-1].strip()}")
 
@@ -1253,37 +1261,36 @@ def phase_decode_graph(ctx):
 
 
 KERNELS = ("flash_attention", "paged_decode_attention",
-           "ragged_paged_attention", "int8_matmul")
+           "ragged_paged_attention", "int8_matmul", "int8_matmul_wide")
 
 
 def _counters():
+    """``{kernel: (wrapper, counter attribute)}``: the W8A16 wrapper counts
+    its decode and its wide instantiation apart."""
     from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
         flash_attention as fa,
+        int8_matmul as i8,
         paged_attention as pa,
         ragged_paged_attention as rpa,
     )
 
-    from scalable_hw_agnostic_inference_tpu_torch.ops import quant
-    from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
-        int8_matmul as i8,
-    )
-
-    # the int8 projections' wide route is counted beside the kernels (it
-    # is no kernel: KERNELS leaves it out of the launch checks)
-    return {"flash_attention": fa.flash_attention,
-            "paged_decode_attention": pa.paged_decode_attention,
-            "ragged_paged_attention": rpa.ragged_paged_attention,
-            "int8_matmul": i8.int8_matmul,
-            "quant_matmul_wide": quant.quant_matmul_wide}
+    return {"flash_attention": (fa.flash_attention, "launches"),
+            "paged_decode_attention": (pa.paged_decode_attention,
+                                       "launches"),
+            "ragged_paged_attention": (rpa.ragged_paged_attention,
+                                       "launches"),
+            "int8_matmul": (i8.int8_matmul, "launches"),
+            "int8_matmul_wide": (i8.int8_matmul, "wide_launches")}
 
 
 def _reset_counters():
-    for fn in _counters().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def _read_counters():
-    return {name: fn.launches for name, fn in _counters().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counters().items()}
 
 
 def _check_counters(what: str, counts, expect) -> None:
@@ -1498,10 +1505,10 @@ def _generate(ctx, prompts, switches, all_lp=False):
             "per_replay": sorted({n for g in _graphs(eng)
                                   for k, n in g.launches.items()
                                   if k not in ("int8_matmul",
-                                               "quant_matmul_wide")}),
+                                               "int8_matmul_wide")}),
             "int8_per_replay": sorted({g.launches.get("int8_matmul", 0)
                                        for g in _graphs(eng)}),
-            "wide_per_replay": sorted({g.launches.get("quant_matmul_wide", 0)
+            "wide_per_replay": sorted({g.launches.get("int8_matmul_wide", 0)
                                        for g in _graphs(eng)}),
             "graph_pool_bytes": eng._graphs.bytes()}
     # one replay of the largest batch key, host enqueue to device end: a
@@ -1711,7 +1718,8 @@ def _run_fused(ctx, what, switches):
     if leaked or sync[4] or lad[4]:
         raise AssertionError(f"{what}: leaked KV blocks")
     _check_counters(what, counts, {"flash_attention", "ragged_paged_attention"}
-                    | ({"int8_matmul"} if model.quantized else set()))
+                    | ({"int8_matmul", "int8_matmul_wide"} if model.quantized
+                       else set()))
     ctx.setdefault("engine_fused", {})[what] = {
         "equal_streams": same, "streams": len(fins), "tie_gaps": gaps,
         "chunks": info["chunks"],
@@ -1722,7 +1730,7 @@ def _run_fused(ctx, what, switches):
         "fused_graph_pool_bytes": info["graph_pool_bytes"],
         "laddered_graph_pool_bytes": lad[5]["graph_pool_bytes"],
         "int8_launches": counts["int8_matmul"],
-        "wide_calls": counts["quant_matmul_wide"]}
+        "wide_launches": counts["int8_matmul_wide"]}
 
 
 def phase_engine_fused(ctx):
@@ -1955,8 +1963,10 @@ def _kernel_class(name: str, walk: str) -> str:
     if any(k in name for k in ("ragged_kernel", "decode_kernel",
                                "merge_kernel", "groups_kernel")):
         return walk
+    if "int8_matmul_kernel<128" in name:
+        return "B4 int8_matmul (wide)"
     if "int8_matmul_kernel" in name:
-        return "W8A16 int8_matmul"
+        return "B4 int8_matmul (decode)"
     if any(w in name.lower() for w in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul (cuBLAS)"
     if "LogSoftMax" in name or "topk" in name.lower():
@@ -2589,13 +2599,21 @@ def phase_serve_ops(ctx):
 #: fail the same check.
 INT8_ULPS = 2.0
 #: (N, K) of Llama-3-8B's projections: q and o, k and v, gate and up,
-#: down, and the lm_head; each at every decode batch in INT8_ROWS
+#: down, and the lm_head; each at every decode batch in INT8_ROWS (the
+#: decode instantiation) and every width in INT8_WIDE_ROWS (the wide one:
+#: a chunk, a 512-token prefill, four of them)
 INT8_SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
                (128256, 4096))
 INT8_ROWS = (1, 4, 8, 64)
-#: the row of the kernels line: serve's decode batch on the gate/up shape
-#: (the largest share of a decode step's weight bytes)
+INT8_WIDE_ROWS = (128, 512, 2048)
+#: the rows of the kernels line: serve's decode batch on the gate/up shape
+#: (the largest share of a decode step's weight bytes), and a 512-token
+#: prefill call on the same shape
 INT8_MAIN = (8, 14336, 4096)
+INT8_WIDE_MAIN = (512, 14336, 4096)
+#: one Llama-3-8B layer's projections (q, o, k, v, gate, up, down)
+INT8_LAYER = [(4096, 4096)] * 2 + [(1024, 4096)] * 2 + \
+    [(14336, 4096)] * 2 + [(4096, 14336)]
 
 
 def _bf16_ulp(torch, a):
@@ -2616,8 +2634,8 @@ def _int8_ulps(torch, got, want, x, wq, scale) -> float:
 
 
 def _ptxas(kernel: str):
-    """``{instantiation: "registers, spills"}`` of one kernel from the build
-    log (``-Xptxas=-v``)."""
+    """``{instantiation: "registers, stack and spills"}`` of one kernel from
+    the build log (``-Xptxas=-v``), named by its two template arguments."""
     import re
 
     from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import _build
@@ -2625,13 +2643,11 @@ def _ptxas(kernel: str):
     out, name = {}, None
     for line in _build.build_log().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(rf"{kernel}ILi(\d+)E", line)
-            name = f"{kernel}<{m.group(1)}>" if m else None
-        elif name and "registers" in line:
-            out[name] = line.split(":", 1)[-1].strip()
-        elif name and "spill" in line.lower():
-            out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1]
-                         .strip()).strip()
+            m = re.search(rf"{kernel}ILi(\d+)ELi(\d+)E", line)
+            name = f"{kernel}<{m.group(1)}, {m.group(2)}>" if m else None
+        elif name and ("registers" in line or "spill" in line.lower()):
+            out[name] = (out.get(name, "") + " "
+                         + line.split(":", 1)[-1].strip()).strip()
     return out
 
 
@@ -2644,12 +2660,14 @@ def phase_int8_matmul(ctx):
     reduced = matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_bf16_reduced_precision_reduction = False
     try:
-        _int8_matmul_cases(ctx, torch)
+        _int8_matmul_cases(ctx, torch, reduced)
     finally:
         matmul.allow_bf16_reduced_precision_reduction = reduced
 
 
-def _int8_matmul_cases(ctx, torch):
+def _int8_matmul_cases(ctx, torch, reduced):
+    import re
+
     from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
         int8_matmul as i8,
     )
@@ -2659,13 +2677,15 @@ def _int8_matmul_cases(ctx, torch):
 
     gen = torch.Generator(device="cuda").manual_seed(21)
     timer = ctx["timer"]
-    rows, worst = [], 0.0
+    matmul = torch.backends.cuda.matmul
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, worst, failed = [], 0.0, []
     for N, K in INT8_SHAPES:
         w = torch.randn(N, K, generator=gen, device="cuda") * 0.02
         wq, scale = quantize_weight(w)
         wb = w.to(torch.bfloat16)   # the bf16 projection int8 must beat
         del w
-        for M in INT8_ROWS:
+        for M in INT8_ROWS + INT8_WIDE_ROWS:
             x = torch.randn(M, K, generator=gen, device="cuda").to(
                 torch.bfloat16)
             out = i8.int8_matmul(x, wq, scale)
@@ -2675,66 +2695,97 @@ def _int8_matmul_cases(ctx, torch):
             ulps = _int8_ulps(torch, out, ref, x, wq, scale)
             cut_ulps = _int8_ulps(torch, cut, ref, x, wq, scale)
             err = float((out.float() - ref.float()).abs().max())
+            del out, cut
             ms = timer(lambda: i8.int8_matmul(x, wq, scale), clean=True)
             plain = timer(lambda: i8.int8_matmul_reference(x, wq, scale),
                           clean=True)
             linear = timer(lambda: torch.nn.functional.linear(x, wb),
                            clean=True)
+            # the route the kernel replaces past 64 rows: the dequantized
+            # copy and the GEMM under the serving default (bf16 reductions
+            # allowed), as the engine ran it
+            matmul.allow_bf16_reduced_precision_reduction = reduced
+            replaced = timer(lambda: i8.int8_matmul_reference(x, wq, scale),
+                             clean=True)
+            matmul.allow_bf16_reduced_precision_reduction = False
             n_bytes = N * K + 4 * N + 2 * M * K + 2 * M * N
             bms, by = bound_ms(n_bytes, 2.0 * M * N * K)
+            plan = i8.int8_plan(M, N, K, sms)
             line = {"shape": f"M={M} N={N} K={K}", "M": M, "N": N, "K": K,
-                    "rows_per_cta": i8.int8_plan(
-                        N, torch.cuda.get_device_properties(0)
-                        .multi_processor_count),
+                    "instantiation": "wide" if plan.wide else "decode",
+                    "x_rows": plan.rows, "ctas": plan.ctas,
+                    "split": plan.splits,
                     "max_abs_err": err, "max_ulps": ulps,
                     "dropped_slice_ulps": cut_ulps, "ms": ms,
-                    "plain_ms": plain, "bf16_linear_ms": linear,
-                    "bound_ms": bms, "bound_by": by, "library_ms": None,
+                    "plain_ms": plain, "library_ms": linear,
+                    "bf16_linear_ms": linear, "replaced_route_ms": replaced,
+                    "bound_ms": bms, "bound_by": by,
                     "bound_share": bms / ms}
             log("int8_matmul: " + json.dumps(line))
             rows.append(line)
             worst = max(worst, err)
             if ulps > INT8_ULPS:
-                raise AssertionError(f"int8_matmul {line['shape']}: "
-                                     f"{ulps:.2f} ulps from the plain version")
+                failed.append(f"{line['shape']}: {ulps:.2f} ulps from the "
+                              f"plain version")
             if cut_ulps <= INT8_ULPS:
-                raise AssertionError(f"int8_matmul {line['shape']}: the "
-                                     f"check misses a dropped K slice")
-            del x, out, ref, cut
+                failed.append(f"{line['shape']}: the check misses a "
+                              f"dropped K slice")
+            del x, ref
         del wq, scale, wb
         torch.cuda.empty_cache()
-    # shapes the kernel refuses: no quiet fallback on the card
-    x = torch.randn(65, 4096, device="cuda").to(torch.bfloat16)
+    if failed:
+        raise AssertionError(f"int8_matmul: {failed}")
+    # calls the kernel does not take raise: no quiet fallback on the card
+    x = torch.randn(8, 4096, device="cuda").to(torch.bfloat16)
     wq = torch.zeros(1024, 4096, dtype=torch.int8, device="cuda")
     sc = torch.ones(1024, device="cuda")
-    for bad in ((x, wq, sc), (x[:8].float(), wq, sc), (x[:8], wq[:, :100],
-                                                       sc)):
+    bad = {"float32 x": (x.float(), wq, sc),
+           "no rows": (x[:0], wq, sc),
+           "strided x": (torch.randn(8, 8192, device="cuda").to(
+               torch.bfloat16)[:, ::2], wq, sc),
+           "misaligned x": (torch.zeros(8 * 4096 + 8, dtype=torch.bfloat16,
+                                        device="cuda")[1:1 + 8 * 4096]
+                            .view(8, 4096), wq, sc),
+           "N % 8": (x, wq[:1020], sc[:1020]),
+           "K % 16": (x[:, :4088].contiguous(),
+                      wq[:, :4088].contiguous(), sc),
+           "mismatched K": (x, wq[:, :2048].contiguous(), sc),
+           "float32 weight": (x, wq.float(), sc)}
+    for what, args in bad.items():
         try:
-            i8.int8_matmul(*bad)
+            i8.int8_matmul(*args)
         except (ValueError, TypeError):
             continue
-        raise AssertionError("int8_matmul took a call its kernel does not")
+        raise AssertionError(f"int8_matmul took a call its kernel does not "
+                             f"({what})")
     regs = _ptxas("int8_matmul_kernel")
-    log(f"int8_matmul: ptxas {json.dumps(regs)}")
-    # a decode step's projections at serve's batch, summed over one layer
-    # (q, k, v, o, gate, up, down) and the lm_head, against bf16
+    log(f"int8_matmul: ptxas {json.dumps(regs)}; refused {sorted(bad)}")
+    spills = {k: v for k, v in regs.items() if not re.search(
+        r"\b0 bytes spill stores, 0 bytes spill loads", v)}
+    if spills or len(regs) != 6:
+        raise AssertionError(f"int8_matmul: ptxas {regs}")
+    # a decode step's projections at each decode batch and a prefill's at
+    # each wide width, summed over 32 layers (q, k, v, o, gate, up, down)
+    # and the lm_head (decode) from the shapes above
     by = {(r["M"], r["N"], r["K"]): r for r in rows}
-    step = {}
-    for M in INT8_ROWS:
-        layer = [(4096, 4096)] * 2 + [(1024, 4096)] * 2 + \
-            [(14336, 4096)] * 2 + [(4096, 14336)]
-        for key in ("ms", "bf16_linear_ms", "bound_ms"):
-            step.setdefault(M, {})[key] = (
-                32 * sum(by[(M, n, k)][key] for n, k in layer)
-                + by[(M, 128256, 4096)][key])
-    log(f"int8_matmul: a Llama-3-8B decode step's projections and lm_head "
-        f"(ms, summed from the shapes above): {json.dumps(step)}")
+    sums = {}
+    for M in INT8_ROWS + INT8_WIDE_ROWS:
+        shapes = [(n, k, 32) for n, k in INT8_LAYER]
+        if M in INT8_ROWS:
+            shapes.append((128256, 4096, 1))
+        sums[M] = {key: sum(c * by[(M, n, k)][key] for n, k, c in shapes)
+                   for key in ("ms", "bf16_linear_ms", "replaced_route_ms",
+                               "bound_ms")}
+    log(f"int8_matmul: a Llama-3-8B step's projections (ms, summed from "
+        f"the shapes above; the lm_head at decode widths only): "
+        f"{json.dumps(sums)}")
+    summary = [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                  "bf16_linear_ms", "replaced_route_ms",
+                                  "bound_ms", "max_ulps")} for r in rows]
     ctx["int8"] = dict(by[INT8_MAIN], max_abs_err=worst, registers=regs,
-                       decode_step_ms=step, all_shapes=[
-                           {k: r[k] for k in ("shape", "ms", "plain_ms",
-                                              "bf16_linear_ms", "bound_ms",
-                                              "max_ulps")}
-                           for r in rows])
+                       step_ms=sums, all_shapes=summary)
+    ctx["int8_wide"] = dict(by[INT8_WIDE_MAIN], max_abs_err=max(
+        r["max_abs_err"] for r in rows if r["instantiation"] == "wide"))
 
 
 def _int8_model(ctx):
@@ -2780,17 +2831,19 @@ def phase_engine_int8(ctx):
         runs = {}
         for what, prompts, switches, expect, cont, rule in (
                 # bucketed: prefill through B1, decode B2, projections
-                # through the int8 kernel (decode, lm_head) and the wide
-                # route (prefill, chunks)
+                # through B4's decode (decode, lm_head) and wide (prefill,
+                # chunks) instantiations
                 ("engine_int8 (a)", (5, 37, 120, 300, 1300), {},
                  {"flash_attention", "paged_decode_attention",
-                  "int8_matmul"}, ("cont", 32, 512), "tie"),
+                  "int8_matmul", "int8_matmul_wide"}, ("cont", 32, 512),
+                 "tie"),
                 # ragged attention and int8 KV: B3, scored as
                 # engine_ragged's int8 KV run is
                 ("engine_int8 (b)", ENGINE_PROMPTS,
                  {"SHAI_RAGGED_ATTENTION": "1", "SHAI_KV_QUANT": "int8"},
                  {"flash_attention", "ragged_paged_attention",
-                  "int8_matmul"}, ("rcont", 512), "int8")):
+                  "int8_matmul", "int8_matmul_wide"}, ("rcont", 512),
+                 "int8")):
             info, counts, sync = _run_engine(ctx, what, prompts, switches,
                                              expect, cont, rule)
             # every graph of the async and the lock-step run holds 225
@@ -2803,13 +2856,12 @@ def phase_engine_int8(ctx):
                     f"{counts['int8_matmul']} launches for "
                     f"{info['replays']} replays")
             runs[what] = {"int8_launches": counts["int8_matmul"],
-                          "wide_calls": counts["quant_matmul_wide"],
+                          "wide_launches": counts["int8_matmul_wide"],
                           "replays": info["replays"],
                           "per_replay": per, "replay_ms": info["replay_ms"]}
         # (c) the fused step over int8 weights: every fused replay's
-        # 512-token window takes the wide route inside the graph (the
-        # dequantized weight lives in the graph pool); tokens held to the
-        # laddered run's by the tie rule
+        # 512-token window runs B4's wide instantiation inside the graph;
+        # tokens held to the laddered run's by the tie rule
         _run_fused(ctx, "engine_int8 (c)", {"SHAI_RAGGED_ATTENTION": "1"})
         fused = ctx["engine_fused"]["engine_int8 (c)"]
         runs["engine_int8 (c)"] = fused
@@ -3657,7 +3709,7 @@ def phase_serve_int8(ctx):
         "SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "",
         "QUANTIZATION": "int8"},
         _serve_prompts(), {"flash_attention", "paged_decode_attention",
-                           "int8_matmul"},
+                           "int8_matmul", "int8_matmul_wide"},
         "B2 paged_decode_attention",
         then=lambda base, eng: _serve_int8_checks(ctx, base, eng))
     summary = ctx["serve_summary"]
@@ -3697,21 +3749,25 @@ def kernels_line(ctx):
             "prefix_launches": ctx["launches"]["engine_prefix"][name],
             "disagg_launches": ctx["launches"]["serve_disagg"][name],
         })
-    # the W8A16 projection: no Pallas kernel (XLA's fused int8 dot), timed
-    # at serve's decode batch on the gate/up shape, launched in serve_int8
-    row = ctx["int8"]
-    out.append({
-        "name": "int8_matmul", "route": "cuda",
-        "source": f"{cuda_dir}/int8_matmul.cu",
-        "replaces": f"{TPU_PKG}/ops/quant.py:142", "tpu_kernel": None,
-        "launches": ctx["launches"]["serve_int8"]["int8_matmul"],
-        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None,
-        "bf16_linear_ms": row["bf16_linear_ms"], "max_ulps": row["max_ulps"],
-        "shape": row["shape"], "launches_in": "serve_int8",
-        "wide_route_calls": ctx["launches"]["serve_int8"][
-            "quant_matmul_wide"]})
+    # the W8A16 projection (B4): no Pallas kernel (XLA's fused int8 dot);
+    # its decode instantiation timed at serve's decode batch on the gate/up
+    # shape, its wide one at a 512-token prefill call on the same shape,
+    # both launched in serve_int8; the library time is bf16 F.linear on the
+    # unquantized weight (the projection int8 replaces)
+    for name, key in (("int8_matmul", "int8"), ("int8_matmul_wide",
+                                                  "int8_wide")):
+        row = ctx[key]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"{cuda_dir}/int8_matmul.cu",
+            "replaces": f"{TPU_PKG}/ops/quant.py:142", "tpu_kernel": None,
+            "launches": ctx["launches"]["serve_int8"][name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library": "bf16 F.linear", "max_ulps": row["max_ulps"],
+            "replaced_route_ms": row["replaced_route_ms"],
+            "shape": row["shape"], "launches_in": "serve_int8"})
     # B3's fused launches: the mixed-row launch timed in the ragged phase,
     # and its launches in serve_fused (every fused and chunk-only replay)
     mixed = ctx["ragged_mixed"]

@@ -1,406 +1,543 @@
-// W8A16 projection for Hopper: bf16 activations times int8 weights with a
-// per-output-channel f32 scale, for the decode-width calls of the serving
-// path (every projection of a decode step and the lm_head on sampled rows).
+// W8A16 projection for Hopper (kernel B4): bf16 activations times int8
+// weights with a per-output-channel f32 scale, at every width of the
+// serving path: the decode instantiation (M <= 64 rows: every projection
+// of a decode step, the lm_head on sampled rows) and the wide one (M > 64:
+// prefill, continuation chunks, the fused step's window).
 //
 // Replaces: no Pallas kernel. The JAX package leaves the int8 product to
 // XLA (scalable_hw_agnostic_inference_tpu/ops/quant.py quant_matmul, :142:
 // "(x @ kernel_q.astype(bf16)) * scale.astype(bf16)"), which loads the
-// int8 tiles from device memory and converts them in registers. On the
-// card that fusion has to be written by hand: the plain PyTorch expression
-// writes a dequantized bf16 copy of every weight and reads it back on every
-// call, 5 bytes per weight against bf16's 2, so int8 would make decode
-// slower than bf16.
+// int8 tiles from device memory and converts them in registers, at every
+// width. On the card that fusion is written by hand: the plain PyTorch
+// expression writes a dequantized bf16 copy of every weight and reads it
+// back on every call, 5 bytes per weight against bf16's 2.
 //
 // Contract: x [M, K] bf16 contiguous, wq [N, K] int8 contiguous (the
 //   nn.Linear layout, [out, in]), scale [N] f32 -> y [M, N] bf16 with
 //   y[m, n] = bf16(bf16(sum_k x[m, k] * wq[n, k]) * bf16(scale[n])):
 //   the sum in fp32, rounded to bf16, then multiplied by the bf16-rounded
-//   scale and rounded again (the reference's order). 1 <= M <= 64,
-//   N % 8 == 0, K % 64 == 0.
+//   scale and rounded again (the reference's order). M >= 1, N % 8 == 0,
+//   K % 16 == 0 (the tensor maps' row strides); x, wq 16-byte aligned.
 //
-// What bounds it on the H100: at M <= 64 every weight byte feeds at most
-//   64 multiply-adds, far under the ~295 operations per byte where the
-//   tensor cores would bound it, so the N K bytes of int8 weights over the
-//   3.35 TB/s of device memory do (Llama-3-8B's decode step: 7.5 GB of
-//   projections and lm_head, 2.24 ms, against 4.48 ms in bf16).
+// What bounds it on the H100: at M <= 64 each weight byte feeds at most 64
+//   multiply-adds, far under the card's ~295 operations per byte, so the
+//   N K weight bytes over 3.35 TB/s do (an SM has to take in some 25 GB/s).
+//   From about 300 rows up the tensor cores do (2 M N K at 989 TFLOP/s).
 //
-// Design (simple first; no wgmma, no TMA):
-//   - each weight byte is read from device memory exactly once and
-//     converted to bf16 in registers (exact: every int8 is a bf16); no
-//     dequantized copy is ever written;
-//   - products on tensor cores with mma.sync m16n8k16 (bf16 in, fp32
-//     accumulate). The [N, K] row-major weight is already the "col" B
-//     operand. A thread's 16-byte read holds 16 consecutive k of one
-//     output row; the k order inside each 64-wide chunk is permuted (the
-//     same permutation for A and B, which a sum does not see) so that the
-//     four 32-bit words of that read are exactly the thread's B fragments
-//     of the chunk's four k16 steps, and its A fragments are 32 contiguous
-//     bytes of each x row it holds;
-//   - a decode call is a stream of bytes with a short latency budget (at
-//     M = 8 the gate projection is 17.5 us of device-memory time), so the
-//     design keeps as many bytes in flight as an SM holds: K runs in
-//     stages, each stage's weight tile [R, KS] int8 and x slice [M, KS]
-//     bf16 copied by cp.async into a ring of 3 stage buffers, two stages
-//     in flight while one is computed, one __syncthreads a stage; two
-//     CTAs an SM up to M = 32, so one computes while the other waits. KS
-//     is picked per shape so that a stage holds about 16 KB of weights
-//     (256 k at 64 rows, 2048 at 8) within the shared-memory budget (a
-//     4-deep ring and one CTA of an 8-deep ring measured slower: a CTA's
-//     conversion and products do not overlap its own barrier waits);
-//   - x leaves L2 once per CTA and stage; rows past M are zeros (with M <=
-//     8 only the 8 live rows are staged and an m16 tile's upper half is
-//     skipped);
-//   - a CTA of 8 warps owns R = 8 * WN output rows: WN warps side by side
-//     in n (one n8 tile each), WK = 8 / WN warps taking the 64-wide chunks
-//     round-robin. The host picks R per shape (ops/cuda/int8_matmul.py
-//     int8_plan): N = 1024 (k, v) runs 128 CTAs of 8 rows, N = 4096 (q, o,
-//     down) 256 CTAs of 16, N = 14336 (gate, up) 224 CTAs of 64;
-//   - shared-memory rows are padded by 16 bytes, so the 16-byte fragment
-//     reads of a warp's eight rows hit eight different bank groups;
-//   - the WK partial sums of a tile are added through shared memory in a
-//     fixed order, so the result is deterministic (a CUDA graph replay is
-//     bit-equal to an eager call); no split-K across CTAs, no atomics;
+// Design (one source, one kernel, int8_matmul_kernel<NX, RW>: NX x rows, 8,
+// 16, 32 or 64 for decode and 128 for wide; RW 64-row weight tiles a
+// consumer warpgroup, 1, or 2 for wide calls with a tile for every SM):
+//   - the product is computed transposed, y^T = Wq x^T: a 64-row weight
+//     tile is wgmma's A operand, taken from registers, and x is its B
+//     operand, K-major in shared memory, with wgmma's N = NX;
+//   - a producer warpgroup (its registers given to the consumers by
+//     setmaxnreg): one thread issues TMA loads of 128 k x (128 RW) rows of
+//     int8 weights (128-byte swizzled) and the matching [NX, 128] x slice
+//     (two boxes of 64 bf16) into a ring of mbarrier-guarded stages, 4
+//     deep (3 for 256-row wide tiles); more stages measured slower at
+//     decode widths. The TMA's zero fill gives the x rows past M and any
+//     ragged N or K edge, with no masking code;
+//   - two consumer warpgroups: each thread reads its A fragment of a k16
+//     step (rows r and r + 8, k 2q, 2q + 1, 2q + 8, 2q + 9) as four 16-bit
+//     shared-memory reads, conflict-free under the swizzle, and converts
+//     it to bf16 exactly, 4 instructions a pair (spread the two bytes into
+//     16-bit lanes; bf16 128 + (s & 127) less 128 or 256 by s's sign, one
+//     bf16x2 fma); then issues the group's wgmmas and waits for them. The
+//     conversion overlaps the copies in flight and the other warpgroup's
+//     products, not barrier waits;
+//   - a persistent CTA per SM walks its units (Walk below; the host plans
+//     the same, ops/cuda/int8_matmul.py int8_plan): whole output tiles
+//     round-robin for the full waves, so a wave's tiles share their weight
+//     and x rows in L2, then a contiguous run of the (tile, k tile)
+//     elements of the tiles left over, so every SM's load is within one k
+//     tile of every other's and there is no ragged last wave;
+//   - a tile whose k tiles fall to several CTAs is split: each piece writes
+//     its fp32 partial to scratch (slot 2c + 1 for the piece that starts
+//     the tile, 2c for the others: a CTA holds at most two pieces) and
+//     bumps the tile's counter (an arrival count, never data); the last to
+//     arrive adds the pieces in the order of their k ranges, a pure
+//     function of the shape and the CTA count, so a CUDA graph replay is
+//     bit-equal to an eager call, writes y and resets the counter to 0;
 //   - the epilogue rounds, scales and rounds as the reference does and
-//     writes bf16 pairs.
+//     writes bf16;
+//   - the weight's tensor map is encoded once per (pointer, N, K, box rows)
+//     and cached (a map is a pure function of those and the kernel's fixed
+//     box width and swizzle, so the cache cannot go stale); x's is encoded
+//     per call.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
+#include "hopper_sm90.cuh"
+
+using namespace shai_sm90;
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int CHUNK = 64;      // k of one 16-byte weight read per row
-constexpr int STAGES = 3;      // the cp.async ring
-constexpr int WPAD = 16;       // bytes of pad per staged weight row
-constexpr int XPAD = 8;        // bf16 of pad per staged x row
-constexpr int STAGE_W_BYTES = 16384;   // weight bytes a stage aims for
-constexpr int SMEM_TWO_CTAS = 113 * 1024;   // budget for two CTAs an SM
-constexpr int SMEM_ONE_CTA = 227 * 1024;
+constexpr int WG = 128;                 // threads in a warpgroup
+constexpr int CW = 2;                   // consumer warpgroups
+constexpr int THREADS = (CW + 1) * WG;  // + one producer warpgroup
+constexpr int TILE_K = 128;             // k a stage: one swizzled row
+constexpr int SMEM_LIMIT = 232448;      // an H100 block's dynamic max
+constexpr int MAX_STAGES = 4;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Four int8 (one 32-bit word, k ascending from the low byte) -> two bf16
-// pairs, exactly: each byte biased to unsigned is placed in the mantissa
-// of 2^23 and 2^23 + 128 taken off in fp32, which leaves the integer with
-// its low 16 bits zero, so its bf16 is its top half (a byte permute, not
-// a conversion: 6 permutes and 4 adds per word).
-__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo,
-                                             uint32_t& hi) {
-  const uint32_t u = w ^ 0x80808080u;
-  const float magic = 8388736.0f;   // 2^23 + 128
-  const float f0 =
-      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - magic;
-  const float f1 =
-      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - magic;
-  const float f2 =
-      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - magic;
-  const float f3 =
-      __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - magic;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
-}
-
-// 16 bf16 of one staged x row as 8 words.
-__device__ __forceinline__ void load_xs(uint32_t (&r)[8],
-                                       const __nv_bfloat16* p) {
-  const uint4 a = *reinterpret_cast<const uint4*>(p);
-  const uint4 b = *reinterpret_cast<const uint4*>(p + 8);
-  r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
-  r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
-}
-
-// One 64-wide chunk of k for every m16 tile: the thread's weight word s
-// (k = c*64 + q*16 + 4s .. + 3 of output row n0 + g) is its B fragment of
-// step s, and x[row, c*64 + q*16 + 4s .. + 3] its A fragment. xs points at
-// the staged x row g, column (chunk in the stage)*64 + q*16.
-template <int MT>
-__device__ __forceinline__ void chunk_mma(float (&acc)[MT][4], uint4 w,
-                                          const __nv_bfloat16* xs, int xld,
-                                          int M) {
-  uint32_t b[4][2];
-  i8x4_to_bf16(w.x, b[0][0], b[0][1]);
-  i8x4_to_bf16(w.y, b[1][0], b[1][1]);
-  i8x4_to_bf16(w.z, b[2][0], b[2][1]);
-  i8x4_to_bf16(w.w, b[3][0], b[3][1]);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    uint32_t xa[8], xb[8];
-    load_xs(xa, xs + mt * 16 * xld);
-    if (mt * 16 + 8 < M) {
-      load_xs(xb, xs + (mt * 16 + 8) * xld);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) xb[i] = 0u;
-    }
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      mma_bf16(acc[mt], xa[2 * s], xb[2 * s], xa[2 * s + 1],
-               xb[2 * s + 1], b[s][0], b[s][1]);
-    }
-  }
-}
-
-// The shape of one call's stages (the host computes the same): k per
-// stage (a power of two), staged x rows, the row strides and the bytes of
-// one stage.
-struct Plan {
-  int ks, ks_log2, xrows, wld, xld, w_bytes, stage_bytes;
+// NX x rows (wgmma's N); each consumer warpgroup owns RW tiles of 64 weight
+// rows: one in the decode instantiations, two in the wide one (its x tile
+// then feeds 256 weight rows, so the x bytes it takes in from L2 a
+// multiply-add are two thirds of what 128 rows take).
+template <int NX, int RW>
+struct Cfg {
+  static constexpr int TILE_N = CW * RW * 64;    // weight rows a tile
+  static constexpr uint32_t W_BYTES = TILE_N * TILE_K;
+  static constexpr uint32_t X_CHUNK = NX * 128;  // [NX, 64] bf16, swizzled
+  static constexpr uint32_t STAGE = W_BYTES + 2 * X_CHUNK;
+  // k16 steps a wgmma group: the wide instantiation converts and issues
+  // half a stage at a time, so its A fragments and its two 64 x 128
+  // accumulators fit a thread's registers
+  static constexpr int GROUP = RW > 1 ? 4 : 8;
+  // barriers (full and empty a stage), CW flags, 1024 bytes of slack to
+  // align the base to a swizzle atom
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - 256) / STAGE;
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  static constexpr size_t bar_off = size_t(STAGES) * STAGE;
+  static constexpr size_t bytes = bar_off + 16 * STAGES + 4 * CW + 1024;
+  static_assert(bytes <= SMEM_LIMIT, "stage ring over the shared memory");
 };
 
-__host__ __device__ inline Plan make_plan(int M, int K, int rows, int ks) {
-  Plan p;
-  p.ks = ks;
-  p.ks_log2 = 0;
-  while ((1 << p.ks_log2) < ks) ++p.ks_log2;
-  p.xrows = M <= 8 ? 8 : ((M + 15) / 16) * 16;
-  p.wld = ks + WPAD;
-  p.xld = ks + XPAD;
-  p.w_bytes = rows * p.wld;
-  p.stage_bytes = p.w_bytes + p.xrows * p.xld * 2;
-  return p;
+// Two int8 (the low 16 bits of v, k ascending) -> a bf16 pair, exactly:
+// each byte s in a 16-bit lane; bf16 0x4300 | (s & 127) is 128 + (s & 127)
+// and bf16 0x4300 | (s & 128) is 128 or 256 by s's sign, so their
+// difference is s (one fma, exact: the result is an integer in [-128,
+// 127]).
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t v) {
+  const uint32_t t = __byte_perm(v, 0u, 0x4140);
+  const uint32_t a = (t & 0x007F007Fu) | 0x43004300u;
+  const uint32_t b = (t & 0x00800080u) | 0x43004300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(b), "r"(0xBF80BF80u), "r"(a));
+  return d;
 }
 
-// Copy stage st (k0 = st * ks) of the CTA's weight rows and of x (rows
-// < M, k < K) into its ring slot, as one cp.async group. Piece i of the
-// weight tile is row i / (ks / 16), 16 bytes at column i % (ks / 16): a
-// warp copies whole rows, ks bytes each, contiguous.
-__device__ __forceinline__ void stage_copy(unsigned char* slot,
-                                           const __nv_bfloat16* x,
-                                           const int8_t* wq, int M, int N,
-                                           int K, int row0, int rows,
-                                           const Plan& p, int k0) {
-  const int wsh = p.ks_log2 - 4, xsh = p.ks_log2 - 3;
-  const int live_rows = N - row0 < rows ? N - row0 : rows;
-  for (int i = threadIdx.x; i < live_rows << wsh; i += THREADS) {
-    const int r = i >> wsh, col = (i & ((1 << wsh) - 1)) << 4;
-    if (k0 + col < K) {
-      cp_async16(slot + r * p.wld + col,
-                 wq + static_cast<size_t>(row0 + r) * K + k0 + col);
-    }
-  }
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(slot + p.w_bytes);
-  for (int i = threadIdx.x; i < M << xsh; i += THREADS) {
-    const int r = i >> xsh, col = (i & ((1 << xsh) - 1)) << 3;
-    if (k0 + col < K) {
-      cp_async16(xs + r * p.xld + col,
-                 x + static_cast<size_t>(r) * K + k0 + col);
-    }
-  }
+__device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
 }
 
-// Up to two m16 tiles two CTAs share an SM (at most 113 KB of ring each,
-// 128 registers a thread); three and four tiles take one.
-template <int MT>
-__global__ void __launch_bounds__(THREADS, MT <= 2 ? 2 : 1)
-    int8_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                       const int8_t* __restrict__ wq,
-                       const float* __restrict__ scale,
-                       __nv_bfloat16* __restrict__ y, int M, int N, int K,
-                       int WN, int ks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int rows = 8 * WN;
-  const Plan p = make_plan(M, K, rows, ks);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wn = warp % WN, wk = warp / WN, WK = WARPS / WN;
-  const int g = lane >> 2, q = lane & 3;
-  const int row0 = blockIdx.x * rows;
-  const int n0 = row0 + wn * 8;
-  const bool live = n0 < N;
-  const int chunks = K / CHUNK;
-  const int stage_chunks = ks / CHUNK;
-  const int stages = (K + ks - 1) / ks;
+// atomicAdd with acquire-release order at device scope.
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
 
-  // x rows M .. xrows of every slot stay zero (cp.async writes rows < M)
-  for (int st = 0; st < STAGES; ++st) {
-    __nv_bfloat16* xs =
-        reinterpret_cast<__nv_bfloat16*>(smem + st * p.stage_bytes +
-                                         p.w_bytes);
-    for (int i = threadIdx.x; i < (p.xrows - M) * p.xld; i += THREADS) {
-      xs[M * p.xld + i] = __float2bfloat16_rn(0.0f);
-    }
+// The CTA whose run holds element e: the largest c with c E / G <= e.
+__device__ __forceinline__ int cta_of(int e, int E, int G) {
+  return ((e + 1) * G - 1) / E;
+}
+
+// A CTA's walk over the output tiles (numbered n tile first, then m tile):
+// whole tiles round-robin, tile u G + c at step u, for the full waves; then
+// its run [c Er / G, (c + 1) Er / G) of the Er elements (tile, k tile) of
+// the R < G tiles left, numbered from tile full G. Each step yields a unit:
+// a tile and a k range of it. (The host keeps tiles times k tiles under
+// 2^31, so Er G fits an int.)
+struct Walk {
+  int full, Er, r_hi, e, u;
+
+  __device__ Walk(int tiles, int k_tiles, int G, int c) {
+    full = tiles / G;
+    Er = (tiles - full * G) * k_tiles;
+    e = c * Er / G;
+    r_hi = (c + 1) * Er / G;
+    u = 0;
   }
 
-  float acc[MT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[mt][i] = 0.0f;
+  // The next unit of CTA c of G: its tile, k range and remainder tile index
+  // (-1 for a whole tile of a full wave); false past the last.
+  __device__ bool next(int G, int c, int k_tiles, int& tile, int& k0,
+                       int& k1, int& rt) {
+    if (u < full) {
+      tile = u * G + c;
+      k0 = 0;
+      k1 = k_tiles;
+      rt = -1;
+      ++u;
+      return true;
+    }
+    if (e >= r_hi) return false;
+    rt = e / k_tiles;
+    k0 = e - rt * k_tiles;
+    k1 = min(k_tiles, r_hi - rt * k_tiles);
+    tile = full * G + rt;
+    e = rt * k_tiles + k1;
+    return true;
   }
+};
 
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < stages) {
-      stage_copy(smem + st * p.stage_bytes, x, wq, M, N, K, row0, rows, p,
-                 st * ks);
-    }
-    cp_async_commit();
-  }
-  for (int st = 0; st < stages; ++st) {
-    cp_async_wait<STAGES - 2>();   // stage st has landed
-    __syncthreads();               // and every warp is done with st - 1
-    const int next = st + STAGES - 1;
-    if (next < stages) {
-      stage_copy(smem + (next % STAGES) * p.stage_bytes, x, wq, M, N, K,
-                 row0, rows, p, next * ks);
-    }
-    cp_async_commit();
-    if (live) {
-      const unsigned char* slot = smem + (st % STAGES) * p.stage_bytes;
-      const unsigned char* ws = slot + (wn * 8 + g) * p.wld + q * 16;
-      const __nv_bfloat16* xs =
-          reinterpret_cast<const __nv_bfloat16*>(slot + p.w_bytes) +
-          g * p.xld + q * 16;
-      // this warp's chunks of the stage: global chunk index = wk mod WK
-      const int c0 = st * stage_chunks;
-      int j = ((wk - c0) % WK + WK) % WK;
-#pragma unroll 2
-      for (; j < stage_chunks && c0 + j < chunks; j += WK) {
-        const uint4 w = *reinterpret_cast<const uint4*>(ws + j * CHUNK);
-        chunk_mma<MT>(acc, w, xs + j * CHUNK, p.xld, M);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();   // the ring is free: the reduction reuses it
+// The CTA's index and count, read afresh at each use: a copy held in a
+// register across the main loop is what the wide instantiation would spill.
+__device__ __forceinline__ int cta_index() {
+  int v;
+  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(v));
+  return v;
+}
+__device__ __forceinline__ int cta_count() {
+  int v;
+  asm volatile("mov.u32 %0, %%nctaid.x;\n" : "=r"(v));
+  return v;
+}
 
-  // the WK partial tiles of each n8 tile, added in a fixed order
-  if (WK > 1) {
-    float* red = reinterpret_cast<float*>(smem);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        red[((warp * MT + mt) * 4 + i) * 32 + lane] = acc[mt][i];
-      }
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <int NX, int RW>
+__global__ void __launch_bounds__(THREADS, 1)
+int8_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
+                   const __grid_constant__ CUtensorMap tm_x,
+                   const float* __restrict__ scale,
+                   __nv_bfloat16* __restrict__ y, float* __restrict__ part,
+                   int* __restrict__ counters, int M, int N, int m_tiles,
+                   int n_tiles, int k_tiles) {
+  using C = Cfg<NX, RW>;
+  constexpr int STAGES = C::STAGES;
+  constexpr int TILE_N = C::TILE_N;
+  constexpr int ACC = NX / 2;   // accumulator floats a thread and row tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::bar_off);
+  uint64_t* empty = full + STAGES;
+  volatile int* last = reinterpret_cast<volatile int*>(empty + STAGES);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CW * 4);   // one arrival a warp
     }
-    __syncthreads();
-    if (wk != 0) return;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float s = acc[mt][i];
-        for (int j = 1; j < WK; ++j) {
-          s += red[(((wn + j * WN) * MT + mt) * 4 + i) * 32 + lane];
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == CW) {
+    // producer warpgroup: it gives its registers up to the consumers, and
+    // one thread starts every TMA load of the CTA's run
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == CW * WG) {
+      prefetch_tmap(&tm_w);
+      prefetch_tmap(&tm_x);
+      int it = 0;
+      Walk walk(m_tiles * n_tiles, k_tiles, cta_count(), cta_index());
+      int tile, rt, k0, k1;
+      while (walk.next(cta_count(), cta_index(), k_tiles, tile, k0, k1,
+                       rt)) {
+        const int nt = tile / m_tiles;
+        const int mt = tile - nt * m_tiles;
+        for (int kt = k0; kt < k1; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], C::STAGE);
+          unsigned char* st = smem + size_t(s) * C::STAGE;
+          tma_load_2d(st, &tm_w, &full[s], kt * TILE_K, nt * TILE_N);
+          tma_load_2d(st + C::W_BYTES, &tm_x, &full[s], kt * TILE_K,
+                      mt * NX);
+          tma_load_2d(st + C::W_BYTES + C::X_CHUNK, &tm_x, &full[s],
+                      kt * TILE_K + 64, mt * NX);
         }
-        acc[mt][i] = s;
       }
     }
-  }
-  if (!live) return;
+  } else {
+    // consumer warpgroup wg: weight rows wg * 64 RW .. + 64 RW - 1 of the
+    // tile, in RW row tiles; this thread's A rows of row tile t are
+    // wrow + 64 t and + 8, its accumulator columns (x rows) 8 i + 2 q + {0, 1}
+    setmaxnreg_inc<232>();
+    const int tid = threadIdx.x % WG;
+    const int lane = tid % 32;
+    const int g8 = lane >> 2, q = lane & 3;
+    const int wrow = wg * 64 * RW + (tid / 32) * 16 + g8;
+    int it = 0;
+    Walk walk(m_tiles * n_tiles, k_tiles, cta_count(), cta_index());
+    int tile, rt, k0, k1;
+    while (walk.next(cta_count(), cta_index(), k_tiles, tile, k0, k1,
+                       rt)) {
+      const int nt = tile / m_tiles;
+      const int mt = tile - nt * m_tiles;
 
-  // y = bf16(bf16(acc) * bf16(scale)), as (x @ Wq^T in bf16) * scale.bf16
-  const int n = n0 + 2 * q;
-  const float s0 = __bfloat162float(__float2bfloat16_rn(scale[n]));
-  const float s1 = __bfloat162float(__float2bfloat16_rn(scale[n + 1]));
+      float acc[RW][ACC];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+      for (int t = 0; t < RW; ++t) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = mt * 16 + g + 8 * h;
-      if (row >= M) continue;
-      const float v0 =
-          __bfloat162float(__float2bfloat16_rn(acc[mt][2 * h])) * s0;
-      const float v1 =
-          __bfloat162float(__float2bfloat16_rn(acc[mt][2 * h + 1])) * s1;
-      *reinterpret_cast<uint32_t*>(y + static_cast<size_t>(row) * N + n) =
-          pack_bf16(v0, v1);
+        for (int i = 0; i < ACC; ++i) acc[t][i] = 0.f;
+      }
+      for (int kt = k0; kt < k1; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* st = smem + size_t(s) * C::STAGE;
+        const uint64_t dx = desc_sw128(st + C::W_BYTES, 16);
+        // row wrow's k16 step ks is the 16-byte chunk ks ^ (wrow % 8) of its
+        // 128-byte row (TMA's 128-byte swizzle); row wrow + 8 is 1024 on
+        const uint32_t ws = smem_u32(st + wrow * TILE_K + 2 * q);
+#pragma unroll
+        for (int g = 0; g < 8; g += C::GROUP) {
+          uint32_t a[RW][C::GROUP][4];
+#pragma unroll
+          for (int t = 0; t < RW; ++t) {
+#pragma unroll
+            for (int j = 0; j < C::GROUP; ++j) {
+              const uint32_t w = ws + t * 64 * TILE_K + (((g + j) ^ g8) << 4);
+              a[t][j][0] = i8x2_to_bf16x2(lds_u16(w));
+              a[t][j][1] = i8x2_to_bf16x2(lds_u16(w + 1024));
+              a[t][j][2] = i8x2_to_bf16x2(lds_u16(w + 8));
+              a[t][j][3] = i8x2_to_bf16x2(lds_u16(w + 1024 + 8));
+            }
+          }
+#pragma unroll
+          for (int t = 0; t < RW; ++t) fence_regs(acc[t]);
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < C::GROUP; ++j) {
+            // k16 step ks of x: 32 bytes on in a 64-wide chunk (the
+            // descriptor's address field counts 16-byte units)
+            const int ks = g + j;
+            const uint64_t db =
+                dx + ((ks / 4) * C::X_CHUNK + (ks % 4) * 32) / 16;
+#pragma unroll
+            for (int t = 0; t < RW; ++t) RsK<NX>::mma(acc[t], a[t][j], db, 1);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+#pragma unroll
+          for (int t = 0; t < RW; ++t) fence_regs(acc[t]);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+
+      if (k0 > 0 || k1 < k_tiles) {
+        // a split tile: this piece's partial to its slot, then the last
+        // piece to arrive adds all of them in k order
+        const int first = rt * k_tiles;
+        const int c = cta_index(), G = cta_count();
+        const int c_lo = cta_of(first, walk.Er, G);
+        const int c_hi = cta_of(first + k_tiles - 1, walk.Er, G);
+        constexpr int PER = RW * ACC;          // partial floats a thread
+        constexpr int SLOT = CW * WG * PER;
+        float* mine = part + size_t(k0 == 0 ? 2 * c + 1 : 2 * c) * SLOT +
+                      wg * WG * PER + tid;
+#pragma unroll
+        for (int t = 0; t < RW; ++t) {
+#pragma unroll
+          for (int i = 0; i < ACC; ++i) {
+            __stcg(mine + (t * ACC + i) * WG, acc[t][i]);
+          }
+        }
+        // the warpgroup's stores, then one acquire-release arrival at
+        // device scope: the last piece's threads read every other piece's
+        // stores after it (the barrier carries the order to them)
+        int* counter = &counters[CW * c_lo + wg];
+        bar_sync(1 + wg, WG);
+        if (tid == 0) last[wg] = atom_add_acq_rel(counter, 1) == c_hi - c_lo;
+        bar_sync(1 + wg, WG);
+        if (!last[wg]) continue;
+        // the pieces in k order: a pass loads BATCH of a thread's values
+        // from each of NB pieces at once (predicated, all in flight), then
+        // adds them in order; INFLIGHT values a pass (16 beside 128
+        // accumulators: more would spill them)
+        constexpr int INFLIGHT = PER >= 128 ? 16 : PER >= 16 ? 64 : 128;
+        constexpr int BATCH = PER < INFLIGHT ? PER : INFLIGHT;
+        constexpr int NB = INFLIGHT / BATCH;
+#pragma unroll
+        for (int b = 0; b < PER; b += BATCH) {
+          for (int c0 = c_lo; c0 <= c_hi; c0 += NB) {
+            float v[NB][BATCH];
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+              const int cc = c0 + j;
+              if (cc > c_hi) break;
+              const float* p =
+                  part + size_t(cc == c_lo ? 2 * cc + 1 : 2 * cc) * SLOT +
+                  (wg * WG * PER + tid) + b * WG;
+#pragma unroll
+              for (int i = 0; i < BATCH; ++i) v[j][i] = __ldcg(p + i * WG);
+            }
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+              const int cc = c0 + j;
+              if (cc > c_hi) break;
+#pragma unroll
+              for (int i = 0; i < BATCH; ++i) {
+                float& a = acc[(b + i) / ACC][(b + i) % ACC];
+                a = cc == c_lo ? v[j][i] : a + v[j][i];
+              }
+            }
+          }
+        }
+        if (tid == 0) *counter = 0;
+      }
+
+      // y[m, n] = bf16(bf16(acc) * bf16(scale[n])) for this thread's weight
+      // rows n (two a row tile) and its x rows m
+#pragma unroll
+      for (int t = 0; t < RW; ++t) {
+        const int n_a = nt * TILE_N + wrow + 64 * t;
+        const int n_b = n_a + 8;
+        const float s_a = n_a < N ? round_bf16(scale[n_a]) : 0.f;
+        const float s_b = n_b < N ? round_bf16(scale[n_b]) : 0.f;
+#pragma unroll
+        for (int i = 0; i < NX / 8; ++i) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = mt * NX + 8 * i + 2 * q + h;
+            if (m >= M) continue;
+            __nv_bfloat16* row = y + static_cast<size_t>(m) * N;
+            if (n_a < N) {
+              row[n_a] =
+                  __float2bfloat16_rn(round_bf16(acc[t][4 * i + h]) * s_a);
+            }
+            if (n_b < N) {
+              row[n_b] =
+                  __float2bfloat16_rn(round_bf16(acc[t][4 * i + 2 + h]) * s_b);
+            }
+          }
+        }
+      }
     }
   }
 }
 
-template <int MT>
-cudaError_t launch(const void* x, const void* wq, const void* scale,
-                   void* y, int M, int N, int K, int wn,
-                   cudaStream_t stream) {
-  const int rows = 8 * wn;
-  const int budget = MT <= 2 ? SMEM_TWO_CTAS : SMEM_ONE_CTA;
-  // k per stage: a power of two from the chunk up, about STAGE_W_BYTES
-  // of weights, no more than K needs, and the ring within the budget
-  int ks = CHUNK;
-  while (ks * 2 * rows <= STAGE_W_BYTES && ks < K) ks *= 2;
-  while (ks > CHUNK &&
-         STAGES * make_plan(M, K, rows, ks).stage_bytes > budget) {
-    ks /= 2;
+// A 2-D map over a contiguous row-major [outer, inner] tensor with a box of
+// [box_outer, box_inner] elements, 128-byte swizzled; out-of-range elements
+// of a box read as zero.
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+               const void* base, int inner, int outer, int box_inner,
+               int box_outer) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(inner), cuuint64_t(outer)};
+  const cuuint64_t strides[1] = {cuuint64_t(inner) * elem_bytes};
+  const cuuint32_t box[2] = {cuuint32_t(box_inner), cuuint32_t(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The weight's map, [N, K] int8 in boxes of [rows, TILE_K], from a
+// direct-mapped cache keyed on (pointer, N, K, rows).
+struct WeightMap {
+  const void* ptr;
+  int n, k, rows;
+  CUtensorMap map;
+};
+constexpr int MAP_SLOTS = 1024;
+WeightMap g_maps[MAP_SLOTS];
+std::mutex g_maps_mu;
+
+bool weight_map(const void* wq, int N, int K, int rows, CUtensorMap* out) {
+  uint64_t h = reinterpret_cast<uintptr_t>(wq) ^
+               (uint64_t(uint32_t(N)) << 32) ^ (uint64_t(rows) << 20) ^
+               uint32_t(K);
+  h *= 0x9E3779B97F4A7C15ull;
+  WeightMap& slot = g_maps[h >> 54];   // the top 10 bits
+  std::lock_guard<std::mutex> lock(g_maps_mu);
+  if (slot.ptr != wq || slot.n != N || slot.k != K || slot.rows != rows) {
+    if (!encode_2d(&slot.map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wq, K, N,
+                   TILE_K, rows)) {
+      slot.ptr = nullptr;
+      return false;
+    }
+    slot.ptr = wq;
+    slot.n = N;
+    slot.k = K;
+    slot.rows = rows;
   }
-  const int reduction = WARPS * MT * 4 * 32 * 4;
-  int bytes = STAGES * make_plan(M, K, rows, ks).stage_bytes;
-  bytes = bytes < reduction ? reduction : bytes;
-  if (bytes > SMEM_ONE_CTA) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_matmul_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + rows - 1) / rows);
-  int8_matmul_kernel<MT><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(wq),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), M,
-      N, K, wn, ks);
+  *out = slot.map;
+  return true;
+}
+
+template <int NX, int RW>
+cudaError_t launch(const void* x, const void* wq, const void* scale,
+                   void* y, void* part, void* counters, int M, int N, int K,
+                   int ctas, int device, cudaStream_t stream) {
+  using C = Cfg<NX, RW>;
+  CUtensorMap tm_w, tm_x;
+  if (!weight_map(wq, N, K, C::TILE_N, &tm_w) ||
+      !encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M, 64,
+                 NX)) {
+    return cudaErrorInvalidValue;
+  }
+  const int m_tiles = (M + NX - 1) / NX;
+  const int n_tiles = (N + C::TILE_N - 1) / C::TILE_N;
+  const int k_tiles = (K + TILE_K - 1) / TILE_K;
+  const long long E = static_cast<long long>(m_tiles) * n_tiles * k_tiles;
+  if (ctas < 1 || ctas > E || ctas > 65535 || E * ctas >= (1ll << 31)) {
+    return cudaErrorInvalidValue;
+  }
+  static unsigned attributed = 0;   // devices whose attribute is set
+  if (device < 32 && !(attributed & (1u << device))) {
+    cudaError_t err = cudaFuncSetAttribute(
+        int8_matmul_kernel<NX, RW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(C::bytes));
+    if (err != cudaSuccess) return err;
+    attributed |= 1u << device;
+  }
+  int8_matmul_kernel<NX, RW><<<ctas, THREADS, C::bytes, stream>>>(
+      tm_w, tm_x, static_cast<const float*>(scale),
+      static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
+      static_cast<int*>(counters), M, N, m_tiles, n_tiles, k_tiles);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t as int: 0 when the launch was accepted. rows_per_cta
-// is 8, 16, 32 or 64 (the host's plan, ops/cuda/int8_matmul.py).
+// Returns a cudaError_t as int: 0 when the launch was accepted. ctas and
+// row_tiles (64-row weight tiles a consumer warpgroup: 1, or 2 past 64 x
+// rows) are the host plan's (ops/cuda/int8_matmul.py int8_plan); part holds
+// 2 ctas x (tile rows) x NX fp32 when the plan splits a tile (else it may
+// be null), counters 2 ctas int32 zeros, which every launch leaves at zero.
 extern "C" int shai_int8_matmul(const void* x, const void* wq,
-                                const void* scale, void* y, int M, int N,
-                                int K, int rows_per_cta, int device,
+                                const void* scale, void* y, void* part,
+                                void* counters, int M, int N, int K,
+                                int ctas, int row_tiles, int device,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int wn = rows_per_cta / 8;
-  if (M < 1 || M > 64 || N < 8 || N % 8 != 0 || K < CHUNK ||
-      K % CHUNK != 0 || rows_per_cta % 8 != 0 ||
-      (wn != 1 && wn != 2 && wn != 4 && wn != 8)) {
+  if (M < 1 || N < 8 || N % 8 != 0 || K < 16 || K % 16 != 0 ||
+      row_tiles < 1 || row_tiles > (M > 64 ? 2 : 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((M + 15) / 16) {
-    case 1:
-      return static_cast<int>(launch<1>(x, wq, scale, y, M, N, K, wn, st));
-    case 2:
-      return static_cast<int>(launch<2>(x, wq, scale, y, M, N, K, wn, st));
-    case 3:
-      return static_cast<int>(launch<3>(x, wq, scale, y, M, N, K, wn, st));
-    default:
-      return static_cast<int>(launch<4>(x, wq, scale, y, M, N, K, wn, st));
+  if (M <= 8) {
+    err = launch<8, 1>(x, wq, scale, y, part, counters, M, N, K, ctas,
+                       device, st);
+  } else if (M <= 16) {
+    err = launch<16, 1>(x, wq, scale, y, part, counters, M, N, K, ctas,
+                        device, st);
+  } else if (M <= 32) {
+    err = launch<32, 1>(x, wq, scale, y, part, counters, M, N, K, ctas,
+                        device, st);
+  } else if (M <= 64) {
+    err = launch<64, 1>(x, wq, scale, y, part, counters, M, N, K, ctas,
+                        device, st);
+  } else if (row_tiles == 1) {
+    err = launch<128, 1>(x, wq, scale, y, part, counters, M, N, K, ctas,
+                         device, st);
+  } else {
+    err = launch<128, 2>(x, wq, scale, y, part, counters, M, N, K, ctas,
+                         device, st);
   }
+  return static_cast<int>(err);
 }

@@ -61,7 +61,6 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
-from ..ops import quant as _quant
 from ..ops.cuda import flash_attention as _fa
 from ..ops.cuda import int8_matmul as _i8
 from ..ops.cuda import paged_attention as _pa
@@ -75,15 +74,20 @@ OUTPUTS = ("nxt", "pos_next", "top_ids", "top_lp", "tok_lp")
 CHUNK_INPUTS = ("c_ids", "c_ntext", "c_table", "c_start")
 CHUNK_OUTPUT = "c_logits"
 
-#: the counted kernel wrappers a decode step may launch, and the int8
-#: projections' wide route (a fused step's chunk window)
-COUNTED = (_fa.flash_attention, _pa.paged_decode_attention,
-           _rpa.ragged_paged_attention, _i8.int8_matmul,
-           _quant.quant_matmul_wide)
+#: the counted kernel launches a decode step may make: (name, wrapper, the
+#: wrapper's counter); the W8A16 wrapper counts its decode and its wide
+#: instantiation (a fused step's chunk window) apart
+COUNTED = (
+    ("flash_attention", _fa.flash_attention, "launches"),
+    ("paged_decode_attention", _pa.paged_decode_attention, "launches"),
+    ("ragged_paged_attention", _rpa.ragged_paged_attention, "launches"),
+    ("int8_matmul", _i8.int8_matmul, "launches"),
+    ("int8_matmul_wide", _i8.int8_matmul, "wide_launches"),
+)
 
 
 def _launch_counts() -> Tuple[int, ...]:
-    return tuple(fn.launches for fn in COUNTED)
+    return tuple(getattr(fn, attr) for _, fn, attr in COUNTED)
 
 
 class GraphPool:
@@ -265,12 +269,13 @@ class DecodeGraph:
             # capture launched nothing: the counts it added come off here
             # and go back on at every replay
             added = [now - was for now, was in zip(_launch_counts(), before)]
-            for fn, was in zip(COUNTED, before):
-                fn.launches = was
+            for (_, fn, attr), was in zip(COUNTED, before):
+                setattr(fn, attr, was)
         self.capture_seconds = time.perf_counter() - t0
         self._set_outputs(outs)
-        self._counted = tuple((fn, n) for fn, n in zip(COUNTED, added) if n)
-        self.launches = {fn.__name__: n for fn, n in self._counted}
+        self._counted = tuple((entry, n) for entry, n in zip(COUNTED, added)
+                              if n)
+        self.launches = {name: n for (name, _, _), n in self._counted}
         self._ptrs = self._pool_ptrs()
         self._graph = graph
 
@@ -298,6 +303,6 @@ class DecodeGraph:
                 raise RuntimeError(f"decode graph {self.key}: the KV pool "
                                    f"moved since capture")
             self._graph.replay()
-            for fn, n in self._counted:
-                fn.launches += n
+            for (_, fn, attr), n in self._counted:
+                setattr(fn, attr, getattr(fn, attr) + n)
         self.replays += 1

@@ -54,8 +54,9 @@ ENTRY_POINTS = {
     # quantized, scale, device, stream (B3 over row groups)
     "shai_ragged_paged_attention_groups": [_P] * 12 + [_I] * 11
     + [_F, _I, _P],
-    # x, wq, scale, y, M, N, K, rows_per_cta, device, stream (W8A16)
-    "shai_int8_matmul": [_P] * 4 + [_I] * 5 + [_P],
+    # x, wq, scale, y, part, counters, M, N, K, ctas, row_tiles, device,
+    # stream (W8A16, decode and wide)
+    "shai_int8_matmul": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -16,14 +16,12 @@ over ``dim=1`` and its scale is f32 ``[out]``.
 An int8 projection is ``(x @ Wq^T in x's dtype) * scale.to(x.dtype)``, as
 the reference's: the product is rounded to ``x``'s dtype first, then
 multiplied by the rounded scale. The reference leaves it to XLA, which
-converts the int8 tiles in registers; on the card a plain
+converts the int8 tiles in registers at every width; on the card a plain
 ``x @ Wq.to(bf16)^T`` would write and re-read a bf16 copy of every weight
-on every step (5 bytes per weight against bf16's 2). So a call of at most
-:data:`KERNEL_MAX_ROWS` rows, every decode step and every ``lm_head`` on
-sampled rows, goes to the hand-written W8A16 kernel
-(``ops/cuda/int8_matmul.py``); a wider one (a prefill or a chunk) takes
-the reference's expression with the weight cast to ``x``'s dtype, a large
-product the JAX package leaves to XLA (:func:`quant_matmul_wide`).
+on every call (5 bytes per weight against bf16's 2). So every int8 call
+goes to the hand-written W8A16 kernel (``ops/cuda/int8_matmul.py``), which
+takes decode widths and wide ones (prefill, chunks, fused windows) in two
+instantiations of one source.
 """
 
 from __future__ import annotations
@@ -33,19 +31,13 @@ from typing import Dict, Set, Tuple
 
 import torch
 
-from .cuda.int8_matmul import MAX_ROWS, int8_matmul, int8_matmul_reference
+from .cuda.int8_matmul import int8_matmul, int8_matmul_reference
 
 #: state-dict names of the projections that quantize (the reference's
 #: ``_QUANT_PARENT`` in the port's names): attention q/k/v/o, MLP
 #: gate/up/down and an untied ``lm_head``; never the embedding or a norm
 _QUANT_NAME = re.compile(
     r"(^|\.)(attn\.(q|k|v|o)|mlp\.(gate|up|down)|lm_head)\.weight$")
-
-#: calls of at most this many rows go to the W8A16 kernel (its reason is
-#: at ``ops/cuda/int8_matmul.py`` ``MAX_ROWS``), wider ones to the wide
-#: route
-KERNEL_MAX_ROWS = MAX_ROWS
-
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``[out, in]`` float weight -> (int8 ``[out, in]``, f32 ``[out]``
@@ -93,35 +85,19 @@ def quantized_weight_names(state: Dict[str, torch.Tensor]) -> Set[str]:
     return {name for name, t in state.items() if _is_quant_node(name, t)}
 
 
-def quant_matmul_wide(x: torch.Tensor, weight_q: torch.Tensor,
-                      scale: torch.Tensor) -> torch.Tensor:
-    """The route of calls wider than :data:`KERNEL_MAX_ROWS` rows: the
-    reference's int8 expression, ``(x @ Wq^T) * scale`` in ``x``'s dtype
-    with the weight cast to it (the W8A16 kernel's plain version). Counts
-    its calls (``launches``, as the kernel wrappers count theirs)."""
-    quant_matmul_wide.launches += 1
-    return int8_matmul_reference(x, weight_q, scale)
-
-
-#: calls since the last reset (``chip_smoke.py`` reports both routes)
-quant_matmul_wide.launches = 0
-
-
 def quant_matmul(x: torch.Tensor, proj: torch.nn.Module) -> torch.Tensor:
     """``x @ W^T`` in ``x``'s dtype for a projection module: an
     ``nn.Linear`` (the weight cast to ``x``'s dtype) or a
     ``models.llama.QuantLinear`` (``weight_q`` int8 and ``scale`` f32, the
-    reference's ``{"kernel_q", "scale"}``). An int8 call of at most
-    :data:`KERNEL_MAX_ROWS` rows goes to the W8A16 kernel's wrapper (its
-    plain version for a tensor on the CPU), a wider one to
-    :func:`quant_matmul_wide`."""
+    reference's ``{"kernel_q", "scale"}``). Every int8 call, leading dims
+    flattened into rows, goes to the W8A16 kernel's wrapper (its plain
+    version for a tensor on the CPU)."""
     weight_q = getattr(proj, "weight_q", None)
     if weight_q is None:
         return torch.nn.functional.linear(x, proj.weight.to(x.dtype))
     rows = x.numel() // x.shape[-1]
-    if rows > KERNEL_MAX_ROWS:
-        return quant_matmul_wide(x, weight_q, proj.scale)
-    y = int8_matmul(x.reshape(rows, x.shape[-1]), weight_q, proj.scale)
+    y = int8_matmul(x.reshape(rows, x.shape[-1]).contiguous(), weight_q,
+                    proj.scale)
     return y.reshape(*x.shape[:-1], weight_q.shape[0])
 
 

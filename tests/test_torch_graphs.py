@@ -78,8 +78,8 @@ def fake_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
     monkeypatch.setattr(trpa, "_scratch", {})
-    for fn in COUNTED:
-        monkeypatch.setattr(fn, "launches", 0)
+    for _, fn, attr in COUNTED:
+        monkeypatch.setattr(fn, attr, 0)
     pool = GraphPool(CPU)
     pool.cuda, pool.stream, pool.handle = True, _Stream(), (7, 0)
     pool.captures = captures

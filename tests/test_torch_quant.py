@@ -20,13 +20,21 @@ each with its tolerance:
   (``tests/parity.py::assert_greedy_parity``: equal, or parting only at a
   top-2 gap under 3e-2), async and lock-step;
 - the W8A16 wrapper takes its plain version for CPU tensors (and launches
-  nothing), refuses other devices, and ``quant_matmul`` sends calls of at
-  most 64 rows to it and wider ones to the counted wide route;
+  nothing), refuses other devices; ``quant_matmul`` sends every int8 call
+  to it, and on a CUDA tensor (stand-ins of the tensors and the library)
+  it launches the decode instantiation up to 64 rows and the wide one past
+  them, with the plan's CTAs and scratch;
+- the plan (``int8_plan``) at Llama-3-8B's and Llama-3.2-1B's shapes on
+  132 SMs: every (tile, k tile) element in exactly one CTA's run, each
+  SM's load within one element of every other's, each split tile's pieces
+  added in ascending k from slots no other piece uses, the same plan from
+  the shape alone;
 - the engine refuses weights that do not match its ``quantization``.
 """
 
 import dataclasses
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -102,7 +110,7 @@ def _ulps_off(got, want, x, wq, scale) -> float:
                   / _ulp(torch.maximum(want.float().abs(), floor))).max())
 
 
-@pytest.mark.parametrize("M", [1, 7, 64, 65])
+@pytest.mark.parametrize("M", [1, 7, 64, 65, 200, 512])
 def test_quant_matmul_int8_route_matches_jax(M):
     rng = np.random.default_rng(M)
     K, N = 256, 96
@@ -270,10 +278,34 @@ def test_wrapper_takes_plain_version_on_cpu():
         ti8.int8_matmul(x.to("meta"), q.to("meta"), s.to("meta"))
 
 
-def test_route_split_at_64_rows(monkeypatch):
-    """Calls of at most ``KERNEL_MAX_ROWS`` rows (leading dims flattened)
-    reach the kernel's wrapper; wider ones take the wide route."""
-    assert tquant.KERNEL_MAX_ROWS == 64
+class _OnCuda:
+    """A stand-in of a contiguous, aligned CUDA tensor: what the W8A16
+    wrapper reads before it launches (shape, dtype, device, layout,
+    pointer) and the outputs it allocates."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = tuple(shape), dtype
+        self.device = torch.device("cuda", 0)
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 1 << 20
+
+    def new_empty(self, shape, dtype=None):
+        return _OnCuda(shape, dtype or self.dtype)
+
+
+@pytest.mark.parametrize("M", [1, 64, 65, 512])
+def test_int8_calls_reach_the_wrapper(monkeypatch, M):
+    """Every int8 call reaches the W8A16 wrapper, leading dims flattened
+    into rows; on a CUDA tensor the wrapper launches the decode
+    instantiation up to 64 rows and the wide one past them, with the
+    plan's CTA count and split scratch."""
     calls = []
 
     def spy(x, wq, scale):
@@ -283,30 +315,118 @@ def test_route_split_at_64_rows(monkeypatch):
     monkeypatch.setattr(tquant, "int8_matmul", spy)
     proj = tllama.QuantLinear(64, 16, device="cpu")
     proj.weight_q.data.random_(-127, 128)
-    tquant.quant_matmul_wide.launches = 0
-    for shape in [(64, 1, 64), (8, 8, 64), (1, 64)]:
+    for shape in [(M, 64), (1, M, 64)]:
         y = tquant.quant_matmul(torch.ones(shape, dtype=torch.bfloat16), proj)
         assert y.shape == shape[:-1] + (16,)
-    assert calls == [(64, 64), (64, 64), (1, 64)]
-    assert tquant.quant_matmul_wide.launches == 0
-    for shape in [(65, 64), (1, 512, 64)]:
-        tquant.quant_matmul(torch.ones(shape, dtype=torch.bfloat16), proj)
-    assert len(calls) == 3 and tquant.quant_matmul_wide.launches == 2
-    # an nn.Linear projection takes neither route
+    assert calls == [(M, 64), (M, 64)]
+    # an nn.Linear projection does not take it
     lin = torch.nn.Linear(64, 16, bias=False)
-    tquant.quant_matmul(torch.ones((4, 64), dtype=torch.bfloat16), lin)
-    assert len(calls) == 3 and tquant.quant_matmul_wide.launches == 2
+    tquant.quant_matmul(torch.ones((M, 64), dtype=torch.bfloat16), lin)
+    assert len(calls) == 2
+
+    # the wrapper's CUDA route, with the library replaced by a recorder
+    launched = []
+
+    class _Lib:
+        def shai_int8_matmul(self, *args):
+            launched.append(args)
+            return 0
+
+    N, K = 4096, 4096
+    monkeypatch.setattr(ti8, "sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0x5A5A))
+    monkeypatch.setattr(ti8, "_arrival_counters",
+                        lambda *a: _OnCuda((264,), torch.int32))
+    monkeypatch.setattr(ti8._build, "library", lambda: _Lib())
+    monkeypatch.setattr(ti8.int8_matmul, "launches", 0)
+    monkeypatch.setattr(ti8.int8_matmul, "wide_launches", 0)
+    y = ti8.int8_matmul(_OnCuda((M, K), torch.bfloat16),
+                        _OnCuda((N, K), torch.int8),
+                        _OnCuda((N,), torch.float32))
+    assert (y.shape, y.dtype) == ((M, N), torch.bfloat16)
+    plan = ti8.int8_plan(M, N, K, 132)
+    assert plan.wide == (M > 64)
+    assert plan.rows == ({1: 8, 64: 64}.get(M, 128))
+    assert (ti8.int8_matmul.launches, ti8.int8_matmul.wide_launches) == \
+        ((0, 1) if M > 64 else (1, 0))
+    (args,) = launched
+    assert args[6:10] == (M, N, K, plan.ctas)
+    assert (args[4] is not None) == plan.splits
+    # refusals come before any launch
+    with pytest.raises(TypeError, match="bfloat16"):
+        ti8.int8_matmul(_OnCuda((M, K), torch.float32),
+                        _OnCuda((N, K), torch.int8),
+                        _OnCuda((N,), torch.float32))
+    with pytest.raises(ValueError, match="K % 16"):
+        ti8.int8_matmul(_OnCuda((M, 100), torch.bfloat16),
+                        _OnCuda((N, 100), torch.int8),
+                        _OnCuda((N,), torch.float32))
+    assert len(launched) == 1
 
 
-def test_int8_plan_fills_the_card():
-    """The CTA width at the Llama-3-8B decode shapes on 132 SMs: k/v
-    (N=1024) 128 CTAs of 8 rows, q/o/down (4096) 256 of 16 (one wave of
-    two per SM), gate/up (14336) and lm_head 64-row CTAs; Llama-3.2-1B's
-    q/o (2048) 256 of 8 and gate/up (8192) 256 of 32."""
-    assert ti8.int8_plan(1024, 132) == 8
-    assert ti8.int8_plan(4096, 132) == 16
-    assert ti8.int8_plan(2048, 132) == 8
-    assert ti8.int8_plan(8192, 132) == 32
-    assert ti8.int8_plan(14336, 132) == 64
-    assert ti8.int8_plan(128256, 132) == 64
-    assert ti8.int8_plan(8, 132) == 8
+#: (N, K) of every int8 projection: Llama-3-8B's q/o, k/v, gate/up, down
+#: and lm_head; Llama-3.2-1B's q/o, k/v, gate/up and down (its lm_head is
+#: the tied embedding, which stays bf16)
+PLAN_SHAPES = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+               (128256, 4096), (2048, 2048), (512, 2048), (8192, 2048),
+               (2048, 8192)]
+
+
+@pytest.mark.parametrize("M", [8, 512])
+@pytest.mark.parametrize("N,K", PLAN_SHAPES)
+def test_int8_plan_covers_balances_and_orders(N, K, M):
+    plan = ti8.int8_plan(M, N, K, 132)
+    assert plan.rows == (8 if M == 8 else 128) and plan.wide == (M > 64)
+    # two 64-row tiles a warpgroup only where that leaves a tile per SM
+    assert plan.row_tiles == (2 if M > 64 and -(-N // 256) * 4 >= 132
+                              else 1)
+    assert plan.tile_n == 128 * plan.row_tiles
+    assert plan.n_tiles == -(-N // plan.tile_n)
+    assert plan.k_tiles == -(-K // 128)
+    # a CTA per SM, or (wide) whole waves from 106 to 132 CTAs
+    assert plan.ctas == min(132, plan.elements) or (
+        plan.wide and 106 <= plan.ctas <= 132
+        and plan.tiles % plan.ctas == 0)
+    # every (m tile, n tile, k tile) element in exactly one CTA's run
+    seen = np.zeros((plan.m_tiles, plan.n_tiles, plan.k_tiles), np.int32)
+    loads = []
+    for c in range(plan.ctas):
+        units = plan.units(c)
+        loads.append(sum(k1 - k0 for _, _, k0, k1 in units))
+        for mt, nt, k0, k1 in units:
+            seen[mt, nt, k0:k1] += 1
+        # whole tiles round-robin first; then only the first unit of the
+        # CTA's run may start inside a tile, only its last end inside one
+        whole = units[:plan.full_waves]
+        assert [(nt * plan.m_tiles + mt, k0, k1) for mt, nt, k0, k1 in whole] \
+            == [(u * plan.ctas + c, 0, plan.k_tiles)
+                for u in range(plan.full_waves)]
+        run = units[plan.full_waves:]
+        assert all(k0 == 0 for _, _, k0, _ in run[1:])
+        assert all(k1 == plan.k_tiles for *_, k1 in run[:-1])
+    assert (seen == 1).all()
+    assert max(loads) - min(loads) <= 1
+    # each split tile's pieces: ascending k ranges that tile it, from
+    # slots no other piece uses; an unsplit tile has one piece
+    slots = []
+    for mt in range(plan.m_tiles):
+        for nt in range(plan.n_tiles):
+            pieces = plan.pieces(mt, nt)
+            ranges = [(k0, k1) for c, _ in pieces
+                      for t_mt, t_nt, k0, k1 in plan.units(c)
+                      if (t_mt, t_nt) == (mt, nt)]
+            assert ranges[0][0] == 0 and ranges[-1][1] == plan.k_tiles
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            if len(pieces) > 1:
+                slots += [sl for _, sl in pieces]
+    assert len(slots) == len(set(slots))
+    assert all(0 <= sl < 2 * plan.ctas for sl in slots)
+    assert plan.splits == bool(slots)
+    # the order is a function of the shape and the SM count alone
+    ti8.int8_plan.cache_clear()
+    again = ti8.int8_plan(M, N, K, 132)
+    assert again == plan and again is not plan
+    assert [again.pieces(0, nt) for nt in range(plan.n_tiles)] == \
+        [plan.pieces(0, nt) for nt in range(plan.n_tiles)]
