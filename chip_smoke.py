@@ -113,7 +113,29 @@ Phases:
                 an injected ``kvnet.fetch`` fault recomputing with a 200;
                 the pull's GB/s and share of TTFT, the ``shai_kvnet_*`` and
                 ``shai_kvtier_*`` families;
- 15. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
+ 15. ``serve_fleet`` the fleet KV fabric and live migration on
+                serve_disagg's 1B directory, every pod in this process over
+                localhost: a prefill pod banks 1,250-token runs and a pod
+                armed with ``SHAI_KVFABRIC_PEERS`` naming it admits the
+                same prompts warm from its tier through B1 while a decode
+                runs beside the probe (a holder without the run and an
+                injected ``kvfabric.probe`` fault recompute); a pod armed
+                with ``SHAI_MIGRATE_PEER_URL`` drains with 4 requests 32
+                tokens in and ships them, each ``{"resume": ...}`` replayed
+                on the peer returns the whole output; bucketed bf16 (B1,
+                B2), ragged int8 KV (B3), then one ``migrate.ship`` fault
+                (the cold replay) and one ``migrate.restore`` fault (a
+                recompute on the peer): the fabric's greedy tokens equal
+                the fabric-off pod's (the tie rule), the resumed outputs
+                held by the engine phases' scoring rules (bf16
+                ``TIE_TOL``, int8 the int8 rule against the unmigrated
+                run) beside their partings from the unmigrated pod's
+                tokens, the ``shai_migrate_*`` and ``shai_kvfabric_*``
+                counts, no leaked block; envelope
+                bytes, ship and accept seconds, the restore, cut to the
+                resumed request's next token beside a recompute's TTFT,
+                the probe's seconds, blocks and GB/s, the step it ran in;
+ 16. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
                 its closed set warmed before readiness) and answer 8
                 concurrent ``POST /generate``; then an OpenAI round: 8
                 concurrent streamed ``POST /v1/completions`` (the client's
@@ -123,18 +145,18 @@ Phases:
                 give a uniform distribution), an expired
                 ``X-SHAI-Deadline-Ms`` (504) and a ``/metrics`` scrape
                 holding the ``shai_*`` contract families;
- 16. ``serve_int8`` serve's tier, requests and switches with
+ 17. ``serve_int8`` serve's tier, requests and switches with
                 ``QUANTIZATION=int8`` (born int8): the weights pool exactly
                 8,561,882,112 bytes, 225 int8 launches per replay, B4's
                 decode and wide launches counted, beside serve's numbers;
- 17. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
+ 18. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
                 SHAI_KV_QUANT=int8`` and an engine ConfigMap of
                 ``max_model_len`` 4096: two of the 8 prompts chunk;
- 18. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
+ 19. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
                 (the chunks ride the fused graphs' replays), then one
                 ``n=4`` completion admitted as one prefill with 3
                 copy-on-write forks; its numbers beside serve_ragged's;
- 19. ``serve_ops`` serve's configuration under the operating layer
+ 20. ``serve_ops`` serve's configuration under the operating layer
                 (``SERVE_OPS_ENV``: ``MAX_INFLIGHT=8``, tracing, the fault
                 endpoint armed, a perf projection of 50 tok/s over a 5 s
                 window, a 2 s watchdog floor, a 60 s drain budget): the
@@ -165,7 +187,8 @@ A full run prints the card's name and power limit, then, second to last,
 ``{"kernels": [...]}`` (per kernel: route, source, the TPU kernel it
 replaces, launches in the serve phase that runs it, max error,
 kernel/plain/bound/library times, and its launches at the cached callers
-of engine_prefix and serve_disagg; B3 also its fused mixed-row launch;
+of engine_prefix, serve_disagg and serve_fleet; B3 also its fused
+mixed-row launch;
 B4's decode and wide instantiations, which replace XLA's fused int8 dot
 and no Pallas kernel, ``tpu_kernel: null``, bf16 ``F.linear`` as their
 library time and the replaced route's time) and,
@@ -182,6 +205,7 @@ import gc
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -195,7 +219,8 @@ from pathlib import Path
 PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
           "decode_graph", "engine", "engine_ragged", "engine_fused",
           "engine_int8", "checkpoint", "engine_prefix", "serve_disagg",
-          "serve", "serve_int8", "serve_ragged", "serve_fused", "serve_ops")
+          "serve_fleet", "serve", "serve_int8", "serve_ragged",
+          "serve_fused", "serve_ops")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core FLOP/s
@@ -2986,6 +3011,33 @@ def _write_checkpoint(path, state, cfg) -> int:
     return sum(p.stat().st_size for p in paths)
 
 
+def _seeded_1b_dir(ctx):
+    """The seeded Llama-3.2-1B-width checkpoint directory (the checkpoint
+    phase's weights, seed 9) that serve_disagg and serve_fleet serve:
+    written once a run, removed when the run ends."""
+    if "seeded_1b" not in ctx:
+        import dataclasses
+        import tempfile
+
+        import torch
+        from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+            LlamaConfig,
+            random_params,
+        )
+
+        cfg = dataclasses.replace(LlamaConfig.llama32_1b(),
+                                  max_seq_len=131072,
+                                  rope_scaling=(32.0, 1.0, 4.0, 8192))
+        state = random_params(cfg, seed=9, std=0.02, device="cuda")
+        path = Path(tempfile.mkdtemp(prefix="shai-1b-")) / "llama-3.2-1b"
+        _write_checkpoint(path, state, cfg)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx["seeded_1b"] = path
+    return ctx["seeded_1b"]
+
+
 def _ckpt_boot(ctx, path, quant: bool):
     """The unit on ``MODEL_ID=<path>`` behind the stdlib server; returns
     (service, base url, server)."""
@@ -3428,9 +3480,11 @@ DISAGG_CONFIG = {"max_model_len": 2048, "block_size": 16, "max_num_seqs": 4,
                  "max_new_tokens": 16, "enable_prefix_caching": True}
 
 
-def _disagg_pod(tmp, path, role):
+def _disagg_pod(tmp, path, role, config=None, env=None, name=None):
     """One unit on ``MODEL_ID=<path>`` with the given role, behind the
-    stdlib server; returns (service, base url, server)."""
+    stdlib server; returns (service, base url, server). ``config`` replaces
+    ``DISAGG_CONFIG``, ``env`` adds to (or overrides) the pod's
+    environment while it is built, ``name`` names its ConfigMap file."""
     from scalable_hw_agnostic_inference_tpu_torch.serve.app import create_app
     from scalable_hw_agnostic_inference_tpu_torch.serve.httpd import Server
     from scalable_hw_agnostic_inference_tpu_torch.serve.units.vllm import (
@@ -3440,13 +3494,15 @@ def _disagg_pod(tmp, path, role):
         ServeConfig,
     )
 
-    conf = tmp / f"{role}.yaml"
-    conf.write_text(json.dumps({**DISAGG_CONFIG, "role": role}))
+    conf = tmp / f"{name or role}.yaml"
+    conf.write_text(json.dumps({**(config or DISAGG_CONFIG), "role": role}))
     env = {"DEVICE": "cuda", "MODEL_ID": str(path), "PORT": "0",
            "VLLM_CONFIG": str(conf), "SHAI_KVTIER": "1",
            "SHAI_KVTIER_ASYNC": "1", "SHAI_RAGGED_ATTENTION": "0",
            "SHAI_KV_QUANT": "", "SHAI_FUSED_STEP": "0",
-           "SHAI_ASYNC_DECODE": "1", "QUANTIZATION": ""}
+           "SHAI_ASYNC_DECODE": "1", "QUANTIZATION": "",
+           "SHAI_KVFABRIC": "", "SHAI_KVFABRIC_PEERS": "",
+           **(env or {})}
     with _env(env):
         cfg = ServeConfig.from_env()
         service = VllmService(cfg)
@@ -3500,7 +3556,6 @@ def phase_serve_disagg(ctx):
     tokens equal the monolithic pod's; the frames equal the banked blocks
     byte for byte; an injected ``kvnet.fetch`` fault degrades to
     recompute with the request still answering 200."""
-    import dataclasses
     import tempfile
 
     import torch
@@ -3509,18 +3564,12 @@ def phase_serve_disagg(ctx):
         KvNetClient,
         KvNetStats,
     )
-    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
-        LlamaConfig,
-        random_params,
-    )
     from scalable_hw_agnostic_inference_tpu_torch.resilience import (
         faults as rz_faults,
     )
 
     _drop_engine_model(ctx)
-    cfg = dataclasses.replace(LlamaConfig.llama32_1b(), max_seq_len=131072,
-                              rope_scaling=(32.0, 1.0, 4.0, 8192))
-    state = random_params(cfg, seed=9, std=0.02, device="cuda")
+    path = _seeded_1b_dir(ctx)
     # some 1,300 tokens: the decode pod's warm start 1,024 leaves a
     # remainder past 128, so its continuation is the monolithic pod's last
     # chunk's ("cont", 64, 512) and the tokens are the same computation
@@ -3531,11 +3580,6 @@ def phase_serve_disagg(ctx):
     pulls = []
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        path = tmp / "llama-3.2-1b-seeded"
-        _write_checkpoint(path, state, cfg)
-        del state
-        gc.collect()
-        torch.cuda.empty_cache()
         try:
             for role in ("prefill", "decode", "both"):
                 pods[role] = _disagg_pod(tmp, path, role)
@@ -3670,6 +3714,532 @@ def phase_serve_disagg(ctx):
     ctx["serve_disagg"] = out
 
 
+# -- serve_fleet -------------------------------------------------------------
+
+#: the fleet pods' engine ConfigMap: serve_disagg's shapes with room for
+#: FLEET_NEW_TOKENS after a 1,250-token prompt
+FLEET_CONFIG = {**DISAGG_CONFIG, "max_new_tokens": 512}
+#: greedy tokens each migrated request asks for: more than the drain's
+#: natural-completion window (FLEET_DRAIN_S less the reserve) can finish
+FLEET_NEW_TOKENS = 256
+#: requests in flight on the draining pod, and the tokens each has before
+#: the drain begins
+FLEET_REQUESTS = 4
+FLEET_CUT_AFTER = 32
+#: the draining pod's budget; the migrate reserve is half of it, so the
+#: migrate phase starts 0.5 s after the drain
+FLEET_DRAIN_S = 1.0
+
+
+class _Fin:
+    """A Finished-like view of a served answer with logprob entries (the
+    tie rule's input)."""
+
+    def __init__(self, out):
+        self.logprobs = out["logprobs"]
+        self.token_ids = [e["token"] for e in self.logprobs]
+
+
+def _fleet_capture(svc):
+    """Wrap a pod's ``loop.submit`` so each resumed request's engine
+    ``Finished`` is kept by its resume handle (the unit's
+    ``_resume_migrated`` submits on the calling thread) and every other
+    one in order; returns ``(by_handle, plain)``."""
+    tl = threading.local()
+    by_handle, plain = {}, []
+    submit, resume = svc.loop.submit, svc._resume_migrated
+
+    def wrapped_submit(*a, **k):
+        fut = submit(*a, **k)
+        h = getattr(tl, "h", None)
+        if h is None:
+            plain.append(fut)
+        else:
+            by_handle[h] = fut
+        return fut
+
+    def wrapped_resume(rid):
+        tl.h = rid
+        try:
+            return resume(rid)
+        finally:
+            tl.h = None
+
+    svc.loop.submit = wrapped_submit
+    svc._resume_migrated = wrapped_resume
+    return by_handle, plain
+
+
+def _fleet_ship_probe(svc):
+    """Wrap a draining pod's ship: each POST's envelope bytes and seconds,
+    and each handoff's cut instant by its resume handle."""
+    posts, cuts = [], {}
+    post, handoff = svc._kvnet._post_envelope, svc._migrated_handoff
+
+    def wrapped_post(peer, payload):
+        t0 = time.monotonic()
+        out = post(peer, payload)
+        posts.append({"bytes": len(payload),
+                      "seconds": time.monotonic() - t0, "state": out[0]})
+        return out
+
+    def wrapped_handoff(fin):
+        rec = handoff(fin)
+        cuts[rec.get("resume") or f"cold-{fin.req_id}"] = (
+            fin.timing["t_migrate_cut"], rec)
+        return rec
+
+    svc._kvnet._post_envelope = wrapped_post
+    svc._migrated_handoff = wrapped_handoff
+    return posts, cuts
+
+
+def _fleet_accepts(svc):
+    """Wrap a receiving pod's ``accept_migration``: seconds of each accept
+    (decode checked, the run published into the tier)."""
+    accepts = []
+    accept = svc.accept_migration
+
+    def wrapped(manifest, entries):
+        t0 = time.monotonic()
+        out = accept(manifest, entries)
+        accepts.append({"seconds": time.monotonic() - t0,
+                        "blocks": len(entries),
+                        "restored": out["restored"]})
+        return out
+
+    svc.accept_migration = wrapped
+    return accepts
+
+
+def _fleet_drain(pods, src, dst, prompts, faults=""):
+    """Drive ``prompts`` on pod ``src`` until each has FLEET_CUT_AFTER
+    tokens, begin its drain (its migrate phase ships to ``dst``), replay
+    every resume handle on ``dst`` at once, and replay a handoff without
+    one (the cold rung) as the original request on ``dst``. Returns the
+    handoffs, the answers in prompt order, the cut instants, the posts and
+    the resumed requests' engine Finished by handle."""
+    from scalable_hw_agnostic_inference_tpu_torch.resilience import (
+        faults as rz_faults,
+    )
+
+    svc, base, _ = pods[src]
+    eng = svc._engine
+    posts, cuts = _fleet_ship_probe(svc)
+    by_handle, _ = _fleet_capture(pods[dst][0])
+    handoffs = [None] * len(prompts)
+
+    def one(i):
+        handoffs[i] = _http(base + "/generate", {
+            "prompt": prompts[i], "temperature": 0.0,
+            "max_new_tokens": FLEET_NEW_TOKENS, "logprobs": 1})
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    t0 = time.monotonic()
+    while True:
+        running = [s for s in eng.slots if s is not None
+                   and s.prefill_cursor is None]
+        if len(running) == len(prompts) and all(
+                len(s.generated) >= FLEET_CUT_AFTER for s in running):
+            break
+        if time.monotonic() - t0 > 120:
+            raise AssertionError(f"serve_fleet: {src} never reached "
+                                 f"{FLEET_CUT_AFTER} tokens a request")
+        time.sleep(0.002)
+    if faults:
+        rz_faults.configure(faults, 0)
+    try:
+        if not svc.wants_migration() or \
+                not pods[src][2].app.state["begin_drain"]():
+            raise AssertionError(f"serve_fleet: {src} did not drain armed")
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        rz_faults.reset()
+    answers = [None] * len(prompts)
+
+    def replay(i):
+        st, rec = handoffs[i]
+        if st != 200 or not rec.get("migrated"):
+            raise AssertionError(f"serve_fleet: {src} answered {st} {rec}")
+        payload = ({"resume": rec["resume"]} if rec["resume"] else {
+            "prompt": prompts[i], "temperature": 0.0,
+            "max_new_tokens": FLEET_NEW_TOKENS, "logprobs": 1})
+        answers[i] = _http(pods[dst][1] + "/generate", payload)
+
+    rt = [threading.Thread(target=replay, args=(i,))
+          for i in range(len(prompts))]
+    for t in rt:
+        t.start()
+    for t in rt:
+        t.join(timeout=300)
+    return [h for _, h in handoffs], answers, cuts, posts, by_handle
+
+
+def _fleet_check(what, svc, prompts, answers, wants, int8):
+    """Every answer a 200 with the whole output (the tokens before the cut
+    included), held against the unmigrated pod's answers ``wants`` by the
+    engine phases' rules: a resumed request recomputes part of its run by
+    a continuation where the unmigrated one decoded it, so its tokens part
+    from the unmigrated ones at near-ties of this random-weight model's
+    flat logits. bf16: every greedy token within ``TIE_TOL`` of the
+    scoring forward's maximum (through B1's plain version); int8 KV: within
+    ``NOISE_TIES`` eps of it through B1, and as many argmax hits as the
+    unmigrated int8 run less ``INT8_SLACK``. Returns the streams equal to
+    the unmigrated ones, the gaps where the others part, and the
+    scores."""
+    for i, (st, out) in enumerate(answers):
+        if st != 200 or out.get("stop_reason") not in ("length", "eos") \
+                or len(out.get("logprobs") or ()) != out["n_tokens"]:
+            raise AssertionError(f"serve_fleet {what}: answer {i} {st} "
+                                 f"{out.get('stop_reason')} "
+                                 f"{out.get('detail')}")
+    fins = [_Fin(out) for _, out in answers]
+    want = [_Fin(w) for w in wants]
+    model = svc._engine.model
+    ids = [svc._encode(p) for p in prompts]
+    on = _score(model, ids, fins)
+    score = {"tokens": on["tokens"], "worst_plain": on["plain"][1],
+             "worst_b1": on["b1"][1], "hits": on["b1"][0], "eps": on["eps"]}
+    if int8:
+        off = _score(model, ids, want)
+        score["unmigrated_hits"] = off["b1"][0]
+        ok = (on["b1"][1] <= NOISE_TIES * on["eps"] and on["b1"][0]
+              >= off["b1"][0] - INT8_SLACK * on["tokens"])
+    else:
+        ok = on["plain"][1] <= TIE_TOL
+    if not ok:
+        raise AssertionError(f"serve_fleet {what}: against the scoring "
+                             f"forward {score}")
+    return {"equal_streams": sum(f.token_ids == w.token_ids
+                                 for f, w in zip(fins, want)),
+            "streams": len(fins),
+            "parting_gaps": _tie_diverge(fins, want, float("inf")),
+            "score": score}
+
+
+def _fleet_unmigrated(pods, name, prompts):
+    """``prompts`` answered on pod ``name`` with no migration (logprobs 2,
+    FLEET_NEW_TOKENS): the answers, and each one's TTFT from its engine's
+    timing."""
+    _, plain = _fleet_capture(pods[name][0])
+    wants = [None] * len(prompts)
+
+    def one(i):
+        wants[i] = _http(pods[name][1] + "/generate", {
+            "prompt": prompts[i], "temperature": 0.0,
+            "max_new_tokens": FLEET_NEW_TOKENS, "logprobs": 2})
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(st != 200 for st, _ in wants):
+        raise AssertionError(f"serve_fleet: unmigrated answers "
+                             f"{[st for st, _ in wants]}")
+    ttft = [f.result(timeout=60).timing for f in plain]
+    return [w for _, w in wants], [t["t_first"] - t["t_submit"]
+                                   for t in ttft]
+
+
+def _fleet_migration(ctx, pods, src, dst, prompts, wants, faults="",
+                     int8=False):
+    """One drain of pod ``src`` into ``dst``, held against the unmigrated
+    answers ``wants``; returns the numbers of the run."""
+    dsvc = pods[dst][0]
+    accepts = _fleet_accepts(dsvc)
+    before = _http(pods[dst][1] + "/stats")[1]["migrate"]
+    handoffs, answers, cuts, posts, by_handle = _fleet_drain(
+        pods, src, dst, prompts, faults)
+    held = _fleet_check(src, dsvc, prompts, answers, wants, int8)
+    mine = _http(pods[src][1] + "/stats")[1]["migrate"]
+    theirs = _http(pods[dst][1] + "/stats")[1]["migrate"]
+    resumed = []
+    for h, fut in by_handle.items():
+        fin = fut.result(timeout=60)
+        t_cut, rec = cuts[h]
+        tm = fin.timing
+        resumed.append({
+            "restored_blocks": rec["restored"],
+            "kv_restore_s": tm.get("kv_restore_s"),
+            "kv_restore_blocks": tm.get("kv_restore_blocks"),
+            "recompute_tokens": tm.get("recompute_tokens"),
+            "cut_to_next_token_s": tm["t_first"] - t_cut,
+            "prompt_tokens": fin.n_prompt})
+    for name in (src, dst):
+        eng = pods[name][0]._engine
+        if eng.cache.leaked_blocks or eng.obs.recompiles:
+            raise AssertionError(f"serve_fleet {name}: leaked "
+                                 f"{eng.cache.leaked_blocks}, recompiles "
+                                 f"{eng.obs.recompiles}")
+    ok_posts = [p for p in posts if p["state"] == "ok"]
+    return {
+        "handoffs": [{k: h[k] for k in ("restored", "n_sent", "peer")}
+                     | {"resume": bool(h["resume"])} for h in handoffs],
+        "tokens": held,
+        "envelope_bytes": [p["bytes"] for p in ok_posts],
+        "ship_s": [p["seconds"] for p in ok_posts],
+        "ship_gb_s": [p["bytes"] / p["seconds"] / 1e9 for p in ok_posts],
+        "accept_s": [a["seconds"] for a in accepts],
+        "resumed": resumed,
+        "drained": pods[src][2].app.state["status"].get("drained"),
+        "src_migrate": mine,
+        "dst_migrate": {k: theirs[k] - before[k] for k in theirs}}
+
+
+def _fleet_fabric(ctx, pods, prompts):
+    """Pod C's fabric against holder A and the fabric-off pod M: a warm
+    admission pulled from A, a holder slice without the run, an injected
+    probe fault; the step gap of C's running decode while the probe ran."""
+    from scalable_hw_agnostic_inference_tpu_torch.resilience import (
+        faults as rz_faults,
+    )
+
+    csvc, cbase, _ = pods["C"]
+    abase, mbase = pods["A"][1], pods["M"][1]
+    ceng = csvc._engine
+    _, cplain = _fleet_capture(csvc)
+    _, mplain = _fleet_capture(pods["M"][0])
+    steps, probing = [], {"on": False}
+    step, probe = ceng.step, ceng._fabric_probe
+
+    def wrapped_probe(*a, **k):
+        probing["on"] = True
+        return probe(*a, **k)
+
+    def wrapped_step():
+        running = ceng.n_running
+        t0 = time.monotonic()
+        out = step()
+        steps.append((time.monotonic() - t0, running, probing["on"]))
+        probing["on"] = False
+        return out
+
+    ceng._fabric_probe, ceng.step = wrapped_probe, wrapped_step
+    for p in prompts[::2]:               # A banks the warm and fault runs
+        st, handoff = _http(abase + "/generate", {"prompt": p,
+                                                  "temperature": 0.0})
+        if st != 200 or not handoff.get("kv_ready"):
+            raise AssertionError(f"serve_fleet: holder {st} {handoff}")
+    time.sleep(1.1)                       # past C's directory TTL
+    # a decode runs on C while the warm request's probe runs
+    bg = {}
+    t = threading.Thread(target=lambda: bg.setdefault("r", _http(
+        cbase + "/generate", {"prompt": "a decode beside the probe: "
+                              + prompts[0][:300], "temperature": 0.0,
+                              "max_new_tokens": FLEET_NEW_TOKENS})))
+    t.start()
+    t0 = time.monotonic()
+    while ceng.n_running == 0 and "r" not in bg:
+        if time.monotonic() - t0 > 120:
+            raise AssertionError("serve_fleet: C's decode never started")
+        time.sleep(0.002)
+    time.sleep(0.05)
+    fab_before = _http(cbase + "/stats")[1]["kvfabric"]
+    net0 = csvc.kvnet_stats().snapshot()
+    n_fa = _read_counters()["flash_attention"]
+    st, warm = _http(cbase + "/generate", {
+        "prompt": prompts[0], "temperature": 0.0, "max_new_tokens": 16,
+        "logprobs": 1})
+    fa_warm = _read_counters()["flash_attention"] - n_fa
+    net1 = csvc.kvnet_stats().snapshot()
+    t.join(timeout=300)
+    if st != 200 or bg["r"][0] != 200:
+        raise AssertionError(f"serve_fleet: C answered {st} {warm}")
+    warm_fin = cplain[-1].result(timeout=60)
+    stats = _http(cbase + "/stats")[1]
+    fab0 = dict(stats["kvfabric"])
+    # a holder slice naming a pod without the run: a stale miss
+    st, miss = _http(cbase + "/generate", {
+        "prompt": prompts[1], "temperature": 0.0, "max_new_tokens": 16,
+        "logprobs": 1, "kv_holders": [mbase]})
+    fab1 = _http(cbase + "/stats")[1]["kvfabric"]
+    # an injected probe fault: recompute, still a 200
+    time.sleep(1.1)
+    rz_faults.configure("kvfabric.probe=error", 0)
+    try:
+        st_f, fault = _http(cbase + "/generate", {
+            "prompt": prompts[2], "temperature": 0.0, "max_new_tokens": 16,
+            "logprobs": 1})
+    finally:
+        rz_faults.reset()
+    fab2 = _http(cbase + "/stats")[1]["kvfabric"]
+    wants = []
+    for p in prompts:
+        s, w = _http(mbase + "/generate", {"prompt": p, "temperature": 0.0,
+                                           "max_new_tokens": 16,
+                                           "logprobs": 2})
+        wants.append(w)
+    mono_fin = mplain[-3].result(timeout=60)
+    gaps = _tie_diverge([_Fin(warm), _Fin(miss), _Fin(fault)],
+                        [_Fin(w) for w in wants])
+    probe_steps = [d for d, r, pr in steps if pr and r]
+    decode_steps = [d for d, r, pr in steps if not pr and r]
+    tm = warm_fin.timing
+    blocks = tm.get("fabric_blocks", 0.0)
+    moved = net1["bytes"] - net0["bytes"]
+    out = {
+        "fabric_probe_s": tm.get("fabric_probe_s"),
+        "fabric_blocks": blocks, "fabric_bytes": moved,
+        "fabric_gb_s": moved / tm["fabric_probe_s"] / 1e9
+        if tm.get("fabric_probe_s") else None,
+        "kv_restore_s": tm.get("kv_restore_s"),
+        "recompute_tokens": tm.get("recompute_tokens"),
+        "ttft_fabric_s": tm["t_first"] - tm["t_submit"],
+        "ttft_fabric_off_s": mono_fin.timing["t_first"]
+        - mono_fin.timing["t_submit"],
+        "b1_launches_warm": fa_warm,
+        "probe_step_s": probe_steps,
+        "decode_step_median_s": statistics.median(decode_steps)
+        if decode_steps else None,
+        "tie_gaps": gaps, "kvfabric": [fab_before, fab0, fab1, fab2],
+        "fault_status": st_f}
+    if fab0["remote_hits"] != fab_before["remote_hits"] + 1 or blocks < 1 \
+            or not tm.get("kv_restore_s"):
+        raise AssertionError(f"serve_fleet: no fabric hit {out}")
+    if fab1["stale_holders"] != fab0["stale_holders"] + 1 or \
+            fab1["remote_misses"] != fab0["remote_misses"] + 1:
+        raise AssertionError(f"serve_fleet: the stale miss {fab0} {fab1}")
+    if st_f != 200 or fab2["remote_misses"] != fab1["remote_misses"] + 1 \
+            or fab2["remote_hits"] != fab1["remote_hits"]:
+        raise AssertionError(f"serve_fleet: the probe fault {st_f} {fab2}")
+    if not fa_warm or not probe_steps:
+        raise AssertionError(f"serve_fleet: the warm continuation ran no "
+                             f"B1 ({fa_warm}) or no probe beside a decode "
+                             f"({probe_steps})")
+    return out
+
+
+def phase_serve_fleet(ctx):
+    """The fleet KV fabric and live migration on serve_disagg's seeded
+    Llama-3.2-1B-width directory, every pod in this process over
+    localhost with the prefix cache and the tier. (a) A prefill pod A
+    banks 1,250-token runs; pod C (``SHAI_KVFABRIC_PEERS=A``) admits the
+    same prompt warm from A through B1 while a decode runs, a holder slice
+    naming M (without the run) recomputes (a counted stale miss), and an
+    injected ``kvfabric.probe`` fault recomputes with a 200, all with the
+    tokens of the fabric-off pod M. (b) Pod D (``SHAI_MIGRATE_PEER_URL``
+    naming C) drains with FLEET_REQUESTS requests FLEET_CUT_AFTER tokens
+    in: every request answers as a ``migrated`` handoff, replaying its
+    handle on C returns the whole output, held by ``_fleet_check`` beside
+    M's unmigrated answers; shipped, received and resumed each
+    FLEET_REQUESTS, no leaked block. Then M drains two fresh prompts (which
+    it first answers unmigrated) into C under one
+    ``migrate.ship`` fault (the cold replay) and one
+    ``migrate.restore`` fault (a recompute on C). Bucketed bf16 (B1, B2);
+    then ragged with ``SHAI_KV_QUANT=int8`` (B3): pod Dq answers the
+    prompts unmigrated, then drains them into Bq."""
+    import tempfile
+
+    import torch
+
+    _drop_engine_model(ctx)
+    path = _seeded_1b_dir(ctx)
+    text = (CKPT_CORPUS + " ") * 26
+    pods = {}
+    out = {}
+    quant = {"SHAI_RAGGED_ATTENTION": "1", "SHAI_KV_QUANT": "int8"}
+    # a draining pod's budget; its ship has no connect retry, so that one
+    # injected migrate.ship fault is one failed ship
+    drains = {"DRAIN_BUDGET_S": str(FLEET_DRAIN_S),
+              "SHAI_KVNET_RETRIES": "0"}
+
+    def boot(tmp, path, name, role="both", **env):
+        pods[name] = _disagg_pod(tmp, path, role, config=FLEET_CONFIG,
+                                 env=env, name=name)
+
+    def stop(*names):
+        for n in names:
+            svc, _, server = pods.pop(n)
+            server.stop()
+            svc.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def migrate(src, dst, prompts, wants, **kw):
+        with _env({"SHAI_MIGRATE_PEER_URL": pods[dst][1],
+                   "SHAI_MIGRATE_RESERVE_S": str(FLEET_DRAIN_S)}):
+            return _fleet_migration(ctx, pods, src, dst, prompts, wants,
+                                    **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        try:
+            boot(tmp, path, "A", role="prefill")
+            boot(tmp, path, "M", **drains)
+            boot(tmp, path, "C", SHAI_KVFABRIC_PEERS=pods["A"][1],
+                 SHAI_KVFABRIC_TTL_S="1")
+            boot(tmp, path, "D", **drains)
+            # every kernel count from here on is the fleet's main path
+            _reset_counters()
+            out["fabric"] = _fleet_fabric(ctx, pods, [
+                f"fleet fabric {i}: " + text for i in range(3)])
+            log("serve_fleet fabric: " + json.dumps(out["fabric"]))
+            prompts = [f"fleet migration {i}: " + text
+                       for i in range(FLEET_REQUESTS)]
+            wants, ttft = _fleet_unmigrated(pods, "M", prompts)
+            b2 = _read_counters()["paged_decode_attention"]
+            out["bf16"] = migrate("D", "C", prompts, wants)
+            out["bf16"]["b2_launches"] = \
+                _read_counters()["paged_decode_attention"] - b2
+            out["bf16"]["unmigrated_ttft_s"] = ttft
+            log("serve_fleet migration bf16: " + json.dumps(out["bf16"]))
+            # fresh prompts: C holds nothing of them, so the refused
+            # restore is a recompute
+            prompts = [f"fleet fault {i}: " + text for i in range(2)]
+            wants, _ = _fleet_unmigrated(pods, "M", prompts)
+            out["faults"] = migrate(
+                "M", "C", prompts, wants,
+                faults="migrate.ship=error#1,migrate.restore=error#1")
+            log("serve_fleet migration faults: "
+                + json.dumps(out["faults"]))
+            stop("A", "C", "D", "M")
+            boot(tmp, path, "Dq", **quant, **drains)
+            boot(tmp, path, "Bq", **quant)
+            prompts = [f"fleet int8 migration {i}: " + text
+                       for i in range(FLEET_REQUESTS)]
+            wants, ttft = _fleet_unmigrated(pods, "Dq", prompts)
+            b3 = _read_counters()["ragged_paged_attention"]
+            out["int8"] = migrate("Dq", "Bq", prompts, wants, int8=True)
+            out["int8"]["b3_launches"] = \
+                _read_counters()["ragged_paged_attention"] - b3
+            out["int8"]["unmigrated_ttft_s"] = ttft
+            log("serve_fleet migration int8: " + json.dumps(out["int8"]))
+            counts = _read_counters()
+        finally:
+            for name in list(pods):
+                stop(name)
+    for run in ("bf16", "int8"):
+        r = out[run]
+        want = {"shipped": FLEET_REQUESTS, "received": FLEET_REQUESTS,
+                "resumed": FLEET_REQUESTS}
+        got = {"shipped": r["src_migrate"]["shipped"],
+               "received": r["dst_migrate"]["received"],
+               "resumed": r["dst_migrate"]["resumed"]}
+        if got != want or not all(h["resume"] and h["restored"]
+                                  for h in r["handoffs"]):
+            raise AssertionError(f"serve_fleet {run}: counts {got}, "
+                                 f"handoffs {r['handoffs']}")
+    f = out["faults"]
+    if sorted(h["resume"] for h in f["handoffs"]) != [False, True] or \
+            f["src_migrate"]["failed"] != 1 or \
+            f["dst_migrate"]["fallbacks"] != 1 or \
+            f["dst_migrate"]["resumed"] != 1 or \
+            [r["restored_blocks"] for r in f["resumed"]] != [0]:
+        raise AssertionError(f"serve_fleet: the fault ladder {f}")
+    if not (out["bf16"]["b2_launches"] and out["int8"]["b3_launches"]
+            and out["fabric"]["b1_launches_warm"]):
+        raise AssertionError(f"serve_fleet: launches {counts}")
+    ctx.setdefault("launches", {})["serve_fleet"] = counts
+    log("serve_fleet launches: " + json.dumps(counts))
+    ctx["serve_fleet"] = out
+
+
 # -- serve_int8 --------------------------------------------------------------
 
 #: Llama-3-8B's weights under QUANTIZATION=int8, by part: the bf16
@@ -3748,6 +4318,9 @@ def kernels_line(ctx):
             # three runs and in serve_disagg's pods
             "prefix_launches": ctx["launches"]["engine_prefix"][name],
             "disagg_launches": ctx["launches"]["serve_disagg"][name],
+            # the fleet's callers: the fabric-warm continuation and the
+            # decode of migrated and resumed requests (serve_fleet)
+            "fleet_launches": ctx["launches"]["serve_fleet"][name],
         })
     # the W8A16 projection (B4): no Pallas kernel (XLA's fused int8 dot);
     # its decode instantiation timed at serve's decode batch on the gate/up
@@ -3822,6 +4395,8 @@ def main(argv) -> int:
         log(f"== {name}: {'FAILED' if name in failed else 'ok'} "
             f"({time.monotonic() - t0:.1f} s)")
     log(f"total {time.monotonic() - t_all:.1f} s")
+    if "seeded_1b" in ctx:
+        shutil.rmtree(ctx["seeded_1b"].parent, ignore_errors=True)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1

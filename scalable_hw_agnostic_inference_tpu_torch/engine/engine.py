@@ -125,8 +125,24 @@ so pool pressure demotes them. The role (``SHAI_ROLE`` over
 full-block run in the tier before release (``demote_prompt_run``), for a
 decode pod to pull over ``GET /kv/blocks``.
 
-Later slices bring the fleet KV fabric and live migration, speculative
-decoding and the multimodal paths.
+The fleet KV fabric and live migration (the reference's
+``engine.py:332-351,455-470,507-676,1511-1589``): with
+``SHAI_KVFABRIC``/``SHAI_KVFABRIC_PEERS`` armed and a tier attached, the
+cached rung gains a third step (``_fabric_probe``): when neither the
+device cache nor the tier offers a warm start, the head request's run is
+pulled from a fleet holder (the request's ``kv_holders``, else the
+pod-local directory) into the tier, and the ordinary tier restore admits
+it; with the fabric off the ladder is unchanged. ``snapshot_sequence``
+banks a request's full-block run (prompt and generated, or the chunks
+encoded so far) in the tier and describes its resumable state as a
+manifest; ``migrate_out`` flushes the pipeline (reason ``migrate``) and a
+parked window, streams the pending token once, and finishes the request
+as ``"migrated"`` with the manifest attached (or as ``eos``/``length``
+when the pending token ends it). ``add_request`` takes a resumed
+request's ``already_generated``, ``already_lp`` and ``orig_n_prompt``
+(the preemption-resume semantics) and its ``kv_holders``.
+
+Later slices bring speculative decoding and the multimodal paths.
 """
 
 from __future__ import annotations
@@ -143,8 +159,10 @@ import torch
 
 from ..core.bucketing import BucketRegistry
 from ..core.device import DeviceLike, resolve_device
+from ..kvnet import directory as _kvdir
 from ..kvnet import resolve_role
 from ..kvnet.client import KvNetStats
+from ..kvnet.migrate import MigrateStats
 from ..kvtier.pool import maybe_host_tier
 from ..models.llama import LlamaConfig, LlamaForCausalLM
 from ..obs import sentinel as obs_sentinel
@@ -346,6 +364,16 @@ class LLMEngine:
         self.obs.kvtier = self.cache.tier
         if self.cache.tier is not None:
             self.obs.kvnet = KvNetStats()
+        # the fleet KV fabric's peer probe: env-gated and tier-bound;
+        # fabric off leaves it None and the admission ladder unchanged
+        self._kvfabric = None
+        if self.cache.tier is not None and _kvdir.fabric_enabled():
+            self._kvfabric = _kvdir.FabricProbe(
+                self.cache.tier, kvnet_stats=self.obs.kvnet)
+            self.obs.kvfabric = self._kvfabric.stats
+        # live-migration counters on every engine: even a tier-less pod
+        # ships manifest-only migrations and resumes them by recompute
+        self.obs.migrate = MigrateStats()
         # ledger cadence: every Nth step (default every step; the drift
         # windows count samples, so a wider cadence only slows them)
         self._hbm_every = max(1, env_int("SHAI_HBM_SAMPLE_EVERY", 1))
@@ -395,7 +423,11 @@ class LLMEngine:
                     on_token=None, deadline_at: float = 0.0,
                     priority: int = _qos.PRIORITY_NORMAL,
                     tenant: str = "", parent_rid: int = -1,
-                    traceparent: str = "", idem_key: str = "") -> int:
+                    traceparent: str = "", idem_key: str = "",
+                    already_generated: Optional[Sequence[int]] = None,
+                    already_lp: Optional[list] = None,
+                    orig_n_prompt: int = -1,
+                    kv_holders: Optional[Sequence[str]] = None) -> int:
         """Queue a request. ``deadline_at``: an absolute
         ``time.monotonic()`` instant (0 = none) past which it finishes as
         ``"timeout"``; ``priority`` (0 high, 1 normal, 2 low, clamped) and
@@ -403,7 +435,12 @@ class LLMEngine:
         ``parent_rid``: the ``n > 1`` fan-out group it belongs to, named by
         its leader's id; ``-2`` makes this request the leader (its own id
         becomes the parent), ``-1`` none. ``traceparent`` and ``idem_key``
-        ride the request (its W3C trace context and idempotency key)."""
+        ride the request (its W3C trace context and idempotency key).
+        A request migrated in from a peer carries its output so far
+        (``already_generated``, ``already_lp``: the prompt holds them as
+        its suffix) and its original prompt length, the semantics of a
+        preemption resume; ``kv_holders`` is a fleet slice of pods that
+        may hold its prompt's KV run (the fabric's probe tries them)."""
         params = (params or SamplingParams()).clamp(self.ecfg)
         if not prompt_ids:
             raise ValueError("empty prompt")
@@ -430,7 +467,13 @@ class LLMEngine:
                                     priority=priority, tenant=tenant,
                                     traceparent=traceparent,
                                     idem_key=idem_key,
-                                    parent_rid=parent_rid))
+                                    parent_rid=parent_rid,
+                                    already_generated=list(
+                                        already_generated or []),
+                                    already_lp=list(already_lp or []),
+                                    orig_n_prompt=orig_n_prompt,
+                                    kv_holders=[str(u) for u in
+                                                (kv_holders or [])]))
         return rid
 
     def fanout_siblings(self, rid: int) -> List[int]:
@@ -494,6 +537,154 @@ class LLMEngine:
                               if s.req.params.logprobs else None),
                     timing=self._timing_of(s.req, s.t_first))
         return None
+
+    # -- live migration (kvnet.migrate) ------------------------------------
+
+    def _manifest_of(self, req: Request, resume_prompt, emitted,
+                     remaining: int, lps, hashes) -> Dict[str, Any]:
+        """The resumable state a peer re-admits from, as plain ints,
+        floats and strings (it crosses pods as JSON), key for key the
+        reference's. ``rng_step`` is informational: greedy is
+        draw-free, and a sampled resume draws from the peer's own
+        generator."""
+        p = req.params
+        now = time.monotonic()
+        man: Dict[str, Any] = {
+            "v": 1,
+            "prompt_ids": [int(t) for t in resume_prompt],
+            "generated": [int(t) for t in emitted],
+            "n_prompt": int(req.orig_n_prompt),
+            "params": {
+                "temperature": float(p.temperature),
+                "top_k": int(p.top_k), "top_p": float(p.top_p),
+                "max_new_tokens": int(remaining),
+                "eos_id": int(p.eos_id), "logprobs": int(p.logprobs),
+            },
+            "priority": int(req.priority), "tenant": req.tenant,
+            "deadline_ms": (max(0.0, (req.deadline_at - now) * 1000.0)
+                            if req.deadline_at else 0.0),
+            "rng_step": int(self._step_count),
+            "hashes": [int(h) for h in hashes],
+        }
+        if req.idem_key:
+            # the peer's resume admits under the same key, so a duplicated
+            # resume replay dedupes there
+            man["idem_key"] = req.idem_key
+        if p.logprobs and lps is not None:
+            man["lps"] = list(lps)
+        return man
+
+    def snapshot_sequence(self, req_id: int) -> Optional[Dict[str, Any]]:
+        """A request's resumable state: prompt and generated token ids,
+        the remaining sampling budget, the QoS identity, the deadline's
+        remainder, and the chain hashes of the full-block KV run this call
+        BANKS in the host tier (``cache.demote_token_run``: the prompt's
+        and the generated blocks, or a chunking slot's encoded chunks).
+        Loop thread only; the caller has retired the in-flight lookahead
+        and dispatched a parked window (``migrate_out`` does). The
+        pending token's KV is never written (its write lands with the
+        next dispatch), so the run covers prompt + generated only."""
+        for r in self.waiting:
+            if r.req_id == req_id:
+                # queued: no KV yet, a pure prompt replay (the cold rung)
+                return self._manifest_of(
+                    r, r.prompt_ids, r.already_generated,
+                    r.params.max_new_tokens, self._queued_lps(r), [])
+        for s in self.slots:
+            if s is None or s.req.req_id != req_id:
+                continue
+            req, p = s.req, s.req.params
+            if s.prefill_cursor is not None:
+                # mid-chunk: nothing generated in this segment; bank the
+                # chunks encoded so far, which the peer's warm admission
+                # skips
+                _, hashes = self.cache.demote_token_run(
+                    req_id, req.prompt_ids[:s.prefill_cursor])
+                return self._manifest_of(
+                    req, req.prompt_ids, req.already_generated,
+                    p.max_new_tokens, self._queued_lps(req), hashes)
+            committed = s.generated + [s.pending_token]
+            _, hashes = self.cache.demote_token_run(
+                req_id, req.prompt_ids + s.generated)
+            lps = None
+            if p.logprobs:
+                lps = req.already_lp + s.lps[:len(committed)]
+            return self._manifest_of(
+                req, req.prompt_ids + committed,
+                req.already_generated + committed,
+                p.max_new_tokens - len(committed), lps, hashes)
+        return None
+
+    def migrate_out(self, req_id: int) -> Optional[Finished]:
+        """Finish a request with stop reason ``"migrated"`` and its
+        :meth:`snapshot_sequence` manifest attached: the serving layer
+        ships the manifest and the banked run to a peer, where the request
+        continues. A pending token that already ends the request finishes
+        it as ``eos``/``length`` instead. Loop thread only; None for an
+        unknown or finished id."""
+        for i, r in enumerate(self.waiting):
+            if r.req_id == req_id:
+                man = self.snapshot_sequence(req_id)
+                del self.waiting[i]
+                self._prune_fanout(req_id)
+                r.obs_extra["t_migrate_cut"] = time.monotonic()
+                return Finished(
+                    req_id, list(r.already_generated), r.orig_n_prompt,
+                    "migrated", logprobs=self._queued_lps(r),
+                    timing=self._timing_of(r), migration=man)
+        s = next((s for s in self.slots
+                  if s is not None and s.req.req_id == req_id), None)
+        if s is None:
+            return None
+        # the in-flight lookahead may hold an extra token for this slot:
+        # retire it so the snapshot reads current host mirrors (the extra
+        # token is the discarded lookahead, the _abort contract); a parked
+        # window writes its chunk before the run is banked
+        self._flush_pipeline("migrate", req=s.req)
+        self._flush_chunk()
+        req, p = s.req, s.req.params
+        req.obs_extra["t_migrate_cut"] = time.monotonic()
+        if s.prefill_cursor is None:
+            committed = s.generated + [s.pending_token]
+            if (s.pending_token == p.eos_id
+                    or len(committed) >= p.max_new_tokens):
+                # the pending token already ends the request: finish it
+                # here (_preempt_lowest's close-out), nothing to resume
+                if req.on_token is not None and s.pending_token != p.eos_id:
+                    req.on_token(s.pending_token)
+                emitted = req.already_generated + committed
+                lps = (req.already_lp + s.lps) if p.logprobs else None
+                if emitted and emitted[-1] == p.eos_id:
+                    emitted = emitted[:-1]
+                    if lps:
+                        lps = lps[:-1]
+                    reason = "eos"
+                else:
+                    reason = "length"
+                self._record_tpot(s)
+                self._release_slot(s)
+                self._prune_fanout(req_id)
+                return Finished(req_id, emitted, req.orig_n_prompt, reason,
+                                logprobs=lps,
+                                timing=self._timing_of(req, s.t_first))
+            if req.on_token is not None:
+                # the pending token WILL be in the final output (the peer
+                # resumes past it): stream it now, exactly once
+                req.on_token(s.pending_token)
+        man = self.snapshot_sequence(req_id)
+        self._record_tpot(s)
+        chunking = s.prefill_cursor is not None
+        emitted = req.already_generated + (
+            [] if chunking else s.generated + [s.pending_token])
+        lps = None
+        if p.logprobs:
+            lps = req.already_lp + (
+                [] if chunking else s.lps[:len(s.generated) + 1])
+        self._release_slot(s)
+        self._prune_fanout(req_id)
+        return Finished(req_id, emitted, req.orig_n_prompt, "migrated",
+                        logprobs=lps, timing=self._timing_of(req, s.t_first),
+                        migration=man)
 
     @staticmethod
     def _queued_lps(req: Request):
@@ -1371,6 +1562,42 @@ class LLMEngine:
                 best = s
         return best
 
+    def _fabric_probe(self, req: Request, hashes: List[int],
+                      from_block: int) -> int:
+        """The admission ladder's peer-probe rung: pull the prompt's
+        leading run from a fleet holder into the host tier, so the
+        ordinary tier restore admits it. Priced before any network work:
+        no holders costs nothing, the budget is capped at the recompute
+        time it could save (the sentinel's projected rate), and a deadline
+        with less headroom than those savings skips the rung. Runs on the
+        loop thread, as the reference's does. Returns the blocks fetched
+        (0 = recompute); never raises."""
+        fab = self._kvfabric
+        if fab is None or from_block >= len(hashes):
+            return 0
+        want = hashes[from_block:]
+        holders = list(req.kv_holders) or fab.holders_for(want[0])
+        if not holders:
+            return 0
+        budget = fab.client.timeout_s
+        rate = float(getattr(self.obs.sentinel, "projected_per_s", 0.0)
+                     or 0.0)
+        if rate > 0.0:
+            savings = len(want) * self.ecfg.block_size / rate
+            budget = min(budget, savings)
+            if req.deadline_at and req.deadline_at - time.monotonic() \
+                    < savings:
+                return 0  # priced out: the headroom belongs to recompute
+        elif req.deadline_at:
+            budget = min(budget, req.deadline_at - time.monotonic())
+        t0 = time.monotonic()
+        got = fab.probe(want, holders, budget,
+                        traceparent=req.traceparent or None)
+        req.obs_extra["t_fabric"] = t0
+        req.obs_extra["fabric_probe_s"] = round(time.monotonic() - t0, 6)
+        req.obs_extra["fabric_blocks"] = float(got)
+        return got
+
     def _admit_cached(self) -> bool:
         """Admit the head request on its cached prefix (the reference's
         ``_admit_cached``): share the device-cached blocks, restore what
@@ -1402,6 +1629,14 @@ class LLMEngine:
         n_tier = self.cache.tier_prefix_len(hashes, len(cached))
         start = self._cached_start_for(n_total,
                                        (len(cached) + n_tier) * bs)
+        if start == 0 and self._kvfabric is not None:
+            # third rung (the KV fabric): device and tier came up cold, a
+            # fleet holder may have the run; the probe publishes into the
+            # tier, whose restore below admits it unchanged
+            if self._fabric_probe(req, hashes, len(cached)) > 0:
+                n_tier = self.cache.tier_prefix_len(hashes, len(cached))
+                start = self._cached_start_for(
+                    n_total, (len(cached) + n_tier) * bs)
         if start == 0:
             return False
         chunk_bucket = self._cached_chunk_bucket(n_total - start)

@@ -3,12 +3,15 @@
 Port of ``scalable_hw_agnostic_inference_tpu/engine/loop.py``
 (``EngineLoop`` with ``submit`` and its deadline and QoS tag,
 ``submit_group`` for the ``n > 1`` fan-out, ``cancel`` (a member of a
-group cancels the group), ``drain`` and ``stop``, and the idle hook
-``engine.finish_pending``, which the loop also runs on a clean exit, so a
-drained loop leaves no replay in flight). One daemon thread owns the engine (and through
-it the device); callers submit token-id prompts and wait on a future, so
-concurrent requests coalesce into the running batch. Live migration comes
-in a later slice.
+group cancels the group), ``drain`` and ``stop``, the drain-time
+``migrate_all``, and the idle hook ``engine.finish_pending``, which the
+loop also runs on a clean exit, so a drained loop leaves no replay in
+flight). One daemon thread owns the engine (and through it the device);
+callers submit token-id prompts and wait on a future, so concurrent
+requests coalesce into the running batch. A migration is a handshake:
+the drain thread sets ``_migrate_evt`` and waits on ``_migrate_done``,
+and the loop thread alone snapshots and finishes the requests between
+two steps.
 """
 
 from __future__ import annotations
@@ -39,6 +42,12 @@ class EngineLoop:
         self._poll_s = poll_s
         self._stop = threading.Event()
         self._draining = threading.Event()
+        # live migration: the drain thread arms _migrate_evt, the LOOP
+        # thread snapshots and finishes every live request (the engine has
+        # one owner), then sets _migrate_done
+        self._migrate_evt = threading.Event()
+        self._migrate_done = threading.Event()
+        self._migrate_count = 0  # loop-thread write, read after _done
         self._thread = threading.Thread(target=self._run, name="engine-loop",
                                         daemon=True)
 
@@ -83,12 +92,17 @@ class EngineLoop:
                params: Optional[SamplingParams] = None,
                on_token=None, deadline_at: float = 0.0,
                priority: int = PRIORITY_NORMAL, tenant: str = "",
-               traceparent: str = "", idem_key: str = "") -> Future:
+               traceparent: str = "", idem_key: str = "",
+               already_generated: Optional[Sequence[int]] = None,
+               already_lp: Optional[list] = None, orig_n_prompt: int = -1,
+               kv_holders: Optional[Sequence[str]] = None) -> Future:
         """Enqueue a request; the future resolves to a ``Finished``.
         ``on_token`` is called from the loop thread once per output token,
         in order, and must be cheap (put onto a queue, nothing more).
         ``deadline_at`` (absolute ``time.monotonic()``, 0 = none),
-        ``priority``, ``tenant``, ``traceparent`` and ``idem_key`` go to
+        ``priority``, ``tenant``, ``traceparent``, ``idem_key``, a resumed
+        request's ``already_generated``, ``already_lp`` and
+        ``orig_n_prompt``, and the fabric's ``kv_holders`` go to
         ``LLMEngine.add_request``."""
         if self._stop.is_set():
             raise RuntimeError("engine loop is stopped")
@@ -98,8 +112,12 @@ class EngineLoop:
         kw = {"deadline_at": deadline_at, "priority": priority,
               "tenant": tenant}
         # the trace context and idempotency key ride along when present
-        kw.update({k: v for k, v in (("traceparent", traceparent),
-                                     ("idem_key", idem_key)) if v})
+        kw.update({k: v for k, v in (
+            ("traceparent", traceparent), ("idem_key", idem_key),
+            ("already_generated", already_generated),
+            ("already_lp", already_lp), ("kv_holders", kv_holders)) if v})
+        if orig_n_prompt >= 0:
+            kw["orig_n_prompt"] = orig_n_prompt
         self._submit_q.put((list(prompt_ids), params or SamplingParams(),
                             on_token, kw, fut))
         # close the put-after-stop window: if the loop died between the
@@ -134,6 +152,47 @@ class EngineLoop:
         if self._stop.is_set():
             self._fail_all(RuntimeError("engine loop is stopped"))
         return futs
+
+    def migrate_all(self, timeout: float = 10.0) -> int:
+        """Drain-time live migration: refuse new submissions, then have the
+        LOOP thread finish every queued and running request as
+        ``"migrated"`` (manifest attached: the waiters ship it to a peer).
+        Blocks until the loop thread has swept or ``timeout`` expires;
+        called from the drain thread. Returns how many requests
+        migrated."""
+        self._draining.set()
+        if not self.alive:
+            return 0
+        self._migrate_done.clear()
+        self._migrate_evt.set()
+        if not self._migrate_done.wait(max(0.0, timeout)):
+            return 0
+        return self._migrate_count
+
+    def _do_migrate_all(self) -> None:
+        """Loop-thread half of :meth:`migrate_all`: snapshot and finish
+        every live request, resolving its future with the Finished. Runs
+        after the submit queue drained and with ``_draining`` set, so no
+        request slips in behind the sweep."""
+        n = 0
+        with self._futures_lock:
+            rids = list(self._futures)
+        for rid in rids:
+            try:
+                fin = self.engine.migrate_out(rid)
+            except Exception:
+                log.exception("migrate_out(%d) failed — request keeps "
+                              "running under the ordinary drain", rid)
+                continue
+            if fin is None:
+                continue  # unknown: the drain wait covers it
+            if fin.stop_reason == "migrated":
+                n += 1
+            with self._futures_lock:
+                fut = self._futures.pop(rid, None)
+            if fut is not None and not fut.done():
+                fut.set_result(fin)
+        self._migrate_count = n
 
     def cancel(self, fut: Future) -> None:
         """Ask the loop to abort a submitted request between steps; its
@@ -228,6 +287,12 @@ class EngineLoop:
                 # block for work only when idle; never between engine steps
                 self._drain_submissions(block=not self.engine.has_work)
                 self._drain_cancels()
+                if self._migrate_evt.is_set():
+                    self._migrate_evt.clear()
+                    try:
+                        self._do_migrate_all()
+                    finally:
+                        self._migrate_done.set()
                 if not self.engine.has_work:
                     # async decode: going idle can leave the final
                     # lookahead step in flight (every slot finished at its

@@ -1,10 +1,9 @@
 """Engine request/response dataclasses.
 
 Port of ``scalable_hw_agnostic_inference_tpu/engine/types.py``, field for
-field (``SamplingParams``, ``Request``, ``Finished``, ``_Running``). Fields
-whose features come in later slices (soft prefix, cross states,
-idempotency, KV holders, migration, tracing, fan-out) keep their names
-and defaults, and the engine leaves them unset.
+field (``SamplingParams``, ``Request``, ``Finished``, ``_Running``). The
+multimodal fields (soft prefix, cross states) keep their names and
+defaults for a later slice, and the engine leaves them unset.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """kvnet: network KV transport for disaggregated prefill/decode serving.
 
 Port of ``scalable_hw_agnostic_inference_tpu/kvnet/`` (``resolve_role``,
-``frames``, ``client``; the fleet directory and live migration come in a
-later slice). The host KV tier (``kvtier/``) stores blocks
-content-addressed by the same chain hashes as the device prefix cache;
-this package adds the wire between pods, so a *prefill* pod's warm KV
-feeds a *decode* pod's host tier:
+``frames``, ``client``, ``migrate``, ``directory``). The host KV tier
+(``kvtier/``) stores blocks content-addressed by the same chain hashes as
+the device prefix cache; this package adds the wire between pods, so a
+*prefill* pod's warm KV feeds a *decode* pod's host tier, a draining pod
+ships its in-flight requests to a peer, and a prefix warm on one pod is
+warm on every pod of the fabric:
 
 - :mod:`.frames` -- the length-prefixed binary frame codec, byte-exact
   and byte-compatible with a JAX pod's;
@@ -13,7 +14,13 @@ feeds a *decode* pod's host tier:
   per-peer circuit breaker, the peer allowlist and the ``kvnet.fetch``
   fault site; fetched blocks land in ``HostKVTier.store_batch`` and
   restore through the cache's ordinary ``restore_prefix``;
-- the pod-side ``GET /kv/blocks`` route lives in ``serve/app.py``.
+- :mod:`.migrate` -- live migration: the ``KVMG`` envelope (byte-compatible
+  with a JAX pod's), the resume inbox, the ship and the restore;
+- :mod:`.directory` -- the fleet KV fabric: the content-addressed holder
+  directory and the engine's peer-probe admission rung;
+- the pod-side routes (``GET /kv/blocks``, ``GET /kv/digests``,
+  ``POST /kv/pull``, ``POST /kv/protect``, ``POST /kv/migrate``) live in
+  ``serve/app.py``.
 
 Failure contract: every transport failure degrades to local recompute,
 never to a failed request; the degrade signal is

@@ -84,6 +84,17 @@ class ConnectError(ConnectionError):
     transport error is a read-phase failure, neither."""
 
 
+def http_connection(url: str, timeout: float):
+    """``(split url, unopened http.client connection)`` for an http(s) URL,
+    with ``timeout`` as its connect timeout: the one place the kvnet
+    transports (the pull, the ship, the fleet lookup) build a
+    connection."""
+    parts = urllib.parse.urlsplit(url)
+    cls = (http.client.HTTPSConnection if parts.scheme == "https"
+           else http.client.HTTPConnection)
+    return parts, cls(parts.hostname, parts.port, timeout=timeout)
+
+
 class KvNetStats:
     """The ``shai_kvnet_*`` counter families, shared by the fetch side
     (this client) and the serve side (``/kv/blocks`` in serve/app.py);
@@ -219,11 +230,7 @@ class KvNetClient:
         then each read within ``timeout_s``; a 200 body is read in pieces,
         cut off past ``max_bytes`` or the ``deadline`` (monotonic) with a
         ``FrameError``. A non-200 answer returns its status and no body."""
-        parts = urllib.parse.urlsplit(url)
-        cls = (http.client.HTTPSConnection if parts.scheme == "https"
-               else http.client.HTTPConnection)
-        conn = cls(parts.hostname, parts.port,
-                   timeout=self.connect_timeout_s)
+        parts, conn = http_connection(url, self.connect_timeout_s)
         try:
             try:
                 conn.connect()

@@ -14,8 +14,9 @@ dumps (``recent_steps``, each record with its ``finished_ids``), the
 watchdog's feed (``last_step_age_s``, ``step_duration_p99``), the bounded
 per-tenant attribution (``count_tenant_request``, ``note_tenant_ttft``,
 ``tenant_snapshot``, ``tenant_histograms``), ``pad_phase_snapshot``, and
-the slots the conformance instruments ride on (``slo``, ``sentinel``,
-``hbm``, ``qos_sched``). Stdlib only.
+the slots the conformance instruments and the KV planes ride on
+(``slo``, ``sentinel``, ``hbm``, ``qos_sched``, ``kvtier``, ``kvnet``,
+``migrate``, ``kvfabric``). Stdlib only.
 
 One difference from the reference: the async engine's step returns with
 a replay still in flight, so :meth:`StepTelemetry.record_step` takes the
@@ -119,6 +120,14 @@ class StepTelemetry:
         # and the /stats sections read them here
         self.kvtier = None
         self.kvnet = None
+        # live-migration counters (kvnet.migrate.MigrateStats), attached by
+        # every engine: the shai_migrate_* families export wherever a drain
+        # can ship or a peer can resume
+        self.migrate = None
+        # the KV fabric's probe counters (kvnet.directory.KvFabricStats),
+        # attached only when the fabric is armed: a fabric-off pod has no
+        # kvfabric section and no shai_kvfabric_* family
+        self.kvfabric = None
         # per-tenant attribution (bounded: MAX_TENANT_LABELS + "other")
         self._tenants: Dict[str, Dict[str, float]] = {}
         self._tenant_ttft: Dict[str, BucketHistogram] = {}

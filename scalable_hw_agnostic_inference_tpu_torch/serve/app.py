@@ -28,6 +28,15 @@ operating layer. The uniform surface:
   hash, as binary frames (``kvnet.frames``): the leading resident run
 - ``GET  /kv/digests[?head=]``    the host tier's chain-head advertisement,
   or one run's hashes
+- ``POST /kv/pull``               ``{"source", "head"}``: pull one advertised
+  run from a peer into this pod's tier (the fabric's replication; 404 with
+  the fabric off)
+- ``POST /kv/protect``            ``{"heads", "ttl_s"}``: defer the tier's
+  eviction of those runs
+- ``POST /kv/migrate``            one ``KVMG`` envelope (``kvnet.migrate``):
+  restore its run and bank its manifest for a ``{"resume": <handle>}``
+  replay; 429 with ``Retry-After`` while the inbox is saturated, 503 while
+  draining
 - the unit's infer route (``POST /generate`` for the vllm unit) and its
   ``extra_routes`` (the OpenAI routes)
 
@@ -42,11 +51,14 @@ lane's call runs under. A keyed infer request (``X-SHAI-Idempotency-Key``)
 replays or joins an earlier execution of its key instead of running twice.
 A streamed response holds its in-flight slot until the stream drains.
 SIGTERM (``serve_forever``) begins the drain: readiness flips, new work
-sheds with 503, in-flight requests finish within ``DRAIN_BUDGET_S``, the
-unit drains its engine loop, and the server stops; a pod whose host
-tier still banks handoff KV (``pending_handoff``, a prefill-role pod)
-keeps ``/kv/blocks`` serving until the budget ends, so that its peers can
-pull what it warmed. Model work runs on a thread pool (the "model lane"),
+sheds with 503, in-flight requests finish within ``DRAIN_BUDGET_S``; with
+migration armed (``SHAI_MIGRATE*``) the wait stops
+``SHAI_MIGRATE_RESERVE_S`` short of the budget and what still runs is
+shipped to a peer (the migrate phase), then the wait resumes; the unit
+drains its engine loop, and the server stops. A pod whose host tier
+still banks KV a peer may pull (``pending_handoff``: a prefill-role pod,
+or a migration whose peer must still pull blocks) keeps ``/kv/blocks``
+serving until the budget ends. Model work runs on a thread pool (the "model lane"),
 so the event loop keeps answering probes during a load or a long
 request.
 """
@@ -159,10 +171,47 @@ class ModelService:
         by ``/kv/blocks`` and the decode-role pull; None without a tier."""
         return None
 
+    # -- KV fabric (kvnet.directory) ---------------------------------------
+
     def affinity_heads(self) -> Optional[Dict[str, int]]:
         """Bounded affinity-digest -> chain-head map (``/stats`` ->
         ``kvtier.aff_heads``) for a fleet directory; None = no fabric
-        participation (the fabric comes in a later slice)."""
+        participation."""
+        return None
+
+    def fabric_pull(self, source: str, head: int) -> Optional[int]:
+        """Background replication (``POST /kv/pull``): resolve the run's
+        hashes through ``source``'s ``/kv/digests?head=`` and fetch it into
+        the local tier. Returns the blocks landed, or None when this pod
+        has no fabric (the route then 404s)."""
+        return None
+
+    # -- live migration (kvnet.migrate) ------------------------------------
+
+    def wants_migration(self) -> bool:
+        """True when the drain runs a migrate phase before the budget ends
+        (an engine-backed service with migration armed). Default False:
+        the wait-then-stop drain."""
+        return False
+
+    def migrate_inflight(self) -> int:
+        """Ship every request still running near the drain budget's end to
+        a peer (the engine snapshots each one; its waiter ships the
+        manifest and returns or streams the ``migrated`` handoff).
+        Returns how many requests entered migration."""
+        return 0
+
+    def accept_migration(self, manifest, entries):
+        """Accept one MIGRATE envelope (``POST /kv/migrate``): restore the
+        run into the local tier and bank the manifest for its replay.
+        Returns the ack, or None when this pod takes no migrations (the
+        route 404s). Raises ``kvnet.migrate.MigrateBusy`` when the inbox
+        is saturated (the route answers 429)."""
+        return None
+
+    def migrate_busy(self) -> Optional[float]:
+        """Retry-After seconds when the inbox is saturated (the route
+        answers 429 before it reads the envelope); None = accepting."""
         return None
 
     def pending_handoff(self) -> bool:
@@ -233,7 +282,8 @@ def create_app(cfg: ServeConfig, service: ModelService,
     # request timelines from the ring)
     app.trace_exclude |= {"/health/ready", "/debug/faults",
                           "/debug/conformance", "/profile", "/kv/blocks",
-                          "/kv/digests", "/trace/{trace_id}"}
+                          "/kv/migrate", "/kv/digests", "/kv/pull",
+                          "/kv/protect", "/trace/{trace_id}"}
     pub.attach_engine_telemetry(service.engine_telemetry)
     pub.attach_idempotency(lambda: idem)
     pub.attach_tenant_ledger(lambda: ledger)
@@ -422,16 +472,35 @@ def create_app(cfg: ServeConfig, service: ModelService,
         shed new work, let in-flight requests (streams included) finish
         up to the drain budget, drain the service (its engine loop), then
         ``on_done`` (the server's shutdown). Idempotent: one drain per
-        process. The reference's migrate phase (ship the long tail to a
-        peer before the budget ends) is inert here until the port has
-        live migration."""
+        process. In order: the wait up to the budget less the migrate
+        reserve, the migrate phase (when armed and work remains), the
+        wait, ``service.drain``, the handoff hold."""
         if not drainer.begin():
             return False
         log.warning("%s: draining (budget %.1fs) — readiness now 503",
                     cfg.app, drainer.budget_s)
 
         def _work():
-            clean = drainer.wait(lambda: _inflight_counts()[0] == 0)
+            idle = lambda: _inflight_counts()[0] == 0  # noqa: E731
+            migrated = 0
+            # the migrate phase: natural completion gets the budget less a
+            # reservation, then what still runs is shipped to a peer, so
+            # the pod's exit is a latency event for the long tail
+            if service.wants_migration():
+                from ..kvnet.migrate import migrate_reserve_s
+
+                if not drainer.wait(idle, min_remaining=migrate_reserve_s(
+                        drainer.budget_s)):
+                    try:
+                        migrated = service.migrate_inflight()
+                        if migrated:
+                            log.warning("%s: drain migrated %d in-flight "
+                                        "request(s) to a peer", cfg.app,
+                                        migrated)
+                    except Exception:
+                        log.exception("drain migrate phase failed — "
+                                      "falling back to the budget wait")
+            clean = drainer.wait(idle)
             if not clean:
                 log.warning("%s: drain budget expired with %d requests "
                             "in flight", cfg.app, _inflight_counts()[0])
@@ -439,12 +508,12 @@ def create_app(cfg: ServeConfig, service: ModelService,
                 service.drain(max(0.0, drainer.remaining_s))
             except Exception:
                 log.exception("service drain failed")
-            state["drained"] = {"clean": clean,
+            state["drained"] = {"clean": clean, "migrated": migrated,
                                 "seconds": drainer.budget_s
                                 - drainer.remaining_s}
-            # the handoff hold: a pod whose tier still banks handoff KV
-            # keeps its probe-class GET routes (/kv/blocks) serving until
-            # the budget ends, so peers can pull the runs it warmed
+            # the handoff hold: a pod whose tier still banks KV a peer may
+            # pull keeps its probe-class GET routes (/kv/blocks) serving
+            # until the budget ends
             try:
                 while service.pending_handoff() and drainer.remaining_s > 0:
                     time.sleep(0.05)
@@ -626,7 +695,9 @@ def create_app(cfg: ServeConfig, service: ModelService,
             out["engine"] = tele.snapshot()
             for sec, obj in (("slo", tele.slo), ("hbm", tele.hbm),
                              ("perf", tele.sentinel),
-                             ("kvtier", tele.kvtier)):
+                             ("kvtier", tele.kvtier),
+                             ("migrate", tele.migrate),
+                             ("kvfabric", tele.kvfabric)):
                 if obj is not None:
                     out[sec] = obj.snapshot()
         # warm-prefix advertisement (even tier-less: the device prefix
@@ -721,6 +792,102 @@ def create_app(cfg: ServeConfig, service: ModelService,
                 raise HTTPError(400, "head must be an integer chain hash")
             return {"head": head, "hashes": tier.run_hashes(head)}
         return {"adverts": tier.advertisement()}
+
+    @app.post("/kv/pull")
+    async def kv_pull(request: Request):
+        """Hot-prefix replication: pull one advertised run from ``source``
+        into this pod's tier (``{"source": url, "head": chain_hash}``).
+        Infrastructure route (no admission gate: background warmth, not
+        a request), refused while draining, 404 with the fabric off. The
+        fetch runs on the default executor."""
+        _require_ready()
+        if drainer.draining:
+            raise HTTPError(503, "pod is draining; pick another peer",
+                            headers={"retry-after": "1"})
+        body = request.json()
+        try:
+            source = str(body["source"])
+            head = int(body["head"])
+        except (ValueError, TypeError, KeyError):
+            raise HTTPError(400, "need {source: url, head: chain_hash}")
+        n = await asyncio.get_running_loop().run_in_executor(
+            None, service.fabric_pull, source, head)
+        if n is None:
+            raise HTTPError(404, "no KV fabric on this pod")
+        return {"fetched": int(n)}
+
+    @app.post("/kv/protect")
+    async def kv_protect(request: Request):
+        """Last-holder eviction deferral: the runs this pod is the fleet's
+        only advertised holder of (``{"heads": [chain_hash], "ttl_s":
+        s}``) are skipped by the tier's LRU for up to 60 s. Advisory
+        (capacity still wins), 404 without a tier."""
+        tier = service.kv_tier()
+        if tier is None:
+            raise HTTPError(404, "no host KV tier on this pod")
+        body = request.json()
+        try:
+            heads = [int(h) for h in body.get("heads", [])]
+            ttl_s = float(body.get("ttl_s", 5.0))
+        except (ValueError, TypeError, AttributeError):
+            raise HTTPError(400, "need {heads: [chain_hash], ttl_s: s}")
+        return {"protected": tier.protect(heads, min(ttl_s, 60.0))}
+
+    @app.post("/kv/migrate")
+    async def kv_migrate(request: Request):
+        """Live migration's accept: one MIGRATE envelope (manifest and
+        CRC-checked frames) restores into this pod's tier and banks the
+        manifest for its replay. Infrastructure route: no admission gate
+        (the request paid admission on the draining pod; the resume pays
+        this pod's), refused while draining, 429 with ``Retry-After``
+        while the inbox is saturated (before the body is decoded), and a
+        body cap of the manifest cap plus ``MAX_BLOCKS_PER_REQUEST``
+        blocks. The decode and restore run on the default executor."""
+        from ..kvnet import migrate as kv_migrate_mod
+        from ..kvnet.client import MAX_BLOCKS_PER_REQUEST
+
+        _require_ready()
+        if drainer.draining:
+            raise HTTPError(503, "pod is draining; pick another peer",
+                            headers={"retry-after": "1"})
+        busy_s = service.migrate_busy()
+        if busy_s is not None:
+            raise HTTPError(429, "migration inbox saturated; try "
+                                 "another peer",
+                            headers={"retry-after": f"{float(busy_s):g}"})
+        body = request.body
+        if not body:
+            raise HTTPError(400, "empty migration envelope")
+        tier = service.kv_tier()
+        max_body = kv_migrate_mod.MAX_MANIFEST_BYTES + (1 << 16)
+        if tier is not None:
+            max_body += MAX_BLOCKS_PER_REQUEST * tier.block_nbytes * 2
+        if len(body) > max_body:
+            raise HTTPError(400, f"migration envelope of {len(body)} "
+                                 f"bytes exceeds the {max_body}-byte cap")
+
+        def _accept():
+            manifest, entries = kv_migrate_mod.decode_migration(body)
+            if len(entries) > MAX_BLOCKS_PER_REQUEST:
+                raise kv_migrate_mod.MigrateError(
+                    f"envelope carries {len(entries)} blocks, cap is "
+                    f"{MAX_BLOCKS_PER_REQUEST}")
+            return service.accept_migration(manifest, entries)
+
+        try:
+            ack = await asyncio.get_running_loop().run_in_executor(
+                None, _accept)
+        except kv_migrate_mod.MigrateError as e:
+            raise HTTPError(400, f"bad migration envelope: {e}")
+        except kv_migrate_mod.MigrateBusy as e:
+            # the check-then-accept race, closed at the real accept
+            raise HTTPError(429, "migration inbox saturated; try "
+                                 "another peer",
+                            headers={"retry-after":
+                                     f"{e.retry_after_s:g}"})
+        if ack is None:
+            raise HTTPError(404, "this pod does not accept migrations")
+        return ack
 
     @app.get("/metrics")
     def metrics(request: Request):

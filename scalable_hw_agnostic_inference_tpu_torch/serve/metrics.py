@@ -20,7 +20,10 @@ label names and histogram buckets:
   :data:`CONFORMANCE_PREFIXES` (``shai_slo_*``, ``shai_hbm_*``,
   ``shai_perf_*``), and on an engine with a host KV tier the
   :data:`KVTIER_COUNTERS`, :data:`KVTIER_GAUGES` and
-  :data:`KVNET_COUNTERS` (``shai_kvtier_*``, ``shai_kvnet_*``);
+  :data:`KVNET_COUNTERS` (``shai_kvtier_*``, ``shai_kvnet_*``); the
+  :data:`MIGRATE_COUNTERS` (``shai_migrate_*``) on every engine, and the
+  :data:`KVFABRIC_COUNTERS` (``shai_kvfabric_*``) on an engine with the
+  fabric armed;
 - the per-tenant families (label ``tenant``): ``shai_tenant_requests_total``,
   ``shai_tenant_waiting``, ``shai_tenant_running`` and
   ``shai_tenant_ttft_seconds`` off the engine once a tenant tag was seen,
@@ -174,6 +177,50 @@ KVNET_COUNTERS = {
     "fallbacks": ("shai_kvnet_fallbacks",
                   "kvnet: fetches degraded to local recompute (open "
                   "breaker, transport failure, rejected frames)"),
+}
+#: live migration (``kvnet.migrate.MigrateStats.snapshot`` keys): the
+#: drain ladder's happy path (shipped, received, resumed), its
+#: degradations, and the storm guard's back-pressure
+MIGRATE_COUNTERS = {
+    "shipped": ("shai_migrate_shipped",
+                "migrate: in-flight requests shipped to a peer at drain"),
+    "received": ("shai_migrate_received",
+                 "migrate: migration envelopes accepted from peers"),
+    "resumed": ("shai_migrate_resumed",
+                "migrate: migrated sequences re-admitted and completed "
+                "on this pod"),
+    "failed": ("shai_migrate_failed",
+               "migrate: ship attempts that never landed on a peer"),
+    "fallbacks": ("shai_migrate_fallbacks",
+                  "migrate: ladder degradations (no peer, refused "
+                  "restore, unencodable blocks) — each one recomputed "
+                  "instead of failing"),
+    "busy": ("shai_migrate_peer_busy",
+             "migrate: 429 answers from saturated peers (inbox full or "
+             "at SHAI_MIGRATE_MAX_INBOUND) — back-pressure the shipper "
+             "routed around, never a failure"),
+}
+#: the KV fabric (``kvnet.directory.KvFabricStats.snapshot`` keys): rising
+#: stale_holders = the directory's TTL outlives the pools; rising
+#: remote_misses with flat stale_holders = holders unreachable
+KVFABRIC_COUNTERS = {
+    "probes": ("shai_kvfabric_probes",
+               "KV fabric: peer-probe admissions attempted (the ladder's "
+               "third rung)"),
+    "remote_hits": ("shai_kvfabric_remote_hits",
+                    "KV fabric: probes that landed a remote KV run"),
+    "remote_misses": ("shai_kvfabric_remote_misses",
+                      "KV fabric: probes that came up empty and "
+                      "recomputed"),
+    "replications": ("shai_kvfabric_replications",
+                     "KV fabric: hot-prefix runs pulled by background "
+                     "replication (/kv/pull)"),
+    "directory_size": ("shai_kvfabric_directory_size",
+                       "KV fabric: chain heads in this pod's local "
+                       "directory"),
+    "stale_holders": ("shai_kvfabric_stale_holders",
+                      "KV fabric: holders that answered but no longer "
+                      "held the advertised run"),
 }
 #: per-tenant attribution off the engine telemetry (bounded label set)
 TENANT_COUNTERS = {
@@ -332,6 +379,14 @@ def engine_families(out: Exposition, tele, app: str) -> None:
         snap = kvn.snapshot()
         for key, (name, doc) in KVNET_COUNTERS.items():
             out.counter(name, doc, [(lb, float(snap.get(key, 0)))])
+    # live migration on every engine; the fabric only where it is armed
+    for attr, table in (("migrate", MIGRATE_COUNTERS),
+                        ("kvfabric", KVFABRIC_COUNTERS)):
+        obj = getattr(tele, attr, None)
+        if obj is not None:
+            snap = obj.snapshot()
+            for key, (name, doc) in table.items():
+                out.counter(name, doc, [(lb, float(snap.get(key, 0)))])
     kvt = getattr(tele, "kvtier", None)
     if kvt is not None:
         snap = kvt.snapshot()

@@ -49,8 +49,27 @@ failure degrades to recompute), then admits as usual, restoring the run.
 With the prefix cache on, every served ``/generate`` prompt's affinity
 digest is advertised on ``/stats``. The drain closes the tier's copy-out
 worker and holds ``/kv/blocks`` open while a prefill pod's tier banks
-runs. Chat templates, images, the fleet KV fabric and migration come in
-later slices.
+runs.
+
+The fleet KV fabric and live migration (the reference's ``:289-305,
+350-410,474-477,544-556,659-854``): one ``MigrateClient`` (the fetch
+side's transport plus the ship) serves the pulls and the drain's ships,
+and a bounded ``MigrationInbox`` banks accepted manifests. On a
+fabric-armed engine, ``affinity_heads`` maps each served prompt's
+affinity digest to its chain head (``/stats`` -> ``kvtier.aff_heads``),
+``fabric_pull`` backs ``POST /kv/pull``, and ``/generate`` passes the
+request's ``kv_holders`` (at most 4) to the engine's probe. The drain's
+migrate phase (``wants_migration``, ``migrate_inflight``) has the loop
+finish every live request as ``migrated``; each waiter then ships its
+manifest and banked run (``_migrated_handoff``, after the tier's copy-out
+drained) and answers ``{"migrated": true, "peer", "resume", ...}``, a 503
+with ``x-shai-migrate-peer`` on the OpenAI routes, or an in-band
+``migrated`` record on a stream. A peer's ``POST /kv/migrate`` lands in
+``accept_migration`` (429 while ``migrate_busy``), and ``{"resume":
+<handle>}`` on ``/generate`` (``_resume_migrated``) re-admits the
+manifest once and returns the whole output. The drain also holds
+``/kv/blocks`` open while a shipped run is still to be pulled
+(``_pending_pull``). Chat templates and images come in later slices.
 """
 
 from __future__ import annotations
@@ -60,7 +79,9 @@ import json
 import logging
 import os
 import queue
+import threading
 import time
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -68,8 +89,9 @@ import torch
 from ...core.device import resolve_device
 from ...engine.config import EngineConfig
 from ...engine.types import K_LOGPROBS
+from ...engine.cache import PagedKVCache
+from ...kvnet import migrate as migmod
 from ...kvnet import resolve_role
-from ...kvnet.client import KvNetClient
 from ...kvtier.affinity import AffinityTracker, prompt_affinity
 from ...models.generate import ByteTokenizer
 from ...models.convert import load_hf_checkpoint
@@ -141,8 +163,15 @@ class VllmService(ModelService):
         # the pod's role, advertised on /stats before the engine exists;
         # the transport attaches in load() once the tier does
         self.role = resolve_role(self.ecfg.role if self.ecfg else "both")
-        self._kvnet: Optional[KvNetClient] = None
+        self._kvnet: Optional[migmod.MigrateClient] = None
         self._kvnet_stats = None
+        # live migration: accepted, unreplayed manifests (exactly-once),
+        # and the latch of a ship whose peer may still pull blocks
+        self._migrate_inbox: Optional[migmod.MigrationInbox] = None
+        self._pending_pull = False
+        # KV fabric: affinity digest -> chain head of the served prompts
+        self._aff_lock = threading.Lock()
+        self._aff_heads: "OrderedDict[str, int]" = OrderedDict()
 
     @staticmethod
     def _resolve_ecfg(cfg: ServeConfig) -> EngineConfig:
@@ -247,11 +276,15 @@ class VllmService(ModelService):
         self._SamplingParams = SamplingParams
         # the network KV plane: with a host tier, /kv/blocks serves it and
         # a kv_peer request pulls into it; ONE stats object (the engine's,
-        # on its telemetry seam) counts both directions
+        # on its telemetry seam) counts both directions. ONE client pulls
+        # and ships, built tier-less too: a pod without a tier still ships
+        # manifest-only migrations and resumes them by recompute
         self.role = engine.role   # env-resolved: engine and unit agree
         self._kvnet_stats = engine.obs.kvnet
-        if engine.cache.tier is not None:
-            self._kvnet = KvNetClient(engine.cache.tier, self._kvnet_stats)
+        self._kvnet = migmod.MigrateClient(engine.cache.tier,
+                                           self._kvnet_stats,
+                                           mstats=engine.obs.migrate)
+        self._migrate_inbox = migmod.MigrationInbox()
         self.loop = EngineLoop(engine).start()
         # step watchdog (liveness): work pending but no step retiring for
         # max(SHAI_WATCHDOG_MIN_S, SHAI_WATCHDOG_MULT x p99 step) fails
@@ -288,6 +321,9 @@ class VllmService(ModelService):
             tier.close(max(0.5, budget_s - (time.monotonic() - t0)))
         if self._kvnet is not None:
             self._kvnet.close()
+        fab = self._fabric()
+        if fab is not None:
+            fab.close()   # the fabric probe's own transport
 
     def engine_telemetry(self):
         return None if self._engine is None else self._engine.obs
@@ -304,11 +340,66 @@ class VllmService(ModelService):
         return self._affinity.snapshot()
 
     def pending_handoff(self) -> bool:
-        """A prefill-role pod's tier banks the runs its peers pull: the
-        drain holds ``/kv/blocks`` open while it holds any."""
+        """The drain holds ``/kv/blocks`` open while the tier banks KV a
+        peer may pull: a prefill-role pod's runs, or a shipped migration
+        whose peer restored less than the run (``_pending_pull``). Gated
+        on banked state, so a pod that drained clean exits promptly."""
         tier = self.kv_tier()
-        return (tier is not None and tier.n_entries > 0
-                and self.role == "prefill")
+        if tier is None or tier.n_entries == 0:
+            return False
+        return self.role == "prefill" or self._pending_pull
+
+    # -- KV fabric (kvnet.directory) -----------------------------------------
+
+    def _fabric(self):
+        return None if self._engine is None else self._engine._kvfabric
+
+    def affinity_heads(self) -> Optional[Dict[str, int]]:
+        # affinity digest -> chain head: lets a router that sees prompts
+        # but no token ids resolve its digest to the directory's key
+        if self._fabric() is None:
+            return None
+        with self._aff_lock:
+            return dict(self._aff_heads)
+
+    def fabric_pull(self, source: str, head: int) -> Optional[int]:
+        """Background replication: ask ``source`` for the run headed by
+        ``head`` and warm it into the local tier. Returns the blocks
+        fetched, or None when this pod has no fabric."""
+        fab = self._fabric()
+        if fab is None or self._kvnet is None:
+            return None
+        listing = self._kvnet.fetch_digests(str(source), head=int(head))
+        if not isinstance(listing, dict):
+            return 0
+        try:
+            hashes = [int(h) for h in listing.get("hashes") or []]
+        except (TypeError, ValueError):
+            return 0
+        if not hashes:
+            return 0
+        n = self._kvnet.fetch_run(str(source), hashes)
+        if n > 0:
+            fab.stats.count("replications")
+        return n
+
+    def _note_affinity(self, prompt: str, ids) -> None:
+        """Advertise a served prompt's warmth: its affinity digest, and on
+        a fabric-armed pod the digest's chain head (the first full
+        block's hash; none for a prompt shorter than a block)."""
+        aff = prompt_affinity(prompt)
+        self._affinity.note(aff)
+        if self._fabric() is None:
+            return
+        bs = self._engine.ecfg.block_size
+        if len(ids) < bs:
+            return
+        head = PagedKVCache._chain_hashes(list(ids)[:bs], bs)[0]
+        with self._aff_lock:
+            self._aff_heads[aff] = int(head)
+            self._aff_heads.move_to_end(aff)
+            while len(self._aff_heads) > 256:
+                self._aff_heads.popitem(last=False)
 
     def _encode(self, text: str) -> List[int]:
         """Ids with BOS, cut to the engine's chunked-prefill cap (not the
@@ -359,6 +450,10 @@ class VllmService(ModelService):
         return params
 
     def infer(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        if payload.get("resume"):
+            # the replay of a migrated handoff: the manifest carries the
+            # prompt, so no 'prompt' field is needed
+            return self._resume_migrated(str(payload["resume"]))
         if "prompt" not in payload and "text" not in payload:
             raise HTTPError(400, "missing 'prompt'")
         if payload.get("image_b64"):
@@ -380,13 +475,20 @@ class VllmService(ModelService):
                                payload.get("kv_hashes_len"), ids,
                                prompt=prompt,
                                digest=str(payload.get("kv_digest") or ""))
+        # the KV fabric: a holder slice riding the payload is a hint the
+        # engine's probe tries under its budget; bounded and stringified
+        # here, each URL checked by the transport's allowlist
+        kv_holders = payload.get("kv_holders")
+        kv_holders = ([str(u) for u in kv_holders[:4]]
+                      if isinstance(kv_holders, (list, tuple)) else None)
         out = self._collect(self.loop.submit(
             ids, params, deadline_at=self._deadline_at(),
             traceparent=obs_trace.current_traceparent() or "",
-            idem_key=str(payload.get("idem_key") or ""), **self._qos_kw()))
+            idem_key=str(payload.get("idem_key") or ""),
+            kv_holders=kv_holders, **self._qos_kw()))
         if self._engine.cache.prefix_caching:
             # advertise warmth only for /generate, after it served
-            self._affinity.note(prompt_affinity(prompt))
+            self._note_affinity(prompt, ids)
         return out
 
     def _prefill_handoff(self, prompt: str, ids) -> Dict[str, Any]:
@@ -415,7 +517,7 @@ class VllmService(ModelService):
                 log.warning("kvnet: tier drain after prefill failed",
                             exc_info=True)
         if eng.cache.prefix_caching:
-            self._affinity.note(prompt_affinity(prompt))
+            self._note_affinity(prompt, ids)
         return {
             "kv_ready": bool(kv_ready),
             "digest": prompt_affinity(prompt),
@@ -454,6 +556,156 @@ class VllmService(ModelService):
             n = self._kvnet.fetch_run(peer, hashes, budget_s=budget)
             sp.set(blocks=int(n), blocks_wanted=len(hashes))
             return n
+
+    # -- live migration (kvnet.migrate) --------------------------------------
+
+    def wants_migration(self) -> bool:
+        return self.loop is not None and migmod.migration_enabled()
+
+    def migrate_inflight(self) -> int:
+        """The drain's migrate phase: the engine loop finishes every live
+        request as ``migrated`` (manifest attached); the threads waiting
+        on those futures ship the manifests and answer with the handoff
+        records, outside every engine structure."""
+        if self.loop is None:
+            return 0
+        return self.loop.migrate_all(timeout=10.0)
+
+    def _migrated_handoff(self, fin) -> Dict[str, Any]:
+        """Ship one migrated request to a peer and shape the handoff record
+        the caller returns or streams. Every failure degrades down the
+        ladder (a record without a ``resume`` handle tells the client to
+        replay cold) and is counted; never raises."""
+        eng = self._engine
+        mstats = eng.obs.migrate
+        man = dict(fin.migration or {})
+        own = (env_str("SHAI_KVNET_PEER_URL", "") or "").strip()
+        peer = ""
+        ack = None
+        try:
+            # several candidates: a busy survivor means the next one
+            peers = migmod.resolve_migrate_peers(own)
+            if man and peers:
+                if own:
+                    # the warm-pull rung: this pod keeps /kv/blocks open
+                    # through the drain
+                    man.setdefault("source_url", own)
+                entries = []
+                tier = eng.cache.tier
+                if tier is not None and man.get("hashes"):
+                    # the snapshot's demotion copies out asynchronously:
+                    # the run must have landed on the host before it is
+                    # read (a failed drain only shortens the run shipped)
+                    try:
+                        tier.drain()
+                    except Exception:
+                        log.warning("migrate: tier drain before the ship "
+                                    "failed", exc_info=True)
+                    entries = tier.get_run([int(h) for h in man["hashes"]])
+                with obs_trace.span("migrate_ship", annotation=False):
+                    landed = self._kvnet.ship_any(peers, man, entries)
+                if landed is not None:
+                    peer, ack = landed
+        except Exception:
+            log.exception("migrate ship failed — degrading to client "
+                          "replay")
+            ack = None
+        if ack is None:
+            # cold rung: no peer took the manifest, the client replays
+            mstats.count_fallback()
+        elif (own and man.get("hashes")
+                and int(ack.get("restored") or 0) < len(man["hashes"])):
+            # the peer took the manifest but not the whole run and knows
+            # our /kv/blocks: hold the drain's server open for its pull
+            self._pending_pull = True
+        return {
+            "migrated": True,
+            "peer": peer or "",
+            "resume": (ack or {}).get("resume"),
+            "restored": int((ack or {}).get("restored") or 0),
+            "n_sent": len(fin.token_ids),
+            "generated_text": self._decode(fin.token_ids),
+            "n_prompt": fin.n_prompt,
+            "stop_reason": "migrated",
+        }
+
+    def _resume_migrated(self, rid: str) -> Dict[str, Any]:
+        """``{"resume": <handle>}`` on ``/generate``: pop the banked
+        manifest (exactly once: a retried handoff reads 404 and the caller
+        replays cold), re-admit it with the preemption-resume semantics,
+        and return the COMPLETE output, the tokens before the migration
+        included."""
+        man = (self._migrate_inbox.pop(rid)
+               if self._migrate_inbox is not None else None)
+        if man is None:
+            raise HTTPError(404, "unknown or already-resumed migration "
+                                 "handle; replay the original prompt")
+        pr = man.get("params") or {}
+        try:
+            params = self._SamplingParams(
+                temperature=float(pr.get("temperature", 0.0)),
+                top_k=int(pr.get("top_k", 0)),
+                top_p=float(pr.get("top_p", 1.0)),
+                max_new_tokens=max(1, int(pr.get("max_new_tokens", 1))),
+                eos_id=int(pr.get("eos_id", self.eos_id)),
+                logprobs=int(pr.get("logprobs", 0)))
+            ids = [int(t) for t in man.get("prompt_ids") or []]
+            already = [int(t) for t in man.get("generated") or []]
+            priority = int(man.get("priority", 1))
+            n_prompt = int(man.get("n_prompt", -1))
+            dl_ms = float(man.get("deadline_ms") or 0.0)
+        except (TypeError, ValueError) as e:
+            raise HTTPError(400, f"bad migration manifest: {e}")
+        if not ids:
+            raise HTTPError(400, "migration manifest has no prompt")
+        deadline_at = (time.monotonic() + dl_ms / 1000.0
+                       if dl_ms > 0 else self._deadline_at())
+        with obs_trace.span("migrate_resume", annotation=False):
+            out = self._collect(self.loop.submit(
+                ids, params, deadline_at=deadline_at, priority=priority,
+                tenant=str(man.get("tenant") or ""),
+                already_generated=already, already_lp=man.get("lps"),
+                orig_n_prompt=n_prompt,
+                traceparent=obs_trace.current_traceparent() or "",
+                idem_key=str(man.get("idem_key") or "")))
+        if out.get("migrated"):
+            # this pod's own drain migrated the replay again: not a resume
+            return out
+        self._engine.obs.migrate.count("resumed")
+        out["resumed"] = True
+        return out
+
+    def accept_migration(self, manifest, entries):
+        """``POST /kv/migrate``: restore the shipped run into the local tier
+        (or pull it from the manifest's ``source_url``) and bank the
+        manifest for its replay. The restore is best effort: a refused one
+        still accepts the manifest, and the resume recomputes."""
+        if self._engine is None or self._migrate_inbox is None \
+                or self.loop is None:
+            return None
+        if not isinstance(manifest, dict) or not manifest.get("prompt_ids"):
+            raise migmod.MigrateError("manifest has no prompt_ids")
+        # the storm guard: at the inbound cap (or a full inbox) answer 429
+        if not self._migrate_inbox.begin_accept(
+                migmod.migrate_max_inbound()):
+            raise migmod.MigrateBusy()
+        eng = self._engine
+        try:
+            restored = migmod.restore_entries(
+                eng.cache.tier, manifest, entries, eng.obs.migrate,
+                kvnet=self._kvnet)
+            rid = self._migrate_inbox.put(manifest)
+            eng.obs.migrate.count("received")
+            return {"accepted": True, "resume": rid,
+                    "restored": int(restored)}
+        finally:
+            self._migrate_inbox.end_accept()
+
+    def migrate_busy(self) -> Optional[float]:
+        if self._migrate_inbox is None:
+            return None
+        return 1.0 if self._migrate_inbox.saturated(
+            migmod.migrate_max_inbound()) else None
 
     @staticmethod
     def _deadline_at() -> float:
@@ -495,6 +747,10 @@ class VllmService(ModelService):
         if tr is not None and fin.timing:
             tr.add_phase_spans(fin.timing, parent=obs_trace.current_span())
             tr.root.attrs.setdefault("engine_req_id", fin.req_id)
+        if fin.stop_reason == "migrated":
+            # the drain's migrate phase: ship the snapshot and hand the
+            # caller the record to replay on the peer
+            return self._migrated_handoff(fin)
         if fin.stop_reason == "rejected":
             raise HTTPError(503, "request rejected: prompt cannot fit the KV "
                                  "pool")
@@ -596,6 +852,15 @@ class VllmService(ModelService):
                     if not fut.done():
                         self.loop.cancel(fut)
                 raise
+        for out in outs:
+            if out.get("migrated"):
+                # the OpenAI shape has no handoff: a retryable 503 naming
+                # the peer, not a silently cut completion
+                raise HTTPError(
+                    503, "request migrated to a peer mid-drain; retry "
+                         "against it",
+                    headers={"retry-after": "1",
+                             "x-shai-migrate-peer": out.get("peer") or ""})
         stop = body.get("stop")
         # falsy stops are dropped: '' would cut everything at position 0
         stops = [s for s in
@@ -758,6 +1023,18 @@ class VllmService(ModelService):
                     req_trace.add_phase_spans(fin.timing, parent=req_span)
                     req_trace.root.attrs.setdefault("engine_req_id",
                                                     fin.req_id)
+                if fin.stop_reason == "migrated":
+                    # the drain's migrate phase mid-stream: the tokens sent
+                    # stand, and the in-band record names the peer and the
+                    # handle the client replays, whose output continues
+                    # the stream token for token
+                    handoff = self._migrated_handoff(fin)
+                    yield ("data: " + json.dumps({"migrated": {
+                        "peer": handoff["peer"],
+                        "resume": handoff["resume"],
+                        "n_sent": handoff["n_sent"]}}) + "\n\n")
+                    yield "data: [DONE]\n\n"
+                    return
                 if fin.stop_reason == "rejected":
                     yield error("request rejected: prompt cannot fit the "
                                 "KV pool", "server_error")

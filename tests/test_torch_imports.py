@@ -5,7 +5,8 @@ package, and it runs on the card unless it is asked for the CPU.
   import of ``jax``, ``jaxlib``, ``flax``, ``prometheus_client``,
   ``scalable_hw_agnostic_inference_tpu``, or of a package the machine with
   the card lacks (``transformers``, ``safetensors``, ``tokenizers``,
-  ``tiktoken``, ``regex``, ``jinja2``, ``sentencepiece``, ``ml_dtypes``);
+  ``tiktoken``, ``regex``, ``jinja2``, ``sentencepiece``, ``ml_dtypes``,
+  ``httpx``);
 - a fresh interpreter that imports every port module holds no more
   ``jax*``/``flax*`` modules than a bare interpreter does (an interpreter
   may preload JAX at start-up, so the check is relative);
@@ -36,7 +37,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "prometheus_client",
              "regex", "jinja2", "sentencepiece",
              # nor is ml_dtypes: the kvnet frame codec decodes bfloat16
              # frames into 16-bit words of its own
-             "ml_dtypes")
+             "ml_dtypes",
+             # nor is httpx: the kvnet pull, the migration ship and the
+             # fleet lookup speak HTTP through the standard library
+             "httpx")
 
 
 def _modules():
@@ -341,3 +345,52 @@ def test_serve_config_fields_pinned_against_the_reference():
         if name not in ("device", "artifact_root"):
             assert getattr(tdef, name) == getattr(jdef, name), name
     assert (jdef.device, tdef.device) == ("tpu", "cuda")
+
+
+#: the fleet KV fabric and live migration (kvnet/directory.py,
+#: kvnet/migrate.py) and the modules that call them
+KVNET_MODULES = (
+    "scalable_hw_agnostic_inference_tpu_torch.kvnet",
+    "scalable_hw_agnostic_inference_tpu_torch.kvnet.client",
+    "scalable_hw_agnostic_inference_tpu_torch.kvnet.directory",
+    "scalable_hw_agnostic_inference_tpu_torch.kvnet.migrate",
+)
+#: public names the port's kvnet modules keep beside the reference's: the
+#: byte cap on a ship's answer, which the reference leaves to httpx
+PORT_ONLY_KVNET_NAMES = {"migrate": {"MAX_ACK_BYTES"}}
+
+
+def _public_names(path: Path):
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("module", ["__init__", "directory", "migrate"])
+def test_kvnet_modules_keep_the_reference_names(module):
+    """The port's ``kvnet`` modules define the reference's public names
+    (classes, functions, constants), and only those beside the listed
+    port-only ones."""
+    ref = REPO / "scalable_hw_agnostic_inference_tpu" / "kvnet"
+    port_names = _public_names(PORT_ROOT / "kvnet" / f"{module}.py")
+    ref_names = _public_names(ref / f"{module}.py")
+    assert ref_names <= port_names, ref_names - port_names
+    assert port_names - ref_names == PORT_ONLY_KVNET_NAMES.get(module, set())
+
+
+def test_kvnet_modules_are_scanned_and_load_no_jax_or_httpx():
+    scanned = {n for _, n in _modules()}
+    assert set(KVNET_MODULES) <= scanned
+    assert _forbidden_imports(
+        [PORT_ROOT / "kvnet" / "directory.py",
+         PORT_ROOT / "kvnet" / "migrate.py"]) == []
+    heads = ("jax", "jaxlib", "flax", "httpx", "prometheus_client")
+    code = _PROBE % (heads, list(KVNET_MODULES), heads)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -535,6 +535,12 @@ def test_drain_sequence_last(pods):
     # the port's loop left no replay in flight behind it
     assert pods.service._engine._pipe is None
     assert pods.tsrv.app.state["status"]["drained"]["clean"] is True
+    # migration is not armed on these pods: the drain's migrate phase
+    # stayed inert (nothing shipped, every request finished in place)
+    assert not pods.service.wants_migration()
+    assert pods.tsrv.app.state["status"]["drained"]["migrated"] == 0
+    mig = pods.service._engine.obs.migrate.snapshot()
+    assert mig["shipped"] == mig["fallbacks"] == 0
 
 
 def test_serve_config_reads_the_resilience_env_like_the_reference(
