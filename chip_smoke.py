@@ -15,7 +15,10 @@ Phases:
                 sizes 8 and 24 and a group of 32 heads; B2 must return
                 exactly B3's output with ``rows_per_table`` 1, and the
                 split count and the in-kernel merge are measured against
-                the alternatives;
+                the alternatives; and speculative verify's shape (8
+                sequences x k+1 = 5 rows over their tables repeated,
+                lengths 1 to 2048), timed beside a bound of the unique
+                bytes read;
   5. ``ragged`` the same for B3 (ragged paged attention) over bf16 and
                 int8 pools at decode (split-K) and chunked-prefill
                 continuation shapes (one table row shared through
@@ -24,7 +27,8 @@ Phases:
                 step's mixed rows (one launch over row groups: 8 decode
                 rows, lengths 1 to 4096, and a 512-token chunk at starts
                 0, 512 and 2560, M=256), timed beside the decode-only and
-                chunk-only launches it replaces;
+                chunk-only launches it replaces; the verify shape over
+                bf16 and int8 pools;
   6. ``int8_matmul`` B4, the W8A16 kernel (int8 weight-only
                 projections, ``csrc/int8_matmul.cu``), against its plain
                 version, the reference's ``(x @ Wq^T) * scale`` in bf16, at
@@ -49,7 +53,12 @@ Phases:
                 draws, bit for bit; fresh draws per replay; wall and
                 device time per step, eager against replay, launches per
                 step, capture time and the graph pool's bytes; the
-                readout's own device time at serve's shape;
+                readout's own device time at serve's shape; then one
+                speculative verify key of each (``runner.make_verify``,
+                k=4, 40 rows): every output (``o``, ``oex``, ``accept_p``
+                and the logprob readout) of the replay against the eager
+                call on the same inputs and both sets of draws, bit for
+                bit, its device time beside the decode key's;
   8. ``engine`` the engine at Llama-3-8B widths with seeded random weights,
                 warmed (every decode key captured), one prompt chunked
                 through the static-start continuation, half the rows
@@ -69,10 +78,29 @@ Phases:
                 top-2 logprobs (``TIE_GAP``), B3 exactly the layers times
                 the fused and chunk-only replays (no continuation
                 function, no eager continuation launch);
- 11. ``engine_int8`` the engine phase's model quantized at boot
+ 11. ``engine_spec`` the engine phase's model with speculative decoding
+                (``[ngram]``, k=4, lookup 4 to 1): its prompts and a
+                quoting one (bench.py's repetitive shape, 1,024 tokens,
+                after 16 tokens of the model's own greedy continuation of
+                it), 32 greedy tokens each, and one sampled request;
+                bucketed bf16, then
+                ragged + int8 KV: async equal to lock-step (every token and
+                logprob entry), the greedy tokens against the spec-off
+                engine by the tie rule (its gap ``TIE_GAP`` or twice the
+                logprob change measured between the two runs, whichever
+                is larger; int8: the int8 rule against its argmax hits)
+                and the plain scoring forward by ``TIE_TOL``; B2/B3
+                exactly the layers times the decode and verify replays
+                (and the chunks), 0 recompiles, no leaked block, a
+                rollback; acceptance, tokens per verify,
+                the verify replay's device time against a decode
+                replay's, TPOT spec on and off;
+ 12. ``engine_int8`` the engine phase's model quantized at boot
                 (``ops.quant.quantize_state_dict``): one captured decode
-                step against its eager call, bit for bit, with 225 int8
-                launches (7 x 32 projections and the lm_head); then the
+                step and one captured verify step against their eager
+                calls, bit for bit, each with 225 int8 launches (7 x 32
+                projections and the lm_head; the verify's 40 rows through
+                B4's decode instantiation); then the
                 engine bucketed (scored by the engine phase's tie rule)
                 and under ``SHAI_RAGGED_ATTENTION=1 SHAI_KV_QUANT=int8``
                 (engine_ragged's int8 rule), async equal to lock-step,
@@ -80,7 +108,7 @@ Phases:
                 B4's wide instantiation, scored through the int8 model's
                 plain route; then fused (every fused replay's window
                 through the wide instantiation inside the graph);
- 12. ``checkpoint`` a seeded Llama-3.2-1B-width checkpoint written here
+ 13. ``checkpoint`` a seeded Llama-3.2-1B-width checkpoint written here
                 (bf16, tied embeddings, two safetensors shards under HF
                 names, llama3 rope scaling, a byte-level BPE
                 ``tokenizer.json`` built here in Llama-3's layout), served
@@ -89,7 +117,7 @@ Phases:
                 ones, ``/generate`` and ``/v1/completions`` answer, greedy
                 tokens equal an engine built from the same state dict;
                 load seconds and GB/s;
- 13. ``engine_prefix`` the engine phase's model with
+ 14. ``engine_prefix`` the engine phase's model with
                 ``enable_prefix_caching`` and ``SHAI_KVTIER=1`` over a
                 160-block pool, one request at a time: a 1,024-token
                 shared prefix cold, as a device hit (a 100-token
@@ -103,7 +131,7 @@ Phases:
                 0 recompiles, no leaked block; TTFT of each admission, the
                 restore's GB/s and a 64-block copy-out's ms, pinned and
                 pageable;
- 14. ``serve_disagg`` a prefill-role, a decode-role and a monolithic pod
+ 15. ``serve_disagg`` a prefill-role, a decode-role and a monolithic pod
                 on one seeded Llama-3.2-1B-width directory (written by the
                 checkpoint phase's writer), in this process over
                 localhost, each with the prefix cache and the tier: each
@@ -113,7 +141,7 @@ Phases:
                 an injected ``kvnet.fetch`` fault recomputing with a 200;
                 the pull's GB/s and share of TTFT, the ``shai_kvnet_*`` and
                 ``shai_kvtier_*`` families;
- 15. ``serve_fleet`` the fleet KV fabric and live migration on
+ 16. ``serve_fleet`` the fleet KV fabric and live migration on
                 serve_disagg's 1B directory, every pod in this process over
                 localhost: a prefill pod banks 1,250-token runs and a pod
                 armed with ``SHAI_KVFABRIC_PEERS`` naming it admits the
@@ -135,7 +163,7 @@ Phases:
                 bytes, ship and accept seconds, the restore, cut to the
                 resumed request's next token beside a recompute's TTFT,
                 the probe's seconds, blocks and GB/s, the step it ran in;
- 16. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
+ 17. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
                 its closed set warmed before readiness) and answer 8
                 concurrent ``POST /generate``; then an OpenAI round: 8
                 concurrent streamed ``POST /v1/completions`` (the client's
@@ -145,18 +173,28 @@ Phases:
                 give a uniform distribution), an expired
                 ``X-SHAI-Deadline-Ms`` (504) and a ``/metrics`` scrape
                 holding the ``shai_*`` contract families;
- 17. ``serve_int8`` serve's tier, requests and switches with
+ 18. ``serve_int8`` serve's tier, requests and switches with
                 ``QUANTIZATION=int8`` (born int8): the weights pool exactly
                 8,561,882,112 bytes, 225 int8 launches per replay, B4's
                 decode and wide launches counted, beside serve's numbers;
- 18. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
+ 19. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
                 SHAI_KV_QUANT=int8`` and an engine ConfigMap of
                 ``max_model_len`` 4096: two of the 8 prompts chunk;
- 19. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
+ 20. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
                 (the chunks ride the fused graphs' replays), then one
                 ``n=4`` completion admitted as one prefill with 3
                 copy-on-write forks; its numbers beside serve_ragged's;
- 20. ``serve_ops`` serve's configuration under the operating layer
+ 21. ``serve_spec`` ``llama-8b-geometry`` with ``speculative_model:
+                "[ngram]"`` and ``num_speculative_tokens: 4`` in its
+                ConfigMap (``SERVE_SPEC_CONFIG``), ``BATCH_SIZE=8``: 8
+                concurrent ``POST /generate`` of 128-token repetitive
+                prompts asking for 128 greedy tokens, then the same round
+                on the unit with speculation off: every token id 0 in both
+                (zero weights), ``shai_spec_*`` on ``/metrics`` and the
+                counters on ``/stats`` equal to the engine's, 0
+                recompiles; tokens per verify, TPOT and the device busy
+                share beside spec off;
+ 22. ``serve_ops`` serve's configuration under the operating layer
                 (``SERVE_OPS_ENV``: ``MAX_INFLIGHT=8``, tracing, the fault
                 endpoint armed, a perf projection of 50 tok/s over a 5 s
                 window, a 2 s watchdog floor, a 60 s drain budget): the
@@ -188,7 +226,8 @@ A full run prints the card's name and power limit, then, second to last,
 replaces, launches in the serve phase that runs it, max error,
 kernel/plain/bound/library times, and its launches at the cached callers
 of engine_prefix, serve_disagg and serve_fleet; B3 also its fused
-mixed-row launch;
+mixed-row launch; B2 and B3 their verify shape and verify replays'
+launches, in serve_spec and engine_spec (b);
 B4's decode and wide instantiations, which replace XLA's fused int8 dot
 and no Pallas kernel, ``tpu_kernel: null``, bf16 ``F.linear`` as their
 library time and the replaced route's time) and,
@@ -218,9 +257,9 @@ from pathlib import Path
 
 PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
           "decode_graph", "engine", "engine_ragged", "engine_fused",
-          "engine_int8", "checkpoint", "engine_prefix", "serve_disagg",
-          "serve_fleet", "serve", "serve_int8", "serve_ragged",
-          "serve_fused", "serve_ops")
+          "engine_spec", "engine_int8", "checkpoint", "engine_prefix",
+          "serve_disagg", "serve_fleet", "serve", "serve_int8",
+          "serve_ragged", "serve_fused", "serve_spec", "serve_ops")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core FLOP/s
@@ -756,6 +795,10 @@ def phase_paged(ctx):
         log(f"paged_decode_attention: D={D_} G={H_ // Hkv_} bs={bs_} "
             f"lengths={lengths} max |err| {err:.3e}, {share:.3f} of the "
             f"tolerance (dropped keys: {d_share:.2f})")
+    # speculative verify's shape: 8 sequences x (k + 1) query rows over
+    # their tables repeated k + 1 times
+    ctx["paged_verify"] = _verify_case(torch, gen, timer, pa, rpa, "paged",
+                                       False)
     # the summary row: the batch-8 decode step over a 128-block bucket
     ctx["paged"] = dict(rows["B=8 M=128"], max_abs_err=worst)
 
@@ -778,6 +821,81 @@ def _check_b2_is_b3(torch, pa, rpa, q, kp, vp, tables, lens):
                              f", launches B2/B3 {counts})")
     log("paged_decode_attention: B2 returned B3's output (rows_per_table=1) "
         "bit for bit; launches B2 1, B3 1")
+
+
+#: speculative verify's attention shape (``runner.make_verify``): a batch
+#: bucket of 8 sequences, k = 4 drafts, so 40 query rows, each sequence's
+#: table repeated k + 1 times and its rows at lengths pos0 + 1 ... pos0 + 5;
+#: the pos0 below span lengths 1 to 2048 over a 128-block window
+VERIFY_BB, VERIFY_K = 8, 4
+VERIFY_POS0 = (0, 16, 254, 511, 999, 1499, 2000, 2043)
+
+
+def _verify_case(torch, gen, timer, pa, rpa, which: str, quant: bool):
+    """B2 (``which`` "paged", bf16) or B3 ("ragged", bf16 or int8) at the
+    verify shape against its plain version (fp32), timed beside the plain
+    version and a bound that counts the UNIQUE bytes read: each sequence's
+    live blocks and table once, though k + 1 rows walk them."""
+    from scalable_hw_agnostic_inference_tpu_torch.ops.quant import (
+        quantize_kv_blocks,
+    )
+
+    H, Hkv, D, bs, N, M = 32, 8, 128, 16, 2048, 128
+    T = VERIFY_K + 1
+    rows = VERIFY_BB * T
+    q = torch.randn(rows, H, D, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kp = torch.randn(N, bs, Hkv, D, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    vp = torch.randn(N, bs, Hkv, D, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    ks = vs = None
+    if quant:
+        kp, ks = quantize_kv_blocks(kp)
+        vp, vs = quantize_kv_blocks(vp)
+    perm = torch.randperm(N, generator=gen, device="cuda")
+    tables = perm[:VERIFY_BB * M].reshape(VERIFY_BB, M).to(torch.int32)
+    rep = tables.repeat_interleave(T, dim=0).contiguous()
+    lengths = [p + t + 1 for p in VERIFY_POS0 for t in range(T)]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if which == "paged":
+        def run():
+            return pa.paged_decode_attention(q, kp, vp, rep, lens)
+
+        def plain(qq, ll):
+            return pa.paged_decode_attention_reference(qq, kp, vp, rep, ll)
+    else:
+        def run():
+            return rpa.ragged_paged_attention(q, kp, vp, rep, lens, ks, vs)
+
+        def plain(qq, ll):
+            return rpa.ragged_paged_attention_reference(qq, kp, vp, rep, ll,
+                                                        ks, vs)
+    out = run()
+    ref = plain(q.float(), lens)
+    dropped = plain(q.float(), _cut(lens))
+    torch.cuda.synchronize()
+    kind = "int8" if quant else "bf16"
+    shape = (f"verify Bb={VERIFY_BB} k={VERIFY_K} ({rows} rows, tables "
+             f"repeated {T}x) {kind}: H={H} Hkv={Hkv} D={D} bs={bs} N={N} "
+             f"M={M} lengths 1..{max(lengths)}")
+    name = ("paged_decode_attention" if which == "paged"
+            else "ragged_paged_attention")
+    err, share, d_share = _check_close(f"{name} {shape}", out, ref, dropped)
+    del ref, dropped
+    n_bytes, flops = _ragged_work(tables.cpu(), lens.cpu(), H, Hkv, D, bs,
+                                  quant, row_table=[r // T
+                                                    for r in range(rows)])
+    bms, by = bound_ms(n_bytes, flops)
+    line = {"shape": shape, "max_abs_err": err, "tol_share": share,
+            "dropped_keys_tol_share": d_share, "ms": timer(run),
+            "plain_ms": timer(lambda: plain(q, lens), reps=5),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "host_ms": timer.host(run),
+            "splits": rpa.ragged_plan(rows, 1, H, Hkv, bs, M, rpa.sm_count(
+                q.device.index))[1]}
+    log(f"{name}: " + json.dumps(line))
+    return line
 
 
 def _ragged_inputs(torch, gen, rows, H, Hkv, D, bs, N, M, lengths, quant,
@@ -949,6 +1067,9 @@ def phase_ragged(ctx):
                 f"{kind} lengths={lengths} max |err| {err:.3e}, {share:.3f} "
                 f"of the tolerance (dropped keys: {d_share:.2f})")
     worst = max(worst, _mixed_rows(ctx, torch, rpa, timer, gen))
+    ctx["ragged_verify"] = {
+        kind: _verify_case(torch, gen, timer, pa, rpa, "ragged", quant)
+        for kind, quant in (("bf16", False), ("int8", True))}
     # the summary row: the int8 batch-8 decode step, the serving path's
     # most frequent launch
     ctx["ragged"] = dict(rows[("decode B=8", "int8")], max_abs_err=worst)
@@ -1094,29 +1215,24 @@ def _device_step(torch, fn, calls: int = 10):
             sum(n for _, n in by_kernel.values()))
 
 
-def _decode_graph_case(ctx, torch, what, lengths, ragged, quant, M):
-    """One decode key at full width: a pool of random blocks behind
-    shuffled tables, 8 rows at ``lengths`` (half greedy, half sampled),
-    captured as a graph and held against the eager call of the same decode
-    function on the same inputs and draws."""
+def _graph_fixture(ctx, torch, B, M, quant, seed, rows):
+    """What a captured graph case runs over: the generator (seeded), a pool
+    of ``B * M + 1`` random blocks (int8 with random scales when
+    ``quant``), ``B`` shuffled tables of ``M`` blocks, and a graph pool
+    whose split scratch is reserved for ``rows`` attention rows."""
     from scalable_hw_agnostic_inference_tpu_torch.engine.cache import (
         PagedKVCache,
     )
     from scalable_hw_agnostic_inference_tpu_torch.engine.graphs import (
-        DecodeGraph,
         GraphPool,
-    )
-    from scalable_hw_agnostic_inference_tpu_torch.engine.runner import (
-        make_decode,
     )
     from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
         ragged_paged_attention as rpa,
     )
 
-    cfg, model = _engine_model(ctx)
-    B, bs = len(lengths), 16
-    N = B * M + 1
-    gen = torch.Generator(device="cuda").manual_seed(11)
+    cfg, _ = _engine_model(ctx)
+    N, bs = B * M + 1, 16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     cache = PagedKVCache(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, N, bs,
                          M, dtype=torch.bfloat16, device="cuda", quant=quant)
     for lay in cache.kv:
@@ -1131,8 +1247,26 @@ def _decode_graph_case(ctx, torch, what, lengths, ragged, quant, M):
     tables = perm[: B * M].reshape(B, M).to(torch.int32)
     pool = GraphPool(torch.device("cuda", torch.cuda.current_device()))
     pool.reserve([rpa.split_scratch_size(
-        B, 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, bs, M,
+        rows, 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, bs, M,
         rpa.sm_count(torch.cuda.current_device()))])
+    return gen, cache, tables, pool
+
+
+def _decode_graph_case(ctx, torch, what, lengths, ragged, quant, M):
+    """One decode key at full width: a pool of random blocks behind
+    shuffled tables, 8 rows at ``lengths`` (half greedy, half sampled),
+    captured as a graph and held against the eager call of the same decode
+    function on the same inputs and draws."""
+    from scalable_hw_agnostic_inference_tpu_torch.engine.graphs import (
+        DecodeGraph,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.engine.runner import (
+        make_decode,
+    )
+
+    cfg, model = _engine_model(ctx)
+    B, bs = len(lengths), 16
+    gen, cache, tables, pool = _graph_fixture(ctx, torch, B, M, quant, 11, B)
     decode = make_decode(cfg, bs, M, B, ctx_blocks=M, ragged=ragged,
                          kv_quant=quant, feedback=True)
     g = DecodeGraph((M, B), decode, model, cache.kv, B, M, cfg.vocab_size,
@@ -1240,6 +1374,127 @@ def _decode_graph_case(ctx, torch, what, lengths, ragged, quant, M):
     return line
 
 
+def _verify_graph_case(ctx, torch, what, pos0, ragged, quant, M):
+    """One speculative verify key at full width (``runner.make_verify``,
+    k = ``VERIFY_K``): 8 rows of a pending token and 4 drafts at ``pos0``
+    over a pool of random blocks, half greedy and half sampled, captured as
+    a graph (``DecodeGraph(verify_k=...)``) and held against the eager call
+    of the same verify function on the same inputs and both sets of draws,
+    every output bit for bit; its B2 or B3 launches one per layer over
+    ``8 * (k + 1)`` rows."""
+    from scalable_hw_agnostic_inference_tpu_torch.engine.graphs import (
+        VERIFY_OUTPUTS,
+        DecodeGraph,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.engine.runner import (
+        make_verify,
+    )
+
+    cfg, model = _engine_model(ctx)
+    B, bs, k = len(pos0), 16, VERIFY_K
+    gen, cache, tables, pool = _graph_fixture(ctx, torch, B, M, quant, 13,
+                                              B * (k + 1))
+    verify = make_verify(cfg, bs, M, B, k, ctx_blocks=M, ragged=ragged,
+                         kv_quant=quant)
+    g = DecodeGraph(("verify", M, B), verify, model, cache.kv, B, M,
+                    cfg.vocab_size, device="cuda", pool=pool, verify_k=k)
+    a = g.inputs
+    a["tokens"].copy_(torch.randint(3, cfg.vocab_size, (B, k + 1),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.int32))
+    a["pos"].copy_(torch.tensor(pos0, device="cuda"))
+    a["tables"].copy_(tables)
+    a["temp"].copy_(torch.tensor([0, 0, 0, 0, 1, 1, 0.7, 0.7],
+                                 device="cuda")[:B])
+    a["topk"].copy_(torch.tensor([0, 0, 0, 0, 0, 50, 0, 0],
+                                 device="cuda")[:B])
+    a["topp"].copy_(torch.tensor([1, 1, 1, 1, 1, 1, 0.9, 1.0],
+                                 device="cuda")[:B])
+    _reset_counters()
+    g.capture()
+    name = ("ragged_paged_attention" if ragged or quant
+            else "paged_decode_attention")
+    want = {name: cfg.n_layers}
+    if model.quantized:   # M = 40 rows: B4's decode instantiation
+        want["int8_matmul"] = 7 * cfg.n_layers + 1
+    if g.launches != want:
+        raise AssertionError(f"{what}: the graph holds launches "
+                             f"{g.launches}, want {want}")
+    # the eager call and each replay start from the same pool: an int8
+    # block requantized once per written token rounds its earlier tokens
+    # again when the scale grows, so writing the same k + 1 tokens twice
+    # does not give the same blocks (T = 1 decode does)
+    saved = [{n: t.clone() for n, t in lay.items()} for lay in cache.kv]
+
+    def restore():
+        for lay, was in zip(cache.kv, saved):
+            for n, t in lay.items():
+                t.copy_(was[n])
+
+    gen_u = torch.Generator(device="cuda").manual_seed(7)
+    g.draw(gen_u)
+    eager_outs = dict(zip(VERIFY_OUTPUTS, g.eager()))
+    restore()
+    _reset_counters()
+    g.replay()
+    torch.cuda.synchronize()
+    replay_counts = _read_counters()
+    equal = {n: torch.equal(getattr(g, n), e) for n, e in eager_outs.items()}
+    exact = all(equal.values())
+    if not all(bool(torch.isfinite(getattr(g, n)).all()) for n in (
+            "accept_p", "o_lp", "d_lp", "top_lp")):
+        raise AssertionError(f"{what}: non-finite verify outputs")
+    # a greedy row's o is its readout's top logprob at every position
+    greedy_top = torch.equal(g.o_lp[:4], g.top_lp[:4, :, 0])
+    u0 = [u.clone() for u in g.draws]
+    first = g.o.clone()
+    g.draw(gen_u)
+    restore()
+    g.replay()
+    torch.cuda.synchronize()
+    redrawn = not any(torch.equal(a, b) for a, b in zip(u0, g.draws))
+    resampled = not torch.equal(first[4:], g.o[4:])
+    still_greedy = torch.equal(first[:4], g.o[:4])
+
+    def eager_step():
+        g.draw(gen_u)
+        g.eager()
+
+    def replay_step():
+        g.draw(gen_u)
+        g.replay()
+
+    line = {
+        "case": what, "B": B, "k": k, "rows": B * (k + 1), "M": M,
+        "pos0": list(pos0), "ragged": ragged, "int8": quant,
+        "bit_exact": exact, "outputs_equal": equal,
+        "greedy_o_is_top": greedy_top, "redrawn": redrawn,
+        "sampled_rows_changed": resampled,
+        "greedy_rows_unchanged": still_greedy,
+        "graph_launches": g.launches, "replay_counts": replay_counts,
+        "capture_s": g.capture_seconds, "pool_bytes": pool.bytes(),
+        "uniform_bytes": sum(u.nbytes for u in g.draws),
+        "wall_ms_eager": _step_wall_ms(torch, eager_step),
+        "wall_ms_replay": _step_wall_ms(torch, replay_step),
+    }
+    line["device_ms_replay"], line["kernels_per_replay"] = _device_step(
+        torch, replay_step)
+    log("decode_graph: verify " + json.dumps(line))
+    del g, cache, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(replay_counts[kk] != n for kk, n in want.items()):
+        raise AssertionError(f"{what}: one replay counted {replay_counts}")
+    if not exact:
+        raise AssertionError(f"{what}: the verify replay is not the eager "
+                             f"call bit for bit ({equal})")
+    if not (greedy_top and redrawn and resampled and still_greedy):
+        raise AssertionError(f"{what}: greedy o is top {greedy_top}, draws "
+                             f"{redrawn}, sampled rows changed {resampled}, "
+                             f"greedy rows kept {still_greedy}")
+    return line
+
+
 def _readout_cost(ctx, torch, B: int = 8) -> dict:
     """The logprob readout alone (``runner.token_logprobs``: a log-softmax,
     a top-5 and a gather over ``[B, V]`` f32 logits) at serve's decode
@@ -1283,6 +1538,21 @@ def phase_decode_graph(ctx):
                            [1, 17, 255, 512, 1000, 2047, 3000, 4096], True,
                            True, 256),
     ]
+    # one verify key of each: the same windows, each row's five positions
+    # ending where the decode row's one did
+    ctx["verify_graph"] = [
+        _verify_graph_case(ctx, torch, "verify bucketed bf16",
+                           [27, 66, 105, 144, 183, 222, 261, 300], False,
+                           False, 32),
+        _verify_graph_case(ctx, torch, "verify ragged int8 full window",
+                           [0, 12, 250, 507, 995, 2042, 2995, 4091], True,
+                           True, 256),
+    ]
+    for dec, ver in zip(ctx["decode_graph"], ctx["verify_graph"]):
+        log(f"decode_graph: {ver['case']}: replay device "
+            f"{ver['device_ms_replay']} ms against the decode key's "
+            f"{dec['device_ms_replay']} ms, wall {ver['wall_ms_replay']:.3f} "
+            f"against {dec['wall_ms_replay']:.3f} ms")
 
 
 KERNELS = ("flash_attention", "paged_decode_attention",
@@ -1417,10 +1687,10 @@ def _plain_attention():
 
 
 def _graphs(eng):
-    """Every captured graph of the engine: the decode keys, and under the
-    fused step the fused keys and the chunk-only graph."""
-    out = list(eng._decode_fns.values()) + list(eng._fused_fns.values())
-    return out + ([eng._fused_chunk] if eng._fused_chunk is not None else [])
+    """Every captured graph of the engine: the decode keys, the verify
+    keys, and under the fused step the fused keys and the chunk-only
+    graph."""
+    return eng.graphs()
 
 
 def _replays(eng):
@@ -1464,13 +1734,18 @@ def _check_walk(what: str, counts, expect) -> None:
                              f"replays and chunks make {expect}")
 
 
-def _generate(ctx, prompts, switches, all_lp=False):
+def _generate(ctx, prompts, switches, all_lp=False,
+              new_tokens=ENGINE_NEW_TOKENS, spec=0, sampled=(),
+              measure=False):
     """One engine run of greedy requests under the engine switches (async
     decode unless they say otherwise), its closed set warmed first; the
-    even rows (``all_lp``: every row) ask for 5 logprobs. Returns the
-    finished requests, the launch counts, the seconds, the continuation
-    keys it compiled, its leaked blocks and a dict of the pipeline's
-    numbers."""
+    even rows (``all_lp``: every row) ask for 5 logprobs. ``spec`` > 0:
+    speculative decoding with that many drafts (``[ngram]``, lookup 4 to
+    1); the rows in ``sampled`` sample (temperature 0.8, top-k 50) instead;
+    ``measure``: also the device time of one verify replay and one decode
+    replay of the largest verify key. Returns the finished requests, the
+    launch counts, the seconds, the continuation keys it compiled, its
+    leaked blocks and a dict of the pipeline's numbers."""
     import torch
     from scalable_hw_agnostic_inference_tpu_torch.engine.config import (
         EngineConfig,
@@ -1483,8 +1758,11 @@ def _generate(ctx, prompts, switches, all_lp=False):
     cfg, model = _engine_model(ctx)
     ecfg = EngineConfig(max_model_len=2048, max_num_seqs=4, block_size=16,
                         context_encoding_buckets=(128, 512),
-                        max_new_tokens=ENGINE_NEW_TOKENS,
-                        quantization="int8" if model.quantized else None)
+                        max_new_tokens=new_tokens,
+                        quantization="int8" if model.quantized else None,
+                        speculative_model="[ngram]" if spec else "",
+                        num_speculative_tokens=spec,
+                        ngram_prompt_lookup_max=4, ngram_prompt_lookup_min=1)
     env = {"SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "",
            "SHAI_ASYNC_DECODE": "1", **switches}
     with _env(env):
@@ -1497,7 +1775,8 @@ def _generate(ctx, prompts, switches, all_lp=False):
         _reset_counters()
         t0 = time.monotonic()
         ids = [eng.add_request(p, SamplingParams(
-            temperature=0.0, max_new_tokens=ENGINE_NEW_TOKENS,
+            temperature=0.8 if i in sampled else 0.0,
+            top_k=50 if i in sampled else 0, max_new_tokens=new_tokens,
             logprobs=0 if i % 2 and not all_lp else 5))
             for i, p in enumerate(prompts)]
         done = {}
@@ -1510,9 +1789,9 @@ def _generate(ctx, prompts, switches, all_lp=False):
         seconds = time.monotonic() - t0
         counts = _read_counters()
     for i, f in enumerate(fins):
-        if len(f.token_ids) != ENGINE_NEW_TOKENS:
+        if len(f.token_ids) != new_tokens:
             raise AssertionError(f"{len(f.token_ids)} tokens, want "
-                                 f"{ENGINE_NEW_TOKENS}")
+                                 f"{new_tokens}")
         if f.logprobs and [e["token"] for e in f.logprobs] != f.token_ids:
             raise AssertionError("the logprob entries do not name the "
                                  "returned tokens")
@@ -1536,15 +1815,47 @@ def _generate(ctx, prompts, switches, all_lp=False):
             "wide_per_replay": sorted({g.launches.get("int8_matmul_wide", 0)
                                        for g in _graphs(eng)}),
             "graph_pool_bytes": eng._graphs.bytes()}
+    if eng.tpot.count:
+        tpot = eng.tpot.report()
+        info["tpot_ms"] = {"p50": tpot["p50"] * 1e3,
+                           "p99": tpot["p99"] * 1e3}
+    if eng.spec is not None:
+        after = _replays(eng)
+        info["spec"] = eng.spec.as_dict()
+        info["rollback_tokens"] = eng.cache.rollback_tokens
+        info["rollback_blocks"] = eng.cache.rollback_blocks
+        info["verify_replays"] = sum(
+            after[g.key] - before.get(g.key, 0)
+            for g in eng._verify_fns.values())
+        info["decode_replays"] = sum(
+            after[g.key] - before.get(g.key, 0)
+            for g in eng._decode_fns.values())
+        info["verify_walk"] = {
+            name: sum(g.launches.get(name, 0)
+                      * (after[g.key] - before.get(g.key, 0))
+                      for g in eng._verify_fns.values())
+            for name in ("paged_decode_attention", "ragged_paged_attention")}
+        info["verify_uniform_bytes"] = sum(
+            u.nbytes for g in eng._verify_fns.values() for u in g.draws)
     # one replay of the largest batch key, host enqueue to device end: a
     # fused key computes its whole chunk window even when it is the null
     # one (its inputs are the last step's; the pool is free by now)
-    big = max((g for g in _graphs(eng) if g.key != ("chunk", 1)),
+    big = max((g for g in _graphs(eng)
+               if g.key != ("chunk", 1) and not g.verify_k),
               key=lambda g: g.inputs["tokens"].shape[0])
     with torch.inference_mode():
         if eng._fused:
             big.load_window(None)
         info["replay_ms"] = _step_wall_ms(torch, big.replay)
+        if measure and eng._verify_fns:
+            # a verify replay against the decode replay of the same key
+            key = max(eng._verify_fns, key=lambda kk: kk[1])
+            for name, g in (("verify", eng._verify_fns[key]),
+                            ("decode", eng._decode_fns[key])):
+                info[f"{name}_key"] = list(key)
+                info[f"{name}_wall_ms"] = _step_wall_ms(torch, g.replay)
+                info[f"{name}_device_ms"], info[f"{name}_kernels"] = \
+                    _device_step(torch, g.replay)
     return fins, counts, seconds, conts, eng.cache.leaked_blocks, info
 
 
@@ -1766,6 +2077,200 @@ def phase_engine_fused(ctx):
                                           "SHAI_KV_QUANT": "int8"})
 
 
+#: engine_spec: k drafts, 32 greedy tokens a request
+SPEC_K = 4
+SPEC_NEW_TOKENS = 32
+
+
+#: engine_spec's quoting prompt: bench.py's repetitive shape (a 16-token
+#: base repeated, here to 1,024 tokens), preceded by the first
+#: ``SPEC_QUOTE`` tokens of the model's own greedy continuation of it
+SPEC_REPEAT_LEN = 1024
+SPEC_QUOTE = 16
+
+
+def _greedy_scored(model, ids, n):
+    """``n`` greedy tokens after ``ids`` by the full-sequence scoring
+    forward (no cache: one forward a token)."""
+    import torch
+
+    out = []
+    with torch.inference_mode():
+        for _ in range(n):
+            logits = model(torch.tensor([ids + out], device="cuda"))[0, -1]
+            out.append(int(logits.float().argmax()))
+    return out
+
+
+def _spec_prompts(ctx):
+    """The engine phases' prompts, then a quoting prompt, then a sampled
+    request (the 37-token prompt again, at temperature 0.8).
+
+    The seeded random model's greedy tokens are close to uniform over the
+    128,256 ids and unrelated to its context, so the drafter would almost
+    never find one in a random prompt and no verify step would run. The
+    quoting prompt is the regime prompt lookup is for, an output that
+    quotes its input: bench.py's repetitive shape (a seeded 16-token base
+    repeated to ``SPEC_REPEAT_LEN`` tokens), preceded by the first
+    ``SPEC_QUOTE`` tokens of the model's own greedy continuation of it
+    (``_greedy_scored``). Where the engine continues with a quoted token,
+    the drafter proposes the ones after it, and verification accepts those
+    the model still continues with: the prefix itself moves this model's
+    flat logits, so that is the first token and seldom more (acceptance
+    stays low, as on any random-weight model). Returns the prompts and a
+    log line: how many of the quoted tokens the scoring forward continues
+    with."""
+    import numpy as np
+    import torch
+
+    cfg, model = _engine_model(ctx)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in ENGINE_PROMPTS]
+    base = np.random.default_rng(0).integers(3, cfg.vocab_size, 16).tolist()
+    rep = (base * (SPEC_REPEAT_LEN // 16))[:SPEC_REPEAT_LEN]
+    quote = _greedy_scored(model, rep, SPEC_QUOTE)
+    again = _greedy_scored(model, quote + rep, SPEC_QUOTE)
+    kept = next((i for i, (a, b) in enumerate(zip(quote, again)) if a != b),
+                SPEC_QUOTE)
+    return (prompts + [quote + rep, prompts[1]],
+            f"quoting prompt: the scoring forward continues it with "
+            f"{kept} of the {SPEC_QUOTE} quoted tokens")
+
+
+def _partings(got, want):
+    """Where each of ``got``'s token streams first parts from ``want``'s:
+    ``want``'s top-2 logprob gap there (the tie rule's measure), and the
+    largest difference between the two runs' logprobs (the sampled
+    token's and the top 5) at the positions up to it, where both read the
+    same tokens: the rounding change between the two paths."""
+    gaps, noise = [], 0.0
+    for g, w in zip(got, want):
+        n = next((i for i, (a, b) in enumerate(zip(g.token_ids, w.token_ids))
+                  if a != b), min(len(g.token_ids), len(w.token_ids)))
+        for a, b in zip(g.logprobs[:n + 1], w.logprobs[:n + 1]):
+            noise = max([noise, abs(a["logprob"] - b["logprob"])] + [
+                abs(x - y) for x, y in zip(a["top_logprobs"],
+                                           b["top_logprobs"])])
+        if g.token_ids != w.token_ids and n < len(w.logprobs):
+            top = w.logprobs[n]["top_logprobs"]
+            gaps.append(float(top[0]) - float(top[1]))
+    return gaps, noise
+
+
+def _run_spec(ctx, what, switches, expect, cont_key, rule):
+    """Speculative decoding (``[ngram]``, k = ``SPEC_K``) on the engine
+    phase's model: the async run against its lock-step run (every token
+    and logprob entry, the sampled row too) and against the spec-off
+    engine, and its greedy tokens against the scoring forward. ``rule``
+    "tie": the spec-off tokens by the tie rule and the plain scoring
+    forward by ``TIE_TOL``. The tie rule's gap is ``TIE_GAP``, or
+    ``NOISE_TIES`` times the rounding change measured between the two
+    runs where it is larger (``_partings``: verify runs its projections at
+    Bb * (k + 1) rows where decode runs them at Bb, other cuBLAS kernels,
+    other bf16 roundings, and B2 at another split). "int8": the int8 rule
+    (the worst deficit against the scoring forward through B1 within
+    ``NOISE_TIES * eps``, the argmax hits at least the spec-off run's less
+    ``INT8_SLACK``: rejected drafts write the int8 blocks too, and a
+    block's scale only grows). B2's or B3's launches are exactly the
+    layers times the decode and verify replays (and the continuation
+    chunks); 0 recompiles, no leaked block, a rollback. Every number is
+    logged before the checks."""
+    cfg, model = _engine_model(ctx)
+    prompts, found = _spec_prompts(ctx)
+    log(f"{what}: {found}")
+    sampled = {len(prompts) - 1}
+    greedy = list(range(len(prompts) - 1))
+    kw = dict(new_tokens=SPEC_NEW_TOKENS, sampled=sampled, all_lp=True)
+    fins, counts, seconds, conts, leaked, info = _generate(
+        ctx, prompts, switches, spec=SPEC_K, measure=True, **kw)
+    sync = _generate(ctx, prompts, {**switches, "SHAI_ASYNC_DECODE": "0"},
+                     spec=SPEC_K, **kw)
+    off = _generate(ctx, prompts, switches, **kw)
+    g_on = [fins[i] for i in greedy]
+    g_off = [off[0][i] for i in greedy]
+    g_prompts = [prompts[i] for i in greedy]
+    same = sum(a.token_ids == b.token_ids for a, b in zip(g_on, g_off))
+    gaps, noise = _partings(g_on, g_off)
+    s = _score(model, g_prompts, g_on)
+    so = _score(model, g_prompts, g_off)
+    st = info["spec"]
+    row = {
+        "switches": switches, "acceptance": st["spec_acceptance_rate"],
+        "tokens_per_verify": st["spec_tokens_per_verify"], "spec": st,
+        "greedy_streams_equal_spec_off": same, "streams": len(greedy),
+        "parting_gaps": gaps, "spec_off_noise": noise,
+        "tie_gap": max(TIE_GAP, NOISE_TIES * noise),
+        "worst_deficit_plain": s["plain"][1],
+        "worst_deficit_b1": s["b1"][1], "eps": s["eps"],
+        "argmax_hits": s["b1"][0], "argmax_hits_spec_off": so["b1"][0],
+        "worst_deficit_plain_spec_off": so["plain"][1],
+        "tokens": s["tokens"],
+        "verify_replays": info["verify_replays"],
+        "decode_replays": info["decode_replays"],
+        "verify_walk": info["verify_walk"], "walk": info["walk"],
+        "rollback_tokens": info["rollback_tokens"],
+        "rollback_blocks": info["rollback_blocks"],
+        "verify_device_ms": info.get("verify_device_ms"),
+        "decode_device_ms": info.get("decode_device_ms"),
+        "verify_wall_ms": info.get("verify_wall_ms"),
+        "decode_wall_ms": info.get("decode_wall_ms"),
+        "replay_key": info.get("verify_key"),
+        "tpot_ms_spec_on": info.get("tpot_ms"),
+        "tpot_ms_spec_off": off[5].get("tpot_ms"),
+        "seconds_spec_on": seconds, "seconds_spec_off": off[2],
+        "graph_pool_bytes_spec_on": info["graph_pool_bytes"],
+        "graph_pool_bytes_spec_off": off[5]["graph_pool_bytes"],
+        "verify_uniform_bytes": info["verify_uniform_bytes"],
+        "flushes": info["flushes"], "recompiles": info["recompiles"],
+        "launches": counts}
+    log(f"{what}: " + json.dumps(row))
+    _check_walk(what, counts, info["walk"])
+    _check_walk(f"{what} lock-step", sync[1], sync[5]["walk"])
+    if [(f.token_ids, f.logprobs) for f in fins] != \
+            [(f.token_ids, f.logprobs) for f in sync[0]]:
+        raise AssertionError(f"{what}: async and lock-step differ")
+    if rule == "tie":
+        bad = [g for g in gaps if g >= row["tie_gap"]]
+        if bad:
+            raise AssertionError(f"{what}: parted from spec off at decisive "
+                                 f"gaps {bad} >= {row['tie_gap']:.4f}")
+        if s["plain"][1] > TIE_TOL:
+            raise AssertionError(f"{what}: worst deficit {s['plain'][1]:.4f}"
+                                 f" against the plain scoring forward over "
+                                 f"{TIE_TOL}")
+    else:
+        if s["b1"][1] > NOISE_TIES * s["eps"]:
+            raise AssertionError(f"{what}: worst deficit {s['b1'][1]:.4f} "
+                                 f"over {NOISE_TIES} * eps")
+        if s["b1"][0] < so["b1"][0] - INT8_SLACK * s["tokens"]:
+            raise AssertionError(f"{what}: {s['b1'][0]}/{s['tokens']} "
+                                 f"argmax hits, spec off {so['b1'][0]}")
+    bad = [k for k, ok in (
+        ("verify steps", st["spec_verify_steps"] > 0),
+        ("recompiles", info["recompiles"] == sync[5]["recompiles"] == 0),
+        ("leaked blocks", not (leaked or sync[4] or off[4])),
+        ("rollback", info["rollback_tokens"] > 0),
+        ("chunk", cont_key in conts)) if not ok]
+    if bad:
+        raise AssertionError(f"{what}: failed {bad}")
+    _check_counters(what, counts, expect)
+    ctx.setdefault("engine_spec", {})[what] = row
+
+
+def phase_engine_spec(ctx):
+    # (a) bucketed bf16: verify through B2 over repeated tables
+    _run_spec(ctx, "engine_spec (a)", {},
+              {"flash_attention", "paged_decode_attention"},
+              ("cont", 32, 512), "tie")
+    # (b) ragged + int8 KV: verify through B3, the int8 requantize unrolled
+    # k + 1 times
+    _run_spec(ctx, "engine_spec (b)", {"SHAI_RAGGED_ATTENTION": "1",
+                                       "SHAI_KV_QUANT": "int8"},
+              {"flash_attention", "ragged_paged_attention"},
+              ("rcont", 512), "int8")
+
+
 def phase_engine_ragged(ctx):
     # (a) ragged bf16: decode and the continuation through B3
     _run_engine(ctx, "engine_ragged (a)", ENGINE_PROMPTS,
@@ -1812,14 +2317,15 @@ def _serve_prompts(long_bytes=()):
     return prompts
 
 
-def _send_concurrent(base: str, prompts):
-    """One concurrent greedy ``POST /generate`` per prompt; returns the
-    responses and the wall seconds."""
+def _send_concurrent(base: str, prompts, new_tokens: int = 16):
+    """One concurrent greedy ``POST /generate`` of ``new_tokens`` per
+    prompt; returns the responses and the wall seconds."""
     results = [None] * len(prompts)
 
     def one(i):
         results[i] = _http(base + "/generate", {
-            "prompt": prompts[i], "temperature": 0.0, "max_new_tokens": 16})
+            "prompt": prompts[i], "temperature": 0.0,
+            "max_new_tokens": new_tokens})
 
     t0 = time.monotonic()
     threads = [threading.Thread(target=one, args=(i,))
@@ -2052,13 +2558,17 @@ def _profile(torch, fn, walk: str) -> None:
             "busy_share": busy / wall_us}
 
 
-def _serve(ctx, what, env, prompts, expect, walk, openai=False, then=None):
+def _serve(ctx, what, env, prompts, expect, walk, openai=False, then=None,
+           new_tokens=16):
     """Serve ``llama-8b-geometry`` over HTTP under ``env`` and send
     ``prompts`` concurrently: all must answer 200, exactly the kernels
     ``expect`` must rise, no block may leak. Prints TTFT/TPOT, ``/stats``
     and a profiled second pass; with ``openai``, then runs the OpenAI
     round; ``then(base, eng)`` runs last, before the recompile and leak
-    checks. Returns the /generate responses. While it serves,
+    checks. Each request asks for ``new_tokens``; a speculative engine's
+    verify replays' B2/B3 launches are kept apart in
+    ``ctx["verify_launches"]``. Returns the /generate responses. While it
+    serves,
     ``ctx["serving"]`` holds the app, the service and the JSON-line push
     stream (kept off stdout)."""
     import torch
@@ -2130,9 +2640,16 @@ def _serve(ctx, what, env, prompts, expect, walk, openai=False, then=None):
             before = _replays(eng)
             chunks = _count_chunks(eng)
             _reset_counters()
-            results, wall = _send_concurrent(base, prompts)
+            results, wall = _send_concurrent(base, prompts, new_tokens)
             counts = _read_counters()
             exact = _expected_walk(eng, before, chunks)
+            after = _replays(eng)
+            ctx.setdefault("verify_launches", {})[what] = {
+                name: sum(g.launches.get(name, 0)
+                          * (after[g.key] - before.get(g.key, 0))
+                          for g in eng._verify_fns.values())
+                for name in ("paged_decode_attention",
+                             "ragged_paged_attention")}
             steps = sum(_replays(eng).values()) - sum(before.values())
             ctx.setdefault("launches", {})[what] = counts
             bad = [r for r in results if r is None or r[0] != 200]
@@ -2151,7 +2668,8 @@ def _serve(ctx, what, env, prompts, expect, walk, openai=False, then=None):
                 f"{ttft['p99'] * 1e3:.1f} ms; TPOT p50 "
                 f"{tpot['p50'] * 1e3:.2f} ms p99 {tpot['p99'] * 1e3:.2f} ms "
                 f"(engine instruments); /stats {json.dumps(stats)}")
-            busy = _profile(torch, lambda: _send_concurrent(base, prompts),
+            busy = _profile(torch, lambda: _send_concurrent(base, prompts,
+                                                            new_tokens),
                             walk)
             ctx.setdefault("serve_summary", {})[what] = {
                 "ttft_ms": {"p50": ttft["p50"] * 1e3,
@@ -2162,7 +2680,9 @@ def _serve(ctx, what, env, prompts, expect, walk, openai=False, then=None):
                 "step_gap_mean_ms": stats.get("step_gap_mean_ms"),
                 "pipeline_flushes": eng.obs.flush_reasons(),
                 "graph_pool_bytes": eng._graphs.bytes(),
-                "kv_pool_bytes": eng.cache.pool_bytes}
+                "kv_pool_bytes": eng.cache.pool_bytes,
+                "spec": eng.spec.as_dict() if eng.spec is not None else None,
+                "graphs": len(graphs)}
             _check_counters(what, counts, expect)
             _check_walk(what, counts, exact)
             if openai:
@@ -2215,6 +2735,110 @@ def phase_serve_ragged(ctx):
     if len(chunked) != 2:
         raise AssertionError(f"serve_ragged: {len(chunked)} prompts past the "
                              f"512 bucket, want 2")
+
+
+#: serve_spec's engine ConfigMap: serve's shapes for 128-token prompts and
+#: 128-token outputs, with and without speculation
+SERVE_SPEC_CONFIG = {"max_model_len": 1024, "block_size": 16,
+                     "max_num_seqs": SERVE_REQUESTS,
+                     "context_encoding_buckets": [128, 512],
+                     "max_new_tokens": 128}
+SERVE_SPEC_KEYS = {"speculative_model": "[ngram]",
+                   "num_speculative_tokens": SPEC_K,
+                   "ngram_prompt_lookup_max": 4, "ngram_prompt_lookup_min": 1}
+
+
+def _spec_round(ctx, what, base, eng) -> None:
+    """Two more requests asking for their token ids (``logprobs: 1``): the
+    geometry tier's zero weights give all-equal logits, so every greedy
+    token is id 0 with and without speculation; then, on a speculative
+    pod, ``/stats`` carries the counters and ``/metrics`` the
+    ``shai_spec_*`` families."""
+    prompt = _spec_serve_prompts()[0]
+    toks = []
+    for _ in range(2):
+        status, body = _http(base + "/generate", {
+            "prompt": prompt, "temperature": 0.0, "max_new_tokens": 128,
+            "logprobs": 1})
+        if status != 200:
+            raise AssertionError(f"{what}: {status} {body}")
+        toks.append([e["token"] for e in body["logprobs"]])
+    if toks[0] != [0] * 128 or toks[1] != toks[0]:
+        raise AssertionError(f"{what}: tokens {toks[0][:8]}..., want 128 "
+                             f"zeros")
+    ctx.setdefault("spec_tokens", {})[what] = toks[0]
+    if eng.spec is None:
+        return
+    stats = _http(base + "/stats")[1]
+    svc = stats.get("service", stats)
+    status, text = _http(base + "/metrics", raw=True)
+    samples = {}
+    for line in text.splitlines():
+        if line.startswith("shai_spec_"):
+            name, value = line.rsplit(" ", 1)
+            samples[name.split("{")[0]] = float(value)
+    want = {"shai_spec_drafted_total": eng.spec.drafted,
+            "shai_spec_accepted_total": eng.spec.accepted,
+            "shai_spec_committed_total": eng.spec.committed,
+            "shai_spec_acceptance_rate": eng.spec.as_dict()[
+                "spec_acceptance_rate"]}
+    got = {k: samples.get(k) for k in want}
+    if got != {k: float(v) for k, v in want.items()} or \
+            svc.get("spec_verify_steps") != eng.spec.verify_steps:
+        raise AssertionError(f"{what}: /metrics {got} against the engine's "
+                             f"{want}; /stats verify steps "
+                             f"{svc.get('spec_verify_steps')}")
+    log(f"{what}: /metrics {got}; /stats "
+        f"{ {k: v for k, v in svc.items() if k.startswith('spec_')} }")
+
+
+def _spec_serve_prompts():
+    """``SERVE_REQUESTS`` repetitive prompts of 128 tokens (127 bytes and
+    the BOS): bench.py's shape, a 16-byte base repeated."""
+    return [(f"{i:02d} base repeats " * 9)[:127]
+            for i in range(SERVE_REQUESTS)]
+
+
+def phase_serve_spec(ctx):
+    import tempfile
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for what, keys in (("serve_spec", SERVE_SPEC_KEYS),
+                           ("serve_spec off", {})):
+            path = os.path.join(tmp, f"vllm_config_{len(keys)}.yaml")
+            with open(path, "w") as f:
+                json.dump({**SERVE_SPEC_CONFIG, **keys}, f)
+            results = _serve(
+                ctx, what, {"VLLM_CONFIG": path,
+                            "SHAI_RAGGED_ATTENTION": "0",
+                            "SHAI_KV_QUANT": ""},
+                _spec_serve_prompts(),
+                {"flash_attention", "paged_decode_attention"},
+                "B2 paged_decode_attention", new_tokens=128,
+                then=lambda base, eng, w=what: _spec_round(ctx, w, base,
+                                                           eng))
+            if any(r[1]["n_tokens"] != 128 or r[1]["n_prompt"] != 128
+                   for r in results):
+                raise AssertionError(f"{what}: {[r[1] for r in results]}")
+            runs[what] = ctx["serve_summary"][what]
+    on, off = runs["serve_spec"], runs["serve_spec off"]
+    if on["spec"] is None or on["spec"]["spec_verify_steps"] == 0 or \
+            off["spec"] is not None:
+        raise AssertionError(f"serve_spec: spec {on['spec']}, off "
+                             f"{off['spec']}")
+    if ctx["verify_launches"]["serve_spec"]["paged_decode_attention"] == 0:
+        raise AssertionError("serve_spec: no verify replay launched B2")
+    log("serve_spec: " + json.dumps({
+        "tokens_per_verify": on["spec"]["spec_tokens_per_verify"],
+        "acceptance": on["spec"]["spec_acceptance_rate"],
+        "tpot_ms": {"spec": on["tpot_ms"], "off": off["tpot_ms"]},
+        "ttft_ms": {"spec": on["ttft_ms"], "off": off["ttft_ms"]},
+        "busy": {"spec": on["traced_pass"], "off": off["traced_pass"]},
+        "graph_pool_bytes": {"spec": on["graph_pool_bytes"],
+                             "off": off["graph_pool_bytes"]},
+        "graphs": {"spec": on["graphs"], "off": off["graphs"]},
+        "verify_launches": ctx["verify_launches"]["serve_spec"]}))
 
 
 def _fanout_round(ctx, base, eng) -> None:
@@ -2853,6 +3477,11 @@ def phase_engine_int8(ctx):
         graph = _decode_graph_case(ctx, torch, "engine_int8 bucketed",
                                    [32, 71, 110, 149, 188, 227, 266, 305],
                                    False, False, 32)
+        # and a captured verify step over the int8 weights: its 40 rows
+        # through B4's decode instantiation, 225 launches
+        vgraph = _verify_graph_case(ctx, torch, "engine_int8 verify",
+                                    [27, 66, 105, 144, 183, 222, 261, 300],
+                                    False, False, 32)
         runs = {}
         for what, prompts, switches, expect, cont, rule in (
                 # bucketed: prefill through B1, decode B2, projections
@@ -2893,7 +3522,10 @@ def phase_engine_int8(ctx):
         log("engine_int8: " + json.dumps(runs))
         ctx["engine_int8"] = {"graph": {k: graph[k] for k in (
             "bit_exact", "graph_launches", "device_ms_replay",
-            "wall_ms_replay", "pool_bytes")}, "runs": runs}
+            "wall_ms_replay", "pool_bytes")}, "verify_graph": {
+                k: vgraph[k] for k in ("bit_exact", "graph_launches",
+                                       "device_ms_replay", "wall_ms_replay",
+                                       "pool_bytes")}, "runs": runs}
     finally:
         ctx.pop("engine_model", None)
 
@@ -4341,6 +4973,21 @@ def kernels_line(ctx):
             "library": "bf16 F.linear", "max_ulps": row["max_ulps"],
             "replaced_route_ms": row["replaced_route_ms"],
             "shape": row["shape"], "launches_in": "serve_int8"})
+    # speculative verify (PR 13): B2's and B3's verify shape (40 rows over
+    # repeated tables) timed in the paged and ragged phases, and their
+    # launches by verify replays on the main path: B2 in serve_spec, B3 in
+    # engine_spec (b) (ragged + int8 KV)
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    out[1]["verify"] = {
+        "launches": ctx["verify_launches"]["serve_spec"][
+            "paged_decode_attention"], "launches_in": "serve_spec",
+        **{k: ctx["paged_verify"][k] for k in keys}}
+    out[2]["verify"] = {
+        "launches": ctx["engine_spec"]["engine_spec (b)"]["verify_walk"][
+            "ragged_paged_attention"], "launches_in": "engine_spec (b)",
+        **{k: ctx["ragged_verify"]["int8"][k] for k in keys},
+        "bf16": {k: ctx["ragged_verify"]["bf16"][k] for k in keys}}
     # B3's fused launches: the mixed-row launch timed in the ragged phase,
     # and its launches in serve_fused (every fused and chunk-only replay)
     mixed = ctx["ragged_mixed"]

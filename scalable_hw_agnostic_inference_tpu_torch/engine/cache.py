@@ -15,7 +15,9 @@ shares a sequence's blocks with a sibling (``SHAI_KV_COW``, the ``n > 1``
 fan-out), and :meth:`PagedKVCache.extend` copies a shared partial tail
 block before the first divergent write (``cache.py:605-690``). The copy
 goes into the pool tensors in place, so a captured decode graph keeps the
-pool's addresses.
+pool's addresses. :meth:`PagedKVCache.shrink` rolls back a speculative
+reservation (``cache.py:691``) and counts it (``rollback_tokens``,
+``rollback_calls``, ``rollback_blocks``).
 
 The prefix cache (``enable_prefix_caching``, ``cache.py:193-330``): full
 blocks are content-addressed by a chain hash over their tokens
@@ -182,6 +184,12 @@ class PagedKVCache:
         #: from a parent, and shared tail blocks copied before a write
         self.cow_forks = 0
         self.cow_copies = 0
+        #: speculative rollback counters (the reference's names): reserved
+        #: tokens and blocks given back by :meth:`shrink`, and its calls;
+        #: a high rate is the drafter wasting pool headroom
+        self.rollback_tokens = 0
+        self.rollback_calls = 0
+        self.rollback_blocks = 0
         # host KV tier (kvtier/): eviction demotes, misses fall through;
         # its host staging is pinned (False: pageable, to measure that)
         self.tier = None
@@ -621,6 +629,37 @@ class PagedKVCache:
                 raise MemoryError(f"seq {seq_id} exceeds max_model_len")
             alloc.blocks.extend(self._alloc(need))
         alloc.n_tokens += n_new
+        return alloc
+
+    def shrink(self, seq_id: int, n_remove: int) -> SeqAllocation:
+        """Roll back the last ``n_remove`` reserved tokens, freeing the
+        trailing blocks the shorter sequence no longer needs (the
+        reference's ``cache.py:691``).
+
+        Speculative decoding reserves ``1 + k`` tokens before verification;
+        rejected drafts give their reservation back here, so a partially
+        accepted step cannot leak pool blocks. Only fresh decode-tail blocks
+        are ever in the rollback range: shared prefix blocks sit at the
+        FRONT of an allocation (``admit`` places reused before fresh), and a
+        sequence never shrinks below its committed tokens, so a shared
+        block's refcount is never touched from here. A tail block copied by
+        :meth:`extend`'s copy-on-write is the sequence's own (refcount 1),
+        and freeing it returns it like any fresh block."""
+        alloc = self._seqs[seq_id]
+        if n_remove <= 0:
+            return alloc
+        if n_remove > alloc.n_tokens:
+            raise ValueError(f"shrink of seq {seq_id} by {n_remove} below "
+                             f"zero tokens ({alloc.n_tokens} held)")
+        alloc.n_tokens -= n_remove
+        self.rollback_tokens += n_remove
+        self.rollback_calls += 1
+        keep = self._blocks_needed(alloc.n_tokens)
+        if keep < len(alloc.blocks):
+            tail = alloc.blocks[keep:]
+            del alloc.blocks[keep:]
+            self.allocator.free(tail)
+            self.rollback_blocks += len(tail)
         return alloc
 
     def release(self, seq_id: int) -> None:

@@ -142,7 +142,19 @@ when the pending token ends it). ``add_request`` takes a resumed
 request's ``already_generated``, ``already_lp`` and ``orig_n_prompt``
 (the preemption-resume semantics) and its ``kv_holders``.
 
-Later slices bring speculative decoding and the multimodal paths.
+Speculative decoding (``speculative_model: "[ngram]"`` with
+``num_speculative_tokens`` k, the reference's ``engine.py:200-216,
+2120-2140,2239-2295,2346-2490``): a host-side prompt-lookup drafter
+(``engine/speculative.py``) proposes up to k tokens per running slot, and
+one verify graph per (context bucket, batch bucket) key scores the
+pending token and the draft at ``k + 1`` rows per sequence
+(``runner.make_verify``) in the slot batch's resident view. The host walks
+the acceptance (``accept_drafts``, its rejection uniforms from a stream of
+its own seeded ``seed + 0x5EC``), commits the agreed prefix and the
+correction or bonus token, and gives the rejected reservation back
+(``cache.shrink``). A step where no slot drafted replays the decode graph.
+Every step is an event step while a drafter is set (the ``spec`` flush),
+and the fused step stays off. The multimodal paths come in a later slice.
 """
 
 from __future__ import annotations
@@ -199,7 +211,9 @@ from .runner import (
     make_fused_step,
     make_prefill,
     make_prefill_cont,
+    make_verify,
 )
+from .speculative import PromptLookupDrafter, SpecStats, accept_drafts
 from .types import (  # noqa: F401
     K_LOGPROBS,
     Finished,
@@ -224,8 +238,6 @@ def _unsupported(ecfg: EngineConfig) -> List[str]:
     out = []
     if ecfg.tensor_parallel_size != 1:
         out.append("tensor_parallel_size > 1")
-    if ecfg.speculative_enabled:
-        out.append("speculative decoding")
     return out
 
 
@@ -312,11 +324,28 @@ class LLMEngine:
             # B3 owns the full window with per-row cost: one context entry
             self._ctx_buckets = [ecfg.blocks_per_seq]
         self._decode_fns: Dict[Tuple[int, int], DecodeGraph] = {}
+        # speculative decoding: a host-side prompt-lookup drafter and one
+        # verify graph per (ctx bucket, batch bucket), decode's grid, k+1
+        # positions per sequence
+        self._verify_fns: Dict[Tuple[int, int], DecodeGraph] = {}
+        self._drafter: Optional[PromptLookupDrafter] = None
+        self.spec: Optional[SpecStats] = None
+        if ecfg.speculative_enabled:
+            self._drafter = PromptLookupDrafter(
+                ecfg.num_speculative_tokens,
+                ecfg.ngram_prompt_lookup_max, ecfg.ngram_prompt_lookup_min)
+            self.spec = SpecStats()
+            # the rejection uniforms (temperature > 0 acceptance): on the
+            # host, a stream of their own, seeded as the reference's
+            self._spec_rng = np.random.default_rng(ecfg.seed + 0x5EC)
+        self._last_rollback_tokens = 0
         # fused mixed-phase step (SHAI_FUSED_STEP, default off; ragged
         # only): one graph per batch bucket replaces the decode and ragged
         # continuation ladders, and one more bb=1 graph takes the
-        # chunk-only calls (its decode inputs stay null)
-        self._fused = env_bool("SHAI_FUSED_STEP", False) and self._ragged
+        # chunk-only calls (its decode inputs stay null). It stays out of
+        # speculative engines: verify owns multi-token dispatch there
+        self._fused = (env_bool("SHAI_FUSED_STEP", False) and self._ragged
+                       and not ecfg.speculative_enabled)
         self._fused_fns: Dict[int, DecodeGraph] = {}
         self._fused_chunk: Optional[DecodeGraph] = None
         # the parked continuation window (ids [1, C], n_text, table [1, M],
@@ -731,7 +760,7 @@ class LLMEngine:
         """Built functions, as the reference counts executables: the
         chunk-only graph is a second capture of the bb=1 fused function."""
         return (len(self._prefill) + len(self._decode_fns)
-                + len(self._fused_fns))
+                + len(self._verify_fns) + len(self._fused_fns))
 
     @property
     def max_prompt_len(self) -> int:
@@ -781,9 +810,11 @@ class LLMEngine:
         return done
 
     def _record_step(self, duration_s: float) -> None:
-        """One step record (occupancy, KV pressure, finished ids, tenant
-        gauges), then the conformance feeds: the perf sentinel's (tokens,
-        host seconds) sample and one HBM ledger tick. Host numbers only."""
+        """One step record (occupancy, KV pressure, the speculative
+        rollback since the last record and the spec counters, finished
+        ids, tenant gauges), then the conformance feeds: the perf
+        sentinel's (tokens, host seconds) sample and one HBM ledger tick.
+        Host numbers only."""
         tenants = None
         if self._tenant_seen:
             tenants = {}
@@ -792,6 +823,7 @@ class LLMEngine:
             for s in self.slots:
                 if s is not None:
                     tenants.setdefault(s.req.tenant, [0, 0])[1] += 1
+        rb = self.cache.rollback_tokens
         self.obs.record_step(
             kind=self._step_kind, duration_s=duration_s,
             n_running=self.n_running, n_waiting=self.n_waiting,
@@ -800,11 +832,14 @@ class LLMEngine:
             blocks_evictable=(self.cache.n_evictable
                               if self.cache.prefix_caching else 0),
             finished=len(self._done_this_step),
+            rollback_tokens=rb - self._last_rollback_tokens,
+            spec=self.spec.as_dict() if self.spec is not None else None,
             finished_ids=[f.req_id for f in self._done_this_step],
             tenants=tenants,
             # a replay still in flight has not completed: the step's last
             # completed work is its readback (the watchdog's clock)
             completed_at=self._t_fetch if self._pipe is not None else None)
+        self._last_rollback_tokens = rb
         # a step that built an executable is warmup, not throughput: it
         # stays out of the sentinel's window (as out of the step gap)
         compiled = self.n_executables != self._n_exec_last
@@ -827,21 +862,26 @@ class LLMEngine:
             })
         self._sample_hbm()
 
+    def graphs(self) -> List[DecodeGraph]:
+        """Every graph of the engine: the decode keys, the verify keys, and
+        under the fused step the fused keys and the chunk-only graph."""
+        return (list(self._decode_fns.values())
+                + list(self._verify_fns.values())
+                + list(self._fused_fns.values())
+                + ([self._fused_chunk] if self._fused_chunk else []))
+
     def _price_static_pools(self) -> Dict[str, float]:
         """The pools that change only when an executable is built: the
         weights, the KV pool, and the decode graphs' static batch inputs
         (where the port keeps the device-resident batch); in ``extra``,
         the CUDA graph pool and the split scratch, which the allocator
         holds outside every attributed pool."""
-        graphs = (list(self._decode_fns.values())
-                  + list(self._fused_fns.values())
-                  + ([self._fused_chunk] if self._fused_chunk else []))
         return {
             "weights": float(sum(p.nbytes for p in self.model.parameters())),
             "kv_pool": float(self.cache.pool_bytes),
             "resident": float(sum(
-                sum(t.nbytes for t in g.inputs.values()) + g.uniforms.nbytes
-                for g in graphs)),
+                sum(t.nbytes for t in g.inputs.values())
+                + sum(u.nbytes for u in g.draws) for g in self.graphs())),
             "graph_pool_bytes": float(self._graphs.bytes() or 0),
             "split_scratch_bytes": float(
                 split_scratch_bytes(self.device) if self._cuda_mem else 0),
@@ -919,16 +959,16 @@ class LLMEngine:
         chunking = any(s is not None and s.prefill_cursor is not None
                        for s in self.slots)
         # the steady (pure-decode) path needs no host-side inputs at all;
-        # admission work, a chunking slot or a due deadline makes an event
-        # step
+        # admission work, a chunking slot, a due deadline or a drafter
+        # wanting the pending token makes an event step
         if (self._pipe is not None and not self.waiting and not chunking
-                and not deadline_due):
+                and not deadline_due and self._drafter is None):
             self._steady_step()
         else:
             if self._pipe is not None:
                 self._flush_pipeline("deadline" if deadline_due else
-                                     "admission" if self.waiting
-                                     else "chunking")
+                                     "admission" if self.waiting else
+                                     "chunking" if chunking else "spec")
             self._expire_deadlines()
             self._admit_phase()
             if any(s is not None for s in self.slots):
@@ -981,8 +1021,12 @@ class LLMEngine:
     def _decode_dispatch(self) -> None:
         """Event-path decode: host-marshaled dispatch (mirrors are current)
         with the readback DEFERRED to the next step, which re-establishes
-        the pipeline in the same call that handled the event."""
-        self._grow_running()
+        the pipeline in the same call that handled the event. With a
+        drafter, a verify step takes its place when some slot drafted."""
+        if self._drafter is not None and self._spec_step():
+            self._step_kind = "spec"
+            return
+        self._grow_running(lambda s: 1)
         running = self._running_slots()
         if not running:
             return  # chunk-only step: every live slot is mid-prefill
@@ -1757,8 +1801,9 @@ class LLMEngine:
         return out + [self.ecfg.max_num_seqs]
 
     def _scratch_needs(self) -> List[Tuple[int, int]]:
-        """The split scratch each decode key of the closed set takes on
-        the card (B2 and B3 read the bucket's first ``m`` table entries);
+        """The split scratch each decode and verify key of the closed set
+        takes on the card (B2 and B3 read the bucket's first ``m`` table
+        entries);
         under the fused step, each fused key's mixed-row launch (its decode
         rows split, the chunk's group not)."""
         if self.device.type != "cuda":
@@ -1770,10 +1815,14 @@ class LLMEngine:
                 cfg.n_kv_heads, cfg.head_dim, self.ecfg.block_size,
                 self.ecfg.blocks_per_seq, n_sms)
                 for bb in self._batch_buckets()]
-        return [split_scratch_size(bb, 1, cfg.n_heads, cfg.n_kv_heads,
+        # a verify key walks Bb * (k + 1) rows over the repeated tables
+        rows = [1] + ([self.ecfg.num_speculative_tokens + 1]
+                      if self.ecfg.speculative_enabled else [])
+        return [split_scratch_size(bb * r, 1, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.head_dim, self.ecfg.block_size, m,
                                    n_sms)
-                for m in self._ctx_buckets for bb in self._batch_buckets()]
+                for m in self._ctx_buckets for bb in self._batch_buckets()
+                for r in rows]
 
     def _decode_for(self, m_blocks: int, n_active: int = -1):
         """Decode graph for the smallest (context, batch) buckets covering
@@ -1805,6 +1854,33 @@ class LLMEngine:
             graph.capture()
             self._decode_fns[key] = graph
         return bb, self._decode_fns[key]
+
+    def _verify_for(self, m_blocks: int, n_active: int = -1):
+        """The verify graph for the smallest (context, batch) buckets
+        covering the running set (decode's dispatch rule, ``k + 1`` scored
+        positions per sequence), captured when its key is first built."""
+        m = next(b for b in self._ctx_buckets if b >= m_blocks)
+        bb = (self.ecfg.max_num_seqs if n_active < 0
+              else self._batch_bucket(n_active))
+        key = (m, bb)
+        if key not in self._verify_fns:
+            # chaos site, before the function is built and the capture
+            # opens
+            _faults.get().raise_at(_faults.COMPILE)
+            if self._warmed:
+                self.obs.count_recompile("verify")
+            k = self.ecfg.num_speculative_tokens
+            graph = DecodeGraph(
+                ("verify", m, bb),
+                make_verify(self.cfg, self.ecfg.block_size,
+                            self.ecfg.blocks_per_seq, bb, k, ctx_blocks=m,
+                            ragged=self._ragged, kv_quant=self._kv_quant),
+                self.model, self.cache.kv, bb, self.ecfg.blocks_per_seq,
+                self.cfg.vocab_size, device=self.device, pool=self._graphs,
+                verify_k=k)
+            graph.capture()
+            self._verify_fns[key] = graph
+        return bb, self._verify_fns[key]
 
     # -- fused mixed-phase step (SHAI_FUSED_STEP) --------------------------
 
@@ -1954,18 +2030,20 @@ class LLMEngine:
             already_lp=(victim.req.already_lp + victim.lps
                         if p.logprobs else [])))
 
-    def _grow_running(self) -> None:
-        """Reserve one cache token per decoding slot for its pending token,
+    def _grow_running(self, n_ext_for) -> None:
+        """Reserve ``n_ext_for(slot)`` cache tokens for every decoding slot
+        (1 for decode's pending token; 1 + its draft for verify),
         recompute-preempting on pool exhaustion (never down to zero running
-        sequences)."""
+        sequences): the reservation step of both dispatch paths."""
         for s in list(self.slots):
             if s is None or s.prefill_cursor is not None:
                 continue  # mid-prefill slots neither grow nor decode yet
             if self.slots[s.slot] is not s:
                 continue  # preempted by an earlier iteration
+            n_ext = n_ext_for(s)
             while True:
                 try:
-                    self.cache.extend(s.req.req_id, 1)
+                    self.cache.extend(s.req.req_id, n_ext)
                     break
                 except MemoryError:
                     if sum(x is not None for x in self.slots) <= 1:
@@ -1974,12 +2052,15 @@ class LLMEngine:
                     if self.slots[s.slot] is not s:
                         break  # s itself was preempted
 
-    def _note_dispatch_pad(self, running, Bb: int) -> None:
-        """Pad-waste accounting for one decode dispatch: ``real`` is the
-        context tokens the rows hold, the pad the slots the call walks
-        beyond them (batch pad rows, and the context window past each
-        row's live tokens: the bucket for every row, or each row's own
-        blocks when ragged)."""
+    def _note_dispatch_pad(self, running, Bb: int,
+                           rows_per_seq: int = 1) -> None:
+        """Pad-waste accounting for one decode or verify dispatch: ``real``
+        is the context tokens the rows hold, the pad the slots the call
+        walks beyond them (batch pad rows, and the context window past
+        each row's live tokens: the bucket for every row, or each row's own
+        blocks when ragged). ``rows_per_seq``: verify flattens ``k + 1``
+        query rows per sequence, each walking the window, so both sides
+        scale (phase ``verify``)."""
         bs = self.ecfg.block_size
         real = walked = 0
         if self._ragged:
@@ -1996,7 +2077,8 @@ class LLMEngine:
                 m_blocks = max(m_blocks, self.cache._blocks_needed(n))
             m = next(b for b in self._ctx_buckets if b >= m_blocks)
             walked = Bb * m * bs
-        self.obs.count_pad(real, walked - real, phase="decode")
+        self.obs.count_pad(real * rows_per_seq, (walked - real) * rows_per_seq,
+                           phase="verify" if rows_per_seq > 1 else "decode")
 
     def _running_slots(self) -> List[_Running]:
         return [s for s in self.slots
@@ -2039,8 +2121,12 @@ class LLMEngine:
 
     def _decode_step(self) -> None:
         """Lock-step decode: grow, marshal everything from the host, replay
-        and read the tokens back before the bookkeeping."""
-        self._grow_running()
+        and read the tokens back before the bookkeeping; with a drafter, a
+        verify step when some slot drafted."""
+        if self._drafter is not None and self._spec_step():
+            self._step_kind = "spec"
+            return
+        self._grow_running(lambda s: 1)
         running = self._running_slots()
         if not running:
             return
@@ -2076,6 +2162,142 @@ class LLMEngine:
         self._t_fetch = time.monotonic()
         self._commit_pending(running)
         self._apply_sampled(running, nxt, *lp)
+
+    def _spec_step(self) -> bool:
+        """One speculative step (the reference's ``engine.py:2346``): draft
+        per running slot, verify every draft and the bonus position in one
+        replay, commit the longest prefix the model agrees with, and roll
+        the rest of the reservation back.
+
+        Returns False, without touching the cache, when no slot drafted:
+        the caller falls through to the decode replay (no ``k + 1``
+        overcompute). Reads back ``o``, ``oex`` and ``accept_p`` at once
+        (every verify step is an event step), the logprob arrays only when
+        a running request asked for them."""
+        k = self.ecfg.num_speculative_tokens
+        running = self._running_slots()
+        if not running:
+            return False
+        drafts: Dict[int, List[int]] = {}
+        for s in running:
+            p = s.req.params
+            # a draft leaves room for its own commit: inside the request's
+            # token budget and the model length (the reservation below must
+            # never trip the max_model_len guard)
+            cap = min(k, p.max_new_tokens - len(s.generated) - 1,
+                      self.ecfg.max_model_len
+                      - self.cache.seq(s.req.req_id).n_tokens - 1)
+            if cap <= 0:
+                drafts[s.slot] = []
+                continue
+            ctx = s.req.prompt_ids + s.generated + [s.pending_token]
+            drafts[s.slot] = self._drafter.draft(ctx)[:cap]
+        if not any(drafts.values()):
+            self.spec.fallback_steps += 1
+            return False
+        # reserve the pending token and the draft per slot before the
+        # replay; pool pressure preempts as in decode, and may take a slot
+        # away: the running set is read again
+        self._grow_running(lambda s: 1 + len(drafts.get(s.slot, ())))
+        running = self._running_slots()
+        if not running:
+            return True  # everything was preempted; the step is done
+        n_exec = self.n_executables
+        Bb, graph = self._verify_for(self._max_ctx_blocks(running),
+                                     len(running))
+        self._note_dispatch_pad(running, Bb, rows_per_seq=k + 1)
+        # the batch view is decode's resident one; only the tokens and
+        # positions are marshaled per step
+        self._res.refresh(self, running, Bb, graph)
+        tokens = np.zeros((Bb, k + 1), np.int32)
+        pos0 = np.zeros((Bb,), np.int32)
+        n_drafted = [len(drafts.get(s.slot, ())) for s in running]
+        for i, s in enumerate(running):
+            d = drafts.get(s.slot, [])
+            tokens[i, 0] = s.pending_token
+            tokens[i, 1:1 + len(d)] = d
+            pos0[i] = self.cache.seq(s.req.req_id).n_tokens - (1 + len(d))
+        want_lp = any(s.req.params.logprobs for s in running)
+        with torch.inference_mode():
+            upload(graph.inputs["tokens"], tokens)
+            upload(graph.inputs["pos"], pos0)
+            graph.draw(self._gen)
+            t_d = time.monotonic()
+            with annotate("engine.verify"):
+                graph.replay()
+            if self._t_fetch and self.n_executables == n_exec \
+                    and self._last_decode_step == self._step_count - 1:
+                self.obs.step_gap.observe(max(0.0, t_d - self._t_fetch))
+            self._last_decode_step = self._step_count
+            o, oex, accept_p = (t.cpu().numpy() for t in (
+                graph.o, graph.oex, graph.accept_p))
+            if want_lp:
+                o_lp, d_lp, oex_lp, top_ids, top_lp = (
+                    t.cpu().numpy() for t in (graph.o_lp, graph.d_lp,
+                                              graph.oex_lp, graph.top_ids,
+                                              graph.top_lp))
+        self._t_fetch = time.monotonic()
+        self.spec.verify_steps += 1
+        for i, s in enumerate(running):
+            if self.slots[s.slot] is not s:
+                continue
+            d = drafts.get(s.slot, [])
+            nd = n_drafted[i]
+            p = s.req.params
+            j, next_tok = accept_drafts(
+                d, o[i], oex[i], accept_p[i], p.temperature,
+                self._spec_rng.random(nd) if p.temperature > 0.0
+                else np.zeros(nd))
+            # give back what verification rejected: the reservation shrinks
+            # to exactly the committed tokens
+            self.cache.shrink(s.req.req_id, nd - j)
+            committed = [s.pending_token] + [int(t) for t in d[:j]]
+            n_processed = 0  # tokens the commit walk reaches: an EOS or
+            # length finish mid-run must not inflate tokens_per_verify
+            finished = False
+            for m, c in enumerate(committed):
+                n_processed += 1
+                self._tokens_this_step += 1  # the perf sentinel's feed
+                s.generated.append(c)
+                hit_eos = c == p.eos_id
+                if hit_eos:
+                    s.generated.pop()  # exclude EOS from the emitted text
+                    if p.logprobs and s.lps:
+                        s.lps.pop()    # its logprob entry goes with it
+                elif s.req.on_token is not None:
+                    s.req.on_token(c)
+                full = len(s.generated) >= p.max_new_tokens
+                out_of_len = pos0[i] + m + 1 >= self.ecfg.max_model_len
+                if hit_eos or full or out_of_len:
+                    self._record_tpot(s)
+                    self._finish(Finished(
+                        s.req.req_id, s.req.already_generated + s.generated,
+                        s.req.orig_n_prompt, "eos" if hit_eos else "length",
+                        logprobs=((s.req.already_lp + s.lps)
+                                  if p.logprobs else None),
+                        timing=self._timing_of(s.req, s.t_first)))
+                    self._release_slot(s)
+                    finished = True
+                    break
+                if p.logprobs:
+                    # the entry of this token's successor, where vanilla
+                    # records it (at sample time): the next accepted draft,
+                    # or the verify sample that ends the chain
+                    if m < j:
+                        s.lps.append(_lp_entry(
+                            p.logprobs, committed[m + 1], d_lp[i, m],
+                            top_ids[i, m], top_lp[i, m]))
+                    else:
+                        tok_lp = (o_lp[i, j] if (j == nd
+                                                 or p.temperature <= 0.0)
+                                  else oex_lp[i, j])
+                        s.lps.append(_lp_entry(
+                            p.logprobs, next_tok, tok_lp, top_ids[i, j],
+                            top_lp[i, j]))
+            self.spec.record_verify(nd, j, n_processed)
+            if not finished:
+                s.pending_token = next_tok
+        return True
 
     def _commit_pending(self, running) -> None:
         """Commit every running slot's pending token: append/stream it, run

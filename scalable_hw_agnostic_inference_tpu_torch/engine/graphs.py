@@ -10,7 +10,15 @@ call, so a dispatch costs what the reference's asynchronous executable
 launch costs.
 
 One graph per ``_decode_for`` key ``(ctx bucket, batch bucket)`` (ragged:
-one context entry, so the key is the batch bucket). Under
+one context entry, so the key is the batch bucket). Under speculative
+decoding a graph of the same class holds each verify key
+(``runner.make_verify``, the reference's ``_verify_for`` at
+``engine.py:2120``): ``("verify", ctx bucket, batch bucket)``, ``tokens
+[Bb, k+1]`` (the pending token and the draft), ``pos`` (each row's
+``pos0``), the batch view and knobs, and two sets of uniforms as static
+inputs; ``o``, ``oex``, ``accept_p``, ``o_lp``, ``d_lp``, ``oex_lp``,
+``top_ids`` and ``top_lp`` as static outputs. Its ``Bb * (k+1)`` attention
+rows take split scratch too, so the engine's reservation covers them. Under
 ``SHAI_FUSED_STEP`` a graph of the same class holds a fused step
 (``runner.make_fused_step``): one per batch bucket, and one more bb=1
 graph for the engine's chunk-only calls. It owns static inputs
@@ -69,6 +77,9 @@ from .resident import upload
 
 #: the static outputs of a decode step, in the decode function's order
 OUTPUTS = ("nxt", "pos_next", "top_ids", "top_lp", "tok_lp")
+#: the static outputs of a verify step (``runner.make_verify``), in order
+VERIFY_OUTPUTS = ("o", "oex", "accept_p", "o_lp", "d_lp", "oex_lp",
+                  "top_ids", "top_lp")
 #: the chunk window a fused step takes after the decode inputs, and its
 #: extra output
 CHUNK_INPUTS = ("c_ids", "c_ntext", "c_table", "c_start")
@@ -143,13 +154,19 @@ class DecodeGraph:
     feedback=True)``) for ``batch`` rows over ``model`` and the pool
     ``kv``, with static inputs and, after a run or a capture, static
     outputs. ``chunk`` > 0: ``decode`` is ``runner.make_fused_step`` with a
-    ``chunk``-token window. ``device`` defaults to the card; ``"cpu"`` runs
-    eagerly."""
+    ``chunk``-token window. ``verify_k`` > 0: ``decode`` is
+    ``runner.make_verify`` for ``k = verify_k`` drafts, ``tokens`` is
+    ``[batch, k+1]``, ``pos`` each row's ``pos0``, the draws are two sets
+    of uniforms (``draws``: ``uniforms [batch, k+1, V]`` for the target
+    sample, then ``[batch, k, V]`` for the rejection resample) and the
+    outputs are :data:`VERIFY_OUTPUTS`. ``device`` defaults to the card;
+    ``"cpu"`` runs eagerly."""
 
     def __init__(self, key, decode: Callable, model, kv, batch: int,
                  blocks_per_seq: int, vocab_size: int,
                  device: DeviceLike = None,
-                 pool: Optional[GraphPool] = None, chunk: int = 0):
+                 pool: Optional[GraphPool] = None, chunk: int = 0,
+                 verify_k: int = 0):
         self.device = resolve_device(device)
         self.key = key
         self.decode = decode
@@ -167,7 +184,9 @@ class DecodeGraph:
 
             # padding rows: null tables (block 0), greedy-neutral knobs
             self.inputs: Dict[str, torch.Tensor] = {
-                "tokens": i32(batch), "pos": i32(batch),
+                "tokens": (i32(batch, verify_k + 1) if verify_k
+                           else i32(batch)),
+                "pos": i32(batch),
                 "tables": i32(batch, blocks_per_seq),
                 "temp": f32(1.0, batch), "topk": i32(batch),
                 "topp": f32(1.0, batch)}
@@ -176,9 +195,21 @@ class DecodeGraph:
                 self.inputs.update(
                     c_ids=i32(1, chunk), c_ntext=i32(1) + 1,
                     c_table=i32(1, blocks_per_seq), c_start=i32(1))
-            self.uniforms = f32(0.5, batch, vocab_size)
+            if verify_k:
+                self.uniforms = f32(0.5, batch, verify_k + 1, vocab_size)
+                self.draws: Tuple[torch.Tensor, ...] = (
+                    self.uniforms, f32(0.5, batch, verify_k, vocab_size))
+            else:
+                self.uniforms = f32(0.5, batch, vocab_size)
+                self.draws = (self.uniforms,)
         self.chunk = chunk
-        self.outputs = OUTPUTS + ((CHUNK_OUTPUT,) if chunk else ())
+        self.verify_k = verify_k
+        if verify_k:
+            self.outputs = VERIFY_OUTPUTS
+            for name in VERIFY_OUTPUTS:
+                setattr(self, name, None)
+        else:
+            self.outputs = OUTPUTS + ((CHUNK_OUTPUT,) if chunk else ())
         #: a chunk window is loaded (False: the null window)
         self.window = False
         self.c_logits: Optional[torch.Tensor] = None
@@ -204,13 +235,14 @@ class DecodeGraph:
 
     def eager(self) -> Tuple[torch.Tensor, ...]:
         """One eager call of the decode function on the static inputs, on
-        the current stream: the :data:`OUTPUTS`, fresh tensors."""
+        the current stream: the graph's outputs, fresh tensors."""
         a = self.inputs
         window = [a[name] for name in CHUNK_INPUTS] if self.chunk else []
+        rng = self.draws if self.verify_k else self.uniforms
         with torch.inference_mode():
             _, *outs = self.decode(
                 self.model, self.kv, a["tokens"], a["pos"], a["tables"],
-                self.uniforms, a["temp"], a["topk"], a["topp"], *window)
+                rng, a["temp"], a["topk"], a["topp"], *window)
         return tuple(outs)
 
     def _set_outputs(self, outs) -> None:
@@ -287,8 +319,10 @@ class DecodeGraph:
 
     def draw(self, generator: torch.Generator) -> None:
         """The step's uniforms, fresh from ``generator`` (one eager launch
-        before the replay: a replay alone would reuse the last draws)."""
-        self.uniforms.uniform_(0.0, 1.0, generator=generator)
+        per set before the replay: a replay alone would reuse the last
+        draws); a verify graph's target set first, then its resample set."""
+        for u in self.draws:
+            u.uniform_(0.0, 1.0, generator=generator)
 
     def replay(self) -> None:
         """Run the step on the current stream: the graph on CUDA, the

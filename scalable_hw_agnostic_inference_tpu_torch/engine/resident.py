@@ -7,9 +7,11 @@ blocks on the sampled tokens before its host bookkeeping. The async
 pipeline (``SHAI_ASYNC_DECODE``) removes both halves:
 
 * :class:`ResidentBatch` keeps the composition-dependent inputs (``tables``,
-  ``temp``, ``topk``, ``topp``) on the device, keyed by a composition
-  signature: they are uploaded again only when the signature changes
-  (join, finish, preemption) or the decode graph they feed changes, and
+  ``temp``, ``topk``, ``topp``) on the device for decode and speculative
+  verify alike (the reference's ``resident.py:15``: a verify graph is one
+  more graph it feeds), keyed by a composition signature: they are
+  uploaded again only when the signature changes (join, finish,
+  preemption) or the decode graph they feed changes, and
   block-table growth alone uploads only ``tables``. They live in the static
   input buffers of the :class:`~.graphs.DecodeGraph` they feed: a refresh
   copies into those tensors and never replaces them, since a captured

@@ -6,9 +6,11 @@ Port of ``scalable_hw_agnostic_inference_tpu/engine/runner.py``:
 text-only, both the static-start ladder and ``ragged=True``),
 ``make_decode`` (``:780``, the ``T = 1`` instantiation of
 ``_make_token_forward`` at ``:641``, with its ``feedback`` variant),
-``make_fused_step`` (``:995``, the mixed-phase step of
-``SHAI_FUSED_STEP``), ``token_logprobs`` (``:129``, the per-token logprob
-readout) and their helpers ``_rmsnorm``,
+``make_verify`` (``:889``, speculative decoding's verify step, the
+``T = k + 1`` instantiation of the same forward), ``make_fused_step``
+(``:995``, the mixed-phase step of ``SHAI_FUSED_STEP``),
+``token_logprobs`` (``:129``, the per-token logprob readout) and their
+helpers ``_rmsnorm``,
 ``_qkv``, ``_mlp``, ``_scatter_blocks``, ``_pool_scales``,
 ``_ragged_pool_attention`` and ``_logits``. The runner reads the weights of
 ``models.llama.LlamaForCausalLM``, so one set of weights serves the scoring
@@ -65,7 +67,12 @@ from ..ops.quant import (
     requantize_block_tokens,
 )
 from ..ops.rope import apply_rope
-from ..ops.sampling import sample_logits
+from ..ops.sampling import (
+    masked_scaled_logits,
+    sample_excluding,
+    sample_logits,
+    sampling_probs,
+)
 from .types import K_LOGPROBS
 
 KVPool = List[Dict[str, torch.Tensor]]
@@ -471,6 +478,98 @@ def make_decode(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
         return kv, nxt
 
     return decode
+
+
+def make_verify(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
+                max_num_seqs: int, k: int, ctx_blocks: Optional[int] = None,
+                ragged: bool = False, kv_quant: bool = False) -> Callable:
+    """One speculative VERIFY step: ``k + 1`` positions per sequence scored
+    in one walk of the pool (the reference's ``runner.py:889``).
+
+    ``verify(model, kv, tokens [B, k+1], pos0 [B], tables [B, M], rng,
+    temperature [B], top_k [B], top_p [B]) -> (kv, o [B, k+1], oex [B, k],
+    accept_p [B, k], o_lp [B, k+1], d_lp [B, k], oex_lp [B, k], top_ids
+    [B, k+1, K], top_lp [B, k+1, K])``.
+
+    ``tokens[:, 0]`` is each slot's pending token, ``tokens[:, 1:]`` its
+    draft, zero-padded past the slot's draft length (padded positions write
+    into the null block or the reserved tail of a real block, as the
+    reference's do, and their outputs are never committed). ``pos0[b]`` is
+    the cache index the pending token is written at; position ``i`` lands
+    at ``pos0 + i``. The layer stack is :func:`_make_token_forward` at
+    ``T = k + 1``, decode's own: the ``T`` queries flatten into ``B * T``
+    rows over the tables repeated ``T`` times, with lengths ``pos0 + 1 ...
+    pos0 + T`` (B2 over the context bucket, or B3 with ``ragged``, on
+    CUDA); an int8 pool requantizes its target block once per token,
+    unrolled ``T`` times.
+
+    ``rng``: the step's two sets of draws, uniforms ``(u_o [B, k+1, V],
+    u_ex [B, k, V])`` (the reference's ``fold_in(rng, 1)`` and
+    ``fold_in(rng, 2)``; what a captured graph reads), or a generator that
+    draws them in that order.
+
+    Per position ``i`` (predicting the token at ``pos0 + i + 1``): ``o`` a
+    sample of the full target distribution (the argmax at temperature 0),
+    ``oex`` a sample with the draft token removed AFTER the top-k and top-p
+    masks (``ops.sampling.sample_excluding``), ``accept_p`` the draft
+    token's probability under the sampling distribution
+    (``ops.sampling.sampling_probs``), and the raw logprob readout of every
+    token the engine may commit: ``o_lp``, ``d_lp``, ``oex_lp`` and the
+    top-K alternatives. :func:`~..ops.sampling.masked_scaled_logits` is
+    computed once and shared by the three draws (its sorts over ``[B, k+1,
+    V]`` are not cheap; the results are the same). The acceptance walk is
+    the host's (``speculative.accept_drafts``).
+    """
+    if k < 1:
+        raise ValueError(f"num_speculative_tokens {k} < 1")
+    m_ctx = blocks_per_seq if ctx_blocks is None else ctx_blocks
+    if not 1 <= m_ctx <= blocks_per_seq:
+        raise ValueError(f"ctx_blocks {m_ctx} outside [1, {blocks_per_seq}]")
+    if ragged and m_ctx != blocks_per_seq:
+        raise ValueError("ragged verify owns the full window; it takes no "
+                         "context bucket")
+    T = k + 1
+    fwd = _make_token_forward(cfg, block_size, m_ctx, max_num_seqs, T,
+                              ragged=ragged, kv_quant=kv_quant)
+
+    def verify(model: LlamaForCausalLM, kv: KVPool, tokens: torch.Tensor,
+               pos0: torch.Tensor, tables: torch.Tensor, rng,
+               temperature: torch.Tensor, top_k: torch.Tensor,
+               top_p: torch.Tensor):
+        B = max_num_seqs
+        dev = tokens.device
+        positions = pos0[:, None] + torch.arange(T, dtype=pos0.dtype,
+                                                 device=dev)[None, :]
+        kv, logits = fwd(model, kv, tokens, positions, tables)  # [B, T, V]
+        draft = tokens[:, 1:].long()
+        bt = temperature[:, None].expand(B, T)
+        bk = top_k[:, None].expand(B, T)
+        bp = top_p[:, None].expand(B, T)
+        if isinstance(rng, torch.Generator):
+            V = logits.shape[-1]
+            u_o = torch.rand((B, T, V), generator=rng, device=dev)
+            u_ex = torch.rand((B, k, V), generator=rng, device=dev)
+        else:
+            u_o, u_ex = rng
+        masked = masked_scaled_logits(logits, bt, bk, bp)
+        o_tok = sample_logits(logits, u_o, bt, bk, bp, masked=masked)
+        lk, bt, bk, bp, mk = (logits[:, :k], bt[:, :k], bk[:, :k],
+                              bp[:, :k], masked[:, :k])
+        oex = sample_excluding(lk, u_ex, draft, bt, bk, bp, masked=mk)
+        accept_p = torch.gather(
+            sampling_probs(lk, bt, bk, bp, masked=mk), -1,
+            draft[..., None])[..., 0]
+        # the raw (pre-temperature) logprob readout of every committable
+        # token
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        top_lp, top_ids = torch.topk(logp, K_LOGPROBS, dim=-1)
+        o_lp = torch.gather(logp, -1, o_tok.long()[..., None])[..., 0]
+        d_lp = torch.gather(logp[:, :k], -1, draft[..., None])[..., 0]
+        oex_lp = torch.gather(logp[:, :k], -1, oex.long()[..., None])[..., 0]
+        return (kv, o_tok, oex, accept_p, o_lp, d_lp, oex_lp,
+                top_ids.to(torch.int32), top_lp)
+
+    return verify
 
 
 def make_fused_step(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,

@@ -4,7 +4,10 @@ Port of ``scalable_hw_agnostic_inference_tpu/engine/warm.py``
 (``warm_executables`` at ``:16``, ``_run_warm_calls`` at ``:114``) for the
 text branches the port has: every prefill bucket x batch size, every
 continuation key (the static-start ladder, or the one ragged entry), and
-every decode key (context bucket x batch bucket); under ``SHAI_FUSED_STEP``
+every decode key (context bucket x batch bucket) and, under speculative
+decoding, every verify key of the same grid (``warm.py:99-104``, the
+decode keys kept: a step without a draft replays one); under
+``SHAI_FUSED_STEP``
 the fused keys (one per batch bucket, and the chunk-only graph) replace the
 decode grid and the ragged continuation (``warm.py:43-49``). With the
 prefix cache on, the cached-admission ladder too (``warm.py:58-60,78-84``):
@@ -14,7 +17,8 @@ bucket that one can take (``("rcont", bucket)``), so that the warmed set is
 the reference's key for key. Prefill and the
 continuation run once eagerly here, which loads their kernels and primes
 cuBLAS; each decode key is captured as a CUDA graph when ``_decode_for``
-builds it and replayed once here. Functions take the engine explicitly.
+(or ``_verify_for``) builds it and replayed once here. Functions take the
+engine explicitly.
 """
 
 from __future__ import annotations
@@ -81,6 +85,12 @@ def warm_executables(eng) -> int:
         for bb in eng._batch_buckets():
             eng._decode_for(m, bb)   # captured here (fused: a fused key)
             n += 1
+            if eng._drafter is not None:
+                # the verify ladder mirrors decode's (ctx, batch) grid; the
+                # decode keys stay in the set (a step with no draft falls
+                # back to them)
+                eng._verify_for(m, bb)
+                n += 1
     if eng._fused:
         eng._chunk_graph()
     eng._run_warm_calls()
@@ -121,10 +131,7 @@ def _run_warm_calls(eng) -> None:
                               torch.ones(K, device=dev))
                 # and with the scalar knobs of a final chunk
                 sample_logits(logits[:1], gen, 1.0, 0, 1.0)
-        graphs = list(eng._decode_fns.values()) + list(eng._fused_fns.values())
-        if eng._fused_chunk is not None:
-            graphs.append(eng._fused_chunk)
-        for graph in graphs:
+        for graph in eng.graphs():
             graph.draw(gen)
             graph.replay()
     if dev.type == "cuda":

@@ -7,7 +7,9 @@ histograms over the reference's buckets (``:39``), ``BucketHistogram``,
 and on ``StepTelemetry`` ``count_recompile``, ``count_flush`` with
 ``pipeline_flushes`` and ``flush_reasons`` (whose reasons include
 ``deadline``), ``count_preemption``, ``count_pad`` (pad-waste accounting
-by phase), ``record_step`` (the last step's occupancy and KV gauges),
+by phase: prefill, chunk, decode, verify), ``record_step`` (the last
+step's occupancy and KV gauges, its speculative rollback and ``spec``
+counters with the ``spec_acceptance_rate`` gauge),
 ``warmed_executables``, ``snapshot`` and ``histograms``, which
 ``serve/metrics.py`` exports; the per-step record ring the flight recorder
 dumps (``recent_steps``, each record with its ``finished_ids``), the
@@ -149,7 +151,7 @@ class StepTelemetry:
         self._flush_reasons: Dict[str, int] = {}
         # pad-waste accounting: per dispatch, the token slots the call
         # walked for real context against shape padding, in total and by
-        # phase (prefill, chunk, decode)
+        # phase (prefill, chunk, decode, verify)
         self.pad_tokens = 0
         self.real_tokens = 0
         self.pad_by_phase: Dict[str, int] = {}
@@ -261,12 +263,18 @@ class StepTelemetry:
     def record_step(self, *, kind: str, duration_s: float, n_running: int,
                     n_waiting: int, n_chunking: int, blocks_free: int,
                     blocks_evictable: int = 0, finished: int = 0,
+                    rollback_tokens: int = 0,
+                    spec: Optional[Dict[str, Any]] = None,
                     finished_ids: Sequence[int] = (),
                     tenants: Optional[Dict[str, Sequence[int]]] = None,
                     completed_at: Optional[float] = None) -> None:
         """One engine ``step()`` returned: count it and its finished
         requests, ring its record, and replace the occupancy and KV
-        gauges. ``kind`` names the path taken (``"decode"``, ``"idle"``),
+        gauges. ``kind`` names the path taken (``"decode"``, ``"spec"``,
+        ``"idle"``); ``rollback_tokens`` the speculative reservation given
+        back during the step, ``spec`` the engine's cumulative
+        ``SpecStats.as_dict()`` (the record's ``spec`` and the
+        ``spec_acceptance_rate`` gauge), None without a drafter;
         ``duration_s`` its host seconds, ``finished_ids`` the engine
         request ids that reached a terminal state (the join key with the
         request traces' ``engine_req_id``). ``completed_at``: the
@@ -292,9 +300,11 @@ class StepTelemetry:
             "kv_blocks_evictable": blocks_evictable,
             "kv_utilization": round(live / total, 4),
             "kv_occupancy": round(used / total, 4),
-            "rollback_tokens": 0,
+            "rollback_tokens": rollback_tokens,
             "finished_ids": list(finished_ids),
         }
+        if spec:
+            rec["spec"] = dict(spec)
         now = time.monotonic() if completed_at is None else completed_at
         with self._lock:
             self.steps += 1
@@ -312,6 +322,9 @@ class StepTelemetry:
                 "kv_blocks_free": float(blocks_free),
                 "last_step_duration_s": rec["duration_s"],
             }
+            if spec and "spec_acceptance_rate" in spec:
+                self._gauges["spec_acceptance_rate"] = float(
+                    spec["spec_acceptance_rate"])
             if tenants is not None:
                 # replace-the-gauge semantics: a tenant absent this step
                 # reads 0 queued/running, but keeps its cumulative counts

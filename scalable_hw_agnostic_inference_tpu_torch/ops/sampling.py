@@ -2,7 +2,12 @@
 
 Port of ``scalable_hw_agnostic_inference_tpu/ops/sampling.py``
 (``greedy``, ``masked_scaled_logits``, ``sampling_probs``,
-``sample_logits``). Every knob may be a scalar or a per-row tensor.
+``sample_logits``, ``sample_excluding``). Every knob may be a scalar or a
+per-row tensor. A caller that draws several ways from one set of logits
+(speculative verify: the target sample, the rejection resample and the
+draft's acceptance probability) computes :func:`masked_scaled_logits` once
+and passes it as ``masked``: the same tensor the function would compute,
+so the results do not change.
 
 Draws take an explicit ``torch.Generator`` on the logits' device (the
 engine seeds one from ``EngineConfig.seed``), or the uniforms already
@@ -15,7 +20,7 @@ sampling distribution (:func:`sampling_probs`), not draw for draw.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -75,13 +80,34 @@ def masked_scaled_logits(logits: torch.Tensor, temperature: Knob = 1.0,
     return _mask_top_p(_mask_top_k(scaled, k), p)
 
 
+def _masked(logits, temperature, top_k, top_p, masked):
+    return (masked_scaled_logits(logits, temperature, top_k, top_p)
+            if masked is None else masked)
+
+
+def _gumbel_argmax(masked: torch.Tensor,
+                   rng: Union[torch.Generator, torch.Tensor]) -> torch.Tensor:
+    """A categorical draw over ``masked`` logits (Gumbel-max), with
+    uniforms in [0, 1) from ``rng``: a generator on the logits' device, or
+    a tensor of the logits' shape already drawn."""
+    if isinstance(rng, torch.Tensor):
+        u = rng
+    else:
+        u = torch.rand(masked.shape, generator=rng, device=masked.device)
+    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+    return torch.argmax(masked + gumbel, dim=-1).to(torch.int32)
+
+
 def sampling_probs(logits: torch.Tensor, temperature: Knob = 1.0,
-                   top_k: Knob = 0, top_p: Knob = 1.0) -> torch.Tensor:
+                   top_k: Knob = 0, top_p: Knob = 1.0,
+                   masked: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The sampling distribution ``[..., V]`` after temperature, top-k and
-    top-p — a point mass on the argmax at ``temperature == 0``."""
+    top-p — a point mass on the argmax at ``temperature == 0``.
+    Speculative acceptance needs exactly this: a draft outside the nucleus
+    must always be rejected."""
     t, _, _ = _broadcast_knobs(logits, temperature, top_k, top_p)
     probs = torch.softmax(
-        masked_scaled_logits(logits, temperature, top_k, top_p), dim=-1)
+        _masked(logits, temperature, top_k, top_p, masked), dim=-1)
     point = torch.nn.functional.one_hot(
         greedy(logits).long(), logits.shape[-1]).float()
     return torch.where((t <= 0.0)[..., None], point, probs)
@@ -90,7 +116,8 @@ def sampling_probs(logits: torch.Tensor, temperature: Knob = 1.0,
 def sample_logits(logits: torch.Tensor,
                   rng: Union[torch.Generator, torch.Tensor],
                   temperature: Knob = 1.0, top_k: Knob = 0,
-                  top_p: Knob = 1.0) -> torch.Tensor:
+                  top_p: Knob = 1.0,
+                  masked: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sample tokens from ``[..., V]`` logits; ``temperature == 0`` rows
     take the argmax and do not depend on the draws. A Gumbel-max draw over
     :func:`masked_scaled_logits` with uniforms in [0, 1) from ``rng``: a
@@ -98,11 +125,29 @@ def sample_logits(logits: torch.Tensor,
     already drawn (``torch.rand`` of that shape from the same generator
     gives the same tokens)."""
     t, _, _ = _broadcast_knobs(logits, temperature, top_k, top_p)
-    masked = masked_scaled_logits(logits, temperature, top_k, top_p)
-    if isinstance(rng, torch.Tensor):
-        u = rng
-    else:
-        u = torch.rand(masked.shape, generator=rng, device=logits.device)
-    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
-    sampled = torch.argmax(masked + gumbel, dim=-1).to(torch.int32)
+    sampled = _gumbel_argmax(
+        _masked(logits, temperature, top_k, top_p, masked), rng)
     return torch.where(t <= 0.0, greedy(logits), sampled)
+
+
+def sample_excluding(logits: torch.Tensor,
+                     rng: Union[torch.Generator, torch.Tensor],
+                     exclude: torch.Tensor, temperature: Knob = 1.0,
+                     top_k: Knob = 0, top_p: Knob = 1.0,
+                     masked: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sample from the :func:`sample_logits` distribution with token
+    ``exclude [...]`` removed: speculative decoding's rejection resample
+    (the residual of a delta proposal is the target distribution with the
+    rejected token zeroed, renormalized over the ORIGINAL support). The
+    top-k and top-p masks are taken BEFORE the exclusion: taking them after
+    would let a rank-(k+1) token in, one vanilla sampling never emits.
+    ``rng`` as in :func:`sample_logits`. At temperature 0: the argmax of
+    the raw logits with the hole removed."""
+    t, _, _ = _broadcast_knobs(logits, temperature, top_k, top_p)
+    hole = (exclude.long()[..., None]
+            == torch.arange(logits.shape[-1], device=logits.device))
+    sampled = _gumbel_argmax(
+        _masked(logits, temperature, top_k, top_p, masked).masked_fill(
+            hole, NEG_INF), rng)
+    return torch.where(t <= 0.0, greedy(logits.masked_fill(hole, NEG_INF)),
+                       sampled)

@@ -150,6 +150,14 @@ class ModelService:
         without an engine, or before it is built)."""
         return None
 
+    def spec_counters(self) -> Optional[Dict[str, int]]:
+        """Cumulative speculative-decoding counters (``{"drafted",
+        "accepted", "committed"}``) for
+        :meth:`~.metrics.MetricsPublisher.publish_spec`, or None when the
+        service has no speculative engine. The ``/generate`` path forwards
+        them after each served inference."""
+        return None
+
     def affinity_digests(self) -> Optional[List[str]]:
         """Recently served prompt-affinity digests (``kvtier.affinity``),
         advertised under ``/stats`` -> ``kvtier.affinity``; None = no
@@ -618,6 +626,9 @@ def create_app(cfg: ServeConfig, service: ModelService,
                 idem.fail(key)
             raise
         dt = _record(t0)
+        sc = service.spec_counters()
+        if sc is not None:
+            pub.publish_spec(**sc)
         tele = service.engine_telemetry()
         if tele is not None:
             pub.publish_engine(tele)

@@ -13,6 +13,12 @@ label names and histogram buckets:
   the KEDA scaling signal, one observation per served request;
 - ``shai_shed_total`` (counter; ``app``, ``nodepool``, ``reason``,
   ``tenant``): requests the admission gate or the drain refused;
+- ``shai_spec_{drafted,accepted,committed}_total`` (counters; ``app``,
+  ``nodepool``, ``pod``): speculative decoding's cumulative counters,
+  advanced by :meth:`MetricsPublisher.publish_spec` after each served
+  ``/generate`` (the families are on every page, their samples from the
+  first advance on, as ``prometheus_client`` writes a labelled counter),
+  and the ``shai_spec_acceptance_rate`` gauge among the engine gauges;
 - :data:`ENGINE_HISTOGRAMS`, :data:`ENGINE_GAUGES`,
   :data:`ENGINE_COUNTERS` and :data:`PAD_PHASE_COUNTERS` off the engine's
   ``obs.steploop.StepTelemetry`` (label ``app``; the pad counters also
@@ -36,8 +42,7 @@ The sources are attached as providers resolved at every scrape (the app
 attaches them before the engine exists). A counter family's samples carry
 the ``_total`` suffix, as ``prometheus_client`` writes them.
 :meth:`MetricsPublisher.start_exporter` serves the same page on its own
-port from a stdlib HTTP server. ``publish_spec`` (speculative decoding)
-comes with that slice.
+port from a stdlib HTTP server.
 """
 
 from __future__ import annotations
@@ -91,6 +96,8 @@ ENGINE_GAUGES = {
                      "KV page pool fraction allocated, cached blocks "
                      "included"),
     "kv_blocks_free": ("shai_engine_kv_blocks_free", "Free KV pool blocks"),
+    "spec_acceptance_rate": ("shai_spec_acceptance_rate",
+                             "Speculative draft acceptance rate"),
     "pad_fraction": ("shai_engine_pad_fraction",
                      "Fraction of dispatched token slots that were shape "
                      "padding (bucket windows past live tokens + batch pad "
@@ -109,9 +116,12 @@ ENGINE_COUNTERS = {
                          "Async-decode lookahead steps retired early by a "
                          "composition/control-flow event"),
 }
+#: the speculative counters ``publish_spec`` advances (``shai_spec_<kind>``)
+SPEC_KINDS = ("drafted", "accepted", "committed")
+
 #: pad and real token counters with a ``phase`` label (prefill, chunk,
-#: decode); an unphased remainder goes under phase="", so the rows sum to
-#: the engine's totals
+#: decode, verify); an unphased remainder goes under phase="", so the rows
+#: sum to the engine's totals
 PAD_PHASE_COUNTERS = {
     "pad_tokens": ("shai_engine_pad_tokens",
                    "Padded (wasted) token slots dispatched, cumulative",
@@ -430,10 +440,11 @@ def ledger_families(out: Exposition, snap: Dict[str, Dict[str, float]],
 
 
 class MetricsPublisher:
-    """The request counter, latency histogram and shed counter of one
-    serving pod, the page that exports them with the attached sources'
-    families, and the JSON-line push path (one line per served request,
-    per shed, and per engine step count on ``publish_engine``)."""
+    """The request counter, latency histogram, shed counter and
+    speculative counters of one serving pod, the page that exports them
+    with the attached sources' families, and the JSON-line push path (one
+    line per served request, per shed, per speculative advance on
+    ``publish_spec`` and per engine step count on ``publish_engine``)."""
 
     def __init__(self, app: str, nodepool: str, pod_name: str = "",
                  emit_json: bool = True, stream=None):
@@ -446,6 +457,10 @@ class MetricsPublisher:
         self._served = 0
         self._latency = BucketHistogram(LATENCY_BUCKETS)
         self._shed: Dict[Tuple[str, str], int] = {}
+        # speculative counters: the last cumulative snapshot published, and
+        # the exported totals (None until the first advance: no samples)
+        self._spec_last = {k: 0 for k in SPEC_KINDS}
+        self._spec_total: Optional[Dict[str, int]] = None
         self._engine_last_steps = -1
         # scrape-time providers (zero-argument callables; None = absent)
         self._engine: Optional[Callable[[], Any]] = None
@@ -487,6 +502,32 @@ class MetricsPublisher:
             self._shed[key] = self._shed.get(key, 0) + 1
         if self.emit_json:
             self._push({f"{self.app}-shed-{reason}": 1})
+
+    def publish_spec(self, drafted: int, accepted: int,
+                     committed: int) -> None:
+        """Record the engine's CUMULATIVE speculative counters (its
+        ``SpecStats`` totals): the ``shai_spec_*_total`` counters advance by
+        the delta since the last call, and the JSON push path emits the
+        cumulative snapshot and the acceptance rate. An unchanged snapshot
+        does nothing, so the request path forwards the totals after every
+        request. The delta and the push are taken under one lock, so
+        concurrent publishers never push totals out of order."""
+        with self._lock:
+            cur = {"drafted": drafted, "accepted": accepted,
+                   "committed": committed}
+            delta = {k: max(0, cur[k] - self._spec_last[k]) for k in cur}
+            self._spec_last = cur
+            if not any(delta.values()):
+                return
+            if self._spec_total is None:
+                self._spec_total = {k: 0 for k in SPEC_KINDS}
+            for k, d in delta.items():
+                self._spec_total[k] += d
+            if self.emit_json:
+                data = {f"{self.app}-spec-{k}": v for k, v in cur.items()}
+                data[f"{self.app}-spec-acceptance"] = (
+                    round(accepted / drafted, 4) if drafted else 0.0)
+                self._push(data)
 
     def publish_engine(self, tele: Any) -> None:
         """Push one JSON line of the engine's flat snapshot, deduplicated
@@ -536,6 +577,15 @@ class MetricsPublisher:
                                 ("nodepool", self.nodepool),
                                 ("reason", reason), ("tenant", tenant)), n)
                               for (reason, tenant), n in shed])
+        with self._lock:
+            spec = None if self._spec_total is None else dict(
+                self._spec_total)
+        for kind in SPEC_KINDS:
+            out.counter(f"shai_spec_{kind}",
+                        f"Speculative decoding: {kind} tokens",
+                        [] if spec is None else
+                        [((("app", self.app), ("nodepool", self.nodepool),
+                           ("pod", self.pod_name)), spec[kind])])
         tele = self._engine() if self._engine is not None else None
         if tele is not None:
             engine_families(out, tele, self.app)

@@ -4,7 +4,9 @@
 Trimmed port of ``scalable_hw_agnostic_inference_tpu/serve/units/vllm.py``
 (``VllmService``: ``_resolve_ecfg``, ``load`` with the closed set warmed
 before the loop starts, ``infer``, ``_collect``, ``_deadline_at``,
-``_qos_kw``, ``_result_timeout``, ``extra_stats``, and the OpenAI surface
+``_qos_kw``, ``_result_timeout``, ``extra_stats`` (with the engine's
+``SpecStats`` under speculative decoding), ``spec_counters``, and the
+OpenAI surface
 ``:986-1351``: ``/v1/completions``, ``/v1/chat/completions`` and
 ``/v1/models``, ``stream: true`` as server-sent events, ``n`` parallel
 samples, ``logprobs`` through ``_format_logprobs``). ``load`` serves the
@@ -220,6 +222,12 @@ class VllmService(ModelService):
                 quantization=ecfg.quantization,
                 enable_prefix_caching=ecfg.enable_prefix_caching,
                 max_new_tokens=min(ecfg.max_new_tokens, 64),
+                # the speculative knobs ride through: the tiny tier is how
+                # the CPU tests reach the verify steps
+                speculative_model=ecfg.speculative_model,
+                num_speculative_tokens=ecfg.num_speculative_tokens,
+                ngram_prompt_lookup_max=ecfg.ngram_prompt_lookup_max,
+                ngram_prompt_lookup_min=ecfg.ngram_prompt_lookup_min,
                 role=ecfg.role)
         elif model_id in GEOMETRY_MODELS:
             mcfg = GEOMETRY_MODELS[model_id]()
@@ -796,7 +804,18 @@ class VllmService(ModelService):
         if gap["count"]:
             out["step_gap_mean_ms"] = round(
                 gap["sum"] / gap["count"] * 1e3, 4)
+        if eng.spec is not None:
+            # acceptance and tokens per verify become shai_service_*
+            # gauges beside the shai_spec_*_total counters
+            out.update(eng.spec.as_dict())
         return out
+
+    def spec_counters(self) -> Optional[Dict[str, int]]:
+        eng = self._engine
+        if eng is None or eng.spec is None:
+            return None
+        return {"drafted": eng.spec.drafted, "accepted": eng.spec.accepted,
+                "committed": eng.spec.committed}
 
     # -- OpenAI-compatible surface ------------------------------------------
 

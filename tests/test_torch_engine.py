@@ -152,13 +152,11 @@ def test_engine_refuses_what_later_slices_bring(tiny):
     # K_LOGPROBS, as the reference's SamplingParams.clamp does
     eng.add_request([1, 2], SamplingParams(logprobs=9))
     assert eng.waiting[-1].params.logprobs == 5
-    # the prefix cache and the roles are served (slice 10); speculative
-    # decoding and tensor parallelism are still refused
-    for over in (dict(speculative_model="[ngram]", num_speculative_tokens=2),
-                 dict(tensor_parallel_size=2)):
-        with pytest.raises(ValueError, match="not ported yet"):
-            LLMEngine(tcfg, model, tconfig.EngineConfig(
-                **dict(ENGINE_KW, **over)), device="cpu")
+    # the prefix cache and the roles are served (slice 10), speculative
+    # decoding too (slice 13); tensor parallelism is still refused
+    with pytest.raises(ValueError, match="not ported yet"):
+        LLMEngine(tcfg, model, tconfig.EngineConfig(
+            **dict(ENGINE_KW, tensor_parallel_size=2)), device="cpu")
     eng = LLMEngine(tcfg, model, tconfig.EngineConfig(
         **dict(ENGINE_KW, enable_prefix_caching=True, role="decode")),
         device="cpu")

@@ -7,6 +7,7 @@ package, and it runs on the card unless it is asked for the CPU.
   the card lacks (``transformers``, ``safetensors``, ``tokenizers``,
   ``tiktoken``, ``regex``, ``jinja2``, ``sentencepiece``, ``ml_dtypes``,
   ``httpx``);
+- ``engine/speculative.py`` imports numpy and the standard library alone;
 - a fresh interpreter that imports every port module holds no more
   ``jax*``/``flax*`` modules than a bare interpreter does (an interpreter
   may preload JAX at start-up, so the check is relative);
@@ -75,6 +76,24 @@ def test_no_forbidden_import_in_any_port_source():
     bad = _forbidden_imports(path for path, _ in _modules())
     assert not bad, bad
     assert len(list(_modules())) > 20
+
+
+def test_speculative_module_is_numpy_and_the_standard_library():
+    """``engine/speculative.py`` is a copy of the JAX package's module that
+    takes nothing from it: the drafter, the acceptance walk and the
+    counters import numpy and the standard library alone."""
+    names = dict((n, p) for p, n in _modules())
+    path = names[
+        "scalable_hw_agnostic_inference_tpu_torch.engine.speculative"]
+    heads = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            heads |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, node.module
+            heads.add((node.module or "").split(".")[0])
+    assert heads <= {"__future__", "dataclasses", "typing", "numpy"}, heads
+    assert not _forbidden_imports([path])
 
 
 _PROBE = """

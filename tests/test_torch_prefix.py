@@ -14,8 +14,8 @@ with ``params_from_jax``; the tiny config). What is held:
   detected, shared blocks freed only after every holder, the copy-on-
   write cases over registered blocks and under eviction pressure,
   leaf-first eviction: the same block ids, refcounts and counters in
-  both caches, step for step (``shrink`` has no caller in the port until
-  speculative decoding, so its case stays with the JAX package);
+  both caches, step for step (``shrink``'s case is replayed with the
+  speculative tests, ``tests/test_torch_speculative.py``);
 - the engine: a cached admission shares the registered blocks (fewer
   fresh blocks than a cold admission) and gives the tokens of an engine
   with the cache off, exactly, in the port; greedy tokens are held to the
@@ -426,6 +426,20 @@ def test_prefix_cache_vllm_config_key_and_engine_accepts_it(tiny,
     _switches(monkeypatch)
     eng = _port(tiny, monkeypatch, role="prefill")
     assert eng.cache.prefix_caching and eng.role == "prefill"
-    with pytest.raises(ValueError, match="speculative"):
-        _port(tiny, monkeypatch, speculative_model="[ngram]",
-              num_speculative_tokens=2)
+    # speculative decoding with the prefix cache (slice 13): the second
+    # request is a cached admission sharing the first's registered blocks,
+    # both verify, and the tokens are the cache-off engine's
+    spec = dict(speculative_model="[ngram]", num_speculative_tokens=2)
+    shared = _prompt(3, 32)
+    prompts = [shared + [5, 6], shared + [7, 8, 9]]
+    sp = SamplingParams(temperature=0.0, max_new_tokens=8)
+    runs = []
+    for caching in (True, False):
+        eng = _port(tiny, monkeypatch, enable_prefix_caching=caching, **spec)
+        assert eng.spec is not None and eng.cache.prefix_caching is caching
+        fins = [eng.generate([p], sp)[0] for p in prompts]
+        runs.append([f.token_ids for f in fins])
+        assert eng.spec.verify_steps > 0 and eng.cache.leaked_blocks == 0
+        if caching:
+            assert len(eng.cache.cached_prefix(shared)) == 4
+    assert runs[0] == runs[1]
