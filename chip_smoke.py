@@ -8,8 +8,10 @@ Phases:
   1. ``card``   the card's name and power limit (nvidia-smi);
   2. ``build``  build every kernel from ``csrc/*.cu`` with nvcc (sm_90a);
   3. ``flash``  hold B1 (flash attention) against its plain version at
-                Llama-3-8B prefill shapes, and time kernel, plain version,
-                bound and the SDPA yardstick;
+                Llama-3-8B prefill shapes and at mllama's cross shapes
+                (non-causal over 6,404 vision states, lengths 1,601 to
+                6,404: 8 rows at T=1 and T=5, one 512-token chunk), and
+                time kernel, plain version, bound and the SDPA yardstick;
   4. ``paged``  the same for B2 (paged decode attention, the decode CTA of
                 B3's walk) at decode shapes and at serve's shape, plus block
                 sizes 8 and 24 and a group of 32 heads; B2 must return
@@ -131,7 +133,23 @@ Phases:
                 0 recompiles, no leaked block; TTFT of each admission, the
                 restore's GB/s and a 64-block copy-out's ms, pinned and
                 pageable;
- 15. ``serve_disagg`` a prefill-role, a decode-role and a monolithic pod
+ 15. ``engine_mllama`` Llama-3.2-11B-Vision at full width and depth
+                (seeded, built on the card; the vision encoder at 560 px,
+                32 + 8 layers): the vision states of a ``"random"`` image
+                (1 tile) and an in-script 1120 x 1120 array (2 x 2 tiles),
+                timed with their peak memory; one batch of those two image
+                rows, a text-only row and a 1,300-token image prompt (the
+                cross continuation ladder), 16 greedy tokens each, async
+                equal to lock-step, scored by the plain scoring forward
+                with each row's vision states (``TIE_TOL``), the image
+                rows' tokens unlike the same prompts text-only; B1 and B2
+                exactly the layers times the prefill calls and the replays
+                (8 B1 launches a decode or verify replay); a speculative
+                round (k=4) held by the tie rule; the cross-KV
+                projection's time, a decode replay against the same weights
+                without the cross layers, B1's share of it, the graph pool
+                and the cross buffers;
+ 16. ``serve_disagg`` a prefill-role, a decode-role and a monolithic pod
                 on one seeded Llama-3.2-1B-width directory (written by the
                 checkpoint phase's writer), in this process over
                 localhost, each with the prefix cache and the tier: each
@@ -141,7 +159,7 @@ Phases:
                 an injected ``kvnet.fetch`` fault recomputing with a 200;
                 the pull's GB/s and share of TTFT, the ``shai_kvnet_*`` and
                 ``shai_kvtier_*`` families;
- 16. ``serve_fleet`` the fleet KV fabric and live migration on
+ 17. ``serve_fleet`` the fleet KV fabric and live migration on
                 serve_disagg's 1B directory, every pod in this process over
                 localhost: a prefill pod banks 1,250-token runs and a pod
                 armed with ``SHAI_KVFABRIC_PEERS`` naming it admits the
@@ -163,7 +181,7 @@ Phases:
                 bytes, ship and accept seconds, the restore, cut to the
                 resumed request's next token beside a recompute's TTFT,
                 the probe's seconds, blocks and GB/s, the step it ran in;
- 17. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
+ 18. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
                 its closed set warmed before readiness) and answer 8
                 concurrent ``POST /generate``; then an OpenAI round: 8
                 concurrent streamed ``POST /v1/completions`` (the client's
@@ -173,18 +191,18 @@ Phases:
                 give a uniform distribution), an expired
                 ``X-SHAI-Deadline-Ms`` (504) and a ``/metrics`` scrape
                 holding the ``shai_*`` contract families;
- 18. ``serve_int8`` serve's tier, requests and switches with
+ 19. ``serve_int8`` serve's tier, requests and switches with
                 ``QUANTIZATION=int8`` (born int8): the weights pool exactly
                 8,561,882,112 bytes, 225 int8 launches per replay, B4's
                 decode and wide launches counted, beside serve's numbers;
- 19. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
+ 20. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
                 SHAI_KV_QUANT=int8`` and an engine ConfigMap of
                 ``max_model_len`` 4096: two of the 8 prompts chunk;
- 20. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
+ 21. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
                 (the chunks ride the fused graphs' replays), then one
                 ``n=4`` completion admitted as one prefill with 3
                 copy-on-write forks; its numbers beside serve_ragged's;
- 21. ``serve_spec`` ``llama-8b-geometry`` with ``speculative_model:
+ 22. ``serve_spec`` ``llama-8b-geometry`` with ``speculative_model:
                 "[ngram]"`` and ``num_speculative_tokens: 4`` in its
                 ConfigMap (``SERVE_SPEC_CONFIG``), ``BATCH_SIZE=8``: 8
                 concurrent ``POST /generate`` of 128-token repetitive
@@ -194,7 +212,17 @@ Phases:
                 counters on ``/stats`` equal to the engine's, 0
                 recompiles; tokens per verify, TPOT and the device busy
                 share beside spec off;
- 22. ``serve_ops`` serve's configuration under the operating layer
+ 23. ``serve_mllama`` the unit on a seeded mllama directory written here
+                in HF layout (full widths; text 10 layers with cross
+                layers at 3 and 8, vision 8 + 2 layers): 8 concurrent
+                ``POST /generate`` (4 PNG images of two sizes, 2
+                ``"random"``, 2 text-only repeating two image prompts),
+                the image rows unlike their prompts text-only, 400 for a
+                malformed image and a JPEG, ``shai_hbm_cross_kv_bytes`` on
+                ``/metrics``, the profiled pass, 0 recompiles; before
+                them, the PNG decode and the tiling timed on the host on
+                1080p and 12 MP all-Paeth PNGs;
+ 24. ``serve_ops`` serve's configuration under the operating layer
                 (``SERVE_OPS_ENV``: ``MAX_INFLIGHT=8``, tracing, the fault
                 endpoint armed, a perf projection of 50 tok/s over a 5 s
                 window, a 2 s watchdog floor, a 60 s drain budget): the
@@ -225,7 +253,8 @@ A full run prints the card's name and power limit, then, second to last,
 ``{"kernels": [...]}`` (per kernel: route, source, the TPU kernel it
 replaces, launches in the serve phase that runs it, max error,
 kernel/plain/bound/library times, and its launches at the cached callers
-of engine_prefix, serve_disagg and serve_fleet; B3 also its fused
+of engine_prefix, serve_disagg and serve_fleet; B1 also its cross shapes
+and launches in engine_mllama and serve_mllama; B3 also its fused
 mixed-row launch; B2 and B3 their verify shape and verify replays'
 launches, in serve_spec and engine_spec (b);
 B4's decode and wide instantiations, which replace XLA's fused int8 dot
@@ -258,8 +287,9 @@ from pathlib import Path
 PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
           "decode_graph", "engine", "engine_ragged", "engine_fused",
           "engine_spec", "engine_int8", "checkpoint", "engine_prefix",
-          "serve_disagg", "serve_fleet", "serve", "serve_int8",
-          "serve_ragged", "serve_fused", "serve_spec", "serve_ops")
+          "engine_mllama", "serve_disagg", "serve_fleet", "serve",
+          "serve_int8", "serve_ragged", "serve_fused", "serve_spec",
+          "serve_mllama", "serve_ops")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core FLOP/s
@@ -329,6 +359,17 @@ GEOMETRY_LP_ATOL = 1e-5
 
 ENGINE_LAYERS = 32
 ENGINE_NEW_TOKENS = 16
+# mllama's cross attention through B1 (non-causal, lengths = each row's
+# valid vision states) at Llama-3.2-11B-Vision's shapes: decode (T = 1),
+# speculative verify (T = k + 1 = 5) over 8 rows of 1 to 4 tiles (1,601
+# states a tile, Lv = 6,404), and a 512-token prefill chunk over one tile
+MLLAMA_LV = 6404
+_TILES = [1601, 3202, 4803, 6404] * 2
+MLLAMA_FLASH = [
+    (8, 1, MLLAMA_LV, 128, _TILES, False, True),
+    (8, 5, MLLAMA_LV, 128, _TILES, False, True),
+    (1, 512, MLLAMA_LV, 128, [1601], False, True),
+]
 # the engine phases' prompts: 1300 tokens chunk 512 + 512 + 276 under the
 # (128, 512) buckets; the engine phase also keeps slice 1's 120
 ENGINE_PROMPTS = (5, 37, 300, 1300)
@@ -561,7 +602,7 @@ def phase_flash(ctx):
         (4, 512, 512, 64, [1, 100, 333, 512], True, True),
         (4, 512, 512, 192, [1, 100, 333, 512], True, True),
         (4, 512, 512, 256, [1, 100, 333, 512], True, True),
-    ]
+    ] + MLLAMA_FLASH
     small = [(64, 2, 256, 256, 8, 2, [200, 0], True),
              (192, 1, 128, 128, 8, 2, [100], True),
              (256, 2, 256, 256, 8, 2, [256, 77], True)]
@@ -596,8 +637,9 @@ def phase_flash(ctx):
             vt = v.repeat_interleave(H // Hkv, 2).transpose(1, 2).contiguous()
             kpos = torch.arange(S, device="cuda")
             mask = (kpos[None, :] < lens.long()[:, None])[:, None, None, :]
-            qpos = torch.arange(T, device="cuda") + (S - T)
-            mask = mask & (qpos[:, None] >= kpos[None, :])[None, None]
+            if causal:
+                qpos = torch.arange(T, device="cuda") + (S - T)
+                mask = mask & (qpos[:, None] >= kpos[None, :])[None, None]
             sdpa = torch.nn.functional.scaled_dot_product_attention
             lib = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask))
             del qt, kt, vt, mask
@@ -627,6 +669,8 @@ def phase_flash(ctx):
             f"keys: {d_share:.2f})")
     # the summary row: the serving config's largest prefill bucket, batched
     ctx["flash"] = dict(rows[1], max_abs_err=worst)
+    # mllama's cross shapes (non-causal over the vision states)
+    ctx["flash_cross"] = rows[-len(MLLAMA_FLASH):]
 
 
 def _paged_case(torch, gen, B, H, Hkv, D, bs, N, M, lengths):
@@ -1859,7 +1903,7 @@ def _generate(ctx, prompts, switches, all_lp=False,
     return fins, counts, seconds, conts, eng.cache.leaked_blocks, info
 
 
-def _score(model, prompts, fins):
+def _score(model, prompts, fins, crosses=None):
     """Score each run's tokens with the full-sequence scoring forward,
     through B1 and through B1's plain version: ``{"b1": (argmax hits,
     worst logit deficit), "plain": (hits, worst), "tokens": n, "eps":
@@ -1867,18 +1911,26 @@ def _score(model, prompts, fins):
     logit change between the two, e the largest distance of a returned
     logprob from the plain forward's log-softmax at its token, and s the
     same distance one position off (what a misaligned readout would
-    show)."""
+    show). ``crosses``: an mllama model's per-request ``(states [Lv, dim],
+    cross_len)``, or None for a text-only request."""
     import torch
 
     score = {"b1": (0, 0.0), "plain": (0, 0.0), "tokens": 0, "eps": 0.0,
              "lp_err": 0.0, "lp_err_shifted": 0.0}
+    crosses = crosses or [None] * len(prompts)
     # an int8 model scores through its projections' plain route
     with torch.inference_mode(), _plain_int8():
-        for p, f in zip(prompts, fins):
+        for p, f, cr in zip(prompts, fins, crosses):
             ids = torch.tensor([p + f.token_ids], device="cuda")
-            logits = model(ids)[0, len(p) - 1: -1].float()  # each token's
+            cross = None
+            if cr is not None:
+                cross = (model.project_cross(cr[0][None]),
+                         torch.ones(1, device="cuda"),
+                         torch.tensor([cr[1]], device="cuda"))
+            # each token's logits
+            logits = model(ids, cross=cross)[0, len(p) - 1: -1].float()
             with _plain_attention():
-                plain = model(ids)[0, len(p) - 1: -1].float()
+                plain = model(ids, cross=cross)[0, len(p) - 1: -1].float()
             if not bool(torch.isfinite(logits).all()):
                 raise AssertionError("non-finite scoring logits")
             score["eps"] = max(score["eps"],
@@ -2319,13 +2371,15 @@ def _serve_prompts(long_bytes=()):
 
 def _send_concurrent(base: str, prompts, new_tokens: int = 16):
     """One concurrent greedy ``POST /generate`` of ``new_tokens`` per
-    prompt; returns the responses and the wall seconds."""
+    prompt (a string, or a payload dict holding its ``prompt``); returns
+    the responses and the wall seconds."""
     results = [None] * len(prompts)
 
     def one(i):
+        p = prompts[i]
+        payload = {"prompt": p} if isinstance(p, str) else dict(p)
         results[i] = _http(base + "/generate", {
-            "prompt": prompts[i], "temperature": 0.0,
-            "max_new_tokens": new_tokens})
+            **payload, "temperature": 0.0, "max_new_tokens": new_tokens})
 
     t0 = time.monotonic()
     threads = [threading.Thread(target=one, args=(i,))
@@ -2617,7 +2671,7 @@ def _serve(ctx, what, env, prompts, expect, walk, openai=False, then=None,
                 time.sleep(0.5)
             eng = service._engine
             graphs = _graphs(eng)
-            log(f"{what}: llama-8b-geometry ready in "
+            log(f"{what}: {cfg.model_id} ready in "
                 f"{time.monotonic() - t0:.1f} s (load + warmup); engine "
                 f"max_model_len {eng.ecfg.max_model_len}, buckets "
                 f"{list(eng.ecfg.context_encoding_buckets)}, ragged "
@@ -4919,6 +4973,618 @@ def phase_serve_int8(ctx):
         {k: summary.get(k) for k in ("serve", "serve_int8")}))
 
 
+# -- mllama (Llama-3.2-11B-Vision) ---------------------------------------------
+
+#: the engine_mllama engine's shapes: the engine phases' (4 slots, buckets
+#: 128 and 512, 2,048 tokens)
+MLLAMA_ENGINE = {"max_model_len": 2048, "max_num_seqs": 4, "block_size": 16,
+                 "context_encoding_buckets": (128, 512),
+                 "max_new_tokens": ENGINE_NEW_TOKENS}
+#: the engine_mllama prompts: an image row of one tile ("random"), one of
+#: 2 x 2 tiles, a text-only row, and a 2 x 2 image row past the largest
+#: bucket (the cross continuation ladder: 512 + 512 + 276)
+MLLAMA_PROMPTS = (37, 120, 300, 1300)
+
+
+def _mllama_model(ctx):
+    """Llama-3.2-11B-Vision at full width and depth, seeded: the text tower
+    (``LlamaConfig.mllama_11b_text``, 40 layers, 8 of them cross layers,
+    N(0, 0.02) weights, the tanh gates U(0.5, 1.5)) and the vision tower
+    with its projector (``MllamaVisionConfig()``: 560 px, 32 + 8 layers,
+    N(0, 0.02), every gate U(0.5, 1.5)), bf16, built on the card once."""
+    if "mllama" not in ctx:
+        import torch
+        from scalable_hw_agnostic_inference_tpu_torch.models import (
+            mllama as mm,
+        )
+        from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+            LlamaConfig,
+            LlamaForCausalLM,
+            random_params,
+        )
+
+        t0 = time.monotonic()
+        cfg = LlamaConfig.mllama_11b_text()
+        model = LlamaForCausalLM.from_state_dict(
+            cfg, random_params(cfg, seed=0, std=0.02, device="cuda"))
+        vcfg = mm.MllamaVisionConfig()
+        vision, proj = mm.build_vision(
+            vcfg, cfg.dim, mm.random_vision_params(vcfg, cfg.dim, seed=1,
+                                                   device="cuda"),
+            dtype=torch.bfloat16)
+        ctx["mllama"] = (cfg, model, vcfg, vision, proj)
+        log(f"mllama model: Llama-3.2-11B-Vision, text {cfg.n_layers} "
+            f"layers (cross {list(cfg.cross_attention_layers)}), vision "
+            f"{vcfg.n_layers} + {vcfg.n_global_layers} layers at "
+            f"{vcfg.image_size} px, Lv {vcfg.cross_seq_len}; "
+            f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B + "
+            f"{sum(p.numel() for p in vision.parameters()) / 1e9:.3f} B + "
+            f"{sum(p.numel() for p in proj.parameters()) / 1e9:.3f} B "
+            f"params, built in {time.monotonic() - t0:.1f} s")
+    return ctx["mllama"]
+
+
+def _image_1120():
+    """The in-script 1120 x 1120 image (2 x 2 tiles at 560 px, no
+    resize): smooth gradients and seeded noise."""
+    import numpy as np
+
+    y, x = np.mgrid[0:1120, 0:1120]
+    rng = np.random.default_rng(5)
+    img = np.stack([x // 5, y // 5, (x + y) // 9], -1) % 256
+    return (img + rng.integers(0, 24, img.shape)).clip(0, 255).astype(
+        np.uint8)
+
+
+def _encode_timed(torch, vision, proj, img, supported):
+    """``(states, n_valid, ms, peak bytes over the resident)`` of one
+    encode (the vision model always runs ``max_num_tiles`` tiles)."""
+    from scalable_hw_agnostic_inference_tpu_torch.models import mllama as mm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    states, n = mm.encode_image(vision, proj, img, supported)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return states, n, ms, torch.cuda.max_memory_allocated() - base
+
+
+def _count_prefills(eng):
+    """Count the engine's prefill and continuation calls from here on (each
+    launches B1 once per layer, cross layers included)."""
+    calls = []
+    for key, fn in list(eng._prefill.items()):
+        def counted(*a, _fn=fn, **k):
+            calls.append(1)
+            return _fn(*a, **k)
+        eng._prefill[key] = counted
+    return calls
+
+
+def _mllama_engine(ctx, switches, spec=0, model=None, cross=True):
+    """A warmed engine over the mllama model (or ``model``, a text model of
+    the same widths, with ``cross`` False) under ``switches``."""
+    from scalable_hw_agnostic_inference_tpu_torch.engine.config import (
+        EngineConfig,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.engine.engine import (
+        LLMEngine,
+    )
+
+    cfg, mmodel, vcfg, _, _ = _mllama_model(ctx)
+    model = model or mmodel
+    ecfg = EngineConfig(**MLLAMA_ENGINE,
+                        speculative_model="[ngram]" if spec else "",
+                        num_speculative_tokens=spec,
+                        ngram_prompt_lookup_max=4, ngram_prompt_lookup_min=1)
+    env = {"SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "",
+           "SHAI_ASYNC_DECODE": "1", **switches}
+    with _env(env):
+        eng = LLMEngine(model.cfg, model, ecfg, device="cuda",
+                        cross_seq_len=vcfg.cross_seq_len if cross else 0)
+        t0 = time.monotonic()
+        eng.warm_executables()
+        eng.warm_s = time.monotonic() - t0
+    return eng
+
+
+def _mllama_drive(eng, reqs, all_lp=True):
+    """Submit ``reqs`` ``(prompt, states or None, cross_len)``, greedy,
+    with 5 logprobs each, and step to the end. Returns the finished
+    requests, the launch counts, the seconds and the walk: B2's exact
+    count (the replays' captured launches) and B1's (the layers times the
+    prefill and continuation calls, plus the replays' captured
+    launches)."""
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.engine.engine import (
+        SamplingParams,
+    )
+
+    before = _replays(eng)
+    calls = _count_prefills(eng)
+    _reset_counters()
+    t0 = time.monotonic()
+    ids = [eng.add_request(p, SamplingParams(
+        temperature=0.0, max_new_tokens=ENGINE_NEW_TOKENS,
+        logprobs=5 if all_lp else 0), cross_states=s, cross_len=n)
+        for p, s, n in reqs]
+    done = {}
+    while set(ids) - set(done):
+        for f in eng.step():
+            done[f.req_id] = f
+    eng.finish_pending()
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    counts = _read_counters()
+    walk = _expected_walk(eng, before, [])
+    walk["flash_attention"] = eng.cfg.n_layers * len(calls) + sum(
+        g.launches.get("flash_attention", 0)
+        * (g.replays - before.get(g.key, 0)) for g in _graphs(eng))
+    fins = [done[i] for i in ids]
+    for f in fins:
+        if len(f.token_ids) != ENGINE_NEW_TOKENS:
+            raise AssertionError(f"{len(f.token_ids)} tokens, want "
+                                 f"{ENGINE_NEW_TOKENS}")
+    return fins, counts, seconds, walk, len(calls)
+
+
+def _text_tower(cfg, model):
+    """The mllama text tower's 32 self-attention layers as a text model of
+    the same widths, sharing the weights (no copy): the text-only
+    engine a cross decode replay is held against."""
+    import dataclasses
+
+    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+        LlamaForCausalLM,
+    )
+
+    keep = [i for i in range(cfg.n_layers)
+            if i not in cfg.cross_attention_layers]
+    tcfg = dataclasses.replace(cfg, n_layers=len(keep),
+                               cross_attention_layers=())
+    sd = model.state_dict()
+    state = {k: v for k, v in sd.items() if not k.startswith("layers.")}
+    for j, i in enumerate(keep):
+        pre = f"layers.{i}."
+        state.update({f"layers.{j}." + k[len(pre):]: v
+                      for k, v in sd.items() if k.startswith(pre)})
+    return LlamaForCausalLM.from_state_dict(tcfg, state)
+
+
+def phase_engine_mllama(ctx):
+    """Llama-3.2-11B-Vision through the engine on the card: the vision
+    encoder on a "random" image and an in-script 1120 x 1120 array; one
+    batch of two image rows, a text-only row and an image prompt past the
+    largest bucket, greedy, async equal to lock-step, scored by the plain
+    scoring forward (``TIE_TOL``); the image rows against the same prompts
+    text-only; a speculative round held by the tie rule; B1 and B2 exactly
+    the layers times the calls and replays; the numbers of the slice."""
+    import torch
+
+    _drop_engine_model(ctx)
+    try:
+        _engine_mllama(ctx)
+    finally:
+        ctx.pop("mllama", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _engine_mllama(ctx):
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.models import mllama as mm
+
+    cfg, model, vcfg, vision, proj = _mllama_model(ctx)
+    supported = [[1, 1], [1, 2], [1, 3], [1, 4], [2, 1], [2, 2], [3, 1],
+                 [4, 1]]
+    row = {"card": ctx.get("card")}
+    # the vision front-end (its first call builds what it needs)
+    mm.encode_image(vision, proj, mm.random_image(vcfg), supported)
+    s_rand, n_rand, ms_rand, peak_rand = _encode_timed(
+        torch, vision, proj, mm.random_image(vcfg), supported)
+    s_big, n_big, ms_big, peak_big = _encode_timed(
+        torch, vision, proj, _image_1120(), supported)
+    if (n_rand, n_big) != (1601, 6404) or not all(
+            bool(torch.isfinite(s).all()) for s in (s_rand, s_big)):
+        raise AssertionError(f"engine_mllama: encode gave {n_rand} / "
+                             f"{n_big} states, or non-finite ones")
+    row["vision_encode_ms"] = {"random_1_tile": ms_rand,
+                               "1120_2x2_tiles": ms_big}
+    row["vision_peak_bytes"] = max(peak_rand, peak_big)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in MLLAMA_PROMPTS]
+    images = [(s_rand, n_rand), (s_big, n_big), None, (s_big, n_big)]
+    reqs = [(p, None if im is None else im[0], 0 if im is None else im[1])
+            for p, im in zip(prompts, images)]
+    eng = _mllama_engine(ctx, {})
+    # the admission-time cross-KV projection of a full image
+    timer = ctx["timer"]
+    with torch.inference_mode():
+        row["cross_kv_ms"] = timer(lambda: eng._cross_embed(model, s_big),
+                                   reps=5)
+    fins, counts, seconds, walk, n_calls = _mllama_drive(eng, reqs)
+    row.update(seconds=seconds, prefill_calls=n_calls, launches=counts,
+               walk=walk, warm_s=eng.warm_s,
+               recompiles=eng.obs.recompiles,
+               leaked_blocks=eng.cache.leaked_blocks,
+               flushes=eng.obs.flush_reasons(),
+               b1_per_replay=sorted({g.launches.get("flash_attention", 0)
+                                     for g in _graphs(eng)}),
+               graph_pool_bytes=eng._graphs.bytes(),
+               cross_kv_bytes=sum(t.nbytes for b in eng._cross_kv
+                                  for t in b.values()),
+               kv_pool_bytes=eng.cache.pool_bytes)
+    if eng.tpot.count:
+        tp = eng.tpot.report()
+        row["tpot_ms"] = {"p50": tp["p50"] * 1e3, "p99": tp["p99"] * 1e3}
+    # the slot_idx gather: each cross layer copies its rows' k and v
+    Bb = MLLAMA_ENGINE["max_num_seqs"]
+    row["gather_bytes_per_step"] = (2 * len(cfg.cross_attention_layers) * Bb
+                                    * vcfg.cross_seq_len * cfg.n_kv_heads
+                                    * cfg.head_dim * 2)
+    # one replay of the full-batch decode key, wall and device by kernel
+    big = eng._decode_fns[max(eng._decode_fns, key=lambda k: k[1])]
+    with torch.inference_mode():
+        row["replay_ms"] = _step_wall_ms(torch, big.replay)
+        by_kernel = _device_us_by_kernel(torch, big.replay, calls=10)
+    dev_us = sum(us for us, _ in by_kernel.values())
+    b1_us = sum(us for k, (us, _) in by_kernel.items() if "flash_kernel" in k)
+    row["replay_device_ms"] = dev_us / 1e3 if dev_us else None
+    row["b1_share_of_replay"] = b1_us / dev_us if dev_us else None
+    row["b1_replay_ms"] = b1_us / 1e3 if dev_us else None
+    # the same prompts' image rows text-only: the image must change them
+    text = _mllama_drive(eng, [(p, None, 0) for p, _, _ in reqs[:2]])[0]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # lock-step: the same tokens and logprob entries
+    eng = _mllama_engine(ctx, {"SHAI_ASYNC_DECODE": "0"})
+    sync = _mllama_drive(eng, reqs)
+    sync_leak, sync_rc = eng.cache.leaked_blocks, eng.obs.recompiles
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the text-only engine: the same weights without the cross layers
+    tmodel = _text_tower(cfg, model)
+    teng = _mllama_engine(ctx, {}, model=tmodel, cross=False)
+    _mllama_drive(teng, [(p, None, 0) for p, _, _ in reqs])
+    tbig = teng._decode_fns[max(teng._decode_fns, key=lambda k: k[1])]
+    with torch.inference_mode():
+        row["text_replay_ms"] = _step_wall_ms(torch, tbig.replay)
+        tdev = _device_step(torch, tbig.replay)[0]
+    row["text_replay_device_ms"] = tdev
+    del teng, tmodel, tbig
+    gc.collect()
+    torch.cuda.empty_cache()
+    # speculative decoding through verify's cross tail
+    eng = _mllama_engine(ctx, {}, spec=SPEC_K)
+    spec = _mllama_drive(eng, reqs)
+    row["spec"] = eng.spec.as_dict()
+    row["spec_walk"] = spec[3]
+    row["spec_b1_per_verify"] = sorted({g.launches.get("flash_attention", 0)
+                                        for g in eng._verify_fns.values()})
+    spec_leak, spec_rc = eng.cache.leaked_blocks, eng.obs.recompiles
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # scoring: each request's tokens by the scoring forward with its vision
+    # states, through B1 and through B1's plain version
+    crosses = [None if s is None else (s, n) for _, s, n in reqs]
+    sc = _score(model, prompts, fins, crosses)
+    ssc = _score(model, prompts, spec[0], crosses)
+    gaps, noise = _partings(spec[0], fins)
+    row.update(score={k: sc[k] for k in ("b1", "plain", "tokens", "eps",
+                                         "lp_err")},
+               spec_score={k: ssc[k] for k in ("b1", "plain", "tokens")},
+               spec_parting_gaps=gaps, spec_noise=noise,
+               spec_tie_gap=max(TIE_GAP, NOISE_TIES * noise),
+               spec_streams_equal=sum(a.token_ids == b.token_ids
+                                      for a, b in zip(spec[0], fins)),
+               image_vs_text_equal=[a.token_ids == b.token_ids
+                                    for a, b in zip(fins[:2], text)])
+    ctx["engine_mllama"] = row
+    ctx.setdefault("launches", {})["engine_mllama"] = counts
+    log("engine_mllama: " + json.dumps(row))
+    bad = [k for k, ok in (
+        ("async == lock-step",
+         [(f.token_ids, f.logprobs) for f in fins]
+         == [(f.token_ids, f.logprobs) for f in sync[0]]),
+        ("B1/B2 walk", {k: counts[k] for k in walk} == walk),
+        ("lock-step walk", {k: sync[1][k] for k in sync[3]} == sync[3]),
+        ("spec walk", {k: spec[1][k] for k in spec[3]} == spec[3]),
+        ("8 B1 launches a replay", row["b1_per_replay"] == [8]),
+        ("8 B1 launches a verify", row["spec_b1_per_verify"] == [8]),
+        ("0 recompiles", row["recompiles"] == sync_rc == spec_rc == 0),
+        ("no leaked block", not (row["leaked_blocks"] or sync_leak
+                                 or spec_leak)),
+        ("tokens by the plain scoring forward",
+         sc["plain"][1] <= TIE_TOL and ssc["plain"][1] <= TIE_TOL),
+        ("logprobs", sc["lp_err"] <= LP_TOL),
+        ("image rows differ from text-only",
+         not any(row["image_vs_text_equal"])),
+        ("spec by the tie rule",
+         all(g < row["spec_tie_gap"] for g in gaps)),
+        ("verify steps", row["spec"]["spec_verify_steps"] > 0),
+        ("a chunk", n_calls > 4)) if not ok]
+    if bad:
+        raise AssertionError(f"engine_mllama: failed {bad}")
+    _check_counters("engine_mllama", counts,
+                    {"flash_attention", "paged_decode_attention"})
+
+
+# serve_mllama: the directory's cut (full widths; depth cut so that the
+# phase stays in its time limit): text 10 layers with cross layers at 3
+# and 8, vision 8 local + 2 global layers collecting layers 1, 3, 5, 6, 7
+SERVE_MLLAMA_TEXT_LAYERS = 10
+SERVE_MLLAMA_CROSS = (3, 8)
+SERVE_MLLAMA_VISION = {"num_hidden_layers": 8, "num_global_layers": 2,
+                       "intermediate_layers_indices": [1, 3, 5, 6, 7]}
+SERVE_MLLAMA_CONFIG = {"max_model_len": 2048, "block_size": 16,
+                       "max_num_seqs": 8,
+                       "context_encoding_buckets": [128, 512],
+                       "max_new_tokens": 16}
+
+
+def _png_bytes(img, filters=(0, 1, 2, 3, 4)) -> bytes:
+    """An 8-bit RGB PNG of ``img`` whose rows cycle through ``filters``
+    (by default the five filter types: None, Sub, Up, Average, Paeth),
+    written with zlib."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = img.shape
+    out = bytearray()
+    prev = np.zeros(w * 3, np.int32)
+    for y in range(h):
+        cur = img[y].reshape(-1).astype(np.int32)
+        a = np.concatenate([np.zeros(3, np.int32), cur[:-3]])
+        c = np.concatenate([np.zeros(3, np.int32), prev[:-3]])
+        f = filters[y % len(filters)]
+        if f == 0:
+            pred = np.zeros_like(cur)
+        elif f == 1:
+            pred = a
+        elif f == 2:
+            pred = prev
+        elif f == 3:
+            pred = (a + prev) >> 1
+        else:
+            p = a + prev - c
+            pa, pb, pc = abs(p - a), abs(p - prev), abs(p - c)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, prev, c))
+        out += bytes([f]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes()
+        prev = cur
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(out), 6))
+            + chunk(b"IEND", b""))
+
+
+#: photo sizes the image front-end is timed at on the host: 1080p and a
+#: 12 MP phone photo, every row Paeth-filtered as photo encoders write
+SERVE_MLLAMA_PHOTOS = ((1080, 1920), (3024, 4032))
+
+
+def _time_image_front_end(ctx):
+    """Host ms of the PNG decode (``imageio.decode_image``) and of the
+    tiling (``mllama.preprocess_tiled``: the resize to the canvas, the
+    normalization, the tiles) of photo-size all-Paeth PNGs at
+    Llama-3.2-11B-Vision's 560 px tiles, each the best of two, the decode
+    held equal to the image written."""
+    import numpy as np
+    from scalable_hw_agnostic_inference_tpu_torch.models import mllama as mm
+    from scalable_hw_agnostic_inference_tpu_torch.models.imageio import (
+        decode_image,
+    )
+
+    vcfg = mm.MllamaVisionConfig()
+    supported = [[1, 1], [1, 2], [1, 3], [1, 4], [2, 1], [2, 2], [3, 1],
+                 [4, 1]]
+    rng = np.random.default_rng(5)
+    row = {}
+    for h, w in SERVE_MLLAMA_PHOTOS:
+        y, x = np.mgrid[0:h, 0:w]
+        img = ((np.stack([x // 5, y // 5, (x + 2 * y) // 9], -1) % 256
+                + rng.integers(0, 24, (h, w, 3))).clip(0, 255)
+               .astype(np.uint8))
+        data = _png_bytes(img, filters=(4,))
+        dec, pre = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = decode_image(data)
+            t1 = time.perf_counter()
+            _, _, n_tiles = mm.preprocess_tiled(got, vcfg, supported)
+            dec.append((t1 - t0) * 1e3)
+            pre.append((time.perf_counter() - t1) * 1e3)
+        if not np.array_equal(got, img):
+            raise AssertionError(f"serve_mllama: the {w}x{h} PNG decoded "
+                                 f"unlike the image written")
+        row[f"{w}x{h}"] = {"png_mb": len(data) / 1e6,
+                           "decode_ms": min(dec), "decode_ms_all": dec,
+                           "preprocess_ms": min(pre), "n_tiles": n_tiles}
+    ctx["serve_mllama_front_end"] = row
+    log("serve_mllama: image front-end on the host (all-Paeth PNG): "
+        + json.dumps(row))
+
+
+def _seeded_mllama_dir(ctx):
+    """A seeded Llama-3.2-11B-Vision directory in HF layout at full widths,
+    depth cut (``SERVE_MLLAMA_*``): ``config.json`` (model_type mllama,
+    text and vision configs), the tensors under HF's names
+    (``model.language_model.*``, ``model.vision_model.*``,
+    ``model.multi_modal_projector.*``, ``lm_head``; the embedding with
+    its 8 image-token rows) in two shards, and the BPE tokenizer."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.core.checkpoint import (
+        save_sharded,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models import mllama as mm
+    from scalable_hw_agnostic_inference_tpu_torch.models.convert import (
+        hf_name,
+        mllama_vision_config,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+        LlamaConfig,
+        random_params,
+    )
+
+    cfg = dataclasses.replace(
+        LlamaConfig.mllama_11b_text(), n_layers=SERVE_MLLAMA_TEXT_LAYERS,
+        cross_attention_layers=SERVE_MLLAMA_CROSS)
+    vjson = {"hidden_size": 1280, "attention_heads": 16,
+             "intermediate_size": 5120, "image_size": 560, "patch_size": 14,
+             "max_num_tiles": 4, "norm_eps": 1e-5,
+             "vision_output_dim": 1280 * 6, **SERVE_MLLAMA_VISION,
+             "supported_aspect_ratios": [[1, 1], [1, 2], [1, 3], [1, 4],
+                                         [2, 1], [2, 2], [3, 1], [4, 1]],
+             "model_type": "mllama_vision_model"}
+    vcfg, _ = mllama_vision_config(vjson)
+    state = random_params(cfg, seed=7, std=0.02, device="cuda")
+    # HF's embedding rows: the vocabulary and 8 image tokens
+    state["embed.weight"] = torch.cat([
+        state["embed.weight"],
+        torch.zeros(8, cfg.dim, dtype=torch.bfloat16, device="cuda")])
+    tensors = {hf_name(k, "model.language_model."): v
+               for k, v in state.items()}
+    vstate = mm.random_vision_params(vcfg, cfg.dim, seed=8, device="cuda")
+    names = mm.vision_hf_names(vcfg, "model.vision_model",
+                               "model.multi_modal_projector")
+    for k, v in vstate.items():
+        flat = names[k]
+        if k.endswith(("tile_pos_emb", "pre_tile_emb", "post_tile_emb")):
+            v = v.reshape(v.shape[0], -1)      # HF's flat embedding rows
+        tensors[flat] = v
+    path = Path(tempfile.mkdtemp(prefix="shai-mllama-")) / "llama-3.2-vision"
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["MllamaForConditionalGeneration"],
+        "model_type": "mllama", "torch_dtype": "bfloat16",
+        "text_config": {
+            "model_type": "mllama_text_model", "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.dim, "intermediate_size": cfg.mlp_dim,
+            "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.n_kv_heads,
+            "cross_attention_layers": list(cfg.cross_attention_layers),
+            "max_position_embeddings": cfg.max_seq_len,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps,
+            "rope_scaling": None, "tie_word_embeddings": False,
+            "hidden_act": "silu"},
+        "vision_config": vjson}))
+    (path / "preprocessor_config.json").write_text(json.dumps({
+        "image_mean": [0.48145466, 0.4578275, 0.40821073],
+        "image_std": [0.26862954, 0.26130258, 0.27577711]}))
+    paths = save_sharded(tensors, path, 2)
+    _write_tokenizer(path)
+    del state, vstate, tensors
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx["seeded_mllama"] = path
+    return path, sum(p.stat().st_size for p in paths)
+
+
+def phase_serve_mllama(ctx):
+    """The vllm unit on a seeded mllama directory (``_seeded_mllama_dir``):
+    8 concurrent ``POST /generate`` (4 PNG images of two sizes, 2
+    ``"random"``, 2 text-only), the 400s of a malformed image and a JPEG,
+    and the ``cross_kv`` pool on ``/metrics``; B1 and B2 only, 0
+    recompiles, no leaked block. First, the image front-end's host ms on
+    photo-size PNGs (``_time_image_front_end``)."""
+    import base64
+
+    import numpy as np
+
+    ctx.pop("mllama", None)
+    _drop_engine_model(ctx)
+    _time_image_front_end(ctx)
+    t0 = time.monotonic()
+    path, n_bytes = _seeded_mllama_dir(ctx)
+    write_s = time.monotonic() - t0
+    rng = np.random.default_rng(4)
+    pngs = []
+    for h, w in ((480, 640), (768, 1024)):
+        y, x = np.mgrid[0:h, 0:w]
+        img = (np.stack([x // 3, y // 3, (x + 2 * y) // 7], -1) % 256
+               + rng.integers(0, 16, (h, w, 3))).clip(0, 255)
+        pngs.append(base64.b64encode(_png_bytes(img.astype(np.uint8)))
+                    .decode())
+    # the text-only rows repeat the first two image rows' prompts
+    prompts = [f"image {i}: describe what you see in detail" for i in
+               range(4)] + ["random image: what is it?"] * 2 + [
+        f"image {i}: describe what you see in detail" for i in range(2)]
+    images = [pngs[0], pngs[1], pngs[0], pngs[1], "random", "random",
+              None, None]
+    # token ids ride the logprob entries (most of the seeded model's ids lie
+    # past the small tokenizer's vocabulary and decode to no text)
+    payloads = [{"prompt": p, "logprobs": 1} if im is None else
+                {"prompt": p, "image_b64": im, "logprobs": 1}
+                for p, im in zip(prompts, images)]
+    config = str(path.parent / "vllm_config.json")
+    with open(config, "w") as f:
+        json.dump(SERVE_MLLAMA_CONFIG, f)
+    log(f"serve_mllama: wrote {path} ({n_bytes / 1e9:.2f} GB) in "
+        f"{write_s:.1f} s: text {SERVE_MLLAMA_TEXT_LAYERS} layers (cross "
+        f"{list(SERVE_MLLAMA_CROSS)}), vision {SERVE_MLLAMA_VISION}")
+
+    def checks(base, eng):
+        svc = ctx["serving"]["service"]
+        bad = {}
+        for name, b64 in (("malformed", "@@not base64@@"),
+                          ("jpeg", base64.b64encode(
+                              b"\xff\xd8\xff\xe0" + bytes(200)).decode())):
+            status, body = _http(base + "/generate", {
+                "prompt": "x", "image_b64": b64, "max_new_tokens": 4})
+            bad[name] = (status, body.get("detail", body))
+        metrics = _http(base + "/metrics", raw=True)[1]
+        cross = [ln for ln in metrics.splitlines()
+                 if ln.startswith("shai_hbm_cross_kv")]
+        row = {"bad_images": bad, "hbm_cross_kv": cross,
+               "vision_warm_s": svc.vision_warm_seconds,
+               "load_s": svc.load_seconds,
+               "cross_kv_bytes": sum(t.nbytes for b in eng._cross_kv
+                                     for t in b.values()),
+               "cross_seq_len": eng.cross_seq_len}
+        ctx["serve_mllama_checks"] = row
+        log("serve_mllama: " + json.dumps(row))
+        if bad["malformed"][0] != 400 or bad["jpeg"][0] != 400 \
+                or "JPEG" not in json.dumps(bad["jpeg"]):
+            raise AssertionError(f"serve_mllama: bad images answered {bad}")
+        if not cross or float(cross[0].split()[-1]) <= 0:
+            raise AssertionError("serve_mllama: no shai_hbm_cross_kv_bytes "
+                                 "on /metrics")
+
+    results = _serve(ctx, "serve_mllama", {
+        "MODEL_ID": str(path), "VLLM_CONFIG": config,
+        "SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": ""},
+        payloads, {"flash_attention", "paged_decode_attention"},
+        "B2 paged_decode_attention", then=checks)
+    toks = [r[1]["n_tokens"] for r in results]
+    ids = [[e["token"] for e in r[1]["logprobs"]] for r in results]
+    # the image changes the tokens of the same prompt
+    same = [ids[i] == ids[6 + i] for i in range(2)]
+    log(f"serve_mllama: tokens {toks}; image rows equal to their prompts "
+        f"text-only: {same}")
+    shutil.rmtree(path.parent, ignore_errors=True)
+    ctx.pop("seeded_mllama", None)
+    if any(same) or any(t < 1 for t in toks):
+        raise AssertionError(f"serve_mllama: tokens {toks}, image rows "
+                             f"equal to text-only {same}")
+
+
 def kernels_line(ctx):
     cuda_dir = "scalable_hw_agnostic_inference_tpu_torch/csrc"
     pallas = f"{TPU_PKG}/ops/pallas"
@@ -4988,6 +5654,12 @@ def kernels_line(ctx):
             "ragged_paged_attention"], "launches_in": "engine_spec (b)",
         **{k: ctx["ragged_verify"]["int8"][k] for k in keys},
         "bf16": {k: ctx["ragged_verify"]["bf16"][k] for k in keys}}
+    # B1's cross shapes (mllama): timed in the flash phase, launched by
+    # engine_mllama and serve_mllama
+    out[0]["cross"] = {
+        "launches": {ph: ctx["launches"][ph]["flash_attention"]
+                     for ph in ("engine_mllama", "serve_mllama")},
+        "shapes": [{k: r[k] for k in keys} for r in ctx["flash_cross"]]}
     # B3's fused launches: the mixed-row launch timed in the ragged phase,
     # and its launches in serve_fused (every fused and chunk-only replay)
     mixed = ctx["ragged_mixed"]

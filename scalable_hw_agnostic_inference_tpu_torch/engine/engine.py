@@ -154,7 +154,22 @@ its own seeded ``seed + 0x5EC``), commits the agreed prefix and the
 correction or bonus token, and gives the rejected reservation back
 (``cache.shrink``). A step where no slot drafted replays the decode graph.
 Every step is an event step while a drafter is set (the ``spec`` flush),
-and the fused step stays off. The multimodal paths come in a later slice.
+and the fused step stays off.
+
+mllama (the reference's ``cross_seq_len`` engine, ``engine.py:69-131,
+249-274,388-417,856,1006-1008,1154-1167,1368,1485-1487``): a model with
+cross-attention layers takes ``cross_seq_len`` (Lv, the vision states of a
+full image) and owns per-slot cross-KV buffers ``[max_num_seqs, Lv, Hkv,
+Dh]`` per cross layer, written in place at admission (``engine/cross.py``)
+and read by every prefill, continuation chunk, decode and verify graph.
+The KV pool is sized over the self-attention layers alone. A request's
+``cross_states [Lv, dim]`` and ``cross_len`` (its valid states) are
+projected once when it is admitted, alone (``_admit_one``) or as the head
+of a chunked prompt; text-only rows gate the cross layers off
+(``has_image`` 0) and attend ``Lv`` zero keys. Ragged attention, the fused
+step and the prefix cache stay off on such an engine, as the reference's
+do; speculative decoding runs through verify's cross tail. A multimodal
+request is not migrated (``migrate_out`` returns None).
 """
 
 from __future__ import annotations
@@ -196,17 +211,19 @@ from ..utils.env import env_bool, env_int, env_str
 from ..utils.latency import LatencyCollector
 from . import warm as _warm_mod
 from .cache import PagedKVCache
+from . import cross as _cross_mod
 from .config import EngineConfig
 from .graphs import DecodeGraph, GraphPool
 from .logprobs import _lp_entry, _record_admission_lps
 from .resident import (
-    RESIDENT,
     InflightStep,
     ResidentBatch,
     composition_sig,
     upload,
 )
 from .runner import (
+    make_cross_kv,
+    make_cross_slot_write,
     make_decode,
     make_fused_step,
     make_prefill,
@@ -248,12 +265,16 @@ class LLMEngine:
     card; pass ``"cpu"`` to run the plain paths on the CPU."""
 
     def __init__(self, model_cfg: LlamaConfig, model: LlamaForCausalLM,
-                 ecfg: EngineConfig, device: DeviceLike = None):
+                 ecfg: EngineConfig, device: DeviceLike = None,
+                 cross_seq_len: int = 0):
         bad = _unsupported(ecfg)
         if bad:
             raise ValueError(f"not ported yet: {', '.join(bad)}")
-        if model_cfg.cross_attention_layers:
-            raise ValueError("mllama configs are not ported yet")
+        # mllama: Lv, static per checkpoint (tiles x (patches + 1))
+        self.cross_seq_len = cross_seq_len
+        n_cross = len(model_cfg.cross_attention_layers)
+        if n_cross and not cross_seq_len:
+            raise ValueError("mllama config needs cross_seq_len (Lv)")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model weights are on {model.device}, the "
@@ -275,13 +296,18 @@ class LLMEngine:
                         " — KV quantization stays off", kvq)
             kvq = ""
         self._kv_quant = kvq == "int8"
-        # ragged paged attention (SHAI_RAGGED_ATTENTION, default off)
-        self._ragged = env_bool("SHAI_RAGGED_ATTENTION", False)
+        # ragged paged attention (SHAI_RAGGED_ATTENTION, default off); text
+        # engines only: the ragged continuation has no cross tail
+        self._ragged = env_bool("SHAI_RAGGED_ATTENTION", False) \
+            and not n_cross
+        # the prefix cache serves plain text only: an mllama request's KV
+        # depends on its image, not on its tokens alone
+        prefix_caching = ecfg.enable_prefix_caching and not n_cross
         # host KV tier (SHAI_KVTIER): eviction and preemption demote blocks
         # to a bounded host-RAM pool, admission misses fall through to it;
         # it rides the prefix cache (the same chain hashes)
         tier = None
-        if ecfg.enable_prefix_caching:
+        if prefix_caching:
             tier = maybe_host_tier(
                 n_layers=model_cfg.n_layers, block_size=ecfg.block_size,
                 n_kv_heads=model_cfg.n_kv_heads,
@@ -300,11 +326,33 @@ class LLMEngine:
                 "role=prefill but no host KV tier is configured (need "
                 "enable_prefix_caching + SHAI_KVTIER=1) — handoffs will "
                 "advertise kv_ready=false and decode peers will recompute")
+        # cross layers own no pool entry: the pool spans the self-attention
+        # layers alone
         self.cache = PagedKVCache(
-            model_cfg.n_layers, model_cfg.n_kv_heads, model_cfg.head_dim,
-            ecfg.total_blocks, ecfg.block_size, ecfg.blocks_per_seq,
-            dtype=kv_dtype, device=self.device, quant=self._kv_quant,
-            enable_prefix_caching=ecfg.enable_prefix_caching, tier=tier)
+            model_cfg.n_layers - n_cross, model_cfg.n_kv_heads,
+            model_cfg.head_dim, ecfg.total_blocks, ecfg.block_size,
+            ecfg.blocks_per_seq, dtype=kv_dtype, device=self.device,
+            quant=self._kv_quant, enable_prefix_caching=prefix_caching,
+            tier=tier)
+        # mllama: the per-slot cross-KV buffers (the encoder cache), each
+        # slot's has_image gate and valid state count
+        S = ecfg.max_num_seqs
+        #: the ``cross_len`` of a row without an image (text-only, freed or
+        #: padding): every one of the Lv zero states live, under a zero gate
+        self.cross_text_len = max(cross_seq_len, 1)
+        self._cross_kv: Optional[List[Dict[str, torch.Tensor]]] = None
+        self._has_image = np.zeros((S,), np.float32)
+        self._cross_len = np.full((S,), self.cross_text_len, np.int32)
+        self._cross_zero_cache: Dict[int, list] = {}
+        if n_cross:
+            shape = (S, cross_seq_len, model_cfg.n_kv_heads,
+                     model_cfg.head_dim)
+            self._cross_kv = [
+                {"k": torch.zeros(shape, dtype=kv_dtype, device=self.device),
+                 "v": torch.zeros(shape, dtype=kv_dtype, device=self.device)}
+                for _ in range(n_cross)]
+            self._cross_embed = make_cross_kv(model_cfg)
+            self._cross_write = make_cross_slot_write(model_cfg)
         self.buckets = BucketRegistry(sorted(ecfg.context_encoding_buckets))
         # chunked-prefill prompt cap: whole bucket-sized chunks only, and at
         # least one position left to generate
@@ -456,7 +504,9 @@ class LLMEngine:
                     already_generated: Optional[Sequence[int]] = None,
                     already_lp: Optional[list] = None,
                     orig_n_prompt: int = -1,
-                    kv_holders: Optional[Sequence[str]] = None) -> int:
+                    kv_holders: Optional[Sequence[str]] = None,
+                    cross_states: Optional[np.ndarray] = None,
+                    cross_len: int = 0) -> int:
         """Queue a request. ``deadline_at``: an absolute
         ``time.monotonic()`` instant (0 = none) past which it finishes as
         ``"timeout"``; ``priority`` (0 high, 1 normal, 2 low, clamped) and
@@ -469,10 +519,24 @@ class LLMEngine:
         (``already_generated``, ``already_lp``: the prompt holds them as
         its suffix) and its original prompt length, the semantics of a
         preemption resume; ``kv_holders`` is a fleet slice of pods that
-        may hold its prompt's KV run (the fabric's probe tries them)."""
+        may hold its prompt's KV run (the fabric's probe tries them).
+        ``cross_states`` ``[cross_seq_len, dim]``: an mllama request's
+        vision states, of which the first ``cross_len`` are valid (0: all);
+        None is a text-only request."""
         params = (params or SamplingParams()).clamp(self.ecfg)
         if not prompt_ids:
             raise ValueError("empty prompt")
+        if cross_states is not None:
+            if self._cross_kv is None:
+                raise ValueError("model has no cross-attention layers")
+            if tuple(cross_states.shape) != (self.cross_seq_len,
+                                             self.cfg.dim):
+                raise ValueError(
+                    f"cross_states must be [{self.cross_seq_len}, "
+                    f"{self.cfg.dim}], got {tuple(cross_states.shape)}")
+            if not 0 <= cross_len <= self.cross_seq_len:
+                raise ValueError(f"cross_len={cross_len} out of [0, "
+                                 f"{self.cross_seq_len}]")
         if len(prompt_ids) > self._chunk_cap:
             # past the chunkable cap: keep the tail
             prompt_ids = list(prompt_ids)[-self._chunk_cap:]
@@ -490,6 +554,8 @@ class LLMEngine:
         if self._tenant_seen:
             self.obs.count_tenant_request(tenant, _qos.class_name(priority))
         self.waiting.append(Request(rid, list(prompt_ids), params,
+                                    cross_states=cross_states,
+                                    cross_len=cross_len,
                                     on_token=on_token,
                                     deadline_at=deadline_at,
                                     t_submit=time.monotonic(),
@@ -650,7 +716,14 @@ class LLMEngine:
         ships the manifest and the banked run to a peer, where the request
         continues. A pending token that already ends the request finishes
         it as ``eos``/``length`` instead. Loop thread only; None for an
-        unknown or finished id."""
+        unknown or finished id, and for a multimodal request, whose vision
+        states do not travel in the manifest (the drain lets it finish
+        here)."""
+        if any(r.cross_states is not None and r.req_id == req_id
+               for r in self.waiting) or any(
+                   s is not None and s.req.req_id == req_id
+                   and s.req.cross_states is not None for s in self.slots):
+            return None
         for i, r in enumerate(self.waiting):
             if r.req_id == req_id:
                 man = self.snapshot_sequence(req_id)
@@ -876,7 +949,7 @@ class LLMEngine:
         (where the port keeps the device-resident batch); in ``extra``,
         the CUDA graph pool and the split scratch, which the allocator
         holds outside every attributed pool."""
-        return {
+        out = {
             "weights": float(sum(p.nbytes for p in self.model.parameters())),
             "kv_pool": float(self.cache.pool_bytes),
             "resident": float(sum(
@@ -886,6 +959,10 @@ class LLMEngine:
             "split_scratch_bytes": float(
                 split_scratch_bytes(self.device) if self._cuda_mem else 0),
         }
+        if self._cross_kv is not None:
+            out["cross_kv"] = float(sum(
+                t.nbytes for buf in self._cross_kv for t in buf.values()))
+        return out
 
     def _sample_hbm(self) -> None:
         """One HBM ledger tick (the reference's ``engine.py:1131-1200``):
@@ -908,6 +985,9 @@ class LLMEngine:
         # inside the graph pool: no device bytes of its own
         pools = {"weights": st["weights"], "kv_pool": st["kv_pool"],
                  "resident": st["resident"], "inflight": 0.0}
+        if "cross_kv" in st:
+            # mllama: the per-slot cross-KV buffers, priced once
+            pools["cross_kv"] = st["cross_kv"]
         bytes_in_use = peak = None
         if self._cuda_mem:
             bytes_in_use = torch.cuda.memory_allocated(self.device)
@@ -1153,7 +1233,9 @@ class LLMEngine:
         elif (self.waiting
                 and len(self.waiting[0].prompt_ids) > self.buckets.max):
             if not chunking:
-                self._admit_long()
+                self._admit_long()  # chunked prefill (text or cross)
+        elif self.waiting and self.waiting[0].cross_states is not None:
+            self._admit_one()       # a short multimodal prompt: alone
         else:
             self._admit_batch()
 
@@ -1173,6 +1255,9 @@ class LLMEngine:
     def _release_slot(self, s: _Running) -> None:
         self.cache.release(s.req.req_id)
         self.slots[s.slot] = None
+        # a freed slot gates its cross layers off until it is admitted
+        self._has_image[s.slot] = 0.0
+        self._cross_len[s.slot] = self.cross_text_len
 
     def _finish(self, fin: Finished) -> None:
         self._done_this_step.append(fin)
@@ -1292,6 +1377,8 @@ class LLMEngine:
         bucket = -1
         while self.waiting and len(group) < kmax:
             req = self.waiting[0]
+            if req.cross_states is not None:
+                break  # multimodal: _admit_one takes it at the head
             if len(req.prompt_ids) > self.buckets.max:
                 break  # a long prompt: _admit_long takes it at the head
             b = self.buckets.bucket_for(len(req.prompt_ids))
@@ -1334,7 +1421,8 @@ class LLMEngine:
             _, logits = fn(self.model, self.cache.kv,
                            torch.from_numpy(ids).to(dev),
                            torch.from_numpy(n_text).to(dev),
-                           torch.from_numpy(tables).to(dev))
+                           torch.from_numpy(tables).to(dev),
+                           *_cross_mod.text_cross_args(self, Kp))
             toks = sample_logits(logits, self._gen,
                                  torch.from_numpy(temp).to(dev),
                                  torch.from_numpy(topk).to(dev),
@@ -1353,6 +1441,51 @@ class LLMEngine:
         if lp_rows:
             _record_admission_lps(self, logits, [int(t) for t in toks],
                                   lp_rows)
+
+    def _admit_one(self) -> None:
+        """Admit the head request alone: an mllama request whose prompt
+        fits the largest bucket (the reference's ``_admit_one``, its
+        soft-prefix half not ported). Its vision states are projected into
+        the slot's buffers, then one prefill samples its first token."""
+        if not self.waiting:
+            return
+        slot = self._free_slot()
+        if slot is None:
+            return
+        req = self.waiting[0]
+        if len(req.prompt_ids) > self.buckets.max:
+            # a preemption resume may pass the largest bucket: keep the
+            # tail, as add_request does
+            req.prompt_ids = req.prompt_ids[-self.buckets.max:]
+        n = len(req.prompt_ids)
+        if not self._try_reserve(req, n):
+            return
+        self.waiting.popleft()
+        self._note_admitted(req)
+        bucket = self.buckets.bucket_for(n)
+        self.cache.admit(req.req_id, n)
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, :n] = req.prompt_ids
+        dev = self.device
+        p = req.params
+        fn = self._prefill_for(bucket, 1)
+        with torch.inference_mode():
+            cross = _cross_mod._set_slot_cross(self, slot, req)
+            with annotate("engine.prefill"):
+                _, logits = fn(self.model, self.cache.kv,
+                               torch.from_numpy(ids).to(dev),
+                               torch.tensor([n], dtype=torch.int32,
+                                            device=dev),
+                               self._table_of(req), *cross)
+            tok = int(sample_logits(logits, self._gen, p.temperature,
+                                    p.top_k, p.top_p)[0])
+        self.obs.count_pad(n, bucket - n, phase="prefill")
+        # no register_prefix: a vision-conditioned prompt's blocks must not
+        # content-address by its tokens alone (and the cache is off here)
+        self._start_slot(slot, req, tok)
+        if p.logprobs:
+            _record_admission_lps(self, logits, [tok],
+                                  [(0, self.slots[slot])])
 
     def _admit_fanout(self) -> bool:
         """Admit an ``n > 1`` fan-out group (``SHAI_KV_COW``) as ONE
@@ -1378,7 +1511,7 @@ class LLMEngine:
         if n > self.buckets.max:
             return False
         if any(r.prompt_ids != head.prompt_ids or r.already_generated
-               for r in group):
+               or r.cross_states is not None for r in group):
             return False
         K = len(group)
         if sum(s is None for s in self.slots) < K:
@@ -1415,7 +1548,7 @@ class LLMEngine:
             _, logits = fn(
                 self.model, self.cache.kv, torch.from_numpy(ids).to(dev),
                 torch.tensor([n], dtype=torch.int32, device=dev),
-                self._table_of(head))
+                self._table_of(head), *_cross_mod.text_cross_args(self, 1))
             self.cache.register_prefix(head.prompt_ids, alloc.blocks)
             tiled = logits[:1].expand(Kp, -1).contiguous()
             toks = sample_logits(tiled, self._gen,
@@ -1451,7 +1584,11 @@ class LLMEngine:
         n_total = len(req.prompt_ids)
         C = self.buckets.max
         if n_total <= C:
-            self._admit_batch()  # the cut brought it back inside a bucket
+            # the cut brought it back inside a bucket
+            if req.cross_states is not None:
+                self._admit_one()
+            else:
+                self._admit_batch()
             return
         if not self._try_reserve(req, n_total):
             return
@@ -1463,9 +1600,14 @@ class LLMEngine:
                            device=dev)
         fn = self._prefill_for(C, 1)
         with torch.inference_mode(), annotate("engine.prefill"):
+            # an mllama engine seats the vision states (or the text-only
+            # gate) in the slot's buffers once; every chunk and decode
+            # step reads them there
+            cross = ([] if self._cross_kv is None
+                     else list(_cross_mod._set_slot_cross(self, slot, req)))
             fn(self.model, self.cache.kv, ids,
                torch.tensor([C], dtype=torch.int32, device=dev),
-               self._table_of(req))
+               self._table_of(req), *cross)
         # the first chunk's full blocks are final: publish them now, so an
         # identical long prompt (or this one resuming) shares them early
         self.cache.register_prefix(req.prompt_ids[:C],
@@ -1507,13 +1649,15 @@ class LLMEngine:
                 logits = self._fused_chunk_call(window)
             else:
                 fn = self._cont_for(start // self.ecfg.block_size)
+                cross = ([] if self._cross_kv is None else
+                         list(_cross_mod._slot_cross_args(self, s.slot)))
                 with annotate("engine.prefill"):
                     _, logits = fn(self.model, self.cache.kv,
                                    torch.from_numpy(ids).to(dev),
                                    torch.tensor([n], dtype=torch.int32,
                                                 device=dev),
                                    self._table_of(req),
-                                   *self._cont_args(start))
+                                   *self._cont_args(start), *cross)
             if final:
                 p = req.params
                 tok = sample_logits(logits, self._gen, p.temperature,
@@ -1850,7 +1994,8 @@ class LLMEngine:
                                  ragged=self._ragged, kv_quant=self._kv_quant,
                                  feedback=True),
                 self.model, self.cache.kv, bb, self.ecfg.blocks_per_seq,
-                self.cfg.vocab_size, device=self.device, pool=self._graphs)
+                self.cfg.vocab_size, device=self.device, pool=self._graphs,
+                cross_kv=self._cross_kv, cross_text_len=self.cross_text_len)
             graph.capture()
             self._decode_fns[key] = graph
         return bb, self._decode_fns[key]
@@ -1877,7 +2022,8 @@ class LLMEngine:
                             ragged=self._ragged, kv_quant=self._kv_quant),
                 self.model, self.cache.kv, bb, self.ecfg.blocks_per_seq,
                 self.cfg.vocab_size, device=self.device, pool=self._graphs,
-                verify_k=k)
+                verify_k=k, cross_kv=self._cross_kv,
+                cross_text_len=self.cross_text_len)
             graph.capture()
             self._verify_fns[key] = graph
         return bb, self._verify_fns[key]
@@ -2018,6 +2164,8 @@ class LLMEngine:
             p, max_new_tokens=p.max_new_tokens - len(committed))
         self.waiting.appendleft(Request(
             victim.req.req_id, victim.req.prompt_ids + committed, params,
+            cross_states=victim.req.cross_states,
+            cross_len=victim.req.cross_len,
             already_generated=emitted,
             orig_n_prompt=victim.req.orig_n_prompt,
             on_token=victim.req.on_token,
@@ -2102,11 +2250,21 @@ class LLMEngine:
              "temp": np.ones((Bb,), np.float32),
              "topk": np.zeros((Bb,), np.int32),
              "topp": np.ones((Bb,), np.float32)}
+        if self._cross_kv is not None:
+            # each row's slot in the cross buffers, its gate and its valid
+            # vision states; padding rows read slot 0 under a zero gate
+            a.update(slot_idx=np.zeros((Bb,), np.int32),
+                     has_image=np.zeros((Bb,), np.float32),
+                     cross_len=np.full((Bb,), self.cross_text_len, np.int32))
         for i, s in enumerate(running):
             a["tables"][i] = self.cache.seq(s.req.req_id).table(M)
             a["temp"][i] = s.req.params.temperature
             a["topk"][i] = s.req.params.top_k
             a["topp"][i] = s.req.params.top_p
+            if self._cross_kv is not None:
+                a["slot_idx"][i] = s.slot
+                a["has_image"][i] = self._has_image[s.slot]
+                a["cross_len"][i] = self._cross_len[s.slot]
         return a
 
     def _marshal_tokens(self, running, Bb: int):
@@ -2138,7 +2296,7 @@ class LLMEngine:
         a = self._marshal_running(running, Bb)
         tokens, pos = self._marshal_tokens(running, Bb)
         with torch.inference_mode():
-            for name in RESIDENT:
+            for name in a:
                 upload(graph.inputs[name], a[name])
             upload(graph.inputs["tokens"], tokens)
             upload(graph.inputs["pos"], pos)

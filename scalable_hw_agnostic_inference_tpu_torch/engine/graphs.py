@@ -49,6 +49,14 @@ turns graphs off. The captured graph holds the addresses of the weights and the
 KV pool, which the runner writes in place; each replay checks that the
 pool's tensors are still the ones captured.
 
+An mllama engine's decode and verify graphs also hold the engine's per-slot
+cross-KV buffers (``cross_kv``, written in place at admission and checked
+on each replay as the pool is) and three more static inputs: ``slot_idx``
+(each batch row's slot in the buffers), ``has_image`` (its cross gate) and
+``cross_len`` (its valid vision states). Each replay gathers the rows'
+buffers by ``slot_idx`` into the graph's pool and runs B1 over them once per
+cross layer.
+
 The kernel wrappers count a launch where they launch, which under capture
 happens once and never on replay: a graph takes the counts its capture
 added off again and adds them on every replay, so the counters stay the
@@ -166,12 +174,14 @@ class DecodeGraph:
                  blocks_per_seq: int, vocab_size: int,
                  device: DeviceLike = None,
                  pool: Optional[GraphPool] = None, chunk: int = 0,
-                 verify_k: int = 0):
+                 verify_k: int = 0, cross_kv=None, cross_text_len: int = 1):
         self.device = resolve_device(device)
         self.key = key
         self.decode = decode
         self.model = model
         self.kv = kv
+        #: an mllama engine's per-slot cross-KV buffers (None: text)
+        self.cross_kv = cross_kv
         self.pool = pool if pool is not None else GraphPool(self.device)
         dev = self.device
         with torch.inference_mode(False):
@@ -190,6 +200,12 @@ class DecodeGraph:
                 "tables": i32(batch, blocks_per_seq),
                 "temp": f32(1.0, batch), "topk": i32(batch),
                 "topp": f32(1.0, batch)}
+            if cross_kv is not None:
+                # padding rows: slot 0 under a zero gate, the engine's
+                # text-row cross_len
+                self.inputs.update(
+                    slot_idx=i32(batch), has_image=f32(0.0, batch),
+                    cross_len=i32(batch) + cross_text_len)
             if chunk:
                 # the null window: zero ids over null block 0, one token
                 self.inputs.update(
@@ -224,14 +240,18 @@ class DecodeGraph:
         self.replays = 0
         self.capture_seconds = 0.0
         self._graph = None
-        self._ptrs: Tuple[int, ...] = ()
+        self._ptrs: Tuple[Tuple[int, ...], ...] = ((), ())
 
     @property
     def captured(self) -> bool:
         return self._graph is not None
 
-    def _pool_ptrs(self) -> Tuple[int, ...]:
-        return tuple(t.data_ptr() for lay in self.kv for t in lay.values())
+    def _pool_ptrs(self) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """The addresses of the KV pool's tensors and of the cross
+        buffers'."""
+        return tuple(tuple(t.data_ptr() for lay in bufs
+                           for t in lay.values())
+                     for bufs in (self.kv, self.cross_kv or ()))
 
     def eager(self) -> Tuple[torch.Tensor, ...]:
         """One eager call of the decode function on the static inputs, on
@@ -239,10 +259,14 @@ class DecodeGraph:
         a = self.inputs
         window = [a[name] for name in CHUNK_INPUTS] if self.chunk else []
         rng = self.draws if self.verify_k else self.uniforms
+        kw = {}
+        if self.cross_kv is not None:
+            kw["cross"] = (self.cross_kv, a["has_image"], a["slot_idx"],
+                           a["cross_len"])
         with torch.inference_mode():
             _, *outs = self.decode(
                 self.model, self.kv, a["tokens"], a["pos"], a["tables"],
-                rng, a["temp"], a["topk"], a["topp"], *window)
+                rng, a["temp"], a["topk"], a["topp"], *window, **kw)
         return tuple(outs)
 
     def _set_outputs(self, outs) -> None:
@@ -333,9 +357,13 @@ class DecodeGraph:
                                    f"captured")
             self._set_outputs(self.eager())
         else:
-            if self._pool_ptrs() != self._ptrs:
+            pool, cross = self._pool_ptrs()
+            if pool != self._ptrs[0]:
                 raise RuntimeError(f"decode graph {self.key}: the KV pool "
                                    f"moved since capture")
+            if cross != self._ptrs[1]:
+                raise RuntimeError(f"decode graph {self.key}: the cross "
+                                   f"buffers moved since capture")
             self._graph.replay()
             for (_, fn, attr), n in self._counted:
                 setattr(fn, attr, getattr(fn, attr) + n)

@@ -7,7 +7,8 @@ blocks on the sampled tokens before its host bookkeeping. The async
 pipeline (``SHAI_ASYNC_DECODE``) removes both halves:
 
 * :class:`ResidentBatch` keeps the composition-dependent inputs (``tables``,
-  ``temp``, ``topk``, ``topp``) on the device for decode and speculative
+  ``temp``, ``topk``, ``topp``, and an mllama engine's ``slot_idx``,
+  ``has_image`` and ``cross_len``) on the device for decode and speculative
   verify alike (the reference's ``resident.py:15``: a verify graph is one
   more graph it feeds), keyed by a composition signature: they are
   uploaded again only when the signature changes (join, finish,
@@ -41,14 +42,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-#: the composition-dependent decode inputs a refresh uploads
-RESIDENT = ("tables", "temp", "topk", "topp")
-
 
 def composition_sig(running, Bb: int) -> Tuple:
     """Identity of the compacted batch view: which request sits in which
-    batch row (and slot), at which batch bucket. Sampling knobs are
-    per-request constants, so the ``req_id`` entries cover them; block
+    batch row (and slot), at which batch bucket. Sampling knobs and the
+    cross tail are per-request constants, so the ``req_id`` entries cover
+    them; block
     growth and reassignment are tracked separately (``blocks``)."""
     return (tuple((s.req.req_id, s.slot) for s in running), Bb)
 
@@ -136,8 +135,8 @@ class ResidentBatch:
                 self.blocks = blocks
             return inputs
         host = engine._marshal_running(running, Bb)
-        for name in RESIDENT:
-            upload(inputs[name], host[name])
+        for name, arr in host.items():
+            upload(inputs[name], arr)
         self.sig = sig
         self.target = graph
         self.blocks = blocks

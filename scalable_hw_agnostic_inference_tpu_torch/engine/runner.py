@@ -36,6 +36,22 @@ and its gather oracle do off the accelerator. The activations are bf16 from
 the embedding on (``runner.py:315``), as in the reference, so CPU parity
 holds at bf16 tolerances.
 
+mllama (``cross_attention_layers``): ``make_cross_kv`` (``:146``) projects
+a request's vision states once, at admission, into each cross layer's
+k-normed k/v, and ``make_cross_slot_write`` (``:169``) copies them into the
+slot's rows of the engine's per-slot cross buffers, in place. The cross
+layers own no KV pool entry (the pool is indexed past them) and run as
+``models.llama.LlamaCrossBlock`` (the reference's ``_cross_layer`` at
+``:223``, its head norm ``_head_rmsnorm`` included): non-causal
+attention over the row's vision
+states with ``kv_lengths = cross_len`` through ``dot_product_attention``
+(B1 on CUDA) in every path: prefill and the static continuation take the
+cross tail ``(cross_kv [K, Lv, Hkv, D] per layer, has_image [K],
+cross_len [K])``; decode and verify take the whole buffers, and each batch
+row gathers its slot's rows by ``slot_idx`` (``:704-716``). Ragged
+continuation and the fused step serve text engines only, as the
+reference's assert (``:494``).
+
 ``kv_quant`` (``SHAI_KV_QUANT=int8``): the pool holds int8 blocks with
 per-(block, kv head) f32 scales ``ks``/``vs``. Whole-block writes quantize
 (``_scatter_blocks``), decode writes requantize their block one token at a
@@ -208,32 +224,77 @@ def token_logprobs(logits: torch.Tensor, toks: torch.Tensor):
     return top_ids.to(torch.int32), top_lp, tok_lp
 
 
+CrossKV = List[Dict[str, torch.Tensor]]
+
+
+def make_cross_kv(cfg: LlamaConfig) -> Callable:
+    """``cross_kv(model, states [Lv, dim]) -> [n_cross] x {"k", "v"}``
+    ``[Lv, Hkv, Dh]`` bf16: each cross layer's k/v of a request's vision
+    states, k normed over the head dim. Run once at admission; prefill,
+    the continuation chunks and decode then read the slot's buffers
+    (vLLM's encoder cache)."""
+
+    def cross_kv(model: LlamaForCausalLM, states: torch.Tensor) -> CrossKV:
+        return [{"k": k[0], "v": v[0]}
+                for k, v in model.project_cross(states[None])]
+
+    return cross_kv
+
+
+def make_cross_slot_write(cfg: LlamaConfig) -> Callable:
+    """``write(buffers, per_layer, slot)``: every cross layer's slot rows
+    of the engine's buffers ``[max_num_seqs, Lv, Hkv, Dh]`` set from
+    ``make_cross_kv``'s output, in place (the buffers are never replaced:
+    captured graphs hold their addresses)."""
+
+    def write(buffers: CrossKV, per_layer: CrossKV, slot: int) -> CrossKV:
+        for buf, new in zip(buffers, per_layer, strict=True):
+            buf["k"][slot].copy_(new["k"])
+            buf["v"][slot].copy_(new["v"])
+        return buffers
+
+    return write
+
+
 def make_prefill(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                  bucket: int, n_seqs: int = 1,
                  kv_quant: bool = False) -> Callable:
     """``prefill(model, kv, ids [K, bucket], n_text [K], block_tables
-    [K, blocks_per_seq]) -> (kv, logits [K, V])``.
+    [K, blocks_per_seq][, cross_kv, has_image, cross_len]) -> (kv, logits
+    [K, V])``.
 
     ``K = n_seqs`` right-padded prompts share one call; rows past the
     admitted group carry a null block table and write harmlessly into
     reserved block 0. k/v for the whole bucket are scattered into the pool;
     pad positions stay masked by the sequence lengths. Returns next-token
-    logits from the last valid position of each row.
+    logits from the last valid position of each row. An mllama model takes
+    the cross tail: per cross layer ``{"k", "v"}`` ``[K, Lv, Hkv, Dh]``,
+    ``has_image [K]`` and ``cross_len [K]``.
     """
     if bucket % block_size:
         raise ValueError(f"bucket {bucket} not a multiple of block_size "
                          f"{block_size}")
     m_used = bucket // block_size
+    cross_set = set(cfg.cross_attention_layers)
 
     def prefill(model: LlamaForCausalLM, kv: KVPool, ids: torch.Tensor,
-                n_text: torch.Tensor, block_tables: torch.Tensor
+                n_text: torch.Tensor, block_tables: torch.Tensor,
+                cross_kv: Optional[CrossKV] = None,
+                has_image: Optional[torch.Tensor] = None,
+                cross_len: Optional[torch.Tensor] = None
                 ) -> Tuple[KVPool, torch.Tensor]:
         B, T = ids.shape
         x = model.embed.weight[ids.long()].to(torch.bfloat16)
         positions = torch.arange(T, dtype=torch.int32,
                                  device=ids.device).expand(B, T)
         tbl = block_tables[:, :m_used].long()
+        ci = pi = 0   # cross layers own no pool entry
         for li, layer in enumerate(model.layers):
+            if li in cross_set:
+                x = layer(x, cross_kv[ci]["k"], cross_kv[ci]["v"],
+                          has_image, cross_len)
+                ci += 1
+                continue
             h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
             q, k, v = _qkv(layer, h, positions, cfg)
             # causal within the prompt; pad keys masked by the true length
@@ -243,11 +304,12 @@ def make_prefill(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
             x = x + _mlp(layer, _rmsnorm(x, layer.mlp_norm.scale,
                                          cfg.rms_eps))
             _scatter_blocks(
-                kv[li], tbl,
+                kv[pi], tbl,
                 k.reshape(B, m_used, block_size, cfg.n_kv_heads,
                           cfg.head_dim),
                 v.reshape(B, m_used, block_size, cfg.n_kv_heads,
                           cfg.head_dim), kv_quant)
+            pi += 1
         last = x[torch.arange(B, device=x.device), n_text.long() - 1]
         return kv, _logits(model, last[:, None], cfg)[:, 0]
 
@@ -301,7 +363,15 @@ def make_prefill_cont(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
     (B3 on CUDA). With an int8 pool the two orders give different numbers
     (the ragged chunk reads its own keys back quantized), and each variant
     keeps the reference's.
+
+    An mllama model chunks on the static ladder only, its calls taking
+    prefill's cross tail (one row: the slot's buffers); ragged serves text
+    engines (the reference's assert).
     """
+    cross_set = set(cfg.cross_attention_layers)
+    if ragged and cross_set:
+        raise ValueError("the ragged continuation serves text engines: an "
+                         "mllama engine runs the static ladder")
     if bucket % block_size:
         raise ValueError(f"bucket {bucket} not a multiple of block_size "
                          f"{block_size}")
@@ -340,7 +410,10 @@ def make_prefill_cont(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
         return kv, _logits(model, last[:, None], cfg)[:, 0]
 
     def cont_static(model: LlamaForCausalLM, kv: KVPool, ids: torch.Tensor,
-                    n_text: torch.Tensor, block_tables: torch.Tensor
+                    n_text: torch.Tensor, block_tables: torch.Tensor,
+                    cross_kv: Optional[CrossKV] = None,
+                    has_image: Optional[torch.Tensor] = None,
+                    cross_len: Optional[torch.Tensor] = None
                     ) -> Tuple[KVPool, torch.Tensor]:
         B, T = ids.shape
         dev = ids.device
@@ -355,24 +428,32 @@ def make_prefill_cont(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                 ).reshape(B, start)
         tbl_chunk = block_tables[:, start_blocks:start_blocks + c_blocks
                                  ].long()
+        ci = pi = 0   # cross layers own no pool entry
         for li, layer in enumerate(model.layers):
+            if li in cross_set:
+                x = layer(x, cross_kv[ci]["k"], cross_kv[ci]["v"],
+                          has_image, cross_len)
+                ci += 1
+                continue
+            lay = kv[pi]
+            pi += 1
             h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
             q, k, v = _qkv(layer, h, positions, cfg)
             if kv_quant:
                 kprior = dequantize_kv_blocks(
-                    kv[li]["k"][tbl_prior], kv[li]["ks"][tbl_prior],
+                    lay["k"][tbl_prior], lay["ks"][tbl_prior],
                     q.dtype).reshape(B, start, hkv, hd)
                 vprior = dequantize_kv_blocks(
-                    kv[li]["v"][tbl_prior], kv[li]["vs"][tbl_prior],
+                    lay["v"][tbl_prior], lay["vs"][tbl_prior],
                     q.dtype).reshape(B, start, hkv, hd)
             else:
-                kprior = kv[li]["k"].view(-1, hkv, hd)[goff].to(q.dtype)
-                vprior = kv[li]["v"].view(-1, hkv, hd)[goff].to(q.dtype)
+                kprior = lay["k"].view(-1, hkv, hd)[goff].to(q.dtype)
+                vprior = lay["v"].view(-1, hkv, hd)[goff].to(q.dtype)
             o = dot_product_attention(
                 q, torch.cat([kprior, k], dim=1),
                 torch.cat([vprior, v], dim=1), kv_lengths=n, causal=True)
             x = _attn_out_mlp(cfg, layer, x, o)
-            _scatter_blocks(kv[li], tbl_chunk, _blocks(k, B), _blocks(v, B),
+            _scatter_blocks(lay, tbl_chunk, _blocks(k, B), _blocks(v, B),
                             kv_quant)
         last = x[torch.arange(B, device=dev), n_text.long() - 1]
         return kv, _logits(model, last[:, None], cfg)[:, 0]
@@ -385,7 +466,11 @@ def _make_token_forward(cfg: LlamaConfig, block_size: int, m_ctx: int,
                         kv_quant: bool = False) -> Callable:
     """The paged-engine forward for ``T`` new tokens per sequence (decode
     is ``T = 1``): ``fwd(model, kv, tokens [B, T], positions [B, T],
-    tables [B, >= m_ctx]) -> (kv, logits [B, T, V])``.
+    tables [B, >= m_ctx][, cross]) -> (kv, logits [B, T, V])``; an mllama
+    model's ``cross`` is ``(buffers, has_image [B], slot_idx [B],
+    cross_len [B])``: the engine's whole per-slot buffers, each batch row
+    gathering its slot's rows by ``slot_idx`` (a copy ``[B, Lv, Hkv, Dh]``
+    per cross layer).
 
     Writes the ``T`` tokens' kv into the pool in place (positions past the
     context window route to the null block; an int8 pool requantizes the
@@ -396,10 +481,11 @@ def _make_token_forward(cfg: LlamaConfig, block_size: int, m_ctx: int,
     (B2, which runs on B3's decode CTA and hands an int8 pool to B3).
     """
     L = block_size * m_ctx
+    cross_set = set(cfg.cross_attention_layers)
 
     def fwd(model: LlamaForCausalLM, kv: KVPool, tokens: torch.Tensor,
-            positions: torch.Tensor, tables: torch.Tensor
-            ) -> Tuple[KVPool, torch.Tensor]:
+            positions: torch.Tensor, tables: torch.Tensor,
+            cross: Optional[Tuple] = None) -> Tuple[KVPool, torch.Tensor]:
         B = max_num_seqs
         hd = cfg.head_dim
         tables = tables[:, :m_ctx].to(torch.int32).contiguous()
@@ -409,10 +495,20 @@ def _make_token_forward(cfg: LlamaConfig, block_size: int, m_ctx: int,
         tables_f = tables.repeat_interleave(T, dim=0) if T > 1 else tables
         lengths_f = (pos + 1).clamp(1, L).reshape(B * T).to(torch.int32)
         attend = ragged_kernel if ragged else paged_decode_attention
+        ci = pi = 0   # cross layers own no pool entry
         for li, layer in enumerate(model.layers):
+            if li in cross_set:
+                bufs, has_image, slot_idx, cross_len = cross
+                sl = slot_idx.long()
+                x = layer(x, bufs[ci]["k"].index_select(0, sl),
+                          bufs[ci]["v"].index_select(0, sl), has_image,
+                          cross_len)
+                ci += 1
+                continue
             h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
             q, kk, vv = _qkv(layer, h, positions, cfg)
-            lay = kv[li]
+            lay = kv[pi]
+            pi += 1
             _write_tokens(cfg, lay, kk, vv, blk, pos, widx, block_size,
                           kv_quant)
             ksc, vsc = _pool_scales(lay)
@@ -454,7 +550,9 @@ def make_decode(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
     ``ragged`` (``SHAI_RAGGED_ATTENTION``): the window is the full table
     and B3 follows each row's own length, so there is no context bucket.
     ``kv_quant``: the pool is int8 (``SHAI_KV_QUANT=int8``). The pool is
-    written in place, so a captured graph keeps its addresses.
+    written in place, so a captured graph keeps its addresses. An mllama
+    model's step takes ``cross=(buffers, has_image, slot_idx, cross_len)``
+    (see :func:`_make_token_forward`).
     """
     m_ctx = blocks_per_seq if ctx_blocks is None else ctx_blocks
     if not 1 <= m_ctx <= blocks_per_seq:
@@ -469,8 +567,9 @@ def make_decode(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                pos: torch.Tensor, tables: torch.Tensor,
                rng: Union[torch.Generator, torch.Tensor],
                temperature: torch.Tensor, top_k: torch.Tensor,
-               top_p: torch.Tensor):
-        kv, logits = fwd(model, kv, tokens[:, None], pos[:, None], tables)
+               top_p: torch.Tensor, cross: Optional[Tuple] = None):
+        kv, logits = fwd(model, kv, tokens[:, None], pos[:, None], tables,
+                         cross)
         logits = logits[:, 0]
         nxt = sample_logits(logits, rng, temperature, top_k, top_p)
         if feedback:
@@ -518,7 +617,8 @@ def make_verify(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
     top-K alternatives. :func:`~..ops.sampling.masked_scaled_logits` is
     computed once and shared by the three draws (its sorts over ``[B, k+1,
     V]`` are not cheap; the results are the same). The acceptance walk is
-    the host's (``speculative.accept_drafts``).
+    the host's (``speculative.accept_drafts``). An mllama model takes
+    decode's ``cross`` (the reference's verify cross tail).
     """
     if k < 1:
         raise ValueError(f"num_speculative_tokens {k} < 1")
@@ -535,12 +635,13 @@ def make_verify(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
     def verify(model: LlamaForCausalLM, kv: KVPool, tokens: torch.Tensor,
                pos0: torch.Tensor, tables: torch.Tensor, rng,
                temperature: torch.Tensor, top_k: torch.Tensor,
-               top_p: torch.Tensor):
+               top_p: torch.Tensor, cross: Optional[Tuple] = None):
         B = max_num_seqs
         dev = tokens.device
         positions = pos0[:, None] + torch.arange(T, dtype=pos0.dtype,
                                                  device=dev)[None, :]
-        kv, logits = fwd(model, kv, tokens, positions, tables)  # [B, T, V]
+        kv, logits = fwd(model, kv, tokens, positions, tables,
+                         cross)  # [B, T, V]
         draft = tokens[:, 1:].long()
         bt = temperature[:, None].expand(B, T)
         bk = top_k[:, None].expand(B, T)
@@ -614,6 +715,9 @@ def make_fused_step(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
     if bucket % block_size:
         raise ValueError(f"bucket {bucket} not a multiple of block_size "
                          f"{block_size}")
+    if cfg.cross_attention_layers:
+        raise ValueError("the fused step serves text engines (the ragged "
+                         "gate): an mllama engine runs the ladder")
     m_ctx = blocks_per_seq
     c_blocks = bucket // block_size
     L = block_size * m_ctx

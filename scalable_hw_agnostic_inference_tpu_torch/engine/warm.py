@@ -19,6 +19,12 @@ continuation run once eagerly here, which loads their kernels and primes
 cuBLAS; each decode key is captured as a CUDA graph when ``_decode_for``
 (or ``_verify_for``) builds it and replayed once here. Functions take the
 engine explicitly.
+
+An mllama engine's set is the same set with the cross signature
+(``warm.py:39,70,135-163``): every prefill and continuation call takes the
+text-only cross tail (zero keys, gates off), every decode and verify graph
+holds the cross buffers, and the admission-time projection
+(``runner.make_cross_kv`` and the slot write) runs once on zero states.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.sampling import sample_logits
+from . import cross as _cross_mod
 
 
 def warm_executables(eng) -> int:
@@ -120,11 +127,12 @@ def _run_warm_calls(eng) -> None:
                    i32(1, M), i32(1))
             elif key[0] == "cont":
                 fn(eng.model, eng.cache.kv, i32(1, key[2]), i32(1, value=1),
-                   i32(1, M))
+                   i32(1, M), *_cross_mod.text_cross_args(eng, 1))
             else:
                 bucket, K = key
                 _, logits = fn(eng.model, eng.cache.kv, i32(K, bucket),
-                               i32(K, value=1), i32(K, M))
+                               i32(K, value=1), i32(K, M),
+                               *_cross_mod.text_cross_args(eng, K))
                 # the admission sampler at this batch size, per-row knobs
                 sample_logits(logits, gen,
                               torch.ones(K, device=dev), i32(K),
@@ -134,5 +142,11 @@ def _run_warm_calls(eng) -> None:
         for graph in eng.graphs():
             graph.draw(gen)
             graph.replay()
+        if eng._cross_kv is not None:
+            # the admission-time projection and slot write, on zero states
+            # (slot 0's rows are rewritten when a request takes it)
+            per_layer = eng._cross_embed(eng.model, torch.zeros(
+                (eng.cross_seq_len, eng.cfg.dim), device=dev))
+            eng._cross_write(eng._cross_kv, per_layer, 0)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

@@ -17,6 +17,21 @@ F16 or BF16 tensor takes the same path through fp32, exactly); with
 ``quantize`` each projection is quantized right after it lands, the
 reference's order (cast, then ``quantize_params_tree``). Tensors go to
 the device one at a time.
+
+An HF mllama directory (``config.json`` with ``model_type: "mllama"``, its
+``text_config`` and ``vision_config``; the reference's ``causal_lm.py:
+90-200`` reads it through ``transformers``): :func:`load_mllama_checkpoint`
+reads the text tower in either key layout (``language_model.model.*`` with
+``language_model.lm_head``, or ``model.language_model.*`` with ``lm_head``,
+the two the reference strips at ``causal_lm.py:116-123``), the cross
+layers' ``cross_attn.*`` and their ``cross_attn_attn_gate`` and
+``cross_attn_mlp_gate``, the embedding with its ``vocab_size + 8`` rows as
+it is, and the vision tower and projector under ``vision_model`` /
+``multi_modal_projector`` or ``model.vision_model`` /
+``model.multi_modal_projector`` (``models.mllama.vision_state_from_hf``),
+with the aspect ratios of ``vision_config`` and the ``image_mean`` /
+``image_std`` of ``preprocessor_config.json`` (CLIP's when it has none, as
+in ``causal_lm.py:128-147``).
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ import torch
 from ..core.checkpoint import Checkpoint, PathLike
 from ..core.device import DeviceLike, resolve_device
 from ..ops.quant import _is_quant_node, quantize_weight
+from . import mllama as mllama_mod
 from .llama import LlamaConfig, _weight_shapes
 
 #: port name suffix -> HF name suffix, per layer
@@ -44,6 +60,15 @@ _LAYER_NAMES = {
     "mlp.down.weight": "mlp.down_proj.weight",
     "attn_norm.scale": "input_layernorm.weight",
     "mlp_norm.scale": "post_attention_layernorm.weight",
+    # an mllama cross layer's
+    "cross_attn.q.weight": "cross_attn.q_proj.weight",
+    "cross_attn.k.weight": "cross_attn.k_proj.weight",
+    "cross_attn.v.weight": "cross_attn.v_proj.weight",
+    "cross_attn.o.weight": "cross_attn.o_proj.weight",
+    "cross_attn.q_norm.scale": "cross_attn.q_norm.weight",
+    "cross_attn.k_norm.scale": "cross_attn.k_norm.weight",
+    "gate_attn": "cross_attn_attn_gate",
+    "gate_mlp": "cross_attn_mlp_gate",
 }
 
 
@@ -58,15 +83,42 @@ HF_LLAMA_DEFAULTS = {
 }
 
 
+#: ``transformers.MllamaTextConfig``'s defaults (Llama-3.2-11B-Vision's
+#: text tower)
+HF_MLLAMA_TEXT_DEFAULTS = {
+    "vocab_size": 128256, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 40, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "max_position_embeddings": 131072,
+    "rms_norm_eps": 1e-5, "rope_theta": 500000.0, "rope_scaling": None,
+    "tie_word_embeddings": False,
+    "cross_attention_layers": [3, 8, 13, 18, 23, 28, 33, 38],
+}
+
+#: ``transformers.MllamaVisionConfig``'s defaults
+HF_MLLAMA_VISION_DEFAULTS = {
+    "hidden_size": 1280, "num_hidden_layers": 32, "num_global_layers": 8,
+    "attention_heads": 16, "intermediate_size": 5120, "image_size": 448,
+    "patch_size": 14, "norm_eps": 1e-5, "max_num_tiles": 4,
+    "intermediate_layers_indices": [3, 7, 15, 23, 30],
+    "supported_aspect_ratios": [[1, 1], [1, 2], [1, 3], [1, 4], [2, 1],
+                                [2, 2], [3, 1], [4, 1]],
+}
+
+
 def config_from_hf(cfg: Dict) -> LlamaConfig:
     """``config.json`` (a dict) -> :class:`LlamaConfig`, through
     ``LlamaConfig.from_hf`` (llama3 ``rope_scaling`` and tied embeddings
-    included; ``transformers``' defaults where a key is absent)."""
+    included; ``transformers``' defaults where a key is absent). An mllama
+    ``text_config`` (``model_type: "mllama_text_model"``) gives the text
+    tower with its cross layers."""
     arch = cfg.get("model_type", "llama")
-    if arch != "llama":
+    if arch not in ("llama", "mllama_text_model"):
         raise ValueError(f"config.json model_type {arch!r}: this port reads "
-                         f"Llama checkpoints (model_type 'llama')")
-    full = {**HF_LLAMA_DEFAULTS, **cfg}
+                         f"Llama checkpoints (model_type 'llama') and "
+                         f"mllama ones (model_type 'mllama')")
+    defaults = (HF_LLAMA_DEFAULTS if arch == "llama"
+                else HF_MLLAMA_TEXT_DEFAULTS)
+    full = {**defaults, **cfg}
     if full.get("num_key_value_heads") is None:
         full["num_key_value_heads"] = full["num_attention_heads"]
     unsupported = [k for k in ("attention_bias", "mlp_bias") if full.get(k)]
@@ -82,16 +134,50 @@ def config_from_hf(cfg: Dict) -> LlamaConfig:
     return LlamaConfig.from_hf(types.SimpleNamespace(**full))
 
 
-def hf_name(port_name: str, prefix: str = "model.") -> str:
-    """The HF checkpoint name of a port state-dict name."""
+def hf_name(port_name: str, prefix: str = "model.",
+            lm_head: str = "lm_head.weight") -> str:
+    """The HF checkpoint name of a port state-dict name (an mllama text
+    tower's ``prefix`` and ``lm_head`` name come from its layout)."""
     if port_name == "embed.weight":
         return f"{prefix}embed_tokens.weight"
     if port_name == "final_norm.scale":
         return f"{prefix}norm.weight"
     if port_name == "lm_head.weight":
-        return "lm_head.weight"
+        return lm_head
     _, i, rest = port_name.split(".", 2)
     return f"{prefix}layers.{i}.{_LAYER_NAMES[rest]}"
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor as bf16, rounded to nearest even (through fp32)."""
+    if t.is_floating_point() and t.dtype != torch.bfloat16:
+        t = t.float().to(torch.bfloat16)
+    return t
+
+
+def _read_text(path: Path, ckpt: Checkpoint, cfg: LlamaConfig, prefix: str,
+               lm_head: str, device: torch.device, quantize: bool,
+               embed_rows=None) -> Dict[str, torch.Tensor]:
+    """The text tower's state dict, one tensor at a time onto ``device``
+    (bf16, int8 projections with ``quantize``)."""
+    state: Dict[str, torch.Tensor] = {}
+    for name, shape in _weight_shapes(cfg, embed_rows).items():
+        src = hf_name(name, prefix, lm_head)
+        if src not in ckpt:
+            raise ValueError(f"{path}: checkpoint has no {src!r} (for "
+                             f"{name})")
+        if ckpt.shape(src) != shape:
+            raise ValueError(f"{path}: {src!r} is {ckpt.shape(src)}, the "
+                             f"config makes it {shape}")
+        t = _bf16(ckpt.tensor(src, device))
+        if quantize and _is_quant_node(name, t):
+            stem = name[: -len(".weight")]
+            state[f"{stem}.weight_q"], state[f"{stem}.scale"] = \
+                quantize_weight(t)
+            del t
+        else:
+            state[name] = t
+    return state
 
 
 def load_hf_checkpoint(path: PathLike, device: DeviceLike = None,
@@ -101,31 +187,87 @@ def load_hf_checkpoint(path: PathLike, device: DeviceLike = None,
     ``path``: bf16 weights on ``device`` (the card unless the caller asks
     for the CPU), int8 projections with ``quantize``."""
     path = Path(path)
-    cfg_file = path / "config.json"
-    if not cfg_file.is_file():
-        raise ValueError(f"{path}: no config.json")
-    cfg = config_from_hf(json.loads(cfg_file.read_text()))
+    cfg = config_from_hf(read_config(path))
     device = resolve_device(device)
     ckpt = Checkpoint(path)
     prefix = "model." if any(k.startswith("model.") for k in ckpt.keys()) \
         else ""
-    state: Dict[str, torch.Tensor] = {}
-    for name, shape in _weight_shapes(cfg).items():
-        src = hf_name(name, prefix)
-        if src not in ckpt:
-            raise ValueError(f"{path}: checkpoint has no {src!r} (for "
-                             f"{name})")
-        if ckpt.shape(src) != shape:
-            raise ValueError(f"{path}: {src!r} is {ckpt.shape(src)}, the "
-                             f"config makes it {shape}")
-        t = ckpt.tensor(src, device)
-        if t.is_floating_point() and t.dtype != torch.bfloat16:
-            t = t.float().to(torch.bfloat16)
-        if quantize and _is_quant_node(name, t):
-            stem = name[: -len(".weight")]
-            state[f"{stem}.weight_q"], state[f"{stem}.scale"] = \
-                quantize_weight(t)
-            del t
-        else:
-            state[name] = t
-    return cfg, state
+    return cfg, _read_text(path, ckpt, cfg, prefix, "lm_head.weight",
+                           device, quantize)
+
+
+def read_config(path: PathLike) -> Dict:
+    """A checkpoint directory's ``config.json`` as a dict."""
+    cfg_file = Path(path) / "config.json"
+    if not cfg_file.is_file():
+        raise ValueError(f"{path}: no config.json")
+    return json.loads(cfg_file.read_text())
+
+
+def is_mllama_dir(path: PathLike) -> bool:
+    """True for a directory whose ``config.json`` names an mllama model."""
+    cfg_file = Path(path) / "config.json"
+    return cfg_file.is_file() and json.loads(
+        cfg_file.read_text()).get("model_type") == "mllama"
+
+
+def mllama_vision_config(vcfg: Dict) -> Tuple[mllama_mod.MllamaVisionConfig,
+                                               list]:
+    """An mllama ``vision_config`` dict -> (:class:`MllamaVisionConfig`,
+    the supported aspect ratios), ``transformers``' defaults where a key
+    is absent."""
+    full = {**HF_MLLAMA_VISION_DEFAULTS, **vcfg}
+    if "num_attention_heads" in vcfg and "attention_heads" not in vcfg:
+        full["attention_heads"] = vcfg["num_attention_heads"]
+    supported = [list(map(int, g)) for g in full["supported_aspect_ratios"]]
+    cfg = mllama_mod.MllamaVisionConfig.from_hf(types.SimpleNamespace(
+        **{**full, "max_aspect_ratio_id": len(supported)}))
+    return cfg, supported
+
+
+def load_mllama_checkpoint(path: PathLike, device: DeviceLike = None,
+                           quantize: bool = False):
+    """The HF mllama directory ``path`` -> ``(text config, text state,
+    vision config, vision state, meta)``: bf16 weights on ``device`` (the
+    card unless the caller asks for the CPU), the text tower's projections
+    int8 with ``quantize``; the vision state holds the vision model's
+    ``vision.*`` and the projector's ``proj.*`` weights; ``meta`` holds
+    ``supported_aspect_ratios``, ``image_mean`` and ``image_std``."""
+    path = Path(path)
+    raw = read_config(path)
+    if raw.get("model_type") != "mllama":
+        raise ValueError(f"{path}: config.json model_type "
+                         f"{raw.get('model_type')!r} is not 'mllama'")
+    text = dict(raw.get("text_config") or {})
+    text.setdefault("model_type", "mllama_text_model")
+    cfg = config_from_hf(text)
+    vcfg, supported = mllama_vision_config(raw.get("vision_config") or {})
+    device = resolve_device(device)
+    ckpt = Checkpoint(path)
+    if any(k.startswith("language_model.") for k in ckpt.keys()):
+        prefix, lm_head = ("language_model.model.",
+                           "language_model.lm_head.weight")
+    else:
+        prefix, lm_head = "model.language_model.", "lm_head.weight"
+    # HF's embedding holds the 8 image-token rows past vocab_size: taken
+    # as it is (the logits stay vocab_size wide through the lm_head)
+    embed = f"{prefix}embed_tokens.weight"
+    rows = ckpt.shape(embed)[0] if embed in ckpt else None
+    if rows is not None and rows not in (cfg.vocab_size,
+                                         cfg.vocab_size + 8):
+        raise ValueError(f"{path}: {embed!r} has {rows} rows, expected "
+                         f"{cfg.vocab_size} or {cfg.vocab_size + 8}")
+    state = _read_text(path, ckpt, cfg, prefix, lm_head, device, quantize,
+                       embed_rows=rows)
+    vstate = mllama_mod.vision_state_from_hf(
+        lambda n: _bf16(ckpt.tensor(n, device)), ckpt.__contains__, vcfg,
+        cfg.dim)
+    mean, std = mllama_mod.CLIP_MEAN, mllama_mod.CLIP_STD
+    pre = path / "preprocessor_config.json"
+    if pre.is_file():
+        pc = json.loads(pre.read_text())
+        if pc.get("image_mean") and pc.get("image_std"):
+            mean, std = tuple(pc["image_mean"]), tuple(pc["image_std"])
+    meta = {"supported_aspect_ratios": supported, "image_mean": mean,
+            "image_std": std}
+    return cfg, state, vcfg, vstate, meta

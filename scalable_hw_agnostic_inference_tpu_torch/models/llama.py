@@ -9,6 +9,15 @@ int8 weight-only projections (``quant=True``, ``:167-176,:271``, as
 ``quant``). The contiguous-cache decode path and tensor parallelism come
 in later slices.
 
+mllama (Llama-3.2-Vision) text towers: the layers named by
+``cross_attention_layers`` are :class:`LlamaCrossBlock` layers, the gated
+cross-attention layers of the reference's tree (``:388-420``,
+``layer_{i}/cross_attn/{q,k,v,o,q_norm,k_norm}``, ``gate_attn``,
+``gate_mlp``). They attend per-request vision states, not the sequence,
+and own no KV pool entry. The reference's module refuses mllama configs
+and leaves them to the engine; here the scoring forward takes the cross
+keys as well (``cross=``), so that an engine run can be scored.
+
 Module names mirror the flax tree, so ``layer_{i}/attn/q`` becomes
 ``layers.{i}.attn.q``. Projections are ``nn.Linear`` weights ``[out, in]``
 (or, quantized, ``weight_q`` int8 ``[out, in]`` and ``scale`` f32
@@ -19,7 +28,7 @@ kernels, quantized ones included.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +36,7 @@ from torch import nn
 
 from ..core.device import DeviceLike, resolve_device
 from ..ops.attention import dot_product_attention
-from ..ops.norms import RMSNorm
+from ..ops.norms import RMSNorm, rms_norm
 from ..ops.quant import _is_quant_node, quant_matmul
 from ..ops.rope import apply_rope
 
@@ -47,8 +56,8 @@ class LlamaConfig:
     rope_scaling: Optional[Tuple[float, float, float, int]] = None
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
-    # mllama gated cross-attention layer indices (empty = plain llama); the
-    # port's engine rejects them until the mllama slice
+    # mllama gated cross-attention layer indices (empty = plain llama):
+    # those layers attend precomputed vision states, not the sequence
     cross_attention_layers: Tuple[int, ...] = ()
 
     def __post_init__(self):
@@ -227,6 +236,86 @@ class LlamaBlock(nn.Module):
         return x + self.mlp(self.mlp_norm(x))
 
 
+class LlamaCrossAttention(nn.Module):
+    """The projections and head norms of an mllama cross-attention layer
+    (HF ``MllamaTextCrossAttention``): q from the text stream, k and v
+    from the vision states, RMS norms over the head dim on q and k."""
+
+    def __init__(self, cfg: LlamaConfig, param_dtype=torch.float32,
+                 device=None, quantized: bool = False):
+        super().__init__()
+        hd = cfg.head_dim
+        args = (param_dtype, device, quantized)
+        self.q = _linear(cfg.dim, cfg.n_heads * hd, *args)
+        self.k = _linear(cfg.dim, cfg.n_kv_heads * hd, *args)
+        self.v = _linear(cfg.dim, cfg.n_kv_heads * hd, *args)
+        self.o = _linear(cfg.n_heads * hd, cfg.dim, *args)
+        self.q_norm = RMSNorm(hd, cfg.rms_eps, device=device)
+        self.k_norm = RMSNorm(hd, cfg.rms_eps, device=device)
+
+
+class LlamaCrossBlock(nn.Module):
+    """One mllama gated cross-attention layer (HF
+    ``MllamaCrossAttentionDecoderLayer``, the reference runner's
+    ``_cross_layer`` at ``engine/runner.py:223``): ``x + tanh(gate_attn) *
+    o(attend(q, vision k/v)) * has_image``, then ``+ tanh(gate_mlp) *
+    mlp(...) * has_image``. No rope, no KV pool: its keys are the request's
+    vision states, projected once (:meth:`project_kv`)."""
+
+    def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
+                 param_dtype=torch.float32, device=None,
+                 quantized: bool = False):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        self.attn_norm = RMSNorm(cfg.dim, cfg.rms_eps, dtype, device=device)
+        self.cross_attn = LlamaCrossAttention(cfg, param_dtype, device,
+                                              quantized)
+        self.mlp_norm = RMSNorm(cfg.dim, cfg.rms_eps, dtype, device=device)
+        self.mlp = LlamaMLP(cfg, dtype, param_dtype, device, quantized)
+        self.gate_attn = nn.Parameter(torch.zeros(1, dtype=param_dtype,
+                                                  device=device))
+        self.gate_mlp = nn.Parameter(torch.zeros(1, dtype=param_dtype,
+                                                 device=device))
+
+    def project_kv(self, states: torch.Tensor):
+        """Vision states ``[B, Lv, dim]`` -> ``(k, v)`` ``[B, Lv, Hkv, Dh]``
+        in bf16, k RMS-normed over the head dim (the reference's
+        ``make_cross_kv``)."""
+        cfg, ca = self.cfg, self.cross_attn
+        B, Lv, _ = states.shape
+        x = states.to(torch.bfloat16)
+        k = quant_matmul(x, ca.k).reshape(B, Lv, cfg.n_kv_heads, cfg.head_dim)
+        v = quant_matmul(x, ca.v).reshape(B, Lv, cfg.n_kv_heads, cfg.head_dim)
+        k = rms_norm(k, ca.k_norm.scale, cfg.rms_eps).to(k.dtype)
+        return k, v
+
+    def forward(self, x: torch.Tensor, cross_k: torch.Tensor,
+                cross_v: torch.Tensor, has_image: torch.Tensor,
+                cross_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x`` ``[B, T, dim]``; ``cross_k``/``cross_v`` ``[B, Lv, Hkv,
+        Dh]`` (k already normed); ``has_image`` ``[B]`` gates a row's whole
+        contribution off (a text-only request through an mllama model);
+        ``cross_len`` ``[B]`` marks each row's valid vision states (the rest
+        of the static ``Lv`` buffer is masked). Non-causal attention through
+        ``dot_product_attention`` with ``kv_lengths``: B1 on CUDA. The gates
+        are cast to ``x``'s dtype, so the residual stream stays bf16."""
+        cfg, ca = self.cfg, self.cross_attn
+        B, T, _ = x.shape
+        h = rms_norm(x, self.attn_norm.scale, cfg.rms_eps).to(x.dtype)
+        q = quant_matmul(h, ca.q).reshape(B, T, cfg.n_heads, cfg.head_dim)
+        q = rms_norm(q, ca.q_norm.scale, cfg.rms_eps).to(q.dtype)
+        o = dot_product_attention(q, cross_k.to(q.dtype).contiguous(),
+                                  cross_v.to(q.dtype).contiguous(),
+                                  kv_lengths=cross_len)
+        gate = has_image.to(x.dtype)[:, None, None]
+        g_attn = torch.tanh(self.gate_attn.float()).to(x.dtype)
+        g_mlp = torch.tanh(self.gate_mlp.float()).to(x.dtype)
+        x = x + g_attn * quant_matmul(o.reshape(B, T, -1), ca.o) * gate
+        h = rms_norm(x, self.mlp_norm.scale, cfg.rms_eps).to(x.dtype)
+        m = self.mlp(h).to(x.dtype)
+        return x + g_mlp * m * gate
+
+
 class LlamaForCausalLM(nn.Module):
     """Decoder-only LM; ``forward(ids [B, T]) -> logits [B, T, V]`` fp32.
 
@@ -241,21 +330,22 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
                  param_dtype=torch.float32, device: DeviceLike = None,
-                 quantized: bool = False):
+                 quantized: bool = False, embed_rows: Optional[int] = None):
         super().__init__()
         # the card unless the caller asks for the CPU; "meta" builds no
         # storage (from_state_dict)
         if str(device) != "meta":
             device = resolve_device(device)
-        if cfg.cross_attention_layers:
-            raise ValueError("mllama configs (cross_attention_layers) are "
-                             "not ported yet")
         self.cfg, self.dtype, self.quantized = cfg, dtype, quantized
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.dim, dtype=param_dtype,
-                                  device=device)
+        # embed_rows: an HF mllama embedding's rows (vocab + 8 image
+        # tokens); the logits stay vocab_size wide (an untied lm_head)
+        self.embed = nn.Embedding(embed_rows or cfg.vocab_size, cfg.dim,
+                                  dtype=param_dtype, device=device)
+        cross = set(cfg.cross_attention_layers)
         self.layers = nn.ModuleList(
-            LlamaBlock(cfg, dtype, param_dtype, device, quantized)
-            for _ in range(cfg.n_layers))
+            (LlamaCrossBlock if i in cross else LlamaBlock)(
+                cfg, dtype, param_dtype, device, quantized)
+            for i in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.rms_eps, dtype, device=device)
         self.lm_head = (None if cfg.tie_embeddings else
                         _linear(cfg.dim, cfg.vocab_size, param_dtype, device,
@@ -270,7 +360,8 @@ class LlamaForCausalLM(nn.Module):
         entries (``ops.quant.quantize_state_dict``) builds the int8
         model."""
         quantized = any(k.endswith(".weight_q") for k in state)
-        model = cls(cfg, dtype=dtype, device="meta", quantized=quantized)
+        model = cls(cfg, dtype=dtype, device="meta", quantized=quantized,
+                    embed_rows=state["embed.weight"].shape[0])
         model.load_state_dict(state, assign=True, strict=True)
         return model
 
@@ -278,14 +369,33 @@ class LlamaForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.weight.device
 
+    def project_cross(self, states: torch.Tensor
+                      ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Vision states ``[B, Lv, dim]`` -> each cross layer's ``(k, v)``
+        ``[B, Lv, Hkv, Dh]``, in layer order."""
+        return [self.layers[i].project_kv(states)
+                for i in self.cfg.cross_attention_layers]
+
     def forward(self, ids: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None,
+                cross: Optional[Tuple] = None) -> torch.Tensor:
+        """``cross``: an mllama model's ``(cross_kv, has_image [B],
+        cross_len [B])``, ``cross_kv`` from :meth:`project_cross`; None
+        gates every cross layer off (a text-only request)."""
         B, T = ids.shape
         if positions is None:
             positions = torch.arange(T, dtype=torch.int32,
                                      device=ids.device).expand(B, T)
         x = self.embed.weight.to(self.dtype)[ids]
+        ci = 0
         for layer in self.layers:
+            if isinstance(layer, LlamaCrossBlock):
+                if cross is not None:   # None: has_image 0, adds nothing
+                    (ck, cv), has_image, cross_len = (cross[0][ci],
+                                                      cross[1], cross[2])
+                    x = layer(x, ck, cv, has_image, cross_len)
+                ci += 1
+                continue
             x = layer(x, positions)
         x = self.final_norm(x)
         if self.lm_head is None:
@@ -316,9 +426,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig
     arrays) -> this module's state dict. Flax ``Dense`` kernels are
     ``[in, out]``; ``nn.Linear`` weights are ``[out, in]``. A quantized
     tree (``quantize_params_tree``'s ``{"kernel_q", "scale"}`` leaves)
-    gives the int8 state dict."""
-    if cfg.cross_attention_layers:
-        raise ValueError("mllama trees are not ported yet")
+    gives the int8 state dict. An mllama tree's cross layers carry
+    ``cross_attn`` (q/k/v/o and the q/k head norms) and the two tanh
+    gates in place of ``attn``."""
     p = tree["params"]
     sd: Dict[str, torch.Tensor] = {
         "embed.weight": _to_torch(p["embed"]["embedding"]),
@@ -327,9 +437,17 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig
     for i in range(cfg.n_layers):
         lp = p[f"layer_{i}"]
         pre = f"layers.{i}"
-        for group in ("attn", "mlp"):
+        cross = i in cfg.cross_attention_layers
+        for group in ("cross_attn" if cross else "attn", "mlp"):
             for name, leaf in lp[group].items():
+                if name in ("q_norm", "k_norm"):
+                    sd[f"{pre}.{group}.{name}.scale"] = _to_torch(
+                        leaf["scale"])
+                    continue
                 sd.update(_proj_from_jax(f"{pre}.{group}.{name}", leaf))
+        if cross:
+            for gate in ("gate_attn", "gate_mlp"):
+                sd[f"{pre}.{gate}"] = _to_torch(lp[gate]).reshape(1)
         sd[f"{pre}.attn_norm.scale"] = _to_torch(lp["attn_norm"]["scale"])
         sd[f"{pre}.mlp_norm.scale"] = _to_torch(lp["mlp_norm"]["scale"])
     if not cfg.tie_embeddings:
@@ -347,21 +465,40 @@ def _proj_from_jax(stem: str, leaf: Dict[str, Any]
     return {f"{stem}.weight": _to_torch(leaf["kernel"]).T.contiguous()}
 
 
-def _weight_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
-    """Every weight of the state dict with its shape; norm scales are the
-    1-D entries."""
+#: an mllama cross layer's tanh gates: 1-D like the norm scales, but
+#: zeros in a geometry tree and seeded non-zero by ``random_params``
+GATES = ("gate_attn", "gate_mlp")
+
+
+def _is_gate(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] in GATES
+
+
+def _weight_shapes(cfg: LlamaConfig, embed_rows: Optional[int] = None
+                   ) -> Dict[str, Tuple[int, ...]]:
+    """Every weight of the state dict with its shape; norm scales (and a
+    cross layer's gates) are the 1-D entries. ``embed_rows``: the
+    embedding's rows when they are not ``vocab_size`` (an HF mllama
+    checkpoint's ``embed_tokens`` holds 8 image-token rows more)."""
     D, hd = cfg.dim, cfg.head_dim
     q_out, kv_out = cfg.n_heads * hd, cfg.n_kv_heads * hd
     shapes: Dict[str, Tuple[int, ...]] = {
-        "embed.weight": (cfg.vocab_size, D), "final_norm.scale": (D,)}
+        "embed.weight": (embed_rows or cfg.vocab_size, D),
+        "final_norm.scale": (D,)}
     for i in range(cfg.n_layers):
         pre = f"layers.{i}"
+        attn = "cross_attn" if i in cfg.cross_attention_layers else "attn"
+        if attn == "cross_attn":
+            shapes.update({f"{pre}.cross_attn.q_norm.scale": (hd,),
+                           f"{pre}.cross_attn.k_norm.scale": (hd,),
+                           f"{pre}.gate_attn": (1,),
+                           f"{pre}.gate_mlp": (1,)})
         shapes.update({
             f"{pre}.attn_norm.scale": (D,), f"{pre}.mlp_norm.scale": (D,),
-            f"{pre}.attn.q.weight": (q_out, D),
-            f"{pre}.attn.k.weight": (kv_out, D),
-            f"{pre}.attn.v.weight": (kv_out, D),
-            f"{pre}.attn.o.weight": (D, q_out),
+            f"{pre}.{attn}.q.weight": (q_out, D),
+            f"{pre}.{attn}.k.weight": (kv_out, D),
+            f"{pre}.{attn}.v.weight": (kv_out, D),
+            f"{pre}.{attn}.o.weight": (D, q_out),
             f"{pre}.mlp.gate.weight": (cfg.mlp_dim, D),
             f"{pre}.mlp.up.weight": (cfg.mlp_dim, D),
             f"{pre}.mlp.down.weight": (D, cfg.mlp_dim),
@@ -379,11 +516,16 @@ def geometry_params(cfg: LlamaConfig, dtype=torch.bfloat16,
     Made on ``device`` (the card unless the caller asks for the CPU)
     directly, with no host copy. With ``quant`` every projection is BORN
     int8 (``weight_q`` zeros and f32 unit ``scale``), so an 8B tier never
-    exists in ``dtype`` first."""
+    exists in ``dtype`` first. An mllama tree's cross gates are zeros, as
+    the reference's are (``llama.py:474-475``): the image changes
+    nothing."""
     device = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     for name, shape in _weight_shapes(cfg).items():
-        if quant and _is_quant_node(name, torch.empty(shape, device="meta")):
+        if _is_gate(name):
+            out[name] = torch.zeros(shape, dtype=dtype, device=device)
+        elif quant and _is_quant_node(name, torch.empty(shape,
+                                                        device="meta")):
             stem = name[: -len(".weight")]
             out[f"{stem}.weight_q"] = torch.zeros(shape, dtype=torch.int8,
                                                   device=device)
@@ -400,12 +542,17 @@ def random_params(cfg: LlamaConfig, seed: int, std: float = 0.02,
                   ) -> Dict[str, torch.Tensor]:
     """Seeded random state dict: N(0, std) matrices, unit norm scales,
     drawn on ``device`` (the card unless the caller asks for the CPU) from
-    an explicit generator."""
+    an explicit generator. An mllama model's tanh gates are drawn from
+    U(0.5, 1.5), not left at HF's initial 0, at which the image would
+    change nothing."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     out = {}
     for name, shape in _weight_shapes(cfg).items():
-        if len(shape) == 1:
+        if _is_gate(name):
+            t = torch.empty(shape, dtype=dtype, device=device)
+            out[name] = t.uniform_(0.5, 1.5, generator=gen)
+        elif len(shape) == 1:
             out[name] = torch.ones(shape, dtype=dtype, device=device)
         else:
             t = torch.empty(shape, dtype=dtype, device=device)

@@ -34,10 +34,12 @@ import torch
 from .cuda.int8_matmul import int8_matmul, int8_matmul_reference
 
 #: state-dict names of the projections that quantize (the reference's
-#: ``_QUANT_PARENT`` in the port's names): attention q/k/v/o, MLP
-#: gate/up/down and an untied ``lm_head``; never the embedding or a norm
+#: ``_QUANT_PARENT`` in the port's names): attention q/k/v/o (an mllama
+#: cross layer's too), MLP gate/up/down and an untied ``lm_head``; never
+#: the embedding, a norm or a gate
 _QUANT_NAME = re.compile(
-    r"(^|\.)(attn\.(q|k|v|o)|mlp\.(gate|up|down)|lm_head)\.weight$")
+    r"(^|\.)((cross_)?attn\.(q|k|v|o)|mlp\.(gate|up|down)|lm_head)"
+    r"\.weight$")
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``[out, in]`` float weight -> (int8 ``[out, in]``, f32 ``[out]``

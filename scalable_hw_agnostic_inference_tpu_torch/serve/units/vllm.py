@@ -71,11 +71,28 @@ with ``x-shai-migrate-peer`` on the OpenAI routes, or an in-band
 <handle>}`` on ``/generate`` (``_resume_migrated``) re-admits the
 manifest once and returns the whole output. The drain also holds
 ``/kv/blocks`` open while a shipped run is still to be pulled
-(``_pending_pull``). Chat templates and images come in later slices.
+(``_pending_pull``). Chat templates come in a later slice.
+
+mllama (the reference's ``:234,266-271,505-524``): a checkpoint directory
+whose ``config.json`` names ``model_type: "mllama"`` boots the text tower
+with its cross layers, the tiled vision encoder and the projector
+(``models.convert.load_mllama_checkpoint``, ``models.mllama``) and an
+engine with ``cross_seq_len = max_num_tiles x (patches + 1)``; the vision
+front-end encodes one image before readiness, beside the engine's warmup.
+A ``/generate`` carrying ``image_b64`` (base64 PNG bytes, or ``"random"``:
+the reference's seeded 560 x 560 image) is decoded without PIL
+(``models.imageio``), tiled, encoded into ``(cross_states, n_tiles x
+(patches + 1))`` and submitted with the prompt; a JPEG, a 16-bit or an
+interlaced PNG, or bytes that are no image answer 400 with a message
+naming what was sent, as does an image sent to a text model. A text-only
+request through an mllama pod is served with its cross layers gated off.
+The soft-prefix VLM (the reference's ``:246-266``) is not ported.
 """
 
 from __future__ import annotations
 
+import base64
+import binascii
 import itertools
 import json
 import logging
@@ -86,6 +103,7 @@ import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ...core.device import resolve_device
@@ -96,7 +114,13 @@ from ...kvnet import migrate as migmod
 from ...kvnet import resolve_role
 from ...kvtier.affinity import AffinityTracker, prompt_affinity
 from ...models.generate import ByteTokenizer
-from ...models.convert import load_hf_checkpoint
+from ...models import mllama as mllama_mod
+from ...models.convert import (
+    is_mllama_dir,
+    load_hf_checkpoint,
+    load_mllama_checkpoint,
+)
+from ...models.imageio import ImageError, decode_image
 from ...models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -174,6 +198,12 @@ class VllmService(ModelService):
         # KV fabric: affinity digest -> chain head of the served prompts
         self._aff_lock = threading.Lock()
         self._aff_heads: "OrderedDict[str, int]" = OrderedDict()
+        # mllama: (vision config, encode(img) -> (states, n_valid), Lv),
+        # None for a text model; one image encodes at a time
+        self._mllama = None
+        self._vision_lock = threading.Lock()
+        #: seconds the vision front-end took to encode its warm image
+        self.vision_warm_seconds = 0.0
 
     @staticmethod
     def _resolve_ecfg(cfg: ServeConfig) -> EngineConfig:
@@ -235,7 +265,14 @@ class VllmService(ModelService):
             # a local checkpoint: bf16 (then int8) weights one tensor at a
             # time onto the device, the tokenizer from its tokenizer.json
             t0 = time.monotonic()
-            mcfg, state = load_hf_checkpoint(model_id, device, quantize=quant)
+            if is_mllama_dir(model_id):
+                mcfg, state, vcfg, vstate, meta = load_mllama_checkpoint(
+                    model_id, device, quantize=quant)
+                self._mllama = self._vision_front_end(vcfg, mcfg.dim,
+                                                      vstate, meta)
+            else:
+                mcfg, state = load_hf_checkpoint(model_id, device,
+                                                 quantize=quant)
             self.load_seconds = time.monotonic() - t0
             self.tokenizer = BpeTokenizer.from_dir(model_id)
             if self.tokenizer.eos_token_id is None:
@@ -270,7 +307,19 @@ class VllmService(ModelService):
                 state = quantize_state_dict(state)
         self.ecfg = ecfg
         model = LlamaForCausalLM.from_state_dict(mcfg, state)
-        engine = LLMEngine(mcfg, model, ecfg, device=device)
+        engine = LLMEngine(
+            mcfg, model, ecfg, device=device,
+            cross_seq_len=self._mllama[2] if self._mllama else 0)
+        if self._mllama is not None:
+            # the vision front-end is in the closed set too: one image
+            # encoded before readiness (the reference's gray image)
+            t0 = time.monotonic()
+            vcfg = self._mllama[0]
+            self._mllama[1](np.full((vcfg.image_size, vcfg.image_size, 3),
+                                    127, np.uint8))
+            if device.type == "cuda":   # the encode's work, not its launch
+                torch.cuda.synchronize(device)
+            self.vision_warm_seconds = time.monotonic() - t0
         # build the CLOSED executable set (every prefill bucket and batch
         # size, the continuation keys, every decode key captured as a CUDA
         # graph) BEFORE the engine loop starts serving, so no request
@@ -302,6 +351,45 @@ class VllmService(ModelService):
             lambda: engine.obs, lambda: engine.has_work,
             multiplier=env_float("SHAI_WATCHDOG_MULT", 30.0),
             min_stall_s=env_float("SHAI_WATCHDOG_MIN_S", 10.0))
+
+    def _vision_front_end(self, vcfg, text_dim: int, vstate, meta):
+        """``(vision config, encode, Lv)`` of an mllama checkpoint:
+        ``encode(img [H, W, 3] uint8) -> (cross_states [Lv, dim] f32 on
+        the device, n_valid)`` through the tiled vision model and the
+        projector in bf16 (the reference's ``causal_lm.py:170-195``)."""
+        vision, projector = mllama_mod.build_vision(vcfg, text_dim, vstate,
+                                                    dtype=torch.bfloat16)
+        supported = meta["supported_aspect_ratios"]
+        mean, std = meta["image_mean"], meta["image_std"]
+
+        def encode(img):
+            with self._vision_lock:
+                return mllama_mod.encode_image(vision, projector, img,
+                                               supported, mean, std)
+
+        return vcfg, encode, vcfg.cross_seq_len
+
+    def _image_states(self, b64):
+        """A request's ``image_b64`` -> ``(cross_states, cross_len)``;
+        400 for an image this deployment or this decoder does not take."""
+        if self._mllama is None:
+            raise HTTPError(400, "this deployment's model has no vision "
+                                 "tower; multimodal requests need an "
+                                 "mllama checkpoint")
+        vcfg, encode, _ = self._mllama
+        if b64 == "random":   # the benchmark and warm contract
+            img = mllama_mod.random_image(vcfg)
+        else:
+            try:
+                data = base64.b64decode(str(b64), validate=True)
+            except (binascii.Error, ValueError) as e:
+                raise HTTPError(400, f"bad image_b64: not base64 ({e})")
+            try:
+                img = decode_image(data)
+            except ImageError as e:
+                raise HTTPError(400, f"bad image_b64: {e}")
+        with obs_trace.span("vision_encode"):
+            return encode(img)
 
     def close(self) -> None:
         if self.loop is not None:
@@ -464,9 +552,6 @@ class VllmService(ModelService):
             return self._resume_migrated(str(payload["resume"]))
         if "prompt" not in payload and "text" not in payload:
             raise HTTPError(400, "missing 'prompt'")
-        if payload.get("image_b64"):
-            raise HTTPError(400, "multimodal requests are not served by this "
-                                 "port yet")
         prompt = str(payload.get("prompt", payload.get("text", "")))
         ids = self._encode(prompt)
         params = self._sampling_from(payload)
@@ -483,6 +568,10 @@ class VllmService(ModelService):
                                payload.get("kv_hashes_len"), ids,
                                prompt=prompt,
                                digest=str(payload.get("kv_digest") or ""))
+        cross = {}
+        if payload.get("image_b64"):
+            states, n_valid = self._image_states(payload["image_b64"])
+            cross = {"cross_states": states, "cross_len": n_valid}
         # the KV fabric: a holder slice riding the payload is a hint the
         # engine's probe tries under its budget; bounded and stringified
         # here, each URL checked by the transport's allowlist
@@ -493,7 +582,7 @@ class VllmService(ModelService):
             ids, params, deadline_at=self._deadline_at(),
             traceparent=obs_trace.current_traceparent() or "",
             idem_key=str(payload.get("idem_key") or ""),
-            kv_holders=kv_holders, **self._qos_kw()))
+            kv_holders=kv_holders, **cross, **self._qos_kw()))
         if self._engine.cache.prefix_caching:
             # advertise warmth only for /generate, after it served
             self._note_affinity(prompt, ids)

@@ -183,6 +183,37 @@ def test_replay_checks_the_pool_addresses(fake_cuda):
         g.replay()
 
 
+def test_replay_checks_the_cross_buffers(fake_cuda):
+    """An mllama engine's graph holds the per-slot cross buffers and the
+    cross tail's static inputs (padding rows: slot 0, gate 0, every state
+    live), passes them to the step, and refuses to replay once a buffer
+    was reallocated after capture."""
+    kv = _pool_kv()
+    cross = [{"k": torch.zeros(3, 7, 1, 16), "v": torch.zeros(3, 7, 1, 16)}]
+    seen = []
+    inner = _stand_in_decode((300, 8), [])
+
+    def decode(*args, cross=None):
+        seen.append(cross)
+        return inner(*args)
+
+    fake_cuda.reserve([(300, 8)])
+    g = DecodeGraph((M, B), decode, None, kv, B, M, V, device="cpu",
+                    pool=fake_cuda, cross_kv=cross, cross_text_len=7)
+    assert g.inputs["slot_idx"].tolist() == [0] * B
+    assert g.inputs["has_image"].tolist() == [0.0] * B
+    assert g.inputs["cross_len"].tolist() == [7] * B
+    g.capture()
+    g.replay()
+    bufs, has_image, slot_idx, cross_len = seen[-1]
+    assert bufs is cross and has_image is g.inputs["has_image"]
+    assert slot_idx is g.inputs["slot_idx"]
+    assert cross_len is g.inputs["cross_len"]
+    cross[0]["k"] = torch.zeros(3, 7, 1, 16)  # reallocated after capture
+    with pytest.raises(RuntimeError, match="cross buffers moved"):
+        g.replay()
+
+
 def test_cpu_graph_runs_the_decode_eagerly():
     """No capture on the CPU: each replay is one eager call of the
     feedback decode on the static inputs, equal to ``make_decode`` on the

@@ -6,7 +6,7 @@ package, and it runs on the card unless it is asked for the CPU.
   ``scalable_hw_agnostic_inference_tpu``, or of a package the machine with
   the card lacks (``transformers``, ``safetensors``, ``tokenizers``,
   ``tiktoken``, ``regex``, ``jinja2``, ``sentencepiece``, ``ml_dtypes``,
-  ``httpx``);
+  ``httpx``, ``PIL``);
 - ``engine/speculative.py`` imports numpy and the standard library alone;
 - a fresh interpreter that imports every port module holds no more
   ``jax*``/``flax*`` modules than a bare interpreter does (an interpreter
@@ -41,7 +41,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "prometheus_client",
              "ml_dtypes",
              # nor is httpx: the kvnet pull, the migration ship and the
              # fleet lookup speak HTTP through the standard library
-             "httpx")
+             "httpx",
+             # nor is PIL: the mllama unit decodes PNG and resizes with
+             # models/imageio.py
+             "PIL")
 
 
 def _modules():
@@ -177,9 +180,18 @@ def _builders():
         PagedKVCache,
     )
     from scalable_hw_agnostic_inference_tpu_torch.models import llama
+    from scalable_hw_agnostic_inference_tpu_torch.models import mllama
 
     cfg = llama.LlamaConfig.tiny()
+    mcfg = llama.LlamaConfig(**{**llama.LlamaConfig.tiny().__dict__,
+                                "cross_attention_layers": (1,)})
+    vcfg = mllama.MllamaVisionConfig.tiny()
     return {
+        "mllama_text": lambda **kw: llama.random_params(mcfg, 0, **kw),
+        "MllamaVisionModel": lambda **kw: mllama.MllamaVisionModel(vcfg,
+                                                                   **kw),
+        "random_vision_params": lambda **kw: mllama.random_vision_params(
+            vcfg, cfg.dim, 0, **kw),
         "LlamaForCausalLM": lambda **kw: llama.LlamaForCausalLM(cfg, **kw),
         "geometry_params": lambda **kw: llama.geometry_params(cfg, **kw),
         "geometry_params_int8": lambda **kw: llama.geometry_params(
@@ -204,7 +216,9 @@ def _tensors(built):
 @pytest.mark.parametrize("name", ["LlamaForCausalLM", "geometry_params",
                                   "random_params", "PagedKVCache",
                                   "geometry_params_int8",
-                                  "LlamaForCausalLM_int8"])
+                                  "LlamaForCausalLM_int8", "mllama_text",
+                                  "MllamaVisionModel",
+                                  "random_vision_params"])
 def test_model_weights_and_cache_default_to_the_card(no_cuda, name):
     """With no device given, the model, its weight builders and the KV
     cache go to the card, and raise without one, as the engine and the
