@@ -287,9 +287,9 @@ from pathlib import Path
 PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
           "decode_graph", "engine", "engine_ragged", "engine_fused",
           "engine_spec", "engine_int8", "checkpoint", "engine_prefix",
-          "engine_mllama", "serve_disagg", "serve_fleet", "serve",
-          "serve_int8", "serve_ragged", "serve_fused", "serve_spec",
-          "serve_mllama", "serve_ops")
+          "engine_mllama", "engine_llava", "serve_disagg", "serve_fleet",
+          "serve", "serve_int8", "serve_ragged", "serve_fused",
+          "serve_spec", "serve_mllama", "serve_llava", "serve_ops")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core FLOP/s
@@ -372,6 +372,20 @@ MLLAMA_FLASH = [
 ]
 # the engine phases' prompts: 1300 tokens chunk 512 + 512 + 276 under the
 # (128, 512) buckets; the engine phase also keeps slice 1's 120
+#: B1 at the soft-prefix VLM's shapes (B, T, S, H, Hkv, D, lengths,
+#: causal, timed): LLaVA-1.5-7B's CLIP tower (577 tokens, 16 heads of 64,
+#: non-causal, no lengths) and its prefix prefill (the 2048 bucket, 32
+#: heads over 32, causal, the 576 image tokens and 300 of text); then MHA
+#: cases just past a tile, non-causal with and without lengths
+LLAVA_FLASH = [
+    (1, 577, 577, 16, 16, 64, None, False, True),
+    (1, 2048, 2048, 32, 32, 128, [876], True, True),
+    (2, 577, 577, 16, 16, 64, [577, 300], False, False),
+    (2, 65, 65, 8, 8, 64, None, False, False),
+    (2, 129, 129, 4, 4, 128, [129, 70], False, False),
+    (2, 130, 130, 16, 16, 64, [130, 65], True, False),
+    (1, 193, 257, 8, 8, 128, [257], True, False),
+]
 ENGINE_PROMPTS = (5, 37, 300, 1300)
 SERVE_REQUESTS = 8
 # serve_ragged's engine ConfigMap: the 8B counterpart of
@@ -609,48 +623,21 @@ def phase_flash(ctx):
     worst = 0.0
     rows = []
     for B, T, S, D, lengths, causal, timed in cases:
-        q, k, v, lens = _flash_case(torch, gen, B, T, S, H, Hkv, D, lengths,
-                                    causal)
-        out = fa.flash_attention(q, k, v, causal=causal, lengths=lens)
-        f32 = (q.float(), k.float(), v.float())
-        ref = fa.flash_attention_reference(*f32, causal=causal, lengths=lens)
-        dropped = None if lens is None else fa.flash_attention_reference(
-            *f32, causal=causal, lengths=_cut(lens))
-        torch.cuda.synchronize()
-        shape = (f"B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} causal={causal} "
-                 f"lengths={lengths}")
-        err, share, d_share = _check_close(f"flash_attention {shape}", out,
-                                           ref, dropped)
-        del f32, ref, dropped
-        worst = max(worst, err)
-        line = {"shape": shape, "max_abs_err": err, "tol_share": share,
-                "dropped_keys_tol_share": d_share}
-        if timed:
-            ms = timer(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                                  lengths=lens))
-            plain = timer(lambda: fa.flash_attention_reference(
-                q, k, v, causal=causal, lengths=lens), reps=5)
-            # yardstick only: SDPA with the equivalent boolean mask, K/V
-            # expanded to the query heads outside the timed call
-            qt = q.transpose(1, 2).contiguous()
-            kt = k.repeat_interleave(H // Hkv, 2).transpose(1, 2).contiguous()
-            vt = v.repeat_interleave(H // Hkv, 2).transpose(1, 2).contiguous()
-            kpos = torch.arange(S, device="cuda")
-            mask = (kpos[None, :] < lens.long()[:, None])[:, None, None, :]
-            if causal:
-                qpos = torch.arange(T, device="cuda") + (S - T)
-                mask = mask & (qpos[:, None] >= kpos[None, :])[None, None]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask))
-            del qt, kt, vt, mask
-            host = timer.host(lambda: fa.flash_attention(
-                q, k, v, causal=causal, lengths=lens))
-            n_bytes, flops = _flash_work(B, T, S, H, Hkv, D, lengths, causal)
-            bms, by = bound_ms(n_bytes, flops)
-            line.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                        library_ms=lib, host_ms=host)
+        line = _flash_row(ctx, torch, gen, fa, B, T, S, H, Hkv, D, lengths,
+                          causal, timed)
+        worst = max(worst, line["max_abs_err"])
         rows.append(line)
-        log("flash_attention: " + json.dumps(line))
+    # the soft-prefix VLM's shapes: the CLIP tower (MHA at D=64, 577 keys,
+    # non-causal, no lengths) and the prefix prefill (MHA, causal); then
+    # small MHA cases, T and S just past a tile, non-causal with and
+    # without lengths
+    llava = []
+    for B, T, S, H_, Hkv_, D, lengths, causal, timed in LLAVA_FLASH:
+        line = _flash_row(ctx, torch, gen, fa, B, T, S, H_, Hkv_, D, lengths,
+                          causal, timed)
+        worst = max(worst, line["max_abs_err"])
+        if timed:
+            llava.append(line)
     for D_, B, T, S, H_, Hkv_, lengths, causal in small:
         q, k, v, lens = _flash_case(torch, gen, B, T, S, H_, Hkv_, D_,
                                     lengths, causal)
@@ -671,6 +658,59 @@ def phase_flash(ctx):
     ctx["flash"] = dict(rows[1], max_abs_err=worst)
     # mllama's cross shapes (non-causal over the vision states)
     ctx["flash_cross"] = rows[-len(MLLAMA_FLASH):]
+    ctx["flash_llava"] = llava
+
+
+def _flash_row(ctx, torch, gen, fa, B, T, S, H, Hkv, D, lengths, causal,
+               timed):
+    """One B1 case held against its plain version; a timed case also its
+    ms beside the plain version's, SDPA's and its bound."""
+    timer = ctx["timer"]
+    q, k, v, lens = _flash_case(torch, gen, B, T, S, H, Hkv, D, lengths,
+                                causal)
+    out = fa.flash_attention(q, k, v, causal=causal, lengths=lens)
+    f32 = (q.float(), k.float(), v.float())
+    ref = fa.flash_attention_reference(*f32, causal=causal, lengths=lens)
+    dropped = None if lens is None else fa.flash_attention_reference(
+        *f32, causal=causal, lengths=_cut(lens))
+    torch.cuda.synchronize()
+    shape = (f"B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} causal={causal} "
+             f"lengths={lengths}")
+    err, share, d_share = _check_close(f"flash_attention {shape}", out,
+                                       ref, dropped)
+    del f32, ref, dropped
+    line = {"shape": shape, "max_abs_err": err, "tol_share": share,
+            "dropped_keys_tol_share": d_share}
+    if timed:
+        ms = timer(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                              lengths=lens))
+        plain = timer(lambda: fa.flash_attention_reference(
+            q, k, v, causal=causal, lengths=lens), reps=5)
+        # yardstick only: SDPA with the equivalent boolean mask (none for
+        # a non-causal call without lengths), K/V expanded to the query
+        # heads outside the timed call
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(H // Hkv, 2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(H // Hkv, 2).transpose(1, 2).contiguous()
+        kpos = torch.arange(S, device="cuda")
+        mask = None
+        if lens is not None:
+            mask = (kpos[None, :] < lens.long()[:, None])[:, None, None, :]
+        if causal:
+            qpos = torch.arange(T, device="cuda") + (S - T)
+            cm = (qpos[:, None] >= kpos[None, :])[None, None]
+            mask = cm if mask is None else mask & cm
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+        del qt, kt, vt, mask
+        host = timer.host(lambda: fa.flash_attention(
+            q, k, v, causal=causal, lengths=lens))
+        n_bytes, flops = _flash_work(B, T, S, H, Hkv, D, lengths, causal)
+        bms, by = bound_ms(n_bytes, flops)
+        line.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                    library_ms=lib, host_ms=host)
+    log("flash_attention: " + json.dumps(line))
+    return line
 
 
 def _paged_case(torch, gen, B, H, Hkv, D, bs, N, M, lengths):
@@ -763,23 +803,28 @@ def phase_paged(ctx):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     timer = ctx["timer"]
-    H, Hkv, D, bs, N = 32, 8, 128, 16, 1024
-    # (label, B, M, lengths, timed): decode shapes, a pool of N shuffled
-    # blocks, lengths from 1 to 2048 (= M * bs); one truncated context
-    # bucket; serve's decode step (its 8 prompts of 24 to 297 bytes, 8
-    # tokens into decode, in its 32-block bucket)
+    D, bs, N = 128, 16, 1024
+    long = [1, 17, 255, 512, 1000, 1500, 2047, 2048]
+    # (label, B, H, Hkv, M, lengths, timed): decode shapes, a pool of N
+    # shuffled blocks, lengths from 1 to 2048 (= M * bs); one truncated
+    # context bucket; serve's decode step (its 8 prompts of 24 to 297
+    # bytes, 8 tokens into decode, in its 32-block bucket); LLaVA-1.5-7B's
+    # decode step, 32 heads over 32 (a group of one)
     cases = [
-        ("B=1 M=128", 1, 128, [2048], True),
-        ("B=8 M=128", 8, 128, [1, 17, 255, 512, 1000, 1500, 2047, 2048],
-         True),
-        ("B=8 M=64", 8, 64, [1, 16, 33, 300, 512, 777, 1000, 1024], False),
-        ("serve B=8 M=32", 8, 32, [32, 71, 110, 149, 188, 227, 266, 305],
-         True),
+        ("B=1 M=128", 1, 32, 8, 128, [2048], True),
+        ("B=8 M=128", 8, 32, 8, 128, long, True),
+        ("B=8 M=64", 8, 32, 8, 64, [1, 16, 33, 300, 512, 777, 1000, 1024],
+         False),
+        ("serve B=8 M=32", 8, 32, 8, 32,
+         [32, 71, 110, 149, 188, 227, 266, 305], True),
+        ("MHA B=8 M=128", 8, 32, 32, 128, long, True),
     ]
     # (D, B, H, Hkv, M, bs, lengths): other head dims, block sizes 8 and
-    # 24, groups of 32 heads (two m16 tiles), each but two with a
-    # length-0 row
+    # 24, groups of 32 heads (two m16 tiles), groups of one (MHA, the
+    # soft-prefix VLM's Llama-2), each but two with a length-0 row
     small = [(64, 4, 4, 1, 32, 16, [1, 40, 0, 511]),
+             (128, 3, 32, 32, 16, 16, [0, 77, 256]),
+             (64, 2, 16, 16, 8, 24, [5, 190]),
              (192, 2, 8, 2, 8, 16, [70, 3]),
              (256, 2, 16, 2, 8, 16, [5, 128]),
              (128, 3, 32, 8, 16, 8, [0, 100, 128]),
@@ -788,7 +833,7 @@ def phase_paged(ctx):
              (256, 2, 32, 1, 8, 16, [0, 128])]
     worst = 0.0
     rows = {}
-    for label, B, M, lengths, timed in cases:
+    for label, B, H, Hkv, M, lengths, timed in cases:
         q, kp, vp, tables, lens = _paged_case(torch, gen, B, H, Hkv, D, bs,
                                               N, M, lengths)
         out = pa.paged_decode_attention(q, kp, vp, tables, lens)
@@ -845,6 +890,7 @@ def phase_paged(ctx):
                                        False)
     # the summary row: the batch-8 decode step over a 128-block bucket
     ctx["paged"] = dict(rows["B=8 M=128"], max_abs_err=worst)
+    ctx["paged_mha"] = rows["MHA B=8 M=128"]
 
 
 def _check_b2_is_b3(torch, pa, rpa, q, kp, vp, tables, lens):
@@ -1903,7 +1949,7 @@ def _generate(ctx, prompts, switches, all_lp=False,
     return fins, counts, seconds, conts, eng.cache.leaked_blocks, info
 
 
-def _score(model, prompts, fins, crosses=None):
+def _score(model, prompts, fins, crosses=None, prefixes=None):
     """Score each run's tokens with the full-sequence scoring forward,
     through B1 and through B1's plain version: ``{"b1": (argmax hits,
     worst logit deficit), "plain": (hits, worst), "tokens": n, "eps":
@@ -1912,25 +1958,30 @@ def _score(model, prompts, fins, crosses=None):
     logprob from the plain forward's log-softmax at its token, and s the
     same distance one position off (what a misaligned readout would
     show). ``crosses``: an mllama model's per-request ``(states [Lv, dim],
-    cross_len)``, or None for a text-only request."""
+    cross_len)``, or None for a text-only request; ``prefixes``: a
+    soft-prefix model's per-request ``[P, dim]`` image tokens (scored over
+    ``[prefix; prompt; tokens]``), or None."""
     import torch
 
     score = {"b1": (0, 0.0), "plain": (0, 0.0), "tokens": 0, "eps": 0.0,
              "lp_err": 0.0, "lp_err_shifted": 0.0}
     crosses = crosses or [None] * len(prompts)
+    prefixes = prefixes or [None] * len(prompts)
     # an int8 model scores through its projections' plain route
     with torch.inference_mode(), _plain_int8():
-        for p, f, cr in zip(prompts, fins, crosses):
+        for p, f, cr, pre in zip(prompts, fins, crosses, prefixes):
             ids = torch.tensor([p + f.token_ids], device="cuda")
             cross = None
             if cr is not None:
                 cross = (model.project_cross(cr[0][None]),
                          torch.ones(1, device="cuda"),
                          torch.tensor([cr[1]], device="cuda"))
+            kw = {} if pre is None else {"prefix": pre[None]}
+            start = len(p) - 1 + (0 if pre is None else pre.shape[0])
             # each token's logits
-            logits = model(ids, cross=cross)[0, len(p) - 1: -1].float()
+            logits = model(ids, cross=cross, **kw)[0, start: -1].float()
             with _plain_attention():
-                plain = model(ids, cross=cross)[0, len(p) - 1: -1].float()
+                plain = model(ids, cross=cross, **kw)[0, start: -1].float()
             if not bool(torch.isfinite(logits).all()):
                 raise AssertionError("non-finite scoring logits")
             score["eps"] = max(score["eps"],
@@ -5371,6 +5422,303 @@ def _png_bytes(img, filters=(0, 1, 2, 3, 4)) -> bytes:
             + chunk(b"IEND", b""))
 
 
+#: JPEG's zigzag order: zigzag index -> natural (row-major) index
+JPEG_ZIGZAG = (
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+
+#: the ITU T.81 Annex K example quantization tables (row-major)
+JPEG_QT_LUMA = (16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60,
+                55, 14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87,
+                80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64,
+                81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72,
+                92, 95, 98, 112, 100, 103, 99)
+JPEG_QT_CHROMA = (17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99,
+                  99, 24, 26, 56, 99, 99, 99, 99, 99, 47, 66) + (99,) * 38
+
+#: sampling name -> each component's (h, v) factors
+JPEG_SAMPLING = {"4:4:4": ((1, 1), (1, 1), (1, 1)),
+                 "4:2:2": ((2, 1), (1, 1), (1, 1)),
+                 "4:2:0": ((2, 2), (1, 1), (1, 1)),
+                 "4:4:0": ((1, 2), (1, 1), (1, 1)),
+                 "gray": ((1, 1),)}
+
+
+def _jpeg_bytes(img, sampling="4:2:0", quality=90, progressive=False,
+                restart=0, extended=False) -> bytes:
+    """A JFIF JPEG of ``img`` (``[H, W, 3]`` uint8; ``"gray"`` takes its
+    first channel), written here with numpy: YCbCr, each chroma plane
+    averaged down to its ``sampling`` factors, the float DCT, the Annex K
+    tables scaled to ``quality`` as libjpeg scales them (``extended``:
+    16-bit tables past 255, an SOF1 frame), Huffman tables of one length
+    (4 bits for the 12 DC categories, 9 for the AC symbols). Baseline:
+    one interleaved scan; ``progressive`` (SOF2): an interleaved DC scan,
+    then spectral bands per component (luma 1-5 and 6-63, chroma 1-63),
+    each band ended by an EOB of one block. ``restart``: a restart marker
+    every ``restart`` MCUs of every scan."""
+    import math
+    import struct
+
+    import numpy as np
+
+    facs = JPEG_SAMPLING[sampling]
+    h, w = img.shape[:2]
+    px = img.astype(np.float64)
+    if sampling == "gray":
+        planes = [px[..., 0]]
+    else:
+        r, g, b = px[..., 0], px[..., 1], px[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+    hmax = max(f[0] for f in facs)
+    vmax = max(f[1] for f in facs)
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    scale = 5000 / quality if quality < 50 else 200 - 2 * quality
+    cap = 32767 if extended else 255
+    qts = [np.clip((np.asarray(t) * scale + 50) // 100, 1, cap).astype(
+        np.int64) for t in (JPEG_QT_LUMA, JPEG_QT_CHROMA)]
+    u = np.arange(8)
+    dct = np.cos((2 * u[None, :] + 1) * u[:, None] * math.pi / 16) / 2
+    dct[0] /= math.sqrt(2)
+    zz = np.asarray(JPEG_ZIGZAG)
+    comps = []
+    for ci, (plane, (fh, fv)) in enumerate(zip(planes, facs)):
+        full = np.pad(plane, ((0, mcuy * 8 * vmax - h),
+                              (0, mcux * 8 * hmax - w)), mode="edge")
+        sy, sx = vmax // fv, hmax // fh
+        small = full.reshape(full.shape[0] // sy, sy, full.shape[1] // sx,
+                             sx).mean(axis=(1, 3))
+        bh, bw = small.shape[0] // 8, small.shape[1] // 8
+        blocks = small.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3) - 128
+        coef = np.einsum("uy,abyx,vx->abuv", dct, blocks, dct)
+        qt = qts[0 if ci == 0 else 1]
+        q = np.round(coef.reshape(bh, bw, 64) / qt).astype(np.int64)
+        comps.append({"id": ci + 1, "h": fh, "v": fv, "tq": min(ci, 1),
+                      "bw": bw, "zz": q[:, :, zz].tolist(),
+                      "cw": -(-w * fh // hmax), "ch": -(-h * fv // vmax)})
+
+    out = bytearray(b"\xff\xd8")
+
+    def seg(marker, body):
+        out.extend(struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body)
+
+    seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for i, qt in enumerate(qts[:1 if sampling == "gray" else 2]):
+        vals = qt[zz]
+        if int(vals.max()) > 255:
+            seg(0xDB, bytes([0x10 | i]) + vals.astype(">u2").tobytes())
+        else:
+            seg(0xDB, bytes([i]) + vals.astype(np.uint8).tobytes())
+    sof = 0xC2 if progressive else 0xC1 if extended else 0xC0
+    seg(sof, struct.pack(">BHHB", 8, h, w, len(comps)) + b"".join(
+        bytes([c["id"], c["h"] << 4 | c["v"], c["tq"]]) for c in comps))
+    # one code length a table: DC categories 0-11 at 4 bits, AC symbols
+    # 0-254 at 9 (symbol v is code v) and 255, never used, at 10
+    dc_counts = [0] * 16
+    dc_counts[3] = 12
+    ac_counts = [0] * 16
+    ac_counts[8] = 255
+    ac_counts[9] = 1
+    for t in range(1 if sampling == "gray" else 2):
+        seg(0xC4, bytes([t]) + bytes(dc_counts) + bytes(range(12)))
+        seg(0xC4, bytes([0x10 | t]) + bytes(ac_counts) + bytes(range(256)))
+    if restart:
+        seg(0xDD, struct.pack(">H", restart))
+
+    class Bits:
+        def __init__(self):
+            self.acc = self.n = 0
+
+        def put(self, code, length):
+            self.acc = (self.acc << length) | code
+            self.n += length
+            while self.n >= 8:
+                self.n -= 8
+                byte = (self.acc >> self.n) & 0xFF
+                out.append(byte)
+                if byte == 0xFF:
+                    out.append(0)
+            self.acc &= (1 << self.n) - 1
+
+        def value(self, v):
+            s = abs(v).bit_length()
+            if s:
+                self.put(v if v > 0 else v + (1 << s) - 1, s)
+            return s
+
+        def align(self):
+            if self.n:
+                self.put((1 << (8 - self.n)) - 1, 8 - self.n)
+
+    def scan(members, ss, se, units, code_unit):
+        out.extend(struct.pack(">BBHB", 0xFF, 0xDA, 6 + 2 * len(members),
+                               len(members)))
+        for c in members:
+            out.extend(bytes([c["id"], c["tq"] << 4 | c["tq"]]))
+        out.extend(bytes([ss, se, 0]))
+        bits = Bits()
+        pred = {c["id"]: 0 for c in members}
+        for k, unit in enumerate(units):
+            if restart and k and k % restart == 0:
+                bits.align()
+                out.extend(bytes([0xFF, 0xD0 + (k // restart - 1) % 8]))
+                pred = {c["id"]: 0 for c in members}
+            for c, by, bx in unit:
+                code_unit(bits, c, c["zz"][by][bx], pred)
+        bits.align()
+
+    def code_dc(bits, c, z, pred):
+        diff = z[0] - pred[c["id"]]
+        pred[c["id"]] = z[0]
+        bits.put(abs(diff).bit_length(), 4)
+        bits.value(diff)
+
+    def code_ac(ss, se):
+        def code(bits, c, z, pred):
+            run = 0
+            for k in range(ss, se + 1):
+                v = z[k]
+                if not v:
+                    run += 1
+                    continue
+                while run > 15:
+                    bits.put(0xF0, 9)
+                    run -= 16
+                bits.put(run << 4 | abs(v).bit_length(), 9)
+                bits.value(v)
+                run = 0
+            if run:
+                bits.put(0x00, 9)      # EOB (EOB0: a run of one block)
+        return code
+
+    def interleaved(members):
+        units = []
+        for my in range(mcuy):
+            for mx in range(mcux):
+                units.append([(c, my * c["v"] + y, mx * c["h"] + x)
+                              for c in members for y in range(c["v"])
+                              for x in range(c["h"])])
+        return units
+
+    def single(c):
+        return [[(c, y, x)] for y in range(-(-c["ch"] // 8))
+                for x in range(-(-c["cw"] // 8))]
+
+    # a scan of one component is non-interleaved: its own blocks, in order
+    units_all = single(comps[0]) if len(comps) == 1 else interleaved(comps)
+    if not progressive:
+        def code_block(bits, c, z, pred):
+            code_dc(bits, c, z, pred)
+            code_ac(1, 63)(bits, c, z, pred)
+        scan(comps, 0, 63, units_all, code_block)
+    else:
+        scan(comps, 0, 0, units_all, code_dc)
+        for c in comps:
+            bands = ((1, 5), (6, 63)) if c["id"] == 1 else ((1, 63),)
+            for ss, se in bands:
+                scan([c], ss, se, single(c), code_ac(ss, se))
+    out.extend(b"\xff\xd9")
+    return bytes(out)
+
+
+def _cmyk_jpeg() -> bytes:
+    """The headers of a 4-component (CMYK) baseline JPEG, which the port
+    answers with a 400 naming it."""
+    import struct
+
+    sof = struct.pack(">BHHB", 8, 8, 8, 4) + b"".join(
+        bytes([i + 1, 0x11, 0]) for i in range(4))
+    return (b"\xff\xd8" + b"\xff\xee" + struct.pack(">H", 14)
+            + b"Adobe\x00\x64\x00\x00\x00\x00\x02"
+            + b"\xff\xc0" + struct.pack(">H", len(sof) + 2) + sof
+            + b"\xff\xd9")
+
+
+def _sp_tokenizer_spec(vocab_size: int = 32000, n_added: int = 2):
+    """A SentencePiece-style BPE ``tokenizer.json`` (dict) of Llama-2's
+    layout and size, built here from a seed: ``<unk>``, ``<s>``, ``</s>``,
+    the 256 ``<0xXX>`` byte tokens, the printable ASCII characters and
+    "▁", then merged pieces up to ``vocab_size`` (each a shorter piece and
+    one character, ranked shortest first), the legacy normalizer
+    ``Prepend("▁"), Replace(" ", "▁")``, byte fallback, the decoder
+    ``Replace, ByteFallback, Fuse, Strip(1, 0)``, BOS through the
+    template; LLaVA's added ``<image>`` and ``<pad>`` after the vocabulary
+    (``n_added``)."""
+    import random
+
+    sp = "▁"
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    alphabet = [sp] + [chr(c) for c in range(33, 127)]
+    for ch in alphabet:
+        vocab[ch] = len(vocab)
+    rng = random.Random(11)
+    letters = [sp] + list("etaoinshrdlcumwfgypbvkjxqz")
+    merges = []
+    frontier = list(letters)
+    while len(vocab) < vocab_size:
+        grown = []
+        for piece in frontier:
+            for ch in rng.sample(letters, 8):
+                new = piece + ch
+                if new not in vocab and len(vocab) < vocab_size:
+                    vocab[new] = len(vocab)
+                    merges.append(f"{piece} {ch}")
+                    grown.append(new)
+        frontier = grown or list(letters)
+    tok = {"content": "", "single_word": False, "lstrip": False,
+           "rstrip": False, "normalized": False, "special": True}
+    added = [dict(tok, id=i, content=c) for c, i in (
+        ("<unk>", 0), ("<s>", 1), ("</s>", 2))]
+    added += [dict(tok, id=vocab_size + i, content=c) for i, c in enumerate(
+        ("<image>", "<pad>")[:n_added])]
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": sp},
+            {"type": "Replace", "pattern": {"String": " "},
+             "content": sp}]},
+        "pre_tokenizer": None,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "<s>", "type_id": 1}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<s>": {"id": "<s>", "ids": [1],
+                                       "tokens": ["<s>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": sp}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True,
+                  "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges}}
+
+
+def _write_sp_tokenizer(path) -> None:
+    """LLaVA-1.5's tokenizer files, seeded (``_sp_tokenizer_spec``):
+    ``tokenizer.json`` and a ``LlamaTokenizerFast`` config."""
+    path = Path(path)
+    (path / "tokenizer.json").write_text(json.dumps(_sp_tokenizer_spec(),
+                                                    ensure_ascii=False))
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "LlamaTokenizerFast", "bos_token": "<s>",
+        "eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>",
+        "add_bos_token": True, "add_eos_token": False, "legacy": False,
+        "clean_up_tokenization_spaces": False, "padding_side": "left",
+        "model_max_length": 4096}))
+
+
 #: photo sizes the image front-end is timed at on the host: 1080p and a
 #: 12 MP phone photo, every row Paeth-filtered as photo encoders write
 SERVE_MLLAMA_PHOTOS = ((1080, 1920), (3024, 4032))
@@ -5500,8 +5848,8 @@ def _seeded_mllama_dir(ctx):
 def phase_serve_mllama(ctx):
     """The vllm unit on a seeded mllama directory (``_seeded_mllama_dir``):
     8 concurrent ``POST /generate`` (4 PNG images of two sizes, 2
-    ``"random"``, 2 text-only), the 400s of a malformed image and a JPEG,
-    and the ``cross_kv`` pool on ``/metrics``; B1 and B2 only, 0
+    ``"random"``, 2 text-only), the 400s of a malformed image and a
+    corrupt JPEG, and the ``cross_kv`` pool on ``/metrics``; B1 and B2 only, 0
     recompiles, no leaked block. First, the image front-end's host ms on
     photo-size PNGs (``_time_image_front_end``)."""
     import base64
@@ -5585,6 +5933,631 @@ def phase_serve_mllama(ctx):
                              f"equal to text-only {same}")
 
 
+# -- the soft-prefix VLM (LLaVA-1.5-7B) ----------------------------------------
+
+LLAVA_ENGINE = {"max_model_len": 2048, "max_num_seqs": 4, "block_size": 16,
+                "context_encoding_buckets": (128, 512, 2048),
+                "max_new_tokens": ENGINE_NEW_TOKENS}
+#: engine_llava's text lengths of its four image rows (a PNG, a baseline
+#: JPEG, a progressive JPEG, "random"); two text-only rows repeat the
+#: first two prompts
+LLAVA_TEXT = (37, 120, 300, 64)
+#: the preemption run: two image rows of 576 + 300 tokens admit into a
+#: pool of this many blocks (the null block and 2 x 55, one free), so the
+#: second row to cross a block boundary in decode is preempted
+LLAVA_PREEMPT_BLOCKS = 112
+
+
+def _llava_model(ctx):
+    """LLaVA-1.5-7B at full width and depth, seeded: the Llama-2-7B text
+    model (``LlamaConfig.llava15_7b_text``, N(0, 0.02)) and the CLIP-L/14
+    336 px tower with its projector (``VisionTowerConfig()``, N(0, 0.02),
+    unit LayerNorm scales), bf16, built on the card once."""
+    if "llava" not in ctx:
+        import torch
+        from scalable_hw_agnostic_inference_tpu_torch.models import vlm
+        from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+            LlamaConfig,
+            LlamaForCausalLM,
+            random_params,
+        )
+
+        t0 = time.monotonic()
+        cfg = LlamaConfig.llava15_7b_text()
+        model = LlamaForCausalLM.from_state_dict(
+            cfg, random_params(cfg, seed=0, std=0.02, device="cuda"))
+        vcfg = vlm.VisionTowerConfig()
+        tower = vlm.build(vcfg, vlm.random_params(vcfg, seed=1,
+                                                  device="cuda"),
+                          dtype=torch.bfloat16)
+        ctx["llava"] = (cfg, model, vcfg, tower)
+        log(f"llava model: LLaVA-1.5-7B, text {cfg.n_layers} layers "
+            f"({cfg.n_heads} heads over {cfg.n_kv_heads}), tower "
+            f"{vcfg.n_layers} layers at {vcfg.image_size} px "
+            f"({vcfg.n_patches} patches, {vcfg.n_blocks} blocks run); "
+            f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B + "
+            f"{sum(p.numel() for p in tower.parameters()) / 1e9:.3f} B "
+            f"params, built in {time.monotonic() - t0:.1f} s")
+    return ctx["llava"]
+
+
+def _llava_photo(h=480, w=640, seed=6):
+    """A seeded photo-like image: gradients, a disc, noise."""
+    import numpy as np
+
+    y, x = np.mgrid[0:h, 0:w]
+    rng = np.random.default_rng(seed)
+    img = np.stack([x * 255 // w, y * 255 // h, (x + y) % 256], -1)
+    disc = (x - w / 2) ** 2 + (y - h / 2) ** 2 < (min(h, w) / 3) ** 2
+    img[disc] = (img[disc] + 128) % 256
+    return (img + rng.integers(0, 20, img.shape)).clip(0, 255).astype(
+        np.uint8)
+
+
+def _llava_images():
+    """engine_llava's four images as ``image_b64`` payloads: a PNG, a
+    baseline and a progressive 4:2:0 JPEG of one photo, and "random"."""
+    import base64
+
+    img = _llava_photo()
+
+    def b64(data):
+        return base64.b64encode(data).decode()
+
+    return [("png", b64(_png_bytes(img))),
+            ("jpeg", b64(_jpeg_bytes(img, "4:2:0", 90))),
+            ("jpeg_progressive", b64(_jpeg_bytes(img, "4:2:0", 90,
+                                                 progressive=True))),
+            ("random", "random")]
+
+
+def _tower_timed(torch, tower, px):
+    """``(prefix [P, dim] f32, ms, peak bytes over the resident, B1
+    launches)`` of one tower run on ``px`` ``[1, H, W, 3]``."""
+    from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
+        flash_attention as fa,
+    )
+
+    x = torch.from_numpy(px).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    n0 = fa.flash_attention.launches
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = tower(x)[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (out, ms, torch.cuda.max_memory_allocated() - base,
+            fa.flash_attention.launches - n0)
+
+
+def _llava_engine(ctx, switches, num_blocks=0):
+    """A warmed engine over the LLaVA model under ``switches``, its closed
+    set holding the soft-prefix prefill."""
+    from scalable_hw_agnostic_inference_tpu_torch.engine.config import (
+        EngineConfig,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.engine.engine import (
+        LLMEngine,
+    )
+
+    cfg, model, vcfg, _ = _llava_model(ctx)
+    ecfg = EngineConfig(**LLAVA_ENGINE, num_blocks=num_blocks)
+    env = {"SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "",
+           "SHAI_ASYNC_DECODE": "1", **switches}
+    with _env(env):
+        eng = LLMEngine(cfg, model, ecfg, device="cuda")
+        t0 = time.monotonic()
+        eng.n_warm = eng.warm_executables([0, vcfg.n_patches])
+        eng.warm_s = time.monotonic() - t0
+    return eng
+
+
+def _llava_drive(eng, reqs):
+    """Submit ``reqs`` ``(prompt, prefix or None)``, greedy with 5
+    logprobs each, and step to the end. Returns the finished requests, the
+    launch counts, the seconds, the exact walk (B1: the layers times the
+    prefill calls; B2 or B3: the replays' captured launches) and the
+    prefill calls."""
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.engine.engine import (
+        SamplingParams,
+    )
+
+    before = _replays(eng)
+    calls = _count_prefills(eng)
+    _reset_counters()
+    t0 = time.monotonic()
+    ids = [eng.add_request(p, SamplingParams(
+        temperature=0.0, max_new_tokens=ENGINE_NEW_TOKENS, logprobs=5),
+        prefix=pre) for p, pre in reqs]
+    done = {}
+    while set(ids) - set(done):
+        for f in eng.step():
+            done[f.req_id] = f
+    eng.finish_pending()
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    counts = _read_counters()
+    walk = _expected_walk(eng, before, [])
+    walk["flash_attention"] = eng.cfg.n_layers * len(calls)
+    fins = [done[i] for i in ids]
+    for f in fins:
+        if len(f.token_ids) != ENGINE_NEW_TOKENS:
+            raise AssertionError(f"{len(f.token_ids)} tokens, want "
+                                 f"{ENGINE_NEW_TOKENS}")
+    return fins, counts, seconds, walk, len(calls)
+
+
+def phase_engine_llava(ctx):
+    """LLaVA-1.5-7B through the engine on the card: the tower on a PNG, a
+    baseline and a progressive JPEG (decoded, resized bicubic and
+    normalized by ``serve.units.common.decode_image``) and "random"; four
+    image rows and two text-only rows, greedy, async equal to lock-step,
+    scored by the plain scoring forward over ``[prefix; prompt]``
+    (``TIE_TOL``), the image rows unlike their prompts text-only; (a)
+    bucketed (B1, B2), (b) ragged with int8 KV (B1, B3); (c) an image row
+    preempted and resumed; B1 exactly the layers times the prefill calls,
+    B2 and B3 the replays' captured launches; 0 recompiles, no leaked
+    block; the tower's ms and peak bytes an image."""
+    import torch
+
+    _drop_engine_model(ctx)
+    try:
+        _engine_llava(ctx)
+    finally:
+        ctx.pop("llava", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _engine_llava(ctx):
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.serve.units.common import (
+        decode_image,
+    )
+
+    cfg, model, vcfg, tower = _llava_model(ctx)
+    row = {"card": ctx.get("card")}
+    images = _llava_images()
+    _tower_timed(torch, tower, decode_image({"image_b64": "random"},
+                                            vcfg.image_size))    # warm
+    prefixes, tower_ms, tower_peak, tower_b1 = [], {}, 0, set()
+    for name, b64 in images:
+        pre, ms, peak, n_b1 = _tower_timed(torch, tower, decode_image(
+            {"image_b64": b64}, vcfg.image_size))
+        if tuple(pre.shape) != (vcfg.n_patches, cfg.dim) or not bool(
+                torch.isfinite(pre).all()):
+            raise AssertionError(f"engine_llava: the {name} prefix is "
+                                 f"{tuple(pre.shape)} or not finite")
+        prefixes.append(pre)
+        tower_ms[name] = ms
+        tower_peak = max(tower_peak, peak)
+        tower_b1.add(n_b1)
+    row.update(tower_ms=tower_ms, tower_peak_bytes=tower_peak,
+               tower_b1_launches=sorted(tower_b1))
+    with torch.inference_mode():
+        x = torch.from_numpy(decode_image({"image_b64": "random"},
+                                          vcfg.image_size)).to("cuda")
+        row["tower_device_ms"] = ctx["timer"](lambda: tower(x), reps=5)
+        tk = _device_us_by_kernel(torch, lambda: tower(x), calls=3)
+    row["tower_b1_ms"] = sum(us for k, (us, _) in tk.items()
+                             if "flash_kernel" in k) / 1e3
+    log("engine_llava tower: " + json.dumps(
+        {k: row[k] for k in ("tower_ms", "tower_device_ms", "tower_b1_ms",
+                             "tower_peak_bytes", "tower_b1_launches")}))
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in LLAVA_TEXT]
+    reqs = [(p, pre) for p, pre in zip(prompts, prefixes)] + [
+        (p, None) for p in prompts[:2]]
+    runs = {}
+    for label, switches, expect in (
+            ("engine_llava (a)", {}, {"flash_attention",
+                                      "paged_decode_attention"}),
+            ("engine_llava (b)", {"SHAI_RAGGED_ATTENTION": "1",
+                                  "SHAI_KV_QUANT": "int8"},
+             {"flash_attention", "ragged_paged_attention"})):
+        eng = _llava_engine(ctx, switches)
+        fins, counts, seconds, walk, n_calls = _llava_drive(eng, reqs)
+        r = {"seconds": seconds, "prefill_calls": n_calls,
+             "launches": counts, "walk": walk, "warmed": eng.n_warm,
+             "warm_s": eng.warm_s,
+             "prefix_keys": sorted(str(k) for k in eng._prefill
+                                   if k[0] == "prefix"),
+             "recompiles": eng.obs.recompiles,
+             "leaked_blocks": eng.cache.leaked_blocks,
+             "flushes": eng.obs.flush_reasons(),
+             "kv_pool_bytes": eng.cache.pool_bytes,
+             "graph_pool_bytes": eng._graphs.bytes()}
+        if eng.tpot.count:
+            tp = eng.tpot.report()
+            r["tpot_ms"] = {"p50": tp["p50"] * 1e3, "p99": tp["p99"] * 1e3}
+        big = eng._decode_fns[max(eng._decode_fns, key=lambda k: k[1])]
+        with torch.inference_mode():
+            r["replay_ms"] = _step_wall_ms(torch, big.replay)
+            by_kernel = _device_us_by_kernel(torch, big.replay, calls=10)
+            r["replay_device_ms"] = sum(us for us, _ in
+                                        by_kernel.values()) / 1e3
+            r["replay_attention_ms"] = sum(
+                us for k, (us, _) in by_kernel.items()
+                if any(w in k for w in ("ragged_kernel", "decode_kernel",
+                                        "merge_kernel", "groups_kernel"))
+            ) / 1e3
+            if label.endswith("(a)"):
+                # one soft-prefix prefill at the 2048 bucket (576 image
+                # tokens and 300 of text, the null table): device ms, B1's
+                # share of it
+                fn = eng._prefill[("prefix", 2048, vcfg.n_patches)]
+                dev = torch.device("cuda")
+                args = (model, eng.cache.kv, torch.randint(
+                    3, cfg.vocab_size, (1, 2048 - vcfg.n_patches),
+                    device=dev, dtype=torch.int32),
+                    torch.tensor([300], dtype=torch.int32, device=dev),
+                    torch.zeros((1, eng.ecfg.blocks_per_seq),
+                                dtype=torch.int32, device=dev))
+                call = lambda: fn(*args, prefix=prefixes[0][None])  # noqa
+                r["prefix_prefill_ms"] = ctx["timer"](call, reps=5)
+                pk = _device_us_by_kernel(torch, call, calls=3)
+                r["prefix_prefill_b1_ms"] = sum(
+                    us for k, (us, _) in pk.items()
+                    if "flash_kernel" in k) / 1e3
+        del eng, big
+        gc.collect()
+        torch.cuda.empty_cache()
+        # lock-step: the same tokens and logprob entries
+        eng = _llava_engine(ctx, {**switches, "SHAI_ASYNC_DECODE": "0"})
+        sync = _llava_drive(eng, reqs)
+        r["sync_equal"] = ([(f.token_ids, f.logprobs) for f in fins]
+                           == [(f.token_ids, f.logprobs) for f in sync[0]])
+        r["sync_recompiles"] = eng.obs.recompiles
+        r["sync_leaked"] = eng.cache.leaked_blocks
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        sc = _score(model, [p for p, _ in reqs], fins,
+                    prefixes=[pre for _, pre in reqs])
+        r["score"] = {k: sc[k] for k in ("b1", "plain", "tokens", "eps",
+                                         "lp_err")}
+        r["image_vs_text_equal"] = [fins[i].token_ids == fins[4 + i].token_ids
+                                    for i in range(2)]
+        runs[label] = (r, fins, counts, walk, expect, sync)
+        row[label] = r
+        ctx.setdefault("launches", {})[label] = counts
+        log(f"{label}: " + json.dumps(r))
+    # (c) an image row preempted and resumed: two rows of 576 + 300
+    eng = _llava_engine(ctx, {}, num_blocks=LLAVA_PREEMPT_BLOCKS)
+    preq = [(prompts[2], prefixes[1]), (prompts[2], prefixes[2])]
+    pfins, pcounts, _, pwalk, pcalls = _llava_drive(eng, preq)
+    psc = _score(model, [p for p, _ in preq], pfins,
+                 prefixes=[pre for _, pre in preq])
+    rc = {"preemptions": eng.obs.preemptions, "prefill_calls": pcalls,
+          "recompiles": eng.obs.recompiles,
+          "leaked_blocks": eng.cache.leaked_blocks,
+          "score": {k: psc[k] for k in ("b1", "plain", "tokens")},
+          "walk_equal": {k: pcounts[k] for k in pwalk} == pwalk}
+    row["engine_llava (c)"] = rc
+    log("engine_llava (c): " + json.dumps(rc))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx["engine_llava"] = row
+    ra = runs["engine_llava (a)"][0]
+    bad = []
+    for label, (r, fins, counts, walk, expect, sync) in runs.items():
+        bad += [f"{label}: {k}" for k, ok in (
+            ("async == lock-step", r["sync_equal"]),
+            ("walk", {k: counts[k] for k in walk} == walk),
+            ("lock-step walk", {k: sync[1][k] for k in sync[3]} == sync[3]),
+            ("the prefix prefill warmed alone",
+             r["prefix_keys"] == [str(("prefix", 2048, vcfg.n_patches))]),
+            ("0 recompiles", r["recompiles"] == r["sync_recompiles"] == 0),
+            ("no leaked block", not (r["leaked_blocks"]
+                                     or r["sync_leaked"])),
+            ("image rows differ from text-only",
+             not any(r["image_vs_text_equal"])),
+            ("tokens by the plain scoring forward"
+             if label.endswith("(a)") else
+             "int8 KV: argmax hits within 10% of (a)",
+             r["score"]["plain"][1] <= TIE_TOL if label.endswith("(a)")
+             else r["score"]["plain"][0] >= 0.9 * ra["score"]["plain"][0]),
+            ("logprobs", not label.endswith("(a)")
+             or r["score"]["lp_err"] <= LP_TOL)) if not ok]
+        try:
+            _check_counters(label, counts, expect)
+        except AssertionError as e:
+            bad.append(str(e))
+    bad += [f"engine_llava (c): {k}" for k, ok in (
+        ("a preemption", rc["preemptions"] >= 1),
+        ("re-admitted", rc["prefill_calls"] >= 3),
+        ("0 recompiles", rc["recompiles"] == 0),
+        ("no leaked block", rc["leaked_blocks"] == 0),
+        ("walk", rc["walk_equal"]),
+        ("tokens by the plain scoring forward",
+         rc["score"]["plain"][1] <= TIE_TOL)) if not ok]
+    bad += [k for k, ok in (
+        ("tower: B1 once a block run", row["tower_b1_launches"]
+         == [vcfg.n_blocks]),) if not ok]
+    if bad:
+        raise AssertionError(f"engine_llava: failed {bad}")
+
+
+# serve_llava: the directory's cut (full widths; the text model's depth cut
+# so that the write stays short; the tower whole)
+SERVE_LLAVA_TEXT_LAYERS = 8
+SERVE_LLAVA_CONFIG = {"max_model_len": 2048, "block_size": 16,
+                      "max_num_seqs": 8,
+                      "context_encoding_buckets": [128, 512, 2048],
+                      "max_new_tokens": 16}
+#: the host's JPEG decode and bicubic resize are timed at 1080p (the best
+#: of two) and at a 12-megapixel phone photo's size (once), under
+#: ``jpeg.MAX_JPEG_PIXELS``
+SERVE_LLAVA_PHOTOS = (((1080, 1920), 2), ((3024, 4032), 1))
+
+
+def _time_jpeg_front_end(ctx):
+    """Host ms of the JPEG decode (``imageio.decode_image``) and of the
+    bicubic resize to 336 px, of a baseline and a progressive 4:2:0 JPEG
+    (``_jpeg_bytes``, quality 90) at each of ``SERVE_LLAVA_PHOTOS``; the
+    decode held near the image encoded (mean error under 10 levels: a
+    wrong IDCT, table or colour transform is off by tens)."""
+    import numpy as np
+    from scalable_hw_agnostic_inference_tpu_torch.models import imageio
+
+    row = {}
+    for (h, w), reps in SERVE_LLAVA_PHOTOS:
+        img = _llava_photo(h, w, seed=7)
+        for name, kw in (("baseline", {}),
+                         ("progressive", {"progressive": True})):
+            row[f"{w}x{h} {name}"] = _time_jpeg(
+                imageio, np, img, _jpeg_bytes(img, "4:2:0", 90, **kw), reps,
+                f"{w}x{h} {name}")
+    ctx["serve_llava_front_end"] = row
+    log("serve_llava: JPEG front-end on the host: " + json.dumps(row))
+
+
+def _time_jpeg(imageio, np, img, data, reps, name):
+    """The best of ``reps`` decodes and resizes of one JPEG (host ms)."""
+    dec, rsz = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        got = imageio.decode_image(data)
+        t1 = time.perf_counter()
+        imageio.resize_bicubic(got, 336, 336)
+        dec.append((t1 - t0) * 1e3)
+        rsz.append((time.perf_counter() - t1) * 1e3)
+    err = float(np.abs(got.astype(np.int32) - img).mean())
+    if got.shape != img.shape or err > 10.0:
+        raise AssertionError(f"serve_llava: the {name} JPEG decoded to "
+                             f"{got.shape}, mean error {err:.2f}")
+    mp = img.shape[0] * img.shape[1] / 1e6
+    return {"jpeg_mb": len(data) / 1e6, "decode_ms": min(dec),
+            "decode_ms_all": dec, "decode_ms_per_mp": min(dec) / mp,
+            "resize_ms": min(rsz), "mean_abs_err": err}
+
+
+def _seeded_llava_dir(ctx):
+    """A seeded LLaVA-1.5-7B directory in HF's layout (llava-1.5-7b-hf's
+    own: ``language_model.model.*``, ``language_model.lm_head``,
+    ``vision_tower.vision_model.*`` with CLIP's ``pre_layrnorm`` and
+    ``post_layernorm``, ``multi_modal_projector.linear_{1,2}``) at full
+    widths, the text depth cut to ``SERVE_LLAVA_TEXT_LAYERS``, in two
+    shards; ``config.json`` in llava-1.5-7b-hf's sparse form (its
+    ``text_config`` names 7 keys and the cut depth); the SentencePiece-
+    style tokenizer (``_write_sp_tokenizer``)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.core.checkpoint import (
+        save_sharded,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models import vlm
+    from scalable_hw_agnostic_inference_tpu_torch.models.convert import (
+        hf_name,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+        LlamaConfig,
+        random_params,
+    )
+
+    cfg = dataclasses.replace(LlamaConfig.llava15_7b_text(),
+                              n_layers=SERVE_LLAVA_TEXT_LAYERS)
+    state = random_params(cfg, seed=9, std=0.02, device="cuda")
+    tensors = {hf_name(k, "language_model.model.",
+                       "language_model.lm_head.weight"): v
+               for k, v in state.items()}
+    vcfg = vlm.VisionTowerConfig()
+    vstate = vlm.random_params(vcfg, seed=10, device="cuda")
+    names = vlm.hf_names(vcfg, "vision_tower.vision_model",
+                         "multi_modal_projector")
+    tensors.update({names[k]: v for k, v in vstate.items()})
+    for leaf, fill in (("weight", 1.0), ("bias", 0.0)):  # unused by LLaVA
+        tensors[f"vision_tower.vision_model.post_layernorm.{leaf}"] = \
+            torch.full((vcfg.dim,), fill, dtype=torch.bfloat16,
+                       device="cuda")
+    path = Path(tempfile.mkdtemp(prefix="shai-llava-")) / "llava-1.5-7b"
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["LlavaForConditionalGeneration"],
+        "ignore_index": -100, "image_token_index": 32000,
+        "model_type": "llava", "pad_token_id": 32001,
+        "projector_hidden_act": "gelu",
+        "text_config": {
+            "_name_or_path": "lmsys/vicuna-7b-v1.5",
+            "architectures": ["LlamaForCausalLM"],
+            "max_position_embeddings": 4096, "model_type": "llama",
+            "rms_norm_eps": 1e-05, "torch_dtype": "float16",
+            "vocab_size": 32064,
+            "num_hidden_layers": SERVE_LLAVA_TEXT_LAYERS},
+        "tie_word_embeddings": False, "torch_dtype": "float16",
+        "vision_config": {
+            "hidden_size": 1024, "image_size": 336,
+            "intermediate_size": 4096, "model_type": "clip_vision_model",
+            "num_attention_heads": 16, "num_hidden_layers": 24,
+            "patch_size": 14, "projection_dim": 768, "vocab_size": 32000},
+        "vision_feature_layer": -2,
+        "vision_feature_select_strategy": "default",
+        "vocab_size": 32064}))
+    paths = save_sharded(tensors, path, 2)
+    _write_sp_tokenizer(path)
+    del state, vstate, tensors
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path, sum(p.stat().st_size for p in paths)
+
+
+#: serve_llava's rows: the image each sends (None: text-only)
+SERVE_LLAVA_KINDS = ("png 400x300", "png 640x480", "jpeg 640x480 4:2:0",
+                     "jpeg 400x300 4:2:0 progressive", "jpeg 400x300 4:4:4",
+                     "random", None, None)
+
+
+def _jpeg_over_cap() -> bytes:
+    """A small baseline JPEG whose frame header says one row more than
+    ``jpeg.MAX_JPEG_PIXELS`` allows (4096 x 4097): refused from the
+    header."""
+    import struct
+
+    data = _jpeg_bytes(_llava_photo(16, 16, seed=13), "4:2:0", 90)
+    at = data.index(b"\xff\xc0") + 5   # marker, length, precision
+    return data[:at] + struct.pack(">HH", 4097, 4096) + data[at + 4:]
+
+
+def phase_serve_llava(ctx):
+    """The vllm unit on a seeded LLaVA directory (``_seeded_llava_dir``):
+    8 concurrent ``POST /generate`` (2 PNGs of two sizes, a baseline and a
+    progressive JPEG, a 4:4:4 JPEG, "random", and the first two prompts
+    text-only), the 400s of a CMYK JPEG and of bytes that are no base64;
+    B1 (the tower and the prefill) and B2 only, 0 recompiles, no leaked
+    block, the image rows unlike their prompts text-only. First, the JPEG
+    front-end's host ms at 1080p (``_time_jpeg_front_end``)."""
+    import base64
+
+    _drop_engine_model(ctx)
+    _time_jpeg_front_end(ctx)
+    t0 = time.monotonic()
+    path, n_bytes = _seeded_llava_dir(ctx)
+    write_s = time.monotonic() - t0
+    small, big = _llava_photo(300, 400, seed=11), _llava_photo(seed=12)
+
+    def b64(data):
+        return base64.b64encode(data).decode()
+
+    # SERVE_LLAVA_KINDS names each row's image
+    images = [b64(_png_bytes(small)), b64(_png_bytes(big)),
+              b64(_jpeg_bytes(big, "4:2:0", 90)),
+              b64(_jpeg_bytes(small, "4:2:0", 85, progressive=True)),
+              b64(_jpeg_bytes(small, "4:4:4", 90)), "random", None, None]
+    prompts = [f"USER: <image>\nimage {i}: describe it in detail. "
+               f"ASSISTANT:" for i in range(6)]
+    prompts += prompts[:2]
+    payloads = [{"prompt": p, "logprobs": 1} if im is None else
+                {"prompt": p, "image_b64": im, "logprobs": 1}
+                for p, im in zip(prompts, images)]
+    config = str(path.parent / "vllm_config.json")
+    with open(config, "w") as f:
+        json.dump(SERVE_LLAVA_CONFIG, f)
+    log(f"serve_llava: wrote {path} ({n_bytes / 1e9:.2f} GB) in "
+        f"{write_s:.1f} s: text {SERVE_LLAVA_TEXT_LAYERS} layers, tower 24")
+
+    def checks(base, eng):
+        import torch
+        from scalable_hw_agnostic_inference_tpu_torch.serve.units.common \
+            import decode_image
+        from scalable_hw_agnostic_inference_tpu_torch.utils.latency import (
+            LatencyCollector,
+        )
+
+        svc = ctx["serving"]["service"]
+        bad = {}
+        for name, data in (("cmyk", base64.b64encode(_cmyk_jpeg()).decode()),
+                           ("not base64", "@@ not base64 @@"),
+                           ("over the JPEG cap", b64(_jpeg_over_cap()))):
+            status, body = _http(base + "/generate", {
+                "prompt": "x", "image_b64": data, "max_new_tokens": 4})
+            bad[name] = (status, body.get("detail", body))
+        # the host ms of this traffic's images through the unit's front end
+        # (decode, bicubic resize to 336 px, normalization), the best of two
+        front = {}
+        for kind, im in zip(SERVE_LLAVA_KINDS, images):
+            if im is None:
+                continue
+            ts = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                decode_image({"image_b64": im}, 336)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            front[kind] = min(ts)
+        # the served tower's ms an image (zeros; the decode excluded)
+        vcfg, tower = svc._vision
+        x = torch.zeros((1, vcfg.image_size, vcfg.image_size, 3),
+                        device="cuda")
+        with torch.inference_mode():
+            tower_ms = ctx["timer"](lambda: tower(x), reps=5)
+        # the same prompts text-only: TTFT and TPOT with no image work on
+        # the host, beside the image round's
+        eng.ttft, eng.tpot = LatencyCollector(), LatencyCollector()
+        res, wall = _send_concurrent(
+            base, [{"prompt": p, "logprobs": 1} for p in prompts])
+        if any(r is None or r[0] != 200 for r in res):
+            raise AssertionError(f"serve_llava: the text-only round "
+                                 f"failed: {res[:2]}")
+        ttft, tpot = eng.ttft.report(), eng.tpot.report()
+        # the largest decode graph's replay, with the engine idle (its
+        # static inputs are the last step's: the same writes again)
+        big = eng._decode_fns[max(eng._decode_fns, key=lambda k: k[1])]
+        with torch.inference_mode():
+            replay_ms = _step_wall_ms(torch, big.replay)
+            by_kernel = _device_us_by_kernel(torch, big.replay, calls=10)
+        row = {"bad_images": bad, "vision_warm_s": svc.vision_warm_seconds,
+               "tower_ms": tower_ms, "front_end_ms": front,
+               "text_only_round": {
+                   "wall_s": wall,
+                   "ttft_ms": {"p50": ttft["p50"] * 1e3,
+                               "p99": ttft["p99"] * 1e3},
+                   "tpot_ms": {"p50": tpot["p50"] * 1e3,
+                               "p99": tpot["p99"] * 1e3}},
+               "decode_replay": {
+                   "key": list(big.key), "wall_ms": replay_ms,
+                   "device_ms": sum(us for us, _ in by_kernel.values())
+                   / 1e3,
+                   "attention_ms": sum(
+                       us for k, (us, _) in by_kernel.items()
+                       if "decode_kernel" in k or "merge_kernel" in k)
+                   / 1e3},
+               "load_s": svc.load_seconds, "warm_s": svc.warm_seconds,
+               "prefix_keys": sorted(str(k) for k in eng._prefill
+                                     if k[0] == "prefix"),
+               "tokenizer_sp": svc.tokenizer.sp is not None}
+        ctx["serve_llava_checks"] = row
+        log("serve_llava: " + json.dumps(row))
+        if bad["cmyk"][0] != 400 or "CMYK" not in json.dumps(bad["cmyk"]) \
+                or bad["not base64"][0] != 400 \
+                or bad["over the JPEG cap"][0] != 400 \
+                or "pixel limit for JPEG" not in json.dumps(
+                    bad["over the JPEG cap"]):
+            raise AssertionError(f"serve_llava: bad images answered {bad}")
+        if not row["tokenizer_sp"] or not row["prefix_keys"]:
+            raise AssertionError(f"serve_llava: {row}")
+
+    results = _serve(ctx, "serve_llava", {
+        "MODEL_ID": str(path), "VLLM_CONFIG": config,
+        "SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": ""},
+        payloads, {"flash_attention", "paged_decode_attention"},
+        "B2 paged_decode_attention", then=checks)
+    toks = [r[1]["n_tokens"] for r in results]
+    ids = [[e["token"] for e in r[1]["logprobs"]] for r in results]
+    same = [ids[i] == ids[6 + i] for i in range(2)]
+    log(f"serve_llava: tokens {toks}; image rows equal to their prompts "
+        f"text-only: {same}")
+    shutil.rmtree(path.parent, ignore_errors=True)
+    if any(same) or any(t < 1 for t in toks):
+        raise AssertionError(f"serve_llava: tokens {toks}, image rows "
+                             f"equal to text-only {same}")
+
+
 def kernels_line(ctx):
     cuda_dir = "scalable_hw_agnostic_inference_tpu_torch/csrc"
     pallas = f"{TPU_PKG}/ops/pallas"
@@ -5660,6 +6633,20 @@ def kernels_line(ctx):
         "launches": {ph: ctx["launches"][ph]["flash_attention"]
                      for ph in ("engine_mllama", "serve_mllama")},
         "shapes": [{k: r[k] for k in keys} for r in ctx["flash_cross"]]}
+    # the soft-prefix VLM (LLaVA-1.5-7B): B1's tower and prefix-prefill
+    # shapes timed in the flash phase and B2's group of one in the paged
+    # phase, launched by engine_llava (a) and serve_llava (B1: the tower
+    # and the prefill; B2: decode), B3 by engine_llava (b)
+    out[0]["llava"] = {
+        "launches": {ph: ctx["launches"][ph]["flash_attention"]
+                     for ph in ("engine_llava (a)", "serve_llava")},
+        "shapes": [{k: r[k] for k in keys} for r in ctx["flash_llava"]]}
+    out[1]["mha"] = {
+        "launches": {ph: ctx["launches"][ph]["paged_decode_attention"]
+                     for ph in ("engine_llava (a)", "serve_llava")},
+        **{k: ctx["paged_mha"][k] for k in keys}}
+    out[2]["llava_launches"] = ctx["launches"]["engine_llava (b)"][
+        "ragged_paged_attention"]
     # B3's fused launches: the mixed-row launch timed in the ragged phase,
     # and its launches in serve_fused (every fused and chunk-only replay)
     mixed = ctx["ragged_mixed"]

@@ -170,6 +170,18 @@ of a chunked prompt; text-only rows gate the cross layers off
 step and the prefix cache stay off on such an engine, as the reference's
 do; speculative decoding runs through verify's cross tail. A multimodal
 request is not migrated (``migrate_out`` returns None).
+
+The soft-prefix VLM (LLaVA; the reference's ``:416-432,843-844,
+1339-1384``): ``add_request(prefix=[P, dim])`` caps the text at the
+largest bucket less P (the tail kept), and the step ladder admits such a
+request alone, first, through ``_admit_one``: one prefill keyed
+``("prefix", bucket, P)`` with the prefix in the first P positions, its
+first token sampled from that prefill's logits. Its blocks are never
+registered in the prefix cache or demoted to the host tier (preemption
+re-queues the prefix with the prompt and its output so far), the batch
+admission and the copy-on-write fan-out stop at it, and it decodes in the
+ordinary batch: the cache holds ``P +`` its tokens, so its positions come
+from the cache as every row's do.
 """
 
 from __future__ import annotations
@@ -506,7 +518,7 @@ class LLMEngine:
                     orig_n_prompt: int = -1,
                     kv_holders: Optional[Sequence[str]] = None,
                     cross_states: Optional[np.ndarray] = None,
-                    cross_len: int = 0) -> int:
+                    cross_len: int = 0, prefix=None) -> int:
         """Queue a request. ``deadline_at``: an absolute
         ``time.monotonic()`` instant (0 = none) past which it finishes as
         ``"timeout"``; ``priority`` (0 high, 1 normal, 2 low, clamped) and
@@ -522,7 +534,10 @@ class LLMEngine:
         may hold its prompt's KV run (the fabric's probe tries them).
         ``cross_states`` ``[cross_seq_len, dim]``: an mllama request's
         vision states, of which the first ``cross_len`` are valid (0: all);
-        None is a text-only request."""
+        ``prefix`` ``[P, dim]`` (numpy or a tensor): a soft-prefix VLM
+        request's image tokens, which take the first P positions of its
+        one prefill (its text is then capped at the largest bucket less P,
+        the tail kept). None for both is a text-only request."""
         params = (params or SamplingParams()).clamp(self.ecfg)
         if not prompt_ids:
             raise ValueError("empty prompt")
@@ -537,9 +552,24 @@ class LLMEngine:
             if not 0 <= cross_len <= self.cross_seq_len:
                 raise ValueError(f"cross_len={cross_len} out of [0, "
                                  f"{self.cross_seq_len}]")
-        if len(prompt_ids) > self._chunk_cap:
-            # past the chunkable cap: keep the tail
-            prompt_ids = list(prompt_ids)[-self._chunk_cap:]
+        if prefix is not None and self._cross_kv is not None:
+            raise ValueError(
+                "mllama models condition on cross_states, not a soft prefix")
+        n_prefix = 0 if prefix is None else int(prefix.shape[0])
+        if n_prefix >= self.buckets.max:
+            raise ValueError(
+                f"prefix of {n_prefix} tokens exceeds the largest prefill "
+                f"bucket {self.buckets.max}")
+        if prefix is not None and tuple(prefix.shape) != (n_prefix,
+                                                          self.cfg.dim):
+            raise ValueError(f"prefix must be [P, {self.cfg.dim}], got "
+                             f"{tuple(prefix.shape)}")
+        # a soft-prefix request is bucket-bound (its prefix sits inside the
+        # one prefill call); text and cross prompts chunk up to the cap
+        max_prompt = (self.buckets.max - n_prefix if n_prefix
+                      else self._chunk_cap)
+        if len(prompt_ids) > max_prompt:
+            prompt_ids = list(prompt_ids)[-max_prompt:]  # keep the tail
         rid = next(self._ids)
         if parent_rid == -2:
             parent_rid = rid
@@ -554,6 +584,7 @@ class LLMEngine:
         if self._tenant_seen:
             self.obs.count_tenant_request(tenant, _qos.class_name(priority))
         self.waiting.append(Request(rid, list(prompt_ids), params,
+                                    prefix=prefix,
                                     cross_states=cross_states,
                                     cross_len=cross_len,
                                     on_token=on_token,
@@ -716,13 +747,13 @@ class LLMEngine:
         ships the manifest and the banked run to a peer, where the request
         continues. A pending token that already ends the request finishes
         it as ``eos``/``length`` instead. Loop thread only; None for an
-        unknown or finished id, and for a multimodal request, whose vision
-        states do not travel in the manifest (the drain lets it finish
-        here)."""
-        if any(r.cross_states is not None and r.req_id == req_id
+        unknown or finished id, and for a multimodal request, whose soft
+        prefix or vision states do not travel in the manifest (the drain
+        lets it finish here)."""
+        if any(r.multimodal and r.req_id == req_id
                for r in self.waiting) or any(
                    s is not None and s.req.req_id == req_id
-                   and s.req.cross_states is not None for s in self.slots):
+                   and s.req.multimodal for s in self.slots):
             return None
         for i, r in enumerate(self.waiting):
             if r.req_id == req_id:
@@ -822,8 +853,8 @@ class LLMEngine:
                             "generated)", rid, len(fin.token_ids))
                 self._finish(fin)
 
-    def warm_executables(self) -> int:
-        return _warm_mod.warm_executables(self)
+    def warm_executables(self, prefix_lens: Sequence[int] = (0,)) -> int:
+        return _warm_mod.warm_executables(self, prefix_lens)
 
     def _run_warm_calls(self) -> None:
         _warm_mod._run_warm_calls(self)
@@ -1223,7 +1254,9 @@ class LLMEngine:
         # (a no-op with SHAI_QOS off or a single-class queue)
         if self._sched is not None:
             _qos.schedule_rotate(self.waiting, self._sched)
-        if (self._kv_cow and self.waiting
+        if self.waiting and self.waiting[0].prefix is not None:
+            self._admit_one()       # soft prefix: bucket-bound, alone
+        elif (self._kv_cow and self.waiting
                 and self.waiting[0].parent_rid >= 0
                 and self._admit_fanout()):
             pass                    # CoW fan-out: one prefill, K forks
@@ -1377,7 +1410,7 @@ class LLMEngine:
         bucket = -1
         while self.waiting and len(group) < kmax:
             req = self.waiting[0]
-            if req.cross_states is not None:
+            if req.multimodal:
                 break  # multimodal: _admit_one takes it at the head
             if len(req.prompt_ids) > self.buckets.max:
                 break  # a long prompt: _admit_long takes it at the head
@@ -1443,45 +1476,56 @@ class LLMEngine:
                                   lp_rows)
 
     def _admit_one(self) -> None:
-        """Admit the head request alone: an mllama request whose prompt
-        fits the largest bucket (the reference's ``_admit_one``, its
-        soft-prefix half not ported). Its vision states are projected into
-        the slot's buffers, then one prefill samples its first token."""
+        """Admit the head request alone (the reference's ``_admit_one``,
+        ``:1339-1384``): a soft-prefix request, whose P image tokens take
+        the first positions of one prefill at the bucket of ``P +`` its
+        text, or an mllama request whose prompt fits the largest bucket,
+        its vision states projected into the slot's buffers first. One
+        prefill samples the first token."""
         if not self.waiting:
             return
         slot = self._free_slot()
         if slot is None:
             return
         req = self.waiting[0]
-        if len(req.prompt_ids) > self.buckets.max:
+        P = req.prefix_len
+        max_text = self.buckets.max - P
+        if len(req.prompt_ids) > max_text:
             # a preemption resume may pass the largest bucket: keep the
             # tail, as add_request does
-            req.prompt_ids = req.prompt_ids[-self.buckets.max:]
-        n = len(req.prompt_ids)
+            req.prompt_ids = req.prompt_ids[-max_text:]
+        n_text = len(req.prompt_ids)
+        n = P + n_text      # the cache's tokens
         if not self._try_reserve(req, n):
             return
         self.waiting.popleft()
         self._note_admitted(req)
         bucket = self.buckets.bucket_for(n)
         self.cache.admit(req.req_id, n)
-        ids = np.zeros((1, bucket), np.int32)
-        ids[0, :n] = req.prompt_ids
+        ids = np.zeros((1, bucket - P), np.int32)
+        ids[0, :n_text] = req.prompt_ids
         dev = self.device
         p = req.params
-        fn = self._prefill_for(bucket, 1)
+        fn = self._prefill_for(bucket, 1, prefix_len=P)
         with torch.inference_mode():
             cross = _cross_mod._set_slot_cross(self, slot, req)
+            extra = {}
+            if P:
+                prefix = req.prefix
+                if isinstance(prefix, np.ndarray):
+                    prefix = torch.from_numpy(np.array(prefix, np.float32))
+                extra["prefix"] = prefix.to(dev)[None]
             with annotate("engine.prefill"):
                 _, logits = fn(self.model, self.cache.kv,
                                torch.from_numpy(ids).to(dev),
-                               torch.tensor([n], dtype=torch.int32,
+                               torch.tensor([n_text], dtype=torch.int32,
                                             device=dev),
-                               self._table_of(req), *cross)
+                               self._table_of(req), *cross, **extra)
             tok = int(sample_logits(logits, self._gen, p.temperature,
                                     p.top_k, p.top_p)[0])
         self.obs.count_pad(n, bucket - n, phase="prefill")
         # no register_prefix: a vision-conditioned prompt's blocks must not
-        # content-address by its tokens alone (and the cache is off here)
+        # content-address by its tokens alone
         self._start_slot(slot, req, tok)
         if p.logprobs:
             _record_admission_lps(self, logits, [tok],
@@ -1511,7 +1555,7 @@ class LLMEngine:
         if n > self.buckets.max:
             return False
         if any(r.prompt_ids != head.prompt_ids or r.already_generated
-               or r.cross_states is not None for r in group):
+               or r.multimodal for r in group):
             return False
         K = len(group)
         if sum(s is None for s in self.slots) < K:
@@ -1916,8 +1960,13 @@ class LLMEngine:
                                  device=self.device)]
         return []
 
-    def _prefill_for(self, bucket: int, n_seqs: int = 1):
-        key = (bucket, n_seqs)
+    def _prefill_for(self, bucket: int, n_seqs: int = 1, prefix_len: int = 0):
+        """The prefill of ``bucket`` at batch ``n_seqs``, keyed ``(bucket,
+        n_seqs)``; a soft-prefix prefill (one sequence) is keyed
+        ``("prefix", bucket, prefix_len)`` (the reference's ``(bucket,
+        prefix_len, 1)``, ``:1987-1996``)."""
+        key = ("prefix", bucket, prefix_len) if prefix_len else (bucket,
+                                                                 n_seqs)
         if key not in self._prefill:
             # chaos site: executable-factory compile failure
             _faults.get().raise_at(_faults.COMPILE)
@@ -1925,7 +1974,8 @@ class LLMEngine:
                 self.obs.count_recompile("prefill")
             self._prefill[key] = make_prefill(
                 self.cfg, self.ecfg.block_size, self.ecfg.blocks_per_seq,
-                bucket, n_seqs=n_seqs, kv_quant=self._kv_quant)
+                bucket, n_seqs=n_seqs, kv_quant=self._kv_quant,
+                prefix_len=prefix_len)
         return self._prefill[key]
 
     def _batch_bucket(self, n_active: int) -> int:
@@ -2119,7 +2169,7 @@ class LLMEngine:
         log.warning("preempting seq %d (block pool exhausted)",
                     victim.req.req_id)
         self.obs.count_preemption()
-        if self.cache.tier is not None:
+        if self.cache.tier is not None and not victim.req.multimodal:
             # demotion, not deletion: publish the victim's full blocks
             # before release, so re-admission reuses them while they
             # survive and pool pressure demotes them to the tier. KV exists
@@ -2164,6 +2214,7 @@ class LLMEngine:
             p, max_new_tokens=p.max_new_tokens - len(committed))
         self.waiting.appendleft(Request(
             victim.req.req_id, victim.req.prompt_ids + committed, params,
+            prefix=victim.req.prefix,
             cross_states=victim.req.cross_states,
             cross_len=victim.req.cross_len,
             already_generated=emitted,

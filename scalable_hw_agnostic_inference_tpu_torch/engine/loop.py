@@ -96,15 +96,17 @@ class EngineLoop:
                already_generated: Optional[Sequence[int]] = None,
                already_lp: Optional[list] = None, orig_n_prompt: int = -1,
                kv_holders: Optional[Sequence[str]] = None,
-               cross_states=None, cross_len: int = 0) -> Future:
+               cross_states=None, cross_len: int = 0,
+               prefix=None) -> Future:
         """Enqueue a request; the future resolves to a ``Finished``.
         ``on_token`` is called from the loop thread once per output token,
         in order, and must be cheap (put onto a queue, nothing more).
         ``deadline_at`` (absolute ``time.monotonic()``, 0 = none),
         ``priority``, ``tenant``, ``traceparent``, ``idem_key``, a resumed
         request's ``already_generated``, ``already_lp`` and
-        ``orig_n_prompt``, the fabric's ``kv_holders``, and an mllama
-        request's ``cross_states`` and ``cross_len`` go to
+        ``orig_n_prompt``, the fabric's ``kv_holders``, an mllama
+        request's ``cross_states`` and ``cross_len``, and a soft-prefix
+        request's ``prefix`` ``[P, dim]`` go to
         ``LLMEngine.add_request``."""
         if self._stop.is_set():
             raise RuntimeError("engine loop is stopped")
@@ -122,6 +124,8 @@ class EngineLoop:
             kw["orig_n_prompt"] = orig_n_prompt
         if cross_states is not None:
             kw.update(cross_states=cross_states, cross_len=cross_len)
+        if prefix is not None:
+            kw["prefix"] = prefix
         self._submit_q.put((list(prompt_ids), params or SamplingParams(),
                             on_token, kw, fut))
         # close the put-after-stop window: if the loop died between the

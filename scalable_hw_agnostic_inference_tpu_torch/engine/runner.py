@@ -2,7 +2,8 @@
 decode step for the batch.
 
 Port of ``scalable_hw_agnostic_inference_tpu/engine/runner.py``:
-``make_prefill`` (``:286``, text-only), ``make_prefill_cont`` (``:447``,
+``make_prefill`` (``:286``, with its ``prefix_len`` variant),
+``make_prefill_cont`` (``:447``,
 text-only, both the static-start ladder and ``ragged=True``),
 ``make_decode`` (``:780``, the ``T = 1`` instantiation of
 ``_make_token_forward`` at ``:641``, with its ``feedback`` variant),
@@ -258,10 +259,10 @@ def make_cross_slot_write(cfg: LlamaConfig) -> Callable:
 
 def make_prefill(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                  bucket: int, n_seqs: int = 1,
-                 kv_quant: bool = False) -> Callable:
-    """``prefill(model, kv, ids [K, bucket], n_text [K], block_tables
-    [K, blocks_per_seq][, cross_kv, has_image, cross_len]) -> (kv, logits
-    [K, V])``.
+                 kv_quant: bool = False, prefix_len: int = 0) -> Callable:
+    """``prefill(model, kv, ids [K, bucket - prefix_len], n_text [K],
+    block_tables [K, blocks_per_seq][, cross_kv, has_image, cross_len]
+    [, prefix=]) -> (kv, logits [K, V])``.
 
     ``K = n_seqs`` right-padded prompts share one call; rows past the
     admitted group carry a null block table and write harmlessly into
@@ -270,21 +271,42 @@ def make_prefill(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
     logits from the last valid position of each row. An mllama model takes
     the cross tail: per cross layer ``{"k", "v"}`` ``[K, Lv, Hkv, Dh]``,
     ``has_image [K]`` and ``cross_len [K]``.
+
+    With ``prefix_len`` P > 0 (the soft-prefix VLM, the reference's
+    ``:287-383``) ``prefix`` ``[K, P, dim]`` soft embeddings, cast to
+    bf16, occupy the first P positions ahead of the text's: the row holds
+    ``n = n_text + P`` tokens at positions ``0 ... bucket - 1``, attends
+    causally with ``kv_lengths = n`` (B1 on CUDA), and its logits are
+    read at ``n - 1``. An mllama model takes no prefix.
     """
     if bucket % block_size:
         raise ValueError(f"bucket {bucket} not a multiple of block_size "
                          f"{block_size}")
+    if not 0 <= prefix_len < bucket:
+        raise ValueError(f"prefix_len {prefix_len} outside [0, {bucket})")
     m_used = bucket // block_size
     cross_set = set(cfg.cross_attention_layers)
+    if prefix_len and cross_set:
+        raise ValueError("mllama prefill takes cross states, not a soft "
+                         "prefix")
 
     def prefill(model: LlamaForCausalLM, kv: KVPool, ids: torch.Tensor,
                 n_text: torch.Tensor, block_tables: torch.Tensor,
                 cross_kv: Optional[CrossKV] = None,
                 has_image: Optional[torch.Tensor] = None,
-                cross_len: Optional[torch.Tensor] = None
+                cross_len: Optional[torch.Tensor] = None,
+                prefix: Optional[torch.Tensor] = None
                 ) -> Tuple[KVPool, torch.Tensor]:
-        B, T = ids.shape
         x = model.embed.weight[ids.long()].to(torch.bfloat16)
+        n = n_text
+        if prefix_len:
+            if prefix is None or tuple(prefix.shape[1:]) != (prefix_len,
+                                                              cfg.dim):
+                raise ValueError(f"prefill of prefix_len {prefix_len} takes "
+                                 f"prefix [K, {prefix_len}, {cfg.dim}]")
+            x = torch.cat([prefix.to(x.device, torch.bfloat16), x], dim=1)
+            n = n_text + prefix_len
+        B, T = x.shape[:2]
         positions = torch.arange(T, dtype=torch.int32,
                                  device=ids.device).expand(B, T)
         tbl = block_tables[:, :m_used].long()
@@ -299,7 +321,7 @@ def make_prefill(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
             q, k, v = _qkv(layer, h, positions, cfg)
             # causal within the prompt; pad keys masked by the true length
             # (kv_lengths, not a mask, keeps the flash kernel eligible)
-            o = dot_product_attention(q, k, v, kv_lengths=n_text, causal=True)
+            o = dot_product_attention(q, k, v, kv_lengths=n, causal=True)
             x = x + quant_matmul(o.reshape(B, T, -1), layer.attn.o)
             x = x + _mlp(layer, _rmsnorm(x, layer.mlp_norm.scale,
                                          cfg.rms_eps))
@@ -310,7 +332,7 @@ def make_prefill(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                 v.reshape(B, m_used, block_size, cfg.n_kv_heads,
                           cfg.head_dim), kv_quant)
             pi += 1
-        last = x[torch.arange(B, device=x.device), n_text.long() - 1]
+        last = x[torch.arange(B, device=x.device), n.long() - 1]
         return kv, _logits(model, last[:, None], cfg)[:, 0]
 
     return prefill

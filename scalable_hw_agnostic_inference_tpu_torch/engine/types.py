@@ -81,6 +81,12 @@ class Request:
     def prefix_len(self) -> int:
         return 0 if self.prefix is None else int(self.prefix.shape[0])
 
+    @property
+    def multimodal(self) -> bool:
+        """A soft-prefix or an mllama request: admitted alone, never
+        content-addressed by its tokens, never migrated."""
+        return self.prefix is not None or self.cross_states is not None
+
 
 @dataclasses.dataclass
 class Finished:

@@ -4,6 +4,7 @@ Port of ``scalable_hw_agnostic_inference_tpu/engine/warm.py``
 (``warm_executables`` at ``:16``, ``_run_warm_calls`` at ``:114``) for the
 text branches the port has: every prefill bucket x batch size, every
 continuation key (the static-start ladder, or the one ragged entry), and
+every soft-prefix prefill (``("prefix", bucket, P)``, ``warm.py:34-40``),
 every decode key (context bucket x batch bucket) and, under speculative
 decoding, every verify key of the same grid (``warm.py:99-104``, the
 decode keys kept: a step without a draft replays one); under
@@ -29,16 +30,21 @@ holds the cross buffers, and the admission-time projection
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from ..ops.sampling import sample_logits
 from . import cross as _cross_mod
 
 
-def warm_executables(eng) -> int:
+def warm_executables(eng, prefix_lens: Sequence[int] = (0,)) -> int:
     """Build the engine's closed executable set up front, so no request
     after readiness builds one (each later build counts as a recompile).
-    Returns the number of executables built."""
+    Each ``P`` of ``prefix_lens`` past 0 adds the soft-prefix prefill of
+    every bucket with ``0 < P < bucket`` (one sequence each; none on an
+    mllama engine), the reference's ``:34-40``. Returns the number of
+    executables built."""
     n = 0
     kmax = min(max(1, eng.ecfg.max_prefill_batch), eng.ecfg.max_num_seqs)
     batch_sizes = []
@@ -47,9 +53,14 @@ def warm_executables(eng) -> int:
         batch_sizes.append(k)
         k *= 2
     for b in eng.buckets.buckets:
-        for kb in batch_sizes:
-            eng._prefill_for(b, kb)
-            n += 1
+        for p in sorted(set(prefix_lens)):
+            if p == 0:
+                for kb in batch_sizes:
+                    eng._prefill_for(b, kb)
+                    n += 1
+            elif 0 < p < b and eng._cross_kv is None:
+                eng._prefill_for(b, 1, prefix_len=p)
+                n += 1
     C = eng.buckets.max
     if eng._fused:
         # the chunk rides the fused keys built below: no continuation
@@ -128,6 +139,11 @@ def _run_warm_calls(eng) -> None:
             elif key[0] == "cont":
                 fn(eng.model, eng.cache.kv, i32(1, key[2]), i32(1, value=1),
                    i32(1, M), *_cross_mod.text_cross_args(eng, 1))
+            elif key[0] == "prefix":
+                _, bucket, P = key
+                fn(eng.model, eng.cache.kv, i32(1, bucket - P),
+                   i32(1, value=1), i32(1, M),
+                   prefix=torch.zeros((1, P, eng.cfg.dim), device=dev))
             else:
                 bucket, K = key
                 _, logits = fn(eng.model, eng.cache.kv, i32(K, bucket),

@@ -18,6 +18,13 @@ F16 or BF16 tensor takes the same path through fp32, exactly); with
 reference's order (cast, then ``quantize_params_tree``). Tensors go to
 the device one at a time.
 
+An HF LLaVA directory (``config.json`` with ``model_type: "llava"``, a
+Llama ``text_config`` and a CLIP ``vision_config``, ``transformers``'
+``LlavaConfig`` and ``CLIPVisionConfig`` defaults filled in where a key is
+absent, as llava-1.5-7b-hf's sparse ``text_config`` needs):
+:func:`load_llava_checkpoint` reads the language model through the Llama
+path and the CLIP tower and projector through ``models.vlm``.
+
 An HF mllama directory (``config.json`` with ``model_type: "mllama"``, its
 ``text_config`` and ``vision_config``; the reference's ``causal_lm.py:
 90-200`` reads it through ``transformers``): :func:`load_mllama_checkpoint`
@@ -47,6 +54,7 @@ from ..core.checkpoint import Checkpoint, PathLike
 from ..core.device import DeviceLike, resolve_device
 from ..ops.quant import _is_quant_node, quantize_weight
 from . import mllama as mllama_mod
+from . import vlm as vlm_mod
 from .llama import LlamaConfig, _weight_shapes
 
 #: port name suffix -> HF name suffix, per layer
@@ -102,6 +110,32 @@ HF_MLLAMA_VISION_DEFAULTS = {
     "intermediate_layers_indices": [3, 7, 15, 23, 30],
     "supported_aspect_ratios": [[1, 1], [1, 2], [1, 3], [1, 4], [2, 1],
                                 [2, 2], [3, 1], [4, 1]],
+}
+
+
+#: ``transformers.LlavaConfig``'s defaults (its ``text_config`` defaults to
+#: ``LlamaConfig()``'s, its ``vision_config`` to CLIP-L/14-336's)
+HF_LLAVA_DEFAULTS = {
+    "ignore_index": -100, "image_token_index": 32000,
+    "projector_hidden_act": "gelu",
+    "vision_feature_select_strategy": "default",
+    "vision_feature_layer": -2, "image_seq_length": 576,
+    "multimodal_projector_bias": True,
+}
+
+#: the ``vision_config`` ``LlavaConfig`` builds when it is given none
+HF_LLAVA_VISION_DEFAULT = {
+    "intermediate_size": 4096, "hidden_size": 1024, "patch_size": 14,
+    "image_size": 336, "num_hidden_layers": 24, "num_attention_heads": 16,
+    "vocab_size": 32000, "projection_dim": 768,
+}
+
+#: ``transformers.CLIPVisionConfig``'s defaults
+HF_CLIP_VISION_DEFAULTS = {
+    "hidden_size": 768, "intermediate_size": 3072, "projection_dim": 512,
+    "num_hidden_layers": 12, "num_attention_heads": 12, "num_channels": 3,
+    "image_size": 224, "patch_size": 32, "hidden_act": "quick_gelu",
+    "layer_norm_eps": 1e-5,
 }
 
 
@@ -204,11 +238,78 @@ def read_config(path: PathLike) -> Dict:
     return json.loads(cfg_file.read_text())
 
 
+def _model_type(path: PathLike) -> str:
+    cfg_file = Path(path) / "config.json"
+    if not cfg_file.is_file():
+        return ""
+    return json.loads(cfg_file.read_text()).get("model_type", "")
+
+
 def is_mllama_dir(path: PathLike) -> bool:
     """True for a directory whose ``config.json`` names an mllama model."""
-    cfg_file = Path(path) / "config.json"
-    return cfg_file.is_file() and json.loads(
-        cfg_file.read_text()).get("model_type") == "mllama"
+    return _model_type(path) == "mllama"
+
+
+def is_llava_dir(path: PathLike) -> bool:
+    """True for a directory whose ``config.json`` names a LLaVA model."""
+    return _model_type(path) == "llava"
+
+
+def llava_configs(raw: Dict) -> Tuple[LlamaConfig,
+                                      "vlm_mod.VisionTowerConfig", Dict]:
+    """A LLaVA ``config.json`` (a dict) -> (text config, tower config, the
+    outer config with ``transformers``' defaults filled in), as
+    ``LlavaConfig`` fills them: its own keys, a ``text_config`` read as a
+    Llama one (``model_type`` ``llama`` unless it names another), a
+    ``vision_config`` over ``CLIPVisionConfig``'s defaults (CLIP-L/14-336
+    when absent). A projector activation other than exact GELU, the only
+    one the reference computes, is refused."""
+    full = {**HF_LLAVA_DEFAULTS, **raw}
+    if full["projector_hidden_act"] != "gelu":
+        raise ValueError(f"config.json projector_hidden_act="
+                         f"{full['projector_hidden_act']!r} not supported "
+                         f"(only 'gelu')")
+    text = dict(full.get("text_config") or {})
+    text.setdefault("model_type", "llama")
+    cfg = config_from_hf(text)
+    vision = full.get("vision_config")
+    vision = dict(HF_LLAVA_VISION_DEFAULT if vision is None else vision)
+    kind = vision.get("model_type", "clip_vision_model")
+    if kind != "clip_vision_model":
+        raise ValueError(f"config.json vision_config model_type {kind!r}: "
+                         f"this port reads a CLIP tower only")
+    full["vision_config"] = {**HF_CLIP_VISION_DEFAULTS, **vision}
+    return cfg, vlm_mod.VisionTowerConfig.from_hf(full, cfg.dim), full
+
+
+def load_llava_checkpoint(path: PathLike, device: DeviceLike = None,
+                          quantize: bool = False):
+    """The HF LLaVA directory ``path`` -> ``(text config, text state,
+    tower config, tower state)``, the counterpart of the reference's
+    ``_load_vlm`` (``causal_lm.py:26-81``) for a local directory: bf16
+    weights on ``device`` (the card unless the caller asks for the CPU),
+    the language model's projections int8 with ``quantize``. The language
+    model is read through the Llama path in either key layout
+    (``language_model.model.*`` with ``language_model.lm_head``, or
+    ``model.language_model.*`` with ``lm_head``); the tower and projector
+    through ``models.vlm.state_from_hf``."""
+    path = Path(path)
+    raw = read_config(path)
+    if raw.get("model_type") != "llava":
+        raise ValueError(f"{path}: config.json model_type "
+                         f"{raw.get('model_type')!r} is not 'llava'")
+    cfg, vcfg, _ = llava_configs(raw)
+    device = resolve_device(device)
+    ckpt = Checkpoint(path)
+    if any(k.startswith("language_model.") for k in ckpt.keys()):
+        prefix, lm_head = ("language_model.model.",
+                           "language_model.lm_head.weight")
+    else:
+        prefix, lm_head = "model.language_model.", "lm_head.weight"
+    state = _read_text(path, ckpt, cfg, prefix, lm_head, device, quantize)
+    vstate = vlm_mod.state_from_hf(
+        lambda n: _bf16(ckpt.tensor(n, device)), ckpt.__contains__, vcfg)
+    return cfg, state, vcfg, vstate
 
 
 def mllama_vision_config(vcfg: Dict) -> Tuple[mllama_mod.MllamaVisionConfig,

@@ -1,28 +1,36 @@
-"""Images without PIL: a PNG decoder on ``zlib`` and numpy, and Pillow's
-bilinear resize.
+"""Images without PIL: a PNG decoder on ``zlib`` and numpy, Pillow's
+bilinear and bicubic resizes, and the dispatch to the JPEG decoder
+(``models/jpeg.py``).
 
 No JAX counterpart of its own: the JAX package decodes and resizes images
-through PIL (``serve/units/vllm.py:509-521`` opens the request's bytes,
-``models/mllama.py:283-286`` converts to RGB and resizes), which the
-machine with the card does not have. This module does the same work for
-the formats it reads:
+through PIL (``serve/units/common.py:180-200`` and ``serve/units/vllm.py:
+509-521`` open the request's bytes, ``models/mllama.py:283-286`` converts
+to RGB and resizes), which the machine with the card does not have. This
+module does the same work for the formats it reads:
 
-- :func:`decode_png`: 8-bit, non-interlaced PNG of colour type 0 (grey),
-  2 (RGB), 3 (palette), 4 (grey + alpha) or 6 (RGBA), every filter type
-  (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), to an ``[H, W, 3]`` uint8 RGB
-  array, as PIL's ``Image.open(...).convert("RGB")`` gives it (alpha is
-  dropped, a palette expanded, grey replicated). An image of more pixels
-  than Pillow's decompression-bomb limit is refused from its header, and
-  the data is never inflated past what the header allows;
-- :func:`resize_bilinear`: ``Image.resize((w, h), Image.BILINEAR)`` on such
-  an array, value for value. Pillow's bilinear resize is a separable
-  triangle filter whose support widens by the scale factor when it
-  downscales (so it averages, where textbook bilinear would alias), with
+- :func:`decode_png`: every PNG PIL opens, to an ``[H, W, 3]`` uint8 RGB
+  array as PIL's ``Image.open(...).convert("RGB")`` gives it: colour
+  types 0 (grey, at 1, 2, 4, 8 and 16 bits), 2 (RGB, 8 and 16), 3
+  (palette, 1 to 8 bits, with or without ``tRNS``), 4 (grey + alpha) and
+  6 (RGBA), plain or Adam7-interlaced, every filter type (0 None, 1 Sub,
+  2 Up, 3 Average, 4 Paeth). Alpha is dropped, not composited; a palette
+  expanded; grey replicated, a low-depth grey scaled to 0..255 as PIL's
+  ``L;1``, ``L;2`` and ``L;4`` modes scale it; 16-bit colour keeps its
+  high byte, and 16-bit grey (PIL's ``I;16``) is clipped to 255 on the
+  way to RGB, as PIL clips it. An image of more pixels than Pillow's
+  decompression-bomb limit is refused from its header, and the data is
+  never inflated past what the header allows;
+- :func:`resize_bilinear` and :func:`resize_bicubic`: ``Image.resize((w,
+  h), BILINEAR)`` and PIL's default ``Image.resize((w, h))`` (BICUBIC) on
+  such an array, value for value. Pillow's resize is a separable
+  convolution whose support widens by the scale factor when it downscales
+  (a triangle of support 1, or the a = -0.5 cubic of support 2), with
   coefficients rounded to 22-bit fixed point and a horizontal pass rounded
-  to 8 bits before the vertical one;
-- :func:`decode_image`: request bytes to RGB. Other formats (JPEG, GIF,
-  WebP, BMP), 16-bit and interlaced PNGs raise :class:`ImageError` naming
-  what was sent; the serving unit answers it with a 400.
+  and clipped to 8 bits before the vertical one;
+- :func:`decode_image`: request bytes to RGB, PNG here and JPEG through
+  ``models.jpeg``. Other formats (GIF, WebP, BMP) raise
+  :class:`ImageError` naming what was sent; the serving unit answers it
+  with a 400.
 """
 
 from __future__ import annotations
@@ -40,8 +48,16 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: limit, twice its default ``Image.MAX_IMAGE_PIXELS``
 MAX_IMAGE_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
 
-#: colour type -> channels per pixel (8-bit samples)
+#: colour type -> channels per pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+#: colour type -> the bit depths the PNG specification allows
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+
+#: Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 #: leading bytes of the formats that are refused by name
 _OTHER_FORMATS = (
@@ -57,8 +73,8 @@ class ImageError(ValueError):
 
 
 def sniff_format(data: bytes) -> str:
-    """The image format the bytes start with: ``"PNG"``, one of the formats
-    refused by name, or ``"unknown"``."""
+    """The image format the bytes start with: ``"PNG"``, ``"JPEG"``, one
+    of the formats refused by name, or ``"unknown"``."""
     if data.startswith(PNG_SIGNATURE):
         return "PNG"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
@@ -191,6 +207,61 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out.reshape(height, stride)
 
 
+def _unpack(rows: np.ndarray, width: int, ch: int, depth: int) -> np.ndarray:
+    """Unfiltered scanlines ``[h, stride]`` -> samples ``[h, width, ch]``
+    (uint8, or uint16 at 16 bits); sub-byte samples are unpacked high bits
+    first."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows.reshape(h, width, ch)
+    if depth == 16:
+        return rows.reshape(h, width, ch, 2).astype(np.uint16) @ \
+            np.array([256, 1], np.uint16)
+    per = 8 // depth
+    shifts = (8 - depth * (1 + np.arange(per))).astype(np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :width, None]
+
+
+def _samples(raw: bytes, width: int, height: int, ch: int, depth: int,
+             interlace: int) -> np.ndarray:
+    """The decompressed stream -> samples ``[height, width, ch]``, each
+    Adam7 pass unfiltered on its own and scattered into place."""
+    bits = ch * depth
+    bpp = max(1, bits // 8)        # the filters' byte distance
+
+    def image(pos: int, w: int, h: int) -> Tuple[np.ndarray, int]:
+        stride = -(-w * bits // 8)
+        n = h * (stride + 1)
+        rows = _unfilter(raw[pos:pos + n], h, stride, bpp)
+        return _unpack(rows, w, ch, depth), pos + n
+
+    if not interlace:
+        return image(0, width, height)[0]
+    out = np.zeros((height, width, ch),
+                   np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w <= 0 or h <= 0:
+            continue
+        px, pos = image(pos, w, h)
+        out[y0::dy, x0::dx] = px
+    return out
+
+
+def _raw_size(width: int, height: int, bits: int, interlace: int) -> int:
+    """The bytes of decompressed scanlines the header promises."""
+    if not interlace:
+        return height * (-(-width * bits // 8) + 1)
+    n = 0
+    for x0, y0, dx, dy in _ADAM7:
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w > 0 and h > 0:
+            n += h * (-(-w * bits // 8) + 1)
+    return n
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> ``[H, W, 3]`` uint8 RGB (see the module note)."""
     if not data.startswith(PNG_SIGNATURE):
@@ -204,6 +275,8 @@ def decode_png(data: bytes) -> np.ndarray:
                 raise ImageError("bad PNG: IHDR length")
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
+            if len(body) % 3 or not body:
+                raise ImageError("bad PNG: PLTE length")
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
@@ -212,14 +285,12 @@ def decode_png(data: bytes) -> np.ndarray:
     width, height, depth, ctype, comp, filt, interlace = header
     if ctype not in _CHANNELS:
         raise ImageError(f"bad PNG: colour type {ctype}")
-    if depth != 8:
-        raise ImageError(f"{depth}-bit PNG images are not supported yet "
-                         f"(8-bit only)")
-    if interlace:
-        raise ImageError("interlaced (Adam7) PNG images are not supported "
-                         "yet")
-    if comp or filt:
-        raise ImageError("bad PNG: unknown compression or filter method")
+    if depth not in _DEPTHS[ctype]:
+        raise ImageError(f"bad PNG: bit depth {depth} for colour type "
+                         f"{ctype}")
+    if comp or filt or interlace > 1:
+        raise ImageError("bad PNG: unknown compression, filter or "
+                         "interlace method")
     if width < 1 or height < 1:
         raise ImageError("bad PNG: empty image")
     if width * height > MAX_IMAGE_PIXELS:
@@ -227,51 +298,86 @@ def decode_png(data: bytes) -> np.ndarray:
                          f"{MAX_IMAGE_PIXELS}-pixel limit (a decompression "
                          f"bomb?)")
     ch = _CHANNELS[ctype]
+    need = _raw_size(width, height, ch * depth, interlace)
     try:
         # no more than the header's scanlines, however far the stream
         # would inflate
-        raw = zlib.decompressobj().decompress(b"".join(idat),
-                                              height * (width * ch + 1))
+        raw = zlib.decompressobj().decompress(b"".join(idat), need)
     except zlib.error as e:
         raise ImageError(f"bad PNG: {e}") from None
-    px = _unfilter(raw, height, width * ch, ch).reshape(height, width, ch)
+    if len(raw) < need:
+        raise ImageError("bad PNG: image data shorter than its header says")
+    px = _samples(raw, width, height, ch, depth, interlace)
     if ctype == 3:
         if palette is None:
             raise ImageError("bad PNG: palette image without PLTE")
         if int(px.max()) >= len(palette):
             raise ImageError("bad PNG: palette index out of range")
         return palette[px[..., 0]]
+    if depth == 16:
+        # colour keeps the high byte; grey is PIL's I;16, clipped
+        px = (np.minimum(px, 255) if ctype == 0 else px >> 8).astype(np.uint8)
+    elif depth < 8:
+        px = (px * (255 // ((1 << depth) - 1))).astype(np.uint8)
     if ctype in (0, 4):
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """Request image bytes -> ``[H, W, 3]`` uint8 RGB. PNG is read; any
-    other format raises :class:`ImageError` naming it."""
+    """Request image bytes -> ``[H, W, 3]`` uint8 RGB. PNG and JPEG are
+    read; any other format raises :class:`ImageError` naming it."""
     fmt = sniff_format(data)
     if fmt == "PNG":
         return decode_png(data)
+    if fmt == "JPEG":
+        # imported here: models.jpeg imports this module's ImageError
+        from .jpeg import decode_jpeg
+
+        return decode_jpeg(data)
     if fmt == "unknown":
-        raise ImageError("bad image: not a PNG file (unrecognised bytes)")
-    raise ImageError(f"{fmt} images are not supported yet (PNG only)")
+        raise ImageError("bad image: neither PNG nor JPEG (unrecognised "
+                         "bytes)")
+    raise ImageError(f"{fmt} images are not supported (PNG and JPEG only)")
 
 
-# -- Pillow's bilinear resize --------------------------------------------------
+# -- Pillow's resize -----------------------------------------------------------
 
 #: Pillow's fixed-point precision for 8-bit resampling (``Resample.c``)
 _PRECISION_BITS = 32 - 8 - 2
 
 
-def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray,
-                                                          np.ndarray]:
+def _triangle(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _cubic(x: float) -> float:
+    """Pillow's ``bicubic_filter``: the cubic convolution kernel with a =
+    -0.5."""
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+#: filter name -> (function, support)
+_FILTERS = {"bilinear": (_triangle, 1.0), "bicubic": (_cubic, 2.0)}
+
+
+def _coefficients(in_size: int, out_size: int, kind: str = "bilinear"
+                  ) -> Tuple[np.ndarray, np.ndarray]:
     """``(bounds [out, 2] (first input, count), kk [out, ksize] int)``:
-    Pillow's ``precompute_coeffs`` for the triangle filter (support 1)
-    over the whole input, normalized, then rounded to fixed point as
+    Pillow's ``precompute_coeffs`` for the filter ``kind`` over the whole
+    input, normalized, then rounded to fixed point as
     ``normalize_coeffs_8bpc`` rounds them."""
+    fn, fsupport = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = fsupport * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     bounds = np.zeros((out_size, 2), np.int64)
     kk = np.zeros((out_size, ksize), np.int64)
@@ -280,10 +386,7 @@ def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray,
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = []
-        for x in range(xmax):
-            t = abs((x + xmin - center + 0.5) * ss)
-            w.append(1.0 - t if t < 1.0 else 0.0)
+        w = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         total = sum(w)
         for x in range(xmax):
             v = w[x] / total if total != 0.0 else w[x]
@@ -293,13 +396,14 @@ def _coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray,
     return bounds, kk
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int,
+                   kind: str = "bilinear") -> np.ndarray:
     """One pass of Pillow's resample along ``axis`` (1: horizontal, 0:
     vertical) of a ``[H, W, C]`` uint8 array, rounded and clipped to 8
     bits. The sums are int32, as Pillow's are: the weights of an output
     sum to about ``2 ** 22``, so a sum stays under ``255 * 2 ** 22 + 2 **
     21``."""
-    bounds, kk = _coefficients(img.shape[axis], out_size)
+    bounds, kk = _coefficients(img.shape[axis], out_size, kind)
     shape = list(img.shape)
     shape[axis] = out_size
     acc = np.full(shape, 1 << (_PRECISION_BITS - 1), np.int32)
@@ -313,16 +417,29 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize_bilinear(img: np.ndarray, height: int, width: int) -> np.ndarray:
-    """``[H, W, C]`` uint8 -> ``[height, width, C]`` uint8, equal to
-    Pillow's ``Image.resize((width, height), Image.BILINEAR)``: the
-    horizontal pass first (only when the width changes), then the vertical
-    one (only when the height changes)."""
+def _resize(img: np.ndarray, height: int, width: int, kind: str
+            ) -> np.ndarray:
+    """The horizontal pass first (only when the width changes), then the
+    vertical one (only when the height changes), as ``ImagingResample``
+    orders them."""
     if img.dtype != np.uint8 or img.ndim != 3:
-        raise ValueError("resize_bilinear takes an [H, W, C] uint8 array")
+        raise ValueError(f"resize_{kind} takes an [H, W, C] uint8 array")
     out = img
     if width != img.shape[1]:
-        out = _resample_axis(out, width, 1)
+        out = _resample_axis(out, width, 1, kind)
     if height != img.shape[0]:
-        out = _resample_axis(out, height, 0)
+        out = _resample_axis(out, height, 0, kind)
     return np.ascontiguousarray(out)
+
+
+def resize_bilinear(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """``[H, W, C]`` uint8 -> ``[height, width, C]`` uint8, equal to
+    Pillow's ``Image.resize((width, height), Image.BILINEAR)``."""
+    return _resize(img, height, width, "bilinear")
+
+
+def resize_bicubic(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """``[H, W, C]`` uint8 -> ``[height, width, C]`` uint8, equal to
+    Pillow's ``Image.resize((width, height))`` (its default filter,
+    ``Image.BICUBIC``)."""
+    return _resize(img, height, width, "bicubic")

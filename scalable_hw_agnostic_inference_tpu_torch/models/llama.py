@@ -116,6 +116,15 @@ class LlamaConfig:
                    cross_attention_layers=(3, 8, 13, 18, 23, 28, 33, 38))
 
     @classmethod
+    def llava15_7b_text(cls) -> "LlamaConfig":
+        """LLaVA-1.5-7B's language model (Vicuna-7B-v1.5, Llama-2-7B's
+        shape): 32 heads over 32 (MHA), the 32,064-row vocabulary of
+        llava-1.5-7b-hf."""
+        return cls(vocab_size=32064, dim=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=32, mlp_dim=11008, max_seq_len=4096,
+                   rope_theta=10000.0, rms_eps=1e-5)
+
+    @classmethod
     def from_hf(cls, hf) -> "LlamaConfig":
         return cls(
             vocab_size=hf.vocab_size,
@@ -378,15 +387,20 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                cross: Optional[Tuple] = None) -> torch.Tensor:
+                cross: Optional[Tuple] = None,
+                prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``cross``: an mllama model's ``(cross_kv, has_image [B],
         cross_len [B])``, ``cross_kv`` from :meth:`project_cross`; None
-        gates every cross layer off (a text-only request)."""
-        B, T = ids.shape
+        gates every cross layer off (a text-only request). ``prefix``
+        ``[B, P, dim]``: soft embeddings ahead of the ids' (the soft-prefix
+        VLM's image tokens); the logits then cover ``P + T`` positions."""
+        x = self.embed.weight.to(self.dtype)[ids]
+        if prefix is not None:
+            x = torch.cat([prefix.to(x.device, self.dtype), x], dim=1)
+        B, T = x.shape[:2]
         if positions is None:
             positions = torch.arange(T, dtype=torch.int32,
                                      device=ids.device).expand(B, T)
-        x = self.embed.weight.to(self.dtype)[ids]
         ci = 0
         for layer in self.layers:
             if isinstance(layer, LlamaCrossBlock):

@@ -37,6 +37,9 @@ import torch
 from torch import nn
 
 from ..core.device import DeviceLike, resolve_device
+from .encoder import Dense as _Linear
+from .encoder import LayerNorm as _LayerNorm
+from .encoder import param as _param
 from .imageio import resize_bilinear
 from .llama import _to_torch
 
@@ -109,41 +112,6 @@ class MllamaVisionConfig:
             intermediate_layers_indices=tuple(v.intermediate_layers_indices),
             norm_eps=getattr(v, "norm_eps", 1e-5),
         )
-
-
-def _param(shape, dtype, device, fill: float = 0.0) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, fill, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
-class _Linear(nn.Module):
-    """A dense layer ``x @ W^T (+ b)`` in ``x``'s dtype (``weight [out,
-    in]``, the HF layout)."""
-
-    def __init__(self, n_in: int, n_out: int, bias: bool, dtype, device):
-        super().__init__()
-        self.weight = _param((n_out, n_in), dtype, device)
-        self.bias = _param((n_out,), dtype, device) if bias else None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return nn.functional.linear(x, self.weight.to(x.dtype), b)
-
-
-class _LayerNorm(nn.Module):
-    """LayerNorm in fp32, cast to ``out_dtype`` (flax ``LayerNorm(dtype=
-    f32)`` then ``.astype``)."""
-
-    def __init__(self, dim: int, eps: float, dtype, device):
-        super().__init__()
-        self.eps = eps
-        self.weight = _param((dim,), dtype, device, 1.0)
-        self.bias = _param((dim,), dtype, device)
-
-    def forward(self, x: torch.Tensor, out_dtype) -> torch.Tensor:
-        return nn.functional.layer_norm(
-            x.float(), x.shape[-1:], self.weight.float(), self.bias.float(),
-            self.eps).to(out_dtype)
 
 
 class _VisionBlock(nn.Module):

@@ -1,5 +1,6 @@
-"""A byte-level BPE tokenizer read from ``tokenizer.json``: the Llama-3
-family's.
+"""BPE tokenizers read from ``tokenizer.json``: the Llama-3 family's
+byte-level one, and the SentencePiece-style one of Llama-2, Vicuna and
+LLaVA-1.5.
 
 The JAX package tokenizes a checkpoint's text through ``transformers``
 (``serve/units/common.py:127`` ``_hf_tokenizer``, ``AutoTokenizer``),
@@ -29,10 +30,30 @@ tokenizer does for the Llama-3 layout:
   ``tokenizer_config.json`` (``special_tokens_map.json`` where it is
   silent).
 
-Anything else raises, naming what is missing: another pre-tokenizer or
-regex, a normalizer, a SentencePiece-style model (``Metaspace`` with byte
-fallback, e.g. Mistral's), BPE dropout or word affixes, added tokens that
-strip or match whole words only.
+The SentencePiece-style layout (``SP_SPACE``, "▁", stands for a space),
+in either of its two spellings:
+
+- the legacy one: the normalizer ``Sequence[Prepend("▁"), Replace(" ",
+  "▁")]`` and no pre-tokenizer: each stretch of text between added tokens
+  is one word, "▁" prepended;
+- the ``Metaspace`` pre-tokenizer (``replacement`` "▁", ``prepend_scheme``
+  ``first``, ``always`` or ``never``, ``split`` true or false) and no
+  normalizer: ``first`` prepends only to the stretch at the start of the
+  text, ``split`` cuts a word before each "▁";
+
+then BPE with ``byte_fallback`` (a character outside the vocabulary
+becomes its UTF-8 bytes as ``<0xXX>`` tokens) and ``unk_token`` with
+``fuse_unk``; added tokens with their ``normalized`` flags (a normalized
+one is matched in the normalized text, its own content normalized alike);
+and the decoders ``Replace``, ``ByteFallback`` (a run of byte tokens that
+is not UTF-8 gives one U+FFFD a byte, as ``tokenizers`` gives it),
+``Fuse``, ``Strip`` and ``Metaspace``, chained as ``tokenizer.json`` lists
+them. A ``LlamaTokenizerFast`` config rebuilds the template from its
+``add_bos_token`` and ``add_eos_token``, as ``transformers`` does.
+
+Anything else raises, naming what is missing: another pre-tokenizer,
+normalizer, decoder or regex, a Unigram or WordPiece model, BPE dropout or
+word affixes, added tokens that strip or match whole words only.
 """
 
 from __future__ import annotations
@@ -52,6 +73,9 @@ LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|"
 WHITE_SPACE = frozenset(map(chr, (
     *range(0x09, 0x0E), 0x20, 0x85, 0xA0, 0x1680, *range(0x2000, 0x200B),
     0x2028, 0x2029, 0x202F, 0x205F, 0x3000)))
+
+#: SentencePiece's visible space
+SP_SPACE = "\u2581"
 
 #: the contraction alternatives in order, as case-folded tails after "'"
 #: (``(?i:...)``: "S", and U+017F, fold to "s")
@@ -160,6 +184,102 @@ def clean_up_tokenization(text: str) -> str:
             .replace(" 're", "'re"))
 
 
+def _byte_fallback(tokens: List[str]) -> List[str]:
+    """The ``ByteFallback`` decoder: each run of ``<0xXX>`` tokens becomes
+    its UTF-8 text, or one U+FFFD a byte when it is not UTF-8."""
+    out: List[str] = []
+    run = bytearray()
+    for t in tokens + [None]:
+        if t is not None and len(t) == 6 and t.startswith("<0x") \
+                and t.endswith(">"):
+            try:
+                run.append(int(t[3:5], 16))
+                continue
+            except ValueError:
+                pass
+        if run:
+            try:
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("\ufffd" * len(run))
+            run = bytearray()
+        if t is not None:
+            out.append(t)
+    return out
+
+
+def _strip(t: str, ch: str, start: int, stop: int) -> str:
+    """The ``Strip`` decoder: up to ``start`` leading and ``stop``
+    trailing ``ch``."""
+    a = 0
+    while a < min(start, len(t)) and t[a] == ch:
+        a += 1
+    b = len(t)
+    while len(t) - b < stop and b > a and t[b - 1] == ch:
+        b -= 1
+    return t[a:b]
+
+
+#: the decoders a SentencePiece-style tokenizer.json may chain
+_SP_DECODERS = ("Replace", "ByteFallback", "Fuse", "Strip", "Metaspace")
+
+
+def _sp_pipeline(spec: Dict) -> Optional[Dict]:
+    """The SentencePiece-style settings of ``spec`` (see the module note),
+    None when its pipeline is not that layout (the byte-level checks then
+    name what is missing); raises, naming it, for a SentencePiece-style
+    spec with a part this module does not take."""
+    model = spec.get("model") or {}
+    norm = spec.get("normalizer")
+    pre = spec.get("pre_tokenizer")
+    sp = None
+    if pre is None and norm is not None:
+        steps = norm.get("normalizers", []) if norm.get("type") == \
+            "Sequence" else [norm]
+        if [n.get("type") for n in steps] == ["Prepend", "Replace"] \
+                and steps[0].get("prepend") == SP_SPACE \
+                and steps[1].get("pattern") == {"String": " "} \
+                and steps[1].get("content") == SP_SPACE:
+            sp = {"kind": "legacy"}
+    elif norm is None and (pre or {}).get("type") == "Metaspace":
+        scheme = pre.get("prepend_scheme")
+        if scheme is None:      # the older spelling
+            scheme = "always" if pre.get("add_prefix_space", True) \
+                else "never"
+        if pre.get("replacement", SP_SPACE) != SP_SPACE or scheme not in (
+                "first", "always", "never"):
+            raise ValueError(f"tokenizer.json: not ported: Metaspace "
+                             f"{pre}")
+        sp = {"kind": "metaspace", "prepend_scheme": scheme,
+              "split": bool(pre.get("split", True))}
+    if sp is None:
+        return None
+    missing = []
+    if model.get("type") != "BPE":
+        missing.append(f"model {model.get('type')!r} (only BPE)")
+    if model.get("dropout") or model.get("continuing_subword_prefix") or \
+            model.get("end_of_word_suffix"):
+        missing.append("BPE dropout or word prefixes and suffixes")
+    dec = spec.get("decoder") or {}
+    dsteps = dec.get("decoders", []) if dec.get("type") == "Sequence" \
+        else [dec]
+    for d in dsteps:
+        kind = d.get("type")
+        ok = kind in _SP_DECODERS
+        if kind == "Replace":
+            ok = isinstance(d.get("pattern"), dict) and isinstance(
+                d["pattern"].get("String"), str) and "content" in d
+        elif kind == "Strip":
+            ok = all(k in d for k in ("content", "start", "stop"))
+        if not ok:
+            missing.append(f"decoder {d}")
+    if missing:
+        raise ValueError("tokenizer.json: not ported (SentencePiece-style): "
+                         + "; ".join(missing))
+    sp["decoders"] = dsteps
+    return sp
+
+
 def _token_content(v) -> Optional[str]:
     if v is None or isinstance(v, str):
         return v
@@ -173,7 +293,10 @@ class BpeTokenizer:
 
     def __init__(self, spec: Dict, config: Optional[Dict] = None):
         config = config or {}
-        self._check_pipeline(spec)
+        #: the SentencePiece-style pipeline's settings, None for byte-level
+        self.sp = _sp_pipeline(spec)
+        if self.sp is None:
+            self._check_pipeline(spec)
         model = spec["model"]
         self.vocab: Dict[str, int] = dict(model["vocab"])
         self.ignore_merges = bool(model.get("ignore_merges", False))
@@ -182,17 +305,31 @@ class BpeTokenizer:
             a, b = m.split(" ", 1) if isinstance(m, str) else m
             self.merges[(self.vocab[a], self.vocab[b])] = (
                 rank, self.vocab[a + b])
+        self.unk_id = (self.vocab.get(model["unk_token"])
+                       if model.get("unk_token") is not None else None)
+        self.byte_fallback = bool(model.get("byte_fallback"))
+        self.fuse_unk = bool(model.get("fuse_unk"))
+        #: added tokens matched in the raw text, and (SentencePiece-style)
+        #: the normalized ones, by their normalized content
         self.added: Dict[str, int] = {}
+        self.added_norm: Dict[str, int] = {}
         self.special_ids = set()
+        added_ids: Dict[str, int] = {}
         for t in spec.get("added_tokens") or []:
             if t.get("lstrip") or t.get("rstrip") or t.get("single_word"):
                 raise ValueError(f"added token {t['content']!r}: lstrip, "
                                  f"rstrip and single_word are not ported")
-            self.added[t["content"]] = t["id"]
+            added_ids[t["content"]] = t["id"]
+            normalized = t.get("normalized", not t.get("special"))
+            if self.sp is not None and normalized:
+                self.added_norm[self._normalize(t["content"])] = t["id"]
+            else:
+                self.added[t["content"]] = t["id"]
             if t.get("special"):
                 self.special_ids.add(t["id"])
         self.id_to_token = {i: s for s, i in self.vocab.items()}
-        self.id_to_token.update({i: s for s, i in self.added.items()})
+        self.id_to_token.update({i: s for s, i in added_ids.items()})
+        self._added_ids = added_ids
         self._template = self._parse_template(spec.get("post_processor"))
         self.truncation_side = config.get("truncation_side", "right")
         self.clean_up_spaces = bool(config.get(
@@ -201,6 +338,15 @@ class BpeTokenizer:
         self.bos_token_id = self._token_id(config.get("bos_token"))
         self.eos_token_id = self._token_id(config.get("eos_token"))
         self.pad_token_id = self._token_id(config.get("pad_token"))
+        if str(config.get("tokenizer_class", "")).startswith(
+                "LlamaTokenizer"):
+            # LlamaTokenizerFast.update_post_processor: the template is
+            # BOS (add_bos_token, default on) $A EOS (add_eos_token, off)
+            self._template = (
+                [self.bos_token_id] if config.get("add_bos_token", True)
+                and self.bos_token_id is not None else [],
+                [self.eos_token_id] if config.get("add_eos_token", False)
+                and self.eos_token_id is not None else [])
 
     @classmethod
     def from_dir(cls, path: Union[str, Path]) -> "BpeTokenizer":
@@ -297,40 +443,127 @@ class BpeTokenizer:
         content = _token_content(token)
         if content is None:
             return None
-        if content in self.added:
-            return self.added[content]
+        if content in self._added_ids:
+            return self._added_ids[content]
         return self.vocab.get(content)
 
-    def _split_added(self, text: str) -> List[Tuple[bool, str]]:
-        """``(is an added token, text)`` segments: added tokens matched in
-        the raw text, leftmost first and the longest at a position."""
-        out: List[Tuple[bool, str]] = []
-        if not self.added:
-            return [(False, text)] if text else []
+    def _split_added(self, text: str, added: Optional[Dict[str, int]] = None
+                     ) -> List[Tuple[bool, str, int]]:
+        """``(is an added token, text, offset)`` segments: the ``added``
+        tokens (the raw-matched ones by default) matched in ``text``,
+        leftmost first and the longest at a position."""
+        added = self.added if added is None else added
+        out: List[Tuple[bool, str, int]] = []
+        if not added:
+            return [(False, text, 0)] if text else []
         i = start = 0
         n = len(text)
         while i < n:
-            best = max((t for t in self.added if text.startswith(t, i)),
+            best = max((t for t in added if text.startswith(t, i)),
                        key=len, default=None)
             if best is None:
                 i += 1
                 continue
             if i > start:
-                out.append((False, text[start:i]))
-            out.append((True, best))
+                out.append((False, text[start:i], start))
+            out.append((True, best, i))
             i = start = i + len(best)
         if start < n:
-            out.append((False, text[start:]))
+            out.append((False, text[start:], start))
         return out
 
+    # -- the SentencePiece-style pipeline ------------------------------------
+
+    def _normalize(self, text: str) -> str:
+        """The legacy normalizer (Prepend "▁" to a non-empty text, then
+        every space to "▁"); the identity under ``Metaspace``."""
+        if self.sp["kind"] != "legacy" or not text:
+            return text
+        return (SP_SPACE + text).replace(" ", SP_SPACE)
+
+    def _sp_words(self, piece: str, offset: int) -> List[str]:
+        """A normalized stretch -> the BPE model's words: the legacy form
+        takes it whole; ``Metaspace`` replaces spaces, prepends "▁" as
+        its scheme says (``first``: only at offset 0 of the text) and, with
+        ``split``, cuts before each "▁"."""
+        sp = self.sp
+        if sp["kind"] == "legacy":
+            return [piece] if piece else []
+        s = piece.replace(" ", SP_SPACE)
+        scheme = sp["prepend_scheme"]
+        if not s.startswith(SP_SPACE) and (
+                scheme == "always" or (scheme == "first" and offset == 0)):
+            s = SP_SPACE + s
+        if not sp["split"]:
+            return [s] if s else []
+        cuts = [i for i, c in enumerate(s) if c == SP_SPACE and i] + [len(s)]
+        words, start = [], 0
+        for c in cuts:
+            if c > start:
+                words.append(s[start:c])
+            start = c
+        return words
+
+    def _initial(self, word: str) -> List[int]:
+        """A word's ids before the merges (``BPE::merge_word``): a
+        character in the vocabulary is its token; else, with
+        ``byte_fallback``, its UTF-8 bytes as ``<0xXX>`` tokens when all
+        are in the vocabulary; else ``unk`` (runs fused under
+        ``fuse_unk``), or nothing without an ``unk_token``."""
+        ids: List[int] = []
+        unk_run = False
+        for c in word:
+            tid = self.vocab.get(c)
+            if tid is not None:
+                ids.append(tid)
+                unk_run = False
+                continue
+            if self.byte_fallback:
+                bts = [self.vocab.get(f"<0x{b:02X}>")
+                       for b in c.encode("utf-8")]
+                if all(t is not None for t in bts):
+                    ids.extend(bts)
+                    unk_run = False
+                    continue
+            if self.unk_id is not None:
+                if not (unk_run and self.fuse_unk):
+                    ids.append(self.unk_id)
+                unk_run = True
+        return ids
+
+    def _decode_sp(self, tokens: List[str]) -> str:
+        """``tokenizer.json``'s decoders in their order over the token
+        strings, then joined."""
+        for d in self.sp["decoders"]:
+            kind = d["type"]
+            if kind == "Replace":
+                pat, to = d["pattern"]["String"], d["content"]
+                tokens = [t.replace(pat, to) for t in tokens]
+            elif kind == "ByteFallback":
+                tokens = _byte_fallback(tokens)
+            elif kind == "Fuse":
+                tokens = ["".join(tokens)]
+            elif kind == "Strip":
+                tokens = [_strip(t, d["content"], d["start"], d["stop"])
+                          for t in tokens]
+            else:   # Metaspace
+                rep, never = d.get("replacement", SP_SPACE), \
+                    d.get("prepend_scheme") == "never"
+                tokens = [t.replace(rep, "" if i == 0 and not never
+                                    else " ") for i, t in enumerate(tokens)]
+        return "".join(tokens)
+
     def _bpe(self, piece: str) -> List[int]:
-        """One pre-tokenized piece (ByteLevel characters) -> ids, merged as
-        the ``tokenizers`` BPE model merges: a heap of (rank, position),
-        stale entries skipped when their pair no longer makes the same
-        token."""
+        """One pre-tokenized piece (ByteLevel characters, or a
+        SentencePiece-style word) -> ids, merged as the ``tokenizers`` BPE
+        model merges: a heap of (rank, position), stale entries skipped
+        when their pair no longer makes the same token."""
         if self.ignore_merges and piece in self.vocab:
             return [self.vocab[piece]]
-        ids = [self.vocab[c] for c in piece if c in self.vocab]
+        if self.sp is not None:
+            ids = self._initial(piece)
+        else:
+            ids = [self.vocab[c] for c in piece if c in self.vocab]
         n = len(ids)
         nxt = list(range(1, n)) + [-1]
         prv = list(range(-1, n - 1))
@@ -372,13 +605,21 @@ class BpeTokenizer:
         ``truncation_side``) so that the ids, template tokens included,
         number at most ``max_length``."""
         ids: List[int] = []
-        for is_added, seg in self._split_added(text):
+        for is_added, seg, off in self._split_added(text):
             if is_added:
                 ids.append(self.added[seg])
-                continue
-            for piece in pre_tokenize(seg):
-                ids.extend(self._bpe("".join(
-                    BYTE_TO_CHAR[b] for b in piece.encode("utf-8"))))
+            elif self.sp is not None:
+                for is_norm, piece, off2 in self._split_added(
+                        self._normalize(seg), self.added_norm):
+                    if is_norm:
+                        ids.append(self.added_norm[piece])
+                        continue
+                    for word in self._sp_words(piece, off + off2):
+                        ids.extend(self._bpe(word))
+            else:
+                for piece in pre_tokenize(seg):
+                    ids.extend(self._bpe("".join(
+                        BYTE_TO_CHAR[b] for b in piece.encode("utf-8"))))
         before, after = self._template if add_special_tokens else ([], [])
         if max_length is not None:
             keep = max(0, max_length - len(before) - len(after))
@@ -390,7 +631,15 @@ class BpeTokenizer:
                skip_special_tokens: bool = True) -> str:
         """Text of ``ids``: the ByteLevel decoder (a token whose characters
         are not all in its table contributes its own UTF-8), U+FFFD for
-        invalid UTF-8, then the clean-up the config asks for."""
+        invalid UTF-8, or the SentencePiece-style decoders; then the
+        clean-up the config asks for."""
+        if self.sp is not None:
+            toks = [self.id_to_token[int(i)] for i in ids
+                    if int(i) in self.id_to_token and not (
+                        skip_special_tokens and int(i) in self.special_ids)]
+            text = self._decode_sp(toks)
+            return clean_up_tokenization(text) if self.clean_up_spaces \
+                else text
         data = bytearray()
         for i in ids:
             i = int(i)

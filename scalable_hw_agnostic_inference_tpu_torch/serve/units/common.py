@@ -1,11 +1,43 @@
-"""Shared per-unit helpers: SSE detokenization.
+"""Shared per-unit helpers: SSE detokenization and request images.
 
 Trimmed copy of ``scalable_hw_agnostic_inference_tpu/serve/units/common.py``
-(``SseTextAssembler``, ``:43``). The tokenizer helpers and the image
-decoding come with the units that use them.
+(``SseTextAssembler``, ``:43``; ``decode_image``, ``:180``). The tokenizer
+helpers come with the units that use them.
 """
 
 from __future__ import annotations
+
+import base64
+import binascii
+from typing import Any, Dict
+
+import numpy as np
+
+from ...models import imageio
+
+
+def decode_image(payload: Dict[str, Any], size: int) -> np.ndarray:
+    """A request's ``image_b64`` (base64 PNG or JPEG, or ``"random"``) ->
+    normalized NHWC ``[1, size, size, 3]`` f32, the reference's
+    ``decode_image``: ``"random"`` (or none) is ``default_rng(0)``'s
+    standard normals, unnormalized; an image is decoded to RGB as PIL's
+    ``open(...).convert("RGB")`` gives it, resized as PIL's default
+    ``resize((size, size))`` does (bicubic), scaled to [0, 1] and
+    normalized by HF CLIP's 0.5/0.5, all through ``models.imageio``.
+    Bytes that are no base64, or no image it reads, raise
+    ``imageio.ImageError``."""
+    b64 = payload.get("image_b64", "")
+    if not b64 or b64 == "random":
+        rng = np.random.default_rng(0)
+        return rng.standard_normal((1, size, size, 3)).astype(np.float32)
+    try:
+        # not validated, as the reference decodes it: characters outside
+        # the alphabet (line breaks) are skipped
+        data = base64.b64decode(str(b64))
+    except (binascii.Error, ValueError) as e:
+        raise imageio.ImageError(f"not base64 ({e})") from None
+    img = imageio.resize_bicubic(imageio.decode_image(data), size, size)
+    return ((img.astype(np.float32) / 255.0 - 0.5) / 0.5)[None]
 
 
 class SseTextAssembler:

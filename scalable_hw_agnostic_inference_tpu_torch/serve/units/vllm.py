@@ -79,14 +79,29 @@ with its cross layers, the tiled vision encoder and the projector
 (``models.convert.load_mllama_checkpoint``, ``models.mllama``) and an
 engine with ``cross_seq_len = max_num_tiles x (patches + 1)``; the vision
 front-end encodes one image before readiness, beside the engine's warmup.
-A ``/generate`` carrying ``image_b64`` (base64 PNG bytes, or ``"random"``:
-the reference's seeded 560 x 560 image) is decoded without PIL
-(``models.imageio``), tiled, encoded into ``(cross_states, n_tiles x
-(patches + 1))`` and submitted with the prompt; a JPEG, a 16-bit or an
-interlaced PNG, or bytes that are no image answer 400 with a message
-naming what was sent, as does an image sent to a text model. A text-only
-request through an mllama pod is served with its cross layers gated off.
-The soft-prefix VLM (the reference's ``:246-266``) is not ported.
+A ``/generate`` carrying ``image_b64`` (base64 PNG or JPEG bytes, or
+``"random"``: the reference's seeded 560 x 560 image) is decoded without
+PIL (``models.imageio``, ``models.jpeg``), tiled, encoded into
+``(cross_states, n_tiles x (patches + 1))`` and submitted with the prompt.
+A text-only request through an mllama pod is served with its cross layers
+gated off.
+
+The soft-prefix VLM (the reference's ``:150-165,242-279,525-542``): a
+checkpoint directory whose ``config.json`` names ``model_type: "llava"``
+boots the language model, the CLIP tower and the projector
+(``models.convert.load_llava_checkpoint``, ``models.vlm``; bf16 on the
+device) and the engine; the ``tiny`` tier always carries a seeded tiny
+tower (fp32, on the CPU; a ``weights`` callable hands it the caller's
+under ``vision.`` names), as the reference's does. The tower runs once on
+zeros before readiness, and the warmed set holds the soft-prefix prefill
+(``warm_executables([0, n_patches])``). A ``/generate`` with
+``image_b64`` is decoded, resized bicubic and normalized
+(``common.decode_image``), run through the tower into a ``[n_patches,
+dim]`` prefix, its text head-kept to the largest bucket less the prefix,
+and submitted with ``prefix=``. An image this decoder does not read
+(arithmetic-coded, lossless or 12-bit JPEG, CMYK, GIF, WebP, bytes that
+are no image or no base64) answers 400 naming what was sent, as does an
+image sent to a model without a tower.
 """
 
 from __future__ import annotations
@@ -115,9 +130,12 @@ from ...kvnet import resolve_role
 from ...kvtier.affinity import AffinityTracker, prompt_affinity
 from ...models.generate import ByteTokenizer
 from ...models import mllama as mllama_mod
+from ...models import vlm as vlm_mod
 from ...models.convert import (
+    is_llava_dir,
     is_mllama_dir,
     load_hf_checkpoint,
+    load_llava_checkpoint,
     load_mllama_checkpoint,
 )
 from ...models.imageio import ImageError, decode_image
@@ -137,7 +155,7 @@ from ...resilience.drain import StepWatchdog
 from ...utils.env import ServeConfig, env_float, env_str
 from ..app import ModelService
 from ..asgi import HTTPError, StreamingResponse
-from .common import SseTextAssembler
+from .common import SseTextAssembler, decode_image as decode_pixels
 
 log = logging.getLogger(__name__)
 
@@ -201,6 +219,9 @@ class VllmService(ModelService):
         # mllama: (vision config, encode(img) -> (states, n_valid), Lv),
         # None for a text model; one image encodes at a time
         self._mllama = None
+        # the soft-prefix VLM: (tower config, VisionProjector), None for a
+        # model without a tower
+        self._vision = None
         self._vision_lock = threading.Lock()
         #: seconds the vision front-end took to encode its warm image
         self.vision_warm_seconds = 0.0
@@ -236,7 +257,7 @@ class VllmService(ModelService):
         device = resolve_device(cfg.device)
         model_id = ecfg.model or cfg.model_id
         quant = ecfg.quantization == "int8"
-        state = None
+        state = vstate = None
         self.tokenizer = ByteTokenizer()
         self.eos_id = ByteTokenizer.eos_id
         if model_id in ("", "tiny"):
@@ -270,6 +291,13 @@ class VllmService(ModelService):
                     model_id, device, quantize=quant)
                 self._mllama = self._vision_front_end(vcfg, mcfg.dim,
                                                       vstate, meta)
+            elif is_llava_dir(model_id):
+                # the tower and projector in bf16 on the device, as the
+                # reference's VisionProjector(dtype=bfloat16)
+                mcfg, state, vcfg, vstate = load_llava_checkpoint(
+                    model_id, device, quantize=quant)
+                self._vision = (vcfg, vlm_mod.build(vcfg, vstate,
+                                                    dtype=torch.bfloat16))
             else:
                 mcfg, state = load_hf_checkpoint(model_id, device,
                                                  quantize=quant)
@@ -295,6 +323,9 @@ class VllmService(ModelService):
         if state is None:   # a checkpoint's came quantized as it loaded
             if self._weights is not None:
                 state = self._weights(mcfg, device)
+                # the tiny tier's tower rides along under "vision."
+                vstate = {k[len("vision."):]: state.pop(k)
+                          for k in list(state) if k.startswith("vision.")}
             elif model_id in GEOMETRY_MODELS:
                 # born int8 under quantization: an 8B tier never exists in
                 # bf16 (quantize_state_dict then finds nothing to convert)
@@ -305,6 +336,16 @@ class VllmService(ModelService):
                                       device=device)
             if quant:
                 state = quantize_state_dict(state)
+        if model_id in ("", "tiny"):
+            # the tiny tier always carries a tower (the reference's
+            # :254-261): seeded f32 on the CPU, or the caller's weights
+            vcfg = vlm_mod.VisionTowerConfig.tiny(lm_dim=mcfg.dim)
+            if not vstate:
+                vstate = vlm_mod.random_params(vcfg, cfg.seed + 9,
+                                               dtype=torch.float32,
+                                               device=device)
+            self._vision = (vcfg, vlm_mod.build(vcfg, vstate,
+                                                dtype=torch.float32))
         self.ecfg = ecfg
         model = LlamaForCausalLM.from_state_dict(mcfg, state)
         engine = LLMEngine(
@@ -320,15 +361,28 @@ class VllmService(ModelService):
             if device.type == "cuda":   # the encode's work, not its launch
                 torch.cuda.synchronize(device)
             self.vision_warm_seconds = time.monotonic() - t0
+        prefix_lens = [0]
+        if self._vision is not None:
+            # so is the tower: one run on zeros before readiness
+            t0 = time.monotonic()
+            vcfg, tower = self._vision
+            with torch.inference_mode():
+                tower(torch.zeros((1, vcfg.image_size, vcfg.image_size, 3),
+                                  device=device))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            self.vision_warm_seconds = time.monotonic() - t0
+            prefix_lens.append(vcfg.n_patches)
         # build the CLOSED executable set (every prefill bucket and batch
         # size, the continuation keys, every decode key captured as a CUDA
         # graph) BEFORE the engine loop starts serving, so no request
         # after readiness builds one
         t0 = time.monotonic()
-        n = engine.warm_executables()
+        n = engine.warm_executables(prefix_lens)
         self.warm_seconds = time.monotonic() - t0
-        log.info("engine: warmed %d executables in %.1f s (buckets=%s)", n,
-                 self.warm_seconds, list(engine.buckets.buckets))
+        log.info("engine: warmed %d executables in %.1f s (buckets=%s, "
+                 "prefixes=%s)", n, self.warm_seconds,
+                 list(engine.buckets.buckets), prefix_lens)
         self._engine = engine
         self._SamplingParams = SamplingParams
         # the network KV plane: with a host tier, /kv/blocks serves it and
@@ -369,13 +423,24 @@ class VllmService(ModelService):
 
         return vcfg, encode, vcfg.cross_seq_len
 
+    def _image_prefix(self, payload) -> torch.Tensor:
+        """A request's ``image_b64`` -> the soft prefix ``[n_patches,
+        dim]`` f32 on the device: decoded, resized to the tower's size
+        (bicubic) and normalized (``decode_image``, the reference's
+        ``common.py:180-200``), then the tower and the projector; 400 for
+        an image this decoder does not take."""
+        vcfg, tower = self._vision
+        try:
+            px = decode_pixels(payload, vcfg.image_size)
+        except ImageError as e:
+            raise HTTPError(400, f"bad image_b64: {e}")
+        with obs_trace.span("vision_encode"), self._vision_lock, \
+                torch.inference_mode():
+            return tower(torch.from_numpy(px).to(tower.device))[0]
+
     def _image_states(self, b64):
-        """A request's ``image_b64`` -> ``(cross_states, cross_len)``;
-        400 for an image this deployment or this decoder does not take."""
-        if self._mllama is None:
-            raise HTTPError(400, "this deployment's model has no vision "
-                                 "tower; multimodal requests need an "
-                                 "mllama checkpoint")
+        """An mllama request's ``image_b64`` -> ``(cross_states,
+        cross_len)``; 400 for an image this decoder does not take."""
         vcfg, encode, _ = self._mllama
         if b64 == "random":   # the benchmark and warm contract
             img = mllama_mod.random_image(vcfg)
@@ -568,10 +633,25 @@ class VllmService(ModelService):
                                payload.get("kv_hashes_len"), ids,
                                prompt=prompt,
                                digest=str(payload.get("kv_digest") or ""))
-        cross = {}
+        image = {}
         if payload.get("image_b64"):
-            states, n_valid = self._image_states(payload["image_b64"])
-            cross = {"cross_states": states, "cross_len": n_valid}
+            if self._mllama is not None:
+                states, n_valid = self._image_states(payload["image_b64"])
+                image = {"cross_states": states, "cross_len": n_valid}
+            elif self._vision is not None:
+                prefix = self._image_prefix(payload)
+                # a soft-prefix request is bucket-bound (one prefill):
+                # head-keep the text here, the tokenizer's truncation side,
+                # so that the engine does not cut its tail
+                max_text = self._engine.buckets.max - int(prefix.shape[0])
+                if max_text < 1:
+                    raise HTTPError(400, "image prefix leaves no prompt room")
+                ids = ids[:max_text]
+                image = {"prefix": prefix}
+            else:
+                raise HTTPError(400, "this deployment's model has no vision "
+                                     "tower; multimodal requests need a VLM "
+                                     "unit")
         # the KV fabric: a holder slice riding the payload is a hint the
         # engine's probe tries under its budget; bounded and stringified
         # here, each URL checked by the transport's allowlist
@@ -582,7 +662,7 @@ class VllmService(ModelService):
             ids, params, deadline_at=self._deadline_at(),
             traceparent=obs_trace.current_traceparent() or "",
             idem_key=str(payload.get("idem_key") or ""),
-            kv_holders=kv_holders, **cross, **self._qos_kw()))
+            kv_holders=kv_holders, **image, **self._qos_kw()))
         if self._engine.cache.prefix_caching:
             # advertise warmth only for /generate, after it served
             self._note_affinity(prompt, ids)

@@ -25,7 +25,8 @@ its BOS template and special tokens. What is held:
   the same ``/v1/chat/completions`` fallback prompt; a ``chat_template``
   makes the port's chat route 501;
 - what is not ported raises, naming it: a hub id, a directory of
-  ``pytorch_model.bin`` only, a SentencePiece-style ``tokenizer.json``.
+  ``pytorch_model.bin`` only, a SentencePiece-style ``tokenizer.json``
+  whose ``Replace`` decoder has no pattern.
 """
 
 import json
@@ -331,11 +332,14 @@ def test_what_is_not_ported_raises(ckpts, tmp_path):
     (bins / "pytorch_model.bin").write_bytes(b"\0" * 16)
     with pytest.raises(ValueError, match="pytorch_model.bin"):
         convert.load_hf_checkpoint(bins, "cpu")
+    # a SentencePiece-style spec is read since the soft-prefix slice
+    # (tests/test_torch_sp_tokenizer.py); a Replace decoder without its
+    # pattern is not, and is named
     spec = json.loads((ckpts["single"] / "tokenizer.json").read_text())
     spec["pre_tokenizer"] = {"type": "Metaspace", "replacement": "▁",
                              "prepend_scheme": "first", "split": False}
     spec["decoder"] = {"type": "Sequence", "decoders": [
         {"type": "Replace"}, {"type": "ByteFallback"}, {"type": "Fuse"}]}
     spec["model"]["byte_fallback"] = True
-    with pytest.raises(ValueError, match="not ported.*byte_fallback"):
+    with pytest.raises(ValueError, match="not ported.*decoder.*Replace"):
         BpeTokenizer(spec)

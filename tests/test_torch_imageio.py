@@ -16,8 +16,11 @@ CPU.
 - an image over Pillow's decompression-bomb limit is refused from its
   header, and a stream that would inflate far past its header is inflated
   no further;
-- what is not read raises ``ImageError`` naming it: JPEG, GIF, 16-bit and
-  interlaced PNGs, bytes that are no image, a corrupted chunk.
+- what is not read raises ``ImageError`` naming it: a CMYK JPEG, GIF, a
+  PNG of a bit depth its colour type does not allow or of an unknown
+  interlace method, bytes that are no image, a corrupted chunk (JPEG,
+  16-bit and interlaced PNG are read since the soft-prefix slice:
+  ``tests/test_torch_jpeg.py``).
 """
 
 import io
@@ -214,7 +217,7 @@ def test_random_image_is_the_reference_contract():
 
 def _jpeg() -> bytes:
     buf = io.BytesIO()
-    Image.new("RGB", (16, 16), (200, 30, 30)).save(buf, format="JPEG")
+    Image.new("CMYK", (16, 16), (200, 30, 30, 9)).save(buf, format="JPEG")
     return buf.getvalue()
 
 
@@ -225,10 +228,8 @@ def _gif() -> bytes:
 
 
 def _png16() -> bytes:
-    buf = io.BytesIO()
-    Image.fromarray(np.full((5, 5), 40000, np.uint16)).save(buf,
-                                                            format="PNG")
-    return buf.getvalue()
+    """An RGB PNG of 4-bit samples, a depth colour type 2 does not allow."""
+    return _write_png(np.zeros((4, 4, 3), np.uint8), 2, depth=4)
 
 
 def _corrupt() -> bytes:
@@ -238,12 +239,12 @@ def _corrupt() -> bytes:
 
 
 @pytest.mark.parametrize("make,words", [
-    (_jpeg, "JPEG images are not supported"),
+    (_jpeg, "CMYK/YCCK .4-component. JPEG images are not supported"),
     (_gif, "GIF images are not supported"),
-    (_png16, "16-bit PNG"),
-    (lambda: _write_png(np.zeros((4, 4, 3), np.uint8), 2, interlace=1),
-     "interlaced"),
-    (lambda: b"not an image at all", "not a PNG"),
+    (_png16, "bit depth 4 for colour type 2"),
+    (lambda: _write_png(np.zeros((4, 4, 3), np.uint8), 2, interlace=2),
+     "interlace method"),
+    (lambda: b"not an image at all", "neither PNG nor JPEG"),
     (_corrupt, "CRC"),
 ])
 def test_what_is_not_read_raises(make, words):

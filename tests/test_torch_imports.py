@@ -427,3 +427,24 @@ def test_kvnet_modules_are_scanned_and_load_no_jax_or_httpx():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_soft_prefix_modules_are_scanned_and_default_to_the_card(no_cuda):
+    """The soft-prefix slice's modules (the encoder blocks, the tower and
+    projector, the JPEG decoder, the request image path) are among those
+    scanned, import nothing refused, and the tower's constructors run on the
+    card unless they are given the CPU."""
+    from scalable_hw_agnostic_inference_tpu_torch.models import vlm
+
+    names = dict((n, p) for p, n in _modules())
+    new = [f"scalable_hw_agnostic_inference_tpu_torch.{m}" for m in (
+        "models.encoder", "models.vlm", "models.jpeg", "models.imageio",
+        "models.tokenizer", "serve.units.common")]
+    assert set(new) <= set(names)
+    assert not _forbidden_imports([names[n] for n in new])
+    cfg = vlm.VisionTowerConfig.tiny()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vlm.VisionProjector(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vlm.random_params(cfg, seed=0)
+    assert vlm.VisionProjector(cfg, device="cpu").device.type == "cpu"

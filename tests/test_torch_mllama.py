@@ -30,9 +30,9 @@ through the reference's converters (``params_from_torch``,
   ``load_mllama_checkpoint`` equal, bit for bit, to the reference's
   converted trees cast to bf16, configurations and aspect ratios equal; the
   CPU ``vllm`` unit on that directory serves a PNG ``image_b64`` whose
-  image changes the tokens, ``"random"``, and answers 400 to a JPEG, to
-  bytes that are no image and to an image sent to a text model, and 501 to
-  the chat route under a chat template.
+  image changes the tokens, ``"random"``, and answers 400 to a corrupt
+  JPEG, to bytes that are no image and to an image sent to a text model,
+  and 501 to the chat route under a chat template.
 """
 
 import base64
@@ -533,13 +533,34 @@ def test_unit_serves_png_image(mm, ckpt_dirs, tmp_path):
 
 
 def test_text_unit_refuses_an_image(tmp_path):
+    """A text checkpoint (no vision tower) answers an image with the
+    reference's 400 (the tiny tier carries a tower, as the reference's
+    does, so the text model here is a Llama directory)."""
+    import chip_smoke
+    from scalable_hw_agnostic_inference_tpu_torch.models.convert import (
+        hf_name,
+    )
+
+    cfg = tllama.LlamaConfig(vocab_size=320, dim=64, n_layers=2, n_heads=4,
+                             n_kv_heads=2, mlp_dim=128, max_seq_len=256,
+                             rope_theta=10000.0)
+    path = tmp_path / "text"
+    path.mkdir()
+    state = tllama.random_params(cfg, seed=0, device="cpu")
+    save_safetensors({hf_name(k): v.contiguous() for k, v in state.items()},
+                     path / "model.safetensors")
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": 320, "hidden_size": 64,
+        "intermediate_size": 128, "num_hidden_layers": 2,
+        "num_attention_heads": 4, "num_key_value_heads": 2,
+        "max_position_embeddings": 256, "rope_theta": 10000.0,
+        "rms_norm_eps": 1e-5}))
+    chip_smoke._write_tokenizer(path, merges_wanted=N_MERGES)
     with _env():
-        svc = VllmService(ServeConfig(
-            app="vllm", model_id="tiny", device="cpu", max_seq_len=32,
-            max_new_tokens=4, artifact_root=str(tmp_path / "a"),
-            vllm_config=str(tmp_path / "absent.yaml")))
+        svc = VllmService(_serve_cfg(path, tmp_path))
         svc.load()
     try:
+        assert svc._vision is None and svc._mllama is None
         with pytest.raises(HTTPError) as e:
             svc.infer({"prompt": "hi", "image_b64": "random"})
         assert e.value.status == 400 and "vision" in str(e.value)
