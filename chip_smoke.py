@@ -2445,9 +2445,15 @@ def _send_concurrent(base: str, prompts, new_tokens: int = 16):
 def _stream_completion(base: str, prompt: str):
     """One streamed greedy ``POST /v1/completions``: ``(status, seconds to
     the first SSE chunk, seconds to the end, the data payloads)``."""
-    body = json.dumps({"prompt": prompt, "max_tokens": 16,
-                       "temperature": 0, "stream": True}).encode()
-    req = urllib.request.Request(base + "/v1/completions", data=body,
+    return _sse(base, "/v1/completions", {"prompt": prompt, "max_tokens": 16,
+                                          "temperature": 0, "stream": True})
+
+
+def _sse(base: str, route: str, payload):
+    """One ``stream: true`` request to ``route``: ``(status, seconds to
+    the first SSE chunk, seconds to the end, the data payloads)``."""
+    body = json.dumps(payload).encode()
+    req = urllib.request.Request(base + route, data=body,
                                  headers={"content-type": "application/json"})
     t0 = time.monotonic()
     first, events = None, []
@@ -3646,13 +3652,43 @@ CKPT_CORPUS = (
 #: special tokens, numbered right after the BPE vocabulary (as Llama-3's
 #: follow its 128,000 entries; ``tokenizers`` renumbers added tokens so)
 CKPT_SPECIAL = ("<|begin_of_text|>", "<|end_of_text|>", "<|eot_id|>")
+#: the instruct tokenizer's header tokens, special in the chat checkpoint
+#: as in Llama-3-Instruct's
+CHAT_SPECIAL = ("<|start_header_id|>", "<|end_header_id|>")
 
 
-def _write_tokenizer(path, merges_wanted: int = 200) -> None:
+#: meta-llama/Meta-Llama-3-8B-Instruct's chat template, as published
+#: (``tests/chat_templates.py`` holds it against the published four)
+LLAMA3_INSTRUCT_TEMPLATE = (
+    r"{% set loop_messages = messages %}{% for message in loop_messages %}"
+    r"{% set content = '<|start_header_id|>' + message['role'] + "
+    r"'<|end_header_id|>\n\n'+ message['content'] | trim + '<|eot_id|>' %}"
+    r"{% if loop.index0 == 0 %}{% set content = bos_token + content %}"
+    r"{% endif %}{{ content }}{% endfor %}{% if add_generation_prompt %}"
+    r"{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}{% endif %}")
+#: llava-hf/llava-1.5-7b-hf's chat template, as published
+LLAVA15_TEMPLATE = (
+    r"{% for message in messages %}{% if message['role'] != 'system' %}"
+    r"{{ message['role'].upper() + ': '}}{% endif %}"
+    r"{# Render all images first #}{% for content in message['content'] | "
+    r"selectattr('type', 'equalto', 'image') %}{{ '<image>\n' }}"
+    r"{% endfor %}{# Render all text next #}"
+    r"{% if message['role'] != 'assistant' %}{% for content in "
+    r"message['content'] | selectattr('type', 'equalto', 'text') %}"
+    r"{{ content['text'] + ' '}}{% endfor %}{% else %}{% for content in "
+    r"message['content'] | selectattr('type', 'equalto', 'text') %}"
+    r"{% generation %}{{ content['text'] + ' '}}{% endgeneration %}"
+    r"{% endfor %}{% endif %}{% endfor %}{% if add_generation_prompt %}"
+    r"{{ 'ASSISTANT:' }}{% endif %}")
+
+
+def _write_tokenizer(path, merges_wanted: int = 200,
+                     specials=CKPT_SPECIAL) -> None:
     """A byte-level BPE ``tokenizer.json`` in Llama-3's layout (its Split
-    regex, the ByteLevel steps, the BOS template, special tokens after the
-    vocabulary), with merges learned here from ``CKPT_CORPUS``: the most
-    frequent adjacent pair of the pre-tokenized pieces, merged, again."""
+    regex, the ByteLevel steps, the BOS template, ``specials`` after the
+    vocabulary, BOS and EOS the first two), with merges learned here from
+    ``CKPT_CORPUS``: the most frequent adjacent pair of the pre-tokenized
+    pieces, merged, again."""
     from scalable_hw_agnostic_inference_tpu_torch.models.tokenizer import (
         BYTE_TO_CHAR,
         LLAMA3_SPLIT,
@@ -3679,8 +3715,8 @@ def _write_tokenizer(path, merges_wanted: int = 200) -> None:
                 if (w[i], w[i + 1]) == (a, b):
                     w[i:i + 2] = [a + b]
                 i += 1
-    bos = CKPT_SPECIAL[0]
-    special = {t: len(vocab) + i for i, t in enumerate(CKPT_SPECIAL)}
+    bos = specials[0]
+    special = {t: len(vocab) + i for i, t in enumerate(specials)}
     spec = {
         "version": "1.0", "truncation": None, "padding": None,
         "added_tokens": [{"id": i, "content": t, "single_word": False,
@@ -3711,16 +3747,16 @@ def _write_tokenizer(path, merges_wanted: int = 200) -> None:
     }
     (path / "tokenizer.json").write_text(json.dumps(spec))
     (path / "tokenizer_config.json").write_text(json.dumps({
-        "bos_token": bos, "eos_token": CKPT_SPECIAL[1],
+        "bos_token": bos, "eos_token": specials[1],
         "clean_up_tokenization_spaces": True,
         "model_max_length": 131072,
         "tokenizer_class": "PreTrainedTokenizerFast"}))
 
 
-def _write_checkpoint(path, state, cfg) -> int:
+def _write_checkpoint(path, state, cfg, specials=CKPT_SPECIAL) -> int:
     """The port's state dict as an HF Llama directory: ``config.json``, two
-    safetensors shards under their HF names, the tokenizer. Returns the
-    bytes of the shards."""
+    safetensors shards under their HF names, the tokenizer with
+    ``specials``. Returns the bytes of the shards."""
     from scalable_hw_agnostic_inference_tpu_torch.core.checkpoint import (
         save_sharded,
     )
@@ -3744,7 +3780,7 @@ def _write_checkpoint(path, state, cfg) -> int:
         "tie_word_embeddings": cfg.tie_embeddings, "hidden_act": "silu",
         "torch_dtype": "bfloat16"}))
     paths = save_sharded({hf_name(k): v for k, v in state.items()}, path, 2)
-    _write_tokenizer(path)
+    _write_tokenizer(path, specials=specials)
     return sum(p.stat().st_size for p in paths)
 
 
@@ -3808,12 +3844,141 @@ def _ckpt_boot(ctx, path, quant: bool):
     return service, base, server
 
 
+#: the chat round's conversation on a Llama-3 directory: several turns of
+#: string content, a system message first
+CHAT_TURNS = (
+    {"role": "system", "content": "Be brief."},
+    {"role": "user", "content": "What does a paged cache store?"},
+    {"role": "assistant", "content": "Keys and values."},
+    {"role": "user", "content": "Why int8?"})
+#: the same on a LLaVA directory, as parts (llava-1.5's template renders
+#: only parts), an image part first: the route is text only, so the image
+#: is the ``<image>`` token and no pixels reach the engine
+CHAT_PARTS = (
+    {"role": "user", "content": [{"type": "image"},
+                                 {"type": "text", "text": "What is this?"}]},
+    {"role": "assistant", "content": [
+        {"type": "text", "text": "A disc over a gradient."}]},
+    {"role": "user", "content": [
+        {"type": "text", "text": "Describe its colours in detail."}]})
+#: chat and completions requests each, for the TTFT comparison
+CHAT_TTFT_REPS = 3
+
+
+def _chat_round(ctx, what, base, service, messages, new_tokens=16):
+    """``/v1/chat/completions`` under the directory's chat template, once
+    buffered and once streamed, each held to five things: it answers 200;
+    the prompt ids the engine receives equal the port tokenizer's ids of
+    its own render without special tokens; BOS is there once, at position
+    0, where the template renders it (never a second: llava-1.5's renders
+    none, so its prompt has none, as in the reference); its greedy tokens
+    equal a ``/generate`` of the rendered text with
+    ``"add_special_tokens": false``; and that ``/generate`` with the
+    switch on has a prompt one token longer. Then the render's host ms
+    (the best of five) and the engine's TTFT of the chat route beside
+    ``/v1/completions``' on the same text. Every number is logged before
+    the checks; returns the logged row."""
+    from scalable_hw_agnostic_inference_tpu_torch.utils.latency import (
+        LatencyCollector,
+    )
+
+    messages = [dict(m) for m in messages]
+    tok, eng = service.tokenizer, service._engine
+    renders = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        text = tok.apply_chat_template(messages, add_generation_prompt=True)
+        renders.append((time.perf_counter() - t0) * 1e3)
+    want_ids = tok.encode(text, add_special_tokens=False)
+    if len(want_ids) + 1 > eng.max_prompt_len:
+        raise AssertionError(f"{what} chat: the rendered prompt's "
+                             f"{len(want_ids)} tokens do not fit the "
+                             f"engine's {eng.max_prompt_len}")
+    seen = []
+    submit = service.loop.submit
+
+    def spy(ids, *a, **k):
+        # the engine's view of each request: its prompt ids and tokens
+        rec = {"ids": list(ids)}
+        seen.append(rec)
+        fut = submit(ids, *a, **k)
+        fut.add_done_callback(lambda f: rec.setdefault(
+            "tokens", None if f.exception() else list(f.result().token_ids)))
+        return fut
+
+    service.loop.submit = spy
+    try:
+        body = {"messages": messages, "max_tokens": new_tokens,
+                "temperature": 0}
+        s_chat, chat = _http(base + "/v1/chat/completions", body)
+        s_stream, first_s, _, _ = _sse(base, "/v1/chat/completions",
+                                       dict(body, stream=True))
+        gen = {"prompt": text, "temperature": 0.0,
+               "max_new_tokens": new_tokens}
+        s_off, off = _http(base + "/generate",
+                           dict(gen, add_special_tokens=False))
+        s_on, on = _http(base + "/generate", gen)
+        t0 = time.monotonic()
+        while not all("tokens" in r for r in seen) and \
+                time.monotonic() - t0 < 10:
+            time.sleep(0.01)
+    finally:
+        del service.loop.submit
+    ttft = {"chat": [], "completions": []}
+    for _ in range(CHAT_TTFT_REPS):
+        for route, path, payload in (
+                ("chat", "/v1/chat/completions", body),
+                ("completions", "/v1/completions",
+                 {"prompt": text, "max_tokens": new_tokens,
+                  "temperature": 0})):
+            eng.ttft = LatencyCollector()
+            status, _ = _http(base + path, payload)
+            if status != 200:
+                raise AssertionError(f"{what} chat: {path} {status}")
+            ttft[route].append(eng.ttft.report()["p50"] * 1e3)
+    bos = tok.bos_token_id
+    bos_text = tok.special_tokens_map.get("bos_token") or ""
+    want_bos = 1 if bos_text and text.startswith(bos_text) else 0
+    chat_rec, stream_rec, off_rec = (seen + [{}] * 3)[:3]
+    row = {"statuses": [s_chat, s_stream, s_off, s_on],
+           "render_ms": min(renders), "render_ms_each": renders,
+           "render_chars": len(text), "prompt_tokens": len(want_ids),
+           "bos_in_prompt": chat_rec.get("ids", []).count(bos),
+           "bos_rendered": want_bos,
+           "n_prompt_switch_off_on": [off.get("n_prompt"),
+                                      on.get("n_prompt")],
+           "chat_tokens": chat_rec.get("tokens"),
+           "chat_ttft_ms": ttft["chat"],
+           "completions_ttft_ms": ttft["completions"],
+           "stream_first_chunk_s": first_s}
+    log(f"{what} chat: " + json.dumps(row))
+    ids = [r.get("ids") for r in (chat_rec, stream_rec, off_rec)]
+    toks = [r.get("tokens") for r in (chat_rec, stream_rec, off_rec)]
+    bad = [k for k, ok in (
+        ("200", row["statuses"] == [200] * 4),
+        ("the prompt ids are the port's render's", len(seen) == 4
+         and ids[0] == ids[1] == ids[2] == want_ids),
+        ("BOS once, at 0, as rendered", row["bos_in_prompt"] == want_bos
+         and (not want_bos or want_ids[0] == bos)),
+        ("greedy tokens = /generate without special tokens",
+         toks[0] is not None and toks[0] == toks[1] == toks[2]
+         and len(toks[0]) == new_tokens),
+        ("with special tokens one longer",
+         on.get("n_prompt") == off.get("n_prompt", -2) + 1
+         == len(want_ids) + 1)) if not ok]
+    if bad:
+        raise AssertionError(f"{what} chat: failed {bad}")
+    return row
+
+
 def phase_checkpoint(ctx):
     """A seeded Llama-3.2-1B-width checkpoint written here (bf16, tied
     embeddings, two shards, the tokenizer built here), served from its
     directory in bf16 and in int8: tensors as written, /generate and
     /v1/completions answering, greedy tokens equal to an engine built from
-    the same state dict."""
+    the same state dict. Its ``tokenizer_config.json`` carries
+    Meta-Llama-3-8B-Instruct's chat template, and its header tokens are
+    special: the bf16 pod runs the chat round (``_chat_round``)."""
     import tempfile
 
     import torch
@@ -3842,8 +4007,12 @@ def phase_checkpoint(ctx):
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "llama-3.2-1b-seeded"
         t0 = time.monotonic()
-        n_bytes = _write_checkpoint(path, state, cfg)
+        n_bytes = _write_checkpoint(path, state, cfg,
+                                    CKPT_SPECIAL + CHAT_SPECIAL)
         out["write_s"] = time.monotonic() - t0
+        conf = json.loads((path / "tokenizer_config.json").read_text())
+        conf["chat_template"] = LLAMA3_INSTRUCT_TEMPLATE
+        (path / "tokenizer_config.json").write_text(json.dumps(conf))
         out["bytes_on_disk"] = n_bytes
         for quant in (False, True):
             what = "int8" if quant else "bf16"
@@ -3874,6 +4043,8 @@ def phase_checkpoint(ctx):
                 if status != 200 or not comp.get("choices"):
                     raise AssertionError(f"checkpoint {what}: "
                                          f"/v1/completions {status} {comp}")
+                chat = None if quant else _chat_round(
+                    ctx, f"checkpoint {what}", base, service, CHAT_TURNS)
                 ids = [service._encode(p) for p in prompts]
                 service_eos = service.eos_id
                 load_s = service.load_seconds
@@ -3902,7 +4073,8 @@ def phase_checkpoint(ctx):
                     "tokens_equal_direct_engine":
                         unit_tokens == direct_tokens,
                     "first_text": text,
-                    "completion": comp["choices"][0].get("text")}
+                    "completion": comp["choices"][0].get("text"),
+                    "chat": chat}
             out[what] = line
             log(f"checkpoint {what}: " + json.dumps(line))
             if unit_tokens != direct_tokens:
@@ -6032,9 +6204,10 @@ def _tower_timed(torch, tower, px):
             fa.flash_attention.launches - n0)
 
 
-def _llava_engine(ctx, switches, num_blocks=0):
-    """A warmed engine over the LLaVA model under ``switches``, its closed
-    set holding the soft-prefix prefill."""
+def _llava_engine(ctx, switches, num_blocks=0, spec=0):
+    """A warmed engine over the LLaVA model under ``switches`` (with
+    ``spec``, ``[ngram]`` speculation of that many tokens), its closed set
+    holding the soft-prefix prefill."""
     from scalable_hw_agnostic_inference_tpu_torch.engine.config import (
         EngineConfig,
     )
@@ -6043,7 +6216,10 @@ def _llava_engine(ctx, switches, num_blocks=0):
     )
 
     cfg, model, vcfg, _ = _llava_model(ctx)
-    ecfg = EngineConfig(**LLAVA_ENGINE, num_blocks=num_blocks)
+    ecfg = EngineConfig(**LLAVA_ENGINE, num_blocks=num_blocks,
+                        speculative_model="[ngram]" if spec else "",
+                        num_speculative_tokens=spec,
+                        ngram_prompt_lookup_max=4, ngram_prompt_lookup_min=1)
     env = {"SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "",
            "SHAI_ASYNC_DECODE": "1", **switches}
     with _env(env):
@@ -6098,9 +6274,13 @@ def phase_engine_llava(ctx):
     scored by the plain scoring forward over ``[prefix; prompt]``
     (``TIE_TOL``), the image rows unlike their prompts text-only; (a)
     bucketed (B1, B2), (b) ragged with int8 KV (B1, B3); (c) an image row
-    preempted and resumed; B1 exactly the layers times the prefill calls,
-    B2 and B3 the replays' captured launches; 0 recompiles, no leaked
-    block; the tower's ms and peak bytes an image."""
+    preempted and resumed; (d) ``[ngram]`` speculation (k = ``SPEC_K``)
+    over the rows of (a), held as ``engine_mllama``'s spec round is: the
+    plain scoring forward by ``TIE_TOL``, (a)'s tokens by the tie rule,
+    B2 exactly the decode and verify replays' captured launches, a verify
+    replay's ms at a group of one; B1 exactly the layers times the prefill
+    calls, B2 and B3 the replays' captured launches; 0 recompiles, no
+    leaked block; the tower's ms and peak bytes an image."""
     import torch
 
     _drop_engine_model(ctx)
@@ -6242,6 +6422,45 @@ def _engine_llava(ctx):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    # (d) speculative decoding with soft-prefix rows: every row's decode
+    # starts at its prefix length plus its text
+    eng = _llava_engine(ctx, {}, spec=SPEC_K)
+    sfins, scounts, sseconds, swalk, _ = _llava_drive(eng, reqs)
+    ssc = _score(model, [p for p, _ in reqs], sfins,
+                 prefixes=[pre for _, pre in reqs])
+    gaps, noise = _partings(sfins, runs["engine_llava (a)"][1])
+    vbig = eng._verify_fns[max(eng._verify_fns,
+                               key=lambda k: (k[1], k[0]))]
+    with torch.inference_mode():
+        vwall = _step_wall_ms(torch, vbig.replay)
+        vk = _device_us_by_kernel(torch, vbig.replay, calls=10)
+    rd = {"seconds": sseconds, "launches": scounts, "walk": swalk,
+          "spec": eng.spec.as_dict(), "warmed": eng.n_warm,
+          "recompiles": eng.obs.recompiles,
+          "leaked_blocks": eng.cache.leaked_blocks,
+          "flushes": eng.obs.flush_reasons(),
+          "b2_per_verify": sorted({g.launches.get("paged_decode_attention",
+                                                  0)
+                                   for g in eng._verify_fns.values()}),
+          "verify_key": list(vbig.key), "verify_replay_ms": vwall,
+          "verify_replay_device_ms": sum(us for us, _ in vk.values()) / 1e3,
+          "verify_attention_ms": sum(
+              us for k, (us, _) in vk.items()
+              if "decode_kernel" in k or "merge_kernel" in k) / 1e3,
+          "score": {k: ssc[k] for k in ("b1", "plain", "tokens")},
+          "parting_gaps": gaps, "noise": noise,
+          "tie_gap": max(TIE_GAP, NOISE_TIES * noise),
+          "streams_equal_a": sum(a.token_ids == b.token_ids for a, b in
+                                 zip(sfins, runs["engine_llava (a)"][1]))}
+    if eng.tpot.count:
+        tp = eng.tpot.report()
+        rd["tpot_ms"] = {"p50": tp["p50"] * 1e3, "p99": tp["p99"] * 1e3}
+    row["engine_llava (d)"] = rd
+    ctx.setdefault("launches", {})["engine_llava (d)"] = scounts
+    log("engine_llava (d): " + json.dumps(rd))
+    del eng, vbig
+    gc.collect()
+    torch.cuda.empty_cache()
     ctx["engine_llava"] = row
     ra = runs["engine_llava (a)"][0]
     bad = []
@@ -6276,6 +6495,21 @@ def _engine_llava(ctx):
         ("walk", rc["walk_equal"]),
         ("tokens by the plain scoring forward",
          rc["score"]["plain"][1] <= TIE_TOL)) if not ok]
+    bad += [f"engine_llava (d): {k}" for k, ok in (
+        ("spec walk", {k: scounts[k] for k in swalk} == swalk),
+        ("B2 a layer in each verify", rd["b2_per_verify"] == [cfg.n_layers]),
+        ("verify steps", rd["spec"]["spec_verify_steps"] > 0),
+        ("0 recompiles", rd["recompiles"] == 0),
+        ("no leaked block", rd["leaked_blocks"] == 0),
+        ("tokens by the plain scoring forward",
+         ssc["plain"][1] <= TIE_TOL),
+        ("spec by the tie rule", all(g < rd["tie_gap"] for g in gaps)))
+        if not ok]
+    try:
+        _check_counters("engine_llava (d)", scounts,
+                        {"flash_attention", "paged_decode_attention"})
+    except AssertionError as e:
+        bad.append(str(e))
     bad += [k for k, ok in (
         ("tower: B1 once a block run", row["tower_b1_launches"]
          == [vcfg.n_blocks]),) if not ok]
@@ -6345,7 +6579,8 @@ def _seeded_llava_dir(ctx):
     widths, the text depth cut to ``SERVE_LLAVA_TEXT_LAYERS``, in two
     shards; ``config.json`` in llava-1.5-7b-hf's sparse form (its
     ``text_config`` names 7 keys and the cut depth); the SentencePiece-
-    style tokenizer (``_write_sp_tokenizer``)."""
+    style tokenizer (``_write_sp_tokenizer``) and llava-1.5's chat template
+    as ``chat_template.jinja``."""
     import dataclasses
     import tempfile
 
@@ -6402,6 +6637,7 @@ def _seeded_llava_dir(ctx):
         "vocab_size": 32064}))
     paths = save_sharded(tensors, path, 2)
     _write_sp_tokenizer(path)
+    (path / "chat_template.jinja").write_text(LLAVA15_TEMPLATE)
     del state, vstate, tensors
     gc.collect()
     torch.cuda.empty_cache()
@@ -6431,7 +6667,8 @@ def phase_serve_llava(ctx):
     progressive JPEG, a 4:4:4 JPEG, "random", and the first two prompts
     text-only), the 400s of a CMYK JPEG and of bytes that are no base64;
     B1 (the tower and the prefill) and B2 only, 0 recompiles, no leaked
-    block, the image rows unlike their prompts text-only. First, the JPEG
+    block, the image rows unlike their prompts text-only; the chat round
+    under llava-1.5's template (``_chat_round``). First, the JPEG
     front-end's host ms at 1080p (``_time_jpeg_front_end``)."""
     import base64
 
@@ -6531,6 +6768,7 @@ def phase_serve_llava(ctx):
                "prefix_keys": sorted(str(k) for k in eng._prefill
                                      if k[0] == "prefix"),
                "tokenizer_sp": svc.tokenizer.sp is not None}
+        row["chat"] = _chat_round(ctx, "serve_llava", base, svc, CHAT_PARTS)
         ctx["serve_llava_checks"] = row
         log("serve_llava: " + json.dumps(row))
         if bad["cmyk"][0] != 400 or "CMYK" not in json.dumps(bad["cmyk"]) \

@@ -26,9 +26,15 @@ tokenizer does for the Llama-3 layout:
 - ``decode(skip_special_tokens=True)``: the ByteLevel decoder with U+FFFD
   for bytes that are not UTF-8, then ``clean_up_tokenization_spaces`` as
   ``tokenizer_config.json`` sets it;
-- ``eos_token_id``, ``pad_token_id`` and ``chat_template`` from
-  ``tokenizer_config.json`` (``special_tokens_map.json`` where it is
-  silent).
+- ``eos_token_id``, ``pad_token_id`` and the special tokens map from
+  ``tokenizer_config.json``, and from ``special_tokens_map.json`` as
+  ``transformers`` reads it: over the config's values, and only when the
+  config lists no ``added_tokens_decoder``;
+- the chat template from the files ``AutoTokenizer`` reads:
+  ``chat_template.jinja`` and ``additional_chat_templates/*.jinja`` over
+  ``tokenizer_config.json``'s ``chat_template`` (a string, or a list of
+  ``{name, template}``), rendered by :mod:`.chat_template` in
+  :meth:`BpeTokenizer.apply_chat_template` (``"default"`` of several).
 
 The SentencePiece-style layout (``SP_SPACE``, "▁", stands for a space),
 in either of its two spellings:
@@ -62,7 +68,9 @@ import heapq
 import json
 import unicodedata
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+from . import chat_template as chat_mod
 
 #: Llama-3's Split pre-tokenizer regex, the one this module matches
 LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|"
@@ -286,6 +294,17 @@ def _token_content(v) -> Optional[str]:
     return v.get("content")
 
 
+#: the special token attributes of ``transformers``' tokenizers, in order
+SPECIAL_TOKEN_KEYS = ("bos_token", "eos_token", "unk_token", "sep_token",
+                      "pad_token", "cls_token", "mask_token")
+#: ``LlamaTokenizerFast``'s defaults for the special tokens a config omits
+LLAMA_SPECIAL_DEFAULTS = {"unk_token": "<unk>", "bos_token": "<s>",
+                          "eos_token": "</s>"}
+#: where ``AutoTokenizer`` finds template files beside the tokenizer
+CHAT_TEMPLATE_FILE = "chat_template.jinja"
+CHAT_TEMPLATE_DIR = "additional_chat_templates"
+
+
 class BpeTokenizer:
     """``encode(text, add_special_tokens, max_length)`` and
     ``decode(ids, skip_special_tokens)`` as the fast tokenizer of the same
@@ -334,7 +353,15 @@ class BpeTokenizer:
         self.truncation_side = config.get("truncation_side", "right")
         self.clean_up_spaces = bool(config.get(
             "clean_up_tokenization_spaces", False))
-        self.chat_template = config.get("chat_template")
+        if str(config.get("tokenizer_class", "")).startswith(
+                "LlamaTokenizer"):
+            config = {**LLAMA_SPECIAL_DEFAULTS, **config}
+        template = config.get("chat_template")
+        if isinstance(template, (list, tuple)):
+            template = {t["name"]: t["template"] for t in template}
+        #: a template string, a dict of named ones, or None
+        self.chat_template: Union[str, Dict[str, str], None] = template
+        self.special_tokens_map = self._special_tokens_map(config)
         self.bos_token_id = self._token_id(config.get("bos_token"))
         self.eos_token_id = self._token_id(config.get("eos_token"))
         self.pad_token_id = self._token_id(config.get("pad_token"))
@@ -362,12 +389,91 @@ class BpeTokenizer:
         config = {}
         if (path / "tokenizer_config.json").is_file():
             config = json.loads((path / "tokenizer_config.json").read_text())
-        if (path / "special_tokens_map.json").is_file():
+        if (path / "special_tokens_map.json").is_file() \
+                and "added_tokens_decoder" not in config:
+            # transformers' legacy path: the map's entries replace the
+            # config's (its additional tokens are appended to the config's)
             smap = json.loads((path / "special_tokens_map.json").read_text())
-            for key in ("bos_token", "eos_token", "pad_token"):
-                if config.get(key) is None and smap.get(key) is not None:
-                    config[key] = smap[key]
+            for key, value in smap.items():
+                if key == "additional_special_tokens" and isinstance(
+                        value, list):
+                    extra = list(config.get("additional_special_tokens")
+                                 or [])
+                    have = {_token_content(t) for t in extra}
+                    value = extra + [t for t in value
+                                     if _token_content(t) not in have]
+                config[key] = value
+        templates = {}
+        if (path / CHAT_TEMPLATE_FILE).is_file():
+            templates["default"] = (path / CHAT_TEMPLATE_FILE).read_text(
+                encoding="utf-8")
+        if (path / CHAT_TEMPLATE_DIR).is_dir():
+            for f in sorted((path / CHAT_TEMPLATE_DIR).glob("*.jinja")):
+                templates[f.name[:-len(".jinja")]] = f.read_text(
+                    encoding="utf-8")
+        if templates:
+            # template files take priority over the config's entry
+            config["chat_template"] = (templates["default"]
+                                       if list(templates) == ["default"]
+                                       else templates)
         return cls(spec, config)
+
+    @staticmethod
+    def _special_tokens_map(config: Dict) -> Dict[str, Any]:
+        """``special_tokens_map`` as ``transformers`` gives it: each set
+        special token's content, the additional special tokens, and the
+        config's ``extra_special_tokens``."""
+        out: Dict[str, Any] = {}
+        for key in SPECIAL_TOKEN_KEYS:
+            content = _token_content(config.get(key))
+            if content:
+                out[key] = content
+        extra = [_token_content(t) for t in
+                 config.get("additional_special_tokens") or []]
+        if extra:
+            out["additional_special_tokens"] = extra
+        for key, value in (config.get("extra_special_tokens") or {}).items():
+            content = _token_content(value)
+            if content:
+                out[key] = content
+        return out
+
+    # -- the chat template ---------------------------------------------------
+
+    def get_chat_template(self) -> str:
+        """The template the chat route renders: the one template, or
+        ``"default"`` of several (no tools are passed), as
+        ``transformers``' ``get_chat_template`` chooses."""
+        template = self.chat_template
+        if isinstance(template, dict):
+            if "default" not in template:
+                raise ValueError(
+                    f"This model has multiple chat templates with no default "
+                    f"specified! Available template names are "
+                    f"{sorted(template)}.")
+            return template["default"]
+        if template is None:
+            raise ValueError("this tokenizer has no chat template")
+        return template
+
+    def compile_chat_template(self) -> None:
+        """Compile the template the chat route renders, if there is one:
+        a construct outside :mod:`.chat_template`'s subset raises
+        ``chat_template.UnsupportedConstruct`` here, naming it and its
+        line. A dict without ``"default"`` is left to the render, which
+        raises as ``transformers`` does."""
+        if isinstance(self.chat_template, str) or (
+                isinstance(self.chat_template, dict)
+                and "default" in self.chat_template):
+            chat_mod.compile_template(self.get_chat_template())
+
+    def apply_chat_template(self, messages, add_generation_prompt: bool =
+                            False) -> str:
+        """The rendered prompt, as ``apply_chat_template(messages,
+        tokenize=False, add_generation_prompt=...)`` gives it."""
+        return chat_mod.render_chat(self.get_chat_template(), messages,
+                                    add_generation_prompt,
+                                    self.special_tokens_map)
 
     # -- the pipeline's parts ----------------------------------------------
 

@@ -22,11 +22,13 @@ constructor replaces the tier's weights (the tests hand the port the JAX
 service's). ``QUANTIZATION=int8`` (or the ConfigMap's ``quantization``)
 quantizes the weights at boot, after the bf16 cast, as the reference does
 (``:199-204``); a geometry tier is born int8. The tiers tokenize with the
-byte-level ``ByteTokenizer``. A chat prompt is the reference's plain
-``role: content`` layout; a checkpoint whose ``tokenizer_config.json``
-carries a ``chat_template`` answers the chat route with 501 (templates are
-not ported: formatting another prompt than the reference's would be a
-quiet change). ``n > 1`` is
+byte-level ``ByteTokenizer``. A chat prompt is the checkpoint's chat
+template rendered as the reference's ``apply_chat_template`` renders it
+(``models.chat_template``, compiled at load: a construct outside its
+subset fails ``load``), tokenized without a second BOS; without a
+template it is the reference's plain ``role: content`` layout.
+``/generate`` takes ``add_special_tokens`` as the reference's does.
+``n > 1`` is
 one fan-out group (``EngineLoop.submit_group``: one tokenization, one
 queue item; one prefill with copy-on-write forks under ``SHAI_KV_COW``),
 and not streamed. The operating layer's unit half (``:22,307-345``): the
@@ -116,7 +118,7 @@ import queue
 import threading
 import time
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -129,6 +131,7 @@ from ...kvnet import migrate as migmod
 from ...kvnet import resolve_role
 from ...kvtier.affinity import AffinityTracker, prompt_affinity
 from ...models.generate import ByteTokenizer
+from ...models import chat_template
 from ...models import mllama as mllama_mod
 from ...models import vlm as vlm_mod
 from ...models.convert import (
@@ -223,6 +226,9 @@ class VllmService(ModelService):
         # model without a tower
         self._vision = None
         self._vision_lock = threading.Lock()
+        # the chat template renders under the tokenizer's lock, as the
+        # reference's apply_chat_template does
+        self._tok_lock = threading.Lock()
         #: seconds the vision front-end took to encode its warm image
         self.vision_warm_seconds = 0.0
 
@@ -283,8 +289,20 @@ class VllmService(ModelService):
         elif model_id in GEOMETRY_MODELS:
             mcfg = GEOMETRY_MODELS[model_id]()
         elif os.path.isdir(model_id):
-            # a local checkpoint: bf16 (then int8) weights one tensor at a
-            # time onto the device, the tokenizer from its tokenizer.json
+            # a local checkpoint: the tokenizer from its tokenizer.json
+            # first (a chat template outside the interpreter's subset
+            # refuses the checkpoint before any weight moves), then bf16
+            # (then int8) weights one tensor at a time onto the device
+            self.tokenizer = BpeTokenizer.from_dir(model_id)
+            try:
+                self.tokenizer.compile_chat_template()
+            except chat_template.TemplateError as e:
+                raise ValueError(f"{model_id}: its chat template cannot be "
+                                 f"rendered here: {e}") from e
+            if self.tokenizer.eos_token_id is None:
+                raise ValueError(f"tokenizer for {model_id} has no "
+                                 f"eos_token_id")
+            self.eos_id = self.tokenizer.eos_token_id
             t0 = time.monotonic()
             if is_mllama_dir(model_id):
                 mcfg, state, vcfg, vstate, meta = load_mllama_checkpoint(
@@ -302,11 +320,6 @@ class VllmService(ModelService):
                 mcfg, state = load_hf_checkpoint(model_id, device,
                                                  quantize=quant)
             self.load_seconds = time.monotonic() - t0
-            self.tokenizer = BpeTokenizer.from_dir(model_id)
-            if self.tokenizer.eos_token_id is None:
-                raise ValueError(f"tokenizer for {model_id} has no "
-                                 f"eos_token_id")
-            self.eos_id = self.tokenizer.eos_token_id
         else:
             raise ValueError(
                 f"model {model_id!r} is not a directory: this port serves "
@@ -562,14 +575,17 @@ class VllmService(ModelService):
             while len(self._aff_heads) > 256:
                 self._aff_heads.popitem(last=False)
 
-    def _encode(self, text: str) -> List[int]:
-        """Ids with BOS, cut to the engine's chunked-prefill cap (not the
-        largest bucket: longer prompts chunk); the BPE tokenizer keeps its
-        BOS when it cuts, as the reference's truncation does."""
+    def _encode(self, text: str, add_special: bool = True) -> List[int]:
+        """Ids with BOS (``add_special`` False: without; a rendered chat
+        template carries its own), cut to the engine's chunked-prefill cap
+        (not the largest bucket: longer prompts chunk); the BPE tokenizer
+        keeps its BOS when it cuts, as the reference's truncation does.
+        The byte tier ignores the switch, as the reference's does."""
         cap = self._engine.max_prompt_len
         with obs_trace.span("tokenize"):
             if isinstance(self.tokenizer, BpeTokenizer):
-                return self.tokenizer.encode(text, max_length=cap)
+                return self.tokenizer.encode(
+                    text, add_special_tokens=add_special, max_length=cap)
             ids, n = self.tokenizer.encode(text, cap)
             return [int(i) for i in ids[:n]]
 
@@ -618,7 +634,10 @@ class VllmService(ModelService):
         if "prompt" not in payload and "text" not in payload:
             raise HTTPError(400, "missing 'prompt'")
         prompt = str(payload.get("prompt", payload.get("text", "")))
-        ids = self._encode(prompt)
+        ids = self._encode(
+            prompt, add_special=payload.get("add_special_tokens", True))
+        if not ids:
+            raise HTTPError(400, "empty prompt")
         params = self._sampling_from(payload)
         if self.role == "prefill":
             # a prefill pod hands the warm KV back instead of decoding
@@ -995,7 +1014,8 @@ class VllmService(ModelService):
                 else min(16, self.ecfg.max_new_tokens))
 
     def _openai_generate(self, prompt: str, body: Dict[str, Any],
-                         kind: str) -> Dict[str, Any]:
+                         kind: str, add_special: bool = True
+                         ) -> Dict[str, Any]:
         n = self._openai_n(body)
         # logprobs: completions takes an int (capped at K_LOGPROBS, over
         # the cap is a 400); chat takes a bool plus top_logprobs, of which
@@ -1014,6 +1034,7 @@ class VllmService(ModelService):
             "top_p": body.get("top_p", 1.0),
             "max_new_tokens": body.get("max_tokens",
                                        self._default_max_tokens(kind)),
+            "add_special_tokens": add_special,
             "logprobs": want_lp,
         }
         if n == 1:
@@ -1023,7 +1044,9 @@ class VllmService(ModelService):
             # item, one parent id (cancel and deadline act on the group;
             # under SHAI_KV_COW the group prefills once and forks its KV)
             params = self._sampling_from(payload)
-            ids = self._encode(prompt)
+            ids = self._encode(prompt, add_special=add_special)
+            if not ids:
+                raise HTTPError(400, "empty prompt")
             futs = self.loop.submit_group(
                 ids, [params] * n, deadline_at=self._deadline_at(),
                 traceparent=obs_trace.current_traceparent() or "",
@@ -1120,7 +1143,8 @@ class VllmService(ModelService):
                 for e in entries],
         }
 
-    def _openai_stream(self, prompt: str, body: Dict[str, Any], kind: str):
+    def _openai_stream(self, prompt: str, body: Dict[str, Any], kind: str,
+                       add_special: bool = True):
         """SSE token stream (OpenAI ``stream: true``): the engine's
         ``on_token`` puts each token onto a queue (nothing more, on the
         engine-loop thread), and the request's future puts an end marker
@@ -1134,7 +1158,9 @@ class VllmService(ModelService):
         if body.get("logprobs"):
             raise HTTPError(400, "logprobs are not supported with "
                                  "stream: true")
-        ids = self._encode(prompt)
+        ids = self._encode(prompt, add_special=add_special)
+        if not ids:
+            raise HTTPError(400, "empty prompt")
         params = self._sampling_from({
             "temperature": body.get("temperature", 1.0),
             "top_p": body.get("top_p", 1.0),
@@ -1250,23 +1276,25 @@ class VllmService(ModelService):
 
         return StreamingResponse(chunks())
 
-    def _chat_prompt(self, messages) -> str:
-        """Messages -> prompt text: ``role: content`` lines and an
-        ``assistant:`` cue (the reference's layout without a chat
-        template). A tokenizer with a chat template answers 501: the
-        reference would render the template, which is not ported."""
-        if getattr(self.tokenizer, "chat_template", None):
-            raise HTTPError(
-                501, "chat templates are not ported yet: this checkpoint's "
-                     "tokenizer_config.json carries a chat_template; use "
-                     "/v1/completions or /generate with a formatted prompt")
+    def _chat_prompt(self, messages) -> Tuple[str, bool]:
+        """Messages -> ``(prompt text, templated)``: the tokenizer's chat
+        template rendered with the generation cue (``templated`` True: the
+        text carries its own special tokens, so it is tokenized without a
+        second BOS), else ``role: content`` lines and an ``assistant:``
+        cue. A template's ``raise_exception`` is a ``TemplateError``, a
+        500, as in the reference."""
         if not isinstance(messages, list) or not messages:
             raise HTTPError(400, "messages must be a non-empty list")
         for m in messages:
             if not isinstance(m, dict) or "role" not in m or "content" not in m:
                 raise HTTPError(400, "each message needs role and content")
+        render = getattr(self.tokenizer, "apply_chat_template", None)
+        if render is not None and getattr(self.tokenizer, "chat_template",
+                                          None):
+            with self._tok_lock:
+                return render(messages, add_generation_prompt=True), True
         lines = [f"{m['role']}: {m['content']}" for m in messages]
-        return "\n".join(lines) + "\nassistant:"
+        return "\n".join(lines) + "\nassistant:", False
 
     def _openai_n(self, body: Dict[str, Any]) -> int:
         """Validated OpenAI ``n`` (parallel samples)."""
@@ -1308,10 +1336,12 @@ class VllmService(ModelService):
         def chat(request):
             self._require_decode_role()
             body = request.json()
-            prompt = self._chat_prompt(body.get("messages"))
+            prompt, templated = self._chat_prompt(body.get("messages"))
             if body.get("stream"):
-                return self._openai_stream(prompt, body, "chat")
-            return self._openai_generate(prompt, body, "chat")
+                return self._openai_stream(prompt, body, "chat",
+                                           add_special=not templated)
+            return self._openai_generate(prompt, body, "chat",
+                                         add_special=not templated)
 
         def models(request):
             return {"object": "list",

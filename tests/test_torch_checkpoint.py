@@ -22,8 +22,15 @@ its BOS template and special tokens. What is held:
 - a JAX pod and a port pod on the same ``MODEL_ID=<dir>``, bf16 and int8,
   give equal ``/generate`` greedy tokens and text, or part only at a bf16
   tie (``tests/parity.py``'s rule on the JAX side's top-2 logprobs), and
-  the same ``/v1/chat/completions`` fallback prompt; a ``chat_template``
-  makes the port's chat route 501;
+  the same ``/v1/chat/completions`` fallback prompt;
+- a JAX pod and a port pod over sockets on a copy whose
+  ``tokenizer_config.json`` carries Meta-Llama-3-8B-Instruct's template:
+  ``/generate`` with ``"add_special_tokens": false`` gives the reference's
+  ``n_prompt`` (one less than with it) and greedy tokens, and an empty
+  prompt without them its 400; the chat route renders the reference's
+  prompt, tokenizes it with one BOS, and gives ``/generate``'s tokens of
+  the rendered text without special tokens, buffered and streamed, with
+  the reference's usage and its 400s for bad ``messages``;
 - what is not ported raises, naming it: a hub id, a directory of
   ``pytorch_model.bin`` only, a SentencePiece-style ``tokenizer.json``
   whose ``Replace`` decoder has no pattern.
@@ -32,7 +39,10 @@ its BOS template and special tokens. What is held:
 import json
 import shutil
 import sys
+import time
 import types
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -58,6 +68,7 @@ from scalable_hw_agnostic_inference_tpu_torch.serve.units.vllm import (
 from scalable_hw_agnostic_inference_tpu_torch.utils.env import ServeConfig
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+import chat_templates  # noqa: E402
 from parity import assert_greedy_parity  # noqa: E402
 
 SPECIAL = ["<|begin_of_text|>", "<|end_of_text|>", "<|eot_id|>",
@@ -292,33 +303,173 @@ def test_jax_pod_and_port_pod_agree(ckpts, tmp_path, monkeypatch, quant):
             if _finished(got).token_ids == _finished(want).token_ids:
                 assert got["generated_text"] == want["generated_text"]
         text, templated = jsvc._chat_prompt(MESSAGES)
-        assert not templated and tsvc._chat_prompt(MESSAGES) == text
+        assert not templated and tsvc._chat_prompt(MESSAGES) == (text, False)
     finally:
         jsvc.loop.stop()
         tsvc.close()
 
 
-def test_chat_template_answers_501(ckpts, tmp_path):
-    path = tmp_path / "templated"
+def _http(url, payload=None, timeout=120.0):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "content-type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body = r.read().decode()
+            if r.headers.get("content-type", "").startswith(
+                    "text/event-stream"):
+                return r.status, body
+            return r.status, json.loads(body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _sse_text(body: str) -> str:
+    out = []
+    for line in body.splitlines():
+        if line.startswith("data: ") and line != "data: [DONE]":
+            out.append(json.loads(line[6:])["choices"][0]["delta"].get(
+                "content") or "")
+    return "".join(out)
+
+
+#: what ``_serve_cfg``'s pods derive (``max_seq_len`` 32, 8 new tokens),
+#: with one slot over the pool of four
+ONE_SLOT = {"max_model_len": 48, "max_num_seqs": 1, "block_size": 16,
+            "num_blocks": 13, "context_encoding_buckets": [32],
+            "max_new_tokens": 8}
+
+
+@pytest.fixture(scope="module")
+def chat_pods(ckpts, tmp_path_factory):
+    """A JAX pod and a port pod, each behind its package's server, on a copy
+    of the bf16 directory whose ``tokenizer_config.json`` carries
+    Meta-Llama-3-8B-Instruct's template."""
+    from scalable_hw_agnostic_inference_tpu.models.registry import get_model
+    from scalable_hw_agnostic_inference_tpu.serve.app import (
+        create_app as jcreate_app,
+    )
+    from scalable_hw_agnostic_inference_tpu.serve.httpd import (
+        Server as JServer,
+    )
+    from scalable_hw_agnostic_inference_tpu.utils.env import (
+        ServeConfig as JServeConfig,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.serve.app import create_app
+    from scalable_hw_agnostic_inference_tpu_torch.serve.httpd import Server
+
+    tmp = tmp_path_factory.mktemp("chat")
+    path = tmp / "templated"
     shutil.copytree(ckpts["single"], path)
     conf = json.loads((path / "tokenizer_config.json").read_text())
-    conf["chat_template"] = "{% for m in messages %}{{ m.content }}{% endfor %}"
+    conf["chat_template"] = chat_templates.LLAMA3_8B_INSTRUCT
     (path / "tokenizer_config.json").write_text(json.dumps(conf))
-    svc = VllmService(_serve_cfg(ServeConfig, path, tmp_path, False))
-    svc.load()
+    # the engine shapes the pods would derive, in one slot: requests come
+    # one at a time, and the JAX pod compiles a third of the executables
+    (tmp / "one-slot.json").write_text(json.dumps(ONE_SLOT))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SHAI_PAGED_DECODE", "1")
+        jcfg = _serve_cfg(JServeConfig, path, tmp, False)
+        cfg = _serve_cfg(ServeConfig, path, tmp, False)
+        jcfg.vllm_config = cfg.vllm_config = str(tmp / "one-slot.json")
+        jsvc = get_model("vllm")(jcfg)
+        jsrv = JServer(jcreate_app(jcfg, jsvc), host="127.0.0.1", port=0)
+        tsvc = VllmService(cfg)
+        tsrv = Server(create_app(cfg, tsvc), host="127.0.0.1", port=0)
+        urls = []
+        for srv in (jsrv, tsrv):
+            # one load at a time: transformers' loading patches torch's
+            # parameter registration process-wide
+            urls.append("http://%s:%d" % srv.start_background())
+            t0 = time.monotonic()
+            while (status := _http(urls[-1] + "/readiness")[0]) != 200:
+                assert status != 500 and time.monotonic() - t0 < 300, \
+                    f"{urls[-1]} failed its load"
+                time.sleep(0.1)
     try:
-        chat = dict((r, fn) for r, _, fn in svc.extra_routes())[
-            "/v1/chat/completions"]
-        req = types.SimpleNamespace(json=lambda: {"messages": MESSAGES})
-        with pytest.raises(HTTPError) as e:
-            chat(req)
-        assert e.value.status == 501 and "chat template" in str(e.value)
-        # the completions route serves the same pod
-        out = svc._openai_generate("Hello", {"max_tokens": 4,
-                                             "temperature": 0}, "completion")
-        assert out["usage"]["completion_tokens"] >= 1
+        yield types.SimpleNamespace(ref=urls[0], port=urls[1], jsvc=jsvc,
+                                    tsvc=tsvc)
     finally:
-        svc.close()
+        tsrv.stop()
+        jsrv.stop()
+
+
+def test_generate_without_special_tokens_equals_reference(chat_pods):
+    """``/generate`` reads ``add_special_tokens`` as the reference does:
+    without it the prompt has no BOS, ``n_prompt`` one less."""
+    bos = chat_pods.tsvc.tokenizer.bos_token_id
+    for prompt in (CORPUS[0], "<|begin_of_text|>numbers 12345"):
+        outs = {}
+        for add in (True, False):
+            payload = {"prompt": prompt, "temperature": 0.0,
+                       "max_new_tokens": 8, "logprobs": 2,
+                       "add_special_tokens": add}
+            (sj, want), (st, got) = (_http(url + "/generate", payload)
+                                     for url in (chat_pods.ref,
+                                                 chat_pods.port))
+            assert sj == st == 200, (want, got)
+            assert got["n_prompt"] == want["n_prompt"], add
+            assert_greedy_parity([_finished(got)], [_finished(want)],
+                                 label=f"add_special_tokens={add}")
+            outs[add] = got
+        assert outs[True]["n_prompt"] == outs[False]["n_prompt"] + 1
+        assert chat_pods.tsvc._encode(prompt)[0] == bos
+        assert chat_pods.tsvc._encode(prompt, add_special=False) == \
+            chat_pods.jsvc._encode(prompt, add_special=False)
+    # nothing left to tokenize: the reference's 400
+    payload = {"prompt": "", "add_special_tokens": False}
+    assert _http(chat_pods.ref + "/generate", payload)[0] == \
+        _http(chat_pods.port + "/generate", payload)[0] == 400
+
+
+CHAT_MESSAGES = [{"role": "system", "content": "  Be brief. "},
+                 {"role": "user", "content": "Café? 🚀"},
+                 {"role": "assistant", "content": "Oui."},
+                 {"role": "user", "content": "numbers 12345"}]
+
+
+def test_chat_template_route_equals_reference(chat_pods):
+    """The chat route renders the template as the reference does and
+    tokenizes it with one BOS (the template's): its tokens are a
+    ``/generate`` of the rendered text without special tokens."""
+    jsvc, tsvc = chat_pods.jsvc, chat_pods.tsvc
+    text, templated = tsvc._chat_prompt(CHAT_MESSAGES)
+    assert (text, templated) == jsvc._chat_prompt(CHAT_MESSAGES)
+    assert templated and text.startswith("<|begin_of_text|><|start_header_"
+                                         "id|>system<|end_header_id|>\n\n"
+                                         "Be brief.<|eot_id|>")
+    ids = tsvc._encode(text, add_special=False)
+    assert ids == jsvc._encode(text, add_special=False)
+    bos = tsvc.tokenizer.bos_token_id
+    assert ids[0] == bos and ids.count(bos) == 1
+    gen = {"prompt": text, "temperature": 0.0, "max_new_tokens": 8,
+           "logprobs": 2, "add_special_tokens": False}
+    (sj, want), (st, got) = (_http(url + "/generate", gen)
+                             for url in (chat_pods.ref, chat_pods.port))
+    assert sj == st == 200 and got["n_prompt"] == want["n_prompt"] == len(ids)
+    assert_greedy_parity([_finished(got)], [_finished(want)],
+                         label="chat template")
+    body = {"messages": CHAT_MESSAGES, "max_tokens": 8, "temperature": 0}
+    chats = [_http(url + "/v1/chat/completions", body)
+             for url in (chat_pods.ref, chat_pods.port)]
+    streams = [_http(url + "/v1/chat/completions", dict(body, stream=True))
+               for url in (chat_pods.ref, chat_pods.port)]
+    assert [c[0] for c in chats + streams] == [200] * 4
+    (_, jchat), (_, tchat) = chats
+    assert tchat["usage"] == jchat["usage"]
+    assert tchat["usage"]["prompt_tokens"] == len(ids)
+    # the port's chat tokens are its /generate's of the rendered text
+    assert tchat["choices"][0]["message"]["content"] == \
+        got["generated_text"]
+    if _finished(got).token_ids == _finished(want).token_ids:
+        assert jchat["choices"][0]["message"]["content"] == \
+            want["generated_text"] == got["generated_text"]
+        assert _sse_text(streams[0][1]) == _sse_text(streams[1][1])
+    # the reference's 400s, before any template renders
+    for bad in ({}, {"messages": []}, {"messages": [{"role": "user"}]},
+                {"messages": "hello"}):
+        assert _http(chat_pods.ref + "/v1/chat/completions", bad)[0] == \
+            _http(chat_pods.port + "/v1/chat/completions", bad)[0] == 400
 
 
 def test_what_is_not_ported_raises(ckpts, tmp_path):

@@ -31,8 +31,13 @@ through the reference's converters (``params_from_torch``,
   converted trees cast to bf16, configurations and aspect ratios equal; the
   CPU ``vllm`` unit on that directory serves a PNG ``image_b64`` whose
   image changes the tokens, ``"random"``, and answers 400 to a corrupt
-  JPEG, to bytes that are no image and to an image sent to a text model,
-  and 501 to the chat route under a chat template.
+  JPEG, to bytes that are no image and to an image sent to a text model;
+  with Llama-3.2-11B-Vision-Instruct's chat template it renders an image
+  part as ``<|image|>`` (text only: no image reaches the engine) as the
+  JAX package's unit on the same directory does, to the same ids with one
+  BOS and the same greedy tokens, and both answer 500 to the template's
+  ``raise_exception`` (an image with a system message), each behind its
+  package's server.
 """
 
 import base64
@@ -86,6 +91,7 @@ from scalable_hw_agnostic_inference_tpu_torch.utils.env import ServeConfig
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE.parent))
+import chat_templates  # noqa: E402
 from parity import assert_greedy_parity  # noqa: E402
 
 VISION_RTOL = 1e-4
@@ -481,21 +487,76 @@ def test_checkpoint_equals_reference_converters(mm, ckpt_dirs, layout):
             assert torch.equal(got[k], v.to(torch.bfloat16)), k
 
 
-def _serve_cfg(path, tmp):
-    return ServeConfig(app="vllm", model_id=str(path), device="cpu",
-                       max_seq_len=32, max_new_tokens=8,
-                       artifact_root=str(tmp / "artifacts"),
-                       vllm_config=str(tmp / "absent.yaml"))
+def _serve_cfg(path, tmp, cls=ServeConfig):
+    return cls(app="vllm", model_id=str(path), device="cpu", max_seq_len=32,
+               max_new_tokens=8, artifact_root=str(tmp / "artifacts"),
+               vllm_config=str(tmp / "absent.yaml"))
+
+
+def _http(url, payload=None):
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "content-type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _pods(servers):
+    """Start each server in turn (one load at a time: ``transformers``'
+    loading patches torch's parameter registration process-wide); the
+    base URLs once each is ready."""
+    import time
+
+    urls = []
+    for server in servers:
+        url = "http://%s:%d" % server.start_background()
+        t0 = time.monotonic()
+        while (status := _http(url + "/readiness")[0]) != 200:
+            assert status != 500 and time.monotonic() - t0 < 300, \
+                f"{url} failed its load"
+            time.sleep(0.1)
+        urls.append(url)
+    return urls, servers
 
 
 def test_unit_serves_png_image(mm, ckpt_dirs, tmp_path):
-    conf = json.loads((ckpt_dirs / "new" / "tokenizer_config.json")
-                      .read_text())
-    conf["chat_template"] = "{% for m in messages %}{{ m.content }}{% endfor %}"
-    (ckpt_dirs / "new" / "tokenizer_config.json").write_text(json.dumps(conf))
-    with _env():
-        svc = VllmService(_serve_cfg(ckpt_dirs / "new", tmp_path))
-        svc.load()
+    from scalable_hw_agnostic_inference_tpu.models.registry import get_model
+    from scalable_hw_agnostic_inference_tpu.serve.app import (
+        create_app as jcreate_app,
+    )
+    from scalable_hw_agnostic_inference_tpu.serve.httpd import (
+        Server as JServer,
+    )
+    from scalable_hw_agnostic_inference_tpu.utils.env import (
+        ServeConfig as JServeConfig,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.serve.app import create_app
+    from scalable_hw_agnostic_inference_tpu_torch.serve.httpd import Server
+
+    path = ckpt_dirs / "new"
+    conf = json.loads((path / "tokenizer_config.json").read_text())
+    conf["chat_template"] = chat_templates.LLAMA32_11B_VISION_INSTRUCT
+    (path / "tokenizer_config.json").write_text(json.dumps(conf))
+    # the reference unit: the engine shapes the unit derives, in one slot
+    # (its requests come one at a time; a third of the executables)
+    (tmp_path / "one-slot.json").write_text(json.dumps({
+        "max_model_len": 48, "max_num_seqs": 1, "block_size": 16,
+        "num_blocks": 13, "context_encoding_buckets": [32],
+        "max_new_tokens": 8}))
+    with _env(SHAI_PAGED_DECODE="1"):
+        cfg, jcfg = _serve_cfg(path, tmp_path), _serve_cfg(
+            path, tmp_path, JServeConfig)
+        jcfg.vllm_config = str(tmp_path / "one-slot.json")
+        svc, jsvc = VllmService(cfg), get_model("vllm")(jcfg)
+        (ref, port), servers = _pods([
+            JServer(jcreate_app(jcfg, jsvc), host="127.0.0.1", port=0),
+            Server(create_app(cfg, svc), host="127.0.0.1", port=0)])
     try:
         assert svc._mllama is not None
         assert svc._engine.cross_seq_len == mm.Lv
@@ -521,15 +582,47 @@ def test_unit_serves_png_image(mm, ckpt_dirs, tmp_path):
             with pytest.raises(HTTPError) as e:
                 svc.infer(dict(base, image_b64=bad))
             assert e.value.status == 400 and words in str(e.value)
-        chat = dict((r, fn) for r, _, fn in svc.extra_routes())[
-            "/v1/chat/completions"]
-        req = types.SimpleNamespace(json=lambda: {
-            "messages": [{"role": "user", "content": "hi"}]})
-        with pytest.raises(HTTPError) as e:
-            chat(req)
-        assert e.value.status == 501
+        # the chat route under Llama-3.2-Vision's template: an image part
+        # renders <|image|> and no image reaches the engine, as in the
+        # reference unit
+        msgs = [{"role": "user", "content": [
+            {"type": "image"}, {"type": "text", "text": "the quick fox?"}]}]
+        prompt, templated = svc._chat_prompt(msgs)
+        assert (prompt, templated) == jsvc._chat_prompt(msgs)
+        assert templated and "<|image|>the quick fox?<|eot_id|>" in prompt
+        ids = svc._encode(prompt, add_special=False)
+        assert ids == jsvc._encode(prompt, add_special=False)
+        bos = svc.tokenizer.bos_token_id
+        assert ids[0] == bos and ids.count(bos) == 1
+        gen = {"prompt": prompt, "add_special_tokens": False,
+               "temperature": 0.0, "max_new_tokens": 6, "logprobs": 2}
+        (sp, got), (sr, want) = (_http(u + "/generate", gen)
+                                 for u in (port, ref))
+        assert sp == sr == 200 and got["n_prompt"] == want["n_prompt"]
+        fins = [types.SimpleNamespace(
+            token_ids=[e["token"] for e in r["logprobs"]],
+            logprobs=r["logprobs"]) for r in (got, want)]
+        assert_greedy_parity([fins[0]], [fins[1]], label="mllama chat")
+        body = {"messages": msgs, "max_tokens": 6, "temperature": 0}
+        (sp, tchat), (sr, jchat) = (_http(u + "/v1/chat/completions", body)
+                                    for u in (port, ref))
+        assert sp == sr == 200 and tchat["usage"] == jchat["usage"]
+        assert tchat["usage"]["prompt_tokens"] == len(ids)
+        assert tchat["choices"][0]["message"]["content"] == \
+            got["generated_text"]
+        if fins[0].token_ids == fins[1].token_ids:
+            assert jchat["choices"][0]["message"]["content"] == \
+                want["generated_text"]
+        # the template's raise_exception (images with a system message):
+        # the reference's generic 500, not a client error
+        bad = {"messages": [{"role": "system", "content": "hi"}] + msgs}
+        assert _http(port + "/v1/chat/completions", bad)[0] == \
+            _http(ref + "/v1/chat/completions", bad)[0] == 500
     finally:
+        for server in servers:
+            server.stop()
         svc.close()
+        jsvc.loop.stop()
 
 
 def test_text_unit_refuses_an_image(tmp_path):

@@ -534,7 +534,12 @@ def test_drain_sequence_last(pods):
     assert set(jax_side[1][2]) == set(port_side[1][2]) == {"detail"}
     # the port's loop left no replay in flight behind it
     assert pods.service._engine._pipe is None
-    assert pods.tsrv.app.state["status"]["drained"]["clean"] is True
+    # the drain records its outcome just after the service's drain stops
+    # the loop: wait for the record, not only for the loop
+    status, t0 = pods.tsrv.app.state["status"], time.monotonic()
+    while "drained" not in status and time.monotonic() - t0 < 30:
+        time.sleep(0.05)
+    assert status["drained"]["clean"] is True
     # migration is not armed on these pods: the drain's migrate phase
     # stayed inert (nothing shipped, every request finished in place)
     assert not pods.service.wants_migration()

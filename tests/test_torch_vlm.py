@@ -25,10 +25,18 @@ weights: the JAX side through the reference's converters
   preempted and resumed, greedy by ``tests/parity.py``'s tie rule; the
   warmed set with ``prefix_lens`` of the JAX engine's size, 0 recompiles;
   a prefix request is never content-addressed (the same text after it
-  finds no cached block, the tier banks nothing, no block leaks);
+  finds no cached block, the tier banks nothing, no block leaks); a
+  soft-prefix row beside a text row under ``[ngram]`` speculation (k=4)
+  and under ragged attention with int8 KV, against the JAX engine by the
+  tie rule with equal ``n_prompt`` and no leaked block;
 - the tiny ``vllm`` unit with the JAX service's weights (the tower's
   too): the same ``generated_text`` for a PNG, a JPEG and ``"random"``,
-  and the 400s of a bad image and of a text with no room left.
+  and the 400s of a bad image and of a text with no room left;
+- the chat route on a LLaVA directory (a tiny HF LLaVA with the
+  SentencePiece-style tokenizer and llava-1.5's template as
+  ``chat_template.jinja``): the JAX unit and the port's render the same
+  prompt, tokenize it to the same ids (no BOS: the template renders none,
+  and none is added) and give equal greedy tokens, buffered and streamed.
 """
 
 import base64
@@ -92,6 +100,7 @@ from scalable_hw_agnostic_inference_tpu_torch.utils.env import ServeConfig
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE.parent))
+import chat_templates  # noqa: E402
 from parity import assert_greedy_parity  # noqa: E402
 
 TOWER_ATOL = 2e-4
@@ -423,6 +432,22 @@ def _requests(lv):
             ([11, 23, 5, 8, 19], _prefix(lv, 12))]
 
 
+#: the soft prefix's other configurations: (env, engine keys)
+PREFIX_CONFIGS = {
+    "spec": ({}, dict(speculative_model="[ngram]", num_speculative_tokens=4,
+                      ngram_prompt_lookup_max=4, ngram_prompt_lookup_min=1)),
+    "ragged-int8": ({"SHAI_RAGGED_ATTENTION": "1", "SHAI_KV_QUANT": "int8"},
+                    {}),
+}
+
+
+def _prefix_rows(lv):
+    """A soft-prefix row whose text repeats (so that the drafter finds
+    n-grams) beside a text row."""
+    return [([5, 17, 42, 9] * 3, _prefix(lv, 13)),
+            ([9, 9, 31, 7, 9, 9, 31], None)]
+
+
 def _drive(eng, reqs, sp):
     ids = [eng.add_request(list(p), sp, prefix=x) for p, x in reqs]
     done = {}
@@ -453,6 +478,16 @@ def jax_runs(lv):
                                 JParams(temperature=0.0, max_new_tokens=8,
                                         logprobs=2))
         out["preemptions"] = eng.obs.preemptions
+        # the soft prefix under speculation, and under ragged int8 KV: no
+        # warmup, so each engine compiles only what the two rows run
+        for case, (env, keys) in PREFIX_CONFIGS.items():
+            with _env(**env):
+                eng = JEngine(lv.jcfg, lv.jparams, JEngineConfig(
+                    **dict(ENGINE_KW, **keys)))
+                out[case] = _drive(eng, _prefix_rows(lv), JParams(
+                    temperature=0.0, max_new_tokens=8, logprobs=2))
+                out[case + "-compiled"] = eng.n_executables
+                out[case + "-leaked"] = eng.cache.leaked_blocks
     return out
 
 
@@ -494,6 +529,31 @@ def test_engine_preempts_a_prefix_request_like_jax(lv, jax_runs):
     assert eng.cache.leaked_blocks == 0
     assert all(len(f.token_ids) == 8 for f in got)
     assert_greedy_parity(got, jax_runs["preempt"], label="preempted prefix")
+
+
+@pytest.mark.parametrize("case", sorted(PREFIX_CONFIGS))
+def test_prefix_row_matches_jax_engine(lv, jax_runs, case):
+    """A soft-prefix row's decode starts at ``prefix_len + len(prompt)``
+    under speculation (verify windows, rollback) and over int8 KV through
+    the ragged path, as the JAX engine's does."""
+    env, keys = PREFIX_CONFIGS[case]
+    with _env(**env):
+        eng = _port_engine(lv, **keys)
+        got = _drive(eng, _prefix_rows(lv),
+                     SamplingParams(temperature=0.0, max_new_tokens=8))
+    want = jax_runs[case]
+    assert [f.n_prompt for f in got] == [f.n_prompt for f in want]
+    assert all(len(f.token_ids) == 8 for f in got)
+    assert_greedy_parity(got, want, label=f"soft prefix, {case}")
+    assert eng.cache.leaked_blocks == jax_runs[case + "-leaked"] == 0
+    assert eng.obs.recompiles == 0
+    # what the JAX engine compiled for the two rows (each compile of the
+    # tiny model costs about a second)
+    assert jax_runs[case + "-compiled"] == {"spec": 5, "ragged-int8": 4}[case]
+    if case == "spec":
+        assert eng.spec.verify_steps > 0 and eng.spec.drafted > 0
+    else:
+        assert eng._ragged and eng.cache.quant
 
 
 @pytest.mark.parametrize("async_on", ["1", "0"])
@@ -638,3 +698,146 @@ def test_tiny_unit_image_errors(services):
     out = svc.infer({"prompt": "y" * 400, "image_b64": "random",
                      "max_new_tokens": 2, "temperature": 0.0})
     assert out["n_tokens"] == 2 and out["n_prompt"] == 128 - 16
+
+
+# -- the chat route under llava-1.5's template --------------------------------
+
+LLAVA_VOCAB = 404   # the tokenizer's 400 and <image>, <pad>; two spare rows
+
+
+def _chat_llava_dir(path: Path) -> Path:
+    """A tiny HF LLaVA (CLIP 3 layers at 32 px, a 2-layer MHA Llama) with
+    the SentencePiece-style tokenizer and llava-1.5's template."""
+    import chip_smoke
+    from transformers import (
+        CLIPVisionConfig,
+        LlamaConfig,
+        LlavaConfig,
+        LlavaForConditionalGeneration,
+    )
+
+    vision = CLIPVisionConfig(hidden_size=32, intermediate_size=64,
+                              num_hidden_layers=3, num_attention_heads=2,
+                              image_size=32, patch_size=8)
+    text = LlamaConfig(vocab_size=LLAVA_VOCAB, hidden_size=64,
+                       intermediate_size=128, num_hidden_layers=2,
+                       num_attention_heads=4, num_key_value_heads=4,
+                       max_position_embeddings=256, rms_norm_eps=1e-5)
+    torch.manual_seed(0)
+    hf = LlavaForConditionalGeneration(LlavaConfig(
+        vision_config=vision, text_config=text, image_token_index=400))
+    rng = np.random.default_rng(7)
+    with torch.no_grad():
+        for name, p in hf.named_parameters():
+            base = 1.0 if p.ndim == 1 and name.endswith("weight") else 0.0
+            p.copy_(torch.from_numpy(base + 0.08 * rng.standard_normal(
+                p.shape).astype(np.float32)))
+    path.mkdir()
+    save_safetensors({k: v.contiguous() for k, v in hf.state_dict().items()},
+                     path / "model.safetensors")
+    config = hf.config.to_dict()
+    (path / "config.json").write_text(json.dumps(config))
+    spec = chip_smoke._sp_tokenizer_spec(vocab_size=400)
+    (path / "tokenizer.json").write_text(json.dumps(spec, ensure_ascii=False))
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "LlamaTokenizerFast", "bos_token": "<s>",
+        "eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>",
+        "add_bos_token": True, "add_eos_token": False, "legacy": False,
+        "clean_up_tokenization_spaces": False}))
+    (path / "chat_template.jinja").write_text(chat_templates.LLAVA15_7B)
+    return path
+
+
+def _chat_serve_cfg(cls, path, tmp):
+    """The unit on ``path`` in one slot (the requests come one at a time;
+    the JAX unit compiles a third of the executables)."""
+    (tmp / "one-slot.json").write_text(json.dumps({
+        "max_model_len": 80, "max_num_seqs": 1, "block_size": 16,
+        "num_blocks": 21, "context_encoding_buckets": [64],
+        "max_new_tokens": 8}))
+    return cls(app="vllm", model_id=str(path), device="cpu", max_seq_len=64,
+               max_new_tokens=8, artifact_root=str(tmp / "artifacts"),
+               vllm_config=str(tmp / "one-slot.json"))
+
+
+@pytest.fixture(scope="module")
+def chat_units(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("llava-chat")
+    path = _chat_llava_dir(tmp / "llava")
+    jsvc = get_model("vllm")(_chat_serve_cfg(JServeConfig, path, tmp))
+    jsvc.load()
+    tsvc = VllmService(_chat_serve_cfg(ServeConfig, path, tmp))
+    tsvc.load()
+    try:
+        yield jsvc, tsvc
+    finally:
+        jsvc.loop.stop()
+        tsvc.close()
+
+
+def _route(svc, name):
+    return dict((r, fn) for r, _, fn in svc.extra_routes())[name]
+
+
+def _stream_text(resp) -> str:
+    """The text of a chat SSE response's deltas."""
+    out = []
+    for chunk in resp.iterator:
+        chunk = chunk.decode() if isinstance(chunk, bytes) else chunk
+        for line in chunk.splitlines():
+            if line.startswith("data: ") and line != "data: [DONE]":
+                delta = json.loads(line[6:])["choices"][0]["delta"]
+                out.append(delta.get("content") or "")
+    return "".join(out)
+
+
+LLAVA_CHAT = [
+    {"role": "user", "content": [{"type": "image"},
+                                 {"type": "text", "text": "what?"}]},
+    {"role": "assistant", "content": [{"type": "text", "text": "cat"}]},
+    {"role": "user", "content": [{"type": "text", "text": "and?"}]}]
+
+
+def test_llava_chat_route_equals_the_jax_unit(chat_units):
+    jsvc, tsvc = chat_units
+    assert tsvc._vision is not None and tsvc.tokenizer.sp is not None
+    want_text, want_templated = jsvc._chat_prompt(LLAVA_CHAT)
+    text, templated = tsvc._chat_prompt(LLAVA_CHAT)
+    assert (text, templated) == (want_text, want_templated) == (
+        "USER: <image>\nwhat? ASSISTANT: cat USER: and? ASSISTANT:", True)
+    ids = tsvc._encode(text, add_special=False)
+    assert ids == jsvc._encode(text, add_special=False)
+    assert len(ids) < tsvc._engine.max_prompt_len   # not cut
+    bos = tsvc.tokenizer.bos_token_id
+    assert bos not in ids and 400 in ids   # <image> is one token
+    # the route: buffered greedy tokens with logprobs, by the tie rule
+    body = {"messages": LLAVA_CHAT, "max_tokens": 6, "temperature": 0,
+            "logprobs": True, "top_logprobs": 2}
+    req = types.SimpleNamespace(json=lambda: body)
+    want = _route(jsvc, "/v1/chat/completions")(req)
+    got = _route(tsvc, "/v1/chat/completions")(req)
+    assert got["usage"] == want["usage"]
+    # one BOS: the template's text carries none, and no second is added
+    assert got["usage"]["prompt_tokens"] == len(ids) == len(
+        tsvc._encode(text)) - 1 and tsvc._encode(text)[0] == bos
+    out = tsvc.infer({"prompt": text, "add_special_tokens": False,
+                      "temperature": 0.0, "max_new_tokens": 6,
+                      "logprobs": 2})
+    ref = jsvc.infer({"prompt": text, "add_special_tokens": False,
+                      "temperature": 0.0, "max_new_tokens": 6,
+                      "logprobs": 2})
+    fin = [types.SimpleNamespace(token_ids=[e["token"] for e in r["logprobs"]],
+                                 logprobs=r["logprobs"]) for r in (out, ref)]
+    assert out["n_prompt"] == ref["n_prompt"] == len(ids)
+    assert_greedy_parity([fin[0]], [fin[1]], label="llava chat")
+    if fin[0].token_ids == fin[1].token_ids:
+        assert got["choices"][0]["message"]["content"] == \
+            want["choices"][0]["message"]["content"] == out["generated_text"]
+    # streamed: the reference's deltas (its incremental decode holds back
+    # partial UTF-8 as the buffered decode does not)
+    sreq = types.SimpleNamespace(json=lambda: dict(body, stream=True,
+                                                   logprobs=False))
+    streams = [_stream_text(_route(svc, "/v1/chat/completions")(sreq))
+               for svc in (tsvc, jsvc)]
+    if fin[0].token_ids == fin[1].token_ids:
+        assert streams[0] == streams[1]
