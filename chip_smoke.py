@@ -222,7 +222,34 @@ Phases:
                 ``/metrics``, the profiled pass, 0 recompiles; before
                 them, the PNG decode and the tiling timed on the host on
                 1080p and 12 MP all-Paeth PNGs;
- 24. ``serve_ops`` serve's configuration under the operating layer
+ 24. ``engine_sd`` Stable Diffusion 2.1 at full width and depth (UNet
+                320/640/1280/1280, OpenCLIP-H's 23 layers, the VAE),
+                seeded, through ``models.sd.StableDiffusion``: 512 x 512,
+                25 DDIM steps, guidance 7.5 at batch 1 and 4, and 768 x 768
+                under v-prediction at 10 steps; B1 exactly 32 launches a
+                UNet forward and 23 a text encode; a 4-step run through B1
+                against the same run through B1's plain version (at 512
+                and at 768 px), a
+                request's image in a batch of 4 against it alone
+                (``SD_IMAGE_*``), the same seed twice bit for bit, the
+                conditioning against the fp32 plain forward on the CPU
+                (``SD_TEXT_RRMS``); ms per UNet step at UNet batch 2 and 8
+                (wall, device, B1's share), text encode, VAE decode and
+                PNG encode ms, images/s, peak bytes, the profiled run's
+                busy share and device time by class; the flash phase
+                holds B1 at every shape of SD2.1's that these phases give
+                it (``SD_FLASH``);
+ 25. ``serve_sd`` the ``sd2`` unit on a seeded stable-diffusion-2-1-base
+                directory written here (diffusers' layout, fp16 UNet and
+                text encoder, a synthetic CLIP vocabulary), ``SD_BATCH_MAX
+                =4``, 512 px, 25 steps, every bucket warmed before
+                readiness: 4 concurrent ``POST /genimage`` (released from
+                one barrier, the unit's own 20 ms window) as one batch-4
+                denoise (``/stats``' ``coalesced_*``), a solo request, a
+                400, the PNGs decoded back; B1 exactly 23 + 32 x 25 a
+                batch; latency p50/p99, ``/metrics``, the traced round's
+                busy share;
+ 26. ``serve_ops`` serve's configuration under the operating layer
                 (``SERVE_OPS_ENV``: ``MAX_INFLIGHT=8``, tracing, the fault
                 endpoint armed, a perf projection of 50 tok/s over a 5 s
                 window, a 2 s watchdog floor, a 60 s drain budget): the
@@ -254,7 +281,8 @@ A full run prints the card's name and power limit, then, second to last,
 replaces, launches in the serve phase that runs it, max error,
 kernel/plain/bound/library times, and its launches at the cached callers
 of engine_prefix, serve_disagg and serve_fleet; B1 also its cross shapes
-and launches in engine_mllama and serve_mllama; B3 also its fused
+and launches in engine_mllama and serve_mllama, its LLaVA shapes, and its
+SD2.1 shapes and launches in engine_sd and serve_sd; B3 also its fused
 mixed-row launch; B2 and B3 their verify shape and verify replays'
 launches, in serve_spec and engine_spec (b);
 B4's decode and wide instantiations, which replace XLA's fused int8 dot
@@ -289,7 +317,8 @@ PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
           "engine_spec", "engine_int8", "checkpoint", "engine_prefix",
           "engine_mllama", "engine_llava", "serve_disagg", "serve_fleet",
           "serve", "serve_int8", "serve_ragged", "serve_fused",
-          "serve_spec", "serve_mllama", "serve_llava", "serve_ops")
+          "serve_spec", "serve_mllama", "serve_llava", "engine_sd",
+          "serve_sd", "serve_ops")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core FLOP/s
@@ -386,6 +415,42 @@ LLAVA_FLASH = [
     (2, 130, 130, 16, 16, 64, [130, 65], True, False),
     (1, 193, 257, 8, 8, 128, [257], True, False),
 ]
+#: B1 at SD2.1's shapes (B, T, S, H, Hkv, D, lengths, causal, timed), each
+#: non-causal with no lengths unless noted, B the UNet's batch (2 for one
+#: image: [uncond; cond]): (vii) self-attention at the 64 x 64 level of a
+#: 512 px image, 5 heads of 64; (viii) its cross-attention over the 77
+#: text states (one partial key tile past a full one); (ix) the 96 x 96
+#: level at 768 px; (x) the text encoder's causal 77 tokens, 16 heads;
+#: then untimed every other shape engine_sd and serve_sd give B1
+#: (``_sd_flash_untimed``)
+SD_FLASH_TIMED = [
+    (2, 4096, 4096, 5, 5, 64, None, False, True),
+    (2, 4096, 77, 5, 5, 64, None, False, True),
+    (2, 9216, 9216, 5, 5, 64, None, False, True),
+    (2, 77, 77, 16, 16, 64, None, True, True),
+]
+
+
+def _sd_flash_untimed():
+    """The UNet's four attention levels (latent side 1/8, 1/16, 1/32,
+    1/64 of the image at 5, 10, 20 and 20 heads), self and cross over
+    the 77 text states: at 512 px for UNet batches 2, 4 and 8 (images 1,
+    2 and 4: engine_sd's batches and serve_sd's warmed buckets), at 768
+    px for batch 2; the text encoder's causal 77 tokens at the same
+    batches; less the timed rows."""
+    rows, timed = [], {r[:6] for r in SD_FLASH_TIMED}
+    for px, batches in ((512, (2, 4, 8)), (768, (2,))):
+        for i, heads in enumerate((5, 10, 20, 20)):
+            t = (px // 8 >> i) ** 2
+            for B in batches:
+                for S in (t, 77):
+                    rows.append((B, t, S, heads, heads, 64, None, False,
+                                 False))
+    rows += [(B, 77, 77, 16, 16, 64, None, True, False) for B in (2, 4, 8)]
+    return [r for r in rows if r[:6] not in timed]
+
+
+SD_FLASH = SD_FLASH_TIMED + _sd_flash_untimed()
 ENGINE_PROMPTS = (5, 37, 300, 1300)
 SERVE_REQUESTS = 8
 # serve_ragged's engine ConfigMap: the 8B counterpart of
@@ -654,6 +719,17 @@ def phase_flash(ctx):
         log(f"flash_attention: D={D_} B={B} T={T} lengths={lengths} "
             f"max |err| {err:.3e}, {share:.3f} of the tolerance (dropped "
             f"keys: {d_share:.2f})")
+    # Stable Diffusion 2.1: the UNet's self- and cross-attention levels and
+    # the text encoder's causal 77 tokens (no lengths: the 77 cross keys
+    # end inside the second key tile, masked by S alone)
+    sd = []
+    for B, T, S, H_, Hkv_, D, lengths, causal, timed in SD_FLASH:
+        line = _flash_row(ctx, torch, gen, fa, B, T, S, H_, Hkv_, D, lengths,
+                          causal, timed)
+        worst = max(worst, line["max_abs_err"])
+        if timed:
+            sd.append(line)
+    ctx["flash_sd"] = sd
     # the summary row: the serving config's largest prefill bucket, batched
     ctx["flash"] = dict(rows[1], max_abs_err=worst)
     # mllama's cross shapes (non-causal over the vision states)
@@ -2605,6 +2681,9 @@ def _kernel_class(name: str, walk: str) -> str:
     if any(k in name for k in ("ragged_kernel", "decode_kernel",
                                "merge_kernel", "groups_kernel")):
         return walk
+    if any(k in name.lower() for k in ("fprop", "convolve", "conv2d",
+                                       "cudnn", "nchwtonhwc", "nhwctonchw")):
+        return "convolution (cuDNN)"
     if "int8_matmul_kernel<128" in name:
         return "B4 int8_matmul (wide)"
     if "int8_matmul_kernel" in name:
@@ -6796,6 +6875,656 @@ def phase_serve_llava(ctx):
                              f"equal to text-only {same}")
 
 
+# -- Stable Diffusion 2.1 (A9) ---------------------------------------------------
+
+#: the sd unit's defaults (reference utils/env.py): 512 x 512, 25 DDIM steps,
+#: guidance 7.5; the 768 px run (stable-diffusion-2-1's native size,
+#: v-prediction) at fewer steps
+SD_SIZE, SD_STEPS, SD_GUIDANCE = 512, 25, 7.5
+SD_768_STEPS = 10
+#: the B1-against-plain run's steps
+SD_CHECK_STEPS = 4
+#: two images of one request that must agree (uint8 levels of 255, mean and
+#: max of |a - b|): a run through B1 against the same run through B1's
+#: plain version (fp32 softmax), and a request's image in a batch of 4
+#: against its image alone (another UNet batch rounds its bf16 products in
+#: another order). The CPU tests' bf16 bound for the same pipeline
+#: (tests/test_torch_diffusion.py PIPE_BF16_*: the port against JAX at bf16
+#: 2.1-3.2, 14-22 on random tiny weights) sets its size
+SD_IMAGE_MEAN, SD_IMAGE_MAX = 4.0, 32
+#: the text encoder's conditioning through B1 (q, k, v rounded to bf16)
+#: against the fp32 plain forward on the CPU: max |a - b| over rms(b). The
+#: bf16 rounding of q, k, v and of P over 23 layers: u = 2^-8 relative a
+#: step, about 23 * 2u = 0.18 rms at most; 0.25 leaves room
+SD_TEXT_RRMS = 0.25
+#: B1 launches: one per attention of each of SD2.x's 16 transformer blocks
+#: (self and cross) a UNet forward; one per layer a text encode
+SD_UNET_B1, SD_TEXT_B1 = 32, 23
+#: serve_sd's unit's SD_BATCH_MAX (its coalescing window is the unit's
+#: own 20 ms: the round's client threads leave one barrier together)
+SERVE_SD_BATCH = 4
+
+
+def _sd_ids(torch, B: int, seed: int):
+    """``(prompt ids, uncond ids)`` ``[B, 77]`` as SD2.1's tokenizer gives
+    them: start 49406, 8 to 40 random ids, end 49407, then ``!`` (0) pads;
+    the negative prompt empty."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.zeros((B, 77), dtype=torch.int64)
+    un = torch.zeros((B, 77), dtype=torch.int64)
+    for b in range(B):
+        n = int(torch.randint(8, 41, (1,), generator=g))
+        ids[b, 0], un[b, 0], un[b, 1] = 49406, 49406, 49407
+        ids[b, 1:n + 1] = torch.randint(1, 49406, (n,), generator=g)
+        ids[b, n + 1] = 49407
+    return ids, un
+
+
+def _sd_models(torch, variant, seed: int = 0):
+    """SD2.1's text encoder (OpenCLIP-H, 23 layers, fp32), UNet (bf16) and
+    VAE decoder (fp32 weights, bf16 compute) at full width and depth,
+    seeded, built on the card."""
+    from scalable_hw_agnostic_inference_tpu_torch.models import clip, unet, vae
+    from scalable_hw_agnostic_inference_tpu_torch.models.encoder import (
+        seeded_init_,
+    )
+
+    text = seeded_init_(clip.ClipTextEncoder(clip.ClipTextConfig(),
+                                             device="cuda"), seed)
+    un = seeded_init_(unet.UNet2DCondition(
+        variant.unet, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+        device="cuda"), seed + 1)
+    va = seeded_init_(vae.AutoencoderKL(variant.vae, device="cuda",
+                                        encoder=False), seed + 2)
+    return text, un, va
+
+
+def _image_diff(a, b):
+    import numpy as np
+
+    d = np.abs(np.asarray(a, np.int32) - np.asarray(b, np.int32))
+    return float(d.mean()), int(d.max())
+
+
+def _check_image_pair(what: str, a, b) -> dict:
+    mean, mx = _image_diff(a, b)
+    if mean > SD_IMAGE_MEAN or mx > SD_IMAGE_MAX:
+        raise AssertionError(f"{what}: images differ by mean {mean:.3f}, "
+                             f"max {mx} levels (bound {SD_IMAGE_MEAN}, "
+                             f"{SD_IMAGE_MAX})")
+    return {"mean": mean, "max": mx}
+
+
+def _sd_denoise_checked(torch, pipe, ids, un, lat, steps: int):
+    """``txt2img_batch``'s work, step for step, also returning whether the
+    final latents and the decoded float image are finite."""
+    with torch.inference_mode():
+        ctx2 = pipe._context(ids, un)
+        out = pipe._denoise(lat, ctx2, steps, SD_GUIDANCE)
+        img = pipe.vae.decode(out)
+        finite = bool(torch.isfinite(out).all()) and bool(
+            torch.isfinite(img).all())
+        u8 = torch.round(torch.clamp(img * 127.5 + 127.5, 0.0, 255.0)).to(
+            torch.uint8).cpu().numpy()
+    return u8, finite
+
+
+def phase_engine_sd(ctx):
+    """SD2.1 at full width and depth (seeded), through
+    ``models.sd.StableDiffusion``: 512 x 512, 25 DDIM steps, guidance 7.5,
+    at batch 1 and 4; 768 x 768 under v-prediction at ``SD_768_STEPS``.
+    B1 exactly 32 launches a UNet forward and 23 a text encode; a
+    ``SD_CHECK_STEPS``-step run through B1 against the same run through
+    B1's plain version; a request's image in a batch of 4 against its image
+    alone; the same seed twice; the conditioning against the fp32 plain
+    forward on the CPU. Prints ms per UNet step at UNet batch 2 and 8 (wall
+    and device), text encode and VAE decode ms, images/s, peak bytes, and
+    a profiled run's busy share and device time by class."""
+    import numpy as np
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.models import clip, sd
+
+    _drop_engine_model(ctx)
+    timer = ctx["timer"]
+    variant = sd.SDVariant.sd21_base()
+    t0 = time.monotonic()
+    text, unet, vae = _sd_models(torch, variant)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    pipe = sd.StableDiffusion(variant, unet, vae, clip.encode_fn(text),
+                              scheduler="ddim")
+    f = pipe.vae_scale
+    h = w = SD_SIZE // f
+    ids4, un4 = _sd_ids(torch, 4, seed=1)
+    ids1, un1 = ids4[:1], un4[:1]
+    lat4 = torch.cat([pipe.init_latents(s, h, w, SD_STEPS)
+                      for s in range(4)])
+    lat1 = lat4[:1]
+    kw = dict(height=SD_SIZE, width=SD_SIZE, steps=SD_STEPS,
+              guidance_scale=SD_GUIDANCE)
+    row = {"build_s": build_s,
+           "params": {n: sum(p.numel() for p in m.parameters())
+                      for n, m in (("text", text), ("unet", unet),
+                                   ("vae", vae))}}
+    # one run of each shape first (cuDNN's algorithm choice, the allocator)
+    t0 = time.monotonic()
+    for ids, un, lat in ((ids1, un1, lat1), (ids4, un4, lat4)):
+        pipe.txt2img_batch(ids, un, lat, **dict(kw, steps=2))
+    torch.cuda.synchronize()
+    row["warm_s"] = time.monotonic() - t0
+
+    # the main path: one image, then a batch of 4, launch-counted
+    torch.cuda.reset_peak_memory_stats()
+    expect = SD_TEXT_B1 + SD_UNET_B1 * SD_STEPS
+    runs = {}
+    for name, ids, un, lat in (("b1", ids1, un1, lat1),
+                               ("b4", ids4, un4, lat4)):
+        _reset_counters()
+        t0 = time.perf_counter()
+        img = pipe.txt2img_batch(ids, un, lat, **kw)
+        wall = time.perf_counter() - t0
+        counts = _read_counters()
+        _check_counters(f"engine_sd {name}", counts, {"flash_attention"})
+        if counts["flash_attention"] != expect:
+            raise AssertionError(
+                f"engine_sd {name}: B1 launched {counts['flash_attention']} "
+                f"times, expected {SD_TEXT_B1} + {SD_UNET_B1} x {SD_STEPS}")
+        if img.shape != (lat.shape[0], SD_SIZE, SD_SIZE, 3) or \
+                img.dtype != np.uint8:
+            raise AssertionError(f"engine_sd {name}: image {img.shape} "
+                                 f"{img.dtype}")
+        runs[name] = (img, wall, counts)
+    ctx.setdefault("launches", {})["engine_sd"] = runs["b1"][2]
+    row["peak_bytes"] = torch.cuda.max_memory_allocated()
+    row["wall_s"] = {k: v[1] for k, v in runs.items()}
+    row["images_per_s"] = {"b1": 1 / runs["b1"][1], "b4": 4 / runs["b4"][1]}
+    row["b1_launches"] = runs["b1"][2]["flash_attention"]
+
+    # per UNet forward and per text encode, counted apart
+    with torch.inference_mode():
+        _reset_counters()
+        ctx2 = pipe._context(ids1, un1)
+        torch.cuda.synchronize()
+        n_text = _read_counters()["flash_attention"]
+        _reset_counters()
+        pair = torch.cat([lat1, lat1])
+        tt = torch.full((2,), 981, dtype=torch.int32, device="cuda")
+        unet(pair, tt, ctx2)
+        torch.cuda.synchronize()
+        n_unet = _read_counters()["flash_attention"]
+    row["b1_per_text_encode"], row["b1_per_unet_forward"] = n_text, n_unet
+    if (n_text, n_unet) != (SD_TEXT_B1, SD_UNET_B1):
+        raise AssertionError(f"engine_sd: B1 {n_text} a text encode, "
+                             f"{n_unet} a UNet forward; expected "
+                             f"{SD_TEXT_B1}, {SD_UNET_B1}")
+
+    # the same seed twice; a request in a batch of 4 against it alone
+    again = pipe.txt2img_batch(ids1, un1, lat1, **kw)
+    row["same_seed_equal"] = bool(np.array_equal(again, runs["b1"][0]))
+    if not row["same_seed_equal"]:
+        raise AssertionError(
+            f"engine_sd: the same seed gave another image "
+            f"({_image_diff(again, runs['b1'][0])})")
+    row["batch4_vs_alone"] = _check_image_pair(
+        "engine_sd: a request in a batch of 4 against it alone",
+        runs["b4"][0][0], runs["b1"][0][0])
+
+    # a short run through B1 against the same run through B1's plain
+    # version (fp32 softmax), finite latents and image
+    lat_c = pipe.init_latents(7, h, w, SD_CHECK_STEPS)
+    got, finite = _sd_denoise_checked(torch, pipe, ids1, un1, lat_c,
+                                      SD_CHECK_STEPS)
+    with _plain_attention():
+        _reset_counters()
+        plain, finite_p = _sd_denoise_checked(torch, pipe, ids1, un1, lat_c,
+                                              SD_CHECK_STEPS)
+        if _read_counters()["flash_attention"]:
+            raise AssertionError("engine_sd: the plain run launched B1")
+    if not (finite and finite_p):
+        raise AssertionError("engine_sd: non-finite latents or image")
+    row["b1_vs_plain"] = _check_image_pair(
+        f"engine_sd: {SD_CHECK_STEPS} steps through B1 against its plain "
+        f"version", got, plain)
+
+    # the conditioning through B1 against the fp32 plain forward (CPU)
+    with torch.inference_mode():
+        cond = pipe._context(ids1, un1).float()
+        cpu = clip.build(text.cfg, {k: v.cpu() for k, v in
+                                    text.state_dict().items()})
+        ref = cpu(torch.cat([un1, ids1]))[0]
+    dev = (cond.cpu() - ref).abs().max().item() / ref.pow(2).mean().sqrt(
+    ).item()
+    row["text_vs_fp32_plain_rrms"] = dev
+    del cpu
+    if not dev <= SD_TEXT_RRMS:
+        raise AssertionError(f"engine_sd: the conditioning through B1 is "
+                             f"{dev:.3f} rms from the fp32 plain forward "
+                             f"(bound {SD_TEXT_RRMS})")
+
+    # one UNet step (the pair through the UNet, guidance, DDIM update) at
+    # UNet batch 2 and 8, wall and device; the text encode; the VAE decode
+    ts, a_t, a_p = pipe.tables(SD_STEPS)
+    steps = {}
+    with torch.inference_mode():
+        for name, ids, un, lat in (("unet_batch_2", ids1, un1, lat1),
+                                   ("unet_batch_8", ids4, un4, lat4)):
+            c2 = pipe._context(ids, un)
+            one = pipe._make_step(lat.shape[0])
+
+            def fn():
+                return one(lat, ts[0], a_t[0], a_p[0], c2, SD_GUIDANCE)
+
+            by_kernel = _device_us_by_kernel(torch, fn, calls=5)
+            steps[name] = {
+                "wall_ms": _step_wall_ms(torch, fn, reps=10),
+                "device_ms": sum(us for us, _ in by_kernel.values()) / 1e3,
+                "b1_ms": sum(us for k, (us, _) in by_kernel.items()
+                             if "flash_kernel" in k) / 1e3}
+        row["step"] = steps
+        row["text_encode_ms"] = timer(lambda: pipe._context(ids1, un1),
+                                      reps=5)
+        z = lat1.clone()
+        row["vae_decode_ms"] = {
+            "b1": timer(lambda: pipe._decode_body(z), reps=5),
+            "b4": timer(lambda: pipe._decode_body(lat4), reps=3)}
+    img = runs["b1"][0][0]
+    t0 = time.perf_counter()
+    png = sd.to_png_base64(img)
+    row["png_encode_ms"] = (time.perf_counter() - t0) * 1e3
+    row["png_bytes"] = len(png) * 3 // 4
+
+    # 768 x 768, v-prediction (stable-diffusion-2-1), the same weights
+    v768 = sd.SDVariant.sd21()
+    pipe768 = sd.StableDiffusion(v768, unet, vae, clip.encode_fn(text),
+                                 scheduler="ddim")
+    h7 = 768 // f
+    lat7 = pipe768.init_latents(0, h7, h7, SD_768_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    img7 = pipe768.txt2img_batch(ids1, un1, lat7, height=768, width=768,
+                                 steps=SD_768_STEPS,
+                                 guidance_scale=SD_GUIDANCE)
+    wall7 = time.perf_counter() - t0
+    n7 = _read_counters()["flash_attention"]
+    if img7.shape != (1, 768, 768, 3) or \
+            n7 != SD_TEXT_B1 + SD_UNET_B1 * SD_768_STEPS:
+        raise AssertionError(f"engine_sd 768: image {img7.shape}, B1 {n7}")
+    peak7 = torch.cuda.max_memory_allocated()
+    # the same short run through B1 and through its plain version, at the
+    # 768 px shapes (9,216, 2,304, 576 and 144 tokens)
+    got7, finite7 = _sd_denoise_checked(torch, pipe768, ids1, un1, lat7,
+                                        SD_CHECK_STEPS)
+    with _plain_attention():
+        plain7, finite7p = _sd_denoise_checked(torch, pipe768, ids1, un1,
+                                               lat7, SD_CHECK_STEPS)
+    if not (finite7 and finite7p):
+        raise AssertionError("engine_sd 768: non-finite latents or image")
+    row["v768"] = {"steps": SD_768_STEPS, "wall_s": wall7, "b1_launches": n7,
+                   "peak_bytes": peak7,
+                   "b1_vs_plain": _check_image_pair(
+                       f"engine_sd 768: {SD_CHECK_STEPS} steps through B1 "
+                       f"against its plain version", got7, plain7)}
+    del got7, plain7
+    with torch.inference_mode():
+        c2 = pipe768._context(ids1, un1)
+        one = pipe768._make_step(1)
+        t7, a7, p7 = pipe768.tables(SD_768_STEPS)
+        row["v768"]["step_wall_ms"] = _step_wall_ms(
+            torch, lambda: one(lat7, t7[0], a7[0], p7[0], c2, SD_GUIDANCE),
+            reps=5)
+    del pipe768, img7
+
+    # the device's busy share and time by class over one batch-1 image
+    row["profile"] = _profile(
+        torch, lambda: pipe.txt2img_batch(ids1, un1, lat1, **kw),
+        "(no paged walk)")
+    ctx["engine_sd"] = row
+    log("engine_sd: " + json.dumps(row))
+    del pipe, text, unet, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: the synthetic CLIP vocabulary's corpus (serve_sd's tokenizer)
+SD_CORPUS = ("a photo of an astronaut riding a horse on the moon, a "
+             "painting of a red fox in the snow, trending on artstation, "
+             "highly detailed, 4k, sharp focus, studio lighting, a cat "
+             "sitting on a windowsill at sunset")
+
+
+def _write_clip_tokenizer(path: Path, n_merges: int = 300) -> None:
+    """A CLIP ``tokenizer/`` in SD2.1's layout: ``vocab.json`` (the 256
+    byte characters, each again with ``</w>``, ``n_merges`` merges learnt
+    on ``SD_CORPUS``, the start and end tokens at CLIP's ids 49406 and
+    49407), ``merges.txt``, and SD2.1's configs (``!`` as the pad token in
+    ``special_tokens_map.json``)."""
+    import collections
+    import re
+
+    from scalable_hw_agnostic_inference_tpu_torch.models.tokenizer import (
+        BYTE_TO_CHAR,
+    )
+
+    path.mkdir(parents=True, exist_ok=True)
+    base = [BYTE_TO_CHAR[b] for b in sorted(BYTE_TO_CHAR)]
+    vocab = base + [c + "</w>" for c in base]
+    counts = collections.Counter()
+    for word in re.findall(r"[a-z]+|\d|[^\w\s]+", SD_CORPUS):
+        chars = [BYTE_TO_CHAR[b] for b in word.encode()]
+        counts[tuple(chars[:-1] + [chars[-1] + "</w>"])] += 1
+    merges = []
+    for _ in range(n_merges):
+        pairs = collections.Counter()
+        for word, n in counts.items():
+            for pair in zip(word, word[1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        merges.append(f"{a} {b}")
+        vocab.append(a + b)
+        new = collections.Counter()
+        for word, n in counts.items():
+            out, i = [], 0
+            while i < len(word):
+                if word[i:i + 2] == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(word[i])
+                    i += 1
+            new[tuple(out)] += n
+        counts = new
+    ids = {t: i for i, t in enumerate(vocab)}
+    ids.update({"<|startoftext|>": 49406, "<|endoftext|>": 49407})
+    (path / "vocab.json").write_text(json.dumps(ids))
+    (path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges)
+                                     + "\n")
+    tok = {"lstrip": False, "normalized": True, "rstrip": False,
+           "single_word": False}
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "add_prefix_space": False, "do_lower_case": True,
+        "bos_token": {"__type": "AddedToken", "content": "<|startoftext|>",
+                      **tok},
+        "eos_token": {"__type": "AddedToken", "content": "<|endoftext|>",
+                      **tok},
+        "unk_token": {"__type": "AddedToken", "content": "<|endoftext|>",
+                      **tok},
+        "errors": "replace", "model_max_length": 77,
+        "pad_token": "<|endoftext|>", "tokenizer_class": "CLIPTokenizer"}))
+    (path / "special_tokens_map.json").write_text(json.dumps({
+        "bos_token": {"content": "<|startoftext|>", **tok},
+        "eos_token": {"content": "<|endoftext|>", **tok},
+        "unk_token": {"content": "<|endoftext|>", **tok},
+        "pad_token": "!"}))
+
+
+def _seeded_sd_dir(ctx):
+    """A seeded directory in stabilityai/stable-diffusion-2-1-base's
+    diffusers layout at full width and depth: ``unet/`` and
+    ``text_encoder/`` in fp16 (the hub's fp16 variant's dtype), ``vae/`` in
+    fp32, each ``diffusion_pytorch_model.safetensors`` or
+    ``model.safetensors`` under diffusers' and HF's names, the checkpoint's
+    ``config.json`` files, a DDIM ``scheduler/`` (epsilon), the synthetic
+    CLIP ``tokenizer/`` and ``model_index.json``. Returns the path and the
+    bytes written."""
+    import tempfile
+
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.core.checkpoint import (
+        save_safetensors,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models import (
+        clip,
+        sd,
+        unet,
+        vae,
+    )
+
+    variant = sd.SDVariant.sd21_base()
+    text, un, va = _sd_models(torch, variant, seed=5)
+    path = Path(tempfile.mkdtemp(prefix="shai-sd-")) / "sd-2-1-base"
+    cnames = clip.hf_names(text.cfg)
+    vnames = vae.diffusers_names(
+        variant.vae, {"decoder.mid_block.attentions.0.to_q.weight"})
+    comps = {
+        "unet": ("diffusion_pytorch_model.safetensors", un,
+                 unet.diffusers_name, torch.float16),
+        "vae": ("diffusion_pytorch_model.safetensors", va,
+                vnames.__getitem__, torch.float32),
+        "text_encoder": ("model.safetensors", text, cnames.__getitem__,
+                         torch.float16)}
+    written = 0
+    for comp, (fname, module, name, dtype) in comps.items():
+        (path / comp).mkdir(parents=True)
+        tensors = {}
+        for k, t in module.state_dict().items():
+            t = t.to(dtype)
+            if comp == "vae" and k.startswith("post_quant") and t.ndim == 2:
+                t = t[:, :, None, None]      # diffusers' 1x1 conv
+            tensors[name(k)] = t
+        save_safetensors(tensors, path / comp / fname)
+        written += (path / comp / fname).stat().st_size
+        del tensors
+    # diffusers' configs of stable-diffusion-2-1-base (the keys the loaders
+    # read, and the published geometry)
+    (path / "unet" / "config.json").write_text(json.dumps({
+        "_class_name": "UNet2DConditionModel", "act_fn": "silu",
+        "attention_head_dim": [5, 10, 20, 20],
+        "block_out_channels": [320, 640, 1280, 1280],
+        "cross_attention_dim": 1024,
+        "down_block_types": ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"],
+        "up_block_types": ["UpBlock2D"] + ["CrossAttnUpBlock2D"] * 3,
+        "flip_sin_to_cos": True, "freq_shift": 0, "in_channels": 4,
+        "layers_per_block": 2, "norm_eps": 1e-05, "norm_num_groups": 32,
+        "out_channels": 4, "sample_size": 64,
+        "use_linear_projection": True}))
+    (path / "vae" / "config.json").write_text(json.dumps({
+        "_class_name": "AutoencoderKL", "act_fn": "silu",
+        "block_out_channels": [128, 256, 512, 512], "in_channels": 3,
+        "latent_channels": 4, "layers_per_block": 2, "norm_num_groups": 32,
+        "out_channels": 3, "sample_size": 768, "scaling_factor": 0.18215}))
+    (path / "text_encoder" / "config.json").write_text(json.dumps({
+        "architectures": ["CLIPTextModel"], "hidden_act": "gelu",
+        "hidden_size": 1024, "intermediate_size": 4096,
+        "layer_norm_eps": 1e-05, "max_position_embeddings": 77,
+        "model_type": "clip_text_model", "num_attention_heads": 16,
+        "num_hidden_layers": 23, "projection_dim": 512,
+        "torch_dtype": "float16", "vocab_size": 49408}))
+    (path / "scheduler").mkdir()
+    (path / "scheduler" / "scheduler_config.json").write_text(json.dumps({
+        "_class_name": "DDIMScheduler", "beta_end": 0.012,
+        "beta_schedule": "scaled_linear", "beta_start": 0.00085,
+        "clip_sample": False, "num_train_timesteps": 1000,
+        "prediction_type": "epsilon", "set_alpha_to_one": False,
+        "steps_offset": 1}))
+    (path / "model_index.json").write_text(json.dumps({
+        "_class_name": "StableDiffusionPipeline",
+        "scheduler": ["diffusers", "DDIMScheduler"],
+        "text_encoder": ["transformers", "CLIPTextModel"],
+        "tokenizer": ["transformers", "CLIPTokenizer"],
+        "unet": ["diffusers", "UNet2DConditionModel"],
+        "vae": ["diffusers", "AutoencoderKL"]}))
+    _write_clip_tokenizer(path / "tokenizer")
+    del text, un, va
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path, written
+
+
+def _genimage_round(base: str, payloads):
+    """Concurrent ``POST /genimage``, the client threads released from one
+    barrier: ``([(status, body, seconds)], wall seconds)``."""
+    out = [None] * len(payloads)
+    go = threading.Barrier(len(payloads))
+
+    def one(i):
+        go.wait(timeout=60)
+        t0 = time.perf_counter()
+        status, body = _http(base + "/genimage", payloads[i], timeout=600)
+        out[i] = (status, body, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(payloads))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return out, time.perf_counter() - t0
+
+
+def phase_serve_sd(ctx):
+    """The ``sd2`` unit on a seeded SD2.1-base directory written here
+    (``_seeded_sd_dir``), ``SD_BATCH_MAX=4`` at 512 px and 25 DDIM steps,
+    warmed before readiness (buckets 1, 2, 4): 4 concurrent ``POST
+    /genimage`` coalesced into one batch-4 denoise (``/stats``'
+    ``coalesced_*``), then a solo request, a 400 for a steps value outside
+    the set, every PNG decoded back at 512 x 512; B1 exactly 23 + 32 x 25
+    launches a batch, nothing else launched; latency p50 and p99,
+    ``/metrics``, and a profiled second concurrent round's busy share."""
+    import base64
+
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.models import imageio
+    from scalable_hw_agnostic_inference_tpu_torch.models.tokenizer import (
+        ClipTokenizer,
+    )
+
+    _drop_engine_model(ctx)
+    t0 = time.monotonic()
+    path, n_bytes = _seeded_sd_dir(ctx)
+    write_s = time.monotonic() - t0
+    log(f"serve_sd: wrote {path} ({n_bytes / 1e9:.2f} GB) in {write_s:.1f} "
+        f"s")
+    env = {"DEVICE": "cuda", "MODEL_ID": str(path), "APP": "sd2",
+           "SD_BATCH_MAX": str(SERVE_SD_BATCH),
+           "NUM_INFERENCE_STEPS": str(SD_STEPS), "HEIGHT": str(SD_SIZE),
+           "WIDTH": str(SD_SIZE), "GUIDANCE_SCALE": str(SD_GUIDANCE),
+           "SCHEDULER": "ddim", "PORT": "0"}
+    per_batch = SD_TEXT_B1 + SD_UNET_B1 * SD_STEPS
+    with _env(env):
+        from scalable_hw_agnostic_inference_tpu_torch.serve.app import (
+            create_app,
+        )
+        from scalable_hw_agnostic_inference_tpu_torch.serve.httpd import (
+            Server,
+        )
+        from scalable_hw_agnostic_inference_tpu_torch.serve.metrics import (
+            MetricsPublisher,
+        )
+        from scalable_hw_agnostic_inference_tpu_torch.serve.units import (
+            UNITS,
+        )
+        from scalable_hw_agnostic_inference_tpu_torch.utils.env import (
+            ServeConfig,
+        )
+
+        cfg = ServeConfig.from_env()
+        service = UNITS["sd2"](cfg)
+        app = create_app(cfg, service, publisher=MetricsPublisher(
+            cfg.app, cfg.nodepool, cfg.pod_name, stream=io.StringIO()))
+        server = Server(app, host="127.0.0.1", port=0)
+        host, port = server.start_background()
+        base = f"http://{host}:{port}"
+        try:
+            t0 = time.monotonic()
+            while True:
+                status, body = _http(base + "/readiness")
+                if status == 200:
+                    break
+                if status == 500 or time.monotonic() - t0 > 600:
+                    raise AssertionError(f"serve_sd: not ready: {status} "
+                                         f"{body}")
+                time.sleep(0.25)
+            ready_s = time.monotonic() - t0
+            if not isinstance(service.tokenizer, ClipTokenizer) or \
+                    service.pipe.unet.dtype != torch.bfloat16:
+                raise AssertionError("serve_sd: the unit did not load the "
+                                     "directory's tokenizer and bf16 UNet")
+            prompts = ["a photo of an astronaut riding a horse on the moon",
+                       "A painting of a red fox in the snow, trending!",
+                       "a cat sitting on a windowsill at sunset, 4k",
+                       "studio lighting, sharp focus, highly detailed"]
+            payloads = [{"prompt": p, "seed": i}
+                        for i, p in enumerate(prompts)]
+            stats0 = _http(base + "/stats")[1]["service"]
+            _reset_counters()
+            res, wall = _genimage_round(base, payloads)
+            counts = _read_counters()
+            stats1 = _http(base + "/stats")[1]["service"]
+            if any(r is None or r[0] != 200 for r in res):
+                raise AssertionError(f"serve_sd: the concurrent round "
+                                     f"failed: {[r and r[0] for r in res]}")
+            batches = stats1["coalesced_batches"] - stats0[
+                "coalesced_batches"]
+            coalesced = stats1["coalesced_requests"] - stats0[
+                "coalesced_requests"]
+            _check_counters("serve_sd", counts, {"flash_attention"})
+            if batches != 1 or coalesced != 4 or \
+                    counts["flash_attention"] != per_batch:
+                raise AssertionError(
+                    f"serve_sd: 4 concurrent requests ran as {batches} "
+                    f"batches of {coalesced} requests, B1 "
+                    f"{counts['flash_attention']} launches (one batch: "
+                    f"{per_batch})")
+            ctx.setdefault("launches", {})["serve_sd"] = counts
+            images = [imageio.decode_png(base64.b64decode(
+                r[1]["image_b64"])) for r in res]
+            # a solo request: its own batch of 1
+            _reset_counters()
+            solo = _genimage_round(base, payloads[:1])[0][0]
+            solo_b1 = _read_counters()["flash_attention"]
+            if solo[0] != 200 or solo_b1 != per_batch:
+                raise AssertionError(f"serve_sd: solo {solo[0]}, B1 "
+                                     f"{solo_b1}")
+            solo_img = imageio.decode_png(base64.b64decode(
+                solo[1]["image_b64"]))
+            for img in images + [solo_img]:
+                if img.shape != (SD_SIZE, SD_SIZE, 3):
+                    raise AssertionError(f"serve_sd: image {img.shape}")
+            in_batch_vs_alone = _check_image_pair(
+                "serve_sd: a request in the batch of 4 against it alone",
+                images[0], solo_img)
+            bad = _http(base + "/genimage", {"prompt": "x", "steps": 3})
+            if bad[0] != 400 or "STEPS_BUCKETS" not in json.dumps(bad[1]):
+                raise AssertionError(f"serve_sd: steps=3 answered {bad}")
+            metrics = urllib.request.urlopen(base + "/metrics",
+                                             timeout=60).read().decode()
+            families = ("shai_requests_total", "shai_request_latency_seconds",
+                        "shai_service_coalesced_requests",
+                        "shai_service_coalesce_occupancy")
+            missing = [f for f in families if f not in metrics]
+            if missing:
+                raise AssertionError(f"serve_sd: /metrics lacks {missing}")
+            lat = [r[2] for r in res] + [solo[2]]
+            ids = service._tokenize(prompts[1])
+            row = {"write_s": write_s, "written_bytes": n_bytes,
+                   "ready_s": ready_s, "round_wall_s": wall,
+                   "latency_s": {"p50": _pct(lat, 0.5),
+                                 "p99": _pct(lat, 0.99), "solo": solo[2]},
+                   "images_per_s": 4 / wall, "coalesced": {
+                       "batches": batches, "requests": coalesced,
+                       "occupancy": stats1["coalesce_occupancy"]},
+                   "b1_launches": counts["flash_attention"],
+                   "in_batch_vs_alone": in_batch_vs_alone,
+                   "bad_steps": bad[0],
+                   "prompt_ids": [int(x) for x in ids[0][:16]],
+                   "metrics_families": list(families)}
+            # the traced pass: the concurrent round again under the profiler
+            row["profile"] = _profile(
+                torch, lambda: _genimage_round(base, payloads),
+                "(no paged walk)")
+            ctx["serve_sd"] = row
+            log("serve_sd: " + json.dumps(row))
+        finally:
+            server.stop()
+            shutil.rmtree(path.parent, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
 def kernels_line(ctx):
     cuda_dir = "scalable_hw_agnostic_inference_tpu_torch/csrc"
     pallas = f"{TPU_PKG}/ops/pallas"
@@ -6879,6 +7608,13 @@ def kernels_line(ctx):
         "launches": {ph: ctx["launches"][ph]["flash_attention"]
                      for ph in ("engine_llava (a)", "serve_llava")},
         "shapes": [{k: r[k] for k in keys} for r in ctx["flash_llava"]]}
+    # Stable Diffusion 2.1: B1's UNet and text-encoder shapes (vii)-(x)
+    # timed in the flash phase, launched by engine_sd's batch-1 image
+    # (23 + 32 x 25) and by serve_sd's coalesced batch of 4
+    out[0]["sd"] = {
+        "launches": {ph: ctx["launches"][ph]["flash_attention"]
+                     for ph in ("engine_sd", "serve_sd")},
+        "shapes": [{k: r[k] for k in keys} for r in ctx["flash_sd"]]}
     out[1]["mha"] = {
         "launches": {ph: ctx["launches"][ph]["paged_decode_attention"]
                      for ph in ("engine_llava (a)", "serve_llava")},

@@ -1,24 +1,30 @@
 """Transformer-encoder building blocks: the CLIP tower of the soft-prefix
-VLM (``models/vlm.py``) and the dense and LayerNorm layers mllama's vision
-model shares.
+VLM (``models/vlm.py``), CLIP's causal text encoder (``models/clip.py``)
+and the dense and LayerNorm layers mllama's vision model, the UNet and the
+VAE share.
 
 Port of ``scalable_hw_agnostic_inference_tpu/models/encoder.py``
 (``ACTIVATIONS``, ``SelfAttention``, ``EncoderBlock``, ``Encoder``), cut
-to what the CLIP tower runs: pre-LN, non-causal, quick-GELU or exact
-GELU. The reference's post-LN (DistilBERT) and causal branches serve
-models the port does not have. The modules' names map one to one onto the
-JAX tree: ``layer_{i}``, ``attn.{q,k,v,o}``, ``ln1``, ``ln2``, ``fc1``,
-``fc2``. A flax ``Dense`` kernel ``[in, out]`` is held as ``weight [out,
-in]`` (the HF layout), a ``LayerNorm`` ``scale`` as ``weight``.
+to what the CLIP tower and the text encoder run: pre-LN, causal or not,
+quick-GELU or exact GELU. The reference's post-LN (DistilBERT) branch and
+its key mask serve models the port does not have. The modules' names map
+one to one onto the JAX tree: ``layer_{i}``, ``attn.{q,k,v,o}``, ``ln1``,
+``ln2``, ``fc1``, ``fc2``. A flax ``Dense`` kernel ``[in, out]`` is held as
+``weight [out, in]`` (the HF layout), a ``LayerNorm`` ``scale`` as
+``weight``.
 
 Attention goes through ``ops.attention.dot_product_attention``: on a CUDA
-tensor that is the B1 kernel (non-causal, no lengths, bf16), on the CPU
-the plain path. Parameters are held in ``param_dtype`` and cast to the
-compute ``dtype`` at use, as flax casts them; LayerNorms compute in fp32.
+tensor that is the B1 kernel (no lengths, bf16), on the CPU the plain
+path. B1 takes bf16 only, so an encoder computing in fp32 (the text
+encoder) rounds q, k and v to bf16 at the call on the card and takes the
+output back to fp32; on the CPU it stays fp32, as the reference computes.
+Parameters are held in ``param_dtype`` and cast to the compute ``dtype``
+at use, as flax casts them; LayerNorms compute in fp32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict
 
 import torch
@@ -55,6 +61,8 @@ class LayerNorm(nn.Module):
     """LayerNorm in fp32, cast to ``out_dtype`` (flax ``LayerNorm``
     computes its statistics in fp32 and returns its ``dtype``)."""
 
+    is_norm = True
+
     def __init__(self, dim: int, eps: float, dtype, device):
         super().__init__()
         self.eps = eps
@@ -67,13 +75,104 @@ class LayerNorm(nn.Module):
             self.eps).to(out_dtype)
 
 
-class SelfAttention(nn.Module):
-    """Non-causal multi-head self-attention with merged-head dense
-    projections."""
+class GroupNorm(nn.Module):
+    """flax ``GroupNorm(groups, dtype=float32)`` over an NCHW tensor:
+    statistics over each group of ``channels / groups`` consecutive
+    channels and every pixel, in fp32, returning fp32 (flax's default
+    epsilon, 1e-6)."""
 
-    def __init__(self, dim: int, heads: int, dtype, device):
+    is_norm = True
+
+    def __init__(self, groups: int, channels: int, dtype, device,
+                 eps: float = 1e-6):
         super().__init__()
-        self.dim, self.heads = dim, heads
+        self.groups, self.eps = groups, eps
+        self.weight = param((channels,), dtype, device, 1.0)
+        self.bias = param((channels,), dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.group_norm(x.float(), self.groups,
+                                        self.weight.float(),
+                                        self.bias.float(), self.eps)
+
+
+class Conv2d(nn.Module):
+    """A square convolution computing in ``dtype`` (parameters cast in, as
+    flax's ``Conv(dtype=...)`` casts them) over an NCHW tensor; ``weight
+    [out, in, k, k]`` (the torch layout; flax's kernel is ``[k, k, in,
+    out]``). ``padding`` defaults to ``k // 2`` on every side."""
+
+    def __init__(self, n_in: int, n_out: int, k: int, dtype, device,
+                 param_dtype=None, stride: int = 1, padding=None):
+        super().__init__()
+        self.dtype, self.stride = dtype, stride
+        self.padding = k // 2 if padding is None else padding
+        pd = dtype if param_dtype is None else param_dtype
+        self.weight = param((n_out, n_in, k, k), pd, device)
+        self.bias = param((n_out,), pd, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return nn.functional.conv2d(x.to(dt), self.weight.to(dt),
+                                    self.bias.to(dt), self.stride,
+                                    self.padding)
+
+
+def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
+    """Seeded random weights in place, drawn by torch on the module's
+    device (not flax's initializers): norm scales 1 and shifts 0, other
+    vectors N(0, 0.02), each matrix, kernel or embedding N(0, 1/fan_in)
+    with ``fan_in`` the product of its trailing dimensions."""
+    dev = next(module.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for mod in module.modules():
+            for name, t in mod.named_parameters(recurse=False):
+                if getattr(mod, "is_norm", False):
+                    t.fill_(1.0 if name == "weight" else 0.0)
+                elif t.ndim == 1:
+                    t.normal_(0.0, 0.02, generator=gen)
+                else:
+                    fan_in = math.prod(t.shape[1:])
+                    t.normal_(0.0, fan_in ** -0.5, generator=gen)
+    return module
+
+
+def state_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A flax parameter tree (numpy leaves) -> the state dict of the port
+    module whose submodules carry the tree's names: a 2-d ``kernel [in,
+    out]`` becomes ``weight [out, in]``, a 4-d conv ``kernel [k, k, in,
+    out]`` ``weight [out, in, k, k]``, ``scale`` and ``embedding``
+    ``weight``; ``bias`` stays ``bias``."""
+    from .llama import _to_torch
+
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        for key, leaf in node.items():
+            if isinstance(leaf, dict):
+                walk(leaf, path + (key,))
+                continue
+            t = _to_torch(leaf)
+            if key == "kernel":
+                t = t.T if t.ndim == 2 else t.permute(3, 2, 0, 1)
+                key = "weight"
+            elif key in ("scale", "embedding"):
+                key = "weight"
+            out[".".join(path + (key,))] = t.contiguous()
+
+    walk(tree.get("params", tree), ())
+    return out
+
+
+class SelfAttention(nn.Module):
+    """Multi-head self-attention with merged-head dense projections,
+    causal or not."""
+
+    def __init__(self, dim: int, heads: int, dtype, device,
+                 causal: bool = False):
+        super().__init__()
+        self.dim, self.heads, self.causal = dim, heads, causal
         for name in ("q", "k", "v", "o"):
             setattr(self, name, Dense(dim, dim, True, dtype, device))
 
@@ -83,7 +182,12 @@ class SelfAttention(nn.Module):
         q = self.q(x).reshape(B, T, self.heads, hd)
         k = self.k(x).reshape(B, T, self.heads, hd)
         v = self.v(x).reshape(B, T, self.heads, hd)
-        o = dot_product_attention(q, k, v)
+        if q.is_cuda and q.dtype != torch.bfloat16:
+            o = dot_product_attention(q.bfloat16(), k.bfloat16(),
+                                      v.bfloat16(), causal=self.causal
+                                      ).to(q.dtype)
+        else:
+            o = dot_product_attention(q, k, v, causal=self.causal)
         return self.o(o.reshape(B, T, self.dim))
 
 
@@ -93,7 +197,8 @@ class EncoderBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, mlp_dim: int, act: str = "gelu",
                  ln_eps: float = 1e-5, dtype=torch.float32,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None,
+                 causal: bool = False):
         super().__init__()
         if act not in ACTIVATIONS:
             raise ValueError(f"activation {act!r} not in {list(ACTIVATIONS)}")
@@ -101,7 +206,7 @@ class EncoderBlock(nn.Module):
         self.dtype = dtype
         pd = param_dtype
         self.ln1 = LayerNorm(dim, ln_eps, pd, device)
-        self.attn = SelfAttention(dim, heads, pd, device)
+        self.attn = SelfAttention(dim, heads, pd, device, causal=causal)
         self.ln2 = LayerNorm(dim, ln_eps, pd, device)
         self.fc1 = Dense(dim, mlp_dim, True, pd, device)
         self.fc2 = Dense(mlp_dim, dim, True, pd, device)
@@ -118,13 +223,13 @@ class Encoder(nn.Module):
     def __init__(self, n_layers: int, dim: int, heads: int, mlp_dim: int,
                  act: str = "gelu", ln_eps: float = 1e-5,
                  dtype=torch.float32, param_dtype=torch.float32,
-                 device=None):
+                 device=None, causal: bool = False):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
             self.add_module(f"layer_{i}", EncoderBlock(
                 dim, heads, mlp_dim, act=act, ln_eps=ln_eps, dtype=dtype,
-                param_dtype=param_dtype, device=device))
+                param_dtype=param_dtype, device=device, causal=causal))
 
     def forward(self, x: torch.Tensor, collect_hidden: bool = False,
                 n_blocks: int = -1):

@@ -30,7 +30,13 @@ module does the same work for the formats it reads:
 - :func:`decode_image`: request bytes to RGB, PNG here and JPEG through
   ``models.jpeg``. Other formats (GIF, WebP, BMP) raise
   :class:`ImageError` naming what was sent; the serving unit answers it
-  with a 400.
+  with a 400;
+- :func:`encode_png`: an ``[H, W, 3]`` uint8 array to an 8-bit RGB PNG
+  (the SD unit's response; the reference writes it with PIL's
+  ``Image.fromarray(img).save(buf, format="PNG")``): one IDAT of every
+  row under filter type 0, deflated at zlib's level 6 (Pillow's default
+  ``compress_level``, :data:`PNG_LEVEL`). The bytes differ from PIL's (which picks a filter
+  per row); the pixels read back are the same.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ from typing import List, Tuple
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+#: the zlib level of :func:`encode_png` (Pillow's default compress_level)
+PNG_LEVEL = 6
 
 #: the most pixels an image may have: Pillow's ``DecompressionBombError``
 #: limit, twice its default ``Image.MAX_IMAGE_PIXELS``
@@ -339,6 +348,27 @@ def decode_image(data: bytes) -> np.ndarray:
         raise ImageError("bad image: neither PNG nor JPEG (unrecognised "
                          "bytes)")
     raise ImageError(f"{fmt} images are not supported (PNG and JPEG only)")
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """``[H, W, 3]`` uint8 RGB -> PNG bytes (see the module note)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ImageError(f"encode_png takes [H, W, 3] uint8, got "
+                         f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.empty((h, 1 + 3 * w), np.uint8)
+    rows[:, 0] = 0      # filter type None on every row
+    rows[:, 1:] = img.reshape(h, 3 * w)
+    return (PNG_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), PNG_LEVEL))
+            + _chunk(b"IEND", b""))
 
 
 # -- Pillow's resize -----------------------------------------------------------

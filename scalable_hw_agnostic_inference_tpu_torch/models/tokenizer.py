@@ -60,6 +60,21 @@ them. A ``LlamaTokenizerFast`` config rebuilds the template from its
 Anything else raises, naming what is missing: another pre-tokenizer,
 normalizer, decoder or regex, a Unigram or WordPiece model, BPE dropout or
 word affixes, added tokens that strip or match whole words only.
+
+:class:`ClipTokenizer` reads a CLIP ``tokenizer/`` directory
+(``vocab.json``, ``merges.txt``, ``tokenizer_config.json``,
+``special_tokens_map.json``: SD's layout, without a ``tokenizer.json``)
+and gives the ids ``CLIPTokenizerFast`` gives, the pipeline
+``transformers``' ``CLIPConverter`` builds: NFC, runs of whitespace to one
+space, lowercase; CLIP's ``Split`` (``'s|'t|'re|'ve|'m|'ll|'d|
+[\\p{L}]+|[\\p{N}]|[^\\s\\p{L}\\p{N}]+``, whitespace dropped); ByteLevel
+characters; BPE with ``</w>`` ending each word and the slow tokenizer's
+merge list (``merges.txt`` past its header line, at most 48,894 merges);
+``<|startoftext|> ... <|endoftext|>``, truncated and padded to the length
+asked for with the configuration's pad token. SD2.1 pads with ``!``,
+which ``transformers`` adds as a special token matched in the raw text
+(so a prompt's own ``!`` is that token, not ``!</w>``); SD1.x pads with
+the end-of-text token.
 """
 
 from __future__ import annotations
@@ -303,6 +318,72 @@ LLAMA_SPECIAL_DEFAULTS = {"unk_token": "<unk>", "bos_token": "<s>",
 #: where ``AutoTokenizer`` finds template files beside the tokenizer
 CHAT_TEMPLATE_FILE = "chat_template.jinja"
 CHAT_TEMPLATE_DIR = "additional_chat_templates"
+
+
+def split_added(text: str, added: Dict[str, int]
+                ) -> List[Tuple[bool, str, int]]:
+    """``(is an added token, text, offset)`` segments: the ``added``
+    tokens matched in ``text``, leftmost first and the longest at a
+    position."""
+    out: List[Tuple[bool, str, int]] = []
+    if not added:
+        return [(False, text, 0)] if text else []
+    i = start = 0
+    n = len(text)
+    while i < n:
+        best = max((t for t in added if text.startswith(t, i)),
+                   key=len, default=None)
+        if best is None:
+            i += 1
+            continue
+        if i > start:
+            out.append((False, text[start:i], start))
+        out.append((True, best, i))
+        i = start = i + len(best)
+    if start < n:
+        out.append((False, text[start:], start))
+    return out
+
+
+def merge_ids(ids: List[int], merges: Dict[Tuple[int, int], Tuple[int, int]]
+              ) -> List[int]:
+    """A word's initial ids merged as the ``tokenizers`` BPE model merges
+    them (``merges``: pair -> (rank, merged id)): a heap of (rank,
+    position), stale entries skipped when their pair no longer makes the
+    same token."""
+    ids = list(ids)
+    n = len(ids)
+    nxt = list(range(1, n)) + [-1]
+    prv = list(range(-1, n - 1))
+    alive = [True] * n
+    heap = []
+    for i in range(n - 1):
+        m = merges.get((ids[i], ids[i + 1]))
+        if m is not None:
+            heap.append((m[0], i, m[1]))
+    heapq.heapify(heap)
+    while heap:
+        rank, pos, new_id = heapq.heappop(heap)
+        if not alive[pos] or nxt[pos] == -1:
+            continue
+        right = nxt[pos]
+        m = merges.get((ids[pos], ids[right]))
+        if m is None or m[1] != new_id:
+            continue
+        ids[pos] = new_id
+        alive[right] = False
+        nxt[pos] = nxt[right]
+        if nxt[right] != -1:
+            prv[nxt[right]] = pos
+        if prv[pos] != -1:
+            m = merges.get((ids[prv[pos]], ids[pos]))
+            if m is not None:
+                heapq.heappush(heap, (m[0], prv[pos], m[1]))
+        if nxt[pos] != -1:
+            m = merges.get((ids[pos], ids[nxt[pos]]))
+            if m is not None:
+                heapq.heappush(heap, (m[0], pos, m[1]))
+    return [t for t, a in zip(ids, alive) if a]
 
 
 class BpeTokenizer:
@@ -555,28 +636,7 @@ class BpeTokenizer:
 
     def _split_added(self, text: str, added: Optional[Dict[str, int]] = None
                      ) -> List[Tuple[bool, str, int]]:
-        """``(is an added token, text, offset)`` segments: the ``added``
-        tokens (the raw-matched ones by default) matched in ``text``,
-        leftmost first and the longest at a position."""
-        added = self.added if added is None else added
-        out: List[Tuple[bool, str, int]] = []
-        if not added:
-            return [(False, text, 0)] if text else []
-        i = start = 0
-        n = len(text)
-        while i < n:
-            best = max((t for t in added if text.startswith(t, i)),
-                       key=len, default=None)
-            if best is None:
-                i += 1
-                continue
-            if i > start:
-                out.append((False, text[start:i], start))
-            out.append((True, best, i))
-            i = start = i + len(best)
-        if start < n:
-            out.append((False, text[start:], start))
-        return out
+        return split_added(text, self.added if added is None else added)
 
     # -- the SentencePiece-style pipeline ------------------------------------
 
@@ -661,47 +721,14 @@ class BpeTokenizer:
 
     def _bpe(self, piece: str) -> List[int]:
         """One pre-tokenized piece (ByteLevel characters, or a
-        SentencePiece-style word) -> ids, merged as the ``tokenizers`` BPE
-        model merges: a heap of (rank, position), stale entries skipped
-        when their pair no longer makes the same token."""
+        SentencePiece-style word) -> ids (:func:`merge_ids`)."""
         if self.ignore_merges and piece in self.vocab:
             return [self.vocab[piece]]
         if self.sp is not None:
             ids = self._initial(piece)
         else:
             ids = [self.vocab[c] for c in piece if c in self.vocab]
-        n = len(ids)
-        nxt = list(range(1, n)) + [-1]
-        prv = list(range(-1, n - 1))
-        alive = [True] * n
-        heap = []
-        for i in range(n - 1):
-            m = self.merges.get((ids[i], ids[i + 1]))
-            if m is not None:
-                heap.append((m[0], i, m[1]))
-        heapq.heapify(heap)
-        while heap:
-            rank, pos, new_id = heapq.heappop(heap)
-            if not alive[pos] or nxt[pos] == -1:
-                continue
-            right = nxt[pos]
-            m = self.merges.get((ids[pos], ids[right]))
-            if m is None or m[1] != new_id:
-                continue
-            ids[pos] = new_id
-            alive[right] = False
-            nxt[pos] = nxt[right]
-            if nxt[right] != -1:
-                prv[nxt[right]] = pos
-            if prv[pos] != -1:
-                m = self.merges.get((ids[prv[pos]], ids[pos]))
-                if m is not None:
-                    heapq.heappush(heap, (m[0], prv[pos], m[1]))
-            if nxt[pos] != -1:
-                m = self.merges.get((ids[pos], ids[nxt[pos]]))
-                if m is not None:
-                    heapq.heappush(heap, (m[0], pos, m[1]))
-        return [t for t, a in zip(ids, alive) if a]
+        return merge_ids(ids, self.merges)
 
     # -- the public surface ------------------------------------------------
 
@@ -758,3 +785,174 @@ class BpeTokenizer:
                 data.extend(tok.encode("utf-8"))
         text = data.decode("utf-8", errors="replace")
         return clean_up_tokenization(text) if self.clean_up_spaces else text
+
+
+# -- CLIP ------------------------------------------------------------------------
+
+#: the merges the slow ``CLIPTokenizer`` reads (``49152 - 256 - 2``)
+CLIP_MAX_MERGES = 49152 - 256 - 2
+
+
+def _clip_piece_end(text: str, i: int) -> int:
+    """The end of CLIP's ``Split`` match at ``i`` (``text[i]`` not
+    whitespace): a contraction, a run of letters, one digit, or a run of
+    what is neither."""
+    if text[i] == "'":
+        for tail in ("s", "t", "re", "ve", "m", "ll", "d"):
+            if text.startswith(tail, i + 1):
+                return i + 1 + len(tail)
+    if _letter(text[i]):
+        return _run(text, i, _letter)
+    if _number(text[i]):
+        return i + 1
+    return _run(text, i, _other)
+
+
+def clip_pre_tokenize(text: str) -> List[str]:
+    """CLIP's ``Split`` with ``invert`` and ``removed``: the matches, the
+    whitespace between them dropped."""
+    pieces, i = [], 0
+    while i < len(text):
+        if text[i] in WHITE_SPACE:
+            i += 1
+            continue
+        j = _clip_piece_end(text, i)
+        pieces.append(text[i:j])
+        i = j
+    return pieces
+
+
+class ClipTokenizer:
+    """``CLIPTokenizerFast`` over a CLIP ``tokenizer/`` directory (see the
+    module note): :meth:`encode`, and ``__call__`` with
+    ``padding="max_length", truncation=True`` as the pipelines call it."""
+
+    def __init__(self, vocab: Dict[str, int], merges: Sequence[str],
+                 config: Optional[Dict] = None):
+        config = config or {}
+        self.vocab = dict(vocab)
+        self.merges: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        for rank, m in enumerate(merges):
+            a, b = m.split(" ", 1)
+            self.merges[(self.vocab[a], self.vocab[b])] = (
+                rank, self.vocab[a + b])
+        self.unk_id = self._id(config.get("unk_token", "<|endoftext|>"))
+        self.bos_token_id = self._id(config.get("bos_token",
+                                                "<|startoftext|>"))
+        self.eos_token_id = self._id(config.get("eos_token",
+                                                "<|endoftext|>"))
+        self.pad_token_id = self._id(config.get("pad_token",
+                                                "<|endoftext|>"))
+        self.model_max_length = int(config.get("model_max_length", 77))
+        #: special tokens matched before normalization (added from a plain
+        #: string, or with ``normalized`` false) and after it
+        self.added: Dict[str, int] = {}
+        self.added_norm: Dict[str, int] = {}
+        decoder = config.get("added_tokens_decoder")
+        if decoder:
+            entries = [(int(i), t) for i, t in decoder.items()]
+        else:
+            entries = []
+            for key in ("bos_token", "eos_token", "unk_token", "pad_token"):
+                if config.get(key) is not None:
+                    entries.append((None, config[key]))
+            entries += [(None, t) for t in
+                        config.get("additional_special_tokens") or []]
+        for tid, tok in entries:
+            content = _token_content(tok)
+            if content in self.added or content in self.added_norm:
+                continue
+            normalized = isinstance(tok, dict) and tok.get(
+                "normalized", not tok.get("special", True))
+            tid = self._id(content) if tid is None else tid
+            if tid is None:
+                raise ValueError(f"special token {content!r} is not in the "
+                                 f"vocabulary (adding tokens is not ported)")
+            (self.added_norm if normalized else self.added)[content] = tid
+
+    def _id(self, token) -> Optional[int]:
+        content = _token_content(token)
+        return None if content is None else self.vocab.get(content)
+
+    @classmethod
+    def from_dir(cls, path: Union[str, Path]) -> "ClipTokenizer":
+        """Read ``vocab.json`` and ``merges.txt`` with
+        ``tokenizer_config.json``, and ``special_tokens_map.json`` over
+        its entries when the config lists no ``added_tokens_decoder`` (as
+        ``transformers`` reads them)."""
+        path = Path(path)
+        for f in ("vocab.json", "merges.txt"):
+            if not (path / f).is_file():
+                raise ValueError(f"{path}: no {f} (a CLIP tokenizer "
+                                 f"directory holds vocab.json and "
+                                 f"merges.txt)")
+        vocab = json.loads((path / "vocab.json").read_text(encoding="utf-8"))
+        lines = (path / "merges.txt").read_text(
+            encoding="utf-8").strip().split("\n")
+        merges = lines[1:CLIP_MAX_MERGES + 1]
+        config = {}
+        if (path / "tokenizer_config.json").is_file():
+            config = json.loads((path / "tokenizer_config.json").read_text())
+        if (path / "special_tokens_map.json").is_file() \
+                and "added_tokens_decoder" not in config:
+            config.update(json.loads(
+                (path / "special_tokens_map.json").read_text()))
+        return cls(vocab, merges, config)
+
+    @staticmethod
+    def normalize(text: str) -> str:
+        """NFC, every run of whitespace one space, lowercase."""
+        text = unicodedata.normalize("NFC", text)
+        out, i = [], 0
+        while i < len(text):
+            if text[i] in WHITE_SPACE:
+                i = _run(text, i, lambda c: c in WHITE_SPACE)
+                out.append(" ")
+            else:
+                out.append(text[i])
+                i += 1
+        return "".join(out).lower()
+
+    def _word(self, piece: str) -> List[int]:
+        chars = [BYTE_TO_CHAR[b] for b in piece.encode("utf-8")]
+        chars[-1] += "</w>"
+        return merge_ids([self.vocab.get(c, self.unk_id) for c in chars],
+                         self.merges)
+
+    def encode(self, text: str, add_special_tokens: bool = True,
+               max_length: Optional[int] = None) -> List[int]:
+        """Token ids of ``text``, with ``max_length`` truncated on the
+        right so that the ids, start and end tokens included, number at
+        most ``max_length``."""
+        ids: List[int] = []
+        for is_added, seg, _ in split_added(text, self.added):
+            if is_added:
+                ids.append(self.added[seg])
+                continue
+            for is_norm, piece, _ in split_added(self.normalize(seg),
+                                                 self.added_norm):
+                if is_norm:
+                    ids.append(self.added_norm[piece])
+                else:
+                    for word in clip_pre_tokenize(piece):
+                        ids.extend(self._word(word))
+        if not add_special_tokens:
+            return ids[:max_length] if max_length is not None else ids
+        if max_length is not None:
+            ids = ids[:max(0, max_length - 2)]
+        return [self.bos_token_id] + ids + [self.eos_token_id]
+
+    def __call__(self, text: str, padding: str = "max_length",
+                 truncation: bool = True, max_length: Optional[int] = None
+                 ) -> Dict[str, List[int]]:
+        """``{"input_ids", "attention_mask"}``: the ids truncated to
+        ``max_length`` (``model_max_length`` by default) and padded to it
+        with the pad token."""
+        if padding != "max_length" or not truncation:
+            raise ValueError("ClipTokenizer pads to max_length with "
+                             "truncation only")
+        n = self.model_max_length if max_length is None else max_length
+        ids = self.encode(text, max_length=n)
+        pad = n - len(ids)
+        return {"input_ids": ids + [self.pad_token_id] * pad,
+                "attention_mask": [1] * len(ids) + [0] * pad}

@@ -1,19 +1,54 @@
-"""Shared per-unit helpers: SSE detokenization and request images.
+"""Shared per-unit helpers: SSE detokenization, request images, and the
+fixed-length tokenization of the conditioning paths.
 
 Trimmed copy of ``scalable_hw_agnostic_inference_tpu/serve/units/common.py``
-(``SseTextAssembler``, ``:43``; ``decode_image``, ``:180``). The tokenizer
-helpers come with the units that use them.
+(``HashTokenizer``, ``:23``; ``SseTextAssembler``, ``:43``;
+``tokenize_to_length``, ``:170``; ``decode_image``, ``:180``). The
+reference's ``_hf_tokenizer`` (``AutoTokenizer``) becomes the port's own
+tokenizers (``models/tokenizer.py``).
 """
 
 from __future__ import annotations
 
 import base64
 import binascii
+import hashlib
 from typing import Any, Dict
 
 import numpy as np
 
 from ...models import imageio
+
+
+class HashTokenizer:
+    """Deterministic offline tokenizer (the tiny tier): words hashed into
+    ids."""
+
+    def __init__(self, vocab_size: int, max_len: int):
+        self.vocab_size = vocab_size
+        self.max_len = max_len
+
+    def __call__(self, text: str):
+        ids = [1]  # [CLS]-ish
+        for w in text.lower().split()[: self.max_len - 2]:
+            h = int(hashlib.md5(w.encode()).hexdigest(), 16)
+            ids.append(2 + h % (self.vocab_size - 3))
+        ids.append(self.vocab_size - 1)  # [SEP]/eot, also the argmax id
+        mask = [1] * len(ids) + [0] * (self.max_len - len(ids))
+        ids = ids + [0] * (self.max_len - len(ids))
+        return np.array(ids), np.array(mask)
+
+
+def tokenize_to_length(tok, text: str, length: int) -> np.ndarray:
+    """Fixed-length ``[1, length]`` int32 ids from a :class:`HashTokenizer`
+    or a tokenizer called as ``tok(text, padding="max_length",
+    truncation=True, max_length=length)`` (``models.tokenizer.
+    ClipTokenizer``)."""
+    if isinstance(tok, HashTokenizer):
+        ids, _ = tok(text)
+        return np.asarray(ids)[None, :length].astype(np.int32)
+    enc = tok(text, padding="max_length", truncation=True, max_length=length)
+    return np.asarray(enc["input_ids"], np.int32)[None]
 
 
 def decode_image(payload: Dict[str, Any], size: int) -> np.ndarray:

@@ -3,7 +3,9 @@
 Trimmed port of ``scalable_hw_agnostic_inference_tpu/utils/env.py``
 (``ServeConfig``, keeping only the fields this port reads, among them the
 pod's resilience contract ``DRAIN_BUDGET_S``, ``ADMIT_MAX_QUEUE``,
-``ADMIT_MAX_KV``, ``MAX_INFLIGHT`` and ``METRICS_PORT``; and the lenient
+``ADMIT_MAX_KV``, ``MAX_INFLIGHT`` and ``METRICS_PORT``, and the diffusion
+units' ``NUM_INFERENCE_STEPS``, ``HEIGHT``, ``WIDTH``, ``GUIDANCE_SCALE``,
+``SCHEDULER``, ``STEPS_BUCKETS`` and ``SD_BATCH_MAX``; and the lenient
 ``env_*`` readers of ``obs/util.py``), with one change: ``DEVICE`` accepts
 ``cuda`` (the default) or ``cpu`` where the reference accepts ``tpu`` or
 ``cpu``. A malformed knob degrades to its default with a
@@ -81,11 +83,21 @@ class ServeConfig:
     device: str = "cuda"
     model_id: str = ""
     # task knobs
+    num_inference_steps: int = 25        # diffusion denoise steps
     num_of_runs_inf: int = 2   # /benchmark's default n_runs
     max_new_tokens: int = 128
     max_seq_len: int = 512
+    height: int = 512
+    width: int = 512
+    guidance_scale: float = 7.5
     batch_size: int = 1
+    scheduler: str = "ddim"              # diffusion sampler: ddim | euler
+    steps_buckets: str = ""              # extra allowed steps values, csv
     quantization: str = ""
+    # diffusion request coalescing: concurrent /genimage requests sharing
+    # (steps, guidance) run as one batched denoise, pow2 batch buckets up
+    # to this cap (1 = off)
+    sd_batch_max: int = 1
     vllm_config: str = "/vllm_config.yaml"  # engine ConfigMap mount path
     # serving
     port: int = 8000
@@ -114,11 +126,18 @@ class ServeConfig:
             pod_name=env_str("POD_NAME", os.uname().nodename),
             device=env_str("DEVICE", "cuda"),
             model_id=env_str("MODEL_ID", ""),
+            num_inference_steps=env_int("NUM_INFERENCE_STEPS", 25),
             num_of_runs_inf=env_int("NUM_OF_RUNS_INF", 2),
             max_new_tokens=env_int("MAX_NEW_TOKENS", 128),
             max_seq_len=env_int("MAX_SEQ_LEN", 512),
+            height=env_int("HEIGHT", 512),
+            width=env_int("WIDTH", 512),
+            guidance_scale=env_float("GUIDANCE_SCALE", 7.5),
             batch_size=env_int("BATCH_SIZE", 1),
+            scheduler=env_str("SCHEDULER", "ddim"),
+            steps_buckets=env_str("STEPS_BUCKETS", ""),
             quantization=env_str("QUANTIZATION", ""),
+            sd_batch_max=env_int("SD_BATCH_MAX", 1),
             vllm_config=env_str("VLLM_CONFIG", "/vllm_config.yaml"),
             port=env_int("PORT", 8000),
             warmup=env_bool("WARMUP", True),
@@ -140,6 +159,8 @@ class ServeConfig:
             raise ValueError(
                 f"DEVICE={self.device!r} not supported; expected one of "
                 f"{VALID_DEVICES}")
+        if self.height % 8 or self.width % 8:
+            raise ValueError("HEIGHT and WIDTH must be multiples of 8")
         if self.batch_size < 1:
             raise ValueError("BATCH_SIZE must be >= 1")
         if self.deadline_ms < 0:

@@ -43,8 +43,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "prometheus_client",
              # fleet lookup speak HTTP through the standard library
              "httpx",
              # nor is PIL: the mllama unit decodes PNG and resizes with
-             # models/imageio.py
-             "PIL")
+             # models/imageio.py (and the SD unit encodes its PNGs there)
+             "PIL",
+             # nor is diffusers: the SD pipeline, its schedulers and its
+             # checkpoint loaders are the port's own
+             "diffusers")
 
 
 def _modules():
@@ -179,8 +182,11 @@ def _builders():
     from scalable_hw_agnostic_inference_tpu_torch.engine.cache import (
         PagedKVCache,
     )
+    from scalable_hw_agnostic_inference_tpu_torch.models import clip
     from scalable_hw_agnostic_inference_tpu_torch.models import llama
     from scalable_hw_agnostic_inference_tpu_torch.models import mllama
+    from scalable_hw_agnostic_inference_tpu_torch.models import unet
+    from scalable_hw_agnostic_inference_tpu_torch.models import vae
 
     cfg = llama.LlamaConfig.tiny()
     mcfg = llama.LlamaConfig(**{**llama.LlamaConfig.tiny().__dict__,
@@ -202,6 +208,12 @@ def _builders():
         "PagedKVCache": lambda **kw: PagedKVCache(
             cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, total_blocks=9,
             block_size=4, blocks_per_seq=4, **kw),
+        "UNet2DCondition": lambda **kw: unet.UNet2DCondition(
+            unet.UNetConfig.tiny(), **kw),
+        "AutoencoderKL": lambda **kw: vae.AutoencoderKL(
+            vae.VAEConfig.tiny(), **kw),
+        "ClipTextEncoder": lambda **kw: clip.ClipTextEncoder(
+            clip.ClipTextConfig.tiny(), **kw),
     }
 
 
@@ -218,7 +230,8 @@ def _tensors(built):
                                   "geometry_params_int8",
                                   "LlamaForCausalLM_int8", "mllama_text",
                                   "MllamaVisionModel",
-                                  "random_vision_params"])
+                                  "random_vision_params", "UNet2DCondition",
+                                  "AutoencoderKL", "ClipTextEncoder"])
 def test_model_weights_and_cache_default_to_the_card(no_cuda, name):
     """With no device given, the model, its weight builders and the KV
     cache go to the card, and raise without one, as the engine and the
