@@ -249,7 +249,25 @@ Phases:
                 400, the PNGs decoded back; B1 exactly 23 + 32 x 25 a
                 batch; latency p50/p99, ``/metrics``, the traced round's
                 busy share;
- 26. ``serve_ops`` serve's configuration under the operating layer
+ 26. ``engine_flux`` FLUX.1 at full width and depth (19 + 38 blocks of
+                3,072, T5-XXL's 24 layers, CLIP-L, the FLUX VAE), seeded
+                on the card, through ``models.flux_pipeline``: (a) schnell
+                at 512 px, 4 steps, 256 T5 tokens (wall and device time,
+                the text encode, a step and the VAE decode, peak bytes, B1
+                exactly 12 + 57 x 4 launches and its share of a step); (b)
+                dev's geometry at 1,024 px, 512 T5 tokens, the guidance
+                embedding, 2 steps; (c) the 4-step image through B1
+                against B1's plain version (``SD_IMAGE_*``); (d) a seed
+                twice bit for bit; (e) finite; the flash phase holds B1 at
+                Flux's shapes (``FLUX_FLASH``, (xi) and (xii) timed);
+ 27. ``serve_flux`` the ``flux`` unit on a seeded FLUX.1-schnell directory
+                written here (the BFL single file, full widths, 2 + 4
+                blocks, T5 at 2 layers, a synthetic Unigram
+                ``tokenizer_2/``), ``SUBMESH=0:1``: a few ``POST
+                /genimage``, a 400, B1 exactly (12 + 6 x 4) a request, no
+                shape first run after warmup; then the ``t5`` unit on its
+                ``text_encoder_2/``: ``/embed``, the 400, no kernel;
+ 28. ``serve_ops`` serve's configuration under the operating layer
                 (``SERVE_OPS_ENV``: ``MAX_INFLIGHT=8``, tracing, the fault
                 endpoint armed, a perf projection of 50 tok/s over a 5 s
                 window, a 2 s watchdog floor, a 60 s drain budget): the
@@ -281,8 +299,9 @@ A full run prints the card's name and power limit, then, second to last,
 replaces, launches in the serve phase that runs it, max error,
 kernel/plain/bound/library times, and its launches at the cached callers
 of engine_prefix, serve_disagg and serve_fleet; B1 also its cross shapes
-and launches in engine_mllama and serve_mllama, its LLaVA shapes, and its
-SD2.1 shapes and launches in engine_sd and serve_sd; B3 also its fused
+and launches in engine_mllama and serve_mllama, its LLaVA shapes, its
+SD2.1 shapes and launches in engine_sd and serve_sd, and its Flux shapes
+and launches in engine_flux and serve_flux; B3 also its fused
 mixed-row launch; B2 and B3 their verify shape and verify replays'
 launches, in serve_spec and engine_spec (b);
 B4's decode and wide instantiations, which replace XLA's fused int8 dot
@@ -318,7 +337,7 @@ PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
           "engine_mllama", "engine_llava", "serve_disagg", "serve_fleet",
           "serve", "serve_int8", "serve_ragged", "serve_fused",
           "serve_spec", "serve_mllama", "serve_llava", "engine_sd",
-          "serve_sd", "serve_ops")
+          "serve_sd", "engine_flux", "serve_flux", "serve_ops")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core FLOP/s
@@ -451,6 +470,19 @@ def _sd_flash_untimed():
 
 
 SD_FLASH = SD_FLASH_TIMED + _sd_flash_untimed()
+#: B1 at Flux's joint attention (B, T, S, H, Hkv, D, lengths, causal,
+#: timed): 24 heads of 128 over 24, non-causal, no lengths; T = S = the
+#: image tokens and the T5 tokens together: (xi) FLUX.1-schnell at 512 px
+#: (1,024 + 256, engine_flux (a) and serve_flux), (xii) FLUX.1-dev at
+#: 1,024 px (4,096 + 512, engine_flux (b)); untimed schnell at 1,024 px
+#: (4,096 + 256) and CLIP-L's causal 77 tokens at 12 heads of 64 (the
+#: pooled conditioning of every Flux request)
+FLUX_FLASH = [
+    (1, 1280, 1280, 24, 24, 128, None, False, True),
+    (1, 4608, 4608, 24, 24, 128, None, False, True),
+    (1, 4352, 4352, 24, 24, 128, None, False, False),
+    (1, 77, 77, 12, 12, 64, None, True, False),
+]
 ENGINE_PROMPTS = (5, 37, 300, 1300)
 SERVE_REQUESTS = 8
 # serve_ragged's engine ConfigMap: the 8B counterpart of
@@ -730,6 +762,15 @@ def phase_flash(ctx):
         if timed:
             sd.append(line)
     ctx["flash_sd"] = sd
+    # Flux: the joint attention of every double and single block
+    flux_rows = []
+    for B, T, S, H_, Hkv_, D, lengths, causal, timed in FLUX_FLASH:
+        line = _flash_row(ctx, torch, gen, fa, B, T, S, H_, Hkv_, D, lengths,
+                          causal, timed)
+        worst = max(worst, line["max_abs_err"])
+        if timed:
+            flux_rows.append(line)
+    ctx["flash_flux"] = flux_rows
     # the summary row: the serving config's largest prefill bucket, batched
     ctx["flash"] = dict(rows[1], max_abs_err=worst)
     # mllama's cross shapes (non-causal over the vision states)
@@ -7525,6 +7566,589 @@ def phase_serve_sd(ctx):
             torch.cuda.empty_cache()
 
 
+# -- Flux (FLUX.1 schnell and dev) and the T5 embeddings unit -----------------
+
+#: the deployment's FLUX.1-schnell (deploy/units/flux-tpu-deploy.yaml): 512
+#: px, 4 steps, 256 T5 tokens; FLUX.1-dev's geometry at 1,024 px with 512
+#: T5 tokens and the guidance embedding, 2 steps of it
+FLUX_SIZE, FLUX_STEPS, FLUX_T5 = 512, 4, 256
+FLUX_DEV_SIZE, FLUX_DEV_STEPS, FLUX_DEV_T5 = 1024, 2, 512
+FLUX_GUIDANCE = 3.5
+#: B1 launches: one per double and single block a transformer forward (19
+#: + 38), one per CLIP-L layer a text encode (12)
+FLUX_B1, FLUX_CLIP_B1 = 19 + 38, 12
+#: serve_flux's directory: full widths, depth cut (double and single
+#: blocks, T5 layers); its requests
+SERVE_FLUX_DOUBLE, SERVE_FLUX_SINGLE, SERVE_FLUX_T5_LAYERS = 2, 4, 2
+SERVE_FLUX_REQUESTS = 3
+
+
+def _flux_configs():
+    """``(CLIP-L, the FLUX.1 VAE)``: openai/clip-vit-large-patch14's text
+    tower (12 layers of 768, quick GELU) and the VAE of 16 latent channels
+    without quant convs (scaling 0.3611, shift 0.1159)."""
+    from scalable_hw_agnostic_inference_tpu_torch.models import clip, vae
+
+    return (clip.ClipTextConfig(vocab_size=49408, max_position=77, dim=768,
+                                n_layers=12, heads=12, mlp_dim=3072,
+                                act="quick_gelu"),
+            vae.VAEConfig(latent_channels=16, scaling_factor=0.3611,
+                          shift_factor=0.1159, use_quant_conv=False))
+
+
+def _flux_models(torch, fcfg, tcfg, seed: int = 0):
+    """FLUX's four models seeded on the card: the transformer and T5 in
+    bf16, CLIP-L fp32, the VAE decoder's weights fp32 (bf16 compute)."""
+    from scalable_hw_agnostic_inference_tpu_torch.models import (
+        clip,
+        flux,
+        t5,
+        vae,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models.encoder import (
+        seeded_init_,
+    )
+
+    ccfg, vcfg = _flux_configs()
+    model = flux.seeded(fcfg, seed, dtype=torch.bfloat16, device="cuda")
+    t5m = seeded_init_(t5.T5Encoder(tcfg, dtype=torch.bfloat16,
+                                    device="cuda"), seed + 1)
+    clipm = seeded_init_(clip.ClipTextEncoder(ccfg, device="cuda"), seed + 2)
+    va = seeded_init_(vae.AutoencoderKL(vcfg, device="cuda", encoder=False),
+                      seed + 3)
+    return model, t5m, clipm, va
+
+
+def _flux_ids(torch, t5_len: int, seed: int):
+    """``(T5 ids [1, t5_len], CLIP ids [1, 77])`` as the tokenizers give
+    them: T5's 40 pieces, ``</s>`` (1), pads of 0; CLIP's start, 20 ids,
+    end, end-token pads."""
+    g = torch.Generator().manual_seed(seed)
+    t5_ids = torch.zeros((1, t5_len), dtype=torch.int64)
+    t5_ids[0, :40] = torch.randint(3, 32000, (40,), generator=g)
+    t5_ids[0, 40] = 1
+    clip_ids = torch.full((1, 77), 49407, dtype=torch.int64)
+    clip_ids[0, 0] = 49406
+    clip_ids[0, 1:21] = torch.randint(1, 49406, (20,), generator=g)
+    return t5_ids.numpy(), clip_ids.numpy()
+
+
+def _flux_checked(torch, pipe, t5_ids, clip_ids, lat, steps: int):
+    """``txt2img``'s work on given latents, also returning whether the
+    final latents and the decoded float image are finite."""
+    with torch.inference_mode():
+        txt, pooled = pipe.condition(t5_ids, clip_ids)
+        out = pipe.denoise(lat, txt, pooled, steps, FLUX_GUIDANCE)
+        img = pipe.vae.decode(out)
+        finite = bool(torch.isfinite(out).all()) and bool(
+            torch.isfinite(img).all())
+        u8 = torch.round(torch.clamp(img * 127.5 + 127.5, 0.0, 255.0)).to(
+            torch.uint8).cpu().numpy()
+    return u8, finite
+
+
+def _flux_step(torch, pipe, t5_ids, clip_ids, size: int, steps: int):
+    """One denoise step's work at ``size`` px (the transformer and the
+    Euler update), its launches of B1, wall ms and device ms with B1's
+    share."""
+    from scalable_hw_agnostic_inference_tpu_torch.models import flux
+
+    h = w = size // pipe.vae_scale
+    txt, pooled = pipe.condition(t5_ids, clip_ids)
+    tok = flux.patchify(pipe.init_latents(0, 1, h, w))
+    ts, sig, nxt = pipe.tables(steps, (h // 2) * (w // 2))
+    ids = pipe.ids(1, txt.shape[1], h, w)
+
+    def fn():
+        with torch.inference_mode():
+            return pipe.step(tok, txt, pooled, ts[0], sig[0], nxt[0],
+                             FLUX_GUIDANCE, ids)
+
+    _reset_counters()
+    fn()
+    torch.cuda.synchronize()
+    launches = _read_counters()["flash_attention"]
+    by_kernel = _device_us_by_kernel(torch, fn, calls=3)
+    device_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+    b1_ms = sum(us for k, (us, _) in by_kernel.items()
+                if "flash_kernel" in k) / 1e3
+    return {"tokens": txt.shape[1] + (h // 2) * (w // 2),
+            "b1_launches": launches,
+            "wall_ms": _step_wall_ms(torch, fn, reps=5),
+            "device_ms": device_ms, "b1_ms": b1_ms,
+            "b1_share": b1_ms / device_ms if device_ms else None}
+
+
+def phase_engine_flux(ctx):
+    """FLUX.1 at full width and depth (19 + 38 blocks, T5-XXL's 24
+    layers, CLIP-L, the FLUX VAE), seeded on the card, through
+    ``models.flux_pipeline.FluxPipeline``: (a) schnell at 512 px, 4 steps,
+    256 T5 tokens: one image's wall and device time, the text encode, one
+    step and the VAE decode, peak bytes, B1 exactly 12 + 57 x 4 launches
+    (57 a transformer forward) and its share of a step's device time; (b)
+    the dev geometry (the guidance embedder added over the same blocks) at
+    1,024 px with 512 T5 tokens, 2 steps, a step's wall and device time and
+    B1's share; (c) the 4-step 512 px image through B1 against the same
+    image through B1's plain version (``SD_IMAGE_*``); (d) the same seed
+    twice, bit for bit; (e) finite latents and image. Starts from what the
+    earlier phases left allocated, and says how much."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.models import (
+        clip,
+        flux,
+        t5,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models.flow_match import (
+        FlowMatchConfig,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models.flux_pipeline import (
+        FluxPipeline,
+    )
+
+    _drop_engine_model(ctx)
+    timer = ctx["timer"]
+    left = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    model, t5m, clipm, va = _flux_models(
+        torch, flux.FluxConfig.flux_schnell(), t5.T5Config.t5_v1_1_xxl())
+    torch.cuda.synchronize()
+    row = {"left_allocated_bytes": left, "build_s": time.monotonic() - t0,
+           "weights_bytes": torch.cuda.memory_allocated() - left,
+           "params": {n: sum(p.numel() for p in m.parameters())
+                      for n, m in (("transformer", model), ("t5", t5m),
+                                   ("clip", clipm), ("vae", va))}}
+    pipe = FluxPipeline(model, va, t5.encode_fn(t5m), clip.pooled_fn(clipm),
+                        schedule=FlowMatchConfig(use_dynamic_shifting=False,
+                                                 shift=1.0))
+    t5_ids, clip_ids = _flux_ids(torch, FLUX_T5, seed=1)
+    kw = dict(height=FLUX_SIZE, width=FLUX_SIZE, steps=FLUX_STEPS,
+              guidance=FLUX_GUIDANCE)
+    t0 = time.monotonic()
+    pipe.txt2img(t5_ids, clip_ids, rng=0, **dict(kw, steps=1))
+    torch.cuda.synchronize()
+    row["warm_s"] = time.monotonic() - t0
+
+    # (a) the main path: one schnell image, launch-counted
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    img = pipe.txt2img(t5_ids, clip_ids, rng=0, **kw)
+    wall = time.perf_counter() - t0
+    counts = _read_counters()
+    _check_counters("engine_flux (a)", counts, {"flash_attention"})
+    expect = FLUX_CLIP_B1 + FLUX_B1 * FLUX_STEPS
+    if counts["flash_attention"] != expect:
+        raise AssertionError(
+            f"engine_flux (a): B1 launched {counts['flash_attention']} "
+            f"times, expected {FLUX_CLIP_B1} + {FLUX_B1} x {FLUX_STEPS}")
+    if img.shape != (1, FLUX_SIZE, FLUX_SIZE, 3) or img.dtype != np.uint8:
+        raise AssertionError(f"engine_flux (a): image {img.shape} "
+                             f"{img.dtype}")
+    ctx.setdefault("launches", {})["engine_flux"] = counts
+    row["a"] = {"wall_s": wall, "b1_launches": counts["flash_attention"],
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+    dev_ms, n_launch = _device_step(
+        torch, lambda: pipe.txt2img(t5_ids, clip_ids, rng=0, **kw), calls=1)
+    row["a"]["device_ms"], row["a"]["device_launches"] = dev_ms, n_launch
+    step = _flux_step(torch, pipe, t5_ids, clip_ids, FLUX_SIZE, FLUX_STEPS)
+    if step["b1_launches"] != FLUX_B1:
+        raise AssertionError(f"engine_flux (a): a step launched B1 "
+                             f"{step['b1_launches']} times, expected "
+                             f"{FLUX_B1}")
+    row["a"]["step"] = step
+    row["a"]["text_encode_ms"] = timer(
+        lambda: pipe.condition(t5_ids, clip_ids), reps=5)
+    h = w = FLUX_SIZE // pipe.vae_scale
+    z = pipe.init_latents(3, 1, h, w)
+    row["a"]["vae_decode_ms"] = timer(lambda: pipe.vae.decode_uint8(z),
+                                      reps=5)
+    t0 = time.perf_counter()
+    from scalable_hw_agnostic_inference_tpu_torch.models import sd
+
+    png = sd.to_png_base64(img[0])
+    row["a"]["png_encode_ms"] = (time.perf_counter() - t0) * 1e3
+    row["a"]["png_bytes"] = len(png) * 3 // 4
+
+    # (d) the same seed twice
+    again = pipe.txt2img(t5_ids, clip_ids, rng=0, **kw)
+    row["same_seed_equal"] = bool(np.array_equal(again, img))
+    if not row["same_seed_equal"]:
+        raise AssertionError(f"engine_flux (d): the same seed gave another "
+                             f"image ({_image_diff(again, img)})")
+
+    # (c), (e) the 4-step image through B1 against B1's plain version
+    lat = pipe.init_latents(7, 1, h, w)
+    got, finite = _flux_checked(torch, pipe, t5_ids, clip_ids, lat,
+                                FLUX_STEPS)
+    with _plain_attention():
+        _reset_counters()
+        plain, finite_p = _flux_checked(torch, pipe, t5_ids, clip_ids, lat,
+                                        FLUX_STEPS)
+        if _read_counters()["flash_attention"]:
+            raise AssertionError("engine_flux (c): the plain run launched "
+                                 "B1")
+    row["finite"] = finite and finite_p
+    if not row["finite"]:
+        raise AssertionError("engine_flux (e): non-finite latents or image")
+    row["b1_vs_plain"] = _check_image_pair(
+        f"engine_flux (c): {FLUX_STEPS} steps through B1 against its plain "
+        f"version", got, plain)
+    row["image_std"] = float(np.asarray(got, np.float32).std())
+    del got, plain
+
+    # (b) FLUX.1-dev's geometry: the guidance embedder over the same blocks
+    dcfg = flux.FluxConfig.flux_dev()
+    gin = flux.seeded(dataclasses.replace(dcfg, n_double=0, n_single=0), 9,
+                      dtype=torch.bfloat16, device="cuda").guidance_in
+    devm = flux.build(dcfg, {**model.state_dict(), **{
+        f"guidance_in.{k}": v for k, v in gin.state_dict().items()}})
+    dpipe = FluxPipeline(devm, va, t5.encode_fn(t5m), clip.pooled_fn(clipm),
+                         schedule=FlowMatchConfig())
+    t5d, _ = _flux_ids(torch, FLUX_DEV_T5, seed=2)
+    dkw = dict(height=FLUX_DEV_SIZE, width=FLUX_DEV_SIZE,
+               steps=FLUX_DEV_STEPS, guidance=FLUX_GUIDANCE)
+    dpipe.txt2img(t5d, clip_ids, rng=0, **dict(dkw, steps=1))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    dimg = dpipe.txt2img(t5d, clip_ids, rng=0, **dkw)
+    dwall = time.perf_counter() - t0
+    nd = _read_counters()["flash_attention"]
+    if dimg.shape != (1, FLUX_DEV_SIZE, FLUX_DEV_SIZE, 3) or \
+            nd != FLUX_CLIP_B1 + FLUX_B1 * FLUX_DEV_STEPS or \
+            not np.isfinite(dimg).all():
+        raise AssertionError(f"engine_flux (b): image {dimg.shape}, B1 {nd}")
+    row["b"] = {"wall_s": dwall, "b1_launches": nd,
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "step": _flux_step(torch, dpipe, t5d, clip_ids,
+                                   FLUX_DEV_SIZE, FLUX_DEV_STEPS)}
+    del dpipe, devm, gin
+
+    # the device's busy share and time by class over one schnell image
+    row["profile"] = _profile(
+        torch, lambda: pipe.txt2img(t5_ids, clip_ids, rng=0, **kw),
+        "(no paged walk)")
+    ctx["engine_flux"] = row
+    log("engine_flux: " + json.dumps(row))
+    del pipe, model, t5m, clipm, va
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: the synthetic Unigram vocabulary's corpus (serve_flux's T5 tokenizer)
+FLUX_CORPUS = (SD_CORPUS + " a watercolor fox in a misty forest at dawn, "
+               "cinematic, 35mm photo, a red apple on a wooden table")
+
+
+def _write_t5_tokenizer(path: Path, extra_ids: int = 100) -> None:
+    """A T5 ``tokenizer/`` in the layout ``transformers`` converts T5's to:
+    a Unigram ``tokenizer.json`` (``<pad>``, ``</s>``, ``<unk>`` at 0 to 2,
+    "▁", every character of ``FLUX_CORPUS``, each word with "▁" and its
+    prefixes and suffixes, scored by length; ``<extra_id_N>`` appended in
+    reverse), the normalizer ``Strip`` then ``Replace(" {2,}", "▁")``,
+    ``Metaspace``, the template ``$A </s>``, and its config."""
+    import re
+
+    words = sorted(set(re.findall(r"[a-z0-9]+", FLUX_CORPUS.lower())))
+    pieces = {"▁": -3.0}
+    for c in sorted(set(FLUX_CORPUS) - {" "}):
+        pieces.setdefault(c, -9.0)
+    for word in words:
+        pieces.setdefault("▁" + word, -2.0 - 0.1 * len(word))
+        for i in range(1, len(word)):
+            pieces.setdefault("▁" + word[:i], -6.0 + 0.2 * i)
+            pieces.setdefault(word[i:], -7.0 + 0.2 * (len(word) - i))
+    specials = ["<pad>", "</s>", "<unk>"]
+    vocab = [[t, 0.0] for t in specials] + [[p, s] for p, s in
+                                              pieces.items()]
+    extra = [f"<extra_id_{i}>" for i in range(extra_ids - 1, -1, -1)]
+    vocab += [[t, 0.0] for t in extra]
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, (t, _) in enumerate(vocab) if t in specials or t in extra]
+    meta = {"type": "Metaspace", "replacement": "▁",
+            "prepend_scheme": "always", "split": True}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Strip", "strip_left": False, "strip_right": True},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"},
+             "content": "▁"}]},
+        "pre_tokenizer": meta,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "special_tokens": {"</s>": {"id": "</s>", "ids": [1],
+                                        "tokens": ["</s>"]}}},
+        "decoder": meta,
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab,
+                  "byte_fallback": False}}
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "tokenizer.json").write_text(json.dumps(spec), encoding="utf-8")
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "eos_token": "</s>", "pad_token": "<pad>", "unk_token": "<unk>",
+        "extra_ids": extra_ids, "model_max_length": 512,
+        "tokenizer_class": "T5Tokenizer"}))
+
+
+def _seeded_flux_dir(ctx):
+    """A seeded directory in black-forest-labs/FLUX.1-schnell's layout at
+    full width, depth cut (``SERVE_FLUX_*``): the BFL single file
+    ``flux1-schnell.safetensors`` (bf16), ``text_encoder_2/`` (T5-XXL's
+    widths, bf16), ``text_encoder/`` (CLIP-L, fp16), ``vae/`` (the decoder,
+    fp32), their ``config.json`` files, the schnell
+    ``scheduler_config.json``, the synthetic Unigram ``tokenizer_2/`` and
+    CLIP ``tokenizer/``. Returns the path and the bytes written."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.core.checkpoint import (
+        save_safetensors,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models import (
+        clip,
+        flux,
+        t5,
+        vae,
+    )
+
+    fcfg = dataclasses.replace(flux.FluxConfig.flux_schnell(),
+                               n_double=SERVE_FLUX_DOUBLE,
+                               n_single=SERVE_FLUX_SINGLE)
+    tcfg = dataclasses.replace(t5.T5Config.t5_v1_1_xxl(),
+                               n_layers=SERVE_FLUX_T5_LAYERS)
+    model, t5m, clipm, va = _flux_models(torch, fcfg, tcfg, seed=5)
+    path = Path(tempfile.mkdtemp(prefix="shai-flux-")) / "flux-1-schnell"
+    ccfg, vcfg = _flux_configs()
+    vnames = vae.diffusers_names(
+        vcfg, {"decoder.mid_block.attentions.0.to_q.weight"})
+    files = {
+        "flux1-schnell.safetensors": (model, flux.bfl_names(fcfg),
+                                      torch.bfloat16),
+        "text_encoder_2/model.safetensors": (
+            t5m, t5.hf_names(tcfg, {"shared.weight", "encoder."}),
+            torch.bfloat16),
+        "text_encoder/model.safetensors": (clipm, clip.hf_names(ccfg),
+                                           torch.float16),
+        "vae/diffusion_pytorch_model.safetensors": (va, vnames,
+                                                    torch.float32)}
+    written = 0
+    for fname, (module, names, dtype) in files.items():
+        (path / fname).parent.mkdir(parents=True, exist_ok=True)
+        save_safetensors({names[k]: t.to(dtype) for k, t in
+                          module.state_dict().items()}, path / fname)
+        written += (path / fname).stat().st_size
+    # the published configs' keys that the loaders read
+    (path / "text_encoder_2" / "config.json").write_text(json.dumps({
+        "architectures": ["T5EncoderModel"], "d_ff": 10240, "d_kv": 64,
+        "d_model": 4096, "feed_forward_proj": "gated-gelu",
+        "layer_norm_epsilon": 1e-06, "num_heads": 64,
+        "num_layers": SERVE_FLUX_T5_LAYERS,
+        "relative_attention_max_distance": 128,
+        "relative_attention_num_buckets": 32, "vocab_size": 32128}))
+    (path / "text_encoder" / "config.json").write_text(json.dumps({
+        "architectures": ["CLIPTextModel"], "hidden_act": "quick_gelu",
+        "hidden_size": 768, "intermediate_size": 3072,
+        "layer_norm_eps": 1e-05, "max_position_embeddings": 77,
+        "num_attention_heads": 12, "num_hidden_layers": 12,
+        "vocab_size": 49408}))
+    (path / "vae" / "config.json").write_text(json.dumps({
+        "_class_name": "AutoencoderKL", "block_out_channels":
+        [128, 256, 512, 512], "latent_channels": 16, "layers_per_block": 2,
+        "norm_num_groups": 32, "scaling_factor": 0.3611,
+        "shift_factor": 0.1159, "use_post_quant_conv": False,
+        "use_quant_conv": False}))
+    (path / "scheduler").mkdir()
+    (path / "scheduler" / "scheduler_config.json").write_text(json.dumps({
+        "_class_name": "FlowMatchEulerDiscreteScheduler",
+        "base_image_seq_len": 256, "base_shift": 0.5,
+        "max_image_seq_len": 4096, "max_shift": 1.15,
+        "num_train_timesteps": 1000, "shift": 1.0,
+        "use_dynamic_shifting": False}))
+    (path / "model_index.json").write_text(json.dumps({
+        "_class_name": "FluxPipeline",
+        "scheduler": ["diffusers", "FlowMatchEulerDiscreteScheduler"],
+        "text_encoder": ["transformers", "CLIPTextModel"],
+        "text_encoder_2": ["transformers", "T5EncoderModel"],
+        "tokenizer": ["transformers", "CLIPTokenizer"],
+        "tokenizer_2": ["transformers", "T5TokenizerFast"],
+        "transformer": ["diffusers", "FluxTransformer2DModel"],
+        "vae": ["diffusers", "AutoencoderKL"]}))
+    _write_t5_tokenizer(path / "tokenizer_2")
+    _write_clip_tokenizer(path / "tokenizer")
+    del model, t5m, clipm, va
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path, written
+
+
+@contextlib.contextmanager
+def _unit_up(name: str, env):
+    """The unit ``name`` under ``env`` behind the stdlib server, ready,
+    for the block: ``(service, base URL, ready seconds)``."""
+    from scalable_hw_agnostic_inference_tpu_torch.serve.app import (
+        create_app,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.serve.httpd import Server
+    from scalable_hw_agnostic_inference_tpu_torch.serve.metrics import (
+        MetricsPublisher,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.serve.units import UNITS
+    from scalable_hw_agnostic_inference_tpu_torch.utils.env import (
+        ServeConfig,
+    )
+
+    with _env(env):
+        cfg = ServeConfig.from_env()
+        service = UNITS[name](cfg)
+        app = create_app(cfg, service, publisher=MetricsPublisher(
+            cfg.app, cfg.nodepool, cfg.pod_name, stream=io.StringIO()))
+        server = Server(app, host="127.0.0.1", port=0)
+        host, port = server.start_background()
+        base = f"http://{host}:{port}"
+        try:
+            t0 = time.monotonic()
+            while True:
+                status, body = _http(base + "/readiness")
+                if status == 200:
+                    break
+                if status == 500 or time.monotonic() - t0 > 600:
+                    raise AssertionError(f"{name}: not ready: {status} "
+                                         f"{body}")
+                time.sleep(0.25)
+            yield service, base, time.monotonic() - t0
+        finally:
+            server.stop()
+
+
+def phase_serve_flux(ctx):
+    """The ``flux`` unit on a seeded FLUX.1-schnell directory written here
+    (``_seeded_flux_dir``: the BFL single file, full widths, 2 + 4 blocks,
+    T5 at 2 layers), ``SUBMESH=0:1``, 512 px, 4 steps: a few ``POST
+    /genimage`` (``SERVE_FLUX_REQUESTS``; PNGs decoded back at 512 x 512),
+    a 400 for a steps value outside the set, no shape first run after
+    warmup;
+    B1 exactly (12 + 6 x 4) launches a request and nothing else launched.
+    Then the ``t5`` unit on the directory's ``text_encoder_2/`` (its
+    tokenizer from ``tokenizer_2/``): ``/embed`` of 4096 finite values, the
+    400 for a request without text, no kernel launched. Ready seconds and
+    latency p50 of each."""
+    import base64
+
+    import numpy as np
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.models import imageio
+    from scalable_hw_agnostic_inference_tpu_torch.models.tokenizer import (
+        UnigramTokenizer,
+    )
+
+    _drop_engine_model(ctx)
+    t0 = time.monotonic()
+    path, n_bytes = _seeded_flux_dir(ctx)
+    write_s = time.monotonic() - t0
+    log(f"serve_flux: wrote {path} ({n_bytes / 1e9:.2f} GB) in "
+        f"{write_s:.1f} s")
+    layers = SERVE_FLUX_DOUBLE + SERVE_FLUX_SINGLE
+    per_request = FLUX_CLIP_B1 + layers * FLUX_STEPS
+    prompts = ["a watercolor fox in a misty forest at dawn",
+               "A red apple on a wooden table, 35mm photo",
+               "a photo of an astronaut riding a horse on the moon"]
+    row = {"write_s": write_s, "written_bytes": n_bytes}
+    try:
+        with _unit_up("flux", {
+                "DEVICE": "cuda", "MODEL_ID": str(path), "APP": "flux",
+                "SUBMESH": "0:1", "NUM_INFERENCE_STEPS": str(FLUX_STEPS),
+                "HEIGHT": str(FLUX_SIZE), "WIDTH": str(FLUX_SIZE),
+                "PORT": "0"}) as (service, base, ready_s):
+            pipe = service.pipe
+            if not isinstance(service.t5_tok, UnigramTokenizer) or \
+                    service.t5_len != FLUX_T5 or \
+                    pipe.model.cfg.guidance_embed or \
+                    pipe.model.cfg.n_single != SERVE_FLUX_SINGLE:
+                raise AssertionError("serve_flux: the unit did not load the "
+                                     "schnell directory as written")
+            lat = []
+            _reset_counters()
+            for i, p in enumerate(prompts[:SERVE_FLUX_REQUESTS]):
+                t1 = time.perf_counter()
+                status, body = _http(base + "/genimage",
+                                     {"prompt": p, "seed": i}, timeout=600)
+                lat.append(time.perf_counter() - t1)
+                if status != 200:
+                    raise AssertionError(f"serve_flux: {status} {body}")
+                img = imageio.decode_png(base64.b64decode(body["image_b64"]))
+                if img.shape != (FLUX_SIZE, FLUX_SIZE, 3):
+                    raise AssertionError(f"serve_flux: image {img.shape}")
+            counts = _read_counters()
+            _check_counters("serve_flux", counts, {"flash_attention"})
+            want = per_request * SERVE_FLUX_REQUESTS
+            if counts["flash_attention"] != want:
+                raise AssertionError(
+                    f"serve_flux: B1 {counts['flash_attention']} launches, "
+                    f"expected ({FLUX_CLIP_B1} + {layers} x {FLUX_STEPS}) x "
+                    f"{SERVE_FLUX_REQUESTS}")
+            ctx.setdefault("launches", {})["serve_flux"] = counts
+            bad = _http(base + "/genimage", {"prompt": "x", "steps": 3})
+            if bad[0] != 400 or "STEPS_BUCKETS" not in json.dumps(bad[1]):
+                raise AssertionError(f"serve_flux: steps=3 answered {bad}")
+            if service.recompiles():
+                raise AssertionError(f"serve_flux: {service.recompiles()} "
+                                     f"shapes first run after warmup")
+            row["flux"] = {
+                "ready_s": ready_s, "latency_s": {
+                    "p50": _pct(lat, 0.5), "max": max(lat)},
+                "b1_launches": counts["flash_attention"],
+                "bad_steps": bad[0], "recompiles": service.recompiles(),
+                "t5_ids": [int(x) for x in service.t5_tok.encode(
+                    prompts[1])[:16]]}
+            del service, pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        with _unit_up("t5", {
+                "DEVICE": "cuda", "MODEL_ID": str(path / "text_encoder_2"),
+                "APP": "t5", "SUBMESH": "0:1", "PORT": "0"}) as (
+                service, base, ready_s):
+            lat = []
+            _reset_counters()
+            for p in prompts:
+                t1 = time.perf_counter()
+                status, body = _http(base + "/embed", {"text": p})
+                lat.append(time.perf_counter() - t1)
+                if status != 200 or body["dim"] != 4096 or not np.isfinite(
+                        body["embedding"]).all():
+                    raise AssertionError(f"serve_flux t5: {status} "
+                                         f"{str(body)[:200]}")
+            counts = _read_counters()
+            _check_counters("serve_flux t5", counts, set())
+            bad = _http(base + "/embed", {})
+            if bad[0] != 400:
+                raise AssertionError(f"serve_flux t5: no text answered "
+                                     f"{bad}")
+            row["t5"] = {"ready_s": ready_s, "seq": service.seq,
+                         "latency_s": {"p50": _pct(lat, 0.5),
+                                       "max": max(lat)},
+                         "launches": sum(counts.values()),
+                         "missing_text": bad[0]}
+            del service
+        ctx["serve_flux"] = row
+        log("serve_flux: " + json.dumps(row))
+    finally:
+        shutil.rmtree(path.parent, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def kernels_line(ctx):
     cuda_dir = "scalable_hw_agnostic_inference_tpu_torch/csrc"
     pallas = f"{TPU_PKG}/ops/pallas"
@@ -7615,6 +8239,13 @@ def kernels_line(ctx):
         "launches": {ph: ctx["launches"][ph]["flash_attention"]
                      for ph in ("engine_sd", "serve_sd")},
         "shapes": [{k: r[k] for k in keys} for r in ctx["flash_sd"]]}
+    # Flux: B1's joint-attention shapes (xi) and (xii) timed in the flash
+    # phase, launched by engine_flux (a)'s schnell image (12 + 57 x 4) and
+    # by serve_flux's requests
+    out[0]["flux"] = {
+        "launches": {ph: ctx["launches"][ph]["flash_attention"]
+                     for ph in ("engine_flux", "serve_flux")},
+        "shapes": [{k: r[k] for k in keys} for r in ctx["flash_flux"]]}
     out[1]["mha"] = {
         "launches": {ph: ctx["launches"][ph]["paged_decode_attention"]
                      for ph in ("engine_llava (a)", "serve_llava")},

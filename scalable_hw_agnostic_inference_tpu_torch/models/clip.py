@@ -113,6 +113,19 @@ def encode_fn(model: ClipTextEncoder) -> Callable[[torch.Tensor],
     return encode
 
 
+def pooled_fn(model: ClipTextEncoder) -> Callable[[torch.Tensor],
+                                                   torch.Tensor]:
+    """``ids -> pooled [B, dim]`` under ``torch.inference_mode``: Flux's
+    CLIP conditioning (the features at the end-of-text token, after the
+    final LayerNorm)."""
+
+    def pooled(ids: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return model(ids)[1]
+
+    return pooled
+
+
 # -- weights -------------------------------------------------------------------
 
 _BLOCK_HF = {"attn.q": "self_attn.q_proj", "attn.k": "self_attn.k_proj",

@@ -143,9 +143,7 @@ class StableDiffusion:
 
     def _decode_body(self, lat: torch.Tensor) -> torch.Tensor:
         """VAE decode, then [-1, 1] -> uint8 on the device."""
-        img = self.vae.decode(lat)
-        img = torch.clamp(img * 127.5 + 127.5, 0.0, 255.0)
-        return torch.round(img).to(torch.uint8)
+        return self.vae.decode_uint8(lat)
 
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids)).to(self.device, torch.int64)
@@ -233,16 +231,19 @@ class StableDiffusion:
 
 # -- checkpoints (a diffusers directory; no diffusers dependency) ---------------
 
-def resolve_checkpoint_dir(model_id: str) -> str:
+def resolve_checkpoint_dir(
+        model_id: str,
+        components: str = "unet/, vae/, text_encoder/, tokenizer/, "
+                          "scheduler/") -> str:
     """A local diffusers directory as it is. A hub id is refused: the port
-    fetches nothing (download the checkpoint and name its directory)."""
+    fetches nothing (download the checkpoint, holding ``components``, and
+    name its directory)."""
     if os.path.isdir(model_id):
         return model_id
     raise ValueError(
         f"MODEL_ID={model_id!r} is not a local directory; this port does "
-        f"not download from the hub: fetch the checkpoint (unet/, vae/, "
-        f"text_encoder/, tokenizer/, scheduler/) and set MODEL_ID to its "
-        f"path")
+        f"not download from the hub: fetch the checkpoint ({components}) "
+        f"and set MODEL_ID to its path")
 
 
 def load_torch_state(component_dir: Union[str, Path]) -> Checkpoint:

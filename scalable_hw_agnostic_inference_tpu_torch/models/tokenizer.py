@@ -58,8 +58,16 @@ them. A ``LlamaTokenizerFast`` config rebuilds the template from its
 ``add_bos_token`` and ``add_eos_token``, as ``transformers`` does.
 
 Anything else raises, naming what is missing: another pre-tokenizer,
-normalizer, decoder or regex, a Unigram or WordPiece model, BPE dropout or
-word affixes, added tokens that strip or match whole words only.
+normalizer, decoder or regex, a WordPiece model, BPE dropout or word
+affixes, added tokens that strip or match whole words only. A Unigram
+model is :class:`UnigramTokenizer`'s.
+
+:class:`UnigramTokenizer` reads T5's ``tokenizer.json`` (a FLUX.1
+snapshot's ``tokenizer_2/``, a T5 checkpoint's) and gives the ids
+``T5TokenizerFast`` gives: the ``Precompiled`` charsmap (darts-clone
+double array, grapheme clusters as ``tokenizers`` walks them),
+``Replace``, ``Strip``, ``WhitespaceSplit``, ``Metaspace``, Unigram's
+Viterbi with fused unknowns, added tokens and the ``$A </s>`` template.
 
 :class:`ClipTokenizer` reads a CLIP ``tokenizer/`` directory
 (``vocab.json``, ``merges.txt``, ``tokenizer_config.json``,
@@ -279,7 +287,7 @@ def _sp_pipeline(spec: Dict) -> Optional[Dict]:
         return None
     missing = []
     if model.get("type") != "BPE":
-        missing.append(f"model {model.get('type')!r} (only BPE)")
+        missing.append(_not_bpe(model))
     if model.get("dropout") or model.get("continuing_subword_prefix") or \
             model.get("end_of_word_suffix"):
         missing.append("BPE dropout or word prefixes and suffixes")
@@ -301,6 +309,13 @@ def _sp_pipeline(spec: Dict) -> Optional[Dict]:
                          + "; ".join(missing))
     sp["decoders"] = dsteps
     return sp
+
+
+def _not_bpe(model: Dict) -> str:
+    kind = model.get("type")
+    if kind == "Unigram":
+        return "model 'Unigram' (read by UnigramTokenizer, not here)"
+    return f"model {kind!r} (only BPE)"
 
 
 def _token_content(v) -> Optional[str]:
@@ -563,7 +578,7 @@ class BpeTokenizer:
         model = spec.get("model") or {}
         missing = []
         if model.get("type") != "BPE":
-            missing.append(f"model {model.get('type')!r} (only BPE)")
+            missing.append(_not_bpe(model))
         if model.get("byte_fallback") or model.get("dropout"):
             missing.append("BPE byte_fallback or dropout (SentencePiece-"
                            "style BPE)")
@@ -787,7 +802,7 @@ class BpeTokenizer:
         return clean_up_tokenization(text) if self.clean_up_spaces else text
 
 
-# -- CLIP ------------------------------------------------------------------------
+# -- CLIP ---------------------------------------------------------------------
 
 #: the merges the slow ``CLIPTokenizer`` reads (``49152 - 256 - 2``)
 CLIP_MAX_MERGES = 49152 - 256 - 2
@@ -951,6 +966,504 @@ class ClipTokenizer:
         if padding != "max_length" or not truncation:
             raise ValueError("ClipTokenizer pads to max_length with "
                              "truncation only")
+        n = self.model_max_length if max_length is None else max_length
+        ids = self.encode(text, max_length=n)
+        pad = n - len(ids)
+        return {"input_ids": ids + [self.pad_token_id] * pad,
+                "attention_mask": [1] * len(ids) + [0] * pad}
+
+
+# -- Unigram (T5's tokenizer.json) --------------------------------------------
+
+#: the score below the vocabulary's lowest that an unknown character takes
+#: (``tokenizers``' ``K_UNK_PENALTY``)
+UNK_PENALTY = 10.0
+
+#: Prepended_Concatenation_Mark and the other Grapheme_Cluster_Break=Prepend
+#: code points
+_PREPEND = frozenset((*range(0x600, 0x606), 0x6DD, 0x70F, 0x890, 0x891,
+                      0x8E2, 0xD4E, 0x110BD, 0x110CD, 0x111C2, 0x111C3,
+                      0x1193F, 0x11941, 0x11A3A, *range(0x11A84, 0x11A8A),
+                      0x11D46))
+#: spacing marks (gc Mc) that are Grapheme_Extend, so Extend
+_EXTEND_MC = frozenset((0x9BE, 0x9D7, 0xB3E, 0xB57, 0xBBE, 0xBD7, 0xCC2,
+                        0xCD5, 0xCD6, 0xD3E, 0xD57, 0xDCF, 0xDDF, 0x1B35,
+                        0x302E, 0x302F, 0x1133E, 0x11357, 0x114B0, 0x114BD,
+                        0x115AF, 0x11930, 0x1D165, *range(0x1D16E,
+                                                          0x1D173)))
+#: Extended_Pictographic, as ranges (emoji and the pictographic blocks)
+_PICTOGRAPHIC = (
+    (0xA9, 0xA9), (0xAE, 0xAE), (0x203C, 0x203C), (0x2049, 0x2049),
+    (0x2122, 0x2122), (0x2139, 0x2139), (0x2194, 0x2199), (0x21A9, 0x21AA),
+    (0x231A, 0x231B), (0x2328, 0x2328), (0x2388, 0x2388), (0x23CF, 0x23CF),
+    (0x23E9, 0x23F3), (0x23F8, 0x23FA), (0x24C2, 0x24C2), (0x25AA, 0x25AB),
+    (0x25B6, 0x25B6), (0x25C0, 0x25C0), (0x25FB, 0x25FE), (0x2600, 0x2605),
+    (0x2607, 0x2612), (0x2614, 0x2685), (0x2690, 0x2705), (0x2708, 0x2712),
+    (0x2714, 0x2714), (0x2716, 0x2716), (0x271D, 0x271D), (0x2721, 0x2721),
+    (0x2728, 0x2728), (0x2733, 0x2734), (0x2744, 0x2744), (0x2747, 0x2747),
+    (0x274C, 0x274C), (0x274E, 0x274E), (0x2753, 0x2755), (0x2757, 0x2757),
+    (0x2763, 0x2767), (0x2795, 0x2797), (0x27A1, 0x27A1), (0x27B0, 0x27B0),
+    (0x27BF, 0x27BF), (0x2934, 0x2935), (0x2B05, 0x2B07), (0x2B1B, 0x2B1C),
+    (0x2B50, 0x2B50), (0x2B55, 0x2B55), (0x3030, 0x3030), (0x303D, 0x303D),
+    (0x3297, 0x3297), (0x3299, 0x3299), (0x1F000, 0x1F0FF),
+    (0x1F10D, 0x1F10F), (0x1F12F, 0x1F12F), (0x1F16C, 0x1F171),
+    (0x1F17E, 0x1F17F), (0x1F18E, 0x1F18E), (0x1F191, 0x1F19A),
+    (0x1F1AD, 0x1F1E5), (0x1F201, 0x1F20F), (0x1F21A, 0x1F21A),
+    (0x1F22F, 0x1F22F), (0x1F232, 0x1F23A), (0x1F23C, 0x1F23F),
+    (0x1F249, 0x1F3FA), (0x1F400, 0x1F53D), (0x1F546, 0x1F64F),
+    (0x1F680, 0x1F6FF), (0x1F774, 0x1F77F), (0x1F7D5, 0x1F7FF),
+    (0x1F80C, 0x1F80F), (0x1F848, 0x1F84F), (0x1F85A, 0x1F85F),
+    (0x1F888, 0x1F88F), (0x1F8AE, 0x1F8FF), (0x1F90C, 0x1F93A),
+    (0x1F93C, 0x1F945), (0x1F947, 0x1FAFF), (0x1FC00, 0x1FFFD))
+
+
+def _grapheme_class(c: str) -> str:
+    """The Grapheme_Cluster_Break class of ``c`` (UAX #29), from
+    ``unicodedata``'s categories and the tables above."""
+    cp = ord(c)
+    if c == "\r":
+        return "CR"
+    if c == "\n":
+        return "LF"
+    if cp == 0x200D:
+        return "ZWJ"
+    if 0x1F1E6 <= cp <= 0x1F1FF:
+        return "RI"
+    if cp in _PREPEND:
+        return "Prepend"
+    if 0x1100 <= cp <= 0x115F or 0xA960 <= cp <= 0xA97C:
+        return "L"
+    if 0x1160 <= cp <= 0x11A7 or 0xD7B0 <= cp <= 0xD7C6:
+        return "V"
+    if 0x11A8 <= cp <= 0x11FF or 0xD7CB <= cp <= 0xD7FB:
+        return "T"
+    if 0xAC00 <= cp <= 0xD7A3:
+        return "LV" if (cp - 0xAC00) % 28 == 0 else "LVT"
+    cat = unicodedata.category(c)
+    if cat in ("Mn", "Me") or cp == 0x200C or cp in _EXTEND_MC or \
+            cp in (0xFF9E, 0xFF9F) or 0x1F3FB <= cp <= 0x1F3FF or \
+            0xE0020 <= cp <= 0xE007F:
+        return "Extend"
+    if cat in ("Cc", "Cf", "Zl", "Zp", "Cs"):
+        return "Control"
+    if cat == "Mc" or cp in (0xE33, 0xEB3):
+        return "SpacingMark"
+    if any(a <= cp <= b for a, b in _PICTOGRAPHIC):
+        return "ExtPict"
+    return "Other"
+
+
+def graphemes(text: str) -> List[str]:
+    """``text`` cut into extended grapheme clusters by UAX #29's rules GB3
+    to GB13 (the Indic conjunct rule GB9c left out: a conjunct is then
+    several clusters)."""
+    out: List[str] = []
+    start = 0
+    prev = None
+    ri_run = 0          # regional indicators in a row before this one
+    pict_zwj = False    # ExtPict Extend* ZWJ just before this character
+    pict_ext = False    # ExtPict Extend* just before this character
+    for i, c in enumerate(text):
+        cls = _grapheme_class(c)
+        if prev is None:
+            join = True
+        elif prev == "CR" and cls == "LF":
+            join = True
+        elif prev in ("Control", "CR", "LF") or \
+                cls in ("Control", "CR", "LF"):
+            join = False
+        elif prev == "L" and cls in ("L", "V", "LV", "LVT"):
+            join = True
+        elif prev in ("LV", "V") and cls in ("V", "T"):
+            join = True
+        elif prev in ("LVT", "T") and cls == "T":
+            join = True
+        elif cls in ("Extend", "ZWJ", "SpacingMark") or prev == "Prepend":
+            join = True
+        elif pict_zwj and cls == "ExtPict":
+            join = True
+        elif prev == "RI" and cls == "RI":
+            join = ri_run % 2 == 1
+        else:
+            join = False
+        if not join and i:
+            out.append(text[start:i])
+            start = i
+        pict_zwj = pict_ext and cls == "ZWJ"
+        pict_ext = cls == "ExtPict" or (pict_ext and cls == "Extend")
+        ri_run = ri_run + 1 if cls == "RI" else 0
+        prev = cls
+    if start < len(text):
+        out.append(text[start:])
+    return out
+
+
+class Precompiled:
+    """The ``Precompiled`` normalizer: a SentencePiece charsmap (a u32 trie
+    size, the darts-clone double-array units, then the NUL-terminated
+    replacement strings) applied as ``tokenizers`` applies it. Each
+    grapheme cluster under 6 bytes that has a match is replaced whole by
+    the replacement of its SHORTEST matching prefix; otherwise each of its
+    characters is replaced by its own match, or kept."""
+
+    def __init__(self, blob: bytes):
+        if len(blob) < 4:
+            raise ValueError("Precompiled charsmap: short blob")
+        n = int.from_bytes(blob[:4], "little")
+        if n % 4 or 4 + n > len(blob):
+            raise ValueError(f"Precompiled charsmap: trie size {n} does "
+                             f"not fit a {len(blob)}-byte blob")
+        self.units = [int.from_bytes(blob[4 + j:8 + j], "little")
+                      for j in range(0, n, 4)]
+        self.normalized = blob[4 + n:]
+
+    @staticmethod
+    def _offset(unit: int) -> int:
+        return (unit >> 10) << ((unit & (1 << 9)) >> 6)
+
+    def _prefix_values(self, key: bytes) -> List[int]:
+        """darts-clone's common-prefix search: the value of each key in
+        the trie that is a prefix of ``key``, shortest first."""
+        units = self.units
+        pos = self._offset(units[0]) if units else 0
+        out: List[int] = []
+        for c in key:
+            if c == 0:
+                break
+            pos ^= c
+            if pos >= len(units):
+                break
+            unit = units[pos]
+            if unit & ((1 << 31) | 0xFF) != c:
+                break
+            pos ^= self._offset(unit)
+            if (unit >> 8) & 1:
+                out.append(units[pos] & ((1 << 31) - 1))
+        return out
+
+    def transform(self, chunk: str) -> Optional[str]:
+        found = self._prefix_values(chunk.encode("utf-8"))
+        if not found:
+            return None
+        start = found[0]
+        end = self.normalized.find(b"\0", start)
+        end = len(self.normalized) if end < 0 else end
+        return self.normalized[start:end].decode("utf-8")
+
+    def __call__(self, text: str) -> str:
+        out: List[str] = []
+        for g in graphemes(text):
+            if len(g.encode("utf-8")) < 6:
+                rep = self.transform(g)
+                if rep is not None:
+                    out.append(rep)
+                    continue
+            for c in g:
+                rep = self.transform(c)
+                out.append(c if rep is None else rep)
+        return "".join(out)
+
+
+def _ws_strip(text: str, left: bool, right: bool) -> str:
+    a, b = 0, len(text)
+    while left and a < b and text[a] in WHITE_SPACE:
+        a += 1
+    while right and b > a and text[b - 1] in WHITE_SPACE:
+        b -= 1
+    return text[a:b]
+
+
+def _unigram_normalizer(spec: Optional[Dict]):
+    """``tokenizer.json``'s normalizer as a function on strings: a
+    ``Sequence`` of ``Precompiled``, ``Replace`` (a string or a regex
+    Python's ``re`` reads) and ``Strip``; None is the identity. Anything
+    else raises, naming it."""
+    import base64
+    import re
+
+    if spec is None:
+        return lambda s: s
+    steps = spec.get("normalizers", []) if spec.get("type") == "Sequence" \
+        else [spec]
+    fns = []
+    for st in steps:
+        kind = st.get("type")
+        if kind == "Precompiled":
+            fns.append(Precompiled(base64.b64decode(
+                st.get("precompiled_charsmap") or "")))
+        elif kind == "Replace":
+            pat, to = st.get("pattern") or {}, st.get("content", "")
+            if isinstance(pat.get("String"), str):
+                fns.append(lambda s, p=pat["String"], t=to: s.replace(p, t))
+            elif isinstance(pat.get("Regex"), str):
+                try:
+                    rx = re.compile(pat["Regex"])
+                except re.error as e:
+                    raise ValueError(f"tokenizer.json: Replace regex "
+                                     f"{pat['Regex']!r} is not ported "
+                                     f"({e})") from None
+                fns.append(lambda s, r=rx, t=to: r.sub(lambda _m: t, s))
+            else:
+                raise ValueError(f"tokenizer.json: Replace pattern {pat} "
+                                 f"is not ported")
+        elif kind == "Strip":
+            fns.append(lambda s, a=bool(st.get("strip_left")),
+                       b=bool(st.get("strip_right")): _ws_strip(s, a, b))
+        else:
+            raise ValueError(f"tokenizer.json: normalizer {kind!r} is not "
+                             f"ported for Unigram (Precompiled, Replace, "
+                             f"Strip, Sequence)")
+
+    def normalize(s: str) -> str:
+        for fn in fns:
+            s = fn(s)
+        return s
+
+    return normalize
+
+
+def _unigram_pre_tokenizer(spec: Optional[Dict]) -> List[Dict]:
+    """The pre-tokenizer steps: ``WhitespaceSplit`` and ``Metaspace`` (in a
+    ``Sequence`` or alone). Anything else raises, naming it."""
+    if spec is None:
+        return []
+    steps = spec.get("pretokenizers", []) if spec.get("type") == \
+        "Sequence" else [spec]
+    out = []
+    for st in steps:
+        kind = st.get("type")
+        if kind == "WhitespaceSplit":
+            out.append({"kind": "ws"})
+        elif kind == "Metaspace":
+            scheme = st.get("prepend_scheme")
+            if scheme is None:      # the older spelling
+                scheme = "always" if st.get("add_prefix_space", True) \
+                    else "never"
+            rep = st.get("replacement", SP_SPACE)
+            if scheme not in ("first", "always", "never") or len(rep) != 1:
+                raise ValueError(f"tokenizer.json: not ported: Metaspace "
+                                 f"{st}")
+            out.append({"kind": "meta", "rep": rep, "scheme": scheme,
+                        "split": bool(st.get("split", True))})
+        else:
+            raise ValueError(f"tokenizer.json: pre-tokenizer {kind!r} is "
+                             f"not ported for Unigram (WhitespaceSplit, "
+                             f"Metaspace)")
+    return out
+
+
+class UnigramTokenizer:
+    """A Unigram ``tokenizer.json`` (T5's, ``T5TokenizerFast``'s file) read
+    and applied as ``tokenizers`` applies it:
+
+    - added tokens matched leftmost-longest in the raw text (those marked
+      ``normalized`` in each normalized stretch), the text between them
+      normalized, pre-tokenized and encoded on its own;
+    - the normalizers :func:`_unigram_normalizer` takes, and the
+      pre-tokenizers ``WhitespaceSplit`` and ``Metaspace``
+      (``prepend_scheme`` ``always``, ``first`` or ``never``; ``first``
+      read off the stretch's offset in the raw text);
+    - Viterbi over the pieces' scores, ties kept by the first path found
+      (shorter pieces first at each start); a character no piece begins
+      with scores the lowest score less :data:`UNK_PENALTY`, and a run of
+      such unknowns is one ``unk`` token; ``byte_fallback`` pieces
+      ``<0xXX>`` for a piece outside the vocabulary when all its bytes
+      have one;
+    - the ``TemplateProcessing`` post-processor (T5's ``$A </s>``), right
+      truncation keeping its tokens;
+    - ``__call__(text, padding="max_length", truncation=True,
+      max_length=n)`` as ``transformers`` pads: the pad token of
+      ``tokenizer_config.json`` (``<pad>`` by default, T5's id 0).
+
+    Anything else in the file raises, naming what is missing."""
+
+    def __init__(self, spec: Dict, config: Optional[Dict] = None):
+        config = config or {}
+        model = spec.get("model") or {}
+        if model.get("type") != "Unigram":
+            raise ValueError(f"tokenizer.json: model "
+                             f"{model.get('type')!r} is not Unigram")
+        self.pieces: Dict[str, Tuple[int, float]] = {}
+        self.max_piece = 1
+        scores = []
+        for i, (piece, score) in enumerate(model["vocab"]):
+            self.pieces[piece] = (i, float(score))
+            self.max_piece = max(self.max_piece, len(piece))
+            scores.append(float(score))
+        self.unk_id = model.get("unk_id")
+        self.byte_fallback = bool(model.get("byte_fallback"))
+        self.unk_score = min(scores) - UNK_PENALTY
+        self.normalize = _unigram_normalizer(spec.get("normalizer"))
+        self.pre = _unigram_pre_tokenizer(spec.get("pre_tokenizer"))
+        self.added: Dict[str, int] = {}
+        self.added_norm: Dict[str, int] = {}
+        for t in spec.get("added_tokens") or []:
+            if t.get("lstrip") or t.get("rstrip") or t.get("single_word"):
+                raise ValueError(f"added token {t['content']!r}: lstrip, "
+                                 f"rstrip and single_word are not ported")
+            if t.get("normalized", not t.get("special")):
+                self.added_norm[self.normalize(t["content"])] = t["id"]
+            else:
+                self.added[t["content"]] = t["id"]
+        self._template = BpeTokenizer._parse_template(
+            spec.get("post_processor"))
+        pad = _token_content(config.get("pad_token", "<pad>"))
+        self.pad_token_id = self._token_id(pad)
+        self.model_max_length = int(config.get("model_max_length", 512))
+
+    def _token_id(self, content: Optional[str]) -> Optional[int]:
+        if content is None:
+            return None
+        if content in self.added:
+            return self.added[content]
+        hit = self.pieces.get(content)
+        return None if hit is None else hit[0]
+
+    @classmethod
+    def from_dir(cls, path: Union[str, Path]) -> "UnigramTokenizer":
+        """Read ``tokenizer.json`` and ``tokenizer_config.json`` (a T5
+        ``tokenizer/`` or a FLUX.1 snapshot's ``tokenizer_2/``)."""
+        path = Path(path)
+        if not (path / "tokenizer.json").is_file():
+            raise ValueError(
+                f"{path}: no tokenizer.json (a SentencePiece spiece.model "
+                f"alone is not read by this port)")
+        spec = json.loads((path / "tokenizer.json").read_text(
+            encoding="utf-8"))
+        config = {}
+        if (path / "tokenizer_config.json").is_file():
+            config = json.loads((path / "tokenizer_config.json").read_text())
+        return cls(spec, config)
+
+    # -- the pipeline --------------------------------------------------------
+
+    def _words(self, text: str, offset: int) -> List[str]:
+        words = [(text, offset)]
+        for st in self.pre:
+            nxt = []
+            for w, off in words:
+                if st["kind"] == "ws":
+                    i = 0
+                    while i < len(w):
+                        if w[i] in WHITE_SPACE:
+                            i += 1
+                            continue
+                        j = _run(w, i, lambda c: c not in WHITE_SPACE)
+                        nxt.append((w[i:j], off + i))
+                        i = j
+                    continue
+                rep = st["rep"]
+                s = w.replace(" ", rep)
+                if not s.startswith(rep) and (
+                        st["scheme"] == "always"
+                        or (st["scheme"] == "first" and off == 0)):
+                    s = rep + s
+                if not st["split"]:
+                    nxt.append((s, off))
+                    continue
+                cuts = [i for i, c in enumerate(s) if c == rep and i]
+                start = 0
+                for c in cuts + [len(s)]:
+                    if c > start:
+                        nxt.append((s[start:c], off))
+                    start = c
+            words = nxt
+        return [w for w, _ in words if w]
+
+    def viterbi(self, word: str) -> List[str]:
+        """The best segmentation of ``word`` into pieces (``tokenizers``'
+        ``encode_optimized``)."""
+        n = len(word)
+        if not n:
+            return []
+        # per end position: (score, start, id); start -1 = not reached
+        best: List[Tuple[float, int, int]] = [(0.0, -1, -1)] * (n + 1)
+        for i in range(n):
+            here = best[i][0]
+            single = False
+            for j in range(i + 1, min(n, i + self.max_piece) + 1):
+                hit = self.pieces.get(word[i:j])
+                if hit is None:
+                    continue
+                cand = hit[1] + here
+                if best[j][1] < 0 or cand > best[j][0]:
+                    best[j] = (cand, i, hit[0])
+                if j == i + 1:
+                    single = True
+            if not single:
+                if self.unk_id is None:
+                    raise ValueError(f"Unigram: {word[i]!r} is not in the "
+                                     f"vocabulary and there is no unk_id")
+                cand = self.unk_score + here
+                if best[i + 1][1] < 0 or cand > best[i + 1][0]:
+                    best[i + 1] = (cand, i, self.unk_id)
+        out: List[str] = []
+        unk_run: List[str] = []
+        end = n
+        while end > 0:
+            _, start, tid = best[end]
+            if tid == self.unk_id:
+                unk_run.append(word[start:end])
+            else:
+                if unk_run:
+                    out.append("".join(reversed(unk_run)))
+                    unk_run = []
+                out.append(word[start:end])
+            end = start
+        if unk_run:
+            out.append("".join(reversed(unk_run)))
+        return out[::-1]
+
+    def _piece_ids(self, word: str) -> List[int]:
+        ids: List[int] = []
+        for piece in self.viterbi(word):
+            hit = self.pieces.get(piece)
+            if hit is not None:
+                ids.append(hit[0])
+                continue
+            if self.byte_fallback:
+                bts = [self.pieces.get(f"<0x{b:02X}>")
+                       for b in piece.encode("utf-8")]
+                if all(b is not None for b in bts):
+                    ids.extend(b[0] for b in bts)
+                    continue
+            ids.append(self.unk_id)
+        return ids
+
+    def encode(self, text: str, add_special_tokens: bool = True,
+               max_length: Optional[int] = None) -> List[int]:
+        """Token ids of ``text``; with ``max_length`` truncated on the right
+        so that the ids, template tokens included, number at most
+        ``max_length``."""
+        ids: List[int] = []
+        for is_added, seg, off in split_added(text, self.added):
+            if is_added:
+                ids.append(self.added[seg])
+                continue
+            for is_norm, piece, _ in split_added(self.normalize(seg),
+                                                 self.added_norm):
+                if is_norm:
+                    ids.append(self.added_norm[piece])
+                    continue
+                for word in self._words(piece, off):
+                    ids.extend(self._piece_ids(word))
+        before, after = self._template if add_special_tokens else ([], [])
+        if max_length is not None:
+            ids = ids[:max(0, max_length - len(before) - len(after))]
+        return before + ids + after
+
+    def __call__(self, text: str, padding: str = "max_length",
+                 truncation: bool = True, max_length: Optional[int] = None
+                 ) -> Dict[str, List[int]]:
+        """``{"input_ids", "attention_mask"}``: the ids truncated to
+        ``max_length`` (``model_max_length`` by default) and padded to it
+        with the pad token."""
+        if padding != "max_length" or not truncation:
+            raise ValueError("UnigramTokenizer pads to max_length with "
+                             "truncation only")
+        if self.pad_token_id is None:
+            raise ValueError("UnigramTokenizer: no pad token in the "
+                             "vocabulary")
         n = self.model_max_length if max_length is None else max_length
         ids = self.encode(text, max_length=n)
         pad = n - len(ids)

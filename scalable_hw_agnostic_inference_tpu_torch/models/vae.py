@@ -239,6 +239,12 @@ class AutoencoderKL(nn.Module):
             z = self.post_quant(z)
         return self.decoder(z.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
+    def decode_uint8(self, z: torch.Tensor) -> torch.Tensor:
+        """:meth:`decode`, then [-1, 1] -> uint8 on the device (the
+        pipelines' one small transfer back)."""
+        img = torch.clamp(self.decode(z) * 127.5 + 127.5, 0.0, 255.0)
+        return torch.round(img).to(torch.uint8)
+
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``x [B, H, W, 3]`` -> ``(mean, logvar)`` ``[B, h, w, latent]``,
         ``logvar`` clipped to [-30, 20]."""

@@ -5,7 +5,9 @@ Trimmed copy of ``scalable_hw_agnostic_inference_tpu/serve/units/common.py``
 (``HashTokenizer``, ``:23``; ``SseTextAssembler``, ``:43``;
 ``tokenize_to_length``, ``:170``; ``decode_image``, ``:180``). The
 reference's ``_hf_tokenizer`` (``AutoTokenizer``) becomes the port's own
-tokenizers (``models/tokenizer.py``).
+tokenizers (``models/tokenizer.py``). :func:`unit_device` reads the
+placement knobs the reference reads with ``core/mesh.py``'s
+``parse_submesh`` and ``build_mesh``.
 """
 
 from __future__ import annotations
@@ -15,8 +17,12 @@ import binascii
 import hashlib
 from typing import Any, Dict
 
-import numpy as np
+import re
 
+import numpy as np
+import torch
+
+from ...core.device import resolve_device
 from ...models import imageio
 
 
@@ -37,6 +43,61 @@ class HashTokenizer:
         mask = [1] * len(ids) + [0] * (self.max_len - len(ids))
         ids = ids + [0] * (self.max_len - len(ids))
         return np.array(ids), np.array(mask)
+
+
+def parse_submesh(spec: str):
+    """``"a:b"`` (a device slice) -> ``(start, count)``; ``""`` -> None."""
+    if not spec:
+        return None
+    m = re.fullmatch(r"(\d+):(\d+)", spec.strip())
+    if not m:
+        raise ValueError(f"bad submesh spec {spec!r}; expected 'start:end'")
+    a, b = int(m.group(1)), int(m.group(2))
+    if b <= a:
+        raise ValueError(f"empty submesh {spec!r}")
+    return a, b - a
+
+
+def mesh_size(spec: str) -> int:
+    """The device count of a ``"dp=2,tp=4"`` mesh spec (1 for ``""``)."""
+    n = 1
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        name, _, size = part.partition("=")
+        if not name or not size.isdigit() or int(size) < 1:
+            raise ValueError(f"bad mesh spec {spec!r}; expected "
+                             f"'axis=size,...'")
+        n *= int(size)
+    return n
+
+
+def unit_device(cfg) -> torch.device:
+    """The device a unit runs on: ``DEVICE`` (the card unless it names the
+    CPU), moved to the card ``SUBMESH`` names when it names one. A
+    ``SUBMESH`` or ``MESH_SPEC`` naming more than one device is tensor
+    parallelism (ROADMAP A7), which the port does not have: it raises,
+    never ignored."""
+    device = resolve_device(cfg.device)
+    sub = parse_submesh(cfg.submesh)
+    n_mesh = mesh_size(cfg.mesh_spec)
+    for knob, n in (("SUBMESH", sub[1] if sub else 1),
+                    ("MESH_SPEC", n_mesh)):
+        if n > 1:
+            raise ValueError(
+                f"{knob} names {n} devices: a unit over several devices "
+                f"is tensor parallelism (ROADMAP A7), which this port does "
+                f"not have yet; name one device (SUBMESH=a:a+1, "
+                f"MESH_SPEC=tp=1) or leave it unset")
+    if sub is None:
+        return device
+    if device.type == "cpu":
+        if sub[0]:
+            raise ValueError(f"SUBMESH={cfg.submesh!r}: the CPU is device "
+                             f"0 only")
+        return device
+    if sub[0] >= torch.cuda.device_count():
+        raise ValueError(f"SUBMESH={cfg.submesh!r}: this host has "
+                         f"{torch.cuda.device_count()} cards")
+    return torch.device("cuda", sub[0])
 
 
 def tokenize_to_length(tok, text: str, length: int) -> np.ndarray:

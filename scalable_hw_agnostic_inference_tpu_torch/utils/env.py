@@ -5,7 +5,9 @@ Trimmed port of ``scalable_hw_agnostic_inference_tpu/utils/env.py``
 pod's resilience contract ``DRAIN_BUDGET_S``, ``ADMIT_MAX_QUEUE``,
 ``ADMIT_MAX_KV``, ``MAX_INFLIGHT`` and ``METRICS_PORT``, and the diffusion
 units' ``NUM_INFERENCE_STEPS``, ``HEIGHT``, ``WIDTH``, ``GUIDANCE_SCALE``,
-``SCHEDULER``, ``STEPS_BUCKETS`` and ``SD_BATCH_MAX``; and the lenient
+``SCHEDULER``, ``STEPS_BUCKETS`` and ``SD_BATCH_MAX``; the placement knobs
+``SUBMESH`` and ``MESH_SPEC``, which name one device here (more is
+tensor parallelism, refused at a unit's ``load()``); and the lenient
 ``env_*`` readers of ``obs/util.py``), with one change: ``DEVICE`` accepts
 ``cuda`` (the default) or ``cpu`` where the reference accepts ``tpu`` or
 ``cpu``. A malformed knob degrades to its default with a
@@ -99,6 +101,10 @@ class ServeConfig:
     # to this cap (1 = off)
     sd_batch_max: int = 1
     vllm_config: str = "/vllm_config.yaml"  # engine ConfigMap mount path
+    # placement: "tp=1"-style axis sizes, or an "a:b" device slice; one
+    # device only (serve/units/common.py unit_device)
+    mesh_spec: str = ""
+    submesh: str = ""
     # serving
     port: int = 8000
     warmup: bool = True
@@ -139,6 +145,8 @@ class ServeConfig:
             quantization=env_str("QUANTIZATION", ""),
             sd_batch_max=env_int("SD_BATCH_MAX", 1),
             vllm_config=env_str("VLLM_CONFIG", "/vllm_config.yaml"),
+            mesh_spec=env_str("MESH_SPEC", ""),
+            submesh=env_str("SUBMESH", ""),
             port=env_int("PORT", 8000),
             warmup=env_bool("WARMUP", True),
             metrics_port=env_int("METRICS_PORT", 9100),

@@ -183,8 +183,10 @@ def _builders():
         PagedKVCache,
     )
     from scalable_hw_agnostic_inference_tpu_torch.models import clip
+    from scalable_hw_agnostic_inference_tpu_torch.models import flux
     from scalable_hw_agnostic_inference_tpu_torch.models import llama
     from scalable_hw_agnostic_inference_tpu_torch.models import mllama
+    from scalable_hw_agnostic_inference_tpu_torch.models import t5
     from scalable_hw_agnostic_inference_tpu_torch.models import unet
     from scalable_hw_agnostic_inference_tpu_torch.models import vae
 
@@ -214,6 +216,12 @@ def _builders():
             vae.VAEConfig.tiny(), **kw),
         "ClipTextEncoder": lambda **kw: clip.ClipTextEncoder(
             clip.ClipTextConfig.tiny(), **kw),
+        "FluxTransformer": lambda **kw: flux.FluxTransformer(
+            flux.FluxConfig.tiny(), **kw),
+        "flux_seeded": lambda **kw: flux.seeded(flux.FluxConfig.tiny(), 0,
+                                                **kw),
+        "flux_ids": lambda **kw: {"ids": flux.make_ids(1, 4, 8, 8, **kw)},
+        "T5Encoder": lambda **kw: t5.T5Encoder(t5.T5Config.tiny(), **kw),
     }
 
 
@@ -231,7 +239,9 @@ def _tensors(built):
                                   "LlamaForCausalLM_int8", "mllama_text",
                                   "MllamaVisionModel",
                                   "random_vision_params", "UNet2DCondition",
-                                  "AutoencoderKL", "ClipTextEncoder"])
+                                  "AutoencoderKL", "ClipTextEncoder",
+                                  "FluxTransformer", "flux_seeded",
+                                  "flux_ids", "T5Encoder"])
 def test_model_weights_and_cache_default_to_the_card(no_cuda, name):
     """With no device given, the model, its weight builders and the KV
     cache go to the card, and raise without one, as the engine and the
@@ -241,6 +251,22 @@ def test_model_weights_and_cache_default_to_the_card(no_cuda, name):
         build()
     tensors = _tensors(build(device="cpu"))
     assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+@pytest.mark.parametrize("unit", ["flux", "t5"])
+def test_flux_and_t5_units_raise_without_cuda_unless_given_the_cpu(no_cuda,
+                                                                   unit):
+    from scalable_hw_agnostic_inference_tpu_torch.serve.units import UNITS
+    from scalable_hw_agnostic_inference_tpu_torch.utils.env import (
+        ServeConfig,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        UNITS[unit](ServeConfig(app=unit, model_id="tiny")).load()
+    svc = UNITS[unit](ServeConfig(app=unit, model_id="tiny", device="cpu"))
+    svc.load()
+    model = svc.pipe.model if unit == "flux" else svc.model
+    assert all(p.device.type == "cpu" for p in model.parameters())
 
 
 def test_server_env_defaults_to_cuda(monkeypatch):
@@ -461,3 +487,20 @@ def test_soft_prefix_modules_are_scanned_and_default_to_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         vlm.random_params(cfg, seed=0)
     assert vlm.VisionProjector(cfg, device="cpu").device.type == "cpu"
+
+
+#: the Flux and T5 slice's modules (the Unigram tokenizer among them)
+FLUX_MODULES = tuple(
+    f"scalable_hw_agnostic_inference_tpu_torch.{m}" for m in (
+        "models.flow_match", "models.flux", "models.t5",
+        "models.flux_pipeline", "models.tokenizer", "serve.units.flux",
+        "serve.units.t5"))
+
+
+def test_flux_slice_modules_are_scanned():
+    """Scanned by name, so the AST scan above and the fresh-interpreter
+    import of every port module cover them."""
+    scanned = {n for _, n in _modules()}
+    assert set(FLUX_MODULES) <= scanned
+    assert not _forbidden_imports(p for p, n in _modules()
+                                  if n in FLUX_MODULES)
