@@ -2,7 +2,7 @@
 ``UnigramTokenizer``) against ``transformers``' ``T5TokenizerFast`` on a
 ``tokenizer.json`` this file builds in T5's layout.
 
-The vocabulary is synthetic (no session can fetch T5's): ``<pad>``,
+The vocabulary is synthetic (T5's is not part of the repo): ``<pad>``,
 ``</s>``, ``<unk>`` at ids 0 to 2, the pieces of a seeded corpus with
 seeded scores, and ``<extra_id_N>`` appended in reverse as T5's converter
 appends them. Two pipelines, each ``transformers``' T5 conversion:
