@@ -257,7 +257,8 @@ Phases:
                 exactly 12 + 57 x 4 launches and its share of a step); (b)
                 dev's geometry at 1,024 px, 512 T5 tokens, the guidance
                 embedding, 2 steps; (c) the 4-step image through B1
-                against B1's plain version (``SD_IMAGE_*``); (d) a seed
+                against B1's plain version (``FLUX_IMAGE_*``), which a
+                coarse-score control must fall outside; (d) a seed
                 twice bit for bit; (e) finite; the flash phase holds B1 at
                 Flux's shapes (``FLUX_FLASH``, (xi) and (xii) timed);
  27. ``serve_flux`` the ``flux`` unit on a seeded FLUX.1-schnell directory
@@ -7581,6 +7582,18 @@ FLUX_B1, FLUX_CLIP_B1 = 19 + 38, 12
 #: blocks, T5 layers); its requests
 SERVE_FLUX_DOUBLE, SERVE_FLUX_SINGLE, SERVE_FLUX_T5_LAYERS = 2, 4, 2
 SERVE_FLUX_REQUESTS = 3
+#: engine_flux (c): the 4-step 512 px image through B1 against the same
+#: image through B1's plain version (fp32 softmax), uint8 levels of 255,
+#: mean and max of |a - b|. Flux's own, set between the sound reading (B1:
+#: 0.864 mean, 6 max on the H100) and its controls': the plain version
+#: with the scores q.k rounded to 5 mantissa bits reads 0.948 / 7 (any
+#: perturbation of the size of bf16's rounding reads about as B1 does
+#: through 57 random-gated blocks), to 4 bits (3% an entry) 1.120 / 11
+FLUX_IMAGE_MEAN, FLUX_IMAGE_MAX = 1.0, 9
+#: (c)'s controls, by the mantissa bits of their scores: the first is
+#: logged only, the second must fall outside the bounds, or they could not
+#: tell that defect from rounding
+FLUX_CONTROL_BITS = (5, 4)
 
 
 def _flux_configs():
@@ -7647,6 +7660,47 @@ def _flux_checked(torch, pipe, t5_ids, clip_ids, lat, steps: int):
     return u8, finite
 
 
+def _round_mantissa(torch, x, bits: int):
+    """fp32 ``x`` rounded to nearest, ties to even, at ``bits`` mantissa
+    bits (bf16 keeps 7)."""
+    shift = 23 - bits
+    i = x.contiguous().view(torch.int32)
+    i = i + ((1 << (shift - 1)) - 1) + ((i >> shift) & 1)
+    return (i & ~((1 << shift) - 1)).view(torch.float32)
+
+
+@contextlib.contextmanager
+def _coarse_scores_attention(bits: int):
+    """Swap B1 for its plain version with the scores ``q.k * scale``
+    rounded to ``bits`` mantissa bits before the softmax (fp32
+    otherwise): a small defect that engine_flux (c)'s bounds must catch.
+    Flux's and CLIP-L's attention only (MHA, no lengths)."""
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.ops import attention
+
+    def flash(q, k, v, *, causal=False, scale=None, lengths=None):
+        T, D, S = q.shape[1], q.shape[3], k.shape[1]
+        if lengths is not None or k.shape[2] != q.shape[2]:
+            raise ValueError("the coarse-score control takes MHA without "
+                             "lengths")
+        s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * (
+            D ** -0.5 if scale is None else scale)
+        s = _round_mantissa(torch, s, bits)
+        if causal:
+            q_pos = torch.arange(T, device=q.device) + (S - T)
+            s = s.masked_fill(q_pos[:, None] < torch.arange(
+                S, device=q.device)[None, :], float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhts,bshd->bthd", p, v.float()).to(q.dtype)
+
+    saved = attention.flash_attention
+    attention.flash_attention = flash
+    try:
+        yield
+    finally:
+        attention.flash_attention = saved
+
+
 def _flux_step(torch, pipe, t5_ids, clip_ids, size: int, steps: int):
     """One denoise step's work at ``size`` px (the transformer and the
     Euler update), its launches of B1, wall ms and device ms with B1's
@@ -7689,7 +7743,8 @@ def phase_engine_flux(ctx):
     the dev geometry (the guidance embedder added over the same blocks) at
     1,024 px with 512 T5 tokens, 2 steps, a step's wall and device time and
     B1's share; (c) the 4-step 512 px image through B1 against the same
-    image through B1's plain version (``SD_IMAGE_*``); (d) the same seed
+    image through B1's plain version (``FLUX_IMAGE_*``), and a control
+    with coarse scores that must fall outside those bounds; (d) the same seed
     twice, bit for bit; (e) finite latents and image. Starts from what the
     earlier phases left allocated, and says how much."""
     import dataclasses
@@ -7793,11 +7848,31 @@ def phase_engine_flux(ctx):
     row["finite"] = finite and finite_p
     if not row["finite"]:
         raise AssertionError("engine_flux (e): non-finite latents or image")
-    row["b1_vs_plain"] = _check_image_pair(
-        f"engine_flux (c): {FLUX_STEPS} steps through B1 against its plain "
-        f"version", got, plain)
+    mean, mx = _image_diff(got, plain)
+    row["b1_vs_plain"] = {"mean": mean, "max": mx}
+    row["controls_vs_plain"] = {}
+    for bits in FLUX_CONTROL_BITS:
+        with _coarse_scores_attention(bits):
+            control, _ = _flux_checked(torch, pipe, t5_ids, clip_ids, lat,
+                                       FLUX_STEPS)
+        c_mean, c_max = _image_diff(control, plain)
+        row["controls_vs_plain"][bits] = {"mean": c_mean, "max": c_max}
+    log("engine_flux (c): " + json.dumps({k: row[k] for k in (
+        "b1_vs_plain", "controls_vs_plain")}))
+    if mean > FLUX_IMAGE_MEAN or mx > FLUX_IMAGE_MAX:
+        raise AssertionError(
+            f"engine_flux (c): {FLUX_STEPS} steps through B1 against its "
+            f"plain version differ by mean {mean:.3f}, max {mx} levels "
+            f"(bound {FLUX_IMAGE_MEAN}, {FLUX_IMAGE_MAX})")
+    ctl = row["controls_vs_plain"][FLUX_CONTROL_BITS[-1]]
+    if ctl["mean"] <= FLUX_IMAGE_MEAN and ctl["max"] <= FLUX_IMAGE_MAX:
+        raise AssertionError(
+            f"engine_flux (c): the control (scores at "
+            f"{FLUX_CONTROL_BITS[-1]} mantissa bits) differs by "
+            f"{ctl}, within the bounds ({FLUX_IMAGE_MEAN}, "
+            f"{FLUX_IMAGE_MAX})")
     row["image_std"] = float(np.asarray(got, np.float32).std())
-    del got, plain
+    del got, plain, control
 
     # (b) FLUX.1-dev's geometry: the guidance embedder over the same blocks
     dcfg = flux.FluxConfig.flux_dev()
@@ -7817,10 +7892,14 @@ def phase_engine_flux(ctx):
     dimg = dpipe.txt2img(t5d, clip_ids, rng=0, **dkw)
     dwall = time.perf_counter() - t0
     nd = _read_counters()["flash_attention"]
+    dh = FLUX_DEV_SIZE // dpipe.vae_scale
+    _, dfinite = _flux_checked(torch, dpipe, t5d, clip_ids,
+                               dpipe.init_latents(0, 1, dh, dh),
+                               FLUX_DEV_STEPS)
     if dimg.shape != (1, FLUX_DEV_SIZE, FLUX_DEV_SIZE, 3) or \
-            nd != FLUX_CLIP_B1 + FLUX_B1 * FLUX_DEV_STEPS or \
-            not np.isfinite(dimg).all():
-        raise AssertionError(f"engine_flux (b): image {dimg.shape}, B1 {nd}")
+            nd != FLUX_CLIP_B1 + FLUX_B1 * FLUX_DEV_STEPS or not dfinite:
+        raise AssertionError(f"engine_flux (b): image {dimg.shape}, B1 {nd}, "
+                             f"finite latents and image {dfinite}")
     row["b"] = {"wall_s": dwall, "b1_launches": nd,
                 "peak_bytes": torch.cuda.max_memory_allocated(),
                 "step": _flux_step(torch, dpipe, t5d, clip_ids,
@@ -7985,6 +8064,8 @@ def _seeded_flux_dir(ctx):
         "transformer": ["diffusers", "FluxTransformer2DModel"],
         "vae": ["diffusers", "AutoencoderKL"]}))
     _write_t5_tokenizer(path / "tokenizer_2")
+    # a T5 directory holds its own tokenizer.json, as the t5 unit reads it
+    _write_t5_tokenizer(path / "text_encoder_2")
     _write_clip_tokenizer(path / "tokenizer")
     del model, t5m, clipm, va
     gc.collect()
@@ -8039,8 +8120,8 @@ def phase_serve_flux(ctx):
     a 400 for a steps value outside the set, no shape first run after
     warmup;
     B1 exactly (12 + 6 x 4) launches a request and nothing else launched.
-    Then the ``t5`` unit on the directory's ``text_encoder_2/`` (its
-    tokenizer from ``tokenizer_2/``): ``/embed`` of 4096 finite values, the
+    Then the ``t5`` unit on the directory's ``text_encoder_2/`` (the
+    Unigram ``tokenizer.json`` written there too): ``/embed`` of 4096 finite values, the
     400 for a request without text, no kernel launched. Ready seconds and
     latency p50 of each."""
     import base64

@@ -47,7 +47,6 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from ...core.device import resolve_device
 from ...models import clip, sd, unet as unet_mod, vae as vae_mod
 from ...models.encoder import seeded_init_
 from ...models.tokenizer import ClipTokenizer
@@ -55,7 +54,7 @@ from ...ops.cuda.flash_attention import HEAD_DIMS
 from ...utils.env import ServeConfig
 from ..app import ModelService
 from ..asgi import HTTPError
-from .common import HashTokenizer, tokenize_to_length
+from .common import HashTokenizer, tokenize_to_length, unit_device
 
 log = logging.getLogger(__name__)
 
@@ -132,7 +131,7 @@ class SDService(ModelService):
 
     def load(self) -> None:
         cfg = self.cfg
-        device = resolve_device(cfg.device)
+        device = unit_device(cfg)
         if cfg.model_id in ("", "tiny"):
             variant = sd.SDVariant.tiny()
             ccfg = clip.ClipTextConfig.tiny()

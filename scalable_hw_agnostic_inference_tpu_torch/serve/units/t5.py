@@ -14,9 +14,7 @@ reference's ``{"embedding", "dim"}``, and a request without text is a
 - ``MODEL_ID=<directory>``: a local T5 encoder (``config.json``,
   safetensors, possibly sharded) in bf16, as the reference casts it, with
   its Unigram ``tokenizer.json`` (``models/tokenizer.UnigramTokenizer``),
-  ``min(MAX_SEQ_LEN, 512)`` tokens. A FLUX.1 snapshot's ``text_encoder_2/``
-  serves as it is: without a tokenizer of its own, the snapshot's
-  ``tokenizer_2/`` beside it is read. A hub id is refused.
+  ``min(MAX_SEQ_LEN, 512)`` tokens. A hub id is refused.
 - ``SUBMESH`` or ``MESH_SPEC`` naming one device places the unit on it;
   naming more is tensor parallelism (ROADMAP A7): ``load()`` refuses it.
 """
@@ -39,18 +37,6 @@ from .common import HashTokenizer, unit_device
 
 #: tokens a request takes at most: the tiny tier's and a checkpoint's
 TINY_SEQ, CHECKPOINT_SEQ = 64, 512
-
-
-def tokenizer_dir(root: str) -> str:
-    """Where a T5 directory's ``tokenizer.json`` is: the directory itself,
-    or a FLUX.1 snapshot's ``tokenizer_2/`` beside its ``text_encoder_2/``."""
-    if Path(root, "tokenizer.json").is_file():
-        return root
-    sibling = Path(root).resolve().parent / "tokenizer_2"
-    if (sibling / "tokenizer.json").is_file():
-        return str(sibling)
-    raise ValueError(f"{root}: no tokenizer.json (and no FLUX.1 "
-                     f"tokenizer_2/ beside it)")
 
 
 class T5EmbedService(ModelService):
@@ -79,7 +65,7 @@ class T5EmbedService(ModelService):
             self.model = t5.build(mcfg, t5.state_from_hf(
                 lambda n: ck.tensor(n, device).to(torch.bfloat16),
                 ck.keys(), mcfg), dtype=torch.bfloat16)
-            self.tokenizer = UnigramTokenizer.from_dir(tokenizer_dir(root))
+            self.tokenizer = UnigramTokenizer.from_dir(root)
             self.seq = min(cfg.max_seq_len, CHECKPOINT_SEQ)
         self.device = device
 

@@ -123,7 +123,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ...core.device import resolve_device
 from ...engine.config import EngineConfig
 from ...engine.types import K_LOGPROBS
 from ...engine.cache import PagedKVCache
@@ -158,7 +157,8 @@ from ...resilience.drain import StepWatchdog
 from ...utils.env import ServeConfig, env_float, env_str
 from ..app import ModelService
 from ..asgi import HTTPError, StreamingResponse
-from .common import SseTextAssembler, decode_image as decode_pixels
+from .common import SseTextAssembler, unit_device
+from .common import decode_image as decode_pixels
 
 log = logging.getLogger(__name__)
 
@@ -260,7 +260,7 @@ class VllmService(ModelService):
         if self._ecfg_error is not None:
             raise self._ecfg_error
         cfg, ecfg = self.cfg, self.ecfg
-        device = resolve_device(cfg.device)
+        device = unit_device(cfg)
         model_id = ecfg.model or cfg.model_id
         quant = ecfg.quantization == "int8"
         state = vstate = None

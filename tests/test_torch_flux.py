@@ -112,16 +112,20 @@ def test_scheduler_config_reads_the_reference_defaults():
 # -- patchify, ids, RoPE ------------------------------------------------------
 
 def test_patchify_ids_and_rope_equal_the_jax_package():
+    # patchify, make_ids and timestep_embedding's JAX references are
+    # compiled whole (one compile each, not one a primitive); rope_freqs
+    # and apply_rope_2d run op by op (compiled whole, XLA folds theta's
+    # powers another way, 2 ulp off)
     rng = np.random.default_rng(1)
     lat = rng.standard_normal((2, 8, 12, 16)).astype(np.float32)
     tok = pflux.patchify(_t(lat))
     np.testing.assert_array_equal(tok.numpy(),
-                                  np.asarray(jflux.patchify(lat)))
+                                  np.asarray(jax.jit(jflux.patchify)(lat)))
     np.testing.assert_array_equal(pflux.unpatchify(tok, 8, 12).numpy(), lat)
     ids = pflux.make_ids(2, 5, 8, 12, device="cpu")
     assert ids.dtype == torch.int32
-    np.testing.assert_array_equal(ids.numpy(),
-                                  np.asarray(jflux.make_ids(2, 5, 8, 12)))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jax.jit(
+        jflux.make_ids, static_argnums=(0, 1, 2, 3))(2, 5, 8, 12)))
     for axes, D in (((16, 56, 56), 128), ((4, 6, 6), 16)):
         cs = pflux.rope_freqs(ids, axes, 10000.0)
         jcs = jflux.rope_freqs(jnp.asarray(ids.numpy()), axes, 10000.0)
@@ -143,7 +147,8 @@ def test_patchify_ids_and_rope_equal_the_jax_package():
     t = np.array([0.0, 0.25, 0.999], np.float32)
     np.testing.assert_allclose(
         pflux.timestep_embedding(_t(t), 256).numpy(),
-        np.asarray(jflux.timestep_embedding(jnp.asarray(t), 256)),
+        np.asarray(jax.jit(jflux.timestep_embedding, static_argnums=1)(
+            jnp.asarray(t), 256)),
         rtol=0, atol=float(np.spacing(np.float32(999.0))))
 
 

@@ -150,8 +150,8 @@ def test_tiny_tier_is_refused_on_cuda_with_a_clear_error(tmp_path,
 
     from scalable_hw_agnostic_inference_tpu_torch.serve.units import vllm
 
-    monkeypatch.setattr(vllm, "resolve_device",
-                        lambda d: torch.device("cuda"))
+    monkeypatch.setattr(vllm, "unit_device",
+                        lambda cfg: torch.device("cuda"))
     cfg = ServeConfig(app="vllm", device="cuda", model_id=model_id,
                       vllm_config=str(tmp_path / "absent.yaml"))
     with pytest.raises(ValueError, match="head_dim 16.*geometry tier"):

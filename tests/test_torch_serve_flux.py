@@ -26,9 +26,10 @@ scheduler config, a Unigram ``tokenizer_2/`` and a CLIP ``tokenizer/``)
 loads into the port's unit: the geometry read off the tensors, schnell
 told apart by key, the tensors equal to the written ones, T5's 256 or 512
 tokens, the image equal to a pipeline built by hand from the same weights
-and tokens; the ``t5`` unit serves its ``text_encoder_2/`` with the
-snapshot's tokenizer. The refusals: a hub id, a multi-device ``SUBMESH``
-or ``MESH_SPEC``, the tiny tier's heads of 16 on the card.
+and tokens; the ``t5`` unit serves its ``text_encoder_2/``, given a
+``tokenizer.json`` of its own. The refusals: a hub id, a multi-device
+``SUBMESH`` or ``MESH_SPEC`` at every unit, the tiny tier's heads of 16 on
+the card.
 """
 
 import dataclasses
@@ -313,6 +314,8 @@ def write_flux_dir(path: Path, layout: str, guidance: bool):
         "use_dynamic_shifting": guidance, "base_image_seq_len": 256,
         "max_image_seq_len": 4096}))
     write_t5_tokenizer(path / "tokenizer_2", spec)
+    # a T5 directory holds its own tokenizer.json, as the t5 unit reads it
+    write_t5_tokenizer(path / "text_encoder_2", spec)
     write_clip_tokenizer(path / "tokenizer", pad="<|endoftext|>")
     return fcfg, bfl, t5m, clipm, va
 
@@ -357,7 +360,7 @@ def test_flux_directory_loads_and_serves(tmp_path, layout, guidance):
     np.testing.assert_array_equal(_png(out), want)
     assert unit.recompiles() == 0
 
-    # the t5 unit on the snapshot's text encoder, with its tokenizer_2/
+    # the t5 unit on the snapshot's text encoder and its tokenizer.json
     t5u = UNITS["t5"](ServeConfig(app="t5", device="cpu", model_id=str(
         path / "text_encoder_2"), max_seq_len=24))
     t5u.load()
@@ -372,13 +375,17 @@ def test_flux_directory_loads_and_serves(tmp_path, layout, guidance):
     np.testing.assert_array_equal(np.float32(emb["embedding"]), ref.numpy())
 
 
+@pytest.mark.parametrize("spec", [{"submesh": "0:4"}, {"mesh_spec": "tp=2"},
+                                  {"mesh_spec": "dp=2,tp=4"}],
+                         ids=["submesh", "mesh_tp", "mesh_dp_tp"])
+@pytest.mark.parametrize("name", sorted(UNITS))
+def test_every_unit_refuses_several_devices(name, spec):
+    unit = UNITS[name](ServeConfig(app=name, **{**TINY, **spec}))
+    with pytest.raises(ValueError, match="tensor parallelism"):
+        unit.load()
+
+
 def test_refusals():
-    for spec in ({"submesh": "0:4"}, {"mesh_spec": "tp=2"},
-                 {"mesh_spec": "dp=2,tp=4"}):
-        for name in ("flux", "t5"):
-            unit = UNITS[name](ServeConfig(app=name, **{**TINY, **spec}))
-            with pytest.raises(ValueError, match="tensor parallelism"):
-                unit.load()
     one = UNITS["t5"](ServeConfig(app="t5", device="cpu", model_id="tiny",
                                   submesh="0:1", mesh_spec="tp=1"))
     one.load()

@@ -60,14 +60,22 @@ EXTRA_IDS = 8
 
 
 def transformers_names(*names):
-    """``transformers``' ``names``, imported without TensorFlow when this
-    process has not imported ``transformers`` yet: nothing here uses
-    TensorFlow, and its import costs a test worker some 10 s."""
+    """``transformers``' ``names``, imported without TensorFlow: nothing
+    here uses TensorFlow, and its import (``transformers.image_transforms``
+    asks for it, under ``T5EncoderModel``) costs a test worker some 10 s.
+    Before this process's first import of ``transformers`` ``USE_TF=0``
+    says so; after it, the flag ``transformers`` read from the environment
+    is held off while ``names`` import."""
     with pytest.MonkeyPatch.context() as mp:
         if "transformers" not in sys.modules:
             mp.setenv("USE_TF", "0")
-        import transformers
-    return tuple(getattr(transformers, n) for n in names)
+            import transformers
+        else:
+            import transformers
+            from transformers.utils import import_utils
+
+            mp.setattr(import_utils, "_tf_available", False, raising=False)
+        return tuple(getattr(transformers, n) for n in names)
 
 
 def darts_charsmap(mapping) -> bytes:
