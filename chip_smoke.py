@@ -268,7 +268,37 @@ Phases:
                 /genimage``, a 400, B1 exactly (12 + 6 x 4) a request, no
                 shape first run after warmup; then the ``t5`` unit on its
                 ``text_encoder_2/``: ``/embed``, the 400, no kernel;
- 28. ``serve_ops`` serve's configuration under the operating layer
+ 28. ``serve_encoders`` the ``bert``, ``vit`` and ``yolo`` units, each
+                on a seeded HF-layout directory at published widths
+                written here (DistilBERT-base-uncased-SST-2 with a
+                synthetic 30,522-entry WordPiece ``tokenizer.json``,
+                ViT-base-patch16-224, YOLOS-tiny at 512 x 864): 3
+                requests over HTTP each (PNGs from the port's encoder and
+                ``"random"``), B1 exactly 6, 12 and 12 launches a request
+                and nothing else launched, latency and a forward's device
+                time; the encoder's output through B1 against B1's plain
+                version (``ENCODER_RRMS``), which bert's control (a key
+                less) must fall outside; a mask that is no prefix raises
+                on the card; the flash phase holds B1 at these shapes
+                (``ENCODER_FLASH``, (xiii)-(xv));
+ 29. ``serve_causal`` the ``llama`` unit on the seeded 1B-width
+                directory: ``/generate`` greedy and ``/sentiment``, B1
+                exactly one launch a layer a prefill and B2 one a layer a
+                decode step, the 400 past ``MAX_NEW_TOKENS``; its greedy
+                tokens against the plain scoring forward (``TIE_TOL``),
+                and the ``vllm`` unit's greedy tokens on the same
+                directory and prompts, all 16 a stream, against the same
+                forward by the same rule (and their logprobs by
+                ``LP_TOL``); a decode step's CUDA graph replay against
+                its eager run bit for bit; ``deepseek`` with
+                ``QUANTIZATION=int8`` (B4 one launch a projection a
+                forward); then
+                ``llama-8b-geometry`` at full width and depth, one
+                128-token generate: ms a token, B1 and B2 launches; the
+                flash and paged phases hold B1 at the dense prefill
+                (``DENSE_FLASH``) and B2 over the dense cache's pool view
+                (``DENSE_PAGED``);
+ 30. ``serve_ops`` serve's configuration under the operating layer
                 (``SERVE_OPS_ENV``: ``MAX_INFLIGHT=8``, tracing, the fault
                 endpoint armed, a perf projection of 50 tok/s over a 5 s
                 window, a 2 s watchdog floor, a 60 s drain budget): the
@@ -338,7 +368,8 @@ PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
           "engine_mllama", "engine_llava", "serve_disagg", "serve_fleet",
           "serve", "serve_int8", "serve_ragged", "serve_fused",
           "serve_spec", "serve_mllama", "serve_llava", "engine_sd",
-          "serve_sd", "engine_flux", "serve_flux", "serve_ops")
+          "serve_sd", "engine_flux", "serve_flux", "serve_encoders",
+          "serve_causal", "serve_ops")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core FLOP/s
@@ -484,6 +515,29 @@ FLUX_FLASH = [
     (1, 4352, 4352, 24, 24, 128, None, False, False),
     (1, 77, 77, 12, 12, 64, None, True, False),
 ]
+#: B1 at the encoder units' shapes (B, T, S, H, Hkv, D, lengths, causal,
+#: timed), non-causal, heads of 64 over as many kv heads: (xiii)
+#: DistilBERT-base at the bert unit's 512 padded tokens, a request of 9
+#: tokens and one that fills them; (xiv) ViT-base-patch16-224 (196
+#: patches and the class token); (xv) YOLOS-tiny at 512 x 864 (1 + 32 x
+#: 54 + 100 tokens, no multiple of a tile)
+ENCODER_FLASH = [
+    (1, 512, 512, 12, 12, 64, [9], False, True),
+    (1, 512, 512, 12, 12, 64, [512], False, True),
+    (1, 197, 197, 12, 12, 64, None, False, True),
+    (1, 1829, 1829, 3, 3, 64, None, False, True),
+]
+#: B1 at the llama unit's dense-cache prefill, Llama-3-8B widths, causal
+#: with the prompt's length: the 32- and the 512-token bucket
+DENSE_FLASH = [
+    (1, 32, 32, 32, 8, 128, [17], True, True),
+    (1, 512, 512, 32, 8, 128, [333], True, True),
+]
+#: B2 over the dense cache seen as a pool of 16-slot blocks (label,
+#: n_slots, lengths), Llama-3-8B widths: a 128-token generate over the 32
+#: and the 512 bucket (160 and 640 slots), 64 steps in
+DENSE_PAGED = [("dense n_slots=160", 160, [17 + 64]),
+               ("dense n_slots=640", 640, [333 + 64])]
 ENGINE_PROMPTS = (5, 37, 300, 1300)
 SERVE_REQUESTS = 8
 # serve_ragged's engine ConfigMap: the 8B counterpart of
@@ -772,6 +826,16 @@ def phase_flash(ctx):
         if timed:
             flux_rows.append(line)
     ctx["flash_flux"] = flux_rows
+    # the encoder units (DistilBERT's padded keys, ViT, YOLOS) and the
+    # llama unit's dense-cache prefill
+    for key, table in (("flash_encoders", ENCODER_FLASH),
+                       ("flash_dense", DENSE_FLASH)):
+        ctx[key] = []
+        for B, T, S, H_, Hkv_, D, lengths, causal, timed in table:
+            line = _flash_row(ctx, torch, gen, fa, B, T, S, H_, Hkv_, D,
+                              lengths, causal, timed)
+            worst = max(worst, line["max_abs_err"])
+            ctx[key].append(line)
     # the summary row: the serving config's largest prefill bucket, batched
     ctx["flash"] = dict(rows[1], max_abs_err=worst)
     # mllama's cross shapes (non-causal over the vision states)
@@ -1002,6 +1066,12 @@ def phase_paged(ctx):
         log(f"paged_decode_attention: D={D_} G={H_ // Hkv_} bs={bs_} "
             f"lengths={lengths} max |err| {err:.3e}, {share:.3f} of the "
             f"tolerance (dropped keys: {d_share:.2f})")
+    # the llama unit's dense cache, seen as B2's pool (no copy)
+    ctx["paged_dense"] = []
+    for label, n_slots, lengths in DENSE_PAGED:
+        line = _dense_paged_row(ctx, torch, gen, pa, n_slots, lengths)
+        worst = max(worst, line["max_abs_err"])
+        ctx["paged_dense"].append(line)
     # speculative verify's shape: 8 sequences x (k + 1) query rows over
     # their tables repeated k + 1 times
     ctx["paged_verify"] = _verify_case(torch, gen, timer, pa, rpa, "paged",
@@ -1009,6 +1079,74 @@ def phase_paged(ctx):
     # the summary row: the batch-8 decode step over a 128-block bucket
     ctx["paged"] = dict(rows["B=8 M=128"], max_abs_err=worst)
     ctx["paged_mha"] = rows["MHA B=8 M=128"]
+
+
+def _dense_paged_row(ctx, torch, gen, pa, n_slots, lengths):
+    """B2 over a dense cache's layer (``models.llama.init_cache``, one row
+    of ``n_slots`` slots at Llama-3-8B widths, filled with normals) seen as
+    its pool of ``DENSE_BLOCK``-slot blocks, held against its plain
+    version and timed beside its bound and SDPA's call on the same
+    cache."""
+    import dataclasses
+
+    from scalable_hw_agnostic_inference_tpu_torch.models import llama
+
+    timer = ctx["timer"]
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=1)
+    B, H, Hkv, D = len(lengths), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cache = llama.init_cache(cfg, B, n_slots, device="cuda")
+    layer = cache.layer(0)
+    layer.k.normal_(generator=gen)
+    layer.v.normal_(generator=gen)
+    kp, vp = layer.pools()
+    tables = layer.tables
+    q = torch.randn(B, H, D, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out = pa.paged_decode_attention(q, kp, vp, tables, lens)
+    f32 = (q.float(), kp.float(), vp.float(), tables)
+    ref = pa.paged_decode_attention_reference(*f32, lens)
+    dropped = pa.paged_decode_attention_reference(*f32, _cut(lens))
+    torch.cuda.synchronize()
+    bs, M = llama.DENSE_BLOCK, tables.shape[1]
+    shape = (f"dense B={B} H={H} Hkv={Hkv} D={D} n_slots={n_slots} "
+             f"bs={bs} M={M} lengths={lengths}")
+    err, share, d_share = _check_close(f"paged_decode_attention {shape}",
+                                       out, ref, dropped)
+    # the library's call for the same function: the cache is contiguous
+    # and the tables are the identity, so SDPA over each row's slots up to
+    # the longest length (GQA in the call, K/V read as stored; a key mask
+    # when the rows' lengths differ), held to the same reference
+    L = max(lengths)
+    kt = layer.k[:, :L].transpose(1, 2)
+    vt = layer.v[:, :L].transpose(1, 2)
+    mask = None
+    if min(lengths) != L:
+        mask = (torch.arange(L, device="cuda")[None, :]
+                < lens.long()[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        return sdpa(q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
+
+    lib_err, lib_share, _ = _check_close(f"SDPA on the dense cache {shape}",
+                                         library()[:, :, 0], ref, dropped)
+    del f32, ref, dropped
+    ms = timer(lambda: pa.paged_decode_attention(q, kp, vp, tables, lens))
+    plain = timer(lambda: pa.paged_decode_attention_reference(
+        q, kp, vp, tables, lens), reps=5)
+    lib = timer(library)
+    n_bytes, flops = _paged_work(B, H, Hkv, D, bs, M, lengths)
+    bms, by = bound_ms(n_bytes, flops)
+    line = {"shape": shape, "max_abs_err": err, "tol_share": share,
+            "dropped_keys_tol_share": d_share, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "library": "SDPA (enable_gqa)", "library_max_abs_err": lib_err,
+            "library_tol_share": lib_share,
+            "host_ms": timer.host(lambda: pa.paged_decode_attention(
+                q, kp, vp, tables, lens))}
+    log("paged_decode_attention: " + json.dumps(line))
+    return line
 
 
 def _check_b2_is_b3(torch, pa, rpa, q, kp, vp, tables, lens):
@@ -1859,6 +1997,7 @@ def _plain_attention():
     plain PyTorch version (attention with an fp32 softmax, the int8
     projections as the reference's expression), then restore them."""
     from scalable_hw_agnostic_inference_tpu_torch.engine import runner
+    from scalable_hw_agnostic_inference_tpu_torch.models import llama
     from scalable_hw_agnostic_inference_tpu_torch.ops import attention
     from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
         flash_attention as fa,
@@ -1882,7 +2021,8 @@ def _plain_attention():
     swaps = [(attention, "flash_attention", flash),
              (attention, "_ragged_kernel", ragged),
              (runner, "ragged_kernel", ragged),
-             (runner, "paged_decode_attention", paged)]
+             (runner, "paged_decode_attention", paged),
+             (llama, "paged_decode_attention", paged)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -3924,7 +4064,9 @@ def _seeded_1b_dir(ctx):
                                   rope_scaling=(32.0, 1.0, 4.0, 8192))
         state = random_params(cfg, seed=9, std=0.02, device="cuda")
         path = Path(tempfile.mkdtemp(prefix="shai-1b-")) / "llama-3.2-1b"
+        t0 = time.monotonic()
         _write_checkpoint(path, state, cfg)
+        ctx["seeded_1b_write_s"] = time.monotonic() - t0
         del state
         gc.collect()
         torch.cuda.empty_cache()
@@ -8230,6 +8372,680 @@ def phase_serve_flux(ctx):
         torch.cuda.empty_cache()
 
 
+# -- serve_encoders ----------------------------------------------------------
+
+#: the bert unit's texts (the second and third past a few words; none
+#: near the 512-token pad length)
+ENCODER_TEXTS = ("i love this framework",
+                 "The plot was slow, the acting wooden; I left early.",
+                 "Café déjà vu 日本語 numbers 12345 and a ☃ snowman!")
+#: B1 against its plain version through a whole encoder: the relative rms
+#: distance of the encoder's output (all rows) is held to this bound. Each
+#: block's attention moves by bf16 rounding (B1 rounds P and its output to
+#: bf16, about 2^-9 relative), which the bf16 dense layers and the
+#: residual stream carry through 6 to 12 blocks; 0.05 is some 5x the
+#: largest share that predicts. A wrong mask or a lost key tile moves the
+#: output by tens of percent: bert's control (its plain version with each
+#: row's key length cut by one) must fall outside the bound
+ENCODER_RRMS = 0.05
+
+
+def _wordpiece_vocab(n: int):
+    """A synthetic WordPiece vocabulary of exactly ``n`` entries: the BERT
+    special tokens first, then lowercase letters, digits and ASCII
+    punctuation with their ``##`` forms, then two- and three-letter pieces
+    and their ``##`` forms, in order, until ``n``."""
+    import itertools
+    import string
+
+    toks = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    singles = list(string.ascii_lowercase + string.digits
+                   + string.punctuation)
+    toks += singles + ["##" + c for c in singles]
+    for k in (2, 3):
+        for combo in itertools.product(string.ascii_lowercase, repeat=k):
+            w = "".join(combo)
+            toks += [w, "##" + w]
+            if len(toks) >= n:
+                return {t: i for i, t in enumerate(toks[:n])}
+    raise ValueError(f"a synthetic vocabulary stops at {len(toks)} entries")
+
+
+def _wordpiece_spec(vocab):
+    """A BERT ``tokenizer.json`` (a dict) over ``vocab``: BertNormalizer
+    (lowercase), BertPreTokenizer, WordPiece, ``[CLS] $A [SEP]``."""
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    tmpl = {t: {"id": t, "ids": [vocab[t]], "tokens": [t]}
+            for t in ("[CLS]", "[SEP]")}
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": vocab[t], "content": t, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for t in specials],
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": None,
+                       "lowercase": True},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "[SEP]", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "[SEP]", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}},
+                     {"SpecialToken": {"id": "[SEP]", "type_id": 1}}],
+            "special_tokens": tmpl},
+        "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": "[UNK]",
+                  "continuing_subword_prefix": "##",
+                  "max_input_chars_per_word": 100, "vocab": vocab},
+    }
+
+
+def _encoder_hf_config(kind: str, cfg, model_type=None):
+    """The ``config.json`` of an HF DistilBERT classifier, ViT classifier
+    or YOLOS detector with ``cfg``'s widths and synthetic labels."""
+    if kind == "bert":
+        labels = ["NEGATIVE", "POSITIVE"][:cfg.n_labels]
+        return {"model_type": model_type or "distilbert",
+                "architectures": ["DistilBertForSequenceClassification"],
+                "vocab_size": cfg.vocab_size,
+                "max_position_embeddings": cfg.max_position, "dim": cfg.dim,
+                "n_layers": cfg.n_layers, "n_heads": cfg.heads,
+                "hidden_dim": cfg.mlp_dim, "activation": cfg.act,
+                "id2label": dict(enumerate(labels)),
+                "label2id": {v: i for i, v in enumerate(labels)}}
+    common = {"patch_size": cfg.patch_size, "hidden_size": cfg.dim,
+              "num_hidden_layers": cfg.n_layers,
+              "num_attention_heads": cfg.heads,
+              "intermediate_size": cfg.mlp_dim, "hidden_act": cfg.act,
+              "layer_norm_eps": cfg.ln_eps, "num_channels": 3}
+    if kind == "vit":
+        return {"model_type": "vit",
+                "architectures": ["ViTForImageClassification"],
+                "image_size": cfg.image_size, **common,
+                "id2label": {i: f"label_{i}" for i in range(cfg.n_labels)}}
+    return {"model_type": "yolos",
+            "architectures": ["YolosForObjectDetection"],
+            "image_size": list(cfg.image_size),
+            "num_detection_tokens": cfg.n_det_tokens, **common,
+            "id2label": {i: f"object_{i}" for i in range(cfg.n_labels - 1)}}
+
+
+def _write_encoder_dir(path, kind: str, cfg, seed: int,
+                       vocab_txt: bool = False, model_type=None):
+    """A seeded HF-layout directory for the ``bert``, ``vit`` or ``yolo``
+    unit: ``config.json``, ``model.safetensors`` (fp32, the HF names) and,
+    for DistilBERT, a synthetic WordPiece vocabulary of ``vocab_size``
+    entries (``tokenizer.json``, or ``vocab.txt`` alone). LayerNorm scales
+    1, other vectors N(0, 0.02), the class, detection and position tokens
+    N(0, 0.02), every matrix N(0, 1/fan_in). Returns the port's state dict
+    (CPU tensors)."""
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.core.checkpoint import (
+        save_safetensors,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models import (
+        bert,
+        vit,
+        yolos,
+    )
+
+    mod, cls = {"bert": (bert, bert.DistilBertClassifier),
+                "vit": (vit, vit.ViTClassifier),
+                "yolo": (yolos, yolos.YolosForObjectDetection)}[kind]
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    shapes = {k: tuple(v.shape)
+              for k, v in cls(cfg, device="meta").state_dict().items()}
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, shape in shapes.items():
+        leaf = name.rsplit(".", 1)
+        if len(shape) == 1 and leaf[-1] == "weight" and "ln" in leaf[0]:
+            t = torch.ones(shape)
+        elif len(shape) == 1 or name in ("cls", "det", "pos"):
+            t = torch.randn(shape, generator=gen) * 0.02
+        else:
+            fan = 1
+            for s in shape[1:]:
+                fan *= s
+            t = torch.randn(shape, generator=gen) / fan ** 0.5
+        state[name] = t
+    names = mod.hf_names(cfg)
+    save_safetensors({names[k]: v for k, v in state.items()},
+                     path / "model.safetensors")
+    (path / "config.json").write_text(json.dumps(
+        _encoder_hf_config(kind, cfg, model_type)))
+    if kind == "bert":
+        vocab = _wordpiece_vocab(cfg.vocab_size)
+        if vocab_txt:
+            (path / "vocab.txt").write_text(
+                "\n".join(vocab) + "\n", encoding="utf-8")
+        else:
+            (path / "tokenizer.json").write_text(
+                json.dumps(_wordpiece_spec(vocab)), encoding="utf-8")
+        (path / "tokenizer_config.json").write_text(json.dumps({
+            "do_lower_case": True, "model_max_length": cfg.max_position,
+            "pad_token": "[PAD]", "unk_token": "[UNK]",
+            "cls_token": "[CLS]", "sep_token": "[SEP]",
+            "mask_token": "[MASK]", "tokenizer_class": "DistilBertTokenizer"}))
+    return state
+
+
+def _encoder_configs():
+    """The encoder units' published widths: DistilBERT-base-uncased
+    fine-tuned on SST-2 (6 layers of 768, 12 heads, 30,522 tokens, 2
+    labels), ViT-base-patch16-224 (12 layers of 768, 1,000 labels),
+    YOLOS-tiny at 512 x 864 (12 layers of 192, 3 heads, 100 detection
+    tokens, 92 labels)."""
+    from scalable_hw_agnostic_inference_tpu_torch.models import (
+        bert,
+        vit,
+        yolos,
+    )
+
+    return {"bert": bert.BertConfig(), "vit": vit.ViTConfig(),
+            "yolo": yolos.YolosConfig()}
+
+
+def _encoder_inputs(kind, service, payload):
+    """The model inputs the unit builds for ``payload``, on the card."""
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.serve.units import common
+
+    if kind == "bert":
+        ids, mask = service._encode(payload["text"])
+        return (torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda())
+    c = service.mcfg
+    if kind == "vit":
+        px = common.decode_image(payload, c.image_size)
+    else:
+        px = common.decode_image(payload, *c.image_size,
+                                 mean=common.IMAGENET_MEAN,
+                                 std=common.IMAGENET_STD)
+    return (torch.from_numpy(px).cuda(),)
+
+
+def _encoder_agreement(kind, service, inputs):
+    """B1 against its plain version on one request's inputs: the relative
+    rms distance of the encoder's output, the largest logit change, the
+    top-1 labels; for bert also the control (the plain version with each
+    row's key length cut by one)."""
+    import torch
+
+    model = service.model
+    outs = []
+    hook = model.encoder.register_forward_hook(
+        lambda m, i, o: outs.append(o.float()))
+    try:
+        with torch.inference_mode():
+            logits = model(*inputs)
+            with _plain_attention():
+                plain = model(*inputs)
+            control = None
+            if kind == "bert":
+                ids, mask = inputs
+                cut = mask.clone()
+                cut[0, int(mask.sum()) - 1] = 0
+                with _plain_attention():
+                    model(ids, cut)
+                control = outs[2]
+    finally:
+        hook.remove()
+    if kind == "yolo":
+        logits, plain = logits[0], plain[0]
+
+    def rrms(a):
+        return float((a - outs[1]).pow(2).mean().sqrt()
+                     / outs[1].pow(2).mean().sqrt())
+
+    row = {"hidden_rrms": rrms(outs[0]),
+           "control_rrms": None if control is None else rrms(control),
+           "logits_max_abs": float((logits - plain).abs().max()),
+           "argmax_equal": bool(torch.equal(logits.argmax(-1),
+                                            plain.argmax(-1)))}
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"serve_encoders {kind}: non-finite logits")
+    if row["hidden_rrms"] > ENCODER_RRMS:
+        raise AssertionError(f"serve_encoders {kind}: B1 against its plain "
+                             f"version {row['hidden_rrms']:.4f} > "
+                             f"{ENCODER_RRMS}")
+    if control is not None and row["control_rrms"] <= ENCODER_RRMS:
+        raise AssertionError(f"serve_encoders {kind}: the bound is too "
+                             f"loose: one key less gives "
+                             f"{row['control_rrms']:.4f}")
+    if not row["argmax_equal"]:
+        top2 = plain.float().topk(2, -1).values
+        gap = float((top2[..., 0] - top2[..., 1]).min())
+        if gap >= 2 * row["logits_max_abs"]:
+            raise AssertionError(f"serve_encoders {kind}: B1's label parts "
+                                 f"from the plain version's at a gap of "
+                                 f"{gap:.4f}")
+    return row
+
+
+def _check_encoder_body(kind, cfg, payload, body):
+    import numpy as np
+
+    if kind == "bert":
+        ok = (body["label"] in ("NEGATIVE", "POSITIVE")
+              and len(body["logits"]) == cfg.n_labels
+              and np.isfinite(body["logits"]).all())
+    elif kind == "vit":
+        ok = (len(body["top5"]) == 5
+              and body["label"] == body["top5"][0]["label"]
+              and body["label"].startswith("label_"))
+    else:
+        n = body["count"]
+        ok = (n == len(body["detections"])
+              and (payload["threshold"] > 0 or n == cfg.n_det_tokens)
+              and all(d["label"].startswith("object_")
+                      for d in body["detections"]))
+    if not ok:
+        raise AssertionError(f"serve_encoders {kind}: {str(body)[:300]}")
+
+
+def phase_serve_encoders(ctx):
+    """The ``bert``, ``vit`` and ``yolo`` units, each on a seeded
+    HF-layout directory at published widths written here
+    (``_write_encoder_dir``, ``_encoder_configs``): 3 requests over HTTP
+    each (bert's texts, PNGs from the port's encoder and ``"random"``), B1
+    exactly one launch a layer a request and nothing else launched, a
+    request's latency and one forward's device time; B1 against its plain
+    version through the whole encoder (``ENCODER_RRMS``); on the card a
+    mask that is no prefix raises; the bert unit's WordPiece ids."""
+    import base64
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.models import imageio
+    from scalable_hw_agnostic_inference_tpu_torch.models.tokenizer import (
+        WordPieceTokenizer,
+    )
+
+    _drop_engine_model(ctx)
+    rng = np.random.default_rng(11)
+    pngs = [base64.b64encode(imageio.encode_png(rng.integers(
+        0, 256, (h, w, 3), dtype=np.uint8))).decode()
+        for h, w in ((480, 640), (300, 200))]
+    requests = {
+        "bert": ("/predict", [{"text": t} for t in ENCODER_TEXTS]),
+        "vit": ("/classify", [{"image_b64": pngs[0]}, {"image_b64": pngs[1]},
+                              {"image_b64": "random"}]),
+        "yolo": ("/detectobj", [
+            {"image_b64": pngs[0], "threshold": 0.0},
+            {"image_b64": pngs[1], "threshold": 0.5},
+            {"image_b64": "random", "threshold": 0.9}])}
+    root = Path(tempfile.mkdtemp(prefix="shai-encoders-"))
+    rows = {}
+    timer = ctx["timer"]
+    try:
+        for seed, (kind, cfg) in enumerate(_encoder_configs().items()):
+            path = root / kind
+            t0 = time.monotonic()
+            _write_encoder_dir(path, kind, cfg, seed=20 + seed)
+            write_s = time.monotonic() - t0
+            route, reqs = requests[kind]
+            with _unit_up(kind, {"DEVICE": "cuda", "MODEL_ID": str(path),
+                                 "APP": kind, "PORT": "0",
+                                 "MAX_SEQ_LEN": "512"}) as (
+                    service, base, ready_s):
+                lat = []
+                _reset_counters()
+                for p in reqs:
+                    t1 = time.perf_counter()
+                    status, body = _http(base + route, p)
+                    lat.append(time.perf_counter() - t1)
+                    if status != 200:
+                        raise AssertionError(f"serve_encoders {kind}: "
+                                             f"{status} {body}")
+                    _check_encoder_body(kind, cfg, p, body)
+                counts = _read_counters()
+                _check_counters(f"serve_encoders {kind}", counts,
+                                {"flash_attention"})
+                want = cfg.n_layers * len(reqs)
+                if counts["flash_attention"] != want:
+                    raise AssertionError(
+                        f"serve_encoders {kind}: B1 "
+                        f"{counts['flash_attention']} launches, expected "
+                        f"{cfg.n_layers} x {len(reqs)}")
+                ctx.setdefault("launches", {})[
+                    f"serve_encoders {kind}"] = counts
+                inputs = _encoder_inputs(kind, service, reqs[0])
+                agree = _encoder_agreement(kind, service, inputs)
+                with torch.inference_mode():
+                    fwd_ms = timer(lambda: service.model(*inputs), reps=10)
+                row = {"write_s": write_s, "ready_s": ready_s,
+                       "latency_s": {"p50": _pct(lat, 0.5),
+                                     "max": max(lat)},
+                       "forward_ms": fwd_ms, "b1_launches": want,
+                       "agreement": agree}
+                if kind == "bert":
+                    if not isinstance(service.tokenizer, WordPieceTokenizer) \
+                            or service.seq != 512:
+                        raise AssertionError("serve_encoders bert: not the "
+                                             "directory's WordPiece at 512")
+                    ids, mask = inputs
+                    row["ids"] = ids[0, :int(mask.sum())].tolist()
+                    holed = mask.clone()
+                    holed[0, 1] = 0
+                    try:
+                        with torch.inference_mode():
+                            service.model(ids, holed)
+                    except ValueError as e:
+                        row["holed_mask"] = str(e)[:60]
+                    else:
+                        raise AssertionError("serve_encoders bert: a mask "
+                                             "that is no prefix ran on the "
+                                             "card")
+                rows[kind] = row
+                log(f"serve_encoders {kind}: " + json.dumps(row))
+                del service, inputs
+            gc.collect()
+            torch.cuda.empty_cache()
+        ctx["serve_encoders"] = rows
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# -- serve_causal ------------------------------------------------------------
+
+#: the llama unit's rounds on the seeded 1B directory: new tokens a
+#: request, and the prompts (the checkpoint phase's)
+CAUSAL_NEW = 32
+CAUSAL_PROMPTS = (CKPT_CORPUS[:60], "Café déjà vu 🚀 " * 3,
+                  "numbers 12345 and more")
+#: the full-size round: llama-8b-geometry, one 128-token generate
+GEOMETRY_NEW = 128
+
+
+def _forwards(toks, eos: int, n_new: int) -> int:
+    """The decode forwards a generate of ``n_new`` tokens ran for one row
+    whose tokens are ``toks``: up to its first EOS, else ``n_new - 1``
+    (the last token needs none)."""
+    hits = [i for i, t in enumerate(toks) if int(t) == eos]
+    return hits[0] if hits else n_new - 1
+
+
+def _stream(toks, eos: int):
+    """A row's tokens up to and with its first EOS."""
+    out = []
+    for t in toks:
+        out.append(int(t))
+        if int(t) == eos:
+            break
+    return out
+
+
+def _dense_step_ms(ctx, service) -> float:
+    """Device ms of one decode step of the unit's smallest bucket: its
+    captured graph replayed at one row, half its cache in (CUDA events;
+    the replay rewrites one cache slot, which the next generate
+    overwrites); the counters are restored after."""
+    import torch
+
+    gen = service._gen[service.buckets.buckets[0]]
+    cache, step = gen.steps[1]
+    dev = step.tok.device
+    tok = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    pos = torch.full((1,), cache.n_slots // 2, dtype=torch.int64,
+                     device=dev)
+    saved = _read_counters()
+    ms = ctx["timer"](lambda: step(tok, pos), reps=10)
+    for name, (fn, attr) in _counters().items():
+        setattr(fn, attr, saved[name])
+    return ms
+
+
+def _dense_replay_equals_eager(service) -> bool:
+    """One decode step of the unit's smallest bucket replayed from its
+    graph and run eagerly on the same cache, token and position (both
+    write the same slot): the logits bit for bit. The counters are
+    restored after."""
+    import torch
+
+    cache, step = service._gen[service.buckets.buckets[0]].steps[1]
+    dev = step.tok.device
+    tok = torch.full((1, 1), 7, dtype=torch.int64, device=dev)
+    pos = torch.full((1,), cache.n_slots // 2, dtype=torch.int64,
+                     device=dev)
+    saved = _read_counters()
+    with torch.inference_mode():
+        replayed = step(tok, pos).clone()
+        eager = service.model(tok, pos[:, None], cache=cache,
+                              write_pos=pos)[:, -1]
+    for name, (fn, attr) in _counters().items():
+        setattr(fn, attr, saved[name])
+    return bool(torch.equal(replayed, eager))
+
+
+def phase_serve_causal(ctx):
+    """The ``llama`` unit on the seeded Llama-3.2-1B-width directory
+    (``_seeded_1b_dir``, the checkpoint phase's weights), bf16:
+    ``/generate`` greedy for ``CAUSAL_PROMPTS`` and ``/sentiment``, B1
+    exactly one launch a layer a prefill and B2 one a layer a decode step
+    (nothing else launched), the 400 past ``MAX_NEW_TOKENS``; its greedy
+    tokens held against the scoring forward through the plain versions
+    (``TIE_TOL``), and the ``vllm`` unit's greedy tokens on the same
+    directory and prompts held against the same forward by the same rule,
+    every token (the streams' partings logged), a decode step's graph
+    replay bit for bit against its eager run; then ``deepseek`` with
+    ``QUANTIZATION=int8`` on the directory (B4 one launch a projection a
+    forward); then ``llama-8b-geometry`` at full width and depth, one
+    ``GEOMETRY_NEW``-token generate: ms a token, B1 and B2 launches."""
+    import types
+
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.serve.units.causal_lm import (
+        SENTIMENT_PROMPT,
+    )
+
+    _drop_engine_model(ctx)
+    path = _seeded_1b_dir(ctx)
+    env = {"DEVICE": "cuda", "MODEL_ID": str(path), "PORT": "0",
+           "MAX_NEW_TOKENS": str(CAUSAL_NEW), "MAX_SEQ_LEN": "512"}
+    row = {"write_s": ctx.get("seeded_1b_write_s")}
+    review = "A moving, beautifully shot film."
+    t_part = time.monotonic()
+    # the vllm unit (the paged engine) on the same directory and prompts,
+    # first, so that the llama unit's model scores both units' tokens
+    vservice, vbase, vserver = _ckpt_boot(ctx, path, False)
+    try:
+        vprompts = [vservice._encode(p) for p in CAUSAL_PROMPTS]
+        vfins = []
+        for p in CAUSAL_PROMPTS:
+            status, body = _http(vbase + "/generate", {
+                "prompt": p, "temperature": 0.0, "max_new_tokens": 16,
+                "logprobs": 2})
+            if status != 200:
+                raise AssertionError(f"serve_causal vllm: {status} {body}")
+            vfins.append(types.SimpleNamespace(
+                token_ids=[e["token"] for e in body["logprobs"]],
+                logprobs=body["logprobs"]))
+    finally:
+        vserver.stop()
+        vservice.close()
+    del vservice
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["vllm_seconds"] = time.monotonic() - t_part
+    t_part = time.monotonic()
+    with _unit_up("llama", {**env, "APP": "llama"}) as (service, base,
+                                                        ready_s):
+        L, eos = service.mcfg.n_layers, service.eos_id
+        lat, bodies = [], []
+        _reset_counters()
+        for p in CAUSAL_PROMPTS:
+            t1 = time.perf_counter()
+            status, body = _http(base + "/generate",
+                                 {"prompt": p, "temperature": 0.0})
+            lat.append(time.perf_counter() - t1)
+            if status != 200 or not isinstance(body.get("generated_text"),
+                                               str):
+                raise AssertionError(f"serve_causal: {status} {body}")
+            bodies.append(body)
+        status, sent = _http(base + "/sentiment", {"text": review})
+        if status != 200 or not isinstance(sent.get("sentiment"), str):
+            raise AssertionError(f"serve_causal: /sentiment {status} {sent}")
+        counts = _read_counters()
+        _check_counters("serve_causal", counts,
+                        {"flash_attention", "paged_decode_attention"})
+        toks = [service.generate_ids(p, 0.0) for p in CAUSAL_PROMPTS]
+        sent_toks = service.generate_ids(
+            SENTIMENT_PROMPT.format(text=review), 0.0)
+        fwd = sum(_forwards(t, eos, CAUSAL_NEW) for t in toks + [sent_toks])
+        want = {"flash_attention": L * (len(toks) + 1),
+                "paged_decode_attention": L * fwd}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"serve_causal: launches {got}, expected "
+                                 f"{want} (one a layer a prefill and a "
+                                 f"decode step)")
+        ctx.setdefault("launches", {})["serve_causal"] = counts
+        bad = _http(base + "/generate", {"prompt": "x",
+                                         "max_new_tokens": CAUSAL_NEW + 1})
+        if bad[0] != 400:
+            raise AssertionError(f"serve_causal: past the cap: {bad}")
+        ids = [service._encode(p) for p in CAUSAL_PROMPTS]
+        prompts = [i[0][0, :int(i[1][0])].tolist() for i in ids]
+        streams = [_stream(t, eos) for t in toks]
+        fins = [types.SimpleNamespace(token_ids=s, logprobs=None)
+                for s in streams]
+        score = _score(service.model, prompts, fins)
+        step_ms = _dense_step_ms(ctx, service)
+        if not _dense_replay_equals_eager(service):
+            raise AssertionError("serve_causal: a decode step's graph "
+                                 "replay differs from its eager run")
+        if score["plain"][1] > TIE_TOL:
+            raise AssertionError(f"serve_causal: a greedy token "
+                                 f"{score['plain'][1]:.3f} below the plain "
+                                 f"scoring forward's maximum (> {TIE_TOL})")
+        # the vllm unit's tokens, every one of them, held to the same
+        # plain scoring forward by the same rule: where the two decode
+        # paths part, each one's token is within TIE_TOL of that forward's
+        # maximum at the parting
+        if vprompts != prompts:
+            raise AssertionError("serve_causal: the vllm unit encodes the "
+                                 "prompts differently")
+        vscore = _score(service.model, prompts, vfins)
+        row["llama"] = {
+            "ready_s": ready_s, "latency_s": {"p50": _pct(lat, 0.5),
+                                              "max": max(lat)},
+            "ms_per_token": [1e3 * s / max(1, b["n_tokens"])
+                             for s, b in zip(lat, bodies)],
+            "n_tokens": [b["n_tokens"] for b in bodies],
+            "sentiment": sent["sentiment"][:40], "launches": counts,
+            "decode_forwards": fwd, "score": score, "past_cap": bad[0],
+            "decode_step_device_ms": step_ms, "replay_equals_eager": True,
+            "graphs": {str(b): {str(n): st.launches for n, (_, st)
+                                in g.steps.items()}
+                       for b, g in service._gen.items()}}
+        log("serve_causal llama: " + json.dumps(row["llama"]))
+        partings = []
+        for m, v in zip(streams, vfins):
+            i = next((n for n, (x, y) in enumerate(zip(m, v.token_ids))
+                      if x != y), None)
+            top = None if i is None else v.logprobs[i]["top_logprobs"]
+            partings.append(None if i is None else {
+                "token": i, "vllm_top2_gap": float(top[0]) - float(top[1])})
+        row["vllm"] = {"score": vscore, "partings": partings,
+                       "seconds": row.pop("vllm_seconds")}
+        log("serve_causal vs vllm: " + json.dumps(row["vllm"]))
+        if vscore["plain"][1] > TIE_TOL:
+            raise AssertionError(f"serve_causal vllm: a greedy token "
+                                 f"{vscore['plain'][1]:.3f} below the plain "
+                                 f"scoring forward's maximum (> {TIE_TOL})")
+        if vscore["lp_err"] > LP_TOL:
+            raise AssertionError(f"serve_causal vllm: a logprob is "
+                                 f"{vscore['lp_err']:.4f} from the plain "
+                                 f"scoring forward's, over {LP_TOL}")
+        del service
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["llama"]["seconds"] = time.monotonic() - t_part
+    t_part = time.monotonic()
+
+    # deepseek, int8 weights: every projection on B4
+    with _unit_up("deepseek", {**env, "APP": "deepseek",
+                               "QUANTIZATION": "int8"}) as (
+            service, base, ready_s):
+        L, eos = service.mcfg.n_layers, service.eos_id
+        _reset_counters()
+        t1 = time.perf_counter()
+        status, body = _http(base + "/generate", {
+            "prompt": CAUSAL_PROMPTS[0], "temperature": 0.0})
+        wall = time.perf_counter() - t1
+        counts = _read_counters()
+        if status != 200:
+            raise AssertionError(f"serve_causal deepseek: {status} {body}")
+        _check_counters("serve_causal deepseek", counts,
+                        {"flash_attention", "paged_decode_attention",
+                         "int8_matmul"})
+        fwd = _forwards(service.generate_ids(CAUSAL_PROMPTS[0], 0.0), eos,
+                        CAUSAL_NEW)
+        want = {"flash_attention": L, "paged_decode_attention": L * fwd,
+                "int8_matmul": 7 * L * (1 + fwd)}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"serve_causal deepseek: launches {got}, "
+                                 f"expected {want}")
+        ctx["launches"]["serve_causal deepseek"] = counts
+        row["deepseek_int8"] = {"ready_s": ready_s, "wall_s": wall,
+                                "n_tokens": body["n_tokens"],
+                                "launches": counts,
+                                "seconds": time.monotonic() - t_part}
+        log("serve_causal deepseek int8: "
+            + json.dumps(row["deepseek_int8"]))
+        del service
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # full width and depth: llama-8b-geometry, one 128-token generate
+    t_part = time.monotonic()
+    with _unit_up("llama", {"DEVICE": "cuda", "MODEL_ID": "llama-8b-geometry",
+                            "APP": "llama", "PORT": "0",
+                            "MAX_NEW_TOKENS": str(GEOMETRY_NEW)}) as (
+            service, base, ready_s):
+        L = service.mcfg.n_layers
+        _reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        status, body = _http(base + "/generate", {
+            "prompt": "the quick brown fox", "temperature": 0.0})
+        wall = time.perf_counter() - t1
+        counts = _read_counters()
+        if status != 200:
+            raise AssertionError(f"serve_causal 8b: {status} {body}")
+        _check_counters("serve_causal 8b", counts,
+                        {"flash_attention", "paged_decode_attention"})
+        want = {"flash_attention": L,
+                "paged_decode_attention": L * (GEOMETRY_NEW - 1)}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"serve_causal 8b: launches {got}, "
+                                 f"expected {want}")
+        ctx["launches"]["serve_causal 8b"] = counts
+        peak = torch.cuda.max_memory_allocated()
+        row["llama_8b_geometry"] = {
+            "ready_s": ready_s, "wall_s": wall,
+            "ms_per_token": 1e3 * wall / GEOMETRY_NEW,
+            "decode_step_device_ms": _dense_step_ms(ctx, service),
+            "cache_bytes": 2 * L * 2 * (32 + GEOMETRY_NEW) * 8 * 128,
+            "launches": counts, "peak_bytes": peak,
+            "seconds": time.monotonic() - t_part}
+        log("serve_causal 8b: " + json.dumps(row["llama_8b_geometry"]))
+        del service
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx["serve_causal"] = row
+
+
 def kernels_line(ctx):
     cuda_dir = "scalable_hw_agnostic_inference_tpu_torch/csrc"
     pallas = f"{TPU_PKG}/ops/pallas"
@@ -8327,6 +9143,28 @@ def kernels_line(ctx):
         "launches": {ph: ctx["launches"][ph]["flash_attention"]
                      for ph in ("engine_flux", "serve_flux")},
         "shapes": [{k: r[k] for k in keys} for r in ctx["flash_flux"]]}
+    # the encoder units: B1's shapes (xiii)-(xv) timed in the flash phase,
+    # launched by serve_encoders (one a layer a request); the llama unit's
+    # dense cache: B1's prefill shapes and B2 over the dense view, timed
+    # in the flash and paged phases, launched by serve_causal; B4 under
+    # the deepseek unit's int8 weights
+    enc = ("bert", "vit", "yolo")
+    out[0]["encoders"] = {
+        "launches": {k: ctx["launches"][f"serve_encoders {k}"][
+            "flash_attention"] for k in enc},
+        "shapes": [{k: r[k] for k in keys} for r in ctx["flash_encoders"]]}
+    causal = ("serve_causal", "serve_causal deepseek", "serve_causal 8b")
+    out[0]["dense"] = {
+        "launches": {ph: ctx["launches"][ph]["flash_attention"]
+                     for ph in causal},
+        "shapes": [{k: r[k] for k in keys} for r in ctx["flash_dense"]]}
+    out[1]["dense"] = {
+        "launches": {ph: ctx["launches"][ph]["paged_decode_attention"]
+                     for ph in causal},
+        "shapes": [{k: r[k] for k in keys + ("library",)}
+                   for r in ctx["paged_dense"]]}
+    out[3]["deepseek_int8_launches"] = ctx["launches"][
+        "serve_causal deepseek"]["int8_matmul"]
     out[1]["mha"] = {
         "launches": {ph: ctx["launches"][ph]["paged_decode_attention"]
                      for ph in ("engine_llava (a)", "serve_llava")},

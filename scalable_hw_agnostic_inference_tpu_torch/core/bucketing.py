@@ -1,7 +1,7 @@
 """Static-shape bucketing: requests pad up to the nearest registered bucket.
 
 Port of ``scalable_hw_agnostic_inference_tpu/core/bucketing.py``
-(``BucketRegistry``). PyTorch runs eagerly and needs no
+(``pow2_buckets``, ``BucketRegistry``). PyTorch runs eagerly and needs no
 recompile guard, but the engine keeps the reference's bucketed prefill and
 decode shapes so that both packages run the same shapes, and the kernels
 the same launch geometry.
@@ -11,6 +11,20 @@ from __future__ import annotations
 
 import bisect
 from typing import Iterable, List
+
+
+def pow2_buckets(lo: int, hi: int) -> List[int]:
+    """Powers of two covering [lo, hi], inclusive of a final ``hi``
+    bucket."""
+    out = []
+    b = 1
+    while b < lo:
+        b *= 2
+    while b < hi:
+        out.append(b)
+        b *= 2
+    out.append(hi)
+    return out
 
 
 class BucketRegistry:

@@ -71,7 +71,7 @@ from __future__ import annotations
 
 import gc
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,6 +107,62 @@ COUNTED = (
 
 def _launch_counts() -> Tuple[int, ...]:
     return tuple(getattr(fn, attr) for _, fn, attr in COUNTED)
+
+
+class Captured(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    warm: Any      # the eager warm run's outputs
+    outs: Any      # the graph's static outputs
+    #: ((COUNTED entry, launches one replay makes), ...), nonzero only
+    counted: Tuple[Tuple[Tuple[str, Callable, str], int], ...]
+    seconds: float  # the capture alone
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        return {name: n for (name, _, _), n in self.counted}
+
+
+def replay_counted(graph, counted) -> None:
+    """Replay ``graph`` and add its launches (:attr:`Captured.counted`) to
+    the counters."""
+    graph.replay()
+    for (_, fn, attr), n in counted:
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
+def capture_graph(fn: Callable[[], Any], device: torch.device,
+                  stream: "torch.cuda.Stream", pool=None) -> Captured:
+    """Run ``fn`` once eagerly on ``device``'s ``stream`` (kernels built,
+    attributes set, cuBLAS primed; its launches count as any eager
+    launch), then capture it into a CUDA graph on ``stream`` (in memory
+    pool ``pool``).
+    The split scratch must be reserved on ``stream`` first. The capture
+    launches nothing: the counts it adds come off here and go back on at
+    every :func:`replay_counted`."""
+    torch.cuda.synchronize(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with _rpa.frozen_scratch(), torch.cuda.stream(stream):
+        warm = fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _launch_counts()
+    gc.collect()   # dead engines' graphs go now, outside any capture
+    collecting = gc.isenabled()
+    gc.disable()
+    t0 = time.perf_counter()
+    try:
+        with _rpa.frozen_scratch(), torch.cuda.graph(
+                graph, pool=pool, stream=stream,
+                capture_error_mode="thread_local"):
+            outs = fn()
+    finally:
+        if collecting:
+            gc.enable()
+        added = [now - was for now, was in zip(_launch_counts(), before)]
+        for (_, fn_, attr), was in zip(COUNTED, before):
+            setattr(fn_, attr, was)
+    counted = tuple((entry, n) for entry, n in zip(COUNTED, added) if n)
+    return Captured(graph, warm, outs, counted, time.perf_counter() - t0)
 
 
 class GraphPool:
@@ -236,10 +292,10 @@ class DecodeGraph:
         self.tok_lp: Optional[torch.Tensor] = None
         #: kernel launches one replay makes, per counted wrapper
         self.launches: Dict[str, int] = {}
-        self._counted: Tuple[Tuple[Callable, int], ...] = ()
         self.replays = 0
         self.capture_seconds = 0.0
         self._graph = None
+        self._counted: Tuple = ()
         self._ptrs: Tuple[Tuple[int, ...], ...] = ((), ())
 
     @property
@@ -301,39 +357,14 @@ class DecodeGraph:
         if self.pool.reserved is None:
             raise RuntimeError("reserve the pool's split scratch for the "
                                "largest key before the first capture")
-        dev = self.device
-        stream = self.pool.stream
-        torch.cuda.synchronize(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with _rpa.frozen_scratch(), torch.cuda.stream(stream):
-            self.eager()   # kernels built, attributes set, cuBLAS primed
-        stream.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        gc.collect()   # dead engines' graphs go now, outside any capture
-        collecting = gc.isenabled()
-        gc.disable()
-        t0 = time.perf_counter()
-        try:
-            with _rpa.frozen_scratch(), torch.cuda.graph(
-                    graph, pool=self.pool.handle, stream=stream,
-                    capture_error_mode="thread_local"):
-                outs = self.eager()
-        finally:
-            if collecting:
-                gc.enable()
-            # capture launched nothing: the counts it added come off here
-            # and go back on at every replay
-            added = [now - was for now, was in zip(_launch_counts(), before)]
-            for (_, fn, attr), was in zip(COUNTED, before):
-                setattr(fn, attr, was)
-        self.capture_seconds = time.perf_counter() - t0
-        self._set_outputs(outs)
-        self._counted = tuple((entry, n) for entry, n in zip(COUNTED, added)
-                              if n)
-        self.launches = {name: n for (name, _, _), n in self._counted}
+        cap = capture_graph(self.eager, self.device, self.pool.stream,
+                            self.pool.handle)
+        self.capture_seconds = cap.seconds
+        self._set_outputs(cap.outs)
+        self.launches = cap.launches
+        self._counted = cap.counted
         self._ptrs = self._pool_ptrs()
-        self._graph = graph
+        self._graph = cap.graph
 
     def feed(self, tokens: torch.Tensor, pos: torch.Tensor) -> None:
         """Copy the previous step's device outputs into this graph's
@@ -364,7 +395,5 @@ class DecodeGraph:
             if cross != self._ptrs[1]:
                 raise RuntimeError(f"decode graph {self.key}: the cross "
                                    f"buffers moved since capture")
-            self._graph.replay()
-            for (_, fn, attr), n in self._counted:
-                setattr(fn, attr, getattr(fn, attr) + n)
+            replay_counted(self._graph, self._counted)
         self.replays += 1

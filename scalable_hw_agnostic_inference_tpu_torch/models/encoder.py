@@ -1,31 +1,36 @@
-"""Transformer-encoder building blocks: the CLIP tower of the soft-prefix
-VLM (``models/vlm.py``), CLIP's causal text encoder (``models/clip.py``)
-and the dense and LayerNorm layers mllama's vision model, the UNet and the
-VAE share.
+"""Transformer-encoder building blocks: DistilBERT, ViT and YOLOS
+(``models/bert.py``, ``vit.py``, ``yolos.py``), the CLIP tower of the
+soft-prefix VLM (``models/vlm.py``), CLIP's causal text encoder
+(``models/clip.py``) and the dense and LayerNorm layers mllama's vision
+model, the UNet and the VAE share.
 
 Port of ``scalable_hw_agnostic_inference_tpu/models/encoder.py``
-(``ACTIVATIONS``, ``SelfAttention``, ``EncoderBlock``, ``Encoder``), cut
-to what the CLIP tower and the text encoder run: pre-LN, causal or not,
-quick-GELU or exact GELU. The reference's post-LN (DistilBERT) branch and
-its key mask serve models the port does not have. The modules' names map
+(``ACTIVATIONS``, ``SelfAttention``, ``EncoderBlock``, ``Encoder``,
+``attention_mask_2d``): pre-LN (ViT, CLIP) or post-LN (DistilBERT),
+causal or not, with a ``[B, S]`` key-validity mask. The modules' names map
 one to one onto the JAX tree: ``layer_{i}``, ``attn.{q,k,v,o}``, ``ln1``,
 ``ln2``, ``fc1``, ``fc2``. A flax ``Dense`` kernel ``[in, out]`` is held as
 ``weight [out, in]`` (the HF layout), a ``LayerNorm`` ``scale`` as
 ``weight``.
 
 Attention goes through ``ops.attention.dot_product_attention``: on a CUDA
-tensor that is the B1 kernel (no lengths, bf16), on the CPU the plain
-path. B1 takes bf16 only, so an encoder computing in fp32 (the text
-encoder) rounds q, k and v to bf16 at the call on the card and takes the
-output back to fp32; on the CPU it stays fp32, as the reference computes.
-Parameters are held in ``param_dtype`` and cast to the compute ``dtype``
-at use, as flax casts them; LayerNorms compute in fp32.
+tensor that is the B1 kernel (bf16), on the CPU the plain path. The
+reference passes its mask as a ``[B, 1, 1, S]`` boolean
+(``attention_mask_2d``); here a right-padded mask (each row's valid keys a
+prefix) becomes B1's per-row key ``lengths`` (:func:`key_lengths`). A mask
+that is not a prefix takes the masked plain path on the CPU and raises on
+the card, where attention runs only through B1. B1 takes bf16 only, so an
+encoder computing in fp32 (the text encoder) rounds q, k and v to bf16 at
+the call on the card and takes the output back to fp32; on the CPU it
+stays fp32, as the reference computes. Parameters are held in
+``param_dtype`` and cast to the compute ``dtype`` at use, as flax casts
+them; LayerNorms compute in fp32.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -55,6 +60,18 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
         return nn.functional.linear(x, self.weight.to(x.dtype), b)
+
+
+class Embed(nn.Module):
+    """An embedding table ``weight [n, dim]`` (flax ``Embed``'s
+    ``embedding``), looked up in its own dtype."""
+
+    def __init__(self, n: int, dim: int, dtype, device):
+        super().__init__()
+        self.weight = param((n, dim), dtype, device)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.weight[ids]
 
 
 class LayerNorm(nn.Module):
@@ -165,9 +182,59 @@ def state_from_flax(tree: Dict) -> Dict[str, torch.Tensor]:
     return out
 
 
+def state_from_names(get: Callable[[str], torch.Tensor], keys,
+                     names: Dict[str, str], what: str
+                     ) -> Dict[str, torch.Tensor]:
+    """A module's state read from a checkpoint through ``names`` (this
+    module's state name -> the checkpoint's key): ``get(key)`` returns a
+    tensor, ``keys`` are the checkpoint's names. A missing key raises,
+    naming it and ``what`` the checkpoint is."""
+    keys = set(keys)
+    out = {}
+    for name, src in names.items():
+        if src not in keys:
+            raise ValueError(f"{what} checkpoint has no {src!r} (for {name})")
+        out[name] = get(src)
+    return out
+
+
+def hf_block_names(src: str, dst: str, hf: Dict[str, str]
+                   ) -> Dict[str, str]:
+    """One encoder block's names: ``{dst}.{n}.{weight,bias}`` ->
+    ``{src}.{hf[n]}.{weight,bias}`` for each of ``attn.{q,k,v,o}``,
+    ``ln1``, ``ln2``, ``fc1``, ``fc2`` that ``hf`` maps."""
+    return {f"{dst}.{n}.{leaf}": f"{src}.{h}.{leaf}"
+            for n, h in hf.items() for leaf in ("weight", "bias")}
+
+
+def key_lengths(attention_mask: Optional[torch.Tensor]
+                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """A ``[B, S]`` key-validity mask -> ``(lengths [B], None)`` when each
+    row's valid keys are a prefix (a right-padded batch: B1's ``lengths``),
+    else ``(None, mask [B, 1, 1, S])`` for the plain path, the reference's
+    ``attention_mask_2d``. On a CUDA tensor a mask that is not a prefix
+    raises: attention there runs only through B1. ``None`` gives
+    ``(None, None)``."""
+    if attention_mask is None:
+        return None, None
+    m = attention_mask.to(torch.bool)
+    lengths = m.sum(dim=1, dtype=torch.int32)
+    prefix = torch.arange(m.shape[1], device=m.device)[None, :] \
+        < lengths[:, None]
+    if bool(torch.equal(m, prefix)):
+        return lengths, None
+    if m.is_cuda:
+        raise ValueError(
+            "attention mask is not right-padded (a row's valid keys are not "
+            "a prefix): on CUDA attention runs only through the B1 kernel, "
+            "which takes per-row key lengths")
+    return None, m[:, None, None, :]
+
+
 class SelfAttention(nn.Module):
     """Multi-head self-attention with merged-head dense projections,
-    causal or not."""
+    causal or not, over the keys ``lengths`` or ``mask`` (from
+    :func:`key_lengths`) leave valid."""
 
     def __init__(self, dim: int, heads: int, dtype, device,
                  causal: bool = False):
@@ -176,34 +243,37 @@ class SelfAttention(nn.Module):
         for name in ("q", "k", "v", "o"):
             setattr(self, name, Dense(dim, dim, True, dtype, device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, _ = x.shape
         hd = self.dim // self.heads
         q = self.q(x).reshape(B, T, self.heads, hd)
         k = self.k(x).reshape(B, T, self.heads, hd)
         v = self.v(x).reshape(B, T, self.heads, hd)
+        kw = dict(causal=self.causal, kv_lengths=lengths, mask=mask)
         if q.is_cuda and q.dtype != torch.bfloat16:
             o = dot_product_attention(q.bfloat16(), k.bfloat16(),
-                                      v.bfloat16(), causal=self.causal
-                                      ).to(q.dtype)
+                                      v.bfloat16(), **kw).to(q.dtype)
         else:
-            o = dot_product_attention(q, k, v, causal=self.causal)
+            o = dot_product_attention(q, k, v, **kw)
         return self.o(o.reshape(B, T, self.dim))
 
 
 class EncoderBlock(nn.Module):
-    """A pre-LN block: ``x + attn(ln1(x))``, then
-    ``x + fc2(act(fc1(ln2(x))))``."""
+    """A pre-LN block (``x + attn(ln1(x))``, then
+    ``x + fc2(act(fc1(ln2(x))))``) or, with ``pre_ln=False``, a post-LN
+    one (``ln1(x + attn(x))``, then ``ln2(x + fc2(act(fc1(x))))``)."""
 
     def __init__(self, dim: int, heads: int, mlp_dim: int, act: str = "gelu",
                  ln_eps: float = 1e-5, dtype=torch.float32,
                  param_dtype=torch.float32, device=None,
-                 causal: bool = False):
+                 causal: bool = False, pre_ln: bool = True):
         super().__init__()
         if act not in ACTIVATIONS:
             raise ValueError(f"activation {act!r} not in {list(ACTIVATIONS)}")
         self.act = act
-        self.dtype = dtype
+        self.dtype, self.pre_ln = dtype, pre_ln
         pd = param_dtype
         self.ln1 = LayerNorm(dim, ln_eps, pd, device)
         self.attn = SelfAttention(dim, heads, pd, device, causal=causal)
@@ -211,10 +281,17 @@ class EncoderBlock(nn.Module):
         self.fc1 = Dense(dim, mlp_dim, True, pd, device)
         self.fc2 = Dense(mlp_dim, dim, True, pd, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x, self.dtype))
-        h = self.ln2(x, self.dtype)
-        return x + self.fc2(ACTIVATIONS[self.act](self.fc1(h)))
+    def _mlp(self, h: torch.Tensor) -> torch.Tensor:
+        return self.fc2(ACTIVATIONS[self.act](self.fc1(h)))
+
+    def forward(self, x: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.pre_ln:
+            x = self.ln1(x + self.attn(x, lengths, mask), self.dtype)
+            return self.ln2(x + self._mlp(x), self.dtype)
+        x = x + self.attn(self.ln1(x, self.dtype), lengths, mask)
+        return x + self._mlp(self.ln2(x, self.dtype))
 
 
 class Encoder(nn.Module):
@@ -223,25 +300,31 @@ class Encoder(nn.Module):
     def __init__(self, n_layers: int, dim: int, heads: int, mlp_dim: int,
                  act: str = "gelu", ln_eps: float = 1e-5,
                  dtype=torch.float32, param_dtype=torch.float32,
-                 device=None, causal: bool = False):
+                 device=None, causal: bool = False, pre_ln: bool = True):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
             self.add_module(f"layer_{i}", EncoderBlock(
                 dim, heads, mlp_dim, act=act, ln_eps=ln_eps, dtype=dtype,
-                param_dtype=param_dtype, device=device, causal=causal))
+                param_dtype=param_dtype, device=device, causal=causal,
+                pre_ln=pre_ln))
 
     def forward(self, x: torch.Tensor, collect_hidden: bool = False,
-                n_blocks: int = -1):
+                n_blocks: int = -1,
+                attention_mask: Optional[torch.Tensor] = None):
         """The output after ``n_blocks`` blocks (all when negative); with
         ``collect_hidden`` also every hidden state on the way (the input
-        first, the output last), as the reference returns them."""
+        first, the output last), as the reference returns them.
+        ``attention_mask`` ``[B, S]`` marks the valid keys
+        (:func:`key_lengths`); padded query rows attend the valid keys, as
+        the reference's do."""
+        lengths, mask = key_lengths(attention_mask)
         n = self.n_layers if n_blocks < 0 else n_blocks
         hidden = []
         for i in range(n):
             if collect_hidden:
                 hidden.append(x)
-            x = getattr(self, f"layer_{i}")(x)
+            x = getattr(self, f"layer_{i}")(x, lengths, mask)
         if collect_hidden:
             hidden.append(x)
             return x, hidden

@@ -6,8 +6,23 @@ Port of ``scalable_hw_agnostic_inference_tpu/models/llama.py``:
 the scoring path; causal attention goes through the B1 kernel on CUDA),
 int8 weight-only projections (``quant=True``, ``:167-176,:271``, as
 :class:`QuantLinear`) and ``geometry_params`` (``:434``, born int8 with
-``quant``). The contiguous-cache decode path and tensor parallelism come
-in later slices.
+``quant``), and the dense-cache path of ``make_generate`` (the
+``layer_cache``/``write_index`` branch, ``:186-226``, with ``init_cache``,
+``:314``): a :class:`DenseCache` of ``[B, n_slots, Hkv, D]`` slots per
+layer. Tensor parallelism comes in a later slice.
+
+The dense cache departs from the reference's layout in one way. The
+reference writes decode step ``t`` at slot ``Tp + t`` for every row and
+masks the padding slots ``[prompt_len, Tp)``; here step ``t`` of row
+``b`` lands at slot ``prompt_len[b] + t``, over the prompt's padding, so
+that each row's valid keys are always the prefix ``[0, prompt_len + t]``.
+The key set, each key's RoPE position and so each attention output are
+the reference's (a softmax does not care where a key sits). The prefix
+lets the prefill run B1 causal with ``lengths = prompt_len`` and every
+decode step run B2 over the cache seen as a pool of ``DENSE_BLOCK``-slot
+blocks (``[B * n_slots / 16, 16, Hkv, D]``, a view: no copy, no gather),
+row ``b``'s table its own blocks in order, with lengths ``prompt_len +
+t + 1``; B1 at one query row would idle 127 of its 128.
 
 mllama (Llama-3.2-Vision) text towers: the layers named by
 ``cross_attention_layers`` are :class:`LlamaCrossBlock` layers, the gated
@@ -36,6 +51,7 @@ from torch import nn
 
 from ..core.device import DeviceLike, resolve_device
 from ..ops.attention import dot_product_attention
+from ..ops.cuda.paged_attention import paged_decode_attention
 from ..ops.norms import RMSNorm, rms_norm
 from ..ops.quant import _is_quant_node, quant_matmul
 from ..ops.rope import apply_rope
@@ -197,7 +213,16 @@ class LlamaAttention(nn.Module):
         self.v = _linear(cfg.dim, cfg.n_kv_heads * hd, *args)
         self.o = _linear(cfg.n_heads * hd, cfg.dim, *args)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                kv: Optional["DenseLayer"] = None,
+                lengths: Optional[torch.Tensor] = None,
+                write_pos: Optional[torch.Tensor] = None):
+        """``kv`` None: the full-sequence scoring forward (causal within
+        the sequence). With ``kv`` (one layer of a :class:`DenseCache`):
+        ``write_pos`` None is the prefill, its ``T`` keys written at slots
+        ``[0, T)`` and attended causally up to ``lengths [B]`` (B1);
+        ``write_pos [B]`` is a decode step of one token a row, written at
+        that slot and attending slots ``[0, write_pos]`` (B2)."""
         cfg = self.cfg
         B, T, _ = x.shape
         hd = cfg.head_dim
@@ -207,8 +232,22 @@ class LlamaAttention(nn.Module):
         v = quant_matmul(x, self.v).reshape(B, T, cfg.n_kv_heads, hd)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-        # full-sequence scoring: causal within the sequence
-        o = dot_product_attention(q, k, v, causal=True)
+        if kv is None:
+            o = dot_product_attention(q, k, v, causal=True)
+        elif write_pos is None:
+            k, v = k.to(kv.k.dtype), v.to(kv.v.dtype)
+            kv.k[:, :T] = k
+            kv.v[:, :T] = v
+            o = dot_product_attention(q, k, v, causal=True,
+                                      kv_lengths=lengths)
+        else:
+            rows = torch.arange(B, device=x.device)
+            kv.k[rows, write_pos] = k[:, 0].to(kv.k.dtype)
+            kv.v[rows, write_pos] = v[:, 0].to(kv.v.dtype)
+            kp, vp = kv.pools()
+            lens = (write_pos + 1).to(torch.int32)
+            o = paged_decode_attention(q[:, 0], kp, vp, kv.tables,
+                                       lens)[:, None]
         return quant_matmul(o.reshape(B, T, cfg.n_heads * hd), self.o)
 
 
@@ -240,8 +279,12 @@ class LlamaBlock(nn.Module):
         self.mlp_norm = RMSNorm(cfg.dim, cfg.rms_eps, dtype, device=device)
         self.mlp = LlamaMLP(cfg, dtype, param_dtype, device, quantized)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        x = x + self.attn(self.attn_norm(x), positions)
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                kv: Optional["DenseLayer"] = None,
+                lengths: Optional[torch.Tensor] = None,
+                write_pos: Optional[torch.Tensor] = None):
+        x = x + self.attn(self.attn_norm(x), positions, kv, lengths,
+                          write_pos)
         return x + self.mlp(self.mlp_norm(x))
 
 
@@ -388,12 +431,21 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 cross: Optional[Tuple] = None,
-                prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+                prefix: Optional[torch.Tensor] = None,
+                cache: Optional["DenseCache"] = None,
+                lengths: Optional[torch.Tensor] = None,
+                write_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``cross``: an mllama model's ``(cross_kv, has_image [B],
         cross_len [B])``, ``cross_kv`` from :meth:`project_cross`; None
         gates every cross layer off (a text-only request). ``prefix``
         ``[B, P, dim]``: soft embeddings ahead of the ids' (the soft-prefix
-        VLM's image tokens); the logits then cover ``P + T`` positions."""
+        VLM's image tokens); the logits then cover ``P + T`` positions.
+        ``cache`` (:func:`init_cache`): the dense-cache path,
+        ``LlamaAttention.forward``'s ``lengths`` and ``write_pos``."""
+        if cache is not None and self.cfg.cross_attention_layers:
+            raise ValueError(
+                "mllama configs (cross_attention_layers) run through the "
+                "paged engine, not the dense-cache path")
         x = self.embed.weight.to(self.dtype)[ids]
         if prefix is not None:
             x = torch.cat([prefix.to(x.device, self.dtype), x], dim=1)
@@ -402,7 +454,7 @@ class LlamaForCausalLM(nn.Module):
             positions = torch.arange(T, dtype=torch.int32,
                                      device=ids.device).expand(B, T)
         ci = 0
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             if isinstance(layer, LlamaCrossBlock):
                 if cross is not None:   # None: has_image 0, adds nothing
                     (ck, cv), has_image, cross_len = (cross[0][ci],
@@ -410,7 +462,9 @@ class LlamaForCausalLM(nn.Module):
                     x = layer(x, ck, cv, has_image, cross_len)
                 ci += 1
                 continue
-            x = layer(x, positions)
+            x = layer(x, positions,
+                      None if cache is None else cache.layer(i),
+                      lengths, write_pos)
         x = self.final_norm(x)
         if self.lm_head is None:
             # flax Embed.attend promotes both operands to the compute dtype
@@ -418,6 +472,71 @@ class LlamaForCausalLM(nn.Module):
         else:
             logits = quant_matmul(x, self.lm_head)
         return logits.float()
+
+
+# ---------------------------------------------------------------------------
+# the dense cache (make_generate)
+# ---------------------------------------------------------------------------
+
+#: the dense cache's slots per B2 block: the block size B2 is measured at
+DENSE_BLOCK = 16
+
+
+@dataclasses.dataclass
+class DenseLayer:
+    """One layer's slots of a :class:`DenseCache`: ``k``/``v`` ``[B,
+    n_slots, Hkv, D]`` and the shared block tables."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    tables: torch.Tensor
+
+    def pools(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``k``/``v`` seen as B2's pool ``[B * n_slots / DENSE_BLOCK,
+        DENSE_BLOCK, Hkv, D]``: views of the same storage."""
+        B, n, Hkv, D = self.k.shape
+        shape = (B * n // DENSE_BLOCK, DENSE_BLOCK, Hkv, D)
+        return self.k.view(shape), self.v.view(shape)
+
+
+@dataclasses.dataclass
+class DenseCache:
+    """A preallocated contiguous KV cache: ``k[i]``/``v[i]`` ``[B,
+    n_slots, Hkv, D]`` for layer ``i`` (the reference's ``init_cache``),
+    and ``tables [B, n_slots / DENSE_BLOCK]`` int32: row ``b``'s blocks of
+    the pool view in order."""
+
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+    tables: torch.Tensor
+
+    @property
+    def n_slots(self) -> int:
+        return self.k[0].shape[1]
+
+    def layer(self, i: int) -> DenseLayer:
+        return DenseLayer(self.k[i], self.v[i], self.tables)
+
+
+def init_cache(cfg: LlamaConfig, batch: int, seq: int,
+               dtype=torch.bfloat16, device: DeviceLike = None
+               ) -> DenseCache:
+    """``seq`` slots a row and layer (rounded up to a multiple of
+    :data:`DENSE_BLOCK`), zeros, on ``device`` (the card unless the caller
+    asks for the CPU)."""
+    device = resolve_device(device)
+    n = -(-seq // DENSE_BLOCK) * DENSE_BLOCK
+    shape = (batch, n, cfg.n_kv_heads, cfg.head_dim)
+    per_row = n // DENSE_BLOCK
+    tables = (torch.arange(batch, dtype=torch.int32, device=device)[:, None]
+              * per_row + torch.arange(per_row, dtype=torch.int32,
+                                       device=device)[None, :])
+    return DenseCache(
+        [torch.zeros(shape, dtype=dtype, device=device)
+         for _ in range(cfg.n_layers)],
+        [torch.zeros(shape, dtype=dtype, device=device)
+         for _ in range(cfg.n_layers)],
+        tables.contiguous())
 
 
 # ---------------------------------------------------------------------------

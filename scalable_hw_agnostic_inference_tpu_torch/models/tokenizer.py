@@ -58,9 +58,10 @@ them. A ``LlamaTokenizerFast`` config rebuilds the template from its
 ``add_bos_token`` and ``add_eos_token``, as ``transformers`` does.
 
 Anything else raises, naming what is missing: another pre-tokenizer,
-normalizer, decoder or regex, a WordPiece model, BPE dropout or word
-affixes, added tokens that strip or match whole words only. A Unigram
-model is :class:`UnigramTokenizer`'s.
+normalizer, decoder or regex, BPE dropout or word affixes, added tokens
+that strip or match whole words only. A Unigram model is
+:class:`UnigramTokenizer`'s, a WordPiece model
+:class:`WordPieceTokenizer`'s.
 
 :class:`UnigramTokenizer` reads T5's ``tokenizer.json`` (a FLUX.1
 snapshot's ``tokenizer_2/``, a T5 checkpoint's) and gives the ids
@@ -83,6 +84,18 @@ asked for with the configuration's pad token. SD2.1 pads with ``!``,
 which ``transformers`` adds as a special token matched in the raw text
 (so a prompt's own ``!`` is that token, not ``!</w>``); SD1.x pads with
 the end-of-text token.
+
+:class:`WordPieceTokenizer` reads a BERT-family ``tokenizer.json``
+(model ``WordPiece``), or a directory whose only vocabulary is
+``vocab.txt`` (what ``transformers``' ``BertConverter`` builds from it),
+and gives the ids and attention mask ``BertTokenizerFast`` gives:
+``BertNormalizer`` (control characters dropped and whitespace made a
+space, CJK ideographs spaced apart, accents stripped when lowercasing,
+lowercase character by character), ``BertPreTokenizer`` (split on
+whitespace, each punctuation character its own word), greedy
+longest-match WordPiece with the ``##`` prefix and ``[UNK]`` for a word
+past ``max_input_chars_per_word`` or with no match, ``[CLS] $A [SEP]``,
+truncation that keeps both, and right padding with ``[PAD]``.
 """
 
 from __future__ import annotations
@@ -315,6 +328,8 @@ def _not_bpe(model: Dict) -> str:
     kind = model.get("type")
     if kind == "Unigram":
         return "model 'Unigram' (read by UnigramTokenizer, not here)"
+    if kind == "WordPiece":
+        return "model 'WordPiece' (read by WordPieceTokenizer, not here)"
     return f"model {kind!r} (only BPE)"
 
 
@@ -1463,6 +1478,277 @@ class UnigramTokenizer:
                              "truncation only")
         if self.pad_token_id is None:
             raise ValueError("UnigramTokenizer: no pad token in the "
+                             "vocabulary")
+        n = self.model_max_length if max_length is None else max_length
+        ids = self.encode(text, max_length=n)
+        pad = n - len(ids)
+        return {"input_ids": ids + [self.pad_token_id] * pad,
+                "attention_mask": [1] * len(ids) + [0] * pad}
+
+
+# -- WordPiece (BERT) -------------------------------------------------------
+
+#: the CJK ideograph blocks ``BertNormalizer`` spaces apart
+CJK_RANGES = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF),
+              (0x2A700, 0x2B73F), (0x2B740, 0x2B81F), (0x2B920, 0x2CEAF),
+              (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
+#: ASCII punctuation, which ``BertPreTokenizer`` isolates beside Unicode's
+#: P* categories (``$``, ``+``, ``<``, ``=``, ``>``, ``^``, ``\```, ``|``
+#: and ``~`` are symbols to Unicode)
+ASCII_PUNCT = frozenset("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~")
+
+
+def _bert_whitespace(c: str) -> bool:
+    return c in "\t\n\r" or c in WHITE_SPACE
+
+
+def _bert_control(c: str) -> bool:
+    return c not in "\t\n\r" and unicodedata.category(c)[0] == "C"
+
+
+def _cjk(c: str) -> bool:
+    o = ord(c)
+    return any(lo <= o <= hi for lo, hi in CJK_RANGES)
+
+
+def _bert_punct(c: str) -> bool:
+    return c in ASCII_PUNCT or unicodedata.category(c)[0] == "P"
+
+
+class WordPieceTokenizer:
+    """A BERT-family tokenizer (``BertTokenizerFast``'s pipeline): see the
+    module note. ``encode(text, add_special_tokens, max_length)`` gives
+    the ids; ``__call__(text, padding="max_length", truncation=True,
+    max_length=n)`` gives ``{"input_ids", "attention_mask"}`` padded on
+    the right to ``n``. Anything in ``tokenizer.json`` outside that
+    pipeline raises, naming it."""
+
+    def __init__(self, vocab: Dict[str, int], *, lowercase: bool = True,
+                 strip_accents: Optional[bool] = None,
+                 clean_text: bool = True, handle_chinese_chars: bool = True,
+                 unk_token: str = "[UNK]", prefix: str = "##",
+                 max_input_chars_per_word: int = 100,
+                 template: Tuple[List[int], List[int]] = ([], []),
+                 added: Optional[Dict[str, int]] = None,
+                 added_normalized: Optional[Dict[str, int]] = None,
+                 pad_token: Optional[str] = "[PAD]",
+                 model_max_length: int = 512):
+        self.vocab = dict(vocab)
+        self.lowercase = lowercase
+        self.strip_accents = lowercase if strip_accents is None \
+            else strip_accents
+        self.clean_text = clean_text
+        self.handle_chinese_chars = handle_chinese_chars
+        if unk_token not in self.vocab:
+            raise ValueError(f"WordPiece: unk token {unk_token!r} is not in "
+                             f"the vocabulary")
+        self.unk_id = self.vocab[unk_token]
+        self.prefix = prefix
+        self.max_chars = max_input_chars_per_word
+        self._template = template
+        self.added = dict(added or {})
+        self.added_norm = {self.normalize(t): i
+                           for t, i in (added_normalized or {}).items()}
+        self.pad_token_id = None if pad_token is None else (
+            self.added.get(pad_token, self.vocab.get(pad_token)))
+        self.model_max_length = model_max_length
+
+    @classmethod
+    def from_spec(cls, spec: Dict, config: Optional[Dict] = None
+                  ) -> "WordPieceTokenizer":
+        """From a ``tokenizer.json`` (a dict) and ``tokenizer_config.json``
+        (a dict or None)."""
+        config = config or {}
+        model = spec.get("model") or {}
+        if model.get("type") != "WordPiece":
+            raise ValueError(f"tokenizer.json: model {model.get('type')!r} "
+                             f"is not WordPiece")
+        norm = spec.get("normalizer") or {}
+        pre = spec.get("pre_tokenizer") or {}
+        missing = []
+        if norm.get("type") != "BertNormalizer":
+            missing.append(f"normalizer {norm.get('type')!r}")
+        if pre.get("type") != "BertPreTokenizer":
+            missing.append(f"pre-tokenizer {pre.get('type')!r}")
+        post = spec.get("post_processor")
+        if post is not None and post.get("type") == "BertProcessing":
+            template = ([post["cls"][1]], [post["sep"][1]])
+        else:
+            try:
+                template = BpeTokenizer._parse_template(post)
+            except ValueError as e:
+                missing.append(str(e))
+        if missing:
+            raise ValueError("tokenizer.json: not ported (WordPiece): "
+                             + "; ".join(missing))
+        added, added_norm = {}, {}
+        for t in spec.get("added_tokens") or []:
+            if t.get("lstrip") or t.get("rstrip") or t.get("single_word"):
+                raise ValueError(f"added token {t['content']!r}: lstrip, "
+                                 f"rstrip and single_word are not ported")
+            (added_norm if t.get("normalized", not t.get("special"))
+             else added)[t["content"]] = t["id"]
+        return cls(
+            model["vocab"], lowercase=norm.get("lowercase", True),
+            strip_accents=norm.get("strip_accents"),
+            clean_text=norm.get("clean_text", True),
+            handle_chinese_chars=norm.get("handle_chinese_chars", True),
+            unk_token=model.get("unk_token", "[UNK]"),
+            prefix=model.get("continuing_subword_prefix", "##"),
+            max_input_chars_per_word=model.get("max_input_chars_per_word",
+                                               100),
+            template=template, added=added, added_normalized=added_norm,
+            pad_token=_token_content(config.get("pad_token", "[PAD]")),
+            model_max_length=int(config.get("model_max_length", 512)))
+
+    @classmethod
+    def from_vocab_txt(cls, path: Union[str, Path],
+                       config: Optional[Dict] = None
+                       ) -> "WordPieceTokenizer":
+        """From ``vocab.txt`` (one token a line, its line number its id)
+        and ``tokenizer_config.json``'s ``do_lower_case``,
+        ``tokenize_chinese_chars`` and ``strip_accents``: the pipeline
+        ``transformers``' ``BertConverter`` builds, with the special tokens
+        as added tokens matched in the raw text."""
+        config = config or {}
+        lines = Path(path).read_text(encoding="utf-8").split("\n")
+        if lines and lines[-1] == "":
+            lines.pop()
+        vocab: Dict[str, int] = {}
+        for i, tok in enumerate(lines):
+            vocab.setdefault(tok.rstrip("\r"), i)
+        special = {}
+        for key, default in (("unk_token", "[UNK]"), ("sep_token", "[SEP]"),
+                             ("pad_token", "[PAD]"), ("cls_token", "[CLS]"),
+                             ("mask_token", "[MASK]")):
+            tok = _token_content(config.get(key, default))
+            if tok is not None and tok in vocab:
+                special[key] = tok
+        for key in ("cls_token", "sep_token"):
+            if key not in special:
+                raise ValueError(f"{path}: the {key} is not in vocab.txt")
+        template = ([vocab[special["cls_token"]]],
+                    [vocab[special["sep_token"]]])
+        return cls(
+            vocab, lowercase=config.get("do_lower_case", True),
+            strip_accents=config.get("strip_accents"),
+            handle_chinese_chars=config.get("tokenize_chinese_chars", True),
+            unk_token=special.get("unk_token", "[UNK]"),
+            template=template,
+            added={t: vocab[t] for t in special.values()},
+            pad_token=special.get("pad_token"),
+            model_max_length=int(config.get("model_max_length", 512)))
+
+    @classmethod
+    def from_dir(cls, path: Union[str, Path]) -> "WordPieceTokenizer":
+        """Read ``tokenizer.json`` (or, where it is the only vocabulary,
+        ``vocab.txt``) with ``tokenizer_config.json``."""
+        path = Path(path)
+        config = {}
+        if (path / "tokenizer_config.json").is_file():
+            config = json.loads((path / "tokenizer_config.json").read_text())
+        if (path / "tokenizer.json").is_file():
+            return cls.from_spec(json.loads((path / "tokenizer.json")
+                                            .read_text(encoding="utf-8")),
+                                 config)
+        if (path / "vocab.txt").is_file():
+            return cls.from_vocab_txt(path / "vocab.txt", config)
+        raise ValueError(f"{path}: no tokenizer.json or vocab.txt")
+
+    # -- the pipeline --------------------------------------------------------
+
+    def normalize(self, text: str) -> str:
+        """``BertNormalizer``: clean, CJK, accents, lowercase, in that
+        order."""
+        if self.clean_text:
+            text = "".join(" " if _bert_whitespace(c) else c for c in text
+                           if c not in "\x00\ufffd" and not _bert_control(c))
+        if self.handle_chinese_chars:
+            text = "".join(f" {c} " if _cjk(c) else c for c in text)
+        if self.strip_accents:
+            text = "".join(c for c in unicodedata.normalize("NFD", text)
+                           if unicodedata.category(c) != "Mn")
+        if self.lowercase:
+            text = "".join(c.lower() for c in text)
+        return text
+
+    @staticmethod
+    def pre_tokenize(text: str) -> List[str]:
+        """``BertPreTokenizer``: whitespace removed, each punctuation
+        character a word of its own."""
+        words: List[str] = []
+        cur: List[str] = []
+        for c in text:
+            if c in WHITE_SPACE or _bert_punct(c):
+                if cur:
+                    words.append("".join(cur))
+                    cur = []
+                if c not in WHITE_SPACE:
+                    words.append(c)
+            else:
+                cur.append(c)
+        if cur:
+            words.append("".join(cur))
+        return words
+
+    def wordpiece(self, word: str) -> List[int]:
+        """Greedy longest-match-first pieces of ``word``; the unknown token
+        for a word past ``max_input_chars_per_word`` characters or one
+        with a stretch no piece matches."""
+        if len(word) > self.max_chars:
+            return [self.unk_id]
+        out: List[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            hit = None
+            while start < end:
+                piece = word[start:end]
+                if start:
+                    piece = self.prefix + piece
+                hit = self.vocab.get(piece)
+                if hit is not None:
+                    break
+                end -= 1
+            if hit is None:
+                return [self.unk_id]
+            out.append(hit)
+            start = end
+        return out
+
+    def encode(self, text: str, add_special_tokens: bool = True,
+               max_length: Optional[int] = None) -> List[int]:
+        """Token ids of ``text``; with ``max_length`` truncated on the right
+        so that the ids, ``[CLS]`` and ``[SEP]`` included, number at most
+        ``max_length``."""
+        ids: List[int] = []
+        for is_added, seg, _ in split_added(text, self.added):
+            if is_added:
+                ids.append(self.added[seg])
+                continue
+            for is_norm, piece, _ in split_added(self.normalize(seg),
+                                                 self.added_norm):
+                if is_norm:
+                    ids.append(self.added_norm[piece])
+                    continue
+                for word in self.pre_tokenize(piece):
+                    ids.extend(self.wordpiece(word))
+        before, after = self._template if add_special_tokens else ([], [])
+        if max_length is not None:
+            ids = ids[:max(0, max_length - len(before) - len(after))]
+        return before + ids + after
+
+    def __call__(self, text: str, padding: str = "max_length",
+                 truncation: bool = True, max_length: Optional[int] = None
+                 ) -> Dict[str, List[int]]:
+        """``{"input_ids", "attention_mask"}``: the ids truncated to
+        ``max_length`` (``model_max_length`` by default) and padded on the
+        right with the pad token."""
+        if padding != "max_length" or not truncation:
+            raise ValueError("WordPieceTokenizer pads to max_length with "
+                             "truncation only")
+        if self.pad_token_id is None:
+            raise ValueError("WordPieceTokenizer: no pad token in the "
                              "vocabulary")
         n = self.model_max_length if max_length is None else max_length
         ids = self.encode(text, max_length=n)

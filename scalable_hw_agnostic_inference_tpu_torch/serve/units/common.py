@@ -3,7 +3,8 @@ fixed-length tokenization of the conditioning paths.
 
 Trimmed copy of ``scalable_hw_agnostic_inference_tpu/serve/units/common.py``
 (``HashTokenizer``, ``:23``; ``SseTextAssembler``, ``:43``;
-``tokenize_to_length``, ``:170``; ``decode_image``, ``:180``). The
+``IMAGENET_MEAN``, ``IMAGENET_STD``, ``:166``; ``tokenize_to_length``,
+``:170``; ``decode_image``, ``:180``). The
 reference's ``_hf_tokenizer`` (``AutoTokenizer``) becomes the port's own
 tokenizers (``models/tokenizer.py``). :func:`unit_device` reads the
 placement knobs the reference reads with ``core/mesh.py``'s
@@ -15,7 +16,7 @@ from __future__ import annotations
 import base64
 import binascii
 import hashlib
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import re
 
@@ -24,6 +25,7 @@ import torch
 
 from ...core.device import resolve_device
 from ...models import imageio
+from ...ops.cuda.flash_attention import HEAD_DIMS
 
 
 class HashTokenizer:
@@ -100,6 +102,23 @@ def unit_device(cfg) -> torch.device:
     return torch.device("cuda", sub[0])
 
 
+def check_head_size(head_dim: int, device: torch.device, what: str) -> None:
+    """On the card every attention runs on B1: refuse a model whose head
+    size B1 does not take (the tiny tiers' 16), naming it."""
+    if device.type == "cuda" and head_dim not in HEAD_DIMS:
+        raise ValueError(
+            f"{what} has attention heads of size {head_dim}: on the card "
+            f"attention runs only through the B1 kernel, which takes head "
+            f"sizes {list(HEAD_DIMS)}; serve a checkpoint (or a geometry "
+            f"tier) there, or this model with DEVICE=cpu")
+
+
+def id2label(hf: Dict[str, Any]) -> Dict[int, str]:
+    """``config.json``'s ``id2label`` with integer keys (the JSON file
+    spells them as strings, ``transformers`` reads them as ints)."""
+    return {int(k): v for k, v in (hf.get("id2label") or {}).items()}
+
+
 def tokenize_to_length(tok, text: str, length: int) -> np.ndarray:
     """Fixed-length ``[1, length]`` int32 ids from a :class:`HashTokenizer`
     or a tokenizer called as ``tok(text, padding="max_length",
@@ -112,28 +131,40 @@ def tokenize_to_length(tok, text: str, length: int) -> np.ndarray:
     return np.asarray(enc["input_ids"], np.int32)[None]
 
 
-def decode_image(payload: Dict[str, Any], size: int) -> np.ndarray:
+#: HF ``YolosImageProcessor``'s normalization (ImageNet's statistics)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def decode_image(payload: Dict[str, Any], size: int,
+                 width: Optional[int] = None, mean=(0.5, 0.5, 0.5),
+                 std=(0.5, 0.5, 0.5)) -> np.ndarray:
     """A request's ``image_b64`` (base64 PNG or JPEG, or ``"random"``) ->
-    normalized NHWC ``[1, size, size, 3]`` f32, the reference's
-    ``decode_image``: ``"random"`` (or none) is ``default_rng(0)``'s
-    standard normals, unnormalized; an image is decoded to RGB as PIL's
-    ``open(...).convert("RGB")`` gives it, resized as PIL's default
-    ``resize((size, size))`` does (bicubic), scaled to [0, 1] and
-    normalized by HF CLIP's 0.5/0.5, all through ``models.imageio``.
-    Bytes that are no base64, or no image it reads, raise
-    ``imageio.ImageError``."""
+    normalized NHWC ``[1, size, width, 3]`` f32 (``width`` defaults to
+    ``size``), the reference's ``decode_image``: ``"random"`` (or none)
+    is ``default_rng(0)``'s standard normals, unnormalized; an image is
+    decoded to RGB as PIL's ``open(...).convert("RGB")`` gives it, resized
+    as PIL's default ``resize((width, size))`` does (bicubic), scaled to
+    [0, 1] and normalized by ``mean`` and ``std`` (HF CLIP's and ViT's
+    0.5/0.5 by default; detection passes :data:`IMAGENET_MEAN` and
+    :data:`IMAGENET_STD`), all through ``models.imageio``. Bytes that are
+    no base64, or no image it reads, raise ``imageio.ImageError``."""
+    h = size
+    w = size if width is None else width
     b64 = payload.get("image_b64", "")
     if not b64 or b64 == "random":
         rng = np.random.default_rng(0)
-        return rng.standard_normal((1, size, size, 3)).astype(np.float32)
+        return rng.standard_normal((1, h, w, 3)).astype(np.float32)
     try:
         # not validated, as the reference decodes it: characters outside
         # the alphabet (line breaks) are skipped
         data = base64.b64decode(str(b64))
     except (binascii.Error, ValueError) as e:
         raise imageio.ImageError(f"not base64 ({e})") from None
-    img = imageio.resize_bicubic(imageio.decode_image(data), size, size)
-    return ((img.astype(np.float32) / 255.0 - 0.5) / 0.5)[None]
+    img = imageio.resize_bicubic(imageio.decode_image(data), h, w)
+    arr = img.astype(np.float32) / 255.0
+    return ((arr - np.asarray(mean, np.float32))
+            / np.asarray(std, np.float32))[None]
 
 
 class SseTextAssembler:

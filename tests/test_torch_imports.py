@@ -182,6 +182,7 @@ def _builders():
     from scalable_hw_agnostic_inference_tpu_torch.engine.cache import (
         PagedKVCache,
     )
+    from scalable_hw_agnostic_inference_tpu_torch.models import bert
     from scalable_hw_agnostic_inference_tpu_torch.models import clip
     from scalable_hw_agnostic_inference_tpu_torch.models import flux
     from scalable_hw_agnostic_inference_tpu_torch.models import llama
@@ -189,6 +190,8 @@ def _builders():
     from scalable_hw_agnostic_inference_tpu_torch.models import t5
     from scalable_hw_agnostic_inference_tpu_torch.models import unet
     from scalable_hw_agnostic_inference_tpu_torch.models import vae
+    from scalable_hw_agnostic_inference_tpu_torch.models import vit
+    from scalable_hw_agnostic_inference_tpu_torch.models import yolos
 
     cfg = llama.LlamaConfig.tiny()
     mcfg = llama.LlamaConfig(**{**llama.LlamaConfig.tiny().__dict__,
@@ -222,6 +225,14 @@ def _builders():
                                                 **kw),
         "flux_ids": lambda **kw: {"ids": flux.make_ids(1, 4, 8, 8, **kw)},
         "T5Encoder": lambda **kw: t5.T5Encoder(t5.T5Config.tiny(), **kw),
+        "DistilBertClassifier": lambda **kw: bert.DistilBertClassifier(
+            bert.BertConfig.tiny(), **kw),
+        "ViTClassifier": lambda **kw: vit.ViTClassifier(
+            vit.ViTConfig.tiny(), **kw),
+        "YolosForObjectDetection": lambda **kw:
+            yolos.YolosForObjectDetection(yolos.YolosConfig.tiny(), **kw),
+        "dense_cache": lambda **kw: {
+            "k": llama.init_cache(cfg, 2, 40, **kw).k[0]},
     }
 
 
@@ -241,7 +252,9 @@ def _tensors(built):
                                   "random_vision_params", "UNet2DCondition",
                                   "AutoencoderKL", "ClipTextEncoder",
                                   "FluxTransformer", "flux_seeded",
-                                  "flux_ids", "T5Encoder"])
+                                  "flux_ids", "T5Encoder",
+                                  "DistilBertClassifier", "ViTClassifier",
+                                  "YolosForObjectDetection", "dense_cache"])
 def test_model_weights_and_cache_default_to_the_card(no_cuda, name):
     """With no device given, the model, its weight builders and the KV
     cache go to the card, and raise without one, as the engine and the
@@ -253,7 +266,8 @@ def test_model_weights_and_cache_default_to_the_card(no_cuda, name):
     assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
-@pytest.mark.parametrize("unit", ["flux", "t5"])
+@pytest.mark.parametrize("unit", ["flux", "t5", "bert", "vit", "yolo",
+                                  "llama", "mistral", "deepseek"])
 def test_flux_and_t5_units_raise_without_cuda_unless_given_the_cpu(no_cuda,
                                                                    unit):
     from scalable_hw_agnostic_inference_tpu_torch.serve.units import UNITS
@@ -267,6 +281,35 @@ def test_flux_and_t5_units_raise_without_cuda_unless_given_the_cpu(no_cuda,
     svc.load()
     model = svc.pipe.model if unit == "flux" else svc.model
     assert all(p.device.type == "cpu" for p in model.parameters())
+
+
+#: the modules of the six units this port added for the JAX package's
+#: remaining names (the encoder units, the dense-cache LLM units)
+UNIT_MODULES = (
+    "scalable_hw_agnostic_inference_tpu_torch.models.bert",
+    "scalable_hw_agnostic_inference_tpu_torch.models.vit",
+    "scalable_hw_agnostic_inference_tpu_torch.models.yolos",
+    "scalable_hw_agnostic_inference_tpu_torch.models.generate",
+    "scalable_hw_agnostic_inference_tpu_torch.models.tokenizer",
+    "scalable_hw_agnostic_inference_tpu_torch.serve.units.encoders",
+    "scalable_hw_agnostic_inference_tpu_torch.serve.units.yolo",
+    "scalable_hw_agnostic_inference_tpu_torch.serve.units.causal_lm",
+)
+
+
+def test_unit_modules_are_scanned_and_load_nothing_forbidden():
+    """The new modules are in the scan (so the AST scan and the fresh
+    interpreter of ``test_importing_every_port_module_loads_no_jax`` hold
+    them to no JAX, ``transformers``, ``tokenizers`` or PIL); every name
+    the JAX package registers is a port unit."""
+    from scalable_hw_agnostic_inference_tpu_torch.serve.units import UNITS
+
+    scanned = {n for _, n in _modules()}
+    assert set(UNIT_MODULES) <= scanned
+    assert not _forbidden_imports(path for path, n in _modules()
+                                  if n in UNIT_MODULES)
+    assert set(UNITS) == {"vllm", "sd", "sd2", "flux", "t5", "llama",
+                          "mistral", "deepseek", "bert", "vit", "yolo"}
 
 
 def test_server_env_defaults_to_cuda(monkeypatch):
