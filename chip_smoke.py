@@ -44,7 +44,21 @@ Phases:
                 GEMM) timed with the L2 flushed, beside the bound; every
                 instantiation's registers with no spills; calls it does not
                 take raise;
-  7. ``decode_graph`` one decode step at Llama-3-8B width (32 layers,
+  7. ``tp_plan`` the tensor-parallel plan on one card (the flash,
+                paged, ragged and int8_matmul phases also hold and time
+                B1-B4 at one rank's shapes of ``TP_PLANS``): (a) the boot
+                HBM gate: ``llama-8b-geometry`` at ``TP_GATE_BLOCKS``
+                blocks refused with the budget's breakdown and
+                ``memory_allocated()`` unchanged across it, the serve
+                geometry booted and warmed; (b) Llama-3-8B at full width
+                and depth, seeded bf16, through the rank-local modules
+                over the loopback group at tp 1, 2, 4, 8 and int8 at 1
+                and 4: a 512-token prefill and 16 eager greedy steps over
+                each rank's dense cache, the last logits within
+                ``TP_RRMS`` of tp=1's with a control outside it, the
+                tokens by the plain deficit rule, B1, B2 (and B4) launches
+                exact a rank;
+  8. ``decode_graph`` one decode step at Llama-3-8B width (32 layers,
                 seeded weights) captured as a CUDA graph
                 (``engine/graphs.py``) at serve's bucketed shape (B=8, a
                 32-block bucket, bf16 pool) and at the ragged int8 full
@@ -61,7 +75,7 @@ Phases:
                 and the logprob readout) of the replay against the eager
                 call on the same inputs and both sets of draws, bit for
                 bit, its device time beside the decode key's;
-  8. ``engine`` the engine at Llama-3-8B widths with seeded random weights,
+  9. ``engine`` the engine at Llama-3-8B widths with seeded random weights,
                 warmed (every decode key captured), one prompt chunked
                 through the static-start continuation, half the rows
                 asking for 5 logprobs: greedy tokens against the argmax
@@ -70,17 +84,17 @@ Phases:
                 that forward's log-softmax (``LP_TOL``), under the default
                 async decode and equal to a lock-step run's
                 (``SHAI_ASYNC_DECODE=0``), logprob entries included;
-  9. ``engine_ragged`` the same model under ``SHAI_RAGGED_ATTENTION=1``
+ 10. ``engine_ragged`` the same model under ``SHAI_RAGGED_ATTENTION=1``
                 (bf16), ``SHAI_RAGGED_ATTENTION=1 SHAI_KV_QUANT=int8`` and
                 ``SHAI_KV_QUANT=int8`` alone, each also equal to lock-step;
- 10. ``engine_fused`` the same model under ``SHAI_RAGGED_ATTENTION=1
+ 11. ``engine_fused`` the same model under ``SHAI_RAGGED_ATTENTION=1
                 SHAI_FUSED_STEP=1``, bf16 and then ``SHAI_KV_QUANT=int8``:
                 async equal to lock-step, greedy tokens equal to the
                 laddered ragged run's or parting only at a near-tie of its
                 top-2 logprobs (``TIE_GAP``), B3 exactly the layers times
                 the fused and chunk-only replays (no continuation
                 function, no eager continuation launch);
- 11. ``engine_spec`` the engine phase's model with speculative decoding
+ 12. ``engine_spec`` the engine phase's model with speculative decoding
                 (``[ngram]``, k=4, lookup 4 to 1): its prompts and a
                 quoting one (bench.py's repetitive shape, 1,024 tokens,
                 after 16 tokens of the model's own greedy continuation of
@@ -97,7 +111,7 @@ Phases:
                 rollback; acceptance, tokens per verify,
                 the verify replay's device time against a decode
                 replay's, TPOT spec on and off;
- 12. ``engine_int8`` the engine phase's model quantized at boot
+ 13. ``engine_int8`` the engine phase's model quantized at boot
                 (``ops.quant.quantize_state_dict``): one captured decode
                 step and one captured verify step against their eager
                 calls, bit for bit, each with 225 int8 launches (7 x 32
@@ -110,7 +124,7 @@ Phases:
                 B4's wide instantiation, scored through the int8 model's
                 plain route; then fused (every fused replay's window
                 through the wide instantiation inside the graph);
- 13. ``checkpoint`` a seeded Llama-3.2-1B-width checkpoint written here
+ 14. ``checkpoint`` a seeded Llama-3.2-1B-width checkpoint written here
                 (bf16, tied embeddings, two safetensors shards under HF
                 names, llama3 rope scaling, a byte-level BPE
                 ``tokenizer.json`` built here in Llama-3's layout), served
@@ -119,7 +133,7 @@ Phases:
                 ones, ``/generate`` and ``/v1/completions`` answer, greedy
                 tokens equal an engine built from the same state dict;
                 load seconds and GB/s;
- 14. ``engine_prefix`` the engine phase's model with
+ 15. ``engine_prefix`` the engine phase's model with
                 ``enable_prefix_caching`` and ``SHAI_KVTIER=1`` over a
                 160-block pool, one request at a time: a 1,024-token
                 shared prefix cold, as a device hit (a 100-token
@@ -133,7 +147,7 @@ Phases:
                 0 recompiles, no leaked block; TTFT of each admission, the
                 restore's GB/s and a 64-block copy-out's ms, pinned and
                 pageable;
- 15. ``engine_mllama`` Llama-3.2-11B-Vision at full width and depth
+ 16. ``engine_mllama`` Llama-3.2-11B-Vision at full width and depth
                 (seeded, built on the card; the vision encoder at 560 px,
                 32 + 8 layers): the vision states of a ``"random"`` image
                 (1 tile) and an in-script 1120 x 1120 array (2 x 2 tiles),
@@ -149,7 +163,7 @@ Phases:
                 projection's time, a decode replay against the same weights
                 without the cross layers, B1's share of it, the graph pool
                 and the cross buffers;
- 16. ``serve_disagg`` a prefill-role, a decode-role and a monolithic pod
+ 17. ``serve_disagg`` a prefill-role, a decode-role and a monolithic pod
                 on one seeded Llama-3.2-1B-width directory (written by the
                 checkpoint phase's writer), in this process over
                 localhost, each with the prefix cache and the tier: each
@@ -159,7 +173,7 @@ Phases:
                 an injected ``kvnet.fetch`` fault recomputing with a 200;
                 the pull's GB/s and share of TTFT, the ``shai_kvnet_*`` and
                 ``shai_kvtier_*`` families;
- 17. ``serve_fleet`` the fleet KV fabric and live migration on
+ 18. ``serve_fleet`` the fleet KV fabric and live migration on
                 serve_disagg's 1B directory, every pod in this process over
                 localhost: a prefill pod banks 1,250-token runs and a pod
                 armed with ``SHAI_KVFABRIC_PEERS`` naming it admits the
@@ -181,7 +195,7 @@ Phases:
                 bytes, ship and accept seconds, the restore, cut to the
                 resumed request's next token beside a recompute's TTFT,
                 the probe's seconds, blocks and GB/s, the step it ran in;
- 18. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
+ 19. ``serve``  serve ``llama-8b-geometry`` over HTTP (the unit a user runs,
                 its closed set warmed before readiness) and answer 8
                 concurrent ``POST /generate``; then an OpenAI round: 8
                 concurrent streamed ``POST /v1/completions`` (the client's
@@ -191,18 +205,18 @@ Phases:
                 give a uniform distribution), an expired
                 ``X-SHAI-Deadline-Ms`` (504) and a ``/metrics`` scrape
                 holding the ``shai_*`` contract families;
- 19. ``serve_int8`` serve's tier, requests and switches with
+ 20. ``serve_int8`` serve's tier, requests and switches with
                 ``QUANTIZATION=int8`` (born int8): the weights pool exactly
                 8,561,882,112 bytes, 225 int8 launches per replay, B4's
                 decode and wide launches counted, beside serve's numbers;
- 20. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
+ 21. ``serve_ragged`` the same unit with ``SHAI_RAGGED_ATTENTION=1
                 SHAI_KV_QUANT=int8`` and an engine ConfigMap of
                 ``max_model_len`` 4096: two of the 8 prompts chunk;
- 21. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
+ 22. ``serve_fused`` the same with ``SHAI_FUSED_STEP=1 SHAI_KV_COW=1``
                 (the chunks ride the fused graphs' replays), then one
                 ``n=4`` completion admitted as one prefill with 3
                 copy-on-write forks; its numbers beside serve_ragged's;
- 22. ``serve_spec`` ``llama-8b-geometry`` with ``speculative_model:
+ 23. ``serve_spec`` ``llama-8b-geometry`` with ``speculative_model:
                 "[ngram]"`` and ``num_speculative_tokens: 4`` in its
                 ConfigMap (``SERVE_SPEC_CONFIG``), ``BATCH_SIZE=8``: 8
                 concurrent ``POST /generate`` of 128-token repetitive
@@ -212,7 +226,7 @@ Phases:
                 counters on ``/stats`` equal to the engine's, 0
                 recompiles; tokens per verify, TPOT and the device busy
                 share beside spec off;
- 23. ``serve_mllama`` the unit on a seeded mllama directory written here
+ 24. ``serve_mllama`` the unit on a seeded mllama directory written here
                 in HF layout (full widths; text 10 layers with cross
                 layers at 3 and 8, vision 8 + 2 layers): 8 concurrent
                 ``POST /generate`` (4 PNG images of two sizes, 2
@@ -222,7 +236,7 @@ Phases:
                 ``/metrics``, the profiled pass, 0 recompiles; before
                 them, the PNG decode and the tiling timed on the host on
                 1080p and 12 MP all-Paeth PNGs;
- 24. ``engine_sd`` Stable Diffusion 2.1 at full width and depth (UNet
+ 25. ``engine_sd`` Stable Diffusion 2.1 at full width and depth (UNet
                 320/640/1280/1280, OpenCLIP-H's 23 layers, the VAE),
                 seeded, through ``models.sd.StableDiffusion``: 512 x 512,
                 25 DDIM steps, guidance 7.5 at batch 1 and 4, and 768 x 768
@@ -239,7 +253,7 @@ Phases:
                 busy share and device time by class; the flash phase
                 holds B1 at every shape of SD2.1's that these phases give
                 it (``SD_FLASH``);
- 25. ``serve_sd`` the ``sd2`` unit on a seeded stable-diffusion-2-1-base
+ 26. ``serve_sd`` the ``sd2`` unit on a seeded stable-diffusion-2-1-base
                 directory written here (diffusers' layout, fp16 UNet and
                 text encoder, a synthetic CLIP vocabulary), ``SD_BATCH_MAX
                 =4``, 512 px, 25 steps, every bucket warmed before
@@ -249,7 +263,7 @@ Phases:
                 400, the PNGs decoded back; B1 exactly 23 + 32 x 25 a
                 batch; latency p50/p99, ``/metrics``, the traced round's
                 busy share;
- 26. ``engine_flux`` FLUX.1 at full width and depth (19 + 38 blocks of
+ 27. ``engine_flux`` FLUX.1 at full width and depth (19 + 38 blocks of
                 3,072, T5-XXL's 24 layers, CLIP-L, the FLUX VAE), seeded
                 on the card, through ``models.flux_pipeline``: (a) schnell
                 at 512 px, 4 steps, 256 T5 tokens (wall and device time,
@@ -261,14 +275,14 @@ Phases:
                 coarse-score control must fall outside; (d) a seed
                 twice bit for bit; (e) finite; the flash phase holds B1 at
                 Flux's shapes (``FLUX_FLASH``, (xi) and (xii) timed);
- 27. ``serve_flux`` the ``flux`` unit on a seeded FLUX.1-schnell directory
+ 28. ``serve_flux`` the ``flux`` unit on a seeded FLUX.1-schnell directory
                 written here (the BFL single file, full widths, 2 + 4
                 blocks, T5 at 2 layers, a synthetic Unigram
                 ``tokenizer_2/``), ``SUBMESH=0:1``: a few ``POST
                 /genimage``, a 400, B1 exactly (12 + 6 x 4) a request, no
                 shape first run after warmup; then the ``t5`` unit on its
                 ``text_encoder_2/``: ``/embed``, the 400, no kernel;
- 28. ``serve_encoders`` the ``bert``, ``vit`` and ``yolo`` units, each
+ 29. ``serve_encoders`` the ``bert``, ``vit`` and ``yolo`` units, each
                 on a seeded HF-layout directory at published widths
                 written here (DistilBERT-base-uncased-SST-2 with a
                 synthetic 30,522-entry WordPiece ``tokenizer.json``,
@@ -281,7 +295,7 @@ Phases:
                 less) must fall outside; a mask that is no prefix raises
                 on the card; the flash phase holds B1 at these shapes
                 (``ENCODER_FLASH``, (xiii)-(xv));
- 29. ``serve_causal`` the ``llama`` unit on the seeded 1B-width
+ 30. ``serve_causal`` the ``llama`` unit on the seeded 1B-width
                 directory: ``/generate`` greedy and ``/sentiment``, B1
                 exactly one launch a layer a prefill and B2 one a layer a
                 decode step, the 400 past ``MAX_NEW_TOKENS``; its greedy
@@ -298,7 +312,7 @@ Phases:
                 flash and paged phases hold B1 at the dense prefill
                 (``DENSE_FLASH``) and B2 over the dense cache's pool view
                 (``DENSE_PAGED``);
- 30. ``serve_ops`` serve's configuration under the operating layer
+ 31. ``serve_ops`` serve's configuration under the operating layer
                 (``SERVE_OPS_ENV``: ``MAX_INFLIGHT=8``, tracing, the fault
                 endpoint armed, a perf projection of 50 tok/s over a 5 s
                 window, a 2 s watchdog floor, a 60 s drain budget): the
@@ -324,6 +338,9 @@ the layers times the graph replays (plus, for B3 on the laddered engine,
 the layers times the ragged continuation chunks); the serve phases also
 require 0 recompiles after warmup and the warmed executable count
 unchanged.
+Every engine a phase builds logs its boot HBM gate's ``describe()`` line,
+and after its warmup its measured peak (``_watch_engines``); the run then
+lists them all on one line.
 Any failed phase makes the script exit non-zero without the result lines.
 A full run prints the card's name and power limit, then, second to last,
 ``{"kernels": [...]}`` (per kernel: route, source, the TPU kernel it
@@ -363,7 +380,7 @@ import urllib.request
 from pathlib import Path
 
 PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
-          "decode_graph", "engine", "engine_ragged", "engine_fused",
+          "tp_plan", "decode_graph", "engine", "engine_ragged", "engine_fused",
           "engine_spec", "engine_int8", "checkpoint", "engine_prefix",
           "engine_mllama", "engine_llava", "serve_disagg", "serve_fleet",
           "serve", "serve_int8", "serve_ragged", "serve_fused",
@@ -836,6 +853,15 @@ def phase_flash(ctx):
                               lengths, causal, timed)
             worst = max(worst, line["max_abs_err"])
             ctx[key].append(line)
+    # one tensor-parallel rank's heads (TP_PLANS): the rank-local prefill
+    # of tp_plan, 512 tokens causal
+    ctx["flash_ranks"] = []
+    for (H_, Hkv_), labels in _rank_heads().items():
+        line = _flash_row(ctx, torch, gen, fa, 1, 512, 512, H_, Hkv_, 128,
+                          [512], True, True)
+        line["plans"] = labels
+        worst = max(worst, line["max_abs_err"])
+        ctx["flash_ranks"].append(line)
     # the summary row: the serving config's largest prefill bucket, batched
     ctx["flash"] = dict(rows[1], max_abs_err=worst)
     # mllama's cross shapes (non-causal over the vision states)
@@ -1072,6 +1098,13 @@ def phase_paged(ctx):
         line = _dense_paged_row(ctx, torch, gen, pa, n_slots, lengths)
         worst = max(worst, line["max_abs_err"])
         ctx["paged_dense"].append(line)
+    # one tensor-parallel rank's heads (TP_PLANS) at the B=8 decode shape
+    ctx["paged_ranks"] = []
+    for (H_, Hkv_), labels in _rank_heads().items():
+        line = _paged_rank_row(ctx, torch, gen, pa, H_, Hkv_, long)
+        line["plans"] = labels
+        worst = max(worst, line["max_abs_err"])
+        ctx["paged_ranks"].append(line)
     # speculative verify's shape: 8 sequences x (k + 1) query rows over
     # their tables repeated k + 1 times
     ctx["paged_verify"] = _verify_case(torch, gen, timer, pa, rpa, "paged",
@@ -1413,6 +1446,15 @@ def phase_ragged(ctx):
                 f"{kind} lengths={lengths} max |err| {err:.3e}, {share:.3f} "
                 f"of the tolerance (dropped keys: {d_share:.2f})")
     worst = max(worst, _mixed_rows(ctx, torch, rpa, timer, gen))
+    # one tensor-parallel rank's heads (TP_PLANS) at the B=8 decode shape,
+    # bf16 and int8 pools
+    ctx["ragged_ranks"] = []
+    for (H_, Hkv_), labels in _rank_heads().items():
+        for quant in (False, True):
+            line = _ragged_rank_row(ctx, torch, gen, rpa, H_, Hkv_, quant)
+            line["plans"] = labels
+            worst = max(worst, line["max_abs_err"])
+            ctx["ragged_ranks"].append(line)
     ctx["ragged_verify"] = {
         kind: _verify_case(torch, gen, timer, pa, rpa, "ragged", quant)
         for kind, quant in (("bf16", False), ("int8", True))}
@@ -3754,6 +3796,9 @@ def _int8_matmul_cases(ctx, torch, reduced):
             del x, ref
         del wq, scale, wb
         torch.cuda.empty_cache()
+    # one tensor-parallel rank's projections (TP_INT8_PLANS)
+    ctx["int8_ranks"] = _int8_rank_rows(ctx, torch, i8, quantize_weight,
+                                        gen, failed)
     if failed:
         raise AssertionError(f"int8_matmul: {failed}")
     # calls the kernel does not take raise: no quiet fallback on the card
@@ -9046,6 +9091,503 @@ def phase_serve_causal(ctx):
     ctx["serve_causal"] = row
 
 
+# -- tensor parallelism: one rank's shapes, the boot gate, the rank-local
+# -- forward (tp_plan) ---------------------------------------------------------
+
+#: the tensor-parallel plans one rank of which a card runs (label, preset,
+#: tp): deploy/units/llama- and mistral-tpu-deploy.yaml (MESH_SPEC=tp=4),
+#: tp=2 and tp=8 of the same 8B widths, llama-mh-tpu-deploy.yaml (tp=16)
+#: and dsr70b-mh-tpu-deploy.yaml (tp=32), whose 8 kv heads are widened to
+#: tp (``models.llama.replicate_kv_heads``)
+TP_PLANS = (("8B tp=2", "llama3_8b", 2), ("8B tp=4", "llama3_8b", 4),
+            ("8B tp=8", "llama3_8b", 8), ("70B tp=16", "llama3_70b", 16),
+            ("70B tp=32", "llama3_70b", 32))
+#: the plans whose per-rank projections B4 is held and timed at, each at a
+#: decode batch and a 512-token prefill
+TP_INT8_PLANS = ("8B tp=4", "70B tp=32")
+TP_INT8_ROWS = (8, 512)
+#: the gate's refusal: llama-8b-geometry with 48,000 blocks of 16 tokens,
+#: 2 MiB a block over 32 layers, 93.75 GiB of bf16 KV
+TP_GATE_BLOCKS = 48_000
+#: the rank-local forward: a 512-token prompt, then 16 greedy steps
+TP_PROMPT, TP_STEPS, TP_SEED = 512, 16, 21
+#: the rank-local forward's last-position logits against tp=1's through
+#: the same kernels, relative rms (PERF.md §6 states the prediction): each
+#: rank's partial sums round to bf16 before the all-reduce adds them in
+#: bf16, so the logits move by rounding alone; a control whose first
+#: o-projection all-reduce drops one rank's partial must fall outside
+TP_RRMS = 0.1
+
+
+def _rank_plans():
+    """``{label: EngineShardings}`` of ``TP_PLANS``."""
+    import dataclasses
+
+    from scalable_hw_agnostic_inference_tpu_torch.engine.runner import (
+        EngineShardings,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+        LlamaConfig,
+    )
+
+    out = {}
+    for label, preset, tp in TP_PLANS:
+        cfg = getattr(LlamaConfig, preset)()
+        if tp > cfg.n_kv_heads:
+            cfg = dataclasses.replace(cfg, n_kv_heads=tp)
+        out[label] = EngineShardings(cfg, tp)
+    return out
+
+
+def _rank_heads():
+    """The distinct per-rank ``(H, Hkv)`` of the plans, each with the plans
+    that give it."""
+    heads = {}
+    for label, plan in _rank_plans().items():
+        heads.setdefault((plan.n_heads, plan.n_kv_heads), []).append(label)
+    return heads
+
+
+def _paged_rank_row(ctx, torch, gen, pa, H, Hkv, lengths):
+    """B2 at one rank's heads, the B=8 decode shape of the paged phase (a
+    pool of 1,024 shuffled blocks, M=128), held and timed."""
+    timer = ctx["timer"]
+    B, D, bs, N, M = len(lengths), 128, 16, 1024, 128
+    q, kp, vp, tables, lens = _paged_case(torch, gen, B, H, Hkv, D, bs, N,
+                                          M, lengths)
+    out = pa.paged_decode_attention(q, kp, vp, tables, lens)
+    f32 = (q.float(), kp.float(), vp.float(), tables)
+    ref = pa.paged_decode_attention_reference(*f32, lens)
+    dropped = pa.paged_decode_attention_reference(*f32, _cut(lens))
+    torch.cuda.synchronize()
+    shape = (f"rank B={B} H={H} Hkv={Hkv} D={D} bs={bs} N={N} M={M} "
+             f"lengths={lengths}")
+    err, share, d_share = _check_close(f"paged_decode_attention {shape}",
+                                       out, ref, dropped)
+    del f32, ref, dropped
+    n_bytes, flops = _paged_work(B, H, Hkv, D, bs, M, lengths)
+    bms, by = bound_ms(n_bytes, flops)
+    line = {"shape": shape, "max_abs_err": err, "tol_share": share,
+            "dropped_keys_tol_share": d_share,
+            "ms": timer(lambda: pa.paged_decode_attention(q, kp, vp, tables,
+                                                          lens)),
+            "plain_ms": timer(lambda: pa.paged_decode_attention_reference(
+                q, kp, vp, tables, lens), reps=5),
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    log("paged_decode_attention: " + json.dumps(line))
+    return line
+
+
+def _ragged_rank_row(ctx, torch, gen, rpa, H, Hkv, quant):
+    """B3 at one rank's heads, the ragged phase's B=8 decode shape (2,048
+    shuffled blocks, M=128, lengths 1 to 2048), bf16 or int8, held and
+    timed."""
+    timer = ctx["timer"]
+    lengths = [1, 17, 255, 512, 1000, 1500, 2047, 2048]
+    D, bs, N, M = 128, 16, 2048, 128
+    q, kp, vp, ks, vs, tables, lens = _ragged_inputs(
+        torch, gen, len(lengths), H, Hkv, D, bs, N, M, lengths, quant, "own")
+    args = (q, kp, vp, tables, lens, ks, vs)
+    out = rpa.ragged_paged_attention(*args)
+    qf = q.float()
+    ref = rpa.ragged_paged_attention_reference(qf, kp, vp, tables, lens, ks,
+                                               vs)
+    dropped = rpa.ragged_paged_attention_reference(qf, kp, vp, tables,
+                                                   _cut(lens), ks, vs)
+    torch.cuda.synchronize()
+    kind = "int8" if quant else "bf16"
+    shape = (f"rank decode B=8 {kind}: H={H} Hkv={Hkv} D={D} bs={bs} N={N} "
+             f"M={M} lengths {lengths}")
+    err, share, d_share = _check_close(f"ragged_paged_attention {shape}",
+                                       out, ref, dropped)
+    del qf, ref, dropped
+    n_bytes, flops = _ragged_work(tables.cpu(), lens.cpu(), H, Hkv, D, bs,
+                                  quant)
+    bms, by = bound_ms(n_bytes, flops)
+    line = {"shape": shape, "max_abs_err": err, "tol_share": share,
+            "dropped_keys_tol_share": d_share,
+            "ms": timer(lambda: rpa.ragged_paged_attention(*args)),
+            "plain_ms": timer(lambda: rpa.ragged_paged_attention_reference(
+                *args), reps=5),
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    log("ragged_paged_attention: " + json.dumps(line))
+    return line
+
+
+def _int8_rank_rows(ctx, torch, i8, quantize_weight, gen, failed):
+    """B4 at the per-rank projection widths of ``TP_INT8_PLANS`` (q, k/v,
+    o, gate/up, down, lm_head; ``EngineShardings.projection_shapes``) and
+    M in ``TP_INT8_ROWS``: within ``INT8_ULPS`` of the plain version, which
+    short of one K slice must fail; kernel, plain version and bf16
+    ``F.linear`` timed with the L2 flushed. Failures go to ``failed``."""
+    timer = ctx["timer"]
+    plans = _rank_plans()
+    shapes = {}
+    for label in TP_INT8_PLANS:
+        for proj, nk in plans[label].projection_shapes().items():
+            shapes.setdefault(nk, []).append(f"{label} {proj}")
+    rows = []
+    for (N, K), names in shapes.items():
+        w = torch.randn(N, K, generator=gen, device="cuda") * 0.02
+        wq, scale = quantize_weight(w)
+        wb = w.to(torch.bfloat16)
+        del w
+        for M in TP_INT8_ROWS:
+            x = torch.randn(M, K, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            out = i8.int8_matmul(x, wq, scale)
+            ref = i8.int8_matmul_reference(x, wq, scale)
+            cut = i8.int8_matmul_reference(x[:, 16:], wq[:, 16:], scale)
+            torch.cuda.synchronize()
+            ulps = _int8_ulps(torch, out, ref, x, wq, scale)
+            cut_ulps = _int8_ulps(torch, cut, ref, x, wq, scale)
+            n_bytes = N * K + 4 * N + 2 * M * K + 2 * M * N
+            bms, by = bound_ms(n_bytes, 2.0 * M * N * K)
+            line = {"shape": f"M={M} N={N} K={K}", "M": M, "N": N, "K": K,
+                    "plans": names,
+                    "instantiation": ("wide" if i8.int8_plan(
+                        M, N, K, torch.cuda.get_device_properties(
+                            0).multi_processor_count).wide else "decode"),
+                    "max_abs_err": float((out.float() - ref.float()).abs()
+                                         .max()),
+                    "max_ulps": ulps, "dropped_slice_ulps": cut_ulps,
+                    "ms": timer(lambda: i8.int8_matmul(x, wq, scale),
+                                clean=True),
+                    "plain_ms": timer(lambda: i8.int8_matmul_reference(
+                        x, wq, scale), clean=True),
+                    "library_ms": timer(lambda: torch.nn.functional.linear(
+                        x, wb), clean=True),
+                    "bound_ms": bms, "bound_by": by}
+            log("int8_matmul rank: " + json.dumps(line))
+            if ulps > INT8_ULPS:
+                failed.append(f"rank {line['shape']}: {ulps:.2f} ulps")
+            if cut_ulps <= INT8_ULPS:
+                failed.append(f"rank {line['shape']}: the check misses a "
+                              f"dropped K slice")
+            rows.append(line)
+            del x, out, ref, cut
+        del wq, scale, wb
+    return rows
+
+
+def _watch_engines(ctx):
+    """Every engine the run builds: its boot gate's ``describe()`` line
+    when it is built, and after its warmup the peak device memory since its
+    construction began, less what was resident then besides its model's
+    weights (``engine_peak_gib``, beside the budget's per-chip total).
+    Instruments ``LLMEngine`` for this process; returns the undo."""
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.engine.engine import (
+        LLMEngine,
+    )
+
+    init, warm = LLMEngine.__init__, LLMEngine.warm_executables
+    gib = float(1 << 30)
+
+    def watched_init(self, *a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        init(self, *a, **k)
+        b = self.hbm_budget
+        weights = sum(t.nbytes for t in self.model.state_dict().values())
+        self._gate_line = {"phase": ctx.get("phase"),
+                           "budget": b.describe(),
+                           "budget_total_gib": b.total_gib,
+                           "budget_params_gib": b.params_gib,
+                           "budget_kv_gib": b.kv_gib,
+                           "budget_act_gib": b.act_gib,
+                           "weights_gib": weights / gib,
+                           "other_resident_gib": (before - weights) / gib}
+        ctx.setdefault("gate", []).append(self._gate_line)
+        log("hbm gate: " + b.describe())
+
+    def watched_warm(self, *a, **k):
+        n = warm(self, *a, **k)
+        torch.cuda.synchronize()
+        line = self._gate_line
+        peak = torch.cuda.max_memory_allocated() / gib
+        line["peak_after_warmup_gib"] = peak
+        line["engine_peak_gib"] = peak - line["other_resident_gib"]
+        log("hbm gate after warmup: " + json.dumps(line))
+        return n
+
+    LLMEngine.__init__ = watched_init
+    LLMEngine.warm_executables = watched_warm
+
+    def undo():
+        LLMEngine.__init__, LLMEngine.warm_executables = init, warm
+
+    return undo
+
+
+def phase_tp_plan(ctx):
+    """(a) the boot gate on the card; (b) the rank-local Llama-3-8B over
+    the loopback group at tp 1, 2, 4, 8 (bf16) and 1, 4 (int8). The
+    per-rank kernel rows are in the flash, paged, ragged and int8_matmul
+    phases."""
+    t0 = time.monotonic()
+    ctx["tp_plan"] = {"gate": _tp_gate(ctx)}
+    ctx["tp_plan"]["gate"]["seconds"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    ctx["tp_plan"]["forward"] = _tp_forward(ctx)
+    ctx["tp_plan"]["forward_seconds"] = time.monotonic() - t0
+
+
+def _tp_gate(ctx):
+    """``llama-8b-geometry`` (zeros, 16 GB on the card) under
+    ``TP_GATE_BLOCKS`` blocks is refused with the budget's breakdown before
+    the engine allocates a byte; the same tier at serve's geometry boots
+    and warms (its gate line and peak logged by ``_watch_engines``)."""
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.core.budget import (
+        HbmBudgetError,
+        causal_lm_budget,
+        detect_hbm_gib,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.engine.config import (
+        EngineConfig,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.engine.engine import (
+        LLMEngine,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        geometry_params,
+    )
+
+    if os.environ.get("SHAI_HBM_GIB"):
+        raise AssertionError("tp_plan reads the card's memory: unset "
+                             "SHAI_HBM_GIB")
+    _drop_engine_model(ctx)
+    cfg = LlamaConfig.llama3_8b()
+    model = LlamaForCausalLM.from_state_dict(cfg, geometry_params(cfg))
+    hbm = detect_hbm_gib(torch.device("cuda"))
+    over = EngineConfig(model="llama-8b-geometry", max_model_len=2048,
+                        max_num_seqs=8, context_encoding_buckets=(128, 512),
+                        num_blocks=TP_GATE_BLOCKS)
+    want = causal_lm_budget(cfg, over, hbm_gib_per_chip=hbm)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        LLMEngine(cfg, model, over, device="cuda")
+    except HbmBudgetError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"tp_plan: {TP_GATE_BLOCKS} blocks booted")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if refusal != want.describe() or after != before:
+        raise AssertionError(f"tp_plan: the refusal {refusal!r} (want "
+                             f"{want.describe()!r}); allocated {before} -> "
+                             f"{after} bytes across it")
+    log(f"tp_plan gate: refused: {refusal}; allocated {before} bytes before "
+        f"and after")
+    fits = EngineConfig(model="llama-8b-geometry", max_model_len=2048,
+                        max_num_seqs=8, context_encoding_buckets=(128, 512))
+    t0 = time.monotonic()
+    eng = LLMEngine(cfg, model, fits, device="cuda")
+    eng.warm_executables()
+    line = dict(getattr(eng, "_gate_line", {}),
+                warm_s=time.monotonic() - t0, hbm_gib=hbm)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"refused": refusal, "allocated_before": before,
+            "allocated_after": after, "kv_gib_refused": want.kv_gib,
+            "booted": line}
+
+
+def _rank_models(cfg, state, tp, group, n_slots):
+    """Each rank's model over its shard and its dense cache, built on the
+    caller's thread."""
+    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+        LlamaForCausalLM,
+        init_cache,
+        tp_rules,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.parallel.sharding import (
+        shard_state_dict,
+    )
+
+    return [(LlamaForCausalLM.from_state_dict(
+                cfg, shard_state_dict(state, tp_rules(), tp, r), group=group),
+             init_cache(cfg, 1, n_slots, group=group)) for r in range(tp)]
+
+
+def _drop_first_partial_group(tp):
+    """A loopback group whose first all-reduce (layer 0's o projection)
+    sums all partials but the last rank's: the control of the rank-local
+    forward's bound."""
+    from scalable_hw_agnostic_inference_tpu_torch.parallel.loopback import (
+        LoopbackGroup,
+    )
+
+    class DropFirstPartial(LoopbackGroup):
+        def __init__(self, size):
+            super().__init__(size)
+            self.calls = [0] * size
+
+        def all_reduce(self, t):
+            first = self.calls[self.rank] == 0
+            self.calls[self.rank] += 1
+            if not first:
+                return super().all_reduce(t)
+
+            def partial(ts):
+                out = ts[0].clone()
+                for other in ts[1:-1]:
+                    out += other
+                return out
+
+            return self._exchange(t, partial)
+
+    return DropFirstPartial(tp)
+
+
+def _rank_run(cfg, state, tp, prompt, steps, control=False):
+    """The rank-local model at ``tp`` over a loopback group: the prompt's
+    prefill (B1 on every rank), then ``steps`` greedy decode steps over
+    each rank's dense cache (B2 on every rank), eager. Returns the
+    prefill's last-position logits [V] fp32, the greedy tokens (1 +
+    ``steps``), the launch counts and the seconds; every rank's logits and
+    tokens must be the same bits."""
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.parallel.loopback import (
+        LoopbackGroup,
+        run_ranks,
+    )
+
+    group = _drop_first_partial_group(tp) if control else LoopbackGroup(tp)
+    ranks = _rank_models(cfg, state, tp, group, prompt.shape[1] + steps)
+    plen = torch.tensor([prompt.shape[1]], device="cuda")
+
+    def rank(r):
+        m, cache = ranks[r]
+        last = m(prompt, cache=cache, lengths=plen)[0, -1]
+        tok = last.argmax()
+        toks = [tok]
+        for t in range(steps):
+            pos = plen + t
+            tok = m(tok.view(1, 1), pos[:, None], cache=cache,
+                    write_pos=pos)[0, -1].argmax()
+            toks.append(tok)
+        return last, torch.stack(toks)
+
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        outs = run_ranks(rank, group)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    counts = _read_counters()
+    last, toks = outs[0]
+    for other_last, other_toks in outs[1:]:
+        if not (torch.equal(other_last, last) and torch.equal(other_toks,
+                                                              toks)):
+            raise AssertionError(f"tp={tp}: the ranks' logits differ")
+    del ranks, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return last.float(), toks.tolist(), counts, seconds
+
+
+def _rrms(a, b) -> float:
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+
+def _tp_forward(ctx):
+    """Llama-3-8B at full width and depth, seeded N(0, 0.02) bf16 weights
+    (``random_params``), through the rank-local modules at tp 1, 2, 4, 8,
+    each tp in turn (shards freed between), then int8 weights at tp 1 and
+    4: the last-position logits against tp=1's within ``TP_RRMS``, the
+    control (tp=4, layer 0's o all-reduce one partial short) outside it;
+    the greedy tokens held to the plain scoring forward's deficit rule
+    (``TIE_TOL``); B1 exactly 32 launches a rank a prefill, B2 32 a rank a
+    step, B4 225 a rank a forward (wide at the prefill, decode at a step),
+    nothing else."""
+    import types
+
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        random_params,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.ops.quant import (
+        quantize_state_dict,
+    )
+
+    cfg = LlamaConfig.llama3_8b()
+    L = cfg.n_layers
+    state = random_params(cfg, seed=TP_SEED, std=0.02)
+    base = LlamaForCausalLM.from_state_dict(cfg, state)
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (1, TP_PROMPT), generator=gen,
+                           device="cuda")
+    plist = prompt[0].tolist()
+    rows, ref = [], {}
+
+    def check(what, tp, quant, last, toks, counts, seconds, model):
+        want = {"flash_attention": tp * L,
+                "paged_decode_attention": tp * L * TP_STEPS}
+        if quant:
+            want.update(int8_matmul_wide=tp * (7 * L + 1),
+                        int8_matmul=tp * (7 * L + 1) * TP_STEPS)
+        _check_counters(what, counts, set(want))
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+        score = _score(model, [plist], [types.SimpleNamespace(
+            token_ids=toks, logprobs=None)])
+        line = {"what": what, "tp": tp, "int8": quant, "seconds": seconds,
+                "launches": got, "tokens": toks, "score": score}
+        if tp == 1:
+            ref[quant] = last
+        else:
+            line["rrms_vs_tp1"] = _rrms(last, ref[quant])
+        log("tp_plan forward: " + json.dumps(line))
+        if score["plain"][1] > TIE_TOL:
+            raise AssertionError(f"{what}: a greedy token "
+                                 f"{score['plain'][1]:.3f} below the plain "
+                                 f"scoring forward's maximum (> {TIE_TOL})")
+        if line.get("rrms_vs_tp1", 0.0) > TP_RRMS:
+            raise AssertionError(f"{what}: logits {line['rrms_vs_tp1']:.4f}"
+                                 f" relative rms from tp=1's (> {TP_RRMS})")
+        ctx.setdefault("launches", {})[f"tp_plan {what}"] = counts
+        rows.append(line)
+
+    for tp in (1, 2, 4, 8):
+        last, toks, counts, seconds = _rank_run(cfg, state, tp, prompt,
+                                                TP_STEPS)
+        check(f"bf16 tp={tp}", tp, False, last, toks, counts, seconds, base)
+        if tp == 4:
+            c_last = _rank_run(cfg, state, tp, prompt, 0, control=True)[0]
+            control = _rrms(c_last, ref[False])
+            log(f"tp_plan forward: control (tp=4, layer 0's o all-reduce "
+                f"without rank 3's partial): {control:.4f} relative rms "
+                f"from tp=1's (must exceed {TP_RRMS})")
+            if control <= TP_RRMS:
+                raise AssertionError(f"tp_plan: the control passes the "
+                                     f"bound ({control:.4f})")
+            rows.append({"what": "control tp=4", "rrms_vs_tp1": control})
+    qstate = quantize_state_dict(state)
+    del base, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    qbase = LlamaForCausalLM.from_state_dict(cfg, qstate)
+    for tp in (1, 4):
+        last, toks, counts, seconds = _rank_run(cfg, qstate, tp, prompt,
+                                                TP_STEPS)
+        check(f"int8 tp={tp}", tp, True, last, toks, counts, seconds, qbase)
+    del qbase, qstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernels_line(ctx):
     cuda_dir = "scalable_hw_agnostic_inference_tpu_torch/csrc"
     pallas = f"{TPU_PKG}/ops/pallas"
@@ -9181,6 +9723,25 @@ def kernels_line(ctx):
         **{k: mixed[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "decode_alone_ms", "chunk_alone_ms")}}
+    # one tensor-parallel rank's shapes (TP_PLANS): B1 at the rank-local
+    # prefill, B2 and B3 at the B=8 decode shape, B4 at the per-rank
+    # projection widths; B1's, B2's and B4's launches in tp_plan's
+    # rank-local forward (B3's engine path over ranks is not ported)
+    tp_runs = [k for k in ctx["launches"] if k.startswith("tp_plan ")]
+    for i, key in ((0, "flash_ranks"), (1, "paged_ranks"),
+                   (2, "ragged_ranks")):
+        out[i]["ranks"] = {
+            "launches": {k: ctx["launches"][k][out[i]["name"]]
+                         for k in tp_runs},
+            "shapes": [{k: r[k] for k in keys + ("plans",)}
+                       for r in ctx[key]]}
+    for i, inst in ((3, "decode"), (4, "wide")):
+        out[i]["ranks"] = {
+            "launches": {k: ctx["launches"][k][out[i]["name"]]
+                         for k in tp_runs},
+            "shapes": [{k: r[k] for k in keys + ("plans", "max_ulps")}
+                       for r in ctx["int8_ranks"]
+                       if r["instantiation"] == inst]}
     return {"kernels": out}
 
 
@@ -9212,9 +9773,11 @@ def main(argv) -> int:
     ctx = {"timer": Timer(torch)}
     funcs = {name: globals()["phase_" + name] for name in PHASES}
     failed = []
+    unwatch = _watch_engines(ctx)
     t_all = time.monotonic()
     for name in phases:
         t0 = time.monotonic()
+        ctx["phase"] = name
         log(f"== {name}")
         try:
             funcs[name](ctx)
@@ -9225,6 +9788,8 @@ def main(argv) -> int:
         log(f"== {name}: {'FAILED' if name in failed else 'ok'} "
             f"({time.monotonic() - t0:.1f} s)")
     log(f"total {time.monotonic() - t_all:.1f} s")
+    unwatch()
+    log("hbm gate, every engine built: " + json.dumps(ctx.get("gate", [])))
     if "seeded_1b" in ctx:
         shutil.rmtree(ctx["seeded_1b"].parent, ignore_errors=True)
     if failed:

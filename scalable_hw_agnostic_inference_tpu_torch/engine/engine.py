@@ -21,8 +21,10 @@ logprob entries, recompute preemption (``_preempt_lowest``, keyed on
 flush), the weighted-fair dequeue under ``SHAI_QOS``
 (``resilience.qos.schedule_rotate``), the step records, pad accounting and
 latency histograms ``/metrics`` reads, ``n_executables`` and
-``generate``; ``warm_executables`` lives in ``engine/warm.py``, the
-logprob entries in ``engine/logprobs.py``.
+``generate``, and the boot HBM gate (``:79-92``: ``core.budget.
+causal_lm_budget(...).check()`` before any allocation, on the card or
+under ``SHAI_ENFORCE_HBM=1``); ``warm_executables`` lives in
+``engine/warm.py``, the logprob entries in ``engine/logprobs.py``.
 
 A fixed slot batch (``max_num_seqs``) is decoded by one call per step; at
 most one prefill group is admitted per step; paged KV with optimistic
@@ -197,6 +199,7 @@ import numpy as np
 import torch
 
 from ..core.bucketing import BucketRegistry
+from ..core.budget import HbmBudget, causal_lm_budget, detect_hbm_gib
 from ..core.device import DeviceLike, resolve_device
 from ..kvnet import directory as _kvdir
 from ..kvnet import resolve_role
@@ -288,6 +291,16 @@ class LLMEngine:
         if n_cross and not cross_seq_len:
             raise ValueError("mllama config needs cross_seq_len (Lv)")
         self.device = resolve_device(device)
+        # the boot HBM gate (the reference's engine.py:79-92): on the card
+        # an over-budget geometry refuses to boot here, with the breakdown,
+        # before the KV pool or any other allocation, instead of failing in
+        # warmup. CPU runs skip unless SHAI_ENFORCE_HBM=1 opts in
+        self.hbm_budget: Optional[HbmBudget] = None
+        if (self.device.type == "cuda"
+                or env_bool("SHAI_ENFORCE_HBM", False)):
+            self.hbm_budget = causal_lm_budget(
+                model_cfg, ecfg, cross_seq_len=cross_seq_len,
+                hbm_gib_per_chip=detect_hbm_gib(self.device)).check()
         if model.device != self.device:
             raise ValueError(f"model weights are on {model.device}, the "
                              f"engine runs on {self.device}")

@@ -13,7 +13,8 @@ text-only, both the static-start ladder and ``ragged=True``),
 ``token_logprobs`` (``:129``, the per-token logprob readout) and their
 helpers ``_rmsnorm``,
 ``_qkv``, ``_mlp``, ``_scatter_blocks``, ``_pool_scales``,
-``_ragged_pool_attention`` and ``_logits``. The runner reads the weights of
+``_ragged_pool_attention`` and ``_logits``; and ``EngineShardings``
+(``:37``), the tensor-parallel plan. The runner reads the weights of
 ``models.llama.LlamaForCausalLM``, so one set of weights serves the scoring
 forward and the engine.
 
@@ -65,7 +66,13 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from ..models.llama import LlamaConfig, LlamaForCausalLM
+from ..models.llama import (
+    LlamaConfig,
+    LlamaForCausalLM,
+    _weight_shapes,
+    cache_specs,
+    tp_rules,
+)
 from ..ops.attention import (
     dot_product_attention,
     mixed_phase_ragged_attention,
@@ -90,9 +97,68 @@ from ..ops.sampling import (
     sample_logits,
     sampling_probs,
 )
+from ..parallel.sharding import ShardSpec, shard_shape
 from .types import K_LOGPROBS
 
 KVPool = List[Dict[str, torch.Tensor]]
+
+
+class EngineShardings:
+    """The tensor-parallel plan of the engine (the reference's
+    ``EngineShardings``, ``runner.py:37``): ``tp``, one rank's head counts
+    and widths, the rule table over the weights (``models.llama.
+    tp_rules``) and the KV pool's split on its kv-head dim
+    (``cache_specs``; an int8 pool's ``[N, Hkv]`` scales split on dim 1).
+    The reference turns the plan into ``NamedSharding``s and XLA inserts
+    the collectives; here the rank-local modules (``models.llama``, a
+    ``group`` of ``tp`` ranks) read the same numbers, and so do the
+    per-rank kernel shapes that ``chip_smoke.py`` times. The engine itself
+    still refuses ``tensor_parallel_size > 1`` (``engine._unsupported``).
+    """
+
+    def __init__(self, cfg: LlamaConfig, tp: int):
+        # fail loudly at construction: a GQA config whose head counts don't
+        # divide tp would otherwise surface as a shape error deep inside
+        # the first call
+        if cfg.n_kv_heads % tp or cfg.n_heads % tp:
+            raise ValueError(
+                f"tensor_parallel_size={tp} must divide both n_heads="
+                f"{cfg.n_heads} and n_kv_heads={cfg.n_kv_heads}. For GQA "
+                f"models with tp > n_kv_heads (the reference's 70B TP=32 "
+                f"tier), widen the kv heads first with "
+                f"models.llama.replicate_kv_heads(state, cfg, tp)")
+        self.cfg, self.tp = cfg, tp
+        self.n_heads = cfg.n_heads // tp
+        self.n_kv_heads = cfg.n_kv_heads // tp
+        self.head_dim = cfg.head_dim
+        self.rules = tp_rules()
+        self.kv_layer = cache_specs(cfg, tp)
+        self.kv_scale = ShardSpec(1)
+
+    def weight_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """One rank's shape of every weight of the state dict (bf16 names;
+        an int8 ``weight_q`` has its weight's shape); a split that ``tp``
+        does not divide raises."""
+        return {name: shard_shape(name, shape,
+                                  self.rules.spec_for(name, len(shape)),
+                                  self.tp)
+                for name, shape in _weight_shapes(self.cfg).items()}
+
+    def projection_shapes(self) -> Dict[str, Tuple[int, int]]:
+        """``{projection: (N, K)}`` of one rank, the ``[out, in]`` of a
+        self-attention layer's q, k, v, o, gate, up, down and of the
+        ``lm_head`` (a tied head's is the embedding's ``[vocab, dim /
+        tp]``, contracted over the rank's features)."""
+        shapes = self.weight_shapes()
+        i = next(i for i in range(self.cfg.n_layers)
+                 if i not in self.cfg.cross_attention_layers)
+        out = {p: shapes[f"layers.{i}.attn.{p}.weight"]
+               for p in ("q", "k", "v", "o")}
+        out.update({p: shapes[f"layers.{i}.mlp.{p}.weight"]
+                    for p in ("gate", "up", "down")})
+        out["lm_head"] = shapes.get("lm_head.weight",
+                                    shapes["embed.weight"])
+        return out
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

@@ -4,9 +4,9 @@ Port of ``scalable_hw_agnostic_inference_tpu/models/flux.py``
 (``FluxConfig``, ``rope_freqs``, ``apply_rope_2d``, ``timestep_embedding``,
 ``MLPEmbedder``, ``QKNorm``, ``modulation``, ``DoubleBlock``,
 ``SingleBlock``, ``FluxTransformer``, ``patchify``, ``unpatchify``,
-``make_ids``, ``bfl_from_diffusers``, ``params_from_torch``). The
-reference's tensor-parallel rules (``tp_rules``) are not here: they belong
-to tensor parallelism (ROADMAP A7).
+``make_ids``, ``bfl_from_diffusers``, ``params_from_torch``) and the
+tensor-parallel rules table (``tp_rules``) over this module's names; the
+transformer over several ranks comes with the units over several devices.
 
 Patchified latents and T5 sequence conditioning pass through joint
 (double) blocks, where the text and image streams attend together, then
@@ -40,6 +40,12 @@ from torch.nn import functional as F
 
 from ..core.device import DeviceLike, resolve_device
 from ..ops.attention import dot_product_attention
+from ..parallel.sharding import (
+    ShardingRules,
+    column_parallel,
+    replicated,
+    row_parallel,
+)
 from .encoder import Dense, param, seeded_init_, state_from_flax
 
 #: flax's LayerNorm epsilon (the reference's affine-free norms)
@@ -506,6 +512,25 @@ def state_from_bfl(get: Callable[[str], torch.Tensor], cfg: FluxConfig,
             raise ValueError(f"Flux checkpoint has no {src!r} "
                              f"(for {name})") from None
     return out
+
+
+def tp_rules() -> ShardingRules:
+    """The reference's ``tp_rules`` (``flux.py:312``) rule for rule over
+    this module's names (``[out, in]`` weights: column-parallel splits dim
+    0, row-parallel dim 1): the fused qkv and the first MLP half split on
+    their outputs, the attention projection and the second half on their
+    inputs; the embedders, biases and the rest replicated."""
+    return ShardingRules([
+        (r"(img|txt)_qkv\.weight", column_parallel()),
+        (r"(img|txt)_proj\.weight", row_parallel()),
+        (r"(img|txt)_mlp1\.weight", column_parallel()),
+        (r"(img|txt)_mlp2\.weight", row_parallel()),
+        (r"single_\d+\.linear1\.weight", column_parallel()),
+        (r"single_\d+\.linear2\.weight", row_parallel()),
+        (r"(time_in|vector_in|guidance_in)\.(in|out)_layer\.weight",
+         replicated()),
+        (r".*", replicated()),
+    ])
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

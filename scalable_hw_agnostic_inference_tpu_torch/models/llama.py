@@ -9,7 +9,23 @@ int8 weight-only projections (``quant=True``, ``:167-176,:271``, as
 ``quant``), and the dense-cache path of ``make_generate`` (the
 ``layer_cache``/``write_index`` branch, ``:186-226``, with ``init_cache``,
 ``:314``): a :class:`DenseCache` of ``[B, n_slots, Hkv, D]`` slots per
-layer. Tensor parallelism comes in a later slice.
+layer.
+
+Tensor parallelism (the reference's ``tp_rules``, ``cache_specs`` and
+``replicate_kv_heads``, ``:346,:373,:487``): :func:`tp_rules` is the plan
+over this module's state-dict names, and every module takes an optional
+``group``: an object with ``size``, ``rank``, ``all_reduce(t)`` and
+``all_gather(t, dim)`` (``parallel.loopback.LoopbackGroup``, or one over
+a ``torch.distributed`` group). Built with a group of ``tp`` ranks, a
+module holds one rank's slices (``parallel.sharding.shard_state_dict``)
+and calls the collectives that XLA inserts in the reference: the
+embedding is split on features and its rows are gathered; ``o`` and
+``down`` end in an all-reduce of their partial sums; an untied
+``lm_head`` is split on the vocabulary and its logits gathered, a tied one
+contracts over the rank's feature slice and its partial logits are
+all-reduced. Per rank: ``n_heads // tp`` query heads, ``n_kv_heads // tp``
+kv heads and ``mlp_dim // tp`` MLP columns, at the full config's
+``head_dim``. ``group`` None is the one-device model.
 
 The dense cache departs from the reference's layout in one way. The
 reference writes decode step ``t`` at slot ``Tp + t`` for every row and
@@ -43,6 +59,7 @@ kernels, quantized ones included.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -55,6 +72,13 @@ from ..ops.cuda.paged_attention import paged_decode_attention
 from ..ops.norms import RMSNorm, rms_norm
 from ..ops.quant import _is_quant_node, quant_matmul
 from ..ops.rope import apply_rope
+from ..parallel.sharding import (
+    ShardingRules,
+    ShardSpec,
+    column_parallel,
+    replicated,
+    row_parallel,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,18 +224,36 @@ def _linear(n_in: int, n_out: int, dtype, device,
     return nn.Linear(n_in, n_out, bias=False, dtype=dtype, device=device)
 
 
+def group_size(group) -> int:
+    return 1 if group is None else group.size
+
+
+def rank_heads(cfg: LlamaConfig, tp: int) -> Tuple[int, int]:
+    """One rank's ``(n_heads, n_kv_heads)`` at ``tp``; a count that ``tp``
+    does not divide raises (widen the kv heads first:
+    :func:`replicate_kv_heads`)."""
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide n_heads={cfg.n_heads} and n_kv_heads="
+            f"{cfg.n_kv_heads}; widen the kv heads first with "
+            f"models.llama.replicate_kv_heads(state, cfg, tp)")
+    return cfg.n_heads // tp, cfg.n_kv_heads // tp
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
                  param_dtype=torch.float32, device=None,
-                 quantized: bool = False):
+                 quantized: bool = False, group=None):
         super().__init__()
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.group = cfg, dtype, group
+        # head_dim is the full config's: dim // n_heads, not the rank's
         hd = cfg.head_dim
+        self.n_heads, self.n_kv_heads = rank_heads(cfg, group_size(group))
         args = (param_dtype, device, quantized)
-        self.q = _linear(cfg.dim, cfg.n_heads * hd, *args)
-        self.k = _linear(cfg.dim, cfg.n_kv_heads * hd, *args)
-        self.v = _linear(cfg.dim, cfg.n_kv_heads * hd, *args)
-        self.o = _linear(cfg.n_heads * hd, cfg.dim, *args)
+        self.q = _linear(cfg.dim, self.n_heads * hd, *args)
+        self.k = _linear(cfg.dim, self.n_kv_heads * hd, *args)
+        self.v = _linear(cfg.dim, self.n_kv_heads * hd, *args)
+        self.o = _linear(self.n_heads * hd, cfg.dim, *args)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 kv: Optional["DenseLayer"] = None,
@@ -222,14 +264,15 @@ class LlamaAttention(nn.Module):
         ``write_pos`` None is the prefill, its ``T`` keys written at slots
         ``[0, T)`` and attended causally up to ``lengths [B]`` (B1);
         ``write_pos [B]`` is a decode step of one token a row, written at
-        that slot and attending slots ``[0, write_pos]`` (B2)."""
+        that slot and attending slots ``[0, write_pos]`` (B2). Under a
+        group the heads are the rank's and the output is all-reduced."""
         cfg = self.cfg
         B, T, _ = x.shape
-        hd = cfg.head_dim
+        hd, H, Hkv = cfg.head_dim, self.n_heads, self.n_kv_heads
         x = x.to(self.dtype)
-        q = quant_matmul(x, self.q).reshape(B, T, cfg.n_heads, hd)
-        k = quant_matmul(x, self.k).reshape(B, T, cfg.n_kv_heads, hd)
-        v = quant_matmul(x, self.v).reshape(B, T, cfg.n_kv_heads, hd)
+        q = quant_matmul(x, self.q).reshape(B, T, H, hd)
+        k = quant_matmul(x, self.k).reshape(B, T, Hkv, hd)
+        v = quant_matmul(x, self.v).reshape(B, T, Hkv, hd)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
         if kv is None:
@@ -248,36 +291,42 @@ class LlamaAttention(nn.Module):
             lens = (write_pos + 1).to(torch.int32)
             o = paged_decode_attention(q[:, 0], kp, vp, kv.tables,
                                        lens)[:, None]
-        return quant_matmul(o.reshape(B, T, cfg.n_heads * hd), self.o)
+        out = quant_matmul(o.reshape(B, T, H * hd), self.o)
+        return out if self.group is None else self.group.all_reduce(out)
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
                  param_dtype=torch.float32, device=None,
-                 quantized: bool = False):
+                 quantized: bool = False, group=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.group = dtype, group
+        tp = group_size(group)
+        if cfg.mlp_dim % tp:
+            raise ValueError(f"tp={tp} must divide mlp_dim={cfg.mlp_dim}")
         args = (param_dtype, device, quantized)
-        self.gate = _linear(cfg.dim, cfg.mlp_dim, *args)
-        self.up = _linear(cfg.dim, cfg.mlp_dim, *args)
-        self.down = _linear(cfg.mlp_dim, cfg.dim, *args)
+        self.gate = _linear(cfg.dim, cfg.mlp_dim // tp, *args)
+        self.up = _linear(cfg.dim, cfg.mlp_dim // tp, *args)
+        self.down = _linear(cfg.mlp_dim // tp, cfg.dim, *args)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         gate = quant_matmul(x, self.gate)
         up = quant_matmul(x, self.up)
-        return quant_matmul(nn.functional.silu(gate) * up, self.down)
+        out = quant_matmul(nn.functional.silu(gate) * up, self.down)
+        return out if self.group is None else self.group.all_reduce(out)
 
 
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
                  param_dtype=torch.float32, device=None,
-                 quantized: bool = False):
+                 quantized: bool = False, group=None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.dim, cfg.rms_eps, dtype, device=device)
-        self.attn = LlamaAttention(cfg, dtype, param_dtype, device, quantized)
+        self.attn = LlamaAttention(cfg, dtype, param_dtype, device, quantized,
+                                   group)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.rms_eps, dtype, device=device)
-        self.mlp = LlamaMLP(cfg, dtype, param_dtype, device, quantized)
+        self.mlp = LlamaMLP(cfg, dtype, param_dtype, device, quantized, group)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 kv: Optional["DenseLayer"] = None,
@@ -377,43 +426,60 @@ class LlamaForCausalLM(nn.Module):
     quantization predicate names as a :class:`QuantLinear` (the
     reference's ``quant=True``); the embedding, the norms and a tied
     ``lm_head`` stay as they are. The paged engine (``engine.runner``)
-    reads these same weights.
+    reads these same weights. ``group``: one rank of the tensor-parallel
+    plan (the module docstring); mllama's cross layers have no rank-local
+    forward yet, so a group refuses an mllama config.
     """
 
     def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
                  param_dtype=torch.float32, device: DeviceLike = None,
-                 quantized: bool = False, embed_rows: Optional[int] = None):
+                 quantized: bool = False, embed_rows: Optional[int] = None,
+                 group=None):
         super().__init__()
         # the card unless the caller asks for the CPU; "meta" builds no
         # storage (from_state_dict)
         if str(device) != "meta":
             device = resolve_device(device)
+        tp = group_size(group)
+        if group is not None and cfg.cross_attention_layers:
+            raise ValueError("the rank-local forward of mllama's cross "
+                             "layers is not ported yet")
+        if cfg.dim % tp:
+            raise ValueError(f"tp={tp} must divide dim={cfg.dim}")
         self.cfg, self.dtype, self.quantized = cfg, dtype, quantized
+        self.group = group
         # embed_rows: an HF mllama embedding's rows (vocab + 8 image
-        # tokens); the logits stay vocab_size wide (an untied lm_head)
-        self.embed = nn.Embedding(embed_rows or cfg.vocab_size, cfg.dim,
+        # tokens); the logits stay vocab_size wide (an untied lm_head).
+        # Under a group the table is split on features
+        self.embed = nn.Embedding(embed_rows or cfg.vocab_size, cfg.dim // tp,
                                   dtype=param_dtype, device=device)
         cross = set(cfg.cross_attention_layers)
         self.layers = nn.ModuleList(
-            (LlamaCrossBlock if i in cross else LlamaBlock)(
-                cfg, dtype, param_dtype, device, quantized)
+            LlamaCrossBlock(cfg, dtype, param_dtype, device, quantized)
+            if i in cross else
+            LlamaBlock(cfg, dtype, param_dtype, device, quantized, group)
             for i in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.rms_eps, dtype, device=device)
+        if not cfg.tie_embeddings and cfg.vocab_size % tp:
+            raise ValueError(f"tp={tp} must divide vocab_size="
+                             f"{cfg.vocab_size}")
         self.lm_head = (None if cfg.tie_embeddings else
-                        _linear(cfg.dim, cfg.vocab_size, param_dtype, device,
-                                quantized))
+                        _linear(cfg.dim, cfg.vocab_size // tp, param_dtype,
+                                device, quantized))
 
     @classmethod
     def from_state_dict(cls, cfg: LlamaConfig, state: Dict[str, torch.Tensor],
-                        dtype=torch.bfloat16) -> "LlamaForCausalLM":
+                        dtype=torch.bfloat16, group=None
+                        ) -> "LlamaForCausalLM":
         """Wrap existing weights without allocating (or initialising) a
         second copy: the module is built on the meta device and the
         tensors are assigned in place. A state dict with ``*.weight_q``
         entries (``ops.quant.quantize_state_dict``) builds the int8
-        model."""
+        model; under ``group``, ``state`` is the rank's shard
+        (``parallel.sharding.shard_state_dict`` over :func:`tp_rules`)."""
         quantized = any(k.endswith(".weight_q") for k in state)
         model = cls(cfg, dtype=dtype, device="meta", quantized=quantized,
-                    embed_rows=state["embed.weight"].shape[0])
+                    embed_rows=state["embed.weight"].shape[0], group=group)
         model.load_state_dict(state, assign=True, strict=True)
         return model
 
@@ -446,7 +512,10 @@ class LlamaForCausalLM(nn.Module):
             raise ValueError(
                 "mllama configs (cross_attention_layers) run through the "
                 "paged engine, not the dense-cache path")
+        group = self.group
         x = self.embed.weight.to(self.dtype)[ids]
+        if group is not None:
+            x = group.all_gather(x, dim=-1)
         if prefix is not None:
             x = torch.cat([prefix.to(x.device, self.dtype), x], dim=1)
         B, T = x.shape[:2]
@@ -467,10 +536,17 @@ class LlamaForCausalLM(nn.Module):
                       lengths, write_pos)
         x = self.final_norm(x)
         if self.lm_head is None:
-            # flax Embed.attend promotes both operands to the compute dtype
-            logits = quant_matmul(x, self.embed)
-        else:
-            logits = quant_matmul(x, self.lm_head)
+            # flax Embed.attend promotes both operands to the compute dtype.
+            # Under a group the table holds the rank's feature slice, so
+            # its logits are partial sums over the features
+            if group is None:
+                return quant_matmul(x, self.embed).float()
+            width = self.embed.weight.shape[1]
+            xr = x[..., group.rank * width:(group.rank + 1) * width]
+            return group.all_reduce(quant_matmul(xr, self.embed)).float()
+        logits = quant_matmul(x, self.lm_head)
+        if group is not None:
+            logits = group.all_gather(logits, dim=-1)
         return logits.float()
 
 
@@ -519,14 +595,15 @@ class DenseCache:
 
 
 def init_cache(cfg: LlamaConfig, batch: int, seq: int,
-               dtype=torch.bfloat16, device: DeviceLike = None
-               ) -> DenseCache:
+               dtype=torch.bfloat16, device: DeviceLike = None,
+               group=None) -> DenseCache:
     """``seq`` slots a row and layer (rounded up to a multiple of
     :data:`DENSE_BLOCK`), zeros, on ``device`` (the card unless the caller
-    asks for the CPU)."""
+    asks for the CPU); under ``group`` the rank's ``n_kv_heads // tp``
+    heads (the reference's ``cache_specs`` split)."""
     device = resolve_device(device)
     n = -(-seq // DENSE_BLOCK) * DENSE_BLOCK
-    shape = (batch, n, cfg.n_kv_heads, cfg.head_dim)
+    shape = (batch, n, rank_heads(cfg, group_size(group))[1], cfg.head_dim)
     per_row = n // DENSE_BLOCK
     tables = (torch.arange(batch, dtype=torch.int32, device=device)[:, None]
               * per_row + torch.arange(per_row, dtype=torch.int32,
@@ -537,6 +614,77 @@ def init_cache(cfg: LlamaConfig, batch: int, seq: int,
         [torch.zeros(shape, dtype=dtype, device=device)
          for _ in range(cfg.n_layers)],
         tables.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the plan over the state dict's names
+# ---------------------------------------------------------------------------
+
+
+def tp_rules() -> ShardingRules:
+    """The TP plan (the reference's ``tp_rules``, ``llama.py:346``, rule for
+    rule over this module's names): attention heads and MLP columns split.
+    q/k/v and gate/up are column-parallel (dim 0 of ``[out, in]``), o and
+    down row-parallel (dim 1; their partial sums all-reduced). The
+    embedding ``[vocab, dim]`` splits its features, so a token's lookup
+    stays local; ``lm_head`` splits the vocabulary. ``weight`` patterns
+    match ``weight_q`` too (search semantics), so the int8 weight shards
+    like its float original; its ``[out]`` scale splits with
+    column-parallel outputs and stays whole after row-parallel ones (no
+    rule: replicated). ``attn`` patterns match mllama's ``cross_attn`` as
+    the reference's do."""
+    return ShardingRules([
+        (r"^embed\.weight", ShardSpec(1)),
+        (r"attn\.(q|k|v)\.weight", column_parallel()),
+        (r"attn\.(q|k|v)\.scale", column_parallel()),
+        (r"attn\.o\.weight", row_parallel()),
+        (r"mlp\.(gate|up)\.weight", column_parallel()),
+        (r"mlp\.(gate|up)\.scale", column_parallel()),
+        (r"mlp\.down\.weight", row_parallel()),
+        (r"lm_head\.weight", column_parallel()),
+        (r"lm_head\.scale", column_parallel()),
+        (r"norm\.scale", replicated()),
+    ])
+
+
+def cache_specs(cfg: LlamaConfig, tp: int = 1) -> Dict[str, ShardSpec]:
+    """The KV cache (``[..., slots, Hkv, D]``: a dense cache's ``[B, n,
+    Hkv, D]``, the paged pool's ``[N, bs, Hkv, D]``) split on its kv-head
+    dim 2 when ``tp`` divides the kv heads, else replicated (the
+    reference's ``cache_specs``, ``llama.py:373``)."""
+    spec = (ShardSpec(2) if tp > 1 and cfg.n_kv_heads % tp == 0
+            else replicated())
+    return {"k": spec, "v": spec}
+
+
+def replicate_kv_heads(state: Dict[str, torch.Tensor], cfg: LlamaConfig,
+                       tp: int
+                       ) -> Tuple[Dict[str, torch.Tensor], LlamaConfig]:
+    """Widen GQA kv heads to ``tp`` by weight-side replication (the
+    reference's ``replicate_kv_heads``, ``llama.py:487``): each kv head's
+    ``head_dim`` rows of ``k``/``v`` (dim 0 of ``[out, in]``; ``weight_q``
+    and its ``[out]`` scale alike, an mllama ``cross_attn``'s too) repeated
+    ``tp // n_kv_heads`` times in place, so query head ``h`` of a rank
+    reads a copy of its original group head. A no-op (the same objects)
+    for ``tp <= n_kv_heads``; raises unless ``tp`` is a multiple of the kv
+    heads and divides the query heads. Returns ``(new_state, new_cfg)``
+    with ``n_kv_heads == tp``."""
+    if tp <= cfg.n_kv_heads:
+        return state, cfg
+    if tp % cfg.n_kv_heads or cfg.n_heads % tp:
+        raise ValueError(
+            f"tp={tp} must be a multiple of n_kv_heads={cfg.n_kv_heads} and "
+            f"divide n_heads={cfg.n_heads} for replicated-GQA TP")
+    g, hd = tp // cfg.n_kv_heads, cfg.head_dim
+    kv = re.compile(r"attn\.(k|v)\.(weight|weight_q|scale)$")
+
+    def widen(t: torch.Tensor) -> torch.Tensor:
+        m = t.reshape(cfg.n_kv_heads, hd, *t.shape[1:])
+        return m.repeat_interleave(g, dim=0).reshape(tp * hd, *t.shape[1:])
+
+    out = {name: widen(t) if kv.search(name) else t
+           for name, t in state.items()}
+    return out, dataclasses.replace(cfg, n_kv_heads=tp)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,9 @@ embeddings unit.
 
 Port of ``scalable_hw_agnostic_inference_tpu/models/t5.py`` (``T5Config``,
 ``relative_position_bucket``, ``T5Attention``, ``T5RMSNorm``, ``T5FF``,
-``T5Encoder``, ``mean_pool``, ``params_from_torch``). The reference's
-tensor-parallel rules (``tp_rules``) belong to tensor parallelism
-(ROADMAP A7).
+``T5Encoder``, ``mean_pool``, ``params_from_torch``) and the
+tensor-parallel rules table (``tp_rules``) over this module's names; the
+encoder over several ranks comes with the units over several devices.
 
 T5's specifics: no ``1/sqrt(d)`` scaling of the scores, a relative
 position bias computed once from block 0's table and shared by every
@@ -36,6 +36,13 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core.device import DeviceLike, resolve_device
+from ..parallel.sharding import (
+    ShardingRules,
+    ShardSpec,
+    column_parallel,
+    replicated,
+    row_parallel,
+)
 from .encoder import Dense, param, state_from_flax
 
 NEG_INF = -1e30
@@ -280,6 +287,23 @@ def state_from_hf(get: Callable[[str], torch.Tensor], keys,
             raise ValueError(f"T5 checkpoint has no {src!r} (for {name})")
         out[name] = get(src)
     return out
+
+
+def tp_rules() -> ShardingRules:
+    """The reference's ``tp_rules`` (``t5.py:175``, its
+    ``shard_t5_attention``/``shard_t5_ff`` as a table) rule for rule over
+    this module's names (``[out, in]`` weights): q/k/v and the gated FF's
+    inputs split on their outputs, o and ``wo`` on their inputs; the bare
+    ``embed`` table ``[vocab, dim]`` on its features; the rest
+    replicated."""
+    return ShardingRules([
+        (r"attn\.(q|k|v)\.weight", column_parallel()),
+        (r"attn\.o\.weight", row_parallel()),
+        (r"ff\.(wi_0|wi_1)\.weight", column_parallel()),
+        (r"ff\.wo\.weight", row_parallel()),
+        (r"^embed$", ShardSpec(1)),
+        (r".*", replicated()),
+    ])
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -61,6 +61,7 @@ ENTRY_POINTS = {
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 #: seconds the last build took (0.0 when the library was already built)
 last_build_seconds = 0.0
 
@@ -175,3 +176,11 @@ def check(err: int, what: str) -> None:
     if err:
         msg = library().shai_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def count(wrapper, attr: str = "launches") -> None:
+    """Add one to a kernel wrapper's launch counter, under a lock: the
+    ranks of one model may run as threads (``parallel.loopback``), and
+    ``+=`` on an attribute is not atomic across threads."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)

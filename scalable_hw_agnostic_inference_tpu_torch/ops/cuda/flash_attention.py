@@ -129,7 +129,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         lens_ptr = lengths.data_ptr()
     out = torch.empty_like(q)
     lib = _build.library()
-    flash_attention.launches += 1
+    _build.count(flash_attention)
     err = lib.shai_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens_ptr, out.data_ptr(),
         B, T, S, H, Hkv, D, float(scale), int(bool(causal)), q.device.index,

@@ -253,9 +253,9 @@ def int8_matmul(x: torch.Tensor, weight_q: torch.Tensor,
     counters = _arrival_counters(x.device, stream, n_sms)
     lib = _build.library()
     if plan.wide:
-        int8_matmul.wide_launches += 1
+        _build.count(int8_matmul, "wide_launches")
     else:
-        int8_matmul.launches += 1
+        _build.count(int8_matmul)
     err = lib.shai_int8_matmul(
         x.data_ptr(), weight_q.data_ptr(), scale.data_ptr(), y.data_ptr(),
         None if part is None else part.data_ptr(), counters.data_ptr(),

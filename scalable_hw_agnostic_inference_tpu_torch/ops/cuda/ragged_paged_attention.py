@@ -383,7 +383,7 @@ def _launch(counted, q: torch.Tensor, k_pool: torch.Tensor,
         if merge_in_kernel:
             counters = cnt.data_ptr()
     lib = _build.library()
-    counted.launches += 1
+    _build.count(counted)
     err = lib.shai_ragged_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quantized else None,
@@ -432,7 +432,7 @@ def _launch_groups(counted, q: torch.Tensor, k_pool: torch.Tensor,
     desc = (ctypes.c_int * (3 * len(groups)))(
         *[x for g in groups for x in g])
     lib = _build.library()
-    counted.launches += 1
+    _build.count(counted)
     err = lib.shai_ragged_paged_attention_groups(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quantized else None,
