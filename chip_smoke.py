@@ -58,6 +58,19 @@ Phases:
                 ``TP_RRMS`` of tp=1's with a control outside it, the
                 tokens by the plain deficit rule, B1, B2 (and B4) launches
                 exact a rank;
+  7b. ``tp_engine`` the paged engine over tensor-parallel ranks
+                (``engine/ranks.py``), Llama-3-8B widths and 32 layers,
+                seeded bf16, 8 requests of 5 to 1,300 tokens: (a) tp=1
+                over an NCCL group of one, its decode keys captured as
+                CUDA graphs with the all-reduce inside, tokens exactly the
+                unsharded engine's and B1/B2 launches a replay equal; (b)
+                tp=2 as two processes sharing the card over gloo (NCCL
+                refuses two ranks on one device; eager decode): greedy
+                tokens held to the unsharded engine's by the tie rule at
+                ``TIE_TOL``, then temperature 0.8, both ranks' digests
+                equal and no leaked block; (c) (b) under int8 weights,
+                int8 KV and ragged attention (B3 and B4 at rank shapes),
+                held to the unsharded int8 engine the same way;
   8. ``decode_graph`` one decode step at Llama-3-8B width (32 layers,
                 seeded weights) captured as a CUDA graph
                 (``engine/graphs.py``) at serve's bucketed shape (B=8, a
@@ -380,7 +393,7 @@ import urllib.request
 from pathlib import Path
 
 PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
-          "tp_plan", "decode_graph", "engine", "engine_ragged", "engine_fused",
+          "tp_plan", "tp_engine", "decode_graph", "engine", "engine_ragged", "engine_fused",
           "engine_spec", "engine_int8", "checkpoint", "engine_prefix",
           "engine_mllama", "engine_llava", "serve_disagg", "serve_fleet",
           "serve", "serve_int8", "serve_ragged", "serve_fused",
@@ -9588,6 +9601,205 @@ def _tp_forward(ctx):
     return rows
 
 
+#: tp_engine's requests: prompt lengths (seeded ids), tokens each, the
+#: sampled round's requests (the first two), and the engine geometry (the
+#: engine phases', 8 slots). Two ranks sharing one H100 over gloo take
+#: 0.65-0.90 s a step (each staged collective waits on both processes'
+#: contexts), so the rounds stay short
+TPE_PROMPTS = (5, 37, 120, 300, 512, 700, 1000, 1300)
+TPE_NEW_TOKENS = 8
+TPE_SAMPLED = 2
+TPE_ENGINE = dict(max_model_len=2048, max_num_seqs=8, block_size=16,
+                  context_encoding_buckets=(128, 512),
+                  max_new_tokens=TPE_NEW_TOKENS)
+
+
+def _tpe_drive(eng, prompts, sampled=False):
+    """Every prompt through ``eng`` (greedy with the top-2 logprobs, or
+    temperature 0.8 and top-k 50): the finished requests in order, the
+    launch counts, the seconds and the steps."""
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.engine.engine import (
+        SamplingParams,
+    )
+
+    params = (SamplingParams(temperature=0.8, top_k=50,
+                             max_new_tokens=TPE_NEW_TOKENS) if sampled else
+              SamplingParams(temperature=0.0, logprobs=2,
+                             max_new_tokens=TPE_NEW_TOKENS))
+    steps0 = eng._step_count
+    _reset_counters()
+    t0 = time.monotonic()
+    ids = [eng.add_request(p, params) for p in prompts]
+    done = {}
+    while set(ids) - set(done):
+        for f in eng.step():
+            done[f.req_id] = f
+    eng.finish_pending()
+    torch.cuda.synchronize()
+    fins = [done[i] for i in ids]
+    if any(len(f.token_ids) != TPE_NEW_TOKENS for f in fins):
+        raise AssertionError("a request ended short")
+    return (fins, _read_counters(), time.monotonic() - t0,
+            eng._step_count - steps0)
+
+
+def _tpe_line(what, fins, counts, seconds, steps, **extra):
+    line = {"what": what, "seconds": seconds, "steps": steps,
+            "launches": counts,
+            "launches_a_step": {k: v / steps for k, v in counts.items() if v},
+            **extra}
+    log("tp_engine: " + json.dumps(line))
+    return line
+
+
+def phase_tp_engine(ctx):
+    """The paged engine over tensor-parallel ranks on one card (module
+    docstring, 7b): (a) an NCCL group of one, captured, against the
+    unsharded engine; (b) two gloo ranks sharing the card; (c) (b) under
+    int8 weights, int8 KV and ragged attention. Each part frees its
+    engines before the next."""
+    import tempfile
+
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.engine import ranks
+    from scalable_hw_agnostic_inference_tpu_torch.engine.config import (
+        EngineConfig,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.engine.engine import (
+        LLMEngine,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.parallel.distributed import (
+        init_group,
+    )
+
+    t_phase = time.monotonic()
+    out = ctx["tp_engine"] = {}
+    cfg, model = _engine_model(ctx)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in TPE_PROMPTS]
+    one = EngineConfig(**TPE_ENGINE)
+    two = EngineConfig(**dict(TPE_ENGINE, tensor_parallel_size=2))
+    base = {"SHAI_RAGGED_ATTENTION": "0", "SHAI_KV_QUANT": "",
+            "SHAI_ASYNC_DECODE": "1", "SHAI_FUSED_STEP": "0"}
+
+    # (a) tp=1 through the sharded code over an NCCL group of one
+    with _env(base):
+        t0 = time.monotonic()
+        plain = LLMEngine(cfg, model, one, device="cuda")
+        plain.warm_executables()
+        want, counts, seconds, steps = _tpe_drive(plain, prompts)
+        per_replay = {g.key: g.launches for g in plain.graphs()}
+        ctx.setdefault("launches", {})["tp_engine unsharded"] = counts
+        out["unsharded"] = _tpe_line("unsharded", want, counts, seconds,
+                                     steps, warm_s=time.monotonic() - t0
+                                     - seconds)
+        del plain
+        gc.collect()
+        tmp = tempfile.mkdtemp(prefix="shai-tp1-")
+        group = init_group(1, 0, os.path.join(tmp, "store"), "nccl",
+                           "cuda:0")
+        try:
+            t0 = time.monotonic()
+            eng = ranks.rank_engine(cfg, dict(model.state_dict()), one,
+                                    group, "cuda")
+            eng.warm_executables()
+            graphs = eng.graphs()
+            n_graphs = len(graphs)
+            if not graphs or not all(g.captured for g in graphs):
+                raise AssertionError("tp_engine (a): decode keys not "
+                                     "captured over the NCCL group")
+            got, counts, seconds, steps = _tpe_drive(eng, prompts)
+            mine = {g.key: g.launches for g in graphs}
+            eng.close()
+            leaked, checks = eng.cache.leaked_blocks, eng.mirror.checks
+            # the graphs go before the communicator they captured
+            del eng, graphs
+            gc.collect()
+            torch.cuda.synchronize()
+        finally:
+            group.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+    if [f.token_ids for f in got] != [f.token_ids for f in want]:
+        raise AssertionError("tp_engine (a): tokens differ from the "
+                             "unsharded engine's")
+    if mine != per_replay or counts != ctx["launches"][
+            "tp_engine unsharded"]:
+        raise AssertionError(f"tp_engine (a): launches a replay {mine} / "
+                             f"{per_replay}, in all {counts}")
+    ctx["launches"]["tp_engine (a)"] = counts
+    out["a"] = _tpe_line("(a) nccl tp=1", got, counts, seconds, steps,
+                         graphs=n_graphs, per_replay=sorted(
+                             {n for d in mine.values()
+                              for n in d.values()}),
+                         leaked=leaked, digest_checks=checks,
+                         warm_s=time.monotonic() - t0 - seconds)
+    if leaked:
+        raise AssertionError("tp_engine (a): leaked blocks")
+    torch.cuda.empty_cache()
+
+    def two_ranks(what, state, switches, ecfg, reference, key):
+        with _env({**base, **switches}):
+            t0 = time.monotonic()
+            eng = ranks.launch_engine(cfg, state, ecfg, 2, "gloo", "cuda",
+                                      timeout_s=300.0)
+            boot = time.monotonic() - t0
+            try:
+                if eng._graphs.capture_graphs:
+                    raise AssertionError(f"{what}: a gloo rank captured")
+                fins, counts, seconds, steps = _tpe_drive(eng, prompts)
+                gaps = _tie_diverge(fins, reference, tie_gap=TIE_TOL)
+                s_fins, s_counts, s_seconds, s_steps = _tpe_drive(
+                    eng, prompts[:TPE_SAMPLED], sampled=True)
+                leaked = eng.cache.leaked_blocks
+            finally:
+                eng.close()    # the last digest check, the follower ends
+        ctx["launches"][key] = counts
+        equal = sum(f.token_ids == w.token_ids
+                    for f, w in zip(fins, reference))
+        line = _tpe_line(what, fins, counts, seconds, steps, boot_s=boot,
+                         boot=eng.mirror.boot,
+                         equal_requests=equal, tie_gaps=gaps,
+                         sampled_seconds=s_seconds, sampled_steps=s_steps,
+                         leaked=leaked, digest_checks=eng.mirror.checks,
+                         follower_exit=[p.exitcode
+                                        for p in eng.mirror.followers])
+        if leaked or any(p.exitcode for p in eng.mirror.followers):
+            raise AssertionError(f"{what}: leaked {leaked}, followers "
+                                 f"{line['follower_exit']}")
+        return line
+
+    # (b) tp=2: two processes sharing the card, gloo, eager
+    out["b"] = two_ranks("(b) gloo tp=2", dict(model.state_dict()), {},
+                         two, want, "tp_engine (b)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) (b) under int8 weights, int8 KV and ragged attention
+    switches = {"SHAI_KV_QUANT": "int8", "SHAI_RAGGED_ATTENTION": "1"}
+    del model
+    qcfg, qmodel = _int8_model(ctx)
+    with _env({**base, **switches}):
+        plain = LLMEngine(qcfg, qmodel, EngineConfig(
+            **dict(TPE_ENGINE, quantization="int8")), device="cuda")
+        qwant, counts, seconds, steps = _tpe_drive(plain, prompts)
+        out["unsharded int8"] = _tpe_line("unsharded int8", qwant, counts,
+                                          seconds, steps)
+        del plain
+        gc.collect()
+    out["c"] = two_ranks("(c) gloo tp=2 int8", dict(qmodel.state_dict()),
+                         switches, EngineConfig(**dict(
+                             TPE_ENGINE, tensor_parallel_size=2,
+                             quantization="int8")), qwant, "tp_engine (c)")
+    _check_counters("tp_engine (c)", ctx["launches"]["tp_engine (c)"],
+                    {"flash_attention", "ragged_paged_attention",
+                     "int8_matmul", "int8_matmul_wide"})
+    _drop_engine_model(ctx)
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"tp_engine: {out['seconds']:.1f} s")
+
+
 def kernels_line(ctx):
     cuda_dir = "scalable_hw_agnostic_inference_tpu_torch/csrc"
     pallas = f"{TPU_PKG}/ops/pallas"
@@ -9726,7 +9938,7 @@ def kernels_line(ctx):
     # one tensor-parallel rank's shapes (TP_PLANS): B1 at the rank-local
     # prefill, B2 and B3 at the B=8 decode shape, B4 at the per-rank
     # projection widths; B1's, B2's and B4's launches in tp_plan's
-    # rank-local forward (B3's engine path over ranks is not ported)
+    # rank-local forward (the engine's over ranks below)
     tp_runs = [k for k in ctx["launches"] if k.startswith("tp_plan ")]
     for i, key in ((0, "flash_ranks"), (1, "paged_ranks"),
                    (2, "ragged_ranks")):
@@ -9742,6 +9954,13 @@ def kernels_line(ctx):
             "shapes": [{k: r[k] for k in keys + ("plans", "max_ulps")}
                        for r in ctx["int8_ranks"]
                        if r["instantiation"] == inst]}
+    # the paged engine over ranks (tp_engine): rank 0's launches in (a),
+    # the NCCL group of one, captured; (b), two gloo ranks, bf16; (c), the
+    # same under int8 weights, int8 KV and ragged attention
+    parts = ("tp_engine (a)", "tp_engine (b)", "tp_engine (c)")
+    for row in out:
+        row["tp_engine_launches"] = {k: ctx["launches"][k][row["name"]]
+                                     for k in parts}
     return {"kernels": out}
 
 

@@ -19,6 +19,13 @@ pool's addresses. :meth:`PagedKVCache.shrink` rolls back a speculative
 reservation (``cache.py:691``) and counts it (``rollback_tokens``,
 ``rollback_calls``, ``rollback_blocks``).
 
+Over tensor-parallel ranks each rank's engine builds its own cache with
+its ``n_kv_heads / tp`` heads (``EngineShardings.n_kv_heads``; the
+reference's ``kv_layer`` split on dim 2, an int8 pool's ``[N, Hkv]``
+scales on dim 1): the pool is ``[N, bs, Hkv / tp, D]``, the allocator,
+the prefix LRU and the CoW bookkeeping run the same on every rank, and a
+CoW copy copies the rank's slice.
+
 The prefix cache (``enable_prefix_caching``, ``cache.py:193-330``): full
 blocks are content-addressed by a chain hash over their tokens
 (:meth:`PagedKVCache._chain_hashes`, blake2b-64 over little-endian int64

@@ -173,6 +173,22 @@ step and the prefix cache stay off on such an engine, as the reference's
 do; speculative decoding runs through verify's cross tail. A multimodal
 request is not migrated (``migrate_out`` returns None).
 
+Tensor parallelism (the reference's ``mesh``, ``engine.py:93-99``; the
+port runs one process a rank): ``LLMEngine(..., group=g)`` is one rank of
+a ``parallel.distributed.DistGroup`` of ``tensor_parallel_size`` ranks,
+over that rank's model (``models.llama``'s rank-local modules on its
+shard). It builds ``EngineShardings`` (an indivisible head count raises
+here), a pool of the rank's kv heads, and the runner's functions, which
+call the model's collectives. The decode, verify and fused keys are
+captured with their collectives inside over a capturable group (NCCL), and
+run eagerly over gloo. As in the reference a sharded pool keeps the host
+KV tier off (a prefill role then warns that its handoffs carry no KV),
+and the engine migrates nothing; mllama under a group is refused
+(A7.2b). Every rank runs the whole engine, scheduler included; rank 0's
+takes the requests and ``engine.ranks.StepMirror`` (``mirror``) sends its
+calls to the other ranks before they run, with rank 0's clock for each
+step's deadlines.
+
 The soft-prefix VLM (LLaVA; the reference's ``:416-432,843-844,
 1339-1384``): ``add_request(prefix=[P, dim])`` caps the text at the
 largest bucket less P (the tail kept), and the step ladder admits such a
@@ -206,7 +222,12 @@ from ..kvnet import resolve_role
 from ..kvnet.client import KvNetStats
 from ..kvnet.migrate import MigrateStats
 from ..kvtier.pool import maybe_host_tier
-from ..models.llama import LlamaConfig, LlamaForCausalLM
+from ..models.llama import (
+    MLLAMA_RANKS,
+    LlamaConfig,
+    LlamaForCausalLM,
+    group_size,
+)
 from ..obs import sentinel as obs_sentinel
 from ..obs.hbm import HbmLedger
 from ..obs.slo import SloEngine, SloTargets
@@ -237,6 +258,7 @@ from .resident import (
     upload,
 )
 from .runner import (
+    EngineShardings,
     make_cross_kv,
     make_cross_slot_write,
     make_decode,
@@ -265,26 +287,60 @@ def _resolve_async() -> bool:
     return env_bool("SHAI_ASYNC_DECODE", True)
 
 
-def _unsupported(ecfg: EngineConfig) -> List[str]:
-    """EngineConfig features whose ports come in later slices."""
-    out = []
-    if ecfg.tensor_parallel_size != 1:
-        out.append("tensor_parallel_size > 1")
-    return out
+#: the reference's warning when a prefill-role engine has no host tier
+#: to bank its handoffs in (a tensor-parallel engine never has one)
+NO_TIER_PREFILL = (
+    "role=prefill but no host KV tier is configured (need "
+    "enable_prefix_caching + SHAI_KVTIER=1, unsharded pool) — handoffs "
+    "will advertise kv_ready=false and decode peers will recompute")
+
+
+def _check_ranks(ecfg: EngineConfig, group, model_cfg: LlamaConfig,
+                 model: LlamaForCausalLM) -> None:
+    """A tensor-parallel engine runs on one rank of ``group``
+    (``parallel.distributed.DistGroup``), over that rank's model."""
+    if ecfg.tensor_parallel_size != group_size(group):
+        raise ValueError(
+            f"tensor_parallel_size={ecfg.tensor_parallel_size} but the "
+            f"engine's group has {group_size(group)} rank(s): run one "
+            f"engine per rank of a parallel.distributed group of that size "
+            f"(engine.ranks.launch_engine)")
+    if group is not None and model_cfg.cross_attention_layers:
+        raise ValueError(MLLAMA_RANKS)
+    if model.group is not group:
+        raise ValueError("the model's group is not the engine's: build the "
+                         "rank's model over the same group")
 
 
 class LLMEngine:
     """Drive with :meth:`add_request` + :meth:`step`, or offline
     :meth:`generate`. Single-threaded: one engine per pod, the serving
     layer serializes onto it (``engine.loop``). ``device`` defaults to the
-    card; pass ``"cpu"`` to run the plain paths on the CPU."""
+    card; pass ``"cpu"`` to run the plain paths on the CPU.
+
+    ``group``: one rank of a tensor-parallel group
+    (``parallel.distributed.DistGroup`` of ``tensor_parallel_size``
+    ranks), with ``model`` that rank's model (its shard of the weights,
+    built over the same group). Every rank runs its own engine; rank 0's
+    takes the requests and the others mirror its calls (``engine.ranks``,
+    which attaches :attr:`mirror` and launches the ranks)."""
 
     def __init__(self, model_cfg: LlamaConfig, model: LlamaForCausalLM,
                  ecfg: EngineConfig, device: DeviceLike = None,
-                 cross_seq_len: int = 0):
-        bad = _unsupported(ecfg)
-        if bad:
-            raise ValueError(f"not ported yet: {', '.join(bad)}")
+                 cross_seq_len: int = 0, group=None):
+        _check_ranks(ecfg, group, model_cfg, model)
+        self.group = group
+        # the tensor-parallel plan (the reference's engine.py:93-99): the
+        # rank's head counts; an indivisible count raises here
+        self.shardings: Optional[EngineShardings] = (
+            None if group is None
+            else EngineShardings(model_cfg, group.size))
+        #: rank 0's calls mirrored on every rank (engine.ranks.StepMirror);
+        #: None on a one-device engine
+        self.mirror = None
+        # the deadline clock of the current step (a mirrored follower
+        # reads rank 0's)
+        self._now = 0.0
         # mllama: Lv, static per checkpoint (tiles x (patches + 1))
         self.cross_seq_len = cross_seq_len
         n_cross = len(model_cfg.cross_attention_layers)
@@ -330,9 +386,16 @@ class LLMEngine:
         prefix_caching = ecfg.enable_prefix_caching and not n_cross
         # host KV tier (SHAI_KVTIER): eviction and preemption demote blocks
         # to a bounded host-RAM pool, admission misses fall through to it;
-        # it rides the prefix cache (the same chain hashes)
+        # it rides the prefix cache (the same chain hashes), unsharded pools
+        # only: a TP pool's restore would need the per-rank placement the
+        # tier does not carry (the reference's engine.py:139)
         tier = None
-        if prefix_caching:
+        if prefix_caching and self.shardings is not None \
+                and env_bool("SHAI_KVTIER", False):
+            log.warning("SHAI_KVTIER is set but the pool is sharded over "
+                        "%d ranks: the host KV tier stays off",
+                        self.shardings.tp)
+        if prefix_caching and self.shardings is None:
             tier = maybe_host_tier(
                 n_layers=model_cfg.n_layers, block_size=ecfg.block_size,
                 n_kv_heads=model_cfg.n_kv_heads,
@@ -347,14 +410,16 @@ class LLMEngine:
         self.role = resolve_role(ecfg.role)
         self._prefill_role = self.role == "prefill"
         if self._prefill_role and tier is None:
-            log.warning(
-                "role=prefill but no host KV tier is configured (need "
-                "enable_prefix_caching + SHAI_KVTIER=1) — handoffs will "
-                "advertise kv_ready=false and decode peers will recompute")
+            log.warning(NO_TIER_PREFILL)
+        # the rank's head counts (the whole model's without a group)
+        self._heads = ((model_cfg.n_heads, model_cfg.n_kv_heads)
+                       if self.shardings is None else
+                       (self.shardings.n_heads, self.shardings.n_kv_heads))
         # cross layers own no pool entry: the pool spans the self-attention
-        # layers alone
+        # layers alone; under a group it holds the rank's kv heads (the
+        # reference's kv_layer split on dim 2, an int8 pool's scales on 1)
         self.cache = PagedKVCache(
-            model_cfg.n_layers - n_cross, model_cfg.n_kv_heads,
+            model_cfg.n_layers - n_cross, self._heads[1],
             model_cfg.head_dim, ecfg.total_blocks, ecfg.block_size,
             ecfg.blocks_per_seq, dtype=kv_dtype, device=self.device,
             quant=self._kv_quant, enable_prefix_caching=prefix_caching,
@@ -433,9 +498,19 @@ class LLMEngine:
         # the decode graphs' shared memory pool and capture stream, with
         # the split scratch reserved for the largest key of the closed set
         # before any capture (on the CPU: nothing to share)
-        self._graphs = GraphPool(self.device)
+        self._graphs = GraphPool(
+            self.device, capture=group is None or group.capturable)
         self._graphs.reserve(self._scratch_needs())
         self.obs = StepTelemetry(total_blocks=ecfg.total_blocks)
+        if group is not None:
+            # which rank this is, and whether its decode keys replay as
+            # captured graphs or run eagerly (a gloo group's collectives
+            # cannot be captured)
+            self.obs.tp = {"size": group.size, "rank": group.rank,
+                           "backend": group.backend,
+                           "graphs": ("captured"
+                                      if self._graphs.capture_graphs
+                                      else "eager")}
         self._warmed = False
         # multi-tenant QoS (SHAI_QOS, default off): the weighted-fair
         # dequeue and the priority-keyed preemption victim
@@ -613,6 +688,17 @@ class LLMEngine:
                                     orig_n_prompt=orig_n_prompt,
                                     kv_holders=[str(u) for u in
                                                 (kv_holders or [])]))
+        if self.mirror is not None:
+            # every rank queues it, with the same id (its stream and
+            # callbacks stay rank 0's)
+            self.mirror.record("add", rid, dict(
+                prompt_ids=list(prompt_ids), params=params,
+                deadline_at=deadline_at, priority=priority, tenant=tenant,
+                parent_rid=parent_rid, already_generated=already_generated,
+                already_lp=already_lp, orig_n_prompt=orig_n_prompt,
+                prefix=None if prefix is None else np.asarray(
+                    prefix.cpu() if isinstance(prefix, torch.Tensor)
+                    else prefix)))
         return rid
 
     def fanout_siblings(self, rid: int) -> List[int]:
@@ -639,6 +725,8 @@ class LLMEngine:
         """Abort a request wherever it is (queue, mid-prefill or decoding),
         reclaiming its slot and blocks. Returns the partial Finished
         (``"cancelled"``), or None for an unknown/finished id."""
+        if self.mirror is not None:
+            self.mirror.record("cancel", req_id)
         return self._abort(req_id, "cancelled")
 
     def _abort(self, req_id: int, reason: str) -> Optional[Finished]:
@@ -762,7 +850,11 @@ class LLMEngine:
         it as ``eos``/``length`` instead. Loop thread only; None for an
         unknown or finished id, and for a multimodal request, whose soft
         prefix or vision states do not travel in the manifest (the drain
-        lets it finish here)."""
+        lets it finish here). A tensor-parallel engine migrates nothing:
+        the run it would bank needs the host tier, which a sharded pool
+        does not carry."""
+        if self.group is not None:
+            return None
         if any(r.multimodal and r.req_id == req_id
                for r in self.waiting) or any(
                    s is not None and s.req.req_id == req_id
@@ -844,7 +936,7 @@ class LLMEngine:
         and blocks the same step. Step-granular: a request is at most one
         engine step late. One linear pass over the queue, keeping arrival
         order, before the weighted-fair head selection."""
-        now = time.monotonic()
+        now = self._now
         expired = [r for r in self.waiting if 0.0 < r.deadline_at <= now]
         if expired:
             kept = [r for r in self.waiting
@@ -866,7 +958,15 @@ class LLMEngine:
                             "generated)", rid, len(fin.token_ids))
                 self._finish(fin)
 
+    def close(self) -> None:
+        """Rank 0 of a tensor-parallel group: end the follower ranks, after
+        a last digest check (``engine.ranks``); a no-op on one device."""
+        if self.mirror is not None:
+            self.mirror.close(self)
+
     def warm_executables(self, prefix_lens: Sequence[int] = (0,)) -> int:
+        if self.mirror is not None:
+            self.mirror.record("warm", tuple(prefix_lens))
         return _warm_mod.warm_executables(self, prefix_lens)
 
     def _run_warm_calls(self) -> None:
@@ -913,10 +1013,13 @@ class LLMEngine:
         commit, stream and finish the same tokens on the same ``step()``
         call."""
         t0 = time.monotonic()
+        # the clock every deadline of this step is judged by: rank 0's,
+        # on every rank of a mirrored group
+        self._now = t0 if self.mirror is None else self.mirror.step_clock(t0)
         self._tokens_this_step = 0
         self._step_kind = "idle"
         inj = _faults.get()
-        if inj.active:
+        if inj.active and (self.mirror is None or self.mirror.leader):
             # chaos sites: step latency/stall (watchdog and deadline
             # fodder) and step crash (the engine-loop-death path), on the
             # host before this step enqueues anything
@@ -924,6 +1027,8 @@ class LLMEngine:
             inj.raise_at(_faults.ENGINE_STEP)
         done = self._step_async() if self._async else self._step_sync()
         self._record_step(time.monotonic() - t0)
+        if self.mirror is not None:
+            self.mirror.after_step(self, done)
         return done
 
     def _record_step(self, duration_s: float) -> None:
@@ -1075,7 +1180,7 @@ class LLMEngine:
     def _step_async(self) -> List[Finished]:
         self._step_count += 1
         self._done_this_step = []
-        now = time.monotonic()
+        now = self._now
         deadline_due = (
             any(0.0 < r.deadline_at <= now for r in self.waiting)
             or any(s is not None and 0.0 < s.req.deadline_at <= now
@@ -1248,6 +1353,8 @@ class LLMEngine:
         """Retire any in-flight lookahead step: the engine loop calls this
         when the engine goes idle, so host mirrors do not sit one step
         stale across an idle gap."""
+        if self.mirror is not None and self._pipe is not None:
+            self.mirror.record("finish_pending")
         self._flush_pipeline("idle")
         # idle breaks step-gap continuity: the step counter does not tick
         # while the loop waits for work, so the first dispatch of the next
@@ -2016,18 +2123,18 @@ class LLMEngine:
         if self.device.type != "cuda":
             return []
         cfg, n_sms = self.cfg, sm_count(self.device.index)
+        H, Hkv = self._heads
         if self._fused:
             return [groups_scratch_size(
-                mixed_phase_groups(bb, self.buckets.max), cfg.n_heads,
-                cfg.n_kv_heads, cfg.head_dim, self.ecfg.block_size,
+                mixed_phase_groups(bb, self.buckets.max), H,
+                Hkv, cfg.head_dim, self.ecfg.block_size,
                 self.ecfg.blocks_per_seq, n_sms)
                 for bb in self._batch_buckets()]
         # a verify key walks Bb * (k + 1) rows over the repeated tables
         rows = [1] + ([self.ecfg.num_speculative_tokens + 1]
                       if self.ecfg.speculative_enabled else [])
-        return [split_scratch_size(bb * r, 1, cfg.n_heads, cfg.n_kv_heads,
-                                   cfg.head_dim, self.ecfg.block_size, m,
-                                   n_sms)
+        return [split_scratch_size(bb * r, 1, H, Hkv, cfg.head_dim,
+                                   self.ecfg.block_size, m, n_sms)
                 for m in self._ctx_buckets for bb in self._batch_buckets()
                 for r in rows]
 

@@ -64,7 +64,11 @@ number of kernels that ran.
 
 On the CPU there are no graphs: :meth:`DecodeGraph.replay` runs the same
 decode function eagerly on the same static inputs. That is the CPU path of
-the tests, not a fallback.
+the tests, not a fallback. The same holds on the card for an engine whose
+pool does not capture (a tensor-parallel rank over gloo, whose collectives
+go through host memory): decided at construction from the group's
+backend, never after a failed capture. A rank over NCCL captures its
+all-reduces and gathers inside each graph.
 """
 
 from __future__ import annotations
@@ -171,15 +175,26 @@ class GraphPool:
     scratch reserved on that stream. They replay one at a time on the
     engine's stream, and nothing but their static outputs is read after a
     replay, so one graph may reuse memory another freed during its
-    capture. On the CPU it holds nothing."""
+    capture. On the CPU it holds nothing.
 
-    def __init__(self, device: torch.device):
+    ``capture=False``: the engine's steps call something no CUDA graph can
+    hold (a tensor-parallel rank over a gloo group, whose collectives
+    stage through host memory), and every key runs its function eagerly
+    on the card, as on the CPU."""
+
+    def __init__(self, device: torch.device, capture: bool = True):
         self.device = device
         self.cuda = device.type == "cuda"
+        self._capture = capture
         self.handle = torch.cuda.graph_pool_handle() if self.cuda else None
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         #: ``(fp32 values, counters)`` reserved; None until :meth:`reserve`
         self.reserved: Optional[Tuple[int, int]] = None
+
+    @property
+    def capture_graphs(self) -> bool:
+        """The decode keys are captured graphs (False: eager calls)."""
+        return self.cuda and self._capture
 
     @property
     def stream_id(self) -> int:
@@ -350,9 +365,9 @@ class DecodeGraph:
         self.window = True
 
     def capture(self) -> None:
-        """Capture the step (CUDA); a no-op on the CPU. Raises when the
-        capture fails."""
-        if not self.pool.cuda or self.captured:
+        """Capture the step (CUDA); a no-op on the CPU and on a pool that
+        does not capture. Raises when the capture fails."""
+        if not self.pool.capture_graphs or self.captured:
             return
         if self.pool.reserved is None:
             raise RuntimeError("reserve the pool's split scratch for the "
@@ -381,9 +396,10 @@ class DecodeGraph:
 
     def replay(self) -> None:
         """Run the step on the current stream: the graph on CUDA, the
-        decode function eagerly on the CPU."""
+        decode function eagerly on the CPU (and on a pool that does not
+        capture)."""
         if self._graph is None:
-            if self.pool.cuda:
+            if self.pool.capture_graphs:
                 raise RuntimeError(f"decode graph {self.key} was never "
                                    f"captured")
             self._set_outputs(self.eager())

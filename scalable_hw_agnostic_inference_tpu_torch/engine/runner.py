@@ -11,12 +11,24 @@ text-only, both the static-start ladder and ``ragged=True``),
 ``T = k + 1`` instantiation of the same forward), ``make_fused_step``
 (``:995``, the mixed-phase step of ``SHAI_FUSED_STEP``),
 ``token_logprobs`` (``:129``, the per-token logprob readout) and their
-helpers ``_rmsnorm``,
-``_qkv``, ``_mlp``, ``_scatter_blocks``, ``_pool_scales``,
+helpers ``_rmsnorm``, ``_scatter_blocks``, ``_pool_scales``,
 ``_ragged_pool_attention`` and ``_logits``; and ``EngineShardings``
 (``:37``), the tensor-parallel plan. The runner reads the weights of
-``models.llama.LlamaForCausalLM``, so one set of weights serves the scoring
-forward and the engine.
+``models.llama.LlamaForCausalLM`` and calls its pieces (the embedding
+lookup, each attention's ``qkv`` and ``out``, each MLP's ``swiglu``, the
+head's ``logits``), so one set of weights serves the scoring forward and
+the engine, and one copy of the tensor-parallel collectives serves both.
+
+Over tensor-parallel ranks (``models.llama``'s ``group``): each rank holds
+its ``n_heads / tp`` query and ``n_kv_heads / tp`` kv heads, its pool holds
+its kv heads (``[N, bs, Hkv / tp, D]``, an int8 pool's scales ``[N, Hkv /
+tp]``), and every function here reads the head counts from the tensors it
+is given, never from the config. The kernels take the rank's heads as
+they are: no head split around them (the reference's ``_pool_kernel_call``
+``shard_map``, ``:386-416``, is that split). The collectives are the
+model's: the embedding's feature gather, the all-reduces after ``o`` and
+``down``, a tied head's partial logits reduced and an untied head's
+gathered, the ones XLA inserts in the reference.
 
 The reference returns jitted executables that donate the KV pool; here the
 functions run eagerly and write the pool tensors IN PLACE (the returned
@@ -86,11 +98,9 @@ from ..ops.cuda.ragged_paged_attention import (
 from ..ops.norms import rms_norm
 from ..ops.quant import (
     dequantize_kv_blocks,
-    quant_matmul,
     quantize_kv_blocks,
     requantize_block_tokens,
 )
-from ..ops.rope import apply_rope
 from ..ops.sampling import (
     masked_scaled_logits,
     sample_excluding,
@@ -111,9 +121,9 @@ class EngineShardings:
     (``cache_specs``; an int8 pool's ``[N, Hkv]`` scales split on dim 1).
     The reference turns the plan into ``NamedSharding``s and XLA inserts
     the collectives; here the rank-local modules (``models.llama``, a
-    ``group`` of ``tp`` ranks) read the same numbers, and so do the
-    per-rank kernel shapes that ``chip_smoke.py`` times. The engine itself
-    still refuses ``tensor_parallel_size > 1`` (``engine._unsupported``).
+    ``group`` of ``tp`` ranks) read the same numbers, and so do the engine
+    over ranks (its pool's kv heads) and the per-rank kernel shapes that
+    ``chip_smoke.py`` times.
     """
 
     def __init__(self, cfg: LlamaConfig, tp: int):
@@ -166,23 +176,6 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return rms_norm(x, scale, eps).to(x.dtype)
 
 
-def _qkv(layer, x: torch.Tensor, positions: torch.Tensor, cfg: LlamaConfig):
-    B, T, _ = x.shape
-    hd = cfg.head_dim
-    q = quant_matmul(x, layer.attn.q).reshape(B, T, cfg.n_heads, hd)
-    k = quant_matmul(x, layer.attn.k).reshape(B, T, cfg.n_kv_heads, hd)
-    v = quant_matmul(x, layer.attn.v).reshape(B, T, cfg.n_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-    return q, k, v
-
-
-def _mlp(layer, x: torch.Tensor) -> torch.Tensor:
-    gate = quant_matmul(x, layer.mlp.gate)
-    up = quant_matmul(x, layer.mlp.up)
-    return quant_matmul(torch.nn.functional.silu(gate) * up, layer.mlp.down)
-
-
 def _scatter_blocks(kv_layer: Dict[str, torch.Tensor], tbl: torch.Tensor,
                     k: torch.Tensor, v: torch.Tensor, quant: bool) -> None:
     """Write whole fresh KV blocks ``[B, m, Bs, Hkv, Dh]`` into one pool
@@ -206,10 +199,11 @@ def _scatter_blocks(kv_layer: Dict[str, torch.Tensor], tbl: torch.Tensor,
 def _attn_out_mlp(cfg: LlamaConfig, layer, x: torch.Tensor,
                   o: torch.Tensor) -> torch.Tensor:
     """The rest of a layer after its attention ``o [B, T, H, D]``: the
-    output projection and the MLP, each with its residual."""
-    B, T = x.shape[:2]
-    x = x + quant_matmul(o.reshape(B, T, -1), layer.attn.o)
-    return x + _mlp(layer, _rmsnorm(x, layer.mlp_norm.scale, cfg.rms_eps))
+    output projection and the MLP, each with its residual (under a group,
+    each all-reduced across the ranks: the layer's own pieces)."""
+    x = x + layer.attn.out(o)
+    return x + layer.mlp.swiglu(_rmsnorm(x, layer.mlp_norm.scale,
+                                         cfg.rms_eps))
 
 
 def _chunk_window(block_tables: torch.Tensor, start_arr: torch.Tensor,
@@ -258,7 +252,7 @@ def _write_tokens(cfg: LlamaConfig, lay: Dict[str, torch.Tensor],
                 lay[name][bt] = q8
                 lay[sname][bt] = sc
     else:
-        hkv, hd = cfg.n_kv_heads, cfg.head_dim
+        hkv, hd = lay["k"].shape[2:]   # the rank's kv heads
         lay["k"].view(-1, hkv, hd)[widx] = kk.to(lay["k"].dtype)
         lay["v"].view(-1, hkv, hd)[widx] = vv.to(lay["v"].dtype)
 
@@ -271,10 +265,15 @@ def _pool_scales(kv_layer: Dict[str, torch.Tensor]):
 
 def _logits(model: LlamaForCausalLM, x: torch.Tensor,
             cfg: LlamaConfig) -> torch.Tensor:
-    x = _rmsnorm(x, model.final_norm.scale, cfg.rms_eps)
-    if cfg.tie_embeddings:
-        return x.float() @ model.embed.weight.float().T
-    return quant_matmul(x, model.lm_head).float()
+    """fp32 logits of the final-normed ``x``; a tied head in fp32 (the
+    model's ``logits``, which reduces or gathers them under a group)."""
+    return model.logits(_rmsnorm(x, model.final_norm.scale, cfg.rms_eps),
+                        tied_fp32=True)
+
+
+def _embed(model: LlamaForCausalLM, ids: torch.Tensor) -> torch.Tensor:
+    """Token ids -> bf16 activations (gathered over a group's ranks)."""
+    return model.embed_tokens(ids, torch.bfloat16)
 
 
 def token_logprobs(logits: torch.Tensor, toks: torch.Tensor):
@@ -363,7 +362,7 @@ def make_prefill(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                 cross_len: Optional[torch.Tensor] = None,
                 prefix: Optional[torch.Tensor] = None
                 ) -> Tuple[KVPool, torch.Tensor]:
-        x = model.embed.weight[ids.long()].to(torch.bfloat16)
+        x = _embed(model, ids)
         n = n_text
         if prefix_len:
             if prefix is None or tuple(prefix.shape[1:]) != (prefix_len,
@@ -384,19 +383,15 @@ def make_prefill(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                 ci += 1
                 continue
             h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
-            q, k, v = _qkv(layer, h, positions, cfg)
+            q, k, v = layer.attn.qkv(h, positions)
             # causal within the prompt; pad keys masked by the true length
             # (kv_lengths, not a mask, keeps the flash kernel eligible)
             o = dot_product_attention(q, k, v, kv_lengths=n, causal=True)
-            x = x + quant_matmul(o.reshape(B, T, -1), layer.attn.o)
-            x = x + _mlp(layer, _rmsnorm(x, layer.mlp_norm.scale,
-                                         cfg.rms_eps))
+            x = _attn_out_mlp(cfg, layer, x, o)
             _scatter_blocks(
                 kv[pi], tbl,
-                k.reshape(B, m_used, block_size, cfg.n_kv_heads,
-                          cfg.head_dim),
-                v.reshape(B, m_used, block_size, cfg.n_kv_heads,
-                          cfg.head_dim), kv_quant)
+                k.reshape(B, m_used, block_size, *k.shape[2:]),
+                v.reshape(B, m_used, block_size, *v.shape[2:]), kv_quant)
             pi += 1
         last = x[torch.arange(B, device=x.device), n.long() - 1]
         return kv, _logits(model, last[:, None], cfg)[:, 0]
@@ -472,21 +467,20 @@ def make_prefill_cont(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                          f"{blocks_per_seq}]")
 
     def _blocks(t, B):
-        return t.reshape(B, c_blocks, block_size, cfg.n_kv_heads,
-                         cfg.head_dim)
+        return t.reshape(B, c_blocks, block_size, *t.shape[2:])
 
     def cont_ragged(model: LlamaForCausalLM, kv: KVPool, ids: torch.Tensor,
                     n_text: torch.Tensor, block_tables: torch.Tensor,
                     start_arr: torch.Tensor) -> Tuple[KVPool, torch.Tensor]:
         B, T = ids.shape
         dev = ids.device
-        x = model.embed.weight[ids.long()].to(torch.bfloat16)
+        x = _embed(model, ids)
         positions, tbl_chunk = _chunk_window(block_tables, start_arr, T,
                                              block_size, c_blocks)
         tables = block_tables[:, :blocks_per_seq]
         for li, layer in enumerate(model.layers):
             h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
-            q, k, v = _qkv(layer, h, positions, cfg)
+            q, k, v = layer.attn.qkv(h, positions)
             # the chunk goes in first: its queries then read their own keys
             # through the pool, in the pool's table order
             _scatter_blocks(kv[li], tbl_chunk, _blocks(k, B), _blocks(v, B),
@@ -505,8 +499,7 @@ def make_prefill_cont(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
                     ) -> Tuple[KVPool, torch.Tensor]:
         B, T = ids.shape
         dev = ids.device
-        hkv, hd = cfg.n_kv_heads, cfg.head_dim
-        x = model.embed.weight[ids.long()].to(torch.bfloat16)
+        x = _embed(model, ids)
         n = n_text + start          # valid tokens after this chunk
         positions = (start + torch.arange(T, dtype=torch.int32, device=dev)
                      ).expand(B, T)
@@ -526,7 +519,8 @@ def make_prefill_cont(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
             lay = kv[pi]
             pi += 1
             h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
-            q, k, v = _qkv(layer, h, positions, cfg)
+            q, k, v = layer.attn.qkv(h, positions)
+            hkv, hd = k.shape[2:]   # the rank's kv heads
             if kv_quant:
                 kprior = dequantize_kv_blocks(
                     lay["k"][tbl_prior], lay["ks"][tbl_prior],
@@ -575,9 +569,8 @@ def _make_token_forward(cfg: LlamaConfig, block_size: int, m_ctx: int,
             positions: torch.Tensor, tables: torch.Tensor,
             cross: Optional[Tuple] = None) -> Tuple[KVPool, torch.Tensor]:
         B = max_num_seqs
-        hd = cfg.head_dim
         tables = tables[:, :m_ctx].to(torch.int32).contiguous()
-        x = model.embed.weight[tokens.long()].to(torch.bfloat16)  # [B,T,d]
+        x = _embed(model, tokens)  # [B, T, d]
         pos = positions.long()
         blk, widx = _token_slots(tables, pos, block_size, m_ctx)   # [B, T]
         tables_f = tables.repeat_interleave(T, dim=0) if T > 1 else tables
@@ -594,15 +587,16 @@ def _make_token_forward(cfg: LlamaConfig, block_size: int, m_ctx: int,
                 ci += 1
                 continue
             h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
-            q, kk, vv = _qkv(layer, h, positions, cfg)
+            q, kk, vv = layer.attn.qkv(h, positions)
             lay = kv[pi]
             pi += 1
             _write_tokens(cfg, lay, kk, vv, blk, pos, widx, block_size,
                           kv_quant)
             ksc, vsc = _pool_scales(lay)
-            o = attend(q.reshape(B * T, cfg.n_heads, hd).contiguous(),
+            H, hd = q.shape[2:]     # the rank's heads
+            o = attend(q.reshape(B * T, H, hd).contiguous(),
                        lay["k"], lay["v"], tables_f, lengths_f, ksc,
-                       vsc).reshape(B, T, cfg.n_heads, hd)
+                       vsc).reshape(B, T, H, hd)
             x = _attn_out_mlp(cfg, layer, x, o)
         return kv, _logits(model, x, cfg)
 
@@ -809,7 +803,6 @@ def make_fused_step(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
     m_ctx = blocks_per_seq
     c_blocks = bucket // block_size
     L = block_size * m_ctx
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def fused(model: LlamaForCausalLM, kv: KVPool, tokens: torch.Tensor,
               pos: torch.Tensor, tables: torch.Tensor,
@@ -822,27 +815,28 @@ def make_fused_step(cfg: LlamaConfig, block_size: int, blocks_per_seq: int,
         dev = tokens.device
         # the decode section's inputs: make_decode's (T = 1)
         tables = tables[:, :m_ctx].to(torch.int32).contiguous()
-        x = model.embed.weight[tokens.long()[:, None]].to(torch.bfloat16)
+        x = _embed(model, tokens[:, None])
         positions = pos[:, None]
         p64 = positions.long()
         blk, widx = _token_slots(tables, p64, block_size, m_ctx)
         lengths = (p64 + 1).clamp(1, L).reshape(B).to(torch.int32)
         # the chunk section's inputs: the ragged continuation's
-        xc = model.embed.weight[c_ids.long()].to(torch.bfloat16)
+        xc = _embed(model, c_ids)
         c_positions, tbl_chunk = _chunk_window(c_table, c_start, C,
                                                block_size, c_blocks)
         c_tables = c_table[:, :m_ctx]
         for li, layer in enumerate(model.layers):
             lay = kv[li]
             hc = _rmsnorm(xc, layer.attn_norm.scale, cfg.rms_eps)
-            qc, kc, vc = _qkv(layer, hc, c_positions, cfg)
+            qc, kc, vc = layer.attn.qkv(hc, c_positions)
+            H, hd = qc.shape[2:]    # the rank's heads
             # the chunk goes in FIRST (the laddered device order)
             _scatter_blocks(
                 lay, tbl_chunk,
-                kc.reshape(1, c_blocks, block_size, Hkv, hd),
-                vc.reshape(1, c_blocks, block_size, Hkv, hd), kv_quant)
+                kc.reshape(1, c_blocks, block_size, *kc.shape[2:]),
+                vc.reshape(1, c_blocks, block_size, *vc.shape[2:]), kv_quant)
             h = _rmsnorm(x, layer.attn_norm.scale, cfg.rms_eps)
-            q, kk, vv = _qkv(layer, h, positions, cfg)
+            q, kk, vv = layer.attn.qkv(h, positions)
             _write_tokens(cfg, lay, kk, vv, blk, p64, widx, block_size,
                           kv_quant)
             ksc, vsc = _pool_scales(lay)

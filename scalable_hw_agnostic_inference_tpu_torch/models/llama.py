@@ -228,6 +228,12 @@ def group_size(group) -> int:
     return 1 if group is None else group.size
 
 
+#: why a group refuses an mllama config (ROADMAP item A7.2b)
+MLLAMA_RANKS = ("mllama's cross layers have no rank-local forward yet "
+                "(A7.2b): an mllama config runs on one device, with no "
+                "group")
+
+
 def rank_heads(cfg: LlamaConfig, tp: int) -> Tuple[int, int]:
     """One rank's ``(n_heads, n_kv_heads)`` at ``tp``; a count that ``tp``
     does not divide raises (widen the kv heads first:
@@ -268,13 +274,7 @@ class LlamaAttention(nn.Module):
         group the heads are the rank's and the output is all-reduced."""
         cfg = self.cfg
         B, T, _ = x.shape
-        hd, H, Hkv = cfg.head_dim, self.n_heads, self.n_kv_heads
-        x = x.to(self.dtype)
-        q = quant_matmul(x, self.q).reshape(B, T, H, hd)
-        k = quant_matmul(x, self.k).reshape(B, T, Hkv, hd)
-        v = quant_matmul(x, self.v).reshape(B, T, Hkv, hd)
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        q, k, v = self.qkv(x.to(self.dtype), positions)
         if kv is None:
             o = dot_product_attention(q, k, v, causal=True)
         elif write_pos is None:
@@ -291,7 +291,27 @@ class LlamaAttention(nn.Module):
             lens = (write_pos + 1).to(torch.int32)
             o = paged_decode_attention(q[:, 0], kp, vp, kv.tables,
                                        lens)[:, None]
-        out = quant_matmul(o.reshape(B, T, H * hd), self.o)
+        return self.out(o)
+
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """``x [B, T, dim]`` (the compute dtype) -> the rank's ``q [B, T,
+        H, D]`` and ``k``, ``v`` ``[B, T, Hkv, D]``, q and k roped: the
+        piece the paged engine's runner shares with :meth:`forward`."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        hd = cfg.head_dim
+        q = quant_matmul(x, self.q).reshape(B, T, self.n_heads, hd)
+        k = quant_matmul(x, self.k).reshape(B, T, self.n_kv_heads, hd)
+        v = quant_matmul(x, self.v).reshape(B, T, self.n_kv_heads, hd)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        return q, k, v
+
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        """The attention's ``o [B, T, H, D]`` through the output
+        projection; under a group the rank's partial sum, all-reduced."""
+        B, T = o.shape[:2]
+        out = quant_matmul(o.reshape(B, T, -1), self.o)
         return out if self.group is None else self.group.all_reduce(out)
 
 
@@ -310,7 +330,11 @@ class LlamaMLP(nn.Module):
         self.down = _linear(cfg.mlp_dim // tp, cfg.dim, *args)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
+        return self.swiglu(x.to(self.dtype))
+
+    def swiglu(self, x: torch.Tensor) -> torch.Tensor:
+        """``down(silu(gate(x)) * up(x))`` on ``x`` as given (the compute
+        dtype); under a group the rank's partial sum, all-reduced."""
         gate = quant_matmul(x, self.gate)
         up = quant_matmul(x, self.up)
         out = quant_matmul(nn.functional.silu(gate) * up, self.down)
@@ -442,8 +466,7 @@ class LlamaForCausalLM(nn.Module):
             device = resolve_device(device)
         tp = group_size(group)
         if group is not None and cfg.cross_attention_layers:
-            raise ValueError("the rank-local forward of mllama's cross "
-                             "layers is not ported yet")
+            raise ValueError(MLLAMA_RANKS)
         if cfg.dim % tp:
             raise ValueError(f"tp={tp} must divide dim={cfg.dim}")
         self.cfg, self.dtype, self.quantized = cfg, dtype, quantized
@@ -451,8 +474,16 @@ class LlamaForCausalLM(nn.Module):
         # embed_rows: an HF mllama embedding's rows (vocab + 8 image
         # tokens); the logits stay vocab_size wide (an untied lm_head).
         # Under a group the table is split on features
-        self.embed = nn.Embedding(embed_rows or cfg.vocab_size, cfg.dim // tp,
-                                  dtype=param_dtype, device=device)
+        rows = embed_rows or cfg.vocab_size
+        self.embed = (
+            # on the meta device no init: nn.Embedding's normal_ there goes
+            # through Python decompositions whose first use imports some
+            # 800 modules (2.6-10 s in a fresh process, a follower rank's)
+            nn.Embedding(rows, cfg.dim // tp, _weight=torch.empty(
+                (rows, cfg.dim // tp), dtype=param_dtype, device="meta"))
+            if str(device) == "meta" else
+            nn.Embedding(rows, cfg.dim // tp, dtype=param_dtype,
+                         device=device))
         cross = set(cfg.cross_attention_layers)
         self.layers = nn.ModuleList(
             LlamaCrossBlock(cfg, dtype, param_dtype, device, quantized)
@@ -512,10 +543,7 @@ class LlamaForCausalLM(nn.Module):
             raise ValueError(
                 "mllama configs (cross_attention_layers) run through the "
                 "paged engine, not the dense-cache path")
-        group = self.group
-        x = self.embed.weight.to(self.dtype)[ids]
-        if group is not None:
-            x = group.all_gather(x, dim=-1)
+        x = self.embed_tokens(ids)
         if prefix is not None:
             x = torch.cat([prefix.to(x.device, self.dtype), x], dim=1)
         B, T = x.shape[:2]
@@ -534,20 +562,37 @@ class LlamaForCausalLM(nn.Module):
             x = layer(x, positions,
                       None if cache is None else cache.layer(i),
                       lengths, write_pos)
-        x = self.final_norm(x)
+        return self.logits(self.final_norm(x))
+
+    def embed_tokens(self, ids: torch.Tensor,
+                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``ids [B, T]`` -> ``[B, T, dim]`` in ``dtype`` (None: the compute
+        dtype); under a group the rank's feature slice is looked up and the
+        ranks' slices gathered."""
+        x = self.embed.weight[ids.long()].to(dtype or self.dtype)
+        return x if self.group is None else self.group.all_gather(x, dim=-1)
+
+    def logits(self, x: torch.Tensor, tied_fp32: bool = False
+               ) -> torch.Tensor:
+        """Normed hidden states ``[..., dim]`` -> fp32 logits ``[...,
+        vocab]``. A tied head contracts against the embedding (flax
+        ``Embed.attend``: both operands in the compute dtype; ``tied_fp32``:
+        both in fp32, as the paged engine's runner computes them); under a
+        group over the rank's feature slice, its partial logits
+        all-reduced. An untied head's rank holds a vocabulary slice, whose
+        logits are gathered."""
+        group = self.group
         if self.lm_head is None:
-            # flax Embed.attend promotes both operands to the compute dtype.
-            # Under a group the table holds the rank's feature slice, so
-            # its logits are partial sums over the features
-            if group is None:
-                return quant_matmul(x, self.embed).float()
-            width = self.embed.weight.shape[1]
-            xr = x[..., group.rank * width:(group.rank + 1) * width]
-            return group.all_reduce(quant_matmul(xr, self.embed)).float()
-        logits = quant_matmul(x, self.lm_head)
+            if group is not None:
+                width = self.embed.weight.shape[1]
+                x = x[..., group.rank * width:(group.rank + 1) * width]
+            out = (x.float() @ self.embed.weight.float().T if tied_fp32
+                   else quant_matmul(x, self.embed))
+            return (out if group is None else group.all_reduce(out)).float()
+        out = quant_matmul(x, self.lm_head)
         if group is not None:
-            logits = group.all_gather(logits, dim=-1)
-        return logits.float()
+            out = group.all_gather(out, dim=-1)
+        return out.float()
 
 
 # ---------------------------------------------------------------------------

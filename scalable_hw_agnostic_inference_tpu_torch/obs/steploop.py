@@ -143,6 +143,9 @@ class StepTelemetry:
         self.recompiles = 0          # executables built after warmup
         self.requests_finished = 0
         self.warmed_executables = 0  # closed-set size at readiness
+        # a tensor-parallel rank's {"size", "rank", "backend", "graphs"}
+        # (None on one device): which rank, and captured or eager decode
+        self.tp: Optional[Dict[str, Any]] = None
         # async decode pipeline flushes: the in-flight lookahead step was
         # retired early because an event changed the batch composition or
         # the control flow; each one is a serialization point the steady
@@ -385,6 +388,8 @@ class StepTelemetry:
                     "pad": self.pad_by_phase.get(p, 0)}
                 for p in set(self.real_by_phase) | set(self.pad_by_phase)}
             out.update(self._gauges)
+        if self.tp is not None:
+            out["tp"] = dict(self.tp)
         kvt = self.kvtier
         if kvt is not None:
             # host-tier saturation and hit rate travel with the engine

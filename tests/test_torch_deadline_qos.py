@@ -22,6 +22,7 @@ import dataclasses
 import time
 
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +45,16 @@ from scalable_hw_agnostic_inference_tpu_torch.resilience import qos
 ENGINE_KW = dict(max_model_len=64, max_num_seqs=3, block_size=8,
                  context_encoding_buckets=(16, 32), max_new_tokens=16)
 LONG = list(range(3, 43))   # 40 tokens: chunks 32 + 8 under buckets (16, 32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny engines run one intra-op thread: under the suite's xdist
+    workers, a pool of threads per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -45,6 +45,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from parity import assert_greedy_parity  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny engines run one intra-op thread: under the suite's xdist
+    workers, a pool of threads per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     jcfg = jllama.LlamaConfig.tiny()
@@ -152,9 +162,11 @@ def test_engine_refuses_what_later_slices_bring(tiny):
     # K_LOGPROBS, as the reference's SamplingParams.clamp does
     eng.add_request([1, 2], SamplingParams(logprobs=9))
     assert eng.waiting[-1].params.logprobs == 5
-    # the prefix cache and the roles are served (slice 10), speculative
-    # decoding too (slice 13); tensor parallelism is still refused
-    with pytest.raises(ValueError, match="not ported yet"):
+    # the prefix cache, the roles and speculative decoding are served;
+    # tensor parallelism runs one engine per rank of a group
+    # (engine.ranks), so a tp without one is refused
+    with pytest.raises(ValueError, match="tensor_parallel_size=2 but the "
+                       "engine's group has 1 rank.*parallel.distributed"):
         LLMEngine(tcfg, model, tconfig.EngineConfig(
             **dict(ENGINE_KW, tensor_parallel_size=2)), device="cpu")
     eng = LLMEngine(tcfg, model, tconfig.EngineConfig(

@@ -547,3 +547,38 @@ def test_flux_slice_modules_are_scanned():
     assert set(FLUX_MODULES) <= scanned
     assert not _forbidden_imports(p for p, n in _modules()
                                   if n in FLUX_MODULES)
+
+
+TP_ENGINE_MODULES = ("scalable_hw_agnostic_inference_tpu_torch."
+                     "parallel.distributed",
+                     "scalable_hw_agnostic_inference_tpu_torch.engine.ranks")
+
+
+def test_tp_engine_modules_are_scanned_and_default_to_the_card(no_cuda):
+    """The group and the step mirror are scanned by name (no JAX, no JAX
+    package); the launcher and a rank's engine default to the card, and an
+    NCCL group needs CUDA."""
+    from scalable_hw_agnostic_inference_tpu_torch.engine import ranks
+    from scalable_hw_agnostic_inference_tpu_torch.engine.config import (
+        EngineConfig,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+        LlamaConfig,
+        random_params,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.parallel import (
+        distributed,
+    )
+
+    scanned = {n for _, n in _modules()}
+    assert set(TP_ENGINE_MODULES) <= scanned
+    assert not _forbidden_imports(p for p, n in _modules()
+                                  if n in TP_ENGINE_MODULES)
+    cfg = LlamaConfig.tiny()
+    state = random_params(cfg, 0, device="cpu")
+    ecfg = EngineConfig(max_model_len=64, context_encoding_buckets=(16,),
+                        tensor_parallel_size=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ranks.launch_engine(cfg, state, ecfg, 2, "gloo")
+    with pytest.raises(RuntimeError, match="an NCCL group needs CUDA"):
+        distributed.init_group(2, 0, "/nonexistent/store", "nccl")

@@ -51,6 +51,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -543,6 +544,16 @@ def test_kvnet_families_export_on_tier_pods_only():
 
 
 # -- the handoff, engine to engine -------------------------------------------------
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny engines run one intra-op thread: under the suite's xdist
+    workers, a pool of threads per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 @pytest.fixture(scope="module")
 def tiny():

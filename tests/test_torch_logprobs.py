@@ -33,6 +33,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +63,16 @@ LONG = list(range(3, 43))   # 40 tokens: chunks 32 + 8 under buckets (16, 32)
 REQUESTS = {0: [([1, 5, 9], 9, 5), (LONG, 6, 2)],
             4: [([2, 7], 5, 5)],
             9: [([42, 43, 44, 45], 4, 1)]}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny engines run one intra-op thread: under the suite's xdist
+    workers, a pool of threads per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -68,6 +68,16 @@ ENGINE_KW = dict(max_model_len=128, max_num_seqs=3, block_size=8,
                  enable_prefix_caching=True)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny engines run one intra-op thread: under the suite's xdist
+    workers, a pool of threads per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     jcfg = jllama.LlamaConfig.tiny()

@@ -14,8 +14,8 @@ against the JAX package on the CPU.
   bit) and leaves the fp32 logits equal to the unwidened model's; the
   no-op and the bad factor;
 - ``EngineShardings``' refusal is the reference's message, its per-rank
-  counts the manifests' shapes; the engine and the units still refuse
-  several ranks;
+  counts the manifests' shapes; the engine refuses a tp without a group
+  of that size, and the units still refuse several devices;
 - the rank-local fp32 forward at tp 2 and 4 (4 through widening) over
   ``LoopbackGroup``, for the tied tiny, an untied tiny and its int8
   weights: within 2e-4 of the port's unsharded forward and of the JAX
@@ -372,8 +372,10 @@ def test_engine_and_units_still_refuse_several_ranks():
     model = pllama.LlamaForCausalLM(cfg, dtype=torch.float32, device="cpu")
     ecfg = EngineConfig(max_model_len=256, context_encoding_buckets=(128,),
                         tensor_parallel_size=2, dtype="float32")
-    with pytest.raises(ValueError,
-                       match="not ported yet: tensor_parallel_size > 1"):
+    # the engine serves tp ranks through a group (engine.ranks): without
+    # one, a tp of 2 is refused
+    with pytest.raises(ValueError, match="tensor_parallel_size=2 but the "
+                       "engine's group has 1 rank.*parallel.distributed"):
         pengine.LLMEngine(cfg, model, ecfg, device="cpu")
     with pytest.raises(ValueError, match="MESH_SPEC names 4 devices"):
         unit_device(types.SimpleNamespace(device="cpu", submesh=None,

@@ -115,6 +115,16 @@ N_DRAWS = 20000
 FREQ_ATOL = 4.5 * np.sqrt(0.25 / N_DRAWS)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny engines run one intra-op thread: under the suite's xdist
+    workers, a pool of threads per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     jcfg = jllama.LlamaConfig.tiny()
@@ -751,7 +761,8 @@ def test_spec_warms_the_verify_ladder_and_keeps_fused_off(tiny):
     fused.warm_executables()
     assert not fused._fused_fns and fused._fused_chunk is None
     assert set(fused._verify_fns) == set(fused._decode_fns)
-    with pytest.raises(ValueError, match="tensor_parallel_size"):
+    with pytest.raises(ValueError, match="tensor_parallel_size=2 but the "
+                       "engine's group has 1 rank"):
         _port(tiny, tensor_parallel_size=2)
 
 

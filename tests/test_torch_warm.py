@@ -17,6 +17,7 @@ import time
 import urllib.request
 
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +46,16 @@ from scalable_hw_agnostic_inference_tpu_torch.utils.env import ServeConfig
 ENGINE_KW = dict(max_model_len=64, max_num_seqs=3, block_size=8,
                  context_encoding_buckets=(16, 32),
                  token_generation_buckets=(32,), max_new_tokens=8)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny engines run one intra-op thread: under the suite's xdist
+    workers, a pool of threads per worker oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
