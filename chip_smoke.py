@@ -9122,8 +9122,8 @@ TP_INT8_ROWS = (8, 512)
 #: the gate's refusal: llama-8b-geometry with 48,000 blocks of 16 tokens,
 #: 2 MiB a block over 32 layers, 93.75 GiB of bf16 KV
 TP_GATE_BLOCKS = 48_000
-#: the rank-local forward: a 512-token prompt, then 16 greedy steps
-TP_PROMPT, TP_STEPS, TP_SEED = 512, 16, 21
+#: the rank-local forward: a 512-token prompt, then 8 greedy steps
+TP_PROMPT, TP_STEPS, TP_SEED = 512, 8, 21
 #: the rank-local forward's last-position logits against tp=1's through
 #: the same kernels, relative rms (PERF.md §6 states the prediction): each
 #: rank's partial sums round to bf16 before the all-reduce adds them in
@@ -9773,6 +9773,14 @@ def phase_tp_engine(ctx):
     # (b) tp=2: two processes sharing the card, gloo, eager
     out["b"] = two_ranks("(b) gloo tp=2", dict(model.state_dict()), {},
                          two, want, "tp_engine (b)")
+    # rank 0 launches, kernel for kernel, what the unsharded engine did
+    _check_counters("tp_engine (b)", ctx["launches"]["tp_engine (b)"],
+                    {"flash_attention", "paged_decode_attention"})
+    if ctx["launches"]["tp_engine (b)"] != ctx["launches"][
+            "tp_engine unsharded"]:
+        raise AssertionError(
+            f"tp_engine (b): launches {ctx['launches']['tp_engine (b)']}, "
+            f"unsharded {ctx['launches']['tp_engine unsharded']}")
     gc.collect()
     torch.cuda.empty_cache()
 

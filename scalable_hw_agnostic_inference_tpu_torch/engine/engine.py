@@ -1013,18 +1013,20 @@ class LLMEngine:
         commit, stream and finish the same tokens on the same ``step()``
         call."""
         t0 = time.monotonic()
-        # the clock every deadline of this step is judged by: rank 0's,
-        # on every rank of a mirrored group
-        self._now = t0 if self.mirror is None else self.mirror.step_clock(t0)
         self._tokens_this_step = 0
         self._step_kind = "idle"
         inj = _faults.get()
         if inj.active and (self.mirror is None or self.mirror.leader):
             # chaos sites: step latency/stall (watchdog and deadline
             # fodder) and step crash (the engine-loop-death path), on the
-            # host before this step enqueues anything
+            # host before this step enqueues anything, and before rank 0
+            # tells the other ranks to run it: a step it crashes is run by
+            # no rank
             inj.sleep_at(_faults.ENGINE_STEP)
             inj.raise_at(_faults.ENGINE_STEP)
+        # the clock every deadline of this step is judged by: rank 0's,
+        # on every rank of a mirrored group
+        self._now = t0 if self.mirror is None else self.mirror.step_clock(t0)
         done = self._step_async() if self._async else self._step_sync()
         self._record_step(time.monotonic() - t0)
         if self.mirror is not None:

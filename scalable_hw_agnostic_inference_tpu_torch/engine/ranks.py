@@ -28,7 +28,7 @@ step by construction: every rank seeds its generators from
 ``EngineConfig.seed`` and draws in the same order, and the gathered or
 reduced logits carry the same bits on every rank.
 
-Every ``check_every`` steps, and when rank 0 closes the engine, the ranks
+Every :data:`CHECK_EVERY` steps, and when rank 0 closes the engine, the ranks
 compare a digest of their host state (the requests running and queued,
 their tokens, every sequence's block table, every finished request's
 tokens): ranks that disagree raise :class:`RankDivergence` together,
@@ -70,8 +70,9 @@ from .types import Finished
 
 log = logging.getLogger(__name__)
 
-#: steps between two digest checks
-CHECK_EVERY = 16
+#: steps between two digest checks (a gather of one short string over the
+#: control group: little beside a step)
+CHECK_EVERY = 4
 
 
 class RankDivergence(RuntimeError):
@@ -84,10 +85,9 @@ class StepMirror:
     broadcasts its calls (:meth:`record`, :meth:`step_clock`), the others
     receive them (:meth:`receive`); every rank checks the digest."""
 
-    def __init__(self, group: DistGroup, check_every: int = CHECK_EVERY):
+    def __init__(self, group: DistGroup):
         self.group = group
         self.leader = group.rank == 0
-        self.check_every = max(1, int(check_every))
         #: steps run, digest checks passed
         self.steps = 0
         self.checks = 0
@@ -126,7 +126,7 @@ class StepMirror:
         for f in done:
             self._finished.update(
                 repr((f.req_id, f.token_ids, f.stop_reason)).encode())
-        if self.steps % self.check_every == 0:
+        if self.steps % CHECK_EVERY == 0:
             self.check(engine)
 
     def digest(self, engine: LLMEngine) -> str:
@@ -239,8 +239,7 @@ def rank_state(model_cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
 
 def rank_engine(model_cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
                 ecfg: EngineConfig, group: DistGroup,
-                device: DeviceLike = None,
-                check_every: int = CHECK_EVERY) -> LLMEngine:
+                device: DeviceLike = None) -> LLMEngine:
     """One rank's engine over its shard of the whole model's ``state``,
     with its :class:`StepMirror` attached: rank 0's takes requests, the
     others run :func:`follow`."""
@@ -248,7 +247,7 @@ def rank_engine(model_cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
     cfg, shard = rank_state(model_cfg, state, group, device)
     model = LlamaForCausalLM.from_state_dict(cfg, shard, group=group)
     engine = LLMEngine(cfg, model, ecfg, device=device, group=group)
-    engine.mirror = StepMirror(group, check_every)
+    engine.mirror = StepMirror(group)
     return engine
 
 
@@ -265,8 +264,7 @@ def _rank_devices(backend: str, tp: int, device: torch.device
 
 def _follower_main(rank: int, tp: int, backend: str, init_file: str,
                    device: str, model_cfg: LlamaConfig, state, ecfg,
-                   env: Dict[str, str], timeout_s: float,
-                   check_every: int) -> None:
+                   env: Dict[str, str], timeout_s: float) -> None:
     """A follower process of :func:`launch_engine`: rank 0's ``SHAI_*``
     switches, the group, the rank's engine, then :func:`follow` until rank
     0 closes."""
@@ -277,8 +275,7 @@ def _follower_main(rank: int, tp: int, backend: str, init_file: str,
     group = init_group(tp, rank, init_file, backend, device, timeout_s)
     try:
         t1 = time.monotonic()
-        engine = rank_engine(model_cfg, state, ecfg, group, device,
-                             check_every)
+        engine = rank_engine(model_cfg, state, ecfg, group, device)
         # drop rank 0's tensors (the process object holds this dict too):
         # a CUDA IPC tensor kept to the exit leaves rank 0's blocks marked
         # in use by this process
@@ -292,8 +289,8 @@ def _follower_main(rank: int, tp: int, backend: str, init_file: str,
 
 def launch_engine(model_cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
                   ecfg: EngineConfig, tp: int, backend: str = "nccl",
-                  device: DeviceLike = None, timeout_s: float = 600.0,
-                  check_every: int = CHECK_EVERY) -> LLMEngine:
+                  device: DeviceLike = None, timeout_s: float = 600.0
+                  ) -> LLMEngine:
     """Rank 0's engine of a ``tp``-rank group, with ranks 1..tp-1 started
     as follower processes (``spawn``). ``state``: the whole model's state
     dict (bf16, or int8 from ``ops.quant.quantize_state_dict``); each rank
@@ -317,8 +314,8 @@ def launch_engine(model_cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
     ctx = tmp.get_context("spawn")
     procs = [ctx.Process(target=_follower_main, name=f"tp-rank-{r}",
                          args=(r, tp, backend, init_file, str(devices[r]),
-                               model_cfg, state, ecfg, env, timeout_s,
-                               check_every), daemon=True)
+                               model_cfg, state, ecfg, env, timeout_s),
+                         daemon=True)
              for r in range(1, tp)]
     t0 = time.monotonic()
     for p in procs:
@@ -326,8 +323,7 @@ def launch_engine(model_cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
     try:
         group = init_group(tp, 0, init_file, backend, devices[0], timeout_s)
         t1 = time.monotonic()
-        engine = rank_engine(model_cfg, state, ecfg, group, devices[0],
-                             check_every)
+        engine = rank_engine(model_cfg, state, ecfg, group, devices[0])
         t2 = time.monotonic()
         ranks = group.gather_objects({"group": t1 - t0, "engine": t2 - t1})
     except BaseException:

@@ -6,7 +6,8 @@ unsharded engine on the same weights (``chip_smoke.py`` phase
     python3 scripts/tp_group_overhead.py
 
 Llama-3-8B at full width and depth, seeded N(0, 0.02) bf16 weights; the
-tp_engine phase's 8 requests of 5 to 1,300 tokens, 8 greedy tokens each,
+tp_engine phase's requests and engine geometry (``chip_smoke.TPE_PROMPTS``,
+``TPE_ENGINE``: 8 requests of 5 to 1,300 tokens, 8 greedy tokens each),
 async decode, every decode key warmed (captured) first. For each engine:
 the wall seconds of three ``generate`` rounds (host clock, ending in
 ``torch.cuda.synchronize()``), a ``torch.profiler`` table of the third
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import gc
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -28,6 +30,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from chip_smoke import TPE_ENGINE, TPE_PROMPTS  # noqa: E402
 from scalable_hw_agnostic_inference_tpu_torch.engine import ranks  # noqa: E402
 from scalable_hw_agnostic_inference_tpu_torch.engine.config import (  # noqa: E402
     EngineConfig,
@@ -45,13 +48,9 @@ from scalable_hw_agnostic_inference_tpu_torch.parallel.distributed import (  # n
     init_group,
 )
 
-PROMPTS = (5, 37, 120, 300, 512, 700, 1000, 1300)
-ENGINE = dict(max_model_len=2048, max_num_seqs=8, block_size=16,
-              context_encoding_buckets=(128, 512), max_new_tokens=8)
-
-
 def measure(eng: LLMEngine, label: str, prompts) -> None:
-    params = SamplingParams(temperature=0.0, max_new_tokens=8)
+    params = SamplingParams(temperature=0.0,
+                            max_new_tokens=TPE_ENGINE["max_new_tokens"])
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for rnd in range(3):
@@ -96,17 +95,17 @@ def main() -> None:
         cfg, random_params(cfg, seed=0, std=0.02, device="cuda"))
     gen = torch.Generator().manual_seed(5)
     prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
-               for n in PROMPTS]
-    plain = LLMEngine(cfg, model, EngineConfig(**ENGINE), device="cuda")
+               for n in TPE_PROMPTS]
+    plain = LLMEngine(cfg, model, EngineConfig(**TPE_ENGINE), device="cuda")
     plain.warm_executables()
     measure(plain, "unsharded", prompts)
     del plain
     gc.collect()
-    store = os.path.join(tempfile.mkdtemp(), "store")
-    group = init_group(1, 0, store, "nccl", "cuda:0")
+    tmp = tempfile.mkdtemp(prefix="shai-tp1-")
+    group = init_group(1, 0, os.path.join(tmp, "store"), "nccl", "cuda:0")
     try:
         eng = ranks.rank_engine(cfg, dict(model.state_dict()),
-                                EngineConfig(**ENGINE), group, "cuda")
+                                EngineConfig(**TPE_ENGINE), group, "cuda")
         eng.warm_executables()
         measure(eng, "nccl group of one", prompts)
         eng.close()
@@ -115,6 +114,7 @@ def main() -> None:
         torch.cuda.synchronize()
     finally:
         group.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -78,6 +78,7 @@ from test_torch_openai import (  # noqa: E402
     _same_or_tie,
     _wait_ready,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # the oracle's engine shapes, with four slots for a group of three
 ENGINE_KW = dict(max_model_len=128, max_num_seqs=4, block_size=8,
@@ -93,16 +94,6 @@ SAMPLING = {
     "topk": dict(temperature=0.9, top_k=5, max_new_tokens=8),
     "topp": dict(temperature=0.7, top_p=0.8, max_new_tokens=8),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny engines run one intra-op thread: under the suite's xdist
-    workers, a pool of threads per worker oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

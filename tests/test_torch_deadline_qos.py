@@ -19,10 +19,11 @@ preemption victim). What is held:
 """
 
 import dataclasses
+import sys
 import time
+from pathlib import Path
 
 import pytest
-import torch
 
 import jax
 import jax.numpy as jnp
@@ -42,19 +43,12 @@ from scalable_hw_agnostic_inference_tpu_torch.engine.loop import EngineLoop
 from scalable_hw_agnostic_inference_tpu_torch.models import llama as tllama
 from scalable_hw_agnostic_inference_tpu_torch.resilience import qos
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 ENGINE_KW = dict(max_model_len=64, max_num_seqs=3, block_size=8,
                  context_encoding_buckets=(16, 32), max_new_tokens=16)
 LONG = list(range(3, 43))   # 40 tokens: chunks 32 + 8 under buckets (16, 32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny engines run one intra-op thread: under the suite's xdist
-    workers, a pool of threads per worker oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -65,6 +65,9 @@ from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
     flash_attention as pflash,
 )
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 #: fp32 modules: max |port - JAX| over rms(JAX)
 FP32_RRMS = 1e-4
 #: the attention rule: rms(port - JAX) within ATOL + RRMS·rms(JAX)
@@ -82,16 +85,6 @@ PIPE_F32_MEAN, PIPE_F32_MAX = 0.5, 4
 PIPE_BF16_MEAN, PIPE_BF16_MAX = 4.0, 32
 
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for these tiny tensors: beside five other test
-    workers, a thread per core spin-waits and a tiny UNet's hundreds of
-    small ops each pay for it (seconds a forward instead of milliseconds)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _randomize(shapes, seed):
     """Numpy draws for a flax parameter tree of ``ShapeDtypeStruct``s:

@@ -41,6 +41,7 @@ from scalable_hw_agnostic_inference_tpu_torch.models import yolos as pyolos
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_diffusion import _jax_params, _rel_max  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 #: fp32 forwards, port against JAX: max |diff| over rms(JAX)
 FP32_RRMS = 1e-5
@@ -52,14 +53,6 @@ PREFIX_MASK = np.array([[1] * 5 + [0] * 7, [1] * 12], np.int32)
 HOLED_MASK = np.array([[1, 0, 1, 1, 0, 1, 1, 1, 0, 0, 1, 1], [1] * 12],
                       np.int32)
 MASKS = {"none": None, "prefix": PREFIX_MASK, "holed": HOLED_MASK}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

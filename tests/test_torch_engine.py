@@ -43,16 +43,7 @@ from scalable_hw_agnostic_inference_tpu_torch.models import llama as tllama
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from parity import assert_greedy_parity  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny engines run one intra-op thread: under the suite's xdist
-    workers, a pool of threads per worker oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -46,21 +46,12 @@ from scalable_hw_agnostic_inference_tpu_torch.models import flux as pflux
 sys.path.insert(0, str(Path(__file__).parent))
 from test_models_flux import bfl_sd_from_params  # noqa: E402
 from test_torch_diffusion import _check_bf16, _jax_params  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 #: fp32 modules: max |port - JAX| over rms(JAX)
 FP32_RRMS = 1e-4
 
 B, H_LAT, W_LAT, LT = 2, 8, 8, 6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for these tiny tensors (beside five other test
-    workers a thread per core spin-waits)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

@@ -86,6 +86,7 @@ from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from parity import assert_greedy_parity  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ATTN_ATOL = 2e-5
 LOGIT_ATOL = 6e-2
@@ -101,16 +102,6 @@ SAMPLING = {
     "topk": dict(temperature=0.9, top_k=5, max_new_tokens=8),
     "topp": dict(temperature=0.7, top_p=0.8, max_new_tokens=8),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny engines run one intra-op thread: under the suite's xdist
-    workers, a pool of threads per worker oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

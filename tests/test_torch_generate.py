@@ -45,6 +45,7 @@ from scalable_hw_agnostic_inference_tpu_torch.models import llama as pllama
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_diffusion import _jax_params, _rel_max  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 #: fp32 logits, port layout against the reference's
 FP32_RRMS = 1e-5
@@ -61,14 +62,6 @@ CASES = {"fp32": (jnp.float32, torch.float32, False),
          "bf16": (jnp.bfloat16, torch.float32, False),
          "bf16_cache": (jnp.bfloat16, torch.bfloat16, False),
          "int8": (jnp.bfloat16, torch.float32, True)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

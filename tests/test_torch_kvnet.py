@@ -51,7 +51,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 import jax
 import jax.numpy as jnp
@@ -106,6 +105,7 @@ from scalable_hw_agnostic_inference_tpu_torch.serve.metrics import (
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from parity import assert_greedy_parity  # noqa: E402
 from test_torch_openai import _http, _port_service, _wait_ready  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 BF16 = jnp.bfloat16.dtype   # ml_dtypes' bfloat16, the JAX side's
@@ -544,16 +544,6 @@ def test_kvnet_families_export_on_tier_pods_only():
 
 
 # -- the handoff, engine to engine -------------------------------------------------
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny engines run one intra-op thread: under the suite's xdist
-    workers, a pool of threads per worker oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 
 @pytest.fixture(scope="module")
 def tiny():

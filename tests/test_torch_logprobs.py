@@ -53,6 +53,7 @@ from scalable_hw_agnostic_inference_tpu_torch.models import llama as tllama
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from parity import assert_greedy_parity  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 LP_ATOL = 6e-2
 ENGINE_KW = dict(max_model_len=64, max_num_seqs=3, block_size=8,
@@ -63,16 +64,6 @@ LONG = list(range(3, 43))   # 40 tokens: chunks 32 + 8 under buckets (16, 32)
 REQUESTS = {0: [([1, 5, 9], 9, 5), (LONG, 6, 2)],
             4: [([2, 7], 5, 5)],
             9: [([42, 43, 44, 45], 4, 1)]}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny engines run one intra-op thread: under the suite's xdist
-    workers, a pool of threads per worker oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -49,7 +49,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 import jax
 import jax.numpy as jnp
@@ -110,6 +109,7 @@ from scalable_hw_agnostic_inference_tpu_torch.utils.env import ServeConfig
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from parity import assert_greedy_parity  # noqa: E402
 from test_torch_openai import _http, _port_service, _wait_ready  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from test_torch_logprobs import LP_ATOL  # noqa: E402
 
@@ -118,16 +118,6 @@ BF16 = jnp.bfloat16.dtype   # ml_dtypes' bfloat16, the JAX side's
 ENGINE_KW = dict(max_model_len=128, max_num_seqs=3, block_size=8,
                  context_encoding_buckets=(16, 32), max_new_tokens=24,
                  enable_prefix_caching=True)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny engines run one intra-op thread: under the suite's xdist
-    workers, a pool of threads per worker oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

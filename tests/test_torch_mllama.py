@@ -93,6 +93,7 @@ sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(HERE.parent))
 import chat_templates  # noqa: E402
 from parity import assert_greedy_parity  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 VISION_RTOL = 1e-4
 LOGIT_ATOL = 6e-2
@@ -167,16 +168,6 @@ def _lm_state_dict(sd):
            if k.startswith("model.language_model.")}
     out.update({k: v for k, v in sd.items() if k.startswith("lm_head.")})
     return out
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny engines run one intra-op thread: under the suite's xdist
-    workers, a pool of threads per worker oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -64,6 +64,7 @@ from scalable_hw_agnostic_inference_tpu_torch.ops.cuda import (
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from parity import assert_greedy_parity  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _bf16(a: np.ndarray) -> np.ndarray:
@@ -207,16 +208,6 @@ ENGINE_KW = dict(max_model_len=128, max_num_seqs=3, block_size=16,
                  context_encoding_buckets=(16, 32, 64),
                  token_generation_buckets=(32, 64), max_new_tokens=12,
                  quantization="int8")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny engines run one intra-op thread: under the suite's xdist
-    workers, a pool of threads per worker oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -89,6 +89,7 @@ from test_torch_serve_sd import (  # noqa: E402
     _wait_ready,
 )
 from test_torch_unigram import build_spec, write_t5_tokenizer  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 #: the tiny tier's images, port against JAX on the same latents and
 #: weights, every stage fp32 on both sides: at most one uint8 level (a
@@ -100,14 +101,6 @@ EMBED_ATOL = 1e-5
 STEPS = 2
 
 TINY = dict(model_id="tiny", device="cpu", num_inference_steps=STEPS)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_latents(seed, B, h, w, C):

@@ -75,6 +75,7 @@ from test_torch_diffusion import (  # noqa: E402
     _randomize,
     write_clip_tokenizer,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 #: the tiny tier's images, port against JAX on the same latents and
 #: weights, 2 DDIM steps at guidance 7.5, bf16 UNet and VAE on both sides
@@ -92,16 +93,6 @@ TINY = dict(app="sd21", model_id="tiny", device="cpu",
             num_inference_steps=2, batch_size=1)
 
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for these tiny tensors: beside five other test
-    workers, a thread per core spin-waits and a tiny UNet's hundreds of
-    small ops each pay for it (seconds a forward instead of milliseconds)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 def _http(url, payload=None, timeout=120.0):
     data = None if payload is None else json.dumps(payload).encode()

@@ -67,6 +67,7 @@ sys.path.insert(0, str(Path(__file__).parent.parent))
 import chip_smoke  # noqa: E402
 from test_torch_serve_flux import _serve  # noqa: E402
 from test_torch_serve_sd import _http, _load_jax_unit, _wait_ready  # noqa
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 #: the responses round scores and logits to 4 decimals and box corners to
 #: 0.1 px: fp32 noise between the packages may move the last digit by one
@@ -74,14 +75,6 @@ ROUND_SCORE, ROUND_BOX = 1.5e-4, 0.15
 #: the LLM units' cap on new tokens here (the reference's default, 128,
 #: only makes the CPU runs longer)
 NEW = 12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _png_b64(h, w, seed):

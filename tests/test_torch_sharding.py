@@ -73,19 +73,10 @@ from scalable_hw_agnostic_inference_tpu_torch.serve.units.common import (
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_imports import _forbidden_imports, _modules  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 #: tests/test_models_llama.py's sharded-forward tolerance
 TP_ATOL = 2e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for these tiny tensors (beside five other test
-    workers a thread per core spin-waits)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _split_dim(spec) -> "int | None":

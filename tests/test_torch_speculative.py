@@ -100,6 +100,7 @@ from scalable_hw_agnostic_inference_tpu_torch.serve import metrics as tmetrics
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from parity import assert_greedy_parity  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 K = 4
 # tests/test_speculative.py's engine shapes over a pool of 8 usable blocks:
@@ -113,16 +114,6 @@ PROB_RTOL = 0.16
 PROB_ATOL = 1e-3
 N_DRAWS = 20000
 FREQ_ATOL = 4.5 * np.sqrt(0.25 / N_DRAWS)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny engines run one intra-op thread: under the suite's xdist
-    workers, a pool of threads per worker oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -38,20 +38,13 @@ from scalable_hw_agnostic_inference_tpu_torch.models import t5 as pt5
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_diffusion import _check_bf16, _jax_params  # noqa: E402
 from test_torch_unigram import transformers_names  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 #: fp32: max |port - JAX| over rms(JAX)
 FP32_RRMS = 1e-4
 #: against HF's fp32 encoder at the real tokens (the JAX package's own
 #: test holds its encoder to HF at 2e-4)
 HF_ATOL = 2e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ids_mask(vocab, seed=1):

@@ -20,10 +20,12 @@ test_engine.py``'s ``_tp_engine``).
   switches (token-equal, or parting only at a bf16 tie, logprobs within
   6e-2 where equal); ``warm_executables`` (0 recompiles on each rank) and
   a 1-kv-head model widened to tp equal tp=1;
-- every case ends with both ranks holding equal digests (checked every 4
-  steps and at the end), no leaked block and the whole pool free;
+- every case ends with both ranks holding equal digests (checked every
+  ``CHECK_EVERY`` steps and at the end), no leaked block and the whole
+  pool free;
   temperature 0.8 gives equal streams on both ranks; a cancel and a
-  deadline mid-stream leave the ranks equal;
+  deadline mid-stream leave the ranks equal, and so does a step that rank
+  0's chaos site crashes;
 - the refusals: a tp without a matching group, mllama under a group, the
   host tier off under TP with its warnings; a rank that raises fails the
   parent with its traceback inside the timeout, and no rank outlives its
@@ -277,6 +279,17 @@ def test_cancel_and_deadline_mid_stream_leave_the_ranks_equal(tp):
     assert by_id[keep][1] == "length" and len(by_id[keep][0]) == 12
     assert by_id[cut][1] == "cancelled" and 0 < len(by_id[cut][0]) < 12
     assert by_id[late][1] == "timeout" and 0 < len(by_id[late][0]) < 12
+
+
+def test_a_step_crash_on_rank_0_leaves_the_ranks_in_step(tp):
+    """The crashed step was run by no rank: the ranks then serve on with
+    equal digests, and the tokens are tp=1's under the same crash."""
+    _assert_ranks_whole(tp, "step_crash")
+    r0 = tp.ranks[0]["step_crash"]
+    assert r0["crashed"] and tp.tp1["step_crash"]["crashed"]
+    assert r0["seconds"] < 60.0
+    assert _tokens(r0) == _tokens(tp.tp1["step_crash"])
+    assert [len(t) for t in _tokens(r0)] == [cases.NEW_TOKENS] * 2
 
 
 def test_kv_heads_widened_to_tp(tp):

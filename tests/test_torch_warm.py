@@ -13,11 +13,12 @@ ragged), and after it a ``generate`` run builds nothing in either package
 
 import dataclasses
 import json
+import sys
 import time
 import urllib.request
+from pathlib import Path
 
 import pytest
-import torch
 
 import jax
 import jax.numpy as jnp
@@ -41,21 +42,14 @@ from scalable_hw_agnostic_inference_tpu_torch.serve.units.vllm import (
 )
 from scalable_hw_agnostic_inference_tpu_torch.utils.env import ServeConfig
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 # max_model_len 64 past the largest bucket 32: one static continuation
 # (start 32), or the one ragged entry; two context buckets when bucketed
 ENGINE_KW = dict(max_model_len=64, max_num_seqs=3, block_size=8,
                  context_encoding_buckets=(16, 32),
                  token_generation_buckets=(32,), max_new_tokens=8)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny engines run one intra-op thread: under the suite's xdist
-    workers, a pool of threads per worker oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

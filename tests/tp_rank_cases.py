@@ -30,6 +30,7 @@ from scalable_hw_agnostic_inference_tpu_torch.engine.engine import (
 from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
     LlamaForCausalLM,
 )
+from scalable_hw_agnostic_inference_tpu_torch.resilience import faults
 
 #: the engines' shape (``tests/test_engine.py``'s ``_tp_engine``, with a
 #: longer window: the third prompt chunks past the 32-token bucket)
@@ -151,6 +152,29 @@ def drive_abort(eng: LLMEngine) -> Dict[str, Any]:
     return {"finished": finished(fins), "ids": (keep, cut, late)}
 
 
+@_case("step_crash")
+def drive_step_crash(eng: LLMEngine) -> Dict[str, Any]:
+    """Rank 0's ``engine.step`` chaos site crashes one step mid-stream
+    (before rank 0 tells the other ranks to run it): no rank runs that
+    step, and the next steps find the ranks still in step."""
+    p = SamplingParams(**GREEDY)
+    for prompt in PROMPTS[:2]:
+        eng.add_request(prompt, p)
+    fins = eng.step() + eng.step()
+    prev = faults.get()
+    faults.configure("engine.step=error#1")
+    try:
+        eng.step()
+        crashed = False
+    except faults.FaultError:
+        crashed = True
+    finally:
+        faults.configure(prev.spec, prev.seed)
+    while eng.has_work:
+        fins.extend(eng.step())
+    return dict(greedy_result(fins), crashed=crashed)
+
+
 @_case("warm")
 def drive_warm(eng: LLMEngine) -> Dict[str, Any]:
     n = eng.warm_executables()
@@ -218,8 +242,7 @@ def run_cases(group, cfgs: Dict[str, Any], states: Dict[str, Any],
         t0 = time.monotonic()
         ecfg = EngineConfig(**dict(ENGINE_KW, tensor_parallel_size=group.size,
                                    **kw))
-        eng = ranks.rank_engine(cfgs[key], states[key], ecfg, group, "cpu",
-                                check_every=4)
+        eng = ranks.rank_engine(cfgs[key], states[key], ecfg, group, "cpu")
         if group.rank == 0:
             res = drive(eng)
             eng.close()
