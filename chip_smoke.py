@@ -50,16 +50,18 @@ Phases:
                 HBM gate: ``llama-8b-geometry`` at ``TP_GATE_BLOCKS``
                 blocks refused with the budget's breakdown and
                 ``memory_allocated()`` unchanged across it, the serve
-                geometry booted and warmed; (b) Llama-3-8B at full width
-                and depth, seeded bf16, through the rank-local modules
-                over the loopback group at tp 1, 2, 4, 8 and int8 at 1
-                and 4: a 512-token prefill and 16 eager greedy steps over
+                geometry booted and warmed; (b) Llama-3-8B at full width,
+                ``TP_LAYERS`` of its 32 layers, seeded bf16, through the
+                rank-local modules over the loopback group at tp 1, 2, 4,
+                8 and int8 at 1 and 4: a 512-token prefill and 8 eager
+                greedy steps over
                 each rank's dense cache, the last logits within
                 ``TP_RRMS`` of tp=1's with a control outside it, the
                 tokens by the plain deficit rule, B1, B2 (and B4) launches
                 exact a rank;
   7b. ``tp_engine`` the paged engine over tensor-parallel ranks
-                (``engine/ranks.py``), Llama-3-8B widths and 32 layers,
+                (``engine/ranks.py``), Llama-3-8B widths, ``TPE_LAYERS``
+                of the engine phases' 32 layers,
                 seeded bf16, 8 requests of 5 to 1,300 tokens: (a) tp=1
                 over an NCCL group of one, its decode keys captured as
                 CUDA graphs with the all-reduce inside, tokens exactly the
@@ -71,6 +73,36 @@ Phases:
                 equal and no leaked block; (c) (b) under int8 weights,
                 int8 KV and ragged attention (B3 and B4 at rank shapes),
                 held to the unsharded int8 engine the same way;
+  7c. ``tp_units`` the LLM units over tensor-parallel ranks
+                (``serve/multihost.py``: the leader serves HTTP, the other
+                ranks mirror ``generate_text``) on the seeded Llama-3.2-1B
+                directory, ``TPU_NEW`` greedy tokens for ``TPU_PROMPTS``,
+                ``/sentiment`` and a 400: (a) the ``llama`` unit as a
+                group of one over NCCL through the env path
+                (``SHAI_COORDINATOR``, ``SHAI_NUM_PROCESSES=1``,
+                ``MESH_SPEC=tp=1``): tokens exactly the plain unit's, the
+                decode steps captured with the all-reduce inside (a
+                replay makes no collective call and equals the eager step,
+                which makes them), B1 and B2 launches the plain unit's;
+                (b) ``MESH_SPEC=tp=2`` as two gloo ranks sharing the card:
+                tokens (a)'s or within ``TIE_TOL`` of the plain scoring
+                forward, the follower's mirrored calls counted on both
+                ranks (warmup, every request, the 400, ``/sentiment``),
+                the follower alive after the 400, rank 0's B1 and B2 one a
+                layer a prefill and a decode step; then
+                ``llama-8b-geometry`` at full width and depth at tp=2 (one
+                request, B1 32 a prefill and B2 32 a step), and the
+                ``deepseek`` unit under ``QUANTIZATION=int8`` at tp=2 on
+                two prompts: tokens the plain ``deepseek`` int8 unit's or
+                within ``TIE_TOL`` of its scoring forward, rank 0's B1,
+                B2 and B4 launches its launches (B4 seven a layer a
+                forward); each tp=2 run's follower boots beside the plain
+                unit it is held against, where there is one; (c) the
+                refusals, each before
+                any allocation or spawned process: tp=2 over NCCL on one
+                card, ``SHAI_NUM_PROCESSES=3`` with tp=2, ``dp=2,tp=1``,
+                the ``vllm`` unit's ``tensor_parallel_size: 2`` on one
+                card, the ``t5`` unit at tp=2 (ROADMAP A7.3b);
   8. ``decode_graph`` one decode step at Llama-3-8B width (32 layers,
                 seeded weights) captured as a CUDA graph
                 (``engine/graphs.py``) at serve's bucketed shape (B=8, a
@@ -393,7 +425,8 @@ import urllib.request
 from pathlib import Path
 
 PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
-          "tp_plan", "tp_engine", "decode_graph", "engine", "engine_ragged", "engine_fused",
+          "tp_plan", "tp_engine", "tp_units", "decode_graph", "engine",
+          "engine_ragged", "engine_fused",
           "engine_spec", "engine_int8", "checkpoint", "engine_prefix",
           "engine_mllama", "engine_llava", "serve_disagg", "serve_fleet",
           "serve", "serve_int8", "serve_ragged", "serve_fused",
@@ -9122,8 +9155,11 @@ TP_INT8_ROWS = (8, 512)
 #: the gate's refusal: llama-8b-geometry with 48,000 blocks of 16 tokens,
 #: 2 MiB a block over 32 layers, 93.75 GiB of bf16 KV
 TP_GATE_BLOCKS = 48_000
-#: the rank-local forward: a 512-token prompt, then 8 greedy steps
+#: the rank-local forward: a 512-token prompt, then 8 greedy steps, at
+#: Llama-3-8B's widths and 16 of its 32 layers (the depth cut keeps the
+#: smoke inside its time; every check counts from the config's layers)
 TP_PROMPT, TP_STEPS, TP_SEED = 512, 8, 21
+TP_LAYERS = 16
 #: the rank-local forward's last-position logits against tp=1's through
 #: the same kernels, relative rms (PERF.md §6 states the prediction): each
 #: rank's partial sums round to bf16 before the all-reduce adds them in
@@ -9512,15 +9548,17 @@ def _rrms(a, b) -> float:
 
 
 def _tp_forward(ctx):
-    """Llama-3-8B at full width and depth, seeded N(0, 0.02) bf16 weights
-    (``random_params``), through the rank-local modules at tp 1, 2, 4, 8,
+    """Llama-3-8B at full width, ``TP_LAYERS`` layers, seeded N(0, 0.02)
+    bf16 weights (``random_params``), through the rank-local modules at tp
+    1, 2, 4, 8,
     each tp in turn (shards freed between), then int8 weights at tp 1 and
     4: the last-position logits against tp=1's within ``TP_RRMS``, the
     control (tp=4, layer 0's o all-reduce one partial short) outside it;
     the greedy tokens held to the plain scoring forward's deficit rule
-    (``TIE_TOL``); B1 exactly 32 launches a rank a prefill, B2 32 a rank a
-    step, B4 225 a rank a forward (wide at the prefill, decode at a step),
-    nothing else."""
+    (``TIE_TOL``); B1 exactly one launch a layer a rank a prefill, B2 one
+    a layer a rank a step, B4 seven a layer and the head a rank a forward
+    (wide at the prefill, decode at a step), nothing else."""
+    import dataclasses
     import types
 
     import torch
@@ -9533,7 +9571,7 @@ def _tp_forward(ctx):
         quantize_state_dict,
     )
 
-    cfg = LlamaConfig.llama3_8b()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=TP_LAYERS)
     L = cfg.n_layers
     state = random_params(cfg, seed=TP_SEED, std=0.02)
     base = LlamaForCausalLM.from_state_dict(cfg, state)
@@ -9607,11 +9645,29 @@ def _tp_forward(ctx):
 #: 0.65-0.90 s a step (each staged collective waits on both processes'
 #: contexts), so the rounds stay short
 TPE_PROMPTS = (5, 37, 120, 300, 512, 700, 1000, 1300)
+#: the engine model's first 16 of its 32 layers (the depth cut keeps the
+#: smoke inside its time; every check counts from the config's layers)
+TPE_LAYERS = 16
 TPE_NEW_TOKENS = 8
 TPE_SAMPLED = 2
 TPE_ENGINE = dict(max_model_len=2048, max_num_seqs=8, block_size=16,
                   context_encoding_buckets=(128, 512),
                   max_new_tokens=TPE_NEW_TOKENS)
+
+
+def _first_layers(cfg, model, n: int):
+    """``(cfg, model)`` cut to its first ``n`` layers, the tensors shared
+    (no copy)."""
+    import dataclasses
+
+    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+        LlamaForCausalLM,
+    )
+
+    cut = dataclasses.replace(cfg, n_layers=n)
+    state = {k: v for k, v in model.state_dict().items()
+             if not k.startswith("layers.") or int(k.split(".")[1]) < n}
+    return cut, LlamaForCausalLM.from_state_dict(cut, state)
 
 
 def _tpe_drive(eng, prompts, sampled=False):
@@ -9669,13 +9725,19 @@ def phase_tp_engine(ctx):
     from scalable_hw_agnostic_inference_tpu_torch.engine.engine import (
         LLMEngine,
     )
+    from scalable_hw_agnostic_inference_tpu_torch.models.llama import (
+        LlamaForCausalLM,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.ops.quant import (
+        quantize_state_dict,
+    )
     from scalable_hw_agnostic_inference_tpu_torch.parallel.distributed import (
         init_group,
     )
 
     t_phase = time.monotonic()
     out = ctx["tp_engine"] = {}
-    cfg, model = _engine_model(ctx)
+    cfg, model = _first_layers(*_engine_model(ctx), TPE_LAYERS)
     gen = torch.Generator().manual_seed(5)
     prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in TPE_PROMPTS]
@@ -9786,8 +9848,11 @@ def phase_tp_engine(ctx):
 
     # (c) (b) under int8 weights, int8 KV and ragged attention
     switches = {"SHAI_KV_QUANT": "int8", "SHAI_RAGGED_ATTENTION": "1"}
+    qcfg = cfg
+    qmodel = LlamaForCausalLM.from_state_dict(
+        cfg, quantize_state_dict(dict(model.state_dict())))
     del model
-    qcfg, qmodel = _int8_model(ctx)
+    _drop_engine_model(ctx)
     with _env({**base, **switches}):
         plain = LLMEngine(qcfg, qmodel, EngineConfig(
             **dict(TPE_ENGINE, quantization="int8")), device="cuda")
@@ -9806,6 +9871,522 @@ def phase_tp_engine(ctx):
     _drop_engine_model(ctx)
     out["seconds"] = time.monotonic() - t_phase
     log(f"tp_engine: {out['seconds']:.1f} s")
+
+
+# -- the LLM units over tensor-parallel ranks (tp_units) ----------------------
+
+#: tp_units: the llama units' cap on new tokens (two gloo ranks sharing the
+#: card stage each of a 1B step's 33 collectives through host memory), and
+#: the four prompts of (a) and (b)
+TPU_NEW = 8
+TPU_PROMPTS = CAUSAL_PROMPTS + ("the quick brown fox",)
+#: the review each round sends to ``/sentiment``
+TPU_REVIEW = "A moving film."
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _start_unit(name: str, env, backend=None, pool=None):
+    """The unit ``name`` (its config read under ``env``) with its ranks
+    started as ``serve_multihost`` starts them (``serve.multihost.
+    start_ranks``: its followers spawned and joined, nothing loaded yet):
+    ``(service, ranks, fails, start time)`` for :func:`_ranked_up`, or,
+    with ``pool``, a future of it, so that the followers boot beside work
+    of this process that joins no group (this process holds one group at
+    a time). Spawned followers inherit this process's environment, so a
+    pooled start runs while no ``SHAI_COORDINATOR`` is set."""
+    from scalable_hw_agnostic_inference_tpu_torch.serve.multihost import (
+        start_ranks,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.serve.units import UNITS
+    from scalable_hw_agnostic_inference_tpu_torch.utils.env import (
+        ServeConfig,
+    )
+
+    with _env(env):
+        cfg = ServeConfig.from_env()
+    service = UNITS[name](cfg)
+
+    def start():
+        fails = []
+        t0 = time.monotonic()
+        ranks = start_ranks(cfg, service, backend, on_fail=fails.append,
+                            timeout_s=300.0)
+        return service, ranks, fails, t0
+
+    return pool.submit(start) if pool is not None else start()
+
+
+@contextlib.contextmanager
+def _ranked_up(started):
+    """:func:`_start_unit`'s unit behind the stdlib server, ready, for the
+    block: ``(service, base URL, ranks, ready seconds)``. Rank 0's
+    ``generate_ids`` records every token row it returns in
+    ``service.rows``. A failure that would end the unit together fails the
+    phase instead; the ranks close after the block (the shutdown, every
+    rank's mirrored counts, the followers' exit)."""
+    from scalable_hw_agnostic_inference_tpu_torch.serve.app import (
+        create_app,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.serve.httpd import Server
+    from scalable_hw_agnostic_inference_tpu_torch.serve.metrics import (
+        MetricsPublisher,
+    )
+
+    service, ranks, fails, t0 = started
+    cfg = service.cfg
+    _recording(service)   # after the followers took their copies
+    server = None
+    try:
+        app = create_app(cfg, service, publisher=MetricsPublisher(
+            cfg.app, cfg.nodepool, cfg.pod_name, stream=io.StringIO()))
+        server = Server(app, host="127.0.0.1", port=0)
+        host, port = server.start_background()
+        base = f"http://{host}:{port}"
+        while True:
+            status, body = _http(base + "/readiness")
+            if status == 200:
+                break
+            if status == 500 or fails or time.monotonic() - t0 > 600:
+                raise AssertionError(f"{cfg.app} over ranks: not ready: "
+                                     f"{status} {body} {fails}")
+            time.sleep(0.25)
+        yield service, base, ranks, time.monotonic() - t0
+        if fails:
+            raise AssertionError(f"{cfg.app} over ranks failed: {fails}")
+    finally:
+        if server is not None:
+            server.stop()
+        ranks.close()
+
+
+def _recording(service):
+    """``service`` whose ``generate_ids`` keeps each row it returns in
+    ``service.rows`` (the mirrored ``generate_text`` calls it; rank 0's
+    own calls, no device work of their own)."""
+    inner = service.generate_ids
+    service.rows = []
+
+    def generate_ids(*args, **kwargs):
+        row = inner(*args, **kwargs)
+        service.rows.append(row)
+        return row
+
+    service.generate_ids = generate_ids
+    return service
+
+
+def _tpu_round(base, service, prompts):
+    """``prompts`` greedy through ``/generate``, then ``/sentiment``: the
+    token rows, the launch counts, each request's seconds and tokens."""
+    _reset_counters()
+    service.rows.clear()
+    lat, n_tok = [], []
+    for p in prompts:
+        t1 = time.perf_counter()
+        status, body = _http(base + "/generate",
+                             {"prompt": p, "temperature": 0.0})
+        lat.append(time.perf_counter() - t1)
+        if status != 200:
+            raise AssertionError(f"tp_units: {status} {body}")
+        n_tok.append(body["n_tokens"])
+    status, sent = _http(base + "/sentiment", {"text": TPU_REVIEW})
+    if status != 200 or not isinstance(sent.get("sentiment"), str):
+        raise AssertionError(f"tp_units: /sentiment {status} {sent}")
+    return list(service.rows), _read_counters(), lat, n_tok
+
+
+def _tpu_launches(what, counts, rows, L, eos, quant=False, wide=0):
+    """B1 one launch a layer a prefill, B2 one a layer a decode forward
+    (B4 seven a layer a forward under int8: its wide instantiation for
+    the ``wide`` prefills past ``DECODE_MAX_ROWS`` rows, the decode one
+    for the others), nothing else."""
+    expect = {"flash_attention", "paged_decode_attention"}
+    if quant:
+        expect.add("int8_matmul")
+        if wide:
+            expect.add("int8_matmul_wide")
+    _check_counters(what, counts, expect)
+    fwd = sum(_forwards(r, eos, TPU_NEW) for r in rows)
+    want = {"flash_attention": L * len(rows),
+            "paged_decode_attention": L * fwd}
+    if quant:
+        want["int8_matmul"] = 7 * L * (len(rows) - wide + fwd)
+        want["int8_matmul_wide"] = 7 * L * wide
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def _wide_prefills(service, prompts):
+    """How many of :func:`_tpu_round`'s prefills (``prompts``, then
+    ``/sentiment``'s) have a bucket past B4's decode instantiation."""
+    from scalable_hw_agnostic_inference_tpu_torch.ops.cuda.int8_matmul import (
+        DECODE_MAX_ROWS,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.serve.units.causal_lm import (
+        SENTIMENT_PROMPT,
+    )
+
+    texts = list(prompts) + [SENTIMENT_PROMPT.format(text=TPU_REVIEW)]
+    return sum(service._encode(t)[2] > DECODE_MAX_ROWS for t in texts)
+
+
+def _tpu_line(what, **row):
+    log("tp_units: " + json.dumps({"what": what, **row}))
+    return row
+
+
+def _count_collectives(group):
+    """Count ``group``'s Python all-reduce and all-gather calls in
+    ``group.calls``."""
+    group.calls = 0
+    for name in ("all_reduce", "all_gather"):
+        inner = getattr(group, name)
+
+        def counted(*args, _inner=inner, **kwargs):
+            group.calls += 1
+            return _inner(*args, **kwargs)
+
+        setattr(group, name, counted)
+
+
+def _replay_collectives(service, group):
+    """One decode step of the unit's smallest bucket replayed from its
+    graph, then run eagerly on the same cache, token and position: the
+    collective calls each made in Python (``_count_collectives``) and
+    whether their logits are the same bits. The counters are restored
+    after."""
+    import torch
+
+    cache, step = service._gen[service.buckets.buckets[0]].steps[1]
+    dev = step.tok.device
+    tok = torch.full((1, 1), 7, dtype=torch.int64, device=dev)
+    pos = torch.full((1,), cache.n_slots // 2, dtype=torch.int64,
+                     device=dev)
+    saved = _read_counters()
+    with torch.inference_mode():
+        c0 = group.calls
+        replayed = step(tok, pos).clone()
+        c1 = group.calls
+        eager = service.model(tok, pos[:, None], cache=cache,
+                              write_pos=pos)[:, -1]
+        c2 = group.calls
+    for name, (fn, attr) in _counters().items():
+        setattr(fn, attr, saved[name])
+    return c1 - c0, c2 - c1, bool(torch.equal(replayed, eager))
+
+
+def _tpu_refusals(path):
+    """(c): each refused before any allocation or spawned process."""
+    import multiprocessing
+
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.serve.multihost import (
+        start_ranks,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.serve.units import UNITS
+    from scalable_hw_agnostic_inference_tpu_torch.utils.env import (
+        ServeConfig,
+    )
+
+    tmp = Path(path).parent
+    cm = tmp / "tp2-vllm.json"
+    cm.write_text(json.dumps({"tensor_parallel_size": 2}))
+    base = {"DEVICE": "cuda", "MODEL_ID": str(path), "PORT": "0",
+            "SHAI_COORDINATOR": "", "MESH_SPEC": ""}
+    coord = {"SHAI_COORDINATOR": f"127.0.0.1:{_free_port()}",
+             "SHAI_NUM_PROCESSES": "3", "SHAI_PROCESS_ID": "0"}
+    cases = [
+        ("tp=2 over NCCL, one card", "llama", {"MESH_SPEC": "tp=2"},
+         "2 NCCL ranks on this host.*1 card"),
+        ("SHAI_NUM_PROCESSES=3, tp=2", "llama",
+         {"MESH_SPEC": "tp=2", **coord}, "SHAI_NUM_PROCESSES=3 does not"),
+        ("dp=2,tp=1", "llama", {"MESH_SPEC": "dp=2,tp=1"},
+         "tensor parallelism only"),
+        ("t5 tp=2", "t5", {"MESH_SPEC": "tp=2"}, "A7.3b"),
+        ("vllm tensor_parallel_size 2", "vllm", {"VLLM_CONFIG": str(cm)},
+         "tensor_parallel_size=2 exceeds the 1 local devices"),
+    ]
+    import re
+
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    kids = multiprocessing.active_children()
+    out = {}
+    for what, name, env, match in cases:
+        with _env({**base, **env}):
+            cfg = ServeConfig.from_env()
+            service = UNITS[name](cfg)
+            try:
+                if name == "vllm":
+                    service.load()
+                else:
+                    start_ranks(cfg, service)
+                raise AssertionError(f"tp_units (c) {what}: not refused")
+            except ValueError as e:
+                if not re.search(match, str(e)):
+                    raise AssertionError(f"tp_units (c) {what}: {e}")
+                out[what] = str(e)[:160]
+        if torch.cuda.memory_allocated() != mem or \
+                multiprocessing.active_children() != kids:
+            raise AssertionError(f"tp_units (c) {what}: refused after an "
+                                 f"allocation or a spawn")
+    return out
+
+
+def phase_tp_units(ctx):
+    """The LLM units over tensor-parallel ranks on one card (module
+    docstring, 7c)."""
+    import concurrent.futures
+
+    t_phase = time.monotonic()
+    out = ctx["tp_units"] = {}
+    _drop_engine_model(ctx)
+    path = _seeded_1b_dir(ctx)
+    env = {"DEVICE": "cuda", "MODEL_ID": str(path), "PORT": "0",
+           "APP": "llama", "MAX_NEW_TOKENS": str(TPU_NEW),
+           "MAX_SEQ_LEN": "512", "QUANTIZATION": "", "SHAI_COORDINATOR": "",
+           "MESH_SPEC": ""}
+    envs = {"b": {**env, "MESH_SPEC": "tp=2"},
+            "8b": {**env, "MODEL_ID": "llama-8b-geometry",
+                   "MESH_SPEC": "tp=2"},
+            "plain_int8": {**env, "APP": "deepseek", "QUANTIZATION": "int8"},
+            "int8": {**env, "APP": "deepseek", "QUANTIZATION": "int8",
+                     "MESH_SPEC": "tp=2"}}
+    # pooled starts not yet run: if the phase fails first, their ranks
+    # are ended here (no shutdown: their followers wait in the boot)
+    pending = set()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            _tp_units(ctx, out, path, env, envs, pool, pending)
+    finally:
+        for future in pending:
+            try:
+                ranks = future.result()[1]
+            except BaseException as e:
+                log(f"tp_units: a pending start failed: {e}")
+                continue
+            ranks.closing = True
+            for p in ranks.procs:
+                p.kill()
+                p.join(5.0)
+            ranks.group.close()
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"tp_units: {out['seconds']:.1f} s")
+
+
+def _held(what, got, plain, model, prompts, eos):
+    """Token rows ``got`` equal to the plain unit's ``plain``, or each
+    token within TIE_TOL of the plain scoring forward's maximum (on
+    ``model``, the plain unit's)."""
+    import types
+
+    equal = sum(bool((a == b).all()) for a, b in zip(got, plain))
+    score = _score(model, prompts, [
+        types.SimpleNamespace(token_ids=_stream(r, eos), logprobs=None)
+        for r in got[:len(prompts)]])
+    if equal < len(plain) and score["plain"][1] > TIE_TOL:
+        raise AssertionError(f"{what}: a greedy token "
+                             f"{score['plain'][1]:.3f} below the plain "
+                             f"scoring forward's maximum (> {TIE_TOL})")
+    return equal, score
+
+
+def _tp_units(ctx, out, path, env, envs, pool, pending):
+    """phase_tp_units' runs. A tp=2 run's follower (an interpreter, torch,
+    CUDA, the port: some 8 s) boots on ``pool`` beside the plain unit its
+    run is held against, where one is; ``pending``: those starts until
+    their run takes them."""
+    import torch
+
+    launches = ctx.setdefault("launches", {})
+
+    def started(future):
+        pending.discard(future)
+        return future.result()
+
+    # (b)'s follower boots beside the plain unit
+    start_b = _start_unit("llama", envs["b"], "gloo", pool)
+    pending.add(start_b)
+
+    # the plain unit: the tokens, the launches, the scoring model
+    with _unit_up("llama", env) as (service, base, ready_s):
+        _recording(service)
+        rows, counts, lat, n_tok = _tpu_round(base, service, TPU_PROMPTS)
+        L, eos = service.mcfg.n_layers, service.eos_id
+        _tpu_launches("tp_units plain", counts, rows, L, eos)
+        plain_model = service.model
+        prompts = [service._encode(p) for p in TPU_PROMPTS]
+        prompts = [i[0][0, :int(i[1][0])].tolist() for i in prompts]
+        plain = rows
+        launches["tp_units plain"] = counts
+        out["plain"] = _tpu_line("plain", ready_s=ready_s, latency_s=lat,
+                                 n_tokens=n_tok, launches=counts)
+        del service
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks sharing the card
+    with _ranked_up(started(start_b)) as (service, base, ranks, ready_s):
+        rows, counts, lat, n_tok = _tpu_round(base, service, TPU_PROMPTS)
+        past = _http(base + "/generate", {"prompt": "x",
+                                          "max_new_tokens": TPU_NEW + 1})
+        after = _http(base + "/generate", {"prompt": TPU_PROMPTS[0],
+                                           "temperature": 0.0})
+        alive = [p.exitcode for p in ranks.procs]
+        if past[0] != 400 or after[0] != 200 or alive != [None]:
+            raise AssertionError(f"tp_units (b): past the cap {past[0]}, "
+                                 f"then {after[0]}, follower {alive}")
+        boot = ranks.boot
+    _tpu_launches("tp_units (b)", counts, rows, L, eos)
+    equal, score = _held("tp_units (b)", rows[:len(plain)], plain,
+                         plain_model, prompts, eos)
+    if equal == len(plain) and counts != launches["tp_units plain"]:
+        raise AssertionError(f"tp_units (b): launches {counts}, plain "
+                             f"{launches['tp_units plain']}")
+    # the warmup, 4 requests, /sentiment, the 400 and the one after it
+    want = [{"generate_text": len(TPU_PROMPTS) + 4}] * 2
+    if ranks.mirrored != want or [p.exitcode for p in ranks.procs] != [0]:
+        raise AssertionError(f"tp_units (b): mirrored {ranks.mirrored}, "
+                             f"follower exit "
+                             f"{[p.exitcode for p in ranks.procs]}")
+    launches["tp_units (b)"] = counts
+    out["b"] = _tpu_line(
+        "(b) gloo tp=2", ready_s=ready_s, boot=boot, latency_s=lat,
+        n_tokens=n_tok,
+        ms_per_token=[1e3 * s / max(1, n) for s, n in zip(lat, n_tok)],
+        launches=counts, equal_rows=equal, score=score,
+        mirrored=ranks.mirrored)
+    del plain_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) a group of one over NCCL, through the env path
+    coord = {"SHAI_COORDINATOR": f"127.0.0.1:{_free_port()}",
+             "SHAI_NUM_PROCESSES": "1", "SHAI_PROCESS_ID": "0",
+             "MESH_SPEC": "tp=1"}
+    # the unit reads the coordinator from the environment at its load
+    with _env({**env, **coord}), _ranked_up(
+            _start_unit("llama", {**env, **coord})) as (service, base,
+                                                         ranks, ready_s):
+        group = service.model.group
+        if group is None or group.backend != "nccl" or ranks.layout.tp != 1:
+            raise AssertionError(f"tp_units (a): not a group of one over "
+                                 f"NCCL: {group}")
+        _count_collectives(group)
+        rows, counts, lat, n_tok = _tpu_round(base, service, TPU_PROMPTS)
+        steps = [st for g in service._gen.values()
+                 for _, st in g.steps.values()]
+        if not steps or not all(st.graph is not None for st in steps):
+            raise AssertionError("tp_units (a): a decode step not captured")
+        replays = sum(st.replays for st in steps)
+        calls = group.calls
+        # a replay makes no collective call and equals the eager step,
+        # which makes them: the all-reduces are inside the graph
+        replay_calls, eager_calls, same = _replay_collectives(service,
+                                                              group)
+        if not same or replay_calls or not eager_calls:
+            raise AssertionError(
+                f"tp_units (a): replay equals eager {same}, collective "
+                f"calls of a replay {replay_calls}, of the eager step "
+                f"{eager_calls}")
+        boot = ranks.boot
+    if [r.tolist() for r in rows] != [r.tolist() for r in plain]:
+        raise AssertionError("tp_units (a): tokens differ from the plain "
+                             "unit's")
+    if counts != launches["tp_units plain"]:
+        raise AssertionError(f"tp_units (a): launches {counts}, plain "
+                             f"{launches['tp_units plain']}")
+    launches["tp_units (a)"] = counts
+    out["a"] = _tpu_line(
+        "(a) nccl tp=1, env path", ready_s=ready_s, boot=boot,
+        latency_s=lat, n_tokens=n_tok,
+        ms_per_token=[1e3 * s / max(1, n) for s, n in zip(lat, n_tok)],
+        launches=counts, decode_replays=replays, collective_calls=calls,
+        replay_collectives=replay_calls, eager_step_collectives=eager_calls,
+        mirrored=ranks.mirrored)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) deepseek, int8 weights: the plain unit, then tp=2 (B4 at one
+    # rank's widths), whose follower boots beside the plain unit
+    start_q = _start_unit("deepseek", envs["int8"], "gloo", pool)
+    pending.add(start_q)
+    q_prompts = TPU_PROMPTS[:2]
+    with _unit_up("deepseek", envs["plain_int8"]) as (service, base,
+                                                       ready_s):
+        _recording(service)
+        plain_q, counts_q, lat, n_tok = _tpu_round(base, service, q_prompts)
+        wide = _wide_prefills(service, q_prompts)
+        _tpu_launches("tp_units plain int8", counts_q, plain_q, L, eos,
+                      quant=True, wide=wide)
+        plain_q_model = service.model
+        launches["tp_units plain int8"] = counts_q
+        out["plain_int8"] = _tpu_line("plain deepseek int8",
+                                      ready_s=ready_s, latency_s=lat,
+                                      n_tokens=n_tok, launches=counts_q)
+        del service
+    with _ranked_up(started(start_q)) as (service, base, ranks, ready_s):
+        rows, counts, lat, n_tok = _tpu_round(base, service, q_prompts)
+        boot = ranks.boot
+    _tpu_launches("tp_units (b) deepseek int8", counts, rows, L, eos,
+                  quant=True, wide=wide)
+    equal, score = _held("tp_units (b) deepseek int8", rows, plain_q,
+                         plain_q_model, prompts[:len(q_prompts)], eos)
+    if equal == len(plain_q) and counts != counts_q:
+        raise AssertionError(f"tp_units (b) deepseek int8: launches "
+                             f"{counts}, plain int8 {counts_q}")
+    if ranks.mirrored != [{"generate_text": len(q_prompts) + 2}] * 2:
+        raise AssertionError(f"tp_units (b) deepseek int8: mirrored "
+                             f"{ranks.mirrored}")
+    launches["tp_units (b) deepseek"] = counts
+    out["b_int8"] = _tpu_line(
+        "(b) deepseek int8 tp=2", ready_s=ready_s, boot=boot,
+        latency_s=lat, n_tokens=n_tok, launches=counts, equal_rows=equal,
+        score=score, mirrored=ranks.mirrored)
+    del plain_q_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the manifest's model at full width and depth, tp=2
+    with _ranked_up(_start_unit("llama", envs["8b"], "gloo")) as (
+            service, base, ranks, ready_s):
+        L8 = service.mcfg.n_layers
+        _reset_counters()
+        t1 = time.perf_counter()
+        status, body = _http(base + "/generate", {
+            "prompt": "the quick brown fox", "temperature": 0.0})
+        wall = time.perf_counter() - t1
+        counts = _read_counters()
+        boot = ranks.boot
+        if status != 200:
+            raise AssertionError(f"tp_units 8b: {status} {body}")
+    _check_counters("tp_units 8b", counts,
+                    {"flash_attention", "paged_decode_attention"})
+    want = {"flash_attention": L8,
+            "paged_decode_attention": L8 * (TPU_NEW - 1)}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"tp_units 8b: launches {counts}, expected "
+                             f"{want}")
+    launches["tp_units (b) 8b"] = counts
+    out["b_8b"] = _tpu_line("(b) llama-8b-geometry tp=2", ready_s=ready_s,
+                            boot=boot, wall_s=wall,
+                            ms_per_token=1e3 * wall / TPU_NEW,
+                            launches=counts, mirrored=ranks.mirrored)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the refusals
+    out["c"] = _tpu_line("(c) refusals", **_tpu_refusals(path))
 
 
 def kernels_line(ctx):
@@ -9969,6 +10550,15 @@ def kernels_line(ctx):
     for row in out:
         row["tp_engine_launches"] = {k: ctx["launches"][k][row["name"]]
                                      for k in parts}
+    # the llama and deepseek units over ranks (tp_units): rank 0's
+    # launches in (a), the NCCL group of one through the env path; (b),
+    # two gloo ranks on the seeded 1B, on llama-8b-geometry and under
+    # deepseek's int8 weights
+    parts = ("tp_units (a)", "tp_units (b)", "tp_units (b) 8b",
+             "tp_units (b) deepseek")
+    for row in out:
+        row["tp_units_launches"] = {k: ctx["launches"][k][row["name"]]
+                                    for k in parts}
     return {"kernels": out}
 
 

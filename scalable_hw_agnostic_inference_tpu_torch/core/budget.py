@@ -22,14 +22,18 @@ its v5e default) is not carried over, so ``causal_lm_budget`` and
 :func:`detect_hbm_gib` reads ``SHAI_HBM_GIB``, then a CUDA device's total
 memory, then (for the CPU) the host's physical memory.
 
-Used by the engine's boot gate (``engine.engine.LLMEngine``).
+Used by the engine's boot gate (``engine.engine.LLMEngine``) and, with
+:func:`dense_lm_budget` (no reference counterpart: the reference's dense
+units place their weights without a gate), by the dense-cache units'
+(``serve.units.causal_lm``), which price one rank's load before it reads
+a weight.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -263,3 +267,42 @@ def causal_lm_budget(cfg, ecfg, *, hbm_gib_per_chip: float,
         params_gib=p_bytes / GIB, kv_gib=kv_bytes / GIB,
         act_gib=act_bytes / GIB, reserve_frac=reserve_frac,
     )
+
+
+def dense_lm_budget(cfg, *, tp: int, quantization: Optional[str],
+                    prompt_buckets: Sequence[int], max_new_tokens: int,
+                    hbm_gib_per_chip: float, what: str,
+                    dtype: str = "bfloat16", cache_bytes: float = 2.0,
+                    reserve_frac: float = DEFAULT_RESERVE_FRAC
+                    ) -> HbmBudget:
+    """Budget for one rank of a dense-cache unit (``models.generate``) at
+    ``tp``: its shard of the weights, kv heads widened to tp where tp
+    exceeds them as the unit loads them (``models.llama.
+    replicate_kv_heads``); one batch-1 cache a prompt bucket
+    (``make_generate`` keeps one each, ``prompt + max_new_tokens`` slots
+    rounded up to ``DENSE_BLOCK``, ``cache_bytes`` an element; weights
+    in ``dtype``, int8 ones under ``quantization``); the widest
+    prefill's activations, as :func:`causal_lm_budget` estimates them,
+    beside its ``[T, vocab]`` fp32 logits."""
+    from ..models.llama import (
+        DENSE_BLOCK,
+        _weight_shapes,
+        replicate_kv_heads,
+        tp_rules,
+    )
+
+    wide = replicate_kv_heads({}, cfg, tp)[1]
+    p_bytes = params_bytes_per_chip(_weight_shapes(wide), tp_rules(), tp,
+                                    _leaf_bytes_fn(dtype, quantization))
+    slots = sum(-(-(b + max_new_tokens) // DENSE_BLOCK) * DENSE_BLOCK
+                for b in prompt_buckets)
+    kv_bytes = (slots * cfg.n_layers * 2 * (wide.n_kv_heads // tp)
+                * cfg.head_dim * cache_bytes)
+    T = max(prompt_buckets)
+    width_chip = (2 * cfg.dim + 2 * cfg.mlp_dim // tp
+                  + 4 * cfg.n_heads * cfg.head_dim // tp)
+    act_bytes = 1.5 * T * width_chip * 2.0 + T * cfg.vocab_size * 4.0
+    return HbmBudget(what=f"{what} tp={tp}", chips=tp,
+                     hbm_gib_per_chip=hbm_gib_per_chip,
+                     params_gib=p_bytes / GIB, kv_gib=kv_bytes / GIB,
+                     act_gib=act_bytes / GIB, reserve_frac=reserve_frac)

@@ -50,7 +50,7 @@ import os
 import shutil
 import tempfile
 import time
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 import torch.multiprocessing as tmp
@@ -63,6 +63,7 @@ from ..models.llama import (
     tp_rules,
 )
 from ..parallel.distributed import DistGroup, init_group
+from ..ops.quant import _is_quant_node, quantize_rows, weight_scale
 from ..parallel.sharding import shard_state_dict
 from .config import EngineConfig
 from .engine import LLMEngine
@@ -225,15 +226,55 @@ def rank_state(model_cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
     reference unit's ``replicate_kv_heads``); ``cfg`` is the widened
     config. Rank 0's replicated entries are ``state``'s own tensors (at
     tp=1 its whole shard is), a follower's are copies."""
-    state, cfg = replicate_kv_heads(dict(state), model_cfg, group.size)
-    shard = shard_state_dict(state, tp_rules(), group.size, group.rank,
-                             device=resolve_device(device))
+    cfg, shard = stream_rank_state(model_cfg, state.items(), group.size,
+                                   group.rank, resolve_device(device))
     if group.rank:
         # a follower's shard owns its storage: a replicated entry already
         # on the device is still rank 0's tensor (through CUDA IPC or
         # shared memory)
         shard = {k: v.clone() if v.data_ptr() == state[k].data_ptr() else v
                  for k, v in shard.items()}
+    return cfg, shard
+
+
+def stream_rank_state(model_cfg: LlamaConfig,
+                      items: Iterable[Tuple[str, torch.Tensor]], tp: int,
+                      rank: int, device: DeviceLike,
+                      quantize: bool = False):
+    """``(cfg, shard)``: rank ``rank`` of ``tp``'s shard on ``device`` of
+    the whole model's state, taken from ``items`` (its ``(name, tensor)``
+    entries, read one at a time, for a rank of several on the CPU). Each
+    entry's kv heads are widened to tp where tp exceeds them, and it is
+    sliced; only the slice reaches ``device``, and the whole entry is let
+    go before the next is read, so no process holds the whole model: the
+    device its shard, the host one entry at a time. Under ``quantize`` a
+    projection's per-row scale is taken from the whole entry where it
+    lies, and its slice is quantized on ``device`` (the bits of
+    ``quantize_state_dict`` on the whole). ``cfg`` is the widened config
+    (:func:`rank_state`'s)."""
+    rules = tp_rules()
+    cfg = replicate_kv_heads({}, model_cfg, tp)[1]
+    shard: Dict[str, torch.Tensor] = {}
+    for name, t in items:
+        piece = replicate_kv_heads({name: t}, model_cfg, tp)[0]
+        del t
+        if not (quantize and _is_quant_node(name, piece[name])):
+            # dense: an entry may be one element broadcast to its shape
+            # (``models.llama.geometry_items``)
+            shard.update({k: v.contiguous() for k, v in shard_state_dict(
+                piece, rules, tp, rank, device=device).items()})
+            continue
+        stem = name[: -len(".weight")]
+        w = piece.pop(name)
+        # the float weight travels under its int8 name, so that it is
+        # sliced as the int8 weight is
+        part = shard_state_dict({f"{stem}.weight_q": w,
+                                 f"{stem}.scale": weight_scale(w)},
+                                rules, tp, rank, device=device)
+        del w
+        part[f"{stem}.weight_q"] = quantize_rows(part[f"{stem}.weight_q"],
+                                                 part[f"{stem}.scale"])
+        shard.update(part)
     return cfg, shard
 
 
@@ -341,4 +382,5 @@ def launch_engine(model_cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
 
 
 __all__ = ["CHECK_EVERY", "RankDivergence", "StepMirror", "follow",
-           "launch_engine", "rank_engine", "rank_state"]
+           "launch_engine", "rank_engine", "rank_state",
+           "stream_rank_state"]

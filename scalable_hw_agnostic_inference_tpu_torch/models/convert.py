@@ -46,7 +46,7 @@ from __future__ import annotations
 import json
 import types
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import torch
 
@@ -189,12 +189,12 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _read_text(path: Path, ckpt: Checkpoint, cfg: LlamaConfig, prefix: str,
-               lm_head: str, device: torch.device, quantize: bool,
-               embed_rows=None) -> Dict[str, torch.Tensor]:
-    """The text tower's state dict, one tensor at a time onto ``device``
-    (bf16, int8 projections with ``quantize``)."""
-    state: Dict[str, torch.Tensor] = {}
+def _text_items(path: Path, ckpt: Checkpoint, cfg: LlamaConfig, prefix: str,
+                lm_head: str, device: torch.device, quantize: bool,
+                embed_rows=None) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The text tower's ``(name, tensor)`` entries, each read onto
+    ``device`` only when the caller takes it (bf16, int8 projections with
+    ``quantize``)."""
     for name, shape in _weight_shapes(cfg, embed_rows).items():
         src = hf_name(name, prefix, lm_head)
         if src not in ckpt:
@@ -206,12 +206,21 @@ def _read_text(path: Path, ckpt: Checkpoint, cfg: LlamaConfig, prefix: str,
         t = _bf16(ckpt.tensor(src, device))
         if quantize and _is_quant_node(name, t):
             stem = name[: -len(".weight")]
-            state[f"{stem}.weight_q"], state[f"{stem}.scale"] = \
-                quantize_weight(t)
+            q, s = quantize_weight(t)
             del t
+            yield f"{stem}.weight_q", q
+            yield f"{stem}.scale", s
         else:
-            state[name] = t
-    return state
+            yield name, t
+
+
+def _read_text(path: Path, ckpt: Checkpoint, cfg: LlamaConfig, prefix: str,
+               lm_head: str, device: torch.device, quantize: bool,
+               embed_rows=None) -> Dict[str, torch.Tensor]:
+    """The text tower's state dict, one tensor at a time onto ``device``
+    (bf16, int8 projections with ``quantize``)."""
+    return dict(_text_items(path, ckpt, cfg, prefix, lm_head, device,
+                            quantize, embed_rows))
 
 
 def load_hf_checkpoint(path: PathLike, device: DeviceLike = None,
@@ -220,14 +229,27 @@ def load_hf_checkpoint(path: PathLike, device: DeviceLike = None,
     """``(config, state dict)`` of the HF Llama checkpoint directory
     ``path``: bf16 weights on ``device`` (the card unless the caller asks
     for the CPU), int8 projections with ``quantize``."""
+    cfg, items = hf_checkpoint_items(path, device, quantize)
+    return cfg, dict(items)
+
+
+def hf_checkpoint_items(path: PathLike, device: DeviceLike = None,
+                        quantize: bool = False
+                        ) -> Tuple[LlamaConfig,
+                                   Iterator[Tuple[str, torch.Tensor]]]:
+    """:func:`load_hf_checkpoint` one tensor at a time: ``(config, the
+    state dict's (name, tensor) entries)``, each entry read from the
+    mapped files onto ``device`` only when the caller takes it, so a
+    caller that keeps a slice of each holds no more than one whole
+    tensor."""
     path = Path(path)
     cfg = config_from_hf(read_config(path))
     device = resolve_device(device)
     ckpt = Checkpoint(path)
     prefix = "model." if any(k.startswith("model.") for k in ckpt.keys()) \
         else ""
-    return cfg, _read_text(path, ckpt, cfg, prefix, "lm_head.weight",
-                           device, quantize)
+    return cfg, _text_items(path, ckpt, cfg, prefix, "lm_head.weight",
+                            device, quantize)
 
 
 def read_config(path: PathLike) -> Dict:

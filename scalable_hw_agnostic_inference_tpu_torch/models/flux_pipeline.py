@@ -13,7 +13,7 @@ tables and the RoPE ids go to the device once per shape, each step is one
 transformer forward and an fp32 Euler update, and nothing waits on the
 host until the uint8 image is read back; the VAE decode and its uint8
 rounding run on the device (``vae.AutoencoderKL.decode_uint8``). Several
-devices are tensor parallelism (ROADMAP A7): the unit refuses them.
+devices are tensor parallelism (ROADMAP A7.3b): the unit refuses them.
 
 Seeds: the reference draws the initial latents from
 ``jax.random.PRNGKey(seed)`` (Threefry, not ported); here they come from a

@@ -36,6 +36,15 @@ units' one-worker model lane gives it. The prefill and the sampling stay
 eager. A replay adds to each kernel wrapper's counter the launches its
 capture recorded, as the engine's decode graphs do (both are captured
 by ``engine.graphs.capture_graph``). On the CPU the step runs eagerly.
+
+Over tensor-parallel ranks (a model built with a ``group``,
+``serve.multihost``) every rank runs the same generate on its shard: the
+cache holds the rank's kv heads, a capturable group's (NCCL) all-reduces
+and gathers are captured inside each decode step's graph, and a gloo
+group's steps run eagerly on the card, as the engine's do. The gathered
+or all-reduced logits carry the same bits on every rank, so the sampled
+tokens, drawn from generators seeded alike, and each step's ``done``
+read agree between the ranks, and they leave the loop together.
 """
 
 from __future__ import annotations
@@ -48,7 +57,14 @@ import torch
 from ..engine.graphs import capture_graph, replay_counted
 from ..ops.cuda import ragged_paged_attention as _rpa
 from ..ops.sampling import sample_logits
-from .llama import DENSE_BLOCK, DenseCache, LlamaConfig, init_cache
+from .llama import (
+    DENSE_BLOCK,
+    DenseCache,
+    LlamaConfig,
+    group_size,
+    init_cache,
+    rank_heads,
+)
 
 
 class DecodeStep:
@@ -57,8 +73,8 @@ class DecodeStep:
     returning the last logits ``[B, V]``. On the card the first call
     captures it as a CUDA graph on a stream of its own (its B2 split
     scratch reserved first, so that the capture allocates nothing it
-    would later move) and every call replays it; on the CPU it runs
-    eagerly."""
+    would later move) and every call replays it; on the CPU, and on the
+    card over a group that cannot be captured (gloo), it runs eagerly."""
 
     def __init__(self, model, cfg: LlamaConfig, cache: DenseCache,
                  batch: int):
@@ -66,7 +82,10 @@ class DecodeStep:
         self.model, self.cfg, self.cache = model, cfg, cache
         self.tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
         self.pos = torch.zeros((batch,), dtype=torch.int64, device=dev)
-        self.cuda = dev.type == "cuda"
+        group = model.group
+        #: the step is a CUDA graph (its group's collectives captured)
+        self.cuda = dev.type == "cuda" and (group is None or
+                                            group.capturable)
         self.logits: Optional[torch.Tensor] = None
         self.graph = None
         self.stream = None
@@ -88,8 +107,9 @@ class DecodeStep:
         dev = self.tok.device
         cfg = self.cfg
         self.stream = torch.cuda.Stream(dev)
+        heads, kv_heads = rank_heads(cfg, group_size(self.model.group))
         numel, counters = _rpa.split_scratch_size(
-            self.tok.shape[0], 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            self.tok.shape[0], 1, heads, kv_heads, cfg.head_dim,
             DENSE_BLOCK, self.cache.tables.shape[1],
             _rpa.sm_count(dev.index))
         _rpa.reserve_split_scratch(dev, self.stream.cuda_stream, numel,
@@ -129,7 +149,8 @@ def make_generate(model, cfg: LlamaConfig, *, prompt_bucket: int,
                   ) -> Callable[..., GenerateResult]:
     """A ``generate(ids, prompt_len, seed=0, temperature=1.0, top_k=0,
     top_p=1.0)`` for one (prompt_bucket, max_new_tokens) shape on
-    ``model`` (a :class:`~.llama.LlamaForCausalLM`, on its device).
+    ``model`` (a :class:`~.llama.LlamaForCausalLM`, on its device; under
+    a group, one rank's, with ``cfg`` the config it was built from).
 
     ``ids``: ``[B, prompt_bucket]`` right-padded prompts; ``prompt_len``:
     ``[B]`` true lengths (each at least 1). Sampling knobs are scalars or
@@ -143,7 +164,7 @@ def make_generate(model, cfg: LlamaConfig, *, prompt_bucket: int,
         if B not in state:
             cache = init_cache(cfg, B, n_slots,
                                dtype=cache_dtype or cache_dtype_for(dev),
-                               device=dev)
+                               device=dev, group=model.group)
             state[B] = cache, DecodeStep(model, cfg, cache, B)
         return state[B]
 

@@ -60,7 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -845,22 +845,31 @@ def geometry_params(cfg: LlamaConfig, dtype=torch.bfloat16,
     exists in ``dtype`` first. An mllama tree's cross gates are zeros, as
     the reference's are (``llama.py:474-475``): the image changes
     nothing."""
+    return {name: t.contiguous()
+            for name, t in geometry_items(cfg, dtype, device, quant)}
+
+
+def geometry_items(cfg: LlamaConfig, dtype=torch.bfloat16,
+                   device: DeviceLike = None, quant: bool = False
+                   ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """:func:`geometry_params`' ``(name, tensor)`` entries, each one
+    element broadcast to its shape (no memory of its own: a caller that
+    keeps a slice of it makes only the slice dense)."""
     device = resolve_device(device)
-    out: Dict[str, torch.Tensor] = {}
+
+    def const(value, shape, dt):
+        return torch.full((), value, dtype=dt, device=device).expand(shape)
+
     for name, shape in _weight_shapes(cfg).items():
         if _is_gate(name):
-            out[name] = torch.zeros(shape, dtype=dtype, device=device)
+            yield name, const(0, shape, dtype)
         elif quant and _is_quant_node(name, torch.empty(shape,
                                                         device="meta")):
             stem = name[: -len(".weight")]
-            out[f"{stem}.weight_q"] = torch.zeros(shape, dtype=torch.int8,
-                                                  device=device)
-            out[f"{stem}.scale"] = torch.ones(shape[:1], dtype=torch.float32,
-                                              device=device)
+            yield f"{stem}.weight_q", const(0, shape, torch.int8)
+            yield f"{stem}.scale", const(1, shape[:1], torch.float32)
         else:
-            out[name] = (torch.ones if len(shape) == 1 else torch.zeros)(
-                shape, dtype=dtype, device=device)
-    return out
+            yield name, const(1 if len(shape) == 1 else 0, shape, dtype)
 
 
 def random_params(cfg: LlamaConfig, seed: int, std: float = 0.02,

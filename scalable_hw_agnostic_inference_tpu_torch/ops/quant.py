@@ -44,11 +44,22 @@ _QUANT_NAME = re.compile(
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``[out, in]`` float weight -> (int8 ``[out, in]``, f32 ``[out]``
     scale): symmetric per output channel."""
-    w32 = w.float()
-    amax = w32.abs().amax(dim=1)
-    scale = amax.clamp_min(1e-8) / 127.0
-    q = torch.round(w32 / scale[:, None]).clamp(-127, 127)
-    return q.to(torch.int8), scale
+    scale = weight_scale(w)
+    return quantize_rows(w, scale), scale
+
+
+def weight_scale(w: torch.Tensor) -> torch.Tensor:
+    """:func:`quantize_weight`'s f32 ``[out]`` scale of a float ``[out,
+    in]`` weight (its rows' largest magnitude over 127; exact in the
+    weight's own type, as ``abs`` and ``max`` are)."""
+    return w.abs().amax(dim=1).float().clamp_min(1e-8) / 127.0
+
+
+def quantize_rows(w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """:func:`quantize_weight`'s int8 rows of ``w`` under ``scale`` (a
+    slice of a weight's columns takes the whole rows' scale)."""
+    q = torch.round(w.float() / scale[:, None]).clamp(-127, 127)
+    return q.to(torch.int8)
 
 
 def dequantize_weight(q: torch.Tensor, scale: torch.Tensor,

@@ -18,14 +18,19 @@ Beside the compute group, every :class:`DistGroup` holds a gloo group of
 the same ranks for control messages (``engine/ranks.py``'s step mirror):
 host objects, broadcast and gathered over TCP, never a device collective.
 Its timeout is long, since a follower rank waits in it while the leader
-idles.
+idles; ``serve.multihost`` bounds its own waits there with the leader's
+beat.
 
 :func:`init_group` joins a group through a ``FileStore`` (a file path: no
-port to pick, so concurrent test workers cannot collide), and
-:func:`spawn_ranks` runs a function on every rank of a fresh group, each
-in a process of its own (the ``spawn`` start method), returning the ranks'
-results; a rank that raises fails the call with that rank's traceback, and
-ranks that do not finish are killed at the timeout.
+port to pick, so concurrent test workers cannot collide) or, for ranks on
+several hosts, a ``TCPStore`` that rank 0 serves at ``tcp://host:port``
+(the unit's ``SHAI_COORDINATOR``). The compute group's timeout bounds how
+long a rank waits in a collective for a peer that never comes (a rank
+that died, or a leader left alone by a dropped mirror): the collective
+then raises. :func:`spawn_ranks` runs a function on every rank of a fresh
+group, each in a process of its own (the ``spawn`` start method),
+returning the ranks' results; a rank that raises fails the call with that
+rank's traceback, and ranks that do not finish are killed at the timeout.
 """
 
 from __future__ import annotations
@@ -130,15 +135,30 @@ class DistGroup:
             dist.destroy_process_group()
 
 
+def _store(init: str, tp: int, rank: int, timeout: timedelta):
+    """``tcp://host:port``: a ``TCPStore`` served there by rank 0 (bound on
+    every interface of its host) and joined by the others; anything else:
+    the ``FileStore`` at that path."""
+    if not init.startswith("tcp://"):
+        return dist.FileStore(init, tp)
+    host, _, port = init[len("tcp://"):].rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"bad store address {init!r}; expected "
+                         f"tcp://host:port")
+    return dist.TCPStore(host, int(port), tp, rank == 0, timeout=timeout)
+
+
 def init_group(tp: int, rank: int, init_file: str, backend: str,
                device=None, timeout_s: float = 600.0) -> DistGroup:
-    """Join rank ``rank`` of a ``tp``-rank group through the ``FileStore``
-    at ``init_file`` (every rank names the same path) as this process's
-    default group. ``device``: the rank's device (NCCL: a CUDA device,
-    made current here; None is ``cuda:rank``); a gloo group's ranks may
-    hold CUDA tensors or CPU tensors (None: the CPU). One small collective
-    runs before returning, so a transport that cannot start fails here,
-    not inside the first forward."""
+    """Join rank ``rank`` of a ``tp``-rank group as this process's default
+    group, through the store at ``init_file``: a ``FileStore`` path every
+    rank names, or ``tcp://host:port``, a ``TCPStore`` that rank 0 serves
+    there. ``device``: the rank's device (NCCL: a CUDA device, made
+    current here; None is ``cuda:rank``); a gloo group's ranks may hold
+    CUDA tensors or CPU tensors (None: the CPU). ``timeout_s`` bounds the
+    store's rendezvous and every collective of the compute group. One
+    small collective runs before returning, so a transport that cannot
+    start fails here, not inside the first forward."""
     if not 0 <= rank < tp:
         raise ValueError(f"rank {rank} outside tp={tp}")
     if backend == "nccl":
@@ -151,9 +171,10 @@ def init_group(tp: int, rank: int, init_file: str, backend: str,
         device = torch.device(device if device is not None else "cpu")
     else:
         raise ValueError(f"backend must be nccl or gloo, got {backend!r}")
-    store = dist.FileStore(init_file, tp)
+    timeout = timedelta(seconds=timeout_s)
+    store = _store(init_file, tp, rank, timeout)
     dist.init_process_group(backend, store=store, world_size=tp, rank=rank,
-                            timeout=timedelta(seconds=timeout_s))
+                            timeout=timeout)
     control = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
     group = DistGroup(dist.group.WORLD, control, tp, rank, backend, device)
     probe = torch.ones((1,), dtype=torch.float32, device=device)
@@ -164,7 +185,7 @@ def init_group(tp: int, rank: int, init_file: str, backend: str,
 
 
 def _rank_main(fn, rank: int, tp: int, backend: str, init_file: str,
-               devices, args, results) -> None:
+               devices, args, results, group_timeout_s: float) -> None:
     """One spawned rank: join the group, run ``fn(group, *args)``, send
     back ``(rank, "ok", pickled result)`` or ``(rank, "error",
     traceback)``. The message is flushed before the rank leaves its group,
@@ -173,7 +194,8 @@ def _rank_main(fn, rank: int, tp: int, backend: str, init_file: str,
     group = None
     try:
         group = init_group(tp, rank, init_file, backend,
-                           None if devices is None else devices[rank])
+                           None if devices is None else devices[rank],
+                           group_timeout_s)
         msg = (rank, "ok", pickle.dumps(fn(group, *args)))
     except BaseException:
         msg = (rank, "error", traceback.format_exc())
@@ -186,13 +208,15 @@ def _rank_main(fn, rank: int, tp: int, backend: str, init_file: str,
 
 def spawn_ranks(fn: Callable[..., Any], tp: int, backend: str = "gloo",
                 timeout_s: float = 120.0, args: Sequence[Any] = (),
-                devices: Optional[Sequence] = None) -> List[Any]:
+                devices: Optional[Sequence] = None,
+                group_timeout_s: float = 600.0) -> List[Any]:
     """Run ``fn(group, *args)`` on each of ``tp`` ranks, each a process of
     its own (``spawn``) joined to a fresh :class:`DistGroup` over a
     ``FileStore`` in a temporary directory, and return the results in rank
     order. ``fn`` and ``args`` must pickle by reference (a function at a
     module's top level); results travel pickled by value. ``devices``:
     each rank's device (None: :func:`init_group`'s default).
+    ``group_timeout_s``: the group's collective timeout.
 
     A rank that raises fails the call with a ``RuntimeError`` carrying that
     rank's traceback; the other ranks are killed then. Ranks still running
@@ -204,7 +228,8 @@ def spawn_ranks(fn: Callable[..., Any], tp: int, backend: str = "gloo",
     procs = [ctx.Process(target=_rank_main, name=f"tp-rank-{r}",
                          args=(fn, r, tp, backend,
                                os.path.join(tmp, "store"), devices,
-                               tuple(args), results), daemon=True)
+                               tuple(args), results, group_timeout_s),
+                         daemon=True)
              for r in range(tp)]
     out: List[Any] = [None] * tp
     done = set()

@@ -48,9 +48,12 @@ Sites this port calls (grep for the constant):
 - :data:`IDEMP_LOOKUP` — the per-pod idempotency-cache lookup
   (``resilience.idempotency``): error -> the lookup degrades to a cache
   MISS (the request executes; at-most-once degrades to at-least-once,
-  never to a dropped request), delay -> a slow lookup.
+  never to a dropped request), delay -> a slow lookup;
+- :data:`MIRROR` — the leader's broadcast of a mirrored call
+  (``serve.multihost``): drop -> the leader runs the call alone, and its
+  collectives fail the unit together at the group's timeout.
 
-The other site names (``cova.rpc``, ``multihost.mirror``, ``kvnet.fetch``,
+The other site names (``cova.rpc``, ``kvnet.fetch``,
 ``migrate.*``, ``kvfabric.probe``, ``scale.*``, ``hedge.fire``,
 ``poison.mark``) are kept as constants so that one ``SHAI_FAULTS`` spec
 means the same on a JAX pod and a port pod; their call sites come with

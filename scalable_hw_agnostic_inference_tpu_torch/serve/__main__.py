@@ -3,15 +3,28 @@
 Port of ``scalable_hw_agnostic_inference_tpu/serve/__main__.py``: the unit
 name comes from argv or the ``MODEL`` env var, everything else from the
 env contract (``utils.env.ServeConfig``). ``DEVICE`` defaults to ``cuda``;
-``DEVICE=cpu`` runs the plain paths on the CPU.
+``DEVICE=cpu`` runs the plain paths on the CPU. Where the env asks for
+several ranks (``MESH_SPEC`` with a tp above 1, or ``SHAI_COORDINATOR``),
+the unit is served over them (``serve.multihost.serve_multihost``: the
+leader serves HTTP, the other ranks mirror it); otherwise on one device
+(``serve_forever``).
 """
 
 import logging
 import sys
 
+from ..core.device import distributed_env
+from ..core.mesh import MeshSpec
 from ..utils.env import ServeConfig, env_str
 from .app import serve_forever
 from .units import UNITS
+
+
+def wants_ranks(cfg: ServeConfig) -> bool:
+    """The env asks for several ranks: a tp other than 1 in ``MESH_SPEC``,
+    or a coordinator."""
+    tp = dict(MeshSpec.parse(cfg.mesh_spec).axes).get("tp", 1)
+    return tp != 1 or distributed_env() is not None
 
 
 def main() -> None:
@@ -25,7 +38,13 @@ def main() -> None:
               f" <unit>\navailable: {', '.join(UNITS)}", file=sys.stderr)
         raise SystemExit(2)
     cfg = ServeConfig.from_env()
-    serve_forever(cfg, UNITS[name](cfg))
+    service = UNITS[name](cfg)
+    if wants_ranks(cfg):
+        from .multihost import serve_multihost
+
+        serve_multihost(cfg, service)
+    else:
+        serve_forever(cfg, service)
 
 
 if __name__ == "__main__":

@@ -102,6 +102,15 @@ class ModelService:
     #: requests allowed in ``infer`` at once; engine-backed services raise
     #: it to their slot count (their infer only enqueues into the engine)
     concurrency: int = 1
+    #: the multi-rank contract (``serve.multihost``): True only where
+    #: EVERY path to the device (warmup, infer, extra routes) goes through
+    #: ``mirror_methods``, so the follower ranks mirror each call and join
+    #: its collectives; ``serve_multihost`` refuses any other service
+    supports_multihost: bool = False
+    mirror_methods: Tuple[str, ...] = ("infer",)
+    #: the group this process runs the service's rank in, given by
+    #: ``serve.multihost`` before ``load()`` (None: one device)
+    group = None
 
     def __init__(self, cfg: ServeConfig):
         self.cfg = cfg

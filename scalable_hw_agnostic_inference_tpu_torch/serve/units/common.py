@@ -6,9 +6,9 @@ Trimmed copy of ``scalable_hw_agnostic_inference_tpu/serve/units/common.py``
 ``IMAGENET_MEAN``, ``IMAGENET_STD``, ``:166``; ``tokenize_to_length``,
 ``:170``; ``decode_image``, ``:180``). The
 reference's ``_hf_tokenizer`` (``AutoTokenizer``) becomes the port's own
-tokenizers (``models/tokenizer.py``). :func:`unit_device` reads the
+tokenizers (``models/tokenizer.py``). :func:`unit_ranks` reads the
 placement knobs the reference reads with ``core/mesh.py``'s
-``parse_submesh`` and ``build_mesh``.
+``parse_submesh`` and ``build_mesh``, through the port's ``core/mesh.py``.
 """
 
 from __future__ import annotations
@@ -16,16 +16,23 @@ from __future__ import annotations
 import base64
 import binascii
 import hashlib
-from typing import Any, Dict, Optional
-
-import re
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ...core.device import resolve_device
+from ...core.device import distributed_env, resolve_device
+from ...core.mesh import (
+    MeshSpec,
+    RankLayout,
+    parse_submesh,
+    rank_layout,
+    submesh,
+)
 from ...models import imageio
 from ...ops.cuda.flash_attention import HEAD_DIMS
+from ...parallel.distributed import DistGroup
 
 
 class HashTokenizer:
@@ -47,59 +54,101 @@ class HashTokenizer:
         return np.array(ids), np.array(mask)
 
 
-def parse_submesh(spec: str):
-    """``"a:b"`` (a device slice) -> ``(start, count)``; ``""`` -> None."""
-    if not spec:
-        return None
-    m = re.fullmatch(r"(\d+):(\d+)", spec.strip())
-    if not m:
-        raise ValueError(f"bad submesh spec {spec!r}; expected 'start:end'")
-    a, b = int(m.group(1)), int(m.group(2))
-    if b <= a:
-        raise ValueError(f"empty submesh {spec!r}")
-    return a, b - a
+#: the ROADMAP item that brings the other units over ranks
+RANKS_LATER = "ROADMAP A7.3b"
 
 
-def mesh_size(spec: str) -> int:
-    """The device count of a ``"dp=2,tp=4"`` mesh spec (1 for ``""``)."""
-    n = 1
-    for part in filter(None, (p.strip() for p in spec.split(","))):
-        name, _, size = part.partition("=")
-        if not name or not size.isdigit() or int(size) < 1:
-            raise ValueError(f"bad mesh spec {spec!r}; expected "
-                             f"'axis=size,...'")
-        n *= int(size)
-    return n
-
-
-def unit_device(cfg) -> torch.device:
-    """The device a unit runs on: ``DEVICE`` (the card unless it names the
-    CPU), moved to the card ``SUBMESH`` names when it names one. A
-    ``SUBMESH`` or ``MESH_SPEC`` naming more than one device is tensor
-    parallelism (ROADMAP A7), which the port does not have: it raises,
-    never ignored."""
+def unit_layout(cfg, multihost: bool = False,
+                backend: Optional[str] = None
+                ) -> Tuple[torch.device, RankLayout]:
+    """The unit's device and :class:`~...core.mesh.RankLayout` from
+    ``DEVICE``, ``SUBMESH``, ``MESH_SPEC`` and the ``SHAI_COORDINATOR``
+    contract (``core.device.distributed_env``); ``multihost``: the unit
+    declares ``supports_multihost``. ``backend``: the group's (default:
+    NCCL on the card, gloo on the CPU). Every refusal comes here, before
+    anything is allocated or started: a ``SUBMESH`` naming several devices
+    (every unit); ``MESH_SPEC`` naming several devices, or a coordinator,
+    at a unit without ``supports_multihost`` (both :data:`RANKS_LATER`);
+    and ``core.mesh.rank_layout``'s (an axis other than tp, a host count
+    that does not divide tp, more NCCL ranks than cards)."""
     device = resolve_device(cfg.device)
     sub = parse_submesh(cfg.submesh)
-    n_mesh = mesh_size(cfg.mesh_spec)
-    for knob, n in (("SUBMESH", sub[1] if sub else 1),
-                    ("MESH_SPEC", n_mesh)):
-        if n > 1:
+    if sub is not None and sub[1] > 1:
+        raise ValueError(
+            f"SUBMESH names {sub[1]} devices: packing a unit over several "
+            f"devices is tensor parallelism, which this port brings to the "
+            f"unit with {RANKS_LATER}; name one device (SUBMESH=a:a+1) or "
+            f"leave it unset")
+    place = distributed_env()
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if not multihost:
+        sizes = [s for _, s in MeshSpec.parse(cfg.mesh_spec).axes]
+        if any(s != 1 for s in sizes) or place is not None:
+            what = (f"SHAI_COORDINATOR={place.coordinator!r} asks for ranks"
+                    if place is not None else
+                    f"MESH_SPEC names {math.prod(sizes)} devices"
+                    if min(sizes) > 0 else
+                    f"MESH_SPEC={cfg.mesh_spec!r} names every device")
             raise ValueError(
-                f"{knob} names {n} devices: a unit over several devices "
-                f"is tensor parallelism (ROADMAP A7), which this port does "
-                f"not have yet; name one device (SUBMESH=a:a+1, "
-                f"MESH_SPEC=tp=1) or leave it unset")
+                f"{what}: this unit runs on one device; its tensor "
+                f"parallelism over ranks comes with {RANKS_LATER} (the "
+                f"llama, mistral and deepseek units serve MESH_SPEC=tp=N "
+                f"through serve_multihost); name one device (MESH_SPEC="
+                f"tp=1) or leave it unset")
+        return device, rank_layout("", device, backend)
+    layout = rank_layout(cfg.mesh_spec, device, backend, place)
+    if layout.ranked and sub is not None:
+        raise ValueError(f"SUBMESH={cfg.submesh!r} places one device, and "
+                         f"MESH_SPEC={cfg.mesh_spec!r} runs the unit over "
+                         f"ranks: leave SUBMESH unset")
+    return device, layout
+
+
+def unit_ranks(cfg, multihost: bool = False,
+               group: Optional[DistGroup] = None
+               ) -> Tuple[torch.device, Optional[DistGroup]]:
+    """``(device, group)``: the device this rank of the unit runs on and
+    its group, or ``(device, None)`` for a unit on one device (moved to
+    the card ``SUBMESH`` names when it names one). A unit over ranks
+    (:func:`unit_layout`'s ``ranked``) runs in ``group``, the one
+    ``serve.multihost`` gives the service (``ModelService.group``);
+    without one, or with one of another size, it raises: nothing runs on
+    one rank in place of several."""
+    device, layout = unit_layout(cfg, multihost,
+                                 group.backend if group else None)
+    if layout.ranked:
+        if group is None:
+            raise ValueError(
+                f"MESH_SPEC={cfg.mesh_spec!r} (tp={layout.tp}, "
+                f"{layout.hosts} host(s)) runs the unit as one process a "
+                f"rank: serve it through serve.multihost.serve_multihost "
+                f"(python -m scalable_hw_agnostic_inference_tpu_torch.serve"
+                f" <unit> does), which starts the ranks and gives each its "
+                f"group")
+        if group.size != layout.tp:
+            raise ValueError(f"MESH_SPEC={cfg.mesh_spec!r} asks tp="
+                             f"{layout.tp}, and this process's group has "
+                             f"{group.size} ranks")
+        return group.device, group
+    sub = parse_submesh(cfg.submesh)
     if sub is None:
-        return device
+        return device, None
     if device.type == "cpu":
         if sub[0]:
             raise ValueError(f"SUBMESH={cfg.submesh!r}: the CPU is device "
                              f"0 only")
-        return device
+        return device, None
     if sub[0] >= torch.cuda.device_count():
         raise ValueError(f"SUBMESH={cfg.submesh!r}: this host has "
                          f"{torch.cuda.device_count()} cards")
-    return torch.device("cuda", sub[0])
+    return submesh(sub[0], 1)[0], None
+
+
+def unit_device(cfg) -> torch.device:
+    """The device of a unit that runs on one device (:func:`unit_ranks`
+    for a unit without ``supports_multihost``)."""
+    return unit_ranks(cfg)[0]
 
 
 def check_head_size(head_dim: int, device: torch.device, what: str) -> None:

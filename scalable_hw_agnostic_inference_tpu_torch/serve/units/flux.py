@@ -23,7 +23,7 @@ base64 PNG with the steps and size.
   tokens for dev and 256 for schnell. A hub id is refused (there is no
   download).
 - ``SUBMESH`` or ``MESH_SPEC`` naming one device places the unit on it;
-  naming more is tensor parallelism (ROADMAP A7): ``load()`` refuses it.
+  naming more is tensor parallelism (ROADMAP A7.3b): ``load()`` refuses it.
 - Steps are a closed set (``NUM_INFERENCE_STEPS`` plus ``STEPS_BUCKETS``,
   the reference's contract); another value is a 400. Warmup runs the one
   image shape once, ``WARM_STEPS`` steps long, and puts every allowed

@@ -16,7 +16,7 @@ reference's ``{"embedding", "dim"}``, and a request without text is a
   its Unigram ``tokenizer.json`` (``models/tokenizer.UnigramTokenizer``),
   ``min(MAX_SEQ_LEN, 512)`` tokens. A hub id is refused.
 - ``SUBMESH`` or ``MESH_SPEC`` naming one device places the unit on it;
-  naming more is tensor parallelism (ROADMAP A7): ``load()`` refuses it.
+  naming more is tensor parallelism (ROADMAP A7.3b): ``load()`` refuses it.
 """
 
 from __future__ import annotations

@@ -21,7 +21,13 @@ weights, real engine shapes) and a local Llama checkpoint directory
 constructor replaces the tier's weights (the tests hand the port the JAX
 service's). ``QUANTIZATION=int8`` (or the ConfigMap's ``quantization``)
 quantizes the weights at boot, after the bf16 cast, as the reference does
-(``:199-204``); a geometry tier is born int8. The tiers tokenize with the
+(``:199-204``); a geometry tier is born int8. ``tensor_parallel_size``
+above 1 (the ConfigMap's, the reference's ``:205-227``) starts the engine
+over that many ranks through ``engine.ranks.launch_engine`` (NCCL on the
+card, one rank a card, refused with the reference's message on a host
+with fewer cards; gloo on the CPU); ``close()`` ends the follower ranks.
+The unit runs on one host: it does not declare ``supports_multihost``,
+as in the reference. The tiers tokenize with the
 byte-level ``ByteTokenizer``. A chat prompt is the checkpoint's chat
 template rendered as the reference's ``apply_chat_template`` renders it
 (``models.chat_template``, compiled at load: a construct outside its
@@ -142,6 +148,7 @@ from ...models.convert import (
 )
 from ...models.imageio import ImageError, decode_image
 from ...models.llama import (
+    MLLAMA_RANKS,
     LlamaConfig,
     LlamaForCausalLM,
     geometry_params,
@@ -256,11 +263,22 @@ class VllmService(ModelService):
     def load(self) -> None:
         from ...engine.engine import LLMEngine, SamplingParams
         from ...engine.loop import EngineLoop
+        from ...engine.ranks import launch_engine
 
         if self._ecfg_error is not None:
             raise self._ecfg_error
         cfg, ecfg = self.cfg, self.ecfg
         device = unit_device(cfg)
+        tp = ecfg.tensor_parallel_size
+        if tp > 1 and device.type == "cuda" and \
+                tp > torch.cuda.device_count():
+            # honored, never silently dropped (the reference's refusal,
+            # serve/units/vllm.py:212-217): one NCCL rank a card
+            raise ValueError(
+                f"tensor_parallel_size={tp} exceeds the "
+                f"{torch.cuda.device_count()} local devices of this unit — "
+                f"match it to the nodepool's chip count (reference "
+                f"compile-vllm-job.yaml:54-55)")
         model_id = ecfg.model or cfg.model_id
         quant = ecfg.quantization == "int8"
         state = vstate = None
@@ -360,10 +378,20 @@ class VllmService(ModelService):
             self._vision = (vcfg, vlm_mod.build(vcfg, vstate,
                                                 dtype=torch.float32))
         self.ecfg = ecfg
-        model = LlamaForCausalLM.from_state_dict(mcfg, state)
-        engine = LLMEngine(
-            mcfg, model, ecfg, device=device,
-            cross_seq_len=self._mllama[2] if self._mllama else 0)
+        if tp > 1:
+            if self._mllama is not None:
+                raise ValueError(MLLAMA_RANKS)
+            # rank 0's engine here, ranks 1..tp-1 follower processes of
+            # it (NCCL on the card, gloo on the CPU); close() ends them
+            engine = launch_engine(mcfg, state, ecfg, tp,
+                                   "nccl" if device.type == "cuda" else
+                                   "gloo", device)
+        else:
+            model = LlamaForCausalLM.from_state_dict(mcfg, state)
+            engine = LLMEngine(
+                mcfg, model, ecfg, device=device,
+                cross_seq_len=self._mllama[2] if self._mllama else 0)
+        del state
         if self._mllama is not None:
             # the vision front-end is in the closed set too: one image
             # encoded before readiness (the reference's gray image)
@@ -472,6 +500,8 @@ class VllmService(ModelService):
     def close(self) -> None:
         if self.loop is not None:
             self.loop.stop()
+        if self._engine is not None:
+            self._engine.close()   # a tp engine's followers end here
 
     def ready_error(self) -> Optional[str]:
         if self.loop is not None and not self.loop.alive:

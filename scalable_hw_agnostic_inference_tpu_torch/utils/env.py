@@ -6,8 +6,9 @@ pod's resilience contract ``DRAIN_BUDGET_S``, ``ADMIT_MAX_QUEUE``,
 ``ADMIT_MAX_KV``, ``MAX_INFLIGHT`` and ``METRICS_PORT``, and the diffusion
 units' ``NUM_INFERENCE_STEPS``, ``HEIGHT``, ``WIDTH``, ``GUIDANCE_SCALE``,
 ``SCHEDULER``, ``STEPS_BUCKETS`` and ``SD_BATCH_MAX``; the placement knobs
-``SUBMESH`` and ``MESH_SPEC``, which name one device here (more is
-tensor parallelism, refused at a unit's ``load()``); and the lenient
+``SUBMESH`` and ``MESH_SPEC`` (one device, or, at the units that declare
+``supports_multihost``, ``MESH_SPEC=tp=N`` ranks: ``serve.multihost``;
+more elsewhere is refused at a unit's ``load()``); and the lenient
 ``env_*`` readers of ``obs/util.py``), with one change: ``DEVICE`` accepts
 ``cuda`` (the default) or ``cpu`` where the reference accepts ``tpu`` or
 ``cpu``. A malformed knob degrades to its default with a
@@ -101,8 +102,9 @@ class ServeConfig:
     # to this cap (1 = off)
     sd_batch_max: int = 1
     vllm_config: str = "/vllm_config.yaml"  # engine ConfigMap mount path
-    # placement: "tp=1"-style axis sizes, or an "a:b" device slice; one
-    # device only (serve/units/common.py unit_device)
+    # placement: "tp=N"-style axis sizes, or an "a:b" device slice
+    # (serve/units/common.py unit_layout: tp ranks at the units that
+    # declare supports_multihost, one device elsewhere)
     mesh_spec: str = ""
     submesh: str = ""
     # serving

@@ -294,6 +294,10 @@ UNIT_MODULES = (
     "scalable_hw_agnostic_inference_tpu_torch.serve.units.encoders",
     "scalable_hw_agnostic_inference_tpu_torch.serve.units.yolo",
     "scalable_hw_agnostic_inference_tpu_torch.serve.units.causal_lm",
+    # the units over tp ranks: the port's own copies, no JAX-free helper of
+    # the JAX package borrowed
+    "scalable_hw_agnostic_inference_tpu_torch.core.mesh",
+    "scalable_hw_agnostic_inference_tpu_torch.serve.multihost",
 )
 
 
@@ -340,12 +344,16 @@ def test_kernel_wrappers_refuse_other_devices():
     assert pa.paged_decode_attention.launches == 0
 
 
-#: the async-decode slice's modules: the scans above cover them by name
+#: the async-decode slice's modules, and the units-over-ranks slice's:
+#: the scans above cover them by name, and a fresh interpreter imports
+#: them without loading JAX or any module of the JAX package
 SLICE_MODULES = (
     "scalable_hw_agnostic_inference_tpu_torch.obs.steploop",
     "scalable_hw_agnostic_inference_tpu_torch.engine.resident",
     "scalable_hw_agnostic_inference_tpu_torch.engine.graphs",
     "scalable_hw_agnostic_inference_tpu_torch.engine.warm",
+    "scalable_hw_agnostic_inference_tpu_torch.core.mesh",
+    "scalable_hw_agnostic_inference_tpu_torch.serve.multihost",
 )
 
 

@@ -28,8 +28,9 @@ told apart by key, the tensors equal to the written ones, T5's 256 or 512
 tokens, the image equal to a pipeline built by hand from the same weights
 and tokens; the ``t5`` unit serves its ``text_encoder_2/``, given a
 ``tokenizer.json`` of its own. The refusals: a hub id, a multi-device
-``SUBMESH`` or ``MESH_SPEC`` at every unit, the tiny tier's heads of 16 on
-the card.
+``SUBMESH`` at every unit and ``MESH_SPEC`` at every unit without
+``supports_multihost`` (a ``dp`` axis at the others), the tiny tier's
+heads of 16 on the card.
 """
 
 import dataclasses
@@ -76,6 +77,9 @@ from scalable_hw_agnostic_inference_tpu_torch.serve.httpd import Server
 from scalable_hw_agnostic_inference_tpu_torch.serve.units import UNITS
 from scalable_hw_agnostic_inference_tpu_torch.serve.units import (
     flux as uflux,
+)
+from scalable_hw_agnostic_inference_tpu_torch.serve.units.common import (
+    unit_layout,
 )
 from scalable_hw_agnostic_inference_tpu_torch.utils.env import ServeConfig
 
@@ -373,8 +377,23 @@ def test_flux_directory_loads_and_serves(tmp_path, layout, guidance):
                          ids=["submesh", "mesh_tp", "mesh_dp_tp"])
 @pytest.mark.parametrize("name", sorted(UNITS))
 def test_every_unit_refuses_several_devices(name, spec):
-    unit = UNITS[name](ServeConfig(app=name, **{**TINY, **spec}))
-    with pytest.raises(ValueError, match="tensor parallelism"):
+    """A ``SUBMESH`` naming several devices is refused at every unit, and
+    ``MESH_SPEC`` over several at every unit but the three that serve
+    tensor parallelism over ranks (``supports_multihost``: ``llama``,
+    ``mistral``, ``deepseek``), all naming ROADMAP A7.3b. Those three lay
+    ``tp=2`` out (and, loaded outside ``serve_multihost``, with no group,
+    refuse it naming it), and refuse a ``dp`` axis."""
+    cfg = ServeConfig(app=name, **{**TINY, **spec})
+    unit = UNITS[name](cfg)
+    ranked = unit.supports_multihost and "mesh_spec" in spec
+    if ranked and spec["mesh_spec"] == "tp=2":
+        assert unit_layout(cfg, multihost=True)[1].tp == 2
+        match = "serve_multihost"
+    elif ranked:
+        match = "tensor parallelism only.*'dp'"
+    else:
+        match = "names [248] devices.*tensor parallelism.*A7.3b"
+    with pytest.raises(ValueError, match=match):
         unit.load()
 
 

@@ -19,8 +19,9 @@ numpy draws of the tree's shape, ``test_torch_serve_sd._load_jax_unit``):
   ``vocab.txt``, ViT, YOLOS, a Llama checkpoint) load into the port's
   units, whose answers equal the models built by hand from the same
   tensors; the WordPiece file equals ``BertTokenizerFast``'s ids;
-- the refusals: ``MESH_SPEC=tp=4`` at ``load()`` (the ``llama`` and
-  ``mistral`` manifests), a ``config.json`` of another ``model_type`` at
+- the refusals: ``MESH_SPEC=tp=4`` at ``load()`` without the ranks
+  ``serve_multihost`` starts (the ``llama`` and ``mistral`` manifests),
+  and at ``bert``, a ``config.json`` of another ``model_type`` at
   ``bert``, a hub id, the tiny tiers' heads of 16 on the card, an image
   that is no image (a 400).
 """
@@ -347,9 +348,15 @@ def test_units_cover_the_jax_registry():
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(ValueError, match="tensor parallelism.*A7"):
+    # the llama manifest's tp=4 runs over ranks (serve_multihost gives
+    # each its group): loaded without one, it is refused, naming it; the
+    # encoder units stay on one device until ROADMAP A7.3b
+    with pytest.raises(ValueError, match="tp=4.*serve_multihost"):
         UNITS["llama"](ServeConfig(app="llama", device="cpu",
                                    model_id="tiny", mesh_spec="tp=4")).load()
+    with pytest.raises(ValueError, match="tensor parallelism.*A7.3b"):
+        UNITS["bert"](ServeConfig(app="bert", device="cpu",
+                                  model_id="tiny", mesh_spec="tp=4")).load()
     chip_smoke._write_encoder_dir(tmp_path, "bert", ENCODER_CFGS["bert"],
                                   seed=1, model_type="bert")
     with pytest.raises(ValueError, match="DistilBERT"):

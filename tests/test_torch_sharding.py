@@ -15,7 +15,8 @@ against the JAX package on the CPU.
   no-op and the bad factor;
 - ``EngineShardings``' refusal is the reference's message, its per-rank
   counts the manifests' shapes; the engine refuses a tp without a group
-  of that size, and the units still refuse several devices;
+  of that size, and a unit refuses tp ranks without one (on one device
+  until ROADMAP A7.3b, or outside ``serve_multihost``);
 - the rank-local fp32 forward at tp 2 and 4 (4 through widening) over
   ``LoopbackGroup``, for the tied tiny, an untied tiny and its int8
   weights: within 2e-4 of the port's unsharded forward and of the JAX
@@ -69,6 +70,8 @@ from scalable_hw_agnostic_inference_tpu_torch.parallel.sharding import (
 )
 from scalable_hw_agnostic_inference_tpu_torch.serve.units.common import (
     unit_device,
+    unit_layout,
+    unit_ranks,
 )
 
 sys.path.insert(0, str(Path(__file__).parent))
@@ -368,9 +371,17 @@ def test_engine_and_units_still_refuse_several_ranks():
     with pytest.raises(ValueError, match="tensor_parallel_size=2 but the "
                        "engine's group has 1 rank.*parallel.distributed"):
         pengine.LLMEngine(cfg, model, ecfg, device="cpu")
-    with pytest.raises(ValueError, match="MESH_SPEC names 4 devices"):
-        unit_device(types.SimpleNamespace(device="cpu", submesh=None,
-                                          mesh_spec="tp=4"))
+    # a unit on one device refuses tp ranks (ROADMAP A7.3b); a unit that
+    # serves them (supports_multihost) lays them out, and without the
+    # group serve_multihost gives each rank, refuses to run on one
+    cfg = types.SimpleNamespace(device="cpu", submesh=None,
+                                mesh_spec="tp=4")
+    with pytest.raises(ValueError, match="MESH_SPEC names 4 devices.*"
+                       "A7.3b"):
+        unit_device(cfg)
+    assert unit_layout(cfg, multihost=True)[1].tp == 4
+    with pytest.raises(ValueError, match="serve_multihost"):
+        unit_ranks(cfg, multihost=True)
 
 
 # -- the rank-local forward ---------------------------------------------------
