@@ -102,9 +102,9 @@ Phases:
                 any allocation or spawned process: tp=2 over NCCL on one
                 card, ``SHAI_NUM_PROCESSES=3`` with tp=2, ``dp=2,tp=1``,
                 the ``vllm`` unit's ``tensor_parallel_size: 2`` on one
-                card, the ``t5`` unit at tp=2 (ROADMAP A7.3b);
-  8. ``decode_graph`` one decode step at Llama-3-8B width (32 layers,
-                seeded weights) captured as a CUDA graph
+                card, the ``bert`` unit at tp=2 (ROADMAP A7.3c);
+  8. ``decode_graph`` one decode step at Llama-3-8B width
+                (``ENGINE_LAYERS`` of its 32 layers, seeded weights) captured as a CUDA graph
                 (``engine/graphs.py``) at serve's bucketed shape (B=8, a
                 32-block bucket, bf16 pool) and at the ragged int8 full
                 window (256 blocks, lengths 1 to 4096): the replay's
@@ -159,14 +159,14 @@ Phases:
  13. ``engine_int8`` the engine phase's model quantized at boot
                 (``ops.quant.quantize_state_dict``): one captured decode
                 step and one captured verify step against their eager
-                calls, bit for bit, each with 225 int8 launches (7 x 32
-                projections and the lm_head; the verify's 40 rows through
-                B4's decode instantiation); then the
-                engine bucketed (scored by the engine phase's tie rule)
-                and under ``SHAI_RAGGED_ATTENTION=1 SHAI_KV_QUANT=int8``
-                (engine_ragged's int8 rule), async equal to lock-step,
-                every graph 225 int8 launches, prefill and chunks through
-                B4's wide instantiation, scored through the int8 model's
+                calls, bit for bit, each with 7 x ``ENGINE_LAYERS`` + 1
+                int8 launches (the projections and the lm_head; the
+                verify's 40 rows through B4's decode instantiation);
+                then the engine bucketed (scored by the engine phase's
+                tie rule) and under ``SHAI_RAGGED_ATTENTION=1
+                SHAI_KV_QUANT=int8`` (engine_ragged's int8 rule), async
+                equal to lock-step, every graph as many int8 launches,
+                prefill and chunks through B4's wide instantiation, scored through the int8 model's
                 plain route; then fused (every fused replay's window
                 through the wide instantiation inside the graph);
  14. ``checkpoint`` a seeded Llama-3.2-1B-width checkpoint written here
@@ -327,6 +327,28 @@ Phases:
                 /genimage``, a 400, B1 exactly (12 + 6 x 4) a request, no
                 shape first run after warmup; then the ``t5`` unit on its
                 ``text_encoder_2/``: ``/embed``, the 400, no kernel;
+ 28b. ``tp_diffusion`` the ``t5`` and ``flux`` units over tensor-parallel
+                ranks (``serve/multihost.py``) on serve_flux's seeded
+                directory, 512 px, 4 steps, ``TPD_PROMPTS``: (a) each as
+                a group of one over NCCL through the env path
+                (``SHAI_COORDINATOR``, ``SHAI_NUM_PROCESSES=1``):
+                ``/embed`` equal to the plain unit's element for element,
+                the PNG equal byte for byte, B1 launches the plain
+                unit's (12 + 6 x 4 a request); (b) two gloo ranks sharing
+                the card: ``t5`` at ``MESH_SPEC=tp=2``, ``/embed`` within
+                ``T5_TP_RRMS`` of the plain unit's, a control (layer 0's
+                o all-reduce one partial short) outside it; ``flux`` at
+                ``SUBMESH=0:2``, the image within ``FLUX_IMAGE_*`` of the
+                plain unit's; rank 0's B1 launches 12 + 6 x 4 a request
+                and the follower's 6 x 4 (read through a mirrored call),
+                every mirrored call counted on both ranks (warmup, the
+                requests, the 400s for a steps value outside the set and
+                a bad knob), the follower alive after them and exiting
+                with 0; (c) the refusals before any allocation or spawn:
+                both units with ``SHAI_NUM_PROCESSES=2``, ``t5`` at tp=3
+                (64 heads), ``flux`` over a ``SUBMESH`` past the cards,
+                tp=2 over NCCL on one card; the flash phase holds B1 at
+                the ranks' heads (``FLUX_RANK_FLASH``, timed);
  29. ``serve_encoders`` the ``bert``, ``vit`` and ``yolo`` units, each
                 on a seeded HF-layout directory at published widths
                 written here (DistilBERT-base-uncased-SST-2 with a
@@ -393,8 +415,9 @@ replaces, launches in the serve phase that runs it, max error,
 kernel/plain/bound/library times, and its launches at the cached callers
 of engine_prefix, serve_disagg and serve_fleet; B1 also its cross shapes
 and launches in engine_mllama and serve_mllama, its LLaVA shapes, its
-SD2.1 shapes and launches in engine_sd and serve_sd, and its Flux shapes
-and launches in engine_flux and serve_flux; B3 also its fused
+SD2.1 shapes and launches in engine_sd and serve_sd, its Flux shapes
+and launches in engine_flux and serve_flux, and its Flux rank shapes and
+launches in tp_diffusion; B3 also its fused
 mixed-row launch; B2 and B3 their verify shape and verify replays'
 launches, in serve_spec and engine_spec (b);
 B4's decode and wide instantiations, which replace XLA's fused int8 dot
@@ -431,7 +454,8 @@ PHASES = ("card", "build", "flash", "paged", "ragged", "int8_matmul",
           "engine_mllama", "engine_llava", "serve_disagg", "serve_fleet",
           "serve", "serve_int8", "serve_ragged", "serve_fused",
           "serve_spec", "serve_mllama", "serve_llava", "engine_sd",
-          "serve_sd", "engine_flux", "serve_flux", "serve_encoders",
+          "serve_sd", "engine_flux", "serve_flux", "tp_diffusion",
+          "serve_encoders",
           "serve_causal", "serve_ops")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
@@ -500,7 +524,10 @@ LP_TOL = TIE_TOL
 # -log(vocab) up to the f32 rounding of a log-sum-exp over 128,256 terms
 GEOMETRY_LP_ATOL = 1e-5
 
-ENGINE_LAYERS = 32
+#: the engine phases' model: Llama-3-8B's widths at 16 of its 32 layers
+#: (the depth cut keeps the full smoke inside 85% of its time since the
+#: tp phases joined it; every check counts from the config's layers)
+ENGINE_LAYERS = 16
 ENGINE_NEW_TOKENS = 16
 # mllama's cross attention through B1 (non-causal, lengths = each row's
 # valid vision states) at Llama-3.2-11B-Vision's shapes: decode (T = 1),
@@ -577,6 +604,15 @@ FLUX_FLASH = [
     (1, 4608, 4608, 24, 24, 128, None, False, True),
     (1, 4352, 4352, 24, 24, 128, None, False, False),
     (1, 77, 77, 12, 12, 64, None, True, False),
+]
+#: B1 at one tensor-parallel rank's heads of Flux's joint attention
+#: (tp_diffusion; B, T, S, H, Hkv, D, lengths, causal, timed): 512 px
+#: schnell's 1,280 tokens at 12 heads (tp=2, tp_diffusion (b)) and at 4
+#: (tp=6, the manifest's SUBMESH=2:8), FLUX.1-dev's 4,608 at 12
+FLUX_RANK_FLASH = [
+    (1, 1280, 1280, 12, 12, 128, None, False, True),
+    (1, 1280, 1280, 4, 4, 128, None, False, True),
+    (1, 4608, 4608, 12, 12, 128, None, False, True),
 ]
 #: B1 at the encoder units' shapes (B, T, S, H, Hkv, D, lengths, causal,
 #: timed), non-causal, heads of 64 over as many kv heads: (xiii)
@@ -889,6 +925,13 @@ def phase_flash(ctx):
         if timed:
             flux_rows.append(line)
     ctx["flash_flux"] = flux_rows
+    # one tensor-parallel rank's heads of the same (tp_diffusion)
+    ctx["flash_flux_ranks"] = []
+    for B, T, S, H_, Hkv_, D, lengths, causal, timed in FLUX_RANK_FLASH:
+        line = _flash_row(ctx, torch, gen, fa, B, T, S, H_, Hkv_, D, lengths,
+                          causal, timed)
+        worst = max(worst, line["max_abs_err"])
+        ctx["flash_flux_ranks"].append(line)
     # the encoder units (DistilBERT's padded keys, ViT, YOLOS) and the
     # llama unit's dense-cache prefill
     for key, table in (("flash_encoders", ENCODER_FLASH),
@@ -3936,12 +3979,12 @@ def phase_engine_int8(ctx):
     per = 7 * cfg.n_layers + 1
     try:
         # a captured decode step against its eager call, bit for bit, with
-        # its 225 int8 launches
+        # its 7 x n_layers + 1 int8 launches
         graph = _decode_graph_case(ctx, torch, "engine_int8 bucketed",
                                    [32, 71, 110, 149, 188, 227, 266, 305],
                                    False, False, 32)
         # and a captured verify step over the int8 weights: its 40 rows
-        # through B4's decode instantiation, 225 launches
+        # through B4's decode instantiation, as many launches
         vgraph = _verify_graph_case(ctx, torch, "engine_int8 verify",
                                     [27, 66, 105, 144, 183, 222, 261, 300],
                                     False, False, 32)
@@ -3963,8 +4006,9 @@ def phase_engine_int8(ctx):
                  "int8")):
             info, counts, sync = _run_engine(ctx, what, prompts, switches,
                                              expect, cont, rule)
-            # every graph of the async and the lock-step run holds 225
-            # int8 launches, and the async run made that many per replay
+            # every graph of the async and the lock-step run holds 7 x
+            # n_layers + 1 int8 launches, and the async run made that many
+            # per replay
             bad = [r["int8_per_replay"] for r in (info, sync)
                    if r["int8_per_replay"] != [per]]
             if bad or counts["int8_matmul"] < per * info["replays"]:
@@ -8370,6 +8414,8 @@ def phase_serve_flux(ctx):
     t0 = time.monotonic()
     path, n_bytes = _seeded_flux_dir(ctx)
     write_s = time.monotonic() - t0
+    # kept for tp_diffusion; main() removes it after the phases
+    ctx["seeded_flux"] = path
     log(f"serve_flux: wrote {path} ({n_bytes / 1e9:.2f} GB) in "
         f"{write_s:.1f} s")
     layers = SERVE_FLUX_DOUBLE + SERVE_FLUX_SINGLE
@@ -8458,7 +8504,6 @@ def phase_serve_flux(ctx):
         ctx["serve_flux"] = row
         log("serve_flux: " + json.dumps(row))
     finally:
-        shutil.rmtree(path.parent, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -9645,8 +9690,8 @@ def _tp_forward(ctx):
 #: 0.65-0.90 s a step (each staged collective waits on both processes'
 #: contexts), so the rounds stay short
 TPE_PROMPTS = (5, 37, 120, 300, 512, 700, 1000, 1300)
-#: the engine model's first 16 of its 32 layers (the depth cut keeps the
-#: smoke inside its time; every check counts from the config's layers)
+#: the engine model's first 16 layers (the depth cut keeps the smoke
+#: inside its time; every check counts from the config's layers)
 TPE_LAYERS = 16
 TPE_NEW_TOKENS = 8
 TPE_SAMPLED = 2
@@ -9894,7 +9939,7 @@ def _free_port() -> int:
     return port
 
 
-def _start_unit(name: str, env, backend=None, pool=None):
+def _start_unit(name: str, env, backend=None, pool=None, prepare=None):
     """The unit ``name`` (its config read under ``env``) with its ranks
     started as ``serve_multihost`` starts them (``serve.multihost.
     start_ranks``: its followers spawned and joined, nothing loaded yet):
@@ -9902,7 +9947,8 @@ def _start_unit(name: str, env, backend=None, pool=None):
     with ``pool``, a future of it, so that the followers boot beside work
     of this process that joins no group (this process holds one group at
     a time). Spawned followers inherit this process's environment, so a
-    pooled start runs while no ``SHAI_COORDINATOR`` is set."""
+    pooled start runs while no ``SHAI_COORDINATOR`` is set. ``prepare(
+    service)`` runs before the followers take their copies."""
     from scalable_hw_agnostic_inference_tpu_torch.serve.multihost import (
         start_ranks,
     )
@@ -9914,6 +9960,8 @@ def _start_unit(name: str, env, backend=None, pool=None):
     with _env(env):
         cfg = ServeConfig.from_env()
     service = UNITS[name](cfg)
+    if prepare is not None:
+        prepare(service)
 
     def start():
         fails = []
@@ -9943,7 +9991,8 @@ def _ranked_up(started):
 
     service, ranks, fails, t0 = started
     cfg = service.cfg
-    _recording(service)   # after the followers took their copies
+    if hasattr(service, "generate_ids"):
+        _recording(service)   # after the followers took their copies
     server = None
     try:
         app = create_app(cfg, service, publisher=MetricsPublisher(
@@ -10112,7 +10161,7 @@ def _tpu_refusals(path):
          {"MESH_SPEC": "tp=2", **coord}, "SHAI_NUM_PROCESSES=3 does not"),
         ("dp=2,tp=1", "llama", {"MESH_SPEC": "dp=2,tp=1"},
          "tensor parallelism only"),
-        ("t5 tp=2", "t5", {"MESH_SPEC": "tp=2"}, "A7.3b"),
+        ("bert tp=2", "bert", {"MESH_SPEC": "tp=2"}, "A7.3c"),
         ("vllm tensor_parallel_size 2", "vllm", {"VLLM_CONFIG": str(cm)},
          "tensor_parallel_size=2 exceeds the 1 local devices"),
     ]
@@ -10389,6 +10438,383 @@ def _tp_units(ctx, out, path, env, envs, pool, pending):
     out["c"] = _tpu_line("(c) refusals", **_tpu_refusals(path))
 
 
+# -- tp_diffusion ----------------------------------------------------------
+
+#: tp_diffusion's prompts (one image or embedding each)
+TPD_PROMPTS = ("a watercolor fox in a misty forest at dawn",
+               "A red apple on a wooden table, 35mm photo")
+#: tp_diffusion (b): the t5 unit's ``/embed`` at tp=2 (two gloo ranks)
+#: against the plain unit's, relative rms (PERF.md states the
+#: prediction). Each rank's partial sums after ``o`` and ``wo`` round to
+#: bf16 before the all-reduce adds them in bf16, so the embedding moves by
+#: bf16 rounding through 2 layers, some 2^-8 relative; 0.05 is many times
+#: that. A control whose layer-0 ``o`` all-reduce keeps one rank's
+#: partial alone must fall outside
+T5_TP_RRMS = 0.05
+
+
+def _rank_launch_counts(where, reset=False):
+    """A mirrored call of tp_diffusion's units (each rank runs it in
+    order with the others): this process's kernel launch counts written
+    to ``where/<pid>.json``; ``reset`` then zeroes them."""
+    Path(where, f"{os.getpid()}.json").write_text(
+        json.dumps(_read_counters()))
+    if reset:
+        _reset_counters()
+    return {}
+
+
+def _counting(where):
+    """A ``_start_unit`` ``prepare``: the unit mirrors
+    :func:`_rank_launch_counts` too, so the leader reads every rank's
+    launches."""
+    import functools
+
+    def prepare(service):
+        service.mirror_methods = tuple(service.mirror_methods) + (
+            "launch_counts",)
+        service.launch_counts = functools.partial(_rank_launch_counts,
+                                                  where)
+
+    return prepare
+
+
+def _rank_counts(service, where, n_ranks, timeout=120.0):
+    """Every rank's launch counts, rank 0's first: the mirrored
+    :func:`_rank_launch_counts`, then its files, once each rank wrote
+    one."""
+    for f in Path(where).glob("*.json"):
+        f.unlink()
+    service.launch_counts()
+    deadline = time.monotonic() + timeout
+    while len(list(Path(where).glob("*.json"))) < n_ranks:
+        if time.monotonic() > deadline:
+            raise AssertionError("tp_diffusion: a rank wrote no launch "
+                                 "counts")
+        time.sleep(0.05)
+    time.sleep(0.1)
+    mine = Path(where, f"{os.getpid()}.json")
+    others = sorted(f for f in Path(where).glob("*.json") if f != mine)
+    return [json.loads(f.read_text()) for f in [mine] + others]
+
+
+def _t5_partial_control(torch, model, ids, mask):
+    """The control of (b): rank 0's embedding of the encoder at tp=2 over
+    a loopback group on this card whose first all-reduce (layer 0's
+    ``o``) keeps each rank's own partial."""
+    from scalable_hw_agnostic_inference_tpu_torch.models import t5
+    from scalable_hw_agnostic_inference_tpu_torch.parallel.loopback import (
+        LoopbackGroup,
+        run_ranks,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.parallel.sharding import (
+        shard_state_dict,
+    )
+
+    class Dropped(LoopbackGroup):
+        def __init__(self, size):
+            super().__init__(size)
+            self.skipped = set()
+
+        def all_reduce(self, t):
+            if self.rank not in self.skipped:
+                self.skipped.add(self.rank)
+                return t
+            return super().all_reduce(t)
+
+    group, state = Dropped(2), model.state_dict()
+
+    def rank(r):
+        m = t5.build(model.cfg, shard_state_dict(state, t5.tp_rules(), 2, r),
+                     dtype=model.dtype, group=group)
+        return t5.mean_pool(m(ids, mask), mask)
+
+    with torch.inference_mode():
+        return run_ranks(rank, group)[0].float().cpu()
+
+
+def _tpd_refusals(fenv, tenv):
+    """(c): each refused before any allocation or spawned process."""
+    import multiprocessing
+    import re
+
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.serve.multihost import (
+        start_ranks,
+    )
+    from scalable_hw_agnostic_inference_tpu_torch.serve.units import UNITS
+    from scalable_hw_agnostic_inference_tpu_torch.utils.env import (
+        ServeConfig,
+    )
+
+    hosts = {"SHAI_COORDINATOR": f"127.0.0.1:{_free_port()}",
+             "SHAI_NUM_PROCESSES": "2", "SHAI_PROCESS_ID": "0"}
+    unshared = "does not declare supports_multihost"
+    one_card = "2 NCCL ranks on this host.*1 card"
+    cases = [
+        ("t5 SHAI_NUM_PROCESSES=2", "t5",
+         {**tenv, "MESH_SPEC": "tp=2", **hosts}, None,
+         "SHAI_NUM_PROCESSES=2 .*" + unshared),
+        ("flux SHAI_NUM_PROCESSES=2", "flux",
+         {**fenv, "SUBMESH": "0:2", **hosts}, None,
+         "SHAI_NUM_PROCESSES=2 .*" + unshared),
+        ("t5 tp=3 (64 heads)", "t5", {**tenv, "MESH_SPEC": "tp=3"}, "gloo",
+         "tp=3: tp must divide heads=64"),
+        ("flux SUBMESH=1:3, past the cards", "flux",
+         {**fenv, "SUBMESH": "1:3"}, None,
+         r"SUBMESH='1:3' asks for cards 1 to 2 \(nccl: a card a rank\), "
+         r"and this host has 1 card"),
+        ("t5 tp=2 over NCCL, one card", "t5", {**tenv, "MESH_SPEC": "tp=2"},
+         None, one_card),
+    ]
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    kids = multiprocessing.active_children()
+    out = {}
+    for what, name, env, backend, match in cases:
+        with _env(env):
+            cfg = ServeConfig.from_env()
+            service = UNITS[name](cfg)
+            try:
+                start_ranks(cfg, service, backend)
+                raise AssertionError(f"tp_diffusion (c) {what}: not "
+                                     f"refused")
+            except ValueError as e:
+                if not re.search(match, str(e)):
+                    raise AssertionError(f"tp_diffusion (c) {what}: {e}")
+                out[what] = str(e)[:160]
+        if torch.cuda.memory_allocated() != mem or \
+                multiprocessing.active_children() != kids:
+            raise AssertionError(f"tp_diffusion (c) {what}: refused after "
+                                 f"an allocation or a spawn")
+    return out
+
+
+def _tpd_round(base, route, payloads):
+    """Each payload on ``route``: the bodies and each request's seconds;
+    anything but a 200 fails."""
+    bodies, lat = [], []
+    for p in payloads:
+        t1 = time.perf_counter()
+        status, body = _http(base + route, p, timeout=600)
+        lat.append(time.perf_counter() - t1)
+        if status != 200:
+            raise AssertionError(f"tp_diffusion {route}: {status} "
+                                 f"{str(body)[:300]}")
+        bodies.append(body)
+    return bodies, lat
+
+
+def phase_tp_diffusion(ctx):
+    """The ``t5`` and ``flux`` units over tensor-parallel ranks on one card
+    (module docstring, 28b)."""
+    import base64
+    import concurrent.futures
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scalable_hw_agnostic_inference_tpu_torch.models import imageio
+
+    t_phase = time.monotonic()
+    out = ctx["tp_diffusion"] = {}
+    launches = ctx.setdefault("launches", {})
+    _drop_engine_model(ctx)
+    if "seeded_flux" not in ctx:
+        ctx["seeded_flux"] = _seeded_flux_dir(ctx)[0]
+    path = ctx["seeded_flux"]
+    where = tempfile.mkdtemp(prefix="shai-tpd-")
+    clear = {"SHAI_COORDINATOR": "", "MESH_SPEC": "", "SUBMESH": ""}
+    fenv = {"DEVICE": "cuda", "MODEL_ID": str(path), "APP": "flux",
+            "NUM_INFERENCE_STEPS": str(FLUX_STEPS), "HEIGHT": str(FLUX_SIZE),
+            "WIDTH": str(FLUX_SIZE), "PORT": "0", **clear}
+    tenv = {"DEVICE": "cuda", "MODEL_ID": str(path / "text_encoder_2"),
+            "APP": "t5", "PORT": "0", **clear}
+    layers = SERVE_FLUX_DOUBLE + SERVE_FLUX_SINGLE
+    n_req = len(TPD_PROMPTS)
+    flux_req = [{"prompt": p, "seed": i} for i, p in enumerate(TPD_PROMPTS)]
+    t5_req = [{"text": p} for p in TPD_PROMPTS]
+    pending = set()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            # (b)'s flux follower boots beside the plain units
+            start_fb = _start_unit("flux", {**fenv, "SUBMESH": "0:2"},
+                                   "gloo", pool, prepare=_counting(where))
+            pending.add(start_fb)
+
+            # the plain units: the PNGs, the embeddings, the launches
+            with _unit_up("flux", fenv) as (service, base, ready_s):
+                _reset_counters()
+                plain_f, lat = _tpd_round(base, "/genimage", flux_req)
+                counts = _read_counters()
+                del service
+            _check_counters("tp_diffusion plain flux", counts,
+                            {"flash_attention"})
+            if counts["flash_attention"] != \
+                    (FLUX_CLIP_B1 + layers * FLUX_STEPS) * n_req:
+                raise AssertionError(f"tp_diffusion plain flux: launches "
+                                     f"{counts}")
+            launches["tp_diffusion plain flux"] = counts
+            out["plain_flux"] = {"ready_s": ready_s, "latency_s": lat}
+            with _unit_up("t5", tenv) as (service, base, ready_s):
+                plain_t, lat = _tpd_round(base, "/embed", t5_req)
+                ids, mask = (torch.from_numpy(a).to(service.device)
+                             for a in service._encode(TPD_PROMPTS[0]))
+                control = _t5_partial_control(torch, service.model, ids,
+                                              mask)
+                del service
+            out["plain_t5"] = {"ready_s": ready_s, "latency_s": lat}
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (b) flux over two gloo ranks sharing the card
+            pending.discard(start_fb)
+            with _ranked_up(start_fb.result()) as (service, base, ranks,
+                                                   ready_s):
+                service.launch_counts(reset=True)
+                got_f, lat = _tpd_round(base, "/genimage", flux_req)
+                bad = [_http(base + "/genimage", {"prompt": "x", "steps": s})
+                       for s in (3, "many")]
+                again, _ = _tpd_round(base, "/genimage", flux_req[:1])
+                alive = [p.exitcode for p in ranks.procs]
+                counts = _rank_counts(service, where, 2)
+                boot = ranks.boot
+            if [b[0] for b in bad] != [400, 400] or alive != [None]:
+                raise AssertionError(f"tp_diffusion (b) flux: the 400s "
+                                     f"{bad}, follower {alive}")
+            want = [{"warmup": 1, "infer": n_req + 3, "launch_counts": 2}] * 2
+            if ranks.mirrored != want or \
+                    [p.exitcode for p in ranks.procs] != [0]:
+                raise AssertionError(
+                    f"tp_diffusion (b) flux: mirrored {ranks.mirrored}, "
+                    f"follower exit {[p.exitcode for p in ranks.procs]}")
+            for i, (c, per) in enumerate(zip(counts, (
+                    FLUX_CLIP_B1 + layers * FLUX_STEPS,
+                    layers * FLUX_STEPS))):
+                _check_counters(f"tp_diffusion (b) flux rank {i}", c,
+                                {"flash_attention"})
+                if c["flash_attention"] != per * (n_req + 1):
+                    raise AssertionError(f"tp_diffusion (b) flux rank {i}: "
+                                         f"B1 {c['flash_attention']}, "
+                                         f"expected {per} a request")
+            diffs = []
+            for a, b in zip(got_f + again, plain_f + plain_f[:1]):
+                pa, pb = (imageio.decode_png(base64.b64decode(x[
+                    "image_b64"])) for x in (a, b))
+                mean, mx = _image_diff(pa, pb)
+                diffs.append({"mean": mean, "max": mx})
+                if mean > FLUX_IMAGE_MEAN or mx > FLUX_IMAGE_MAX:
+                    raise AssertionError(
+                        f"tp_diffusion (b) flux: the image at tp=2 differs "
+                        f"from the plain unit's by mean {mean:.3f}, max "
+                        f"{mx} (bound {FLUX_IMAGE_MEAN}, {FLUX_IMAGE_MAX})")
+            launches["tp_diffusion (b) flux"] = counts[0]
+            launches["tp_diffusion (b) flux follower"] = counts[1]
+            out["b_flux"] = {"ready_s": ready_s, "boot": boot,
+                             "latency_s": lat, "vs_plain": diffs,
+                             "launches": counts, "mirrored": ranks.mirrored}
+            log("tp_diffusion (b) flux: " + json.dumps(out["b_flux"]))
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # (b) t5 over two gloo ranks sharing the card
+            with _ranked_up(_start_unit(
+                    "t5", {**tenv, "MESH_SPEC": "tp=2"}, "gloo",
+                    prepare=_counting(where))) as (service, base, ranks,
+                                                   ready_s):
+                service.launch_counts(reset=True)
+                got_t, lat = _tpd_round(base, "/embed", t5_req)
+                bad = _http(base + "/embed", {})
+                again, _ = _tpd_round(base, "/embed", t5_req[:1])
+                alive = [p.exitcode for p in ranks.procs]
+                counts = _rank_counts(service, where, 2)
+                boot = ranks.boot
+            if bad[0] != 400 or alive != [None]:
+                raise AssertionError(f"tp_diffusion (b) t5: no text "
+                                     f"answered {bad}, follower {alive}")
+            want = [{"infer": 1 + n_req + 2, "launch_counts": 2}] * 2
+            if ranks.mirrored != want or \
+                    [p.exitcode for p in ranks.procs] != [0]:
+                raise AssertionError(
+                    f"tp_diffusion (b) t5: mirrored {ranks.mirrored}, "
+                    f"follower exit {[p.exitcode for p in ranks.procs]}")
+            for i, c in enumerate(counts):
+                _check_counters(f"tp_diffusion (b) t5 rank {i}", c, set())
+            rrms = [_rrms(torch.tensor(a["embedding"]),
+                          torch.tensor(b["embedding"]))
+                    for a, b in zip(got_t + again, plain_t + plain_t[:1])]
+            ctl = _rrms(control[0], torch.tensor(plain_t[0]["embedding"]))
+            log(f"tp_diffusion (b) t5: relative rms {rrms} (bound "
+                f"{T5_TP_RRMS}), control {ctl:.4f} (must exceed it)")
+            if max(rrms) > T5_TP_RRMS or ctl <= T5_TP_RRMS:
+                raise AssertionError(f"tp_diffusion (b) t5: relative rms "
+                                     f"{rrms}, control {ctl}, bound "
+                                     f"{T5_TP_RRMS}")
+            if not all(np.isfinite(b["embedding"]).all() and b["dim"] == 4096
+                       for b in got_t):
+                raise AssertionError("tp_diffusion (b) t5: an embedding not "
+                                     "finite or not 4096 wide")
+            out["b_t5"] = {"ready_s": ready_s, "boot": boot,
+                           "latency_s": lat, "rrms_vs_plain": rrms,
+                           "control_rrms": ctl, "mirrored": ranks.mirrored}
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # (a) each unit as a group of one over NCCL, through the env path
+        for name, env, route, req, plain in (
+                ("flux", fenv, "/genimage", flux_req, plain_f),
+                ("t5", tenv, "/embed", t5_req, plain_t)):
+            coord = {"SHAI_COORDINATOR": f"127.0.0.1:{_free_port()}",
+                     "SHAI_NUM_PROCESSES": "1", "SHAI_PROCESS_ID": "0"}
+            with _env({**env, **coord}), _ranked_up(
+                    _start_unit(name, {**env, **coord})) as (
+                    service, base, ranks, ready_s):
+                group = service.group
+                if group is None or group.backend != "nccl" or \
+                        ranks.layout.tp != 1:
+                    raise AssertionError(f"tp_diffusion (a) {name}: not a "
+                                         f"group of one over NCCL: {group}")
+                _reset_counters()
+                got, lat = _tpd_round(base, route, req)
+                counts = _read_counters()
+            key = "image_b64" if name == "flux" else "embedding"
+            if [b[key] for b in got] != [b[key] for b in plain]:
+                raise AssertionError(f"tp_diffusion (a) {name}: the answer "
+                                     f"differs from the plain unit's")
+            if name == "flux" and counts != \
+                    launches["tp_diffusion plain flux"]:
+                raise AssertionError(f"tp_diffusion (a) flux: launches "
+                                     f"{counts}")
+            if name == "t5":
+                _check_counters("tp_diffusion (a) t5", counts, set())
+            launches[f"tp_diffusion (a) {name}"] = counts
+            out[f"a_{name}"] = {"ready_s": ready_s, "latency_s": lat,
+                                "launches": counts,
+                                "mirrored": ranks.mirrored}
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # (c) the refusals
+        out["c"] = _tpd_refusals(fenv, tenv)
+    finally:
+        for future in pending:
+            try:
+                ranks = future.result()[1]
+            except BaseException as e:
+                log(f"tp_diffusion: a pending start failed: {e}")
+                continue
+            ranks.closing = True
+            for p in ranks.procs:
+                p.kill()
+                p.join(5.0)
+            ranks.group.close()
+        shutil.rmtree(where, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t_phase
+    log("tp_diffusion: " + json.dumps({k: v for k, v in out.items()
+                                       if k != "b_flux"}))
+    log(f"tp_diffusion: {out['seconds']:.1f} s")
+
+
 def kernels_line(ctx):
     cuda_dir = "scalable_hw_agnostic_inference_tpu_torch/csrc"
     pallas = f"{TPU_PKG}/ops/pallas"
@@ -10559,6 +10985,18 @@ def kernels_line(ctx):
     for row in out:
         row["tp_units_launches"] = {k: ctx["launches"][k][row["name"]]
                                     for k in parts}
+    # the flux unit over ranks (tp_diffusion): B1 at a rank's heads timed
+    # in the flash phase; its launches by rank 0 in (a), the NCCL group of
+    # one, and by rank 0 and the follower in (b), two gloo ranks
+    parts = ("tp_diffusion (a) flux", "tp_diffusion (b) flux",
+             "tp_diffusion (b) flux follower")
+    out[0]["flux_ranks"] = {
+        "launches": {k: ctx["launches"][k]["flash_attention"]
+                     for k in parts},
+        "shapes": [{k: r[k] for k in keys} for r in ctx["flash_flux_ranks"]]}
+    for row in out:
+        row["tp_diffusion_launches"] = {k: ctx["launches"][k][row["name"]]
+                                        for k in parts}
     return {"kernels": out}
 
 
@@ -10607,8 +11045,9 @@ def main(argv) -> int:
     log(f"total {time.monotonic() - t_all:.1f} s")
     unwatch()
     log("hbm gate, every engine built: " + json.dumps(ctx.get("gate", [])))
-    if "seeded_1b" in ctx:
-        shutil.rmtree(ctx["seeded_1b"].parent, ignore_errors=True)
+    for key in ("seeded_1b", "seeded_flux"):
+        if key in ctx:
+            shutil.rmtree(ctx[key].parent, ignore_errors=True)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1

@@ -26,7 +26,8 @@ Used by the engine's boot gate (``engine.engine.LLMEngine``) and, with
 :func:`dense_lm_budget` (no reference counterpart: the reference's dense
 units place their weights without a gate), by the dense-cache units'
 (``serve.units.causal_lm``), which price one rank's load before it reads
-a weight.
+a weight; :func:`rank_budget` prices one rank of the ``t5`` and ``flux``
+units the same way.
 """
 
 from __future__ import annotations
@@ -141,6 +142,8 @@ def params_bytes_per_chip(shapes: Shapes, rules, tp: int,
     Also the sharding LEGALITY check: a rule that splits a dim ``tp`` does
     not divide raises here.
     """
+    from ..parallel.sharding import shard_shape
+
     per_leaf = (bytes_per_elem if callable(bytes_per_elem)
                 else lambda name, shape: bytes_per_elem)
     total = 0.0
@@ -148,10 +151,13 @@ def params_bytes_per_chip(shapes: Shapes, rules, tp: int,
         spec = rules.spec_for(name, ndim=len(shape))
         div = 1
         if spec.dim is not None:
-            if shape[spec.dim] % tp:
+            try:
+                # a sectioned split: every section divisible by tp
+                shard_shape(name, shape, spec, tp)
+            except ValueError:
                 raise HbmBudgetError(
                     f"illegal sharding: {name} dim {shape[spec.dim]} not "
-                    f"divisible by mesh axis 'tp'={tp}")
+                    f"divisible by mesh axis 'tp'={tp}") from None
             div = tp
         n_elems = 1
         for d in shape:
@@ -306,3 +312,29 @@ def dense_lm_budget(cfg, *, tp: int, quantization: Optional[str],
                      hbm_gib_per_chip=hbm_gib_per_chip,
                      params_gib=p_bytes / GIB, kv_gib=kv_bytes / GIB,
                      act_gib=act_bytes / GIB, reserve_frac=reserve_frac)
+
+
+def rank_budget(shapes: Shapes, rules, tp: int, *, what: str, dtype: str,
+                act_bytes: float, hbm_gib_per_chip: float,
+                extra_params_bytes: float = 0.0,
+                reserve_frac: float = DEFAULT_RESERVE_FRAC) -> HbmBudget:
+    """One rank's load of a model whose whole-model ``{name: shape}`` is
+    ``shapes``: its shard under ``rules`` at ``tp`` in ``dtype`` (the
+    legality of each split checked on the way), beside
+    ``extra_params_bytes`` (whole models the rank also holds on its card:
+    the ``flux`` leader's T5, CLIP and VAE where they share it) and the
+    caller's estimate of the peak activations, ``act_bytes``. No
+    reference counterpart: the reference's ``t5`` and ``flux`` units place
+    their weights without a gate."""
+    p_bytes = params_bytes_per_chip(shapes, rules, tp, _dtype_bytes(dtype))
+    return HbmBudget(what=f"{what} tp={tp}", chips=tp,
+                     hbm_gib_per_chip=hbm_gib_per_chip,
+                     params_gib=(p_bytes + extra_params_bytes) / GIB,
+                     kv_gib=0.0, act_gib=act_bytes / GIB,
+                     reserve_frac=reserve_frac)
+
+
+def module_shapes(module: torch.nn.Module) -> Shapes:
+    """``{name: shape}`` of a module's state (build it on the meta
+    device: nothing is allocated)."""
+    return {k: tuple(v.shape) for k, v in module.state_dict().items()}

@@ -142,13 +142,15 @@ class RankLayout:
 
 
 def rank_layout(spec: str, device: torch.device, backend: str,
-                place=None, n_cards: Optional[int] = None) -> RankLayout:
+                place=None, n_cards: Optional[int] = None,
+                first: int = 0) -> RankLayout:
     """The :class:`RankLayout` of ``MESH_SPEC=spec`` on a host whose unit
     device is ``device``, its group over ``backend``: an NCCL rank takes a
     card of its own (local rank ``i`` on card ``i``), gloo ranks all run on
     ``device`` (the CPU, or ranks sharing one card). ``place``: this host's
     ``core.device.HostPlace`` (None: one host). ``n_cards``: this host's
-    cards (default: ``torch.cuda.device_count()``).
+    cards (default: ``torch.cuda.device_count()``). ``first``: the card of
+    local rank 0 (``SUBMESH=a:b`` lays NCCL ranks out from card ``a``).
 
     Raises before anything is allocated or started: an axis other than
     ``tp`` other than 1; ``SHAI_NUM_PROCESSES`` not dividing tp; NCCL off
@@ -184,11 +186,13 @@ def rank_layout(spec: str, device: torch.device, backend: str,
             f"runs tp / SHAI_NUM_PROCESSES ranks, one a card")
     local = tp // hosts
     if backend == "nccl":
-        if local > n_cards:
+        if first + local > n_cards:
+            where = f"from card {first}, " if first else ""
             raise ValueError(
                 f"MESH_SPEC={spec!r} puts {local} NCCL ranks on this host, "
-                f"one a card, and it has {n_cards} card(s)")
-        devices = tuple(torch.device("cuda", i) for i in range(local))
+                f"one a card {where}and it has {n_cards} card(s)")
+        devices = tuple(torch.device("cuda", first + i)
+                        for i in range(local))
     else:
         devices = (device,) * local
     return RankLayout(tp=tp, hosts=hosts, host=host, local=local,

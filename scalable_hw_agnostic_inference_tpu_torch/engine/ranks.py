@@ -62,9 +62,9 @@ from ..models.llama import (
     replicate_kv_heads,
     tp_rules,
 )
-from ..parallel.distributed import DistGroup, init_group
+from ..parallel.distributed import DistGroup, end_rank, init_group
 from ..ops.quant import _is_quant_node, quantize_rows, weight_scale
-from ..parallel.sharding import shard_state_dict
+from ..parallel.sharding import shard_state_dict, stream_shard
 from .config import EngineConfig
 from .engine import LLMEngine
 from .types import Finished
@@ -261,8 +261,7 @@ def stream_rank_state(model_cfg: LlamaConfig,
         if not (quantize and _is_quant_node(name, piece[name])):
             # dense: an entry may be one element broadcast to its shape
             # (``models.llama.geometry_items``)
-            shard.update({k: v.contiguous() for k, v in shard_state_dict(
-                piece, rules, tp, rank, device=device).items()})
+            shard.update(stream_shard(piece.items(), rules, tp, rank, device))
             continue
         stem = name[: -len(".weight")]
         w = piece.pop(name)
@@ -324,8 +323,10 @@ def _follower_main(rank: int, tp: int, backend: str, init_file: str,
         group.gather_objects({"group": t1 - t0,
                               "engine": time.monotonic() - t1})
         follow(engine)
-    finally:
+    except BaseException:
         group.close()
+        raise
+    end_rank(group)
 
 
 def launch_engine(model_cfg: LlamaConfig, state: Mapping[str, torch.Tensor],

@@ -62,6 +62,20 @@ class Dense(nn.Module):
         return nn.functional.linear(x, self.weight.to(x.dtype), b)
 
 
+def row_linear(layer: Dense, x: torch.Tensor, group=None) -> torch.Tensor:
+    """``layer`` as a row-parallel dense over ``group``'s ranks: the
+    rank's partial product over its slice of the inputs, all-reduced, and
+    the whole bias added once, after the sum. A group of one (or none)
+    runs ``layer`` itself, its bias fused as on one device (the all-reduce
+    of one rank is its identity)."""
+    if group is None or group.size == 1:
+        out = layer(x)
+        return out if group is None else group.all_reduce(out)
+    out = group.all_reduce(
+        nn.functional.linear(x, layer.weight.to(x.dtype)))
+    return out if layer.bias is None else out + layer.bias.to(out.dtype)
+
+
 class Embed(nn.Module):
     """An embedding table ``weight [n, dim]`` (flax ``Embed``'s
     ``embedding``), looked up in its own dtype."""

@@ -5,8 +5,20 @@ Port of ``scalable_hw_agnostic_inference_tpu/models/flux.py``
 ``MLPEmbedder``, ``QKNorm``, ``modulation``, ``DoubleBlock``,
 ``SingleBlock``, ``FluxTransformer``, ``patchify``, ``unpatchify``,
 ``make_ids``, ``bfl_from_diffusers``, ``params_from_torch``) and the
-tensor-parallel rules table (``tp_rules``) over this module's names; the
-transformer over several ranks comes with the units over several devices.
+tensor-parallel rules table (``tp_rules``) over this module's names.
+
+Over ``group=`` (one rank of the tensor-parallel transformer, the calls
+GSPMD inserts in the reference made here, its state the rank's shard
+under :func:`tp_rules`): each stream's q, k and v at the rank's ``heads /
+tp`` heads (the fused ``qkv`` cut per section, its bias with it), the QK
+norm per head, RoPE and the joint attention at those heads (B1 on the
+card), and an all-reduce after each attention projection and each second
+MLP half, its bias added once after the sum; a single block's
+``linear1`` gives the rank's q, k, v and MLP sections, GELU runs on its
+MLP slice, and ``linear2`` takes the rank's attention and MLP inputs,
+all-reduced. The modulations, the embedders and the final layer stay
+replicated. A tp that does not divide the heads or the MLP width is
+refused before anything is allocated (:func:`check_tp`).
 
 Patchified latents and T5 sequence conditioning pass through joint
 (double) blocks, where the text and image streams attend together, then
@@ -32,7 +44,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, Iterator, Mapping,
+                    Optional, Tuple)
 
 import torch
 from torch import nn
@@ -45,8 +58,10 @@ from ..parallel.sharding import (
     column_parallel,
     replicated,
     row_parallel,
+    sectioned,
 )
-from .encoder import Dense, param, seeded_init_, state_from_flax
+from .encoder import Dense, param, row_linear, seeded_init_, state_from_flax
+from .llama import group_size
 
 #: flax's LayerNorm epsilon (the reference's affine-free norms)
 LN_EPS = 1e-6
@@ -193,21 +208,36 @@ def _attention(q, k, v):
                                  v.contiguous())
 
 
+def check_tp(cfg: FluxConfig, tp: int) -> None:
+    """Refuse a tp that does not divide the heads (24 for FLUX.1) or the
+    MLP width, naming them."""
+    m = cfg.mlp_ratio * cfg.hidden
+    if tp < 1 or cfg.heads % tp or m % tp:
+        raise ValueError(f"Flux at tp={tp}: tp must divide heads="
+                         f"{cfg.heads} and the MLP width {m}")
+
+
 class DoubleBlock(nn.Module):
-    def __init__(self, cfg: FluxConfig, dtype, pd, device):
+    """A joint block; under ``group`` each stream at the rank's heads and
+    MLP slice (module note)."""
+
+    def __init__(self, cfg: FluxConfig, dtype, pd, device, group=None):
         super().__init__()
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.group = cfg, dtype, group
+        tp = group_size(group)
+        self.heads = cfg.heads // tp
         h, m = cfg.hidden, cfg.mlp_ratio * cfg.hidden
+        hr, mr = h // tp, m // tp
         for s in ("img", "txt"):
             self.add_module(f"{s}_mod", Dense(h, 6 * h, True, pd, device))
-            self.add_module(f"{s}_qkv", Dense(h, 3 * h, True, pd, device))
+            self.add_module(f"{s}_qkv", Dense(h, 3 * hr, True, pd, device))
             self.add_module(f"{s}_qknorm", QKNorm(cfg.head_dim, pd, device))
-            self.add_module(f"{s}_proj", Dense(h, h, True, pd, device))
-            self.add_module(f"{s}_mlp1", Dense(h, m, True, pd, device))
-            self.add_module(f"{s}_mlp2", Dense(m, h, True, pd, device))
+            self.add_module(f"{s}_proj", Dense(hr, h, True, pd, device))
+            self.add_module(f"{s}_mlp1", Dense(h, mr, True, pd, device))
+            self.add_module(f"{s}_mlp2", Dense(mr, h, True, pd, device))
 
     def _qkv(self, x, s):
-        H = self.cfg.heads
+        H = self.heads
         q, k, v = getattr(self, f"{s}_qkv")(x).chunk(3, dim=-1)
         q, k = getattr(self, f"{s}_qknorm")(_heads(q, H), _heads(k, H),
                                             self.dtype)
@@ -215,7 +245,8 @@ class DoubleBlock(nn.Module):
 
     def _mlp(self, x, s, shift, scale, gate):
         h = _mod(_layer_norm(x, self.dtype), shift, scale)
-        h = getattr(self, f"{s}_mlp2")(_gelu(getattr(self, f"{s}_mlp1")(h)))
+        h = row_linear(getattr(self, f"{s}_mlp2"),
+                       _gelu(getattr(self, f"{s}_mlp1")(h)), self.group)
         return x + gate * h
 
     def forward(self, img, txt, vec, cs):
@@ -234,40 +265,43 @@ class DoubleBlock(nn.Module):
         v = torch.cat([tv, iv], dim=1)
         o = _attention(q, k, v)
         B, L = o.shape[:2]
-        o = o.reshape(B, L, self.cfg.hidden)
+        o = o.reshape(B, L, -1)
         Lt = txt.shape[1]
         t_attn, i_attn = o[:, :Lt], o[:, Lt:]
-        img = img + i_g1 * self.img_proj(i_attn)
+        img = img + i_g1 * row_linear(self.img_proj, i_attn, self.group)
         img = self._mlp(img, "img", i_sh2, i_sc2, i_g2)
-        txt = txt + t_g1 * self.txt_proj(t_attn)
+        txt = txt + t_g1 * row_linear(self.txt_proj, t_attn, self.group)
         txt = self._mlp(txt, "txt", t_sh2, t_sc2, t_g2)
         return img, txt
 
 
 class SingleBlock(nn.Module):
     """The fused stream block: one dense makes q, k, v and the MLP's input,
-    one dense closes both."""
+    one dense closes both; under ``group`` the rank's sections of each
+    (module note)."""
 
-    def __init__(self, cfg: FluxConfig, dtype, pd, device):
+    def __init__(self, cfg: FluxConfig, dtype, pd, device, group=None):
         super().__init__()
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.group = cfg, dtype, group
+        tp = group_size(group)
+        self.heads = cfg.heads // tp
         h, m = cfg.hidden, cfg.mlp_ratio * cfg.hidden
+        self.width = h // tp
         self.mod = Dense(h, 3 * h, True, pd, device)
-        self.linear1 = Dense(h, 3 * h + m, True, pd, device)
-        self.linear2 = Dense(h + m, h, True, pd, device)
+        self.linear1 = Dense(h, 3 * self.width + m // tp, True, pd, device)
+        self.linear2 = Dense(self.width + m // tp, h, True, pd, device)
         self.qknorm = QKNorm(cfg.head_dim, pd, device)
 
     def forward(self, x, vec, cs):
-        c = self.cfg
         shift, scale, gate = modulation(self.mod, vec, 1)
         h = self.linear1(_mod(_layer_norm(x, self.dtype), shift, scale))
-        qkv, mlp = h[..., :3 * c.hidden], h[..., 3 * c.hidden:]
-        q, k, v = (_heads(t, c.heads) for t in qkv.chunk(3, dim=-1))
+        qkv, mlp = h[..., :3 * self.width], h[..., 3 * self.width:]
+        q, k, v = (_heads(t, self.heads) for t in qkv.chunk(3, dim=-1))
         q, k = self.qknorm(q, k, self.dtype)
         o = _attention(apply_rope_2d(q, cs), apply_rope_2d(k, cs), v)
         B, L = o.shape[:2]
-        h = self.linear2(torch.cat([o.reshape(B, L, c.hidden), _gelu(mlp)],
-                                   dim=-1))
+        h = row_linear(self.linear2, torch.cat(
+            [o.reshape(B, L, self.width), _gelu(mlp)], dim=-1), self.group)
         return x + gate * h
 
 
@@ -277,11 +311,14 @@ class FluxTransformer(nn.Module):
     Li, in_channels]`` fp32. ``ids`` are the RoPE positions (text rows
     zero, image rows ``(0, y, x)``); ``t`` in [0, 1]; ``guidance`` is read
     only with ``guidance_embed``. ``device`` defaults to the card;
-    ``"cpu"`` for the CPU."""
+    ``"cpu"`` for the CPU. ``group``: one rank of the tensor-parallel
+    transformer (module note)."""
 
     def __init__(self, cfg: FluxConfig, dtype=torch.bfloat16,
-                 param_dtype=None, device: DeviceLike = None):
+                 param_dtype=None, device: DeviceLike = None, group=None):
         super().__init__()
+        check_tp(cfg, group_size(group))
+        self.group = group
         if str(device) != "meta":
             device = resolve_device(device)
         pd = dtype if param_dtype is None else param_dtype
@@ -294,9 +331,11 @@ class FluxTransformer(nn.Module):
         self.guidance_in = MLPEmbedder(256, h, pd, device) \
             if cfg.guidance_embed else None
         for i in range(cfg.n_double):
-            self.add_module(f"double_{i}", DoubleBlock(cfg, dtype, pd, device))
+            self.add_module(f"double_{i}", DoubleBlock(cfg, dtype, pd, device,
+                                                       group))
         for i in range(cfg.n_single):
-            self.add_module(f"single_{i}", SingleBlock(cfg, dtype, pd, device))
+            self.add_module(f"single_{i}", SingleBlock(cfg, dtype, pd, device,
+                                                       group))
         self.final_mod = Dense(h, 2 * h, True, pd, device)
         self.final_proj = Dense(h, cfg.in_channels, True, pd, device)
 
@@ -360,26 +399,33 @@ def make_ids(B: int, txt_len: int, h: int, w: int,
 
 # -- weights ------------------------------------------------------------------
 
-def bfl_from_diffusers(sd: Mapping[str, Any]) -> Dict[str, Any]:
-    """A diffusers ``FluxTransformer2DModel`` state dict (a FLUX.1
-    snapshot's ``transformer/``) re-keyed into the BFL single-file names:
-    ``to_q``/``to_k``/``to_v`` fuse back into ``qkv`` (a single block's
-    ``proj_mlp`` joins its ``linear1``), and ``norm_out.linear`` swaps its
-    ``[scale, shift]`` halves back to BFL's ``[shift, scale]``. A pure key
-    remap and concatenation: ``sd`` is any mapping with ``in`` and
-    ``[]``."""
-    out: Dict[str, Any] = {}
+def diffusers_plan(has: Callable[[str], bool]
+                   ) -> Dict[str, Callable[[Callable[[str], Any]], Any]]:
+    """How each BFL single-file tensor is made from a diffusers
+    ``FluxTransformer2DModel`` state whose names satisfy ``has``: ``{bfl
+    name: make(get)}``, ``get(name)`` reading one diffusers tensor when
+    ``make`` runs (so a rank can read the checkpoint one BFL entry at a
+    time). ``to_q``/``to_k``/``to_v`` fuse back into ``qkv`` (a single
+    block's ``proj_mlp`` joins its ``linear1``), and ``norm_out.linear``
+    swaps its ``[scale, shift]`` halves back to BFL's ``[shift,
+    scale]``."""
+    out: Dict[str, Callable[[Callable[[str], Any]], Any]] = {}
 
     def mv(dst: str, src: str) -> None:
         for suf in (".weight", ".bias"):
-            if src + suf in sd:
-                out[dst + suf] = sd[src + suf]
+            if has(src + suf):
+                out[dst + suf] = lambda get, s=src + suf: get(s)
 
     def fuse(dst: str, srcs) -> None:
         for suf in (".weight", ".bias"):
-            parts = [sd[s + suf] for s in srcs if s + suf in sd]
+            parts = [s + suf for s in srcs if has(s + suf)]
             if parts:
-                out[dst + suf] = torch.cat(parts, dim=0)
+                out[dst + suf] = lambda get, ps=tuple(parts): torch.cat(
+                    [get(p) for p in ps], dim=0)
+
+    def swapped(get, src):
+        a, b = torch.chunk(get(src), 2, dim=0)
+        return torch.cat([b, a], 0)
 
     mv("img_in", "x_embedder")
     mv("txt_in", "context_embedder")
@@ -391,12 +437,15 @@ def bfl_from_diffusers(sd: Mapping[str, Any]) -> Dict[str, Any]:
     mv("guidance_in.out_layer", "time_text_embed.guidance_embedder.linear_2")
     mv("final_layer.linear", "proj_out")
     for suf in (".weight", ".bias"):
-        if "norm_out.linear" + suf in sd:
-            a, b = torch.chunk(sd["norm_out.linear" + suf], 2, dim=0)
-            out["final_layer.adaLN_modulation.1" + suf] = torch.cat([b, a], 0)
+        if has("norm_out.linear" + suf):
+            out["final_layer.adaLN_modulation.1" + suf] = \
+                lambda get, s="norm_out.linear" + suf: swapped(get, s)
+
+    def same(dst: str, src: str) -> None:
+        out[dst] = lambda get, s=src: get(s)
 
     i = 0
-    while f"transformer_blocks.{i}.norm1.linear.weight" in sd:
+    while has(f"transformer_blocks.{i}.norm1.linear.weight"):
         s, d = f"transformer_blocks.{i}", f"double_blocks.{i}"
         mv(f"{d}.img_mod.lin", f"{s}.norm1.linear")
         mv(f"{d}.txt_mod.lin", f"{s}.norm1_context.linear")
@@ -407,10 +456,10 @@ def bfl_from_diffusers(sd: Mapping[str, Any]) -> Dict[str, Any]:
                                    f"{s}.attn.add_v_proj"])
         for side, q, k in (("img", "norm_q", "norm_k"),
                            ("txt", "norm_added_q", "norm_added_k")):
-            out[f"{d}.{side}_attn.norm.query_norm.scale"] = \
-                sd[f"{s}.attn.{q}.weight"]
-            out[f"{d}.{side}_attn.norm.key_norm.scale"] = \
-                sd[f"{s}.attn.{k}.weight"]
+            same(f"{d}.{side}_attn.norm.query_norm.scale",
+                 f"{s}.attn.{q}.weight")
+            same(f"{d}.{side}_attn.norm.key_norm.scale",
+                 f"{s}.attn.{k}.weight")
         mv(f"{d}.img_attn.proj", f"{s}.attn.to_out.0")
         mv(f"{d}.txt_attn.proj", f"{s}.attn.to_add_out")
         mv(f"{d}.img_mlp.0", f"{s}.ff.net.0.proj")
@@ -419,16 +468,26 @@ def bfl_from_diffusers(sd: Mapping[str, Any]) -> Dict[str, Any]:
         mv(f"{d}.txt_mlp.2", f"{s}.ff_context.net.2")
         i += 1
     i = 0
-    while f"single_transformer_blocks.{i}.norm.linear.weight" in sd:
+    while has(f"single_transformer_blocks.{i}.norm.linear.weight"):
         s, d = f"single_transformer_blocks.{i}", f"single_blocks.{i}"
         mv(f"{d}.modulation.lin", f"{s}.norm.linear")
         fuse(f"{d}.linear1", [f"{s}.attn.to_q", f"{s}.attn.to_k",
                               f"{s}.attn.to_v", f"{s}.proj_mlp"])
         mv(f"{d}.linear2", f"{s}.proj_out")
-        out[f"{d}.norm.query_norm.scale"] = sd[f"{s}.attn.norm_q.weight"]
-        out[f"{d}.norm.key_norm.scale"] = sd[f"{s}.attn.norm_k.weight"]
+        same(f"{d}.norm.query_norm.scale", f"{s}.attn.norm_q.weight")
+        same(f"{d}.norm.key_norm.scale", f"{s}.attn.norm_k.weight")
         i += 1
     return out
+
+
+def bfl_from_diffusers(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """A diffusers ``FluxTransformer2DModel`` state dict (a FLUX.1
+    snapshot's ``transformer/``) re-keyed into the BFL single-file names
+    (:func:`diffusers_plan`). A pure key remap and concatenation: ``sd``
+    is any mapping with ``in`` and ``[]``."""
+    get = sd.__getitem__
+    return {k: make(get) for k, make in
+            diffusers_plan(lambda n: n in sd).items()}
 
 
 #: diffusers' name of the guidance embedder's first layer (schnell has none)
@@ -490,43 +549,74 @@ def config_for_keys(keys: Iterable[str],
         {BFL_GUIDANCE, DIFFUSERS_GUIDANCE} & keys))
 
 
+def state_items(get: Callable[[str], torch.Tensor], cfg: FluxConfig,
+                keys: Optional[Iterable[str]] = None
+                ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The transformer's state as ``(name, tensor)`` entries from a BFL
+    state dict, each read by ``get(name)`` when it is taken. Given the
+    checkpoint's ``keys`` in the diffusers ``transformer/`` layout, each
+    entry is made from its diffusers tensors through
+    :func:`diffusers_plan` (a fused ``qkv`` reads its three parts, then
+    lets them go). A missing tensor raises, naming it (before any is read
+    when ``keys`` are given)."""
+    names = bfl_names(cfg)
+    read = get
+    known = None if keys is None else set(keys)
+    if known is not None and is_diffusers_layout(known):
+        plan = diffusers_plan(known.__contains__)
+        known = set(plan)
+
+        def read(src):
+            return plan[src](get)
+    if known is not None:
+        for name, src in names.items():
+            if src not in known:
+                raise ValueError(f"Flux checkpoint has no {src!r} (for "
+                                 f"{name})")
+
+    def entries():
+        for name, src in names.items():
+            try:
+                t = read(src)
+            except KeyError:
+                raise ValueError(f"Flux checkpoint has no {src!r} "
+                                 f"(for {name})") from None
+            yield name, t
+
+    return entries()
+
+
 def state_from_bfl(get: Callable[[str], torch.Tensor], cfg: FluxConfig,
                    keys: Optional[Iterable[str]] = None
                    ) -> Dict[str, torch.Tensor]:
-    """The transformer's state from a BFL state dict: ``get(name)``
-    returns one tensor. Given the checkpoint's ``keys`` in the diffusers
-    ``transformer/`` layout, its tensors go through
-    :func:`bfl_from_diffusers` first. A missing tensor raises, naming
-    it."""
-    if keys is not None and is_diffusers_layout(keys):
-        get = bfl_from_diffusers({k: get(k) for k in keys}).__getitem__
-        keys = None
-    known = None if keys is None else set(keys)
-    out = {}
-    for name, src in bfl_names(cfg).items():
-        if known is not None and src not in known:
-            raise ValueError(f"Flux checkpoint has no {src!r} (for {name})")
-        try:
-            out[name] = get(src)
-        except KeyError:
-            raise ValueError(f"Flux checkpoint has no {src!r} "
-                             f"(for {name})") from None
-    return out
+    """The transformer's state from a BFL state dict (or, given
+    ``keys`` in the diffusers layout, a diffusers one): ``get(name)``
+    returns one tensor (:func:`state_items`). A missing tensor raises,
+    naming it."""
+    return dict(state_items(get, cfg, keys))
 
 
-def tp_rules() -> ShardingRules:
-    """The reference's ``tp_rules`` (``flux.py:312``) rule for rule over
-    this module's names (``[out, in]`` weights: column-parallel splits dim
-    0, row-parallel dim 1): the fused qkv and the first MLP half split on
-    their outputs, the attention projection and the second half on their
-    inputs; the embedders, biases and the rest replicated."""
+def tp_rules(cfg: Optional[FluxConfig] = None) -> ShardingRules:
+    """The reference's ``tp_rules`` (``flux.py:312``) over this module's
+    names (``[out, in]`` weights: column-parallel splits dim 0,
+    row-parallel dim 1), each weight split on the dim the reference
+    splits: the fused qkv and the first MLP half on their outputs, the
+    attention projection and the second half on their inputs. What the
+    reference's GSPMD does for free a rank's forward needs here: the fused
+    weights are cut per section (``qkv`` q | k | v, ``linear1`` q | k | v
+    | mlp, ``linear2``'s inputs attn | mlp, the MLP at ``cfg``'s
+    ``mlp_ratio``), and each column-parallel bias splits with its output
+    where the reference replicates it; a row-parallel bias stays whole
+    (added once, after the all-reduce). The embedders, modulations, norms
+    and the final layer are replicated."""
+    r = (cfg or FluxConfig()).mlp_ratio
     return ShardingRules([
-        (r"(img|txt)_qkv\.weight", column_parallel()),
+        (r"(img|txt)_qkv\.(weight|bias)", sectioned(0, 1, 1, 1)),
         (r"(img|txt)_proj\.weight", row_parallel()),
-        (r"(img|txt)_mlp1\.weight", column_parallel()),
+        (r"(img|txt)_mlp1\.(weight|bias)", column_parallel()),
         (r"(img|txt)_mlp2\.weight", row_parallel()),
-        (r"single_\d+\.linear1\.weight", column_parallel()),
-        (r"single_\d+\.linear2\.weight", row_parallel()),
+        (r"single_\d+\.linear1\.(weight|bias)", sectioned(0, 1, 1, 1, r)),
+        (r"single_\d+\.linear2\.weight", sectioned(1, 1, r)),
         (r"(time_in|vector_in|guidance_in)\.(in|out)_layer\.weight",
          replicated()),
         (r".*", replicated()),
@@ -541,10 +631,11 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def build(cfg: FluxConfig, state: Dict[str, torch.Tensor],
-          dtype=torch.bfloat16) -> FluxTransformer:
+          dtype=torch.bfloat16, group=None) -> FluxTransformer:
     """The transformer around ``state`` (built on the meta device, the
-    tensors assigned: no second copy), computing in ``dtype``."""
-    m = FluxTransformer(cfg, dtype=dtype, device="meta")
+    tensors assigned: no second copy), computing in ``dtype``; under
+    ``group``, ``state`` is the rank's shard."""
+    m = FluxTransformer(cfg, dtype=dtype, device="meta", group=group)
     m.load_state_dict(state, assign=True, strict=True)
     return m
 

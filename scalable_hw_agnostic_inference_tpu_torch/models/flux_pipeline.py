@@ -8,12 +8,21 @@ step, no batch doubling.
 
 The reference runs the denoise as one jitted ``lax.scan`` and places the
 transformer and the encoders on separate device slices (``mesh``,
-``encoder_device``). Here the loop is eager on one card: the scheduler's
-tables and the RoPE ids go to the device once per shape, each step is one
+``encoder_device``). Here the loop is eager: the scheduler's tables and
+the RoPE ids go to the device once per shape, each step is one
 transformer forward and an fp32 Euler update, and nothing waits on the
 host until the uint8 image is read back; the VAE decode and its uint8
-rounding run on the device (``vae.AutoencoderKL.decode_uint8``). Several
-devices are tensor parallelism (ROADMAP A7.3b): the unit refuses them.
+rounding run on the device (``vae.AutoencoderKL.decode_uint8``). T5,
+CLIP and the VAE live on ``encoder_device`` (the reference's
+``rest[0]``), the transformer on its own device.
+
+Over a group (the transformer's tensor-parallel ranks, one process
+each): only rank 0, the leader, holds T5, CLIP and the VAE. It encodes
+the prompt and broadcasts the text hidden state ``[B, Lt, t5_dim]`` and
+the pooled vector ``[B, clip_dim]`` over the compute group; every rank
+draws the same latents from the request's seed (a CPU generator: no
+broadcast), runs every step of its rank-local transformer, and only the
+leader decodes (a follower's :meth:`FluxPipeline.txt2img` returns None).
 
 Seeds: the reference draws the initial latents from
 ``jax.random.PRNGKey(seed)`` (Threefry, not ported); here they come from a
@@ -25,7 +34,7 @@ takes given latents, so the parity tests hand both packages one draw.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,20 +48,33 @@ Seed = Union[int, torch.Generator]
 
 class FluxPipeline:
     """txt2img over a transformer, a VAE, ``t5_encode(ids) -> [B, L,
-    t5_dim]`` and ``clip_pooled(ids) -> [B, clip_dim]``, all on the
-    transformer's device."""
+    t5_dim]`` and ``clip_pooled(ids) -> [B, clip_dim]``; the encoders and
+    the VAE on ``encoder_device`` (default: the transformer's). ``group``:
+    the transformer's ranks (module note); a follower passes no VAE or
+    encoders, and ``vae_scale``, the VAE's downsampling, in their
+    place."""
 
-    def __init__(self, transformer: FluxTransformer, vae: AutoencoderKL,
-                 t5_encode: Callable[[torch.Tensor], torch.Tensor],
-                 clip_pooled: Callable[[torch.Tensor], torch.Tensor],
-                 schedule: FlowMatchConfig = FlowMatchConfig()):
+    def __init__(self, transformer: FluxTransformer,
+                 vae: Optional[AutoencoderKL],
+                 t5_encode: Optional[Callable[[torch.Tensor], torch.Tensor]],
+                 clip_pooled: Optional[Callable[[torch.Tensor],
+                                                torch.Tensor]],
+                 schedule: FlowMatchConfig = FlowMatchConfig(),
+                 group=None, encoder_device=None,
+                 vae_scale: Optional[int] = None):
         self.cfg = transformer.cfg
         self.model, self.vae = transformer, vae
         self.t5_encode, self.clip_pooled = t5_encode, clip_pooled
         self.device = transformer.device
+        self.group = group
+        #: this rank encodes and decodes (no group, or rank 0)
+        self.leader = group is None or group.rank == 0
+        self.encoder_device = (self.device if encoder_device is None
+                               else torch.device(encoder_device))
         self.scheduler = FlowMatchEuler(schedule)
         self.latent_ch = self.cfg.in_channels // 4
-        self.vae_scale = 2 ** (len(vae.cfg.block_out) - 1)
+        self.vae_scale = (2 ** (len(vae.cfg.block_out) - 1)
+                          if vae is not None else int(vae_scale))
         self._tables: Dict[Tuple[int, int], Tuple[torch.Tensor, ...]] = {}
         self._ids: Dict[Tuple[int, int, int, int], torch.Tensor] = {}
         #: every (batch, latent h, latent w, text length) denoised so far
@@ -117,26 +139,46 @@ class FluxPipeline:
             return unpatchify(tok, h, w)
 
     def _ids_in(self, ids) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(ids)).to(self.device, torch.int64)
+        return torch.as_tensor(np.asarray(ids)).to(self.encoder_device,
+                                                   torch.int64)
 
     def condition(self, t5_ids, clip_ids) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
-        """``(txt, pooled)`` of the token ids."""
+        """``(txt, pooled)`` of the token ids, on the transformer's
+        device; over a group the leader's, broadcast to every rank."""
         with torch.inference_mode():
-            return (self.t5_encode(self._ids_in(t5_ids)),
-                    self.clip_pooled(self._ids_in(clip_ids)))
+            if self.leader:
+                txt = self.t5_encode(self._ids_in(t5_ids)).to(self.device)
+                pooled = self.clip_pooled(self._ids_in(clip_ids)).to(
+                    self.device)
+            if self.group is None:
+                return txt, pooled
+            if self.leader:
+                txt, pooled = txt.float(), pooled.float()
+            else:
+                B, L = np.asarray(t5_ids).shape
+                txt = torch.empty((B, L, self.cfg.t5_dim),
+                                  dtype=torch.float32, device=self.device)
+                pooled = torch.empty((B, self.cfg.clip_dim),
+                                     dtype=torch.float32, device=self.device)
+            return (self.group.broadcast_tensor(txt),
+                    self.group.broadcast_tensor(pooled))
 
-    def decode(self, lat: torch.Tensor) -> np.ndarray:
-        """uint8 ``[B, H, W, 3]`` of the latents."""
+    def decode(self, lat: torch.Tensor) -> Optional[np.ndarray]:
+        """uint8 ``[B, H, W, 3]`` of the latents (the leader's; None on a
+        follower)."""
+        if not self.leader:
+            return None
         with torch.inference_mode():
-            return self.vae.decode_uint8(lat).cpu().numpy()
+            return self.vae.decode_uint8(
+                lat.to(self.encoder_device)).cpu().numpy()
 
     def txt2img(self, t5_ids, clip_ids, *, rng: Seed = 0, height: int,
                 width: int, steps: int = 28, guidance: float = 3.5,
-                latents: torch.Tensor = None) -> np.ndarray:
+                latents: torch.Tensor = None) -> Optional[np.ndarray]:
         """uint8 images ``[B, H, W, 3]`` from ``t5_ids [B, L]`` and
         ``clip_ids [B, 77]``; the initial latents drawn from ``rng``, or
-        ``latents`` as given."""
+        ``latents`` as given. A follower rank returns None."""
         h, w = self.latent_hw(height, width)
         if latents is None:
             latents = self.init_latents(rng, np.asarray(t5_ids).shape[0], h,

@@ -4,8 +4,19 @@ embeddings unit.
 Port of ``scalable_hw_agnostic_inference_tpu/models/t5.py`` (``T5Config``,
 ``relative_position_bucket``, ``T5Attention``, ``T5RMSNorm``, ``T5FF``,
 ``T5Encoder``, ``mean_pool``, ``params_from_torch``) and the
-tensor-parallel rules table (``tp_rules``) over this module's names; the
-encoder over several ranks comes with the units over several devices.
+tensor-parallel rules table (``tp_rules``) over this module's names.
+
+Over ``group=`` (one rank of the tensor-parallel encoder, the calls
+GSPMD inserts in the reference made here): the attention holds the
+rank's heads of q, k and v and the matching input rows of ``o``, and
+all-reduces after ``o``; the relative bias table stays whole, as the
+reference's table replicates it, and each rank takes its heads' columns
+where it is used; the FF splits ``wi_0``/``wi_1`` on their outputs and
+``wo`` on its inputs, then all-reduces; the embedding table is split on
+features, so each rank looks up its slice and gathers the rest. The
+norms and the mean-pool run on the replicated hidden state. A tp that
+does not divide the heads, ``d_ff`` or the width is refused before
+anything is allocated (:func:`check_tp`).
 
 T5's specifics: no ``1/sqrt(d)`` scaling of the scores, a relative
 position bias computed once from block 0's table and shared by every
@@ -29,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,7 +54,8 @@ from ..parallel.sharding import (
     replicated,
     row_parallel,
 )
-from .encoder import Dense, param, state_from_flax
+from .encoder import Dense, param, row_linear, state_from_flax
+from .llama import group_size
 
 NEG_INF = -1e30
 
@@ -139,63 +151,89 @@ class T5RMSNorm(nn.Module):
         return (n * self.weight.float()).to(x.dtype)
 
 
+def check_tp(cfg: T5Config, tp: int) -> None:
+    """Refuse a tp that does not divide the heads, ``d_ff`` or the width
+    (the embedding's features), naming them."""
+    bad = {n: v for n, v in (("heads", cfg.heads), ("d_ff", cfg.d_ff),
+                             ("dim", cfg.dim)) if v % tp}
+    if tp < 1 or bad:
+        raise ValueError(f"T5 at tp={tp}: tp must divide heads="
+                         f"{cfg.heads}, d_ff={cfg.d_ff} and dim={cfg.dim}; "
+                         f"it does not divide {', '.join(sorted(bad))}")
+
+
 class T5Attention(nn.Module):
-    def __init__(self, cfg: T5Config, pd, device):
+    """Self-attention; under ``group`` the rank's ``heads / tp`` heads,
+    all-reduced after ``o``."""
+
+    def __init__(self, cfg: T5Config, pd, device, group=None):
         super().__init__()
-        self.cfg = cfg
-        inner = cfg.heads * cfg.d_kv
+        self.cfg, self.group = cfg, group
+        self.heads = cfg.heads // group_size(group)
+        inner = self.heads * cfg.d_kv
         for n in ("q", "k", "v"):
             setattr(self, n, Dense(cfg.dim, inner, False, pd, device))
         self.o = Dense(inner, cfg.dim, False, pd, device)
 
     def forward(self, x, mask, position_bias):
+        """``position_bias [1, heads, T, T]``: this rank's heads."""
         c = self.cfg
         B, T, _ = x.shape
-        q, k, v = (getattr(self, n)(x).reshape(B, T, c.heads, c.d_kv)
+        q, k, v = (getattr(self, n)(x).reshape(B, T, self.heads, c.d_kv)
                    for n in ("q", "k", "v"))
         o = t5_attention(q, k, v, mask, position_bias)
-        return self.o(o.reshape(B, T, c.heads * c.d_kv))
+        return row_linear(self.o, o.reshape(B, T, self.heads * c.d_kv),
+                          self.group)
 
 
 class T5FF(nn.Module):
-    def __init__(self, cfg: T5Config, pd, device):
+    """The (gated) FF; under ``group`` the rank's ``d_ff / tp`` slice,
+    all-reduced after ``wo``."""
+
+    def __init__(self, cfg: T5Config, pd, device, group=None):
         super().__init__()
-        self.gated = cfg.gated
-        self.wi_0 = Dense(cfg.dim, cfg.d_ff, False, pd, device)
-        self.wi_1 = Dense(cfg.dim, cfg.d_ff, False, pd, device) \
+        self.gated, self.group = cfg.gated, group
+        ff = cfg.d_ff // group_size(group)
+        self.wi_0 = Dense(cfg.dim, ff, False, pd, device)
+        self.wi_1 = Dense(cfg.dim, ff, False, pd, device) \
             if cfg.gated else None
-        self.wo = Dense(cfg.d_ff, cfg.dim, False, pd, device)
+        self.wo = Dense(ff, cfg.dim, False, pd, device)
 
     def forward(self, x):
         if self.gated:
             h = F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x)
         else:
             h = F.relu(self.wi_0(x))
-        return self.wo(h)
+        return row_linear(self.wo, h, self.group)
 
 
 class T5Encoder(nn.Module):
     """``input_ids [B, T]``, ``attention_mask [B, T]`` (optional) -> the
     last hidden state ``[B, T, dim]`` fp32, computing in ``dtype``.
-    ``device`` defaults to the card; ``"cpu"`` for the CPU."""
+    ``device`` defaults to the card; ``"cpu"`` for the CPU. ``group``:
+    one rank of the tensor-parallel encoder (module note), its state the
+    rank's shard under :func:`tp_rules`."""
 
     def __init__(self, cfg: T5Config, dtype=torch.float32, param_dtype=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, group=None):
         super().__init__()
+        check_tp(cfg, group_size(group))
         if str(device) != "meta":
             device = resolve_device(device)
         pd = dtype if param_dtype is None else param_dtype
         c = cfg
-        self.cfg, self.dtype = cfg, dtype
-        self.embed = param((c.vocab_size, c.dim), pd, device)
+        self.cfg, self.dtype, self.group = cfg, dtype, group
+        self.embed = param((c.vocab_size, c.dim // group_size(group)), pd,
+                           device)
         self.rel_bias = param((c.rel_buckets, c.heads), pd, device)
         for i in range(c.n_layers):
             self.add_module(f"layer_{i}_ln1", T5RMSNorm(c.dim, c.eps, pd,
                                                         device))
-            self.add_module(f"layer_{i}_attn", T5Attention(c, pd, device))
+            self.add_module(f"layer_{i}_attn", T5Attention(c, pd, device,
+                                                           group))
             self.add_module(f"layer_{i}_ln2", T5RMSNorm(c.dim, c.eps, pd,
                                                         device))
-            self.add_module(f"layer_{i}_ff", T5FF(c, pd, device))
+            self.add_module(f"layer_{i}_ff", T5FF(c, pd, device, group))
         self.final_ln = T5RMSNorm(c.dim, c.eps, pd, device)
 
     @property
@@ -203,19 +241,31 @@ class T5Encoder(nn.Module):
         return self.embed.device
 
     def position_bias(self, T: int) -> torch.Tensor:
-        """``[1, H, T, T]``: block 0's table at each (query, key) bucket."""
+        """``[1, H, T, T]``: block 0's table at each (query, key) bucket,
+        at this rank's heads under a group (their columns of the whole
+        table)."""
         pos = torch.arange(T, device=self.device)
         buckets = relative_position_bucket(
             pos[None, :] - pos[:, None], self.cfg.rel_buckets,
             self.cfg.rel_max_distance)
-        return self.rel_bias[buckets.long()].permute(2, 0, 1)[None]
+        table = self.rel_bias
+        if self.group is not None:
+            h = self.cfg.heads // self.group.size
+            table = table[:, self.group.rank * h:(self.group.rank + 1) * h]
+        return table[buckets.long()].permute(2, 0, 1)[None]
+
+    def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``ids``; under a group the rank's
+        feature slice, gathered over the ranks."""
+        x = self.embed[ids]
+        return x if self.group is None else self.group.all_gather(x, -1)
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         c = self.cfg
         ids = input_ids.to(self.device, torch.int64)
-        x = self.embed[ids].to(self.dtype)
+        x = self.embed_tokens(ids).to(self.dtype)
         bias = self.position_bias(ids.shape[1])
         mask = None
         if attention_mask is not None:
@@ -275,18 +325,27 @@ def hf_names(cfg: T5Config, keys) -> Dict[str, str]:
     return out
 
 
+def hf_items(get: Callable[[str], torch.Tensor], keys, cfg: T5Config
+             ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The encoder's state as ``(name, tensor)`` entries from HF
+    ``T5EncoderModel`` tensors, each read by ``get(name)`` when it is
+    taken (``keys`` are the checkpoint's names; layers past ``n_layers``
+    are not read). A missing tensor raises, naming it, before any is
+    read."""
+    keys = set(keys)
+    names = hf_names(cfg, keys)
+    for name, src in names.items():
+        if src not in keys:
+            raise ValueError(f"T5 checkpoint has no {src!r} (for {name})")
+    return ((name, get(src)) for name, src in names.items())
+
+
 def state_from_hf(get: Callable[[str], torch.Tensor], keys,
                   cfg: T5Config) -> Dict[str, torch.Tensor]:
     """The encoder's state from HF ``T5EncoderModel`` tensors: ``get(name)``
     returns one, ``keys`` are the checkpoint's names (layers past
     ``n_layers`` are not read). A missing tensor raises, naming it."""
-    keys = set(keys)
-    out = {}
-    for name, src in hf_names(cfg, keys).items():
-        if src not in keys:
-            raise ValueError(f"T5 checkpoint has no {src!r} (for {name})")
-        out[name] = get(src)
-    return out
+    return dict(hf_items(get, keys, cfg))
 
 
 def tp_rules() -> ShardingRules:
@@ -294,8 +353,9 @@ def tp_rules() -> ShardingRules:
     ``shard_t5_attention``/``shard_t5_ff`` as a table) rule for rule over
     this module's names (``[out, in]`` weights): q/k/v and the gated FF's
     inputs split on their outputs, o and ``wo`` on their inputs; the bare
-    ``embed`` table ``[vocab, dim]`` on its features; the rest
-    replicated."""
+    ``embed`` table ``[vocab, dim]`` on its features; the rest, the
+    relative bias table among it, replicated (a rank takes its heads'
+    columns of that table where it uses them)."""
     return ShardingRules([
         (r"attn\.(q|k|v)\.weight", column_parallel()),
         (r"attn\.o\.weight", row_parallel()),
@@ -317,9 +377,10 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def build(cfg: T5Config, state: Dict[str, torch.Tensor],
-          dtype=torch.float32) -> T5Encoder:
+          dtype=torch.float32, group=None) -> T5Encoder:
     """The encoder around ``state`` (built on the meta device, the tensors
-    assigned: no second copy), computing in ``dtype``."""
-    m = T5Encoder(cfg, dtype=dtype, device="meta")
+    assigned: no second copy), computing in ``dtype``; under ``group``,
+    ``state`` is the rank's shard."""
+    m = T5Encoder(cfg, dtype=dtype, device="meta", group=group)
     m.load_state_dict(state, assign=True, strict=True)
     return m

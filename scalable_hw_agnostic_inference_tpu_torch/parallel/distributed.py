@@ -3,7 +3,8 @@
 The JAX package needs no such module: its ranks are the devices of one
 mesh, and XLA inserts the collectives. The port's rank-local modules
 (``models/llama.py``) call them through a group object with ``size``,
-``rank``, ``all_reduce(t)`` and ``all_gather(t, dim)``;
+``rank``, ``all_reduce(t)``, ``all_gather(t, dim)`` and
+``broadcast_tensor(t)`` (rank 0's tensor on every rank);
 ``parallel.loopback.LoopbackGroup`` is that object for threads sharing one
 device, and :class:`DistGroup` is it for one process per rank.
 
@@ -31,20 +32,28 @@ then raises. :func:`spawn_ranks` runs a function on every rank of a fresh
 group, each in a process of its own (the ``spawn`` start method),
 returning the ranks' results; a rank that raises fails the call with that
 rank's traceback, and ranks that do not finish are killed at the timeout.
+
+A spawned rank ends through :func:`end_rank`: it leaves its group, flushes
+its streams and exits through ``os._exit``. A rank that returned into the
+interpreter's own teardown instead ran C++ destructors beside threads that
+were still alive, and under load one such teardown aborted (SIGABRT, exit
+code -6, ``terminate called without an active exception``).
 """
 
 from __future__ import annotations
 
+import logging
 import multiprocessing
 import os
 import pickle
 import queue
 import shutil
+import sys
 import tempfile
 import time
 import traceback
 from datetime import timedelta
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, NoReturn, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -97,6 +106,20 @@ class DistGroup:
         dist.all_reduce(t, group=self.pg)
         return t
 
+    def broadcast_tensor(self, t: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``t`` on every rank, over the compute group (each rank
+        passes a tensor of the same shape and dtype; a follower's values
+        are overwritten). A gloo group's CUDA tensor returns as a new
+        tensor on its device."""
+        if self.size == 1:
+            return t
+        if self._staged(t):
+            host = t.cpu()
+            dist.broadcast(host, 0, group=self.pg)
+            return host.to(t.device)
+        dist.broadcast(t, 0, group=self.pg)
+        return t
+
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """The ranks' ``t`` concatenated on ``dim`` in rank order."""
         if self.size == 1:
@@ -133,6 +156,29 @@ class DistGroup:
         """Leave the group (destroys this process's default group)."""
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def end_rank(group: Optional[DistGroup], code: int = 0,
+             fail_code: int = 1) -> NoReturn:
+    """End a spawned rank's process once its last collective has
+    returned: leave ``group`` (its compute and control groups), flush the
+    logging handlers and the standard streams, and exit with ``code``
+    through ``os._exit`` (``fail_code`` if leaving the group raised). No
+    interpreter teardown runs, so no C++ destructor meets a live transport
+    or timer thread."""
+    try:
+        if group is not None:
+            group.close()
+    except BaseException:
+        traceback.print_exc()
+        code = fail_code
+    logging.shutdown()
+    for stream in (sys.stdout, sys.stderr):
+        try:
+            stream.flush()
+        except (OSError, ValueError):
+            pass
+    os._exit(code)
 
 
 def _store(init: str, tp: int, rank: int, timeout: timedelta):
@@ -202,8 +248,7 @@ def _rank_main(fn, rank: int, tp: int, backend: str, init_file: str,
     results.put(msg)
     results.close()
     results.join_thread()
-    if group is not None:
-        group.close()
+    end_rank(group)
 
 
 def spawn_ranks(fn: Callable[..., Any], tp: int, backend: str = "gloo",

@@ -119,6 +119,10 @@ class LoopbackGroup:
         """The ranks' ``t`` concatenated on ``dim`` in rank order."""
         return self._exchange(t, lambda ts: torch.cat(ts, dim=dim))
 
+    def broadcast_tensor(self, t: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``t`` on every rank (a copy of it)."""
+        return self._exchange(t, lambda ts: ts[0].clone())
+
     def abort(self) -> None:
         """Wake every waiting rank with ``threading.BrokenBarrierError``
         (one rank failed)."""

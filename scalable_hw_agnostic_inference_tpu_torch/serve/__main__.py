@@ -14,17 +14,27 @@ import logging
 import sys
 
 from ..core.device import distributed_env
-from ..core.mesh import MeshSpec
+from ..core.mesh import MeshSpec, cards, parse_submesh
 from ..utils.env import ServeConfig, env_str
 from .app import serve_forever
 from .units import UNITS
 
 
-def wants_ranks(cfg: ServeConfig) -> bool:
-    """The env asks for several ranks: a tp other than 1 in ``MESH_SPEC``,
-    or a coordinator."""
+def wants_ranks(cfg: ServeConfig, service=None) -> bool:
+    """The env asks for several ranks: a coordinator, or a tp other than 1
+    in ``MESH_SPEC``; for a unit whose ranks ``SUBMESH`` lays out
+    (``flux``), a ``SUBMESH`` naming several devices, or, unset, a host
+    of several cards (the transformer spans every one)."""
+    if distributed_env() is not None:
+        return True
+    if getattr(service, "ranks_over", None) == "SUBMESH":
+        sub = parse_submesh(cfg.submesh)
+        if sub is not None:
+            return sub[1] != 1
+        return (str(cfg.device or "cuda").startswith("cuda")
+                and len(cards()) > 1)
     tp = dict(MeshSpec.parse(cfg.mesh_spec).axes).get("tp", 1)
-    return tp != 1 or distributed_env() is not None
+    return tp != 1
 
 
 def main() -> None:
@@ -39,7 +49,7 @@ def main() -> None:
         raise SystemExit(2)
     cfg = ServeConfig.from_env()
     service = UNITS[name](cfg)
-    if wants_ranks(cfg):
+    if wants_ranks(cfg, service):
         from .multihost import serve_multihost
 
         serve_multihost(cfg, service)

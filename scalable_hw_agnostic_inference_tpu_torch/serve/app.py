@@ -108,6 +108,10 @@ class ModelService:
     #: its collectives; ``serve_multihost`` refuses any other service
     supports_multihost: bool = False
     mirror_methods: Tuple[str, ...] = ("infer",)
+    #: the knob that lays the unit out over the tp ranks of one host
+    #: (``MESH_SPEC`` or ``SUBMESH``; ``supports_multihost`` implies
+    #: ``MESH_SPEC``), under the same mirror contract; None: one device
+    ranks_over: Optional[str] = None
     #: the group this process runs the service's rank in, given by
     #: ``serve.multihost`` before ``load()`` (None: one device)
     group = None

@@ -81,7 +81,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from ..obs import trace as obs_trace
-from ..parallel.distributed import DistGroup, init_group
+from ..parallel.distributed import DistGroup, end_rank, init_group
 from ..resilience import faults as rz_faults
 from ..utils.env import env_str
 from .asgi import HTTPError
@@ -295,8 +295,11 @@ def _local_rank_main(service, layout, local_rank: int, store: str,
                      backend: str, timeout_s: float, beat_s: float,
                      parent: int) -> None:
     """A child rank of a host: join the group, load, mirror until the
-    shutdown, report what it mirrored. Any failure, or a control wait
-    past its bound, exits with :data:`FAIL_EXIT`."""
+    shutdown, report what it mirrored, then end through
+    ``parallel.distributed.end_rank`` (the group left, the streams
+    flushed, exit code 0 through ``os._exit``: no interpreter teardown).
+    Any failure, or a control wait past its bound, exits with
+    :data:`FAIL_EXIT`."""
     logging.basicConfig(level=env_str("LOG_LEVEL", "INFO"),
                         format="%(asctime)s %(name)s %(levelname)s "
                                "%(message)s")
@@ -320,7 +323,7 @@ def _local_rank_main(service, layout, local_rank: int, store: str,
         log.exception("rank %d failed", rank)
         sys.stderr.flush()
         os._exit(FAIL_EXIT)
-    group.close()
+    end_rank(group, 0, FAIL_EXIT)
 
 
 class UnitRanks:
@@ -455,18 +458,28 @@ def start_ranks(cfg, service, backend: Optional[str] = None,
     ending the process when the unit fails. ``timeout_s``: the group's
     collective and rendezvous timeout. ``beat_s``: the leader's beat.
 
+    The ranks are laid out by the knob the service names
+    (``ranks_over``: ``MESH_SPEC`` for the ``t5`` unit, ``SUBMESH`` for
+    ``flux``; ``supports_multihost`` implies ``MESH_SPEC``). Only a
+    service that declares ``supports_multihost`` runs over several hosts;
+    the others run over the local ranks of one host, with the same
+    mirror, beat and fail-together.
+
     Refused before anything is spawned or allocated: every refusal of
-    ``serve.units.common.unit_layout``, and a service without
-    ``supports_multihost``."""
-    from .units.common import unit_layout
+    ``serve.units.common.unit_layout`` (several hosts at a unit without
+    ``supports_multihost`` among them), a service that lays out no ranks
+    at all, and a tp the service's ``check_layout(tp)`` refuses (a head
+    count it does not divide)."""
+    from .units.common import HOSTS_REFUSED, unit_layout
 
     multihost = getattr(service, "supports_multihost", False)
-    device, layout = unit_layout(cfg, multihost, backend)
-    if not multihost:
-        raise ValueError(
-            f"{type(service).__name__} does not declare supports_multihost: "
-            f"its device entries are not guaranteed to funnel through "
-            f"mirror_methods, and an unmirrored entry would wedge the ranks")
+    over = getattr(service, "ranks_over", None)
+    device, layout = unit_layout(cfg, multihost, backend, over)
+    if not (multihost or over):
+        raise ValueError(f"{type(service).__name__} {HOSTS_REFUSED}")
+    if hasattr(service, "check_layout"):
+        # a tp the model cannot split (the t5 and flux units' heads)
+        service.check_layout(layout.tp)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     store_dir = None
     if layout.coordinator:
@@ -521,7 +534,8 @@ def serve_multihost(cfg, service, backend: Optional[str] = None) -> None:
     """The entry point of a unit over ranks: the leader serves HTTP
     (``serve_forever``) and shuts the followers down when it ends; a
     follower host's main process binds the probes, loads its shard and
-    mirrors."""
+    mirrors. Once its ranks are joined and its group left, the process
+    ends through ``end_rank`` (exit code 0, no interpreter teardown)."""
     from .app import serve_forever
     from .asgi import App, Response
     from .httpd import Server
@@ -532,7 +546,7 @@ def serve_multihost(cfg, service, backend: Optional[str] = None) -> None:
             serve_forever(cfg, service)
         finally:
             ranks.close()
-        return
+        end_rank(None)
 
     probes = App()
     state = {"ready": False}
@@ -574,6 +588,7 @@ def serve_multihost(cfg, service, backend: Optional[str] = None) -> None:
         threading.Event().wait()   # the fail thread ends the process
     server.stop()
     ranks.close()
+    end_rank(None)
 
 
 __all__ = ["BEAT_MISSES", "BEAT_S", "FAIL_EXIT", "FAIL_GRACE_S",

@@ -17,7 +17,7 @@ import base64
 import binascii
 import hashlib
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ from ...core.device import distributed_env, resolve_device
 from ...core.mesh import (
     MeshSpec,
     RankLayout,
+    cards,
     parse_submesh,
     rank_layout,
     submesh,
@@ -54,37 +55,55 @@ class HashTokenizer:
         return np.array(ids), np.array(mask)
 
 
-#: the ROADMAP item that brings the other units over ranks
-RANKS_LATER = "ROADMAP A7.3b"
+#: the ROADMAP item that would bring the remaining units over ranks
+RANKS_LATER = "ROADMAP A7.3c"
+
+#: the reference's reason to refuse several hosts at a unit without
+#: ``supports_multihost`` (``serve/multihost.py:219-223``)
+HOSTS_REFUSED = ("does not declare supports_multihost: its device entries "
+                 "are not guaranteed to funnel through mirror_methods, and "
+                 "an unmirrored entry would wedge the ranks")
 
 
 def unit_layout(cfg, multihost: bool = False,
-                backend: Optional[str] = None
+                backend: Optional[str] = None,
+                ranks_over: Optional[str] = None
                 ) -> Tuple[torch.device, RankLayout]:
     """The unit's device and :class:`~...core.mesh.RankLayout` from
     ``DEVICE``, ``SUBMESH``, ``MESH_SPEC`` and the ``SHAI_COORDINATOR``
-    contract (``core.device.distributed_env``); ``multihost``: the unit
-    declares ``supports_multihost``. ``backend``: the group's (default:
-    NCCL on the card, gloo on the CPU). Every refusal comes here, before
-    anything is allocated or started: a ``SUBMESH`` naming several devices
-    (every unit); ``MESH_SPEC`` naming several devices, or a coordinator,
-    at a unit without ``supports_multihost`` (both :data:`RANKS_LATER`);
-    and ``core.mesh.rank_layout``'s (an axis other than tp, a host count
-    that does not divide tp, more NCCL ranks than cards)."""
+    contract (``core.device.distributed_env``). ``ranks_over``: the knob
+    that lays the unit out over local ranks (``MESH_SPEC``: ``tp=N``
+    ranks, the LLM units and ``t5``; ``SUBMESH``: ``a:b`` gives the ranks
+    cards ``a`` to ``b - 1``, and unset every local card, ``flux``, as the
+    reference's ``flux`` unit reads it; None: one device). ``multihost``:
+    the unit declares ``supports_multihost`` (its ranks may span hosts;
+    it implies ``MESH_SPEC``). ``backend``: the group's (default: NCCL on
+    the card, gloo on the CPU). Every refusal comes here, before anything
+    is allocated or started: a ``SUBMESH`` naming several devices at a
+    unit that does not lay its ranks over it, and ``MESH_SPEC`` over
+    several devices or a coordinator at a unit that lays none out (both
+    :data:`RANKS_LATER`); ``MESH_SPEC`` over several devices where
+    ``SUBMESH`` lays the ranks out; several hosts at a unit without
+    ``supports_multihost`` (the reference's reason); and
+    ``core.mesh.rank_layout``'s (an axis other than tp, a host count that
+    does not divide tp, more NCCL ranks than cards)."""
+    over = ranks_over or ("MESH_SPEC" if multihost else None)
     device = resolve_device(cfg.device)
     sub = parse_submesh(cfg.submesh)
-    if sub is not None and sub[1] > 1:
+    if sub is not None and sub[1] > 1 and over != "SUBMESH":
         raise ValueError(
-            f"SUBMESH names {sub[1]} devices: packing a unit over several "
-            f"devices is tensor parallelism, which this port brings to the "
-            f"unit with {RANKS_LATER}; name one device (SUBMESH=a:a+1) or "
-            f"leave it unset")
+            f"SUBMESH names {sub[1]} devices: packing this unit over "
+            f"several devices is tensor parallelism, which this port brings "
+            f"to it with {RANKS_LATER} (the flux unit packs its transformer "
+            f"over SUBMESH); name one device (SUBMESH=a:a+1) or leave it "
+            f"unset")
     place = distributed_env()
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
-    if not multihost:
-        sizes = [s for _, s in MeshSpec.parse(cfg.mesh_spec).axes]
-        if any(s != 1 for s in sizes) or place is not None:
+    sizes = [s for _, s in MeshSpec.parse(cfg.mesh_spec).axes]
+    many = any(s != 1 for s in sizes)
+    if over is None:
+        if many or place is not None:
             what = (f"SHAI_COORDINATOR={place.coordinator!r} asks for ranks"
                     if place is not None else
                     f"MESH_SPEC names {math.prod(sizes)} devices"
@@ -93,20 +112,49 @@ def unit_layout(cfg, multihost: bool = False,
             raise ValueError(
                 f"{what}: this unit runs on one device; its tensor "
                 f"parallelism over ranks comes with {RANKS_LATER} (the "
-                f"llama, mistral and deepseek units serve MESH_SPEC=tp=N "
-                f"through serve_multihost); name one device (MESH_SPEC="
-                f"tp=1) or leave it unset")
+                f"llama, mistral, deepseek and t5 units serve MESH_SPEC="
+                f"tp=N, and flux SUBMESH=a:b, through serve_multihost); "
+                f"name one device (MESH_SPEC=tp=1) or leave it unset")
         return device, rank_layout("", device, backend)
-    layout = rank_layout(cfg.mesh_spec, device, backend, place)
-    if layout.ranked and sub is not None:
-        raise ValueError(f"SUBMESH={cfg.submesh!r} places one device, and "
-                         f"MESH_SPEC={cfg.mesh_spec!r} runs the unit over "
-                         f"ranks: leave SUBMESH unset")
-    return device, layout
+    if place is not None and place.num_processes > 1 and not multihost:
+        raise ValueError(
+            f"SHAI_NUM_PROCESSES={place.num_processes} runs the unit over "
+            f"{place.num_processes} hosts, and it {HOSTS_REFUSED}; it runs "
+            f"over the local ranks of one host (SHAI_NUM_PROCESSES=1)")
+    if over == "MESH_SPEC":
+        layout = rank_layout(cfg.mesh_spec, device, backend, place)
+        if layout.ranked and sub is not None:
+            raise ValueError(f"SUBMESH={cfg.submesh!r} places one device, "
+                             f"and MESH_SPEC={cfg.mesh_spec!r} runs the unit "
+                             f"over ranks: leave SUBMESH unset")
+        return device, layout
+    if many:
+        raise ValueError(
+            f"MESH_SPEC={cfg.mesh_spec!r} names several devices, and this "
+            f"unit lays its ranks over SUBMESH=a:b, as the reference reads "
+            f"it: name the transformer's cards there, and leave MESH_SPEC "
+            f"unset")
+    if sub is None:
+        # the reference's flux spans every local device without SUBMESH
+        start, tp = 0, (len(cards()) if device.type == "cuda" else 1)
+    else:
+        start, tp = sub
+    if start and device.type == "cpu":
+        raise ValueError(f"SUBMESH={cfg.submesh!r}: the CPU is device 0 "
+                         f"only")
+    last = start + (tp if backend == "nccl" else 1)
+    if device.type == "cuda" and last > len(cards()):
+        how = "a card a rank" if backend == "nccl" else "the ranks share one"
+        raise ValueError(f"SUBMESH={cfg.submesh!r} asks for cards {start} "
+                         f"to {last - 1} ({backend}: {how}), and this host "
+                         f"has {len(cards())} card(s)")
+    return device, rank_layout(f"tp={tp}", device, backend, place,
+                               first=start if backend == "nccl" else 0)
 
 
 def unit_ranks(cfg, multihost: bool = False,
-               group: Optional[DistGroup] = None
+               group: Optional[DistGroup] = None,
+               ranks_over: Optional[str] = None
                ) -> Tuple[torch.device, Optional[DistGroup]]:
     """``(device, group)``: the device this rank of the unit runs on and
     its group, or ``(device, None)`` for a unit on one device (moved to
@@ -116,20 +164,21 @@ def unit_ranks(cfg, multihost: bool = False,
     without one, or with one of another size, it raises: nothing runs on
     one rank in place of several."""
     device, layout = unit_layout(cfg, multihost,
-                                 group.backend if group else None)
+                                 group.backend if group else None,
+                                 ranks_over)
     if layout.ranked:
+        knob = (f"SUBMESH={cfg.submesh!r}" if ranks_over == "SUBMESH"
+                else f"MESH_SPEC={cfg.mesh_spec!r}")
         if group is None:
             raise ValueError(
-                f"MESH_SPEC={cfg.mesh_spec!r} (tp={layout.tp}, "
-                f"{layout.hosts} host(s)) runs the unit as one process a "
-                f"rank: serve it through serve.multihost.serve_multihost "
-                f"(python -m scalable_hw_agnostic_inference_tpu_torch.serve"
-                f" <unit> does), which starts the ranks and gives each its "
-                f"group")
+                f"{knob} (tp={layout.tp}, {layout.hosts} host(s)) runs the "
+                f"unit as one process a rank: serve it through "
+                f"serve.multihost.serve_multihost (python -m "
+                f"scalable_hw_agnostic_inference_tpu_torch.serve <unit> "
+                f"does), which starts the ranks and gives each its group")
         if group.size != layout.tp:
-            raise ValueError(f"MESH_SPEC={cfg.mesh_spec!r} asks tp="
-                             f"{layout.tp}, and this process's group has "
-                             f"{group.size} ranks")
+            raise ValueError(f"{knob} asks tp={layout.tp}, and this "
+                             f"process's group has {group.size} ranks")
         return group.device, group
     sub = parse_submesh(cfg.submesh)
     if sub is None:
@@ -143,6 +192,19 @@ def unit_ranks(cfg, multihost: bool = False,
         raise ValueError(f"SUBMESH={cfg.submesh!r}: this host has "
                          f"{torch.cuda.device_count()} cards")
     return submesh(sub[0], 1)[0], None
+
+
+def rest_device(devices: Sequence[torch.device]) -> torch.device:
+    """The reference's ``rest[0]`` (``serve/units/flux.py:50-56``) for a
+    transformer on ``devices`` (every rank's, in rank order): the first
+    card outside them, or the first card when they take every one; on the
+    CPU, or for gloo ranks sharing one card, that device itself."""
+    first = torch.device(devices[0])
+    if first.type != "cuda" or len(set(devices)) < len(devices):
+        return first
+    every = [torch.device("cuda", i) for i in range(len(cards()))]
+    rest = [d for d in every if d not in set(devices)] or every[:1]
+    return rest[0]
 
 
 def unit_device(cfg) -> torch.device:

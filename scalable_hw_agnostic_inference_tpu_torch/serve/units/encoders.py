@@ -23,7 +23,7 @@ one) and ``{"label", "top5"}``.
   and resized bicubic without PIL (``common.decode_image``, 0.5/0.5);
   bytes that are no image this decoder reads answer 400.
 - ``SUBMESH`` or ``MESH_SPEC`` naming one device places the unit on it;
-  naming more is tensor parallelism (ROADMAP A7.3b): ``load()`` refuses it.
+  naming more is tensor parallelism (ROADMAP A7.3c): ``load()`` refuses it.
 """
 
 from __future__ import annotations

@@ -22,8 +22,33 @@ base64 PNG with the steps and size.
   CLIP in fp32, the VAE's weights fp32 computing in bf16. T5 reads 512
   tokens for dev and 256 for schnell. A hub id is refused (there is no
   download).
-- ``SUBMESH`` or ``MESH_SPEC`` naming one device places the unit on it;
-  naming more is tensor parallelism (ROADMAP A7.3b): ``load()`` refuses it.
+- ``SUBMESH=a:b`` packs the unit as the reference does: the transformer
+  over cards ``a`` to ``b - 1`` (the repo's manifest sets ``2:8``), one
+  tensor-parallel rank a card, each a process of its own
+  (``serve.multihost``), and T5, CLIP and the VAE on the leader alone, on
+  the first card outside the slice (the reference's ``rest[0]``; the
+  first card when the slice takes every one). Unset, the transformer
+  spans every local card, as the reference's does: one card is one
+  device and no group, as before. ``SUBMESH`` naming one device places
+  the transformer on it. Over two gloo ranks sharing one card (the
+  card's tests) both ranks and the encoders share it. The leader
+  encodes the prompt and broadcasts the conditioning; every rank runs
+  every step; the leader decodes and answers (``models/flux_pipeline``).
+  Every call that reaches the device (``infer``, ``warmup``) is
+  mirrored; a bad knob or a ``steps`` value outside the set is a 400 on
+  every rank before any device work. ``SHAI_COORDINATOR`` with
+  ``SHAI_NUM_PROCESSES=1`` is a group of one through the env path;
+  several hosts are refused, as the reference refuses a unit without
+  ``supports_multihost``. At ``load()`` each rank refuses a tp that does
+  not divide the heads (24 for FLUX.1) or the MLP width, prices its load
+  (``core.budget.rank_budget``: its shard of the transformer, and on the
+  leader the encoders and VAE where they share its card, with the
+  activations of the unit's image) on the card (or under
+  ``SHAI_ENFORCE_HBM=1``) before any weight is read, then reads the
+  transformer on the CPU one entry at a time (a diffusers snapshot's
+  fused entries made from their parts) and places only its slice
+  (``parallel.sharding.stream_shard``). ``MESH_SPEC`` over several
+  devices is refused: the reference's ``flux`` reads ``SUBMESH``.
 - Steps are a closed set (``NUM_INFERENCE_STEPS`` plus ``STEPS_BUCKETS``,
   the reference's contract); another value is a 400. Warmup runs the one
   image shape once, ``WARM_STEPS`` steps long, and puts every allowed
@@ -37,10 +62,16 @@ import glob
 import json
 import os
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
+from ...core.budget import (
+    HbmBudget,
+    detect_hbm_gib,
+    module_shapes,
+    rank_budget,
+)
 from ...core.checkpoint import Checkpoint
 from ...models import clip, flux, sd, t5, vae as vae_mod
 from ...models.encoder import seeded_init_
@@ -48,9 +79,17 @@ from ...models.flow_match import FlowMatchConfig
 from ...models.flux_pipeline import FluxPipeline
 from ...models.tokenizer import ClipTokenizer, UnigramTokenizer
 from ...ops.cuda.flash_attention import HEAD_DIMS
+from ...parallel.sharding import stream_shard
+from ...utils.env import env_bool
 from ..app import ModelService
 from ..asgi import HTTPError
-from .common import HashTokenizer, tokenize_to_length, unit_device
+from .common import (
+    HashTokenizer,
+    rest_device,
+    tokenize_to_length,
+    unit_layout,
+    unit_ranks,
+)
 
 #: the denoise steps of the warmup run
 WARM_STEPS = 1
@@ -140,25 +179,46 @@ def _config(root: str, component: str) -> Dict[str, Any]:
     return json.loads(Path(root, component, "config.json").read_text())
 
 
-def load_checkpoint(root: str, device: torch.device):
-    """``(transformer, T5, CLIP, VAE, schedule)`` from a local FLUX.1
-    directory."""
+def _params_bytes(module: torch.nn.Module, dtype: torch.dtype) -> float:
+    return float(sum(p.numel() for p in module.parameters())
+                 * dtype.itemsize)
+
+
+def flux_act_bytes(fcfg: flux.FluxConfig, tokens: int, tp: int,
+                   dtype_bytes: float) -> float:
+    """An estimate of one rank's peak activations in one step over
+    ``tokens`` joint tokens: the replicated streams, their norms and
+    modulated copies (6 widths), the rank's q, k, v, attention output
+    and MLP slice, 1.5x for temporaries (B1 keeps the scores out of
+    memory)."""
+    h, m = fcfg.hidden, fcfg.mlp_ratio * fcfg.hidden
+    return 1.5 * tokens * (6 * h + (4 * h + m) // tp) * dtype_bytes
+
+
+def vae_act_bytes(vcfg: vae_mod.VAEConfig, height: int, width: int) -> float:
+    """``core.budget.diffusion_budget``'s estimate of the VAE decode's
+    upsampled feature maps (bf16 compute), 1.5x margin."""
+    f = 2 ** (len(vcfg.block_out) - 1)
+    elems = 0
+    for i, ch in enumerate(reversed(vcfg.block_out)):
+        s = f >> i if f >> i else 1
+        elems += (height // s) * (width // s) * ch
+    return 1.5 * elems * 6 * 2.0
+
+
+def load_encoders(root: str, device: torch.device):
+    """``(T5, CLIP, VAE)`` of a local FLUX.1 directory on ``device``: T5
+    in bf16, CLIP in fp32, the VAE's weights in fp32."""
 
     def read(ck, dtype):
         return lambda n: ck.tensor(n, device).to(dtype)
 
-    tck = transformer_checkpoint(root)
-    fcfg = config_from_checkpoint(tck)
-    ccfg = clip.ClipTextConfig.from_hf(_config(root, "text_encoder"))
-    check_head_dims(fcfg, ccfg, device)
-    model = flux.build(fcfg, flux.state_from_bfl(
-        read(tck, torch.bfloat16), fcfg, tck.keys()), dtype=torch.bfloat16)
-    t5dir = os.path.join(root, "text_encoder_2")
     tcfg = t5.T5Config.from_hf(_config(root, "text_encoder_2"))
-    ck = sd.load_torch_state(t5dir)
+    ck = sd.load_torch_state(os.path.join(root, "text_encoder_2"))
     t5m = t5.build(tcfg, t5.state_from_hf(read(ck, torch.bfloat16),
                                           ck.keys(), tcfg),
                    dtype=torch.bfloat16)
+    ccfg = clip.ClipTextConfig.from_hf(_config(root, "text_encoder"))
     ck = sd.load_torch_state(os.path.join(root, "text_encoder"))
     clipm = clip.build(ccfg, clip.state_from_hf(read(ck, torch.float32),
                                                 ck.keys(), ccfg))
@@ -166,32 +226,87 @@ def load_checkpoint(root: str, device: torch.device):
     ck = sd.load_torch_state(os.path.join(root, "vae"))
     vae = vae_mod.build(vcfg, vae_mod.state_from_diffusers(
         read(ck, torch.float32), ck.keys(), vcfg))
-    return model, t5m, clipm, vae, schedule_for(root, fcfg)
+    return t5m, clipm, vae
 
 
 class FluxService(ModelService):
     """Text-to-image: the reference's ``flux_model_api.py`` (FLUX.1 at
-    the configured size, a base64 PNG response) on the port's pipeline."""
+    the configured size, a base64 PNG response) on the port's pipeline,
+    its transformer over the ``SUBMESH`` ranks (module note)."""
 
     task = "text-to-image"
     infer_route = "/genimage"
+    #: the transformer's tp ranks of one host, laid out by ``SUBMESH``
+    ranks_over = "SUBMESH"
+    #: every entry that reaches the device
+    mirror_methods = ("infer", "warmup")
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        #: the rank's priced load, where the gate ran (on the card, or
+        #: under ``SHAI_ENFORCE_HBM=1``)
+        self.hbm_budget: Optional[HbmBudget] = None
+
+    def check_layout(self, tp: int) -> None:
+        """Refuse a tp the transformer cannot split (``serve.multihost``
+        asks before it starts a rank): its config is the tiny tier's, or
+        read off the checkpoint's tensor headers."""
+        if self.cfg.model_id in ("", "tiny"):
+            fcfg = flux.FluxConfig.tiny()
+        else:
+            fcfg = config_from_checkpoint(transformer_checkpoint(
+                sd.resolve_checkpoint_dir(self.cfg.model_id,
+                                          "flux1-*.safetensors or "
+                                          "transformer/")))
+        flux.check_tp(fcfg, tp)
+
+    def _price(self, fcfg, tcfg, ccfg, vcfg, tp: int, dtype: torch.dtype,
+               device: torch.device, shares: bool) -> None:
+        """The rank's load priced before any weight is read: its shard of
+        the transformer, and, on a leader whose encoders share its card,
+        T5, CLIP and the VAE whole, beside the activations of one image
+        (and of its decode, where the VAE shares the card)."""
+        if not (device.type == "cuda"
+                or env_bool("SHAI_ENFORCE_HBM", False)):
+            return
+        tokens = self.t5_len + (self.height // 16) * (self.width // 16)
+        act = flux_act_bytes(fcfg, tokens, tp, dtype.itemsize)
+        extra = 0.0
+        if shares:
+            extra = (_params_bytes(t5.T5Encoder(tcfg, device="meta"),
+                                   dtype)
+                     + _params_bytes(clip.ClipTextEncoder(ccfg,
+                                                          device="meta"),
+                                     torch.float32)
+                     + _params_bytes(vae_mod.AutoencoderKL(
+                         vcfg, device="meta", encoder=False), torch.float32))
+            act = max(act, vae_act_bytes(vcfg, self.height, self.width))
+        self.hbm_budget = rank_budget(
+            module_shapes(flux.FluxTransformer(fcfg, dtype=dtype,
+                                               device="meta")),
+            flux.tp_rules(fcfg), tp, what=repr(self.cfg.model_id or "tiny"),
+            dtype=str(dtype).split(".")[-1], act_bytes=act,
+            hbm_gib_per_chip=detect_hbm_gib(device),
+            extra_params_bytes=extra).check()
 
     def load(self) -> None:
         cfg = self.cfg
-        device = unit_device(cfg)
-        if cfg.model_id in ("", "tiny"):
+        device, group = unit_ranks(cfg, group=self.group,
+                                   ranks_over=self.ranks_over)
+        tp, rank = (group.size, group.rank) if group else (1, 0)
+        leader = rank == 0
+        devices = (unit_layout(cfg, backend=group.backend,
+                               ranks_over=self.ranks_over)[1].devices
+                   if group else (device,))
+        enc_dev = rest_device(devices)
+        # a rank of several reads the whole transformer on the CPU, one
+        # entry at a time, and places only its slice on its device
+        source = device if tp == 1 else torch.device("cpu")
+        tiny = cfg.model_id in ("", "tiny")
+        if tiny:
             fcfg = flux.FluxConfig.tiny()
             tcfg, ccfg = t5.T5Config.tiny(), clip.ClipTextConfig.tiny()
-            check_head_dims(fcfg, ccfg, device)
-            t5m = seeded_init_(t5.T5Encoder(tcfg, device=device), cfg.seed)
-            clipm = seeded_init_(clip.ClipTextEncoder(ccfg, device=device),
-                                 cfg.seed + 1)
-            model = flux.seeded(fcfg, cfg.seed + 2, dtype=torch.float32,
-                                device=device)
-            vae = seeded_init_(vae_mod.AutoencoderKL(
-                vae_mod.VAEConfig.tiny(), device=device, encoder=False),
-                cfg.seed + 3)
-            schedule = FlowMatchConfig()
+            vcfg, dtype = vae_mod.VAEConfig.tiny(), torch.float32
             self.t5_tok = HashTokenizer(tcfg.vocab_size, 16)
             self.clip_tok = HashTokenizer(ccfg.vocab_size, ccfg.max_position)
             self.t5_len = 16
@@ -201,8 +316,12 @@ class FluxService(ModelService):
                 cfg.model_id, "flux1-*.safetensors or transformer/, "
                 "text_encoder/, text_encoder_2/, vae/, tokenizer/, "
                 "tokenizer_2/")
-            model, t5m, clipm, vae, schedule = load_checkpoint(root, device)
-            fcfg, ccfg = model.cfg, clipm.cfg
+            tck = transformer_checkpoint(root)
+            fcfg = config_from_checkpoint(tck)
+            tcfg = t5.T5Config.from_hf(_config(root, "text_encoder_2"))
+            ccfg = clip.ClipTextConfig.from_hf(_config(root, "text_encoder"))
+            vcfg, dtype = (vae_mod.VAEConfig.from_hf(_config(root, "vae")),
+                           torch.bfloat16)
             self.t5_tok = UnigramTokenizer.from_dir(
                 os.path.join(root, "tokenizer_2"))
             self.clip_tok = ClipTokenizer.from_dir(
@@ -210,9 +329,37 @@ class FluxService(ModelService):
             self.t5_len = T5_LEN_DEV if fcfg.guidance_embed \
                 else T5_LEN_SCHNELL
             self.height, self.width = cfg.height, cfg.width
+        check_head_dims(fcfg, ccfg, device)
+        flux.check_tp(fcfg, tp)
+        self._price(fcfg, tcfg, ccfg, vcfg, tp, dtype, device,
+                    leader and enc_dev == device)
+        if tiny:
+            items = flux.seeded(fcfg, cfg.seed + 2, dtype=dtype,
+                                device=source).state_dict().items()
+            schedule = FlowMatchConfig()
+        else:
+            items = flux.state_items(
+                lambda n: tck.tensor(n, source).to(dtype), fcfg, tck.keys())
+            schedule = schedule_for(root, fcfg)
+        model = flux.build(fcfg, stream_shard(items, flux.tp_rules(fcfg), tp,
+                                              rank, device),
+                           dtype=dtype, group=group)
+        t5_fn = clip_fn = vae = None
+        if leader and tiny:
+            t5m = seeded_init_(t5.T5Encoder(tcfg, device=enc_dev), cfg.seed)
+            clipm = seeded_init_(clip.ClipTextEncoder(ccfg, device=enc_dev),
+                                 cfg.seed + 1)
+            vae = seeded_init_(vae_mod.AutoencoderKL(
+                vcfg, device=enc_dev, encoder=False), cfg.seed + 3)
+        elif leader:
+            t5m, clipm, vae = load_encoders(root, enc_dev)
+        if leader:
+            t5_fn, clip_fn = t5.encode_fn(t5m), clip.pooled_fn(clipm)
         self.clip_len = ccfg.max_position
-        self.pipe = FluxPipeline(model, vae, t5.encode_fn(t5m),
-                                 clip.pooled_fn(clipm), schedule=schedule)
+        self.pipe = FluxPipeline(model, vae, t5_fn, clip_fn,
+                                 schedule=schedule, group=group,
+                                 encoder_device=enc_dev,
+                                 vae_scale=2 ** (len(vcfg.block_out) - 1))
         self.steps_allowed = {cfg.num_inference_steps}
         if cfg.steps_buckets:
             self.steps_allowed |= {
@@ -233,25 +380,32 @@ class FluxService(ModelService):
         return {"prompt": "a watercolor fox", "steps": None}
 
     def infer(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """One image; every knob is checked first, so a bad one is the
+        same 400 on every rank before any device work. A follower rank
+        returns ``{}`` (the leader answers)."""
         prompt = str(payload.get("prompt", ""))
         steps_raw = payload.get("steps")
-        steps = (self.cfg.num_inference_steps if steps_raw is None
-                 else int(steps_raw))
+        try:
+            steps = (self.cfg.num_inference_steps if steps_raw is None
+                     else int(steps_raw))
+            guidance = float(payload.get("guidance_scale", payload.get(
+                "guidance", self.cfg.guidance_scale)))
+            seed = int(payload.get("seed", 0))
+        except (TypeError, ValueError) as e:
+            raise HTTPError(400, f"bad knob: {e}") from None
         if steps not in self.steps_allowed:
             raise HTTPError(
                 400,
                 f"steps={steps} not in this deployment's compiled set "
                 f"{sorted(self.steps_allowed)} (extend via STEPS_BUCKETS)")
-        guidance = float(payload.get("guidance_scale",
-                                     payload.get("guidance",
-                                                 self.cfg.guidance_scale)))
-        seed = int(payload.get("seed", 0))
-        img = self.pipe.txt2img(
+        images = self.pipe.txt2img(
             tokenize_to_length(self.t5_tok, prompt, self.t5_len),
             tokenize_to_length(self.clip_tok, prompt, self.clip_len),
             rng=seed, height=self.height, width=self.width, steps=steps,
-            guidance=guidance)[0]
-        return {"image_b64": sd.to_png_base64(img), "steps": steps,
+            guidance=guidance)
+        if images is None:
+            return {}
+        return {"image_b64": sd.to_png_base64(images[0]), "steps": steps,
                 "height": self.height, "width": self.width}
 
     def recompiles(self) -> int:

@@ -17,7 +17,7 @@ image this decoder reads answer 400.
   ``core/checkpoint.py`` without ``transformers``, computing in bf16,
   its parameters held in fp32; ``id2label`` from ``config.json``.
 - ``SUBMESH`` or ``MESH_SPEC`` naming one device places the unit on it;
-  naming more is tensor parallelism (ROADMAP A7.3b): ``load()`` refuses it.
+  naming more is tensor parallelism (ROADMAP A7.3c): ``load()`` refuses it.
 """
 
 from __future__ import annotations

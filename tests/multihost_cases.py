@@ -12,6 +12,7 @@ import torch
 
 from scalable_hw_agnostic_inference_tpu_torch.engine.ranks import rank_state
 from scalable_hw_agnostic_inference_tpu_torch.models import llama as pllama
+from scalable_hw_agnostic_inference_tpu_torch.models import t5 as pt5
 from scalable_hw_agnostic_inference_tpu_torch.models.generate import (
     make_generate,
 )
@@ -41,6 +42,57 @@ class Toy:
             torch.full((1,), float(payload["x"])))
         self.seen.append([payload["x"], float(total)])
         return float(total)
+
+
+class ToyUnit:
+    """The smallest unit ``serve.multihost.start_ranks`` takes: nothing
+    to load, and every mirrored ``infer`` enters the group's sum."""
+
+    supports_multihost = True
+    mirror_methods = ("infer",)
+    group = None
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def load(self):
+        pass
+
+    def ready_error(self):
+        return None
+
+    def infer(self, payload):
+        return float(self.group.all_reduce(
+            torch.full((1,), float(payload["x"]))))
+
+
+def endings(units, tp):
+    """``units`` toy units over ``serve.multihost.start_ranks`` at ``tp``,
+    one after the other, on the CPU: a few mirrored sums, then ``close``;
+    each child rank's exit code (and ``close``'s error, if it raised). Run
+    in a process of its own (this process becomes each unit's rank 0, and
+    a process holds one default group at a time)."""
+    from scalable_hw_agnostic_inference_tpu_torch.utils.env import (
+        ServeConfig,
+    )
+
+    torch.set_num_threads(1)
+    out = []
+    for _ in range(units):
+        cfg = ServeConfig(app="toy", device="cpu", mesh_spec=f"tp={tp}")
+        unit, fails = ToyUnit(cfg), []
+        ranks = multihost.start_ranks(cfg, unit, on_fail=fails.append)
+        unit.load()
+        sums = [unit.infer({"x": x}) for x in (1.0, 2.0, 3.0)]
+        try:
+            ranks.close()
+            err = None
+        except RuntimeError as e:
+            err = str(e)
+        out.append({"sums": sums, "fails": fails, "error": err,
+                    "exit": [p.exitcode for p in ranks.procs],
+                    "mirrored": ranks.mirrored})
+    return out
 
 
 #: the dense generate over the group: the tiny Llama's seed, two right-
@@ -179,6 +231,19 @@ def silent_leader_rank(group, outdir):
         return "the leader resumed"
     drv.follower_loop()
     return "the follower's loop ended"
+
+
+class CarriedT5:
+    """The ``t5`` unit's weights seam over a JAX ``T5Encoder`` tree of
+    numpy leaves (``models.t5.params_from_jax``), pickled into every
+    rank."""
+
+    def __init__(self, tree):
+        self.tree = tree
+
+    def __call__(self, mcfg, device):
+        return {k: v.to(device)
+                for k, v in pt5.params_from_jax(self.tree).items()}
 
 
 class Carried:

@@ -14,10 +14,9 @@ against the reference, with no process spawned:
   refusals (an axis other than tp, a host count that does not divide tp,
   more NCCL ranks than cards, ``-1`` over gloo, a process id out of
   range);
-- the units: ``llama`` over ranks without a group refused (naming
-  ``serve_multihost``), ``t5`` and the other one-device units refused
-  naming ROADMAP A7.3b, ``start_ranks`` refusing before any process
-  starts, the ``vllm`` unit's ``tensor_parallel_size`` past the host's
+- the units: ``llama`` and ``t5`` over ranks without a group refused
+  (naming ``serve_multihost``), the one-device units refused naming
+  ROADMAP A7.3c, ``start_ranks`` refusing before any process starts, the ``vllm`` unit's ``tensor_parallel_size`` past the host's
   cards refused with the reference's message, the entry point's choice.
 """
 
@@ -191,15 +190,15 @@ def test_units_over_ranks_and_their_refusals(monkeypatch):
         (CPU, None)
     with pytest.raises(ValueError, match="tensor parallelism only"):
         UNITS["mistral"](_cfg(mesh_spec="dp=2,tp=2")).load()
-    with pytest.raises(ValueError, match="SUBMESH names 4 devices.*A7.3b"):
+    with pytest.raises(ValueError, match="SUBMESH names 4 devices.*A7.3c"):
         UNITS["deepseek"](_cfg(submesh="0:4")).load()
     with pytest.raises(ValueError, match="MESH_SPEC names 2 devices.*"
-                       "A7.3b"):
-        UNITS["t5"](_cfg(mesh_spec="tp=2")).load()
+                       "A7.3c"):
+        UNITS["bert"](_cfg(mesh_spec="tp=2")).load()
     monkeypatch.setenv("SHAI_COORDINATOR", "127.0.0.1:1")
     monkeypatch.setenv("SHAI_NUM_PROCESSES", "1")
     monkeypatch.setenv("SHAI_PROCESS_ID", "0")
-    with pytest.raises(ValueError, match="SHAI_COORDINATOR.*A7.3b"):
+    with pytest.raises(ValueError, match="SHAI_COORDINATOR.*A7.3c"):
         UNITS["bert"](_cfg()).load()
     # a coordinator alone asks for a group (of one)
     assert unit_layout(_cfg(), multihost=True)[1].ranked
@@ -209,8 +208,8 @@ def test_units_over_ranks_and_their_refusals(monkeypatch):
 def test_start_ranks_refuses_before_any_process(monkeypatch):
     monkeypatch.delenv("SHAI_COORDINATOR", raising=False)
     before = multiprocessing.active_children()
-    with pytest.raises(ValueError, match="A7.3b"):
-        start_ranks(_cfg(mesh_spec="tp=2"), UNITS["t5"](_cfg()))
+    with pytest.raises(ValueError, match="A7.3c"):
+        start_ranks(_cfg(mesh_spec="tp=2"), UNITS["bert"](_cfg()))
     plain = types.SimpleNamespace(cfg=None)
     with pytest.raises(ValueError, match="does not declare "
                        "supports_multihost"):

@@ -17,6 +17,11 @@ what they did:
 - a second two-rank toy group whose leader beats, then stops without a
   word (``SIGSTOP``): the follower ends with ``FAIL_EXIT`` within
   :data:`SILENT_BOUND_S`;
+- the ending of :data:`ENDED_RANKS` spawned child ranks: toy units over
+  ``start_ranks`` at ``tp=5`` (``multihost_cases.endings``, in a process
+  of its own), one after the other, each mirroring a few sums and then
+  closed; every child must exit with code 0 (a child that returned into
+  the interpreter's teardown once aborted there with -6 under load);
 - the ``llama`` unit at ``MESH_SPEC=tp=2`` (this process rank 0, behind
   the stdlib server; one follower process), its weights the JAX unit's
   numpy draws carried to every rank (``multihost_cases.Carried``): greedy
@@ -36,6 +41,7 @@ what they did:
 import concurrent.futures
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import signal
@@ -120,6 +126,9 @@ SILENT_BOUND_S = SILENT_MISS_S + 6.0
 KILL_BOUND_S = FAIL_GRACE_S + 6.0
 #: a process's limit to come up (an interpreter, torch, the tiny unit)
 BOOT_S = 120.0
+#: the toy units whose child ranks are ended, and their tp
+ENDINGS, ENDING_TP = 2, 5
+ENDED_RANKS = ENDINGS * (ENDING_TP - 1)
 
 
 def _free_ports(n: int):
@@ -393,6 +402,11 @@ def runs():
         # one entry point after the other: fewer interpreters start at
         # once beside the other test workers
         hosts = pool.submit(lambda: (_two_hosts(tmp), _killed_follower(tmp)))
+        # a process of its own: each toy unit's rank 0 holds that
+        # process's default group
+        ctx = multiprocessing.get_context("spawn")
+        ending = concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx)
+        endings = ending.submit(cases.endings, ENDINGS, ENDING_TP)
         jservice, tree = _jax_tp2()
         carried = cases.Carried(tree)
         # rank 0 in a thread here, its follower booting meanwhile; it
@@ -411,7 +425,9 @@ def runs():
         out = {"toy": toy.result(), "silent": silent.result(),
                "hosts": entry[0], "killed": entry[1],
                "jax": jax_answers, "tp1": tp1,
-               "llama": llama, "vllm": vllm, "logs": tmp}
+               "llama": llama, "vllm": vllm, "logs": tmp,
+               "endings": endings.result()}
+        ending.shutdown()
     yield out
     shutil.rmtree(tmp, ignore_errors=True)
 
@@ -583,6 +599,20 @@ def test_silent_leader_ends_the_follower(runs):
     # the last beat came at most one beat before the stop
     assert SILENT_MISS_S - cases.SILENT_BEAT_S <= took < SILENT_BOUND_S, \
         took
+
+
+def test_child_ranks_end_with_code_0(runs):
+    """Every spawned child rank ends through the repaired path: the group
+    left, the streams flushed, exit code 0 (``close`` raises on any other
+    code, unchanged)."""
+    endings = runs["endings"]
+    codes = [c for e in endings for c in e["exit"]]
+    assert len(codes) == ENDED_RANKS >= 8
+    for e in endings:
+        assert e["error"] is None and e["fails"] == [], e
+        assert e["exit"] == [0] * (ENDING_TP - 1), e
+        assert e["sums"] == [ENDING_TP * x for x in (1.0, 2.0, 3.0)]
+        assert e["mirrored"] == [{"infer": 3}] * ENDING_TP
 
 
 # -- the llama unit over two ranks ------------------------------------------

@@ -28,9 +28,9 @@ told apart by key, the tensors equal to the written ones, T5's 256 or 512
 tokens, the image equal to a pipeline built by hand from the same weights
 and tokens; the ``t5`` unit serves its ``text_encoder_2/``, given a
 ``tokenizer.json`` of its own. The refusals: a hub id, a multi-device
-``SUBMESH`` at every unit and ``MESH_SPEC`` at every unit without
-``supports_multihost`` (a ``dp`` axis at the others), the tiny tier's
-heads of 16 on the card.
+``SUBMESH`` at every unit but ``flux`` and ``MESH_SPEC`` at every unit
+that lays no ranks over it (a ``dp`` axis at the others, and several
+devices at ``flux``), the tiny tier's heads of 16 on the card.
 """
 
 import dataclasses
@@ -377,22 +377,30 @@ def test_flux_directory_loads_and_serves(tmp_path, layout, guidance):
                          ids=["submesh", "mesh_tp", "mesh_dp_tp"])
 @pytest.mark.parametrize("name", sorted(UNITS))
 def test_every_unit_refuses_several_devices(name, spec):
-    """A ``SUBMESH`` naming several devices is refused at every unit, and
-    ``MESH_SPEC`` over several at every unit but the three that serve
-    tensor parallelism over ranks (``supports_multihost``: ``llama``,
-    ``mistral``, ``deepseek``), all naming ROADMAP A7.3b. Those three lay
-    ``tp=2`` out (and, loaded outside ``serve_multihost``, with no group,
-    refuse it naming it), and refuse a ``dp`` axis."""
+    """Several devices where a unit does not lay its ranks over them are
+    refused, naming ROADMAP A7.3c: a ``SUBMESH`` naming several at every
+    unit but ``flux``, and ``MESH_SPEC`` over several at every unit that
+    lays out no ranks. The units whose ranks ``MESH_SPEC`` lays out
+    (``llama``, ``mistral``, ``deepseek``, ``t5``) lay ``tp=2`` out (and,
+    loaded outside ``serve_multihost``, with no group, refuse it naming
+    it) and refuse a ``dp`` axis; ``flux`` lays ``SUBMESH=0:4`` out the
+    same way and refuses ``MESH_SPEC`` over several devices, which the
+    reference's unit does not read."""
     cfg = ServeConfig(app=name, **{**TINY, **spec})
     unit = UNITS[name](cfg)
-    ranked = unit.supports_multihost and "mesh_spec" in spec
-    if ranked and spec["mesh_spec"] == "tp=2":
-        assert unit_layout(cfg, multihost=True)[1].tp == 2
+    over = unit.ranks_over or ("MESH_SPEC" if unit.supports_multihost
+                               else None)
+    knob = "mesh_spec" if "mesh_spec" in spec else "submesh"
+    if over == knob.upper() and spec.get("mesh_spec") != "dp=2,tp=4":
+        layout = unit_layout(cfg, unit.supports_multihost, ranks_over=over)
+        assert layout[1].tp == (4 if knob == "submesh" else 2)
         match = "serve_multihost"
-    elif ranked:
+    elif over == "MESH_SPEC" and knob == "mesh_spec":
         match = "tensor parallelism only.*'dp'"
+    elif over == "SUBMESH" and knob == "mesh_spec":
+        match = "MESH_SPEC=.* names several devices.*SUBMESH"
     else:
-        match = "names [248] devices.*tensor parallelism.*A7.3b"
+        match = "names [248] devices.*tensor parallelism.*A7.3c"
     with pytest.raises(ValueError, match=match):
         unit.load()
 

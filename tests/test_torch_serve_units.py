@@ -350,11 +350,11 @@ def test_units_cover_the_jax_registry():
 def test_refusals(tmp_path):
     # the llama manifest's tp=4 runs over ranks (serve_multihost gives
     # each its group): loaded without one, it is refused, naming it; the
-    # encoder units stay on one device until ROADMAP A7.3b
+    # encoder units stay on one device (ROADMAP A7.3c)
     with pytest.raises(ValueError, match="tp=4.*serve_multihost"):
         UNITS["llama"](ServeConfig(app="llama", device="cpu",
                                    model_id="tiny", mesh_spec="tp=4")).load()
-    with pytest.raises(ValueError, match="tensor parallelism.*A7.3b"):
+    with pytest.raises(ValueError, match="tensor parallelism.*A7.3c"):
         UNITS["bert"](ServeConfig(app="bert", device="cpu",
                                   model_id="tiny", mesh_spec="tp=4")).load()
     chip_smoke._write_encoder_dir(tmp_path, "bert", ENCODER_CFGS["bert"],

@@ -6,8 +6,11 @@ against the JAX package on the CPU.
 
 - the rule tables, rule for rule: for every name of the tiny Llama state
   dicts (tied, untied, int8, mllama with a cross layer) and of the tiny
-  Flux and T5 ones, the port's split dim is the reference's spec on the
-  matching flax path, transposed for a ``[out, in]`` weight;
+  T5 one, the port's split dim is the reference's spec on the matching
+  flax path, transposed for a ``[out, in]`` weight; Flux's as rank-local
+  placements (the weights split where the reference's are, fused ones
+  per section, column-parallel biases with their outputs, every rank's
+  pieces concatenating back to the reference's tensors);
 - ``shard_state_dict``'s rank ``r`` is the shard the reference's
   ``shard_pytree`` puts on mesh position ``r``, value for value;
 - ``replicate_kv_heads`` widens the weights as the reference does (bit for
@@ -16,7 +19,7 @@ against the JAX package on the CPU.
 - ``EngineShardings``' refusal is the reference's message, its per-rank
   counts the manifests' shapes; the engine refuses a tp without a group
   of that size, and a unit refuses tp ranks without one (on one device
-  until ROADMAP A7.3b, or outside ``serve_multihost``);
+  (ROADMAP A7.3c), or outside ``serve_multihost``);
 - the rank-local fp32 forward at tp 2 and 4 (4 through widening) over
   ``LoopbackGroup``, for the tied tiny, an untied tiny and its int8
   weights: within 2e-4 of the port's unsharded forward and of the JAX
@@ -66,6 +69,7 @@ from scalable_hw_agnostic_inference_tpu_torch.parallel.loopback import (
 from scalable_hw_agnostic_inference_tpu_torch.parallel.sharding import (
     ShardingRules,
     ShardSpec,
+    gather_shards,
     shard_state_dict,
 )
 from scalable_hw_agnostic_inference_tpu_torch.serve.units.common import (
@@ -161,6 +165,14 @@ def _flax_name(path, bare=()) -> str:
 
 
 def test_flux_rules_match_the_reference():
+    """Flux's table as rank-local placements: every weight is split on the
+    dim the reference's spec splits (transposed for a kernel), a bias
+    splits with a column-parallel output where the reference replicates
+    it (its GSPMD reshards it) and stays whole beside a row-parallel one;
+    at tp 2 and 4 the ranks' pieces of every entry concatenate back,
+    section by section, to the reference's tensor, and a fused weight's
+    piece is the rank's slice of each section (q, k, v and the MLP each
+    cut by the rank's heads or slice)."""
     jcfg = dataclasses.replace(jflux.FluxConfig.tiny(), guidance_embed=True)
     B, Li, Lt = 1, 16, 4
     args = (jnp.zeros((B, Li, jcfg.in_channels)),
@@ -170,9 +182,49 @@ def test_flux_rules_match_the_reference():
     tree = jax.eval_shape(jflux.FluxTransformer(jcfg).init,
                           jax.random.PRNGKey(0), *args)
     pcfg = pflux.FluxConfig(**dataclasses.asdict(jcfg))
+    prules, jrules = pflux.tp_rules(pcfg), jflux.tp_rules()
     names = pflux.FluxTransformer(pcfg, device="meta").state_dict()
-    _check_table(tree, jflux.tp_rules(), pflux.tp_rules(), list(names),
-                 _flax_name)
+    rng = np.random.default_rng(0)
+    drawn = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(
+        np.float32), tree)
+    state = pflux.params_from_jax(drawn)
+    assert set(state) == set(names)
+    weight_dim = {}
+    for path, leaf in _leaves(tree):
+        name = _flax_name(path)
+        ref = _split_dim(jrules.spec_for("/".join(path), ndim=leaf.ndim))
+        if path[-1] == "kernel" and ref is not None:
+            weight_dim[name[: -len(".weight")]] = 1 - ref
+    for path, leaf in _leaves(tree):
+        name = _flax_name(path)
+        spec = prules.spec_for(name, ndim=leaf.ndim)
+        stem, leafname = name.rsplit(".", 1)
+        if path[-1] == "kernel":
+            assert spec.dim == weight_dim.get(stem), (name, spec)
+        elif path[-1] == "bias":
+            # the reference replicates every bias
+            assert _split_dim(jrules.spec_for("/".join(path), 1)) is None
+            want = 0 if weight_dim.get(stem) == 0 else None
+            assert spec.dim == want, (name, spec)
+        else:
+            assert spec.dim is None, (name, spec)
+        for tp in (2, 4):
+            parts = [shard_state_dict({name: state[name]}, prules, tp, r)[
+                name] for r in range(tp)]
+            assert torch.equal(gather_shards(parts, spec), state[name])
+            if spec.sections:
+                sizes = spec.section_sizes(state[name].shape[spec.dim])
+                for r, part in enumerate(parts):
+                    at, mine = 0, []
+                    for k in sizes:
+                        mine.append(state[name].narrow(
+                            spec.dim, at + r * k // tp, k // tp))
+                        at += k
+                    assert torch.equal(part, torch.cat(mine, spec.dim))
+    # the fused weights are the ones cut per section
+    assert prules.spec_for("double_0.img_qkv.weight").sections == (1, 1, 1)
+    assert prules.spec_for("single_1.linear1.bias").sections == (1, 1, 1, 4)
+    assert prules.spec_for("single_1.linear2.weight") == ShardSpec(1, (1, 4))
 
 
 def test_t5_rules_match_the_reference():
@@ -371,13 +423,13 @@ def test_engine_and_units_still_refuse_several_ranks():
     with pytest.raises(ValueError, match="tensor_parallel_size=2 but the "
                        "engine's group has 1 rank.*parallel.distributed"):
         pengine.LLMEngine(cfg, model, ecfg, device="cpu")
-    # a unit on one device refuses tp ranks (ROADMAP A7.3b); a unit that
+    # a unit on one device refuses tp ranks (ROADMAP A7.3c); a unit that
     # serves them (supports_multihost) lays them out, and without the
     # group serve_multihost gives each rank, refuses to run on one
     cfg = types.SimpleNamespace(device="cpu", submesh=None,
                                 mesh_spec="tp=4")
     with pytest.raises(ValueError, match="MESH_SPEC names 4 devices.*"
-                       "A7.3b"):
+                       "A7.3c"):
         unit_device(cfg)
     assert unit_layout(cfg, multihost=True)[1].tp == 4
     with pytest.raises(ValueError, match="serve_multihost"):
